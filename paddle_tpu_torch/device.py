@@ -1,0 +1,20 @@
+"""Device policy of the port: entry points run on CUDA unless the caller
+names another device. There is no silent CPU fallback — a run that
+asked for nothing on a host without a card raises, so a number taken
+on the CPU can never pass for a device number."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means CUDA and raises
+    when no CUDA device is present."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on "
+            "the CPU explicitly")
+    return torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,76 @@
+"""The layer classes the GPT slice uses — counterparts of ``Linear``,
+``LayerNorm``, ``Embedding`` and ``Dropout`` in
+``paddle_tpu/nn/layers_common.py``.
+
+Parameters are made on an explicit ``device`` from an explicit
+``torch.Generator`` (which must live on that device), with the JAX
+package's distributions. ``Linear`` keeps the JAX ``[in, out]`` weight
+layout, so weights copy across by name without a transpose and the tied
+LM head is the same ``h @ wte.T``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import functional as F
+
+
+def _normal(shape, std, device, generator):
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    return nn.Parameter(w.normal_(0.0, std, generator=generator))
+
+
+class Linear(nn.Module):
+    """``y = x @ W + b``; W ``[in, out]`` drawn from N(0, std²), b zero."""
+
+    def __init__(self, in_features: int, out_features: int, *, std: float,
+                 device, generator: torch.Generator):
+        super().__init__()
+        self.weight = _normal((in_features, out_features), std, device,
+                              generator)
+        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis (biased variance); weight one, bias
+    zero."""
+
+    def __init__(self, n: int, eps: float = 1e-5, *, device):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(n, device=device))
+        self.bias = nn.Parameter(torch.zeros(n, device=device))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Embedding(nn.Module):
+    """Lookup table ``[num, dim]`` drawn from N(0, std²)."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, *,
+                 std: float, device, generator: torch.Generator):
+        super().__init__()
+        self.weight = _normal((num_embeddings, embedding_dim), std, device,
+                              generator)
+
+    def forward(self, ids):
+        return self.weight[ids]
+
+
+class Dropout(nn.Module):
+    """Identity in eval mode or at p = 0 (every serving path)."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = float(p)
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        return torch.nn.functional.dropout(x, self.p, training=True)

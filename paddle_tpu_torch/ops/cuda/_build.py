@@ -1,0 +1,90 @@
+"""Build-and-load of the port's hand-written CUDA kernels — the
+counterpart of ``paddle_tpu/ops/pallas/utils.py`` (where the JAX
+package decides how its kernels compile and run).
+
+Each kernel is one source ``paddle_tpu_torch/csrc/<name>.cu`` with a
+plain C interface. It is compiled at its first launch with ``nvcc`` for
+``sm_90a`` into a shared library under ``paddle_tpu_torch/_build/``,
+named by a hash of the source and the flags, and loaded with
+``ctypes``. Nothing is compiled when a module is imported, and a failed
+build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+#: per kernel: {"path", "seconds" (0.0 when the library was cached),
+#: "log" (nvcc's output, ptxas register/shared-memory lines included)}
+builds: Dict[str, dict] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels "
+            "are built from source at first use")
+    return path
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library for the same source
+    and flags exists; returns the library path."""
+    src = CSRC / f"{name}.cu"
+    text = src.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:16]
+    lib = BUILD_DIR / f"{name}-{digest}.so"
+    log = BUILD_DIR / f"{name}-{digest}.log"
+    if lib.exists():
+        builds[name] = {"path": str(lib), "seconds": 0.0,
+                        "log": log.read_text() if log.exists() else ""}
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    out = res.stdout + res.stderr
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed building {src.name} (rc {res.returncode}):\n"
+            f"{' '.join(cmd)}\n{out}")
+    log.write_text(out)
+    os.replace(tmp, lib)
+    builds[name] = {"path": str(lib), "seconds": seconds, "log": out}
+    return lib
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            _libs[name] = lib
+        return lib

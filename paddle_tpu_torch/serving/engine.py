@@ -1,0 +1,516 @@
+"""ServingEngine — continuous-batching greedy inference on the
+block-paged KV cache; the counterpart of the paged greedy core of
+``paddle_tpu/serving/engine.py``.
+
+Iteration-level scheduling: each :meth:`ServingEngine.step` first
+admits queued requests into free rows — acquiring a block table per
+request (prefix-cache reuse first), grouping them by the bucket of
+their unshared prompt suffix and running ONE batched prefill per group
+— then runs ONE batched decode over every occupied row. A request that
+finishes releases its blocks at once, and the next queued request takes
+its row on the following step.
+
+Every prefill and decode dispatch runs each layer's attention through
+:func:`~paddle_tpu_torch.ops.cuda.paged_attention.paged_attention` when
+``attn_impl == "kernel"`` (the default), or the composed oracle for
+``"composed"``. The engine runs on its model's device.
+
+Not ported yet (each one is queued in ROADMAP.md): the dense slotted
+cache, sampling (temperature > 0), SLO admission and priorities,
+speculative verify, decode megasteps and dispatch-ahead, mesh/TP, LoRA,
+the host KV tier, the JSON grammar, fault points and retry, devprof and
+tracing, cancel, the background thread (``start``/``stop``), and the
+router/disagg/HTTP front ends. The engine is driven by the caller
+(``step``/``run_until_idle``) and is not thread-safe.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import flags as _flags
+from ..device import resolve_device
+from ..models.generation import decode_step_paged, prefill_paged
+from ..models.gpt import ATTN_IMPLS
+from .decoding import DecodeParams, StopMatcher
+from .kv_cache import BlockKVCache
+
+
+class QueueFullError(RuntimeError):
+    """Admission control shed this submission (depth backpressure)."""
+
+
+class Request:
+    """One generation request's lifecycle record: queued -> running ->
+    done. ``output_ids`` is prompt + generated tokens (EOS included when
+    hit)."""
+
+    _ids = itertools.count()
+
+    def __init__(self, prompt: Sequence[int], max_new_tokens: int,
+                 eos_token_id: Optional[int], now: float,
+                 decode: Optional[DecodeParams] = None):
+        self.id = next(Request._ids)
+        self.prompt: List[int] = [int(t) for t in prompt]
+        self.max_new_tokens = int(max_new_tokens)
+        self.eos_token_id = eos_token_id
+        self.decode = decode if decode is not None else DecodeParams()
+        self._stop = (StopMatcher(self.decode.stop_sequences)
+                      if self.decode.stop_sequences else None)
+        self.tokens: List[int] = []
+        self.state = "queued"
+        self.slot: Optional[int] = None
+        self.submitted_at = float(now)
+        self.first_token_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
+
+    @property
+    def output_ids(self) -> List[int]:
+        return self.prompt + self.tokens
+
+    @property
+    def context(self) -> List[int]:
+        """The committed context, prompt plus generated-so-far: the
+        admission path prefills over this."""
+        return self.prompt + self.tokens
+
+    @property
+    def done(self) -> bool:
+        return self.state == "done"
+
+    @property
+    def latency(self) -> Optional[float]:
+        """Submit-to-finish seconds (None while in flight)."""
+        if self.finished_at is None:
+            return None
+        return self.finished_at - self.submitted_at
+
+    @property
+    def ttft(self) -> Optional[float]:
+        """Time to first token: submit to first generated token, s."""
+        if self.first_token_at is None:
+            return None
+        return self.first_token_at - self.submitted_at
+
+    @property
+    def tpot(self) -> Optional[float]:
+        """Time per output token after the first (None until finished
+        with >= 2 tokens), s."""
+        if self.finished_at is None or self.first_token_at is None or \
+                len(self.tokens) < 2:
+            return None
+        return (self.finished_at - self.first_token_at) / \
+            (len(self.tokens) - 1)
+
+    def __repr__(self):
+        return (f"Request(id={self.id}, state={self.state!r}, "
+                f"prompt={len(self.prompt)} toks, "
+                f"generated={len(self.tokens)})")
+
+
+def _parse_buckets(text: str, max_len: int) -> List[int]:
+    """Flag string -> sorted bucket lengths, clipped to the capacity,
+    with max_len itself as the terminal bucket."""
+    buckets = sorted({int(tok) for tok in str(text).split(",") if
+                      tok.strip()})
+    buckets = [b for b in buckets if 0 < b <= max_len]
+    if not buckets or buckets[-1] != max_len:
+        buckets.append(max_len)
+    return buckets
+
+
+class ServingEngine:
+    """Front door: ``submit()`` returns a :class:`Request` handle; drive
+    ``step()`` / ``run_until_idle()`` and collect with ``results()``.
+
+    Geometry and admission knobs come from the ``FLAGS_serving_*``
+    flags; constructor arguments override per instance. ``device`` must
+    be the model's device; ``None`` means CUDA and raises without one.
+    """
+
+    def __init__(self, model, max_slots: Optional[int] = None,
+                 max_len: Optional[int] = None,
+                 buckets: Optional[Sequence[int]] = None,
+                 max_queue: Optional[int] = None,
+                 eos_token_id: Optional[int] = None,
+                 block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 prefix_cache: Optional[bool] = None,
+                 kv_dtype: Optional[str] = None,
+                 attn_impl: Optional[str] = None,
+                 device=None):
+        g = _flags.get_flags(["serving_max_slots", "serving_max_len",
+                              "serving_max_queue",
+                              "serving_prefill_buckets",
+                              "serving_max_new_tokens", "serving_paged",
+                              "serving_block_size", "serving_num_blocks",
+                              "serving_prefix_cache", "serving_kv_dtype",
+                              "serving_attn_impl"])
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(f"model lives on {model.device}, engine "
+                             f"asked for {self.device}")
+        if not g["serving_paged"]:
+            raise NotImplementedError(
+                "the dense slotted KV cache (FLAGS_serving_paged=False) "
+                "is not ported yet")
+        self.model = model
+        cfg = model.gpt.cfg
+        self.max_slots = int(max_slots if max_slots is not None
+                             else g["serving_max_slots"])
+        self.max_len = int(max_len if max_len is not None
+                           else g["serving_max_len"])
+        if self.max_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"serving max_len {self.max_len} exceeds the model's "
+                f"max_position_embeddings={cfg.max_position_embeddings}")
+        self.max_queue = int(max_queue if max_queue is not None
+                             else g["serving_max_queue"])
+        self.default_max_new_tokens = int(g["serving_max_new_tokens"])
+        self.default_eos_token_id = eos_token_id
+        self.buckets = _parse_buckets(
+            g["serving_prefill_buckets"] if buckets is None
+            else ",".join(map(str, buckets)), self.max_len)
+        self.kv_dtype = str(kv_dtype if kv_dtype is not None
+                            else g["serving_kv_dtype"])
+        self.attn_impl = str(attn_impl if attn_impl is not None
+                             else g["serving_attn_impl"])
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                             f"{self.attn_impl!r}")
+        self.cache = BlockKVCache(
+            cfg.num_layers, cfg.num_heads, cfg.head_dim,
+            self.max_slots, self.max_len,
+            block_size=int(block_size if block_size is not None
+                           else g["serving_block_size"]),
+            num_blocks=int(num_blocks if num_blocks is not None
+                           else g["serving_num_blocks"]),
+            prefix_cache=bool(prefix_cache if prefix_cache is not None
+                              else g["serving_prefix_cache"]),
+            kv_dtype=self.kv_dtype, device=self.device)
+        self._vocab = int(cfg.vocab_size)
+        self._clock = time.perf_counter
+        self._queue: deque = deque()
+        self._active: Dict[int, Request] = {}
+        self._all: List[Request] = []
+        self._prefix_hit_reqs = 0
+        self._prefix_miss_reqs = 0
+        self._qerr_max = 0.0
+        self.prefill_dispatches = 0
+        self.decode_steps = 0
+
+    # ------------------------------------------------------------ submit
+    def submit(self, prompt: Sequence[int],
+               max_new_tokens: Optional[int] = None,
+               eos_token_id: Optional[int] = None,
+               temperature: Optional[float] = None,
+               top_k: Optional[int] = None,
+               top_p: Optional[float] = None,
+               stop: Optional[Sequence[Sequence[int]]] = None,
+               seed: Optional[int] = None,
+               decode: Optional[DecodeParams] = None) -> Request:
+        """Queue a greedy generation request; returns its handle.
+
+        Raises ValueError for geometry the cache cannot hold or token
+        ids outside the vocabulary, QueueFullError when the queue is
+        full, and NotImplementedError for sampled (temperature > 0) or
+        JSON-constrained requests, which are not ported yet."""
+        mnt = int(max_new_tokens if max_new_tokens is not None
+                  else self.default_max_new_tokens)
+        eos = (eos_token_id if eos_token_id is not None
+               else self.default_eos_token_id)
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("empty prompt")
+        if any(t < 0 or t >= self._vocab for t in prompt):
+            raise ValueError(f"prompt token ids must be in [0, "
+                             f"{self._vocab})")
+        if mnt < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {mnt}")
+        if decode is not None:
+            if any(v is not None for v in (temperature, top_k, top_p,
+                                           stop, seed)):
+                raise ValueError(
+                    "pass either decode= or individual sampling "
+                    "fields, not both")
+            params = decode
+        else:
+            try:
+                stops = tuple(tuple(int(t) for t in s)
+                              for s in (stop or ()))
+            except TypeError:
+                raise ValueError(
+                    "stop must be a list of token-id sequences, e.g. "
+                    "[[5, 6]], not a flat list of ids")
+            params = DecodeParams(
+                temperature=float(temperature) if temperature is not None
+                else 0.0,
+                top_k=int(top_k) if top_k is not None else 0,
+                top_p=float(top_p) if top_p is not None else 0.0,
+                stop_sequences=stops,
+                seed=int(seed) if seed is not None else 0)
+        if not params.is_greedy:
+            raise NotImplementedError(
+                "sampled decoding (temperature > 0) is not ported yet; "
+                "the reference's per-request threefry stream needs a "
+                "threefry port to be reproduced")
+        if params.json_mode:
+            raise NotImplementedError(
+                "JSON-constrained decoding is not ported yet")
+        if len(prompt) + mnt > self.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_new_tokens ({mnt}) "
+                f"exceeds slot capacity max_len={self.max_len}")
+        need = self.cache.blocks_needed(len(prompt) + mnt)
+        if need > self.cache.num_blocks - 1:  # minus trash block
+            raise ValueError(
+                f"request needs {need} KV blocks but the pool only "
+                f"has {self.cache.num_blocks - 1} usable; raise "
+                "FLAGS_serving_num_blocks or shorten the request")
+        if len(self._queue) >= self.max_queue:
+            raise QueueFullError(
+                f"serving queue full ({self.max_queue} waiting); retry "
+                "later or raise FLAGS_serving_max_queue")
+        req = Request(prompt, mnt, eos, now=self._clock(), decode=params)
+        self._queue.append(req)
+        self._all.append(req)
+        return req
+
+    # ----------------------------------------------------------- prefill
+    def _bucket_for(self, length: int) -> int:
+        for b in self.buckets:
+            if length <= b:
+                return b
+        return self.max_len  # unreachable: submit() validated length
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _prefill_group_attempt_paged(self, bucket: int, group):
+        """One batched paged prefill for every same-bucket admission;
+        ``group`` rows are ``(req, row, shared)``. Batch rows past the
+        group are padding: trash tables, position 0. Returns
+        ``(logits [max_slots, V], max_qerr)``."""
+        T = self.cache.blocks_per_row
+        ids = np.zeros((self.max_slots, bucket), np.int32)
+        last = np.zeros(self.max_slots, np.int32)
+        pos = np.zeros(self.max_slots, np.int32)
+        tables = np.full((self.max_slots, T), BlockKVCache.TRASH, np.int32)
+        for i, (req, row, shared) in enumerate(group):
+            suffix = req.context[shared:]
+            ids[i, :len(suffix)] = suffix
+            last[i] = len(suffix) - 1
+            pos[i] = shared
+            tables[i] = self.cache.tables[row]
+        lg, pools, qerr = prefill_paged(
+            self.model, self._to_dev(ids), self._to_dev(last),
+            self._to_dev(pos), self._to_dev(tables), self.cache.arrays(),
+            attn_impl=self.attn_impl)
+        self.prefill_dispatches += 1
+        self.cache.set_arrays(pools)
+        return lg, qerr
+
+    def _admit_round_paged(self):
+        """One paged admission pass: pop up to ``num_free`` queued
+        requests in FIFO order, acquire a block table for each, group by
+        the unshared suffix's bucket, one batched prefill per group. A
+        dry pool requeues the head-of-line request and all behind it.
+        Returns (consumed, admitted)."""
+        candidates = []
+        while len(candidates) < self.cache.num_free and self._queue:
+            candidates.append(self._queue.popleft())
+        if not candidates:
+            return 0, 0
+        acquired = []   # (req, row, shared)
+        back: List[Request] = []
+        for req in candidates:
+            if back:          # head-of-line blocked: keep FIFO order
+                back.append(req)
+                continue
+            res = self.cache.acquire(req.context,
+                                     len(req.prompt) + req.max_new_tokens)
+            if res is None:
+                back.append(req)   # pool dry: wait for retirements
+                continue
+            acquired.append((req, res[0], res[1]))
+        if back:
+            self._queue.extendleft(reversed(back))
+        if not acquired:
+            return len(candidates) - len(back), 0
+        groups: Dict[int, List] = {}
+        for rec in acquired:
+            req, row, shared = rec
+            groups.setdefault(self._bucket_for(len(req.context) - shared),
+                              []).append(rec)
+        admitted = 0
+        for bucket in sorted(groups):
+            group = groups[bucket]
+            lg, qerr = self._prefill_group_attempt_paged(bucket, group)
+            self._note_qerr(qerr)
+            first = torch.argmax(lg, dim=-1).cpu().numpy()
+            for i, (req, row, shared) in enumerate(group):
+                ctx = req.context
+                self.cache.commit_prefill(row, len(ctx))
+                self.cache.insert_prefix(row, ctx)
+                req.slot = row
+                req.state = "running"
+                self._active[row] = req
+                admitted += 1
+                if shared:
+                    self._prefix_hit_reqs += 1
+                else:
+                    self._prefix_miss_reqs += 1
+                self._append_token(req, int(first[i]))
+        return len(candidates) - len(back), admitted
+
+    def _admit(self) -> int:
+        """Fill free rows from the queue; keeps going while progress
+        frees more rows (a request that finishes on its prefill token).
+        Returns how many requests were admitted."""
+        admitted = 0
+        while True:
+            popped, n = self._admit_round_paged()
+            admitted += n
+            if not popped:
+                return admitted
+
+    # ------------------------------------------------------------ decode
+    def _note_qerr(self, qerr):
+        """Ratchet the int8 pools' max abs dequantization error (a device
+        sync, taken for int8 pools only)."""
+        if self.kv_dtype == "int8":
+            self._qerr_max = max(self._qerr_max, float(qerr))
+
+    def _decode(self) -> int:
+        """One batched decode over every occupied row. Returns how many
+        tokens were produced."""
+        if not self._active:
+            return 0
+        tokens = np.zeros(self.max_slots, np.int32)
+        for slot, req in self._active.items():
+            tokens[slot] = req.tokens[-1]
+        nxt, _, pools, qerr = decode_step_paged(
+            self.model, self._to_dev(tokens),
+            self._to_dev(self.cache.lengths),
+            self._to_dev(self.cache.tables), self.cache.arrays(),
+            attn_impl=self.attn_impl)
+        self.decode_steps += 1
+        self.cache.set_arrays(pools)
+        self._note_qerr(qerr)
+        nxt = nxt.cpu().numpy()
+        produced = 0
+        for slot, req in list(self._active.items()):
+            self.cache.advance(slot, 1)
+            self._append_token(req, int(nxt[slot]))
+            produced += 1
+        return produced
+
+    def _append_token(self, req: Request, token: int):
+        req.tokens.append(token)
+        if req.first_token_at is None:
+            req.first_token_at = self._clock()
+        if req._stop is not None:
+            req._stop.feed(token)
+        if (req.eos_token_id is not None and
+                token == req.eos_token_id) or \
+                len(req.tokens) >= req.max_new_tokens or \
+                self._hit_stop(req):
+            self._finish(req)
+
+    def _hit_stop(self, req: Request) -> bool:
+        """Whether a stop sequence is now a suffix of the generated
+        tokens (the request's incremental matcher latched)."""
+        return req._stop is not None and req._stop.hit
+
+    def _finish(self, req: Request):
+        if req.slot is not None:
+            self._active.pop(req.slot, None)
+            self.cache.release_row(req.slot)
+            req.slot = None
+        req.state = "done"
+        req.finished_at = self._clock()
+
+    # --------------------------------------------------------- stepping
+    def step(self) -> bool:
+        """One scheduler iteration: admit into free rows (batched
+        per-bucket prefill), then one batched decode. Returns whether
+        any work happened."""
+        admitted = self._admit()
+        produced = self._decode()
+        return bool(admitted or produced)
+
+    @property
+    def idle(self) -> bool:
+        return not self._queue and not self._active
+
+    def run_until_idle(self, max_steps: int = 10_000) -> int:
+        """Drive the scheduler until queue and rows drain."""
+        steps = 0
+        while not self.idle:
+            self.step()
+            steps += 1
+            if steps >= max_steps:
+                raise RuntimeError(
+                    f"serving engine not idle after {max_steps} steps "
+                    f"({len(self._active)} active, "
+                    f"{len(self._queue)} queued)")
+        return steps
+
+    def results(self, reqs: Optional[Sequence[Request]] = None
+                ) -> List[Request]:
+        """The given requests (default: every request submitted) in
+        submission order; raises if one has not finished, since nothing
+        drives the engine but the caller."""
+        reqs = list(self._all) if reqs is None else list(reqs)
+        pending = [r.id for r in reqs if not r.done]
+        if pending:
+            raise RuntimeError(f"requests {pending} have not finished; "
+                               "drive step() or run_until_idle() first")
+        return reqs
+
+    def stats(self) -> dict:
+        """Per-engine serving metrics: latency percentiles of finished
+        requests (ms), the attention path, the KV dtype and its int8
+        error, prefix-cache reuse and block use, and the dispatch
+        counts."""
+        done = [r for r in self._all if r.done]
+
+        def pct(vals, q):
+            vals = [v for v in vals if v is not None]
+            return (None if not vals
+                    else round(float(np.percentile(vals, q)) * 1e3, 3))
+
+        c = self.cache
+        hit_t, miss_t = c.prefix_hits, c.prefix_misses
+        out = {
+            "ttft_p50_ms": pct([r.ttft for r in done], 50),
+            "ttft_p99_ms": pct([r.ttft for r in done], 99),
+            "tpot_p50_ms": pct([r.tpot for r in done], 50),
+            "tpot_p99_ms": pct([r.tpot for r in done], 99),
+            "completed": len(done),
+            "queue_depth": len(self._queue),
+            "active": len(self._active),
+            "attn_impl": self.attn_impl,
+            "kv_dtype": self.kv_dtype,
+            "block_size": c.block_size,
+            "num_blocks": c.num_blocks,
+            "kv_blocks_used": c.blocks_used,
+            "kv_blocks_free": c.blocks_free,
+            "prefix_cache": c.prefix_cache_enabled,
+            "prefix_entries": c.prefix_entries,
+            "prefix_hit_requests": self._prefix_hit_reqs,
+            "prefix_miss_requests": self._prefix_miss_reqs,
+            "prefix_hit_tokens": hit_t,
+            "prefix_miss_tokens": miss_t,
+            "prefill_dispatches": self.prefill_dispatches,
+            "decode_steps": self.decode_steps,
+        }
+        if self.kv_dtype == "int8":
+            out["kv_quant_max_abs_err"] = round(self._qerr_max, 6)
+        return out

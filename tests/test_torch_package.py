@@ -1,0 +1,88 @@
+"""Package rules of the PyTorch port: it imports neither jax nor the JAX
+package, its entry points refuse to run without a device when none is
+named and no CUDA is present, CPU tensors never launch the kernel, and
+its flags keep the JAX package's names and defaults."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import paddle_tpu.flags as jflags
+import paddle_tpu_torch
+from paddle_tpu_torch import flags as tflags
+from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.ops.cuda import paged_attention as pa
+from paddle_tpu_torch.serving import ServingEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+TINY = GPTConfig(vocab_size=97, max_position_embeddings=64, hidden_size=32,
+                 num_layers=2, num_heads=4, ffn_hidden_size=64)
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = {(str(f.relative_to(ROOT)), root) for f in files
+           for root in _imported_roots(f)
+           if root in ("jax", "jaxlib", "paddle_tpu")}
+    assert not bad, bad
+
+
+def test_entry_points_raise_without_a_device(monkeypatch):
+    cpu_model = GPTForCausalLM(TINY, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        paddle_tpu_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GPTForCausalLM(TINY)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cpu_model)
+    with pytest.raises(ValueError, match="generator"):
+        GPTForCausalLM(TINY, device="meta", generator=torch.Generator())
+
+
+def test_kernel_wrapper_runs_plain_only_on_cpu_and_raises_elsewhere():
+    q = torch.zeros(1, 1, 1, 8)
+    pool = torch.zeros(2, 1, 4, 8)
+    tables = torch.zeros(1, 1, dtype=torch.int32)
+    pos = torch.zeros(1, dtype=torch.int32)
+    before = pa.launches
+    out = pa.paged_attention(q, pool, pool, tables, pos)
+    assert out.shape == q.shape and pa.launches == before
+    meta = [t.to("meta") for t in (q, pool, pool, tables, pos)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pa.paged_attention(*meta)
+    with pytest.raises(ValueError, match="together"):
+        pa.paged_attention(q, pool, pool, tables, pos,
+                           k_scale=torch.zeros(2, 1))
+
+
+def test_flags_keep_jax_names_and_defaults():
+    ported = tflags.list_flags()
+    jax_flags = jflags.list_flags()
+    assert len(ported) == 11
+    for name, meta in ported.items():
+        assert name in jax_flags, name
+        if name == "serving_attn_impl":
+            # documented value change: 'kernel'/'composed' replace
+            # 'pallas'/'xla', and the kernel is the port's default
+            assert meta["default"] == "kernel"
+            assert jax_flags[name]["default"] == "xla"
+            assert "'composed'" in meta["help"] and "'xla'" in meta["help"]
+        else:
+            assert meta["default"] == jax_flags[name]["default"], name
+    with pytest.raises(ValueError, match="did you mean"):
+        tflags.get_flag("serving_max_slot")
