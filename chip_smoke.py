@@ -1,10 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``paddle_tpu_torch``) on one NVIDIA
-GPU: builds the hand-written CUDA paged-attention kernel from this
-checkout, holds it against its plain PyTorch version on the card, serves
-GPT-2 345M (``gpt2-medium``, full width and depth, random weights from a
-seed) through the port's ServingEngine, shows that every attention call
-of that run went through the kernel, and times the kernel.
+GPU: builds the hand-written CUDA kernels from this checkout (paged
+attention; flash attention forward, dQ and dK/dV), holds each against
+its plain PyTorch version on the card, serves GPT-2 345M
+(``gpt2-medium``, full width and depth, random weights from a seed)
+through the port's ServingEngine and trains it (``bench.py``'s step:
+batch 8, seq 1024, AMP O2 bf16, AdamW with bf16 moments), shows that
+every attention call of each run went through its kernels, and times
+the kernels.
+
+Phases: 1 device, 2 build, 3 paged kernel vs plain, 4 serve, 5 time the
+paged kernel, 6 flash kernels vs plain, 7 train, 8 time the flash
+kernels.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -18,6 +25,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -31,6 +39,7 @@ sys.path.insert(0, ROOT)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 # kernel vs plain: f32 and int8 differ only in the order of summation
 # (the JAX tests' bound); bf16 pools are upcast the same way on both
 # sides, so only that order differs there too, over bf16-rounded values
@@ -39,6 +48,17 @@ TOL = {"f32": 2e-5, "int8": 2e-5, "bf16": 1e-4}
 
 def log(msg=""):
     print(msg, flush=True)
+
+
+def counts(pa, fa):
+    """Every kernel's launch count, by kernel name."""
+    return {"paged_attention": pa.launches, **fa.launches}
+
+
+def zero_counts(pa, fa):
+    pa.launches = 0
+    for name in fa.launches:
+        fa.launches[name] = 0
 
 
 def card_line() -> str:
@@ -189,7 +209,7 @@ def top2_gap(torch, model, ids):
     return float(top[0] - top[1])
 
 
-def check_serving(torch, pa, card):
+def check_serving(torch, pa, fa, card):
     """Phase 4: gpt2-medium served through the kernel, the launch count
     checked, the tokens held against the composed oracle, and the bf16
     and int8 pools served too. Returns the main run's numbers."""
@@ -204,9 +224,12 @@ def check_serving(torch, pa, card):
     serve(torch, model, prompts[:2], "f32", "kernel", new_tokens=2)
 
     torch.cuda.reset_peak_memory_stats()
-    pa.launches = 0
+    zero_counts(pa, fa)
     eng, reqs, wall = serve(torch, model, prompts, "f32", "kernel")
-    launches = pa.launches
+    run = counts(pa, fa)
+    launches = run["paged_attention"]
+    if any(run[name] for name in fa.launches):
+        raise AssertionError(f"serving launched flash kernels: {run}")
     st = eng.stats()
     dispatches = st["prefill_dispatches"] + st["decode_steps"]
     peak = torch.cuda.max_memory_allocated()
@@ -318,6 +341,282 @@ def time_kernel(torch, pa, card):
             f"({out[kv]['bound_by']}) [{card}]")
     return pos, out
 
+# ------------------------------------------------------------ phase 6
+def close(out, ref, kind, tol):
+    """(max abs err, ok), element by element: f32 as the JAX tests hold
+    it, |out - ref| <= tol (1 + |ref|). The plain side runs in f32 on
+    the same bf16 values, and the kernel computes in f32 and rounds each
+    bf16 output to nearest once, which adds at most half a unit in the
+    last place, 2^-8 |out|: so bf16 is held to (1 + 2^-8) tol (1 + |ref|)
+    + 2^-8 |ref|, which a truncated output fails."""
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    if kind == "f32":
+        limit = tol * (1 + mag)
+    else:
+        u = 2.0 ** -8
+        limit = (1 + u) * tol * (1 + mag) + u * mag
+    return float(diff.max()), bool((diff <= limit).all())
+
+
+def flash_inputs(torch, bh, s_q, s_k, d, dt, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    return [torch.randn(bh, s, d, device="cuda", generator=g).to(dtype)
+            for s in (s_q, s_k, s_k, s_q)]
+
+
+def check_flash(torch, fa):
+    """Phase 6: each flash kernel against its plain function at b 8 x h 16:
+    causal and not, f32 and bf16, d 20 / 64 / 128, s 1024 / 1040 (a ragged
+    last 64-row tile), and non-causal s_q != s_k. The backward kernels and
+    their plain versions get the same lse and delta."""
+    cases = [(dt, causal, d, s, s) for dt in ("f32", "bf16")
+             for causal in (True, False) for d in (20, 64, 128)
+             for s in (1024, 1040)]
+    cases += [("f32", False, 64, 1024, 2048), ("bf16", False, 64, 1040, 512)]
+    worst = {name: 0.0 for name in fa.launches}
+    saved = dict(fa.launches)
+    for i, (dt, causal, d, s_q, s_k) in enumerate(cases):
+        q, k, v, do = flash_inputs(torch, 128, s_q, s_k, d, dt, seed=100 + i)
+        scale = 1.0 / d ** 0.5
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        f = [t.float() for t in (q, k, v, do)]
+        ro, rlse = fa.flash_fwd_plain(*f[:3], causal, scale)
+        rdq = fa.flash_bwd_dq_plain(*f, lse, delta, causal, scale)
+        rdk, rdv = fa.flash_bwd_dkv_plain(*f, lse, delta, causal, scale)
+        torch.cuda.synchronize()
+        # lse is f32 on both sides whatever the input dtype
+        checks = [("flash_fwd", "o", o, ro, dt, 2e-5),
+                  ("flash_fwd", "lse", lse, rlse, "f32", 2e-5),
+                  ("flash_bwd_dq", "dq", dq, rdq, dt, 2e-4),
+                  ("flash_bwd_dkv", "dk", dk, rdk, dt, 2e-4),
+                  ("flash_bwd_dkv", "dv", dv, rdv, dt, 2e-4)]
+        errs = []
+        for kernel, what, out, ref, kind, tol in checks:
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"flash case {i}: non-finite {what}")
+            err, ok = close(out, ref, kind, tol)
+            if not ok:
+                raise AssertionError(
+                    f"flash case {i} ({dt} causal={causal} d={d} s_q={s_q} "
+                    f"s_k={s_k}): {what} off by {err}")
+            worst[kernel] = max(worst[kernel], err)
+            errs.append(f"{what} {err:.1e}")
+        log(f"  case {dt:4s} causal={causal!s:5s} d={d:3d} s_q={s_q} "
+            f"s_k={s_k}: " + ", ".join(errs))
+    fa.launches.update(saved)
+    return len(cases), worst
+
+
+# ------------------------------------------------------------ phase 7
+def model_flops_per_token(cfg, seq: int) -> float:
+    """Forward matmul FLOPs per token x3 (backward = 2x forward): the
+    port's copy of ``bench.py:59-65``."""
+    h, f, L, V = (cfg.hidden_size, cfg.ffn_hidden_size, cfg.num_layers,
+                  cfg.vocab_size)
+    per_layer = 8 * h * h + 4 * h * f + 4 * seq * h  # qkv+out, ffn, attn
+    fwd = L * per_layer + 2 * h * V                  # + tied LM head
+    return 3.0 * fwd
+
+
+def train_step(torch, batch=8, seq=1024):
+    """``bench.py``'s train step on gpt2-medium (random weights from seed
+    0) and one numpy-seeded batch: forward with labels under AMP O2 bf16,
+    clear, backward, AdamW (lr 1e-4, bf16 moments). Returns ``(cfg,
+    model, loss_of, step)``: ``loss_of()`` is the forward alone;
+    ``step(part)`` runs one step with its forward, backward and
+    optimizer each inside ``part(name)`` and returns the loss.
+    ``tools/torch_train_profile.py`` traces this same step."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    ids_np = rng.randint(0, cfg.vocab_size, (batch, seq))
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).cuda()
+
+    def loss_of():
+        with auto_cast(level="O2"):
+            return model(ids, labels=labels)
+
+    def step(part=lambda name: contextlib.nullcontext()):
+        with part("forward"):
+            loss = loss_of()
+        opt.clear_grad()
+        with part("backward"):
+            loss.backward()
+        with part("optimizer"):
+            opt.step()
+        return loss.detach()
+
+    return cfg, model, loss_of, step
+
+
+def train(torch, pa, fa, card, batch=8, seq=1024, warmup=2, steps=5):
+    """Phase 7: the train step of :func:`train_step`. First one
+    forward+backward with the flash route against the composed route
+    from the same weights; then warm-up steps, the timed steps with
+    every launch count zeroed before and read after, and one step timed
+    by part."""
+    from paddle_tpu_torch import flags
+    cfg, model, loss_of, step = train_step(torch, batch, seq)
+
+    ref = {}
+    for use in (True, False):
+        flags.set_flags({"use_pallas_attention": use})
+        model.zero_grad(set_to_none=True)
+        loss = loss_of()
+        loss.backward()
+        ref[use] = (float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.named_parameters()})
+    flags.set_flags({"use_pallas_attention": True})
+    (lf, gf), (lc, gc) = ref[True], ref[False]
+    rel_loss = abs(lf - lc) / abs(lc)
+    rel_grad = {}
+    for n in gc:
+        den = float(gc[n].norm())
+        rel_grad[n] = (float((gf[n] - gc[n]).norm()) / den if den
+                       else float(gf[n].norm()))
+    worst_name = max(rel_grad, key=rel_grad.get)
+    log(f"  flash vs composed (O2, one forward+backward): loss {lf} vs {lc} "
+        f"(rel {rel_loss:.2e}); worst grad rel Frobenius "
+        f"{rel_grad[worst_name]:.2e} ({worst_name})")
+    if rel_loss > 1e-2:
+        raise AssertionError(f"flash loss {lf} vs composed {lc}")
+    bad = {n: e for n, e in rel_grad.items() if e > 5e-2}
+    if bad:
+        raise AssertionError(f"gradients off by > 5e-2 relative: {bad}")
+    del ref, gf, gc
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(pa, fa)
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    run = counts(pa, fa)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    log(f"  launches in {steps} timed steps: {run}")
+    want = cfg.num_layers * steps
+    if any(run[name] != want for name in fa.launches) or \
+            run["paged_attention"]:
+        raise AssertionError(f"launch counts {run}: expected {want} of each "
+                             "flash kernel and no paged attention")
+    log(f"  losses {losses}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"timed losses not finite and falling: {losses}")
+
+    parts = {}
+
+    @contextlib.contextmanager
+    def timed_part(name):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        parts[f"{name}_ms"] = (time.perf_counter() - t) * 1e3
+
+    step(timed_part)
+    fa.launches.update(run)
+    tokens_per_s = batch * seq / dt
+    mfu = model_flops_per_token(cfg, seq) * tokens_per_s / BF16_FLOPS
+    out = {"step_ms": dt * 1e3, "tokens_per_s": tokens_per_s, "mfu": mfu,
+           "peak_bytes": peak, "losses": losses, "launches": run,
+           "loss_flash": lf, "loss_composed": lc, "rel_loss": rel_loss,
+           "worst_grad_rel": rel_grad[worst_name],
+           "worst_grad_param": worst_name, **parts}
+    log(f"  [{card}] step {out['step_ms']:.3f} ms, {tokens_per_s:.1f} "
+        f"tokens/s, MFU {mfu * 100:.3f}% of {BF16_FLOPS:.0f} FLOP/s, "
+        f"max_memory_allocated {peak} B; one step by part: forward "
+        f"{parts['forward_ms']:.3f} ms, backward {parts['backward_ms']:.3f} "
+        f"ms, optimizer {parts['optimizer_ms']:.3f} ms")
+    return out
+
+
+# ------------------------------------------------------------ phase 8
+def flash_work(kernel, bh, s, d, elem):
+    """(bytes, FLOPs) one causal call must move and do at [bh, s, d]:
+    each input read once and each output written once; the products of
+    the (q, k) pairs with k <= q only (what the causal mask leaves)."""
+    pairs = s * (s + 1) // 2
+    slab = bh * s * d * elem
+    stat = bh * s * 4
+    if kernel == "flash_fwd":       # q, k, v -> o, lse; QK^T and PV
+        return 4 * slab + stat, 4 * pairs * d * bh
+    if kernel == "flash_bwd_dq":    # q, k, v, dO, lse, delta -> dq
+        return 5 * slab + 2 * stat, 6 * pairs * d * bh
+    return 6 * slab + 2 * stat, 8 * pairs * d * bh   # -> dk, dv
+
+
+def time_flash(torch, fa, card, b=8, h=16, s=1024, d=64):
+    """Phase 8: the flash kernels, their plain versions and PyTorch's
+    scaled_dot_product_attention (forward; backward = dq, dk and dv in
+    one call) at the training shape, bf16, causal."""
+    import torch.nn.functional as F
+    bh, scale = b * h, 1.0 / d ** 0.5
+    q, k, v, do = flash_inputs(torch, bh, s, s, d, "bf16", seed=7)
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    qd, kd, vd = (t.reshape(b, h, s, d) for t in (q, k, v))
+    q4, k4, v4 = (t.detach().requires_grad_() for t in (qd, kd, vd))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                        scale=scale)
+    do4 = do.reshape(b, h, s, d)
+    saved = dict(fa.launches)
+    calls = {
+        "flash_fwd": (lambda i: fa.flash_fwd(q, k, v, True, scale),
+                      lambda i: fa.flash_fwd_plain(q, k, v, True, scale),
+                      lambda i: F.scaled_dot_product_attention(
+                          qd, kd, vd, is_causal=True, scale=scale)),
+        "flash_bwd_dq": (
+            lambda i: fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale),
+            lambda i: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, True,
+                                            scale), None),
+        "flash_bwd_dkv": (
+            lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale),
+            lambda i: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True,
+                                             scale), None),
+    }
+    sdpa_bwd = time_fn(torch, lambda i: torch.autograd.grad(
+        o4, (q4, k4, v4), do4, retain_graph=True), 20, 1)
+    out = {}
+    for name, (kern, plain, lib) in calls.items():
+        ms = time_fn(torch, kern, 20, 1)
+        plain_ms = time_fn(torch, plain, 5, 1)
+        lib_ms = time_fn(torch, lib, 20, 1) if lib else sdpa_bwd
+        nbytes, flops = flash_work(name, bh, s, d, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "library_call": ("scaled_dot_product_attention" if lib
+                                      else "scaled_dot_product_attention "
+                                      "backward (dq, dk and dv together)"),
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "flops": flops,
+                     "tflops_per_s": flops / ms / 1e9}
+        log(f"  {name}: kernel {ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+            f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, {nbytes} B / "
+            f"{flops} FLOP -> bound {max(t_bytes, t_ops):.4f} ms "
+            f"({out[name]['bound_by']}) [{card}]")
+    fa.launches.update(saved)
+    return out
+
 
 def main():
     import torch
@@ -325,6 +624,7 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke run needs a CUDA card")
     from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     t_start = time.perf_counter()
@@ -334,13 +634,16 @@ def main():
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"  nvidia-smi: {card}")
 
-    log("== phase 2: build")
-    _build.load("paged_attention")
-    info = _build.builds["paged_attention"]
-    log(f"  {info['path']} built in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"  ptxas: {line.strip()}")
+    log("== phase 2: build (one nvcc per source, started together)")
+    t_build = time.perf_counter()
+    _build.load_all(["paged_attention", "flash_attention"])
+    log(f"  both built in {time.perf_counter() - t_build:.2f} s")
+    for name in ("paged_attention", "flash_attention"):
+        info = _build.builds[name]
+        log(f"  {info['path']} built in {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas: {line.strip()}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -350,7 +653,7 @@ def main():
     log(f"  {n_cases} cases passed, max abs err {worst:.3e}")
 
     log("== phase 4: serve gpt2-medium")
-    srv = check_serving(torch, pa, card)
+    srv = check_serving(torch, pa, fa, card)
     log(f"  engine [{card}]: {srv['tokens_per_s']:.1f} tokens/s "
         f"({srv['tokens']} tokens in {srv['wall_s']:.3f} s), TTFT p50 "
         f"{srv['ttft_p50_ms']} ms, TPOT p50 {srv['tpot_p50_ms']} ms, "
@@ -360,6 +663,21 @@ def main():
     log("== phase 5: time")
     pos, times = time_kernel(torch, pa, card)
     log(f"  decode pos {pos}")
+    torch.cuda.empty_cache()
+
+    log("== phase 6: flash kernels vs plain")
+    n_flash, flash_err = check_flash(torch, fa)
+    log(f"  {n_flash} cases passed, max abs err by kernel {flash_err}")
+    torch.cuda.empty_cache()
+
+    log("== phase 7: train gpt2-medium (batch 8, seq 1024, O2 bf16, AdamW "
+        "bf16 moments)")
+    trn = train(torch, pa, fa, card)
+    torch.cuda.empty_cache()
+
+    log("== phase 8: time the flash kernels (b 8, h 16, s 1024, d 64, bf16, "
+        "causal)")
+    ftimes = time_flash(torch, fa, card)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     main_t = times["f32"]
@@ -380,6 +698,27 @@ def main():
         "library_ms": None,
         "by_kv_dtype": times,
     }]
+    for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
+                       ("flash_bwd_dkv", 141)):
+        t = ftimes[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "cases_passed": n_flash,
+            "launches": trn["launches"][name],
+            "max_abs_err": flash_err[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call": t["library_call"],
+            "tflops_per_s": t["tflops_per_s"],
+        })
+    print(json.dumps({"train": {k: v for k, v in trn.items()
+                                if k != "launches"}}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -155,3 +155,22 @@ define_flag("serving_attn_impl", "kernel",
             "package's values 'pallas' (the kernel) and 'xla' (the "
             "oracle); the JAX default is the oracle, the port's is the "
             "kernel.")
+
+# Attention kernel selection (the training path's causal attention).
+define_flag("use_pallas_attention", True,
+            "Route fused_attention_qkv to the flash-attention kernel when "
+            "the shapes allow it. In the port that kernel is the "
+            "hand-written CUDA flash attention (ops/cuda/"
+            "flash_attention.py); on CPU tensors its plain PyTorch version "
+            "runs instead. The name is the JAX package's.")
+define_flag("pallas_min_seq", 1024,
+            "Minimum sequence length before attention switches from the "
+            "composed form to the CUDA flash kernel.")
+define_flag("pallas_flash_block_q", 512,
+            "Flash-attention q-block size: the sequence must have a "
+            "power-of-two divisor in [16, this] for the flash route. In "
+            "the port it only decides whether the route is taken; the "
+            "CUDA kernel tiles 64 rows at a time whatever its value.")
+define_flag("pallas_flash_block_k", 512,
+            "Flash-attention k-block size; the same rule as "
+            "pallas_flash_block_q, for the key sequence.")

@@ -1,4 +1,4 @@
-"""Carrying GPT weights across from the JAX package.
+"""Carrying GPT weights and AdamW state across from the JAX package.
 
 The port keeps the JAX model's module tree and its ``[in, out]`` Linear
 layout, so a structured name from ``paddle_tpu``'s
@@ -22,3 +22,29 @@ def gpt_state_from_numpy(arrays: Dict[str, np.ndarray],
     missing or unexpected names and mismatched shapes)."""
     return {name: torch.from_numpy(np.array(a, dtype=np.float32))
             .to(device) for name, a in arrays.items()}
+
+
+def adamw_state_from_numpy(state: Dict[str, object], names: Dict[str, str],
+                           device) -> Dict[str, object]:
+    """The JAX optimizer's ``state_dict()`` (``"<param name>:<key>"`` ->
+    array for m1, m2, b1p, b2p, plus ``"_lr"``; arrays as numpy, bf16
+    moments as numpy ``bfloat16``) -> a ``state_dict`` for
+    :class:`~paddle_tpu_torch.optimizer.AdamW` on ``device``.
+
+    ``names`` maps each JAX parameter's own name (``p.name``, e.g.
+    ``linear_0.w_0``) to its structured name (``gpt.blocks.0.attn.
+    qkv_proj.weight``), which is how the port's optimizer keys its state.
+    Moment dtypes are kept: bf16 values travel through float32, which
+    holds them exactly."""
+    out: Dict[str, object] = {}
+    for key, value in state.items():
+        if key == "_lr":
+            out[key] = float(value)
+            continue
+        pname, _, slot = key.rpartition(":")
+        a = np.asarray(value)
+        t = torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        if str(a.dtype) == "bfloat16":
+            t = t.to(torch.bfloat16)
+        out[f"{names[pname]}:{slot}"] = t
+    return out

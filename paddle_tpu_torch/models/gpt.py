@@ -4,10 +4,14 @@
 Same structure and parameter names as the JAX model (``gpt.wte``,
 ``gpt.blocks.<i>.attn.qkv_proj``, ...), pre-LN blocks, a fused qkv
 projection and an LM head tied to the token embedding. Two attention
-paths are ported: the no-cache causal forward, and the block-paged KV
-cache branch the serving engine drives for prefill and decode. The
-slotted fixed-capacity cache branch and the training loss wait for
-later slices.
+paths are ported: the no-cache causal forward, which goes through
+``fused_attention_qkv`` (the CUDA flash kernels at ``seq >=
+pallas_min_seq``) and with ``labels`` returns the training loss, and
+the block-paged KV cache branch the serving engine drives for prefill
+and decode. The ops cast under AMP as the reference's do, so under
+``auto_cast(level="O2")`` the residual stream runs in bf16 and
+LayerNorm and the loss in f32. The slotted fixed-capacity cache branch
+and recompute wait for later slices.
 """
 
 from __future__ import annotations
@@ -22,10 +26,11 @@ from .. import flags as _flags
 from ..device import resolve_device
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, Linear
+from ..amp.auto_cast import maybe_autocast_inputs
 from ..ops.attention_ops import (_composed_attention, block_gather,
                                  block_gather_dequant, block_scatter_write,
                                  block_scatter_write_quant,
-                                 decode_attention_mask)
+                                 decode_attention_mask, fused_attention_qkv)
 from ..ops.cuda.paged_attention import paged_attention
 
 ATTN_IMPLS = ("kernel", "composed")
@@ -107,8 +112,7 @@ class GPTAttention(nn.Module):
                 "the slotted fixed-capacity KV cache is not ported yet; "
                 "pass block_tables for the paged cache")
         else:
-            out = _composed_attention(q, k, v, None, causal=True,
-                                      scale=scale)
+            out = fused_attention_qkv(q, k, v, causal=True, scale=scale)
         out = out.transpose(1, 2).reshape(b, s, cfg.hidden_size)
         out = self.dropout(self.out_proj(out))
         return out if cache is None else (out, cache)
@@ -177,14 +181,14 @@ class GPTBlock(nn.Module):
     def forward(self, x, cache=None, cache_pos=None, block_tables=None,
                 attn_impl=None):
         if cache is None:
-            x = x + self.attn(self.ln1(x))
+            x = F.add(x, self.attn(self.ln1(x)))
         else:
             a, cache = self.attn(self.ln1(x), cache, cache_pos=cache_pos,
                                  block_tables=block_tables,
                                  attn_impl=attn_impl)
-            x = x + a
+            x = F.add(x, a)
         g = F.gelu(self.fc1(self.ln2(x)))
-        x = x + self.dropout(self.fc2(g))
+        x = F.add(x, self.dropout(self.fc2(g)))
         return x if cache is None else (x, cache)
 
 
@@ -228,7 +232,7 @@ class GPTModel(nn.Module):
                     "GPTConfig or truncate the input")
             pos = torch.arange(position_offset, position_offset + s,
                                device=dev)[None]
-        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        x = self.drop(F.add(self.wte(input_ids), self.wpe(pos)))
         new_caches = []
         for i, blk in enumerate(self.blocks):
             if cache is None:
@@ -286,8 +290,12 @@ class GPTForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.gpt.wte.weight.device
 
-    def forward(self, input_ids, cache=None, position_offset=0,
+    def forward(self, input_ids, labels=None, cache=None, position_offset=0,
                 cache_pos=None, block_tables=None, attn_impl=None):
+        """Logits ``[b, s, vocab]`` (with the updated cache when one is
+        given), or with ``labels`` (``[b, s]`` ids aligned with the
+        logits, not shifted; -100 ignored) the mean cross-entropy loss,
+        as ``paddle_tpu/models/gpt.py:459-463``."""
         if cache is None:
             h = self.gpt(input_ids, position_offset=position_offset)
         else:
@@ -295,7 +303,12 @@ class GPTForCausalLM(nn.Module):
                                 cache_pos=cache_pos,
                                 block_tables=block_tables,
                                 attn_impl=attn_impl)
-        logits = h @ self.gpt.wte.weight.T               # tied LM head
+        h, w = maybe_autocast_inputs("matmul_v2", h, self.gpt.wte.weight)
+        logits = h @ w.T                                 # tied LM head
         if self.cfg.padded_vocab_size != self.cfg.vocab_size:
             logits = logits[:, :, :self.cfg.vocab_size]
+        if labels is not None:
+            return F.cross_entropy(
+                logits.reshape(-1, self.cfg.vocab_size),
+                labels.reshape(-1, 1), ignore_index=-100)
         return logits if cache is None else (logits, cache)

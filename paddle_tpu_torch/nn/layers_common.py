@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..amp.auto_cast import maybe_autocast_inputs
 from . import functional as F
 
 
@@ -51,7 +52,11 @@ class LayerNorm(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Lookup table ``[num, dim]`` drawn from N(0, std²)."""
+    """Lookup table ``[num, dim]`` drawn from N(0, std²). Under AMP O2
+    the table is cast before the lookup, as the reference's
+    ``lookup_table_v2`` is, so rows come out in bf16 and the gradient of
+    repeated ids accumulates in bf16 before it returns to the f32
+    table."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int, *,
                  std: float, device, generator: torch.Generator):
@@ -60,7 +65,8 @@ class Embedding(nn.Module):
                               generator)
 
     def forward(self, ids):
-        return self.weight[ids]
+        (weight,) = maybe_autocast_inputs("lookup_table_v2", self.weight)
+        return weight[ids]
 
 
 class Dropout(nn.Module):

@@ -1,5 +1,5 @@
-"""Paged-KV attention primitives — the counterpart of the serving part of
-``paddle_tpu/ops/attention_ops.py``.
+"""Attention ops — the counterpart of ``paddle_tpu/ops/attention_ops.py``:
+the ``fused_attention_qkv`` op and the paged-KV serving primitives.
 
 Layouts follow the JAX package: queries ``[b, h, s, d]``, KV pools
 ``[num_blocks, h, block_size, d]``, block tables ``[b, T]`` int32 and
@@ -21,6 +21,9 @@ import math
 
 import torch
 
+from .. import flags
+from ..amp.auto_cast import maybe_autocast_inputs
+from .cuda.flash_attention import flash_attention, pick_block
 from .quant_ops import dequantize_int8, quantize_int8
 
 
@@ -192,3 +195,36 @@ def _composed_attention(q, k, v, mask, causal, scale):
         logits = logits + mask.to(logits.dtype)
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def flash_route(q, k, mask) -> bool:
+    """Whether ``fused_attention_qkv`` takes the flash kernel: the JAX
+    op's predicate (``paddle_tpu/ops/attention_ops.py:286``) plus the
+    tileability check that the JAX op learns from a caught ValueError."""
+    s_q, s_k = q.shape[-2], k.shape[-2]
+    return (bool(flags.get_flag("use_pallas_attention"))
+            and s_q >= flags.get_flag("pallas_min_seq")
+            and s_q == s_k
+            and mask is None
+            and pick_block(s_q, flags.get_flag("pallas_flash_block_q"), 16) > 0
+            and pick_block(s_k, flags.get_flag("pallas_flash_block_k"), 16) > 0)
+
+
+def fused_attention_qkv(q, k, v, mask=None, causal=False, scale=None):
+    """Attention over ``[batch, heads, seq, head_dim]`` q/k/v with an
+    optional additive ``mask`` broadcastable to ``[b, h, s_q, s_k]``:
+    the counterpart of the registered op (``attention_ops.py:256``).
+
+    Shapes :func:`flash_route` admits go through the CUDA flash kernels
+    (their plain versions on CPU tensors) and raise if those refuse them;
+    nothing is caught. Every other call takes the composed form. The
+    ``seq_axis`` ring route is not ported."""
+    q, k, v, mask = maybe_autocast_inputs("fused_attention_qkv", q, k, v,
+                                          mask)
+    scale = scale or (1.0 / math.sqrt(q.shape[-1]))
+    if flash_route(q, k, mask):
+        return flash_attention(
+            q, k, v, causal=causal, scale=scale,
+            block_q=flags.get_flag("pallas_flash_block_q"),
+            block_k=flags.get_flag("pallas_flash_block_k"))
+    return _composed_attention(q, k, v, mask, causal, scale)

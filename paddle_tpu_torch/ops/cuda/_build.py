@@ -49,42 +49,56 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library for the same source
-    and flags exists; returns the library path."""
-    src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()) \
-        .hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
-    log = BUILD_DIR / f"{name}-{digest}.log"
-    if lib.exists():
-        builds[name] = {"path": str(lib), "seconds": 0.0,
-                        "log": log.read_text() if log.exists() else ""}
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    out = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed building {src.name} (rc {res.returncode}):\n"
-            f"{' '.join(cmd)}\n{out}")
-    log.write_text(out)
-    os.replace(tmp, lib)
-    builds[name] = {"path": str(lib), "seconds": seconds, "log": out}
-    return lib
+def build_all(names) -> Dict[str, Path]:
+    """Compile ``csrc/<name>.cu`` for each name unless a library for the
+    same source and flags exists; the ``nvcc`` runs are started together
+    and waited for together. Returns each library's path."""
+    pending = {}
+    paths = {}
+    for name in names:
+        src = CSRC / f"{name}.cu"
+        digest = hashlib.sha256(src.read_bytes() +
+                                " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        lib = BUILD_DIR / f"{name}-{digest}.so"
+        log = BUILD_DIR / f"{name}-{digest}.log"
+        paths[name] = lib
+        if lib.exists():
+            builds[name] = {"path": str(lib), "seconds": 0.0,
+                            "log": log.read_text() if log.exists() else ""}
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, cmd, tmp, lib, log, time.perf_counter())
+    failed = []
+    for name, (proc, cmd, tmp, lib, log, t0) in pending.items():
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed building {name}.cu (rc "
+                          f"{proc.returncode}):\n{' '.join(cmd)}\n{out}")
+            continue
+        log.write_text(out)
+        os.replace(tmp, lib)
+        builds[name] = {"path": str(lib), "seconds": seconds, "log": out}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def load_all(names) -> Dict[str, ctypes.CDLL]:
+    """The loaded libraries of the kernels ``names``; those not built yet
+    are compiled concurrently."""
+    with _lock:
+        missing = [n for n in names if n not in _libs]
+        for name, path in build_all(missing).items():
+            _libs[name] = ctypes.CDLL(str(path))
+        return {n: _libs[n] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built on first use."""
-    with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _libs[name] = lib
-        return lib
+    return load_all([name])[name]

@@ -1,6 +1,6 @@
 """Package rules of the PyTorch port: it imports neither jax nor the JAX
 package, its entry points refuse to run without a device when none is
-named and no CUDA is present, CPU tensors never launch the kernel, and
+named and no CUDA is present, CPU tensors never launch a kernel, and
 its flags keep the JAX package's names and defaults."""
 
 import ast
@@ -13,6 +13,7 @@ import paddle_tpu.flags as jflags
 import paddle_tpu_torch
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
 from paddle_tpu_torch.serving import ServingEngine
 
@@ -33,8 +34,12 @@ def _imported_roots(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_train_profile.py"]
+    scanned = {str(f.relative_to(ROOT)) for f in files}
+    for module in ("amp/auto_cast.py", "amp/lists.py", "optimizer.py",
+                   "ops/optimizer_ops.py", "ops/cuda/flash_attention.py",
+                   "ops/attention_ops.py", "nn/functional.py"):
+        assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
            if root in ("jax", "jaxlib", "paddle_tpu")}
@@ -70,10 +75,34 @@ def test_kernel_wrapper_runs_plain_only_on_cpu_and_raises_elsewhere():
                            k_scale=torch.zeros(2, 1))
 
 
+def test_flash_wrappers_run_plain_only_on_cpu_and_raise_elsewhere():
+    q = torch.randn(2, 32, 8)
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, q, q, True, 0.5)
+    delta = (o * o).sum(-1)
+    dq = fa.flash_bwd_dq(q, q, q, o, lse, delta, True, 0.5)
+    dk, dv = fa.flash_bwd_dkv(q, q, q, o, lse, delta, True, 0.5)
+    assert o.shape == dq.shape == dk.shape == dv.shape == q.shape
+    assert tuple(lse.shape) == (2, 32)
+    assert fa.launches == before
+    meta = q.to("meta")
+    mstats = lse.to("meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_fwd(meta, meta, meta, True, 0.5)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_bwd_dq(meta, meta, meta, meta, mstats, mstats, True, 0.5)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_bwd_dkv(meta, meta, meta, meta, mstats, mstats, True, 0.5)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fa.flash_attention(meta[None], meta[None], meta[None], causal=True)
+
+
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 11
+    assert len(ported) == 15
+    assert {"use_pallas_attention", "pallas_min_seq", "pallas_flash_block_q",
+            "pallas_flash_block_k"} <= set(ported)
     for name, meta in ported.items():
         assert name in jax_flags, name
         if name == "serving_attn_impl":
