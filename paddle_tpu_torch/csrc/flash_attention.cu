@@ -22,130 +22,22 @@
 // products of each tile to mma/wgmma is the next step.
 //
 // Design (simple and correct first): one block of 256 threads per (bh,
-// 64-row tile), the threads a 16 x 16 grid; thread (ty, tx) owns a 4 x 4
-// patch of each 64 x 64 score tile (rows ty*4.., cols tx*4..) and, of each
-// [64, d] output tile, rows ty*4.. and columns tx + 16 j, so any d <= 128
-// works without the reference's lane padding (pad_lane_dim). Tiles are
-// staged in shared memory as f32: operands of a score product transposed
-// ([d][64], row stride 68 so float4 reads stay aligned and bank conflicts
-// stay low), operands of an output product in natural [64][d] layout. The
-// per-row softmax state (m, l) lives in registers, replicated over the 16
-// threads of a row group and reduced with shuffles inside a half warp.
+// 64-row tile), on the tiles of flash_tiles.cuh: each thread owns a 4 x 4
+// patch of every 64 x 64 score tile and columns tx + 16 j of every output
+// row it holds, so any d <= 128 works without the reference's lane padding
+// (pad_lane_dim). The per-row softmax state (m, l) lives in registers,
+// replicated over the 16 threads of a row group.
 // Rows and keys past the sequence end (a ragged last tile: the caller admits
 // any multiple of 16) are loaded as zeros and masked: keys to -inf in the
 // forward and dQ, q rows to lse = +inf (P = 0) in dK/dV. The backward needs
 // no atomics: dQ is gridded over q tiles, dK/dV over k tiles. The blocks with
 // the most causal work are launched first.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kB = 64;          // rows of a q tile and of a k tile
-constexpr int kThreads = 256;   // 16 x 16 threads
-constexpr int kLd = kB + 4;     // row stride of a transposed [d][64] tile
 constexpr int kMaxD = 128;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Rows [row0, row0 + 64) of a [S, D] slab times `mul`, as a transposed tile
-// t[c * kLd + r]; rows >= S are zero.
-template <typename T>
-__device__ __forceinline__ void load_t(float* t, const T* src, int row0,
-                                       int S, int D, float mul) {
-  for (int i = static_cast<int>(threadIdx.x); i < kB * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i - r * D;
-    const int row = row0 + r;
-    t[c * kLd + r] = row < S ? to_f32(src[size_t(row) * D + c]) * mul : 0.0f;
-  }
-}
-
-// The same rows in natural layout n[r * D + c].
-template <typename T>
-__device__ __forceinline__ void load_n(float* n, const T* src, int row0,
-                                       int S, int D, float mul) {
-  for (int i = static_cast<int>(threadIdx.x); i < kB * D; i += kThreads) {
-    const int row = row0 + i / D;
-    n[i] = row < S ? to_f32(src[size_t(row0) * D + i]) * mul : 0.0f;
-  }
-}
-
-// acc[i][j] += sum_c at[c][ty*4 + i] * bt[c][tx*4 + j]
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* at,
-                                         const float* bt, int D, int ty,
-                                         int tx) {
-#pragma unroll 4
-  for (int c = 0; c < D; ++c) {
-    const float4 a = *reinterpret_cast<const float4*>(at + c * kLd + ty * 4);
-    const float4 b = *reinterpret_cast<const float4*>(bt + c * kLd + tx * 4);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_r pt[r][ty*4 + i] * n[r][tx + 16 j] over the 64 rows r of
-// a transposed probability tile and a natural [64, D] operand tile.
-template <int NJ>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][NJ], const float* pt,
-                                         const float* n, int D, int ty,
-                                         int tx) {
-#pragma unroll 2
-  for (int r = 0; r < kB; ++r) {
-    const float4 p = *reinterpret_cast<const float4*>(pt + r * kLd + ty * 4);
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tx + 16 * j;
-      const float v = c < D ? n[r * D + c] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], v, acc[i][j]);
-    }
-  }
-}
-
-// Store s[i][j] of thread (ty, tx) transposed: pt[(tx*4 + j) * kLd + ty*4 + i].
-__device__ __forceinline__ void store_t(float* pt, const float (&s)[4][4],
-                                        int ty, int tx) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(pt + (tx * 4 + j) * kLd + ty * 4) =
-        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-}
-
-// Reductions over the 16 threads of a row group (one half warp).
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// k tiles a q tile starting at q0 reads: up to its last row when causal.
-__device__ __forceinline__ int k_tiles(int q0, int Sk, bool causal) {
-  const int n = (Sk + kB - 1) / kB;
-  return causal ? min(n, (q0 + kB - 1) / kB + 1) : n;
-}
 
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
@@ -168,7 +60,7 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + size_t(bh) * Sk * D;
   const T* vb = v + size_t(bh) * Sk * D;
 
-  load_t(qt, qb, q0, Sq, D, scale);
+  load_t(qt, qb, q0, Sq, D, D, scale);
   float m[4], l[4], acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -181,35 +73,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < nk; ++t) {
     const int k0 = t * kB;
     __syncthreads();   // the previous tile's kt, vn, pt are no longer read
-    load_t(kt, kb, k0, Sk, D, 1.0f);
+    load_t(kt, kb, k0, Sk, D, D, 1.0f);
     load_n(vn, vb, k0, Sk, D, 1.0f);
     __syncthreads();
     float s[4][4] = {};
     tile_dot(s, qt, kt, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx * 4 + j;
-        if (col >= Sk || (causal && col > row)) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // every row sees key 0 in tile 0, so m_new is finite from there on
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      l[i] = l[i] * alpha + group_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-    }
+    online_softmax<NJ>(s, m, l, acc, q0, k0, Sk, causal, ty, tx);
     store_t(pt, s, ty, tx);
     __syncthreads();
     tile_acc<NJ>(acc, pt, vn, D, ty, tx);
@@ -252,8 +121,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + size_t(bh) * Sk * D;
   const T* vb = v + size_t(bh) * Sk * D;
 
-  load_t(qt, q + size_t(bh) * Sq * D, q0, Sq, D, scale);
-  load_t(dot, dout + size_t(bh) * Sq * D, q0, Sq, D, 1.0f);
+  load_t(qt, q + size_t(bh) * Sq * D, q0, Sq, D, D, scale);
+  load_t(dot, dout + size_t(bh) * Sq * D, q0, Sq, D, D, 1.0f);
   // rows past Sq compute finite garbage that is never stored
   float lr[4], dr[4], acc[4][NJ];
 #pragma unroll
@@ -268,8 +137,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < nk; ++t) {
     const int k0 = t * kB;
     __syncthreads();
-    load_t(kt, kb, k0, Sk, D, 1.0f);
-    load_t(vt, vb, k0, Sk, D, 1.0f);
+    load_t(kt, kb, k0, Sk, D, D, 1.0f);
+    load_t(vt, vb, k0, Sk, D, D, 1.0f);
     load_n(kn, kb, k0, Sk, D, 1.0f);
     __syncthreads();
     float s[4][4] = {};
@@ -331,8 +200,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* lb = lse + size_t(bh) * Sq;
   const float* deb = delta + size_t(bh) * Sq;
 
-  load_t(kt, k + size_t(bh) * Sk * D, k0, Sk, D, 1.0f);
-  load_t(vt, v + size_t(bh) * Sk * D, k0, Sk, D, 1.0f);
+  load_t(kt, k + size_t(bh) * Sk * D, k0, Sk, D, D, 1.0f);
+  load_t(vt, v + size_t(bh) * Sk * D, k0, Sk, D, D, 1.0f);
   float dk_acc[4][NJ], dv_acc[4][NJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -345,8 +214,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = causal ? k0 / kB : 0; t < nq; ++t) {
     const int q0 = t * kB;
     __syncthreads();   // the previous q tile's buffers are no longer read
-    load_t(qa, qb, q0, Sq, D, scale);
-    load_t(da, db, q0, Sq, D, 1.0f);
+    load_t(qa, qb, q0, Sq, D, D, scale);
+    load_t(da, db, q0, Sq, D, D, 1.0f);
     for (int r = static_cast<int>(threadIdx.x); r < kB; r += kThreads) {
       const bool live = q0 + r < Sq;
       lse_s[r] = live ? lb[q0 + r] : INFINITY;   // P = 0 for padding rows

@@ -18,3 +18,14 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on "
             "the CPU explicitly")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def resolve_generator(device: torch.device, generator=None):
+    """The generator that draws parameters on ``device``: ``generator``,
+    which must live there, or one on ``device`` seeded with 0."""
+    if generator is None:
+        return torch.Generator(device=device).manual_seed(0)
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device} cannot "
+                         f"initialize parameters on {device}")
+    return generator

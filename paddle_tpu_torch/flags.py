@@ -163,6 +163,13 @@ define_flag("use_pallas_attention", True,
             "hand-written CUDA flash attention (ops/cuda/"
             "flash_attention.py); on CPU tensors its plain PyTorch version "
             "runs instead. The name is the JAX package's.")
+define_flag("use_pallas_layer_norm", False,
+            "Route layer_norm over one last axis with Scale and Bias and "
+            "h % 128 == 0 to the fused LayerNorm kernels (default off, as "
+            "in the JAX package). In the port those are the hand-written "
+            "CUDA kernels (ops/cuda/layer_norm.py); on CPU tensors their "
+            "plain PyTorch versions run instead. The name is the JAX "
+            "package's.")
 define_flag("pallas_min_seq", 1024,
             "Minimum sequence length before attention switches from the "
             "composed form to the CUDA flash kernel.")

@@ -23,7 +23,7 @@ import torch
 from torch import nn
 
 from .. import flags as _flags
-from ..device import resolve_device
+from ..device import resolve_device, resolve_generator
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, Linear
 from ..amp.auto_cast import maybe_autocast_inputs
@@ -187,7 +187,7 @@ class GPTBlock(nn.Module):
                                  block_tables=block_tables,
                                  attn_impl=attn_impl)
             x = F.add(x, a)
-        g = F.gelu(self.fc1(self.ln2(x)))
+        g = F.gelu(self.fc1(self.ln2(x)), approximate=True)
         x = F.add(x, self.dropout(self.fc2(g)))
         return x if cache is None else (x, cache)
 
@@ -278,11 +278,7 @@ class GPTForCausalLM(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        elif generator.device.type != device.type:
-            raise ValueError(f"generator on {generator.device} cannot "
-                             f"initialize parameters on {device}")
+        generator = resolve_generator(device, generator)
         self.cfg = cfg
         self.gpt = GPTModel(cfg, device=device, generator=generator)
 

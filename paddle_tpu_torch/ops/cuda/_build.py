@@ -5,7 +5,8 @@ package decides how its kernels compile and run).
 Each kernel is one source ``paddle_tpu_torch/csrc/<name>.cu`` with a
 plain C interface. It is compiled at its first launch with ``nvcc`` for
 ``sm_90a`` into a shared library under ``paddle_tpu_torch/_build/``,
-named by a hash of the source and the flags, and loaded with
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, and loaded with
 ``ctypes``. Nothing is compiled when a module is imported, and a failed
 build raises with the compiler's output.
 """
@@ -55,9 +56,10 @@ def build_all(names) -> Dict[str, Path]:
     and waited for together. Returns each library's path."""
     pending = {}
     paths = {}
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     for name in names:
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() +
+        digest = hashlib.sha256(src.read_bytes() + headers +
                                 " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         lib = BUILD_DIR / f"{name}-{digest}.so"
         log = BUILD_DIR / f"{name}-{digest}.log"
@@ -94,8 +96,9 @@ def load_all(names) -> Dict[str, ctypes.CDLL]:
     are compiled concurrently."""
     with _lock:
         missing = [n for n in names if n not in _libs]
-        for name, path in build_all(missing).items():
-            _libs[name] = ctypes.CDLL(str(path))
+        if missing:     # every launch comes here: read no file when loaded
+            for name, path in build_all(missing).items():
+                _libs[name] = ctypes.CDLL(str(path))
         return {n: _libs[n] for n in names}
 
 

@@ -14,6 +14,8 @@ import paddle_tpu_torch
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import flash_pack2 as fp2
+from paddle_tpu_torch.ops.cuda import layer_norm as ln
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
 from paddle_tpu_torch.serving import ServingEngine
 
@@ -38,7 +40,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     scanned = {str(f.relative_to(ROOT)) for f in files}
     for module in ("amp/auto_cast.py", "amp/lists.py", "optimizer.py",
                    "ops/optimizer_ops.py", "ops/cuda/flash_attention.py",
-                   "ops/attention_ops.py", "nn/functional.py"):
+                   "ops/attention_ops.py", "nn/functional.py",
+                   "ops/cuda/layer_norm.py", "ops/cuda/flash_pack2.py",
+                   "nn/transformer.py", "models/ernie.py",
+                   "tools/kernel_ab.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -97,12 +102,44 @@ def test_flash_wrappers_run_plain_only_on_cpu_and_raise_elsewhere():
         fa.flash_attention(meta[None], meta[None], meta[None], causal=True)
 
 
+def _ln_calls(x):
+    g = torch.ones(x.shape[-1], device=x.device)
+    stats = torch.zeros(x.shape[0], device=x.device)
+    return [lambda: ln.ln_fwd(x, g, g, 1e-5),
+            lambda: ln.ln_bwd(x, g, stats, stats + 1.0, x),
+            lambda: ln.fused_layer_norm(x, g, g)]
+
+
+def _pack2_calls(x):
+    return [lambda: fp2.packed_flash_fwd(x, x, x, True, 0.5)]
+
+
+@pytest.mark.parametrize("calls,shape", [(_ln_calls, (5, 8)),
+                                         (_pack2_calls, (2, 16, 8))])
+def test_new_wrappers_run_plain_only_on_cpu_and_raise_elsewhere(calls,
+                                                                shape):
+    """The LayerNorm and packed-heads wrappers: plain versions on CPU
+    tensors, no launch counted; a ``meta`` tensor raises."""
+    before = (dict(ln.launches), dict(fp2.launches))
+    x = torch.randn(*shape)
+    for call in calls(x):
+        out = call()
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.shape == x.shape and bool(torch.isfinite(first).all())
+    assert (ln.launches, fp2.launches) == before
+    for call in calls(x.to("meta")):
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            call()
+
+
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 15
-    assert {"use_pallas_attention", "pallas_min_seq", "pallas_flash_block_q",
-            "pallas_flash_block_k"} <= set(ported)
+    assert len(ported) == 16
+    assert {"use_pallas_attention", "use_pallas_layer_norm", "pallas_min_seq",
+            "pallas_flash_block_q", "pallas_flash_block_k"} <= set(ported)
+    assert ported["use_pallas_layer_norm"]["default"] is False
+    assert "CUDA" in ported["use_pallas_layer_norm"]["help"]
     for name, meta in ported.items():
         assert name in jax_flags, name
         if name == "serving_attn_impl":
