@@ -10,7 +10,11 @@ bf16, AdamW with bf16 moments) with the LayerNorm kernels off and on,
 trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512) through
 the LayerNorm kernels, shows that every run went through its kernels,
 reads the device's busy time of each train step with ``torch.profiler``,
-and times the kernels.
+and times the kernels. The flash forward and dK/dV take the tensor-core
+(``wgmma``) kernels for bf16 with head_dim 64 or 128: phase 2 checks that
+their SASS holds HGMMA instructions, phase 6 holds them to
+:func:`close_rounded`, and phases 7 and 10 check that every GPT launch
+of them took that route.
 
 Phases: 1 device, 2 build, 3 paged kernel vs plain, 4 serve, 5 time the
 paged kernel, 6 flash kernels vs plain, 7 train GPT, 8 time the flash
@@ -58,7 +62,8 @@ def log(msg=""):
 
 class Counters:
     """The launch counts of every kernel wrapper, by kernel name: the
-    paged-attention module's integer and the other modules' dicts."""
+    paged-attention module's integer and the other modules' dicts, and
+    the flash module's counts by route (``launches_by_route``)."""
 
     def __init__(self, pa, *modules):
         self.pa, self.modules = pa, modules
@@ -69,11 +74,20 @@ class Counters:
             out.update(m.launches)
         return out
 
-    def set(self, values):
+    def routes(self):
+        """``{kernel: {route: launches}}`` of the modules that count
+        routes."""
+        return {name: dict(by) for m in self.modules
+                for name, by in getattr(m, "launches_by_route", {}).items()}
+
+    def set(self, values, routes=None):
         self.pa.launches = values.get("paged_attention", 0)
         for m in self.modules:
             for name in m.launches:
                 m.launches[name] = values.get(name, 0)
+            for name, by in getattr(m, "launches_by_route", {}).items():
+                for route in by:
+                    by[route] = (routes or {}).get(name, {}).get(route, 0)
 
     def zero(self):
         self.set({})
@@ -81,11 +95,11 @@ class Counters:
     @contextlib.contextmanager
     def aside(self):
         """Launches made inside (comparisons, timing) are not counted."""
-        saved = self.read()
+        saved, saved_routes = self.read(), self.routes()
         try:
             yield
         finally:
-            self.set(saved)
+            self.set(saved, saved_routes)
 
     def expect(self, run, want, what):
         """Raise unless ``run`` has exactly ``want`` and nothing else."""
@@ -101,6 +115,62 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------ phase 2
+#: the tensor-core kernels of csrc/flash_attention.cu (B1 and B3)
+TC_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+
+
+def ptxas_blocks(log_text):
+    """ptxas's lines by kernel: each ``Compiling entry function`` line and
+    the lines after it, up to the next kernel's."""
+    blocks, fn = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+            blocks[fn] = []
+        if fn is not None:
+            blocks[fn].append(line.strip())
+    return blocks
+
+
+def sass_hgmma(path):
+    """HGMMA (wgmma) instructions per kernel, by mangled name, in the
+    SASS of a built library, read with the toolkit's ``cuobjdump``."""
+    from paddle_tpu_torch.ops.cuda import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_tc_build(build):
+    """Phase 2, the tensor-core kernels: prints each one's ptxas lines
+    (registers, spills, shared memory) and its count of HGMMA
+    instructions; raises if either kernel has none."""
+    blocks = ptxas_blocks(build["log"])
+    hgmma = sass_hgmma(build["path"])
+    out = {}
+    for name in TC_KERNELS:
+        found = {fn: n for fn, n in hgmma.items() if name in fn}
+        if not found or not all(found.values()):
+            raise AssertionError(f"{name}: no HGMMA instruction in the SASS "
+                                 f"of {build['path']} ({found})")
+        for fn, n in sorted(found.items()):
+            log(f"  {name}: {n} HGMMA instructions in {fn}")
+            for line in blocks.get(fn, []):
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log(f"    ptxas: {line}")
+        out[name] = found
+    return out
 
 
 # ------------------------------------------------------------ phase 3
@@ -428,15 +498,53 @@ def close(out, ref, kind, tol):
     return float(diff.max()), bool((diff <= limit).all())
 
 
+def close_rounded(out, ref, tol, rounding):
+    """(max abs err, ok) for a bf16 output of the tensor-core route, which
+    rounds P (or dS) to bf16 before the second product, as every
+    FlashAttention does: :func:`close`'s bf16 bound plus 2^-8 ``rounding``,
+    element by element, where ``rounding`` is that product taken over the
+    magnitudes (P @ |V| for O, P^T @ |dO| for dV, |dS|^T @ |scale q| for
+    dK; :func:`rounding_terms`). Rounding to nearest moves each element of
+    P by at most 2^-9 of itself; 2^-8 leaves room for the online
+    softmax's rescale. That bound is wide enough to take a truncated
+    output, so the errors must also be unbiased: their mean, signed
+    towards |ref| and taken in units of the bound, within +-0.03 (round to
+    nearest gives ~0.002; truncating the f32 result gives -0.07 to -0.12
+    in ``tests/test_torch_flash_route.py``). A kernel that skips a tile
+    or truncates fails."""
+    diff = out.float() - ref.float()
+    mag = ref.float().abs()
+    u = 2.0 ** -8
+    limit = (1 + u) * tol * (1 + mag) + u * mag + u * rounding
+    bias = float((diff * ref.float().sign() / limit).mean())
+    return (float(diff.abs().max()),
+            bool((diff.abs() <= limit).all()) and abs(bias) <= 0.03)
+
+
+def rounding_terms(fa, q, k, v, do, lse, delta, causal, scale):
+    """``(P @ |V|, P^T @ |dO|, |dS|^T @ |scale q|)`` in f32 from the plain
+    versions' P = exp(S - lse) and dS = P (dO V^T - delta): the
+    magnitudes that :func:`close_rounded` scales."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    p = (fa._scores(q, k, causal, scale) - lse[..., None]).exp()
+    ds = p * (do @ v.transpose(-1, -2) - delta[..., None])
+    return (p @ v.abs(), p.transpose(-1, -2) @ do.abs(),
+            ds.abs().transpose(-1, -2) @ (q * scale).abs())
+
+
 def hold(checks, worst, what):
-    """Each ``(kernel, name, out, ref, kind, tol)`` finite and within
-    :func:`close`, else raise; each kernel's max error is kept in
-    ``worst``. Returns the errors for the log."""
+    """Each ``(kernel, name, out, ref, kind, tol[, rounding])`` finite and
+    within :func:`close` (or :func:`close_rounded` where a rounding term
+    is given), else raise; each kernel's max error is kept in ``worst``.
+    Returns the errors for the log."""
     errs = []
-    for kernel, name, out, ref, kind, tol in checks:
+    for kernel, name, out, ref, kind, tol, *rounding in checks:
         if not bool(out.isfinite().all()):
             raise AssertionError(f"{what}: non-finite {name}")
-        err, ok = close(out, ref, kind, tol)
+        if rounding and rounding[0] is not None:
+            err, ok = close_rounded(out, ref, tol, rounding[0])
+        else:
+            err, ok = close(out, ref, kind, tol)
         if not ok:
             raise AssertionError(f"{what}: {name} off by {err}")
         worst[kernel] = max(worst[kernel], err)
@@ -452,44 +560,75 @@ def flash_inputs(torch, bh, s_q, s_k, d, dt, seed):
 
 
 def check_flash(torch, fa, ctr):
-    """Phase 6: each flash kernel against its plain function at b 8 x h 16:
-    causal and not, f32 and bf16, d 20 / 64 / 128, s 1024 / 1040 (a ragged
-    last 64-row tile), and non-causal s_q != s_k. The backward kernels and
-    their plain versions get the same lse and delta."""
-    cases = [(dt, causal, d, s, s) for dt in ("f32", "bf16")
-             for causal in (True, False) for d in (20, 64, 128)
-             for s in (1024, 1040)]
-    cases += [("f32", False, 64, 1024, 2048), ("bf16", False, 64, 1040, 512)]
+    """Phase 6: each flash kernel against its plain function: first two
+    small cases (bh 2, s 64, bf16, d 64 and 128: the tensor-core kernels'
+    first launches, synchronized), then at b 8 x h 16: causal and not,
+    f32 and bf16, d 20 / 64 / 128, s 1024 / 1040 (a ragged last 64-row
+    tile), and non-causal s_q != s_k (1040 x 512 and 512 x 1040 on the
+    tensor-core route). The backward kernels and their plain versions get
+    the same lse and delta. bf16 O, dK and dV of the tensor-core route are
+    held to :func:`close_rounded`, everything else to :func:`close`."""
+    cases = [("bf16", True, 64, 64, 64, 2), ("bf16", False, 128, 64, 64, 2)]
+    cases += [(dt, causal, d, s, s, 128) for dt in ("f32", "bf16")
+              for causal in (True, False) for d in (20, 64, 128)
+              for s in (1024, 1040)]
+    cases += [("f32", False, 64, 1024, 2048, 128),
+              ("bf16", False, 64, 1040, 512, 128),
+              ("bf16", False, 64, 512, 1040, 128),
+              ("bf16", False, 128, 1040, 512, 128),
+              ("bf16", False, 128, 512, 1040, 128)]
+    # seeds: the 26 cases of PR 2 keep theirs (100 + their index there)
+    seeds = [98, 99] + list(range(100, 126)) + [126, 127, 128]
     worst = {name: 0.0 for name in fa.launches}
     with ctr.aside():
-        for i, case in enumerate(cases):
-            check_flash_case(torch, fa, i, *case, worst)
+        for i, (case, seed) in enumerate(zip(cases, seeds)):
+            check_flash_case(torch, fa, ctr, i, *case, seed, worst)
     return len(cases), worst
 
 
-def check_flash_case(torch, fa, i, dt, causal, d, s_q, s_k, worst):
-    """One case of phase 6; ``worst`` collects each kernel's max error."""
-    q, k, v, do = flash_inputs(torch, 128, s_q, s_k, d, dt, seed=100 + i)
+def check_flash_case(torch, fa, ctr, i, dt, causal, d, s_q, s_k, bh, seed,
+                     worst):
+    """One case of phase 6; ``worst`` collects each kernel's max error.
+    The library's route rule must agree with the wrapper's, and the
+    forward and dK/dV must launch on that route."""
+    q, k, v, do = flash_inputs(torch, bh, s_q, s_k, d, dt, seed=seed)
     scale = 1.0 / d ** 0.5
+    tc = fa._tc_route(q.dtype, d)
+    if bool(fa._lib().flash_tc_route(fa._CODES[q.dtype], d)) != tc:
+        raise AssertionError(f"flash case {i}: the library's route for "
+                             f"{dt} d={d} differs from _tc_route's {tc}")
+    before = ctr.routes()
     o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
     delta = (do.float() * o.float()).sum(-1)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    route = "wgmma" if tc else "simt"
+    after = ctr.routes()
+    for name in ("flash_fwd", "flash_bwd_dkv"):
+        if after[name][route] != before[name][route] + 1:
+            raise AssertionError(f"flash case {i}: {name} did not launch on "
+                                 f"the {route} route ({before} -> {after})")
     f = [t.float() for t in (q, k, v, do)]
     ro, rlse = fa.flash_fwd_plain(*f[:3], causal, scale)
     rdq = fa.flash_bwd_dq_plain(*f, lse, delta, causal, scale)
     rdk, rdv = fa.flash_bwd_dkv_plain(*f, lse, delta, causal, scale)
+    r_o = r_dv = r_dk = None
+    if tc:
+        r_o, r_dv, r_dk = rounding_terms(fa, q, k, v, do, lse, delta, causal,
+                                         scale)
     torch.cuda.synchronize()
     # lse is f32 on both sides whatever the input dtype
-    checks = [("flash_fwd", "o", o, ro, dt, 2e-5),
+    checks = [("flash_fwd", "o", o, ro, dt, 2e-5, r_o),
               ("flash_fwd", "lse", lse, rlse, "f32", 2e-5),
               ("flash_bwd_dq", "dq", dq, rdq, dt, 2e-4),
-              ("flash_bwd_dkv", "dk", dk, rdk, dt, 2e-4),
-              ("flash_bwd_dkv", "dv", dv, rdv, dt, 2e-4)]
+              ("flash_bwd_dkv", "dk", dk, rdk, dt, 2e-4, r_dk),
+              ("flash_bwd_dkv", "dv", dv, rdv, dt, 2e-4, r_dv)]
     errs = hold(checks, worst, f"flash case {i} ({dt} causal={causal} "
-                f"d={d} s_q={s_q} s_k={s_k})")
+                f"d={d} s_q={s_q} s_k={s_k} bh={bh})")
     log(f"  case {dt:4s} causal={causal!s:5s} d={d:3d} s_q={s_q} "
-        f"s_k={s_k}: {errs}")
+        f"s_k={s_k} bh={bh} {route}: {errs}")
 
 
 # ------------------------------------------------------------ phase 7
@@ -612,6 +751,7 @@ def run_steps(torch, ctr, step, warmup, steps, want, what, traced=2):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
     run = ctr.read()
+    routes = ctr.routes()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     log(f"  {what}: launches in {steps} timed steps: {run}")
@@ -627,7 +767,22 @@ def run_steps(torch, ctr, step, warmup, steps, want, what, traced=2):
     log(f"  {what}: device busy {busy:.3f} ms per step ({traced} traced "
         f"steps), idle share {idle:.4f} of the {dt * 1e3:.3f} ms step")
     return {"step_ms": dt * 1e3, "losses": losses, "launches": run,
-            "peak_bytes": peak, "device_busy_ms": busy, "idle_share": idle}
+            "routes": routes, "peak_bytes": peak, "device_busy_ms": busy,
+            "idle_share": idle}
+
+
+def expect_flash_routes(routes, n, what):
+    """Raise unless the ``n`` launches of each flash kernel took its route
+    at the GPT step's shape (bf16, d 64): the forward and dK/dV the tensor
+    cores, dQ the CUDA cores."""
+    want = {"flash_fwd": {"wgmma": n, "simt": 0},
+            "flash_bwd_dq": {"wgmma": 0, "simt": n},
+            "flash_bwd_dkv": {"wgmma": n, "simt": 0}}
+    got = {name: routes.get(name) for name in want}
+    log(f"  {what}: flash launches by route {got}")
+    if got != want:
+        raise AssertionError(f"{what}: flash launches by route {got}, "
+                             f"expected {want}")
 
 
 def rate(res, tokens, flops_per_token):
@@ -654,6 +809,7 @@ def train(torch, ctr, card, gpt, warmup=2, steps=5):
     res = run_steps(torch, ctr, step, warmup, steps,
                     {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n},
                     "gpt2-medium")
+    expect_flash_routes(res["routes"], n, "gpt2-medium")
     parts = {}
 
     @contextlib.contextmanager
@@ -706,7 +862,10 @@ def bound(nbytes, flops, peak_flops):
 def time_flash(torch, fa, ctr, card, b=8, h=16, s=1024, d=64):
     """Phase 8: the flash kernels, their plain versions and PyTorch's
     scaled_dot_product_attention (forward; backward = dq, dk and dv in
-    one call) at the training shape, bf16, causal."""
+    one call) at the training shape, bf16, causal: each kernel's achieved
+    TFLOP/s and the fraction of its bound it reaches. Then, for
+    reference, the forward and dK/dV at the same shape in f32, which
+    still take the CUDA-core kernels."""
     import torch.nn.functional as F
     bh, scale = b * h, 1.0 / d ** 0.5
     q, k, v, do = flash_inputs(torch, bh, s, s, d, "bf16", seed=7)
@@ -738,7 +897,10 @@ def time_flash(torch, fa, ctr, card, b=8, h=16, s=1024, d=64):
         sdpa_bwd = time_fn(torch, lambda i: torch.autograd.grad(
             o4, (q4, k4, v4), do4, retain_graph=True), 20, 1)
         for name, (kern, plain, lib) in calls.items():
+            before = ctr.routes()[name]
             ms = time_fn(torch, kern, 20, 1)
+            route = next(r for r, n in ctr.routes()[name].items()
+                         if n > before[r])
             plain_ms = time_fn(torch, plain, 5, 1)
             lib_ms = time_fn(torch, lib, 20, 1) if lib else sdpa_bwd
             b_ = bound(*flash_work(name, bh, s, d, 2), BF16_FLOPS)
@@ -747,12 +909,27 @@ def time_flash(torch, fa, ctr, card, b=8, h=16, s=1024, d=64):
                              "scaled_dot_product_attention" if lib
                              else "scaled_dot_product_attention backward "
                              "(dq, dk and dv together)"),
-                         **b_, "tflops_per_s": b_["flops"] / ms / 1e9}
-            log(f"  {name}: kernel {ms:.4f} ms "
-                f"({b_['flops'] / ms / 1e9:.2f} TFLOP/s), plain "
+                         **b_, "tflops_per_s": b_["flops"] / ms / 1e9,
+                         "bound_fraction": b_["bound_ms"] / ms,
+                         "cuda_route": route}
+            log(f"  {name} ({route}): kernel {ms:.4f} ms "
+                f"({b_['flops'] / ms / 1e9:.2f} TFLOP/s, "
+                f"{b_['bound_ms'] / ms:.3f} of the bound), plain "
                 f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
                 f"{b_['bytes']} B / {b_['flops']} FLOP -> bound "
                 f"{b_['bound_ms']:.4f} ms ({b_['bound_by']}) [{card}]")
+        q, k, v, do = flash_inputs(torch, bh, s, s, d, "f32", seed=7)
+        o, lse = fa.flash_fwd(q, k, v, True, scale)
+        delta = (do * o).sum(-1)
+        out["simt_f32"] = {
+            "flash_fwd": time_fn(torch, lambda i: fa.flash_fwd(
+                q, k, v, True, scale), 10, 1),
+            "flash_bwd_dkv": time_fn(torch, lambda i: fa.flash_bwd_dkv(
+                q, k, v, do, lse, delta, True, scale), 10, 1)}
+        log(f"  f32 at the same shape (CUDA-core kernels, for reference): "
+            f"flash_fwd {out['simt_f32']['flash_fwd']:.4f} ms, "
+            f"flash_bwd_dkv {out['simt_f32']['flash_bwd_dkv']:.4f} ms "
+            f"[{card}]")
     return out
 
 
@@ -823,6 +1000,7 @@ def train_ln(torch, ctr, card, gpt, warmup=2, steps=5):
                     {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
                      "ln_fwd": nl, "ln_bwd": nl},
                     "gpt2-medium, LayerNorm kernels")
+    expect_flash_routes(res["routes"], n, "gpt2-medium, LayerNorm kernels")
     flags.set_flags({"use_pallas_layer_norm": False})
     rate(res, GPT_BATCH * GPT_SEQ, gpt_flops(cfg))
     log(f"  [{card}] LayerNorm kernels on: step {res['step_ms']:.3f} ms, "
@@ -1061,6 +1239,8 @@ def main():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
+    log("  the tensor-core flash kernels:")
+    check_tc_build(_build.builds["flash_attention"])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1149,7 +1329,9 @@ def main():
             f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
             trn["launches"][name], flash_err[name], t, cases_passed=n_flash,
             library_call=t["library_call"],
-            tflops_per_s=t["tflops_per_s"]))
+            tflops_per_s=t["tflops_per_s"],
+            bound_fraction=t["bound_fraction"], cuda_route=t["cuda_route"],
+            launches_by_route=trn["routes"][name]))
     for name, line in (("ln_fwd", 27), ("ln_bwd", 40)):
         t = ltimes[name]["ernie-base"]
         kernels.append(entry(

@@ -15,14 +15,17 @@
 // Bound: at the training shape (b 8, h 16, s 1024, d 64, bf16, causal) the
 // three calls do about 17, 26 and 34 GFLOP against 68, 85 and 102 MB of
 // compulsory traffic: on the H100's tensor cores (989 TFLOP/s bf16) the work
-// and the bytes (3.35 TB/s) each cost ~0.02-0.035 ms. This first version
-// runs its products on the CUDA cores in f32 (FMA, 67 TFLOP/s peak), so it is
-// bound by FMA issue and shared-memory reads: ~19 TFLOP/s, 43-52x above the
-// bound on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 8); moving the
-// products of each tile to mma/wgmma is the next step.
+// and the bytes (3.35 TB/s) each cost ~0.02-0.035 ms. For bf16 with d 64 or
+// 128 the forward and dK/dV run on the tensor cores (flash_fwd_wgmma_kernel,
+// flash_bwd_dkv_wgmma_kernel, designed below); dQ and every f32 or other-
+// width call run the first version, which does its products on the CUDA
+// cores in f32 (FMA, 67 TFLOP/s peak): bound by FMA issue and shared-memory
+// reads at ~19 TFLOP/s, 43-52x above the bound on an H100 80GB HBM3 at
+// 700 W (chip_smoke.py phase 8).
 //
-// Design (simple and correct first): one block of 256 threads per (bh,
-// 64-row tile), on the tiles of flash_tiles.cuh: each thread owns a 4 x 4
+// Design of the first version (simple and correct first): one block of 256
+// threads per (bh, 64-row tile), on the tiles of flash_tiles.cuh: each
+// thread owns a 4 x 4
 // patch of every 64 x 64 score tile and columns tx + 16 j of every output
 // row it holds, so any d <= 128 works without the reference's lane padding
 // (pad_lane_dim). The per-row softmax state (m, l) lives in registers,
@@ -34,6 +37,7 @@
 // the most causal work are launched first.
 
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -332,6 +336,426 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- tensor-core route (sm_90a)
+//
+// bf16 q/k/v/dO with d 64 or 128 (every GPT config of models/gpt.py) run
+// on the tensor cores; f32 and other widths keep the CUDA-core kernels
+// above. Bound at the training shape (b 8, h 16, s 1024, d 64, causal):
+// forward 17.2 GFLOP in 0.017 ms at 989 TFLOP/s against 0.020 ms for its
+// bytes, dK/dV 34.4 GFLOP in 0.035 ms; both are product-bound once the
+// products run in wgmma, so the design keeps the tensor cores fed:
+// - tiles arrive by TMA into 128-byte-swizzled shared memory that wgmma
+//   reads directly (hopper.cuh), issued by one producer warp into a ring
+//   of kStages stages guarded by full/empty mbarriers, so the next tile is
+//   in flight while this one is multiplied;
+// - the first product of a step (S = Q K^T; in dK/dV S^T = K Q^T and
+//   dP^T = V dO^T) is an SS wgmma with f32 accumulators in registers;
+// - the softmax runs on the accumulator fragment (a row lives in the 4
+//   threads of a quad: shuffles with xor 1, 2), with scale * log2(e)
+//   folded into exp2;
+// - P (and dS) are rounded to bf16 in registers and feed the second
+//   product (O += P V; dV += P^T dO, dK += dS^T Q) as its register A
+//   operand: no probability tile touches shared memory. That rounding is
+//   the route's one numerical difference from the f32 kernels, as in
+//   every FlashAttention (chip_smoke.py holds it to a stated bound).
+// Masks are as above: keys past Sk or above the diagonal to -inf in the
+// forward; q rows past Sq to lse = +inf (P = 0) in dK/dV. dK/dV walks the
+// q tiles of its own 64 keys, so it needs no atomics.
+
+constexpr int kStages = 2;         // tiles in flight per ring
+constexpr int kFwdWarpgroups = 2;  // consumer warpgroups (64 q rows each)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kMapError = -2;
+
+bool tc_route(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// Shared memory of the forward: the q tile (64 rows per consumer
+// warpgroup), then kStages (k tile, v tile) pairs, then the barriers;
+// each tile d / 64 panels. Dynamic: 50,216 B at d 64, 99,368 B at d 128.
+template <int D>
+struct FwdSmem {
+  static constexpr int kBM = 64 * kFwdWarpgroups;
+  static constexpr uint32_t kQ = kBM * D * 2;
+  static constexpr uint32_t kT = 64 * D * 2;
+  static constexpr uint32_t kBars = kQ + kStages * 2 * kT;
+  static constexpr size_t kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kFwdWarpgroups * 128 + 32, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int Sq, int Sk,
+                           float scale_log2, bool causal) {
+  using namespace hopper;
+  using L = FwdSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = static_cast<int>(blockIdx.x);
+  const int q0 = (static_cast<int>(gridDim.y) - 1 -
+                  static_cast<int>(blockIdx.y)) * L::kBM;   // heavy first
+  const int n_k = (Sk + 63) / 64;
+  const int nk_block = causal ? min(n_k, (q0 + L::kBM - 1) / 64 + 1) : n_k;
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kFwdWarpgroups * 4);   // one per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kFwdWarpgroups * 4) {   // the producer warp: lane 0 copies
+    if (lane == 0) {
+      mbar_expect_tx(qbar, L::kQ);
+      for (int p = 0; p < D / 64; ++p)
+        tma_load_3d(sm + p * L::kBM * 128, &tq, qbar, p * 64, q0, bh);
+      for (int t = 0; t < nk_block; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
+        uint8_t* kt = sm + L::kQ + s * 2 * L::kT;
+        mbar_expect_tx(&full[s], 2 * L::kT);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_3d(kt + p * 64 * 128, &tk, &full[s], p * 64, t * 64, bh);
+          tma_load_3d(kt + L::kT + p * 64 * 128, &tv, &full[s], p * 64,
+                      t * 64, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns q rows row0 .. row0 + 63; this thread rows
+  // r_lo and r_lo + 8, columns 8 j + cq, + 1 of every 8-column chunk j
+  const int wg = warp / 4;
+  const int row0 = q0 + wg * 64;
+  const int nk = row0 >= Sq ? 0
+                 : causal   ? min(n_k, (row0 + 63) / 64 + 1)
+                            : n_k;
+  const int r_lo = row0 + (warp % 4) * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const uint32_t q_base = smem_u32(sm) + wg * 64 * 128;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};   // row max of S * scale * log2(e)
+  float l[2] = {0.0f, 0.0f};             // this thread's part of the row sum
+  mbar_wait(qbar, 0);
+
+  for (int t = 0; t < nk_block; ++t) {
+    const int s = t % kStages;
+    const uint32_t k_base = smem_u32(sm + L::kQ + s * 2 * L::kT);
+    const uint32_t v_base = k_base + L::kT;
+    mbar_wait(&full[s], (t / kStages) & 1);
+    if (t < nk) {   // uniform over the warpgroup
+      float sc[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss(sc,
+               desc(q_base + (kk / 4) * L::kBM * 128 + (kk % 4) * 32, 16,
+                    1024),
+               desc(k_base + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024),
+               kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+
+      const int k0 = t * 64;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int h = (r >> 1) & 1;
+        const int col = k0 + 8 * (r >> 2) + cq + (r & 1);
+        if (col >= Sk || (causal && col > r_lo + 8 * h)) sc[r] = -INFINITY;
+        mx[h] = fmaxf(mx[h], sc[r]);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        // every row sees key 0 in tile 0, so m is finite from there on
+        const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+        alpha[h] = exp2_approx(m[h] - m_new);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+      uint32_t pa[16];   // P as the A operand: 4 registers per 16 keys
+#pragma unroll
+      for (int r = 0; r < 32; r += 2) {
+        const int h = (r >> 1) & 1;
+        const float p0 = exp2_approx(fmaf(sc[r], scale_log2, -m[h]));
+        const float p1 = exp2_approx(fmaf(sc[r + 1], scale_log2, -m[h]));
+        l[h] += p0 + p1;
+        pa[r / 2] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(acc, &pa[4 * kk], desc(v_base + kk * 16 * 128, 64 * 128, 1024));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+  if (nk == 0) return;
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
+#pragma unroll
+  for (int r = 0; r < D / 2; r += 2) {
+    const int h = (r >> 1) & 1;
+    const int row = r_lo + 8 * h;
+    if (row < Sq) {
+      __nv_bfloat16* dst = o + (size_t(bh) * Sq + row) * D + 8 * (r >> 2) + cq;
+      *reinterpret_cast<__nv_bfloat162*>(dst) =
+          __floats2bfloat162_rn(acc[r] * inv[h], acc[r + 1] * inv[h]);
+    }
+  }
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r_lo + 8 * h;
+      if (row < Sq) lse[size_t(bh) * Sq + row] = m[h] * kLn2 + logf(l[h]);
+    }
+  }
+}
+
+// Shared memory of dK/dV: the k and v tiles, then kStages (q tile, dO
+// tile) pairs, then kStages (lse * log2(e), delta) slices of 64 f32 each,
+// then the barriers. Dynamic: 51,240 B at d 64, 100,392 B at d 128.
+template <int D>
+struct DkvSmem {
+  static constexpr uint32_t kT = 64 * D * 2;
+  static constexpr uint32_t kStats = 2 * kT + kStages * 2 * kT;
+  static constexpr uint32_t kBars = kStats + kStages * 2 * 64 * 4;
+  static constexpr size_t kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
+};
+
+template <int D>
+__global__ void __launch_bounds__(160, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const __grid_constant__ CUtensorMap tdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int Sq, int Sk,
+                               float scale, bool causal) {
+  using namespace hopper;
+  using L = DkvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  float* stats = reinterpret_cast<float*>(sm + L::kStats);
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = kvbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = static_cast<int>(blockIdx.x);
+  const int k0 = static_cast<int>(blockIdx.y) * 64;   // heavy tiles first
+  const int t0 = causal ? k0 / 64 : 0;                 // first q tile
+  const int n = (Sq + 63) / 64 - t0;
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  const int lane = static_cast<int>(threadIdx.x) % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == 4) {   // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(kvbar, 2 * L::kT);
+      for (int p = 0; p < D / 64; ++p) {
+        tma_load_3d(sm + p * 64 * 128, &tk, kvbar, p * 64, k0, bh);
+        tma_load_3d(sm + L::kT + p * 64 * 128, &tv, kvbar, p * 64, k0, bh);
+      }
+    }
+    const float* lb = lse + size_t(bh) * Sq;
+    const float* db = delta + size_t(bh) * Sq;
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      const int q0 = (t0 + i) * 64;
+      if (i >= kStages) mbar_wait(&empty[s], (i / kStages - 1) & 1);
+      float* st = stats + s * 128;
+      for (int r = lane; r < 64; r += 32) {
+        const bool live = q0 + r < Sq;   // P = 0 for rows past the end
+        st[r] = live ? lb[q0 + r] * kLog2e : INFINITY;
+        st[64 + r] = live ? db[q0 + r] : 0.0f;
+      }
+      __syncwarp();   // the slices are written before lane 0 arrives
+      if (lane == 0) {
+        uint8_t* qt = sm + 2 * L::kT + s * 2 * L::kT;
+        mbar_expect_tx(&full[s], 2 * L::kT);
+        for (int p = 0; p < D / 64; ++p) {
+          tma_load_3d(qt + p * 64 * 128, &tq, &full[s], p * 64, q0, bh);
+          tma_load_3d(qt + L::kT + p * 64 * 128, &tdo, &full[s], p * 64, q0,
+                      bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread holds keys key_lo and key_lo + 8
+  // and, of each product over q, the columns 8 j + cq, + 1
+  const int key_lo = k0 + warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  const uint32_t k_base = smem_u32(sm);
+  const uint32_t v_base = k_base + L::kT;
+  float adk[D / 2], adv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    adk[i] = 0.0f;
+    adv[i] = 0.0f;
+  }
+  mbar_wait(kvbar, 0);
+
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages;
+    const int q0 = (t0 + i) * 64;
+    const uint32_t q_base = smem_u32(sm + 2 * L::kT + s * 2 * L::kT);
+    const uint32_t do_base = q_base + L::kT;
+    const float* st = stats + s * 128;
+    mbar_wait(&full[s], (i / kStages) & 1);
+
+    float sp[32], dp[32];   // S^T, then P^T; dP^T, then dS^T
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss(sp, desc(k_base + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024),
+             desc(q_base + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024),
+             kk > 0);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      mma_ss(dp, desc(v_base + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024),
+             desc(do_base + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024),
+             kk > 0);
+    wg_commit();
+    wg_wait<1>();   // S^T is in; dP^T may still be on its way
+    fence_regs(sp);
+#pragma unroll
+    for (int r = 0; r < 32; ++r) {
+      const int qi = 8 * (r >> 2) + cq + (r & 1);
+      const float p = exp2_approx(fmaf(sp[r], scale_log2, -st[qi]));
+      sp[r] = causal && key_lo + 8 * ((r >> 1) & 1) > q0 + qi ? 0.0f : p;
+    }
+    wg_wait<0>();
+    fence_regs(dp);
+    uint32_t pa[16], da[16];
+#pragma unroll
+    for (int r = 0; r < 32; r += 2) {
+      const int qi = 8 * (r >> 2) + cq;
+      pa[r / 2] = pack_bf16(sp[r], sp[r + 1]);
+      da[r / 2] = pack_bf16(sp[r] * (dp[r] - st[64 + qi]),
+                            sp[r + 1] * (dp[r + 1] - st[64 + qi + 1]));
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      mma_rs(adv, &pa[4 * kk],
+             desc(do_base + kk * 16 * 128, 64 * 128, 1024));
+      mma_rs(adk, &da[4 * kk], desc(q_base + kk * 16 * 128, 64 * 128, 1024));
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(adv);
+    fence_regs(adk);
+    fence_regs(pa);
+    fence_regs(da);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < D / 2; r += 2) {
+    const int key = key_lo + 8 * ((r >> 1) & 1);
+    if (key < Sk) {
+      const size_t at = (size_t(bh) * Sk + key) * D + 8 * (r >> 2) + cq;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(adk[r] * scale, adk[r + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(adv[r], adv[r + 1]);
+    }
+  }
+}
+
+template <int D>
+int fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+           int BH, int Sq, int Sk, float scale, bool causal,
+           cudaStream_t st) {
+  using L = FwdSmem<D>;
+  CUtensorMap mq, mk, mv;
+  if (!hopper::slab_map(&mq, q, BH, Sq, D, L::kBM) ||
+      !hopper::slab_map(&mk, k, BH, Sk, D, 64) ||
+      !hopper::slab_map(&mv, v, BH, Sk, D, 64))
+    return kMapError;
+  const auto kernel = flash_fwd_wgmma_kernel<D>;
+  int rc = prepare(kernel, L::kBytes);
+  if (rc != 0) return rc;
+  dim3 grid(BH, (Sq + L::kBM - 1) / L::kBM);
+  kernel<<<grid, kFwdWarpgroups * 128 + 32, L::kBytes, st>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      Sq, Sk, scale * kLog2e, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dkv_tc(const void* q, const void* k, const void* v, const void* dout,
+           const void* lse, const void* delta, void* dkp, void* dvp, int BH,
+           int Sq, int Sk, float scale, bool causal, cudaStream_t st) {
+  using L = DkvSmem<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::slab_map(&mq, q, BH, Sq, D, 64) ||
+      !hopper::slab_map(&mk, k, BH, Sk, D, 64) ||
+      !hopper::slab_map(&mv, v, BH, Sk, D, 64) ||
+      !hopper::slab_map(&mdo, dout, BH, Sq, D, 64))
+    return kMapError;
+  const auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  int rc = prepare(kernel, L::kBytes);
+  if (rc != 0) return rc;
+  dim3 grid(BH, (Sk + 63) / 64);
+  kernel<<<grid, 160, L::kBytes, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dkp),
+      static_cast<__nv_bfloat16*>(dvp), Sq, Sk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_shape(int BH, int Sq, int Sk, int D, int causal) {
   return BH < 1 || Sq < 1 || Sk < 1 || D < 1 || D > kMaxD ||
          (causal && Sq != Sk) || (Sq + kB - 1) / kB > 65535 ||
@@ -359,14 +783,25 @@ bool bad_shape(int BH, int Sq, int Sk, int D, int causal) {
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs
 // share it; lse and delta are float32 [BH, Sq]). Each returns
-// cudaGetLastError() after its launch, or -1 for arguments it does not take.
+// cudaGetLastError() after its launch, -1 for arguments it does not take,
+// or -2 when the driver refuses a TMA tensor map. The forward and dK/dV
+// take the tensor-core kernels where flash_tc_route says so.
+extern "C" int flash_tc_route(int dtype, int D) {
+  return tc_route(dtype, D) ? 1 : 0;
+}
+
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
                                 void* o, void* lse, int BH, int Sq, int Sk,
                                 int D, float scale, int causal, int dtype,
                                 void* stream) {
   if (bad_shape(BH, Sq, Sk, D, causal)) return -1;
-  FLASH_DISPATCH(fwd, q, k, v, o, lse, BH, Sq, Sk, D, scale, causal != 0,
-                 static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc_route(dtype, D))
+    return D == 64 ? fwd_tc<64>(q, k, v, o, lse, BH, Sq, Sk, scale,
+                                causal != 0, st)
+                   : fwd_tc<128>(q, k, v, o, lse, BH, Sq, Sk, scale,
+                                 causal != 0, st);
+  FLASH_DISPATCH(fwd, q, k, v, o, lse, BH, Sq, Sk, D, scale, causal != 0, st);
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
@@ -387,11 +822,19 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     int Sq, int Sk, int D, float scale,
                                     int causal, int dtype, void* stream) {
   if (bad_shape(BH, Sq, Sk, D, causal)) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc_route(dtype, D))
+    return D == 64 ? dkv_tc<64>(q, k, v, dout, lse, delta, dk_out, dv_out, BH,
+                                Sq, Sk, scale, causal != 0, st)
+                   : dkv_tc<128>(q, k, v, dout, lse, delta, dk_out, dv_out,
+                                 BH, Sq, Sk, scale, causal != 0, st);
   FLASH_DISPATCH(dkv, q, k, v, dout, lse, delta, dk_out, dv_out, BH, Sq, Sk,
-                 D, scale, causal != 0, static_cast<cudaStream_t>(stream));
+                 D, scale, causal != 0, st);
 }
 
 extern "C" const char* flash_error_string(int code) {
+  if (code == kMapError)
+    return "TMA tensor map refused (a pointer not 16-byte aligned?)";
   if (code < 0) return "unsupported arguments";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -7,7 +7,11 @@ three TPU kernels: :func:`flash_fwd` (O and lse), :func:`flash_bwd_dq`
 and :func:`flash_bwd_dkv`. Each wrapper launches its kernel for CUDA
 tensors and runs its plain PyTorch version (``*_plain``) only for
 tensors on the CPU; a CUDA tensor the kernel does not take raises, and
-nothing falls back. :func:`flash_attention` ties them together in a
+nothing falls back. The forward and dK/dV have two routes, decided by
+:func:`_tc_route` before the launch: bf16 with head_dim 64 or 128 runs
+the tensor-core (``wgmma``) kernels, everything else the CUDA-core
+(``simt``) ones; ``launches_by_route`` counts each.
+:func:`flash_attention` ties them together in a
 ``torch.autograd.Function`` whose backward computes
 ``delta = sum(dO * O, -1)`` in plain torch, as the JAX package does
 outside Pallas, then launches dQ, then dK/dV.
@@ -28,9 +32,20 @@ from . import _build
 
 #: kernel launches per kernel (CPU calls excluded)
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+#: the same launches by route: "wgmma" (tensor cores) or "simt" (CUDA
+#: cores); dQ always takes the CUDA-core kernel
+launches_by_route = {name: {"wgmma": 0, "simt": 0} for name in launches}
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 128
+
+
+def _tc_route(dtype, d):
+    """Whether the forward and dK/dV take the tensor-core kernels: bf16
+    with head_dim 64 or 128 (TMA needs rows of a multiple of 16 bytes and
+    the tiles are 64-column panels). The CUDA side decides by the same
+    rule (``flash_tc_route`` in the library)."""
+    return dtype == torch.bfloat16 and d in (64, 128)
 
 
 def pick_block(n: int, preferred: int, minimum: int = 8) -> int:
@@ -101,6 +116,8 @@ def _lib():
             fn.restype = ctypes.c_int
         lib.flash_error_string.argtypes = [ctypes.c_int]
         lib.flash_error_string.restype = ctypes.c_char_p
+        lib.flash_tc_route.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_tc_route.restype = ctypes.c_int
     return lib
 
 
@@ -146,7 +163,7 @@ def _check_stats(q, do, lse, delta):
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _run(name, fn, *args):
+def _run(name, route, fn, *args):
     with torch.cuda.device(args[-1]):
         stream = torch.cuda.current_stream(args[-1]).cuda_stream
         rc = fn(*args[:-1], stream)
@@ -154,6 +171,11 @@ def _run(name, fn, *args):
         msg = _lib().flash_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
     launches[name] += 1
+    launches_by_route[name][route] += 1
+
+
+def _route(q):
+    return "wgmma" if _tc_route(q.dtype, q.shape[-1]) else "simt"
 
 
 def flash_fwd(q, k, v, causal, scale):
@@ -165,9 +187,10 @@ def flash_fwd(q, k, v, causal, scale):
     bh, s_q, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
-    _run("flash_fwd", _lib().flash_fwd_launch, q.data_ptr(), k.data_ptr(),
-         v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, s_q, k.shape[1], d,
-         float(scale), int(causal), _CODES[q.dtype], q.device)
+    _run("flash_fwd", _route(q), _lib().flash_fwd_launch, q.data_ptr(),
+         k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), bh, s_q,
+         k.shape[1], d, float(scale), int(causal), _CODES[q.dtype],
+         q.device)
     return o, lse
 
 
@@ -179,7 +202,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal, scale):
     _check_stats(q, do, lse, delta)
     bh, s_q, d = q.shape
     dq = torch.empty_like(q)
-    _run("flash_bwd_dq", _lib().flash_bwd_dq_launch, q.data_ptr(),
+    _run("flash_bwd_dq", "simt", _lib().flash_bwd_dq_launch, q.data_ptr(),
          k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
          delta.data_ptr(), dq.data_ptr(), bh, s_q, k.shape[1], d,
          float(scale), int(causal), _CODES[q.dtype], q.device)
@@ -196,10 +219,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     bh, s_q, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _run("flash_bwd_dkv", _lib().flash_bwd_dkv_launch, q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s_q,
-         k.shape[1], d, float(scale), int(causal), _CODES[q.dtype],
+    _run("flash_bwd_dkv", _route(q), _lib().flash_bwd_dkv_launch,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+         s_q, k.shape[1], d, float(scale), int(causal), _CODES[q.dtype],
          q.device)
     return dk, dv
 

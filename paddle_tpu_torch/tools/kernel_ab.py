@@ -4,9 +4,12 @@ one card. Both libraries are built with the same nvcc flags, get the same
 inputs (the GPT training shape: b 8, h 16, s 1024, d 64, bf16, causal; the
 backward kernels get one lse and delta) and are timed with
 ``chip_smoke.time_fn`` in the order other, this, this, other, twice.
-Prints each build's ptxas register and spill lines, each kernel's device
-ms per side and round, and the largest difference between the two sides'
-outputs; the last line is the same as one JSON object.
+Prints each build's ptxas register and spill lines, the route each
+side's kernels launched on (the wrapper's ``launches_by_route``,
+``wgmma`` or ``simt``; a library without ``flash_tc_route`` predates the
+tensor-core kernels and runs every kernel on ``simt``), each kernel's
+device ms per side and round, and the largest difference between the
+two sides' outputs; the last line is the same as one JSON object.
 
 Usage, from the repository root on a machine with a CUDA card and nvcc,
 with the other checkout unpacked at OTHER (for example ``git archive`` of
@@ -60,10 +63,16 @@ def main(argv=None):
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
     proc, path = build_other(args.other)
     libs = {"this": _build.load(NAME)}
+    fa._lib()           # sets the C signatures on this library
     log, _ = proc.communicate()
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on the other {NAME}.cu:\n{log}")
     libs["other"] = ctypes.CDLL(str(path))
+    for fn in ("flash_fwd_launch", "flash_bwd_dq_launch",
+               "flash_bwd_dkv_launch", "flash_error_string"):
+        getattr(libs["other"], fn).argtypes = getattr(libs["this"],
+                                                      fn).argtypes
+        getattr(libs["other"], fn).restype = getattr(libs["this"], fn).restype
     logs = {"this": _build.builds[NAME]["log"], "other": log}
     card = card_line()
     for side in ("other", "this"):
@@ -86,12 +95,18 @@ def main(argv=None):
         "flash_bwd_dkv": lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                     True, scale),
     }
-    outs = {}
+    outs, routes = {}, {}
     for side in libs:
         use(side)
+        for by in fa.launches_by_route.values():
+            by.update(wgmma=0, simt=0)
         fwd = calls["flash_fwd"](0)
         outs[side] = [*fwd, calls["flash_bwd_dq"](0),
                       *calls["flash_bwd_dkv"](0)]
+        routes[side] = {k: dict(by) for k, by in fa.launches_by_route.items()}
+        if not hasattr(libs[side], "flash_tc_route"):   # before the route
+            routes[side] = {k: {"wgmma": 0, "simt": 1} for k in KERNELS}
+        print(f"{side} launches by route: {routes[side]}", flush=True)
     torch.cuda.synchronize()
     diff = {name: float((a.float() - c.float()).abs().max())
             for name, a, c in zip(("o", "lse", "dq", "dk", "dv"),
@@ -113,7 +128,7 @@ def main(argv=None):
         print(f"{kern}: this {a:.4f} ms, other {c:.4f} ms, this / other "
               f"{a / c:.4f} [{card}]", flush=True)
     print(json.dumps({"card": card, "shape": [b, h, s, d], "ms": ms,
-                      "max_abs_diff": diff,
+                      "max_abs_diff": diff, "routes": routes,
                       "ptxas": {side: ptxas_lines(logs[side])
                                 for side in logs}}), flush=True)
 
