@@ -10,11 +10,12 @@ bf16, AdamW with bf16 moments) with the LayerNorm kernels off and on,
 trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512) through
 the LayerNorm kernels, shows that every run went through its kernels,
 reads the device's busy time of each train step with ``torch.profiler``,
-and times the kernels. The flash forward and dK/dV take the tensor-core
-(``wgmma``) kernels for bf16 with head_dim 64 or 128: phase 2 checks that
-their SASS holds HGMMA instructions, phase 6 holds them to
-:func:`close_rounded`, and phases 7 and 10 check that every GPT launch
-of them took that route.
+and times the kernels. The flash forward, dQ and dK/dV take the
+tensor-core (``wgmma``) kernels for bf16 with head_dim 64 or 128, and the
+packed forward for bf16 with 64-wide heads: phase 2 checks that their
+SASS holds HGMMA instructions, phases 6 and 12 hold them to
+:func:`close_rounded`, and phases 7, 10 and 12 check that every counted
+launch of them took that route.
 
 Phases: 1 device, 2 build, 3 paged kernel vs plain, 4 serve, 5 time the
 paged kernel, 6 flash kernels vs plain, 7 train GPT, 8 time the flash
@@ -118,8 +119,12 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------ phase 2
-#: the tensor-core kernels of csrc/flash_attention.cu (B1 and B3)
-TC_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+#: the tensor-core kernels by library: csrc/flash_attention.cu (B1, B2,
+#: B3) and csrc/flash_pack2.cu (B7)
+TC_KERNELS = {"flash_attention": ("flash_fwd_wgmma_kernel",
+                                  "flash_bwd_dq_wgmma_kernel",
+                                  "flash_bwd_dkv_wgmma_kernel"),
+              "flash_pack2": ("flash_pack2_fwd_wgmma_kernel",)}
 
 
 def ptxas_blocks(log_text):
@@ -152,14 +157,14 @@ def sass_hgmma(path):
     return counts
 
 
-def check_tc_build(build):
-    """Phase 2, the tensor-core kernels: prints each one's ptxas lines
-    (registers, spills, shared memory) and its count of HGMMA
-    instructions; raises if either kernel has none."""
+def check_tc_build(lib, build):
+    """Phase 2, the tensor-core kernels of library ``lib``: prints each
+    one's ptxas lines (registers, spills, shared memory) and its count of
+    HGMMA instructions; raises if any of them has none."""
     blocks = ptxas_blocks(build["log"])
     hgmma = sass_hgmma(build["path"])
     out = {}
-    for name in TC_KERNELS:
+    for name in TC_KERNELS[lib]:
         found = {fn: n for fn, n in hgmma.items() if name in fn}
         if not found or not all(found.values()):
             raise AssertionError(f"{name}: no HGMMA instruction in the SASS "
@@ -522,14 +527,25 @@ def close_rounded(out, ref, tol, rounding):
 
 
 def rounding_terms(fa, q, k, v, do, lse, delta, causal, scale):
-    """``(P @ |V|, P^T @ |dO|, |dS|^T @ |scale q|)`` in f32 from the plain
-    versions' P = exp(S - lse) and dS = P (dO V^T - delta): the
-    magnitudes that :func:`close_rounded` scales."""
+    """``(P @ |V|, P^T @ |dO|, |dS|^T @ |scale q|, |dS| @ |K| scale)`` in
+    f32 from the plain versions' P = exp(S - lse) and dS = P (dO V^T -
+    delta): the magnitudes that :func:`close_rounded` scales for O, dV,
+    dK and dQ."""
     q, k, v, do = (t.float() for t in (q, k, v, do))
     p = (fa._scores(q, k, causal, scale) - lse[..., None]).exp()
     ds = p * (do @ v.transpose(-1, -2) - delta[..., None])
     return (p @ v.abs(), p.transpose(-1, -2) @ do.abs(),
-            ds.abs().transpose(-1, -2) @ (q * scale).abs())
+            ds.abs().transpose(-1, -2) @ (q * scale).abs(),
+            ds.abs() @ k.abs() * scale)
+
+
+def packed_rounding(fa, fp2, q, k, v, causal, scale):
+    """P @ |V| of each head of head-pair slabs ``[bh/2, s, 2d]``, in
+    their layout: the magnitude that :func:`close_rounded` scales for the
+    packed forward's O."""
+    q, k, v = (fp2.unpack_pairs(t.float()) for t in (q, k, v))
+    p = fa._scores(q, k, causal, scale).softmax(-1)
+    return fp2.pack_pairs((p @ v.abs())[None])
 
 
 def hold(checks, worst, what):
@@ -566,8 +582,8 @@ def check_flash(torch, fa, ctr):
     f32 and bf16, d 20 / 64 / 128, s 1024 / 1040 (a ragged last 64-row
     tile), and non-causal s_q != s_k (1040 x 512 and 512 x 1040 on the
     tensor-core route). The backward kernels and their plain versions get
-    the same lse and delta. bf16 O, dK and dV of the tensor-core route are
-    held to :func:`close_rounded`, everything else to :func:`close`."""
+    the same lse and delta. bf16 O, dQ, dK and dV of the tensor-core route
+    are held to :func:`close_rounded`, everything else to :func:`close`."""
     cases = [("bf16", True, 64, 64, 64, 2), ("bf16", False, 128, 64, 64, 2)]
     cases += [(dt, causal, d, s, s, 128) for dt in ("f32", "bf16")
               for causal in (True, False) for d in (20, 64, 128)
@@ -589,8 +605,9 @@ def check_flash(torch, fa, ctr):
 def check_flash_case(torch, fa, ctr, i, dt, causal, d, s_q, s_k, bh, seed,
                      worst):
     """One case of phase 6; ``worst`` collects each kernel's max error.
-    The library's route rule must agree with the wrapper's, and the
-    forward and dK/dV must launch on that route."""
+    The library's route rule must agree with the wrapper's, and each
+    kernel must launch on that route; the card is synchronized after each
+    launch, so a fault shows at the kernel that made it."""
     q, k, v, do = flash_inputs(torch, bh, s_q, s_k, d, dt, seed=seed)
     scale = 1.0 / d ** 0.5
     tc = fa._tc_route(q.dtype, d)
@@ -602,11 +619,12 @@ def check_flash_case(torch, fa, ctr, i, dt, causal, d, s_q, s_k, bh, seed,
     torch.cuda.synchronize()
     delta = (do.float() * o.float()).sum(-1)
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
     torch.cuda.synchronize()
     route = "wgmma" if tc else "simt"
     after = ctr.routes()
-    for name in ("flash_fwd", "flash_bwd_dkv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         if after[name][route] != before[name][route] + 1:
             raise AssertionError(f"flash case {i}: {name} did not launch on "
                                  f"the {route} route ({before} -> {after})")
@@ -614,15 +632,15 @@ def check_flash_case(torch, fa, ctr, i, dt, causal, d, s_q, s_k, bh, seed,
     ro, rlse = fa.flash_fwd_plain(*f[:3], causal, scale)
     rdq = fa.flash_bwd_dq_plain(*f, lse, delta, causal, scale)
     rdk, rdv = fa.flash_bwd_dkv_plain(*f, lse, delta, causal, scale)
-    r_o = r_dv = r_dk = None
+    r_o = r_dv = r_dk = r_dq = None
     if tc:
-        r_o, r_dv, r_dk = rounding_terms(fa, q, k, v, do, lse, delta, causal,
-                                         scale)
+        r_o, r_dv, r_dk, r_dq = rounding_terms(fa, q, k, v, do, lse, delta,
+                                               causal, scale)
     torch.cuda.synchronize()
     # lse is f32 on both sides whatever the input dtype
     checks = [("flash_fwd", "o", o, ro, dt, 2e-5, r_o),
               ("flash_fwd", "lse", lse, rlse, "f32", 2e-5),
-              ("flash_bwd_dq", "dq", dq, rdq, dt, 2e-4),
+              ("flash_bwd_dq", "dq", dq, rdq, dt, 2e-4, r_dq),
               ("flash_bwd_dkv", "dk", dk, rdk, dt, 2e-4, r_dk),
               ("flash_bwd_dkv", "dv", dv, rdv, dt, 2e-4, r_dv)]
     errs = hold(checks, worst, f"flash case {i} ({dt} causal={causal} "
@@ -772,12 +790,10 @@ def run_steps(torch, ctr, step, warmup, steps, want, what, traced=2):
 
 
 def expect_flash_routes(routes, n, what):
-    """Raise unless the ``n`` launches of each flash kernel took its route
-    at the GPT step's shape (bf16, d 64): the forward and dK/dV the tensor
-    cores, dQ the CUDA cores."""
-    want = {"flash_fwd": {"wgmma": n, "simt": 0},
-            "flash_bwd_dq": {"wgmma": 0, "simt": n},
-            "flash_bwd_dkv": {"wgmma": n, "simt": 0}}
+    """Raise unless the ``n`` launches of each flash kernel took the
+    tensor-core route, as the GPT step's shape (bf16, d 64) asks."""
+    want = {name: {"wgmma": n, "simt": 0}
+            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     got = {name: routes.get(name) for name in want}
     log(f"  {what}: flash launches by route {got}")
     if got != want:
@@ -864,8 +880,8 @@ def time_flash(torch, fa, ctr, card, b=8, h=16, s=1024, d=64):
     scaled_dot_product_attention (forward; backward = dq, dk and dv in
     one call) at the training shape, bf16, causal: each kernel's achieved
     TFLOP/s and the fraction of its bound it reaches. Then, for
-    reference, the forward and dK/dV at the same shape in f32, which
-    still take the CUDA-core kernels."""
+    reference, the three kernels at the same shape in f32, which still
+    take the CUDA-core kernels."""
     import torch.nn.functional as F
     bh, scale = b * h, 1.0 / d ** 0.5
     q, k, v, do = flash_inputs(torch, bh, s, s, d, "bf16", seed=7)
@@ -924,12 +940,14 @@ def time_flash(torch, fa, ctr, card, b=8, h=16, s=1024, d=64):
         out["simt_f32"] = {
             "flash_fwd": time_fn(torch, lambda i: fa.flash_fwd(
                 q, k, v, True, scale), 10, 1),
+            "flash_bwd_dq": time_fn(torch, lambda i: fa.flash_bwd_dq(
+                q, k, v, do, lse, delta, True, scale), 10, 1),
             "flash_bwd_dkv": time_fn(torch, lambda i: fa.flash_bwd_dkv(
                 q, k, v, do, lse, delta, True, scale), 10, 1)}
-        log(f"  f32 at the same shape (CUDA-core kernels, for reference): "
-            f"flash_fwd {out['simt_f32']['flash_fwd']:.4f} ms, "
-            f"flash_bwd_dkv {out['simt_f32']['flash_bwd_dkv']:.4f} ms "
-            f"[{card}]")
+        log("  f32 at the same shape (CUDA-core kernels, for reference): "
+            + ", ".join(f"{name} {ms:.4f} ms"
+                        for name, ms in out["simt_f32"].items())
+            + f" [{card}]")
     return out
 
 
@@ -1076,40 +1094,69 @@ def train_ernie(torch, ctr, card, warmup=2, steps=5):
 
 
 # ------------------------------------------------------------ phase 12
-def check_packed(torch, fp2, ctr):
-    """Phase 12, first part: the packed forward against its plain version
-    at b 2 x h 16 (16 head pairs): f32 and bf16, causal and not, (s 1024,
-    d 64) and (s 1040, d 20: a ragged last tile, a narrow head), and
-    non-causal s_q != s_k."""
-    cases = [(dt, causal, d, s, s) for dt in ("f32", "bf16")
-             for causal in (True, False) for s, d in ((1024, 64), (1040, 20))]
-    cases += [("f32", False, 64, 1024, 2048)]
+def check_packed(torch, fa, fp2, ctr):
+    """Phase 12, first part: the packed forward against its plain version:
+    first a small bf16 d 64 case (2 head pairs, s 64: the tensor-core
+    kernel's first launch, synchronized), then at b 2 x h 16 (16 head
+    pairs): f32 and bf16, causal and not, (s 1024, d 64) and (s 1040,
+    d 20: a ragged last tile, a narrow head); bf16 d 64 at s 1040 (a
+    ragged tile on the tensor-core route); non-causal s_q != s_k (f32
+    1024 x 2048, bf16 1040 x 512 and 512 x 1040). The library's route
+    rule must agree with the wrapper's and each call must launch on that
+    route. bf16 d 64 (the tensor-core route) is held to
+    :func:`close_rounded` with P @ |V| per head, everything else to
+    :func:`close`."""
+    cases = [("bf16", True, 64, 64, 64, 2)]
+    cases += [(dt, causal, d, s, s, 16) for dt in ("f32", "bf16")
+              for causal in (True, False) for s, d in ((1024, 64), (1040, 20))]
+    cases += [("f32", False, 64, 1024, 2048, 16),
+              ("bf16", True, 64, 1040, 1040, 16),
+              ("bf16", False, 64, 1040, 512, 16),
+              ("bf16", False, 64, 512, 1040, 16)]
+    # seeds: the 9 cases that came first keep theirs (500 + their index)
+    seeds = [499] + list(range(500, 512))
     worst = {"packed_flash_fwd": 0.0}
     with ctr.aside():
-        for i, (dt, causal, d, s_q, s_k) in enumerate(cases):
-            q, k, v, _ = flash_inputs(torch, 16, s_q, s_k, 2 * d, dt,
-                                      seed=500 + i)
+        for i, ((dt, causal, d, s_q, s_k, bh2), seed) in enumerate(
+                zip(cases, seeds)):
+            q, k, v, _ = flash_inputs(torch, bh2, s_q, s_k, 2 * d, dt,
+                                      seed=seed)
             scale = 1.0 / d ** 0.5
+            what = (f"packed case {i} ({dt} causal={causal} d={d} "
+                    f"s_q={s_q} s_k={s_k} pairs={bh2})")
+            tc = fp2._tc_route(q.dtype, d)
+            lib_tc = fp2._lib().flash_pack2_tc_route(fp2._CODES[q.dtype], d)
+            if bool(lib_tc) != tc:
+                raise AssertionError(f"{what}: the library's route differs "
+                                     f"from _tc_route's {tc}")
+            route = "wgmma" if tc else "simt"
+            before = ctr.routes()["packed_flash_fwd"][route]
             o = fp2.packed_flash_fwd(q, k, v, causal, scale)
+            torch.cuda.synchronize()
+            if ctr.routes()["packed_flash_fwd"][route] != before + 1:
+                raise AssertionError(f"{what}: no launch on the {route} "
+                                     "route")
             ref = fp2.packed_flash_fwd_plain(q.float(), k.float(), v.float(),
                                              causal, scale)
+            rnd = packed_rounding(fa, fp2, q, k, v, causal, scale) if tc \
+                else None
             torch.cuda.synchronize()
-            errs = hold([("packed_flash_fwd", "o", o, ref, dt, 2e-5)], worst,
-                        f"packed case {i} ({dt} causal={causal} d={d} "
-                        f"s_q={s_q} s_k={s_k})")
+            errs = hold([("packed_flash_fwd", "o", o, ref, dt, 2e-5, rnd)],
+                        worst, what)
             log(f"  case {dt:4s} causal={causal!s:5s} d={d:3d} s_q={s_q} "
-                f"s_k={s_k}: {errs}")
+                f"s_k={s_k} pairs={bh2} {route}: {errs}")
     return len(cases), worst
 
 
 def packed_path(torch, fa, fp2, ctr, card, worst, b=8, h=16, s=1024, d=64):
     """Phase 12, second part: ``tools/flash_pack2_bench.py``'s run at its
     shape (b 8, h 16, s 1024, d 64, bf16, causal): one packed call with
-    the counts zeroed before and read after, its output held against the
-    plain version on the same inputs as in the first part (``worst``
-    keeps the error) and compared with ``flash_fwd`` on the unpacked
-    heads (the tool's ``max_abs_err``), then the packed kernel timed
-    beside ``flash_fwd``, the plain version and SDPA."""
+    the counts zeroed before and read after (it must be one launch on the
+    tensor-core route), its output held against the plain version as in
+    the first part (``worst`` keeps the error) and compared with
+    ``flash_fwd`` on the unpacked heads (the tool's ``max_abs_err``),
+    then the packed kernel timed beside ``flash_fwd``, the plain version
+    and SDPA."""
     import torch.nn.functional as F
     scale = 1.0 / d ** 0.5
     q, k, v, _ = flash_inputs(torch, b * h, s, s, d, "bf16", seed=9)
@@ -1119,15 +1166,21 @@ def packed_path(torch, fa, fp2, ctr, card, worst, b=8, h=16, s=1024, d=64):
     o = fp2.packed_flash_fwd(qp, kp, vp, True, scale)
     torch.cuda.synchronize()
     run = ctr.read()
+    routes = ctr.routes()["packed_flash_fwd"]
     ctr.expect(run, {"packed_flash_fwd": 1}, "packed forward")
+    if routes != {"wgmma": 1, "simt": 0}:
+        raise AssertionError(f"packed forward: launches by route {routes}, "
+                             "expected the one on wgmma")
     qd, kd, vd = (t.reshape(b, h, s, d) for t in (q, k, v))
     with ctr.aside():
         ref = fp2.packed_flash_fwd_plain(qp.float(), kp.float(), vp.float(),
                                          True, scale)
+        rnd = packed_rounding(fa, fp2, qp, kp, vp, True, scale)
         torch.cuda.synchronize()
-        errs = hold([("packed_flash_fwd", "o", o, ref, "bf16", 2e-5)], worst,
+        errs = hold([("packed_flash_fwd", "o", o, ref, "bf16", 2e-5, rnd)],
+                    worst,
                     f"packed forward at the probe's shape {[b, h, s, d]}")
-        del ref
+        del ref, rnd
         log(f"  probe's shape {[b, h, s, d]} bf16 causal vs plain: {errs}")
         base, _ = fa.flash_fwd(q, k, v, True, scale)
         err = float((fp2.unpack_pairs(o).float() - base.float()).abs().max())
@@ -1149,8 +1202,9 @@ def packed_path(torch, fa, fp2, ctr, card, worst, b=8, h=16, s=1024, d=64):
         f"{b_['bytes']} B / {b_['flops']} FLOP -> bound "
         f"{b_['bound_ms']:.4f} ms ({b_['bound_by']}) [{card}]")
     log(f"  {json.dumps(probe)}")
-    return {"launches": run["packed_flash_fwd"], "ms": packed_ms,
-            "plain_ms": plain_ms, "library_ms": lib_ms, "probe": probe, **b_}
+    return {"launches": run["packed_flash_fwd"], "routes": routes,
+            "ms": packed_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "probe": probe, **b_}
 
 
 # ------------------------------------------------------------ phase 13
@@ -1239,8 +1293,11 @@ def main():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
-    log("  the tensor-core flash kernels:")
-    check_tc_build(_build.builds["flash_attention"])
+    log("  shared headers (in every build's key): " + ", ".join(
+        sorted(p.name for p in _build.CSRC.glob("*.cuh"))))
+    log("  the tensor-core kernels:")
+    for lib in TC_KERNELS:
+        check_tc_build(lib, _build.builds[lib])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1297,7 +1354,7 @@ def main():
     torch.cuda.empty_cache()
 
     log("== phase 12: packed-heads flash forward")
-    n_packed, packed_err = check_packed(torch, fp2, ctr)
+    n_packed, packed_err = check_packed(torch, fa, fp2, ctr)
     log(f"  {n_packed} cases passed, max abs err {packed_err}")
     packed = packed_path(torch, fa, fp2, ctr, card, packed_err)
     n_packed += 1
@@ -1344,7 +1401,9 @@ def main():
         "packed_flash_fwd", "flash_pack2.cu", "tools/flash_pack2_bench.py:48",
         packed["launches"], packed_err["packed_flash_fwd"], packed,
         cases_passed=n_packed,
-        library_call="scaled_dot_product_attention", probe=packed["probe"]))
+        library_call="scaled_dot_product_attention", probe=packed["probe"],
+        cuda_route=max(packed["routes"], key=packed["routes"].get),
+        launches_by_route=packed["routes"]))
 
     def summary(r):
         return {k: v for k, v in r.items() if k != "launches"}

@@ -16,12 +16,12 @@
 // three calls do about 17, 26 and 34 GFLOP against 68, 85 and 102 MB of
 // compulsory traffic: on the H100's tensor cores (989 TFLOP/s bf16) the work
 // and the bytes (3.35 TB/s) each cost ~0.02-0.035 ms. For bf16 with d 64 or
-// 128 the forward and dK/dV run on the tensor cores (flash_fwd_wgmma_kernel,
-// flash_bwd_dkv_wgmma_kernel, designed below); dQ and every f32 or other-
-// width call run the first version, which does its products on the CUDA
-// cores in f32 (FMA, 67 TFLOP/s peak): bound by FMA issue and shared-memory
-// reads at ~19 TFLOP/s, 43-52x above the bound on an H100 80GB HBM3 at
-// 700 W (chip_smoke.py phase 8).
+// 128 all three run on the tensor cores (flash_fwd_wgmma_kernel,
+// flash_bwd_dq_wgmma_kernel, flash_bwd_dkv_wgmma_kernel, designed below);
+// every f32 or other-width call runs the first version, which does its
+// products on the CUDA cores in f32 (FMA, 67 TFLOP/s peak): bound by the
+// FMA rate and shared-memory reads at ~19 TFLOP/s, 43-52x above the bound
+// on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 8).
 //
 // Design of the first version (simple and correct first): one block of 256
 // threads per (bh, 64-row tile), on the tiles of flash_tiles.cuh: each
@@ -36,8 +36,8 @@
 // no atomics: dQ is gridded over q tiles, dK/dV over k tiles. The blocks with
 // the most causal work are launched first.
 
+#include "flash_tc.cuh"
 #include "flash_tiles.cuh"
-#include "hopper.cuh"
 
 namespace {
 
@@ -342,61 +342,54 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 // on the tensor cores; f32 and other widths keep the CUDA-core kernels
 // above. Bound at the training shape (b 8, h 16, s 1024, d 64, causal):
 // forward 17.2 GFLOP in 0.017 ms at 989 TFLOP/s against 0.020 ms for its
-// bytes, dK/dV 34.4 GFLOP in 0.035 ms; both are product-bound once the
-// products run in wgmma, so the design keeps the tensor cores fed:
+// bytes, dQ 25.8 GFLOP in 0.026 ms, dK/dV 34.4 GFLOP in 0.035 ms; all are
+// product-bound once the products run in wgmma, so the design keeps the
+// tensor cores fed:
 // - tiles arrive by TMA into 128-byte-swizzled shared memory that wgmma
 //   reads directly (hopper.cuh), issued by one producer warp into a ring
 //   of kStages stages guarded by full/empty mbarriers, so the next tile is
-//   in flight while this one is multiplied;
-// - the first product of a step (S = Q K^T; in dK/dV S^T = K Q^T and
-//   dP^T = V dO^T) is an SS wgmma with f32 accumulators in registers;
+//   in flight while this one is multiplied (the forward's and dQ's ring
+//   and the forward's loop live in flash_tc.cuh, shared with the packed
+//   forward of flash_pack2.cu);
+// - the first products of a step (S = Q K^T, in dQ also dP = dO V^T; in
+//   dK/dV S^T = K Q^T and dP^T = V dO^T) are SS wgmmas with f32
+//   accumulators in registers;
 // - the softmax runs on the accumulator fragment (a row lives in the 4
 //   threads of a quad: shuffles with xor 1, 2), with scale * log2(e)
 //   folded into exp2;
 // - P (and dS) are rounded to bf16 in registers and feed the second
-//   product (O += P V; dV += P^T dO, dK += dS^T Q) as its register A
-//   operand: no probability tile touches shared memory. That rounding is
-//   the route's one numerical difference from the f32 kernels, as in
-//   every FlashAttention (chip_smoke.py holds it to a stated bound).
+//   product (O += P V; dQ += dS K; dV += P^T dO, dK += dS^T Q) as its
+//   register A operand: no probability tile touches shared memory. That
+//   rounding is the route's one numerical difference from the f32
+//   kernels, as in every FlashAttention (chip_smoke.py holds it to a
+//   stated bound).
 // Masks are as above: keys past Sk or above the diagonal to -inf in the
-// forward; q rows past Sq to lse = +inf (P = 0) in dK/dV. dK/dV walks the
-// q tiles of its own 64 keys, so it needs no atomics.
+// forward (P = 0 in dQ); q rows past Sq to lse = +inf (P = 0) in dQ and
+// dK/dV. dQ walks the k tiles of its own 128 q rows and dK/dV the q tiles
+// of its own 64 keys, so neither needs atomics.
 
-constexpr int kStages = 2;         // tiles in flight per ring
-constexpr int kFwdWarpgroups = 2;  // consumer warpgroups (64 q rows each)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+using flash_tc::kLn2;
+using flash_tc::kLog2e;
+using flash_tc::kStages;
+constexpr int kFwdRows = 64 * flash_tc::kWarpgroups;   // q rows per block
 constexpr int kMapError = -2;
 
 bool tc_route(int dtype, int D) { return dtype == 1 && (D == 64 || D == 128); }
 
-__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// Shared memory of the forward: the q tile (64 rows per consumer
-// warpgroup), then kStages (k tile, v tile) pairs, then the barriers;
-// each tile d / 64 panels. Dynamic: 50,216 B at d 64, 99,368 B at d 128.
+// The forward's block: the producer warp loads the 128-row q tile and
+// streams the k and v tiles; consumer warpgroup wg owns q rows
+// q0 + 64 wg .. + 63 (flash_tc.cuh). Dynamic shared memory: 50,216 B at
+// d 64, 99,368 B at d 128.
 template <int D>
-struct FwdSmem {
-  static constexpr int kBM = 64 * kFwdWarpgroups;
-  static constexpr uint32_t kQ = kBM * D * 2;
-  static constexpr uint32_t kT = 64 * D * 2;
-  static constexpr uint32_t kBars = kQ + kStages * 2 * kT;
-  static constexpr size_t kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kFwdWarpgroups * 128 + 32, 1)
+__global__ void __launch_bounds__(flash_tc::kRingThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
                            const __grid_constant__ CUtensorMap tv,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int Sq, int Sk,
                            float scale_log2, bool causal) {
-  using namespace hopper;
-  using L = FwdSmem<D>;
+  using namespace flash_tc;
+  using L = FwdSmem<D, kFwdRows>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_1024(smem_raw);
   uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::kBars);
@@ -405,38 +398,83 @@ __global__ void __launch_bounds__(kFwdWarpgroups * 128 + 32, 1)
 
   const int bh = static_cast<int>(blockIdx.x);
   const int q0 = (static_cast<int>(gridDim.y) - 1 -
-                  static_cast<int>(blockIdx.y)) * L::kBM;   // heavy first
+                  static_cast<int>(blockIdx.y)) * kFwdRows;   // heavy first
   const int n_k = (Sk + 63) / 64;
-  const int nk_block = causal ? min(n_k, (q0 + L::kBM - 1) / 64 + 1) : n_k;
+  const int nk_block = causal ? min(n_k, (q0 + kFwdRows - 1) / 64 + 1) : n_k;
+  const int warp = static_cast<int>(threadIdx.x) / 32;
+  ring_init(qbar, full, empty);
+
+  if (warp == kWarpgroups * 4) {   // the producer warp: lane 0 copies
+    if (threadIdx.x % 32 == 0) {
+      hopper::mbar_expect_tx(qbar, L::kQ);
+      tma_tile<D, kFwdRows>(sm, &tq, qbar, q0, bh);
+      stream_kv<D>(sm + L::kQ, &tk, &tv, full, empty, nk_block, bh);
+    }
+    return;
+  }
+  const int wg = warp / 4;
+  const int row0 = q0 + wg * 64;
+  const int nk = row0 >= Sq ? 0
+                 : causal   ? min(n_k, (row0 + 63) / 64 + 1)
+                            : n_k;
+  fwd_consumer<D>(hopper::smem_u32(sm) + wg * 64 * 128, kFwdRows * 128,
+                  sm + L::kQ, 2 * L::kT, L::kT, qbar, full, empty, nk_block,
+                  nk, row0, Sq, Sk, causal, scale_log2,
+                  o + size_t(bh) * Sq * D, D, lse + size_t(bh) * Sq);
+}
+
+// Shared memory of dQ: the q and dO tiles (128 rows each), then kStages
+// (k tile, v tile) pairs, then the barriers. Dynamic: 66,600 B at d 64,
+// 132,136 B at d 128.
+template <int D>
+struct DqSmem {
+  static constexpr uint32_t kQ = kFwdRows * D * 2;
+  static constexpr uint32_t kT = 64 * D * 2;
+  static constexpr uint32_t kBars = 2 * kQ + kStages * 2 * kT;
+  static constexpr size_t kBytes = 1024 + kBars + 8 * (1 + 2 * kStages);
+};
+
+// dQ on the tensor cores: the forward's block with dO beside q. Per k
+// tile, S = Q K^T and dP = dO V^T as SS wgmmas (V read K-major, like K),
+// P = exp2(S scale log2(e) - lse log2(e)) with keys past Sk and above the
+// diagonal at 0, dS = P (dP - delta) rounded to bf16 in registers as the A
+// operand of dQ += dS K (K read MN-major, like V in the forward). Each
+// block owns its q rows, so no atomics; q rows past Sq read lse = +inf
+// (P = 0) and are never stored.
+template <int D>
+__global__ void __launch_bounds__(flash_tc::kRingThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int Sq, int Sk,
+                              float scale, bool causal) {
+  using namespace flash_tc;
+  using namespace hopper;
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_1024(smem_raw);
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + kStages;
+
+  const int bh = static_cast<int>(blockIdx.x);
+  const int q0 = (static_cast<int>(gridDim.y) - 1 -
+                  static_cast<int>(blockIdx.y)) * kFwdRows;   // heavy first
+  const int n_k = (Sk + 63) / 64;
+  const int nk_block = causal ? min(n_k, (q0 + kFwdRows - 1) / 64 + 1) : n_k;
   const int warp = static_cast<int>(threadIdx.x) / 32;
   const int lane = static_cast<int>(threadIdx.x) % 32;
+  ring_init(qbar, full, empty);
 
-  if (threadIdx.x == 0) {
-    mbar_init(qbar, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kFwdWarpgroups * 4);   // one per consumer warp
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (warp == kFwdWarpgroups * 4) {   // the producer warp: lane 0 copies
+  if (warp == kWarpgroups * 4) {   // the producer warp: lane 0 copies
     if (lane == 0) {
-      mbar_expect_tx(qbar, L::kQ);
-      for (int p = 0; p < D / 64; ++p)
-        tma_load_3d(sm + p * L::kBM * 128, &tq, qbar, p * 64, q0, bh);
-      for (int t = 0; t < nk_block; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
-        uint8_t* kt = sm + L::kQ + s * 2 * L::kT;
-        mbar_expect_tx(&full[s], 2 * L::kT);
-        for (int p = 0; p < D / 64; ++p) {
-          tma_load_3d(kt + p * 64 * 128, &tk, &full[s], p * 64, t * 64, bh);
-          tma_load_3d(kt + L::kT + p * 64 * 128, &tv, &full[s], p * 64,
-                      t * 64, bh);
-        }
-      }
+      mbar_expect_tx(qbar, 2 * L::kQ);
+      tma_tile<D, kFwdRows>(sm, &tq, qbar, q0, bh);
+      tma_tile<D, kFwdRows>(sm + L::kQ, &tdo, qbar, q0, bh);
+      stream_kv<D>(sm + 2 * L::kQ, &tk, &tv, full, empty, nk_block, bh);
     }
     return;
   }
@@ -450,72 +488,73 @@ __global__ void __launch_bounds__(kFwdWarpgroups * 128 + 32, 1)
                             : n_k;
   const int r_lo = row0 + (warp % 4) * 16 + lane / 4;
   const int cq = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
   const uint32_t q_base = smem_u32(sm) + wg * 64 * 128;
+  const uint32_t do_base = q_base + L::kQ;
+  float lse2[2], dl[2];   // this thread's rows: lse * log2(e), delta
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r_lo + 8 * h;
+    const bool live = row < Sq;
+    lse2[h] = live ? lse[size_t(bh) * Sq + row] * kLog2e : INFINITY;
+    dl[h] = live ? delta[size_t(bh) * Sq + row] : 0.0f;
+  }
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY};   // row max of S * scale * log2(e)
-  float l[2] = {0.0f, 0.0f};             // this thread's part of the row sum
   mbar_wait(qbar, 0);
 
   for (int t = 0; t < nk_block; ++t) {
     const int s = t % kStages;
-    const uint32_t k_base = smem_u32(sm + L::kQ + s * 2 * L::kT);
+    const uint32_t k_base = smem_u32(sm + 2 * L::kQ + s * 2 * L::kT);
     const uint32_t v_base = k_base + L::kT;
     mbar_wait(&full[s], (t / kStages) & 1);
     if (t < nk) {   // uniform over the warpgroup
-      float sc[32];
+      float sp[32], dp[32];   // S, then P; dP
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        mma_ss(sc,
-               desc(q_base + (kk / 4) * L::kBM * 128 + (kk % 4) * 32, 16,
+        mma_ss(sp,
+               desc(q_base + (kk / 4) * kFwdRows * 128 + (kk % 4) * 32, 16,
                     1024),
                desc(k_base + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024),
                kk > 0);
       wg_commit();
-      wg_wait<0>();
-      fence_regs(sc);
-
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss(dp,
+               desc(do_base + (kk / 4) * kFwdRows * 128 + (kk % 4) * 32, 16,
+                    1024),
+               desc(v_base + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024),
+               kk > 0);
+      wg_commit();
+      wg_wait<1>();   // S is in; dP may still be on its way
+      fence_regs(sp);
       const int k0 = t * 64;
-      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int r = 0; r < 32; ++r) {
         const int h = (r >> 1) & 1;
         const int col = k0 + 8 * (r >> 2) + cq + (r & 1);
-        if (col >= Sk || (causal && col > r_lo + 8 * h)) sc[r] = -INFINITY;
-        mx[h] = fmaxf(mx[h], sc[r]);
+        const float p = exp2_approx(fmaf(sp[r], scale_log2, -lse2[h]));
+        sp[r] = col >= Sk || (causal && col > r_lo + 8 * h) ? 0.0f : p;
       }
-      float alpha[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        // every row sees key 0 in tile 0, so m is finite from there on
-        const float m_new = fmaxf(m[h], mx[h] * scale_log2);
-        alpha[h] = exp2_approx(m[h] - m_new);
-        m[h] = m_new;
-        l[h] *= alpha[h];
-      }
-      uint32_t pa[16];   // P as the A operand: 4 registers per 16 keys
+      wg_wait<0>();
+      fence_regs(dp);
+      uint32_t da[16];   // dS as the A operand: 4 registers per 16 keys
 #pragma unroll
       for (int r = 0; r < 32; r += 2) {
         const int h = (r >> 1) & 1;
-        const float p0 = exp2_approx(fmaf(sc[r], scale_log2, -m[h]));
-        const float p1 = exp2_approx(fmaf(sc[r + 1], scale_log2, -m[h]));
-        l[h] += p0 + p1;
-        pa[r / 2] = pack_bf16(p0, p1);
+        da[r / 2] = pack_bf16(sp[r] * (dp[r] - dl[h]),
+                              sp[r + 1] * (dp[r + 1] - dl[h]));
       }
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        mma_rs(acc, &pa[4 * kk], desc(v_base + kk * 16 * 128, 64 * 128, 1024));
+        mma_rs(acc, &da[4 * kk], desc(k_base + kk * 16 * 128, 64 * 128, 1024));
       wg_commit();
       wg_wait<0>();
       fence_regs(acc);
-      fence_regs(pa);
+      fence_regs(da);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -523,26 +562,12 @@ __global__ void __launch_bounds__(kFwdWarpgroups * 128 + 32, 1)
   if (nk == 0) return;
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
-    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-  }
-  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
-#pragma unroll
   for (int r = 0; r < D / 2; r += 2) {
-    const int h = (r >> 1) & 1;
-    const int row = r_lo + 8 * h;
+    const int row = r_lo + 8 * ((r >> 1) & 1);
     if (row < Sq) {
-      __nv_bfloat16* dst = o + (size_t(bh) * Sq + row) * D + 8 * (r >> 2) + cq;
+      __nv_bfloat16* dst = dq + (size_t(bh) * Sq + row) * D + 8 * (r >> 2) + cq;
       *reinterpret_cast<__nv_bfloat162*>(dst) =
-          __floats2bfloat162_rn(acc[r] * inv[h], acc[r + 1] * inv[h]);
-    }
-  }
-  if (lane % 4 == 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r_lo + 8 * h;
-      if (row < Sq) lse[size_t(bh) * Sq + row] = m[h] * kLn2 + logf(l[h]);
+          __floats2bfloat162_rn(acc[r] * scale, acc[r + 1] * scale);
     }
   }
 }
@@ -572,7 +597,7 @@ __global__ void __launch_bounds__(160, 1)
   using namespace hopper;
   using L = DkvSmem<D>;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = align_1024(smem_raw);
+  uint8_t* sm = flash_tc::align_1024(smem_raw);
   float* stats = reinterpret_cast<float*>(sm + L::kStats);
   uint64_t* kvbar = reinterpret_cast<uint64_t*>(sm + L::kBars);
   uint64_t* full = kvbar + 1;
@@ -718,19 +743,41 @@ template <int D>
 int fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
            int BH, int Sq, int Sk, float scale, bool causal,
            cudaStream_t st) {
-  using L = FwdSmem<D>;
+  using L = flash_tc::FwdSmem<D, kFwdRows>;
   CUtensorMap mq, mk, mv;
-  if (!hopper::slab_map(&mq, q, BH, Sq, D, L::kBM) ||
+  if (!hopper::slab_map(&mq, q, BH, Sq, D, kFwdRows) ||
       !hopper::slab_map(&mk, k, BH, Sk, D, 64) ||
       !hopper::slab_map(&mv, v, BH, Sk, D, 64))
     return kMapError;
   const auto kernel = flash_fwd_wgmma_kernel<D>;
   int rc = prepare(kernel, L::kBytes);
   if (rc != 0) return rc;
-  dim3 grid(BH, (Sq + L::kBM - 1) / L::kBM);
-  kernel<<<grid, kFwdWarpgroups * 128 + 32, L::kBytes, st>>>(
+  dim3 grid(BH, (Sq + kFwdRows - 1) / kFwdRows);
+  kernel<<<grid, flash_tc::kRingThreads, L::kBytes, st>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
       Sq, Sk, scale * kLog2e, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dq_tc(const void* q, const void* k, const void* v, const void* dout,
+          const void* lse, const void* delta, void* dqp, int BH, int Sq,
+          int Sk, float scale, bool causal, cudaStream_t st) {
+  using L = DqSmem<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::slab_map(&mq, q, BH, Sq, D, kFwdRows) ||
+      !hopper::slab_map(&mk, k, BH, Sk, D, 64) ||
+      !hopper::slab_map(&mv, v, BH, Sk, D, 64) ||
+      !hopper::slab_map(&mdo, dout, BH, Sq, D, kFwdRows))
+    return kMapError;
+  const auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+  int rc = prepare(kernel, L::kBytes);
+  if (rc != 0) return rc;
+  dim3 grid(BH, (Sq + kFwdRows - 1) / kFwdRows);
+  kernel<<<grid, flash_tc::kRingThreads, L::kBytes, st>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dqp), Sq,
+      Sk, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -784,8 +831,8 @@ bool bad_shape(int BH, int Sq, int Sk, int D, int causal) {
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs
 // share it; lse and delta are float32 [BH, Sq]). Each returns
 // cudaGetLastError() after its launch, -1 for arguments it does not take,
-// or -2 when the driver refuses a TMA tensor map. The forward and dK/dV
-// take the tensor-core kernels where flash_tc_route says so.
+// or -2 when cuTensorMapEncodeTiled refuses a tensor map. All three take
+// the tensor-core kernels where flash_tc_route says so.
 extern "C" int flash_tc_route(int dtype, int D) {
   return tc_route(dtype, D) ? 1 : 0;
 }
@@ -811,8 +858,14 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    int D, float scale, int causal, int dtype,
                                    void* stream) {
   if (bad_shape(BH, Sq, Sk, D, causal)) return -1;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tc_route(dtype, D))
+    return D == 64 ? dq_tc<64>(q, k, v, dout, lse, delta, dq_out, BH, Sq, Sk,
+                               scale, causal != 0, st)
+                   : dq_tc<128>(q, k, v, dout, lse, delta, dq_out, BH, Sq,
+                                Sk, scale, causal != 0, st);
   FLASH_DISPATCH(dq, q, k, v, dout, lse, delta, dq_out, BH, Sq, Sk, D, scale,
-                 causal != 0, static_cast<cudaStream_t>(stream));
+                 causal != 0, st);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the tensor-core flash kernels of
-// flash_attention.cu, written as inline PTX: mbarriers, TMA tile loads
+// flash_attention.cu and flash_pack2.cu, written as inline PTX: mbarriers, TMA tile loads
 // (cp.async.bulk.tensor) with the host-side tensor map, and warpgroup
 // matrix multiplies (wgmma) on bf16 tiles with f32 accumulators.
 //

@@ -7,7 +7,7 @@ three TPU kernels: :func:`flash_fwd` (O and lse), :func:`flash_bwd_dq`
 and :func:`flash_bwd_dkv`. Each wrapper launches its kernel for CUDA
 tensors and runs its plain PyTorch version (``*_plain``) only for
 tensors on the CPU; a CUDA tensor the kernel does not take raises, and
-nothing falls back. The forward and dK/dV have two routes, decided by
+nothing falls back. Each kernel has two routes, decided by
 :func:`_tc_route` before the launch: bf16 with head_dim 64 or 128 runs
 the tensor-core (``wgmma``) kernels, everything else the CUDA-core
 (``simt``) ones; ``launches_by_route`` counts each.
@@ -33,7 +33,7 @@ from . import _build
 #: kernel launches per kernel (CPU calls excluded)
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 #: the same launches by route: "wgmma" (tensor cores) or "simt" (CUDA
-#: cores); dQ always takes the CUDA-core kernel
+#: cores)
 launches_by_route = {name: {"wgmma": 0, "simt": 0} for name in launches}
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,7 +41,7 @@ MAX_D = 128
 
 
 def _tc_route(dtype, d):
-    """Whether the forward and dK/dV take the tensor-core kernels: bf16
+    """Whether the three kernels take the tensor-core route: bf16
     with head_dim 64 or 128 (TMA needs rows of a multiple of 16 bytes and
     the tiles are 64-column panels). The CUDA side decides by the same
     rule (``flash_tc_route`` in the library)."""
@@ -202,10 +202,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal, scale):
     _check_stats(q, do, lse, delta)
     bh, s_q, d = q.shape
     dq = torch.empty_like(q)
-    _run("flash_bwd_dq", "simt", _lib().flash_bwd_dq_launch, q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-         delta.data_ptr(), dq.data_ptr(), bh, s_q, k.shape[1], d,
-         float(scale), int(causal), _CODES[q.dtype], q.device)
+    _run("flash_bwd_dq", _route(q), _lib().flash_bwd_dq_launch,
+         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s_q,
+         k.shape[1], d, float(scale), int(causal), _CODES[q.dtype],
+         q.device)
     return dq
 
 

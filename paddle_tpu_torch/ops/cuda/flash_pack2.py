@@ -2,14 +2,18 @@
 ``tools/flash_pack2_bench.py`` (the TPU's measurement probe that packs
 two d=64 heads into one 128-lane tile).
 
-One hand-written CUDA kernel (``paddle_tpu_torch/csrc/flash_pack2.cu``,
-built on first use by :mod:`._build`) replaces ``_packed_fwd_kernel``:
+Hand-written CUDA kernels (``paddle_tpu_torch/csrc/flash_pack2.cu``,
+built on first use by :mod:`._build`) replace ``_packed_fwd_kernel``:
 :func:`packed_flash_fwd` takes head-pair slabs ``[b*h/2, s, 2d]``
 (:func:`pack_pairs`) and returns each half's own attention in the same
-layout, with no lse. The wrapper launches the kernel for CUDA tensors
-and runs :func:`packed_flash_fwd_plain` only for tensors on the CPU; a
-CUDA input the kernel does not take raises, and nothing falls back. It
-is forward only and on no model path, as its reference is.
+layout, with no lse. It has two routes, decided by :func:`_tc_route`
+before the launch: bf16 with 64-wide heads (the probe's shape) runs the
+tensor-core (``wgmma``) kernel, everything else the CUDA-core
+(``simt``) one; ``launches_by_route`` counts each. The wrapper launches
+a kernel for CUDA tensors and runs :func:`packed_flash_fwd_plain` only
+for tensors on the CPU; a CUDA input the kernels do not take raises,
+and nothing falls back. It is forward only and on no model path, as its
+reference is.
 """
 
 from __future__ import annotations
@@ -23,9 +27,20 @@ from .flash_attention import flash_fwd_plain
 
 #: kernel launches (CPU calls excluded)
 launches = {"packed_flash_fwd": 0}
+#: the same launches by route: "wgmma" (tensor cores) or "simt" (CUDA
+#: cores)
+launches_by_route = {"packed_flash_fwd": {"wgmma": 0, "simt": 0}}
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D = 64   # per head
+
+
+def _tc_route(dtype, d):
+    """Whether a call takes the tensor-core kernel: bf16 with 64-wide
+    heads, so that a slab row is two 64-column panels. The CUDA side
+    decides by the same rule (``flash_pack2_tc_route`` in the
+    library)."""
+    return dtype == torch.bfloat16 and d == 64
 
 
 def pack_pairs(x):
@@ -63,6 +78,8 @@ def _lib():
         lib.flash_pack2_fwd_launch.restype = ctypes.c_int
         lib.flash_pack2_error_string.argtypes = [ctypes.c_int]
         lib.flash_pack2_error_string.restype = ctypes.c_char_p
+        lib.flash_pack2_tc_route.argtypes = [i32, i32]
+        lib.flash_pack2_tc_route.restype = ctypes.c_int
     return lib
 
 
@@ -110,4 +127,6 @@ def packed_flash_fwd(q, k, v, causal, scale):
         msg = _lib().flash_pack2_error_string(rc).decode()
         raise RuntimeError(f"packed_flash_fwd launch failed: {msg} ({rc})")
     launches["packed_flash_fwd"] += 1
+    route = "wgmma" if _tc_route(q.dtype, d2 // 2) else "simt"
+    launches_by_route["packed_flash_fwd"][route] += 1
     return o

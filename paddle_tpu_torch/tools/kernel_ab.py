@@ -5,11 +5,13 @@ inputs (the GPT training shape: b 8, h 16, s 1024, d 64, bf16, causal; the
 backward kernels get one lse and delta) and are timed with
 ``chip_smoke.time_fn`` in the order other, this, this, other, twice.
 Prints each build's ptxas register and spill lines, the route each
-side's kernels launched on (the wrapper's ``launches_by_route``,
-``wgmma`` or ``simt``; a library without ``flash_tc_route`` predates the
-tensor-core kernels and runs every kernel on ``simt``), each kernel's
-device ms per side and round, and the largest difference between the
-two sides' outputs; the last line is the same as one JSON object.
+side's kernels ran on (``wgmma`` when the device kernel that ran, by
+name in a ``torch.profiler`` trace, is a tensor-core one, else
+``simt``), each kernel's device ms per side and round with this side's
+speedup (other / this), the largest difference between the two sides'
+outputs and which outputs are bit-equal (a kernel whose code did not
+change gives bit-equal outputs; a redesigned one differs by its
+rounding); the last line is the same as one JSON object.
 
 Usage, from the repository root on a machine with a CUDA card and nvcc,
 with the other checkout unpacked at OTHER (for example ``git archive`` of
@@ -29,6 +31,7 @@ from pathlib import Path
 import torch
 
 from chip_smoke import card_line, flash_inputs, time_fn
+from torch.profiler import ProfilerActivity, profile
 
 from ..ops.cuda import _build
 from ..ops.cuda import flash_attention as fa
@@ -40,6 +43,16 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 def ptxas_lines(log):
     return [line.strip() for line in log.splitlines()
             if "registers" in line or "spill" in line or "Compiling" in line]
+
+
+def kernels_run(fn):
+    """Names of the device kernels that ``fn()`` ran."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 def build_other(root):
@@ -98,20 +111,24 @@ def main(argv=None):
     outs, routes = {}, {}
     for side in libs:
         use(side)
-        for by in fa.launches_by_route.values():
-            by.update(wgmma=0, simt=0)
         fwd = calls["flash_fwd"](0)
         outs[side] = [*fwd, calls["flash_bwd_dq"](0),
                       *calls["flash_bwd_dkv"](0)]
-        routes[side] = {k: dict(by) for k, by in fa.launches_by_route.items()}
-        if not hasattr(libs[side], "flash_tc_route"):   # before the route
-            routes[side] = {k: {"wgmma": 0, "simt": 1} for k in KERNELS}
-        print(f"{side} launches by route: {routes[side]}", flush=True)
+        routes[side] = {}
+        for kern in KERNELS:
+            names = kernels_run(lambda: calls[kern](0))
+            routes[side][kern] = ("wgmma" if any("wgmma" in n for n in names)
+                                  else "simt")
+        print(f"{side} routes: {routes[side]}", flush=True)
     torch.cuda.synchronize()
     diff = {name: float((a.float() - c.float()).abs().max())
             for name, a, c in zip(("o", "lse", "dq", "dk", "dv"),
                                   outs["this"], outs["other"])}
-    print(f"max |this - other| by output: {diff}", flush=True)
+    equal = [name for name, a, c in zip(("o", "lse", "dq", "dk", "dv"),
+                                        outs["this"], outs["other"])
+             if torch.equal(a, c)]
+    print(f"max |this - other| by output: {diff}; bit-equal: {equal}",
+          flush=True)
 
     ms = {side: {kern: [] for kern in KERNELS} for side in libs}
     for r, side in enumerate(("other", "this", "this", "other") * 2):
@@ -126,9 +143,10 @@ def main(argv=None):
         a = sum(ms["this"][kern]) / len(ms["this"][kern])
         c = sum(ms["other"][kern]) / len(ms["other"][kern])
         print(f"{kern}: this {a:.4f} ms, other {c:.4f} ms, this / other "
-              f"{a / c:.4f} [{card}]", flush=True)
+              f"{a / c:.4f}, speedup {c / a:.2f}x [{card}]", flush=True)
     print(json.dumps({"card": card, "shape": [b, h, s, d], "ms": ms,
-                      "max_abs_diff": diff, "routes": routes,
+                      "max_abs_diff": diff, "bit_equal": equal,
+                      "routes": routes,
                       "ptxas": {side: ptxas_lines(logs[side])
                                 for side in logs}}), flush=True)
 

@@ -40,9 +40,11 @@ sys.path.insert(0, ROOT)
 PART = "train_step/"           # record_function prefix of a step's parts
 WARMUP, STEPS, TOP = 2, 3, 15
 GROUPS = [  # (group, substrings of the kernel name), first match wins
-    ("flash_fwd", ("flash_fwd_kernel",)),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    # each flash kernel by its prefix: the CUDA-core and the tensor-core
+    # (``*_wgmma_kernel``) route alike
+    ("flash_fwd", ("flash_fwd_",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_",)),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("softmax", ("softmax",)),
     ("reduce", ("reduce",)),
