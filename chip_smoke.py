@@ -64,7 +64,8 @@ def log(msg=""):
 class Counters:
     """The launch counts of every kernel wrapper, by kernel name: the
     paged-attention module's integer and the other modules' dicts, and
-    the flash module's counts by route (``launches_by_route``)."""
+    the counts by route (``launches_by_route``) of the modules that keep
+    them."""
 
     def __init__(self, pa, *modules):
         self.pa, self.modules = pa, modules
@@ -78,7 +79,7 @@ class Counters:
     def routes(self):
         """``{kernel: {route: launches}}`` of the modules that count
         routes."""
-        return {name: dict(by) for m in self.modules
+        return {name: dict(by) for m in (self.pa, *self.modules)
                 for name, by in getattr(m, "launches_by_route", {}).items()}
 
     def set(self, values, routes=None):
@@ -86,6 +87,7 @@ class Counters:
         for m in self.modules:
             for name in m.launches:
                 m.launches[name] = values.get(name, 0)
+        for m in (self.pa, *self.modules):
             for name, by in getattr(m, "launches_by_route", {}).items():
                 for route in by:
                     by[route] = (routes or {}).get(name, {}).get(route, 0)
@@ -238,7 +240,9 @@ def make_inputs(torch, pos, s, d, kv, *, h=16, bs=16, T=16, seed=0,
 
 def check_kernel(torch, pa):
     """Phase 3: the kernel against its plain version, at the slice's
-    shapes (h 16, d 64, bs 16, T 16, b 8) and at d 20 and 128."""
+    shapes (h 16, d 64, bs 16, T 16, b 8), at d 7, 20, 128 and 320, at
+    block sizes 4, 64 and 128, and at b 2, h 4. Each case checks that
+    the call launched on its plan's route."""
     rng = np.random.RandomState(0)
     dec = [int(p) for p in rng.randint(0, 256, size=8)]
     dec[0], dec[1], dec[2] = 0, 15, 255    # first key; ends on a block
@@ -246,28 +250,58 @@ def check_kernel(torch, pa):
     ver[1] = 11                            # pos + s = 16: block boundary
     cases = []
     for kv in ("f32", "bf16", "int8"):
-        cases += [(f"decode s=1 {kv}", dec, 1, 64, kv),
-                  (f"verify s=5 {kv}", ver, 5, 64, kv),
-                  (f"prefill s=128 pos=0 {kv}", [0] * 8, 128, 64, kv),
+        cases += [(f"decode s=1 {kv}", dec, 1, 64, kv, 16),
+                  (f"verify s=5 {kv}", ver, 5, 64, kv, 16),
+                  (f"prefill s=128 pos=0 {kv}", [0] * 8, 128, 64, kv, 16),
                   (f"prefill s=128 pos=37 {kv}",
-                   [37, 0, 16, 100, 5, 64, 127, 90], 128, 64, kv)]
+                   [37, 0, 16, 100, 5, 64, 127, 90], 128, 64, kv, 16)]
     # bucketed-prefill padding rows: whole table on the trash block,
     # pos 0 (key 0 must still be read so the normalizer is positive)
-    cases += [("prefill pad rows s=16 f32", [0] * 8, 16, 64, "f32"),
-              ("verify s=3 f32", [min(p, 253) for p in dec], 3, 64, "f32"),
-              ("decode s=1 d=20 f32", dec, 1, 20, "f32"),
-              ("verify s=5 d=20 int8", ver, 5, 20, "int8"),
-              ("decode s=1 d=128 f32", dec, 1, 128, "f32"),
+    cases += [("prefill pad rows s=16 f32", [0] * 8, 16, 64, "f32", 16),
+              ("verify s=3 f32", [min(p, 253) for p in dec], 3, 64, "f32",
+               16),
+              ("decode s=1 d=20 f32", dec, 1, 20, "f32", 16),
+              ("verify s=5 d=20 int8", ver, 5, 20, "int8", 16),
+              ("decode s=1 d=128 f32", dec, 1, 128, "f32", 16),
               ("prefill s=128 pos=37 d=128 bf16", [37] * 8, 128, 128,
-               "bf16")]
+               "bf16", 16),
+              # block sizes and widths the first design refused
+              ("decode s=1 bs=64 d=128 f32", dec, 1, 128, "f32", 64),
+              ("verify s=5 bs=64 d=128 bf16", ver, 5, 128, "bf16", 64),
+              ("decode s=1 bs=128 d=64 int8", dec, 1, 64, "int8", 128),
+              ("verify s=5 d=320 f32", ver, 5, 320, "f32", 16),
+              ("decode s=1 d=320 f32", dec, 1, 320, "f32", 16),
+              ("prefill pad rows s=64 f32", [0, 0, 0, 0, 0, 0, 0, 0], 64,
+               64, "f32", 16),
+              # 4-key sub-tiles (8 lanes per key); 64-entry tables, so a
+              # range crosses a 32-entry window of the table
+              ("verify s=5 bs=4 bf16", ver, 5, 64, "bf16", 4),
+              ("verify s=5 bs=4 int8", ver, 5, 64, "int8", 4),
+              # 8-byte copies (40-byte rows), element copies (7-byte rows)
+              ("decode s=1 d=20 bf16", dec, 1, 20, "bf16", 16),
+              ("verify s=3 d=7 int8", [min(p, 253) for p in dec], 3, 7,
+               "int8", 16),
+              # b x h = 8 blocks, each split across its warps
+              ("decode s=1 b=2 h=4 f32", [200, 37], 1, 64, "f32", 16)]
+    elem = {"f32": 4, "bf16": 2, "int8": 1}
     worst = 0.0
-    for i, (name, pos, s, d, kv) in enumerate(cases):
-        q, pools, tables, posv = make_inputs(torch, pos, s, d, kv, seed=i)
+    for i, (name, pos, s, d, kv, bs) in enumerate(cases):
+        h = 4 if "h=4" in name else 16
+        q, pools, tables, posv = make_inputs(torch, pos, s, d, kv, h=h,
+                                             bs=bs, T=256 // bs, seed=i)
         if "pad rows" in name:
             tables[4:] = 0
         kp, vp, ks, vs = pools[0]
+        pl = pa.plan(*q.shape, bs, tables.shape[1], elem[kv])
+        before = dict(pa.launches_by_route["paged_attention"])
         out = pa.paged_attention(q, kp, vp, tables, posv, k_scale=ks,
                                  v_scale=vs)
+        torch.cuda.synchronize()
+        after = pa.launches_by_route["paged_attention"]
+        if after[pl["route"]] != before[pl["route"]] + 1:
+            raise AssertionError(f"kernel case {name}: not launched on the "
+                                 f"{pl['route']} route ({before} -> "
+                                 f"{after})")
         ref = pa.paged_attention_plain(q, kp, vp, tables, posv, k_scale=ks,
                                        v_scale=vs)
         torch.cuda.synchronize()
@@ -278,7 +312,9 @@ def check_kernel(torch, pa):
         # the JAX tests' criterion: |out - ref| <= tol + tol * |ref|
         over = float((diff - TOL[kv] * ref.float().abs()).max())
         log(f"  case {name:34s} max_abs_err {err:.3e} (rtol = atol = "
-            f"{TOL[kv]:g})")
+            f"{TOL[kv]:g}); {pl['route']}, ks {pl['ks']}, "
+            f"{pl['rows']} rows/block, kt {pl['kt']} x "
+            f"{pl['stages']} stages, {pl['smem']} B smem")
         if over > TOL[kv]:
             raise AssertionError(f"kernel case {name}: |out - ref| exceeds "
                                  f"{TOL[kv]} + {TOL[kv]} |ref| (max abs "
@@ -336,6 +372,7 @@ def check_serving(torch, ctr, card):
     ctr.zero()
     eng, reqs, wall = serve(torch, model, prompts, "f32", "kernel")
     run = ctr.read()
+    routes = ctr.routes()["paged_attention"]
     launches = run["paged_attention"]
     st = eng.stats()
     dispatches = st["prefill_dispatches"] + st["decode_steps"]
@@ -346,6 +383,10 @@ def check_serving(torch, ctr, card):
         raise AssertionError("serving launched no paged-attention kernel")
     ctr.expect(run, {"paged_attention": cfg.num_layers * dispatches},
                "serving")
+    log(f"  kernel f32 launches by route {routes}")
+    if sum(routes.values()) != launches:
+        raise AssertionError(f"serving: launches by route {routes} do not "
+                             f"add up to the {launches} launches")
     tokens = sum(len(r.tokens) for r in reqs)
     if tokens != 512:
         raise AssertionError(f"{tokens} tokens came out, expected 512")
@@ -373,7 +414,8 @@ def check_serving(torch, ctr, card):
                if kv == "int8" else ""))
         if kv == "int8" and not s2["kv_quant_max_abs_err"] > 0:
             raise AssertionError("int8 run reported no quantization error")
-    return {"launches": launches, "tokens": tokens, "wall_s": wall,
+    return {"launches": launches, "routes": routes, "tokens": tokens,
+            "wall_s": wall,
             "tokens_per_s": tokens / wall, "ttft_p50_ms": st["ttft_p50_ms"],
             "tpot_p50_ms": st["tpot_p50_ms"], "peak_bytes": peak,
             "prefix_hit_requests": st["prefix_hit_requests"]}
@@ -381,9 +423,9 @@ def check_serving(torch, ctr, card):
 
 # ------------------------------------------------------------ phase 5
 def decode_work(pos, s, h, d, kv, bs):
-    """Bytes the decode call must move (each input read once: q, the
-    valid K/V rows, their int8 scales, tables, pos; the output written
-    once) and its FLOPs (QK^T and PV)."""
+    """Bytes the call must move (each input read once: q, the valid K/V
+    rows, their int8 scales, tables, pos; the output written once) and
+    its FLOPs (QK^T and PV over the keys each query row sees)."""
     elem = {"f32": 4, "bf16": 2, "int8": 1}[kv]
     b = len(pos)
     keys = sum(p + s for p in pos)
@@ -391,7 +433,8 @@ def decode_work(pos, s, h, d, kv, bs):
         + b * 16 * 4 + b * 4
     if kv == "int8":
         nbytes += 2 * sum(-(-(p + s) // bs) for p in pos) * h * 4
-    flops = 4 * h * s * d * keys
+    seen = sum(p + i + 1 for p in pos for i in range(s))
+    flops = 4 * h * d * seen
     return nbytes, flops
 
 
@@ -426,38 +469,48 @@ def time_fn(torch, fn, n, copies):
 
 def device_busy_ms(torch, run):
     """Device ms of ``run()``: ``torch.profiler`` traces it, and the union
-    of its device intervals (kernels, copies, memsets) is measured."""
+    of its device intervals (kernels, copies, memsets) is measured. A
+    trace with no device interval at all (the profiler has come back
+    empty once in a run of many traces) is taken again, once."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
+    for attempt in range(2):
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    dev = [(e["ts"], e["ts"] + e["dur"]) for e in events
-           if e.get("ph") == "X"
-           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not dev:
-        raise AssertionError("the profiler recorded no device activity; "
-                             "device time not measured")
-    return busy_us(dev) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        dev = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("ph") == "X"
+               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+        if dev:
+            return busy_us(dev) / 1e3
+        log("  the profiler recorded no device activity"
+            + ("; tracing again" if attempt == 0 else ""))
+    raise AssertionError("the profiler recorded no device activity; "
+                         "device time not measured")
 
 
 def time_kernel(torch, pa, ctr, card):
     """Phase 5: the kernel and its plain version at the serving decode
     shape (b 8, h 16, s 1, d 64, bs 16, T 16, 129 blocks) with pos near
-    the end of the 256-token window, cycling over 8 pool copies (> 50 MB
-    L2) so each launch finds its pool cold, as a layer of the engine
-    does."""
+    the end of the 256-token window, f32/bf16/int8 pools, and at the
+    engine's 64-row prefill bucket (b 8, s 64, pos 0, f32), cycling over
+    8 pool copies (> 50 MB L2 at decode) so each launch finds its pool
+    cold, as a layer of the engine does. Beside each time, the kernel's
+    read probe (the same walk and copies, no math): what moving the
+    call's bytes through this design costs."""
     rng = np.random.RandomState(1)
     pos = [int(p) for p in rng.randint(180, 221, size=8)]
     copies = 8
     out = {}
-    for kv in ("f32", "bf16", "int8"):
-        q, pools, tables, posv = make_inputs(torch, pos, 1, 64, kv, seed=7,
+    rows = [("decode", kv, pos, 1) for kv in ("f32", "bf16", "int8")]
+    rows.append(("prefill", "f32", [0] * 8, 64))
+    for shape, kv, ps, s in rows:
+        q, pools, tables, posv = make_inputs(torch, ps, s, 64, kv, seed=7,
                                              copies=copies)
 
         def kern(i):
@@ -470,19 +523,30 @@ def time_kernel(torch, pa, ctr, card):
             pa.paged_attention_plain(q, kp, vp, tables, posv, k_scale=ks,
                                      v_scale=vs)
 
+        def probe(i):
+            kp, vp, ks, vs = pools[i]
+            pa.read_probe(q, kp, vp, tables, posv, k_scale=ks, v_scale=vs)
+
         with ctr.aside():
             ms = time_fn(torch, kern, 400, copies)
             plain_ms = time_fn(torch, plain, 40, copies)
-        nbytes, flops = decode_work(pos, 1, 16, 64, kv, 16)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
-        out[kv] = {"ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "bytes": nbytes, "flops": flops}
-        log(f"  decode {kv}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"{nbytes} bytes -> bound {max(t_bytes, t_ops):.4f} ms "
-            f"({out[kv]['bound_by']}) [{card}]")
+            probe_ms = time_fn(torch, probe, 400, copies)
+        nbytes, flops = decode_work(ps, s, 16, 64, kv, 16)
+        t = bound(nbytes, flops, F32_FLOPS)
+        pl = pa.plan(*q.shape, 16, tables.shape[1],
+                     {"f32": 4, "bf16": 2, "int8": 1}[kv])
+        key = kv if shape == "decode" else "prefill"
+        out[key] = {"ms": ms, "plain_ms": plain_ms,
+                    "read_probe_ms": probe_ms, **t,
+                    "shape": [8, 16, s, 64], "route": pl["route"],
+                    "splits": pl["ks"],
+                    "rows_per_block": pl["rows"]}
+        log(f"  {shape} {kv}: kernel {ms:.4f} ms, read probe "
+            f"{probe_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{nbytes} bytes -> bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}), {ms / t['bound_ms']:.2f}x the bound; "
+            f"route {pl['route']}, ks {pl['ks']}, "
+            f"{pl['rows']} rows/block [{card}]")
     return pos, out
 
 # ------------------------------------------------------------ phase 6
@@ -1315,7 +1379,7 @@ def main():
         f"max_memory_allocated {srv['peak_bytes']} B, prefix hits "
         f"{srv['prefix_hit_requests']}")
 
-    log("== phase 5: time")
+    log("== phase 5: time the paged kernel")
     pos, times = time_kernel(torch, pa, ctr, card)
     log(f"  decode pos {pos}")
     torch.cuda.empty_cache()
@@ -1377,7 +1441,12 @@ def main():
     kernels = [entry("paged_attention", "paged_attention.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:55",
                      srv["launches"], worst, {**main_t, "library_ms": None},
-                     cases_passed=n_cases, by_kv_dtype=times)]
+                     cases_passed=n_cases,
+                     by_kv_dtype={kv: times[kv]
+                                  for kv in ("f32", "bf16", "int8")},
+                     by_shape={"decode": times["f32"],
+                               "prefill": times["prefill"]},
+                     launches_by_route=srv["routes"])]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]
