@@ -2,26 +2,34 @@
 """Smoke run of the PyTorch port (``paddle_tpu_torch``) on one NVIDIA
 GPU: builds the hand-written CUDA kernels from this checkout (paged
 attention; flash attention forward, dQ and dK/dV; LayerNorm forward and
-backward; the packed-heads flash forward), holds each against its plain
-PyTorch version on the card, serves GPT-2 345M (``gpt2-medium``, full
-width and depth, random weights from a seed) through the port's
-ServingEngine, trains it (``bench.py``'s step: batch 8, seq 1024, AMP O2
-bf16, AdamW with bf16 moments) with the LayerNorm kernels off and on,
-trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512) through
-the LayerNorm kernels, shows that every run went through its kernels,
-reads the device's busy time of each train step with ``torch.profiler``,
-and times the kernels. The flash forward, dQ and dK/dV take the
-tensor-core (``wgmma``) kernels for bf16 with head_dim 64 or 128, and the
-packed forward for bf16 with 64-wide heads: phase 2 checks that their
-SASS holds HGMMA instructions, phases 6 and 12 hold them to
-:func:`close_rounded`, and phases 7, 10 and 12 check that every counted
-launch of them took that route.
+backward; the packed-heads flash forward; the multi-tensor AdamW update),
+holds each against its plain PyTorch version on the card, serves GPT-2
+345M (``gpt2-medium``, full width and depth, random weights from a seed)
+through the port's ServingEngine, trains it (``bench.py``'s step: batch
+8, seq 1024, AMP O2 bf16, AdamW with bf16 moments) eagerly and through
+``jit.to_static`` as a CUDA graph, with the LayerNorm kernels off and
+on, trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512)
+through the LayerNorm kernels, eagerly and captured, trains
+``bench.py``'s default flagship (gpt2-1p1b with recompute) through
+``jit.to_static_multi_step``, shows that every run went through its
+kernels (the launch counts, and the kernel names a profiler trace of
+the same step sees), reads the device's busy time of each train step
+with ``torch.profiler``, and times the kernels. The flash forward, dQ
+and dK/dV take the tensor-core (``wgmma``) kernels for bf16 with
+head_dim 64 or 128, and the packed forward for bf16 with 64-wide heads:
+phase 2 checks that their SASS holds HGMMA instructions, phases 6 and 12
+hold them to :func:`close_rounded`, and phases 7, 10, 12 and 16 check
+that every counted launch of them took that route.
 
 Phases: 1 device, 2 build, 3 paged kernel vs plain, 4 serve, 5 time the
-paged kernel, 6 flash kernels vs plain, 7 train GPT, 8 time the flash
-kernels, 9 LayerNorm kernels vs plain, 10 train GPT with the LayerNorm
-kernels, 11 train ERNIE-base, 12 packed-heads forward, 13 time the
-LayerNorm kernels.
+paged kernel, 6 flash kernels vs plain, 7 train GPT (eager, then
+captured: losses and parameters bit-equal), 8 time the flash kernels, 9
+LayerNorm kernels vs plain, 10 train GPT with the LayerNorm kernels, 11
+train ERNIE-base (eager and captured), 12 packed-heads forward, 13 time
+the LayerNorm kernels, 14 AdamW kernel vs plain (f32, bf16 and fp16
+parameters and moments), 15 the AdamW kernel vs plain on gpt2-1p1b's and
+gpt2-medium's whole parameter sets, then its time, 16 train the
+gpt2-1p1b flagship.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -468,10 +476,18 @@ def time_fn(torch, fn, n, copies):
 
 
 def device_busy_ms(torch, run):
-    """Device ms of ``run()``: ``torch.profiler`` traces it, and the union
-    of its device intervals (kernels, copies, memsets) is measured. A
-    trace with no device interval at all (the profiler has come back
-    empty once in a run of many traces) is taken again, once."""
+    """Device ms of ``run()``: :func:`device_trace`'s busy time."""
+    return device_trace(torch, run)[0]
+
+
+def device_trace(torch, run):
+    """``(busy_ms, kernels)`` of ``run()``: ``torch.profiler`` traces it;
+    busy_ms is the union of its device intervals (kernels, copies,
+    memsets), kernels the count of each kernel name. A trace with no
+    device interval at all (the profiler has come back empty once in a
+    run of many traces) is taken again, once."""
+    import collections
+
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(2):
         torch.cuda.synchronize()
@@ -483,11 +499,13 @@ def device_busy_ms(torch, run):
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
-        dev = [(e["ts"], e["ts"] + e["dur"]) for e in events
-               if e.get("ph") == "X"
+        dev = [e for e in events if e.get("ph") == "X"
                and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
         if dev:
-            return busy_us(dev) / 1e3
+            names = collections.Counter(e["name"] for e in dev
+                                        if e["cat"] == "kernel")
+            return busy_us((e["ts"], e["ts"] + e["dur"])
+                           for e in dev) / 1e3, names
         log("  the profiler recorded no device activity"
             + ("; tracing again" if attempt == 0 else ""))
     raise AssertionError("the profiler recorded no device activity; "
@@ -738,6 +756,7 @@ def _stepper(model, opt, loss_of):
         with part("optimizer"):
             opt.step()
         return loss.detach()
+    step.opt = opt
     return step
 
 
@@ -815,14 +834,59 @@ def compare_routes(torch, model, loss_of, flag):
             "worst_grad_rel": rel_grad[worst], "worst_grad_param": worst}
 
 
-def run_steps(torch, ctr, step, warmup, steps, want, what, traced=2):
+#: the kernel each counted launch runs, by the name a profiler trace
+#: gives it (the flash kernels on the tensor-core route, which every
+#: train step of this script takes)
+TRACE_NAMES = {"flash_fwd": "flash_fwd_wgmma_kernel",
+               "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel",
+               "flash_bwd_dkv": "flash_bwd_dkv_wgmma_kernel",
+               "ln_fwd": "ln_fwd_kernel", "ln_bwd": "ln_bwd_kernel",
+               "adamw": "adamw_multi_kernel"}
+
+
+def trace_counts(names, traced):
+    """The kernels of :data:`TRACE_NAMES` per step in a profiler trace of
+    ``traced`` steps (``names``: kernel name -> count)."""
+    return {k: sum(n for name, n in names.items() if pat in name) / traced
+            for k, pat in TRACE_NAMES.items()}
+
+
+def traced_steps(torch, ctr, run, traced, per_step, what):
+    """``run()`` (``traced`` steps) under :func:`device_trace`: ``(device
+    busy ms per step, kernels per step in all, the kernels of
+    :data:`TRACE_NAMES` per step)``. The latter must be the launch counts
+    per step ``per_step``: for a captured step this shows that a replay
+    runs what the counters (the capture's recorded deltas) say. The
+    profiler has dropped a few dozen kernels at the start of a trace (once
+    in ~25 traces): a trace that disagrees is logged and taken again,
+    once; a second disagreement raises."""
+    for attempt in range(2):
+        with ctr.aside():
+            busy, names = device_trace(torch, run)
+        counts = trace_counts(names, traced)
+        bad = {k: (counts[k], per_step.get(k, 0)) for k in TRACE_NAMES
+               if counts[k] != per_step.get(k, 0)}
+        if not bad:
+            return busy / traced, sum(names.values()) / traced, counts
+        log(f"  {what}: kernels per step in the trace vs the launch counts "
+            f"{bad}, {sum(names.values()) / traced:.1f} kernels per step in "
+            "all" + ("; tracing again" if attempt == 0 else ""))
+    raise AssertionError(f"{what}: kernels per step in two traces differ "
+                         f"from the launch counts: {bad}")
+
+
+def run_steps(torch, ctr, step, warmup, steps, want, what, traced=2,
+              keep_final=None):
     """``warmup`` steps, then ``steps`` timed steps with every launch
     count zeroed before and read after: the counts must be exactly
     ``want``, the losses finite and the last below the first. Then
     ``traced`` more steps under ``torch.profiler`` give the device's busy
     ms per step and its idle share of the timed step (the profiler slows
     the host, not the device, so the share is taken against the
-    untraced step time)."""
+    untraced step time), and the kernels the trace saw per step must be
+    the counts per step: for a captured step this shows that a replay
+    runs what the counters say. ``keep_final``: a module whose
+    parameters are cloned after the timed steps (``final``)."""
     for _ in range(warmup):
         step()
     torch.cuda.synchronize()
@@ -835,6 +899,9 @@ def run_steps(torch, ctr, step, warmup, steps, want, what, traced=2):
     run = ctr.read()
     routes = ctr.routes()
     peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    final = None if keep_final is None else [
+        p.detach().clone() for p in keep_final.parameters()]
     losses = [float(x) for x in losses]
     log(f"  {what}: launches in {steps} timed steps: {run}")
     ctr.expect(run, want, what)
@@ -842,27 +909,91 @@ def run_steps(torch, ctr, step, warmup, steps, want, what, traced=2):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"{what}: timed losses not finite and falling: "
                              f"{losses}")
-    with ctr.aside():
-        busy = device_busy_ms(
-            torch, lambda: [step() for _ in range(traced)]) / traced
+    busy, kernels, traced_counts = traced_steps(
+        torch, ctr, lambda: [step() for _ in range(traced)], traced,
+        {k: v / steps for k, v in run.items() if v}, what)
     idle = 1.0 - busy / (dt * 1e3)
     log(f"  {what}: device busy {busy:.3f} ms per step ({traced} traced "
-        f"steps), idle share {idle:.4f} of the {dt * 1e3:.3f} ms step")
+        f"steps), idle share {idle:.4f} of the {dt * 1e3:.3f} ms step; "
+        f"kernels per step in the trace {traced_counts}, "
+        f"{kernels:.0f} kernels per step in all")
     return {"step_ms": dt * 1e3, "losses": losses, "launches": run,
-            "routes": routes, "peak_bytes": peak, "device_busy_ms": busy,
-            "idle_share": idle}
+            "routes": routes, "peak_bytes": peak,
+            "peak_reserved_bytes": reserved, "device_busy_ms": busy,
+            "idle_share": idle, "kernels_per_step": kernels,
+            "traced_counts": traced_counts, "final": final}
 
 
-def expect_flash_routes(routes, n, what):
-    """Raise unless the ``n`` launches of each flash kernel took the
-    tensor-core route, as the GPT step's shape (bf16, d 64) asks."""
-    want = {name: {"wgmma": n, "simt": 0}
-            for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+def expect_flash_routes(routes, n, what, n_fwd=None):
+    """Raise unless the launches of each flash kernel (``n`` each,
+    ``n_fwd`` of the forward when it differs) took the tensor-core
+    route, as the train steps' shapes (bf16, d 64 or 128) ask."""
+    counts = {"flash_fwd": n if n_fwd is None else n_fwd,
+              "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    want = {name: {"wgmma": c, "simt": 0} for name, c in counts.items()}
     got = {name: routes.get(name) for name in want}
     log(f"  {what}: flash launches by route {got}")
     if got != want:
         raise AssertionError(f"{what}: flash launches by route {got}, "
                              f"expected {want}")
+
+
+def captured_run(torch, ctr, model, loss_of, start, want, what, warmup=3,
+                 steps=5, retain_grads=True):
+    """:func:`run_steps` of the :func:`_stepper` step through
+    ``jit.to_static``, from the weights ``start`` and a fresh AdamW (lr
+    1e-4, bf16 moments), as the eager run it is compared with began. With
+    ``retain_grads`` (``bench.py``'s GPT and ERNIE steps keep their
+    gradients) the first two calls run eagerly (the second finds the
+    gradients the first left, a new key) and the third captures, so the
+    timed calls are replays. The graph is freed on return."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.optimizer import AdamW
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), start):
+            p.copy_(s)
+    model.zero_grad(set_to_none=True)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16")
+    fast = jit.to_static(_stepper(model, opt, loss_of), layers=[model],
+                         optimizers=[opt], retain_grads=retain_grads)
+    res = run_steps(torch, ctr, fast, warmup, steps, want, what,
+                    keep_final=model)
+    res["graphs"] = len(fast._step.graphs)
+    del fast, opt
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+def compare_runs(torch, eager, captured, what):
+    """The captured run against the eager one from the same weights and
+    optimizer state: the timed losses and the parameters after them must
+    be bit-equal. Were they not (cuBLAS may pick another algorithm for a
+    product under capture, and its sums round differently), the largest
+    differences are printed and the losses held to 1e-5 relative."""
+    la, lb = eager.pop("final"), captured.pop("final")
+    same = [torch.equal(a, b) for a, b in zip(la, lb)]
+    diff = max(float((a - b).abs().max()) for a, b in zip(la, lb))
+    loss_rel = max(abs(a - b) / abs(a) for a, b in zip(eager["losses"],
+                                                       captured["losses"]))
+    equal = all(same) and eager["losses"] == captured["losses"]
+    if equal:
+        log(f"  {what}: the captured run's {len(eager['losses'])} losses and "
+            f"{len(same)} parameters are bit-equal to the eager run's")
+    else:
+        log(f"  {what}: captured vs eager NOT bit-equal: {sum(same)} of "
+            f"{len(same)} parameters equal, largest parameter difference "
+            f"{diff:.3e}, largest loss difference {loss_rel:.3e} relative "
+            "(a product under capture may run another cuBLAS algorithm); "
+            "held to 1e-5 relative on the loss")
+        if loss_rel > 1e-5:
+            raise AssertionError(f"{what}: captured losses "
+                                 f"{captured['losses']} vs eager "
+                                 f"{eager['losses']}")
+    return {"bit_equal": equal, "params_equal": sum(same),
+            "params": len(same), "max_param_diff": diff,
+            "max_loss_rel": loss_rel}
 
 
 def rate(res, tokens, flops_per_token):
@@ -877,19 +1008,39 @@ def gpt_flops(cfg):
                                  cfg.num_layers, cfg.vocab_size, GPT_SEQ)
 
 
-def train(torch, ctr, card, gpt, warmup=2, steps=5):
+def memory_line(res):
+    return (f"max_memory_allocated {res['peak_bytes']} B, "
+            f"max_memory_reserved {res['peak_reserved_bytes']} B")
+
+
+def eager_vs_captured(card, what, eager, captured):
+    for label, r in (("eager", eager), ("to_static", captured)):
+        log(f"  [{card}] {what} {label}: step {r['step_ms']:.3f} ms, device "
+            f"busy {r['device_busy_ms']:.3f} ms, idle share "
+            f"{r['idle_share']:.4f}, {r['tokens_per_s']:.1f} tokens/s, MFU "
+            f"{r['mfu'] * 100:.3f}%, {r['kernels_per_step']:.0f} kernels "
+            f"per step, {memory_line(r)}")
+
+
+def train(torch, ctr, card, gpt, warmup=3, steps=5):
     """Phase 7: the train step of :func:`train_step`. First one
     forward+backward with the flash route against the composed route
     from the same weights; then warm-up steps, the timed steps (each
-    flash kernel launched once per layer and step, nothing else), and
-    one step timed by part."""
+    flash kernel launched once per layer and step, one AdamW launch per
+    step, nothing else), and one step timed by part; then the same
+    warm-up and timed steps through ``jit.to_static`` from the same
+    starting weights and a fresh optimizer, as a CUDA graph: the same
+    launches per replay, and losses and parameters bit-equal to the
+    eager run's."""
     cfg, model, loss_of, step = gpt
     cmp = compare_routes(torch, model, loss_of, "use_pallas_attention")
+    start = [p.detach().clone() for p in model.parameters()]
     n = cfg.num_layers * steps
-    res = run_steps(torch, ctr, step, warmup, steps,
-                    {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n},
-                    "gpt2-medium")
-    expect_flash_routes(res["routes"], n, "gpt2-medium")
+    want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "adamw": steps}
+    res = run_steps(torch, ctr, step, warmup, steps, want,
+                    "gpt2-medium, eager", keep_final=model)
+    expect_flash_routes(res["routes"], n, "gpt2-medium, eager")
     parts = {}
 
     @contextlib.contextmanager
@@ -902,14 +1053,19 @@ def train(torch, ctr, card, gpt, warmup=2, steps=5):
 
     with ctr.aside():
         step(timed_part)
-    rate(res, GPT_BATCH * GPT_SEQ, gpt_flops(cfg))
-    log(f"  [{card}] step {res['step_ms']:.3f} ms, "
-        f"{res['tokens_per_s']:.1f} tokens/s, MFU {res['mfu'] * 100:.3f}% "
-        f"of {BF16_FLOPS:.0f} FLOP/s, max_memory_allocated "
-        f"{res['peak_bytes']} B; one step by part: forward "
-        f"{parts['forward_ms']:.3f} ms, backward {parts['backward_ms']:.3f} "
-        f"ms, optimizer {parts['optimizer_ms']:.3f} ms")
-    return {**res, **cmp, **parts}
+    cap = captured_run(torch, ctr, model, loss_of, start, want,
+                       "gpt2-medium, to_static", warmup, steps)
+    expect_flash_routes(cap["routes"], n, "gpt2-medium, to_static")
+    same = compare_runs(torch, res, cap, "gpt2-medium")
+    del start
+    for r in (res, cap):
+        rate(r, GPT_BATCH * GPT_SEQ, gpt_flops(cfg))
+    eager_vs_captured(card, "gpt2-medium", res, cap)
+    log(f"  [{card}] eager step by part: forward {parts['forward_ms']:.3f} "
+        f"ms, backward {parts['backward_ms']:.3f} ms, optimizer "
+        f"{parts['optimizer_ms']:.3f} ms")
+    return {**res, **cmp, **parts, "captured": cap,
+            "captured_vs_eager": same}
 
 
 # ------------------------------------------------------------ phase 8
@@ -1072,7 +1228,8 @@ def train_ln(torch, ctr, card, gpt, warmup=2, steps=5):
     (``bench.py``'s ``BENCH_PALLAS_LN=1``): the LayerNorm kernel route
     against the composed one (flash on in both), then the timed steps
     with each LayerNorm kernel launched 2 x 24 + 1 = 49 times per step
-    beside the flash kernels' 24. Turns the flag off again."""
+    beside the flash kernels' 24 and AdamW's one. Turns the flag off
+    again."""
     from paddle_tpu_torch import flags
     cfg, model, loss_of, step = gpt
     cmp = compare_routes(torch, model, loss_of, "use_pallas_layer_norm")
@@ -1080,14 +1237,14 @@ def train_ln(torch, ctr, card, gpt, warmup=2, steps=5):
     nl = (2 * cfg.num_layers + 1) * steps
     res = run_steps(torch, ctr, step, warmup, steps,
                     {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
-                     "ln_fwd": nl, "ln_bwd": nl},
+                     "ln_fwd": nl, "ln_bwd": nl, "adamw": steps},
                     "gpt2-medium, LayerNorm kernels")
     expect_flash_routes(res["routes"], n, "gpt2-medium, LayerNorm kernels")
     flags.set_flags({"use_pallas_layer_norm": False})
     rate(res, GPT_BATCH * GPT_SEQ, gpt_flops(cfg))
     log(f"  [{card}] LayerNorm kernels on: step {res['step_ms']:.3f} ms, "
         f"{res['tokens_per_s']:.1f} tokens/s, MFU {res['mfu'] * 100:.3f}%, "
-        f"max_memory_allocated {res['peak_bytes']} B")
+        f"{memory_line(res)}")
     return {**res, **cmp}
 
 
@@ -1128,33 +1285,44 @@ def ernie_step(torch, batch=ERNIE_BATCH, seq=ERNIE_SEQ):
     return cfg, model, loss_of, _stepper(model, opt, loss_of)
 
 
-def train_ernie(torch, ctr, card, warmup=2, steps=5):
+def train_ernie(torch, ctr, card, warmup=3, steps=5):
     """Phase 11: the ERNIE-base step of :func:`ernie_step`: the
     LayerNorm kernel route against the composed one, then the timed steps
     with ``use_pallas_layer_norm`` on (each LayerNorm kernel launched
-    1 + 2 x 12 + 1 = 26 times per step) and then off (no kernel at all:
-    at seq 512 attention composes)."""
+    1 + 2 x 12 + 1 = 26 times per step, AdamW once), the same through
+    ``jit.to_static`` from the same starting weights (bit-equal, as in
+    phase 7), and then eager with the flag off (AdamW alone: at seq 512
+    attention composes)."""
     from paddle_tpu_torch import flags
     cfg, model, loss_of, step = ernie_step(torch)
     cmp = compare_routes(torch, model, loss_of, "use_pallas_layer_norm")
+    start = [p.detach().clone() for p in model.parameters()]
     nl = (2 * cfg.num_hidden_layers + 2) * steps
     flops = model_flops_per_token(cfg.hidden_size, cfg.intermediate_size,
                                   cfg.num_hidden_layers, cfg.vocab_size,
                                   ERNIE_SEQ)
-    on = rate(run_steps(torch, ctr, step, warmup, steps,
-                        {"ln_fwd": nl, "ln_bwd": nl},
-                        "ernie-base, LayerNorm kernels"),
+    want = {"ln_fwd": nl, "ln_bwd": nl, "adamw": steps}
+    on = rate(run_steps(torch, ctr, step, warmup, steps, want,
+                        "ernie-base, LayerNorm kernels, eager",
+                        keep_final=model),
               ERNIE_BATCH * ERNIE_SEQ, flops)
-    flags.set_flags({"use_pallas_layer_norm": False})
-    off = rate(run_steps(torch, ctr, step, warmup, steps, {},
-                         "ernie-base, composed LayerNorm"),
+    cap = rate(captured_run(torch, ctr, model, loss_of, start, want,
+                            "ernie-base, LayerNorm kernels, to_static",
+                            warmup, steps),
                ERNIE_BATCH * ERNIE_SEQ, flops)
-    for label, r in (("on", on), ("off", off)):
-        log(f"  [{card}] LayerNorm kernels {label}: step "
-            f"{r['step_ms']:.3f} ms, {r['tokens_per_s']:.1f} tokens/s, "
-            f"MFU {r['mfu'] * 100:.3f}%, max_memory_allocated "
-            f"{r['peak_bytes']} B")
-    return {"on": on, "off": off, **cmp}
+    same = compare_runs(torch, on, cap, "ernie-base")
+    del start
+    flags.set_flags({"use_pallas_layer_norm": False})
+    off = rate(run_steps(torch, ctr, step, warmup, steps,
+                         {"adamw": steps}, "ernie-base, composed LayerNorm"),
+               ERNIE_BATCH * ERNIE_SEQ, flops)
+    off.pop("final")
+    eager_vs_captured(card, "ernie-base, LayerNorm kernels on", on, cap)
+    log(f"  [{card}] LayerNorm kernels off, eager: step "
+        f"{off['step_ms']:.3f} ms, {off['tokens_per_s']:.1f} tokens/s, MFU "
+        f"{off['mfu'] * 100:.3f}%, {memory_line(off)}")
+    return {"on": on, "captured": cap, "captured_vs_eager": same,
+            "off": off, **cmp}
 
 
 # ------------------------------------------------------------ phase 12
@@ -1326,19 +1494,373 @@ def time_ln(torch, ln, ctr, card):
     return out
 
 
+# ------------------------------------------------------------ phase 14
+ADAMW_SIZES = (1, 7, 4097, 2 ** 20 + 3)
+# (parameter dtype, moment dtype): phase 7's pairing and f32 moments, then
+# a bf16 model with its own or f32 moments, and an fp16 one
+ADAMW_DTYPES = (("float32", "float32"), ("float32", "bfloat16"),
+                ("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+                ("float16", "float16"))
+
+
+def same_values(x, y):
+    """``torch.equal``, except that a NaN matches a NaN: fp16 with
+    epsilon 1e-8 (below fp16's least subnormal) divides by zero where
+    sqrt(m2) underflows, in the per-op path as in the kernel."""
+    import torch
+    if torch.equal(x, y):
+        return True
+    nx, ny = x.isnan(), y.isnan()
+    return torch.equal(nx, ny) and torch.equal(x[~nx], y[~ny])
+
+
+def adamw_group(torch, pdtype, mdtype, steps_done, seed, offset=0):
+    """A group of :data:`ADAMW_SIZES` on the card: parameters, gradients
+    and beta powers in ``pdtype``, moments in ``mdtype``, beta powers
+    after ``steps_done`` steps (zero moments and powers 1 at the first).
+    ``offset`` 1 places every tensor one element into its storage, off
+    the kernel's vector path. Built from a seed, so two calls give equal
+    groups."""
+    rng = np.random.RandomState(seed)
+    cols = [[] for _ in range(6)]
+
+    def put(a, dt):
+        t = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32),
+                                             a])).cuda().to(dt)
+        return t[offset:]
+
+    for n in ADAMW_SIZES:
+        m1 = rng.randn(n) * 1e-3 if steps_done else np.zeros(n)
+        m2 = rng.rand(n) * 1e-5 if steps_done else np.zeros(n)
+        vals = (rng.randn(n), rng.randn(n) * 1e-2, m1, m2)
+        for col, v, dt in zip(cols, vals, (pdtype, pdtype, mdtype, mdtype)):
+            col.append(put(v.astype(np.float32), dt))
+        for col, beta in ((cols[4], 0.9), (cols[5], 0.999)):
+            col.append(torch.full((1,), float(np.float32(beta) **
+                                              steps_done),
+                                  device="cuda").to(pdtype))
+    return cols
+
+
+def hold_adamw(torch, kern, plain, what, sizes):
+    """Every p, g, m1, m2, b1p and b2p of ``kern`` equal to ``plain``'s
+    (:func:`same_values`); returns the largest difference of the values
+    that are not NaN in both (0.0 when they are equal)."""
+    worst = 0.0
+    for name, a, b in zip(("p", "g", "m1", "m2", "b1p", "b2p"), kern, plain):
+        for i, (x, y) in enumerate(zip(a, b)):
+            ok = ~(x.isnan() | y.isnan())
+            if ok.any():
+                worst = max(worst, float((x.float()[ok] - y.float()[ok])
+                                         .abs().max()))
+            if not same_values(x, y):
+                raise AssertionError(
+                    f"{what}: {name}[{i}] (n {sizes[i]}) differs from "
+                    f"plain by {worst:.3e}")
+    return worst
+
+
+def check_adamw(torch, aw, ctr):
+    """Phase 14: the AdamW kernel against its plain version on the card,
+    every p, m1, m2, b1p and b2p equal (:func:`same_values`): each
+    (parameter, moment) dtype pairing of :data:`ADAMW_DTYPES`, the first
+    step (beta powers 1) and a later one, aligned and one element off
+    alignment; two steps each (the second checks that the kernel reset
+    its arrival counts). Each call is one launch. Returns the case count
+    and the largest difference (0.0)."""
+    lr = torch.full((1,), 1e-4, device="cuda")
+    cases, worst = 0, 0.0
+    with ctr.aside():
+        for pname, mname in ADAMW_DTYPES:
+            pdtype, mdtype = getattr(torch, pname), getattr(torch, mname)
+            for steps_done in (0, 9):
+                for offset in (0, 1):
+                    args = (torch, pdtype, mdtype, steps_done,
+                            5 + steps_done, offset)
+                    kern, plain = adamw_group(*args), adamw_group(*args)
+                    rng = np.random.RandomState(cases)
+                    what = (f"adamw {pname} parameters, {mname} moments, "
+                            f"step {steps_done} offset {offset}")
+                    for _ in range(2):
+                        before = aw.launches["adamw"]
+                        aw.adamw_multi(*kern, lr)
+                        if aw.launches["adamw"] != before + 1:
+                            raise AssertionError("one group, not one launch")
+                        aw.adamw_multi_plain(*plain, lr)
+                        torch.cuda.synchronize()
+                        worst = max(worst, hold_adamw(torch, kern, plain,
+                                                      what, ADAMW_SIZES))
+                        for gk, gp in zip(kern[1], plain[1]):
+                            g = torch.from_numpy((rng.randn(gk.numel())
+                                                  * 1e-2).astype(
+                                np.float32)).cuda().to(pdtype)
+                            gk.copy_(g)
+                            gp.copy_(g)
+                    cases += 1
+                    log(f"  case {pname:8s} parameters, {mname:8s} moments, "
+                        f"after {steps_done} steps, offset {offset}: 2 steps "
+                        "equal")
+    return cases, worst
+
+
+def check_adamw_main_path(torch, aw, ctr, ps, what, seed):
+    """The kernel against its plain version on a model's whole parameter
+    set as the main path gives it (``ps``: the model's parameters in the
+    optimizer's order, one group, one launch, float32 with bf16 moments):
+    two steps from zero moments and beta powers 1 on copies of the same
+    state, with random gradients (seeded), every tensor held equal.
+    Returns the largest difference (0.0)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kern = [[p.detach().clone() for p in ps],
+            [torch.randn(p.shape, device="cuda", generator=gen) * 1e-3
+             for p in ps],
+            [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps],
+            [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps],
+            [torch.ones(1, device="cuda") for _ in ps],
+            [torch.ones(1, device="cuda") for _ in ps]]
+    plain = [c if i == 1 else [t.clone() for t in c]
+             for i, c in enumerate(kern)]
+    lr = torch.full((1,), 1e-4, device="cuda")
+    table = aw.Table(kern[0], *kern[2:])
+    sizes = [p.numel() for p in ps]
+    worst = 0.0
+    with ctr.aside():
+        for step in range(2):
+            before = aw.launches["adamw"]
+            aw.adamw_multi(*kern, lr, table=table)
+            if aw.launches["adamw"] != before + 1:
+                raise AssertionError(f"{what}: one group, not one launch")
+            aw.adamw_multi_plain(*plain, lr)
+            torch.cuda.synchronize()
+            worst = max(worst, hold_adamw(torch, kern, plain,
+                                          f"adamw over {what}, step {step}",
+                                          sizes))
+            for g in kern[1]:
+                g.mul_(-0.5)
+    log(f"  adamw over {what}'s {len(ps)} tensors, {sum(sizes)} parameters "
+        f"({sum(aw.chunk_plan(sizes)[1])} blocks in one launch): 2 steps "
+        f"equal to plain, largest difference {worst:.3e}")
+    del kern, plain, table
+    torch.cuda.empty_cache()
+    return worst
+
+
+# ------------------------------------------------------------ phase 15
+def time_adamw(torch, aw, ctr, card):
+    """Phase 15: the AdamW kernel at the main path's shapes. First it is
+    held equal to its plain version on the whole parameter sets of
+    gpt2-medium (phases 7 and 11's group shape: 292 tensors in one launch)
+    and of the gpt2-1p1b flagship (phase 16's). Then it is timed over
+    gpt2-medium's parameters (f32 parameters and gradients, bf16 moments:
+    phase 7's group) against its bound: p read and written, g read, m1
+    and m2 read and written, 20 B per parameter over 3.35 TB/s, against
+    ~15 f32 operations per parameter over 67 TFLOP/s. Beside it, the
+    plain per-parameter loop and, for scale only,
+    ``torch.optim.AdamW(fused=True)`` on the same tensors: a different
+    update (epsilon added after the bias correction, f32 moments), no
+    yardstick of this function."""
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    big = GPTForCausalLM(GPT_CONFIGS["gpt2-1p1b"], device="cuda",
+                         generator=gen)
+    worst = check_adamw_main_path(
+        torch, aw, ctr, [p.detach() for p in big.parameters()], "gpt2-1p1b",
+        seed=2)
+    del big
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(GPT_CONFIGS["gpt2-medium"], device="cuda",
+                           generator=gen)
+    ps = [p.detach() for p in model.parameters()]
+    worst = max(worst, check_adamw_main_path(torch, aw, ctr, ps,
+                                             "gpt2-medium", seed=1))
+    g0 = torch.Generator(device="cuda").manual_seed(1)
+    gs = [torch.randn(p.shape, device="cuda", generator=g0) * 1e-3
+          for p in ps]
+    m1s = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+    m2s = [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps]
+    b1ps = [torch.ones(1, device="cuda") for _ in ps]
+    b2ps = [torch.ones(1, device="cuda") for _ in ps]
+    lr = torch.full((1,), 1e-4, device="cuda")
+    table = aw.Table(ps, m1s, m2s, b1ps, b2ps)
+    n = sum(p.numel() for p in ps)
+    with ctr.aside():
+        before = aw.launches["adamw"]
+        aw.adamw_multi(ps, gs, m1s, m2s, b1ps, b2ps, lr, table=table)
+        per_call = aw.launches["adamw"] - before
+        ms = time_fn(torch, lambda i: aw.adamw_multi(
+            ps, gs, m1s, m2s, b1ps, b2ps, lr, table=table), 20, 1)
+        plain_ms = time_fn(torch, lambda i: aw.adamw_multi_plain(
+            ps, gs, m1s, m2s, b1ps, b2ps, lr), 3, 1)
+        tp = [torch.nn.Parameter(p.clone()) for p in ps]
+        for t, g in zip(tp, gs):
+            t.grad = g
+        fused = torch.optim.AdamW(tp, lr=1e-4, weight_decay=0.01,
+                                  fused=True)
+        fused_ms = time_fn(torch, lambda i: fused.step(), 20, 1)
+    del tp, fused, model
+    b_ = bound(n * (4 * 2 + 4 + 2 * 2 * 2), 15 * n, F32_FLOPS)
+    log(f"  adamw over gpt2-medium's {len(ps)} tensors, {n} parameters, "
+        f"bf16 moments: kernel {ms:.4f} ms ({per_call:.0f} launch per "
+        f"call), plain {plain_ms:.4f} ms, {b_['bytes']} B -> bound "
+        f"{b_['bound_ms']:.4f} ms ({b_['bound_by']}), "
+        f"{ms / b_['bound_ms']:.2f}x the bound; torch.optim.AdamW("
+        f"fused=True), a different update, {fused_ms:.4f} ms [{card}]")
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None,
+            "other_update_ms": fused_ms, "tensors": len(ps),
+            "parameters": n, "launches_per_call": per_call,
+            "main_path_max_abs_err": worst}
+
+
+# ------------------------------------------------------------ phase 16
+FLAGSHIP_K = 10
+
+
+def flagship(torch, batch=GPT_BATCH, seq=GPT_SEQ):
+    """``bench.py``'s default flagship on the card: gpt2-1p1b with
+    ``recompute=True`` (random weights from seed 0), AdamW (lr 1e-4, bf16
+    moments) and bench.py's first batch (numpy ``RandomState(0)``).
+    Returns ``(cfg, model, opt, ids, labels)``."""
+    import dataclasses
+
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = dataclasses.replace(GPT_CONFIGS["gpt2-1p1b"], recompute=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    ids_np = rng.randint(0, cfg.vocab_size, (batch, seq))
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).cuda()
+    return cfg, model, opt, ids, labels
+
+
+def flagship_step(torch, batch=GPT_BATCH, seq=GPT_SEQ):
+    """:func:`flagship` as :func:`train_step` returns a model: ``(cfg,
+    model, loss_of, step)``, for ``tools/torch_train_profile.py``."""
+    from paddle_tpu_torch.amp import auto_cast
+    cfg, model, opt, ids, labels = flagship(torch, batch, seq)
+
+    def loss_of():
+        with auto_cast(level="O2"):
+            return model(ids, labels=labels)
+
+    return cfg, model, loss_of, _stepper(model, opt, loss_of)
+
+
+
+def train_flagship(torch, ctr, card, batch=GPT_BATCH, seq=GPT_SEQ,
+                   k=FLAGSHIP_K):
+    """Phase 16: ``bench.py``'s default flagship, uncut: gpt2-1p1b (h
+    2048, 20 layers, 16 heads of 128, ffn 8192, vocab 50304) with
+    ``recompute=True``, batch 8, seq 1024, O2 bf16, AdamW lr 1e-4 with
+    bf16 moments, ``retain_grads=False``; ``bench.py:1180-1197``'s
+    schedule: 2 ``to_static`` steps (the first eager, the second
+    captured), then ``to_static_multi_step`` over K = 10, once to warm
+    and once timed. bench.py draws a fresh batch for the K steps; here
+    each step repeats its first batch, as phase 7 does, so that a
+    falling loss shows the optimizer at work. Per step: flash_fwd 40
+    (forward plus recomputation), dQ 20, dK/dV 20, all on ``wgmma`` at
+    d 128, one AdamW launch, and the kernels a profiler trace of a K = 2
+    call sees per step must be those counts; after each call every
+    gradient is None."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.amp import auto_cast
+    cfg, model, opt, ids, labels = flagship(torch, batch, seq)
+
+    def train_step(ids, labels):
+        with auto_cast(level="O2"):
+            loss = model(ids, labels=labels)
+        opt.clear_grad()
+        loss.backward()
+        opt.step()
+        return loss
+
+    step = jit.to_static(train_step, layers=[model], optimizers=[opt],
+                         retain_grads=False)
+    multi = jit.to_static_multi_step(train_step, layers=[model],
+                                     optimizers=[opt], retain_grads=False)
+    ids_k = ids.expand(k, batch, seq).contiguous()
+    labels_k = labels.expand(k, batch, seq).contiguous()
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = [step(ids, labels) for _ in range(2)]
+    warm = multi(ids_k, labels_k)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ctr.zero()
+    t0 = time.perf_counter()
+    timed = multi(ids_k, labels_k)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / k
+    run, routes = ctr.read(), ctr.routes()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    losses = [float(x) for x in first] + [float(x) for x in warm] + \
+        [float(x) for x in timed]
+    L = cfg.num_layers
+    want = {"flash_fwd": 2 * L * k, "flash_bwd_dq": L * k,
+            "flash_bwd_dkv": L * k, "adamw": k}
+    log(f"  gpt2-1p1b: {n_params} parameters; launches in the timed K = {k} "
+        f"call: {run}")
+    ctr.expect(run, want, "gpt2-1p1b")
+    expect_flash_routes(routes, L * k, "gpt2-1p1b", n_fwd=2 * L * k)
+    if any(p.grad is not None for p in model.parameters()):
+        raise AssertionError("gpt2-1p1b: a gradient survived "
+                             "retain_grads=False")
+    log(f"  gpt2-1p1b: losses {losses}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"gpt2-1p1b: losses not finite and falling: "
+                             f"{losses}")
+    two_k = (ids_k[:2], labels_k[:2])
+    busy, kernels, traced_counts = traced_steps(
+        torch, ctr, lambda: multi(*two_k), 2,
+        {n: c / k for n, c in run.items() if c}, "gpt2-1p1b")
+    log(f"  gpt2-1p1b: kernels per step in the trace of a K = 2 call "
+        f"{traced_counts}")
+    fpt = model_flops_per_token(cfg.hidden_size, cfg.ffn_hidden_size, L,
+                                cfg.vocab_size, seq)
+    res = rate({"step_ms": dt * 1e3, "losses": losses, "launches": run,
+                "routes": routes, "peak_bytes": peak,
+                "peak_reserved_bytes": reserved, "device_busy_ms": busy,
+                "idle_share": 1.0 - busy / (dt * 1e3),
+                "kernels_per_step": kernels,
+                "traced_counts": traced_counts,
+                "parameters": n_params, "warm_s": warm_s},
+               batch * seq, fpt)
+    log(f"  [{card}] gpt2-1p1b, recompute, to_static_multi_step K = {k}: "
+        f"step {res['step_ms']:.3f} ms, {res['tokens_per_s']:.1f} tokens/s, "
+        f"MFU {res['mfu'] * 100:.3f}% (bench.py's formula, "
+        f"{fpt / 1e9:.3f} GFLOP per token, no credit for recomputation), "
+        f"device busy "
+        f"{busy:.3f} ms per step, idle share {res['idle_share']:.4f}, "
+        f"{res['kernels_per_step']:.0f} kernels per step, "
+        f"{memory_line(res)}; 2 to_static steps and the warm K call took "
+        f"{warm_s:.1f} s")
+    del step, multi, model, opt
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke run needs a CUDA card")
     from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import adamw as aw
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_pack2 as fp2
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     t_start = time.perf_counter()
-    ctr = Counters(pa, fa, ln, fp2)
+    ctr = Counters(pa, fa, ln, fp2, aw)
     card = card_line()
     log("== phase 1: device")
     log(f"  {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
@@ -1347,7 +1869,7 @@ def main():
 
     log("== phase 2: build (one nvcc per source, started together)")
     sources = ["paged_attention", "flash_attention", "layer_norm",
-               "flash_pack2"]
+               "flash_pack2", "adamw"]
     t_build = time.perf_counter()
     _build.load_all(sources)
     log(f"  {len(sources)} built in {time.perf_counter() - t_build:.2f} s")
@@ -1390,7 +1912,7 @@ def main():
     torch.cuda.empty_cache()
 
     log(f"== phase 7: train gpt2-medium (batch {GPT_BATCH}, seq {GPT_SEQ}, "
-        "O2 bf16, AdamW bf16 moments)")
+        "O2 bf16, AdamW bf16 moments), eager and through jit.to_static")
     gpt = train_step(torch)
     trn = train(torch, ctr, card, gpt)
     torch.cuda.empty_cache()
@@ -1413,7 +1935,8 @@ def main():
     torch.cuda.empty_cache()
 
     log(f"== phase 11: train ernie-base (batch {ERNIE_BATCH}, seq "
-        f"{ERNIE_SEQ}, O2 bf16, AdamW bf16 moments)")
+        f"{ERNIE_SEQ}, O2 bf16, AdamW bf16 moments), eager and through "
+        "jit.to_static")
     ern = train_ernie(torch, ctr, card)
     torch.cuda.empty_cache()
 
@@ -1427,6 +1950,22 @@ def main():
     log("== phase 13: time the LayerNorm kernels (f32 [8192, 768] and "
         "[8192, 1024])")
     ltimes = time_ln(torch, ln, ctr, card)
+    torch.cuda.empty_cache()
+
+    log("== phase 14: AdamW kernel vs plain")
+    n_adamw, adamw_err = check_adamw(torch, aw, ctr)
+    log(f"  {n_adamw} cases passed, every tensor equal (largest difference "
+        f"{adamw_err:.3e})")
+
+    log("== phase 15: the AdamW kernel at the main path's shapes "
+        "(gpt2-1p1b's and gpt2-medium's parameters) vs plain; its time")
+    atimes = time_adamw(torch, aw, ctr, card)
+    adamw_err = max(adamw_err, atimes["main_path_max_abs_err"])
+
+    log(f"== phase 16: train gpt2-1p1b (bench.py's flagship: batch "
+        f"{GPT_BATCH}, seq {GPT_SEQ}, recompute, O2 bf16, AdamW bf16 "
+        f"moments, retain_grads=False) through to_static_multi_step")
+    flag = train_flagship(torch, ctr, card)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -1457,7 +1996,10 @@ def main():
             library_call=t["library_call"],
             tflops_per_s=t["tflops_per_s"],
             bound_fraction=t["bound_fraction"], cuda_route=t["cuda_route"],
-            launches_by_route=trn["routes"][name]))
+            launches_by_route=trn["routes"][name],
+            launches_captured=trn["captured"]["launches"][name],
+            launches_flagship=flag["launches"][name],
+            launches_by_route_flagship=flag["routes"][name]))
     for name, line in (("ln_fwd", 27), ("ln_bwd", 40)):
         t = ltimes[name]["ernie-base"]
         kernels.append(entry(
@@ -1465,7 +2007,8 @@ def main():
             f"paddle_tpu/ops/pallas/layer_norm.py:{line}",
             ern["on"]["launches"][name], ln_err[name], t, cases_passed=n_ln,
             library_call=t["library_call"], by_shape=ltimes[name],
-            launches_gpt_step=trn_ln["launches"][name]))
+            launches_gpt_step=trn_ln["launches"][name],
+            launches_captured=ern["captured"]["launches"][name]))
     kernels.append(entry(
         "packed_flash_fwd", "flash_pack2.cu", "tools/flash_pack2_bench.py:48",
         packed["launches"], packed_err["packed_flash_fwd"], packed,
@@ -1474,12 +2017,25 @@ def main():
         cuda_route=max(packed["routes"], key=packed["routes"].get),
         launches_by_route=packed["routes"]))
 
+    kernels.append(entry(
+        "adamw", "adamw.cu", "paddle_tpu/ops/optimizer_ops.py:61",
+        trn["launches"]["adamw"], adamw_err, atimes, cases_passed=n_adamw,
+        other_update_call="torch.optim.AdamW(fused=True): a different "
+        "update (epsilon after the bias correction, f32 moments), for "
+        "scale only", other_update_ms=atimes["other_update_ms"],
+        shape={"tensors": atimes["tensors"],
+               "parameters": atimes["parameters"]},
+        launches_captured=trn["captured"]["launches"]["adamw"],
+        launches_flagship=flag["launches"]["adamw"]))
+
     def summary(r):
-        return {k: v for k, v in r.items() if k != "launches"}
+        return {k: summary(v) if isinstance(v, dict) and k != "routes"
+                else v for k, v in r.items()
+                if k not in ("launches", "final")}
 
     print(json.dumps({"train": summary(trn), "train_ln": summary(trn_ln),
-                      "ernie": {k: summary(v) if isinstance(v, dict) else v
-                                for k, v in ern.items()}}), flush=True)
+                      "ernie": summary(ern), "flagship": summary(flag),
+                      "adamw": atimes}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,20 @@ def amp_state():
             getattr(_state, "dtype", torch.bfloat16))
 
 
+@contextlib.contextmanager
+def amp_state_guard(state):
+    """Run the block with ``state`` (an :func:`amp_state` pair) in force
+    on this thread. A checkpointed block's recomputation runs in
+    autograd's thread, where no ``auto_cast`` is open: the block
+    re-enters the state its forward ran under."""
+    prev = amp_state()
+    _state.level, _state.dtype = state
+    try:
+        yield
+    finally:
+        _state.level, _state.dtype = prev
+
+
 def _cast_all(tensors, dtype):
     return tuple(t.to(dtype) if t is not None and t.is_floating_point()
                  and t.dtype != dtype else t for t in tensors)

@@ -269,7 +269,10 @@ inline EncodeTiled encode_tiled() {
 // Tensor map of a contiguous [BH, S, D] bf16 slab read in boxes of `rows`
 // rows x 64 columns, 128-byte swizzled; rows past S read as zeros. False
 // if the driver refuses it (a pointer not 16-byte aligned, D * 2 not a
-// multiple of 16).
+// multiple of 16). Encoded on the host at every launch and passed as a
+// __grid_constant__ argument: a CUDA graph (paddle_tpu_torch/jit.py) bakes
+// the map by value at capture, which is right only because a captured
+// step's tensors keep their addresses on every replay.
 inline bool slab_map(CUtensorMap* map, const void* ptr, int BH, int S, int D,
                      int rows) {
   const EncodeTiled fn = encode_tiled();

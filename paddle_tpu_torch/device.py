@@ -20,6 +20,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def capturing() -> bool:
+    """Whether this thread's current CUDA stream is capturing a graph
+    (False on a host without CUDA)."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 def resolve_generator(device: torch.device, generator=None):
     """The generator that draws parameters on ``device``: ``generator``,
     which must live there, or one on ``device`` seeded with 0."""

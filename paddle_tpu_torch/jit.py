@@ -1,0 +1,406 @@
+"""jit — the counterpart of ``paddle_tpu/jit.py``'s ``to_static``
+(``:74``) and ``to_static_multi_step`` (``:215``).
+
+The reference traces a dygraph step (forward, backward, ``opt.step()``)
+into one XLA computation and threads the parameters, gradients and
+optimizer state through it. On a CUDA card the port records the step
+as one CUDA graph and replays it:
+
+- the first call for a key runs the function eagerly, on the stream the
+  graph will be captured on. This is the warm-up, and its step really
+  happens: kernels build and load, cuBLAS makes its handles and the
+  optimizer creates its accumulators here, never under capture;
+- the second call copies its arguments into static buffers, captures
+  one ``torch.cuda.CUDAGraph`` of the function and replays it once;
+- later calls copy their arguments into the buffers and replay.
+
+So every call is exactly one step, as in JAX. The key is (the
+arguments' shapes and dtypes, which gradients are present,
+``flags.version()``), as ``paddle_tpu/jit.py:184-190`` retraces. The
+function's Python code runs at the warm-up and at the capture only;
+state it touches must be updated in place (the port's ``AdamW`` does),
+and a capture that rebinds a parameter or an optimizer's state, or
+fails in any other way, raises after restoring the bindings it changed
+(each ``p.grad``, each optimizer's state). It never falls back to the
+eager path. On the CPU the function simply runs eagerly.
+
+Outputs are returned detached: fresh clones of the graph's outputs after
+a replay, never the static buffers. The kernel wrappers' Python launch
+counts do not tick on a replay, so the capture records each count's
+change and every replay adds it: ``launches`` keeps meaning the launches
+the card ran.
+
+Gradients: with ``retain_grads=False`` every ``p.grad`` is None after a
+call, as the reference leaves it. The reference's memory lever (XLA frees
+each gradient at its update, ``paddle_tpu/jit.py:100-107``) is not
+reproduced: the gradients live in the graph's memory pool between
+replays. With ``retain_grads=True`` each ``p.grad`` after a replay is
+the graph's gradient output. A step that clears its gradients before
+``backward()`` (as ``bench.py``'s do) never reads the gradients it found,
+so a replay copies nothing and the graph keeps no reference to them. A
+step that accumulates into its gradients does so in place (autograd
+accumulates in place without ``create_graph``), so its graph reads and
+writes the tensors it found, and a replay copies a gradient into that
+tensor only where the caller rebound ``p.grad`` since. A step that leaves
+a gradient with a ``grad_fn`` (``backward(create_graph=True)``, which
+accumulates out of place) is refused at capture.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from . import flags as _flags
+
+
+# ------------------------------------------------------------ launch counts
+
+def _counted_modules():
+    from .ops.cuda import (adamw, flash_attention, flash_pack2, layer_norm,
+                           paged_attention)
+    return (adamw, flash_attention, flash_pack2, layer_norm, paged_attention)
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count: ``{(module, kernel, route):
+    n}``, route None for the per-kernel totals."""
+    out = {}
+    for m in _counted_modules():
+        name = m.__name__.rsplit(".", 1)[1]
+        if isinstance(m.launches, int):
+            out[(name, None, None)] = m.launches
+        else:
+            for k, n in m.launches.items():
+                out[(name, k, None)] = n
+        for k, by in getattr(m, "launches_by_route", {}).items():
+            for r, n in by.items():
+                out[(name, k, r)] = n
+    return out
+
+
+def _set_launch_counts(counts):
+    mods = {m.__name__.rsplit(".", 1)[1]: m for m in _counted_modules()}
+    for (name, kernel, route), n in counts.items():
+        m = mods[name]
+        if kernel is None:
+            m.launches = n
+        elif route is None:
+            m.launches[kernel] = n
+        else:
+            m.launches_by_route[kernel][route] = n
+
+
+def _add_launch_counts(delta):
+    now = launch_counts()
+    _set_launch_counts({k: now[k] + n for k, n in delta.items()})
+
+
+# ----------------------------------------------------------------- helpers
+
+def _as_tensor(a):
+    return torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+
+
+def _signature(a):
+    if isinstance(a, torch.Tensor):
+        return ("tensor", tuple(a.shape), a.dtype)
+    try:
+        hash(a)
+    except TypeError:
+        raise TypeError(f"to_static takes tensors, arrays and hashable "
+                        f"constants as arguments, not {type(a).__name__}")
+    return ("const", a)
+
+
+def _tree_map(fn, out):
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if isinstance(out, (list, tuple)):
+        return type(out)(_tree_map(fn, o) for o in out)
+    if isinstance(out, dict):
+        return {k: _tree_map(fn, v) for k, v in out.items()}
+    return out
+
+
+def _stack(outs):
+    """``[K]`` per-step outputs of one structure -> one structure of
+    ``[K, ...]`` tensors (non-tensor leaves become lists)."""
+    first = outs[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs)
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([o[i] for o in outs])
+                           for i in range(len(first)))
+    if isinstance(first, dict):
+        return {k: _stack([o[k] for o in outs]) for k in first}
+    return list(outs)
+
+
+def _refuse(mesh, param_rules, arg_specs):
+    if mesh is not None or param_rules is not None or arg_specs is not None:
+        raise NotImplementedError(
+            "mesh/param_rules/arg_specs (the SPMD train step) are not "
+            "ported yet; the port's to_static runs on one card")
+
+
+# ------------------------------------------------------------------ graphs
+
+class _Graph:
+    """One captured step: the graph, its static input buffers (None for a
+    constant argument), its outputs, the launch counts one replay adds,
+    each parameter's gradient after the step (``grads_out``) and, where
+    the step accumulated into the gradient it found, that tensor
+    (``grads_in``; None elsewhere: the graph never reads it)."""
+
+    def __init__(self, graph, inputs, outputs, delta, grads_in, grads_out):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
+        self.delta = delta
+        self.grads_in, self.grads_out = grads_in, grads_out
+
+    def run(self, params, args=None):
+        if args is not None:
+            for buf, a in zip(self.inputs, args):
+                if buf is not None:
+                    buf.copy_(a, non_blocking=True)
+        for p, gi in zip(params, self.grads_in):
+            if gi is not None and p.grad is not gi:
+                gi.copy_(p.grad)
+        self.graph.replay()
+        _add_launch_counts(self.delta)
+        for p, go in zip(params, self.grads_out):
+            p.grad = go
+        return _tree_map(torch.clone, self.outputs)
+
+
+class _Step:
+    """One function's step over fixed layers and optimizers: the eager
+    path on the CPU, and on CUDA the warm-up, capture and replays of one
+    graph per key. ``to_static`` and ``to_static_multi_step`` of the
+    same function, layers, optimizers and ``retain_grads`` share it, and
+    so its graphs."""
+
+    def __init__(self, fn, layers, optimizers, retain_grads):
+        self.fn = fn
+        self.optimizers = list(optimizers)
+        self.retain_grads = retain_grads
+        self.params = []
+        seen = set()
+        for layer in layers:
+            for p in layer.parameters():
+                if id(p) not in seen:
+                    seen.add(id(p))
+                    self.params.append(p)
+        self.warmed = set()       # keys whose eager warm-up ran
+        self.graphs = {}          # key -> _Graph
+        self._stream = None
+
+    def key(self, args):
+        """What a captured graph is specialised to: the arguments' shapes
+        and dtypes (constants by value), which gradients are present and
+        the flags' version."""
+        return (tuple(_signature(_as_tensor(a)) for a in args),
+                tuple(p.grad is not None for p in self.params),
+                _flags.version())
+
+    def device(self, args):
+        """The CUDA device of the step (of its first CUDA argument or
+        parameter), or None: the step runs eagerly."""
+        for t in list(args) + self.params:
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                return t.device
+        return None
+
+    def __call__(self, *args):
+        args = [_as_tensor(a) for a in args]
+        dev = self.device(args)
+        if dev is None:
+            out = _tree_map(torch.Tensor.detach, self.fn(*args))
+        else:
+            args = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+            key = self.key(args)
+            entry = self.graphs.get(key)
+            if entry is not None:
+                out = entry.run(self.params, args)
+            elif key not in self.warmed:
+                self.warmed.add(key)
+                out = self._warm(dev, args)
+            else:
+                entry = self.graphs[key] = self._capture(dev, args)
+                out = entry.run(self.params)
+        if not self.retain_grads:
+            for p in self.params:
+                p.grad = None
+        return out
+
+    def _side_stream(self, dev):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        return self._stream
+
+    def _warm(self, dev, args):
+        """The eager step on the capture stream (``torch.cuda.graphs``'
+        warm-up rule), ordered after and before the caller's stream."""
+        cur = torch.cuda.current_stream(dev)
+        side = self._side_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = _tree_map(torch.Tensor.detach, self.fn(*args))
+        cur.wait_stream(side)
+        return out
+
+    def _capture(self, dev, args):
+        inputs = [a.detach().clone() if isinstance(a, torch.Tensor)
+                  else None for a in args]
+        call = [b if b is not None else a for b, a in zip(inputs, args)]
+        grads_in = [p.grad for p in self.params]
+        ptrs = [p.data_ptr() for p in self.params]
+        states = [dict(getattr(o, "_state", {})) for o in self.optimizers]
+        counts = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=self._side_stream(dev)):
+                out = self.fn(*call)
+            grads_out = [p.grad for p in self.params]
+            self._check_in_place(ptrs, states, grads_out)
+        except BaseException:
+            for p, g in zip(self.params, grads_in):
+                p.grad = g
+            for o, st in zip(self.optimizers, states):
+                if hasattr(o, "_state"):
+                    o._state.clear()
+                    o._state.update(st)
+            _set_launch_counts(counts)
+            raise
+        now = launch_counts()
+        delta = {k: n - counts.get(k, 0) for k, n in now.items()
+                 if n != counts.get(k, 0)}
+        _set_launch_counts(counts)         # the capture ran nothing
+        for p, g in zip(self.params, grads_in):
+            p.grad = g
+        read = [gi if gi is not None and gi is go else None
+                for gi, go in zip(grads_in, grads_out)]
+        return _Graph(graph, inputs, _tree_map(torch.Tensor.detach, out),
+                      delta, read, grads_out)
+
+    def _check_in_place(self, ptrs, states, grads_out):
+        moved = [i for i, (p, ptr) in enumerate(zip(self.params, ptrs))
+                 if p.data_ptr() != ptr]
+        if moved:
+            raise RuntimeError(
+                f"the captured step rebound {len(moved)} parameter(s); a "
+                "graph replays only in-place updates")
+        for o, st in zip(self.optimizers, states):
+            now = getattr(o, "_state", {})
+            if set(now) != set(st) or any(now[k] is not v
+                                          for k, v in st.items()):
+                raise RuntimeError(
+                    f"the captured step created or rebound state of "
+                    f"{type(o).__name__}; a graph replays only in-place "
+                    "updates of state created before the capture")
+        if any(g is not None and g.grad_fn is not None for g in grads_out):
+            raise RuntimeError(
+                "the captured step left gradients with a grad_fn "
+                "(backward(create_graph=True)): its out-of-place "
+                "accumulation would read gradients the replays do not "
+                "keep; to_static captures first-order steps only")
+
+
+_shared = weakref.WeakValueDictionary()
+
+
+def _step_for(fn, layers, optimizers, retain_grads) -> _Step:
+    key = (id(fn), tuple(id(m) for m in layers),
+           tuple(id(o) for o in optimizers), bool(retain_grads))
+    step = _shared.get(key)
+    if step is None or step.fn is not fn:
+        step = _shared[key] = _Step(fn, layers, optimizers,
+                                    bool(retain_grads))
+    return step
+
+
+# ------------------------------------------------------------- public API
+
+def to_static(function: Optional[Callable] = None, *, layers=None,
+              optimizers=None, donate_state: bool = True, mesh=None,
+              param_rules=None, arg_specs=None, ast_convert: bool = False,
+              retain_grads: bool = True):
+    """One step of ``function`` per call, captured as a CUDA graph on the
+    card (see the module's docstring).
+
+    - forward-only: ``fast = to_static(model)`` with ``model`` an
+      ``nn.Module``;
+    - train step: ``@to_static(layers=[model], optimizers=[opt])`` around
+      a function that runs the forward, ``backward()`` and
+      ``opt.step()``.
+
+    Arguments are tensors or numpy arrays (moved to the step's device) or
+    hashable constants (part of the key, baked into the graph).
+    ``donate_state`` is accepted and has nothing to do: the state is
+    updated in place. ``mesh``, ``param_rules``, ``arg_specs`` and
+    ``ast_convert`` raise NotImplementedError."""
+    _refuse(mesh, param_rules, arg_specs)
+    if ast_convert:
+        raise NotImplementedError("ast_convert needs the dygraph-to-static "
+                                  "converter, which is not ported yet")
+    if isinstance(function, torch.nn.Module) and layers is None:
+        layer = function
+        return to_static(lambda *a: layer(*a), layers=[layer],
+                         optimizers=optimizers, retain_grads=retain_grads)
+
+    def deco(fn):
+        step = _step_for(fn, layers or [], optimizers or [], retain_grads)
+
+        def wrapper(*args):
+            return step(*args)
+
+        wrapper.__wrapped__ = fn
+        wrapper._step = step
+        return wrapper
+
+    return deco(function) if function is not None else deco
+
+
+def to_static_multi_step(fn, *, layers, optimizers=None,
+                         donate_state: bool = True, mesh=None,
+                         param_rules=None, arg_specs=None,
+                         retain_grads: bool = True):
+    """K chained steps of ``fn`` per call, the counterpart of the
+    reference's ``lax.scan`` over K steps. Each tensor argument carries a
+    leading step dimension ``[K, ...]`` and goes to the device once;
+    slice k is copied into the single-step graph's inputs (the graph
+    :func:`to_static` of the same ``fn``, layers, optimizers and
+    ``retain_grads`` uses) and replayed, K times, with no host
+    synchronisation between steps. The outputs come back stacked
+    ``[K, ...]``. As in the reference, one ordinary :func:`to_static`
+    step must come first, so that the optimizers' accumulators exist."""
+    _refuse(mesh, param_rules, arg_specs)
+    step = _step_for(fn, layers or [], optimizers or [], retain_grads)
+
+    def wrapper(*args):
+        args = [_as_tensor(a) for a in args]
+        ks = {a.shape[0] for a in args if isinstance(a, torch.Tensor)}
+        if len(ks) != 1:
+            raise ValueError(f"to_static_multi_step takes tensor arguments "
+                             f"with one leading step dimension, got "
+                             f"{sorted(ks)}")
+        for o in step.optimizers:
+            if not getattr(o, "_state", True):
+                raise RuntimeError(
+                    "to_static_multi_step needs the optimizers' "
+                    "accumulators: run one to_static step first")
+        dev = step.device(args)
+        if dev is not None:
+            args = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        (k,) = ks
+        return _stack([step(*[a[i] if isinstance(a, torch.Tensor) else a
+                              for a in args]) for i in range(k)])
+
+    wrapper.__wrapped__ = fn
+    wrapper._step = step
+    return wrapper

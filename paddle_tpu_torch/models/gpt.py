@@ -10,8 +10,16 @@ pallas_min_seq``) and with ``labels`` returns the training loss, and
 the block-paged KV cache branch the serving engine drives for prefill
 and decode. The ops cast under AMP as the reference's do, so under
 ``auto_cast(level="O2")`` the residual stream runs in bf16 and
-LayerNorm and the loss in f32. The slotted fixed-capacity cache branch
-and recompute wait for later slices.
+LayerNorm and the loss in f32. ``GPTConfig.recompute`` (the
+reference's ``fleet.utils.recompute`` over every decoder block,
+``paddle_tpu/models/gpt.py:379-381``) runs each block of the no-cache
+forward through ``torch.utils.checkpoint``, which keeps only the block's
+input and recomputes the rest in the backward pass, under the AMP state
+of the forward. At dropout 0 nothing random is replayed; with dropout
+the recomputation replays the forward's masks from the saved RNG state,
+which a CUDA graph capture does not allow, so that combination raises
+under capture. The slotted fixed-capacity cache branch waits for a later
+slice.
 """
 
 from __future__ import annotations
@@ -20,13 +28,16 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from .. import flags as _flags
 from ..device import resolve_device, resolve_generator
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, Linear
-from ..amp.auto_cast import maybe_autocast_inputs
+from ..amp.auto_cast import amp_state, amp_state_guard, \
+    maybe_autocast_inputs
+from ..device import capturing
 from ..ops.attention_ops import (_composed_attention, block_gather,
                                  block_gather_dequant, block_scatter_write,
                                  block_scatter_write_quant,
@@ -46,6 +57,9 @@ class GPTConfig:
     ffn_hidden_size: int = 4096
     dropout: float = 0.0
     init_std: float = 0.02
+    # rematerialize each block's activations in backward (the reference's
+    # batch-size lever: recompute over every decoder block)
+    recompute: bool = False
     # pad the embedding rows up to a multiple of this; logits are
     # sliced back to vocab_size
     vocab_pad_to: int = 1
@@ -236,13 +250,34 @@ class GPTModel(nn.Module):
         new_caches = []
         for i, blk in enumerate(self.blocks):
             if cache is None:
-                x = blk(x)
+                x = self._recomputed(blk, x) if self.cfg.recompute \
+                    else blk(x)
             else:
                 x, c = blk(x, cache[i], cache_pos=cache_pos,
                            block_tables=block_tables, attn_impl=attn_impl)
                 new_caches.append(c)
         x = self.ln_f(x)
         return x if cache is None else (x, new_caches)
+
+    def _recomputed(self, blk, x):
+        """``blk(x)`` keeping only ``x`` for the backward pass, which
+        recomputes the block under the AMP state of this forward."""
+        replay_rng = self.training and self.cfg.dropout > 0
+        if replay_rng and capturing():
+            raise NotImplementedError(
+                "GPTConfig.recompute with dropout > 0 cannot be captured "
+                "in a CUDA graph: the recomputation replays the forward's "
+                "dropout masks from the saved RNG state, which a capture "
+                "does not allow; use dropout 0 or recompute=False under "
+                "jit.to_static")
+        state = amp_state()
+
+        def run(inp):
+            with amp_state_guard(state):
+                return blk(inp)
+
+        return torch.utils.checkpoint.checkpoint(
+            run, x, use_reentrant=False, preserve_rng_state=replay_rng)
 
     def gen_block_pool(self, num_blocks, block_size, kv_dtype="f32"):
         """Zeroed block-paged KV pool on the model's device: per layer a
