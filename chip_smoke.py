@@ -5,13 +5,16 @@ attention; flash attention forward, dQ and dK/dV; LayerNorm forward and
 backward; the packed-heads flash forward; the multi-tensor AdamW update),
 holds each against its plain PyTorch version on the card, serves GPT-2
 345M (``gpt2-medium``, full width and depth, random weights from a seed)
-through the port's ServingEngine, trains it (``bench.py``'s step: batch
+through the port's ServingEngine with every prefill and decode dispatch
+the replay of a CUDA graph, trains it (``bench.py``'s step: batch
 8, seq 1024, AMP O2 bf16, AdamW with bf16 moments) eagerly and through
 ``jit.to_static`` as a CUDA graph, with the LayerNorm kernels off and
 on, trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512)
 through the LayerNorm kernels, eagerly and captured, trains
 ``bench.py``'s default flagship (gpt2-1p1b with recompute) through
-``jit.to_static_multi_step``, shows that every run went through its
+``jit.to_static_multi_step``, serves gpt2-medium again eagerly, captured
+and in decode megasteps and swaps its weights mid-run, shows that every
+run went through its
 kernels (the launch counts, and the kernel names a profiler trace of
 the same step sees), reads the device's busy time of each train step
 with ``torch.profiler``, and times the kernels. The flash forward, dQ
@@ -21,15 +24,20 @@ phase 2 checks that their SASS holds HGMMA instructions, phases 6 and 12
 hold them to :func:`close_rounded`, and phases 7, 10, 12 and 16 check
 that every counted launch of them took that route.
 
-Phases: 1 device, 2 build, 3 paged kernel vs plain, 4 serve, 5 time the
-paged kernel, 6 flash kernels vs plain, 7 train GPT (eager, then
+Phases: 1 device, 2 build, 3 paged kernel vs plain, 4 serve (every
+bucket and the decode step captured first, then a timed run that
+captures nothing), 5 time the paged kernel, 6 flash kernels vs plain, 7 train GPT (eager, then
 captured: losses and parameters bit-equal), 8 time the flash kernels, 9
 LayerNorm kernels vs plain, 10 train GPT with the LayerNorm kernels, 11
 train ERNIE-base (eager and captured), 12 packed-heads forward, 13 time
 the LayerNorm kernels, 14 AdamW kernel vs plain (f32, bf16 and fp16
 parameters and moments), 15 the AdamW kernel vs plain on gpt2-1p1b's and
 gpt2-medium's whole parameter sets, then its time, 16 train the
-gpt2-1p1b flagship.
+gpt2-1p1b flagship, 17 serve gpt2-medium eagerly (``jit.no_capture()``),
+captured and at megastep 8 in one process (tokens/s, TTFT, TPOT, the
+decode step's host time against its device busy time, kernels per step,
+peak memory; tokens equal across the three, also where eos, stops and
+budgets end requests mid-megastep), and swap its weights mid-run.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -44,6 +52,7 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -332,25 +341,97 @@ def check_kernel(torch, pa):
 
 
 # ------------------------------------------------------------ phase 4
-def serve(torch, model, prompts, kv, impl, new_tokens=32):
+#: prompt lengths whose prefills take each of the engine's buckets (16,
+#: 32, 64, 128 and max_len 256): every key's first call, before timing
+WARM_PROMPTS = (10, 24, 48, 100, 200)
+
+
+def serving_engine(model, kv, impl, megastep=1):
+    """The JAX bench's engine geometry: 8 slots, ``max_len`` 256, blocks
+    of 16, the prefix cache on."""
     from paddle_tpu_torch.serving import ServingEngine
-    eng = ServingEngine(model, max_slots=8, max_len=256, block_size=16,
-                        prefix_cache=True, kv_dtype=kv, attn_impl=impl)
-    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    return ServingEngine(model, max_slots=8, max_len=256, block_size=16,
+                         prefix_cache=True, kv_dtype=kv, attn_impl=impl,
+                         megastep=megastep)
+
+
+def captures(model) -> int:
+    """The specialisations of every step-cache entry of ``model`` (graphs
+    captured, on the card)."""
+    return sum(e["traces"]["count"]
+               for e in getattr(model, "_step_compile_cache", {}).values())
+
+
+def warm(torch, eng, seed=99):
+    """One prompt per prefill bucket and a few decode dispatches: the
+    first call of every key the timed run will use, where each captures
+    its graph."""
+    vocab = eng.model.cfg.vocab_size
+    rng = np.random.RandomState(seed)
+    reqs = [eng.submit(rng.randint(0, vocab, size=n).tolist(),
+                       max_new_tokens=4) for n in WARM_PROMPTS]
+    eng.run_until_idle()
     torch.cuda.synchronize()
+    assert all(r.done for r in reqs)
+
+
+def pctl_ms(vals, q):
+    return float(np.percentile(vals, q)) * 1e3
+
+
+def drive(torch, ctr, eng, specs, what):
+    """Serve ``specs`` (``(prompt, submit kwargs)``) to the end with every
+    launch count zeroed before and read after, the card's peak memory
+    reset before: the tokens and the numbers of the run. The counts must
+    be exactly ``num_layers`` paged-attention launches per prefill or
+    decode dispatch (``n`` per megastep dispatch), and no step may
+    capture a graph (every key was warmed)."""
+    model = eng.model
+    d0 = (eng.prefill_dispatches, eng.decode_steps, eng.megastep_dispatches)
+    cap0 = captures(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctr.zero()
     t0 = time.perf_counter()
+    reqs = [eng.submit(p, **kw) for p, kw in specs]
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    bad = [r.id for r in reqs if r.state != "done"
-           or len(r.tokens) != new_tokens]
-    if bad:
-        raise AssertionError(f"{kv}/{impl}: requests {bad} did not finish "
-                             f"with {new_tokens} tokens")
+    run, routes = ctr.read(), ctr.routes()["paged_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    new_captures = captures(model) - cap0
+    pre, dec, mega = (a - b for a, b in zip(
+        (eng.prefill_dispatches, eng.decode_steps, eng.megastep_dispatches),
+        d0))
     vocab = model.cfg.vocab_size
+    if any(not r.done for r in reqs):
+        raise AssertionError(f"{what}: requests did not finish")
     if any(not 0 <= t < vocab for r in reqs for t in r.tokens):
-        raise AssertionError(f"{kv}/{impl}: token outside the vocabulary")
-    return eng, reqs, wall
+        raise AssertionError(f"{what}: token outside the vocabulary")
+    want = model.cfg.num_layers * (pre + dec + eng.megastep * mega)
+    ctr.expect(run, {"paged_attention": want}, what)
+    if sum(routes.values()) != run["paged_attention"]:
+        raise AssertionError(f"{what}: launches by route {routes} do not "
+                             f"add up to {run['paged_attention']}")
+    if new_captures:
+        raise AssertionError(f"{what}: the timed run captured "
+                             f"{new_captures} graphs; every key was warmed")
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttft = [r.ttft for r in reqs]
+    tpot = [r.tpot for r in reqs if r.tpot is not None]
+    res = {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "ttft_p50_ms": pctl_ms(ttft, 50), "ttft_p99_ms": pctl_ms(ttft, 99),
+           "tpot_p50_ms": pctl_ms(tpot, 50), "tpot_p99_ms": pctl_ms(tpot, 99),
+           "peak_bytes": peak, "peak_reserved_bytes": reserved,
+           "launches": run["paged_attention"], "routes": routes,
+           "prefill_dispatches": pre, "decode_steps": dec,
+           "megastep_dispatches": mega, "captures_in_run": new_captures,
+           "prefix_hit_requests": eng.stats()["prefix_hit_requests"]}
+    log(f"  {what}: {tokens} tokens in {wall:.3f} s, {pre} prefill + "
+        f"{dec} decode + {mega} megastep dispatches, "
+        f"{run['paged_attention']} paged launches {routes}, 0 captures")
+    return res, [r.tokens for r in reqs]
 
 
 def top2_gap(torch, model, ids):
@@ -362,71 +443,94 @@ def top2_gap(torch, model, ids):
     return float(top[0] - top[1])
 
 
+def same_tokens(torch, model, prompts, ref, out, what, ties=True):
+    """Raise unless ``out`` equals ``ref`` request by request. With
+    ``ties``, a request may diverge where the reference's top-2 logits
+    (a no-cache forward of the model's current weights) are within 1e-3
+    of each other, which is logged: another order of summation may take
+    either side of such a tie. Returns the divergences."""
+    diverged = []
+    for i, (p, a, b) in enumerate(zip(prompts, ref, out)):
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap = top2_gap(torch, model, p + a[:j]) if ties else None
+        log(f"  {what}: request {i} diverges at token {j}"
+            + (f": reference top-2 logit gap {gap:.3e}" if ties else ""))
+        if not ties or gap >= 1e-3:
+            raise AssertionError(f"{what}: request {i} differs at token {j}"
+                                 + (f" with top-2 gap {gap}" if ties else ""))
+        diverged.append({"request": i, "token": j, "gap": gap})
+    return diverged
+
+
+def serving_prompts(vocab, n=16):
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, vocab, size=int(k)).tolist()
+            for k in rng.randint(4, 65, size=n)]
+
+
 def check_serving(torch, ctr, card):
-    """Phase 4: gpt2-medium served through the kernel, the launch count
-    checked, the tokens held against the composed oracle, and the bf16
-    and int8 pools served too. Returns the main run's numbers."""
+    """Phase 4: gpt2-medium served through the kernel with every dispatch
+    a graph replay: each bucket and the decode step warmed (captured)
+    first, then the timed run, which must capture nothing; the launch
+    count checked, one graph per entry, the tokens held against the
+    composed oracle's, and the bf16 and int8 pools served too. Returns
+    the main run's numbers."""
+    from paddle_tpu_torch.models import generation
     from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
     cfg = GPT_CONFIGS["gpt2-medium"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
-    rng = np.random.RandomState(0)
-    prompts = [rng.randint(0, cfg.vocab_size, size=int(n)).tolist()
-               for n in rng.randint(4, 65, size=16)]
-    # warm-up (CUDA context, cuBLAS handles, the kernel's first load)
-    serve(torch, model, prompts[:2], "f32", "kernel", new_tokens=2)
+    prompts = serving_prompts(cfg.vocab_size)
+    specs = [(p, {"max_new_tokens": 32}) for p in prompts]
 
-    torch.cuda.reset_peak_memory_stats()
-    ctr.zero()
-    eng, reqs, wall = serve(torch, model, prompts, "f32", "kernel")
-    run = ctr.read()
-    routes = ctr.routes()["paged_attention"]
-    launches = run["paged_attention"]
-    st = eng.stats()
-    dispatches = st["prefill_dispatches"] + st["decode_steps"]
-    peak = torch.cuda.max_memory_allocated()
-    log(f"  kernel f32: {st['prefill_dispatches']} prefill dispatches + "
-        f"{st['decode_steps']} decode steps, {launches} kernel launches")
-    if launches == 0:
-        raise AssertionError("serving launched no paged-attention kernel")
-    ctr.expect(run, {"paged_attention": cfg.num_layers * dispatches},
-               "serving")
-    log(f"  kernel f32 launches by route {routes}")
-    if sum(routes.values()) != launches:
-        raise AssertionError(f"serving: launches by route {routes} do not "
-                             f"add up to the {launches} launches")
-    tokens = sum(len(r.tokens) for r in reqs)
-    if tokens != 512:
-        raise AssertionError(f"{tokens} tokens came out, expected 512")
+    eng = serving_engine(model, "f32", "kernel")
+    warm(torch, eng)
+    res, toks = drive(torch, ctr, eng, specs, "kernel f32")
+    if res["tokens"] != 512:
+        raise AssertionError(f"{res['tokens']} tokens came out, expected 512")
+    traces = {"decode": generation.decode_step_paged(
+        model, "f32", "kernel")["traces"]["count"]}
+    traces.update({f"prefill_{b}": e["traces"]["count"]
+                   for b, e in sorted(eng._prefill_fns.items())})
+    log(f"  kernel f32: graphs per entry {traces}")
+    if set(traces.values()) != {1} or len(traces) != 6:
+        raise AssertionError(f"expected one graph for the decode step and "
+                             f"each of the 5 buckets, got {traces}")
 
-    _, creqs, _ = serve(torch, model, prompts, "f32", "composed")
-    for r, c in zip(reqs, creqs):
-        if r.tokens == c.tokens:
-            continue
-        j = next(i for i, (a, b) in enumerate(zip(r.tokens, c.tokens))
-                 if a != b)
-        gap = top2_gap(torch, model, c.prompt + c.tokens[:j])
-        log(f"  request {c.id} diverges at step {j}: composed top-2 "
-            f"logit gap {gap:.3e}")
-        if gap >= 1e-3:
-            raise AssertionError(f"kernel and composed tokens differ at "
-                                 f"request {c.id} step {j} with top-2 gap "
-                                 f"{gap} >= 1e-3")
-    log("  kernel f32 tokens == composed f32 tokens (up to near ties)")
+    ctoks = serve_all(torch, serving_engine(model, "f32", "composed"), specs)
+    div = same_tokens(torch, model, prompts, ctoks, toks,
+                      "kernel vs composed f32")
+    log(f"  kernel f32 tokens == composed f32 tokens ({len(div)} near "
+        "ties)")
 
     for kv in ("bf16", "int8"):
-        e, _, w = serve(torch, model, prompts, kv, "kernel")
+        e = serving_engine(model, kv, "kernel")
+        t0 = time.perf_counter()
+        out = serve_all(torch, e, specs)
+        w = time.perf_counter() - t0
         s2 = e.stats()
-        log(f"  kernel {kv}: 512 tokens in {w:.3f} s"
+        log(f"  kernel {kv}: {sum(map(len, out))} tokens in {w:.3f} s "
+            "(captures included)"
             + (f", kv_quant_max_abs_err {s2['kv_quant_max_abs_err']}"
                if kv == "int8" else ""))
+        if sum(map(len, out)) != 512:
+            raise AssertionError(f"{kv}: {sum(map(len, out))} tokens")
         if kv == "int8" and not s2["kv_quant_max_abs_err"] > 0:
             raise AssertionError("int8 run reported no quantization error")
-    return {"launches": launches, "routes": routes, "tokens": tokens,
-            "wall_s": wall,
-            "tokens_per_s": tokens / wall, "ttft_p50_ms": st["ttft_p50_ms"],
-            "tpot_p50_ms": st["tpot_p50_ms"], "peak_bytes": peak,
-            "prefix_hit_requests": st["prefix_hit_requests"]}
+    return {**res, "graphs_per_entry": traces, "composed_near_ties": div}
+
+
+def serve_all(torch, eng, specs):
+    """Serve ``specs`` to the end; the requests' generated tokens."""
+    reqs = [eng.submit(p, **kw) for p, kw in specs]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    if any(not r.done for r in reqs):
+        raise AssertionError("requests did not finish")
+    return [r.tokens for r in reqs]
 
 
 # ------------------------------------------------------------ phase 5
@@ -1847,6 +1951,235 @@ def train_flagship(torch, ctr, card, batch=GPT_BATCH, seq=GPT_SEQ,
     return res
 
 
+
+# ------------------------------------------------------------ phase 17
+MEGASTEP = 8          # the megastep the serving comparison runs at
+PROFILE_TIMED, PROFILE_TRACED = 8, 2
+SWAP_AT = 6           # engine steps before the weight swap
+
+
+def release_graphs(torch, model):
+    """Drop every step-cache entry of ``model`` and its graphs (their
+    engines must be gone), so the next mode's memory is its own."""
+    model.__dict__.pop("_step_compile_cache", None)
+    model.__dict__.pop("_step_graph_pool", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def decode_profile(torch, ctr, eng, what):
+    """Eight requests of 32-token prompts in flight, then
+    ``PROFILE_TIMED`` engine steps, each one decode dispatch of every row
+    (one megastep at N > 1) and its commit, on the host clock; then
+    ``PROFILE_TRACED`` more under the profiler: the device's busy time
+    per step, its idle share of the timed step, and the kernels per
+    step. The paged-attention kernels the trace sees must be the launch
+    counts: ``num_layers x N`` per step (a disagreeing trace is taken
+    again once, as :func:`traced_steps` does)."""
+    cfg = eng.model.cfg
+    rng = np.random.RandomState(5)
+    reqs = [eng.submit(rng.randint(0, cfg.vocab_size, size=32).tolist(),
+                       max_new_tokens=200) for _ in range(8)]
+    eng.step()
+    eng.step()
+    if sum(r.state == "running" for r in reqs) != 8:
+        raise AssertionError(f"{what}: not all 8 requests are decoding")
+    cap0 = captures(eng.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_TIMED):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / PROFILE_TIMED * 1e3
+    per = cfg.num_layers * eng.megastep
+    for attempt in range(2):
+        c0 = ctr.read()["paged_attention"]
+        busy, names = device_trace(
+            torch, lambda: [eng.step() for _ in range(PROFILE_TRACED)])
+        launched = ctr.read()["paged_attention"] - c0
+        seen = sum(n for name, n in names.items()
+                   if "paged_attention_kernel" in name)
+        if launched == seen == PROFILE_TRACED * per:
+            break
+        log(f"  {what}: {seen} paged kernels in the trace, {launched} "
+            f"counted, {PROFILE_TRACED * per} expected"
+            + ("; tracing again" if attempt == 0 else ""))
+    else:
+        raise AssertionError(f"{what}: the trace and the launch counts of "
+                             "the decode steps disagree")
+    if captures(eng.model) != cap0:
+        raise AssertionError(f"{what}: the profiled steps captured graphs")
+    busy /= PROFILE_TRACED
+    kernels = sum(names.values()) / PROFILE_TRACED
+    res = {"decode_step_ms": wall, "decode_busy_ms": busy,
+           "decode_idle_share": 1.0 - busy / wall,
+           "kernels_per_decode_step": kernels,
+           "decode_ms_per_token": wall / eng.megastep,
+           "paged_kernels_per_step": seen / PROFILE_TRACED}
+    log(f"  {what}: decode step {wall:.3f} ms on the host clock "
+        f"({eng.megastep} token(s) per row), device busy {busy:.3f} ms, "
+        f"idle share {res['decode_idle_share']:.4f}, {kernels:.0f} kernels "
+        f"per step, {res['paged_kernels_per_step']:.0f} of them paged "
+        "attention (trace == counts)")
+    return res
+
+
+def finish_set(prompts, toks, n):
+    """Requests that end in the middle of an N = ``n`` megastep: one on
+    its eos, one on a stop sequence (each where the token, or the pair,
+    first appears after k decode tokens, k % n != 0), two on budgets of
+    13 and 21 tokens, four plain; chosen from greedy outputs ``toks`` of
+    the same prompts."""
+    eos = stop = None
+    for p, t in zip(prompts, toks):
+        k = next((k for k in range(1, len(t))
+                  if k % n and t[k] not in t[:k]), None)
+        if eos is None and k is not None:
+            eos = (p, {"max_new_tokens": 32, "eos_token_id": t[k]})
+            continue
+        pairs = [None] + [tuple(t[j - 1:j + 1]) for j in range(1, len(t))]
+        k = next((k for k in range(1, len(t))
+                  if k % n and pairs[k] not in pairs[:k]), None)
+        if stop is None and k is not None:
+            stop = (p, {"max_new_tokens": 32, "stop": [list(pairs[k])]})
+        if eos and stop:
+            break
+    if eos is None or stop is None:
+        raise AssertionError("no eos or stop fires mid-megastep in the "
+                             "greedy outputs")
+    return [eos, stop, (prompts[2], {"max_new_tokens": 13}),
+            (prompts[3], {"max_new_tokens": 21})] + \
+        [(p, {"max_new_tokens": 32}) for p in prompts[4:8]]
+
+
+def check_finishes(specs, out, n):
+    """Each request of :func:`finish_set` ended where it should, after a
+    number of decode tokens that is not a multiple of ``n``."""
+    for (p, kw), t in zip(specs, out):
+        decoded = len(t) - 1
+        if "eos_token_id" in kw:
+            ok = t[-1] == kw["eos_token_id"] and len(t) < 32
+        elif "stop" in kw:
+            ok = t[-2:] == kw["stop"][0] and len(t) < 32
+        else:
+            ok = len(t) == kw["max_new_tokens"]
+        if not ok or decoded % n == 0:
+            raise AssertionError(f"request {kw} ended after {len(t)} "
+                                 f"tokens, not mid-megastep as built")
+
+
+def serving_modes(torch, ctr, card):
+    """Phase 17: gpt2-medium (full width and depth, f32, phase 4's
+    geometry and requests) served eagerly (``jit.no_capture()``),
+    captured (megastep 1) and at megastep ``MEGASTEP``, in one process:
+    tokens/s, TTFT and TPOT, the decode step's host time against its
+    device busy time, kernels per step and peak memory of each. The
+    captured tokens must equal the eager ones (near ties as in phase 4),
+    the megastep's the captured ones exactly, also on requests whose
+    eos, stop sequence and budget end them mid-megastep; then a weight
+    swap mid-run captures nothing and gives the tokens an eager engine
+    gives when it swaps at the same step."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    prompts = serving_prompts(cfg.vocab_size)
+    specs = [(p, {"max_new_tokens": 32}) for p in prompts]
+    modes = {"eager": (False, 1), "captured": (True, 1),
+             f"megastep{MEGASTEP}": (True, MEGASTEP)}
+    res, toks = {}, {}
+    for mode, (capture, n) in modes.items():
+        release_graphs(torch, model)
+        with contextlib.nullcontext() if capture else jit.no_capture():
+            eng = serving_engine(model, "f32", "kernel", megastep=n)
+            warm(torch, eng)
+            res[mode], toks[mode] = drive(torch, ctr, eng, specs, mode)
+            res[mode].update(decode_profile(torch, ctr, eng, mode))
+            res[mode]["graphs"] = captures(model)
+        del eng
+    release_graphs(torch, model)
+    ties = same_tokens(torch, model, prompts, toks["eager"],
+                       toks["captured"], "captured vs eager")
+    same_tokens(torch, model, prompts, toks["captured"],
+                toks[f"megastep{MEGASTEP}"], "megastep vs captured",
+                ties=False)
+    log(f"  captured tokens == eager tokens ({len(ties)} near ties); "
+        f"megastep {MEGASTEP} tokens == captured tokens (every request "
+        "ends on its budget mid-megastep)")
+
+    fin = finish_set(prompts, toks["captured"], MEGASTEP)
+    out = {n: serve_all(torch, serving_engine(model, "f32", "kernel",
+                                              megastep=n), fin)
+           for n in (1, MEGASTEP)}
+    check_finishes(fin, out[1], MEGASTEP)
+    same_tokens(torch, model, [p for p, _ in fin], out[1], out[MEGASTEP],
+                "megastep vs captured, mid-megastep finishes", ties=False)
+    log(f"  megastep {MEGASTEP} == megastep 1 on requests ending mid-"
+        "megastep on an eos, a stop sequence and budgets of 13 and 21")
+    release_graphs(torch, model)
+
+    swap = swap_weights_check(torch, model, prompts[:8], toks["captured"])
+    for mode, r in res.items():
+        log(f"  [{card}] {mode}: {r['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{r['ttft_p50_ms']:.3f} / p99 {r['ttft_p99_ms']:.3f} ms, TPOT "
+            f"p50 {r['tpot_p50_ms']:.3f} / p99 {r['tpot_p99_ms']:.3f} ms; "
+            f"decode step {r['decode_step_ms']:.3f} ms, busy "
+            f"{r['decode_busy_ms']:.3f} ms, idle share "
+            f"{r['decode_idle_share']:.4f}, {r['kernels_per_decode_step']:.0f}"
+            f" kernels per step; {memory_line(r)}; {r['graphs']} graphs")
+    return {"modes": res, "captured_vs_eager_near_ties": ties,
+            "swap": swap}
+
+
+def swap_weights_check(torch, model, prompts, before):
+    """A second seeded state swapped in after ``SWAP_AT`` engine steps,
+    with all requests in flight: the captured engine (warmed) captures
+    nothing and keeps every parameter's address, and its tokens equal
+    an eager engine's that swaps at the same step; the swap shows (some
+    request's tokens differ from ``before``, the unswapped run)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    first = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    second = {n: p.detach().clone() for n, p in GPTForCausalLM(
+        model.cfg, device="cuda", generator=gen).named_parameters()}
+    specs = [(p, {"max_new_tokens": 32}) for p in prompts]
+    out = {}
+    for mode in ("eager", "captured"):
+        with jit.no_capture() if mode == "eager" else \
+                contextlib.nullcontext():
+            eng = serving_engine(model, "f32", "kernel")
+            warm(torch, eng)
+            cap0, keys0 = captures(model), set(model._step_compile_cache)
+            ptrs = [p.data_ptr() for p in model.parameters()]
+            reqs = [eng.submit(p, **kw) for p, kw in specs]
+            for _ in range(SWAP_AT):
+                eng.step()
+            if any(r.state != "running" for r in reqs):
+                raise AssertionError("a request ended before the swap")
+            eng.swap_weights(second)
+            eng.run_until_idle()
+            torch.cuda.synchronize()
+            out[mode] = [r.tokens for r in reqs]
+            if captures(model) != cap0 or \
+                    set(model._step_compile_cache) != keys0 or \
+                    [p.data_ptr() for p in model.parameters()] != ptrs or \
+                    eng.weight_version != 1:
+                raise AssertionError(f"{mode}: the swap captured, built an "
+                                     "entry or moved a parameter")
+            eng.swap_weights(first)
+        del eng
+        release_graphs(torch, model)
+    same_tokens(torch, model, prompts, out["eager"], out["captured"],
+                "swap: captured vs eager", ties=False)
+    if out["captured"] == before[:len(prompts)]:
+        raise AssertionError("the swap changed no token")
+    log(f"  swap_weights after {SWAP_AT} steps: 0 captures, 0 entries, "
+        "every parameter in place; tokens == the eager engine's")
+    return {"swap_at_step": SWAP_AT, "captures": 0, "requests": len(prompts)}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1893,13 +2226,15 @@ def main():
         n_cases, worst = check_kernel(torch, pa)
     log(f"  {n_cases} cases passed, max abs err {worst:.3e}")
 
-    log("== phase 4: serve gpt2-medium")
+    log("== phase 4: serve gpt2-medium (CUDA graphs)")
     srv = check_serving(torch, ctr, card)
     log(f"  engine [{card}]: {srv['tokens_per_s']:.1f} tokens/s "
         f"({srv['tokens']} tokens in {srv['wall_s']:.3f} s), TTFT p50 "
-        f"{srv['ttft_p50_ms']} ms, TPOT p50 {srv['tpot_p50_ms']} ms, "
+        f"{srv['ttft_p50_ms']:.3f} ms, TPOT p50 {srv['tpot_p50_ms']:.3f} ms, "
         f"max_memory_allocated {srv['peak_bytes']} B, prefix hits "
         f"{srv['prefix_hit_requests']}")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("== phase 5: time the paged kernel")
     pos, times = time_kernel(torch, pa, ctr, card)
@@ -1966,6 +2301,10 @@ def main():
         f"{GPT_BATCH}, seq {GPT_SEQ}, recompute, O2 bf16, AdamW bf16 "
         f"moments, retain_grads=False) through to_static_multi_step")
     flag = train_flagship(torch, ctr, card)
+
+    log(f"== phase 17: serve gpt2-medium eagerly, captured and at megastep "
+        f"{MEGASTEP}; swap its weights mid-run")
+    modes = serving_modes(torch, ctr, card)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -2033,7 +2372,8 @@ def main():
                 else v for k, v in r.items()
                 if k not in ("launches", "final")}
 
-    print(json.dumps({"train": summary(trn), "train_ln": summary(trn_ln),
+    print(json.dumps({"serving": summary(srv), "serving_modes": modes,
+                      "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes}), flush=True)
     print(card, flush=True)

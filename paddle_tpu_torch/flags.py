@@ -156,6 +156,21 @@ define_flag("serving_attn_impl", "kernel",
             "oracle); the JAX default is the oracle, the port's is the "
             "kernel.")
 
+define_flag("serving_megastep", 1,
+            "Device-resident decode megasteps: decode iterations run "
+            "inside one compiled lax.scan entry per step() call, with "
+            "EOS / budget / stop-sequence early-exit carried as "
+            "per-slot data (finished slots freeze behind a live-mask) "
+            "and one host commit per megastep instead of per token. "
+            "Output is byte-identical to megastep=1; requires "
+            "serving_paged and is incompatible with "
+            "serving_spec_tokens > 0. Requests the device stop tables "
+            "cannot hold (decoding.STOP_MAX_SEQS/STOP_MAX_LEN) or "
+            "that decode under a JSON grammar fall back to single "
+            "steps, as does a step whose tightest hard deadline could "
+            "not absorb a whole megastep. 1 (default) keeps the "
+            "per-token host loop.")
+
 # Attention kernel selection (the training path's causal attention).
 define_flag("use_pallas_attention", True,
             "Route fused_attention_qkv to the flash-attention kernel when "

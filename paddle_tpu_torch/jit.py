@@ -44,10 +44,19 @@ writes the tensors it found, and a replay copies a gradient into that
 tensor only where the caller rebound ``p.grad`` since. A step that leaves
 a gradient with a ``grad_fn`` (``backward(create_graph=True)``, which
 accumulates out of place) is refused at capture.
+
+Serving captures its steps with the same pieces (:func:`warm_up`,
+:func:`capture`, :func:`replay`) through :class:`HeldStep`, which differs
+from ``to_static`` in what is an argument: only the small inputs are
+copied into static buffers; the KV pools and the parameters are held by
+address. :func:`no_capture` turns every capture off, as
+``jax.disable_jit()`` turns off the reference's compiles.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import weakref
 from typing import Callable, Optional
 
@@ -147,6 +156,81 @@ def _refuse(mesh, param_rules, arg_specs):
             "ported yet; the port's to_static runs on one card")
 
 
+# ------------------------------------------------------------- capturing
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def no_capture():
+    """Inside this context every ``to_static`` step and every serving step
+    entry runs its eager body, also on the card: nothing is captured and
+    nothing replays. The counterpart of ``jax.disable_jit()`` and, like
+    it, a debugging switch; it is also how one process times eager
+    against captured steps. Nests; holds for the calling thread."""
+    _local.depth = getattr(_local, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _local.depth -= 1
+
+
+def capture_enabled() -> bool:
+    """False inside :func:`no_capture`."""
+    return not getattr(_local, "depth", 0)
+
+
+_streams = {}      # device -> the stream steps warm up and capture on
+
+
+def _side_stream(dev):
+    s = _streams.get(dev)
+    if s is None:
+        s = _streams[dev] = torch.cuda.Stream(dev)
+    return s
+
+
+def warm_up(dev, fn, *args):
+    """``fn(*args)`` run eagerly on the capture stream, ordered after the
+    caller's stream and before its later work (``torch.cuda.graphs``'
+    warm-up rule: kernels load and cuBLAS makes its handles there, never
+    under capture)."""
+    cur = torch.cuda.current_stream(dev)
+    side = _side_stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn(*args)
+    cur.wait_stream(side)
+    return out
+
+
+def capture(dev, fn, args, pool=None):
+    """``fn(*args)`` recorded as one ``torch.cuda.CUDAGraph`` on the
+    capture stream, its memory from ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``; None: a pool of its own). Returns
+    ``(graph, outputs, delta)``, ``delta`` being the launch counts one
+    replay adds. The capture runs nothing, so the counts are restored,
+    also when it raises."""
+    counts = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=_side_stream(dev)):
+            out = fn(*args)
+        now = launch_counts()
+    finally:
+        _set_launch_counts(counts)
+    delta = {k: n - counts.get(k, 0) for k, n in now.items()
+             if n != counts.get(k, 0)}
+    return graph, out, delta
+
+
+def replay(graph, delta):
+    """One replay of ``graph`` on the caller's current stream, ordered
+    after the work queued there; the launch counts gain ``delta``."""
+    graph.replay()
+    _add_launch_counts(delta)
+
+
 # ------------------------------------------------------------------ graphs
 
 class _Graph:
@@ -169,8 +253,7 @@ class _Graph:
         for p, gi in zip(params, self.grads_in):
             if gi is not None and p.grad is not gi:
                 gi.copy_(p.grad)
-        self.graph.replay()
-        _add_launch_counts(self.delta)
+        replay(self.graph, self.delta)
         for p, go in zip(params, self.grads_out):
             p.grad = go
         return _tree_map(torch.clone, self.outputs)
@@ -196,7 +279,6 @@ class _Step:
                     self.params.append(p)
         self.warmed = set()       # keys whose eager warm-up ran
         self.graphs = {}          # key -> _Graph
-        self._stream = None
 
     def key(self, args):
         """What a captured graph is specialised to: the arguments' shapes
@@ -217,7 +299,9 @@ class _Step:
     def __call__(self, *args):
         args = [_as_tensor(a) for a in args]
         dev = self.device(args)
-        if dev is None:
+        if dev is None or not capture_enabled():
+            args = [a.to(dev) if dev is not None and
+                    isinstance(a, torch.Tensor) else a for a in args]
             out = _tree_map(torch.Tensor.detach, self.fn(*args))
         else:
             args = [a.to(dev) if isinstance(a, torch.Tensor) else a
@@ -228,29 +312,14 @@ class _Step:
                 out = entry.run(self.params, args)
             elif key not in self.warmed:
                 self.warmed.add(key)
-                out = self._warm(dev, args)
+                out = _tree_map(torch.Tensor.detach,
+                                warm_up(dev, self.fn, *args))
             else:
                 entry = self.graphs[key] = self._capture(dev, args)
                 out = entry.run(self.params)
         if not self.retain_grads:
             for p in self.params:
                 p.grad = None
-        return out
-
-    def _side_stream(self, dev):
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        return self._stream
-
-    def _warm(self, dev, args):
-        """The eager step on the capture stream (``torch.cuda.graphs``'
-        warm-up rule), ordered after and before the caller's stream."""
-        cur = torch.cuda.current_stream(dev)
-        side = self._side_stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            out = _tree_map(torch.Tensor.detach, self.fn(*args))
-        cur.wait_stream(side)
         return out
 
     def _capture(self, dev, args):
@@ -260,11 +329,8 @@ class _Step:
         grads_in = [p.grad for p in self.params]
         ptrs = [p.data_ptr() for p in self.params]
         states = [dict(getattr(o, "_state", {})) for o in self.optimizers]
-        counts = launch_counts()
-        graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, stream=self._side_stream(dev)):
-                out = self.fn(*call)
+            graph, out, delta = capture(dev, self.fn, call)
             grads_out = [p.grad for p in self.params]
             self._check_in_place(ptrs, states, grads_out)
         except BaseException:
@@ -274,12 +340,7 @@ class _Step:
                 if hasattr(o, "_state"):
                     o._state.clear()
                     o._state.update(st)
-            _set_launch_counts(counts)
             raise
-        now = launch_counts()
-        delta = {k: n - counts.get(k, 0) for k, n in now.items()
-                 if n != counts.get(k, 0)}
-        _set_launch_counts(counts)         # the capture ran nothing
         for p, g in zip(self.params, grads_in):
             p.grad = g
         read = [gi if gi is not None and gi is go else None
@@ -321,6 +382,112 @@ def _step_for(fn, layers, optimizers, retain_grads) -> _Step:
         step = _shared[key] = _Step(fn, layers, optimizers,
                                     bool(retain_grads))
     return step
+
+
+# -------------------------------------------------------- serving steps
+
+def _check_held(held, returned, what):
+    """Raise unless ``returned`` holds ``held``'s tensors themselves, in
+    place: a graph writes the pools where they are, and a step that
+    rebinds one would leave its graph writing memory nobody reads."""
+    if len(returned) != len(held) or any(
+            len(r) != len(h) or any(a is not b for a, b in zip(r, h))
+            for r, h in zip(returned, held)):
+        raise RuntimeError(f"{what} returned state other than the tensors "
+                           "it was given; a serving step updates its pools "
+                           "in place")
+
+
+class _HeldGraph:
+    """One captured serving step: the graph, the static buffers of its
+    small inputs, its other outputs and the launch counts a replay
+    adds."""
+
+    def __init__(self, graph, inputs, outputs, delta):
+        self.graph, self.inputs = graph, inputs
+        self.outputs, self.delta = outputs, delta
+
+    def run(self, small):
+        for buf, a in zip(self.inputs, small):
+            buf.copy_(a, non_blocking=True)
+        replay(self.graph, self.delta)
+        return _tree_map(torch.clone, self.outputs)
+
+
+class HeldStep:
+    """A serving step: its eager body, and on CUDA its captured graphs.
+
+    ``body(*small, held)`` computes from the small inputs (tokens,
+    positions, block tables, ... as tensors or numpy arrays) and ``held``,
+    a list of tuples of tensors it updates in place (the KV pools), and
+    returns ``(outputs, held)``, the second being the very tensors it was
+    given. It reads ``params`` (the model's parameters) where they lie.
+
+    On CUDA a graph is specialised to its key: the small inputs' shapes
+    and dtypes and the addresses of the held tensors and parameters. A
+    call with a new key runs the body eagerly on the capture stream (the
+    warm-up; its result is the call's) and then records it, into the
+    memory pool ``pool`` that the model's other step graphs share. A
+    later call with that key copies the small inputs into the graph's
+    static buffers and replays it on the caller's stream, after whatever
+    the caller queued there (copy-on-write block copies, the tables'
+    copies). Nothing else is copied: not the pools (hundreds of MB) and
+    not the parameters, so a new value written into a parameter in place
+    (``ServingEngine.swap_weights``) is what the next replay reads, and a
+    rebound pool or parameter has a new address, hence a new key and a
+    new capture, never a stale read. The outputs come back as clones, as
+    the next replay overwrites the graph's. A failed capture raises with
+    the launch counts restored; nothing falls back to the eager path.
+
+    On the CPU, and inside :func:`no_capture`, the body runs eagerly.
+    ``traces["count"]`` counts the graphs captured, or on the CPU the
+    input signatures seen (shapes and dtypes): one per specialisation
+    either way. The keys of graphs whose pools were freed stay in
+    ``graphs`` (a pool allocated later at the same address, with the
+    same shape, replays them correctly)."""
+
+    def __init__(self, body, params, traces, pool, what):
+        self.body, self.params = body, list(params)
+        self.traces, self.pool, self.what = traces, pool, what
+        self.graphs = {}          # key -> _HeldGraph
+        self.signatures = set()   # CPU: input signatures seen
+
+    def __call__(self, small, held):
+        small = [_as_tensor(a) for a in small]
+        dev = held[0][0].device
+        if dev.type == "cuda" and capture_enabled():
+            key = (tuple(_signature(a) for a in small),
+                   tuple(a.data_ptr() for layer in held for a in layer),
+                   tuple(map(torch.Tensor.data_ptr, self.params)))
+            g = self.graphs.get(key)
+            if g is not None:
+                return g.run(small)
+            return self._capture(dev, key, small, held)
+        small = [a.to(dev) for a in small]
+        if dev.type == "cpu":
+            sig = (tuple(_signature(a) for a in small),
+                   tuple(_signature(a) for layer in held for a in layer))
+            if sig not in self.signatures:
+                self.signatures.add(sig)
+                self.traces["count"] += 1
+        out, back = self.body(*small, held)
+        _check_held(held, back, self.what)
+        return out
+
+    def _capture(self, dev, key, small, held):
+        inputs = [a.to(dev, copy=True) for a in small]
+        out, back = warm_up(dev, self.body, *inputs, held)
+        _check_held(held, back, self.what)
+        ptrs = tuple(map(torch.Tensor.data_ptr, self.params))
+        graph, (outputs, back), delta = capture(
+            dev, self.body, [*inputs, held], self.pool)
+        _check_held(held, back, f"{self.what} under capture")
+        if tuple(map(torch.Tensor.data_ptr, self.params)) != ptrs:
+            raise RuntimeError(f"{self.what} rebound a parameter under "
+                               "capture; a graph reads parameters in place")
+        self.graphs[key] = _HeldGraph(graph, inputs, outputs, delta)
+        self.traces["count"] += 1
+        return out
 
 
 # ------------------------------------------------------------- public API

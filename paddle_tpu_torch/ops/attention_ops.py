@@ -37,8 +37,10 @@ def decode_attention_mask(pos, q_len: int, capacity: int,
     qpos = pos[:, None] + ar                                   # [b, q]
     keys = torch.arange(capacity, dtype=torch.int32, device=pos.device)
     valid = keys[None, None, :] <= qpos[:, :, None]            # [b, q, C]
-    neg = torch.tensor(torch.finfo(dtype).min, dtype=dtype,
-                       device=pos.device)
+    # filled on the device: a host-made scalar would be a copy, which a
+    # captured serving step cannot hold
+    neg = torch.full((), torch.finfo(dtype).min, dtype=dtype,
+                     device=pos.device)
     zero = torch.zeros((), dtype=dtype, device=pos.device)
     return torch.where(valid, zero, neg)[:, None]
 

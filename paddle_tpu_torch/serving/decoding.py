@@ -1,7 +1,8 @@
 """Per-request decoding — the counterpart of the greedy core of
 ``paddle_tpu/serving/decoding.py``: the :class:`DecodeParams` recipe,
-the greedy branch of :func:`sample_tokens`, and the incremental
-stop-sequence matcher.
+the greedy branch of :func:`sample_tokens`, the incremental
+stop-sequence matcher and its device tables, which the decode megastep
+advances inside its graph.
 
 Sampled decoding (temperature > 0) is not ported: the JAX package draws
 from a per-request threefry stream, which only a port of threefry can
@@ -12,7 +13,7 @@ NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,6 +85,12 @@ def sample_tokens(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+#: device stop tables hold at most this many patterns per request
+STOP_MAX_SEQS = 4
+#: ... of at most this many tokens each
+STOP_MAX_LEN = 8
+
+
 def _kmp_fail(pat):
     """KMP failure function as a length ``m+1`` table: ``fail[s]`` is
     the longest proper prefix of ``pat[:s]`` that is also its suffix."""
@@ -134,3 +141,77 @@ class StopMatcher:
         for t in tokens:
             self.feed(t)
         return self.hit
+
+
+def stops_fit(stop_sequences: Sequence[Sequence[int]],
+              max_seqs: int = STOP_MAX_SEQS,
+              max_len: int = STOP_MAX_LEN) -> bool:
+    """Whether a request's stop sequences fit the fixed-shape device stop
+    tables (the megastep's eligibility check; oversized requests fall
+    back to host-side matching at megastep 1)."""
+    return (len(stop_sequences) <= max_seqs and
+            all(len(s) <= max_len for s in stop_sequences))
+
+
+def stop_table_rows(matcher: Optional[StopMatcher],
+                    max_seqs: int = STOP_MAX_SEQS,
+                    max_len: int = STOP_MAX_LEN):
+    """One request's device stop tables from its live host matcher:
+    ``(pat [J, L] i32, plen [J] i32, fail [J, L+1] i32, state [J] i32)``,
+    zero/-1 padded. Pattern rows pad with -1 (no token id is negative, so
+    padding never matches); unused pattern slots have ``plen == 0`` and
+    never fire in :func:`stops_matched`. ``None`` (no stops) returns the
+    inert tables an empty batch slot uses."""
+    pat = np.full((max_seqs, max_len), -1, np.int32)
+    plen = np.zeros(max_seqs, np.int32)
+    fail = np.zeros((max_seqs, max_len + 1), np.int32)
+    state = np.zeros(max_seqs, np.int32)
+    if matcher is None:
+        return pat, plen, fail, state
+    if len(matcher.patterns) > max_seqs or \
+            any(len(p) > max_len for p in matcher.patterns):
+        raise ValueError(
+            f"stop sequences exceed the device table caps "
+            f"({max_seqs} patterns x {max_len} tokens); gate on "
+            "stops_fit() first")
+    for j, p in enumerate(matcher.patterns):
+        pat[j, :len(p)] = p
+        plen[j] = len(p)
+        fail[j, :len(p) + 1] = matcher.fails[j]
+        state[j] = matcher.states[j]
+    return pat, plen, fail, state
+
+
+def stops_advance(tokens, pat, plen, fail, state):
+    """Advance per-slot KMP stop states over one committed token each:
+    the device mirror of :meth:`StopMatcher.feed`.
+
+    ``tokens [b]``, ``pat [b, J, L]``, ``plen [b, J]``, ``fail [b, J,
+    L+1]``, ``state [b, J]`` (int32 tensors) -> the new ``[b, J]``
+    states. The fail-chase, a data-dependent ``while`` on the host, is a
+    fixed loop of ``L`` gathers and selects with no host decision, so a
+    graph can hold it: each failure transition lowers the state, so
+    ``L`` of them always reach the fixpoint. ``plen`` is not read: a
+    matched state (``s == plen``) reads the -1 padding at ``pat[s]``
+    (clamped into range), which never equals a token, as in the
+    reference."""
+    L = pat.shape[-1]
+    tokb = tokens[:, None]
+
+    def char_at(s):
+        idx = torch.clamp_max(s, L - 1).long()[..., None]
+        return torch.gather(pat, 2, idx)[..., 0]
+
+    s = state
+    for _ in range(L):
+        chase = (s > 0) & (char_at(s) != tokb)
+        f = torch.gather(fail, 2, s.long()[..., None])[..., 0]
+        s = torch.where(chase, f, s)
+    return torch.where(char_at(s) == tokb, s + 1, torch.zeros_like(s))
+
+
+def stops_matched(state, plen):
+    """``[b] bool``: whether any real stop pattern of each slot has
+    matched (``state == plen`` with ``plen > 0``; unused pattern slots
+    sit at plen 0 and never fire)."""
+    return torch.any((state == plen) & (plen > 0), dim=1)

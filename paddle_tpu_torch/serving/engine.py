@@ -10,18 +10,24 @@ their unshared prompt suffix and running ONE batched prefill per group
 finishes releases its blocks at once, and the next queued request takes
 its row on the following step.
 
-Every prefill and decode dispatch runs each layer's attention through
+Every prefill and decode dispatch goes through an entry of the model's
+step cache (:mod:`~paddle_tpu_torch.models.generation`): one per prefill
+bucket, the decode step, and with ``megastep`` N > 1 the N-iteration
+decode megastep. On the card each dispatch is the replay of a CUDA
+graph, captured at the key's first call; the pools and the weights are
+read in place, so :meth:`ServingEngine.swap_weights` captures nothing.
+Each layer's attention runs through
 :func:`~paddle_tpu_torch.ops.cuda.paged_attention.paged_attention` when
 ``attn_impl == "kernel"`` (the default), or the composed oracle for
 ``"composed"``. The engine runs on its model's device.
 
 Not ported yet (each one is queued in ROADMAP.md): the dense slotted
 cache, sampling (temperature > 0), SLO admission and priorities,
-speculative verify, decode megasteps and dispatch-ahead, mesh/TP, LoRA,
-the host KV tier, the JSON grammar, fault points and retry, devprof and
-tracing, cancel, the background thread (``start``/``stop``), and the
-router/disagg/HTTP front ends. The engine is driven by the caller
-(``step``/``run_until_idle``) and is not thread-safe.
+speculative verify, dispatch-ahead, mesh/TP, LoRA, the host KV tier, the
+JSON grammar, fault points and retry, devprof and tracing, cancel, the
+background thread (``start``/``stop``), and the router/disagg/HTTP front
+ends. The engine is driven by the caller (``step``/``run_until_idle``)
+and is not thread-safe.
 """
 
 from __future__ import annotations
@@ -36,9 +42,10 @@ import torch
 
 from .. import flags as _flags
 from ..device import resolve_device
-from ..models.generation import decode_step_paged, prefill_paged
+from ..models import generation as _gen
 from ..models.gpt import ATTN_IMPLS
-from .decoding import DecodeParams, StopMatcher
+from .decoding import (STOP_MAX_LEN, STOP_MAX_SEQS, DecodeParams,
+                       StopMatcher, stop_table_rows, stops_fit)
 from .kv_cache import BlockKVCache
 
 
@@ -63,6 +70,9 @@ class Request:
         self.decode = decode if decode is not None else DecodeParams()
         self._stop = (StopMatcher(self.decode.stop_sequences)
                       if self.decode.stop_sequences else None)
+        # whether the stops fit the device stop tables (megastep
+        # eligibility, computed once)
+        self._stops_fit = stops_fit(self.decode.stop_sequences)
         self.tokens: List[int] = []
         self.state = "queued"
         self.slot: Optional[int] = None
@@ -144,6 +154,7 @@ class ServingEngine:
                  prefix_cache: Optional[bool] = None,
                  kv_dtype: Optional[str] = None,
                  attn_impl: Optional[str] = None,
+                 megastep: Optional[int] = None,
                  device=None):
         g = _flags.get_flags(["serving_max_slots", "serving_max_len",
                               "serving_max_queue",
@@ -151,7 +162,7 @@ class ServingEngine:
                               "serving_max_new_tokens", "serving_paged",
                               "serving_block_size", "serving_num_blocks",
                               "serving_prefix_cache", "serving_kv_dtype",
-                              "serving_attn_impl"])
+                              "serving_attn_impl", "serving_megastep"])
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine "
@@ -174,6 +185,13 @@ class ServingEngine:
                              else g["serving_max_queue"])
         self.default_max_new_tokens = int(g["serving_max_new_tokens"])
         self.default_eos_token_id = eos_token_id
+        # device-resident decode megasteps: N decode iterations per
+        # dispatch, one host commit per megastep
+        self.megastep = int(megastep if megastep is not None
+                            else g["serving_megastep"])
+        if self.megastep < 1:
+            raise ValueError(
+                f"megastep must be >= 1, got {self.megastep}")
         self.buckets = _parse_buckets(
             g["serving_prefill_buckets"] if buckets is None
             else ",".join(map(str, buckets)), self.max_len)
@@ -202,8 +220,11 @@ class ServingEngine:
         self._prefix_hit_reqs = 0
         self._prefix_miss_reqs = 0
         self._qerr_max = 0.0
+        self._prefill_fns: Dict[int, dict] = {}   # bucket len -> entry
+        self._weight_version = 0
         self.prefill_dispatches = 0
-        self.decode_steps = 0
+        self.decode_steps = 0           # single-step decode dispatches
+        self.megastep_dispatches = 0    # N-iteration decode dispatches
 
     # ------------------------------------------------------------ submit
     def submit(self, prompt: Sequence[int],
@@ -289,8 +310,18 @@ class ServingEngine:
                 return b
         return self.max_len  # unreachable: submit() validated length
 
-    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(a).to(self.device)
+    def _prefill_entry_paged(self, bucket: int) -> dict:
+        """The step-cache entry of one bucket's batched prefill at this
+        engine's geometry (``max_slots`` rows), keyed as the reference's
+        ``_prefill_entry_paged``: bucket, max_slots, max_len, block
+        size, block count, KV dtype, attention implementation."""
+        c = self.cache
+        ent = _gen.prefill_step_paged(
+            self.model, bucket,
+            (self.max_slots, self.max_len, c.block_size, c.num_blocks),
+            self.kv_dtype, self.attn_impl)
+        self._prefill_fns[bucket] = ent
+        return ent
 
     def _prefill_group_attempt_paged(self, bucket: int, group):
         """One batched paged prefill for every same-bucket admission;
@@ -308,10 +339,8 @@ class ServingEngine:
             last[i] = len(suffix) - 1
             pos[i] = shared
             tables[i] = self.cache.tables[row]
-        lg, pools, qerr = prefill_paged(
-            self.model, self._to_dev(ids), self._to_dev(last),
-            self._to_dev(pos), self._to_dev(tables), self.cache.arrays(),
-            attn_impl=self.attn_impl)
+        fn = self._prefill_entry_paged(bucket)["fn"]
+        lg, pools, qerr = fn(ids, last, pos, tables, self.cache.arrays())
         self.prefill_dispatches += 1
         self.cache.set_arrays(pools)
         return lg, qerr
@@ -395,11 +424,10 @@ class ServingEngine:
         tokens = np.zeros(self.max_slots, np.int32)
         for slot, req in self._active.items():
             tokens[slot] = req.tokens[-1]
-        nxt, _, pools, qerr = decode_step_paged(
-            self.model, self._to_dev(tokens),
-            self._to_dev(self.cache.lengths),
-            self._to_dev(self.cache.tables), self.cache.arrays(),
-            attn_impl=self.attn_impl)
+        fn = _gen.decode_step_paged(self.model, self.kv_dtype,
+                                    self.attn_impl)["fn"]
+        nxt, _, pools, qerr = fn(tokens, self.cache.lengths,
+                                 self.cache.tables, self.cache.arrays())
         self.decode_steps += 1
         self.cache.set_arrays(pools)
         self._note_qerr(qerr)
@@ -410,6 +438,92 @@ class ServingEngine:
             self._append_token(req, int(nxt[slot]))
             produced += 1
         return produced
+
+    # ------------------------------------------------ decode megasteps
+    def _choose_megastep(self) -> int:
+        """The N this decode runs at: the configured ``megastep`` unless
+        a row's stops do not fit the device tables, which takes the whole
+        batch back to single steps (never to an intermediate N: the
+        engine has two decode entries, the megastep and the single
+        step). Grammar rows and deadlines, the reference's other
+        fallbacks, are not ported."""
+        n = self.megastep
+        if n <= 1 or not self._active:
+            return 1
+        if any(not req._stops_fit for req in self._active.values()):
+            return 1
+        return n
+
+    def _megastep_inputs(self):
+        """The megastep's small inputs after the pools' place: tokens,
+        lengths, tables, then live, budget, eos and the stop tables
+        ``(pat, plen, fail, state)``, as numpy arrays. Empty rows are
+        frozen from iteration 0 (``live`` False) and write their strays
+        into the trash block as the single step does."""
+        b = self.max_slots
+        tokens = np.zeros(b, np.int32)
+        live = np.zeros(b, bool)
+        budget = np.ones(b, np.int32)
+        eos = np.full(b, -1, np.int32)
+        J, L = STOP_MAX_SEQS, STOP_MAX_LEN
+        pat = np.full((b, J, L), -1, np.int32)
+        plen = np.zeros((b, J), np.int32)
+        fail = np.zeros((b, J, L + 1), np.int32)
+        state = np.zeros((b, J), np.int32)
+        for slot, req in self._active.items():
+            tokens[slot] = req.tokens[-1]
+            live[slot] = True
+            budget[slot] = req.max_new_tokens - len(req.tokens)
+            if req.eos_token_id is not None:
+                eos[slot] = int(req.eos_token_id)
+            if req._stop is not None:
+                (pat[slot], plen[slot], fail[slot],
+                 state[slot]) = stop_table_rows(req._stop)
+        return (tokens, self.cache.lengths, self.cache.tables, live, budget,
+                eos, (pat, plen, fail, state))
+
+    def _decode_megastep(self, n: int) -> int:
+        """One megastep over every occupied row: ``n`` decode iterations
+        in one dispatch, then one host commit, each row's tokens replayed
+        through :meth:`_append_token` (finish reasons re-derived on the
+        host; the device's early exits are the same conditions). A row
+        finishing at iteration f committed f + 1 tokens, a live row all
+        ``n``. Returns how many tokens were produced."""
+        if not self._active:
+            return 0
+        fn = _gen.decode_megastep_paged(self.model, n, self.kv_dtype,
+                                        self.attn_impl)["fn"]
+        tokens, lengths, tables, live, budget, eos, stop = \
+            self._megastep_inputs()
+        (toks, finish, _tok_f, _pos_f, pools, _live_f, _rem_f, _st_f,
+         qerr) = fn(tokens, lengths, tables, self.cache.arrays(), live,
+                    budget, eos, stop)
+        self.megastep_dispatches += 1
+        self.cache.set_arrays(pools)
+        toks = toks.cpu().numpy()
+        finish = finish.cpu().numpy()
+        self._note_qerr(qerr)
+        produced = 0
+        for slot, req in list(self._active.items()):
+            f = int(finish[slot])
+            ncommit = (f + 1) if f >= 0 else n
+            # iteration i wrote its token's KV at pos0 + i: lengths stay
+            # prompt + generated - 1, as the single step keeps them
+            self.cache.advance(slot, ncommit)
+            for i in range(ncommit):
+                self._append_token(req, int(toks[i, slot]))
+                produced += 1
+                if req.state != "running":
+                    break
+        return produced
+
+    def _decode_any(self) -> int:
+        """One decode round: the megastep when :meth:`_choose_megastep`
+        allows it, else the single step."""
+        n = self._choose_megastep()
+        if n > 1:
+            return self._decode_megastep(n)
+        return self._decode()
 
     def _append_token(self, req: Request, token: int):
         req.tokens.append(token)
@@ -436,13 +550,65 @@ class ServingEngine:
         req.state = "done"
         req.finished_at = self._clock()
 
+    # ------------------------------------------------- weight hot-swap
+    def swap_weights(self, state, *, reset_costs: bool = True) -> int:
+        """Swap the live model weights between steps, with no drain and
+        no restart: the counterpart of ``paddle_tpu/serving/engine.py
+        :787``.
+
+        ``state`` maps every ``named_parameters()`` name to an array
+        (numpy, torch, or anything ``numpy.asarray`` takes) of that
+        parameter's exact shape; a missing, unknown or misshapen name
+        raises before anything is written. Each value is copied into the
+        parameter's own storage, never rebound: the captured steps read
+        the parameters where they lie, so the next replay computes with
+        the new weights and nothing is captured anew (the reference's
+        weights ride into its compiled steps as data for the same end).
+        The copies are queued on the current stream, after the steps
+        before them and before the steps after. KV entries written under
+        the old weights are kept (the reference's contract). SLO
+        admission's learned costs, which ``reset_costs`` drops in the
+        reference, are not ported: there is nothing to reset yet.
+        Returns the new weight version."""
+        named = list(self.model.named_parameters())
+        known = {name for name, _ in named}
+        unknown = sorted(set(state) - known)
+        missing = sorted(known - set(state))
+        if unknown or missing:
+            raise ValueError(
+                f"swap_weights state does not match the live model: "
+                f"missing {missing[:3]}{'...' if len(missing) > 3 else ''}, "
+                f"unknown {unknown[:3]}{'...' if len(unknown) > 3 else ''}")
+        staged = []
+        for name, p in named:
+            v = state[name]
+            if not isinstance(v, torch.Tensor):
+                v = torch.from_numpy(np.array(v, dtype=np.float32))
+            if tuple(v.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"swap_weights: {name!r} has shape "
+                    f"{tuple(v.shape)}, live model expects "
+                    f"{tuple(p.shape)} — a different architecture "
+                    "needs a new engine, not a swap")
+            staged.append((p, v))
+        with torch.no_grad():
+            for p, v in staged:
+                p.copy_(v)
+        self._weight_version += 1
+        return self._weight_version
+
+    @property
+    def weight_version(self) -> int:
+        """Hot-swaps applied so far (0 = construction weights)."""
+        return self._weight_version
+
     # --------------------------------------------------------- stepping
     def step(self) -> bool:
         """One scheduler iteration: admit into free rows (batched
         per-bucket prefill), then one batched decode. Returns whether
         any work happened."""
         admitted = self._admit()
-        produced = self._decode()
+        produced = self._decode_any()
         return bool(admitted or produced)
 
     @property
@@ -511,6 +677,9 @@ class ServingEngine:
             "prefill_dispatches": self.prefill_dispatches,
             "decode_steps": self.decode_steps,
         }
+        if self.megastep > 1:
+            out["megastep"] = self.megastep
+            out["megastep_dispatches"] = self.megastep_dispatches
         if self.kv_dtype == "int8":
             out["kv_quant_max_abs_err"] = round(self._qerr_max, 6)
         return out

@@ -5,7 +5,8 @@
 Host-side bookkeeping (tables, lengths, refcounts, the prefix cache) is
 numpy and plain Python, as in the JAX package, so allocation order and
 prefix sharing replay identically. The pools are torch tensors on the
-engine's device, updated in place where JAX replaces its arrays.
+engine's device, updated in place where JAX replaces its arrays, and
+never rebound: the serving graphs hold them by address.
 The dense ``SlotKVCache`` and the cross-cache handoff
 (``export_row``/``import_row``/``adopt_row``) wait for later slices.
 """
@@ -230,10 +231,6 @@ class BlockKVCache:
     def layers(self):
         return self.pool.layers
 
-    @layers.setter
-    def layers(self, value):
-        self.pool.layers = value
-
     @property
     def allocator(self) -> BlockAllocator:
         return self.pool.allocator
@@ -423,5 +420,16 @@ class BlockKVCache:
         return list(self.layers)
 
     def set_arrays(self, layers):
-        """Adopt a step's returned pools (2- or 4-wide layers)."""
-        self.layers = [tuple(layer) for layer in layers]
+        """Take back a step's returned pools (2- or 4-wide layers), which
+        must be the tensors :meth:`arrays` handed out: the steps write
+        the pools in place, and a captured graph reads and writes them
+        at their addresses, so a step that handed back other tensors
+        would leave the cache holding memory the graphs never touch.
+        Raises ValueError for any other tensor."""
+        layers = [tuple(layer) for layer in layers]
+        if len(layers) != len(self.layers) or any(
+                len(a) != len(b) or any(x is not y for x, y in zip(a, b))
+                for a, b in zip(layers, self.layers)):
+            raise ValueError("set_arrays takes back the pool tensors "
+                             "arrays() handed out; the steps update them "
+                             "in place")
