@@ -13,8 +13,10 @@ on, trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512)
 through the LayerNorm kernels, eagerly and captured, trains
 ``bench.py``'s default flagship (gpt2-1p1b with recompute) through
 ``jit.to_static_multi_step``, serves gpt2-medium again eagerly, captured
-and in decode megasteps and swaps its weights mid-run, shows that every
-run went through its
+and in decode megasteps and swaps its weights mid-run, runs every eager
+optimizer with clipping, a schedule and ``lr_scale`` eagerly and
+captured (bit-equal), trains ``bench.py``'s ResNet-50 step uncut and
+drives ``GradScaler`` at fp16, shows that every run went through its
 kernels (the launch counts, and the kernel names a profiler trace of
 the same step sees), reads the device's busy time of each train step
 with ``torch.profiler``, and times the kernels. The flash forward, dQ
@@ -37,7 +39,17 @@ gpt2-1p1b flagship, 17 serve gpt2-medium eagerly (``jit.no_capture()``),
 captured and at megastep 8 in one process (tokens/s, TTFT, TPOT, the
 decode step's host time against its device busy time, kernels per step,
 peak memory; tokens equal across the three, also where eos, stops and
-budgets end requests mid-megastep), and swap its weights mid-run.
+budgets end requests mid-megastep), and swap its weights mid-run, 18 the
+optimizer plane, each optimizer captured against eager from the same
+weights (gpt2-medium with AdamW, the global-norm clip folded into the
+kernel, a warmup/cosine schedule and ``lr_scale`` 0.1 on the
+embeddings; LAMB on ERNIE-base; LarsMomentum on ResNet-50; SGD, Nesterov
+Momentum, Adagrad, RMSProp, Ftrl and Adam on ResNet-18), and the clip's
+norm timed against its bound, 19 ``bench.py``'s ResNet-50 step uncut
+(batch 128, 224 x 224, O2, Momentum; eager against captured, then
+``to_static_multi_step`` K = 10 timed: images/s, MFU, busy, kernels by
+group, memory), 20 ``GradScaler`` on ResNet-50 at O1 fp16 (skipped
+updates on inf, the scale's rule, and its refusal under capture).
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -584,36 +596,74 @@ def device_busy_ms(torch, run):
     return device_trace(torch, run)[0]
 
 
-def device_trace(torch, run):
+def trace_once(torch, run):
     """``(busy_ms, kernels)`` of ``run()``: ``torch.profiler`` traces it;
     busy_ms is the union of its device intervals (kernels, copies,
-    memsets), kernels the count of each kernel name. A trace with no
-    device interval at all (the profiler has come back empty once in a
-    run of many traces) is taken again, once."""
+    memsets), None when there is none; kernels the count of each kernel
+    name."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(2):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as f:
-                events = json.load(f)["traceEvents"]
-        dev = [e for e in events if e.get("ph") == "X"
-               and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        if dev:
-            names = collections.Counter(e["name"] for e in dev
-                                        if e["cat"] == "kernel")
-            return busy_us((e["ts"], e["ts"] + e["dur"])
-                           for e in dev) / 1e3, names
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    names = collections.Counter(e["name"] for e in dev
+                                if e["cat"] == "kernel")
+    busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in dev) / 1e3
+    return (busy if dev else None), names
+
+
+#: traces :func:`device_trace` takes before it gives up
+TRACE_ATTEMPTS = 4
+
+
+def device_trace(torch, run):
+    """:func:`trace_once`, raising where it has no device interval at
+    all. Such a trace is taken again, after a pause, up to
+    :data:`TRACE_ATTEMPTS` times: the profiler has come back empty now
+    and then, twice in a row in some runs, for torch's kernels and the
+    port's alike."""
+    for attempt in range(TRACE_ATTEMPTS):
+        busy, names = trace_once(torch, run)
+        if busy is not None:
+            return busy, names
         log("  the profiler recorded no device activity"
-            + ("; tracing again" if attempt == 0 else ""))
+            + ("; tracing again" if attempt + 1 < TRACE_ATTEMPTS else ""))
+        time.sleep(0.5)
     raise AssertionError("the profiler recorded no device activity; "
                          "device time not measured")
+
+
+#: cycles of the sleep kernel that holds the stream while the host
+#: enqueues the work :func:`event_ms` times (~50 ms at the H100's clocks)
+SLEEP_CYCLES = 100_000_000
+
+
+def event_ms(torch, run):
+    """Device ms of ``run()`` between two CUDA events on the current
+    stream. A sleep kernel holds the stream while the host enqueues the
+    start event, ``run()``'s work and the end event, so the events time
+    that work back to back on the device, not the host's pace."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    run()
+    end.record()
+    if end.query():
+        raise AssertionError("the sleep ended before the host enqueued the "
+                             "work: the events would time the host")
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def time_kernel(torch, pa, ctr, card):
@@ -1704,37 +1754,97 @@ def check_adamw(torch, aw, ctr):
                     log(f"  case {pname:8s} parameters, {mname:8s} moments, "
                         f"after {steps_done} steps, offset {offset}: 2 steps "
                         "equal")
+        for pname, mname in ADAMW_DTYPES:
+            for mode in ("lr per entry", "grad scale", "adam"):
+                n, w = check_adamw_mode(torch, aw, pname, mname, mode,
+                                        cases)
+                cases += n
+                worst = max(worst, w)
     return cases, worst
 
 
-def check_adamw_main_path(torch, aw, ctr, ps, what, seed):
+def check_adamw_mode(torch, aw, pname, mname, mode, seed):
+    """Phase 14's cases of the kernel's per-entry lr and grad scale, two
+    steps each from a later step: ``lr per entry`` (three lr_scale slots of one
+    ``[3]`` tensor, entry i reading slot i % 3), ``grad scale`` (a
+    GradientClipByGlobalNorm factor of 0.37, float32 [1]) against
+    :func:`adamw_multi_plain` with the same, and ``adam`` (the kernel at
+    ``coeff = 0``) against :func:`adamw_multi_plain` at ``coeff = 0``,
+    which is plain Adam per parameter. Every tensor equal
+    (:func:`same_values`). Returns ``(1, largest difference)``."""
+    pdtype, mdtype = getattr(torch, pname), getattr(torch, mname)
+    args = (torch, pdtype, mdtype, 9, 40 + seed, 0)
+    kern, plain = adamw_group(*args), adamw_group(*args)
+    lr = torch.full((1,), 1e-4, device="cuda")
+    slots = torch.tensor([1e-4, 1e-5, 3e-4], device="cuda")
+    lrs = [slots[i % 3:i % 3 + 1] for i in range(len(ADAMW_SIZES))]
+    scale = torch.full((1,), 0.37, device="cuda")
+    rng = np.random.RandomState(seed)
+    worst = 0.0
+    for _ in range(2):
+        before = aw.launches["adamw"]
+        if mode == "lr per entry":
+            aw.adamw_multi(*kern, lrs)
+            aw.adamw_multi_plain(*plain, lrs)
+        elif mode == "grad scale":
+            aw.adamw_multi(*kern, lr, grad_scale=scale)
+            aw.adamw_multi_plain(*plain, lr, grad_scale=scale)
+        else:
+            aw.adamw_multi(*kern, lr, coeff=0.0)
+            aw.adamw_multi_plain(*plain, lr, coeff=0.0)
+        if aw.launches["adamw"] != before + 1:
+            raise AssertionError("one group, not one launch")
+        torch.cuda.synchronize()
+        worst = max(worst, hold_adamw(
+            torch, kern, plain, f"adamw {mode}, {pname} parameters, "
+            f"{mname} moments", ADAMW_SIZES))
+        for gk, gp in zip(kern[1], plain[1]):
+            g = torch.from_numpy((rng.randn(gk.numel()) * 1e-2).astype(
+                np.float32)).cuda().to(pdtype)
+            gk.copy_(g)
+            gp.copy_(g)
+    log(f"  case {mode:12s} {pname:8s} parameters, {mname:8s} moments: 2 "
+        "steps equal")
+    return 1, worst
+
+
+def check_adamw_main_path(torch, aw, ctr, ps, what, seed, scaled=(),
+                          coeff=0.01, mdtype="bfloat16"):
     """The kernel against its plain version on a model's whole parameter
     set as the main path gives it (``ps``: the model's parameters in the
-    optimizer's order, one group, one launch, float32 with bf16 moments):
-    two steps from zero moments and beta powers 1 on copies of the same
-    state, with random gradients (seeded), every tensor held equal.
-    Returns the largest difference (0.0)."""
+    optimizer's order, one group, one launch, float32 with ``mdtype``
+    moments; AdamW's ``coeff``, or 0 for Adam): two steps from zero
+    moments and beta powers 1 on copies of the same state, with random
+    gradients (seeded), every tensor held equal. ``scaled``: indices of
+    the parameters at ``lr_scale`` 0.1 (their own slot of the lr tensor);
+    with any, the steps also take a GradientClipByGlobalNorm factor of
+    0.5 (phase 18's path). Returns the largest difference (0.0)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
+    mdt = getattr(torch, mdtype)
     kern = [[p.detach().clone() for p in ps],
             [torch.randn(p.shape, device="cuda", generator=gen) * 1e-3
              for p in ps],
-            [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps],
-            [torch.zeros_like(p, dtype=torch.bfloat16) for p in ps],
+            [torch.zeros_like(p, dtype=mdt) for p in ps],
+            [torch.zeros_like(p, dtype=mdt) for p in ps],
             [torch.ones(1, device="cuda") for _ in ps],
             [torch.ones(1, device="cuda") for _ in ps]]
     plain = [c if i == 1 else [t.clone() for t in c]
              for i, c in enumerate(kern)]
-    lr = torch.full((1,), 1e-4, device="cuda")
-    table = aw.Table(kern[0], *kern[2:])
+    slots = torch.tensor([1e-4, 1e-5], device="cuda")
+    lrs = [slots[1:2] if i in scaled else slots[0:1]
+           for i in range(len(ps))]
+    scale = torch.full((1,), 0.5, device="cuda") if scaled else None
+    table = aw.Table(kern[0], *kern[2:], lrs)
     sizes = [p.numel() for p in ps]
     worst = 0.0
     with ctr.aside():
         for step in range(2):
             before = aw.launches["adamw"]
-            aw.adamw_multi(*kern, lr, table=table)
+            aw.adamw_multi(*kern, lrs, coeff=coeff, grad_scale=scale,
+                           table=table)
             if aw.launches["adamw"] != before + 1:
                 raise AssertionError(f"{what}: one group, not one launch")
-            aw.adamw_multi_plain(*plain, lr)
+            aw.adamw_multi_plain(*plain, lrs, coeff=coeff, grad_scale=scale)
             torch.cuda.synchronize()
             worst = max(worst, hold_adamw(torch, kern, plain,
                                           f"adamw over {what}, step {step}",
@@ -1742,8 +1852,11 @@ def check_adamw_main_path(torch, aw, ctr, ps, what, seed):
             for g in kern[1]:
                 g.mul_(-0.5)
     log(f"  adamw over {what}'s {len(ps)} tensors, {sum(sizes)} parameters "
-        f"({sum(aw.chunk_plan(sizes)[1])} blocks in one launch): 2 steps "
-        f"equal to plain, largest difference {worst:.3e}")
+        f"(coeff {coeff}, {mdtype} moments; "
+        f"{sum(aw.chunk_plan(sizes)[1])} blocks in one launch"
+        + (f"; {len(scaled)} at lr_scale 0.1, grad scale 0.5" if scaled
+           else "") + f"): 2 steps equal to plain, largest difference "
+        f"{worst:.3e}")
     del kern, plain, table
     torch.cuda.empty_cache()
     return worst
@@ -1753,8 +1866,10 @@ def check_adamw_main_path(torch, aw, ctr, ps, what, seed):
 def time_adamw(torch, aw, ctr, card):
     """Phase 15: the AdamW kernel at the main path's shapes. First it is
     held equal to its plain version on the whole parameter sets of
-    gpt2-medium (phases 7 and 11's group shape: 292 tensors in one launch)
-    and of the gpt2-1p1b flagship (phase 16's). Then it is timed over
+    gpt2-medium (phases 7 and 11's group shape: 292 tensors in one launch;
+    again with phase 18's lr slots and clip scale), of the gpt2-1p1b
+    flagship (phase 16's) and of resnet18 at coeff 0 with f32 moments
+    (phase 18's Adam: 62 tensors). Then it is timed over
     gpt2-medium's parameters (f32 parameters and gradients, bf16 moments:
     phase 7's group) against its bound: p read and written, g read, m1
     and m2 read and written, 20 B per parameter over 3.35 TB/s, against
@@ -1767,17 +1882,27 @@ def time_adamw(torch, aw, ctr, card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     big = GPTForCausalLM(GPT_CONFIGS["gpt2-1p1b"], device="cuda",
                          generator=gen)
-    worst = check_adamw_main_path(
+    errs = [check_adamw_main_path(
         torch, aw, ctr, [p.detach() for p in big.parameters()], "gpt2-1p1b",
-        seed=2)
+        seed=2)]
     del big
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = GPTForCausalLM(GPT_CONFIGS["gpt2-medium"], device="cuda",
                            generator=gen)
     ps = [p.detach() for p in model.parameters()]
-    worst = max(worst, check_adamw_main_path(torch, aw, ctr, ps,
-                                             "gpt2-medium", seed=1))
+    errs.append(check_adamw_main_path(torch, aw, ctr, ps, "gpt2-medium",
+                                      seed=1))
+    emb = [i for i, (n, _) in enumerate(model.named_parameters())
+           if n.endswith(("wte.weight", "wpe.weight"))]
+    errs.append(check_adamw_main_path(
+        torch, aw, ctr, ps, "gpt2-medium (phase 18's lr slots and clip)",
+        seed=3, scaled=emb))
+    rn18 = resnet(torch, "resnet18")
+    errs.append(check_adamw_main_path(
+        torch, aw, ctr, [p.detach() for p in rn18.parameters()],
+        "resnet18 (phase 18's Adam)", seed=4, coeff=0.0, mdtype="float32"))
+    del rn18
     g0 = torch.Generator(device="cuda").manual_seed(1)
     gs = [torch.randn(p.shape, device="cuda", generator=g0) * 1e-3
           for p in ps]
@@ -1786,7 +1911,8 @@ def time_adamw(torch, aw, ctr, card):
     b1ps = [torch.ones(1, device="cuda") for _ in ps]
     b2ps = [torch.ones(1, device="cuda") for _ in ps]
     lr = torch.full((1,), 1e-4, device="cuda")
-    table = aw.Table(ps, m1s, m2s, b1ps, b2ps)
+    table = aw.Table(ps, m1s, m2s, b1ps, b2ps, lr)
+    scale = torch.full((1,), 0.5, device="cuda")
     n = sum(p.numel() for p in ps)
     with ctr.aside():
         before = aw.launches["adamw"]
@@ -1794,6 +1920,9 @@ def time_adamw(torch, aw, ctr, card):
         per_call = aw.launches["adamw"] - before
         ms = time_fn(torch, lambda i: aw.adamw_multi(
             ps, gs, m1s, m2s, b1ps, b2ps, lr, table=table), 20, 1)
+        scaled_ms = time_fn(torch, lambda i: aw.adamw_multi(
+            ps, gs, m1s, m2s, b1ps, b2ps, lr, grad_scale=scale,
+            table=table), 20, 1)
         plain_ms = time_fn(torch, lambda i: aw.adamw_multi_plain(
             ps, gs, m1s, m2s, b1ps, b2ps, lr), 3, 1)
         tp = [torch.nn.Parameter(p.clone()) for p in ps]
@@ -1808,13 +1937,16 @@ def time_adamw(torch, aw, ctr, card):
         f"bf16 moments: kernel {ms:.4f} ms ({per_call:.0f} launch per "
         f"call), plain {plain_ms:.4f} ms, {b_['bytes']} B -> bound "
         f"{b_['bound_ms']:.4f} ms ({b_['bound_by']}), "
-        f"{ms / b_['bound_ms']:.2f}x the bound; torch.optim.AdamW("
+        f"{ms / b_['bound_ms']:.2f}x the bound; with a grad scale (the "
+        f"clip folded in) {scaled_ms:.4f} ms; torch.optim.AdamW("
         f"fused=True), a different update, {fused_ms:.4f} ms [{card}]")
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, **b_, "library_ms": None,
+            "grad_scale_ms": scaled_ms,
             "other_update_ms": fused_ms, "tensors": len(ps),
             "parameters": n, "launches_per_call": per_call,
-            "main_path_max_abs_err": worst}
+            "main_path_max_abs_err": max(errs),
+            "main_path_cases": len(errs)}
 
 
 # ------------------------------------------------------------ phase 16
@@ -2180,6 +2312,584 @@ def swap_weights_check(torch, model, prompts, before):
     return {"swap_at_step": SWAP_AT, "captures": 0, "requests": len(prompts)}
 
 
+# ------------------------------------------------------------ phase 18
+RESNET_BATCH, RESNET_IMG = 128, 224     # bench.py's ResNet-50 (:1248-1252)
+RESNET_K = 10                           # bench.py's BENCH_STEPS
+RESNET50_FWD_FLOPS_224 = 4.089e9        # bench.py:263
+PLANE_STEPS = 5
+#: updates per timing of an optimizer's update alone
+UPDATE_REPS = 5
+
+
+def snapshot(model):
+    """Clones of the model's parameters and buffers."""
+    return ([p.detach().clone() for p in model.parameters()],
+            [b.detach().clone() for b in model.buffers()])
+
+
+def restore(torch, model, snap):
+    """The parameters and buffers of :func:`snapshot`, copied back in
+    place; every gradient cleared."""
+    with torch.no_grad():
+        for p, s in zip(model.parameters(), snap[0]):
+            p.copy_(s)
+        for b, s in zip(model.buffers(), snap[1]):
+            b.copy_(s)
+    model.zero_grad(set_to_none=True)
+
+
+def optimizer_run(torch, ctr, model, make_opt, loss_of, captured,
+                  steps=PLANE_STEPS, between=None, traced=0,
+                  time_update=False):
+    """``steps`` steps of the :func:`_stepper` step with ``make_opt(model)``
+    from the model's current state, eagerly or through
+    ``jit.to_static`` (calls 1 and 2 warm up eagerly, the second finding
+    the gradients the first left; call 3 captures; later calls replay).
+    ``between(opt)`` runs after each step (a scheduler's ``step()``).
+    Returns the losses, the lr slots each step read (the optimizer's lr
+    tensor after the call), the launch counts, the parameters, buffers
+    and optimizer state after the steps and, captured, the graphs and
+    warmed keys; with ``traced``, the device busy ms per step of that
+    many more steps; with ``time_update``, the optimizer's ``step()``
+    alone, :data:`UPDATE_REPS` times on the last step's gradients in
+    one trace (device ms and kernels per update)."""
+    from paddle_tpu_torch import jit
+    opt = make_opt(model)
+    step = _stepper(model, opt, loss_of)
+    fast = jit.to_static(step, layers=[model], optimizers=[opt]) \
+        if captured else step
+    dev = next(model.parameters()).device
+    ctr.zero()
+    losses, lrs = [], []
+    for _ in range(steps):
+        losses.append(fast())
+        lrs.append(opt._lr[dev].tolist())
+        if between is not None:
+            between(opt)
+    torch.cuda.synchronize()
+    out = {"losses": [float(x) for x in losses], "lrs": lrs,
+           "launches": ctr.read(),
+           "params": [p.detach().clone() for p in model.parameters()],
+           "buffers": [b.detach().clone() for b in model.buffers()],
+           "state": {k: v.detach().clone()
+                     for k, v in opt.state_dict().items() if k != "_lr"}}
+    if captured:
+        out["graphs"] = len(fast._step.graphs)
+        out["warmed"] = len(fast._step.warmed)
+    if traced:
+        with ctr.aside():
+            out["busy_ms"] = device_busy_ms(
+                torch, lambda: [fast() for _ in range(traced)]) / traced
+    if time_update:
+        out["update"] = time_update_alone(torch, ctr, opt)
+    del fast, step, opt
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_update_alone(torch, ctr, opt):
+    """The optimizer's ``step()`` alone, :data:`UPDATE_REPS` times on the
+    last step's gradients: device ms and kernels per update. The ms are
+    a trace's busy time, unless the trace holds fewer ``adamw`` kernels
+    than the wrapper launched: late in this script the profiler has
+    dropped launches of that library (the one launch of a trace in one
+    run, two or three of five in others), while it kept every launch in
+    a process of its own. Then CUDA events time the updates on the
+    device (:func:`event_ms`). Kernels are the trace's others and the
+    wrappers' launches."""
+    def run():
+        for _ in range(UPDATE_REPS):
+            opt.step()
+
+    with ctr.aside():
+        before = sum(ctr.read().values())
+        ms, names = trace_once(torch, run)
+        launched = sum(ctr.read().values()) - before
+        seen = sum(n for k, n in names.items() if "adamw_multi_kernel" in k)
+        if ms is None or seen < launched:
+            log(f"  the profiler recorded {seen} of {launched} adamw "
+                "launches; CUDA events time the update")
+            ms = event_ms(torch, run)
+    kernels = sum(names.values()) - seen + launched
+    return {"ms": ms / UPDATE_REPS, "kernels": kernels / UPDATE_REPS}
+
+
+def hold_same(torch, ctr, eager, captured, what, want):
+    """The captured run bit-equal to the eager one (losses, parameters,
+    buffers, optimizer state, the lr each step read), one graph captured
+    and nothing captured after it, the launch counts of each run exactly
+    ``want``, the losses finite."""
+    bad = []
+    if eager["losses"] != captured["losses"]:
+        bad.append("losses")
+    if eager["lrs"] != captured["lrs"]:
+        bad.append("learning rates")
+    for kind in ("params", "buffers"):
+        n = sum(not torch.equal(a, b)
+                for a, b in zip(eager[kind], captured[kind]))
+        if n:
+            bad.append(f"{n} of {len(eager[kind])} {kind}")
+    if set(eager["state"]) != set(captured["state"]):
+        bad.append("state keys")
+    else:
+        n = sum(not torch.equal(v, captured["state"][k])
+                for k, v in eager["state"].items())
+        if n:
+            bad.append(f"{n} of {len(eager['state'])} state tensors")
+    if bad:
+        raise AssertionError(f"{what}: captured differs from eager in "
+                             f"{bad}; losses {eager['losses']} vs "
+                             f"{captured['losses']}")
+    if captured["graphs"] != 1 or captured["warmed"] != 2:
+        raise AssertionError(f"{what}: {captured['graphs']} graphs, "
+                             f"{captured['warmed']} warm-ups: a capture "
+                             "after the first")
+    if not all(np.isfinite(eager["losses"])):
+        raise AssertionError(f"{what}: losses {eager['losses']}")
+    for label, r in (("eager", eager), ("captured", captured)):
+        ctr.expect(r["launches"], want, f"{what}, {label}")
+    log(f"  {what}: {len(eager['losses'])} steps, losses "
+        f"{eager['losses']}; captured (2 warm-up calls, 1 capture, "
+        f"{len(eager['losses']) - 3} replays) bit-equal to eager in losses, "
+        f"{len(eager['params'])} parameters, {len(eager['buffers'])} "
+        f"buffers and {len(eager['state'])} state tensors; launches per "
+        f"run {captured['launches'] or 'none (plain updates)'}")
+
+
+def lamb_from_powers(torch, opt, model):
+    """Zero moments and beta powers beta^1 for every parameter, as
+    Paddle's own LAMB initializes them: from the powers 1 that both
+    packages create, the reference's ``lamb`` op divides by 1 - 1 = 0 at
+    the first step (ROADMAP queue C)."""
+    state = {}
+    for n, p in model.named_parameters():
+        state.update({f"{n}:m1": torch.zeros_like(p),
+                      f"{n}:m2": torch.zeros_like(p),
+                      f"{n}:b1p": torch.full((1,), 0.9, device=p.device),
+                      f"{n}:b2p": torch.full((1,), 0.999, device=p.device)})
+    opt.set_state_dict(state)
+    return opt
+
+
+def resnet_inputs(torch, batch=RESNET_BATCH, img=RESNET_IMG):
+    """bench.py's first ResNet batch (``:295-297``, numpy
+    ``RandomState(0)``) on the card, and the generator left after it."""
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(batch, 3, img, img).astype(
+        np.float32)).cuda()
+    labels = torch.from_numpy(rng.randint(0, 1000, (batch,)).astype(
+        np.int64)).cuda()
+    return x, labels, rng
+
+
+def resnet_loss(model, x, labels, level="O2", dtype="bfloat16"):
+    """``bench.py``'s forward: ``CrossEntropyLoss`` of the model's logits
+    under ``auto_cast(level)``."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.nn.layers_common import CrossEntropyLoss
+    ce = CrossEntropyLoss()
+
+    def loss_of():
+        with auto_cast(level=level, dtype=dtype):
+            return ce(model(x), labels)
+
+    return loss_of
+
+
+def resnet(torch, name):
+    from paddle_tpu_torch import vision
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return getattr(vision, name)(num_classes=1000, device="cuda",
+                                 generator=gen)
+
+
+def optimizer_plane(torch, ctr, card, trn):
+    """Phase 18: the optimizer plane on the card, each optimizer's
+    captured run from the same weights bit-equal to its eager run over
+    :data:`PLANE_STEPS` steps (:func:`hold_same`). gpt2-medium at full
+    width and depth (phase 7's step) with AdamW, bf16 moments,
+    ``GradientClipByGlobalNorm(1.0)`` folded into the kernel, a
+    ``LinearWarmup(CosineAnnealingDecay)`` schedule stepped between calls
+    (each step reads the lr it was given) and ``lr_scale`` 0.1 on both
+    embeddings (a second lr slot): 24 launches of each flash kernel and
+    one of ``adamw`` per step; then the clip's norm timed against its
+    bound and the captured step's busy time against phase 7's (no
+    clip). LAMB on ERNIE-base (phase 11's step, LayerNorm kernels off:
+    no launch), LarsMomentum on ResNet-50 (phase 19's batch) and SGD,
+    Momentum with Nesterov, Adagrad, RMSProp, Ftrl and Adam (the kernel
+    at coeff 0: one launch per step) on ResNet-18 at batch 32, 224 x 224.
+    cuDNN runs deterministic here (``torch.backends.cudnn.deterministic``)
+    so that the eager and the captured convolutions take the same
+    algorithms."""
+    from paddle_tpu_torch import optimizer as O
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    cfg, model, loss_of, _ = train_step(torch)
+    for n, p in model.named_parameters():
+        if n.endswith(("wte.weight", "wpe.weight")):
+            p.lr_scale = 0.1
+    start = snapshot(model)
+
+    def adamw_clipped(m):
+        sched = O.lr.LinearWarmup(O.lr.CosineAnnealingDecay(1e-4, 8), 2,
+                                  1e-5, 1e-4)
+        return O.AdamW(learning_rate=sched,
+                       parameters=m.named_parameters(),
+                       moment_dtype="bfloat16",
+                       grad_clip=O.GradientClipByGlobalNorm(1.0))
+
+    runs = {}
+    for captured in (False, True):
+        restore(torch, model, start)
+        runs[captured] = optimizer_run(
+            torch, ctr, model, adamw_clipped, loss_of, captured,
+            between=lambda o: o._learning_rate.step(),
+            traced=2 if captured else 0)
+    L = cfg.num_layers
+    n = PLANE_STEPS
+    hold_same(torch, ctr, runs[False], runs[True],
+              "gpt2-medium, AdamW + global-norm clip + warmup/cosine + "
+              "lr_scale 0.1 on the embeddings",
+              {"flash_fwd": L * n, "flash_bwd_dq": L * n,
+               "flash_bwd_dkv": L * n, "adamw": n})
+    log(f"  gpt2-medium: lr slots [1.0, 0.1] each step read: "
+        f"{runs[True]['lrs']}")
+    grads = [torch.randn(p.shape, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(7)) * 1e-3 for p in model.parameters()]
+    clip = O.GradientClipByGlobalNorm(1.0)
+    with ctr.aside():
+        norm_ms = time_fn(torch, lambda i: clip.scale(grads), 10, 1)
+    n_el = sum(g.numel() for g in grads)
+    nb = bound(4 * n_el, 2 * n_el, F32_FLOPS)
+    busy_clip, busy_plain = runs[True]["busy_ms"], \
+        trn["captured"]["device_busy_ms"]
+    log(f"  [{card}] GradientClipByGlobalNorm's norm over gpt2-medium's "
+        f"{len(grads)} f32 gradients ({n_el} values): {norm_ms:.4f} ms "
+        f"against its bound {nb['bound_ms']:.4f} ms ({nb['bytes']} B read "
+        f"once, {nb['bound_by']}), {norm_ms / nb['bound_ms']:.2f}x; captured "
+        f"step device busy {busy_clip:.3f} ms with the clip and lr slots "
+        f"against phase 7's {busy_plain:.3f} ms without")
+    out["gpt2_medium"] = {"losses": runs[True]["losses"],
+                          "lrs": runs[True]["lrs"],
+                          "launches": runs[True]["launches"],
+                          "norm_ms": norm_ms, "norm_bound": nb,
+                          "busy_ms_clip": busy_clip,
+                          "busy_ms_no_clip": busy_plain}
+    del model, start, grads, runs
+    torch.cuda.empty_cache()
+
+    _, model, loss_of, _ = ernie_step(torch)
+    start = snapshot(model)
+    runs = {}
+    for captured in (False, True):
+        restore(torch, model, start)
+        runs[captured] = optimizer_run(
+            torch, ctr, model,
+            lambda m: lamb_from_powers(torch, O.Lamb(
+                learning_rate=1e-4, parameters=m.named_parameters()), m),
+            loss_of, captured)
+    hold_same(torch, ctr, runs[False], runs[True], "ernie-base, Lamb", {})
+    out["ernie_lamb"] = {"losses": runs[True]["losses"]}
+    del model, start, runs
+    torch.cuda.empty_cache()
+
+    for name, batch, opts in (
+            ("resnet50", RESNET_BATCH,
+             [("LarsMomentum", lambda m: O.LarsMomentum(
+                 0.1, momentum=0.9, parameters=m.named_parameters()), {})]),
+            ("resnet18", 32,
+             [("SGD", lambda m: O.SGD(0.1, parameters=m.named_parameters()),
+               {}),
+              ("Momentum, Nesterov", lambda m: O.Momentum(
+                  0.1, 0.9, use_nesterov=True,
+                  parameters=m.named_parameters()), {}),
+              ("Adagrad", lambda m: O.Adagrad(
+                  0.01, parameters=m.named_parameters()), {}),
+              ("RMSProp", lambda m: O.RMSProp(
+                  1e-3, momentum=0.5, parameters=m.named_parameters()), {}),
+              ("Ftrl", lambda m: O.Ftrl(
+                  0.1, l1=1e-4, l2=1e-4, parameters=m.named_parameters()),
+               {}),
+              ("Adam", lambda m: O.Adam(
+                  1e-3, parameters=m.named_parameters()),
+               {"adamw": PLANE_STEPS})])):
+        model = resnet(torch, name)
+        x, labels, _ = resnet_inputs(torch, batch)
+        loss_of = resnet_loss(model, x, labels)
+        start = snapshot(model)
+        for label, make, want in opts:
+            runs = {}
+            for captured in (False, True):
+                restore(torch, model, start)
+                runs[captured] = optimizer_run(
+                    torch, ctr, model, make, loss_of, captured,
+                    time_update=not captured)
+            hold_same(torch, ctr, runs[False], runs[True],
+                      f"{name} (batch {batch}, O2), {label}", want)
+            upd = runs[False]["update"]
+            log(f"  [{card}] {name} {label}: the update alone "
+                f"{upd['ms']:.3f} ms, {upd['kernels']:.0f} kernels "
+                f"({len(runs[False]['params'])} parameters)")
+            out[f"{name}_{label}"] = {"losses": runs[True]["losses"],
+                                      "update": upd}
+        del model, start, runs, x, labels
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+# ------------------------------------------------------------ phase 19
+#: kernel groups of a ResNet step, by a substring of the kernel's name
+#: (first match wins)
+RESNET_GROUPS = (
+    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("cudnn_conv", ("fprop", "dgrad", "wgrad", "conv", "implicit",
+                    "cudnn", "nchwToNhwc", "nhwcToNchw", "xmma_")),
+    ("gemm", ("gemm", "gemv", "cutlass")),
+    ("reduce", ("reduce",)),
+    ("pool", ("pool",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "fill",
+                     "copy")),
+)
+
+
+def kernel_groups(names, per):
+    """Kernels per step by :data:`RESNET_GROUPS` (``names``: kernel name
+    -> count over ``per`` steps)."""
+    out = {}
+    for name, n in names.items():
+        group = next((g for g, pats in RESNET_GROUPS
+                      if any(p in name for p in pats)), "other")
+        out[group] = out.get(group, 0) + n / per
+    return out
+
+
+def resnet_bench(torch, ctr, card):
+    """Phase 19: ``bench.py``'s ResNet-50 step (``child_main_resnet``,
+    ``:266-336``), uncut: batch 128, 224 x 224, AMP O2 bf16,
+    ``Momentum(0.1, 0.9)``, ``CrossEntropyLoss``, random weights from
+    seed 0. First :data:`PLANE_STEPS` eager steps against the same through
+    ``jit.to_static`` from the same weights (cuDNN deterministic):
+    losses, parameters, BN buffers and velocities bit-equal. Then, with
+    cuDNN's defaults (``deterministic`` and ``benchmark`` False),
+    bench.py's schedule: 2 ``to_static`` calls on its first batch, K = 10
+    batches moved to the card, one warm ``to_static_multi_step`` call and
+    one timed; step ms, images/s and MFU by ``bench.py:321-322`` (3 x
+    4.089e9 x images/s over 989 TFLOP/s); then a traced K = 2 call: busy
+    ms and idle share, kernels per step by group, and Momentum's update
+    traced alone (its kernels are elementwise in the replay's trace);
+    peak allocated and reserved."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import optimizer as O
+    model = resnet(torch, "resnet50")
+    x1, l1, rng = resnet_inputs(torch)
+    loss_of = resnet_loss(model, x1, l1)
+    start = snapshot(model)
+
+    def momentum(m):
+        return O.Momentum(learning_rate=0.1, momentum=0.9,
+                          parameters=m.named_parameters())
+
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for captured in (False, True):
+        restore(torch, model, start)
+        runs[captured] = optimizer_run(torch, ctr, model, momentum, loss_of,
+                                       captured)
+    hold_same(torch, ctr, runs[False], runs[True],
+              "resnet50 (bench.py's step, cuDNN deterministic), Momentum",
+              {})
+    del runs
+    torch.backends.cudnn.deterministic = False
+    restore(torch, model, start)
+    opt = momentum(model)
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.nn.layers_common import CrossEntropyLoss
+    ce = CrossEntropyLoss()
+
+    def train_step(img_b, lab_b):
+        with auto_cast(level="O2"):
+            logits = model(img_b)
+            loss = ce(logits, lab_b)
+        opt.clear_grad()
+        loss.backward()
+        opt.step()
+        return loss
+
+    step = jit.to_static(train_step, layers=[model], optimizers=[opt])
+    multi = jit.to_static_multi_step(train_step, layers=[model],
+                                     optimizers=[opt])
+    k, b = RESNET_K, RESNET_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = [float(step(x1, l1)) for _ in range(2)]
+    xs = torch.from_numpy(rng.randn(k, b, 3, RESNET_IMG, RESNET_IMG)
+                          .astype(np.float32)).cuda()
+    ls = torch.from_numpy(rng.randint(0, 1000, (k, b)).astype(
+        np.int64)).cuda()
+    warm = multi(xs, ls)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ctr.zero()
+    t0 = time.perf_counter()
+    timed = multi(xs, ls)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / k
+    run = ctr.read()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    ctr.expect(run, {}, "resnet50 timed call")
+    losses = first + [float(v) for v in warm] + [float(v) for v in timed]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"resnet50: losses {losses}")
+    with ctr.aside():
+        busy, names = device_trace(torch, lambda: multi(xs[:2], ls[:2]))
+        busy /= 2
+        groups = kernel_groups(names, 2)
+        for name, n in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
+            log(f"    {n / 2:6.1f} per step  {name[:110]}")
+        opt_ms, opt_names = device_trace(torch, opt.step)
+    imgs = b / dt
+    mfu = 3.0 * RESNET50_FWD_FLOPS_224 * imgs / BF16_FLOPS
+    res = {"step_ms": dt * 1e3, "images_per_s": imgs, "mfu": mfu,
+           "losses": losses, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / (dt * 1e3),
+           "kernels_per_step": sum(names.values()) / 2,
+           "kernel_groups": groups,
+           "momentum_kernels": sum(opt_names.values()),
+           "momentum_ms": opt_ms, "peak_bytes": peak,
+           "peak_reserved_bytes": reserved, "warm_s": warm_s,
+           "cudnn": "deterministic False, benchmark False (defaults)"}
+    log(f"  resnet50: losses {losses}")
+    log(f"  [{card}] resnet50 (batch {b}, {RESNET_IMG}, O2, Momentum), "
+        f"to_static_multi_step K = {k}, cuDNN defaults: step "
+        f"{res['step_ms']:.3f} ms, {imgs:.1f} images/s, MFU "
+        f"{mfu * 100:.3f}% (bench.py's formula), device busy {busy:.3f} ms "
+        f"per step, idle share {res['idle_share']:.4f}, "
+        f"{res['kernels_per_step']:.0f} kernels per step by group "
+        f"{ {g: round(v, 1) for g, v in groups.items()} }; Momentum's "
+        f"update alone {res['momentum_kernels']} kernels, {opt_ms:.3f} ms; "
+        f"max_memory_allocated {peak} B, max_memory_reserved {reserved} B; "
+        f"2 to_static calls and the warm K call took {warm_s:.1f} s")
+    del step, multi, opt, xs, ls
+    torch.cuda.empty_cache()
+    return res, model, start
+
+
+# ------------------------------------------------------------ phase 20
+def grad_scaler_phase(torch, ctr, model, start):
+    """Phase 20: ``GradScaler`` on ResNet-50 at AMP O1 fp16 (batch 128,
+    224 x 224, Momentum 0.1/0.9), eagerly. fp16 and not GPT: the port's
+    flash kernels take f32 and bf16 only (ROADMAP queue C). From 2^16 the
+    scaler first backs off (halving every second overflowing step) until
+    a step's gradients are finite; from a quarter of that scale, two
+    normal steps update every parameter; two steps with an inf injected into a
+    gradient leave every parameter and velocity bit-unchanged, and the
+    scale halves after the second (``decr_every_n_nan_or_inf`` 2); a
+    normal step then updates again. Last, ``unscale_`` inside a
+    ``jit.to_static`` capture raises."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.amp import GradScaler
+    restore(torch, model, start)
+    x, labels, _ = resnet_inputs(torch)
+    loss_of = resnet_loss(model, x, labels, level="O1", dtype="float16")
+    opt = O.Momentum(learning_rate=0.1, momentum=0.9,
+                     parameters=model.named_parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 16,
+                        decr_every_n_nan_or_inf=2)
+    first = next(model.parameters())
+    ctr.zero()
+
+    def scaled_backward():
+        loss = loss_of()
+        opt.clear_grad()
+        scaler.scale(loss).backward()
+        return loss
+
+    backoff = []
+    while True:               # the scaler backs off until fp16 holds
+        scaled_backward()
+        scaler.step(opt)
+        backoff.append((scaler.get_loss_scaling(), scaler._found_inf))
+        if not scaler._found_inf:
+            break
+        if len(backoff) == 40:
+            raise AssertionError(f"fp16: no finite step in {backoff}")
+    start_scale = backoff[-1][0] / 4
+    scaler.load_state_dict({"scale": start_scale, "good_steps": 0,
+                            "bad_steps": 0})
+    scales, losses = [], []
+    for i, inject in enumerate((False, False, True, True, False)):
+        loss = scaled_backward()
+        if inject:
+            first.grad.view(-1)[0] = float("inf")
+        before = snapshot(model)[0]
+        state = {k: v.clone() for k, v in opt.state_dict().items()
+                 if k != "_lr"}
+        scaler.step(opt)
+        torch.cuda.synchronize()
+        same = [torch.equal(a, p) for a, p in zip(before,
+                                                  model.parameters())]
+        same_state = all(torch.equal(v, opt.state_dict()[k])
+                         for k, v in state.items())
+        if scaler._found_inf != inject:
+            raise AssertionError(f"fp16 step {i}: found_inf "
+                                 f"{scaler._found_inf}, loss {float(loss)}")
+        if inject and not (all(same) and same_state):
+            raise AssertionError(f"fp16 step {i}: an inf gradient moved "
+                                 f"{len(same) - sum(same)} parameters")
+        if not inject and sum(same) > 0:
+            raise AssertionError(f"fp16 step {i}: {sum(same)} parameters "
+                                 "did not move")
+        scales.append(scaler.get_loss_scaling())
+        losses.append(float(loss.detach()))
+    if scales != [start_scale] * 3 + [start_scale / 2] * 2:
+        raise AssertionError(f"loss scales {scales}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"fp16 losses {losses}")
+    ctr.expect(ctr.read(), {}, "resnet50 fp16")
+    # the last eager loss would keep its autograd graph, and with it the
+    # parameters' gradient accumulators on the default stream, which a
+    # capture on the side stream must not meet
+    del loss
+
+    def scaled_step():
+        loss = loss_of()
+        opt.clear_grad()
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        return loss.detach()
+
+    fast = jit.to_static(scaled_step, layers=[model], optimizers=[opt])
+    model.zero_grad(set_to_none=True)
+    raised = None
+    for call in range(3):
+        try:
+            fast()
+        except RuntimeError as e:
+            raised = (call, str(e))
+            break
+    torch.cuda.synchronize()
+    if raised is None or raised[0] != 2 or "GradScaler.unscale_" not in \
+            raised[1] or fast._step.graphs:
+        raise AssertionError(f"unscale_ under capture: {raised}")
+    log(f"  resnet50 fp16 O1 + GradScaler: from 2^16 the scale backed off "
+        f"over {len(backoff)} steps (scale, found_inf) {backoff}; from a "
+        f"quarter of the first finite scale: losses {losses}, loss scale per "
+        f"step {scales}: normal steps moved every parameter, the two inf "
+        "steps moved none and left every velocity bit-unchanged, the scale "
+        "halved after the second; to_static call 3 (the capture) raised: "
+        f"{raised[1][:80]}")
+    del fast, opt
+    torch.cuda.empty_cache()
+    return {"backoff": backoff, "losses": losses, "scales": scales,
+            "capture_raised": raised[1]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2296,6 +3006,7 @@ def main():
         "(gpt2-1p1b's and gpt2-medium's parameters) vs plain; its time")
     atimes = time_adamw(torch, aw, ctr, card)
     adamw_err = max(adamw_err, atimes["main_path_max_abs_err"])
+    n_adamw += atimes["main_path_cases"]
 
     log(f"== phase 16: train gpt2-1p1b (bench.py's flagship: batch "
         f"{GPT_BATCH}, seq {GPT_SEQ}, recompute, O2 bf16, AdamW bf16 "
@@ -2305,6 +3016,20 @@ def main():
     log(f"== phase 17: serve gpt2-medium eagerly, captured and at megastep "
         f"{MEGASTEP}; swap its weights mid-run")
     modes = serving_modes(torch, ctr, card)
+
+    log("== phase 18: the optimizer plane (clip, schedule, lr_scale, every "
+        "eager optimizer), eager against captured")
+    plane = optimizer_plane(torch, ctr, card, trn)
+
+    log(f"== phase 19: bench.py's ResNet-50 step (batch {RESNET_BATCH}, "
+        f"{RESNET_IMG} x {RESNET_IMG}, O2 bf16, Momentum) through to_static "
+        f"and to_static_multi_step K = {RESNET_K}")
+    rn, rn_model, rn_start = resnet_bench(torch, ctr, card)
+
+    log("== phase 20: GradScaler, ResNet-50 at O1 fp16, eagerly")
+    scaler = grad_scaler_phase(torch, ctr, rn_model, rn_start)
+    del rn_model, rn_start
+    torch.cuda.empty_cache()
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -2365,7 +3090,9 @@ def main():
         shape={"tensors": atimes["tensors"],
                "parameters": atimes["parameters"]},
         launches_captured=trn["captured"]["launches"]["adamw"],
-        launches_flagship=flag["launches"]["adamw"]))
+        launches_flagship=flag["launches"]["adamw"],
+        grad_scale_ms=atimes["grad_scale_ms"],
+        launches_optimizer_plane=plane["gpt2_medium"]["launches"]["adamw"]))
 
     def summary(r):
         return {k: summary(v) if isinstance(v, dict) and k != "routes"
@@ -2375,7 +3102,8 @@ def main():
     print(json.dumps({"serving": summary(srv), "serving_modes": modes,
                       "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
-                      "adamw": atimes}), flush=True)
+                      "adamw": atimes, "optimizer_plane": plane,
+                      "resnet50": rn, "grad_scaler": scaler}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Multi-tensor AdamW update for Hopper (sm_90a).
+// Multi-tensor AdamW (and Adam: coeff 0) update for Hopper (sm_90a).
 //
 // Not the port of a TPU kernel: the JAX package's update
 // (paddle_tpu/ops/optimizer_ops.py:40-71, _adam/_adamw) is plain jnp that XLA
@@ -22,7 +22,16 @@
 //   lr_t = R_P(R_P(lr * R_P(sqrt(R_P(1 - b2p')))) / R_P(1 - b1p'))
 //   p'  = R_P(R_MP(R_MP(p - R_MP(R_MP(lr_t * m1') / R_MP(R_MP(sqrt(m2'))
 //               + eps))) - R_P((lr * coeff) * p)))
-// m1' and m2' are stored rounded to M; the update uses them at MP. With
+// and at coeff 0 (Adam, the adam op) p' = R_P(R_MP(p - ...)) with no decay
+// term.
+// m1' and m2' are stored rounded to M; the update uses them at MP. lr is the
+// entry's own learning rate (each table entry points at its slot of the
+// optimizer's float32 [k] lr tensor: one slot per distinct lr_scale, so
+// parameters of different scales share one launch). With a grad_scale
+// (GradientClipByGlobalNorm's clip / max(norm, clip), float32 holding the
+// value in the gradients' or a wider dtype), g is first R_P(g * scale), as
+// the reference rounds its clipped gradient into the update; a null
+// grad_scale leaves g as it is. With
 // float32 parameters every R_P and R_MP is exact, which leaves the float32
 // sequence with only beta * m rounded to M. Every operation is an _rn
 // intrinsic, so nothing is contracted into an FMA that the per-op path does
@@ -34,8 +43,8 @@
 // ms at 3.35 TB/s.
 //
 // Design. The wrapper (ops/cuda/adamw.py) builds a device table of the
-// group's static pointers (p, m1, m2, b1p, b2p), sizes and first chunk once
-// per parameter set and keeps it. The gradients' pointers, which change
+// group's static pointers (p, m1, m2, b1p, b2p, lr), sizes and first chunk
+// once per parameter set and keeps it. The gradients' pointers, which change
 // whenever autograd allocates new gradients, are kernel arguments: a CUDA
 // graph bakes them by value at capture, as it bakes every kernel argument.
 // Block b walks chunk b of the group (kChunk elements of one tensor, found
@@ -59,19 +68,20 @@ constexpr int kChunk = 16384;       // elements per block: 16 x 4 a thread
 // kernel's arguments under the classic 4 KB limit
 constexpr int kMaxTensors = 448;
 
-// One tensor of the group, 64 bytes; the wrapper writes these words.
+// One tensor of the group, 72 bytes; the wrapper writes these words.
 struct Entry {
   void* p;
   void* m1;
   void* m2;
   void* b1p;         // [1] in the parameters' dtype
   void* b2p;
+  const float* lr;   // the tensor's slot of the optimizer's lr tensor
   long long n;       // elements
   long long first;   // index of the tensor's first chunk in the group
   int arrive;        // blocks that have read b1p/b2p in this launch
   int chunks;        // max(1, ceil(n / kChunk)): an empty tensor still steps
 };
-static_assert(sizeof(Entry) == 64, "the wrapper packs 8 words per tensor");
+static_assert(sizeof(Entry) == 72, "the wrapper packs 9 words per tensor");
 
 struct Grads {
   const void* g[kMaxTensors];
@@ -123,8 +133,10 @@ __device__ __forceinline__ float rnd(float x) {
 template <typename P, typename M>
 __device__ __forceinline__ void update(float& p, float g, float& m1,
                                        float& m2, float lr_t, float decay,
+                                       const float* gscale,
                                        const Scalars& s) {
   using MP = typename Promote<M, P>::type;
+  if (gscale != nullptr) g = rnd<P>(__fmul_rn(g, *gscale));
   const float a1 = rnd<M>(__fmul_rn(m1, s.c1));
   const float a2 = rnd<M>(__fmul_rn(m2, s.c2));
   m1 = rnd<MP>(__fadd_rn(a1, rnd<P>(__fmul_rn(s.omb1, g))));
@@ -133,7 +145,11 @@ __device__ __forceinline__ void update(float& p, float g, float& m1,
   const float num = rnd<MP>(__fmul_rn(lr_t, m1));
   const float den = rnd<MP>(__fadd_rn(rnd<MP>(__fsqrt_rn(m2)), s.eps));
   const float adam = rnd<MP>(__fsub_rn(p, rnd<MP>(__fdiv_rn(num, den))));
-  p = rnd<P>(rnd<MP>(__fsub_rn(adam, rnd<P>(__fmul_rn(decay, p)))));
+  // coeff 0 is Adam: no decay term at all (p - 0 * p would turn an
+  // infinite parameter into NaN where the adam op keeps it)
+  p = s.coeff != 0.0f
+          ? rnd<P>(rnd<MP>(__fsub_rn(adam, rnd<P>(__fmul_rn(decay, p)))))
+          : rnd<P>(adam);
 }
 
 // Four consecutive elements: one 16-byte (f32) or 8-byte (16-bit) access.
@@ -172,14 +188,15 @@ __device__ __forceinline__ bool aligned4(const void* a, const void* b) {
 template <typename P, typename M>
 __global__ void __launch_bounds__(kThreads)
     adamw_multi_kernel(Entry* __restrict__ table, int t0, int nt, int c0,
-                       const Grads grads, const float* __restrict__ lr,
+                       const Grads grads,
+                       const float* __restrict__ grad_scale,
                        const Scalars s) {
   __shared__ P* sp;
   __shared__ const P* sg;
   __shared__ M* sm1;
   __shared__ M* sm2;
   __shared__ long long sbegin, send;
-  __shared__ float slr_t, sdecay;
+  __shared__ float slr_t, sdecay, sgscale;
   if (threadIdx.x == 0) {
     const int c = c0 + static_cast<int>(blockIdx.x);
     int lo = t0, hi = t0 + nt - 1;     // the last tensor whose first <= c
@@ -192,7 +209,8 @@ __global__ void __launch_bounds__(kThreads)
     P* b2p = static_cast<P*>(e.b2p);
     const float b1 = rnd<P>(__fmul_rn(to_f(*b1p), s.beta1));
     const float b2 = rnd<P>(__fmul_rn(to_f(*b2p), s.beta2));
-    const float l = *lr;
+    const float l = *e.lr;
+    if (grad_scale != nullptr) sgscale = *grad_scale;
     const float root = rnd<P>(__fsqrt_rn(rnd<P>(__fsub_rn(1.0f, b2))));
     slr_t = rnd<P>(__fdiv_rn(rnd<P>(__fmul_rn(l, root)),
                              rnd<P>(__fsub_rn(1.0f, b1))));
@@ -218,6 +236,7 @@ __global__ void __launch_bounds__(kThreads)
   M* m2 = sm2;
   const long long begin = sbegin, end = send;
   const float lr_t = slr_t, decay = sdecay;
+  const float* gs = grad_scale != nullptr ? &sgscale : nullptr;
   long long tail = begin;
   if (aligned4<P>(p, g) && aligned4<M>(m1, m2)) {
     // begin is a multiple of kChunk, so of 4
@@ -227,10 +246,10 @@ __global__ void __launch_bounds__(kThreads)
       const float4 gv = load4(g, v);
       float4 a = load4(m1, v);
       float4 b = load4(m2, v);
-      update<P, M>(pv.x, gv.x, a.x, b.x, lr_t, decay, s);
-      update<P, M>(pv.y, gv.y, a.y, b.y, lr_t, decay, s);
-      update<P, M>(pv.z, gv.z, a.z, b.z, lr_t, decay, s);
-      update<P, M>(pv.w, gv.w, a.w, b.w, lr_t, decay, s);
+      update<P, M>(pv.x, gv.x, a.x, b.x, lr_t, decay, gs, s);
+      update<P, M>(pv.y, gv.y, a.y, b.y, lr_t, decay, gs, s);
+      update<P, M>(pv.z, gv.z, a.z, b.z, lr_t, decay, gs, s);
+      update<P, M>(pv.w, gv.w, a.w, b.w, lr_t, decay, gs, s);
       store4(p, v, pv);
       store4(m1, v, a);
       store4(m2, v, b);
@@ -241,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
     float pv = to_f(p[i]);
     float a = to_f(m1[i]);
     float b = to_f(m2[i]);
-    update<P, M>(pv, to_f(g[i]), a, b, lr_t, decay, s);
+    update<P, M>(pv, to_f(g[i]), a, b, lr_t, decay, gs, s);
     p[i] = from_f<P>(pv);
     m1[i] = from_f<M>(a);
     m2[i] = from_f<M>(b);
@@ -250,22 +269,22 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename P, typename M>
 void launch(Entry* tb, int t0, int nt, int c0, int nchunks, const Grads& gr,
-            const float* lr, const Scalars& s, cudaStream_t st) {
+            const float* gsc, const Scalars& s, cudaStream_t st) {
   adamw_multi_kernel<P, M><<<nchunks, kThreads, 0, st>>>(tb, t0, nt, c0, gr,
-                                                         lr, s);
+                                                         gsc, s);
 }
 
 // dtype codes: 0 float32, 1 bfloat16, 2 float16
 template <typename P>
 bool launch_p(int mdtype, Entry* tb, int t0, int nt, int c0, int nchunks,
-              const Grads& gr, const float* lr, const Scalars& s,
+              const Grads& gr, const float* gsc, const Scalars& s,
               cudaStream_t st) {
   switch (mdtype) {
-    case 0: launch<P, float>(tb, t0, nt, c0, nchunks, gr, lr, s, st); break;
+    case 0: launch<P, float>(tb, t0, nt, c0, nchunks, gr, gsc, s, st); break;
     case 1:
-      launch<P, __nv_bfloat16>(tb, t0, nt, c0, nchunks, gr, lr, s, st);
+      launch<P, __nv_bfloat16>(tb, t0, nt, c0, nchunks, gr, gsc, s, st);
       break;
-    case 2: launch<P, __half>(tb, t0, nt, c0, nchunks, gr, lr, s, st); break;
+    case 2: launch<P, __half>(tb, t0, nt, c0, nchunks, gr, gsc, s, st); break;
     default: return false;
   }
   return true;
@@ -275,14 +294,15 @@ bool launch_p(int mdtype, Entry* tb, int t0, int nt, int c0, int nchunks,
 
 // Launches the update of tensors t0 .. t0 + nt - 1 of the table (chunks c0 ..
 // c0 + nchunks - 1 of the group), nt <= adamw_max_tensors(). grads holds the
-// nt gradient pointers (host memory, copied into the kernel's arguments); lr
-// is a float32 [1] tensor on the card. pdtype (parameters, gradients, beta
+// nt gradient pointers (host memory, copied into the kernel's arguments);
+// grad_scale is a float32 [1] tensor on the card, or null for none (each
+// entry's learning rate is in the table). pdtype (parameters, gradients, beta
 // powers) and mdtype (moments): 0 = float32, 1 = bfloat16, 2 = float16.
 // Returns cudaGetLastError() after the launch, or -1 for arguments it does
 // not take.
 extern "C" int adamw_multi_launch(void* table, int t0, int nt, int c0,
                                   int nchunks, const void* grads,
-                                  const void* lr, float c1, float c2,
+                                  const void* grad_scale, float c1, float c2,
                                   float beta1, float beta2, float omb1,
                                   float omb2, float eps, float coeff,
                                   int pdtype, int mdtype, void* stream) {
@@ -293,7 +313,7 @@ extern "C" int adamw_multi_launch(void* table, int t0, int nt, int c0,
   for (int i = 0; i < nt; ++i) gr.g[i] = src[i];
   const Scalars s{c1, c2, beta1, beta2, omb1, omb2, eps, coeff};
   Entry* tb = static_cast<Entry*>(table);
-  const float* l = static_cast<const float*>(lr);
+  const float* l = static_cast<const float*>(grad_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bool ok;
   switch (pdtype) {

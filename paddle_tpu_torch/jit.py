@@ -18,11 +18,24 @@ So every call is exactly one step, as in JAX. The key is (the
 arguments' shapes and dtypes, which gradients are present,
 ``flags.version()``), as ``paddle_tpu/jit.py:184-190`` retraces. The
 function's Python code runs at the warm-up and at the capture only;
-state it touches must be updated in place (the port's ``AdamW`` does),
-and a capture that rebinds a parameter or an optimizer's state, or
-fails in any other way, raises after restoring the bindings it changed
-(each ``p.grad``, each optimizer's state). It never falls back to the
-eager path. On the CPU the function simply runs eagerly.
+state it touches must be updated in place (the port's optimizers and
+BatchNorm's running statistics are), and a capture that rebinds a
+parameter, a buffer (BatchNorm's ``_mean`` / ``_variance``) or an
+optimizer's state, or fails in any other way, raises after restoring the
+bindings it changed (each ``p.grad``, each optimizer's state). It never
+falls back to the eager path. On the CPU the function simply runs
+eagerly.
+
+Learning rates: before every replay each optimizer refreshes its device
+learning-rate tensors from its scheduler (or float) and its parameters'
+``lr_scale`` (``Optimizer._refresh_lr``: a fill per slot whose value
+changed, outside the graph), so a scheduler stepped between calls is
+followed; ``to_static_multi_step``'s K replays of one call share one
+learning rate. A capture pins each parameter's slot
+(``Optimizer._pin_lr``): an ``lr_scale`` changed after it raises at the
+next refresh, as the graph would go on reading the old slot. The
+reference bakes ``float(lr)`` into its traced step and keeps it (its key
+ignores the learning rate): a deliberate divergence.
 
 Outputs are returned detached: fresh clones of the graph's outputs after
 a replay, never the static buffers. The kernel wrappers' Python launch
@@ -270,6 +283,7 @@ class _Step:
         self.fn = fn
         self.optimizers = list(optimizers)
         self.retain_grads = retain_grads
+        self.layers = list(layers)
         self.params = []
         seen = set()
         for layer in layers:
@@ -309,6 +323,7 @@ class _Step:
             key = self.key(args)
             entry = self.graphs.get(key)
             if entry is not None:
+                self.refresh_lr()
                 out = entry.run(self.params, args)
             elif key not in self.warmed:
                 self.warmed.add(key)
@@ -316,11 +331,20 @@ class _Step:
                                 warm_up(dev, self.fn, *args))
             else:
                 entry = self.graphs[key] = self._capture(dev, args)
+                self.refresh_lr()
                 out = entry.run(self.params)
         if not self.retain_grads:
             for p in self.params:
                 p.grad = None
         return out
+
+    def refresh_lr(self):
+        """Each optimizer's device learning rates, from its current
+        schedule, before a replay (outside the graph)."""
+        for o in self.optimizers:
+            refresh = getattr(o, "_refresh_lr", None)
+            if refresh is not None:
+                refresh()
 
     def _capture(self, dev, args):
         inputs = [a.detach().clone() if isinstance(a, torch.Tensor)
@@ -328,11 +352,13 @@ class _Step:
         call = [b if b is not None else a for b, a in zip(inputs, args)]
         grads_in = [p.grad for p in self.params]
         ptrs = [p.data_ptr() for p in self.params]
+        bptrs = self.buffer_ptrs()
         states = [dict(getattr(o, "_state", {})) for o in self.optimizers]
         try:
             graph, out, delta = capture(dev, self.fn, call)
             grads_out = [p.grad for p in self.params]
             self._check_in_place(ptrs, states, grads_out)
+            self._check_buffers(bptrs)
         except BaseException:
             for p, g in zip(self.params, grads_in):
                 p.grad = g
@@ -343,10 +369,34 @@ class _Step:
             raise
         for p, g in zip(self.params, grads_in):
             p.grad = g
+        for o in self.optimizers:
+            pin = getattr(o, "_pin_lr", None)
+            if pin is not None:
+                pin()
         read = [gi if gi is not None and gi is go else None
                 for gi, go in zip(grads_in, grads_out)]
         return _Graph(graph, inputs, _tree_map(torch.Tensor.detach, out),
                       delta, read, grads_out)
+
+    def buffer_ptrs(self):
+        """The addresses of the layers' buffers (BatchNorm's running
+        statistics), as the layers hold them now."""
+        out, seen = [], set()
+        for layer in self.layers:
+            for b in layer.buffers():
+                if id(b) not in seen:
+                    seen.add(id(b))
+                    out.append(b.data_ptr())
+        return out
+
+    def _check_buffers(self, bptrs):
+        """Raise unless every buffer of the layers is still where it
+        was: a graph writes buffers in place."""
+        if self.buffer_ptrs() != bptrs:
+            raise RuntimeError(
+                "the captured step rebound a buffer of its layers (a "
+                "running statistic?); a graph replays only in-place "
+                "updates")
 
     def _check_in_place(self, ptrs, states, grads_out):
         moved = [i for i, (p, ptr) in enumerate(zip(self.params, ptrs))
@@ -556,7 +606,7 @@ def to_static_multi_step(fn, *, layers, optimizers=None,
                              f"with one leading step dimension, got "
                              f"{sorted(ks)}")
         for o in step.optimizers:
-            if not getattr(o, "_state", True):
+            if getattr(o, "_steps", 1) == 0:
                 raise RuntimeError(
                     "to_static_multi_step needs the optimizers' "
                     "accumulators: run one to_static step first")

@@ -124,12 +124,13 @@ def test_plain_is_the_per_parameter_update_and_jax(mdtype, exact_sqrt):
 
 
 def _kernel_emulated(p, g, m1, m2, b1p, b2p, lr, mdtype,
-                     pdtype=torch.float32):
+                     pdtype=torch.float32, gscale=None):
     """csrc/adamw.cu's arithmetic, one float32 operation at a time (numpy
     float32 rounds each to nearest, as the _rn intrinsics do), each result
     rounded through torch to the dtype the per-op path's promotion gives
     it: ``R_P`` the parameters', ``R_M`` the moments', ``R_MP`` both
-    promoted (exact in float32)."""
+    promoted (exact in float32). ``gscale`` (a float32 value): the
+    kernel's ``grad_scale``, ``g = R_P(g * scale)`` first."""
     f = np.float32
     c1, c2, beta1, beta2, omb1, omb2, eps, coeff = (
         f(v) for v in aw.scalars(0.9, 0.999, 1e-8, 0.01, mdtype))
@@ -149,6 +150,8 @@ def _kernel_emulated(p, g, m1, m2, b1p, b2p, lr, mdtype,
     m1 = m1.float().numpy()
     m2 = m2.float().numpy()
     g = g.float().numpy()
+    if gscale is not None:
+        g = R_P(g * f(gscale))
     p = p.float().numpy()
     a1, a2 = R_M(m1 * c1), R_M(m2 * c2)
     m1n = R_MP(a1 + R_P(omb1 * g))
@@ -199,6 +202,85 @@ def test_kernel_arithmetic_with_16_bit_parameters(pdtype, mdtype, steps_done,
         for k in (0, 2, 3, 4, 5):
             assert row[k].dtype == w[k].dtype
             assert _same(row[k], w[k]), k
+
+
+@pytest.mark.parametrize("pdtype,mdtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16), (torch.float16, torch.float32)])
+def test_kernel_arithmetic_with_a_grad_scale(pdtype, mdtype, exact_sqrt):
+    """With ``grad_scale`` (GradientClipByGlobalNorm's factor, a float32
+    [1] tensor) the kernel first rounds ``g * scale`` to the parameters'
+    dtype; emulated so, it is bit-equal to the plain version, which
+    multiplies as the reference's clip does (the two dtypes promoted) and
+    then takes the gradient to the parameters' dtype. A scale in the
+    gradients' own dtype (bf16 values) gives the same bits as a float32
+    one holding them."""
+    scale = torch.tensor([0.3712], dtype=torch.float32).to(pdtype).float()
+    group = _state(7, SIZES + [2 ** 16 + 3], mdtype, 9, pdtype)
+    want = [_kernel_emulated(*row, 0.05, mdtype, pdtype,
+                             gscale=float(scale)) for row in group]
+    again = _clone(group)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        aw.adamw_multi_plain(*_cols(group), torch.tensor([0.05]), **HYPER,
+                             grad_scale=scale)
+        aw.adamw_multi_plain(*_cols(again), torch.tensor([0.05]), **HYPER,
+                             grad_scale=scale.to(pdtype).reshape(()))
+    for row, w, r2 in zip(group, want, again):
+        for k in (0, 2, 3, 4, 5):
+            assert row[k].dtype == w[k].dtype
+            assert _same(row[k], w[k]), k
+            assert _same(row[k], r2[k]), k
+
+
+def test_plain_takes_a_learning_rate_per_entry(exact_sqrt):
+    """Per-entry learning rates (each tensor's own slot, as the table
+    gives the kernel) equal the per-parameter update at each rate, and
+    the kernel's sequence emulated at each rate."""
+    group = _state(8, SIZES, torch.bfloat16, 9)
+    single = _clone(group)
+    slots = torch.tensor([1e-3, 1e-4], dtype=torch.float32)
+    lrs = [slots[0:1], slots[1:2], slots[0:1]]
+    want = [_kernel_emulated(*row, float(lr_), torch.bfloat16)
+            for row, lr_ in zip(group, lrs)]
+    aw.adamw_multi_plain(*_cols(group), lrs, **HYPER)
+    for row, lr_, w in zip(single, lrs, want):
+        new = optimizer_ops.adamw(*row, float(lr_), **HYPER)
+        assert torch.equal(new[0], w[0])
+        for k in (2, 3):
+            assert torch.equal(new[k - 1].to(torch.bfloat16), w[k])
+    for row, w in zip(group, want):
+        for k in (0, 2, 3, 4, 5):
+            assert torch.equal(row[k], w[k]), k
+    with pytest.raises(ValueError, match="2 learning rates for 3"):
+        aw.adamw_multi_plain(*_cols(group), lrs[:2], **HYPER)
+
+
+@pytest.mark.parametrize("mdtype", [torch.float32, torch.bfloat16])
+def test_adam_is_the_kernel_with_zero_coeff(mdtype):
+    """Adam rides the AdamW kernel at ``coeff = 0``, where the kernel
+    drops the decay term (``p - R(0 * p)`` would turn an infinite
+    parameter into NaN): the plain form at coeff 0 (what the kernel
+    computes) is the per-parameter ``adam`` exactly, over three steps,
+    also for fp16 parameters whose updates overflow."""
+    group = _state(9, SIZES + [2 ** 16 + 3], mdtype, 0)
+    group[0][0] = torch.tensor([float("inf")])
+    single = _clone(group)
+    rng = np.random.RandomState(10)
+    hyper = dict(HYPER, coeff=0.0)
+    for _ in range(3):
+        for row, other in zip(group, single):
+            g = torch.from_numpy((rng.randn(row[0].numel()) * 1e-2)
+                                 .astype(np.float32))
+            row[1], other[1] = g, g
+        aw.adamw_multi_plain(*_cols(group), 1e-3, **hyper)
+        for row in single:
+            new = optimizer_ops.adam(*row, 1e-3, 0.9, 0.999, 1e-8)
+            row[0], row[4], row[5] = new[0], new[3], new[4]
+            row[2], row[3] = new[1].to(mdtype), new[2].to(mdtype)
+        for row, other in zip(group, single):
+            for k in (0, 2, 3, 4, 5):
+                assert _same(row[k], other[k]), k
+    assert group[0][0].isinf().all()
 
 
 def _same(a, b):
@@ -287,7 +369,10 @@ def test_optimizer_groups_by_dtype_and_matches_each_parameter(monkeypatch):
 def test_launch_args_match_the_c_entry():
     """The wrapper passes as many arguments, of the same kinds, as the C
     entry in csrc/adamw.cu declares (a mismatch only shows on the
-    card), and the table packs ``Entry``'s 64 bytes per tensor."""
+    card), the seventh being the grad scale (a null pointer for none;
+    the learning rates live in the table), and the table packs
+    ``Entry``'s 72 bytes per tensor, each entry's own lr slot among
+    them."""
     src = (pathlib.Path(aw.__file__).resolve().parents[2] / "csrc" /
            "adamw.cu").read_text()
     decl = re.search(r'extern "C" int adamw_multi_launch\(([^)]*)\)', src)
@@ -296,29 +381,42 @@ def test_launch_args_match_the_c_entry():
              ctypes.c_float if p.startswith("float") else ctypes.c_int
              for p in params]
     assert kinds == aw.ARGTYPES
+    assert params[6] == "const void* grad_scale"
+    assert not any(p.split()[-1] == "lr" for p in params)
+    assert "static_assert(sizeof(Entry) == 72" in src
     for name, value in (("kChunk", aw.CHUNK),
                         ("kMaxTensors", aw.MAX_TENSORS)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
     group = _state(5, SIZES, torch.bfloat16, 0)
     p, g, m1, m2, b1p, b2p = _cols(group)
-    table = aw.Table(p, m1, m2, b1p, b2p)
-    assert table.tensor.shape == (3, 8) and table.tensor.dtype == torch.int64
+    lr = torch.tensor([1e-3, 1e-4], dtype=torch.float32)
+    lrs = [lr[0:1], lr[1:2], lr[0:1]]
+    table = aw.Table(p, m1, m2, b1p, b2p, lrs)
+    assert table.tensor.shape == (3, 9) and table.tensor.dtype == torch.int64
     words = table.tensor.numpy()
     assert list(words[:, 0]) == [t.data_ptr() for t in p]
-    assert list(words[:, 5]) == SIZES
-    assert list(words[:, 7] >> 32) == table.chunks
-    assert list(words[:, 7] & 0xFFFFFFFF) == [0, 0, 0]
+    assert list(words[:, 5]) == [lr.data_ptr(), lr.data_ptr() + 4,
+                                 lr.data_ptr()]
+    assert list(words[:, 6]) == SIZES
+    assert list(words[:, 8] >> 32) == table.chunks
+    assert list(words[:, 8] & 0xFFFFFFFF) == [0, 0, 0]
+    shared = aw.Table(p, m1, m2, b1p, b2p, lr[1:2]).tensor.numpy()
+    assert list(shared[:, 5]) == [lr.data_ptr() + 4] * 3
+    with pytest.raises(ValueError, match="float32 \\[1\\]"):
+        aw.Table(p, m1, m2, b1p, b2p, lr)
     scal = aw.scalars(0.9, 0.999, 1e-8, 0.01, torch.bfloat16)
     assert scal[:2] == (0.8984375, 1.0)
-    args = aw.launch_args(table, g, torch.ones(1), scal, None, 0, 3, 0,
-                          sum(table.chunks))
-    assert len(args) == len(params)
-    for a, kind in zip(args, kinds):
-        if kind is ctypes.c_int:
-            assert isinstance(a, int)
-        elif kind is ctypes.c_float:
-            assert isinstance(a, float)
-    assert [args[5][i] for i in range(3)] == [t.data_ptr() for t in g]
+    for scale in (None, torch.full((1,), 0.5)):
+        args = aw.launch_args(table, g, scale, scal, None, 0, 3, 0,
+                              sum(table.chunks))
+        assert len(args) == len(params)
+        for a, kind in zip(args, kinds):
+            if kind is ctypes.c_int:
+                assert isinstance(a, int)
+            elif kind is ctypes.c_float:
+                assert isinstance(a, float)
+        assert [args[5][i] for i in range(3)] == [t.data_ptr() for t in g]
+        assert args[6] == (None if scale is None else scale.data_ptr())
 
 
 def test_cpu_runs_plain_and_other_devices_raise():

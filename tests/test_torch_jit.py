@@ -391,3 +391,64 @@ def test_dataclass_field_matches_jax():
     assert dataclasses.replace(GPTConfig(), recompute=True).recompute
     assert {f.name for f in dataclasses.fields(GPTConfig)} <= \
         {f.name for f in dataclasses.fields(JGPTConfig)}
+
+
+def test_capture_refuses_a_rebound_buffer():
+    """A captured step must update its layers' buffers (BatchNorm's
+    running statistics) in place: one that rebinds a buffer is refused,
+    as one that rebinds a parameter is."""
+    bn = torch.nn.BatchNorm1d(3)
+    step = jit._Step(lambda: None, [bn], [], True)
+    ptrs = step.buffer_ptrs()
+    assert len(ptrs) == 3          # running mean, var, batches tracked
+    step._check_buffers(ptrs)
+    with torch.no_grad():
+        bn.running_mean.mul_(0.5)  # in place: accepted
+    step._check_buffers(ptrs)
+    bn.running_mean = torch.zeros(3)
+    with pytest.raises(RuntimeError, match="rebound a buffer"):
+        step._check_buffers(ptrs)
+
+
+def test_capture_pins_the_lr_slots(monkeypatch):
+    """A captured step reads each parameter's learning-rate slot, so a
+    capture (stubbed here: the CPU has no CUDA graphs, and the fake
+    graph's replay runs the step) pins the slots. After it a new learning
+    rate still reaches the replays, refreshed in place, while an
+    ``lr_scale`` that would move a parameter to another slot (or grow the
+    lr tensor) raises before the replay instead of leaving the graph on
+    the old slot."""
+    from paddle_tpu_torch import optimizer as topt
+
+    layer = torch.nn.Linear(2, 1)
+    with torch.no_grad():
+        layer.weight.zero_()
+        layer.bias.zero_()
+    opt = topt.SGD(0.1, parameters=layer.named_parameters())
+
+    def fn(x):
+        opt.clear_grad()
+        layer(x).sum().backward()
+        opt.step()
+
+    step = jit._Step(fn, [layer], [opt], False)
+    monkeypatch.setattr(step, "device", lambda args: torch.device("cpu"))
+    monkeypatch.setattr(jit, "warm_up", lambda dev, f, *a: f(*a))
+    monkeypatch.setattr(jit, "capture", lambda dev, f, a, pool=None: (
+        _FakeGraph(lambda: f(*a)), f(*a), {}))
+    x = torch.ones(2)
+    step(x)                          # warm-up
+    step(x)                          # capture (a step) and its replay
+    assert len(step.graphs) == 1
+    assert torch.equal(layer.bias.detach(), torch.full((1,), -0.3))
+    opt.set_lr(0.5)
+    step(x)
+    assert torch.equal(layer.bias.detach(), torch.full((1,), -0.8))
+    layer.bias.lr_scale = 2.0
+    with pytest.raises(RuntimeError, match="lr_scale changed after a "
+                                           "captured step"):
+        step(x)
+    assert torch.equal(layer.bias.detach(), torch.full((1,), -0.8))
+    layer.bias.lr_scale = 1.0
+    step(x)
+    assert torch.equal(layer.bias.detach(), torch.full((1,), -1.3))

@@ -44,7 +44,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "ops/cuda/layer_norm.py", "ops/cuda/flash_pack2.py",
                    "nn/transformer.py", "models/ernie.py",
                    "tools/kernel_ab.py", "jit.py", "ops/cuda/adamw.py",
-                   "models/generation.py", "serving/decoding.py"):
+                   "models/generation.py", "serving/decoding.py",
+                   "optimizer_lr.py", "amp/grad_scaler.py",
+                   "vision/models.py", "vision/__init__.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
