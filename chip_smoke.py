@@ -6,7 +6,9 @@ backward; the packed-heads flash forward; the multi-tensor AdamW update),
 holds each against its plain PyTorch version on the card, serves GPT-2
 345M (``gpt2-medium``, full width and depth, random weights from a seed)
 through the port's ServingEngine with every prefill and decode dispatch
-the replay of a CUDA graph, trains it (``bench.py``'s step: batch
+the replay of a CUDA graph, greedy, sampled (a threefry stream per
+request, bit-equal to ``jax.random``) and speculative (n-gram drafts
+verified through the paged kernel at q_len K+1), trains it (``bench.py``'s step: batch
 8, seq 1024, AMP O2 bf16, AdamW with bf16 moments) eagerly and through
 ``jit.to_static`` as a CUDA graph, with the LayerNorm kernels off and
 on, trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512)
@@ -28,8 +30,15 @@ that every counted launch of them took that route.
 
 Phases: 1 device, 2 build, 3 paged kernel vs plain, 4 serve (every
 bucket and the decode step captured first, then a timed run that
-captures nothing), 5 time the paged kernel, 6 flash kernels vs plain, 7 train GPT (eager, then
-captured: losses and parameters bit-equal), 8 time the flash kernels, 9
+captures nothing), 5 time the paged kernel, 5b sampled and speculative
+serving (the threefry port against JAX's values; the sampler on the card
+against its CPU run; 16 sampled requests captured, eagerly, in reverse
+order and at megastep 8, byte-identical; the greedy and sampled decode
+graphs' TPOT, kernels and device ms per step; spec K = 4 against K = 0
+on bench.py's repetitive prompts), 6 flash kernels vs plain (f32, bf16
+and fp16), 7 train GPT (eager, then captured: losses and parameters
+bit-equal), 7b train GPT at O1 fp16 with ``GradScaler`` through the
+CUDA-core flash kernels, 8 time the flash kernels, 9
 LayerNorm kernels vs plain, 10 train GPT with the LayerNorm kernels, 11
 train ERNIE-base (eager and captured), 12 packed-heads forward, 13 time
 the LayerNorm kernels, 14 AdamW kernel vs plain (f32, bf16 and fp16
@@ -358,13 +367,13 @@ def check_kernel(torch, pa):
 WARM_PROMPTS = (10, 24, 48, 100, 200)
 
 
-def serving_engine(model, kv, impl, megastep=1):
+def serving_engine(model, kv, impl, megastep=1, spec_tokens=0):
     """The JAX bench's engine geometry: 8 slots, ``max_len`` 256, blocks
     of 16, the prefix cache on."""
     from paddle_tpu_torch.serving import ServingEngine
     return ServingEngine(model, max_slots=8, max_len=256, block_size=16,
                          prefix_cache=True, kv_dtype=kv, attn_impl=impl,
-                         megastep=megastep)
+                         megastep=megastep, spec_tokens=spec_tokens)
 
 
 def captures(model) -> int:
@@ -721,20 +730,333 @@ def time_kernel(torch, pa, ctr, card):
             f"{pl['rows']} rows/block [{card}]")
     return pos, out
 
+# ------------------------------------------------------------ phase 5b
+#: ``jax.random`` on the CPU (JAX 0.9.0, partitionable threefry, 64-bit
+#: types off), written down here because the card has no jax: keys of
+#: PRNGKey(seed), split(PRNGKey(7), 2), split(PRNGKey(123456789), 10),
+#: bits(PRNGKey(3), (6,)), the float32 bit patterns of
+#: uniform(PRNGKey(3), (6,)), and categorical(PRNGKey(s), GOLDEN_LOGITS)
+#: for s = 0..7
+PRNG_GOLDEN = {
+    "keys": {7: [0, 7], 2 ** 32 + 5: [0, 5], -3: [0, 4294967293],
+             123456789: [0, 123456789]},
+    "split7_2": [[3625411723, 1954958720], [195045567, 4062205631]],
+    "split123_10": [[104406182, 1336039183], [3209854053, 248229405],
+                    [1967704197, 330388035], [3699939943, 1761669608],
+                    [573595209, 1452428385], [4046794860, 868207677],
+                    [1949849609, 1811933505], [1743068516, 1170804389],
+                    [2069951250, 737666086], [2591804346, 2366352077]],
+    "bits3_6": [318053758, 4029299397, 2787249374, 4190260272, 1195623854,
+                2503700069],
+    "uniform3_6": [1033349344, 1064315450, 1059463692, 1064944204,
+                   1049528200, 1058356078],
+    "categorical": [10, 6, 3, 3, 8, 4, 4, 1],
+}
+GOLDEN_LOGITS = [(i % 5) * 0.25 for i in range(12)]
+SPEC_K = 4                      # bench.py:398 (BENCH_SERVING_SPEC)
+#: the sampled requests' recipe (per request a seed of its own)
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+#: sampler rows: (temperature, top_k, top_p), every pairing of 0.7 / 1.0,
+#: top-k 0 / 50 and top-p 0 / 0.9 / 1 over 8 rows
+SAMPLER_ROWS = [(0.7, 0, 0.0), (0.7, 50, 0.9), (1.0, 0, 1.0),
+                (1.0, 50, 0.0), (0.7, 0, 0.9), (1.0, 50, 0.9),
+                (0.7, 50, 1.0), (1.0, 0, 0.9)]
+#: a token may differ between the card and the CPU only where the two
+#: largest perturbed scores (or an accept draw and its probability) lie
+#: this close
+SAMPLER_TIE = 1e-5
+
+
+def check_prng(torch):
+    """The threefry port on the card against :data:`PRNG_GOLDEN`, bit for
+    bit. Returns the number of values compared."""
+    from paddle_tpu_torch import prng
+    dev = "cuda"
+    got = {"keys": {s: prng.PRNGKey(s, device=dev).tolist()
+                    for s in PRNG_GOLDEN["keys"]},
+           "split7_2": prng.split(prng.PRNGKey(7, device=dev), 2).tolist(),
+           "split123_10": prng.split(prng.PRNGKey(123456789, device=dev),
+                                     10).tolist(),
+           "bits3_6": prng.random_bits(prng.PRNGKey(3, device=dev),
+                                       (6,)).tolist(),
+           "uniform3_6": (prng.uniform(prng.PRNGKey(3, device=dev), (6,))
+                          .view(torch.int32).long() & 0xFFFFFFFF).tolist()}
+    keys = torch.stack([prng.PRNGKey(s, device=dev) for s in range(8)])
+    logits = torch.tensor([GOLDEN_LOGITS] * 8, device=dev)
+    got["categorical"] = prng.categorical(keys, logits).tolist()
+    for name, want in PRNG_GOLDEN.items():
+        if got[name] != want:
+            raise AssertionError(f"prng {name}: card {got[name]}, JAX {want}")
+    n = sum(len(np.ravel(v)) for k, v in PRNG_GOLDEN.items() if k != "keys")
+    n += 2 * len(PRNG_GOLDEN["keys"])
+    log(f"  prng: {n} values bit-equal to jax.random's (PRNGKey of 4 seeds "
+        "past 32 bits and negative included, split, bits, uniform, "
+        "categorical)")
+    return n
+
+
+def sampler_inputs(torch, dev, vocab, k):
+    """Seeded logits ``[8, vocab]`` and ``[8, k+1, vocab]``, drafts (the
+    first half the argmax, so some accept), and the samp tuple of
+    :data:`SAMPLER_ROWS` with keys of seeds 1000.. on ``dev``."""
+    from paddle_tpu_torch.serving import decoding as dec
+    rng = np.random.RandomState(0)
+    b = len(SAMPLER_ROWS)
+    lg = (rng.randn(b, vocab) * 3).astype(np.float32)
+    vl = (rng.randn(b, k + 1, vocab) * 3).astype(np.float32)
+    drafts = rng.randint(0, vocab, size=(b, k)).astype(np.int32)
+    drafts[: b // 2] = vl[: b // 2, :k].argmax(-1)
+    temp, top_k, top_p = (np.asarray(c) for c in zip(*SAMPLER_ROWS))
+    keys = np.stack([dec.request_key(1000 + i) for i in range(b)])
+    samp = (torch.tensor(temp, dtype=torch.float32, device=dev),
+            torch.tensor(top_k, dtype=torch.int32, device=dev),
+            torch.tensor(top_p, dtype=torch.float32, device=dev),
+            torch.from_numpy(keys.astype(np.int64)).to(dev),
+            torch.zeros(b, vocab, device=dev))
+    return (torch.from_numpy(lg).to(dev), torch.from_numpy(vl).to(dev),
+            torch.from_numpy(drafts).to(dev), samp)
+
+
+def top2_gaps(torch, prng, keys, logits):
+    """The gap between the two largest ``gumbel(key) + logits`` of each
+    row: how far a categorical draw is from a tie."""
+    top = torch.topk(prng.gumbel(keys, logits.shape[-1:]) + logits, 2).values
+    return (top[..., 0] - top[..., 1]).tolist()
+
+
+def check_sampler(torch):
+    """``sample_tokens`` and ``verify_tokens`` (K = :data:`SPEC_K`) on the
+    card against the same functions on the CPU, on fixed seeded logits
+    at gpt2-medium's vocabulary: keys bit-equal; tokens and accept flags
+    equal except where the CPU's decision is within
+    :data:`SAMPLER_TIE` of a tie (logged). Returns the near ties."""
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS
+    from paddle_tpu_torch.serving import decoding as dec
+    vocab, k = GPT_CONFIGS["gpt2-medium"].vocab_size, SPEC_K
+    out = {}
+    for dev in ("cpu", "cuda"):
+        lg, vl, drafts, samp = sampler_inputs(torch, dev, vocab, k)
+        toks, keys = dec.sample_tokens(lg, samp)
+        chosen, accept, vkeys = dec.verify_tokens(vl, drafts, samp)
+        out[dev] = [t.cpu() for t in (toks, keys, chosen, accept, vkeys)]
+    cpu, card = out["cpu"], out["cuda"]
+    for i in (1, 4):
+        if not torch.equal(cpu[i], card[i]):
+            raise AssertionError("sampler keys differ between card and CPU")
+    lg, vl, drafts, samp = sampler_inputs(torch, "cpu", vocab, k)
+    temp, top_k, top_p, keys, mask = samp
+    ties = []
+    # sample_tokens: row r draws with the sub-key of its split
+    sub = dec.split_keys(keys)[1]
+    gaps = top2_gaps(torch, prng, sub, dec.process_logits(lg, temp, top_k,
+                                                          top_p))
+    for r in (cpu[0] != card[0]).nonzero().flatten().tolist():
+        ties.append({"fn": "sample_tokens", "row": r, "gap": gaps[r]})
+    # verify_tokens: accept draws, resamples and the bonus draw
+    rep = lambda x: torch.repeat_interleave(x, k + 1)   # noqa: E731
+    proc = dec.process_logits(vl.reshape(-1, vocab), rep(temp), rep(top_k),
+                              rep(top_p)).reshape(len(SAMPLER_ROWS), k + 1,
+                                                  vocab)
+    subs = prng.split(sub, 2 * (k + 1))
+    u = prng.uniform(subs[:, :k])
+    p = torch.gather(proc[:, :k].softmax(-1), -1, drafts.long()[..., None])
+    resid = proc[:, :k].scatter(-1, drafts.long()[..., None], dec.NEG_MASK)
+    draw_gaps = np.asarray(top2_gaps(torch, prng, subs[:, k + 1:2 * k + 1],
+                                     resid))
+    bonus_gaps = top2_gaps(torch, prng, subs[:, 2 * k + 1], proc[:, k])
+    acc_gap = (u - p[..., 0]).abs().numpy()
+    for r, j in (cpu[3] != card[3]).nonzero().tolist():
+        ties.append({"fn": "verify accept", "row": r, "pos": j,
+                     "gap": float(acc_gap[r, j])})
+    for r, j in (cpu[2] != card[2]).nonzero().tolist():
+        gap = bonus_gaps[r] if j == k else float(
+            min(draw_gaps[r, j], acc_gap[r, j]))
+        ties.append({"fn": "verify token", "row": r, "pos": j, "gap": gap})
+    for t in ties:
+        log(f"  sampler near tie: {t}")
+        if not t["gap"] < SAMPLER_TIE:
+            raise AssertionError(f"sampler: the card and the CPU differ "
+                                 f"away from a tie: {t}")
+    log(f"  sampler: sample_tokens and verify_tokens (K {k}) on [8, {vocab}]"
+        f" at temperatures 0.7/1.0, top-k 0/50, top-p 0/0.9/1: keys "
+        f"bit-equal to the CPU's, tokens and accept flags equal "
+        f"({len(ties)} near ties)")
+    return ties
+
+
+def bench_prompts(vocab, n, seed):
+    """``bench.py:407-411``'s prompts: 4 to 64 tokens (max_prompt at its
+    serving geometry, max_len 256) from ``RandomState(seed)``."""
+    r = np.random.RandomState(seed)
+    return [r.randint(1, vocab, size=r.randint(4, 65)).tolist()
+            for _ in range(n)]
+
+
+def rep_prompts(vocab, n, seed):
+    """``bench.py:413-423``'s repetitive-suffix prompts: a random pattern
+    of period 2-4 repeated to 8-64 tokens, which the n-gram drafter
+    predicts."""
+    r = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        period = r.randint(2, 5)
+        pat = r.randint(1, vocab, size=period).tolist()
+        ln = r.randint(8, 65)
+        out.append((pat * (ln // period + 1))[:ln])
+    return out
+
+
+def sampled_specs(prompts, seed0=500, **kw):
+    return [(p, dict(SAMPLED, seed=seed0 + i, max_new_tokens=32, **kw))
+            for i, p in enumerate(prompts)]
+
+
+def warm_sampled(torch, eng):
+    """Greedy warm-up (every bucket, the greedy graphs), then sampled
+    requests, which capture the sampled graphs."""
+    warm(torch, eng)
+    rng = np.random.RandomState(98)
+    vocab = eng.model.cfg.vocab_size
+    reqs = [eng.submit(rng.randint(0, vocab, size=n).tolist(),
+                       max_new_tokens=4 * eng.megastep, seed=i, **SAMPLED)
+            for i, n in enumerate((10, 24))]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    assert all(r.done for r in reqs)
+
+
+def same_bytes(a, b, what):
+    if a != b:
+        bad = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        raise AssertionError(f"{what}: requests {bad} differ")
+
+
+def sampled_serving(torch, ctr, card):
+    """Phase 5b: sampled and speculative serving on gpt2-medium (seed 0,
+    f32 pools, phase 4's geometry), every engine on one model, so one
+    graph pool serves the phase. The threefry port against JAX's golden
+    values and the sampler against its CPU run; 16 sampled requests
+    (bench.py's prompts, temperature 0.8, top-k 50, top-p 0.95, a seed
+    each) captured and eagerly (byte-identical), again in reverse order
+    (byte-identical per seed), and at megastep 8 (byte-identical); the
+    greedy and the sampled decode graphs profiled in one engine (TPOT
+    p50, kernels and device ms per step); bench.py's repetitive prompts
+    at spec K = 4 against K = 0 (greedy tokens equal under phase 4's
+    top-2 rule; the verify step launches the paged kernel at q_len 5)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import generation
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    n_prng = check_prng(torch)
+    ties = check_sampler(torch)
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    prompts = bench_prompts(cfg.vocab_size, 16, 0)
+    specs = sampled_specs(prompts)
+    res = {}
+
+    eng = serving_engine(model, "f32", "kernel")
+    warm_sampled(torch, eng)
+    res["sampled"], toks = drive(torch, ctr, eng, specs, "sampled, captured")
+    res["greedy"], _ = drive(torch, ctr, eng, [(p, {"max_new_tokens": 32})
+                                               for p in prompts],
+                             "greedy, captured")
+    back, rtoks = drive(torch, ctr, eng, specs[::-1],
+                        "sampled, captured, reverse order")
+    same_bytes(toks, rtoks[::-1], "sampled in reverse order")
+    with jit.no_capture():
+        etoks = serve_all(torch, serving_engine(model, "f32", "kernel"),
+                          specs)
+    same_bytes(toks, etoks, "sampled, eager vs captured")
+    meng = serving_engine(model, "f32", "kernel", megastep=MEGASTEP)
+    warm_sampled(torch, meng)
+    res[f"sampled_megastep{MEGASTEP}"], mtoks = drive(
+        torch, ctr, meng, specs, f"sampled, megastep {MEGASTEP}")
+    same_bytes(toks, mtoks, f"sampled, megastep {MEGASTEP} vs 1")
+    del meng
+    log(f"  sampled tokens: captured == eager == reverse order == megastep "
+        f"{MEGASTEP}, byte for byte (16 requests, 512 tokens)")
+
+    prof = {}
+    for mode, kw in (("greedy", None), ("sampled", SAMPLED)):
+        peng = serving_engine(model, "f32", "kernel")
+        warm_sampled(torch, peng)
+        prof[mode] = decode_profile(torch, ctr, peng, f"{mode} decode",
+                                    sampled=kw)
+        peng.run_until_idle()
+        del peng
+    g, sm = prof["greedy"], prof["sampled"]
+    sampler = {"kernels_per_step": sm["graph_kernels"] - g["graph_kernels"],
+               "busy_ms_per_step": sm["decode_busy_ms"] - g["decode_busy_ms"],
+               "host_ms_per_step": sm["decode_step_ms"] - g["decode_step_ms"]}
+
+    rep = rep_prompts(cfg.vocab_size, 16, 2)
+    rspecs = [(p, {"max_new_tokens": 32}) for p in rep]
+    spec = {}
+    for k in (0, SPEC_K):
+        seng = serving_engine(model, "f32", "kernel", spec_tokens=k)
+        warm(torch, seng)
+        # warm's prompts are random: draft once on a periodic one too
+        serve_all(torch, seng, rspecs[:2])
+        spec[k], stoks = drive(torch, ctr, seng, rspecs, f"spec K {k}")
+        spec[k]["tokens_out"] = stoks
+        spec[k]["stats"] = seng.stats()
+        del seng
+    div = same_tokens(torch, model, rep, spec[0].pop("tokens_out"),
+                      spec[SPEC_K].pop("tokens_out"),
+                      f"spec K {SPEC_K} vs K 0")
+    st = spec[SPEC_K]["stats"]
+    if not spec[SPEC_K]["launches"] > 0 or st["spec_proposed"] == 0:
+        raise AssertionError(f"spec K {SPEC_K}: no verify launches {st}")
+    verify_traces = generation.verify_step_paged(
+        model, SPEC_K, "f32", "kernel")["traces"]["count"]
+    release_graphs(torch, model)
+    del eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"prng_values": n_prng, "sampler_near_ties": ties,
+           "serving": res, "profile": prof, "sampler": sampler,
+           "spec": {str(k): v for k, v in spec.items()},
+           "spec_near_ties": div, "verify_graphs": verify_traces,
+           "acceptance_rate": st["spec_acceptance_rate"]}
+    log(f"  [{card}] spec K {SPEC_K}: {spec[SPEC_K]['tokens_per_s']:.1f} "
+        f"tokens/s against K 0 {spec[0]['tokens_per_s']:.1f} "
+        f"({spec[SPEC_K]['tokens_per_s'] / spec[0]['tokens_per_s']:.3f}x), "
+        f"acceptance rate {st['spec_acceptance_rate']} "
+        f"({st['spec_accepted']} of {st['spec_proposed']} drafts), "
+        f"{spec[SPEC_K]['decode_steps']} verify dispatches, "
+        f"{spec[SPEC_K]['launches']} paged launches {spec[SPEC_K]['routes']};"
+        f" greedy tokens == K 0's ({len(div)} near ties)")
+    log(f"  [{card}] TPOT p50 greedy {res['greedy']['tpot_p50_ms']:.3f} ms, "
+        f"sampled {res['sampled']['tpot_p50_ms']:.3f} ms; kernels per decode "
+        f"step: greedy graph {g['graph_kernels']}, sampled "
+        f"graph {sm['graph_kernels']} (the sampler "
+        f"{sampler['kernels_per_step']:.0f} kernels, "
+        f"{sampler['busy_ms_per_step']:.3f} device ms per step); device busy "
+        f"per step {g['decode_busy_ms']:.3f} / {sm['decode_busy_ms']:.3f} ms")
+    return out
+
+
 # ------------------------------------------------------------ phase 6
+#: half a unit in the last place of each 16-bit output, relative
+HALF_ULP = {"bf16": 2.0 ** -8, "f16": 2.0 ** -11}
+
+
 def close(out, ref, kind, tol):
     """(max abs err, ok), element by element: f32 as the JAX tests hold
     it, |out - ref| <= tol (1 + |ref|). The plain side runs in f32 on
-    the same bf16 values, and the kernel computes in f32 and rounds each
-    bf16 output to nearest once, which adds at most half a unit in the
-    last place, 2^-8 |out|: so bf16 is held to (1 + 2^-8) tol (1 + |ref|)
-    + 2^-8 |ref|, which a truncated output fails."""
+    the same bf16 (fp16) values, and the kernel computes in f32 and
+    rounds each output to nearest once, which adds at most half a unit
+    in the last place, u |out| with u = 2^-8 (2^-11): so bf16 and fp16
+    are held to (1 + u) tol (1 + |ref|) + u |ref|, which a truncated
+    output fails."""
     diff = (out.float() - ref.float()).abs()
     mag = ref.float().abs()
     if kind == "f32":
         limit = tol * (1 + mag)
     else:
-        u = 2.0 ** -8
+        u = HALF_ULP[kind]
         limit = (1 + u) * tol * (1 + mag) + u * mag
     return float(diff.max()), bool((diff <= limit).all())
 
@@ -806,7 +1128,8 @@ def hold(checks, worst, what):
 
 def flash_inputs(torch, bh, s_q, s_k, d, dt, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
+             "f16": torch.float16}[dt]
     return [torch.randn(bh, s, d, device="cuda", generator=g).to(dtype)
             for s in (s_q, s_k, s_k, s_q)]
 
@@ -816,8 +1139,9 @@ def check_flash(torch, fa, ctr):
     small cases (bh 2, s 64, bf16, d 64 and 128: the tensor-core kernels'
     first launches, synchronized), then at b 8 x h 16: causal and not,
     f32 and bf16, d 20 / 64 / 128, s 1024 / 1040 (a ragged last 64-row
-    tile), and non-causal s_q != s_k (1040 x 512 and 512 x 1040 on the
-    tensor-core route). The backward kernels and their plain versions get
+    tile), non-causal s_q != s_k (1040 x 512 and 512 x 1040 on the
+    tensor-core route), and last fp16 on the CUDA-core route, causal and
+    not, d 20 / 64 / 128. The backward kernels and their plain versions get
     the same lse and delta. bf16 O, dQ, dK and dV of the tensor-core route
     are held to :func:`close_rounded`, everything else to :func:`close`."""
     cases = [("bf16", True, 64, 64, 64, 2), ("bf16", False, 128, 64, 64, 2)]
@@ -829,8 +1153,13 @@ def check_flash(torch, fa, ctr):
               ("bf16", False, 64, 512, 1040, 128),
               ("bf16", False, 128, 1040, 512, 128),
               ("bf16", False, 128, 512, 1040, 128)]
+    cases += [("f16", True, 64, 1024, 1024, 128),
+              ("f16", False, 128, 1040, 1040, 128),
+              ("f16", True, 20, 1040, 1040, 128),
+              ("f16", False, 64, 1040, 512, 128)]
     # seeds: the 26 cases of PR 2 keep theirs (100 + their index there)
-    seeds = [98, 99] + list(range(100, 126)) + [126, 127, 128]
+    seeds = [98, 99] + list(range(100, 126)) + [126, 127, 128] + \
+        [129, 130, 131, 132]
     worst = {name: 0.0 for name in fa.launches}
     with ctr.aside():
         for i, (case, seed) in enumerate(zip(cases, seeds)):
@@ -1222,6 +1551,68 @@ def train(torch, ctr, card, gpt, warmup=3, steps=5):
             "captured_vs_eager": same}
 
 
+# ------------------------------------------------------------ phase 7b
+FP16_STEPS = 3
+
+
+def train_fp16(torch, ctr, card, steps=FP16_STEPS):
+    """Phase 7b: gpt2-medium (seed 0) at AMP O1 fp16 with ``GradScaler``
+    (initial scale 2^15) and AdamW (f32 moments), eagerly, ``steps``
+    steps at bench.py's batch and seq: the attention takes the flash
+    kernels at fp16 on the CUDA-core route, one launch of each per layer
+    and step, and one AdamW launch per step the scaler does not skip;
+    the losses are finite."""
+    from paddle_tpu_torch.amp import GradScaler, auto_cast
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters())
+    scaler = GradScaler(init_loss_scaling=2.0 ** 15)
+    rng = np.random.RandomState(0)
+    ids_np = rng.randint(0, cfg.vocab_size, (GPT_BATCH, GPT_SEQ))
+    ids = torch.from_numpy(ids_np).cuda()
+    labels = torch.from_numpy(np.roll(ids_np, -1, axis=1)).cuda()
+    torch.cuda.synchronize()
+    ctr.zero()
+    t0 = time.perf_counter()
+    losses, skipped = [], []
+    for _ in range(steps):
+        with auto_cast(level="O1", dtype="float16"):
+            loss = model(ids, labels=labels)
+        opt.clear_grad()
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        losses.append(float(loss.detach()))
+        skipped.append(bool(scaler._found_inf))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    run, routes = ctr.read(), ctr.routes()
+    n = cfg.num_layers * steps
+    want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "adamw": steps - sum(skipped)}
+    log(f"  gpt2-medium O1 fp16: launches in {steps} steps: {run}")
+    ctr.expect(run, want, "gpt2-medium O1 fp16")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if routes[name] != {"wgmma": 0, "simt": n}:
+            raise AssertionError(f"fp16 {name} launched on {routes[name]}, "
+                                 f"expected {n} on simt")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"fp16 losses {losses}")
+    log(f"  [{card}] gpt2-medium O1 fp16 + GradScaler (batch {GPT_BATCH}, "
+        f"seq {GPT_SEQ}): losses {losses}, skipped updates {skipped}, "
+        f"loss scale {scaler.get_loss_scaling()}, {dt * 1e3:.3f} ms per "
+        f"eager step (the first included); {n} launches of each flash "
+        "kernel, all on simt")
+    del model, opt, loss
+    torch.cuda.empty_cache()
+    return {"losses": losses, "skipped": skipped, "launches": run,
+            "routes": {k: routes[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                              "flash_bwd_dkv")},
+            "step_ms": dt * 1e3, "loss_scale": scaler.get_loss_scaling()}
+
+
 # ------------------------------------------------------------ phase 8
 def flash_work(kernel, bh, s, d, elem):
     """(bytes, FLOPs) one causal call must move and do at [bh, s, d]:
@@ -1322,6 +1713,41 @@ def time_flash(torch, fa, ctr, card, b=8, h=16, s=1024, d=64):
             + ", ".join(f"{name} {ms:.4f} ms"
                         for name, ms in out["simt_f32"].items())
             + f" [{card}]")
+        out["simt_f16"] = time_flash_f16(torch, fa, card, b, h, s, d)
+    return out
+
+
+def time_flash_f16(torch, fa, card, b, h, s, d):
+    """The three kernels at fp16 (the CUDA-core route, phase 7b's), their
+    plain versions and SDPA's forward at fp16, at phase 8's shape; the
+    bound takes the bf16/fp16 dense peak."""
+    import torch.nn.functional as F
+    bh, scale = b * h, 1.0 / d ** 0.5
+    q, k, v, do = flash_inputs(torch, bh, s, s, d, "f16", seed=7)
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = (do.float() * o.float()).sum(-1)
+    args = (q, k, v, do, lse, delta, True, scale)
+    calls = {"flash_fwd": (lambda i: fa.flash_fwd(q, k, v, True, scale),
+                           lambda i: fa.flash_fwd_plain(q, k, v, True,
+                                                        scale)),
+             "flash_bwd_dq": (lambda i: fa.flash_bwd_dq(*args),
+                              lambda i: fa.flash_bwd_dq_plain(*args)),
+             "flash_bwd_dkv": (lambda i: fa.flash_bwd_dkv(*args),
+                               lambda i: fa.flash_bwd_dkv_plain(*args))}
+    out = {}
+    for name, (kern, plain) in calls.items():
+        ms = time_fn(torch, kern, 10, 1)
+        out[name] = {"ms": ms, "plain_ms": time_fn(torch, plain, 5, 1),
+                     **bound(*flash_work(name, bh, s, d, 2), BF16_FLOPS)}
+    qd, kd, vd = (t.reshape(b, h, s, d) for t in (q, k, v))
+    out["flash_fwd"]["library_ms"] = time_fn(
+        torch, lambda i: F.scaled_dot_product_attention(
+            qd, kd, vd, is_causal=True, scale=scale), 20, 1)
+    log("  fp16 at the same shape (CUDA-core kernels): "
+        + ", ".join(f"{name} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+                    f"bound {r['bound_ms']:.4f})" for name, r in out.items())
+        + f"; SDPA forward at fp16 {out['flash_fwd']['library_ms']:.4f} ms"
+        f" [{card}]")
     return out
 
 
@@ -2099,19 +2525,26 @@ def release_graphs(torch, model):
     torch.cuda.empty_cache()
 
 
-def decode_profile(torch, ctr, eng, what):
-    """Eight requests of 32-token prompts in flight, then
+def decode_profile(torch, ctr, eng, what, sampled=None):
+    """Eight requests of 32-token prompts in flight (greedy, or with the
+    ``sampled`` recipe and a seed each), then
     ``PROFILE_TIMED`` engine steps, each one decode dispatch of every row
     (one megastep at N > 1) and its commit, on the host clock; then
     ``PROFILE_TRACED`` more under the profiler: the device's busy time
     per step, its idle share of the timed step, and the kernels per
     step. The paged-attention kernels the trace sees must be the launch
     counts: ``num_layers x N`` per step (a disagreeing trace is taken
-    again once, as :func:`traced_steps` does)."""
+    again once, as :func:`traced_steps` does). Where the steps replay a
+    graph, ``graph_kernels`` is the kernel count of that graph, read from
+    the graph itself (:func:`decode_graph_kernels`): the profiler now and
+    then drops or adds a record (one in ~1,460 kernels has been seen), so
+    its count of a step is no exact kernel count."""
     cfg = eng.model.cfg
     rng = np.random.RandomState(5)
+    kws = [{} if sampled is None else dict(sampled, seed=600 + i)
+           for i in range(8)]
     reqs = [eng.submit(rng.randint(0, cfg.vocab_size, size=32).tolist(),
-                       max_new_tokens=200) for _ in range(8)]
+                       max_new_tokens=200, **kw) for kw in kws]
     eng.step()
     eng.step()
     if sum(r.state == "running" for r in reqs) != 8:
@@ -2139,6 +2572,7 @@ def decode_profile(torch, ctr, eng, what):
     else:
         raise AssertionError(f"{what}: the trace and the launch counts of "
                              "the decode steps disagree")
+    graph_k = decode_graph_kernels(eng, sampled is not None)
     if captures(eng.model) != cap0:
         raise AssertionError(f"{what}: the profiled steps captured graphs")
     busy /= PROFILE_TRACED
@@ -2146,14 +2580,32 @@ def decode_profile(torch, ctr, eng, what):
     res = {"decode_step_ms": wall, "decode_busy_ms": busy,
            "decode_idle_share": 1.0 - busy / wall,
            "kernels_per_decode_step": kernels,
+           "graph_kernels": graph_k,
            "decode_ms_per_token": wall / eng.megastep,
            "paged_kernels_per_step": seen / PROFILE_TRACED}
     log(f"  {what}: decode step {wall:.3f} ms on the host clock "
         f"({eng.megastep} token(s) per row), device busy {busy:.3f} ms, "
         f"idle share {res['decode_idle_share']:.4f}, {kernels:.0f} kernels "
         f"per step, {res['paged_kernels_per_step']:.0f} of them paged "
-        "attention (trace == counts)")
+        f"attention (trace == counts); kernel nodes of the graph replayed: "
+        f"{'none, eager' if graph_k is None else graph_k}")
     return res
+
+
+def decode_graph_kernels(eng, sampled):
+    """The kernel nodes of the decode graph (the greedy or the sampled
+    one; the megastep's at N > 1) that ``eng``'s last step replayed, or
+    None where that step ran eagerly."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import generation
+    if eng.megastep > 1:
+        ent = generation.decode_megastep_paged(
+            eng.model, eng.megastep, eng.kv_dtype, eng.attn_impl)
+    else:
+        ent = generation.decode_step_paged(eng.model, eng.kv_dtype,
+                                           eng.attn_impl)
+    last = ent["graphs"]["sampled" if sampled else "greedy"].last
+    return None if last is None else jit.graph_kernels(last.graph)
 
 
 def finish_set(prompts, toks, n):
@@ -2951,6 +3403,9 @@ def main():
     log(f"  decode pos {pos}")
     torch.cuda.empty_cache()
 
+    log("== phase 5b: sampled and speculative serving, gpt2-medium")
+    smp = sampled_serving(torch, ctr, card)
+
     log("== phase 6: flash kernels vs plain")
     n_flash, flash_err = check_flash(torch, fa, ctr)
     log(f"  {n_flash} cases passed, max abs err by kernel {flash_err}")
@@ -2961,6 +3416,10 @@ def main():
     gpt = train_step(torch)
     trn = train(torch, ctr, card, gpt)
     torch.cuda.empty_cache()
+
+    log(f"== phase 7b: train gpt2-medium at O1 fp16 with GradScaler (batch "
+        f"{GPT_BATCH}, seq {GPT_SEQ}), eagerly, {FP16_STEPS} steps")
+    f16 = train_fp16(torch, ctr, card)
 
     log("== phase 8: time the flash kernels (b 8, h 16, s 1024, d 64, bf16, "
         "causal)")
@@ -3016,6 +3475,13 @@ def main():
     log(f"== phase 17: serve gpt2-medium eagerly, captured and at megastep "
         f"{MEGASTEP}; swap its weights mid-run")
     modes = serving_modes(torch, ctr, card)
+    greedy_k = smp["profile"]["greedy"]["graph_kernels"]
+    phase17_k = modes["modes"]["captured"]["graph_kernels"]
+    log(f"  kernel nodes of the decode graph: phase 5b's greedy graph "
+        f"{greedy_k}, phase 17's captured step {phase17_k}")
+    if greedy_k is None or greedy_k != phase17_k:
+        raise AssertionError("the greedy decode graph runs another kernel "
+                             "count than phase 17's captured step")
 
     log("== phase 18: the optimizer plane (clip, schedule, lr_scale, every "
         "eager optimizer), eager against captured")
@@ -3049,7 +3515,11 @@ def main():
                                   for kv in ("f32", "bf16", "int8")},
                      by_shape={"decode": times["f32"],
                                "prefill": times["prefill"]},
-                     launches_by_route=srv["routes"])]
+                     launches_by_route=srv["routes"],
+                     launches_verify=smp["spec"][str(SPEC_K)]["launches"],
+                     launches_by_route_verify=smp["spec"][str(SPEC_K)][
+                         "routes"],
+                     launches_sampled=smp["serving"]["sampled"]["launches"])]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]
@@ -3063,7 +3533,10 @@ def main():
             launches_by_route=trn["routes"][name],
             launches_captured=trn["captured"]["launches"][name],
             launches_flagship=flag["launches"][name],
-            launches_by_route_flagship=flag["routes"][name]))
+            launches_by_route_flagship=flag["routes"][name],
+            simt_f16=ftimes["simt_f16"][name],
+            launches_fp16_gpt=f16["launches"][name],
+            launches_by_route_fp16_gpt=f16["routes"][name]))
     for name, line in (("ln_fwd", 27), ("ln_bwd", 40)):
         t = ltimes[name]["ernie-base"]
         kernels.append(entry(
@@ -3100,6 +3573,7 @@ def main():
                 if k not in ("launches", "final")}
 
     print(json.dumps({"serving": summary(srv), "serving_modes": modes,
+                      "sampled_serving": summary(smp), "fp16_gpt": f16,
                       "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes, "optimizer_plane": plane,

@@ -4,7 +4,7 @@
 //   flash_fwd_kernel     <- _fwd_kernel     (pallas_call in _flash_fwd, :83)
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (pallas_call in _flash_bwd, :189)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (pallas_call in _flash_bwd, :206)
-// Same functions on q/k/v [bh, s, d] (f32 or bf16, accumulation f32):
+// Same functions on q/k/v [bh, s, d] (f32, bf16 or fp16, accumulation f32):
 // the forward emits O in the input dtype and lse = m + log(l) in f32
 // [bh, s_q]; the backward takes lse and delta = sum(dO * O, -1) (computed
 // outside, as the JAX package does at :186) and recomputes P = exp(S - lse)
@@ -823,16 +823,23 @@ bool bad_shape(int BH, int Sq, int Sk, int D, int causal) {
       if (D <= 64) return FN<__nv_bfloat16, 4>(__VA_ARGS__);            \
       return FN<__nv_bfloat16, 8>(__VA_ARGS__);                         \
     }                                                                   \
+    if (dtype == 2) {                                                   \
+      if (D <= 32) return FN<__half, 2>(__VA_ARGS__);                   \
+      if (D <= 64) return FN<__half, 4>(__VA_ARGS__);                   \
+      return FN<__half, 8>(__VA_ARGS__);                                \
+    }                                                                   \
     return -1;                                                          \
   } while (0)
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16 (q, k, v, dO and the outputs
-// share it; lse and delta are float32 [BH, Sq]). Each returns
-// cudaGetLastError() after its launch, -1 for arguments it does not take,
-// or -2 when cuTensorMapEncodeTiled refuses a tensor map. All three take
-// the tensor-core kernels where flash_tc_route says so.
+// dtype codes: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, dO and
+// the outputs share it; lse and delta are float32 [BH, Sq]); float16 runs
+// the CUDA-core kernels only, loading fp16, computing in f32 and storing
+// fp16, as the reference does. Each returns cudaGetLastError() after its
+// launch, -1 for arguments it does not take, or -2 when
+// cuTensorMapEncodeTiled refuses a tensor map. All three take the
+// tensor-core kernels where flash_tc_route says so.
 extern "C" int flash_tc_route(int dtype, int D) {
   return tc_route(dtype, D) ? 1 : 0;
 }

@@ -155,6 +155,21 @@ define_flag("serving_attn_impl", "kernel",
             "package's values 'pallas' (the kernel) and 'xla' (the "
             "oracle); the JAX default is the oracle, the port's is the "
             "kernel.")
+define_flag("serving_spec_tokens", 0,
+            "Speculative decoding: draft tokens K proposed per slot "
+            "per step by the n-gram self-drafter; the verify step "
+            "scores all K+1 positions in one fixed-shape forward and "
+            "commits the accepted prefix (greedy output stays "
+            "token-identical to K=0). 0 disables speculation (one "
+            "token per decode step). Each request reserves K rows of "
+            "slot headroom, so prompt + max_new_tokens + K must fit "
+            "in serving_max_len.")
+define_flag("serving_spec_ngram", 3,
+            "Speculative decoding: longest suffix n-gram the "
+            "self-drafter matches against the request's own "
+            "prompt+generated context when proposing draft tokens "
+            "(falls back to shorter n-grams, then to repeating the "
+            "last token).")
 
 define_flag("serving_megastep", 1,
             "Device-resident decode megasteps: decode iterations run "

@@ -223,18 +223,62 @@ def capture(dev, fn, args, pool=None):
     ``torch.cuda.graph_pool_handle()``; None: a pool of its own). Returns
     ``(graph, outputs, delta)``, ``delta`` being the launch counts one
     replay adds. The capture runs nothing, so the counts are restored,
-    also when it raises."""
+    also when it raises. The graph keeps its ``cudaGraph_t`` beside the
+    executable, which is instantiated here, so :func:`graph_kernels` can
+    count what a replay launches."""
     counts = launch_counts()
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     try:
         with torch.cuda.graph(graph, pool=pool, stream=_side_stream(dev)):
             out = fn(*args)
+        graph.instantiate()
         now = launch_counts()
     finally:
         _set_launch_counts(counts)
     delta = {k: n - counts.get(k, 0) for k, n in now.items()
              if n != counts.get(k, 0)}
     return graph, out, delta
+
+
+#: the driver API's node types that :func:`graph_kernels` reads
+_CU_KERNEL_NODE, _CU_CHILD_GRAPH_NODE = 0, 4
+
+
+def graph_kernels(graph) -> int:
+    """The kernels one replay of ``graph`` (from :func:`capture`)
+    launches: its kernel nodes, those of child graphs included, read from
+    the kept ``cudaGraph_t`` through the driver API. Exact where a
+    profiler's trace of a replay may drop or add a record."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, size = ctypes.c_void_p, ctypes.c_size_t
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+    def count(g):
+        n = size(0)
+        check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (ptr * n.value)()
+        check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)),
+              "cuGraphGetNodes")
+        total = 0
+        for node in nodes:
+            kind = ctypes.c_int(-1)
+            check(cu.cuGraphNodeGetType(ptr(node), ctypes.byref(kind)),
+                  "cuGraphNodeGetType")
+            if kind.value == _CU_KERNEL_NODE:
+                total += 1
+            elif kind.value == _CU_CHILD_GRAPH_NODE:
+                child = ptr()
+                check(cu.cuGraphChildGraphNodeGetGraph(
+                    ptr(node), ctypes.byref(child)),
+                    "cuGraphChildGraphNodeGetGraph")
+                total += count(child)
+        return total
+
+    return count(ptr(graph.raw_cuda_graph()))
 
 
 def replay(graph, delta):
@@ -494,13 +538,15 @@ class HeldStep:
     input signatures seen (shapes and dtypes): one per specialisation
     either way. The keys of graphs whose pools were freed stay in
     ``graphs`` (a pool allocated later at the same address, with the
-    same shape, replays them correctly)."""
+    same shape, replays them correctly). ``last`` is the graph the last
+    call captured or replayed (None after an eager call)."""
 
     def __init__(self, body, params, traces, pool, what):
         self.body, self.params = body, list(params)
         self.traces, self.pool, self.what = traces, pool, what
         self.graphs = {}          # key -> _HeldGraph
         self.signatures = set()   # CPU: input signatures seen
+        self.last = None
 
     def __call__(self, small, held):
         small = [_as_tensor(a) for a in small]
@@ -511,8 +557,10 @@ class HeldStep:
                    tuple(map(torch.Tensor.data_ptr, self.params)))
             g = self.graphs.get(key)
             if g is not None:
+                self.last = g
                 return g.run(small)
             return self._capture(dev, key, small, held)
+        self.last = None
         small = [a.to(dev) for a in small]
         if dev.type == "cpu":
             sig = (tuple(_signature(a) for a in small),
@@ -535,7 +583,8 @@ class HeldStep:
         if tuple(map(torch.Tensor.data_ptr, self.params)) != ptrs:
             raise RuntimeError(f"{self.what} rebound a parameter under "
                                "capture; a graph reads parameters in place")
-        self.graphs[key] = _HeldGraph(graph, inputs, outputs, delta)
+        self.graphs[key] = self.last = _HeldGraph(graph, inputs, outputs,
+                                                  delta)
         self.traces["count"] += 1
         return out
 

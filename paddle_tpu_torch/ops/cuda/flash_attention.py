@@ -9,8 +9,10 @@ tensors and runs its plain PyTorch version (``*_plain``) only for
 tensors on the CPU; a CUDA tensor the kernel does not take raises, and
 nothing falls back. Each kernel has two routes, decided by
 :func:`_tc_route` before the launch: bf16 with head_dim 64 or 128 runs
-the tensor-core (``wgmma``) kernels, everything else the CUDA-core
-(``simt``) ones; ``launches_by_route`` counts each.
+the tensor-core (``wgmma``) kernels, everything else (f32, fp16, other
+widths) the CUDA-core (``simt``) ones; ``launches_by_route`` counts each.
+Every route loads the input dtype, computes in f32 and stores the input
+dtype, as the reference does for any float dtype.
 :func:`flash_attention` ties them together in a
 ``torch.autograd.Function`` whose backward computes
 ``delta = sum(dO * O, -1)`` in plain torch, as the JAX package does
@@ -36,7 +38,7 @@ launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 #: cores)
 launches_by_route = {name: {"wgmma": 0, "simt": 0} for name in launches}
 
-_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_D = 128
 
 
@@ -144,7 +146,7 @@ def _check(q, k, v, causal, extra=()):
         raise ValueError("causal flash attention requires seq_q == seq_k")
     if q.dtype not in _CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: the kernel "
-                        "takes float32 or bfloat16, all alike")
+                        "takes float32, bfloat16 or float16, all alike")
     for t in (q, k, v) + tuple(extra):
         if t.device != q.device:
             raise ValueError(f"all inputs must be on {q.device}, found "

@@ -1,13 +1,21 @@
-"""Per-request decoding — the counterpart of the greedy core of
-``paddle_tpu/serving/decoding.py``: the :class:`DecodeParams` recipe,
-the greedy branch of :func:`sample_tokens`, the incremental
-stop-sequence matcher and its device tables, which the decode megastep
-advances inside its graph.
+"""Per-request decoding — the counterpart of ``paddle_tpu/serving/
+decoding.py`` but its JSON grammar: the :class:`DecodeParams` recipe, the
+sampling chain the compiled steps run (temperature, top-k, top-p, a
+per-request threefry stream, rejection-sampled speculative verify), the
+incremental stop-sequence matcher and its device tables, which the
+decode megastep advances inside its graph.
 
-Sampled decoding (temperature > 0) is not ported: the JAX package draws
-from a per-request threefry stream, which only a port of threefry can
-reproduce, so the engine rejects such requests with
-NotImplementedError.
+A request's random stream is a threefry key (:mod:`paddle_tpu_torch.prng`,
+bit-equal to ``jax.random``) derived from its seed alone and split once
+per step it samples in, so a sampled request draws the same tokens in any
+batch, slot or engine, and the same as the JAX engine does.
+
+The sampled steps take the ``samp`` tuple ``(temperature [b] f32,
+top_k [b] i32, top_p [b] f32, keys [b, 2] int64, mask [b, V] f32)``: the
+reference's, with keys held as int64 values in [0, 2^32) and the mask
+an all-zero device buffer, since no grammar writes it. Where every row
+of a batch is greedy, the engine runs the greedy graph instead, which
+takes no ``samp`` (see ``models/generation.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +25,13 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .. import prng
+
+# Additive-mask value for banned tokens: softmax gives them exactly 0 in
+# f32, and dividing it by any temperature the validator admits stays
+# finite.
+NEG_MASK = -1e9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,11 +93,141 @@ class DecodeParams:
                 and not self.json_mode)
 
 
-def sample_tokens(logits: torch.Tensor) -> torch.Tensor:
+def request_key(seed: int) -> np.ndarray:
+    """The request-local PRNG root, a raw ``[2] uint32`` threefry key
+    (``jax.random.PRNGKey(seed)``), derived from the seed alone — never
+    from the slot or the engine — so a restart replays the stream."""
+    return prng.PRNGKey(seed).numpy().astype(np.uint32)
+
+
+def neutral_samp(rows: int, vocab: int):
+    """Per-slot sampling inputs that reproduce pure greedy decoding
+    (temperature 0 on every row, a zero mask), as numpy arrays; keys are
+    uint32 as the reference's."""
+    return (np.zeros((rows,), np.float32),
+            np.zeros((rows,), np.int32),
+            np.zeros((rows,), np.float32),
+            np.zeros((rows, 2), np.uint32),
+            np.zeros((rows, vocab), np.float32))
+
+
+def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:
     """Greedy next token per row from ``[rows, vocab]`` logits: the
     first index of the maximum (``torch.argmax`` and ``jnp.argmax``
     both break ties toward the lower index). Returns int32 [rows]."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def process_logits(logits, temp, top_k, top_p):
+    """The logit-processor chain: temperature, then top-k, then top-p,
+    on ``[rows, vocab]`` logits with per-row parameters. 0 disables
+    top-k; 0 or 1 disables top-p. Rows with temperature 0 are scaled by
+    1 (their caller takes the argmax); filtered entries drop to
+    ``NEG_MASK``. Top-k keeps the logits at or above the k-th largest
+    (from an ascending sort); top-p keeps the entries whose *exclusive*
+    cumulative probability, in descending order (a stable sort, ties by
+    index), is below p, so the top token always survives."""
+    v = logits.shape[-1]
+    scale = torch.where(temp > 0, temp, torch.ones_like(temp))
+    lg = logits / scale.to(logits.dtype)[:, None]
+    kk = torch.clamp(top_k, 0, v)
+    srt = torch.sort(lg, dim=-1).values                 # ascending
+    kth = torch.gather(srt, -1, torch.clamp(v - kk, 0, v - 1)
+                       .long()[:, None])
+    lg = torch.where((kk <= 0)[:, None] | (lg >= kth), lg, NEG_MASK)
+    active = ((top_p > 0) & (top_p < 1))[:, None]
+    neg_sorted, order = torch.sort(-lg, dim=-1, stable=True)
+    probs = torch.softmax(-neg_sorted, dim=-1)
+    csum = torch.cumsum(probs, dim=-1)
+    keep_sorted = (csum - probs) < top_p[:, None]
+    keep = torch.empty_like(keep_sorted).scatter_(-1, order, keep_sorted)
+    return torch.where(active & ~keep, NEG_MASK, lg)
+
+
+def split_keys(keys):
+    """Advance per-row keys one step: ``[rows, 2] -> (carry, sub)``, one
+    split per row, whatever the data (the determinism contract)."""
+    pairs = prng.split(keys, 2)
+    return pairs[:, 0], pairs[:, 1]
+
+
+def sample_tokens(logits, samp):
+    """One next token per row from ``[rows, vocab]`` logits. ``samp =
+    (temperature, top_k, top_p, keys, mask)``. Returns ``(tokens [rows]
+    i32, carry_keys [rows, 2] int64)``. Greedy rows (temperature 0) take
+    ``argmax(logits + mask)``; sampled rows draw from the processed
+    logits with their key's sub-key. Every row's key is split."""
+    temp, top_k, top_p, keys, mask = samp
+    lgm = logits + mask
+    greedy = greedy_tokens(lgm)
+    proc = process_logits(lgm, temp, top_k, top_p)
+    carry, sub = split_keys(keys)
+    drawn = prng.categorical(sub, proc).to(torch.int32)
+    return torch.where(temp > 0, drawn, greedy), carry
+
+
+def verify_tokens(logits, drafts, samp):
+    """Rejection-sampled speculative verify over ``K+1`` positions:
+    ``logits [rows, K+1, vocab]``, ``drafts [rows, K]``. Returns
+    ``(chosen [rows, K+1] i32, accept [rows, K] bool, carry_keys)``.
+    Position i's law is the softmax of the processed logits; the n-gram
+    drafter is deterministic, so a draft is accepted with probability
+    ``p_i(draft)`` (a uniform below it) and a rejection draws from
+    ``p_i`` with the draft masked out; the bonus position draws from
+    ``p_K``. Each row splits its sub-key into a fixed fan-out of 2(K+1):
+    K+1 accept draws and K+1 token draws, used or not. Greedy rows take
+    the argmax and accept where it equals the draft. Entries past a
+    row's first rejection are garbage; the engine commits the accepted
+    prefix."""
+    temp, top_k, top_p, keys, mask = samp
+    rows, kp1, vocab = logits.shape
+    k = kp1 - 1
+    lgm = logits + mask[:, None, :]
+    greedy = greedy_tokens(lgm)
+
+    def rep(x):          # each row's parameter for each of its positions
+        return x[:, None].expand(rows, kp1).reshape(-1)
+
+    proc = process_logits(lgm.reshape(rows * kp1, vocab), rep(temp),
+                          rep(top_k), rep(top_p)).reshape(rows, kp1, vocab)
+    carry, sub = split_keys(keys)
+    subs = prng.split(sub, 2 * kp1)
+    ukeys, ckeys = subs[:, :kp1], subs[:, kp1:]
+    bonus = prng.categorical(ckeys[:, k], proc[:, k]).to(torch.int32)
+    if k == 0:
+        chosen = torch.where(temp[:, None] > 0, bonus[:, None], greedy)
+        return chosen, torch.zeros((rows, 0), dtype=torch.bool,
+                                   device=logits.device), carry
+    probs = torch.softmax(proc, dim=-1)
+    d = drafts.long()
+    draft_p = torch.gather(probs[:, :k], -1, d[..., None])[..., 0]
+    u = prng.uniform(ukeys[:, :k])
+    accept_s = u < draft_p
+    resid = proc[:, :k].scatter(-1, d[..., None], NEG_MASK)
+    resample = prng.categorical(ckeys[:, :k], resid).to(torch.int32)
+    chosen_s = torch.where(accept_s, drafts.to(torch.int32), resample)
+    chosen_s = torch.cat([chosen_s, bonus[:, None]], dim=1)
+    sampled = (temp > 0)[:, None]
+    chosen = torch.where(sampled, chosen_s, greedy)
+    accept = torch.where(sampled, accept_s, greedy[:, :k] == drafts)
+    return chosen, accept, carry
+
+
+def sample_first(logits_row, params: DecodeParams, key: np.ndarray):
+    """The first token of a sampled request from one prefill logits row
+    (a tensor on any device, or an array), through the same
+    :func:`sample_tokens` the steps run, with the request's own key.
+    Returns ``(token, carry_key [2] uint32)``."""
+    lg = torch.as_tensor(logits_row).to(torch.float32)[None, :]
+    dev = lg.device
+    samp = (torch.full((1,), params.temperature, dtype=torch.float32,
+                       device=dev),
+            torch.full((1,), params.top_k, dtype=torch.int32, device=dev),
+            torch.full((1,), params.top_p, dtype=torch.float32, device=dev),
+            torch.as_tensor(np.asarray(key, np.int64), device=dev)[None, :],
+            torch.zeros_like(lg))
+    tok, carry = sample_tokens(lg, samp)
+    return int(tok[0]), carry[0].cpu().numpy().astype(np.uint32)
 
 
 #: device stop tables hold at most this many patterns per request

@@ -1,6 +1,8 @@
-"""ServingEngine — continuous-batching greedy inference on the
-block-paged KV cache; the counterpart of the paged greedy core of
-``paddle_tpu/serving/engine.py``.
+"""ServingEngine — continuous-batching inference on the block-paged KV
+cache; the counterpart of the paged core of
+``paddle_tpu/serving/engine.py``: greedy and sampled decoding
+(temperature, top-k, top-p, a per-request seed), stop sequences, decode
+megasteps and speculative decoding with n-gram drafts.
 
 Iteration-level scheduling: each :meth:`ServingEngine.step` first
 admits queued requests into free rows — acquiring a block table per
@@ -13,7 +15,8 @@ its row on the following step.
 Every prefill and decode dispatch goes through an entry of the model's
 step cache (:mod:`~paddle_tpu_torch.models.generation`): one per prefill
 bucket, the decode step, and with ``megastep`` N > 1 the N-iteration
-decode megastep. On the card each dispatch is the replay of a CUDA
+decode megastep, and with ``spec_tokens`` K > 0 the verify step of
+K+1 positions. On the card each dispatch is the replay of a CUDA
 graph, captured at the key's first call; the pools and the weights are
 read in place, so :meth:`ServingEngine.swap_weights` captures nothing.
 Each layer's attention runs through
@@ -21,9 +24,17 @@ Each layer's attention runs through
 ``attn_impl == "kernel"`` (the default), or the composed oracle for
 ``"composed"``. The engine runs on its model's device.
 
+A sampled request draws from its own threefry key (``request_key(seed)``),
+split once per step it samples in and kept on the request between steps,
+so its tokens depend on its seed alone, not on its slot or on the rest of
+the batch: the JAX engine's restart identity, and the JAX engine's
+tokens. A step in which no row samples replays the greedy graph of its
+entry (no sort, no threefry; the reference computes both branches every
+step), and only sampled rows' keys are written back.
+
 Not ported yet (each one is queued in ROADMAP.md): the dense slotted
-cache, sampling (temperature > 0), SLO admission and priorities,
-speculative verify, dispatch-ahead, mesh/TP, LoRA, the host KV tier, the
+cache, SLO admission and priorities, dispatch-ahead, mesh/TP, LoRA,
+the host KV tier, the
 JSON grammar, fault points and retry, devprof and tracing, cancel, the
 background thread (``start``/``stop``), and the router/disagg/HTTP front
 ends. The engine is driven by the caller (``step``/``run_until_idle``)
@@ -45,7 +56,8 @@ from ..device import resolve_device
 from ..models import generation as _gen
 from ..models.gpt import ATTN_IMPLS
 from .decoding import (STOP_MAX_LEN, STOP_MAX_SEQS, DecodeParams,
-                       StopMatcher, stop_table_rows, stops_fit)
+                       StopMatcher, request_key, sample_first,
+                       stop_table_rows, stops_fit)
 from .kv_cache import BlockKVCache
 
 
@@ -68,6 +80,9 @@ class Request:
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
         self.decode = decode if decode is not None else DecodeParams()
+        # the request's threefry key ([2] uint32), advanced by every step
+        # it samples in
+        self._key = request_key(self.decode.seed)
         self._stop = (StopMatcher(self.decode.stop_sequences)
                       if self.decode.stop_sequences else None)
         # whether the stops fit the device stop tables (megastep
@@ -155,6 +170,8 @@ class ServingEngine:
                  kv_dtype: Optional[str] = None,
                  attn_impl: Optional[str] = None,
                  megastep: Optional[int] = None,
+                 spec_tokens: Optional[int] = None,
+                 spec_ngram: Optional[int] = None,
                  device=None):
         g = _flags.get_flags(["serving_max_slots", "serving_max_len",
                               "serving_max_queue",
@@ -162,7 +179,9 @@ class ServingEngine:
                               "serving_max_new_tokens", "serving_paged",
                               "serving_block_size", "serving_num_blocks",
                               "serving_prefix_cache", "serving_kv_dtype",
-                              "serving_attn_impl", "serving_megastep"])
+                              "serving_attn_impl", "serving_megastep",
+                              "serving_spec_tokens",
+                              "serving_spec_ngram"])
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine "
@@ -189,9 +208,25 @@ class ServingEngine:
         # dispatch, one host commit per megastep
         self.megastep = int(megastep if megastep is not None
                             else g["serving_megastep"])
+        self.spec_tokens = int(spec_tokens if spec_tokens is not None
+                               else g["serving_spec_tokens"])
+        self.spec_ngram = int(spec_ngram if spec_ngram is not None
+                              else g["serving_spec_ngram"])
+        if self.spec_tokens < 0:
+            raise ValueError(
+                f"spec_tokens must be >= 0, got {self.spec_tokens}")
+        if self.spec_tokens >= self.max_len:
+            raise ValueError(
+                f"spec_tokens {self.spec_tokens} leaves no room in "
+                f"max_len={self.max_len} slots")
         if self.megastep < 1:
             raise ValueError(
                 f"megastep must be >= 1, got {self.megastep}")
+        if self.megastep > 1 and self.spec_tokens > 0:
+            raise ValueError(
+                "megastep > 1 cannot combine with speculative decoding "
+                "(FLAGS_serving_spec_tokens > 0): the draft-verify "
+                "round-trip is inherently per-host-step")
         self.buckets = _parse_buckets(
             g["serving_prefill_buckets"] if buckets is None
             else ",".join(map(str, buckets)), self.max_len)
@@ -220,6 +255,9 @@ class ServingEngine:
         self._prefix_hit_reqs = 0
         self._prefix_miss_reqs = 0
         self._qerr_max = 0.0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._mask = None       # the sampled steps' zero [slots, V] mask
         self._prefill_fns: Dict[int, dict] = {}   # bucket len -> entry
         self._weight_version = 0
         self.prefill_dispatches = 0
@@ -236,12 +274,16 @@ class ServingEngine:
                stop: Optional[Sequence[Sequence[int]]] = None,
                seed: Optional[int] = None,
                decode: Optional[DecodeParams] = None) -> Request:
-        """Queue a greedy generation request; returns its handle.
+        """Queue a generation request; returns its handle. Temperature
+        0 (the default) is greedy; above 0 the request samples, after
+        top-k (0: off) and top-p (0 or 1: off), from the stream of
+        ``seed``.
 
-        Raises ValueError for geometry the cache cannot hold or token
-        ids outside the vocabulary, QueueFullError when the queue is
-        full, and NotImplementedError for sampled (temperature > 0) or
-        JSON-constrained requests, which are not ported yet."""
+        Raises ValueError for geometry the cache cannot hold (prompt +
+        ``max_new_tokens`` + ``spec_tokens`` rows) or token ids outside
+        the vocabulary, QueueFullError when the queue is full, and
+        NotImplementedError for JSON-constrained requests, which are not
+        ported yet."""
         mnt = int(max_new_tokens if max_new_tokens is not None
                   else self.default_max_new_tokens)
         eos = (eos_token_id if eos_token_id is not None
@@ -276,19 +318,19 @@ class ServingEngine:
                 top_p=float(top_p) if top_p is not None else 0.0,
                 stop_sequences=stops,
                 seed=int(seed) if seed is not None else 0)
-        if not params.is_greedy:
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) is not ported yet; "
-                "the reference's per-request threefry stream needs a "
-                "threefry port to be reproduced")
         if params.json_mode:
             raise NotImplementedError(
                 "JSON-constrained decoding is not ported yet")
-        if len(prompt) + mnt > self.max_len:
+        if len(prompt) + mnt + self.spec_tokens > self.max_len:
+            # speculative decoding reserves spec_tokens rows of slot
+            # headroom: the verify step writes K+1 rows at the offset
+            spec = (f" + spec_tokens ({self.spec_tokens})"
+                    if self.spec_tokens else "")
             raise ValueError(
-                f"prompt ({len(prompt)}) + max_new_tokens ({mnt}) "
-                f"exceeds slot capacity max_len={self.max_len}")
-        need = self.cache.blocks_needed(len(prompt) + mnt)
+                f"prompt ({len(prompt)}) + max_new_tokens ({mnt})"
+                f"{spec} exceeds slot capacity max_len={self.max_len}")
+        need = self.cache.blocks_needed(len(prompt) + mnt +
+                                        self.spec_tokens)
         if need > self.cache.num_blocks - 1:  # minus trash block
             raise ValueError(
                 f"request needs {need} KV blocks but the pool only "
@@ -362,8 +404,9 @@ class ServingEngine:
             if back:          # head-of-line blocked: keep FIFO order
                 back.append(req)
                 continue
-            res = self.cache.acquire(req.context,
-                                     len(req.prompt) + req.max_new_tokens)
+            res = self.cache.acquire(
+                req.context,
+                len(req.prompt) + req.max_new_tokens + self.spec_tokens)
             if res is None:
                 back.append(req)   # pool dry: wait for retirements
                 continue
@@ -395,8 +438,19 @@ class ServingEngine:
                     self._prefix_hit_reqs += 1
                 else:
                     self._prefix_miss_reqs += 1
-                self._append_token(req, int(first[i]))
+                self._append_token(req, self._take_first(req, first, lg, i))
         return len(candidates) - len(back), admitted
+
+    def _take_first(self, req: Request, first: np.ndarray, lg,
+                    i: int) -> int:
+        """The request's first generated token from its prefill-logits
+        row: the batch argmax for greedy rows, a :func:`sample_first`
+        draw with the request's key for sampled ones (the law the steps
+        apply, so a restart replays it)."""
+        if req.decode.is_greedy:
+            return int(first[i])
+        tok, req._key = sample_first(lg[i], req.decode, req._key)
+        return tok
 
     def _admit(self) -> int:
         """Fill free rows from the queue; keeps going while progress
@@ -416,6 +470,40 @@ class ServingEngine:
         if self.kv_dtype == "int8":
             self._qerr_max = max(self._qerr_max, float(qerr))
 
+    def _build_samp(self):
+        """The sampled steps' per-slot inputs, rebuilt from the active
+        requests every step: ``(temperature [b] f32, top_k [b] i32, top_p
+        [b] f32, keys [b, 2] int64, mask [b, V])``, empty rows at the
+        greedy neutral values, the mask the engine's one zero device
+        buffer. None when no active row samples: the step then replays
+        its greedy graph."""
+        if all(req.decode.is_greedy for req in self._active.values()):
+            return None
+        b = self.max_slots
+        temp = np.zeros(b, np.float32)
+        tk = np.zeros(b, np.int32)
+        tp = np.zeros(b, np.float32)
+        keys = np.zeros((b, 2), np.int64)
+        for slot, req in self._active.items():
+            p = req.decode
+            temp[slot], tk[slot], tp[slot] = p.temperature, p.top_k, p.top_p
+            keys[slot] = req._key
+        if self._mask is None:
+            self._mask = torch.zeros(b, self._vocab, dtype=torch.float32,
+                                     device=self.device)
+        return temp, tk, tp, keys, self._mask
+
+    def _writeback_keys(self, new_keys, rows=None):
+        """Keep each sampled row's advanced key on its request (``rows``:
+        the slots to keep, default every active one); greedy rows' keys
+        never feed a draw and stay as they were."""
+        if new_keys is None:
+            return
+        arr = new_keys.cpu().numpy()
+        for slot, req in self._active.items():
+            if not req.decode.is_greedy and (rows is None or slot in rows):
+                req._key = arr[slot].astype(np.uint32)
+
     def _decode(self) -> int:
         """One batched decode over every occupied row. Returns how many
         tokens were produced."""
@@ -426,10 +514,12 @@ class ServingEngine:
             tokens[slot] = req.tokens[-1]
         fn = _gen.decode_step_paged(self.model, self.kv_dtype,
                                     self.attn_impl)["fn"]
-        nxt, _, pools, qerr = fn(tokens, self.cache.lengths,
-                                 self.cache.tables, self.cache.arrays())
+        nxt, _, pools, qerr, new_keys = fn(
+            tokens, self.cache.lengths, self.cache.tables,
+            self.cache.arrays(), self._build_samp())
         self.decode_steps += 1
         self.cache.set_arrays(pools)
+        self._writeback_keys(new_keys)
         self._note_qerr(qerr)
         nxt = nxt.cpu().numpy()
         produced = 0
@@ -455,9 +545,10 @@ class ServingEngine:
         return n
 
     def _megastep_inputs(self):
-        """The megastep's small inputs after the pools' place: tokens,
-        lengths, tables, then live, budget, eos and the stop tables
-        ``(pat, plen, fail, state)``, as numpy arrays. Empty rows are
+        """The megastep's inputs after the pools' place: tokens, lengths,
+        tables, then the sampling tuple (None for a greedy batch), live,
+        budget, eos and the stop tables ``(pat, plen, fail, state)``, as
+        numpy arrays. Empty rows are
         frozen from iteration 0 (``live`` False) and write their strays
         into the trash block as the single step does."""
         b = self.max_slots
@@ -479,8 +570,9 @@ class ServingEngine:
             if req._stop is not None:
                 (pat[slot], plen[slot], fail[slot],
                  state[slot]) = stop_table_rows(req._stop)
-        return (tokens, self.cache.lengths, self.cache.tables, live, budget,
-                eos, (pat, plen, fail, state))
+        return (tokens, self.cache.lengths, self.cache.tables,
+                self._build_samp(), live, budget, eos,
+                (pat, plen, fail, state))
 
     def _decode_megastep(self, n: int) -> int:
         """One megastep over every occupied row: ``n`` decode iterations
@@ -493,16 +585,20 @@ class ServingEngine:
             return 0
         fn = _gen.decode_megastep_paged(self.model, n, self.kv_dtype,
                                         self.attn_impl)["fn"]
-        tokens, lengths, tables, live, budget, eos, stop = \
+        tokens, lengths, tables, samp, live, budget, eos, stop = \
             self._megastep_inputs()
-        (toks, finish, _tok_f, _pos_f, pools, _live_f, _rem_f, _st_f,
-         qerr) = fn(tokens, lengths, tables, self.cache.arrays(), live,
-                    budget, eos, stop)
+        (toks, finish, _tok_f, _pos_f, pools, keys_f, _live_f, _rem_f,
+         _st_f, qerr) = fn(tokens, lengths, tables, self.cache.arrays(),
+                           samp, live, budget, eos, stop)
         self.megastep_dispatches += 1
         self.cache.set_arrays(pools)
         toks = toks.cpu().numpy()
         finish = finish.cpu().numpy()
         self._note_qerr(qerr)
+        # a row still live after the n iterations keeps its key, split n
+        # times; a finished row's key is never read again
+        self._writeback_keys(keys_f, {s for s in self._active
+                                      if int(finish[s]) < 0})
         produced = 0
         for slot, req in list(self._active.items()):
             f = int(finish[slot])
@@ -515,6 +611,54 @@ class ServingEngine:
                 produced += 1
                 if req.state != "running":
                     break
+        return produced
+
+    # ------------------------------------------------- speculative decode
+    def _spec_decode(self) -> int:
+        """One speculative draft-verify step over every occupied row:
+        draft K tokens per row from its own context (:func:`~paddle_tpu_
+        torch.models.generation.draft_ngram`), score all K+1 positions in
+        one dispatch, commit the accepted prefix and the model's one
+        next token, and roll the rejected tail's length back. Returns
+        how many tokens were produced (1 to K+1 per row)."""
+        if not self._active:
+            return 0
+        K = self.spec_tokens
+        tokens = np.zeros((self.max_slots, K + 1), np.int32)
+        for slot, req in self._active.items():
+            tokens[slot, 0] = req.tokens[-1]
+            tokens[slot, 1:] = _gen.draft_ngram(req.prompt + req.tokens, K,
+                                                self.spec_ngram)
+        fn = _gen.verify_step_paged(self.model, K, self.kv_dtype,
+                                    self.attn_impl)["fn"]
+        nxt, _, pools, qerr, accept, new_keys = fn(
+            tokens, self.cache.lengths, self.cache.tables,
+            self.cache.arrays(), self._build_samp())
+        self.decode_steps += 1
+        self.cache.set_arrays(pools)
+        self._writeback_keys(new_keys)
+        self._note_qerr(qerr)
+        nxt = nxt.cpu().numpy()
+        accept = accept.cpu().numpy()
+        produced = 0
+        for slot, req in list(self._active.items()):
+            # the verify wrote K+1 rows at this row's offset: commit them,
+            # then trim to what was accepted
+            self.cache.advance(slot, K + 1)
+            committed = accepted = 0
+            for i in range(K + 1):
+                self._append_token(req, int(nxt[slot, i]))
+                committed += 1
+                produced += 1
+                if req.state != "running":
+                    break        # finished (eos, stop, budget) mid-verify
+                if i == K or not bool(accept[slot, i]):
+                    break        # out of drafts, or the first rejection
+                accepted += 1
+            self._spec_proposed += K
+            self._spec_accepted += accepted
+            if req.state == "running":
+                self.cache.rollback(slot, K + 1 - committed)
         return produced
 
     def _decode_any(self) -> int:
@@ -605,10 +749,11 @@ class ServingEngine:
     # --------------------------------------------------------- stepping
     def step(self) -> bool:
         """One scheduler iteration: admit into free rows (batched
-        per-bucket prefill), then one batched decode. Returns whether
-        any work happened."""
+        per-bucket prefill), then one batched decode, or with speculation
+        on one draft-verify step. Returns whether any work happened."""
         admitted = self._admit()
-        produced = self._decode_any()
+        produced = (self._spec_decode() if self.spec_tokens
+                    else self._decode_any())
         return bool(admitted or produced)
 
     @property
@@ -676,7 +821,14 @@ class ServingEngine:
             "prefix_miss_tokens": miss_t,
             "prefill_dispatches": self.prefill_dispatches,
             "decode_steps": self.decode_steps,
+            "spec_tokens": self.spec_tokens,
         }
+        if self.spec_tokens:
+            out["spec_proposed"] = self._spec_proposed
+            out["spec_accepted"] = self._spec_accepted
+            out["spec_acceptance_rate"] = (
+                round(self._spec_accepted / self._spec_proposed, 4)
+                if self._spec_proposed else None)
         if self.megastep > 1:
             out["megastep"] = self.megastep
             out["megastep_dispatches"] = self.megastep_dispatches

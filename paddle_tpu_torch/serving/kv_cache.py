@@ -414,6 +414,17 @@ class BlockKVCache:
                 f"{self.lengths[row]})")
         self.lengths[row] = ln
 
+    def rollback(self, row: int, n: int):
+        """Rewind over ``n`` rejected speculative rows. Blocks stay
+        reserved (the worst case is reserved at admission), so a rollback
+        across a block boundary is pure length arithmetic: the stale rows
+        sit past the valid length, behind the position mask."""
+        if n < 0 or n > int(self.lengths[row]):
+            raise ValueError(
+                f"row {row}: cannot roll back {n} rows from length "
+                f"{self.lengths[row]}")
+        self.lengths[row] = int(self.lengths[row]) - int(n)
+
     def arrays(self):
         """The per-layer block pools as fed to the steps: (k, v), or
         (k, v, k_scale, v_scale) for int8 pools."""

@@ -5,8 +5,9 @@ inf and NaN gradients, bit for bit in the scale and within float32
 rounding in the parameters (tolerance 1e-6: Momentum's update from
 gradients divided by a power of two, which both divide exactly); the
 double unscale after a manual ``unscale_``, which both keep; the refusal
-under a CUDA graph capture; and why phase 20 of ``chip_smoke.py`` runs
-fp16 on ResNet and not GPT (the port's flash kernels refuse fp16)."""
+under a CUDA graph capture; and the port's flash attention at fp16
+against the reference's, which ``chip_smoke.py`` runs in an O1 fp16 GPT
+step."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,16 +126,37 @@ def test_unscale_raises_under_capture(monkeypatch):
 
 
 def test_flash_refuses_fp16_where_the_reference_takes_it():
-    """A fault of the port (ROADMAP queue C), shown here: the reference's
-    Pallas flash attention takes any float dtype, fp16 included (it
-    computes in f32 and returns the input's dtype), while the port's
-    CUDA kernels take f32 and bf16 only, so an fp16 GPT step would raise
-    in them; phase 20's fp16 GradScaler run trains ResNet-50 instead."""
+    """Named after a fault of the port that is now repaired: the
+    reference's Pallas flash attention takes any float dtype, fp16
+    included (it computes in f32 and returns the input's dtype), and the
+    port's CUDA-core kernels now take fp16 too. Here the port's fp16
+    plain version (what those kernels compute) holds the JAX kernel in
+    interpret mode, forward and the gradients of q, k and v, causal and
+    not, to 2e-3 of the largest magnitude of each output: two fp16
+    roundings (2 x 2^-11 ~ 1e-3) of values computed in f32 on both
+    sides, in different orders."""
+    import jax
     rng = np.random.RandomState(2)
-    q = rng.randn(1, 32, 16).astype(np.float16)
-    out = jflash(jnp.asarray(q), jnp.asarray(q), jnp.asarray(q),
-                 block_q=16, block_k=16)
-    assert out.dtype == jnp.float16 and np.isfinite(np.asarray(out)).all()
-    t = torch.from_numpy(q)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tfa._check(t, t, t, False)
+    q, k, v, do = (rng.randn(2, 32, 16).astype(np.float16) for _ in range(4))
+    t = [torch.from_numpy(a.copy()).requires_grad_() for a in (q, k, v)]
+    tfa._check(*(a.detach() for a in t), False)   # fp16 is accepted
+    for causal in (False, True):
+        def fwd(q, k, v):
+            return jflash(q, k, v, causal=causal, block_q=16, block_k=16)
+        out, vjp = jax.vjp(fwd, *(jnp.asarray(a) for a in (q, k, v)))
+        grads = vjp(jnp.asarray(do))
+        assert out.dtype == jnp.float16
+        for a in t:
+            a.grad = None
+        tout = tfa.flash_attention(*t, causal=causal, block_q=16,
+                                   block_k=16)
+        tout.backward(torch.from_numpy(do))
+        assert tout.dtype == torch.float16
+        for got, want in zip([tout] + [a.grad for a in t],
+                             [out] + list(grads)):
+            want = np.asarray(want).astype(np.float32)
+            assert got.dtype == torch.float16
+            got = got.detach().float().numpy()
+            assert np.isfinite(got).all()
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=2e-3 * np.abs(want).max())

@@ -6,7 +6,11 @@ the same megastep, f32 and int8 pools, prefix cache on and off, with an
 eos, a stop sequence and a budget that each end a request in the middle
 of a megastep (``tests/test_serving_megastep.py:126,141,172``); stops the
 device tables cannot hold fall back to single steps without building the
-megastep (``:194``); the validation errors (``:312``).
+megastep (``:194``); the validation errors (``:312``). A sampled
+megastep (rows at temperature > 0 with their own keys) gives JAX's
+tokens, finishes and ``keys_f``, and the tokens and keys of ``n`` single
+sampled steps; the JAX side of that test runs with 64-bit types off, as
+in ``tests/test_torch_sampling.py``.
 """
 
 import jax.numpy as jnp
@@ -99,7 +103,7 @@ def _mega_both(jm, tm, kv, live, budget, eos, stop, tokens):
     tpools = [tuple(torch.from_numpy(a.copy()) for a in layer)
               for layer in pools]
     tout = gen.decode_megastep_paged(tm, N, kv, "kernel")["fn"](
-        tokens, POS, TABLES, tpools, live, budget, eos, stop)
+        tokens, POS, TABLES, tpools, None, live, budget, eos, stop)
     return jout, tout, tpools
 
 
@@ -132,8 +136,8 @@ def test_decode_megastep_matches_jax(models, port, kv):
     jout, tout, tpools = _mega_both(jm, port, kv, live, budget, eos, stop,
                                     tokens)
     (jtoks, jfin, jtok, jpos, jpools, _keys, jlive, jrem, jst, jq) = jout
-    (ttoks, tfin, ttok, tpos, tp, tlive, trem, tst, tq) = tout
-    assert tp is tpools
+    (ttoks, tfin, ttok, tpos, tp, tkeys, tlive, trem, tst, tq) = tout
+    assert tp is tpools and tkeys is None     # the greedy graph
     assert tfin.tolist() == [k0, f1, 1, -1]
     for a, b in ((ttoks, jtoks), (tfin, jfin), (ttok, jtok), (tpos, jpos),
                  (tlive, jlive), (trem, jrem), (tst, jst)):
@@ -148,6 +152,62 @@ def test_decode_megastep_matches_jax(models, port, kv):
                 np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     np.testing.assert_allclose(float(tq), float(jq), rtol=1e-5)
     assert (float(tq) > 0) == (kv == "int8")
+
+
+def test_sampled_megastep_matches_jax_and_single_steps(models, port):
+    """Rows 0 and 2 sample (row 2 without top-k/top-p), row 1 is greedy,
+    row 3 an empty slot; row 2 finishes on its budget inside the
+    megastep. Tokens, finishes and carried keys equal JAX's; ``n``
+    single sampled steps from the same state give the same tokens and,
+    for the rows live throughout, the same keys."""
+    import jax
+    jm, _ = models
+    kv, v = "f32", GEOM["vocab_size"]
+    tokens = np.asarray([7, 11, 13, 0], np.int32)
+    live = np.asarray([True, True, True, False])
+    budget = np.asarray([50, 50, 2, 1], np.int32)
+    eos = np.full(B, -1, np.int32)
+    stop = _stop_tables([None] * B)
+    samp = (np.asarray([0.9, 0.0, 1.0, 0.0], np.float32),
+            np.asarray([20, 0, 0, 0], np.int32),
+            np.asarray([0.9, 0, 0, 0], np.float32),
+            np.stack([tdec.request_key(s) for s in (5, 6, 7, 8)]),
+            np.zeros((B, v), np.float32))
+    pt.set_flags({"serving_attn_impl": "xla"})
+    pools = _prefilled_pools(jm, kv)
+    with jax.enable_x64(False):
+        jout = jmega(jm, N, kv_dtype=kv)["fn"](
+            jnp.asarray(tokens), jnp.asarray(POS), jnp.asarray(TABLES),
+            [tuple(jnp.asarray(a) for a in layer) for layer in pools],
+            tuple(jnp.asarray(a) for a in samp), jnp.asarray(live),
+            jnp.asarray(budget), jnp.asarray(eos),
+            tuple(jnp.asarray(a) for a in stop))
+    tpools = [tuple(torch.from_numpy(a.copy()) for a in layer)
+              for layer in pools]
+    tout = gen.decode_megastep_paged(port, N, kv, "kernel")["fn"](
+        tokens, POS, TABLES, tpools, samp, live, budget, eos, stop)
+    assert tout[1].tolist() == [-1, -1, 1, -1]
+    for i in (0, 1, 2, 3, 5, 6, 7, 8):
+        np.testing.assert_array_equal(tout[i].numpy(), np.asarray(jout[i]))
+    # n single sampled steps from the same pools and keys
+    spools = [tuple(torch.from_numpy(a.copy()) for a in layer)
+              for layer in pools]
+    step = gen.decode_step_paged(port, kv, "kernel")["fn"]
+    tok, pos, keys = tokens.copy(), POS.copy(), samp[3].astype(np.int64)
+    toks = []
+    for it in range(N):
+        nxt, _, _, _, new_keys = step(tok, pos, TABLES, spools,
+                                      (*samp[:3], keys, samp[4]))
+        nxt = nxt.numpy()
+        lv = tout[1].numpy()
+        lv = (lv < 0) | (lv >= it)
+        lv &= live
+        tok = np.where(lv, nxt, tok).astype(np.int32)
+        pos = np.where(lv, pos + 1, pos).astype(np.int32)
+        keys = new_keys.numpy()
+        toks.append(tok)
+    np.testing.assert_array_equal(np.stack(toks), tout[0].numpy())
+    np.testing.assert_array_equal(keys[[0, 1]], tout[5].numpy()[[0, 1]])
 
 
 def test_megastep_needs_two_iterations(models, port):

@@ -46,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "tools/kernel_ab.py", "jit.py", "ops/cuda/adamw.py",
                    "models/generation.py", "serving/decoding.py",
                    "optimizer_lr.py", "amp/grad_scaler.py",
-                   "vision/models.py", "vision/__init__.py"):
+                   "vision/models.py", "vision/__init__.py", "prng.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -138,13 +138,15 @@ def test_new_wrappers_run_plain_only_on_cpu_and_raise_elsewhere(calls,
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 17
+    assert len(ported) == 19
     assert {"use_pallas_attention", "use_pallas_layer_norm", "pallas_min_seq",
             "pallas_flash_block_q", "pallas_flash_block_k",
-            "serving_megastep"} <= set(ported)
+            "serving_megastep", "serving_spec_tokens",
+            "serving_spec_ngram"} <= set(ported)
     assert ported["serving_megastep"]["default"] == 1
-    assert ported["serving_megastep"]["help"] == \
-        jax_flags["serving_megastep"]["help"]
+    for name in ("serving_megastep", "serving_spec_tokens",
+                 "serving_spec_ngram"):
+        assert ported[name]["help"] == jax_flags[name]["help"], name
     assert ported["use_pallas_layer_norm"]["default"] is False
     assert "CUDA" in ported["use_pallas_layer_norm"]["help"]
     for name, meta in ported.items():

@@ -94,8 +94,11 @@ def test_engine_stop_eos_and_admission(models):
     assert stop.tokens == gen[:first_stop + 1]
     assert eng.results() == [base, eos, stop]
     assert base.ttft is not None and base.tpot is not None
-    with pytest.raises(NotImplementedError):
-        eng.submit([1, 2], temperature=0.7)
+    # sampled requests serve (tests/test_torch_sampling.py holds their
+    # tokens to the JAX engine's); JSON mode is not ported
+    sampled = eng.submit([1, 2], max_new_tokens=6, temperature=0.7, seed=3)
+    eng.run_until_idle()
+    assert sampled.done and len(sampled.tokens) == 6
     with pytest.raises(NotImplementedError):
         eng.submit([1, 2], decode=DecodeParams(json_mode=True))
     with pytest.raises(ValueError):
