@@ -8,7 +8,10 @@ holds each against its plain PyTorch version on the card, serves GPT-2
 through the port's ServingEngine with every prefill and decode dispatch
 the replay of a CUDA graph, greedy, sampled (a threefry stream per
 request, bit-equal to ``jax.random``) and speculative (n-gram drafts
-verified through the paged kernel at q_len K+1), trains it (``bench.py``'s step: batch
+verified through the paged kernel at q_len K+1), runs ``bench.py``'s
+serving block (the engine against sequential ``greedy_search``, the
+dense slotted cache against the paged one, offline ``sample`` and
+``beam_search``), trains it (``bench.py``'s step: batch
 8, seq 1024, AMP O2 bf16, AdamW with bf16 moments) eagerly and through
 ``jit.to_static`` as a CUDA graph, with the LayerNorm kernels off and
 on, trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512)
@@ -30,12 +33,20 @@ that every counted launch of them took that route.
 
 Phases: 1 device, 2 build, 3 paged kernel vs plain, 4 serve (every
 bucket and the decode step captured first, then a timed run that
-captures nothing), 5 time the paged kernel, 5b sampled and speculative
+captures nothing), 5 time the paged kernel (decode, the verify's q_len
+5, the prefill, blocks of 8), 5b sampled and speculative
 serving (the threefry port against JAX's values; the sampler on the card
 against its CPU run; 16 sampled requests captured, eagerly, in reverse
 order and at megastep 8, byte-identical; the greedy and sampled decode
 graphs' TPOT, kernels and device ms per step; spec K = 4 against K = 0
-on bench.py's repetitive prompts), 6 flash kernels vs plain (f32, bf16
+on bench.py's repetitive prompts), 5c ``bench.py``'s serving block
+(the engine's 32 requests against sequential ``greedy_search``,
+``vs_baseline``; the dense engine against the paged one at equal pool
+bytes on a shared system prompt: tokens, KV bytes per request, peak
+concurrency, prefix hit rate; the dense decode step's profile beside the
+paged one's; dense spec K = 4; sampled dense requests and offline
+``sample`` / ``beam_search`` captured against eager; no port kernel on
+the dense path), 6 flash kernels vs plain (f32, bf16
 and fp16), 7 train GPT (eager, then captured: losses and parameters
 bit-equal), 7b train GPT at O1 fp16 with ``GradScaler`` through the
 CUDA-core flash kernels, 8 time the flash kernels, 9
@@ -279,8 +290,13 @@ def make_inputs(torch, pos, s, d, kv, *, h=16, bs=16, T=16, seed=0,
 def check_kernel(torch, pa):
     """Phase 3: the kernel against its plain version, at the slice's
     shapes (h 16, d 64, bs 16, T 16, b 8), at d 7, 20, 128 and 320, at
-    block sizes 4, 64 and 128, and at b 2, h 4. Each case checks that
-    the call launched on its plan's route."""
+    block sizes 4, 64 and 128, at b 2, h 4, and at phase 5c's paged
+    engine (b 32, bs 8, T 32: its decode, its first prefill and its
+    prefill of a suffix after a shared prefix, idle rows included). A
+    case's optional 7th field is the number of live rows: the rest are
+    padding (the whole table on the trash block), as the engine pads a
+    batch. Each case checks that the call launched on its plan's
+    route."""
     rng = np.random.RandomState(0)
     dec = [int(p) for p in rng.randint(0, 256, size=8)]
     dec[0], dec[1], dec[2] = 0, 15, 255    # first key; ends on a block
@@ -295,7 +311,7 @@ def check_kernel(torch, pa):
                    [37, 0, 16, 100, 5, 64, 127, 90], 128, 64, kv, 16)]
     # bucketed-prefill padding rows: whole table on the trash block,
     # pos 0 (key 0 must still be read so the normalizer is positive)
-    cases += [("prefill pad rows s=16 f32", [0] * 8, 16, 64, "f32", 16),
+    cases += [("prefill pad rows s=16 f32", [0] * 8, 16, 64, "f32", 16, 4),
               ("verify s=3 f32", [min(p, 253) for p in dec], 3, 64, "f32",
                16),
               ("decode s=1 d=20 f32", dec, 1, 20, "f32", 16),
@@ -310,7 +326,7 @@ def check_kernel(torch, pa):
               ("verify s=5 d=320 f32", ver, 5, 320, "f32", 16),
               ("decode s=1 d=320 f32", dec, 1, 320, "f32", 16),
               ("prefill pad rows s=64 f32", [0, 0, 0, 0, 0, 0, 0, 0], 64,
-               64, "f32", 16),
+               64, "f32", 16, 4),
               # 4-key sub-tiles (8 lanes per key); 64-entry tables, so a
               # range crosses a 32-entry window of the table
               ("verify s=5 bs=4 bf16", ver, 5, 64, "bf16", 4),
@@ -321,14 +337,25 @@ def check_kernel(torch, pa):
                "int8", 16),
               # b x h = 8 blocks, each split across its warps
               ("decode s=1 b=2 h=4 f32", [200, 37], 1, 64, "f32", 16)]
+    # phase 5c's paged engine: 28 requests in flight at most (positions
+    # 34-65 while decoding), the first prefill at bucket 64, the
+    # suffix's at bucket 16 after the 32-token shared prefix
+    d32 = [int(p) for p in rng.randint(34, 66, size=32)]
+    cases += [("decode s=1 b=32 bs=8 f32", d32, 1, 64, "f32", 8),
+              ("decode s=1 b=32 bs=8 28 live f32", d32[:28] + [0] * 4, 1,
+               64, "f32", 8, 28),
+              ("prefill s=64 b=32 bs=8 28 live f32", [0] * 32, 64, 64,
+               "f32", 8, 28),
+              ("prefill s=16 pos=32 b=32 bs=8 4 live f32",
+               [32] * 4 + [0] * 28, 16, 64, "f32", 8, 4)]
     elem = {"f32": 4, "bf16": 2, "int8": 1}
     worst = 0.0
-    for i, (name, pos, s, d, kv, bs) in enumerate(cases):
+    for i, (name, pos, s, d, kv, bs, *live) in enumerate(cases):
         h = 4 if "h=4" in name else 16
         q, pools, tables, posv = make_inputs(torch, pos, s, d, kv, h=h,
                                              bs=bs, T=256 // bs, seed=i)
-        if "pad rows" in name:
-            tables[4:] = 0
+        if live:
+            tables[live[0]:] = 0
         kp, vp, ks, vs = pools[0]
         pl = pa.plan(*q.shape, bs, tables.shape[1], elem[kv])
         before = dict(pa.launches_by_route["paged_attention"])
@@ -349,7 +376,7 @@ def check_kernel(torch, pa):
         err = float(diff.max())
         # the JAX tests' criterion: |out - ref| <= tol + tol * |ref|
         over = float((diff - TOL[kv] * ref.float().abs()).max())
-        log(f"  case {name:34s} max_abs_err {err:.3e} (rtol = atol = "
+        log(f"  case {name:40s} max_abs_err {err:.3e} (rtol = atol = "
             f"{TOL[kv]:g}); {pl['route']}, ks {pl['ks']}, "
             f"{pl['rows']} rows/block, kt {pl['kt']} x "
             f"{pl['stages']} stages, {pl['smem']} B smem")
@@ -400,13 +427,15 @@ def pctl_ms(vals, q):
     return float(np.percentile(vals, q)) * 1e3
 
 
-def drive(torch, ctr, eng, specs, what):
+def drive(torch, ctr, eng, specs, what, warmed=True):
     """Serve ``specs`` (``(prompt, submit kwargs)``) to the end with every
     launch count zeroed before and read after, the card's peak memory
-    reset before: the tokens and the numbers of the run. The counts must
-    be exactly ``num_layers`` paged-attention launches per prefill or
-    decode dispatch (``n`` per megastep dispatch), and no step may
-    capture a graph (every key was warmed)."""
+    reset before: the tokens and the numbers of the run, the peak of
+    requests in flight among them. The counts must be exactly
+    ``num_layers`` paged-attention launches per prefill or decode
+    dispatch (``n`` per megastep dispatch) of a paged engine, and none of
+    a dense one, and with ``warmed`` (every key was warmed) no step may
+    capture a graph."""
     model = eng.model
     d0 = (eng.prefill_dispatches, eng.decode_steps, eng.megastep_dispatches)
     cap0 = captures(model)
@@ -415,7 +444,10 @@ def drive(torch, ctr, eng, specs, what):
     ctr.zero()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, **kw) for p, kw in specs]
-    eng.run_until_idle()
+    peak_active = 0
+    while not eng.idle:
+        eng.step()
+        peak_active = max(peak_active, len(eng._active))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run, routes = ctr.read(), ctr.routes()["paged_attention"]
@@ -430,12 +462,13 @@ def drive(torch, ctr, eng, specs, what):
         raise AssertionError(f"{what}: requests did not finish")
     if any(not 0 <= t < vocab for r in reqs for t in r.tokens):
         raise AssertionError(f"{what}: token outside the vocabulary")
-    want = model.cfg.num_layers * (pre + dec + eng.megastep * mega)
-    ctr.expect(run, {"paged_attention": want}, what)
+    want = model.cfg.num_layers * (pre + dec + eng.megastep * mega) \
+        if eng.paged else 0
+    ctr.expect(run, {"paged_attention": want} if want else {}, what)
     if sum(routes.values()) != run["paged_attention"]:
         raise AssertionError(f"{what}: launches by route {routes} do not "
                              f"add up to {run['paged_attention']}")
-    if new_captures:
+    if new_captures and warmed:
         raise AssertionError(f"{what}: the timed run captured "
                              f"{new_captures} graphs; every key was warmed")
     tokens = sum(len(r.tokens) for r in reqs)
@@ -448,10 +481,12 @@ def drive(torch, ctr, eng, specs, what):
            "launches": run["paged_attention"], "routes": routes,
            "prefill_dispatches": pre, "decode_steps": dec,
            "megastep_dispatches": mega, "captures_in_run": new_captures,
-           "prefix_hit_requests": eng.stats()["prefix_hit_requests"]}
+           "peak_active": peak_active,
+           "prefix_hit_requests": eng.stats().get("prefix_hit_requests")}
     log(f"  {what}: {tokens} tokens in {wall:.3f} s, {pre} prefill + "
         f"{dec} decode + {mega} megastep dispatches, "
-        f"{run['paged_attention']} paged launches {routes}, 0 captures")
+        f"{run['paged_attention']} paged launches {routes}, peak "
+        f"{peak_active} requests in flight, {new_captures} captures")
     return res, [r.tokens for r in reqs]
 
 
@@ -555,15 +590,16 @@ def serve_all(torch, eng, specs):
 
 
 # ------------------------------------------------------------ phase 5
-def decode_work(pos, s, h, d, kv, bs):
+def decode_work(pos, s, h, d, kv, bs, T=16):
     """Bytes the call must move (each input read once: q, the valid K/V
-    rows, their int8 scales, tables, pos; the output written once) and
-    its FLOPs (QK^T and PV over the keys each query row sees)."""
+    rows, their int8 scales, the ``[b, T]`` tables, pos; the output
+    written once) and its FLOPs (QK^T and PV over the keys each query row
+    sees)."""
     elem = {"f32": 4, "bf16": 2, "int8": 1}[kv]
     b = len(pos)
     keys = sum(p + s for p in pos)
     nbytes = 2 * b * h * s * d * 4 + 2 * keys * h * d * elem \
-        + b * 16 * 4 + b * 4
+        + b * T * 4 + b * 4
     if kv == "int8":
         nbytes += 2 * sum(-(-(p + s) // bs) for p in pos) * h * 4
     seen = sum(p + i + 1 for p in pos for i in range(s))
@@ -678,8 +714,10 @@ def event_ms(torch, run):
 def time_kernel(torch, pa, ctr, card):
     """Phase 5: the kernel and its plain version at the serving decode
     shape (b 8, h 16, s 1, d 64, bs 16, T 16, 129 blocks) with pos near
-    the end of the 256-token window, f32/bf16/int8 pools, and at the
-    engine's 64-row prefill bucket (b 8, s 64, pos 0, f32), cycling over
+    the end of the 256-token window, f32/bf16/int8 pools; at the
+    speculative verify's q_len 5 (spec K 4) on the same pools; at the
+    engine's 64-row prefill bucket (b 8, s 64, pos 0, f32); and the f32
+    decode at blocks of 8 (T 32: phase 5c's paged engine), cycling over
     8 pool copies (> 50 MB L2 at decode) so each launch finds its pool
     cold, as a layer of the engine does. Beside each time, the kernel's
     read probe (the same walk and copies, no math): what moving the
@@ -688,11 +726,15 @@ def time_kernel(torch, pa, ctr, card):
     pos = [int(p) for p in rng.randint(180, 221, size=8)]
     copies = 8
     out = {}
-    rows = [("decode", kv, pos, 1) for kv in ("f32", "bf16", "int8")]
-    rows.append(("prefill", "f32", [0] * 8, 64))
-    for shape, kv, ps, s in rows:
-        q, pools, tables, posv = make_inputs(torch, ps, s, 64, kv, seed=7,
-                                             copies=copies)
+    # (key, kv dtype, positions, q_len, block size, table width)
+    rows = [(kv, kv, pos, 1, 16, 16) for kv in ("f32", "bf16", "int8")]
+    rows += [(f"verify_{kv}", kv, pos, SPEC_K + 1, 16, 16)
+             for kv in ("f32", "bf16", "int8")]
+    rows.append(("prefill", "f32", [0] * 8, 64, 16, 16))
+    rows.append(("decode_bs8", "f32", pos, 1, 8, 32))
+    for key, kv, ps, s, bs, T in rows:
+        q, pools, tables, posv = make_inputs(torch, ps, s, 64, kv, bs=bs,
+                                             T=T, seed=7, copies=copies)
 
         def kern(i):
             kp, vp, ks, vs = pools[i]
@@ -712,17 +754,16 @@ def time_kernel(torch, pa, ctr, card):
             ms = time_fn(torch, kern, 400, copies)
             plain_ms = time_fn(torch, plain, 40, copies)
             probe_ms = time_fn(torch, probe, 400, copies)
-        nbytes, flops = decode_work(ps, s, 16, 64, kv, 16)
+        nbytes, flops = decode_work(ps, s, 16, 64, kv, bs, T)
         t = bound(nbytes, flops, F32_FLOPS)
-        pl = pa.plan(*q.shape, 16, tables.shape[1],
-                     {"f32": 4, "bf16": 2, "int8": 1}[kv])
-        key = kv if shape == "decode" else "prefill"
+        pl = pa.plan(*q.shape, bs, T, {"f32": 4, "bf16": 2, "int8": 1}[kv])
         out[key] = {"ms": ms, "plain_ms": plain_ms,
                     "read_probe_ms": probe_ms, **t,
-                    "shape": [8, 16, s, 64], "route": pl["route"],
-                    "splits": pl["ks"],
+                    "shape": [8, 16, s, 64], "block_size": bs,
+                    "route": pl["route"], "splits": pl["ks"],
                     "rows_per_block": pl["rows"]}
-        log(f"  {shape} {kv}: kernel {ms:.4f} ms, read probe "
+        log(f"  {key} (q_len {s}, blocks of {bs}) {kv}: kernel {ms:.4f} ms, "
+            "read probe "
             f"{probe_ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"{nbytes} bytes -> bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}), {ms / t['bound_ms']:.2f}x the bound; "
@@ -1035,6 +1076,251 @@ def sampled_serving(torch, ctr, card):
         f"{sampler['kernels_per_step']:.0f} kernels, "
         f"{sampler['busy_ms_per_step']:.3f} device ms per step); device busy "
         f"per step {g['decode_busy_ms']:.3f} / {sm['decode_busy_ms']:.3f} ms")
+    return out
+
+
+# ------------------------------------------------------------ phase 5c
+BENCH_BLOCK = 8        # bench.py:505 (BENCH_SERVING_BLOCK)
+
+
+def bench_engine(model, **kw):
+    """``bench.py:425-429``'s engine: 8 slots, ``max_len`` 256, the
+    flags' defaults otherwise (paged, blocks of 16, the prefix cache on,
+    the kernel route)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, **{"max_slots": 8, "max_len": 256, **kw})
+
+
+def greedy_outputs(model, prompts, n_new=32):
+    """The tokens ``greedy_search(model, [p], n_new, cache_len=256)``
+    generates for each prompt, one call per prompt (``bench.py:446-453``
+    at its serving geometry)."""
+    from paddle_tpu_torch.models import generation
+    return [generation.greedy_search(model, np.asarray([p]),
+                                     max_new_tokens=n_new,
+                                     cache_len=256)[0, len(p):].tolist()
+            for p in prompts]
+
+
+def offline_generation(torch, model, ids, eos):
+    """``sample`` (phase 5b's recipe, seed 5) and ``beam_search`` (beam
+    4, ``eos``) of ``ids``, 16 new tokens each: ``(sampled ids, beam ids,
+    beam scores)``."""
+    from paddle_tpu_torch.models import generation
+    sm = generation.sample(model, ids, max_new_tokens=16, seed=5, **SAMPLED)
+    bids, bscores = generation.beam_search(model, ids, beam_size=4,
+                                           max_new_tokens=16,
+                                           eos_token_id=eos)
+    torch.cuda.synchronize()
+    return sm, bids, bscores
+
+
+def dense_serving(torch, ctr, card):
+    """Phase 5c: ``bench.py:338-538``'s serving block on a fresh seeded
+    gpt2-medium (8 slots, ``max_len`` 256, f32, prompts of 4-64 tokens,
+    32 new tokens), one model and one graph pool for the phase: the
+    default (paged) engine's 32 requests timed against sequential
+    ``greedy_search`` (``vs_baseline``), every engine token equal to its
+    ``greedy_search`` tokens (near ties logged), neither timed run
+    capturing a graph; the dense and the paged engine at equal pool bytes
+    on a shared 32-token system prompt (tokens equal; KV bytes per
+    request, peak concurrency, prefix hit rate; no port kernel on the
+    dense engine, ``num_layers`` paged launches per dispatch at blocks
+    of 8); the dense and the paged decode step profiled at 8 rows; dense
+    spec K 4 against K 0 on bench.py's repetitive prompts; sampled dense
+    requests and offline ``sample`` / ``beam_search``, captured against
+    eager. Raises on any failure."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import generation
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    vocab = cfg.vocab_size
+    out = {}
+
+    # the engine against sequential greedy_search (bench.py:425-454)
+    prompts = bench_prompts(vocab, 32, 0)
+    eng = bench_engine(model, max_queue=len(prompts) + 8)
+    warm(torch, eng)
+    res, etoks = drive(torch, ctr, eng, [(p, {"max_new_tokens": 32})
+                                         for p in prompts],
+                       "paged engine, 32 requests")
+    del eng
+    greedy_outputs(model, prompts[:1])            # warm: the b = 1 graph
+    cap0 = captures(model)
+    ctr.zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = greedy_outputs(model, prompts[:8])
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) / 8 * 1e3
+    if captures(model) != cap0:
+        raise AssertionError("the timed greedy_search calls captured "
+                             f"{captures(model) - cap0} graphs")
+    seq += greedy_outputs(model, prompts[8:])
+    ctr.expect(ctr.read(), {}, "greedy_search (dense, composed)")
+    ties = same_tokens(torch, model, prompts, seq, etoks,
+                       "paged engine vs greedy_search")
+    eng_ms = res["wall_s"] / len(prompts) * 1e3
+    out["vs_sequential"] = {
+        "engine": res, "engine_ms_per_request": eng_ms,
+        "sequential_ms_per_request": seq_ms,
+        "vs_baseline": seq_ms / eng_ms, "near_ties": ties}
+    log(f"  [{card}] engine {res['tokens_per_s']:.1f} tokens/s, "
+        f"{eng_ms:.3f} ms per request; sequential greedy_search "
+        f"{seq_ms:.3f} ms per request; vs_baseline {seq_ms / eng_ms:.3f}; "
+        f"32 engine requests == greedy_search ({len(ties)} near ties), 0 "
+        "captures in either timed run")
+
+    # paged against dense at equal pool bytes (bench.py:499-538)
+    bs = BENCH_BLOCK
+    pool_blocks = 8 * -(-256 // bs) + 1
+    sys_len = min(64 - 2, 4 * bs)
+    mnt = min(32, 256 - sys_len - 2)
+    r = np.random.RandomState(4)
+    sysp = r.randint(1, vocab, size=sys_len).tolist()
+    nshared = 32
+    shared = [sysp + r.randint(1, vocab, size=2).tolist()
+              for _ in range(nshared)]
+    pspecs = [(p, {"max_new_tokens": mnt}) for p in shared]
+    dense = bench_engine(model, paged=False, max_queue=nshared + 8)
+    d_run, d_toks = drive(torch, ctr, dense, pspecs, "dense, shared prefix",
+                          warmed=False)
+    del dense
+    paged = bench_engine(model, max_slots=32, max_queue=nshared + 8,
+                         paged=True, block_size=bs, num_blocks=pool_blocks,
+                         prefix_cache=True)
+    p_run, p_toks = drive(torch, ctr, paged, pspecs,
+                          f"paged (blocks of {bs}), shared prefix",
+                          warmed=False)
+    d_peak, p_peak = d_run["peak_active"], p_run["peak_active"]
+    pties = same_tokens(torch, model, shared, d_toks, p_toks,
+                        "paged vs dense, shared prefix")
+    pos_bytes = cfg.num_layers * 2 * cfg.num_heads * cfg.head_dim * 4
+    dense_bpr = 256 * pos_bytes
+    paged_bpr = paged.cache.blocks_allocated_total * bs * pos_bytes / nshared
+    st = paged.stats()
+    del paged
+    out["paged_vs_dense"] = {
+        "workload": f"{sys_len}-token shared system prompt + 2-token "
+                    f"suffix x{nshared}",
+        "pool_kv_positions": (pool_blocks - 1) * bs, "block_size": bs,
+        "dense_kv_bytes_per_request": dense_bpr,
+        "paged_kv_bytes_per_request": paged_bpr,
+        "kv_bytes_saved": 1 - paged_bpr / dense_bpr,
+        "dense_max_concurrent": d_peak, "paged_max_concurrent": p_peak,
+        "concurrency_gain": p_peak / max(d_peak, 1),
+        "prefix_hit_rate": st["prefix_hit_rate"],
+        "prefix_hit_requests": st["prefix_hit_requests"],
+        "dense": d_run, "paged": p_run, "near_ties": pties}
+    log(f"  [{card}] paged vs dense at {(pool_blocks - 1) * bs} pool "
+        f"positions: KV bytes per request {paged_bpr:.0f} vs {dense_bpr} "
+        f"(saved {1 - paged_bpr / dense_bpr:.4f}), peak concurrency "
+        f"{p_peak} vs {d_peak}, prefix hit rate {st['prefix_hit_rate']} "
+        f"({st['prefix_hit_requests']} requests); tokens equal "
+        f"({len(pties)} near ties)")
+
+    # the dense and the paged decode step at 8 rows
+    prof = {}
+    for mode, paged_kv in (("paged", True), ("dense", False)):
+        e = bench_engine(model, paged=paged_kv)
+        prof[mode] = decode_profile(torch, ctr, e, f"{mode} decode, 8 rows")
+        del e
+    out["profile"] = prof
+    log(f"  [{card}] decode step at 8 rows, dense vs paged: busy "
+        f"{prof['dense']['decode_busy_ms']:.3f} vs "
+        f"{prof['paged']['decode_busy_ms']:.3f} ms, idle share "
+        f"{prof['dense']['decode_idle_share']:.4f} vs "
+        f"{prof['paged']['decode_idle_share']:.4f}, kernels per step "
+        f"{prof['dense']['graph_kernels']} vs "
+        f"{prof['paged']['graph_kernels']} (graph nodes)")
+
+    # dense spec K 4 against K 0 on the repetitive prompts
+    rspecs = [(p, {"max_new_tokens": 32})
+              for p in rep_prompts(vocab, 16, 2)]
+    spec = {}
+    for k in (0, SPEC_K):
+        seng = bench_engine(model, paged=False, spec_tokens=k)
+        warm(torch, seng)
+        serve_all(torch, seng, rspecs[:2])
+        spec[k], stoks = drive(torch, ctr, seng, rspecs, f"dense spec K {k}")
+        spec[k]["tokens_out"] = stoks
+        spec[k]["stats"] = seng.stats()
+        del seng
+    sties = same_tokens(torch, model, [p for p, _ in rspecs],
+                        spec[0].pop("tokens_out"),
+                        spec[SPEC_K].pop("tokens_out"),
+                        f"dense spec K {SPEC_K} vs K 0")
+    sst = spec[SPEC_K]["stats"]
+    if sst["spec_proposed"] == 0:
+        raise AssertionError(f"dense spec K {SPEC_K}: nothing drafted")
+    out["spec"] = {str(k): v for k, v in spec.items()}
+    out["spec_near_ties"] = sties
+    log(f"  [{card}] dense spec K {SPEC_K}: "
+        f"{spec[SPEC_K]['tokens_per_s']:.1f} tokens/s against K 0 "
+        f"{spec[0]['tokens_per_s']:.1f}, acceptance rate "
+        f"{sst['spec_acceptance_rate']} ({sst['spec_accepted']} of "
+        f"{sst['spec_proposed']}); tokens == K 0's ({len(sties)} near "
+        "ties)")
+
+    # sampled dense requests, captured against eager
+    sspecs = sampled_specs(bench_prompts(vocab, 16, 0))
+    ceng = bench_engine(model, paged=False)
+    warm_sampled(torch, ceng)
+    out["sampled"], ctoks = drive(torch, ctr, ceng, sspecs,
+                                  "dense sampled, captured")
+    del ceng
+    ctr.zero()
+    with jit.no_capture():
+        etoks = serve_all(torch, bench_engine(model, paged=False), sspecs)
+    ctr.expect(ctr.read(), {}, "dense sampled, eager")
+    same_bytes(ctoks, etoks, "dense sampled, eager vs captured")
+    log("  dense sampled tokens: captured == eager, byte for byte (16 "
+        "requests, 512 tokens)")
+
+    # offline generation, captured against eager
+    ids = np.random.RandomState(7).randint(1, vocab, size=(2, 12))
+    eos = int(generation.greedy_search(model, ids, max_new_tokens=16)[0, 18])
+    offline_generation(torch, model, ids, eos)    # warm: captures
+    cap0 = captures(model)
+    ctr.zero()
+    sm, bids, bsc = offline_generation(torch, model, ids, eos)
+    if captures(model) != cap0:
+        raise AssertionError("offline generation captured again")
+    with jit.no_capture():
+        esm, ebids, ebsc = offline_generation(torch, model, ids, eos)
+    ctr.expect(ctr.read(), {}, "offline generation")
+    if not (np.array_equal(sm, esm) and np.array_equal(bids, ebids)):
+        raise AssertionError("offline generation: captured ids differ "
+                             "from eager ones")
+    rel = float(np.max(np.abs(bsc - ebsc) / np.abs(ebsc)))
+    if not rel <= 1e-5:
+        raise AssertionError(f"beam scores: relative difference {rel}")
+    # another capacity at batch 2 frees the old cache and its graphs
+    cap, old = model._fixed_caches[2]
+    ptrs = {a.data_ptr() for layer in old for a in layer}
+    generation.greedy_search(model, ids, max_new_tokens=16,
+                             cache_len=cap + 8)
+    held = {p for st in generation.decode_step(model)["graphs"].values()
+            for k in st.graphs for p, *_ in k[1]}
+    if model._fixed_caches[2][0] != cap + 8 or held & ptrs:
+        raise AssertionError("a new capacity kept the old offline cache "
+                             "or its graphs")
+    del old
+    out["offline"] = {"sample_ids": sm.tolist(), "beam_ids": bids.tolist(),
+                      "beam_scores": bsc.tolist(),
+                      "beam_scores_rel_diff": rel, "eos": eos}
+    log(f"  offline sample and beam_search (b 2, beam 4, 16 tokens, eos "
+        f"{eos}): captured == eager ids, beam scores {bsc.tolist()} within "
+        f"{rel:.1e} relative; capacity {cap} -> {cap + 8} at batch 2 freed "
+        "the old cache and dropped its graphs")
+    release_graphs(torch, model)
+    for k in ("_fixed_caches", "_zero_masks"):
+        model.__dict__.pop(k, None)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2533,8 +2819,9 @@ def decode_profile(torch, ctr, eng, what, sampled=None):
     ``PROFILE_TRACED`` more under the profiler: the device's busy time
     per step, its idle share of the timed step, and the kernels per
     step. The paged-attention kernels the trace sees must be the launch
-    counts: ``num_layers x N`` per step (a disagreeing trace is taken
-    again once, as :func:`traced_steps` does). Where the steps replay a
+    counts: ``num_layers x N`` per step of a paged engine, none of a
+    dense one (a disagreeing trace is taken again once, as
+    :func:`traced_steps` does). Where the steps replay a
     graph, ``graph_kernels`` is the kernel count of that graph, read from
     the graph itself (:func:`decode_graph_kernels`): the profiler now and
     then drops or adds a record (one in ~1,460 kernels has been seen), so
@@ -2556,7 +2843,7 @@ def decode_profile(torch, ctr, eng, what, sampled=None):
         eng.step()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / PROFILE_TIMED * 1e3
-    per = cfg.num_layers * eng.megastep
+    per = cfg.num_layers * eng.megastep if eng.paged else 0
     for attempt in range(2):
         c0 = ctr.read()["paged_attention"]
         busy, names = device_trace(
@@ -2598,7 +2885,9 @@ def decode_graph_kernels(eng, sampled):
     None where that step ran eagerly."""
     from paddle_tpu_torch import jit
     from paddle_tpu_torch.models import generation
-    if eng.megastep > 1:
+    if not eng.paged:
+        ent = generation.decode_step(eng.model)
+    elif eng.megastep > 1:
         ent = generation.decode_megastep_paged(
             eng.model, eng.megastep, eng.kv_dtype, eng.attn_impl)
     else:
@@ -3406,6 +3695,13 @@ def main():
     log("== phase 5b: sampled and speculative serving, gpt2-medium")
     smp = sampled_serving(torch, ctr, card)
 
+    log("== phase 5c: bench.py's serving block, gpt2-medium: the engine "
+        "against sequential greedy_search, dense against paged, offline "
+        "generation")
+    t_dense = time.perf_counter()
+    dns = dense_serving(torch, ctr, card)
+    log(f"  phase 5c took {time.perf_counter() - t_dense:.1f} s")
+
     log("== phase 6: flash kernels vs plain")
     n_flash, flash_err = check_flash(torch, fa, ctr)
     log(f"  {n_flash} cases passed, max abs err by kernel {flash_err}")
@@ -3514,12 +3810,20 @@ def main():
                      by_kv_dtype={kv: times[kv]
                                   for kv in ("f32", "bf16", "int8")},
                      by_shape={"decode": times["f32"],
-                               "prefill": times["prefill"]},
+                               "prefill": times["prefill"],
+                               "verify": times["verify_f32"],
+                               "decode_block8": times["decode_bs8"]},
+                     verify_by_kv_dtype={kv: times[f"verify_{kv}"]
+                                         for kv in ("f32", "bf16", "int8")},
                      launches_by_route=srv["routes"],
                      launches_verify=smp["spec"][str(SPEC_K)]["launches"],
                      launches_by_route_verify=smp["spec"][str(SPEC_K)][
                          "routes"],
-                     launches_sampled=smp["serving"]["sampled"]["launches"])]
+                     launches_sampled=smp["serving"]["sampled"]["launches"],
+                     launches_block8=dns["paged_vs_dense"]["paged"][
+                         "launches"],
+                     launches_by_route_block8=dns["paged_vs_dense"][
+                         "paged"]["routes"])]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]
@@ -3573,7 +3877,8 @@ def main():
                 if k not in ("launches", "final")}
 
     print(json.dumps({"serving": summary(srv), "serving_modes": modes,
-                      "sampled_serving": summary(smp), "fp16_gpt": f16,
+                      "sampled_serving": summary(smp),
+                      "dense_serving": summary(dns), "fp16_gpt": f16,
                       "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes, "optimizer_plane": plane,

@@ -518,7 +518,8 @@ class HeldStep:
     given. It reads ``params`` (the model's parameters) where they lie.
 
     On CUDA a graph is specialised to its key: the small inputs' shapes
-    and dtypes and the addresses of the held tensors and parameters. A
+    and dtypes, the held tensors' addresses, shapes and dtypes, and the
+    parameters' addresses. A
     call with a new key runs the body eagerly on the capture stream (the
     warm-up; its result is the call's) and then records it, into the
     memory pool ``pool`` that the model's other step graphs share. A
@@ -538,8 +539,9 @@ class HeldStep:
     input signatures seen (shapes and dtypes): one per specialisation
     either way. The keys of graphs whose pools were freed stay in
     ``graphs`` (a pool allocated later at the same address, with the
-    same shape, replays them correctly). ``last`` is the graph the last
-    call captured or replayed (None after an eager call)."""
+    same shape, replays them correctly) until :meth:`forget` drops them.
+    ``last`` is the graph the last call captured or replayed (None after
+    an eager call)."""
 
     def __init__(self, body, params, traces, pool, what):
         self.body, self.params = body, list(params)
@@ -553,7 +555,8 @@ class HeldStep:
         dev = held[0][0].device
         if dev.type == "cuda" and capture_enabled():
             key = (tuple(_signature(a) for a in small),
-                   tuple(a.data_ptr() for layer in held for a in layer),
+                   tuple((a.data_ptr(), *_signature(a))
+                         for layer in held for a in layer),
                    tuple(map(torch.Tensor.data_ptr, self.params)))
             g = self.graphs.get(key)
             if g is not None:
@@ -571,6 +574,15 @@ class HeldStep:
         out, back = self.body(*small, held)
         _check_held(held, back, self.what)
         return out
+
+    def forget(self, ptrs):
+        """Drop the graphs that hold a tensor at one of the addresses
+        ``ptrs`` (held tensors about to be freed), with their memory."""
+        ptrs = set(ptrs)
+        for key in [k for k in self.graphs
+                    if any(p in ptrs for p, *_ in k[1])]:
+            if self.last is self.graphs.pop(key):
+                self.last = None
 
     def _capture(self, dev, key, small, held):
         inputs = [a.to(dev, copy=True) for a in small]

@@ -1,7 +1,9 @@
-"""The paged serving steps — counterparts of ``step_entry``,
-``decode_step_paged``, ``decode_megastep_paged``, ``verify_step_paged``,
-``draft_ngram`` and ``_unwrap_pools`` in
-``paddle_tpu/models/generation.py``.
+"""The serving steps and offline generation — counterparts of
+``step_entry``, ``decode_step``, ``verify_step``, ``decode_step_paged``,
+``decode_megastep_paged``, ``verify_step_paged``, ``draft_ngram``,
+``_unwrap_pools``, ``greedy_search``, ``sample`` and ``beam_search`` in
+``paddle_tpu/models/generation.py``, and of the dense engine's bucketed
+prefill (``ServingEngine._prefill_entry``).
 
 Every step is an entry of one cache per model, :func:`step_entry`
 (``model._step_compile_cache``), as in the reference. An entry's ``fn``
@@ -28,19 +30,32 @@ did before sampling was ported. The mask is held like the pools, by
 address (an all-zero device buffer: no grammar writes it), so a replay
 copies only the four small vectors.
 
-Not ported yet: LoRA, the mesh steps, the dense ``decode_step`` and
-``verify_step``.
+The dense steps (:func:`decode_step`, :func:`verify_step`,
+:func:`prefill_step`) run the model's fixed-capacity cache branch: the
+held tensors are ``[b, h, capacity, d]`` (k, v) pairs, a dense engine's
+slot rows or prefill rows, or the model's own fixed caches
+(:func:`fixed_cache`), which offline generation (:func:`greedy_search`,
+:func:`sample`, :func:`beam_search`) reuses from call to call, so a
+second call of the same batch and capacity replays the graphs the first
+one captured. Offline generation on one model is therefore not
+re-entrant: a call overwrites the cache of the call before it. The
+model keeps one such cache per batch, of the last capacity asked for.
+
+Not ported yet: LoRA and the mesh steps.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import flags as _flags
+from .. import prng
 from ..jit import HeldStep
-from ..serving.decoding import (greedy_tokens, sample_tokens, stops_advance,
-                                stops_matched, verify_tokens)
+from ..serving.decoding import (DecodeParams, greedy_tokens, sample_tokens,
+                                stops_advance, stops_matched, verify_tokens)
 
 
 def step_entry(model, key, build):
@@ -133,6 +148,144 @@ def _split_held(n_small, args):
     temp, top_k, top_p, keys = small[n_small:]
     return small[:n_small], (temp, top_k, top_p, keys, held[-1][0]), \
         held[:-1]
+
+
+def fixed_cache(model, batch: int, capacity: int):
+    """The fixed-capacity cache of ``batch`` rows and ``capacity``
+    positions (:meth:`GPTModel.gen_fixed_cache`) that offline generation
+    decodes in, made at its first use and kept on the model. Reusing the
+    tensors keeps their addresses, hence the graphs captured over them;
+    each call zeroes or overwrites what it reads. The model keeps one
+    cache per batch, of the last capacity asked for: another capacity
+    frees the old cache and drops the graphs captured over it, so calls
+    at ever new prompt lengths (``cache_len=None``) hold one cache and
+    its graphs per batch, not one per length."""
+    caches = model.__dict__.setdefault("_fixed_caches", {})
+    b, cap = int(batch), int(capacity)
+    old = caches.get(b)
+    if old is not None and old[0] == cap:
+        return old[1]
+    if old is not None:
+        ptrs = [a.data_ptr() for layer in old[1] for a in layer]
+        for ent in getattr(model, "_step_compile_cache", {}).values():
+            for step in ent.get("graphs", {}).values():
+                step.forget(ptrs)
+    caches[b] = (cap, model.gpt.gen_fixed_cache(b, cap))
+    return caches[b][1]
+
+
+def _zero_mask(model, rows: int):
+    """A zero ``[rows, vocab]`` sampling mask kept on the model, so the
+    sampled graphs, which hold it by address, replay across calls."""
+    masks = model.__dict__.setdefault("_zero_masks", {})
+    if rows not in masks:
+        masks[rows] = torch.zeros(rows, model.cfg.vocab_size,
+                                  device=model.device)
+    return masks[rows]
+
+
+def decode_step(model):
+    """The dense decode step's entry, ``paddle_tpu/models/generation.py
+    :186``'s counterpart. Its ``fn(tokens, pos, caches, samp=None)``
+    takes ``tokens [b] i32``, ``pos [b] i32`` (each row's write offset)
+    and the per-layer (k, v) caches ``[b, h, capacity, d]``, and returns
+    ``(next_tokens [b] i32, last_logits [b, V], caches, new_keys)``: the
+    caches are the tensors given, written in place, and ``new_keys`` is
+    None without ``samp`` (the greedy graph). One entry serves every
+    dense cache; each cache's tensors get their own graphs."""
+    def build(traces):
+        @torch.no_grad()
+        def body(*args):
+            (tokens, pos), samp, caches = _split_held(2, args)
+            logits, _ = model(tokens[:, None].long(), cache=caches,
+                              cache_pos=pos)
+            lg = logits[:, -1]
+            if samp is None:
+                return (greedy_tokens(lg), lg), args[-1]
+            nxt, keys = sample_tokens(lg, samp)
+            return (nxt, lg, keys), args[-1]
+        graphs = _two_graphs(model, traces, "decode_step", body)
+
+        def fn(tokens, pos, caches, samp=None):
+            out = _run(graphs, [tokens, pos], caches, samp)
+            keys = out[2] if samp is not None else None
+            return out[0], out[1], caches, keys
+
+        return {"fn": fn, "traces": traces, "graphs": graphs}
+
+    return step_entry(model, ("decode",), build)
+
+
+def verify_step(model, spec_tokens: int):
+    """The dense speculative verify step, ``paddle_tpu/models/
+    generation.py:231``'s counterpart: one forward of ``tokens [b, K+1]``
+    (each row's last committed token and its K drafts) written at each
+    row's offset, then the argmax and ``accept = argmax == draft`` (greedy
+    graph) or :func:`~paddle_tpu_torch.serving.decoding.verify_tokens`
+    (with ``samp``). ``fn(tokens, pos, caches, samp=None)`` returns
+    ``(chosen [b, K+1] i32, logits [b, K+1, V], caches, accept [b, K]
+    bool, new_keys)``; rows written past the accepted prefix are rolled
+    back by the caller and hidden by the position mask."""
+    k = int(spec_tokens)
+    if k < 1:
+        raise ValueError(f"verify_step needs spec_tokens >= 1, got {k}")
+
+    def build(traces):
+        @torch.no_grad()
+        def body(*args):
+            (tokens, pos), samp, caches = _split_held(2, args)
+            logits, _ = model(tokens.long(), cache=caches, cache_pos=pos)
+            if samp is None:
+                chosen = greedy_tokens(logits)
+                return (chosen, logits, chosen[:, :k] == tokens[:, 1:]), \
+                    args[-1]
+            chosen, accept, keys = verify_tokens(logits, tokens[:, 1:], samp)
+            return (chosen, logits, accept, keys), args[-1]
+        graphs = _two_graphs(model, traces, f"verify_step[{k}]", body)
+
+        def fn(tokens, pos, caches, samp=None):
+            out = _run(graphs, [tokens, pos], caches, samp)
+            keys = out[3] if samp is not None else None
+            return out[0], out[1], caches, out[2], keys
+
+        return {"fn": fn, "traces": traces, "graphs": graphs}
+
+    return step_entry(model, ("verify", k), build)
+
+
+def prefill_step(model, bucket: int, max_slots: int, max_len: int):
+    """One bucket's dense prefill entry, the body of the reference
+    engine's ``_prefill_entry`` (``serving/engine.py:1297``), keyed as it
+    is (``("prefill", bucket, max_slots, max_len)``). Its ``fn(ids
+    [max_slots, bucket], last [max_slots], rows)`` zeroes ``rows``, the
+    caller's own ``[max_slots, h, max_len, d]`` (k, v) tensors per layer
+    (held by address like a slot cache; the reference allocates a fresh
+    cache per call), prefills every row from position 0 and returns
+    ``(logits at last [max_slots, V], rows)``: ``last`` is each row's
+    true last token index; the caller copies the rows into its slots
+    before its next prefill overwrites them. Rows past the caller's
+    group are padding."""
+    def build(traces):
+        @torch.no_grad()
+        def body(ids, last, pos, rows):
+            for layer in rows:
+                for a in layer:
+                    a.zero_()
+            logits, _ = model(ids.long(), cache=rows, cache_pos=pos)
+            lg = logits[torch.arange(logits.shape[0],
+                                     device=logits.device), last.long()]
+            return (lg,), rows
+        held = _held(model, body, traces, f"prefill[{bucket}]")
+        pos = np.zeros(max_slots, np.int32)
+
+        def fn(ids, last, rows):
+            (lg,) = held([ids, last, pos], rows)
+            return lg, rows
+
+        return {"fn": fn, "traces": traces}
+
+    key = ("prefill", int(bucket), int(max_slots), int(max_len))
+    return step_entry(model, key, build)
 
 
 def _decode_body(model, attn_impl):
@@ -369,3 +522,183 @@ def draft_ngram(context, k: int, max_ngram: int = 3):
                         cont = cont + cont
                     return cont[:k]
     return [ctx[-1]] * k
+
+
+def _capacity(s0: int, max_new_tokens: int, cache_len) -> int:
+    cap = int(cache_len if cache_len is not None else s0 + max_new_tokens)
+    if cap < s0 + max_new_tokens:
+        raise ValueError(
+            f"cache_len {cap} < prompt {s0} + max_new_tokens "
+            f"{max_new_tokens}")
+    return cap
+
+
+def _prefill(model, ids: np.ndarray, capacity: int):
+    """Eager prompt pass into the model's fixed cache of this batch and
+    capacity, zeroed first (the reference allocates a fresh one).
+    Returns ``(last_logits [b, V], caches)``."""
+    cfg = model.cfg
+    if capacity > cfg.max_position_embeddings:
+        raise ValueError(
+            f"cache capacity {capacity} exceeds max_position_embeddings="
+            f"{cfg.max_position_embeddings}; raise it in the GPTConfig "
+            "or shorten prompt/max_new_tokens")
+    b, s0 = ids.shape
+    if s0 > capacity:
+        raise ValueError(f"prompt length {s0} exceeds cache capacity "
+                         f"{capacity}")
+    cache = fixed_cache(model, b, capacity)
+    for layer in cache:
+        for a in layer:
+            a.zero_()
+    ids_t = torch.as_tensor(ids, dtype=torch.int64).to(model.device)
+    logits, cache = model(ids_t, cache=cache, cache_pos=0)
+    return logits[:, -1], cache
+
+
+@torch.no_grad()
+def greedy_search(model, input_ids, max_new_tokens: int = 16,
+                  eos_token_id: Optional[int] = None,
+                  cache_len: Optional[int] = None):
+    """Greedy decode on the fixed-capacity cache, the counterpart of
+    ``paddle_tpu/models/generation.py:654``; returns ``[b, s + new]`` ids
+    (numpy). ``cache_len`` pins the capacity (default prompt + new
+    tokens): the serving tests pass the engine's ``max_len`` so both
+    sides compute over the same capacity. The decode steps replay the
+    greedy graph of :func:`decode_step`."""
+    ids = np.asarray(input_ids)
+    b, s0 = ids.shape
+    cap = _capacity(s0, max_new_tokens, cache_len)
+    logits, caches = _prefill(model, ids, cap)
+    step = decode_step(model)["fn"]
+    out = [ids]
+    done = np.zeros(b, bool)
+    cur = torch.argmax(logits, dim=-1).cpu().numpy().reshape(b, 1)
+    pos = np.full((b,), s0, np.int32)
+    for t in range(max_new_tokens):
+        if eos_token_id is not None:
+            cur = np.where(done[:, None], eos_token_id, cur)
+            done |= (cur[:, 0] == eos_token_id)
+        out.append(cur.astype(ids.dtype))
+        if eos_token_id is not None and done.all():
+            break
+        if t == max_new_tokens - 1:
+            break
+        nxt, _, caches, _ = step(cur[:, 0].astype(np.int32), pos, caches)
+        pos = pos + 1
+        cur = nxt.cpu().numpy().reshape(b, 1)
+    return np.concatenate(out, axis=1)
+
+
+@torch.no_grad()
+def sample(model, input_ids, max_new_tokens: int = 16,
+           temperature: float = 1.0, top_k: int = 0, top_p: float = 0.0,
+           seed: int = 0, cache_len: Optional[int] = None):
+    """Temperature / top-k / top-p sampling on the fixed-capacity cache,
+    the counterpart of ``paddle_tpu/models/generation.py:694``: the
+    first token is drawn from the prefill logits by
+    :func:`~paddle_tpu_torch.serving.decoding.sample_tokens`, the rest by
+    the sampled graph of :func:`decode_step`, every row from its key of
+    ``split(PRNGKey(seed), b)``; returns ``[b, s + new]`` ids (numpy)."""
+    params = DecodeParams(temperature=float(temperature), top_k=int(top_k),
+                          top_p=float(top_p), seed=int(seed))
+    ids = np.asarray(input_ids)
+    b, s0 = ids.shape
+    cap = _capacity(s0, max_new_tokens, cache_len)
+    lg, caches = _prefill(model, ids, cap)
+    step = decode_step(model)["fn"]
+    dev = model.device
+    temp = torch.full((b,), params.temperature, device=dev)
+    tk = torch.full((b,), params.top_k, dtype=torch.int32, device=dev)
+    tp = torch.full((b,), params.top_p, device=dev)
+    mask = _zero_mask(model, b)
+    keys = prng.split(prng.PRNGKey(params.seed, device=dev), b)
+    nxt, keys = sample_tokens(lg, (temp, tk, tp, keys, mask))
+    cur = nxt.cpu().numpy().reshape(b, 1)
+    out = [ids]
+    pos = np.full((b,), s0, np.int32)
+    for t in range(max_new_tokens):
+        out.append(cur.astype(ids.dtype))
+        if t == max_new_tokens - 1:
+            break
+        nxt, _, caches, keys = step(cur[:, 0].astype(np.int32), pos, caches,
+                                    (temp, tk, tp, keys, mask))
+        pos = pos + 1
+        cur = nxt.cpu().numpy().reshape(b, 1)
+    return np.concatenate(out, axis=1)
+
+
+@torch.no_grad()
+def beam_search(model, input_ids, beam_size: int = 4,
+                max_new_tokens: int = 16, length_penalty: float = 1.0,
+                eos_token_id: Optional[int] = None,
+                cache_len: Optional[int] = None):
+    """Beam search decode, the counterpart of ``paddle_tpu/models/
+    generation.py:743``; returns ``(ids [b, s + new], scores [b])``.
+
+    The beam is a dense ``b * beam`` batch axis: after the prompt the
+    prefill cache's rows are copied ``beam`` times each into the model's
+    fixed cache of ``b * beam`` rows; each step scores on the host with
+    the reference's numpy code (its ``argsort``, so ties break alike),
+    then every cache tensor's beam axis is reordered by parent in place
+    (``copy_`` of an ``index_select``) where the reference rebinds it."""
+    ids = np.asarray(input_ids)
+    b, s0 = ids.shape
+    k = beam_size
+    cap = _capacity(s0, max_new_tokens, cache_len)
+    logits, caches = _prefill(model, ids, cap)
+    step = decode_step(model)["fn"]
+    dev = model.device
+    lp = torch.log_softmax(logits, dim=-1).cpu().numpy()
+    vocab = lp.shape[-1]
+    # seed beams with the top-k first tokens
+    top = np.argsort(-lp, axis=-1)[:, :k]                   # [b, k]
+    scores = np.take_along_axis(lp, top, -1)                # [b, k]
+    tokens = top.reshape(b * k, 1)
+    # expand the caches along the beam axis (rows are independent)
+    beams = fixed_cache(model, b * k, cap)
+    rep = torch.as_tensor(np.repeat(np.arange(b), k)).to(dev)
+    for dst, src in zip(beams, caches):
+        for d, a in zip(dst, src):
+            d.copy_(a.index_select(0, rep))
+    seqs = np.concatenate([np.repeat(ids, k, axis=0), tokens], axis=1)
+    done = np.zeros((b, k), bool)
+    pos = np.full((b * k,), s0, np.int32)
+
+    for t in range(1, max_new_tokens):
+        _, lg, beams, _ = step(tokens[:, 0].astype(np.int32), pos, beams)
+        pos = pos + 1
+        lg = lg.cpu().numpy()                               # [b*k, V]
+        lg = lg - lg.max(-1, keepdims=True)
+        lp = lg - np.log(np.exp(lg).sum(-1, keepdims=True))
+        lp = lp.reshape(b, k, vocab)
+        if eos_token_id is not None:
+            # finished beams only extend with EOS at no cost
+            frozen = np.full((vocab,), -1e9, lp.dtype)
+            frozen[eos_token_id] = 0.0
+            lp = np.where(done[..., None], frozen, lp)
+        total = scores[..., None] + lp                      # [b, k, V]
+        flat = total.reshape(b, k * vocab)
+        best = np.argsort(-flat, axis=-1)[:, :k]            # [b, k]
+        scores = np.take_along_axis(flat, best, -1)
+        parent = best // vocab                              # [b, k]
+        tok = (best % vocab).astype(ids.dtype)
+        # reorder beam-major state by parent
+        gidx = (np.arange(b)[:, None] * k + parent).reshape(-1)
+        seqs = np.concatenate([seqs[gidx], tok.reshape(b * k, 1)], 1)
+        g = torch.as_tensor(gidx).to(dev)
+        for layer in beams:
+            for a in layer:
+                a.copy_(a.index_select(0, g))
+        if eos_token_id is not None:
+            done = np.take_along_axis(done, parent, 1) | \
+                (tok == eos_token_id)
+            if done.all():
+                break
+        tokens = tok.reshape(b * k, 1)
+
+    lengths = seqs.shape[1] - s0
+    final = scores / (lengths ** length_penalty)
+    best_beam = final.argmax(-1)                            # [b]
+    pick = np.arange(b) * k + best_beam
+    return seqs[pick], final[np.arange(b), best_beam]

@@ -3,23 +3,27 @@
 
 Same structure and parameter names as the JAX model (``gpt.wte``,
 ``gpt.blocks.<i>.attn.qkv_proj``, ...), pre-LN blocks, a fused qkv
-projection and an LM head tied to the token embedding. Two attention
-paths are ported: the no-cache causal forward, which goes through
-``fused_attention_qkv`` (the CUDA flash kernels at ``seq >=
-pallas_min_seq``) and with ``labels`` returns the training loss, and
-the block-paged KV cache branch the serving engine drives for prefill
-and decode. The ops cast under AMP as the reference's do, so under
-``auto_cast(level="O2")`` the residual stream runs in bf16 and
-LayerNorm and the loss in f32. ``GPTConfig.recompute`` (the
-reference's ``fleet.utils.recompute`` over every decoder block,
-``paddle_tpu/models/gpt.py:379-381``) runs each block of the no-cache
-forward through ``torch.utils.checkpoint``, which keeps only the block's
-input and recomputes the rest in the backward pass, under the AMP state
-of the forward. At dropout 0 nothing random is replayed; with dropout
+projection and an LM head tied to the token embedding. Every attention
+path of the reference is ported: the no-cache causal forward, which
+goes through ``fused_attention_qkv`` (the CUDA flash kernels at ``seq >=
+pallas_min_seq``) and with ``labels`` returns the training loss; the
+block-paged KV cache branch the paged serving engine drives; the
+fixed-capacity (slotted) cache branch that offline generation and the
+dense engine drive (``cache`` and ``cache_pos``: the new rows are
+written in place at each row's offset, then composed attention under
+the position mask, as the reference's ``fused_attention_qkv`` with a
+mask always composes); and the concat branch (``cache`` alone: the
+cache grows by the new rows, then causal attention). The ops cast
+under AMP as the reference's do, so under ``auto_cast(level="O2")`` the
+residual stream runs in bf16 and LayerNorm and the loss in f32.
+``GPTConfig.recompute`` (the reference's ``fleet.utils.recompute`` over
+every decoder block, ``paddle_tpu/models/gpt.py:379-381``) runs each
+block of the no-cache forward through ``torch.utils.checkpoint``, which
+keeps only the block's input and recomputes the rest in the backward
+pass, under the AMP state of the forward. At dropout 0 nothing random is replayed; with dropout
 the recomputation replays the forward's masks from the saved RNG state,
 which a CUDA graph capture does not allow, so that combination raises
-under capture. The slotted fixed-capacity cache branch waits for a later
-slice.
+under capture.
 """
 
 from __future__ import annotations
@@ -41,7 +45,8 @@ from ..device import capturing
 from ..ops.attention_ops import (_composed_attention, block_gather,
                                  block_gather_dequant, block_scatter_write,
                                  block_scatter_write_quant,
-                                 decode_attention_mask, fused_attention_qkv)
+                                 cache_scatter_write, decode_attention_mask,
+                                 fused_attention_qkv)
 from ..ops.cuda.paged_attention import paged_attention
 
 ATTN_IMPLS = ("kernel", "composed")
@@ -121,15 +126,36 @@ class GPTAttention(nn.Module):
         if block_tables is not None:
             out, cache = self._paged(q, k, v, cache, cache_pos,
                                      block_tables, attn_impl, scale)
-        elif cache is not None:
-            raise NotImplementedError(
-                "the slotted fixed-capacity KV cache is not ported yet; "
-                "pass block_tables for the paged cache")
+        elif cache is not None and cache_pos is not None:
+            out, cache = self._slotted(q, k, v, cache, cache_pos, scale)
         else:
+            if cache is not None:                    # the concat cache
+                k = torch.cat([cache[0], k], dim=2)
+                v = torch.cat([cache[1], v], dim=2)
+                cache = (k, v)
             out = fused_attention_qkv(q, k, v, causal=True, scale=scale)
         out = out.transpose(1, 2).reshape(b, s, cfg.hidden_size)
         out = self.dropout(self.out_proj(out))
         return out if cache is None else (out, cache)
+
+    def _slotted(self, q, k, v, cache, cache_pos, scale):
+        """Fixed-capacity cache: ``cache`` is a (k, v) pair of [b, h,
+        capacity, d] tensors, written in place at each row's offset
+        ``cache_pos`` (an int or a [b] tensor) by
+        :func:`~paddle_tpu_torch.ops.attention_ops.cache_scatter_write`.
+        The same branch serves prefill (s = the bucket), decode (s = 1)
+        and the speculative verify (s = K+1): the position mask lets
+        query i see keys ``j <= pos + i`` only."""
+        b = q.shape[0]
+        pos = torch.as_tensor(cache_pos, dtype=torch.int32, device=q.device)
+        if pos.dim() == 0:
+            pos = pos.expand(b)
+        kc = cache_scatter_write(cache[0], k, pos)
+        vc = cache_scatter_write(cache[1], v, pos)
+        mask = decode_attention_mask(pos, q.shape[2], kc.shape[2], kc.dtype)
+        out = fused_attention_qkv(q, kc, vc, mask=mask, causal=False,
+                                  scale=scale)
+        return out, (kc, vc)
 
     def _paged(self, q, k, v, cache, cache_pos, block_tables, attn_impl,
                scale):
@@ -230,6 +256,10 @@ class GPTModel(nn.Module):
         dev = input_ids.device
         maxpos = self.cfg.max_position_embeddings
         if cache_pos is not None:
+            if isinstance(cache_pos, int) and cache_pos + s > maxpos:
+                raise ValueError(
+                    f"sequence length {cache_pos + s} exceeds "
+                    f"max_position_embeddings={maxpos}")
             p = torch.as_tensor(cache_pos, dtype=torch.int64, device=dev)
             p = p[None] if p.dim() == 0 else p
             # clamp: bucketed-prefill padding rows carry positions past
@@ -278,6 +308,26 @@ class GPTModel(nn.Module):
 
         return torch.utils.checkpoint.checkpoint(
             run, x, use_reentrant=False, preserve_rng_state=replay_rng)
+
+    def gen_cache(self, batch_size):
+        """Empty concat cache: per layer a (k, v) pair of [b, h, 0, d]."""
+        cfg = self.cfg
+        shape = (batch_size, cfg.num_heads, 0, cfg.head_dim)
+        dev = self.wte.weight.device
+        return [tuple(torch.zeros(shape, device=dev) for _ in range(2))
+                for _ in range(cfg.num_layers)]
+
+    def gen_fixed_cache(self, batch_size, max_len):
+        """Zeroed fixed-capacity cache on the model's device: per layer a
+        (k, v) pair of [b, h, max_len, d] f32, used with ``cache_pos`` so
+        every decode step has one shape. Each tensor is its own: the
+        forward writes them in place, where the reference shares one
+        immutable zero array."""
+        cfg = self.cfg
+        shape = (batch_size, cfg.num_heads, max_len, cfg.head_dim)
+        dev = self.wte.weight.device
+        return [tuple(torch.zeros(shape, device=dev) for _ in range(2))
+                for _ in range(cfg.num_layers)]
 
     def gen_block_pool(self, num_blocks, block_size, kv_dtype="f32"):
         """Zeroed block-paged KV pool on the model's device: per layer a

@@ -1,13 +1,15 @@
 """Attention ops — the counterpart of ``paddle_tpu/ops/attention_ops.py``:
-the ``fused_attention_qkv`` op and the paged-KV serving primitives.
+the ``fused_attention_qkv`` op and the KV-cache serving primitives, for
+the fixed-capacity (slotted) cache and the block-paged one.
 
-Layouts follow the JAX package: queries ``[b, h, s, d]``, KV pools
-``[num_blocks, h, block_size, d]``, block tables ``[b, T]`` int32 and
-committed lengths ``pos [b]`` int32. Where JAX rebuilds a pool
-functionally (``pool.at[...].set``), the port writes it in place with
-``index_put_`` and returns the same tensor: a serving step owns its
-pools, and a fresh copy per layer per step would double the KV bytes
-moved.
+Layouts follow the JAX package: queries ``[b, h, s, d]``, slotted caches
+``[b, h, capacity, d]``, KV pools ``[num_blocks, h, block_size, d]``,
+block tables ``[b, T]`` int32 and committed lengths ``pos [b]`` int32.
+Where JAX rebuilds a cache or a pool functionally
+(``dynamic_update_slice``, ``pool.at[...].set``), the port writes it in
+place (``scatter_``, ``index_put_``) and returns the same tensor: a
+serving step owns its caches, and a fresh copy per layer per step would
+double the KV bytes moved.
 
 Physical block 0 is the trash block. Rows whose logical block falls
 outside the table go there; JAX's scatter clamps out-of-range indices
@@ -43,6 +45,31 @@ def decode_attention_mask(pos, q_len: int, capacity: int,
                      device=pos.device)
     zero = torch.zeros((), dtype=dtype, device=pos.device)
     return torch.where(valid, zero, neg)[:, None]
+
+
+def cache_scatter_write(buf, new, pos):
+    """Write ``new`` [b, h, s, d] rows into the fixed-capacity cache
+    ``buf`` [b, h, capacity, d] at each batch row's own offset ``pos[b]``
+    (an int, or a [b] tensor on ``buf``'s device); in place, returns
+    ``buf``. Nothing is read back to the host, so a captured step can
+    hold it.
+
+    As ``jax.lax.dynamic_update_slice`` does, a negative start counts
+    from the end (``pos + capacity``) and a start that would run past
+    the capacity is clamped to ``[0, capacity - s]``: the window shifts
+    back onto earlier rows instead of failing. Callers keep ``pos[b] + s
+    <= capacity`` for every live row (the engine reserves the headroom
+    at submission)."""
+    b, h, s, d = new.shape
+    cap = buf.shape[2]
+    pos = torch.as_tensor(pos, device=buf.device).to(torch.int64)
+    if pos.dim() == 0:
+        pos = pos.expand(b)
+    start = torch.clamp(torch.where(pos < 0, pos + cap, pos), 0, cap - s)
+    rows = start[:, None] + torch.arange(s, device=buf.device)   # [b, s]
+    idx = rows[:, None, :, None].expand(b, h, s, d)
+    buf.scatter_(2, idx, new.to(buf.dtype))
+    return buf
 
 
 def _route(pos, tables, s: int, bs: int, overflow_block: int):

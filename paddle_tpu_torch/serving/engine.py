@@ -1,28 +1,38 @@
-"""ServingEngine — continuous-batching inference on the block-paged KV
-cache; the counterpart of the paged core of
+"""ServingEngine — continuous-batching inference on a block-paged or a
+dense slotted KV cache; the counterpart of the core of
 ``paddle_tpu/serving/engine.py``: greedy and sampled decoding
 (temperature, top-k, top-p, a per-request seed), stop sequences, decode
-megasteps and speculative decoding with n-gram drafts.
+megasteps (paged) and speculative decoding with n-gram drafts.
+
+KV memory comes from one of two managers (``paged``, default
+``FLAGS_serving_paged``): the paged
+:class:`~paddle_tpu_torch.serving.kv_cache.BlockKVCache` (a request pays
+the blocks it needs, shared prompt prefixes are stored once), or the
+dense :class:`~paddle_tpu_torch.serving.kv_cache.SlotKVCache` (one
+``max_len`` row per request, f32 only, no megasteps), the baseline
+``bench.py`` measures the paged cache against.
 
 Iteration-level scheduling: each :meth:`ServingEngine.step` first
 admits queued requests into free rows — acquiring a block table per
-request (prefix-cache reuse first), grouping them by the bucket of
-their unshared prompt suffix and running ONE batched prefill per group
-— then runs ONE batched decode over every occupied row. A request that
-finishes releases its blocks at once, and the next queued request takes
-its row on the following step.
+request (prefix-cache reuse first) or a free slot, grouping them by the
+bucket of their unshared prompt suffix and running ONE batched prefill
+per group — then runs ONE batched decode over every occupied row. A
+request that finishes releases its row at once, and the next queued
+request takes it on the following step.
 
 Every prefill and decode dispatch goes through an entry of the model's
 step cache (:mod:`~paddle_tpu_torch.models.generation`): one per prefill
 bucket, the decode step, and with ``megastep`` N > 1 the N-iteration
 decode megastep, and with ``spec_tokens`` K > 0 the verify step of
 K+1 positions. On the card each dispatch is the replay of a CUDA
-graph, captured at the key's first call; the pools and the weights are
+graph, captured at the key's first call; the caches and the weights are
 read in place, so :meth:`ServingEngine.swap_weights` captures nothing.
-Each layer's attention runs through
+On the paged cache each layer's attention runs through
 :func:`~paddle_tpu_torch.ops.cuda.paged_attention.paged_attention` when
 ``attn_impl == "kernel"`` (the default), or the composed oracle for
-``"composed"``. The engine runs on its model's device.
+``"composed"``; on the dense cache it is always composed, as the
+reference's masked attention is. The engine runs on its model's
+device.
 
 A sampled request draws from its own threefry key (``request_key(seed)``),
 split once per step it samples in and kept on the request between steps,
@@ -32,9 +42,8 @@ tokens. A step in which no row samples replays the greedy graph of its
 entry (no sort, no threefry; the reference computes both branches every
 step), and only sampled rows' keys are written back.
 
-Not ported yet (each one is queued in ROADMAP.md): the dense slotted
-cache, SLO admission and priorities, dispatch-ahead, mesh/TP, LoRA,
-the host KV tier, the
+Not ported yet (each one is queued in ROADMAP.md): SLO admission and
+priorities, dispatch-ahead, mesh/TP, LoRA, the host KV tier, the
 JSON grammar, fault points and retry, devprof and tracing, cancel, the
 background thread (``start``/``stop``), and the router/disagg/HTTP front
 ends. The engine is driven by the caller (``step``/``run_until_idle``)
@@ -58,7 +67,7 @@ from ..models.gpt import ATTN_IMPLS
 from .decoding import (STOP_MAX_LEN, STOP_MAX_SEQS, DecodeParams,
                        StopMatcher, request_key, sample_first,
                        stop_table_rows, stops_fit)
-from .kv_cache import BlockKVCache
+from .kv_cache import BlockKVCache, SlotKVCache
 
 
 class QueueFullError(RuntimeError):
@@ -172,6 +181,7 @@ class ServingEngine:
                  megastep: Optional[int] = None,
                  spec_tokens: Optional[int] = None,
                  spec_ngram: Optional[int] = None,
+                 paged: Optional[bool] = None,
                  device=None):
         g = _flags.get_flags(["serving_max_slots", "serving_max_len",
                               "serving_max_queue",
@@ -186,10 +196,6 @@ class ServingEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine "
                              f"asked for {self.device}")
-        if not g["serving_paged"]:
-            raise NotImplementedError(
-                "the dense slotted KV cache (FLAGS_serving_paged=False) "
-                "is not ported yet")
         self.model = model
         cfg = model.gpt.cfg
         self.max_slots = int(max_slots if max_slots is not None
@@ -230,6 +236,13 @@ class ServingEngine:
         self.buckets = _parse_buckets(
             g["serving_prefill_buckets"] if buckets is None
             else ",".join(map(str, buckets)), self.max_len)
+        self.paged = bool(paged if paged is not None
+                          else g["serving_paged"])
+        if self.megastep > 1 and not self.paged:
+            raise ValueError(
+                "megastep > 1 requires the paged KV cache "
+                "(FLAGS_serving_paged); the dense decode step has no "
+                "device-resident scan sibling")
         self.kv_dtype = str(kv_dtype if kv_dtype is not None
                             else g["serving_kv_dtype"])
         self.attn_impl = str(attn_impl if attn_impl is not None
@@ -237,16 +250,31 @@ class ServingEngine:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{self.attn_impl!r}")
-        self.cache = BlockKVCache(
-            cfg.num_layers, cfg.num_heads, cfg.head_dim,
-            self.max_slots, self.max_len,
-            block_size=int(block_size if block_size is not None
-                           else g["serving_block_size"]),
-            num_blocks=int(num_blocks if num_blocks is not None
-                           else g["serving_num_blocks"]),
-            prefix_cache=bool(prefix_cache if prefix_cache is not None
-                              else g["serving_prefix_cache"]),
-            kv_dtype=self.kv_dtype, device=self.device)
+        if self.paged:
+            self.cache = BlockKVCache(
+                cfg.num_layers, cfg.num_heads, cfg.head_dim,
+                self.max_slots, self.max_len,
+                block_size=int(block_size if block_size is not None
+                               else g["serving_block_size"]),
+                num_blocks=int(num_blocks if num_blocks is not None
+                               else g["serving_num_blocks"]),
+                prefix_cache=bool(prefix_cache if prefix_cache is not None
+                                  else g["serving_prefix_cache"]),
+                kv_dtype=self.kv_dtype, device=self.device)
+        else:
+            if self.kv_dtype != "f32":
+                raise ValueError(
+                    f"serving_kv_dtype={self.kv_dtype!r} requires the "
+                    "paged KV cache (FLAGS_serving_paged); the dense "
+                    "SlotKVCache is f32-only")
+            self.cache = SlotKVCache(cfg.num_layers, cfg.num_heads,
+                                     cfg.head_dim, self.max_slots,
+                                     self.max_len, device=self.device)
+            # the bucketed prefill's rows, the engine's own (the
+            # reference allocates them per prefill): a graph holds them
+            # by address, and no other engine or generate call writes them
+            self._prefill_rows = model.gpt.gen_fixed_cache(self.max_slots,
+                                                           self.max_len)
         self._vocab = int(cfg.vocab_size)
         self._clock = time.perf_counter
         self._queue: deque = deque()
@@ -329,13 +357,14 @@ class ServingEngine:
             raise ValueError(
                 f"prompt ({len(prompt)}) + max_new_tokens ({mnt})"
                 f"{spec} exceeds slot capacity max_len={self.max_len}")
-        need = self.cache.blocks_needed(len(prompt) + mnt +
-                                        self.spec_tokens)
-        if need > self.cache.num_blocks - 1:  # minus trash block
-            raise ValueError(
-                f"request needs {need} KV blocks but the pool only "
-                f"has {self.cache.num_blocks - 1} usable; raise "
-                "FLAGS_serving_num_blocks or shorten the request")
+        if self.paged:
+            need = self.cache.blocks_needed(len(prompt) + mnt +
+                                            self.spec_tokens)
+            if need > self.cache.num_blocks - 1:  # minus trash block
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool only "
+                    f"has {self.cache.num_blocks - 1} usable; raise "
+                    "FLAGS_serving_num_blocks or shorten the request")
         if len(self._queue) >= self.max_queue:
             raise QueueFullError(
                 f"serving queue full ({self.max_queue} waiting); retry "
@@ -351,6 +380,60 @@ class ServingEngine:
             if length <= b:
                 return b
         return self.max_len  # unreachable: submit() validated length
+
+    def _prefill_entry(self, bucket: int) -> dict:
+        """The step-cache entry of one bucket's batched dense prefill at
+        this engine's geometry, keyed as the reference's
+        ``_prefill_entry``: bucket, max_slots, max_len."""
+        ent = _gen.prefill_step(self.model, bucket, self.max_slots,
+                                self.max_len)
+        self._prefill_fns[bucket] = ent
+        return ent
+
+    def _prefill_group_attempt(self, bucket: int, group):
+        """One batched dense prefill for every same-bucket admission; rows
+        past the group are padding. Returns ``(logits [max_slots, V],
+        rows)``, ``rows`` the per-layer prefilled (k, v) tensors."""
+        ids = np.zeros((self.max_slots, bucket), np.int32)
+        last = np.zeros(self.max_slots, np.int32)
+        for i, req in enumerate(group):
+            ctx = req.context
+            ids[i, :len(ctx)] = ctx
+            last[i] = len(ctx) - 1
+        out = self._prefill_entry(bucket)["fn"](ids, last,
+                                                self._prefill_rows)
+        self.prefill_dispatches += 1
+        return out
+
+    def _admit_round_dense(self):
+        """One dense admission pass: pop up to ``num_free`` queued
+        requests, group them by prefill bucket, one batched prefill per
+        group, whose rows are copied into freshly allocated slots.
+        Returns (consumed, admitted)."""
+        candidates = []
+        while len(candidates) < self.cache.num_free and self._queue:
+            candidates.append(self._queue.popleft())
+        groups: Dict[int, List[Request]] = {}
+        for req in candidates:
+            groups.setdefault(self._bucket_for(len(req.context)),
+                              []).append(req)
+        admitted = 0
+        for bucket in sorted(groups):
+            group = groups[bucket]
+            lg, rows = self._prefill_group_attempt(bucket, group)
+            slots = [self.cache.alloc() for _ in group]
+            self.cache.write_prefill_batch(
+                slots, rows, [len(r.context) for r in group])
+            first = torch.argmax(lg, dim=-1).cpu().numpy()
+            for i, (req, slot) in enumerate(zip(group, slots)):
+                req.slot = slot
+                req.state = "running"
+                self._active[slot] = req
+                admitted += 1
+                # the first generated token comes from the prefill logits
+                # (the argmax greedy_search takes after its own prefill)
+                self._append_token(req, self._take_first(req, first, lg, i))
+        return len(candidates), admitted
 
     def _prefill_entry_paged(self, bucket: int) -> dict:
         """The step-cache entry of one bucket's batched prefill at this
@@ -458,7 +541,8 @@ class ServingEngine:
         Returns how many requests were admitted."""
         admitted = 0
         while True:
-            popped, n = self._admit_round_paged()
+            popped, n = (self._admit_round_paged() if self.paged
+                          else self._admit_round_dense())
             admitted += n
             if not popped:
                 return admitted
@@ -512,15 +596,21 @@ class ServingEngine:
         tokens = np.zeros(self.max_slots, np.int32)
         for slot, req in self._active.items():
             tokens[slot] = req.tokens[-1]
-        fn = _gen.decode_step_paged(self.model, self.kv_dtype,
-                                    self.attn_impl)["fn"]
-        nxt, _, pools, qerr, new_keys = fn(
-            tokens, self.cache.lengths, self.cache.tables,
-            self.cache.arrays(), self._build_samp())
+        if self.paged:
+            fn = _gen.decode_step_paged(self.model, self.kv_dtype,
+                                        self.attn_impl)["fn"]
+            nxt, _, arrays, qerr, new_keys = fn(
+                tokens, self.cache.lengths, self.cache.tables,
+                self.cache.arrays(), self._build_samp())
+            self._note_qerr(qerr)
+        else:
+            fn = _gen.decode_step(self.model)["fn"]
+            nxt, _, arrays, new_keys = fn(
+                tokens, self.cache.lengths, self.cache.arrays(),
+                self._build_samp())
         self.decode_steps += 1
-        self.cache.set_arrays(pools)
+        self.cache.set_arrays(arrays)
         self._writeback_keys(new_keys)
-        self._note_qerr(qerr)
         nxt = nxt.cpu().numpy()
         produced = 0
         for slot, req in list(self._active.items()):
@@ -629,15 +719,21 @@ class ServingEngine:
             tokens[slot, 0] = req.tokens[-1]
             tokens[slot, 1:] = _gen.draft_ngram(req.prompt + req.tokens, K,
                                                 self.spec_ngram)
-        fn = _gen.verify_step_paged(self.model, K, self.kv_dtype,
-                                    self.attn_impl)["fn"]
-        nxt, _, pools, qerr, accept, new_keys = fn(
-            tokens, self.cache.lengths, self.cache.tables,
-            self.cache.arrays(), self._build_samp())
+        if self.paged:
+            fn = _gen.verify_step_paged(self.model, K, self.kv_dtype,
+                                        self.attn_impl)["fn"]
+            nxt, _, arrays, qerr, accept, new_keys = fn(
+                tokens, self.cache.lengths, self.cache.tables,
+                self.cache.arrays(), self._build_samp())
+            self._note_qerr(qerr)
+        else:
+            fn = _gen.verify_step(self.model, K)["fn"]
+            nxt, _, arrays, accept, new_keys = fn(
+                tokens, self.cache.lengths, self.cache.arrays(),
+                self._build_samp())
         self.decode_steps += 1
-        self.cache.set_arrays(pools)
+        self.cache.set_arrays(arrays)
         self._writeback_keys(new_keys)
-        self._note_qerr(qerr)
         nxt = nxt.cpu().numpy()
         accept = accept.cpu().numpy()
         produced = 0
@@ -689,7 +785,7 @@ class ServingEngine:
     def _finish(self, req: Request):
         if req.slot is not None:
             self._active.pop(req.slot, None)
-            self.cache.release_row(req.slot)
+            self.cache.release(req.slot)
             req.slot = None
         req.state = "done"
         req.finished_at = self._clock()
@@ -797,8 +893,6 @@ class ServingEngine:
             return (None if not vals
                     else round(float(np.percentile(vals, q)) * 1e3, 3))
 
-        c = self.cache
-        hit_t, miss_t = c.prefix_hits, c.prefix_misses
         out = {
             "ttft_p50_ms": pct([r.ttft for r in done], 50),
             "ttft_p99_ms": pct([r.ttft for r in done], 99),
@@ -807,22 +901,30 @@ class ServingEngine:
             "completed": len(done),
             "queue_depth": len(self._queue),
             "active": len(self._active),
+            "paged": self.paged,
             "attn_impl": self.attn_impl,
             "kv_dtype": self.kv_dtype,
-            "block_size": c.block_size,
-            "num_blocks": c.num_blocks,
-            "kv_blocks_used": c.blocks_used,
-            "kv_blocks_free": c.blocks_free,
-            "prefix_cache": c.prefix_cache_enabled,
-            "prefix_entries": c.prefix_entries,
-            "prefix_hit_requests": self._prefix_hit_reqs,
-            "prefix_miss_requests": self._prefix_miss_reqs,
-            "prefix_hit_tokens": hit_t,
-            "prefix_miss_tokens": miss_t,
             "prefill_dispatches": self.prefill_dispatches,
             "decode_steps": self.decode_steps,
             "spec_tokens": self.spec_tokens,
         }
+        if self.paged:
+            c = self.cache
+            hit_t, miss_t = c.prefix_hits, c.prefix_misses
+            out.update({
+                "block_size": c.block_size,
+                "num_blocks": c.num_blocks,
+                "kv_blocks_used": c.blocks_used,
+                "kv_blocks_free": c.blocks_free,
+                "prefix_cache": c.prefix_cache_enabled,
+                "prefix_entries": c.prefix_entries,
+                "prefix_hit_requests": self._prefix_hit_reqs,
+                "prefix_miss_requests": self._prefix_miss_reqs,
+                "prefix_hit_tokens": hit_t,
+                "prefix_miss_tokens": miss_t,
+                "prefix_hit_rate": (round(hit_t / (hit_t + miss_t), 4)
+                                    if hit_t + miss_t else None),
+            })
         if self.spec_tokens:
             out["spec_proposed"] = self._spec_proposed
             out["spec_accepted"] = self._spec_accepted

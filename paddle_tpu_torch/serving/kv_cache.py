@@ -1,14 +1,16 @@
-"""Block-paged KV cache for the serving engine — the counterpart of
-``BlockAllocator``, ``prefix_chain_keys``, ``BlockPool`` and
-``BlockKVCache`` in ``paddle_tpu/serving/kv_cache.py``.
+"""KV caches for the serving engine — the counterpart of
+``SlotKVCache``, ``BlockAllocator``, ``prefix_chain_keys``, ``BlockPool``
+and ``BlockKVCache`` in ``paddle_tpu/serving/kv_cache.py``.
 
-Host-side bookkeeping (tables, lengths, refcounts, the prefix cache) is
-numpy and plain Python, as in the JAX package, so allocation order and
-prefix sharing replay identically. The pools are torch tensors on the
-engine's device, updated in place where JAX replaces its arrays, and
-never rebound: the serving graphs hold them by address.
-The dense ``SlotKVCache`` and the cross-cache handoff
-(``export_row``/``import_row``/``adopt_row``) wait for later slices.
+:class:`SlotKVCache` is the dense design (one ``max_len`` row per
+request, the engine's ``paged=False``); :class:`BlockKVCache` the
+block-paged one with its prefix cache. Host-side bookkeeping (free
+lists, tables, lengths, refcounts, the prefix cache) is numpy and plain
+Python, as in the JAX package, so allocation order and prefix sharing
+replay identically. The KV tensors live on the engine's device, are
+updated in place where JAX replaces its arrays, and are never rebound:
+the serving graphs hold them by address. The cross-cache handoff
+(``export_row``/``import_row``/``adopt_row``) waits for a later slice.
 """
 
 from __future__ import annotations
@@ -22,6 +24,108 @@ import torch
 
 _KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
               "int8": torch.int8}
+
+
+class SlotKVCache:
+    """Fixed-geometry KV storage and a slot free list: per layer a (k, v)
+    pair of ``[max_slots, heads, max_len, head_dim]`` tensors on
+    ``device``, one slot row per request. The decode and verify steps
+    write the rows in place; the host-side ``lengths`` vector is each
+    slot's valid prefix and the steps' position input."""
+
+    def __init__(self, num_layers: int, num_heads: int, head_dim: int,
+                 max_slots: int, max_len: int, dtype=None, device="cpu"):
+        dtype = dtype or torch.float32
+        shape = (max_slots, num_heads, max_len, head_dim)
+        self.max_slots = int(max_slots)
+        self.max_len = int(max_len)
+        self.layers: List[Tuple[torch.Tensor, torch.Tensor]] = [
+            tuple(torch.zeros(shape, dtype=dtype, device=device)
+                  for _ in range(2)) for _ in range(num_layers)]
+        self.lengths = np.zeros(max_slots, np.int32)
+        # kept sorted so admission order -> slot order is deterministic
+        self._free = list(range(max_slots))
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_used(self) -> int:
+        return self.max_slots - len(self._free)
+
+    def alloc(self) -> Optional[int]:
+        """Claim the lowest free slot, or None when full."""
+        return self._free.pop(0) if self._free else None
+
+    def release(self, slot: int):
+        self.lengths[slot] = 0
+        insort(self._free, slot)
+
+    def write_prefill(self, slot: int, rows, length: int):
+        """Install one prefilled row: ``rows`` is one (k, v) pair per
+        layer shaped [1, heads, max_len, d]; ``length`` the true prompt
+        length (the rows past it are padding the position mask hides
+        until decode overwrites them)."""
+        self.write_prefill_batch([slot], rows, [length])
+
+    def write_prefill_batch(self, slots, rows, lengths):
+        """Install several prefilled rows with one ``index_copy_`` per
+        tensor: ``rows`` is one (k, v) pair per layer shaped [batch,
+        heads, max_len, d] (a batched prefill's output, of which only the
+        first ``len(slots)`` rows are meaningful), row i landing in
+        ``slots[i]`` with true prompt length ``lengths[i]``."""
+        n = len(slots)
+        if n != len(lengths):
+            raise ValueError(f"{n} slots but {len(lengths)} lengths")
+        idx = torch.as_tensor(np.asarray(slots, np.int64),
+                              device=self.layers[0][0].device)
+        for layer, src in zip(self.layers, rows):
+            for dst, r in zip(layer, src):
+                dst.index_copy_(0, idx, r[:n])
+        for s, ln in zip(slots, lengths):
+            self.lengths[s] = int(ln)
+
+    def advance(self, slot: int, n: int = 1):
+        """Advance a slot's valid length by ``n`` freshly written rows (1
+        for a decode token, K+1 after a speculative verify, then trimmed
+        by :meth:`rollback`)."""
+        ln = int(self.lengths[slot]) + int(n)
+        if ln > self.max_len:
+            raise ValueError(
+                f"slot {slot}: advancing by {n} overflows capacity "
+                f"max_len={self.max_len} (at {self.lengths[slot]})")
+        self.lengths[slot] = ln
+
+    def rollback(self, slot: int, n: int):
+        """Roll a slot's write offset back over ``n`` rejected rows; they
+        stay in the tensors past the valid length, behind the position
+        mask, until the next write overwrites them."""
+        if n < 0 or n > int(self.lengths[slot]):
+            raise ValueError(
+                f"slot {slot}: cannot roll back {n} rows from length "
+                f"{self.lengths[slot]}")
+        self.lengths[slot] = int(self.lengths[slot]) - int(n)
+
+    def arrays(self):
+        """The per-layer (k, v) tensors, as fed to the steps."""
+        return list(self.layers)
+
+    def set_arrays(self, layers):
+        """Take back a step's returned tensors, which must be the ones
+        :meth:`arrays` handed out (the steps write them in place, and a
+        captured graph holds them by address); raises ValueError for any
+        other tensor, as :meth:`BlockKVCache.set_arrays` does."""
+        _same_layers(layers, self.layers)
+
+
+def _same_layers(layers, held):
+    layers = [tuple(layer) for layer in layers]
+    if len(layers) != len(held) or any(
+            len(a) != len(b) or any(x is not y for x, y in zip(a, b))
+            for a, b in zip(layers, held)):
+        raise ValueError("set_arrays takes back the tensors arrays() "
+                         "handed out; the steps update them in place")
 
 
 class BlockAllocator:
@@ -147,6 +251,7 @@ class BlockPool:
         self._prefix: "OrderedDict[int, _PrefixEntry]" = OrderedDict()
         self.prefix_hits = 0       # token-weighted: shared tokens reused
         self.prefix_misses = 0     # prompt tokens prefilled from scratch
+        self.blocks_allocated_total = 0   # fresh blocks taken by acquire
 
     def alloc_block(self) -> Optional[int]:
         """Fresh block, evicting idle prefix-cache entries if needed."""
@@ -247,6 +352,12 @@ class BlockKVCache:
     def prefix_misses(self) -> int:
         return self.pool.prefix_misses
 
+    @property
+    def blocks_allocated_total(self) -> int:
+        """Fresh blocks every successful :meth:`acquire` took (shared
+        prefix blocks excluded): ``bench.py``'s KV bytes per request."""
+        return self.pool.blocks_allocated_total
+
     # -- geometry ----------------------------------------------------
 
     def blocks_needed(self, length: int) -> int:
@@ -342,6 +453,8 @@ class BlockKVCache:
                 for a in layer:
                     a[dst] = a[src]
         row = self._free_rows.pop(0)
+        # counted here: a failed acquire unwinds its allocations
+        self.pool.blocks_allocated_total += len(taken)
         self.tables[row] = self.TRASH
         self.tables[row, :nblocks] = blocks
         self._nblocks[row] = nblocks
@@ -362,6 +475,10 @@ class BlockKVCache:
         self._nblocks[row] = 0
         self.lengths[row] = 0
         insort(self._free_rows, row)
+
+    def release(self, row: int):
+        """:meth:`release_row`, under :class:`SlotKVCache`'s name."""
+        self.release_row(row)
 
     def insert_prefix(self, row: int, prompt: Sequence[int]):
         """Publish a just-prefilled prompt's full blocks into the prefix
@@ -437,10 +554,4 @@ class BlockKVCache:
         at their addresses, so a step that handed back other tensors
         would leave the cache holding memory the graphs never touch.
         Raises ValueError for any other tensor."""
-        layers = [tuple(layer) for layer in layers]
-        if len(layers) != len(self.layers) or any(
-                len(a) != len(b) or any(x is not y for x, y in zip(a, b))
-                for a, b in zip(layers, self.layers)):
-            raise ValueError("set_arrays takes back the pool tensors "
-                             "arrays() handed out; the steps update them "
-                             "in place")
+        _same_layers(layers, self.layers)
