@@ -46,7 +46,16 @@ bytes on a shared system prompt: tokens, KV bytes per request, peak
 concurrency, prefix hit rate; the dense decode step's profile beside the
 paged one's; dense spec K = 4; sampled dense requests and offline
 ``sample`` / ``beam_search`` captured against eager; no port kernel on
-the dense path), 6 flash kernels vs plain (f32, bf16
+the dense path; ``bench.py:539-633``: the kernel route against the
+composed one at blocks of 8, int8 against f32 pools of equal bytes, a
+concurrency gain of at least 1.8x asserted), 5d the replica fleet
+(``bench.py:636-725``'s megastep block: 2 replicas at megastep 1
+serially and at megastep 8 from 2 dispatch threads, tokens equal, 0
+captures in each timed pass; the router half of ``bench.py:775-799``;
+fresh fleets on threads whose first captures run while the other
+replica replays; a kill mid-decode, three restarts with flat reserved
+memory, a rolling weight swap; B4 against plain at the fleet's shapes),
+6 flash kernels vs plain (f32, bf16
 and fp16), 7 train GPT (eager, then captured: losses and parameters
 bit-equal), 7b train GPT at O1 fp16 with ``GradScaler`` through the
 CUDA-core flash kernels, 8 time the flash kernels, 9
@@ -348,44 +357,50 @@ def check_kernel(torch, pa):
                "f32", 8, 28),
               ("prefill s=16 pos=32 b=32 bs=8 4 live f32",
                [32] * 4 + [0] * 28, 16, 64, "f32", 8, 4)]
-    elem = {"f32": 4, "bf16": 2, "int8": 1}
     worst = 0.0
-    for i, (name, pos, s, d, kv, bs, *live) in enumerate(cases):
-        h = 4 if "h=4" in name else 16
-        q, pools, tables, posv = make_inputs(torch, pos, s, d, kv, h=h,
-                                             bs=bs, T=256 // bs, seed=i)
-        if live:
-            tables[live[0]:] = 0
-        kp, vp, ks, vs = pools[0]
-        pl = pa.plan(*q.shape, bs, tables.shape[1], elem[kv])
-        before = dict(pa.launches_by_route["paged_attention"])
-        out = pa.paged_attention(q, kp, vp, tables, posv, k_scale=ks,
-                                 v_scale=vs)
-        torch.cuda.synchronize()
-        after = pa.launches_by_route["paged_attention"]
-        if after[pl["route"]] != before[pl["route"]] + 1:
-            raise AssertionError(f"kernel case {name}: not launched on the "
-                                 f"{pl['route']} route ({before} -> "
-                                 f"{after})")
-        ref = pa.paged_attention_plain(q, kp, vp, tables, posv, k_scale=ks,
-                                       v_scale=vs)
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(out).all()):
-            raise AssertionError(f"kernel case {name}: non-finite output")
-        diff = (out.float() - ref.float()).abs()
-        err = float(diff.max())
-        # the JAX tests' criterion: |out - ref| <= tol + tol * |ref|
-        over = float((diff - TOL[kv] * ref.float().abs()).max())
-        log(f"  case {name:40s} max_abs_err {err:.3e} (rtol = atol = "
-            f"{TOL[kv]:g}); {pl['route']}, ks {pl['ks']}, "
-            f"{pl['rows']} rows/block, kt {pl['kt']} x "
-            f"{pl['stages']} stages, {pl['smem']} B smem")
-        if over > TOL[kv]:
-            raise AssertionError(f"kernel case {name}: |out - ref| exceeds "
-                                 f"{TOL[kv]} + {TOL[kv]} |ref| (max abs "
-                                 f"err {err})")
-        worst = max(worst, err)
+    for i, case in enumerate(cases):
+        worst = max(worst, check_kernel_case(torch, pa, i, *case))
     return len(cases), worst
+
+
+def check_kernel_case(torch, pa, seed, name, pos, s, d, kv, bs, *live):
+    """One kernel case against the plain version: the call must launch on
+    its plan's route and stay within TOL. Returns the max abs error."""
+    elem = {"f32": 4, "bf16": 2, "int8": 1}
+    h = 4 if "h=4" in name else 16
+    q, pools, tables, posv = make_inputs(torch, pos, s, d, kv, h=h,
+                                         bs=bs, T=256 // bs, seed=seed)
+    if live:
+        tables[live[0]:] = 0
+    kp, vp, ks, vs = pools[0]
+    pl = pa.plan(*q.shape, bs, tables.shape[1], elem[kv])
+    before = dict(pa.launches_by_route["paged_attention"])
+    out = pa.paged_attention(q, kp, vp, tables, posv, k_scale=ks,
+                             v_scale=vs)
+    torch.cuda.synchronize()
+    after = pa.launches_by_route["paged_attention"]
+    if after[pl["route"]] != before[pl["route"]] + 1:
+        raise AssertionError(f"kernel case {name}: not launched on the "
+                             f"{pl['route']} route ({before} -> "
+                             f"{after})")
+    ref = pa.paged_attention_plain(q, kp, vp, tables, posv, k_scale=ks,
+                                   v_scale=vs)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"kernel case {name}: non-finite output")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    # the JAX tests' criterion: |out - ref| <= tol + tol * |ref|
+    over = float((diff - TOL[kv] * ref.float().abs()).max())
+    log(f"  case {name:40s} max_abs_err {err:.3e} (rtol = atol = "
+        f"{TOL[kv]:g}); {pl['route']}, ks {pl['ks']}, "
+        f"{pl['rows']} rows/block, kt {pl['kt']} x "
+        f"{pl['stages']} stages, {pl['smem']} B smem")
+    if over > TOL[kv]:
+        raise AssertionError(f"kernel case {name}: |out - ref| exceeds "
+                             f"{TOL[kv]} + {TOL[kv]} |ref| (max abs "
+                             f"err {err})")
+    return err
 
 
 # ------------------------------------------------------------ phase 4
@@ -433,8 +448,8 @@ def drive(torch, ctr, eng, specs, what, warmed=True):
     reset before: the tokens and the numbers of the run, the peak of
     requests in flight among them. The counts must be exactly
     ``num_layers`` paged-attention launches per prefill or decode
-    dispatch (``n`` per megastep dispatch) of a paged engine, and none of
-    a dense one, and with ``warmed`` (every key was warmed) no step may
+    dispatch (``n`` per megastep dispatch) of a paged engine on the kernel
+    route, and none of a composed or a dense one, and with ``warmed`` (every key was warmed) no step may
     capture a graph."""
     model = eng.model
     d0 = (eng.prefill_dispatches, eng.decode_steps, eng.megastep_dispatches)
@@ -463,7 +478,7 @@ def drive(torch, ctr, eng, specs, what, warmed=True):
     if any(not 0 <= t < vocab for r in reqs for t in r.tokens):
         raise AssertionError(f"{what}: token outside the vocabulary")
     want = model.cfg.num_layers * (pre + dec + eng.megastep * mega) \
-        if eng.paged else 0
+        if eng.paged and eng.attn_impl == "kernel" else 0
     ctr.expect(run, {"paged_attention": want} if want else {}, what)
     if sum(routes.values()) != run["paged_attention"]:
         raise AssertionError(f"{what}: launches by route {routes} do not "
@@ -1221,6 +1236,8 @@ def dense_serving(torch, ctr, card):
         f"({st['prefix_hit_requests']} requests); tokens equal "
         f"({len(pties)} near ties)")
 
+    out["attn"], out["kv_quant"] = attn_and_kv_quant(torch, ctr, card, model)
+
     # the dense and the paged decode step at 8 rows
     prof = {}
     for mode, paged_kv in (("paged", True), ("dense", False)):
@@ -1322,6 +1339,431 @@ def dense_serving(torch, ctr, card):
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def serve_paged(torch, ctr, model, ps, impl, what, kv="f32", slots=8,
+                num_blocks=None, mnt=32, warm_ps=None):
+    """``bench.py:545-558``'s ``serve_paged``: a fresh paged engine at
+    blocks of 8 with the prefix cache off, every request served to its
+    end by hand (``drive``, its peak of requests in flight counted).
+    With ``warm_ps`` the engine first serves one prompt per bucket and
+    ``warm_ps`` (the bench warms a separate engine, whose compiles the
+    reference shares; a port graph holds its engine's pools by address),
+    and the timed run must capture nothing. Returns ``(numbers, tokens,
+    engine)``."""
+    eng = bench_engine(model, max_slots=slots,
+                       max_queue=len(ps) + len(WARM_PROMPTS) + slots,
+                       paged=True, block_size=BENCH_BLOCK,
+                       num_blocks=num_blocks, prefix_cache=False,
+                       attn_impl=impl, kv_dtype=kv)
+    if warm_ps is not None:
+        warm(torch, eng)
+        serve_all(torch, eng, [(p, {"max_new_tokens": mnt})
+                               for p in warm_ps])
+    res, toks = drive(torch, ctr, eng, [(p, {"max_new_tokens": mnt})
+                                        for p in ps], what,
+                      warmed=warm_ps is not None)
+    return res, toks, eng
+
+
+def attn_and_kv_quant(torch, ctr, card, model):
+    """``bench.py:539-633`` as the bench runs it: the kernel route against
+    the composed one at blocks of 8 (32 requests from ``RandomState(6)``,
+    each route's engine warmed first on 8 prompts from ``RandomState(7)``,
+    then timed capturing nothing; tokens equal under the top-2 rule; the
+    speedup reported,
+    the bench's 1.5x target being the TPU's), and int8 against f32 pools
+    of equal bytes (48 uniform 16-token prompts from ``RandomState(8)``,
+    48 slots, so the pool is the binding cap: the concurrency gain must
+    be at least 1.8x, a scheduling fact). The port runs the int8/f32
+    comparison on its default route, the kernel (the bench's engine
+    default is JAX's composed route); both pools run B4 at blocks of 8.
+    Returns ``(attn, kv_quant)``."""
+    cfg = model.cfg
+    vocab = cfg.vocab_size
+    attn_ps = bench_prompts(vocab, 32, 6)
+    warm_ps = bench_prompts(vocab, 8, 7)
+    runs, toks = {}, {}
+    for impl in ("composed", "kernel"):
+        runs[impl], toks[impl], _ = serve_paged(
+            torch, ctr, model, attn_ps, impl, f"{impl}, blocks of 8, timed",
+            warm_ps=warm_ps)
+    ties = same_tokens(torch, model, attn_ps, toks["composed"],
+                       toks["kernel"], "kernel vs composed, blocks of 8")
+    speedup = runs["kernel"]["tokens_per_s"] / runs["composed"]["tokens_per_s"]
+    attn = {"composed_tokens_per_sec": runs["composed"]["tokens_per_s"],
+            "kernel_tokens_per_sec": runs["kernel"]["tokens_per_s"],
+            "speedup": speedup, "near_ties": ties,
+            "kernel": runs["kernel"], "composed": runs["composed"]}
+    log(f"  [{card}] kernel vs composed at blocks of 8, 32 requests: "
+        f"{runs['kernel']['tokens_per_s']:.1f} vs "
+        f"{runs['composed']['tokens_per_s']:.1f} tokens/s, speedup "
+        f"{speedup:.3f} (the bench's 1.5x target is TPU-only); tokens "
+        f"equal ({len(ties)} near ties); 0 captures in either timed run")
+
+    # int8 against f32 at equal pool bytes (bench.py:595-633)
+    bs = BENCH_BLOCK
+    hd = cfg.hidden_size // cfg.num_heads
+    f32_block_bytes = cfg.num_heads * bs * hd * 4
+    int8_block_bytes = cfg.num_heads * (bs * hd + 4)
+    L = min(64, 2 * bs)
+    mnt8 = min(32, 256 - L)
+    blocks_per_req = -(-(L + mnt8) // bs)
+    f32_blocks = 8 * blocks_per_req + 1
+    int8_blocks = (f32_blocks - 1) * f32_block_bytes // int8_block_bytes + 1
+    r = np.random.RandomState(8)
+    nq8 = max(32, 6 * 8)
+    q_ps = [r.randint(1, vocab, size=L).tolist() for _ in range(nq8)]
+    f_run, f_toks, _ = serve_paged(torch, ctr, model, q_ps, "kernel",
+                                   "f32 pool, equal bytes", slots=nq8,
+                                   num_blocks=f32_blocks, mnt=mnt8)
+    q_run, q_toks, q_eng = serve_paged(torch, ctr, model, q_ps, "kernel",
+                                       "int8 pool, equal bytes", kv="int8",
+                                       slots=nq8, num_blocks=int8_blocks,
+                                       mnt=mnt8)
+    f_peak, q_peak = f_run["peak_active"], q_run["peak_active"]
+    gain = q_peak / max(f_peak, 1)
+    if gain < 1.8:
+        raise AssertionError(f"int8 concurrency gain {gain:.2f}x < 1.8x at "
+                             f"equal pool bytes ({f_peak} -> {q_peak})")
+    parity = sum(a == b for a, b in zip(f_toks, q_toks))
+    qerr = q_eng.stats()["kv_quant_max_abs_err"]
+    del q_eng
+    kvq = {"pool_bytes": f32_blocks * f32_block_bytes,
+           "f32_blocks": f32_blocks, "int8_blocks": int8_blocks,
+           "f32_max_concurrent": f_peak, "int8_max_concurrent": q_peak,
+           "concurrency_gain": gain,
+           "token_parity_requests": f"{parity}/{nq8}",
+           "kv_quant_max_abs_err": qerr, "f32": f_run, "int8": q_run}
+    log(f"  [{card}] int8 vs f32 at {f32_blocks * f32_block_bytes} pool "
+        f"bytes ({int8_blocks} vs {f32_blocks} blocks of 8): peak "
+        f"concurrency {q_peak} vs {f_peak}, gain {gain:.3f} (>= 1.8 "
+        f"asserted); token parity {parity}/{nq8} requests; "
+        f"kv_quant_max_abs_err {qerr}")
+    return attn, kvq
+
+
+# ------------------------------------------------------------ phase 5d
+FLEET_SLOTS, FLEET_NEW, FLEET_LEN = 4, 48, 256   # bench.py:651-653
+FLEET_MEGASTEP = 8                               # BENCH_SERVING_MEGASTEP
+
+
+def fleet(model, **kw):
+    """``bench.py:659-661``'s fleet: 2 replicas of ``FLEET_SLOTS`` slots
+    at ``max_len`` ``FLEET_LEN``, the flags' defaults otherwise."""
+    from paddle_tpu_torch.serving import ReplicaRouter
+    kw.setdefault("n_replicas", 2)
+    return ReplicaRouter(model, **{"max_slots": FLEET_SLOTS,
+                                   "max_len": FLEET_LEN, **kw})
+
+
+def replica_graphs(model, eng):
+    """The graphs of ``model``'s step cache that ``eng`` replays: those
+    whose first held tensor is its first pool tensor (address, shape and
+    dtype; a graph of a freed pool that matches all three replays
+    correctly over this one)."""
+    a = eng.cache.arrays()[0][0]
+    first = (a.data_ptr(), "tensor", tuple(a.shape), a.dtype)
+    return sum(1 for ent in getattr(model, "_step_compile_cache",
+                                    {}).values()
+               for st in ent.get("graphs", {}).values()
+               for key in list(st.graphs) if key[1][0] == first)
+
+
+def serve_fleet(torch, ctr, rt, specs, what, warmed=True):
+    """Serve ``specs`` through the router ``rt`` to the end, launch counts
+    zeroed before and read after, each replica's ``step`` timed on the
+    host: the tokens and the run's numbers. The launches must be exactly
+    ``num_layers`` per prefill or decode dispatch (``n`` per megastep
+    dispatch) summed over the replicas; with ``warmed``, nothing may be
+    captured."""
+    model = rt.engines[0].model
+    engines = list(rt.engines)
+    d0 = [(e.prefill_dispatches, e.decode_steps, e.megastep_dispatches)
+          for e in engines]
+    routed0 = [len(e._all) for e in engines]
+    step_ms = {i: [] for i in range(len(engines))}
+    errors = []
+    for i, eng in enumerate(engines):
+        def timed(i=i, step=eng.step):
+            # the router's watchdog turns a raising step into a strike:
+            # record it here, so no failure passes unseen
+            t = time.perf_counter()
+            try:
+                return step()
+            except BaseException as e:
+                errors.append(f"replica {i}: {e!r}")
+                raise
+            finally:
+                step_ms[i].append((time.perf_counter() - t) * 1e3)
+        eng.step = timed
+    cap0 = captures(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctr.zero()
+    t0 = time.perf_counter()
+    reqs = [rt.submit(p, **kw) for p, kw in specs]
+    steps = rt.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run, routes = ctr.read(), ctr.routes()["paged_attention"]
+    for eng in engines:
+        del eng.step
+    new_captures = captures(model) - cap0
+    if errors or rt.stats()["kills"]:
+        raise AssertionError(f"{what}: replica steps raised {errors}")
+    if any(r.state != "done" for r in reqs):
+        raise AssertionError(f"{what}: requests did not finish")
+    want = 0
+    for eng, (p0, s0, m0) in zip(engines, d0):
+        want += model.cfg.num_layers * (
+            eng.prefill_dispatches - p0 + eng.decode_steps - s0 +
+            eng.megastep * (eng.megastep_dispatches - m0))
+    ctr.expect(run, {"paged_attention": want}, what)
+    if sum(routes.values()) != want:
+        raise AssertionError(f"{what}: launches by route {routes} do not "
+                             f"add up to {want}")
+    if new_captures and warmed:
+        raise AssertionError(f"{what}: the timed run captured "
+                             f"{new_captures} graphs; the fleet was warmed")
+    tokens = sum(len(r.tokens) for r in reqs)
+    per = [float(np.percentile(v, 50)) if v else None
+           for v in step_ms.values()]
+    res = {"tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+           "router_steps": steps, "launches": want, "routes": routes,
+           "captures_in_run": new_captures,
+           "replica_step_ms_p50": per,
+           "routed_per_replica": [len(e._all) - n
+                                  for e, n in zip(engines, routed0)],
+           "graphs_per_replica": [replica_graphs(model, e)
+                                  for e in engines],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+    log(f"  {what}: {tokens} tokens in {wall:.3f} s "
+        f"({tokens / wall:.1f} tokens/s), {steps} router steps, replica "
+        f"step p50 {per} ms, {want} paged launches {routes}, "
+        f"{new_captures} captures, routed {res['routed_per_replica']}, "
+        f"graphs per replica {res['graphs_per_replica']}, peak allocated "
+        f"{res['peak_bytes']} B, reserved {res['peak_reserved_bytes']} B")
+    return res, [r.tokens for r in reqs]
+
+
+def fleet_serving(torch, ctr, card):
+    """Phase 5d: the replica fleet on a fresh seeded gpt2-medium (f32,
+    blocks of 16). ``bench.py:636-725``'s megastep block: 16 prompts of 8
+    tokens from ``RandomState(9)``, 48 new tokens each, 2 replicas of 4
+    slots, through megastep 1 serially and megastep 8 from a 2-thread
+    dispatch pool, each arm warmed, then timed; tokens equal exactly. The
+    timed pass reuses the warmed fleet: a graph holds its replica's pools
+    by address, so a fresh fleet would capture again (the reference's
+    compiles are per model). Then the router half of ``bench.py:775-799``
+    (2 replicas of 8 slots, 32 prompts from ``RandomState(4)``, tokens
+    equal a single engine's); fresh fleets stepped from threads with no
+    warm-up (``start()`` / ``results()`` and ``dispatch_threads=2``),
+    whose first captures run while the other replica replays; supervision
+    (a kill mid-decode with greedy and sampled requests on the victim,
+    three restarts with flat reserved memory, a rolling weight swap);
+    and B4 against its plain version at the fleet's shapes."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    vocab = cfg.vocab_size
+    out = {}
+
+    # bench.py:636-725, the megastep block
+    r9 = np.random.RandomState(9)
+    ms_ps = [r9.randint(1, vocab, size=8).tolist()
+             for _ in range(4 * FLEET_SLOTS)]
+    ms_specs = [(p, {"max_new_tokens": FLEET_NEW}) for p in ms_ps]
+    arms, arm_toks = {}, {}
+    try:
+        for name, n, threads in (("serial", 1, 0),
+                                 ("megastep", FLEET_MEGASTEP, 2)):
+            flags.set_flags({"serving_megastep": n,
+                             "serving_dispatch_ahead": False,
+                             "serving_dispatch_threads": threads})
+            rt = fleet(model, max_queue=len(ms_ps) + FLEET_SLOTS)
+            serve_fleet(torch, ctr, rt, ms_specs, f"{name} arm, warm-up",
+                        warmed=False)
+            arms[name], arm_toks[name] = serve_fleet(
+                torch, ctr, rt, ms_specs,
+                f"{name} arm (megastep {n}, {threads} dispatch threads), "
+                "timed")
+            rt.stop()
+            del rt
+    finally:
+        flags.set_flags({"serving_megastep": 1,
+                         "serving_dispatch_ahead": False,
+                         "serving_dispatch_threads": 0})
+    same_bytes(arm_toks["serial"], arm_toks["megastep"],
+               "megastep 8 + threads vs serial megastep 1")
+    speedup = arms["megastep"]["tokens_per_s"] / arms["serial"]["tokens_per_s"]
+    out["megastep"] = {"arms": arms, "speedup": speedup,
+                       "gate_1_2x_met": speedup >= 1.2}
+    log(f"  [{card}] megastep block: serial {arms['serial']['tokens_per_s']:.1f}"
+        f" tokens/s, megastep {FLEET_MEGASTEP} + 2 threads "
+        f"{arms['megastep']['tokens_per_s']:.1f} tokens/s, speedup "
+        f"{speedup:.3f} (bench gate 1.2x {'met' if speedup >= 1.2 else 'missed'}"
+        f", reported); tokens equal byte for byte")
+
+    # the router half of bench.py:775-799
+    tp_ps = bench_prompts(vocab, 32, 4)
+    tp_specs = [(p, {"max_new_tokens": 32}) for p in tp_ps]
+    single = bench_engine(model, max_queue=len(tp_ps) + 8)
+    s_toks = serve_all(torch, single, tp_specs)
+    del single
+    rt = fleet(model, max_slots=8, max_queue=len(tp_ps) + 8)
+    res, r_toks = serve_fleet(torch, ctr, rt, tp_specs,
+                              "router, 2 replicas x 8 slots (captures "
+                              "included, as the bench times it)",
+                              warmed=False)
+    rt.stop()
+    del rt
+    ties = same_tokens(torch, model, tp_ps, s_toks, r_toks,
+                       "router vs single engine")
+    out["router"] = {**res, "near_ties": ties}
+    log(f"  [{card}] router: {res['tokens_per_s']:.1f} tokens/s, "
+        f"routed_per_replica {res['routed_per_replica']}; tokens == a "
+        f"single engine's ({len(ties)} near ties)")
+
+    # threads with no warm-up: first captures while the other replays
+    ref = arm_toks["serial"]
+    rt = fleet(model, max_queue=len(ms_ps) + FLEET_SLOTS)
+    rt.start()
+    try:
+        reqs = [rt.submit(p, **kw) for p, kw in ms_specs]
+        started = [r.tokens for r in rt.results(reqs, timeout=120)]
+    finally:
+        rt.stop()
+    del rt, reqs
+    t_ties = same_tokens(torch, model, ms_ps, ref, started,
+                         "fresh fleet on background threads vs serial")
+    rt = fleet(model, max_queue=len(ms_ps) + FLEET_SLOTS,
+               dispatch_threads=2)
+    thr, thr_toks = serve_fleet(torch, ctr, rt, ms_specs,
+                                "fresh fleet, 2 dispatch threads, no "
+                                "warm-up", warmed=False)
+    rt.stop()
+    del rt
+    d_ties = same_tokens(torch, model, ms_ps, ref, thr_toks,
+                         "fresh threaded fleet vs serial")
+    out["threads_unwarmed"] = {"start_near_ties": t_ties,
+                               "dispatch": thr, "dispatch_near_ties": d_ties}
+    log(f"  [{card}] unwarmed fleets: start()/results() and 2 dispatch "
+        f"threads == serial tokens ({len(t_ties)} / {len(d_ties)} near "
+        f"ties), captured {thr['captures_in_run']} graphs while the "
+        "other replica replayed, no capture error")
+
+    out["supervision"] = fleet_supervision(torch, ctr, card, model, ms_ps)
+
+    # B4 at the fleet's shapes against its plain version
+    rng = np.random.RandomState(5)
+    dec4 = [int(p) for p in rng.randint(8, 56, size=FLEET_SLOTS)]
+    dec8 = [int(p) for p in rng.randint(4, 96, size=8)]
+    cases = [("fleet decode s=1 b=4 f32", dec4, 1, 64, "f32", 16),
+             ("fleet prefill s=16 b=4 f32", [0] * FLEET_SLOTS, 16, 64,
+              "f32", 16),
+             ("fleet decode s=1 b=8 f32", dec8, 1, 64, "f32", 16),
+             ("fleet prefill s=64 b=8 3 live f32", [0] * 8, 64, 64, "f32",
+              16, 3)]
+    with ctr.aside():
+        worst = max(check_kernel_case(torch, pa, 100 + i, *c)
+                    for i, c in enumerate(cases))
+    out["kernel_cases"] = len(cases)
+    out["kernel_max_abs_err"] = worst
+    log(f"  B4 vs plain at the fleet's shapes: {len(cases)} cases, max abs "
+        f"err {worst:.3e}")
+    release_graphs(torch, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fleet_supervision(torch, ctr, card, model, prompts):
+    """Kill, restart and swap on the card: a replica killed mid-decode
+    with greedy and sampled requests on it (greedy tokens equal an
+    unkilled run's under the top-2 rule, sampled ones counted; no block
+    leaked on any pool); three ``restart_replica`` cycles, each followed
+    by a serve, with ``memory_reserved`` flat after the first (the
+    killed replica's pools and graphs are freed); a rolling
+    ``swap_weights`` whose tokens equal a fresh fleet's on the new
+    weights."""
+    specs = [(p, dict(max_new_tokens=FLEET_NEW,
+                      **(dict(SAMPLED, seed=700 + i) if i % 2 else {})))
+             for i, p in enumerate(prompts[:8])]
+    rt = fleet(model, max_queue=24)
+    ref = serve_all(torch, rt, specs)
+    rt.stop()
+    del rt
+    rt = fleet(model, max_queue=24)
+    reqs = [rt.engines[0].submit(p, **kw) for p, kw in specs]
+    for _ in range(6):
+        rt.engines[0].step()
+    inflight = [len(r.tokens) for r in reqs]
+    info = rt.kill_replica(0)
+    rt.run_until_idle()
+    torch.cuda.synchronize()
+    got = [r.tokens for r in reqs]
+    greedy = [i for i in range(len(specs)) if i % 2 == 0]
+    ties = same_tokens(torch, model, [prompts[i] for i in greedy],
+                       [ref[i] for i in greedy], [got[i] for i in greedy],
+                       "greedy requests re-homed off a killed replica")
+    sampled_equal = sum(got[i] == ref[i] for i in range(1, len(specs), 2))
+    for eng in rt.engines + rt._retiring:
+        eng.cache.flush_prefix_cache()
+        if eng.cache.allocator.leaked() != 1:
+            raise AssertionError("a pool leaked blocks after the kill")
+    kill = {"info": info, "inflight_tokens": inflight, "near_ties": ties,
+            "sampled_equal": f"{sampled_equal}/{len(specs) // 2}"}
+    log(f"  [{card}] kill mid-decode (in flight {inflight}): {info}; "
+        f"greedy == unkilled ({len(ties)} near ties), sampled equal "
+        f"{kill['sampled_equal']}; every pool leaked() == 1")
+
+    # reserved memory after each cycle, the allocator's free cache
+    # returned first (every capture empties it too, so only what is held
+    # compares): the killed replica's pools and graphs must be freed
+    reserved, graphs = [], []
+    small = [(p, {"max_new_tokens": 8}) for p in prompts[:4]]
+    for cycle in range(3):
+        rt.restart_replica(0)
+        serve_all(torch, rt, small)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved.append(torch.cuda.memory_reserved())
+        graphs.append(sum(len(st.graphs) for ent in
+                          model._step_compile_cache.values()
+                          for st in ent.get("graphs", {}).values()))
+    if max(reserved[1:]) > reserved[0] or max(graphs[1:]) > graphs[0]:
+        raise AssertionError(f"restart cycles grew reserved memory "
+                             f"{reserved} or graphs {graphs}")
+    log(f"  [{card}] three restart_replica cycles: memory_reserved "
+        f"{reserved} B, graphs in the step cache {graphs}")
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    new = {name: p.detach() + 0.01 * torch.randn(p.shape, device=p.device,
+                                                 generator=gen)
+           for name, p in model.named_parameters()}
+    greedy_specs = [(p, {"max_new_tokens": 32}) for p in prompts[:8]]
+    versions = rt.swap_weights(new)
+    swapped = serve_all(torch, rt, greedy_specs)
+    rt.stop()
+    del rt
+    fresh = fleet(model, max_queue=24)
+    fresh_toks = serve_all(torch, fresh, greedy_specs)
+    fresh.stop()
+    del fresh
+    sties = same_tokens(torch, model, prompts[:8], fresh_toks, swapped,
+                        "rolling swap vs a fresh fleet")
+    log(f"  [{card}] rolling swap_weights: versions {versions}; tokens == "
+        f"a fresh fleet's on the new weights ({len(sties)} near ties)")
+    return {"kill": kill, "restart_reserved_bytes": reserved,
+            "restart_graphs": graphs, "swap_versions": versions,
+            "swap_near_ties": sties}
 
 
 # ------------------------------------------------------------ phase 6
@@ -3495,13 +3937,19 @@ def resnet_bench(torch, ctr, card):
         opt_ms, opt_names = device_trace(torch, opt.step)
     imgs = b / dt
     mfu = 3.0 * RESNET50_FWD_FLOPS_224 * imgs / BF16_FLOPS
+    # Momentum's least time: each parameter, its gradient and its velocity
+    # read once, the parameter and the velocity written once
+    upd_bytes = sum(p.numel() * p.element_size() * 5
+                    for p in model.parameters())
     res = {"step_ms": dt * 1e3, "images_per_s": imgs, "mfu": mfu,
            "losses": losses, "device_busy_ms": busy,
            "idle_share": 1.0 - busy / (dt * 1e3),
            "kernels_per_step": sum(names.values()) / 2,
            "kernel_groups": groups,
            "momentum_kernels": sum(opt_names.values()),
-           "momentum_ms": opt_ms, "peak_bytes": peak,
+           "momentum_ms": opt_ms,
+           "momentum_bound_ms": upd_bytes / HBM_BYTES_PER_S * 1e3,
+           "momentum_bytes": upd_bytes, "peak_bytes": peak,
            "peak_reserved_bytes": reserved, "warm_s": warm_s,
            "cudnn": "deterministic False, benchmark False (defaults)"}
     log(f"  resnet50: losses {losses}")
@@ -3512,7 +3960,9 @@ def resnet_bench(torch, ctr, card):
         f"per step, idle share {res['idle_share']:.4f}, "
         f"{res['kernels_per_step']:.0f} kernels per step by group "
         f"{ {g: round(v, 1) for g, v in groups.items()} }; Momentum's "
-        f"update alone {res['momentum_kernels']} kernels, {opt_ms:.3f} ms; "
+        f"update alone {res['momentum_kernels']} kernels, {opt_ms:.3f} ms "
+        f"against a {res['momentum_bound_ms']:.4f} ms bound ({upd_bytes} B "
+        "moved); "
         f"max_memory_allocated {peak} B, max_memory_reserved {reserved} B; "
         f"2 to_static calls and the warm K call took {warm_s:.1f} s")
     del step, multi, opt, xs, ls
@@ -3702,6 +4152,12 @@ def main():
     dns = dense_serving(torch, ctr, card)
     log(f"  phase 5c took {time.perf_counter() - t_dense:.1f} s")
 
+    log("== phase 5d: the replica fleet, gpt2-medium: bench.py's megastep "
+        "and router blocks, threads with no warm-up, kill / restart / swap")
+    t_fleet = time.perf_counter()
+    flt = fleet_serving(torch, ctr, card)
+    log(f"  phase 5d took {time.perf_counter() - t_fleet:.1f} s")
+
     log("== phase 6: flash kernels vs plain")
     n_flash, flash_err = check_flash(torch, fa, ctr)
     log(f"  {n_flash} cases passed, max abs err by kernel {flash_err}")
@@ -3803,10 +4259,12 @@ def main():
                 "library_ms": t["library_ms"], **extra}
 
     main_t = times["f32"]
+    mega = flt["megastep"]["arms"]["megastep"]
     kernels = [entry("paged_attention", "paged_attention.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:55",
-                     srv["launches"], worst, {**main_t, "library_ms": None},
-                     cases_passed=n_cases,
+                     srv["launches"], max(worst, flt["kernel_max_abs_err"]),
+                     {**main_t, "library_ms": None},
+                     cases_passed=n_cases + flt["kernel_cases"],
                      by_kv_dtype={kv: times[kv]
                                   for kv in ("f32", "bf16", "int8")},
                      by_shape={"decode": times["f32"],
@@ -3823,7 +4281,13 @@ def main():
                      launches_block8=dns["paged_vs_dense"]["paged"][
                          "launches"],
                      launches_by_route_block8=dns["paged_vs_dense"][
-                         "paged"]["routes"])]
+                         "paged"]["routes"],
+                     launches_fleet_serial=flt["megastep"]["arms"][
+                         "serial"]["launches"],
+                     launches_fleet_megastep=mega["launches"],
+                     launches_by_route_fleet_megastep=mega["routes"],
+                     launches_fleet_router=flt["router"]["launches"],
+                     fleet_max_abs_err=flt["kernel_max_abs_err"])]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]
@@ -3878,7 +4342,8 @@ def main():
 
     print(json.dumps({"serving": summary(srv), "serving_modes": modes,
                       "sampled_serving": summary(smp),
-                      "dense_serving": summary(dns), "fp16_gpt": f16,
+                      "dense_serving": summary(dns),
+                      "fleet_serving": summary(flt), "fp16_gpt": f16,
                       "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes, "optimizer_plane": plane,

@@ -211,3 +211,147 @@ define_flag("pallas_flash_block_q", 512,
 define_flag("pallas_flash_block_k", 512,
             "Flash-attention k-block size; the same rule as "
             "pallas_flash_block_q, for the key sequence.")
+
+# The serving engine's background thread and the router's dispatch
+# (ServingEngine.start, ReplicaRouter.step).
+define_flag("serving_idle_wait", 0.05,
+            "ServingEngine background loop: seconds to wait for new "
+            "submissions when no request is queued or in flight.")
+define_flag("serving_dispatch_ahead", False,
+            "Megastep pipelining: after committing megastep k, "
+            "dispatch k+1 from k's device-carry outputs before "
+            "syncing, so host commit work overlaps device execution "
+            "(jax.block_until_ready only at commit). The speculative "
+            "dispatch is consumed only if the scheduler state it "
+            "assumed is unchanged (no finishes, no admissions, no "
+            "weight/flag changes); otherwise it is discarded — pools "
+            "are pure functional values, so a discard has no side "
+            "effects. Requires serving_megastep > 1.")
+define_flag("serving_dispatch_threads", 0,
+            "Router dispatch concurrency: ReplicaRouter / DisaggRouter "
+            "step their replicas from a bounded thread pool of this "
+            "size instead of the serial per-engine loop (engines are "
+            "stepped concurrently; health strikes, hedging and "
+            "deadline reaping stay at step boundaries with identical "
+            "semantics). 0 (default) = serial stepping, byte-identical "
+            "scheduling order.")
+
+# The replica fleet (serving/router.py): routing, autoscaling,
+# supervision, hedging and the per-replica circuit breaker.
+define_flag("serving_replicas", 1,
+            "Data-parallel serving replicas fronted by ReplicaRouter: "
+            "submit() routes each request to the least-loaded replica "
+            "(predicted TTFT from queue depth + free KV blocks), with "
+            "shed/drain semantics riding the resilience plane's "
+            "RetryPolicy at the serving.route fault site. 1 (default) "
+            "means a single engine with no router in front.")
+define_flag("serving_autoscale", "",
+            "ReplicaRouter autoscaling bounds as 'MIN:MAX' replicas "
+            "(e.g. '1:4'). When set, the router consults an "
+            "AutoscalePolicy each step — scale up on queue-depth / "
+            "free-KV-block / SLO-attainment pressure, scale down by "
+            "draining the emptiest replica when load subsides. "
+            "Replicas share one placed model, so scaling reuses the "
+            "compiled steps instead of retracing. Empty (default) "
+            "disables autoscaling.")
+define_flag("serving_replica_strikes", 3,
+            "ReplicaRouter failure detection: consecutive unproductive "
+            "steps (a step() that raised, or did no work while the "
+            "replica held queued/active requests) before a replica is "
+            "declared dead. One strike marks it suspect (deprioritized "
+            "in routing); reaching the limit marks it dead — excluded "
+            "from routing and, under serving_auto_restart, replaced. "
+            "A productive step clears the strikes.")
+define_flag("serving_auto_restart", True,
+            "ReplicaRouter recovery policy: when a replica is declared "
+            "dead (strike watchdog or a serving.replica `error`/`drop` "
+            "fault), spawn a same-geometry replacement before tearing "
+            "the dead one down — queued work re-homes onto live peers, "
+            "in-flight decodes re-prefill from their committed tokens, "
+            "and the replacement reuses the compiled steps (zero new "
+            "XLA compiles). False leaves the fleet one replica "
+            "smaller (kill without restart).")
+define_flag("serving_hedge_ms", 0.0,
+            "ReplicaRouter hedged prefill (the Dean & Barroso "
+            "tail-at-scale move): when a submission's assigned "
+            "replica predicts a TTFT beyond this many ms, dispatch a "
+            "hedge copy to the second-best healthy replica after the "
+            "same delay — first first-token wins, the loser is "
+            "canceled with every KV block and LoRA pin reclaimed. "
+            "0 (default) disables hedging; a negative value derives "
+            "the threshold live from the traced fleet's TTFT p95 "
+            "(observability.tracing), so the hedge line tracks the "
+            "tail it is trimming. Pure host-side queue surgery: "
+            "predict_serving_compiles(hedge=N) is a validated no-op.")
+define_flag("serving_hedge_budget", 0.05,
+            "ReplicaRouter hedged prefill: token-bucket bound on "
+            "duplicated work — each offered submission deposits this "
+            "many hedge tokens and each dispatched hedge spends one, "
+            "so hedges never exceed budget * offered (+1 initial "
+            "allowance). 0 refuses all hedges even when "
+            "serving_hedge_ms arms them.")
+define_flag("serving_breaker_window", 20,
+            "ReplicaRouter per-replica circuit breaker: recent step "
+            "outcomes (ok / raised) remembered per replica. The "
+            "breaker complements the strike watchdog: strikes need "
+            "consecutive failures, the breaker trips on failure RATE "
+            "over this window, so a replica flapping between ok and "
+            "error stops receiving traffic before it ever reaches "
+            "the strike limit. 0 disables the breaker.")
+define_flag("serving_breaker_threshold", 0.5,
+            "ReplicaRouter per-replica circuit breaker: failure "
+            "fraction over the outcome window (with at least half "
+            "the window observed) that opens the breaker — an open "
+            "replica is skipped by routing like a draining one.")
+define_flag("serving_breaker_cooldown_s", 5.0,
+            "ReplicaRouter per-replica circuit breaker: seconds "
+            "(engine clock) an open breaker holds before going "
+            "half-open — one probe routes through; success closes "
+            "the breaker, failure re-opens it for another cooldown.")
+
+# Resilience plane (resilience/): fault injection and retry. All
+# deterministic so chaos runs replay exactly.
+define_flag("fault_spec", "",
+            "Deterministic fault-injection spec, "
+            "'site:kind[@trigger];...' (grammar in "
+            "resilience/injector.py). Empty = every fault_point is a "
+            "no-op. PADDLE_TPU_FAULT_SPEC is honored when the flag is "
+            "unset.")
+define_flag("fault_seed", 0,
+            "Seed for probabilistic fault triggers and retry jitter — "
+            "same spec + seed replays the same faults.")
+define_flag("retry_max_attempts", 5,
+            "RetryPolicy: attempts before giving up (first try "
+            "included).")
+define_flag("retry_base_delay", 0.05,
+            "RetryPolicy: first backoff delay in seconds (doubles per "
+            "retry).")
+define_flag("retry_max_delay", 2.0,
+            "RetryPolicy: per-retry backoff cap in seconds.")
+define_flag("retry_deadline", 30.0,
+            "RetryPolicy: wall-clock budget in seconds across all "
+            "attempts of one call.")
+define_flag("retry_budget_ratio", 0.1,
+            "Fleet-wide RetryBudget: retry tokens earned per "
+            "successful call (the classic 'retries may add at most "
+            "this fraction of extra load'). Budgeted sites "
+            "(serving.route / serving.handoff / serving.replica) "
+            "withdraw one token per retry attempt; an empty bucket "
+            "turns the retry into an immediate RetryError, so "
+            "correlated failures shed as backpressure instead of "
+            "amplifying into a retry storm.")
+define_flag("retry_budget_reserve", 10.0,
+            "Fleet-wide RetryBudget: tokens the shared bucket starts "
+            "with (and its refill cap is 10x this floor), so isolated "
+            "early failures still retry before any successes have "
+            "funded the budget.")
+
+# Observability plane (observability/): the structured run log.
+define_flag("runlog_dir", "",
+            "Directory for the structured JSONL run log "
+            "(observability.log_event); one runlog-<pid>.jsonl per "
+            "process. Empty (default) keeps events in memory only.")
+define_flag("runlog_max_mb", 64.0,
+            "Size cap in MB for the active run-log file; on overflow "
+            "it rotates to <name>.1 (replacing the previous one), so a "
+            "process writes at most two caps of disk.")

@@ -87,9 +87,19 @@ def _counted_modules():
     return (adamw, flash_attention, flash_pack2, layer_norm, paged_attention)
 
 
+def _launch_lock():
+    from .ops.cuda import _launches
+    return _launches.lock
+
+
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count: ``{(module, kernel, route):
     n}``, route None for the per-kernel totals."""
+    with _launch_lock():
+        return _read_counts()
+
+
+def _read_counts() -> dict:
     out = {}
     for m in _counted_modules():
         name = m.__name__.rsplit(".", 1)[1]
@@ -105,6 +115,11 @@ def launch_counts() -> dict:
 
 
 def _set_launch_counts(counts):
+    with _launch_lock():
+        _write_counts(counts)
+
+
+def _write_counts(counts):
     mods = {m.__name__.rsplit(".", 1)[1]: m for m in _counted_modules()}
     for (name, kernel, route), n in counts.items():
         m = mods[name]
@@ -117,8 +132,9 @@ def _set_launch_counts(counts):
 
 
 def _add_launch_counts(delta):
-    now = launch_counts()
-    _set_launch_counts({k: now[k] + n for k, n in delta.items()})
+    with _launch_lock():
+        now = _read_counts()
+        _write_counts({k: now[k] + n for k, n in delta.items()})
 
 
 # ----------------------------------------------------------------- helpers
@@ -195,6 +211,10 @@ def capture_enabled() -> bool:
 
 _streams = {}      # device -> the stream steps warm up and capture on
 
+#: held around every warm-up and capture: they share one side stream per
+#: device, and a capture must record no other thread's work on it
+_capture_lock = threading.RLock()
+
 
 def _side_stream(dev):
     s = _streams.get(dev)
@@ -208,35 +228,36 @@ def warm_up(dev, fn, *args):
     caller's stream and before its later work (``torch.cuda.graphs``'
     warm-up rule: kernels load and cuBLAS makes its handles there, never
     under capture)."""
-    cur = torch.cuda.current_stream(dev)
-    side = _side_stream(dev)
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        out = fn(*args)
-    cur.wait_stream(side)
+    with _capture_lock:
+        cur = torch.cuda.current_stream(dev)
+        side = _side_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = fn(*args)
+        cur.wait_stream(side)
     return out
 
 
-def capture(dev, fn, args, pool=None):
+def capture(dev, fn, args, pool=None, mode="global"):
     """``fn(*args)`` recorded as one ``torch.cuda.CUDAGraph`` on the
     capture stream, its memory from ``pool`` (a
-    ``torch.cuda.graph_pool_handle()``; None: a pool of its own). Returns
+    ``torch.cuda.graph_pool_handle()``; None: a pool of its own), in
+    ``torch.cuda.graph``'s ``capture_error_mode`` ``mode``. Returns
     ``(graph, outputs, delta)``, ``delta`` being the launch counts one
-    replay adds. The capture runs nothing, so the counts are restored,
-    also when it raises. The graph keeps its ``cudaGraph_t`` beside the
-    executable, which is instantiated here, so :func:`graph_kernels` can
-    count what a replay launches."""
-    counts = launch_counts()
+    replay adds: the launches onto the capturing stream, which run
+    nothing, so they go there and not into the counts (launches other
+    threads make meanwhile on their own streams count as usual). The
+    graph keeps its
+    ``cudaGraph_t`` beside the executable, which is instantiated here,
+    so :func:`graph_kernels` can count what a replay launches. One
+    capture or warm-up runs at a time (``_capture_lock``)."""
+    from .ops.cuda import _launches
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    try:
-        with torch.cuda.graph(graph, pool=pool, stream=_side_stream(dev)):
+    with _capture_lock, _launches.recording() as delta:
+        with torch.cuda.graph(graph, pool=pool, stream=_side_stream(dev),
+                              capture_error_mode=mode):
             out = fn(*args)
         graph.instantiate()
-        now = launch_counts()
-    finally:
-        _set_launch_counts(counts)
-    delta = {k: n - counts.get(k, 0) for k, n in now.items()
-             if n != counts.get(k, 0)}
     return graph, out, delta
 
 
@@ -541,11 +562,21 @@ class HeldStep:
     ``graphs`` (a pool allocated later at the same address, with the
     same shape, replays them correctly) until :meth:`forget` drops them.
     ``last`` is the graph the last call captured or replayed (None after
-    an eager call)."""
+    an eager call), in whichever thread called last.
 
-    def __init__(self, body, params, traces, pool, what):
+    Threads: a call holds ``lock`` (the model's trace lock, shared by
+    every step of the model and by ``ServingEngine.swap_weights``) while
+    it enqueues its replay or runs its body, so a replay never reads a
+    half-swapped set of weights; the replay itself runs on the device
+    after the lock is released. A capture records in
+    ``capture_error_mode="thread_local"`` under :func:`capture`'s lock:
+    other threads go on replaying their graphs on their own stream
+    meanwhile."""
+
+    def __init__(self, body, params, traces, pool, what, lock=None):
         self.body, self.params = body, list(params)
         self.traces, self.pool, self.what = traces, pool, what
+        self.lock = lock if lock is not None else threading.RLock()
         self.graphs = {}          # key -> _HeldGraph
         self.signatures = set()   # CPU: input signatures seen
         self.last = None
@@ -553,25 +584,26 @@ class HeldStep:
     def __call__(self, small, held):
         small = [_as_tensor(a) for a in small]
         dev = held[0][0].device
-        if dev.type == "cuda" and capture_enabled():
-            key = (tuple(_signature(a) for a in small),
-                   tuple((a.data_ptr(), *_signature(a))
-                         for layer in held for a in layer),
-                   tuple(map(torch.Tensor.data_ptr, self.params)))
-            g = self.graphs.get(key)
-            if g is not None:
-                self.last = g
-                return g.run(small)
-            return self._capture(dev, key, small, held)
-        self.last = None
-        small = [a.to(dev) for a in small]
-        if dev.type == "cpu":
-            sig = (tuple(_signature(a) for a in small),
-                   tuple(_signature(a) for layer in held for a in layer))
-            if sig not in self.signatures:
-                self.signatures.add(sig)
-                self.traces["count"] += 1
-        out, back = self.body(*small, held)
+        with self.lock:
+            if dev.type == "cuda" and capture_enabled():
+                key = (tuple(_signature(a) for a in small),
+                       tuple((a.data_ptr(), *_signature(a))
+                             for layer in held for a in layer),
+                       tuple(map(torch.Tensor.data_ptr, self.params)))
+                g = self.graphs.get(key)
+                if g is not None:
+                    self.last = g
+                    return g.run(small)
+                return self._capture(dev, key, small, held)
+            self.last = None
+            small = [a.to(dev) for a in small]
+            if dev.type == "cpu":
+                sig = (tuple(_signature(a) for a in small),
+                       tuple(_signature(a) for layer in held for a in layer))
+                if sig not in self.signatures:
+                    self.signatures.add(sig)
+                    self.traces["count"] += 1
+            out, back = self.body(*small, held)
         _check_held(held, back, self.what)
         return out
 
@@ -579,10 +611,11 @@ class HeldStep:
         """Drop the graphs that hold a tensor at one of the addresses
         ``ptrs`` (held tensors about to be freed), with their memory."""
         ptrs = set(ptrs)
-        for key in [k for k in self.graphs
-                    if any(p in ptrs for p, *_ in k[1])]:
-            if self.last is self.graphs.pop(key):
-                self.last = None
+        with self.lock, _capture_lock:
+            for key in [k for k in self.graphs
+                        if any(p in ptrs for p, *_ in k[1])]:
+                if self.last is self.graphs.pop(key):
+                    self.last = None
 
     def _capture(self, dev, key, small, held):
         inputs = [a.to(dev, copy=True) for a in small]
@@ -590,7 +623,7 @@ class HeldStep:
         _check_held(held, back, self.what)
         ptrs = tuple(map(torch.Tensor.data_ptr, self.params))
         graph, (outputs, back), delta = capture(
-            dev, self.body, [*inputs, held], self.pool)
+            dev, self.body, [*inputs, held], self.pool, mode="thread_local")
         _check_held(held, back, f"{self.what} under capture")
         if tuple(map(torch.Tensor.data_ptr, self.params)) != ptrs:
             raise RuntimeError(f"{self.what} rebound a parameter under "

@@ -46,6 +46,7 @@ Not ported yet: LoRA and the mesh steps.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -56,6 +57,27 @@ from .. import prng
 from ..jit import HeldStep
 from ..serving.decoding import (DecodeParams, greedy_tokens, sample_tokens,
                                 stops_advance, stops_matched, verify_tokens)
+
+
+_TRACE_LOCK_GUARD = threading.Lock()
+
+
+def model_trace_lock(model) -> threading.RLock:
+    """The per-model lock every step of ``model`` and every write of its
+    weights share, ``paddle_tpu/models/generation.py:39``'s counterpart.
+    The reference holds it while a trace borrows the parameters; here a
+    step holds it while it enqueues its graph's replay (or runs its
+    eager body, or captures), and ``ServingEngine.swap_weights`` while it
+    copies the new values in, so a replica stepped from another thread
+    reads either the old weights or the new ones, never a mix. It also
+    guards the step cache's dict. Reentrant, as the reference's."""
+    lk = model.__dict__.get("_step_trace_lock")
+    if lk is None:
+        with _TRACE_LOCK_GUARD:
+            lk = model.__dict__.get("_step_trace_lock")
+            if lk is None:
+                lk = model._step_trace_lock = threading.RLock()
+    return lk
 
 
 def step_entry(model, key, build):
@@ -69,25 +91,27 @@ def step_entry(model, key, build):
     ``flags.version()``: a ``set_flags`` retires every entry and its
     graphs, and the next call builds the entry anew, whose first call
     captures (on the CPU: traces) again. The new entry counts on in the
-    old one's ``traces``, so the count of a key only rises.
-
-    The reference's per-model trace lock (``model_trace_lock``) and mesh
-    keys wait for the threaded router and mesh serving; this cache is
-    used from one thread."""
-    cache = model.__dict__.setdefault("_step_compile_cache", {})
-    ent = cache.get(key)
-    if ent is not None and ent["flags_version"] == _flags.version():
-        return ent
-    new = build(ent["traces"] if ent is not None else {"count": 0})
-    new["flags_version"] = _flags.version()
-    cache[key] = new
-    return new
+    old one's ``traces``, so the count of a key only rises. The cache is
+    read and filled under :func:`model_trace_lock`; mesh keys wait for
+    mesh serving."""
+    with model_trace_lock(model):
+        cache = model.__dict__.setdefault("_step_compile_cache", {})
+        ent = cache.get(key)
+        if ent is not None and ent["flags_version"] == _flags.version():
+            return ent
+        new = build(ent["traces"] if ent is not None else {"count": 0})
+        new["flags_version"] = _flags.version()
+        cache[key] = new
+        return new
 
 
 def _graph_pool(model):
     """The memory pool every step graph of ``model`` captures into. One
-    pool is safe: replays run one at a time, in the caller's stream
-    order, and each replay's outputs are cloned before the next."""
+    pool is safe: replays run one at a time, in stream order on the one
+    stream every caller uses (the default stream, also in the router's
+    worker threads), and each replay's outputs are cloned, under the
+    model's trace lock, before the next replay is enqueued. A caller
+    replaying on a stream of its own would break this."""
     pool = model.__dict__.get("_step_graph_pool")
     if pool is None:
         pool = model._step_graph_pool = torch.cuda.graph_pool_handle()
@@ -96,7 +120,18 @@ def _graph_pool(model):
 
 def _held(model, body, traces, what):
     pool = _graph_pool(model) if model.device.type == "cuda" else None
-    return HeldStep(body, model.parameters(), traces, pool, what)
+    return HeldStep(body, model.parameters(), traces, pool, what,
+                    lock=model_trace_lock(model))
+
+
+def forget_held(model, ptrs):
+    """Drop every graph of ``model``'s step cache that holds a tensor at
+    one of the addresses ``ptrs`` (held tensors about to be freed: a
+    killed replica's pools, an offline cache of another capacity), with
+    the memory the graph keeps."""
+    for ent in list(getattr(model, "_step_compile_cache", {}).values()):
+        for step in ent.get("graphs", {}).values():
+            step.forget(ptrs)
 
 
 def _unwrap_pools(newp):
@@ -166,10 +201,7 @@ def fixed_cache(model, batch: int, capacity: int):
     if old is not None and old[0] == cap:
         return old[1]
     if old is not None:
-        ptrs = [a.data_ptr() for layer in old[1] for a in layer]
-        for ent in getattr(model, "_step_compile_cache", {}).values():
-            for step in ent.get("graphs", {}).values():
-                step.forget(ptrs)
+        forget_held(model, [a.data_ptr() for layer in old[1] for a in layer])
     caches[b] = (cap, model.gpt.gen_fixed_cache(b, cap))
     return caches[b][1]
 
@@ -282,7 +314,8 @@ def prefill_step(model, bucket: int, max_slots: int, max_len: int):
             (lg,) = held([ids, last, pos], rows)
             return lg, rows
 
-        return {"fn": fn, "traces": traces}
+        return {"fn": fn, "traces": traces,
+                "graphs": {"prefill": held}}
 
     key = ("prefill", int(bucket), int(max_slots), int(max_len))
     return step_entry(model, key, build)
@@ -369,7 +402,8 @@ def prefill_step_paged(model, bucket: int, geometry, kv_dtype: str = "f32",
             lg, qerr = held([ids, last, pos, tables], pools)
             return lg, pools, qerr
 
-        return {"fn": fn, "traces": traces}
+        return {"fn": fn, "traces": traces,
+                "graphs": {"prefill": held}}
 
     key = ("prefill_paged", int(bucket), *geometry, kv_dtype, attn_impl)
     return step_entry(model, key, build)

@@ -29,13 +29,14 @@ gradients.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import numpy as np
 import torch
 
 from ...device import capturing
 from ..optimizer_ops import adam, adamw
-from . import _build
+from . import _build, _launches
 
 #: kernel launches (CPU calls excluded)
 launches = {"adamw": 0}
@@ -274,4 +275,4 @@ def adamw_multi(params, grads, m1s, m2s, b1ps, b2ps, lr, beta1=0.9,
             if rc != 0:
                 msg = lib.adamw_error_string(rc).decode()
                 raise RuntimeError(f"adamw launch failed: {msg} ({rc})")
-            launches["adamw"] += 1
+            _launches.count(sys.modules[__name__], "adamw")

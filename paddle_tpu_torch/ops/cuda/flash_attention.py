@@ -27,10 +27,11 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 
 import torch
 
-from . import _build
+from . import _build, _launches
 
 #: kernel launches per kernel (CPU calls excluded)
 launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -172,8 +173,7 @@ def _run(name, route, fn, *args):
     if rc != 0:
         msg = _lib().flash_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
-    launches[name] += 1
-    launches_by_route[name][route] += 1
+    _launches.count(sys.modules[__name__], name, route)
 
 
 def _route(q):

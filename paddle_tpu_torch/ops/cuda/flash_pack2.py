@@ -19,10 +19,11 @@ reference is.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
-from . import _build
+from . import _build, _launches
 from .flash_attention import flash_fwd_plain
 
 #: kernel launches (CPU calls excluded)
@@ -126,7 +127,6 @@ def packed_flash_fwd(q, k, v, causal, scale):
     if rc != 0:
         msg = _lib().flash_pack2_error_string(rc).decode()
         raise RuntimeError(f"packed_flash_fwd launch failed: {msg} ({rc})")
-    launches["packed_flash_fwd"] += 1
     route = "wgmma" if _tc_route(q.dtype, d2 // 2) else "simt"
-    launches_by_route["packed_flash_fwd"][route] += 1
+    _launches.count(sys.modules[__name__], "packed_flash_fwd", route)
     return o

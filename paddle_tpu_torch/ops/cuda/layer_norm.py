@@ -20,10 +20,11 @@ need them) and h up to 8192.
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
-from . import _build
+from . import _build, _launches
 
 #: kernel launches per kernel (CPU calls excluded); one ln_bwd call counts
 #: once although it launches its row pass and its reduce
@@ -118,7 +119,7 @@ def _run(name, fn, *args):
     if rc != 0:
         msg = _lib().ln_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
-    launches[name] += 1
+    _launches.count(sys.modules[__name__], name)
 
 
 def ln_fwd(x2, gamma, beta, eps):

@@ -17,10 +17,11 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 
 import torch
 
-from . import _build
+from . import _build, _launches
 from ..attention_ops import paged_attention_reference
 
 #: kernel launches made by :func:`paged_attention` (CPU calls excluded)
@@ -250,7 +251,6 @@ def paged_attention(q, k_pool, v_pool, tables, pos, *,
     :func:`~paddle_tpu_torch.ops.attention_ops.paged_attention_reference`
     up to the order of summation.
     """
-    global launches
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
     if q.device.type == "cpu":
@@ -263,8 +263,7 @@ def paged_attention(q, k_pool, v_pool, tables, pos, *,
     out = torch.empty_like(q)
     pl = _launch("paged_attention_launch", q, k_pool, v_pool, tables, pos,
                  k_scale, v_scale, scale, out)
-    launches += 1
-    launches_by_route["paged_attention"][pl["route"]] += 1
+    _launches.count(sys.modules[__name__], None, pl["route"])
     return out
 
 

@@ -111,6 +111,11 @@ class SlotKVCache:
         """The per-layer (k, v) tensors, as fed to the steps."""
         return list(self.layers)
 
+    def drop_arrays(self):
+        """Free the device tensors (a killed replica's): the host
+        book-keeping stays, :meth:`arrays` is empty after."""
+        self.layers = []
+
     def set_arrays(self, layers):
         """Take back a step's returned tensors, which must be the ones
         :meth:`arrays` handed out (the steps write them in place, and a
@@ -172,6 +177,11 @@ class BlockAllocator:
         self.refcount[blk] -= 1
         if self.refcount[blk] == 0:
             insort(self._free, blk)
+
+    def leaked(self) -> int:
+        """Blocks still referenced — for the chaos suite's leak check
+        (after every request releases, only permanent refs remain)."""
+        return int((self.refcount > 0).sum())
 
 
 class _PrefixEntry:
@@ -276,6 +286,17 @@ class BlockPool:
                 self._drop_entry(ent)
                 return True
         return False
+
+    def flush_prefix_cache(self):
+        """Drop every cached prefix ref (tests / memory pressure).
+        Live requests keep their own refs; only cache refs drop."""
+        for key in list(self._prefix):
+            self._drop_entry(self._prefix[key])
+
+    def drop_arrays(self):
+        """Free the block tensors (a killed replica's pool): the
+        allocator and the prefix cache's book-keeping stay."""
+        self.layers = []
 
 
 class BlockKVCache:
@@ -507,6 +528,15 @@ class BlockKVCache:
                 pin = self._prefix[parent].block
                 self.allocator.ref(pin)
             self._prefix[key] = _PrefixEntry(key, pin, blk, chunk)
+
+    def flush_prefix_cache(self):
+        """Drop every cached prefix ref (tests / memory pressure).
+        Live requests keep their own refs; only cache refs drop."""
+        self.pool.flush_prefix_cache()
+
+    def drop_arrays(self):
+        """Free the pool's block tensors (:meth:`BlockPool.drop_arrays`)."""
+        self.pool.drop_arrays()
 
     @property
     def prefix_entries(self) -> int:

@@ -46,7 +46,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "tools/kernel_ab.py", "jit.py", "ops/cuda/adamw.py",
                    "models/generation.py", "serving/decoding.py",
                    "optimizer_lr.py", "amp/grad_scaler.py",
-                   "vision/models.py", "vision/__init__.py", "prng.py"):
+                   "vision/models.py", "vision/__init__.py", "prng.py",
+                   "serving/router.py", "resilience/__init__.py",
+                   "resilience/injector.py", "resilience/retry.py",
+                   "observability/__init__.py", "observability/metrics.py",
+                   "observability/runlog.py", "monitor.py",
+                   "ops/cuda/_launches.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -135,17 +140,30 @@ def test_new_wrappers_run_plain_only_on_cpu_and_raise_elsewhere(calls,
             call()
 
 
+#: the flags of the replica fleet, the engine's thread, the resilience
+#: plane and the run log (ported with the router)
+FLEET_FLAGS = (
+    "serving_idle_wait", "serving_dispatch_ahead", "serving_dispatch_threads",
+    "serving_replicas", "serving_autoscale", "serving_replica_strikes",
+    "serving_auto_restart", "serving_hedge_ms", "serving_hedge_budget",
+    "serving_breaker_window", "serving_breaker_threshold",
+    "serving_breaker_cooldown_s", "fault_spec", "fault_seed",
+    "retry_max_attempts", "retry_base_delay", "retry_max_delay",
+    "retry_deadline", "retry_budget_ratio", "retry_budget_reserve",
+    "runlog_dir", "runlog_max_mb")
+
+
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 19
+    assert len(ported) == 41
     assert {"use_pallas_attention", "use_pallas_layer_norm", "pallas_min_seq",
             "pallas_flash_block_q", "pallas_flash_block_k",
             "serving_megastep", "serving_spec_tokens",
             "serving_spec_ngram"} <= set(ported)
     assert ported["serving_megastep"]["default"] == 1
     for name in ("serving_megastep", "serving_spec_tokens",
-                 "serving_spec_ngram"):
+                 "serving_spec_ngram", *FLEET_FLAGS):
         assert ported[name]["help"] == jax_flags[name]["help"], name
     assert ported["use_pallas_layer_norm"]["default"] is False
     assert "CUDA" in ported["use_pallas_layer_norm"]["help"]
