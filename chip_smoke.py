@@ -11,7 +11,9 @@ request, bit-equal to ``jax.random``) and speculative (n-gram drafts
 verified through the paged kernel at q_len K+1), runs ``bench.py``'s
 serving block (the engine against sequential ``greedy_search``, the
 dense slotted cache against the paged one, offline ``sample`` and
-``beam_search``), trains it (``bench.py``'s step: batch
+``beam_search``), its replica fleet, and its load generator's goodput
+under a TTFT SLO (SLO admission, priorities, faults, hedged prefill,
+cancel and hard deadlines), trains it (``bench.py``'s step: batch
 8, seq 1024, AMP O2 bf16, AdamW with bf16 moments) eagerly and through
 ``jit.to_static`` as a CUDA graph, with the LayerNorm kernels off and
 on, trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512)
@@ -55,7 +57,16 @@ captures in each timed pass; the router half of ``bench.py:775-799``;
 fresh fleets on threads whose first captures run while the other
 replica replays; a kill mid-decode, three restarts with flat reserved
 memory, a rolling weight swap; B4 against plain at the fleet's shapes),
-6 flash kernels vs plain (f32, bf16
+5e ``bench.py``'s loadgen block (``bench.py:847-1065``: calibration,
+then one seeded bursty trace at 3x capacity through depth-only and
+SLO-aware admission, the SLO engine under injected faults, and a
+3-replica router; every engine warmed, no capture in a timed run, no
+leaked block, no exception, B4 launched in every phase, completed
+tokens equal an unloaded engine's; a hedged 2-replica fleet against a
+straggler, the hedge firing, winning and canceling its loser; a cancel
+mid-decode whose row the next request takes, a cancel while queued, a
+hard deadline ending its request within one step; B4 timed at the
+loadgen geometry), 6 flash kernels vs plain (f32, bf16
 and fp16), 7 train GPT (eager, then captured: losses and parameters
 bit-equal), 7b train GPT at O1 fp16 with ``GradScaler`` through the
 CUDA-core flash kernels, 8 time the flash kernels, 9
@@ -301,7 +312,9 @@ def check_kernel(torch, pa):
     shapes (h 16, d 64, bs 16, T 16, b 8), at d 7, 20, 128 and 320, at
     block sizes 4, 64 and 128, at b 2, h 4, and at phase 5c's paged
     engine (b 32, bs 8, T 32: its decode, its first prefill and its
-    prefill of a suffix after a shared prefix, idle rows included). A
+    prefill of a suffix after a shared prefix, idle rows included), and
+    at phase 5e's loadgen engine (b 4, bs 16, T 4: its decode and its
+    prefill buckets 16 and 32, padding rows included). A
     case's optional 7th field is the number of live rows: the rest are
     padding (the whole table on the trash block), as the engine pads a
     batch. Each case checks that the call launched on its plan's
@@ -360,16 +373,36 @@ def check_kernel(torch, pa):
     worst = 0.0
     for i, case in enumerate(cases):
         worst = max(worst, check_kernel_case(torch, pa, i, *case))
-    return len(cases), worst
+    # phase 5e's loadgen engine: 4 rows of 64 positions (T 4, blocks of
+    # 16), its decode and its prefill buckets 16 and 32, padding rows too
+    lg_dec = [int(p) for p in rng.randint(4, 64, size=4)]
+    lg_dec[0], lg_dec[1] = 63, 15
+    lg_cases = [("loadgen decode s=1 b=4 T=4 f32", lg_dec, 1, 64, "f32",
+                 16),
+                ("loadgen prefill s=16 b=4 T=4 f32", [0] * 4, 16, 64,
+                 "f32", 16),
+                ("loadgen prefill s=16 b=4 T=4 1 live f32", [0] * 4, 16,
+                 64, "f32", 16, 1),
+                ("loadgen prefill s=32 b=4 T=4 f32", [0] * 4, 32, 64,
+                 "f32", 16),
+                ("loadgen prefill s=32 pos=16 b=4 T=4 3 live f32",
+                 [16] * 3 + [0], 32, 64, "f32", 16, 3)]
+    for i, case in enumerate(lg_cases):
+        worst = max(worst, check_kernel_case(torch, pa, len(cases) + i,
+                                             *case, T=4))
+    return len(cases) + len(lg_cases), worst
 
 
-def check_kernel_case(torch, pa, seed, name, pos, s, d, kv, bs, *live):
+def check_kernel_case(torch, pa, seed, name, pos, s, d, kv, bs, *live,
+                      T=None):
     """One kernel case against the plain version: the call must launch on
-    its plan's route and stay within TOL. Returns the max abs error."""
+    its plan's route and stay within TOL. ``T`` is the table width
+    (default a 256-token row). Returns the max abs error."""
     elem = {"f32": 4, "bf16": 2, "int8": 1}
     h = 4 if "h=4" in name else 16
-    q, pools, tables, posv = make_inputs(torch, pos, s, d, kv, h=h,
-                                         bs=bs, T=256 // bs, seed=seed)
+    q, pools, tables, posv = make_inputs(
+        torch, pos, s, d, kv, h=h, bs=bs, T=256 // bs if T is None else T,
+        seed=seed)
     if live:
         tables[live[0]:] = 0
     kp, vp, ks, vs = pools[0]
@@ -739,14 +772,20 @@ def time_kernel(torch, pa, ctr, card):
     call's bytes through this design costs."""
     rng = np.random.RandomState(1)
     pos = [int(p) for p in rng.randint(180, 221, size=8)]
-    copies = 8
-    out = {}
     # (key, kv dtype, positions, q_len, block size, table width)
     rows = [(kv, kv, pos, 1, 16, 16) for kv in ("f32", "bf16", "int8")]
     rows += [(f"verify_{kv}", kv, pos, SPEC_K + 1, 16, 16)
              for kv in ("f32", "bf16", "int8")]
     rows.append(("prefill", "f32", [0] * 8, 64, 16, 16))
     rows.append(("decode_bs8", "f32", pos, 1, 8, 32))
+    return pos, time_paged_rows(torch, pa, ctr, card, rows)
+
+
+def time_paged_rows(torch, pa, ctr, card, rows, copies=8):
+    """The kernel, its plain version and its read probe timed at each
+    row ``(key, kv dtype, positions, q_len, block size, table width)``
+    (h 16, d 64) over ``copies`` pool copies, beside the row's bound."""
+    out = {}
     for key, kv, ps, s, bs, T in rows:
         q, pools, tables, posv = make_inputs(torch, ps, s, 64, kv, bs=bs,
                                              T=T, seed=7, copies=copies)
@@ -774,9 +813,9 @@ def time_kernel(torch, pa, ctr, card):
         pl = pa.plan(*q.shape, bs, T, {"f32": 4, "bf16": 2, "int8": 1}[kv])
         out[key] = {"ms": ms, "plain_ms": plain_ms,
                     "read_probe_ms": probe_ms, **t,
-                    "shape": [8, 16, s, 64], "block_size": bs,
-                    "route": pl["route"], "splits": pl["ks"],
-                    "rows_per_block": pl["rows"]}
+                    "shape": [len(ps), 16, s, 64], "block_size": bs,
+                    "table_width": T, "route": pl["route"],
+                    "splits": pl["ks"], "rows_per_block": pl["rows"]}
         log(f"  {key} (q_len {s}, blocks of {bs}) {kv}: kernel {ms:.4f} ms, "
             "read probe "
             f"{probe_ms:.4f} ms, plain {plain_ms:.4f} ms, "
@@ -784,7 +823,7 @@ def time_kernel(torch, pa, ctr, card):
             f"({t['bound_by']}), {ms / t['bound_ms']:.2f}x the bound; "
             f"route {pl['route']}, ks {pl['ks']}, "
             f"{pl['rows']} rows/block [{card}]")
-    return pos, out
+    return out
 
 # ------------------------------------------------------------ phase 5b
 #: ``jax.random`` on the CPU (JAX 0.9.0, partitionable threefry, 64-bit
@@ -1764,6 +1803,463 @@ def fleet_supervision(torch, ctr, card, model, prompts):
     return {"kill": kill, "restart_reserved_bytes": reserved,
             "restart_graphs": graphs, "swap_versions": versions,
             "swap_near_ties": sties}
+
+
+# ------------------------------------------------------------ phase 5e
+#: bench.py's loadgen block (``child_main_loadgen``, bench.py:847-1065)
+#: at batch 4 and seq 64: 4 slots, ``max_len`` 64, buckets
+#: ``[max(4, seq // 4), max(8, seq // 2)]`` (64 the terminal one), a
+#: queue of 64, f32 pools in blocks of 16, the kernel route
+LOADGEN_SLOTS, LOADGEN_LEN, LOADGEN_QUEUE = 4, 64, 64
+LOADGEN_BUCKETS = [max(4, LOADGEN_LEN // 4), max(8, LOADGEN_LEN // 2)]
+LOADGEN_SEED = 0                  # BENCH_LOADGEN_SEED
+LOADGEN_OVERLOAD = 3.0            # BENCH_LOADGEN_OVERLOAD
+LOADGEN_DURATION = 2.0            # BENCH_LOADGEN_DURATION
+LOADGEN_FAULTS = "serving.submit:skip@0.1;serving.alloc:skip@0.05"
+#: the hedged fleet's fixed threshold and delay, and its straggler's
+#: pinned prefill prediction and real pace in ms (the load generator's
+#: ``--straggler``: each step takes that long, over three calls)
+HEDGE_MS, STRAGGLER_MS = 5.0, 60.0
+#: the phases' keys bench.py prints (bench.py:1024-1030)
+LOADGEN_KEYS = ("offered", "offered_rate", "completed", "shed",
+                "shed_total", "exceptions", "slo_attainment",
+                "goodput_per_s", "throughput_per_s", "ttft_ms_p50",
+                "ttft_ms_p95", "leaked_kv_blocks", "makespan_s")
+
+
+def loadgen_geometry(**kw):
+    return {"max_slots": LOADGEN_SLOTS, "max_len": LOADGEN_LEN,
+            "buckets": LOADGEN_BUCKETS, "max_queue": LOADGEN_QUEUE,
+            "block_size": 16, "kv_dtype": "f32", "attn_impl": "kernel",
+            **kw}
+
+
+def loadgen_engine(model, **kw):
+    from paddle_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, **loadgen_geometry(**kw))
+
+
+def dispatches(eng):
+    return eng.prefill_dispatches + eng.decode_steps + \
+        eng.megastep * eng.megastep_dispatches
+
+
+def release_engines(engines):
+    """Free each engine's pools and the graphs captured over them."""
+    for eng in engines:
+        if eng.paged:
+            eng.cache.flush_prefix_cache()
+        eng._release_device()
+
+
+def timed_loadgen(torch, ctr, target, lg, what, **run_kw):
+    """One timed ``LoadGen.run`` of warmed ``target`` with the launch
+    counts zeroed before and read after: the launches must be exactly
+    ``num_layers`` per prefill or decode dispatch summed over the
+    engines, and none may be captured. Raises on a replica step that
+    raised (the router's watchdog would take it for a strike), an
+    unexpected exception, a leaked block or no B4 launch. Returns the
+    report's bench.py keys with the launches and captures, and the
+    requests the run submitted (hedge copies left out)."""
+    from paddle_tpu_torch.tools.loadgen import LoadGen
+    engines = LoadGen._engines(target)
+    model = engines[0].model
+    n0 = {id(e): len(e._all) for e in engines}
+    d0 = {id(e): dispatches(e) for e in engines}
+    errors = []
+    for i, eng in enumerate(engines):
+        def checked(i=i, step=eng.step):
+            try:
+                return step()
+            except BaseException as e:
+                errors.append(f"engine {i}: {e!r}")
+                raise
+        eng.step = checked
+    cap0 = captures(model)
+    torch.cuda.synchronize()
+    ctr.zero()
+    try:
+        rep = lg.run(target, **run_kw)
+    finally:
+        for eng in engines:
+            del eng.step
+    torch.cuda.synchronize()
+    run, routes = ctr.read(), ctr.routes()["paged_attention"]
+    new_captures = captures(model) - cap0
+    engines = LoadGen._engines(target)
+    want = model.cfg.num_layers * sum(dispatches(e) - d0.get(id(e), 0)
+                                      for e in engines)
+    ctr.expect(run, {"paged_attention": want}, what)
+    if errors or rep["exceptions"]:
+        raise AssertionError(f"{what}: {rep['exceptions']} exceptions, "
+                             f"steps raised {errors}")
+    if rep["leaked_kv_blocks"]:
+        raise AssertionError(f"{what}: {rep['leaked_kv_blocks']} KV "
+                             "blocks leaked")
+    if not want:
+        raise AssertionError(f"{what}: no paged-attention launch")
+    if new_captures:
+        raise AssertionError(f"{what}: the timed run captured "
+                             f"{new_captures} graphs; every engine was "
+                             "warmed")
+    reqs = {}
+    for e in engines:
+        for r in e._all[n0.get(id(e), 0):]:
+            if not r._hedge_clone:
+                reqs.setdefault(r.id, r)
+    res = {k: rep[k] for k in LOADGEN_KEYS}
+    res.update(launches=want, routes=routes, captures_in_run=new_captures,
+               steps=rep["steps"],
+               invalid=sum(1 for d in rep["decisions"] if d[0] == "invalid"))
+    log(f"  {what}: offered {rep['offered']} ({rep['offered_rate']}/s), "
+        f"completed {rep['completed']}, shed {rep['shed']}, goodput "
+        f"{rep['goodput_per_s']}/s, TTFT p50/p95 {rep['ttft_ms_p50']} / "
+        f"{rep['ttft_ms_p95']} ms, makespan {rep['makespan_s']} s, "
+        f"leaked {rep['leaked_kv_blocks']}, {want} paged launches "
+        f"{routes}, {new_captures} captures")
+    return res, [reqs[k] for k in sorted(reqs)]
+
+
+def check_greedy(torch, model, reqs, what):
+    """Every completed request's tokens against the same prompt's tokens
+    from an unloaded engine (32 rows, one request per prompt at the
+    largest budget it was given), under the top-2 rule."""
+    done = [r for r in reqs if r.state == "done"]
+    budget = {}
+    for r in done:
+        key = tuple(r.prompt)
+        budget[key] = max(budget.get(key, 0), r.max_new_tokens)
+    keys = sorted(budget)
+    ref_eng = bench_engine(model, max_slots=32, max_len=LOADGEN_LEN,
+                           buckets=LOADGEN_BUCKETS,
+                           max_queue=len(keys) + 1)
+    toks = serve_all(torch, ref_eng,
+                     [(list(k), {"max_new_tokens": budget[k]})
+                      for k in keys])
+    release_engines([ref_eng])
+    ref = dict(zip(keys, toks))
+    ties = same_tokens(torch, model, [r.prompt for r in done],
+                       [ref[tuple(r.prompt)][:len(r.tokens)] for r in done],
+                       [r.tokens for r in done], what)
+    log(f"  {what}: {len(done)} completed requests ({len(keys)} prompts) "
+        f"== an unloaded engine's tokens ({len(ties)} near ties)")
+    return {"checked": len(done), "near_ties": len(ties)}
+
+
+def straggle(eng):
+    """Make ``eng`` the load generator's straggler
+    (``paddle_tpu_torch/tools/loadgen.py --straggler``): its predicted
+    prefill pinned to ``STRAGGLER_MS``, so the hedge gate sees it coming,
+    and each of its steps stretched to that long over three calls (two
+    idle, then the step), so the watchdog, which kills a replica after
+    three unproductive calls with work, keeps it alive. (A straggler
+    that only idles its first steps, as ``tests/test_serving_cancel.py``
+    makes one, costs no time, and unhedged the watchdog restarts it and
+    the replacement captures its graphs inside the race.)"""
+    eng._prefill_ms_pin = STRAGGLER_MS
+    orig, state = eng.step, {"n": 0}
+
+    def slow_step():
+        time.sleep(STRAGGLER_MS / 3e3)
+        state["n"] += 1
+        if state["n"] % 3:
+            return False
+        return orig()
+    eng.step = slow_step
+
+
+def first_token_seen(rt, req):
+    """Whether ``req`` or its hedge copy has its first token (a winning
+    copy's tokens reach the caller's handle when the copy ends)."""
+    if req.first_token_at is not None:
+        return True
+    h = rt._hedges.get(req.id)
+    return bool(h and h["clone"] is not None and
+                h["clone"].first_token_at is not None)
+
+
+def hedge_race(torch, ctr, model, prompt):
+    """Two warmed replicas, replica 0 the straggler, one request routed
+    to it, with hedging off and at ``HEDGE_MS``: router steps to the
+    first token and its TTFT. Neither may capture or leave a block on a
+    replica; hedged, the clone must fire, win and cancel its loser with
+    reason "hedge_lose"."""
+    from paddle_tpu_torch.serving import ReplicaRouter
+    from paddle_tpu_torch.tools.loadgen import warmup
+    out, reqs = {}, []
+    for hedge_ms in (0.0, HEDGE_MS):
+        rt = ReplicaRouter(model, n_replicas=2, hedge_ms=hedge_ms,
+                           **loadgen_geometry())
+        warmup(rt)
+        straggle(rt.engines[0])
+        cap0 = captures(model)
+        d0 = sum(dispatches(e) for e in rt.engines)
+        torch.cuda.synchronize()
+        ctr.zero()
+        req = rt.submit(prompt, max_new_tokens=8)
+        time.sleep(2 * HEDGE_MS / 1e3)      # past the hedge delay
+        steps = 0
+        while not first_token_seen(rt, req):
+            rt.step()
+            steps += 1
+            if steps > 400:
+                raise AssertionError("hedge race: no first token")
+        rt.run_until_idle()
+        torch.cuda.synchronize()
+        engines = rt.engines + rt._retiring
+        launches = ctr.read()["paged_attention"]
+        st = rt.stats()
+        leaks = []
+        for eng in engines:
+            eng.cache.flush_prefix_cache()
+            leaks.append(eng.cache.allocator.leaked() - 1)
+        arm = {"steps_to_first_token": steps, "ttft_ms": req.ttft * 1e3,
+               "state": req.state, "hedges": st.get("hedges"),
+               "canceled": st["canceled"], "kills": st["kills"],
+               "restarts": st["restarts"],
+               "captures": captures(model) - cap0, "launches": launches,
+               "leaked_kv_blocks": sum(leaks)}
+        if req.state != "done" or any(leaks) or not launches or \
+                arm["captures"] or st["kills"]:
+            raise AssertionError(f"hedge race at {hedge_ms} ms: {arm}")
+        if hedge_ms:
+            h = st["hedges"]
+            if not (h["fired"] == 1 and h["wins"] == 1 and
+                    h["pending"] == 0 and
+                    st["canceled"] == {"hedge_lose": 1}):
+                raise AssertionError(f"the hedge did not fire, win and "
+                                     f"cancel its loser: {arm}")
+            want = model.cfg.num_layers * (
+                sum(dispatches(e) for e in rt.engines) - d0)
+            ctr.expect(ctr.read(), {"paged_attention": want},
+                       "the hedged race")
+        out["hedged" if hedge_ms else "unhedged"] = arm
+        reqs.append(req)
+        release_engines(engines)
+        del rt
+    return out, reqs
+
+
+def cancel_and_deadlines(torch, ctr, model, ps):
+    """One warmed engine on a manual clock: its 4 rows busy and 2
+    requests queued; a cancel mid-decode (the row back on the trash
+    block, and the next queued request admitted into it at the next
+    step), a cancel while queued, and a ``deadline_ms`` that passes
+    mid-decode and ends its request within one step."""
+    from paddle_tpu_torch.serving import BlockKVCache
+    from paddle_tpu_torch.tools.loadgen import warmup
+    clk = {"t": 0.0}
+    eng = loadgen_engine(model, clock=lambda: clk["t"])
+    warmup(eng)
+    d0 = dispatches(eng)
+    torch.cuda.synchronize()
+    ctr.zero()
+    busy = [eng.submit(p, max_new_tokens=8) for p in ps[:4]]
+    waiting = eng.submit(ps[4], max_new_tokens=8)
+    queued = eng.submit(ps[5], max_new_tokens=8)
+    for _ in range(2):
+        eng.step()
+        clk["t"] += 0.005
+    victim = busy[0]
+    row = victim.slot
+    c_decode = eng.cancel(victim.id)
+    table = set(eng.cache.tables[row].tolist())
+    c_queued = eng.cancel(queued.id)
+    eng.step()
+    clk["t"] += 0.005
+    if c_decode is None or c_decode["stage"] != "decode" or \
+            table != {BlockKVCache.TRASH}:
+        raise AssertionError(f"cancel mid-decode: {c_decode}, table row "
+                             f"{table}")
+    if c_queued is None or c_queued["stage"] != "queued":
+        raise AssertionError(f"cancel while queued: {c_queued}")
+    if waiting.slot != row or waiting.first_token_at is None:
+        raise AssertionError(f"the canceled row {row} was not reused by "
+                             f"the next queued request (row "
+                             f"{waiting.slot})")
+    dl = eng.submit(ps[6], max_new_tokens=8, deadline_ms=20.0)
+    while dl.first_token_at is None or len(dl.tokens) < 2:
+        eng.step()
+        clk["t"] += 0.001
+    clk["t"] = dl.hard_deadline + 0.001
+    before = len(dl.tokens)
+    eng.step()
+    if dl.state != "canceled" or dl.shed_reason != "deadline" or \
+            len(dl.tokens) != before:
+        raise AssertionError(f"the hard deadline did not end its request "
+                             f"within one step: {dl}")
+    while not eng.idle:
+        eng.step()
+        clk["t"] += 0.005
+    torch.cuda.synchronize()
+    want = model.cfg.num_layers * (dispatches(eng) - d0)
+    ctr.expect(ctr.read(), {"paged_attention": want},
+               "cancel and hard deadlines")
+    eng.cache.flush_prefix_cache()
+    leaked = eng.cache.allocator.leaked() - 1
+    st = eng.stats()
+    if leaked or st["canceled"] != {"client": 2, "deadline": 1}:
+        raise AssertionError(f"cancel and hard deadlines: leaked {leaked},"
+                             f" canceled {st['canceled']}")
+    reqs = busy + [waiting, queued, dl]
+    release_engines([eng])
+    out = {"canceled": st["canceled"], "cancel_decode_row": row,
+           "deadline_tokens": before, "launches": want,
+           "leaked_kv_blocks": leaked}
+    return out, reqs
+
+
+def loadgen_serving(torch, ctr, card):
+    """Phase 5e: ``bench.py``'s loadgen block (bench.py:847-1065) on a
+    fresh seeded gpt2-medium (f32 pools): calibration (calm TTFT over 4
+    lone requests; capacity from 8 x slots saturated requests; the SLO
+    max(25, 3 x calm p50) ms; the prefill and TPOT pins from the learned
+    EWMAs), then the same seeded bursty trace at 3x capacity through
+    phase A (depth-only, scored afterwards against the SLO), B
+    (SLO-aware, pinned), C (B under ``fault_scope``) and D's symmetric
+    half (a 3-replica ``ReplicaRouter``, scored afterwards); every
+    engine warmed first (every bucket and the decode step), each timed
+    run capturing nothing. Then a hedged 2-replica fleet against a
+    straggler, and cancel and hard deadlines on one engine. Every
+    completed greedy request's tokens equal an unloaded engine's (top-2
+    rule). The 1.2x goodput gate of bench.py is reported, not asserted:
+    it is a wall-clock number on a shared host."""
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.resilience import fault_scope
+    from paddle_tpu_torch.serving import ReplicaRouter
+    from paddle_tpu_torch.tools.loadgen import LoadGen, warmup
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    vocab = cfg.vocab_size
+    lo, hi = 4, max(4, LOADGEN_BUCKETS[0] - 1)   # bucket 0 prompts
+    lg_kw = dict(mode="bursty", rate=1.0, duration=LOADGEN_DURATION,
+                 seed=LOADGEN_SEED, vocab_size=vocab,
+                 prompt_tokens=(lo, hi), new_tokens=(2, 8),
+                 priority_mix={0: 0.2, 1: 0.6, 2: 0.2})
+    out, all_reqs = {}, []
+
+    # calibrate: capacity, calm latency, step costs
+    cal = loadgen_engine(model)
+    warmup(cal)
+    rng = np.random.RandomState(LOADGEN_SEED)
+    calm = []
+    for _ in range(4):
+        r = cal.submit(rng.randint(1, vocab, size=6).tolist(),
+                       max_new_tokens=4)
+        cal.run_until_idle()
+        calm.append(r.ttft * 1e3)
+    sat = [cal.submit(rng.randint(1, vocab,
+                                  size=rng.randint(lo, hi + 1)).tolist(),
+                      max_new_tokens=4)
+           for _ in range(8 * LOADGEN_SLOTS)]
+    t0 = time.perf_counter()
+    cal.run_until_idle()
+    torch.cuda.synchronize()
+    capacity = len(sat) / (time.perf_counter() - t0)
+    slo_ms = max(25.0, 3.0 * float(np.median(calm)))
+    prefill_pin = cal._prefill_cost_ms(LOADGEN_BUCKETS[0]) or 1.0
+    tpot_pin = cal._tpot_cost_ms() or 0.5
+    lg_kw["rate"] = max(2.0, LOADGEN_OVERLOAD * capacity)
+    release_engines([cal])
+    del cal
+    out["calibration"] = {"calm_ttft_ms": calm, "capacity_per_s": capacity,
+                          "slo_ttft_ms": slo_ms,
+                          "slo_prefill_ms": prefill_pin,
+                          "slo_tpot_ms": tpot_pin,
+                          "offered_rate": lg_kw["rate"]}
+    log(f"  [{card}] calibration: calm TTFT {[round(c, 3) for c in calm]} "
+        f"ms, capacity {capacity:.2f} req/s, SLO {slo_ms:.3f} ms, pins "
+        f"prefill {prefill_pin:.4f} ms / TPOT {tpot_pin:.4f} ms, offered "
+        f"{lg_kw['rate']:.2f} req/s (x{LOADGEN_OVERLOAD:g})")
+
+    slo_kw = dict(slo_ttft_ms=slo_ms, slo_prefill_ms=prefill_pin,
+                  slo_tpot_ms=tpot_pin)
+    phases = (("depth_only", "phase A, depth-only", {}, {"slo_ttft_ms":
+                                                           slo_ms}),
+              ("slo_aware", "phase B, SLO-aware", slo_kw, {}),
+              ("chaos", "phase C, SLO-aware under faults", slo_kw, {}))
+    for key, what, kw, run_kw in phases:
+        scope = (fault_scope(LOADGEN_FAULTS, seed=LOADGEN_SEED)
+                 if key == "chaos" else contextlib.nullcontext())
+        with scope:
+            eng = loadgen_engine(model, **kw)
+            warmup(eng)
+            out[key], reqs = timed_loadgen(torch, ctr, eng,
+                                           LoadGen(**lg_kw), what,
+                                           **run_kw)
+        all_reqs += reqs
+        release_engines([eng])
+        del eng
+    rep_c = out["chaos"]
+    if not rep_c["shed"].get("fault") or rep_c["completed"] + \
+            rep_c["shed_total"] + rep_c["invalid"] != rep_c["offered"]:
+        raise AssertionError(f"phase C: no fault shed, or requests "
+                             f"unaccounted for: {rep_c}")
+    out["chaos"]["fault_spec"] = LOADGEN_FAULTS
+    sym = ReplicaRouter(model, n_replicas=3, **loadgen_geometry())
+    warmup(sym)
+    out["symmetric_router"], reqs = timed_loadgen(
+        torch, ctr, sym, LoadGen(**lg_kw), "phase D, 3 replicas",
+        slo_ttft_ms=slo_ms)
+    out["symmetric_router"]["workers"] = 3
+    all_reqs += reqs
+    release_engines(sym.engines + sym._retiring)
+    del sym
+
+    goodput_a = out["depth_only"]["goodput_per_s"] or 0.0
+    goodput_b = out["slo_aware"]["goodput_per_s"] or 0.0
+    ratio = goodput_b / goodput_a if goodput_a else None
+    out["vs_baseline"] = ratio
+    out["gate_1_2x_met"] = ratio is not None and ratio >= 1.2
+    log(f"  [{card}] vs_baseline (goodput B / A) "
+        f"{'n/a' if ratio is None else f'{ratio:.3f}'} (bench gate 1.2x "
+        f"{'met' if out['gate_1_2x_met'] else 'missed'}, reported)")
+
+    hp = np.random.RandomState(21).randint(1, vocab, size=8).tolist()
+    out["hedge"], reqs = hedge_race(torch, ctr, model, hp)
+    all_reqs += reqs
+    log(f"  [{card}] hedge race: unhedged TTFT "
+        f"{out['hedge']['unhedged']['ttft_ms']:.3f} ms in "
+        f"{out['hedge']['unhedged']['steps_to_first_token']} steps, hedged "
+        f"{out['hedge']['hedged']['ttft_ms']:.3f} ms in "
+        f"{out['hedge']['hedged']['steps_to_first_token']} steps; hedges "
+        f"{out['hedge']['hedged']['hedges']}")
+    cp = [np.random.RandomState(30 + i).randint(1, vocab, size=8).tolist()
+          for i in range(7)]
+    out["cancel"], reqs = cancel_and_deadlines(torch, ctr, model, cp)
+    all_reqs += reqs
+    log(f"  cancel mid-decode (row {out['cancel']['cancel_decode_row']} "
+        f"reused by the next queued request), cancel while queued, a hard "
+        f"deadline ended within one step: canceled "
+        f"{out['cancel']['canceled']}, leaked 0")
+    out["tokens"] = check_greedy(torch, model, all_reqs,
+                                 "phase 5e's completed requests")
+    launches = {k: out[k]["launches"] for k in
+                ("depth_only", "slo_aware", "chaos", "symmetric_router")}
+    launches["hedge"] = out["hedge"]["hedged"]["launches"]
+    launches["cancel"] = out["cancel"]["launches"]
+    out["launches"] = launches
+    out["routes"] = {k: out[k]["routes"] for k in
+                     ("depth_only", "slo_aware", "chaos",
+                      "symmetric_router")}
+
+    # B4 at the loadgen geometry against its plain version, and its time
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+    rng = np.random.RandomState(13)
+    dec = [int(p) for p in rng.randint(6, 60, size=LOADGEN_SLOTS)]
+    rows = [("loadgen_decode", "f32", dec, 1, 16, 4),
+            ("loadgen_prefill16", "f32", [0] * LOADGEN_SLOTS, 16, 16, 4)]
+    out["kernel_times"] = time_paged_rows(torch, pa, ctr, card, rows)
+    release_graphs(torch, model)
+    del model
+    gc.collect()
+    torch.cuda.synchronize()
+    out["max_memory_reserved"] = torch.cuda.max_memory_reserved()
+    log(f"  max_memory_reserved during phase 5e: "
+        f"{out['max_memory_reserved']} B")
+    return out
 
 
 # ------------------------------------------------------------ phase 6
@@ -4158,6 +4654,13 @@ def main():
     flt = fleet_serving(torch, ctr, card)
     log(f"  phase 5d took {time.perf_counter() - t_fleet:.1f} s")
 
+    log("== phase 5e: bench.py's loadgen block, gpt2-medium: calibration, "
+        "depth-only, SLO-aware, chaos and a 3-replica router on one "
+        "seeded bursty trace; a hedged fleet; cancel and hard deadlines")
+    t_lg = time.perf_counter()
+    lgs = loadgen_serving(torch, ctr, card)
+    log(f"  phase 5e took {time.perf_counter() - t_lg:.1f} s")
+
     log("== phase 6: flash kernels vs plain")
     n_flash, flash_err = check_flash(torch, fa, ctr)
     log(f"  {n_flash} cases passed, max abs err by kernel {flash_err}")
@@ -4287,7 +4790,10 @@ def main():
                      launches_fleet_megastep=mega["launches"],
                      launches_by_route_fleet_megastep=mega["routes"],
                      launches_fleet_router=flt["router"]["launches"],
-                     fleet_max_abs_err=flt["kernel_max_abs_err"])]
+                     fleet_max_abs_err=flt["kernel_max_abs_err"],
+                     launches_loadgen=lgs["launches"],
+                     launches_by_route_loadgen=lgs["routes"],
+                     by_shape_loadgen=lgs["kernel_times"])]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]
@@ -4343,7 +4849,8 @@ def main():
     print(json.dumps({"serving": summary(srv), "serving_modes": modes,
                       "sampled_serving": summary(smp),
                       "dense_serving": summary(dns),
-                      "fleet_serving": summary(flt), "fp16_gpt": f16,
+                      "fleet_serving": summary(flt),
+                      "loadgen_serving": summary(lgs), "fp16_gpt": f16,
                       "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes, "optimizer_plane": plane,

@@ -245,6 +245,32 @@ define_flag("serving_replicas", 1,
             "shed/drain semantics riding the resilience plane's "
             "RetryPolicy at the serving.route fault site. 1 (default) "
             "means a single engine with no router in front.")
+define_flag("serving_slo_ttft_ms", 0.0,
+            "SLO-aware admission: target time-to-first-token in ms. "
+            "When > 0, submit() predicts the newcomer's TTFT from live "
+            "queue depth, measured per-bucket prefill cost, and the "
+            "decode batch's TPOT (EWMA), and sheds the submission when "
+            "the prediction exceeds this budget (QueueFullError with "
+            "reason='slo' and a predicted-TTFT-derived retry_after_s); "
+            "queued requests whose deadline already passed are shed "
+            "before prefill instead of wasting a dispatch. 0 (default) "
+            "keeps the blunt depth-only backpressure. Admission is "
+            "pure host arithmetic: no new compiled surface either way.")
+define_flag("serving_slo_prefill_ms", 0.0,
+            "TTFT predictor: pinned per-bucket prefill cost in ms. 0 "
+            "(default) learns an EWMA from this engine's measured "
+            "prefill dispatches; pin it for deterministic admission "
+            "decisions (loadgen replay, tests).")
+define_flag("serving_slo_tpot_ms", 0.0,
+            "TTFT predictor: pinned per-output-token decode cost in "
+            "ms. 0 (default) learns an EWMA from measured decode/"
+            "verify steps; pin it for deterministic admission.")
+define_flag("serving_priority_preempt", True,
+            "Priority classes (submit(priority=), lower = more "
+            "urgent): allow an urgent submission that would otherwise "
+            "be shed (queue full / predicted SLO miss) to preempt-shed "
+            "queued strictly-lower-priority work instead. Requests "
+            "within a class keep FIFO order either way.")
 define_flag("serving_autoscale", "",
             "ReplicaRouter autoscaling bounds as 'MIN:MAX' replicas "
             "(e.g. '1:4'). When set, the router consults an "
@@ -355,3 +381,23 @@ define_flag("runlog_max_mb", 64.0,
             "Size cap in MB for the active run-log file; on overflow "
             "it rotates to <name>.1 (replacing the previous one), so a "
             "process writes at most two caps of disk.")
+
+# Request tracing (observability/tracing.py).
+define_flag("serving_trace", 1.0,
+            "Per-request distributed tracing sampling fraction "
+            "(observability/tracing.py): each admitted request is "
+            "sampled in/out by a deterministic hash of its request id "
+            "— 1.0 (default) traces everything, 0 disables. Traced "
+            "requests record host-side span marks (submit/admit/"
+            "first_token/export/adopt/kill/finish) on the engine "
+            "clock; blame attribution, Perfetto export and the "
+            "/v1/requests/<id> endpoint read them. Pure host "
+            "bookkeeping: zero compiled surface either way "
+            "(predict_serving_compiles(tracing=...) is a validated "
+            "no-op).")
+define_flag("serving_trace_keep", 512,
+            "Finished-trace retention ring (like the runlog's "
+            "rotation): the most recent N completed/shed traces stay "
+            "queryable via GET /v1/requests/<id> and the exporters; "
+            "older ids 404. Active (in-flight) traces are never "
+            "evicted.")

@@ -3,16 +3,17 @@ counterpart of ``paddle_tpu/observability``:
 
 - :mod:`.metrics` the typed Counter/Gauge/Histogram registry
 - :mod:`.runlog`  the structured JSONL run log
+- :mod:`.tracing` per-request traces and their blame attribution
 
 ``paddle_tpu_torch.monitor`` (the STAT_* counter API) is a thin shim
 over the registry here. Not ported yet: the compile tracker (a captured
-graph is counted by ``traces["count"]`` instead), devprof, tracing and
-the Prometheus/JSON exporters (``export.py``, ``http.py``).
+graph is counted by ``traces["count"]`` instead), devprof and the
+Prometheus/JSON exporters (``export.py``, ``http.py``).
 """
 
 from __future__ import annotations
 
-from . import metrics, runlog
+from . import metrics, runlog, tracing
 from .metrics import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,
                       MetricsRegistry)
 from .runlog import log_event, recent
@@ -34,7 +35,7 @@ def histogram(name: str, help_str: str = "", buckets=None) -> Histogram:
 
 
 __all__ = [
-    "metrics", "runlog",
+    "metrics", "runlog", "tracing",
     "MetricsRegistry", "Counter", "Gauge", "Histogram", "DEFAULT_BUCKETS",
     "log_event", "recent", "counter", "gauge", "histogram",
 ]

@@ -58,11 +58,25 @@ through ``RetryPolicy.from_flags``; a shed request ends in state
 ``STAT_serving_*`` counters (:mod:`~paddle_tpu_torch.monitor`), metric
 families and run-log events (:mod:`~paddle_tpu_torch.observability`).
 
-Not ported yet (each one is queued in ROADMAP.md): SLO admission and
-priorities (``submit(priority=)`` raises NotImplementedError),
-deadlines, cancel, dispatch-ahead (``dispatch_ahead=True`` raises),
-mesh/TP, LoRA, the host KV tier, the JSON grammar, devprof and tracing,
-and the disagg/HTTP front ends.
+Admission, as the reference's (``slo_ttft_ms`` > 0): ``submit()``
+predicts the newcomer's TTFT from host state (the queue ahead of it,
+free rows, the per-bucket prefill cost and the decode pace, pinned
+through ``slo_prefill_ms`` / ``slo_tpot_ms`` or learned as EWMAs over
+measured dispatches) and sheds it with reason "slo" when the prediction
+exceeds the SLO; every shed carries the predictor's ``retry_after_s``.
+Priority classes (lower is more urgent, FIFO within a class) may
+preempt queued lower-priority work (reason "preempted"); a queued
+request whose TTFT deadline passed is shed before prefill (reason
+"deadline"). ``cancel()`` ends a request at any stage and frees its
+row at once; a ``deadline_ms`` hard deadline cancels it within one
+step. The cost windows close after the host has read the step's
+tokens, so on the card they measure the replay's device time too, not
+only its enqueue. Every request carries a trace
+(:mod:`~paddle_tpu_torch.observability.tracing`) keyed by its id.
+
+Not ported yet (each one is queued in ROADMAP.md): dispatch-ahead
+(``dispatch_ahead=True`` raises), mesh/TP, LoRA, the host KV tier, the
+JSON grammar, devprof, and the disagg/HTTP front ends.
 """
 
 from __future__ import annotations
@@ -85,6 +99,7 @@ from ..device import resolve_device
 from ..models import generation as _gen
 from ..models.gpt import ATTN_IMPLS
 from ..observability import runlog as _runlog
+from ..observability import tracing as _tracing
 from ..resilience.injector import fault_point
 from ..resilience.retry import RetryError, RetryPolicy
 from .decoding import (STOP_MAX_LEN, STOP_MAX_SEQS, DecodeParams,
@@ -95,12 +110,12 @@ from .kv_cache import BlockKVCache, SlotKVCache
 
 class QueueFullError(RuntimeError):
     """Admission control shed this submission. ``reason`` says which gate
-    fired: "queue_full" (depth backpressure), "drain" (a draining engine
-    or router), or "fault" (an injected ``serving.submit`` /
+    fired: "queue_full" (depth backpressure), "slo" (predicted TTFT
+    beyond the engine's ``slo_ttft_ms``), "drain" (a draining engine or
+    router), or "fault" (an injected ``serving.submit`` /
     ``serving.route`` fault, or exhausted routing retries).
-    ``retry_after_s`` is the reference's backoff hint, derived from its
-    TTFT predictor; the predictor waits for SLO admission, so the port
-    leaves it None."""
+    ``retry_after_s`` is the engine's backoff hint in whole seconds (>=
+    1), derived from its TTFT predictor."""
 
     def __init__(self, msg: str, reason: str = "queue_full",
                  retry_after_s: Optional[int] = None):
@@ -123,10 +138,16 @@ class _SkipStep(Exception):
 class Request:
     """One generation request's lifecycle record: queued -> running ->
     done, with shed as the fault exit (queued/running -> shed, the
-    reason in ``shed_reason``, the error in ``error``).
-    ``output_ids`` is prompt + generated tokens (EOS included when hit).
-    ``rehomed`` marks a request a router recovered off a killed replica;
-    ``wait()`` blocks until the request ends."""
+    reason in ``shed_reason``, the error in ``error``) and canceled as
+    the client exit (queued/running -> canceled, the reason in
+    ``shed_reason``: a client cancel, an expired hard deadline, a lost
+    hedge race). ``output_ids`` is prompt + generated tokens (EOS
+    included when hit). ``priority`` is an integer class, lower is more
+    urgent. With a TTFT SLO ``deadline`` is the engine-clock time the
+    first token must land by; ``hard_deadline`` the time after which
+    the request is canceled wherever it is. ``rehomed`` marks a request
+    a router recovered off a killed replica; ``wait()`` blocks until
+    the request ends."""
 
     _ids = itertools.count()
 
@@ -149,6 +170,11 @@ class Request:
         # eligibility, computed once)
         self._stops_fit = stops_fit(self.decode.stop_sequences)
         self.rehomed = False       # recovered from a killed replica
+        # a router's hedge copy: never surfaced in results() or reports
+        self._hedge_clone = False
+        # engine-clock time after which the request is canceled wherever
+        # it is (client patience); None: run to completion
+        self.hard_deadline: Optional[float] = None
         self.tokens: List[int] = []
         self.state = "queued"
         self.slot: Optional[int] = None
@@ -156,6 +182,7 @@ class Request:
         self.shed_reason: Optional[str] = None
         self.submitted_at = (time.perf_counter() if now is None
                              else float(now))
+        self.deadline: Optional[float] = None
         self.first_token_at: Optional[float] = None
         self.finished_at: Optional[float] = None
         self._done = threading.Event()
@@ -199,6 +226,17 @@ class Request:
         return (self.finished_at - self.first_token_at) / \
             (len(self.tokens) - 1)
 
+    @property
+    def deadline_met(self) -> Optional[bool]:
+        """Whether the first token landed inside the TTFT deadline: None
+        without an SLO or while the verdict is open, False for a shed
+        request (its first token never arrives)."""
+        if self.deadline is None:
+            return None
+        if self.first_token_at is None:
+            return False if self.state == "shed" else None
+        return self.first_token_at <= self.deadline
+
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self._done.wait(timeout)
 
@@ -227,11 +265,18 @@ class ServingEngine:
     Geometry and admission knobs come from the ``FLAGS_serving_*``
     flags; constructor arguments override per instance. ``device`` must
     be the model's device; ``None`` means CUDA and raises without one.
-    ``clock`` replaces ``time.perf_counter`` for the request timestamps
-    and a router's breaker cooldown.
+    ``clock`` replaces ``time.perf_counter`` for the request timestamps,
+    deadlines, traces and a router's breaker cooldown.
     """
 
     _engine_ids = itertools.count()
+
+    #: track-label prefix in exported traces
+    trace_role = "engine"
+
+    @property
+    def trace_track(self) -> str:
+        return f"{self.trace_role}{self._eid}"
 
     def __init__(self, model, max_slots: Optional[int] = None,
                  max_len: Optional[int] = None,
@@ -248,6 +293,10 @@ class ServingEngine:
                  spec_ngram: Optional[int] = None,
                  paged: Optional[bool] = None,
                  dispatch_ahead: Optional[bool] = None,
+                 slo_ttft_ms: Optional[float] = None,
+                 slo_prefill_ms: Optional[float] = None,
+                 slo_tpot_ms: Optional[float] = None,
+                 priority_preempt: Optional[bool] = None,
                  clock=None, device=None):
         g = _flags.get_flags(["serving_max_slots", "serving_max_len",
                               "serving_max_queue",
@@ -258,7 +307,11 @@ class ServingEngine:
                               "serving_prefix_cache", "serving_kv_dtype",
                               "serving_attn_impl", "serving_megastep",
                               "serving_spec_tokens",
-                              "serving_spec_ngram"])
+                              "serving_spec_ngram",
+                              "serving_slo_ttft_ms",
+                              "serving_slo_prefill_ms",
+                              "serving_slo_tpot_ms",
+                              "serving_priority_preempt"])
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine "
@@ -278,6 +331,28 @@ class ServingEngine:
         self.default_max_new_tokens = int(g["serving_max_new_tokens"])
         self.default_eos_token_id = eos_token_id
         self.idle_wait = float(g["serving_idle_wait"])
+        # SLO-aware admission: 0 disables (depth-only backpressure); the
+        # knobs are read once, at construction
+        self.slo_ttft_ms = float(slo_ttft_ms if slo_ttft_ms is not None
+                                 else g["serving_slo_ttft_ms"])
+        if self.slo_ttft_ms < 0:
+            raise ValueError(
+                f"slo_ttft_ms must be >= 0, got {self.slo_ttft_ms}")
+        self._prefill_ms_pin = float(
+            slo_prefill_ms if slo_prefill_ms is not None
+            else g["serving_slo_prefill_ms"])
+        self._tpot_ms_pin = float(slo_tpot_ms if slo_tpot_ms is not None
+                                  else g["serving_slo_tpot_ms"])
+        if self._prefill_ms_pin < 0 or self._tpot_ms_pin < 0:
+            raise ValueError("pinned predictor costs must be >= 0")
+        self.priority_preempt = bool(
+            priority_preempt if priority_preempt is not None
+            else g["serving_priority_preempt"])
+        # measured costs feeding predict_ttft_ms when no pin is set:
+        # prefill ms per bucket and overall, decode ms per output token
+        self._prefill_ewma: Dict[int, float] = {}
+        self._prefill_ewma_all: Optional[float] = None
+        self._tpot_ewma: Optional[float] = None
         # device-resident decode megasteps: N decode iterations per
         # dispatch, one host commit per megastep
         self.megastep = int(megastep if megastep is not None
@@ -370,10 +445,6 @@ class ServingEngine:
         self._wake = threading.Event()
         self._stop_evt = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        # SLO admission is not ported: no engine has a TTFT SLO, so the
-        # router's attainment reads None, as the reference's does for
-        # engines without one
-        self.slo_ttft_ms = 0.0
         self._completed = 0                         # guarded-by: _lock
         self._slo_met = 0                           # guarded-by: _lock
         self._shed_by_reason: Dict[str, int] = {}   # guarded-by: _lock
@@ -393,6 +464,19 @@ class ServingEngine:
             "serving_shed_total",
             "requests shed, by reason (queue_full|slo|deadline|"
             "preempted|fault|drain) and priority class")
+        self._cancel_ctr = _obs.counter(
+            "serving_canceled_total",
+            "requests canceled mid-lifecycle, by reason (client|"
+            "disconnect|deadline|hedge_lose|duplicate); every cancel "
+            "reclaims its KV blocks and LoRA pin at whatever stage it "
+            "caught the request")
+        self._slo_gauge = None
+        if self.slo_ttft_ms:
+            self._slo_gauge = _obs.gauge(
+                "serving_slo_attainment",
+                "fraction of completed requests whose first token met "
+                "the TTFT SLO (FLAGS_serving_slo_ttft_ms)"
+                ).labels(engine=eid)
         if self.paged:
             self._blocks_used_g = _obs.gauge(
                 "serving_kv_blocks_used",
@@ -436,6 +520,90 @@ class ServingEngine:
         self.decode_steps = 0           # single-step decode dispatches
         self.megastep_dispatches = 0    # N-iteration decode dispatches
 
+    # --------------------------------------------------- TTFT prediction
+    _EWMA_ALPHA = 0.3
+
+    def _ewma(self, old: Optional[float], new: float) -> float:
+        if old is None:
+            return new
+        return (1.0 - self._EWMA_ALPHA) * old + self._EWMA_ALPHA * new
+
+    def _note_prefill_ms(self, bucket: int, ms: float):
+        self._prefill_ewma[bucket] = self._ewma(
+            self._prefill_ewma.get(bucket), ms)
+        self._prefill_ewma_all = self._ewma(self._prefill_ewma_all, ms)
+
+    def _note_tpot_ms(self, ms: float):
+        self._tpot_ewma = self._ewma(self._tpot_ewma, ms)
+
+    def _prefill_cost_ms(self, bucket: int) -> float:
+        """Estimated cost of one prefill dispatch of this bucket: the pin
+        when set, else the measured EWMA (the overall one before this
+        bucket's first dispatch; 0 before any)."""
+        if self._prefill_ms_pin:
+            return self._prefill_ms_pin
+        v = self._prefill_ewma.get(bucket, self._prefill_ewma_all)
+        return 0.0 if v is None else v
+
+    def _tpot_cost_ms(self) -> float:
+        if self._tpot_ms_pin:
+            return self._tpot_ms_pin
+        return self._tpot_ewma if self._tpot_ewma is not None else 0.0
+
+    def reset_cost_estimates(self):
+        """Drop the learned EWMA costs (pins stay): call after a warm-up
+        that paid the captures, so predictions reflect steady-state
+        dispatch costs."""
+        self._prefill_ewma.clear()
+        self._prefill_ewma_all = None
+        self._tpot_ewma = None
+
+    def predict_ttft_ms(self, prompt_len: int = 1,
+                        queue_ahead: Optional[int] = None) -> float:
+        """First-order TTFT prediction for a would-be submission, in ms,
+        from host state only, monotone non-decreasing in queue depth.
+        Requests ahead prefill in waves of ``max_slots`` (``ceil(q /
+        max_slots)`` dispatches before ours), and the newcomer waits
+        ``ceil(max(0, q + 1 - free) / max_slots)`` generation rounds for
+        a row, each one mean new-token budget at the current TPOT. With
+        neither pins nor measurements the prediction is 0."""
+        if queue_ahead is None:
+            with self._lock:
+                queue_ahead = len(self._queue)
+        return self._predict_ttft_ms(int(queue_ahead), int(prompt_len))
+
+    def _predict_ttft_ms(self, q: int, prompt_len: int) -> float:
+        bucket = self._bucket_for(max(1, min(prompt_len, self.max_len)))
+        prefill = self._prefill_cost_ms(bucket)
+        tpot = self._tpot_cost_ms()
+        live = list(self._active.values())
+        budgets = [r.max_new_tokens for r in live]
+        budgets += [r.max_new_tokens for r in list(self._queue)[:q]]
+        mean_budget = (sum(budgets) / len(budgets) if budgets
+                       else self.default_max_new_tokens)
+        free = max(0, self.max_slots - len(live))
+        waves_ahead = -(-q // self.max_slots)
+        rounds = -(-max(0, q + 1 - free) // self.max_slots)
+        return (waves_ahead + 1) * prefill + rounds * mean_budget * tpot
+
+    def _retry_after_s(self, pred_ms: float) -> int:
+        """Whole-second backoff hint for a shed submission: the predicted
+        TTFT when the model has estimates, else the idle wait; >= 1."""
+        if pred_ms > 0:
+            return max(1, int(-(-pred_ms // 1e3)))
+        return max(1, int(-(-self.idle_wait // 1)))
+
+    def _pick_victims(self, priority: int, n: int,
+                      exclude: Sequence[Request] = ()) -> List[Request]:
+        """(holding ``_lock``) Queued requests a priority-``priority``
+        submission may preempt: strictly lower-priority (numerically
+        greater) classes only, worst class first, newest first within a
+        class."""
+        pool = [r for r in self._queue
+                if r.priority > priority and r not in exclude]
+        pool.sort(key=lambda r: (-r.priority, -r.id))
+        return pool[:max(0, n)]
+
     # ------------------------------------------------------------ submit
     def submit(self, prompt: Sequence[int],
                max_new_tokens: Optional[int] = None,
@@ -447,23 +615,29 @@ class ServingEngine:
                stop: Optional[Sequence[Sequence[int]]] = None,
                seed: Optional[int] = None,
                decode: Optional[DecodeParams] = None,
+               deadline_ms: Optional[float] = None,
                _log_request: bool = True) -> Request:
         """Queue a generation request; returns its handle. Temperature
         0 (the default) is greedy; above 0 the request samples, after
         top-k (0: off) and top-p (0 or 1: off), from the stream of
-        ``seed``.
+        ``seed``. ``priority`` is an integer class, lower is more urgent
+        (default 1), FIFO within a class. ``deadline_ms`` is a hard
+        deadline in engine-clock ms from submission after which the
+        request is canceled wherever it is (reason "deadline").
 
         Raises ValueError for geometry the cache cannot hold (prompt +
-        ``max_new_tokens`` + ``spec_tokens`` rows) or token ids outside
-        the vocabulary; QueueFullError when admission sheds the
-        submission (a full queue, a draining engine, an injected
-        ``serving.submit`` skip); NotImplementedError for JSON-constrained
-        requests and for a ``priority`` (priority classes wait for SLO
-        admission). ``_log_request`` False leaves out the run log's
+        ``max_new_tokens`` + ``spec_tokens`` rows), token ids outside
+        the vocabulary or a ``deadline_ms`` <= 0; QueueFullError when
+        admission sheds the submission (a full queue, a predicted TTFT
+        past the SLO, a draining engine, an injected ``serving.submit``
+        skip), with ``reason`` and ``retry_after_s``; with preemption on,
+        a submission that would be shed may shed queued lower-priority
+        work instead. NotImplementedError for JSON-constrained requests.
+        ``_log_request`` False leaves out the run log's
         ``serving_request`` arrival record (a router logs its own)."""
-        if priority is not None:
-            raise NotImplementedError(
-                "priority classes (submit(priority=)) are not ported yet")
+        if deadline_ms is not None and float(deadline_ms) <= 0:
+            raise ValueError(
+                f"deadline_ms must be > 0, got {deadline_ms}")
         mnt = int(max_new_tokens if max_new_tokens is not None
                   else self.default_max_new_tokens)
         eos = (eos_token_id if eos_token_id is not None
@@ -517,7 +691,7 @@ class ServingEngine:
                     f"request needs {need} KV blocks but the pool only "
                     f"has {self.cache.num_blocks - 1} usable; raise "
                     "FLAGS_serving_num_blocks or shorten the request")
-        pr = 1
+        pr = int(priority if priority is not None else 1)
         now = self._clock()
         if _log_request and _runlog.enabled():
             # the replayable arrival record, as the reference writes it
@@ -536,7 +710,8 @@ class ServingEngine:
             _monitor.stat_add("STAT_serving_rejected")
             self._count_shed("drain", pr)
             raise QueueFullError("engine is draining; resubmit to a "
-                                 "live replica", reason="drain")
+                                 "live replica", reason="drain",
+                                 retry_after_s=self._retry_after_s(0.0))
         # raising kinds reject this submission pre-queue; `skip` sheds
         # it through the same backpressure exit as a full queue
         kind = fault_point("serving.submit")
@@ -544,20 +719,63 @@ class ServingEngine:
             _monitor.stat_add("STAT_serving_rejected")
             self._count_shed("fault", pr)
             raise QueueFullError("submission shed by injected fault at "
-                                 "serving.submit", reason="fault")
+                                 "serving.submit", reason="fault",
+                                 retry_after_s=self._retry_after_s(0.0))
         req = Request(prompt, mnt, eos, priority=pr, now=now, decode=params)
+        if self.slo_ttft_ms:
+            req.deadline = now + self.slo_ttft_ms / 1e3
+        if deadline_ms is not None:
+            req.hard_deadline = now + float(deadline_ms) / 1e3
+        reject = None          # (reason, predicted ms) when shedding
+        victims: List[Request] = []
         with self._lock:
-            full = len(self._queue) >= self.max_queue
-            if not full:
+            q = len(self._queue)
+            if q >= self.max_queue:
+                if self.priority_preempt:
+                    victims = self._pick_victims(
+                        pr, q - self.max_queue + 1)
+                if q - len(victims) >= self.max_queue:
+                    reject = ("queue_full",
+                              self._predict_ttft_ms(q, len(prompt)))
+            if reject is None and self.slo_ttft_ms:
+                pred = self._predict_ttft_ms(q - len(victims),
+                                             len(prompt))
+                while pred > self.slo_ttft_ms and self.priority_preempt:
+                    more = self._pick_victims(pr, 1, exclude=victims)
+                    if not more:
+                        break
+                    victims.extend(more)
+                    pred = self._predict_ttft_ms(q - len(victims),
+                                                 len(prompt))
+                if pred > self.slo_ttft_ms:
+                    reject = ("slo", pred)
+            if reject is None:
+                for v in victims:
+                    self._queue.remove(v)
                 self._queue.append(req)
                 self._all.append(req)
-        if full:
+            else:
+                victims = []   # rejected anyway: preempt nothing
+        for v in victims:
+            self._shed(v, _Shed(f"preempted by priority-{pr} request "
+                                f"{req.id}"), reason="preempted")
+        if reject is not None:
+            reason, pred = reject
             _monitor.stat_add("STAT_serving_rejected")
-            self._count_shed("queue_full", pr)
-            raise QueueFullError(
-                f"serving queue full ({self.max_queue} waiting); retry "
-                "later or raise FLAGS_serving_max_queue")
+            self._count_shed(reason, pr)
+            if reason == "queue_full":
+                msg = (f"serving queue full ({self.max_queue} waiting); "
+                       "retry later or raise FLAGS_serving_max_queue")
+            else:
+                msg = (f"predicted TTFT {pred:.0f}ms exceeds SLO "
+                       f"{self.slo_ttft_ms:.0f}ms; retry later or shed")
+            raise QueueFullError(msg, reason=reason,
+                                 retry_after_s=self._retry_after_s(pred))
         _monitor.stat_add("STAT_serving_submitted")
+        _tracing.begin(req.id, req.submitted_at, self.trace_track,
+                       prompt_tokens=len(req.prompt),
+                       max_new_tokens=req.max_new_tokens,
+                       priority=req.priority, tenant="")
         self._wake.set()
         return req
 
@@ -639,20 +857,50 @@ class ServingEngine:
         self.prefill_dispatches += 1
         return live, shed, out
 
-    def _pop_candidates(self, limit: int) -> List[Request]:
-        """Pop up to ``limit`` queued requests in FIFO order."""
+    def _pop_candidates(self, limit: int):
+        """Pop up to ``limit`` queued requests in admission order,
+        (priority class, submission id), which is FIFO when every
+        request has the default class, shedding those whose TTFT
+        deadline passed (reason "deadline") and canceling those whose
+        hard deadline passed. Returns ``(candidates, n_expired)``."""
         out: List[Request] = []
+        expired: List[Request] = []
+        hard_expired: List[Request] = []
+        now = self._clock()
         with self._lock:
+            if len(self._queue) > 1 and \
+                    any(r.priority != self._queue[0].priority
+                        for r in self._queue):
+                self._queue = deque(sorted(
+                    self._queue, key=lambda r: (r.priority, r.id)))
             while len(out) < limit and self._queue:
-                out.append(self._queue.popleft())
-        return out
+                req = self._queue.popleft()
+                if req.hard_deadline is not None and \
+                        now > req.hard_deadline:
+                    hard_expired.append(req)
+                elif req.deadline is not None and now > req.deadline:
+                    expired.append(req)
+                else:
+                    out.append(req)
+        for req in expired:
+            self._shed(req, _Shed("TTFT deadline expired in queue for "
+                                  f"request {req.id}"),
+                       reason="deadline")
+        for req in hard_expired:
+            self._finalize_cancel(req, "queued", "deadline")
+        return out, len(expired) + len(hard_expired)
+
+    def _mark_admit(self, reqs):
+        t_adm = self._clock()
+        for req in reqs:
+            _tracing.mark(req.id, "admit", t_adm, self.trace_track)
 
     def _admit_round_dense(self):
         """One dense admission pass: pop up to ``num_free`` queued
         requests, group them by prefill bucket, one batched prefill per
         group (retried through ``RetryPolicy``), whose rows are copied
         into freshly allocated slots. Returns (consumed, admitted)."""
-        candidates = self._pop_candidates(self.cache.num_free)
+        candidates, expired = self._pop_candidates(self.cache.num_free)
         groups: Dict[int, List[Request]] = {}
         for req in candidates:
             groups.setdefault(self._bucket_for(len(req.context)),
@@ -660,6 +908,8 @@ class ServingEngine:
         admitted = 0
         for bucket in sorted(groups):
             group = groups[bucket]
+            self._mark_admit(group)
+            t0 = time.perf_counter()
             try:
                 with _monitor.stat_time("STAT_serving_prefill"):
                     live, shed, out = RetryPolicy.from_flags(
@@ -678,6 +928,9 @@ class ServingEngine:
             self.cache.write_prefill_batch(
                 slots, rows, [len(r.context) for r in live])
             first = torch.argmax(lg, dim=-1).cpu().numpy()
+            # the window closes after the host read the tokens, so it
+            # holds the replay's device time too
+            self._note_prefill_ms(bucket, (time.perf_counter() - t0) * 1e3)
             for i, (req, slot) in enumerate(zip(live, slots)):
                 req.slot = slot
                 req.state = "running"
@@ -687,10 +940,18 @@ class ServingEngine:
                 _runlog.log_event("serving_admit", request=req.id,
                                   bucket=bucket, slot=slot,
                                   prompt_tokens=len(req.prompt))
+                self._mark_resume(req)
                 # the first generated token comes from the prefill logits
                 # (the argmax greedy_search takes after its own prefill)
                 self._append_token(req, self._take_first(req, first, lg, i))
-        return len(candidates), admitted
+        return expired + len(candidates), admitted
+
+    def _mark_resume(self, req: Request):
+        """A re-homed request re-prefilled its committed context: its
+        trace resumes decoding here instead of stamping a first token."""
+        if req.first_token_at is not None:
+            _tracing.mark(req.id, "resume", self._clock(),
+                          self.trace_track)
 
     def _prefill_entry_paged(self, bucket: int) -> dict:
         """The step-cache entry of one bucket's batched prefill at this
@@ -755,9 +1016,9 @@ class ServingEngine:
         unshared suffix's bucket, one batched prefill per group (retried
         at ``serving.step``). A dry pool requeues the head-of-line
         request and all behind it. Returns (consumed, admitted)."""
-        candidates = self._pop_candidates(self.cache.num_free)
+        candidates, expired = self._pop_candidates(self.cache.num_free)
         if not candidates:
-            return 0, 0
+            return expired, 0
         acquired = []   # (req, row, shared)
         back: List[Request] = []
         for req in candidates:
@@ -779,7 +1040,7 @@ class ServingEngine:
             with self._lock:
                 self._queue.extendleft(reversed(back))
         if not acquired:
-            return len(candidates) - len(back), 0
+            return expired + len(candidates) - len(back), 0
         groups: Dict[int, List] = {}
         for rec in acquired:
             req, row, shared = rec
@@ -788,6 +1049,8 @@ class ServingEngine:
         admitted = 0
         for bucket in sorted(groups):
             group = groups[bucket]
+            self._mark_admit([rec[0] for rec in group])
+            t0 = time.perf_counter()
             try:
                 with _monitor.stat_time("STAT_serving_prefill"):
                     live, shed, out = RetryPolicy.from_flags(
@@ -805,9 +1068,10 @@ class ServingEngine:
                 continue
             lg, pools, qerr = out
             self.cache.set_arrays(pools)
+            first = torch.argmax(lg, dim=-1).cpu().numpy()
+            self._note_prefill_ms(bucket, (time.perf_counter() - t0) * 1e3)
             self._note_qerr(qerr, sum(len(req.context) - shared
                                       for req, _, shared in live))
-            first = torch.argmax(lg, dim=-1).cpu().numpy()
             for i, (req, row, shared) in enumerate(live):
                 ctx = req.context
                 self.cache.commit_prefill(row, len(ctx))
@@ -827,8 +1091,9 @@ class ServingEngine:
                                   bucket=bucket, slot=row,
                                   prompt_tokens=len(req.prompt),
                                   shared_tokens=shared)
+                self._mark_resume(req)
                 self._append_token(req, self._take_first(req, first, lg, i))
-        return len(candidates) - len(back), admitted
+        return expired + len(candidates) - len(back), admitted
 
     def _take_first(self, req: Request, first: np.ndarray, lg,
                     i: int) -> int:
@@ -936,6 +1201,7 @@ class ServingEngine:
         tokens = np.zeros(self.max_slots, np.int32)
         for slot, req in self._active.items():
             tokens[slot] = req.tokens[-1]
+        t0 = time.perf_counter()
         try:
             with _monitor.stat_time("STAT_serving_decode"):
                 out = RetryPolicy.from_flags("serving.step").call(
@@ -947,13 +1213,17 @@ class ServingEngine:
             return 0
         if self.paged:
             nxt, _, arrays, qerr, new_keys = out
-            self._note_qerr(qerr, len(self._active))
         else:
             nxt, _, arrays, new_keys = out
         self.decode_steps += 1
         self.cache.set_arrays(arrays)
-        self._writeback_keys(new_keys)
         nxt = nxt.cpu().numpy()
+        # one token per active row: the step's wall, closed once the host
+        # has the tokens, is already a per-token sample
+        self._note_tpot_ms((time.perf_counter() - t0) * 1e3)
+        if self.paged:
+            self._note_qerr(qerr, len(self._active))
+        self._writeback_keys(new_keys)
         produced = 0
         for slot, req in list(self._active.items()):
             self.cache.advance(slot, 1)
@@ -967,13 +1237,24 @@ class ServingEngine:
         a row's stops do not fit the device tables, which takes the whole
         batch back to single steps (never to an intermediate N: the
         engine has two decode entries, the megastep and the single
-        step). Grammar rows and deadlines, the reference's other
-        fallbacks, are not ported."""
+        step). So does a hard deadline that ends sooner than ``n``
+        tokens at the current TPOT. (Grammar rows, the reference's other
+        fallback, are not ported.)"""
         n = self.megastep
         if n <= 1 or not self._active:
             return 1
-        if any(not req._stops_fit for req in self._active.values()):
-            return 1
+        tpot = self._tpot_cost_ms()
+        now = None
+        for req in self._active.values():
+            if not req._stops_fit:
+                return 1
+            if req.hard_deadline is not None and tpot > 0:
+                # a deadline too tight to absorb a whole megastep: the
+                # dying client is reaped within one step, not a megastep
+                if now is None:
+                    now = self._clock()
+                if (req.hard_deadline - now) * 1e3 < n * tpot:
+                    return 1
         return n
 
     def _megastep_inputs(self):
@@ -1030,6 +1311,7 @@ class ServingEngine:
         if not self._active:
             return 0
         n_active = len(self._active)
+        t0 = time.perf_counter()
         try:
             with _monitor.stat_time("STAT_serving_decode"):
                 out = RetryPolicy.from_flags("serving.step").call(
@@ -1062,6 +1344,11 @@ class ServingEngine:
                 produced += 1
                 if req.state != "running":
                     break
+        if produced:
+            # per-token pace: the megastep's wall over the tokens each
+            # row committed
+            self._note_tpot_ms((time.perf_counter() - t0) * 1e3 *
+                               n_active / produced)
         if _runlog.enabled():
             _runlog.log_event("serving_megastep", n=n, active=n_active,
                               produced=produced)
@@ -1099,6 +1386,8 @@ class ServingEngine:
             tokens[slot, 0] = req.tokens[-1]
             tokens[slot, 1:] = _gen.draft_ngram(req.prompt + req.tokens, K,
                                                 self.spec_ngram)
+        n_active = len(self._active)
+        t0 = time.perf_counter()
         try:
             with _monitor.stat_time("STAT_serving_verify"):
                 out = RetryPolicy.from_flags("serving.step").call(
@@ -1142,6 +1431,11 @@ class ServingEngine:
                                   proposed=K, accepted=accepted)
             if req.state == "running":
                 self.cache.rollback(slot, K + 1 - committed)
+        if produced:
+            # per-token pace: the step's wall over the tokens each row
+            # committed
+            self._note_tpot_ms((time.perf_counter() - t0) * 1e3 *
+                               n_active / produced)
         return produced
 
     def _decode_any(self) -> int:
@@ -1156,6 +1450,10 @@ class ServingEngine:
         req.tokens.append(token)
         if req.first_token_at is None:
             req.first_token_at = self._clock()
+            # the mark reuses the stamp, so the blame prefix up to the
+            # first token equals the measured TTFT exactly
+            _tracing.mark(req.id, "first_token", req.first_token_at,
+                          self.trace_track)
         _monitor.stat_add("STAT_serving_tokens")
         if req._stop is not None:
             req._stop.feed(token)
@@ -1182,17 +1480,29 @@ class ServingEngine:
             self._ttft_hist.observe(ttft)
         if tpot is not None:
             self._tpot_hist.observe(tpot)
+        met = req.deadline_met
         with self._lock:
             self._completed += 1
+            if met:
+                self._slo_met += 1
+            completed, slo_met = self._completed, self._slo_met
             # [completed, slo-eligible, slo-met] per tenant, as the
             # reference counts them; without LoRA every request is "base"
-            self._tenant_stats.setdefault("base", [0, 0, 0])[0] += 1
+            ts = self._tenant_stats.setdefault("base", [0, 0, 0])
+            ts[0] += 1
+            if met is not None:
+                ts[1] += 1
+                if met:
+                    ts[2] += 1
+        if self._slo_gauge is not None and completed:
+            self._slo_gauge.set(slo_met / completed)
         _monitor.stat_add("STAT_serving_completed")
         _runlog.log_event(
             "serving_finish", request=req.id, tokens=len(req.tokens),
             ttft_ms=None if ttft is None else round(ttft * 1e3, 3),
             tpot_ms=None if tpot is None else round(tpot * 1e3, 3),
-            deadline_met=None)
+            deadline_met=met)
+        _tracing.finish(req.id, req.finished_at, self.trace_track, "done")
         req._done.set()
 
     def _count_shed(self, reason: str, priority: int):
@@ -1216,7 +1526,101 @@ class ServingEngine:
         _runlog.log_event("serving_shed", request=req.id,
                           reason=reason, priority=req.priority,
                           error=str(err))
+        _tracing.finish(req.id, req.finished_at, self.trace_track,
+                        "shed", reason=reason)
         req._done.set()
+
+    # ------------------------------------------------------ cancellation
+    def cancel(self, rid: int, reason: str = "client",
+               _finalize: bool = True) -> Optional[dict]:
+        """End request ``rid`` at whatever stage it reached, queued or
+        in a row (before or after its first token), releasing its row
+        and blocks at once: a table row is reset to the trash block
+        before the next step builds its inputs. Host work only; nothing
+        is captured. Returns ``{"id", "stage", "reason"}``, or None for
+        an unknown or already-ended request (a second cancel is a
+        no-op).
+
+        ``_finalize=False`` is the router's detached mode for a hedge
+        primary whose clone won: the resources are reclaimed and the
+        cancel counted, but the handle stays open until the winner's
+        tokens are mirrored onto it."""
+        rid = int(rid)
+        with self._lock:
+            req = next((r for r in self._all if r.id == rid), None)
+        if req is None or req.state in ("done", "shed", "canceled"):
+            return None
+        return self._cancel_request(req, reason, _finalize=_finalize)
+
+    def _cancel_request(self, req: Request, reason: str,
+                        _finalize: bool = True) -> Optional[dict]:
+        """Pull the request out of the queue (stage ``queued``) or its
+        row (``prefill`` before its first token, ``decode`` after), under
+        the step lock so no replay is being built over the row, then
+        account the cancel."""
+        stage = None
+        with self._lock:
+            try:
+                self._queue.remove(req)
+                stage = "queued"
+            except ValueError:
+                pass       # admitted, or inside a step's admission
+        if stage is None:
+            with self._step_lock:
+                slot = req.slot
+                if slot is not None and self._active.get(slot) is req:
+                    del self._active[slot]
+                    self.cache.release(slot)
+                    req.slot = None
+                    stage = ("decode" if req.first_token_at is not None
+                             else "prefill")
+        if stage is None:
+            # ended already, or popped by a concurrent step's admission
+            # (it runs to completion): nothing is held here
+            return None
+        self._finalize_cancel(req, stage, reason, _finalize)
+        return {"id": req.id, "stage": stage, "reason": reason}
+
+    def _finalize_cancel(self, req: Request, stage: str, reason: str,
+                         finalize: bool = True):
+        """Account a canceled request whose row the caller released:
+        counters, metric, run log and trace, and (unless detached) the
+        terminal state."""
+        with self._lock:
+            self._canceled_by_reason[reason] = \
+                self._canceled_by_reason.get(reason, 0) + 1
+        self._cancel_ctr.labels(engine=self._eid, reason=reason).inc()
+        _monitor.stat_add("STAT_serving_canceled")
+        now = self._clock()
+        _runlog.log_event("serving_cancel", request=req.id,
+                          stage=stage, reason=reason,
+                          tokens=len(req.tokens))
+        _tracing.mark(req.id, "cancel", now, self.trace_track)
+        _tracing.finish(req.id, now, self.trace_track, "canceled",
+                        reason=reason)
+        if finalize:
+            req.state = "canceled"
+            req.shed_reason = reason
+            req.finished_at = now
+            req._done.set()
+
+    def _reap_expired(self) -> int:
+        """(holding ``_step_lock``) Cancel every active row whose hard
+        deadline passed, before admission, so the freed rows take new
+        requests in the same step. Returns how many were canceled."""
+        now = self._clock()
+        n = 0
+        for slot, req in list(self._active.items()):
+            hd = req.hard_deadline
+            if hd is not None and now > hd:
+                del self._active[slot]
+                self.cache.release(slot)
+                req.slot = None
+                stage = ("decode" if req.first_token_at is not None
+                         else "prefill")
+                self._finalize_cancel(req, stage, "deadline")
+                n += 1
+        return n
 
     # ------------------------------------------------- weight hot-swap
     def swap_weights(self, state, *, reset_costs: bool = True) -> int:
@@ -1234,10 +1638,10 @@ class ServingEngine:
         weights ride into its compiled steps as data for the same end).
         The copies are queued on the current stream, after the steps
         before them and before the steps after. KV entries written under
-        the old weights are kept (the reference's contract). SLO
-        admission's learned costs, which ``reset_costs`` drops in the
-        reference, are not ported: there is nothing to reset yet.
-        Returns the new weight version."""
+        the old weights are kept (the reference's contract).
+        ``reset_costs`` drops the learned prefill and TPOT EWMAs
+        afterwards (pins stay), so the new weights' costs are learned
+        afresh. Returns the new weight version."""
         named = list(self.model.named_parameters())
         known = {name for name, _ in named}
         unknown = sorted(set(state) - known)
@@ -1273,6 +1677,8 @@ class ServingEngine:
                           version=version, params=len(staged),
                           reset_costs=bool(reset_costs))
         _monitor.stat_add("STAT_serving_weight_swaps")
+        if reset_costs:
+            self.reset_cost_estimates()
         return version
 
     def _release_device(self):
@@ -1300,18 +1706,20 @@ class ServingEngine:
 
     # --------------------------------------------------------- stepping
     def step(self) -> bool:
-        """One scheduler iteration: admit into free rows (batched
-        per-bucket prefill), then one batched decode, or with speculation
-        on one draft-verify step. Returns whether any work happened."""
+        """One scheduler iteration: cancel rows whose hard deadline
+        passed, admit into free rows (batched per-bucket prefill), then
+        one batched decode, or with speculation on one draft-verify
+        step. Returns whether any work happened."""
         with self._step_lock:
             _monitor.stat_add("STAT_serving_steps")
+            reaped = self._reap_expired()
             admitted = self._admit()
             produced = (self._spec_decode() if self.spec_tokens
                         else self._decode_any())
             if self.paged:
                 self._blocks_used_g.set(self.cache.blocks_used)
                 self._blocks_free_g.set(self.cache.blocks_free)
-            return bool(admitted or produced)
+            return bool(admitted or produced or reaped)
 
     @property
     def idle(self) -> bool:
@@ -1376,12 +1784,17 @@ class ServingEngine:
 
     def stats(self) -> dict:
         """Per-engine serving metrics: latency percentiles of finished
-        requests (ms), the attention path, the KV dtype and its int8
-        error, prefix-cache reuse and block use, and the dispatch
-        counts."""
+        requests (ms), completions, sheds and cancels by reason, SLO
+        attainment and the predicted TTFT (with an SLO), per-tenant
+        outcomes, the attention path, the KV dtype and its int8 error,
+        prefix-cache reuse and block use, and the dispatch counts."""
         with self._lock:
             done = [r for r in self._all if r.state == "done"]
+            completed = self._completed
+            slo_met = self._slo_met
             shed = dict(self._shed_by_reason)
+            canceled = dict(self._canceled_by_reason)
+            tenants = {k: list(v) for k, v in self._tenant_stats.items()}
 
         def pct(vals, q):
             vals = [v for v in vals if v is not None]
@@ -1393,7 +1806,7 @@ class ServingEngine:
             "ttft_p99_ms": pct([r.ttft for r in done], 99),
             "tpot_p50_ms": pct([r.tpot for r in done], 50),
             "tpot_p99_ms": pct([r.tpot for r in done], 99),
-            "completed": len(done),
+            "completed": completed,
             "queue_depth": len(self._queue),
             "active": len(self._active),
             "paged": self.paged,
@@ -1404,7 +1817,22 @@ class ServingEngine:
             "spec_tokens": self.spec_tokens,
             "shed": shed,
             "shed_total": sum(shed.values()),
+            "canceled": canceled,
+            "canceled_total": sum(canceled.values()),
         }
+        if self.slo_ttft_ms:
+            out["slo_ttft_ms"] = self.slo_ttft_ms
+            out["slo_met"] = slo_met
+            out["slo_attainment"] = (round(slo_met / completed, 4)
+                                     if completed else None)
+            out["predicted_ttft_ms"] = round(self.predict_ttft_ms(), 3)
+        if tenants:
+            out["tenants"] = {
+                name: {"completed": c,
+                       "slo_met": m,
+                       "slo_attainment": (round(m / e, 4) if e
+                                          else None)}
+                for name, (c, e, m) in sorted(tenants.items())}
         if self.paged:
             c = self.cache
             hit_t, miss_t = c.prefix_hits, c.prefix_misses

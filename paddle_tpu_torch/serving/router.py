@@ -45,10 +45,19 @@ enqueues its work on the one default stream, so their graphs, which
 share the model's memory pool, never run at once; what overlaps is one
 replica's host work with another's device work.
 
-Not ported yet (ROADMAP queue A2): hedged prefill (``hedge_ms != 0``
-raises NotImplementedError), ``cancel``, SLO attainment (no engine has
-an SLO, so it reads None), LoRA tenants and the host KV tier (their
-engine keywords raise NotImplementedError), tracing marks.
+Hedged prefill (``hedge_ms`` > 0 fixed, < 0 the traced fleet's TTFT
+p95): a request whose replica predicts a TTFT past the threshold arms a
+hedge; if it still has no first token after that delay, a clone races
+on the best other routable replica, funded by a token bucket that earns
+``hedge_budget`` per offered request. The first first token wins; the
+loser is canceled through its engine (reason "hedge_lose", its row
+freed under that engine's step lock), and a winning clone's tokens are
+mirrored onto the caller's handle. ``cancel`` ends a request anywhere
+in the fleet, its hedge pair included. Kills and hedges leave their
+marks on the request's trace.
+
+Not ported yet (ROADMAP queue A2): LoRA tenants and the host KV tier
+(their engine keywords raise NotImplementedError).
 """
 
 from __future__ import annotations
@@ -57,13 +66,14 @@ import contextlib
 import itertools
 import threading
 from collections import deque
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 from .. import flags as _flags
 from .. import jit as _jit
 from .. import monitor as _monitor
 from .. import observability as _obs
 from ..observability import runlog as _runlog
+from ..observability import tracing as _tracing
 from ..resilience.injector import InjectedFault, fault_point
 from ..resilience.retry import RetryError, RetryPolicy
 from .engine import QueueFullError, Request, ServingEngine
@@ -193,17 +203,17 @@ class ReplicaRouter:
                               "serving_dispatch_threads"])
         self._strike_limit = max(1, int(g["serving_replica_strikes"]))
         self._auto_restart = bool(g["serving_auto_restart"])
+        # hedged prefill: 0 off, > 0 a fixed threshold and delay in ms,
+        # < 0 derived from the traced fleet's TTFT p95
         self._hedge_ms = float(hedge_ms if hedge_ms is not None
                                else g["serving_hedge_ms"])
-        hedge_budget = float(hedge_budget if hedge_budget is not None
-                             else g["serving_hedge_budget"])
-        if hedge_budget < 0:
+        self._hedge_budget_frac = float(
+            hedge_budget if hedge_budget is not None
+            else g["serving_hedge_budget"])
+        if self._hedge_budget_frac < 0:
             raise ValueError(
-                f"serving_hedge_budget must be >= 0, got {hedge_budget}")
-        if self._hedge_ms != 0.0:
-            raise NotImplementedError(
-                "hedged prefill (FLAGS_serving_hedge_ms != 0) is not "
-                "ported yet")
+                "serving_hedge_budget must be >= 0, got "
+                f"{self._hedge_budget_frac}")
         unported = [k for k in _UNPORTED_KWARGS
                     if engine_kwargs.get(k) not in (None, 0)]
         if unported:
@@ -269,6 +279,15 @@ class ReplicaRouter:
         self._restarts = 0                  # guarded-by: _lock
         self._rehomed = 0                   # guarded-by: _lock
         self._victim_rr = 0                 # guarded-by: _lock
+        # hedge registry: primary request id -> pending hedge record; the
+        # bucket starts at 1.0 and earns hedge_budget per offered
+        # request, so fired hedges never exceed 1 + budget * offered
+        self._hedges: Dict[int, dict] = {}  # guarded-by: _lock
+        self._hedge_tokens = 1.0            # guarded-by: _lock
+        self._hedge_fired = 0               # guarded-by: _lock
+        self._hedge_wins = 0                # guarded-by: _lock
+        self._hedge_loses = 0               # guarded-by: _lock
+        self._hedge_dup_tokens = 0          # guarded-by: _lock
         rid = str(next(ReplicaRouter._router_ids))
         self._rid = rid
         for eng in self.engines:
@@ -277,6 +296,11 @@ class ReplicaRouter:
             "serving_rehomed_total",
             "requests recovered off a killed replica onto a live peer"
             ).labels(router=rid)
+        self._hedge_ctr = _obs.counter(
+            "serving_hedges_total",
+            "hedged prefills, by outcome (fired | win | lose); volume "
+            "bounded by the FLAGS_serving_hedge_budget token bucket, "
+            "losers canceled leak-free")
         self._replicas_gauge = _obs.gauge(
             "serving_replicas",
             "data-parallel engine replicas behind this ReplicaRouter"
@@ -431,8 +455,7 @@ class ReplicaRouter:
     def _slo_attainment(self) -> Optional[float]:
         """Aggregate goodput fraction over replicas running with a
         TTFT SLO: sum(slo_met) / sum(completed). None when no replica
-        has an SLO (always, until SLO admission is ported) or nothing
-        completed yet."""
+        has an SLO or nothing completed yet."""
         met = done = 0
         for eng in self.engines + self._retiring:
             if not eng.slo_ttft_ms:
@@ -518,25 +541,249 @@ class ReplicaRouter:
                priority: Optional[int] = None,
                _log_request: bool = True, **decode_kwargs) -> Request:
         """Route one request to the least-loaded replica; returns its
-        :class:`Request` handle. The per-request decoding fields
-        (``temperature``/``top_k``/``top_p``/``stop``/``seed``) pass
-        through to the chosen engine's ``submit``; ``priority`` too, which
-        raises NotImplementedError there until priorities are ported.
-        Raises QueueFullError when every replica sheds (or the router is
-        draining) and ValueError for geometry no replica can hold."""
+        :class:`Request` handle. ``priority``, ``deadline_ms`` and the
+        per-request decoding fields (``temperature``/``top_k``/``top_p``/
+        ``stop``/``seed``) pass through to the chosen engine's
+        ``submit``. Raises QueueFullError when every replica sheds (or the
+        router is draining), carrying the last engine's reason and
+        ``retry_after_s``, and ValueError for geometry no replica can
+        hold. With hedging on, every submission funds the hedge bucket
+        and may arm a hedge."""
         with self._lock:
             if self._draining:
                 raise QueueFullError("router is draining: submissions "
                                      "are shed for rolling shutdown",
                                      reason="drain")
         try:
-            return RetryPolicy.from_flags("serving.route").call(
+            req = RetryPolicy.from_flags("serving.route").call(
                 self._route_attempt, prompt, max_new_tokens,
                 eos_token_id, priority, _log_request, **decode_kwargs)
         except RetryError as e:
             _monitor.stat_add("STAT_serving_route_shed")
             raise QueueFullError(
                 f"routing retries exhausted: {e}", reason="fault") from e
+        if self._hedge_ms != 0.0:
+            with self._lock:
+                # every offered request funds the bucket; a fire spends
+                # 1.0, so fired <= 1 + hedge_budget * offered
+                self._hedge_tokens += self._hedge_budget_frac
+            self._maybe_arm_hedge(req, prompt, dict(
+                max_new_tokens=max_new_tokens,
+                eos_token_id=eos_token_id, priority=priority,
+                **decode_kwargs))
+        return req
+
+    # ----------------------------------------------------- hedged prefill
+    def _hedge_threshold_ms(self) -> Optional[float]:
+        """The hedge threshold and delay in ms: the fixed value (> 0),
+        the traced fleet's TTFT p95 (< 0; None until a traced request
+        finished), None when hedging is off."""
+        if self._hedge_ms > 0:
+            return self._hedge_ms
+        if self._hedge_ms < 0:
+            return _tracing.ttft_p95_ms()
+        return None
+
+    def _routable(self, but: Optional[ServingEngine] = None
+                  ) -> List[ServingEngine]:
+        return [e for e in self.engines
+                if e is not but and e._health != "dead"
+                and not e.draining and e._brk_state != "open"]
+
+    def _maybe_arm_hedge(self, req: Request, prompt, kwargs: dict):
+        """Arm a hedge for a just-routed request whose replica predicts
+        a TTFT past the threshold: after the threshold's delay, if the
+        primary still has no first token, a clone is dispatched to the
+        best other routable replica."""
+        thr = self._hedge_threshold_ms()
+        if thr is None or thr <= 0:
+            return
+        eng = getattr(req, "_routed_to", None)
+        if eng is None or not self._routable(but=eng):
+            return            # nowhere to hedge to
+        pred = eng.predict_ttft_ms(len(prompt))
+        if pred <= thr:
+            return
+        with self._lock:
+            self._hedges[req.id] = {
+                "req": req, "primary": eng, "clone": None,
+                "won": False, "prompt": [int(t) for t in prompt],
+                "kwargs": kwargs, "pred_ms": pred,
+                "fire_at": eng._clock() + thr / 1e3}
+
+    def _fire_due_hedges(self):
+        """Dispatch every armed hedge whose delay passed while its
+        primary is still tokenless; disarm those whose primary produced
+        or ended in time. Each fire spends one bucket token; a dry
+        bucket drops the hedge (the primary runs unhedged)."""
+        with self._lock:
+            if not self._hedges:
+                return
+            now = self.engines[0]._clock()
+            due = []
+            for rid, h in list(self._hedges.items()):
+                if h["clone"] is not None:
+                    continue   # fired; resolution handles it
+                req = h["req"]
+                if req.state in ("done", "shed", "canceled") or \
+                        req.first_token_at is not None:
+                    del self._hedges[rid]   # beat the threshold
+                    continue
+                if now < h["fire_at"]:
+                    continue
+                if self._hedge_tokens < 1.0:
+                    del self._hedges[rid]   # budget dry: no hedge
+                    continue
+                self._hedge_tokens -= 1.0
+                due.append(h)
+        for h in due:
+            self._dispatch_hedge(h)
+
+    def _dispatch_hedge(self, h: dict):
+        """Submit the hedge copy to the best routable replica other than
+        the primary. The clone never appears in ``results()``; a failed
+        dispatch refunds the token."""
+        req = h["req"]
+        peers = sorted(self._routable(but=h["primary"]),
+                       key=lambda p: (_HEALTH_RANK[p._health],
+                                      self._depth(p),
+                                      -self._blocks_free(p)))
+        clone = None
+        for peer in peers:
+            try:
+                clone = peer.submit(h["prompt"], _log_request=False,
+                                    **h["kwargs"])
+            except (QueueFullError, ValueError):
+                continue
+            clone._hedge_clone = True
+            clone._routed_to = peer
+            break
+        with self._lock:
+            if clone is None:
+                self._hedges.pop(req.id, None)
+                self._hedge_tokens += 1.0   # refund: nothing fired
+                return
+            h["clone"] = clone
+            self._hedge_fired += 1
+        self._hedge_ctr.labels(router=self._rid, outcome="fired").inc()
+        _monitor.stat_add("STAT_serving_hedges")
+        _runlog.log_event("serving_hedge", request=req.id,
+                          hedge=clone.id,
+                          predicted_ttft_ms=round(h["pred_ms"], 3))
+        t = self.engines[0]._clock()
+        _tracing.mark(req.id, "hedge", t, h["primary"].trace_track)
+
+    def _count_hedge(self, outcome: str, dup_tokens: int = 0):
+        with self._lock:
+            if outcome == "win":
+                self._hedge_wins += 1
+            else:
+                self._hedge_loses += 1
+            self._hedge_dup_tokens += int(dup_tokens)
+        self._hedge_ctr.labels(router=self._rid, outcome=outcome).inc()
+
+    def _mirror_clone(self, req: Request, clone: Request):
+        """Graft the winning clone's result onto the caller's primary
+        handle (detach-canceled when the clone won): tokens, timing and
+        terminal state, then release its waiters."""
+        req.tokens = list(clone.tokens)
+        req.first_token_at = clone.first_token_at
+        req.finished_at = clone.finished_at
+        req.error = clone.error
+        req.shed_reason = clone.shed_reason
+        req.state = clone.state
+        req._done.set()
+
+    def _resolve_hedges(self):
+        """Settle fired hedges, first first token wins: a losing clone
+        is canceled through its engine; a losing primary is
+        detach-canceled (row freed, handle kept open) and the clone's
+        result mirrored onto it once the clone ends."""
+        with self._lock:
+            items = list(self._hedges.items())
+        for rid, h in items:
+            req, clone = h["req"], h["clone"]
+            if clone is None:
+                continue
+            if h["won"]:
+                # waiting for the winning clone to end, then mirror
+                if clone.state in ("done", "shed", "canceled"):
+                    self._mirror_clone(req, clone)
+                    with self._lock:
+                        self._hedges.pop(rid, None)
+                continue
+            p_first, c_first = req.first_token_at, clone.first_token_at
+            p_term = req.state in ("done", "shed", "canceled")
+            c_term = clone.state in ("done", "shed", "canceled")
+            if p_first is not None and (c_first is None or
+                                        p_first <= c_first):
+                # the primary won (ties go to it): tear the clone down
+                _tracing.mark(clone.id, "hedge_lose",
+                              self.engines[0]._clock(),
+                              getattr(clone, "_routed_to",
+                                      h["primary"]).trace_track)
+                self._cancel_on_engines(clone.id, "hedge_lose")
+                self._count_hedge("lose",
+                                  dup_tokens=len(clone.tokens))
+                with self._lock:
+                    self._hedges.pop(rid, None)
+            elif c_first is not None:
+                # the hedge won: free the primary's seat now, mirror
+                # when the clone ends
+                _tracing.mark(clone.id, "hedge_win", c_first,
+                              getattr(clone, "_routed_to",
+                                      h["primary"]).trace_track)
+                self._cancel_on_engines(req.id, "hedge_lose",
+                                        _finalize=False)
+                self._count_hedge("win", dup_tokens=len(req.tokens))
+                h["won"] = True
+                if c_term:
+                    self._mirror_clone(req, clone)
+                    with self._lock:
+                        self._hedges.pop(rid, None)
+            elif c_term:
+                # the clone ended without a token: the hedge lost, the
+                # primary continues unhedged
+                self._count_hedge("lose")
+                with self._lock:
+                    self._hedges.pop(rid, None)
+            elif p_term:
+                # the primary ended without a token: tear the clone down
+                self._cancel_on_engines(clone.id, "duplicate")
+                self._count_hedge("lose",
+                                  dup_tokens=len(clone.tokens))
+                with self._lock:
+                    self._hedges.pop(rid, None)
+
+    # ------------------------------------------------------ cancellation
+    def _cancel_on_engines(self, rid: int, reason: str,
+                           _finalize: bool = True) -> Optional[dict]:
+        """Try the cancel on every engine (live and retiring) until one
+        holds the request: a re-homed request is in several engines'
+        books, but its resources live in one, and are released once."""
+        for eng in list(self.engines) + list(self._retiring):
+            res = eng.cancel(rid, reason=reason, _finalize=_finalize)
+            if res is not None:
+                return res
+        return None
+
+    def cancel(self, rid: int, reason: str = "client"
+               ) -> Optional[dict]:
+        """Cancel request ``rid`` anywhere in the fleet, releasing its
+        row and blocks. A pending or fired hedge goes with it (the clone
+        cancels with reason "duplicate"). Returns ``{"id", "stage",
+        "reason"}`` or None for an unknown or ended request."""
+        rid = int(rid)
+        with self._lock:
+            h = self._hedges.pop(rid, None)
+        res = self._cancel_on_engines(rid, reason)
+        if h is not None and h["clone"] is not None:
+            clone = h["clone"]
+            if self._cancel_on_engines(clone.id, "duplicate") \
+                    is not None:
+                self._count_hedge("lose",
+                                  dup_tokens=len(clone.tokens))
+        return res
 
     # -------------------------------------------------------- autoscale
     def _add_replica(self):  # holds: _lock
@@ -603,6 +850,7 @@ class ReplicaRouter:
         keeps every fleet-level transition at the step boundary, where
         the serial loop applies them."""
         self._check_replica_fault()
+        self._fire_due_hedges()
         worked = False
         if self._dispatch_threads > 0:
             pool = self._dispatch_pool()
@@ -627,6 +875,7 @@ class ReplicaRouter:
             self._reap_dead()
             for eng in list(self._retiring):
                 worked = eng.step() or worked
+        self._resolve_hedges()
         if self._autoscale is not None:
             self._maybe_autoscale()
         self._update_depth_gauges()
@@ -677,7 +926,9 @@ class ReplicaRouter:
         shed (reason "drain") through ``src``. Returns how many were
         re-homed."""
         moved = 0
+        t_kill = src._clock()
         for req in src.take_queued():
+            _tracing.mark(req.id, "kill", t_kill, src.trace_track)
             placed = False
             for peer in sorted(
                     (p for p in peers if not p.draining),
@@ -759,7 +1010,16 @@ class ReplicaRouter:
             # stepping this engine admits nothing after the strip
             queued = eng.take_queued()
         rehomed = shed = 0
+        t_kill = eng._clock()
         for req in sorted(displaced + queued, key=lambda r: r.id):
+            # the kill mark opens the re-home span on the dead replica's
+            # track; the adopting peer's admit closes it
+            _tracing.mark(req.id, "kill", t_kill, eng.trace_track)
+            if req.hard_deadline is not None and \
+                    t_kill > req.hard_deadline:
+                # an expired request is canceled here, never adopted
+                eng._finalize_cancel(req, "queued", "deadline")
+                continue
             placed = False
             for peer in sorted(
                     (p for p in self.engines
@@ -857,6 +1117,8 @@ class ReplicaRouter:
             seen: dict = {}
             for eng in self.engines + self._retiring:
                 for r in eng.results(timeout=timeout):
+                    if r._hedge_clone:
+                        continue   # the router's own hedge copy
                     seen.setdefault(r.id, r)
             return sorted(seen.values(), key=lambda r: r.id)
         for r in out:
@@ -881,8 +1143,9 @@ class ReplicaRouter:
     def stats(self) -> dict:
         """Router-level view: replica count, per-replica queue depths
         and free KV blocks, health, kill/restart/re-home counts,
-        aggregate goodput and shed counters across replicas, the
-        autoscale posture when enabled, and each replica's ``stats()``
+        aggregate goodput, shed and cancel counters across replicas, the
+        hedges when hedging is on, the autoscale posture when enabled,
+        and each replica's ``stats()``
         under ``per_replica``. ``mesh_shape`` is None: the port's
         engines run on one device."""
         with self._lock:
@@ -894,6 +1157,12 @@ class ReplicaRouter:
             rehomed = self._rehomed
             scale_ups = self._scale_ups
             scale_downs = self._scale_downs
+            hedges = {"fired": self._hedge_fired,
+                      "wins": self._hedge_wins,
+                      "loses": self._hedge_loses,
+                      "dup_tokens": self._hedge_dup_tokens,
+                      "tokens": round(self._hedge_tokens, 6),
+                      "pending": len(self._hedges)}
         engines = live + retiring
         depths = [self._depth(e) for e in live]
         shed: dict = {}
@@ -932,6 +1201,8 @@ class ReplicaRouter:
             "canceled_total": sum(canceled.values()),
             "per_replica": [e.stats() for e in live],
         }
+        if self._hedge_ms != 0.0:
+            out["hedges"] = hedges
         if self._dispatch_threads > 0:
             out["dispatch_threads"] = self._dispatch_threads
         if self._brk_window_n > 0:

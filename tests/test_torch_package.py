@@ -17,7 +17,8 @@ from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import flash_pack2 as fp2
 from paddle_tpu_torch.ops.cuda import layer_norm as ln
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
-from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.serving import ReplicaRouter, ServingEngine
+from paddle_tpu_torch.tools import loadgen
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY = GPTConfig(vocab_size=97, max_position_embeddings=64, hidden_size=32,
@@ -32,6 +33,18 @@ def _imported_roots(path: Path):
                 yield alias.name.split(".")[0]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module.split(".")[0]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+            for alias in node.names:
+                yield f"{node.module}.{alias.name}"
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -51,11 +64,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "resilience/injector.py", "resilience/retry.py",
                    "observability/__init__.py", "observability/metrics.py",
                    "observability/runlog.py", "monitor.py",
-                   "ops/cuda/_launches.py"):
+                   "ops/cuda/_launches.py", "observability/tracing.py",
+                   "tools/loadgen.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
            if root in ("jax", "jaxlib", "paddle_tpu")}
+    assert not bad, bad
+    # the port's load generator is its own copy of tools/loadgen.py
+    bad = {(str(f.relative_to(ROOT)), mod) for f in files
+           for mod in _imported_modules(f)
+           if mod == "tools.loadgen" or mod.startswith("tools.loadgen.")}
     assert not bad, bad
 
 
@@ -68,6 +87,10 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         GPTForCausalLM(TINY)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cpu_model)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReplicaRouter(cpu_model, n_replicas=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen.main(["--model", "gpt2-tiny"])
     with pytest.raises(ValueError, match="generator"):
         GPTForCausalLM(TINY, device="meta", generator=torch.Generator())
 
@@ -150,13 +173,16 @@ FLEET_FLAGS = (
     "serving_breaker_cooldown_s", "fault_spec", "fault_seed",
     "retry_max_attempts", "retry_base_delay", "retry_max_delay",
     "retry_deadline", "retry_budget_ratio", "retry_budget_reserve",
-    "runlog_dir", "runlog_max_mb")
+    "runlog_dir", "runlog_max_mb",
+    # SLO admission, priorities and request tracing
+    "serving_slo_ttft_ms", "serving_slo_prefill_ms", "serving_slo_tpot_ms",
+    "serving_priority_preempt", "serving_trace", "serving_trace_keep")
 
 
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 41
+    assert len(ported) == 47
     assert {"use_pallas_attention", "use_pallas_layer_norm", "pallas_min_seq",
             "pallas_flash_block_q", "pallas_flash_block_k",
             "serving_megastep", "serving_spec_tokens",

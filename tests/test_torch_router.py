@@ -593,12 +593,14 @@ def test_threaded_dispatch_and_background_threads_equal_serial(pkgs):
 def test_refuses_what_is_not_ported(pkgs):
     _, port = pkgs
     with pytest.raises(NotImplementedError):
-        _router(port, hedge_ms=50.0)
-    with pytest.raises(NotImplementedError):
         _router(port, lora_rank=2)
-    rt = _router(port)
     with pytest.raises(NotImplementedError):
-        rt.submit([1, 2], max_new_tokens=2, priority=0)
+        _router(port, lora_pool=object())
+    with pytest.raises(NotImplementedError):
+        _router(port, kv_tier=object())
+    with pytest.raises(ValueError):
+        _router(port, hedge_ms=50.0, hedge_budget=-1.0)
+    rt = _router(port)
     with pytest.raises(ValueError):
         ReplicaRouter()
     with pytest.raises(ValueError):
