@@ -13,7 +13,9 @@ serving block (the engine against sequential ``greedy_search``, the
 dense slotted cache against the paged one, offline ``sample`` and
 ``beam_search``), its replica fleet, and its load generator's goodput
 under a TTFT SLO (SLO admission, priorities, faults, hedged prefill,
-cancel and hard deadlines), trains it (``bench.py``'s step: batch
+cancel and hard deadlines; a disaggregated prefill/decode fleet, its
+KV handoff and its worker kills) and its HTTP front end, trains it
+(``bench.py``'s step: batch
 8, seq 1024, AMP O2 bf16, AdamW with bf16 moments) eagerly and through
 ``jit.to_static`` as a CUDA graph, with the LayerNorm kernels off and
 on, trains ERNIE-base (``bench.py``'s ERNIE step: batch 16, seq 512)
@@ -60,13 +62,23 @@ memory, a rolling weight swap; B4 against plain at the fleet's shapes),
 5e ``bench.py``'s loadgen block (``bench.py:847-1065``: calibration,
 then one seeded bursty trace at 3x capacity through depth-only and
 SLO-aware admission, the SLO engine under injected faults, and a
-3-replica router; every engine warmed, no capture in a timed run, no
-leaked block, no exception, B4 launched in every phase, completed
-tokens equal an unloaded engine's; a hedged 2-replica fleet against a
-straggler, the hedge firing, winning and canceling its loser; a cancel
-mid-decode whose row the next request takes, a cancel while queued, a
-hard deadline ending its request within one step; B4 timed at the
-loadgen geometry), 6 flash kernels vs plain (f32, bf16
+3-replica router, and D's other half, a 1 x 2 ``DisaggRouter`` warmed by
+role (handoffs adopted, graphs per worker, TTFT against the symmetric
+half); every engine warmed, no capture in a timed run, no leaked block,
+no exception, B4 launched in every phase, completed tokens equal an
+unloaded engine's; B4 held to its plain version on the tables a handoff
+spliced; a hedged 2-replica fleet against a straggler, the hedge firing,
+winning and canceling its loser; a cancel mid-decode whose row the next
+request takes, a cancel while queued, a hard deadline ending its request
+within one step; at 4 layers, a 1 x 2 fleet across pools whose decode
+worker is killed mid-decode (every row re-homed by ``adopt_row``, its
+blocks copied bit for bit, f32 and int8, tokens equal an unloaded
+engine's, greedy and sampled, B4 on the copied tables, reserved memory
+flat) and a 2 x 2 load-generator run with a ``kill_prefill`` and a
+``kill_decode``; B4 timed at the loadgen geometry), 5f the HTTP front
+end over a started 1 x 2 fleet at 4 layers (generate, the request's
+trace, DELETE, 429 with Retry-After, health, Prometheus metrics; no
+capture, no leak), 6 flash kernels vs plain (f32, bf16
 and fp16), 7 train GPT (eager, then captured: losses and parameters
 bit-equal), 7b train GPT at O1 fp16 with ``GradScaler`` through the
 CUDA-core flash kernels, 8 time the flash kernels, 9
@@ -104,7 +116,9 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
+import http.client
 import json
 import os
 import subprocess
@@ -689,16 +703,28 @@ def device_busy_ms(torch, run):
     return device_trace(torch, run)[0]
 
 
+#: sleep kernels, and the cycles of each, that open every trace before
+#: the traced work: the profiler has lost the first few kernels of a
+#: trace (a LayerNorm launch of a train step's first layer, in one trace
+#: of two in a row), so these take that place and are left out
+TRACE_PAD = (16, 20_000)
+
+
 def trace_once(torch, run):
     """``(busy_ms, kernels)`` of ``run()``: ``torch.profiler`` traces it;
     busy_ms is the union of its device intervals (kernels, copies,
     memsets), None when there is none; kernels the count of each kernel
-    name."""
+    name. The trace opens with :data:`TRACE_PAD`'s sleep kernels, done
+    before ``run()`` starts: every device interval that ends by the last
+    of them is left out."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PAD[0]):
+            torch.cuda._sleep(TRACE_PAD[1])
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -708,6 +734,11 @@ def trace_once(torch, run):
             events = json.load(f)["traceEvents"]
     dev = [e for e in events if e.get("ph") == "X"
            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    pad_end = max((e["ts"] + e["dur"] for e in dev
+                   if e["cat"] == "kernel" and "spin_kernel" in e["name"]),
+                  default=None)
+    if pad_end is not None:
+        dev = [e for e in dev if e["ts"] + e["dur"] > pad_end]
     names = collections.Counter(e["name"] for e in dev
                                 if e["cat"] == "kernel")
     busy = busy_us((e["ts"], e["ts"] + e["dur"]) for e in dev) / 1e3
@@ -1909,8 +1940,12 @@ def timed_loadgen(torch, ctr, target, lg, what, **run_kw):
                 reqs.setdefault(r.id, r)
     res = {k: rep[k] for k in LOADGEN_KEYS}
     res.update(launches=want, routes=routes, captures_in_run=new_captures,
-               steps=rep["steps"],
+               steps=rep["steps"], rehomed=rep["rehomed"],
+               canceled_total=rep["canceled_total"],
+               chaos_applied=rep["chaos_applied"],
                invalid=sum(1 for d in rep["decisions"] if d[0] == "invalid"))
+    if "disagg" in rep:
+        res["disagg"] = rep["disagg"]
     log(f"  {what}: offered {rep['offered']} ({rep['offered_rate']}/s), "
         f"completed {rep['completed']}, shed {rep['shed']}, goodput "
         f"{rep['goodput_per_s']}/s, TTFT p50/p95 {rep['ttft_ms_p50']} / "
@@ -2109,6 +2144,360 @@ def cancel_and_deadlines(torch, ctr, model, ps):
     return out, reqs
 
 
+#: the depth of gpt2-medium (full width) in the cross-pool fleet, its
+#: chaos run and phase 5f
+DISAGG_LAYERS = 4
+
+
+def medium_at_depth(torch, layers, seed):
+    """A seeded gpt2-medium cut to ``layers`` layers (full width)."""
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    cfg = dataclasses.replace(GPT_CONFIGS["gpt2-medium"], num_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+
+
+def worker_graphs(model, rt):
+    """Per worker of a disaggregated fleet: its role, its pool (index of
+    the fleet's distinct pools) and the graphs of ``model``'s step cache
+    over that pool, by step kind. A graph's key holds pools, not workers:
+    co-located workers share their pool's graphs, so one decode graph
+    serves both decode workers of a 1 x 2 fleet."""
+    pools, out = [], []
+    for eng in rt.engines:
+        idx = next((i for i, p in enumerate(pools) if p is eng.cache.pool),
+                   None)
+        if idx is None:
+            pools.append(eng.cache.pool)
+            idx = len(pools) - 1
+        a = eng.cache.arrays()[0][0]
+        first = (a.data_ptr(), "tensor", tuple(a.shape), a.dtype)
+        kinds = {}
+        for key, ent in getattr(model, "_step_compile_cache", {}).items():
+            n = sum(1 for st in ent.get("graphs", {}).values()
+                    for k in list(st.graphs) if k[1][0] == first)
+            if n:
+                kinds[key[0]] = kinds.get(key[0], 0) + n
+        out.append({"role": eng.trace_role, "pool": idx, "graphs": kinds})
+    return out
+
+
+def check_handoff_tables(torch, pa, eng, what, seed=0):
+    """B4 against its plain version over ``eng``'s live rows, on the block
+    tables a handoff produced (spliced, or copied by ``adopt_row``): one
+    query row per live row at its last committed position, so every key
+    it reads is committed KV. The call must launch on its plan's route
+    and stay within TOL. Returns the max abs error."""
+    cache = eng.cache
+    rows = sorted(eng._active)
+    dev = cache.pool.device
+    tables = torch.as_tensor(cache.tables[rows], device=dev)
+    pos = torch.as_tensor(cache.lengths[rows] - 1, device=dev)
+    kv = cache.kv_dtype
+    g = torch.Generator(device=dev).manual_seed(seed)
+    errs = []
+    for li, layer in enumerate(cache.layers):
+        kp, vp = layer[0], layer[1]
+        ks, vs = (layer[2], layer[3]) if kv == "int8" else (None, None)
+        q = torch.randn(len(rows), kp.shape[1], 1, kp.shape[3], device=dev,
+                        generator=g)
+        elem = {"f32": 4, "bf16": 2, "int8": 1}[kv]
+        pl = pa.plan(*q.shape, cache.block_size, tables.shape[1], elem)
+        before = pa.launches_by_route["paged_attention"][pl["route"]]
+        out = pa.paged_attention(q, kp, vp, tables, pos, k_scale=ks,
+                                 v_scale=vs)
+        torch.cuda.synchronize()
+        if pa.launches_by_route["paged_attention"][pl["route"]] != \
+                before + 1:
+            raise AssertionError(f"{what}: not launched on the "
+                                 f"{pl['route']} route")
+        ref = pa.paged_attention_plain(q, kp, vp, tables, pos, k_scale=ks,
+                                       v_scale=vs)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{what}: non-finite output")
+        diff = (out.float() - ref.float()).abs()
+        over = float((diff - TOL[kv] * ref.float().abs()).max())
+        if over > TOL[kv]:
+            raise AssertionError(f"{what}, layer {li}: |out - ref| exceeds "
+                                 f"{TOL[kv]} + {TOL[kv]} |ref|")
+        errs.append(float(diff.max()))
+    log(f"  B4 on {what} ({kv}, {len(rows)} rows, tables "
+        f"{cache.tables[rows].tolist()}): max abs err {max(errs):.3e} over "
+        f"{len(errs)} layers")
+    return max(errs)
+
+
+def unloaded_tokens(torch, model, specs, kv="f32"):
+    """The tokens an unloaded engine of the loadgen geometry gives
+    ``specs`` (one request per spec, all in flight together)."""
+    ref = loadgen_engine(model, kv_dtype=kv)
+    toks = serve_all(torch, ref, specs)
+    release_engines([ref])
+    return toks
+
+
+def cross_pool_kill(torch, ctr, pa, model, kv, card):
+    """A 1 x 2 fleet with a pool per worker (``colocate=False``): greedy
+    and seeded sampled requests adopted by decode worker 0 (a copy across
+    pools), one decode, then ``kill_decode_worker(0)``: every row
+    re-homes through ``adopt_row``. Each copied block must equal its
+    source block bit for bit (the int8 codes and scales too), B4 must
+    agree with its plain version on the re-homed tables, the tokens must
+    equal an unloaded engine's (greedy by the top-2 rule, sampled byte
+    for byte), every pool must hold only its trash block after a flush,
+    and the reserved memory must not grow across the kill (the dead pool
+    and its graphs are freed)."""
+    from paddle_tpu_torch.serving import DisaggRouter
+    from paddle_tpu_torch.tools.loadgen import warmup
+    rt = DisaggRouter(model, n_prefill=1, n_decode=2, colocate=False,
+                      **loadgen_geometry(kv_dtype=kv))
+    warmup(rt)
+    rng = np.random.RandomState(40)
+    vocab = model.cfg.vocab_size
+    specs = []
+    for i in range(LOADGEN_SLOTS):
+        kw = {"max_new_tokens": 12}
+        if i % 2:
+            kw.update(temperature=0.8, top_k=20, top_p=0.9, seed=100 + i)
+        specs.append((rng.randint(1, vocab, size=6 + 3 * i).tolist(), kw))
+    d0 = sum(dispatches(e) for e in rt.engines)
+    torch.cuda.synchronize()
+    ctr.zero()
+    reqs = [rt.submit(p, **kw) for p, kw in specs]
+    dead = rt.decodes[0]
+    for _ in range(20):
+        rt.step()
+        if len(dead._active) == len(reqs):
+            break
+    rt.step()
+    if len(dead._active) != len(reqs):
+        raise AssertionError(f"cross-pool {kv}: decode worker 0 holds "
+                             f"{len(dead._active)} of {len(reqs)} rows")
+    snap = {}
+    for row, req in dead._active.items():
+        n = dead.cache.blocks_needed(int(dead.cache.lengths[row]))
+        idx = torch.as_tensor(dead.cache.tables[row, :n].tolist(),
+                              dtype=torch.int64, device=dead.cache.pool.device)
+        snap[req.id] = [[a.index_select(0, idx).clone() for a in layer]
+                        for layer in dead.cache.layers]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    info = rt.kill_decode_worker(0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_reserved()
+    survivor = rt.decodes[0]
+    blocks = 0
+    for req in reqs:
+        src = snap[req.id]
+        n = src[0][0].shape[0]
+        idx = torch.as_tensor(survivor.cache.tables[req.slot, :n].tolist(),
+                              dtype=torch.int64,
+                              device=survivor.cache.pool.device)
+        for layer, src_layer in zip(survivor.cache.layers, src):
+            for a, sa in zip(layer, src_layer):
+                if not torch.equal(a.index_select(0, idx), sa):
+                    raise AssertionError(f"cross-pool {kv}: request "
+                                         f"{req.id}'s copied blocks differ "
+                                         "from their source")
+        blocks += n
+    del snap
+    with ctr.aside():
+        err = check_handoff_tables(torch, pa, survivor,
+                                   f"rows adopt_row copied across pools")
+    rt.run_until_idle()
+    torch.cuda.synchronize()
+    run, routes = ctr.read(), ctr.routes()["paged_attention"]
+    want = model.cfg.num_layers * (sum(dispatches(e) for e in
+                                       rt.engines + rt._retiring) - d0)
+    ctr.expect(run, {"paged_attention": want}, f"cross-pool kill ({kv})")
+    torch.cuda.empty_cache()
+    reserved1 = torch.cuda.memory_reserved()
+    st = rt.stats()
+    leaks = []
+    for pool_cache in {id(e.cache.pool): e.cache
+                       for e in rt.engines + rt._retiring}.values():
+        pool_cache.flush_prefix_cache()
+        leaks.append(pool_cache.allocator.leaked())
+    if info != {"rehomed": len(reqs), "shed": 0, "decodes_left": 1} or \
+            any(r.state != "done" or not r.rehomed for r in reqs) or \
+            leaks != [1, 1, 1] or st["handoffs_copied"] < len(reqs):
+        raise AssertionError(f"cross-pool kill ({kv}): {info}, leaks "
+                             f"{leaks}, {st}")
+    if peak > reserved0 + (4 << 20) or reserved1 > reserved0:
+        raise AssertionError(f"cross-pool kill ({kv}): reserved {reserved0}"
+                             f" B before, peak {peak} B during, "
+                             f"{reserved1} B after")
+    ref = unloaded_tokens(torch, model, specs, kv)
+    greedy = [i for i, (_, kw) in enumerate(specs) if "seed" not in kw]
+    sampled = [i for i in range(len(specs)) if i not in greedy]
+    ties = same_tokens(torch, model, [specs[i][0] for i in greedy],
+                       [ref[i] for i in greedy],
+                       [reqs[i].tokens for i in greedy],
+                       f"cross-pool kill ({kv}), greedy")
+    same_tokens(torch, model, [specs[i][0] for i in sampled],
+                [ref[i] for i in sampled], [reqs[i].tokens for i in sampled],
+                f"cross-pool kill ({kv}), sampled", ties=False)
+    release_engines(rt.engines + rt._retiring)
+    res = {"rehomed": info["rehomed"], "blocks_copied_bit_equal": blocks,
+           "handoffs_copied": st["handoffs_copied"],
+           "kernel_max_abs_err": err, "reserved_before": reserved0,
+           "peak_reserved_during": peak, "reserved_after": reserved1,
+           "near_ties": len(ties), "launches": want, "routes": routes}
+    log(f"  [{card}] cross-pool kill ({kv}): {info['rehomed']} rows "
+        f"re-homed, {blocks} blocks copied bit for bit, tokens == an "
+        f"unloaded engine's ({len(greedy)} greedy, {len(sampled)} sampled; "
+        f"{len(ties)} near ties), reserved {reserved0} -> peak {peak} -> "
+        f"{reserved1} B, {want} paged launches")
+    return res
+
+
+def disagg_chaos(torch, ctr, model, lg_kw):
+    """One load-generator run through a warmed 2 x 2 fleet across pools
+    with a ``kill_prefill`` and a ``kill_decode`` fired mid-run: both
+    applied, every request accounted for, nothing leaked or captured."""
+    from paddle_tpu_torch.serving import DisaggRouter
+    from paddle_tpu_torch.tools.loadgen import LoadGen, warmup
+    rt = DisaggRouter(model, n_prefill=2, n_decode=2, colocate=False,
+                      **loadgen_geometry())
+    warmup(rt)
+    lg = LoadGen(**lg_kw)
+    lg.chaos = [{"t": 0.25 * LOADGEN_DURATION, "kind": "kill_prefill",
+                 "index": 0},
+                {"t": 0.5 * LOADGEN_DURATION, "kind": "kill_decode",
+                 "index": 1}]
+    res, reqs = timed_loadgen(torch, ctr, rt, lg,
+                              "disaggregated 2 x 2 with kill_prefill and "
+                              "kill_decode")
+    st = rt.stats()
+    if res["chaos_applied"] != 2 or res["completed"] + res["rehomed"] + \
+            res["shed_total"] + res["canceled_total"] + res["invalid"] != \
+            res["offered"] or (st["prefill_workers"],
+                               st["decode_workers"]) != (1, 1):
+        raise AssertionError(f"disaggregated chaos run: {res}, {st}")
+    res["stats_rehomed"] = st["rehomed"]
+    release_engines(rt.engines + rt._retiring)
+    return res, reqs
+
+
+def http_serving(torch, ctr, card):
+    """Phase 5f: the HTTP front end over a started, warmed 1 x 2
+    DisaggRouter (gpt2-medium at ``DISAGG_LAYERS``) on 127.0.0.1: POST
+    /v1/generate (tokens == an unloaded engine's), GET
+    /v1/requests/<id> (marks with the export and the adoption), a DELETE
+    of a long request with the scheduler parked (200 at stage decode,
+    then 404), a 429 with Retry-After against a full queue, GET /health,
+    GET /metrics (the port's Prometheus validator), no capture, and no
+    leaked block after ``stop()``."""
+    from paddle_tpu_torch.observability import validate_prometheus_text
+    from paddle_tpu_torch.serving import DisaggRouter, ServingHTTPServer
+    from paddle_tpu_torch.tools.loadgen import warmup
+    model = medium_at_depth(torch, DISAGG_LAYERS, seed=2)
+    vocab = model.cfg.vocab_size
+    rt = DisaggRouter(model, n_prefill=1, n_decode=2,
+                      **loadgen_geometry(max_queue=4))
+    warmup(rt)
+    cap0 = captures(model)
+    d0 = sum(dispatches(e) for e in rt.engines)
+    rng = np.random.RandomState(60)
+    prompts = [rng.randint(1, vocab, size=6 + 2 * i).tolist()
+               for i in range(4)]
+    torch.cuda.synchronize()
+    ctr.zero()
+    srv = ServingHTTPServer(rt, port=0)
+    srv.start()
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+    statuses = []
+
+    def call(method, path, body=None):
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body))
+        r = conn.getresponse()
+        text = r.read().decode()
+        statuses.append((method, "/v1/requests/<id>" if "requests" in path
+                         else path, r.status))
+        payload = (json.loads(text) if "json" in
+                   r.getheader("Content-Type", "") else text)
+        return r.status, r.getheader("Retry-After"), payload
+
+    try:
+        outs = []
+        for p in prompts:
+            status, _, out = call("POST", "/v1/generate",
+                                  {"ids": p, "max_new_tokens": 8})
+            if status != 200 or out["state"] != "done":
+                raise AssertionError(f"phase 5f: POST -> {status} {out}")
+            outs.append(out)
+        status, _, info = call("GET", f"/v1/requests/{outs[0]['id']}")
+        kinds = [m["kind"] for m in info["marks"]]
+        if status != 200 or not {"export", "adopt"} <= set(kinds):
+            raise AssertionError(f"phase 5f: the trace's marks {kinds}")
+        rt.stop()                    # park the scheduler
+        long = rt.submit(prompts[0], max_new_tokens=LOADGEN_LEN -
+                         len(prompts[0]) - 1)
+        rt.step()
+        rt.step()
+        deleted = [call("DELETE", f"/v1/requests/{long.id}")
+                   for _ in range(2)]
+        if [d[0] for d in deleted] != [200, 404] or \
+                deleted[0][2]["stage"] != "decode" or \
+                long.state != "canceled":
+            raise AssertionError(f"phase 5f: DELETE -> {deleted}")
+        fill = [rt.submit(p, max_new_tokens=4) for p in prompts]
+        status, retry, refused = call("POST", "/v1/generate",
+                                      {"ids": prompts[1],
+                                       "max_new_tokens": 4})
+        if status != 429 or retry is None or int(retry) < 1:
+            raise AssertionError(f"phase 5f: a full queue -> {status}, "
+                                 f"Retry-After {retry}, {refused}")
+        rt.start()
+        rt.results(fill, timeout=120)
+        status, _, health = call("GET", "/health")
+        status_m, _, text = call("GET", "/metrics")
+        samples = validate_prometheus_text(text)
+        if status != 200 or not health["ok"] or status_m != 200 or \
+                "serving_handoff_queue_depth" not in text:
+            raise AssertionError(f"phase 5f: /health {health}, /metrics "
+                                 f"{status_m}")
+    finally:
+        conn.close()
+        srv.stop()
+    torch.cuda.synchronize()
+    run, routes = ctr.read(), ctr.routes()["paged_attention"]
+    want = model.cfg.num_layers * (sum(dispatches(e) for e in rt.engines)
+                                   - d0)
+    ctr.expect(run, {"paged_attention": want}, "phase 5f")
+    new_captures = captures(model) - cap0
+    leaks = []
+    for cache in {id(e.cache.pool): e.cache for e in rt.engines}.values():
+        cache.flush_prefix_cache()
+        leaks.append(cache.allocator.leaked() - 1)
+    if any(leaks) or new_captures or not want:
+        raise AssertionError(f"phase 5f: leaked {leaks}, {new_captures} "
+                             f"captures, {want} launches")
+    ref = unloaded_tokens(torch, model, [(p, {"max_new_tokens": 8})
+                                         for p in prompts])
+    ties = same_tokens(torch, model, prompts, ref,
+                       [o["output_ids"][len(p):] for p, o in
+                        zip(prompts, outs)], "phase 5f's POSTs")
+    st = rt.stats()
+    release_engines(rt.engines)
+    release_graphs(torch, model)
+    res = {"statuses": statuses, "retry_after_s": int(retry),
+           "metrics_samples": samples, "health": health,
+           "trace_marks": kinds, "canceled": st["canceled"],
+           "handoffs_adopted": st["handoffs_adopted"], "launches": want,
+           "routes": routes, "captures": new_captures,
+           "near_ties": len(ties)}
+    log(f"  [{card}] HTTP over a 1 x 2 fleet: {len(prompts)} POSTs == an "
+        f"unloaded engine's tokens ({len(ties)} near ties), marks "
+        f"{kinds}, DELETE 200 (stage decode) then 404, 429 with "
+        f"Retry-After {retry} s, /metrics {samples} samples valid, "
+        f"{want} paged launches, 0 captures, 0 leaked blocks")
+    return res
+
+
 def loadgen_serving(torch, ctr, card):
     """Phase 5e: ``bench.py``'s loadgen block (bench.py:847-1065) on a
     fresh seeded gpt2-medium (f32 pools): calibration (calm TTFT over 4
@@ -2125,8 +2514,9 @@ def loadgen_serving(torch, ctr, card):
     rule). The 1.2x goodput gate of bench.py is reported, not asserted:
     it is a wall-clock number on a shared host."""
     from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.resilience import fault_scope
-    from paddle_tpu_torch.serving import ReplicaRouter
+    from paddle_tpu_torch.serving import DisaggRouter, ReplicaRouter
     from paddle_tpu_torch.tools.loadgen import LoadGen, warmup
     torch.cuda.reset_peak_memory_stats()
     cfg = GPT_CONFIGS["gpt2-medium"]
@@ -2208,6 +2598,53 @@ def loadgen_serving(torch, ctr, card):
     release_engines(sym.engines + sym._retiring)
     del sym
 
+    # D's disaggregated half (bench.py:988-1004): 1 prefill + 2 decode
+    # workers on one pool, warmed by role
+    dis = DisaggRouter(model, n_prefill=1, n_decode=2,
+                       **loadgen_geometry())
+    cap0 = captures(model)
+    warmup(dis)
+    warm_graphs = captures(model) - cap0
+    out["disagg_router"], reqs = timed_loadgen(
+        torch, ctr, dis, LoadGen(**lg_kw), "phase D, disaggregated 1 x 2",
+        slo_ttft_ms=slo_ms)
+    all_reqs += reqs
+    d, st = out["disagg_router"], dis.stats()
+    if st["handoffs_adopted"] < 1 or d["completed"] < 1:
+        raise AssertionError(f"phase D's disaggregated half: {d}, {st}")
+    d.update(workers="1x2", graphs_captured_in_warmup=warm_graphs,
+             graphs_per_worker=worker_graphs(model, dis),
+             handoffs_adopted=st["handoffs_adopted"],
+             handoffs_copied=st["handoffs_copied"],
+             affinity_hits=st["affinity_hits"],
+             affinity_misses=st["affinity_misses"])
+    sy = out["symmetric_router"]
+    log(f"  [{card}] phase D: TTFT p50 / p95 disaggregated "
+        f"{d['ttft_ms_p50']} / {d['ttft_ms_p95']} ms vs symmetric "
+        f"{sy['ttft_ms_p50']} / {sy['ttft_ms_p95']} ms (bench.py asserts "
+        f"p95 only on a TPU; reported), goodput {d['goodput_per_s']} vs "
+        f"{sy['goodput_per_s']} /s, handoffs adopted "
+        f"{d['handoffs_adopted']} (copied {d['handoffs_copied']}), "
+        f"affinity hits / misses {d['affinity_hits']} / "
+        f"{d['affinity_misses']}, {warm_graphs} graphs captured in the "
+        f"warm-up, per worker {d['graphs_per_worker']}")
+    # B4 against its plain version on the tables the handoff spliced
+    hp = [np.random.RandomState(50 + i).randint(1, vocab, size=9 + i)
+          .tolist() for i in range(LOADGEN_SLOTS)]
+    with ctr.aside():
+        live = [dis.submit(p, max_new_tokens=8) for p in hp]
+        dis.step()
+        d["kernel_on_handoff_tables"] = [
+            check_handoff_tables(torch, pa, e, f"spliced rows, decode "
+                                 f"worker {i}")
+            for i, e in enumerate(dis.decodes) if e._active]
+        dis.run_until_idle()
+    if not d["kernel_on_handoff_tables"]:
+        raise AssertionError("no decode worker adopted the handoffs")
+    all_reqs += live
+    release_engines(dis.engines + dis._retiring)
+    del dis
+
     goodput_a = out["depth_only"]["goodput_per_s"] or 0.0
     goodput_b = out["slo_aware"]["goodput_per_s"] or 0.0
     ratio = goodput_b / goodput_a if goodput_a else None
@@ -2237,16 +2674,30 @@ def loadgen_serving(torch, ctr, card):
     out["tokens"] = check_greedy(torch, model, all_reqs,
                                  "phase 5e's completed requests")
     launches = {k: out[k]["launches"] for k in
-                ("depth_only", "slo_aware", "chaos", "symmetric_router")}
+                ("depth_only", "slo_aware", "chaos", "symmetric_router",
+                 "disagg_router")}
     launches["hedge"] = out["hedge"]["hedged"]["launches"]
     launches["cancel"] = out["cancel"]["launches"]
     out["launches"] = launches
     out["routes"] = {k: out[k]["routes"] for k in
                      ("depth_only", "slo_aware", "chaos",
-                      "symmetric_router")}
+                      "symmetric_router", "disagg_router")}
+
+    # the disaggregated fleet across pools, at DISAGG_LAYERS: a decode
+    # worker killed mid-decode, then kill_prefill / kill_decode chaos
+    small = medium_at_depth(torch, DISAGG_LAYERS, seed=1)
+    out["cross_pool_kill"] = {kv: cross_pool_kill(torch, ctr, pa, small,
+                                                  kv, card)
+                              for kv in ("f32", "int8")}
+    out["disagg_chaos"], reqs = disagg_chaos(torch, ctr, small, lg_kw)
+    launches["cross_pool_kill"] = {
+        kv: r["launches"] for kv, r in out["cross_pool_kill"].items()}
+    launches["disagg_chaos"] = out["disagg_chaos"]["launches"]
+    out["routes"]["disagg_chaos"] = out["disagg_chaos"]["routes"]
+    release_graphs(torch, small)
+    del small
 
     # B4 at the loadgen geometry against its plain version, and its time
-    from paddle_tpu_torch.ops.cuda import paged_attention as pa
     rng = np.random.RandomState(13)
     dec = [int(p) for p in rng.randint(6, 60, size=LOADGEN_SLOTS)]
     rows = [("loadgen_decode", "f32", dec, 1, 16, 4),
@@ -2257,7 +2708,8 @@ def loadgen_serving(torch, ctr, card):
     gc.collect()
     torch.cuda.synchronize()
     out["max_memory_reserved"] = torch.cuda.max_memory_reserved()
-    log(f"  max_memory_reserved during phase 5e: "
+    log(f"  max_memory_reserved during phase 5e (peaks reset by the "
+        f"cross-pool kills): "
         f"{out['max_memory_reserved']} B")
     return out
 
@@ -4655,11 +5107,19 @@ def main():
     log(f"  phase 5d took {time.perf_counter() - t_fleet:.1f} s")
 
     log("== phase 5e: bench.py's loadgen block, gpt2-medium: calibration, "
-        "depth-only, SLO-aware, chaos and a 3-replica router on one "
-        "seeded bursty trace; a hedged fleet; cancel and hard deadlines")
+        "depth-only, SLO-aware, chaos, a 3-replica router and a 1 x 2 "
+        "disaggregated fleet on one seeded bursty trace; a hedged fleet; "
+        "cancel and hard deadlines; a decode worker killed across pools "
+        "and kill_prefill / kill_decode chaos")
     t_lg = time.perf_counter()
     lgs = loadgen_serving(torch, ctr, card)
     log(f"  phase 5e took {time.perf_counter() - t_lg:.1f} s")
+
+    log(f"== phase 5f: the HTTP front end over a started 1 x 2 "
+        f"disaggregated fleet, gpt2-medium at {DISAGG_LAYERS} layers")
+    t_http = time.perf_counter()
+    web = http_serving(torch, ctr, card)
+    log(f"  phase 5f took {time.perf_counter() - t_http:.1f} s")
 
     log("== phase 6: flash kernels vs plain")
     n_flash, flash_err = check_flash(torch, fa, ctr)
@@ -4763,11 +5223,15 @@ def main():
 
     main_t = times["f32"]
     mega = flt["megastep"]["arms"]["megastep"]
+    handoff_errs = lgs["disagg_router"]["kernel_on_handoff_tables"] + [
+        r["kernel_max_abs_err"] for r in lgs["cross_pool_kill"].values()]
     kernels = [entry("paged_attention", "paged_attention.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:55",
-                     srv["launches"], max(worst, flt["kernel_max_abs_err"]),
+                     srv["launches"], max(worst, flt["kernel_max_abs_err"],
+                                          *handoff_errs),
                      {**main_t, "library_ms": None},
-                     cases_passed=n_cases + flt["kernel_cases"],
+                     cases_passed=n_cases + flt["kernel_cases"] +
+                     len(handoff_errs),
                      by_kv_dtype={kv: times[kv]
                                   for kv in ("f32", "bf16", "int8")},
                      by_shape={"decode": times["f32"],
@@ -4793,7 +5257,16 @@ def main():
                      fleet_max_abs_err=flt["kernel_max_abs_err"],
                      launches_loadgen=lgs["launches"],
                      launches_by_route_loadgen=lgs["routes"],
-                     by_shape_loadgen=lgs["kernel_times"])]
+                     by_shape_loadgen=lgs["kernel_times"],
+                     launches_disagg=lgs["launches"]["disagg_router"],
+                     launches_by_route_disagg=lgs["routes"][
+                         "disagg_router"],
+                     launches_disagg_cross_pool_kill=lgs["launches"][
+                         "cross_pool_kill"],
+                     launches_disagg_chaos=lgs["launches"]["disagg_chaos"],
+                     launches_http=web["launches"],
+                     launches_by_route_http=web["routes"],
+                     handoff_tables_max_abs_err=max(handoff_errs))]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]
@@ -4850,7 +5323,8 @@ def main():
                       "sampled_serving": summary(smp),
                       "dense_serving": summary(dns),
                       "fleet_serving": summary(flt),
-                      "loadgen_serving": summary(lgs), "fp16_gpt": f16,
+                      "loadgen_serving": summary(lgs),
+                      "http_serving": summary(web), "fp16_gpt": f16,
                       "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes, "optimizer_plane": plane,

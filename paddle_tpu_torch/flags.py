@@ -324,6 +324,26 @@ define_flag("serving_breaker_window", 20,
             "over this window, so a replica flapping between ok and "
             "error stops receiving traffic before it ever reaches "
             "the strike limit. 0 disables the breaker.")
+define_flag("serving_disagg", "",
+            "Disaggregated serving fleet topology as 'PxD' (e.g. "
+            "'1x2'): P prefill-only workers feed D decode-only workers "
+            "through a bounded handoff queue (DisaggRouter in "
+            "serving/disagg.py). Prefill and decode stop sharing a "
+            "batch, so TTFT no longer inherits decode-batch jitter; "
+            "the KV handoff is a host-side block-table splice on "
+            "co-located pools. Empty (default) keeps symmetric "
+            "replicas.")
+define_flag("serving_prefix_affinity", True,
+            "DisaggRouter: route each request to the prefill worker "
+            "whose KV pool already holds its longest cached prefix "
+            "(fleet-wide rolling-hash prefix index), falling back to "
+            "least-loaded on a miss. Off = pure least-loaded routing; "
+            "hit rates then stop compounding across workers.")
+define_flag("serving_handoff_queue", 16,
+            "DisaggRouter: bound on the prefill->decode handoff queue. "
+            "A full queue backpressures prefill workers (they stop "
+            "admitting) instead of buffering unbounded finished "
+            "prefills whose KV blocks are pinned until adoption.")
 define_flag("serving_breaker_threshold", 0.5,
             "ReplicaRouter per-replica circuit breaker: failure "
             "fraction over the outcome window (with at least half "

@@ -4,16 +4,19 @@ counterpart of ``paddle_tpu/observability``:
 - :mod:`.metrics` the typed Counter/Gauge/Histogram registry
 - :mod:`.runlog`  the structured JSONL run log
 - :mod:`.tracing` per-request traces and their blame attribution
+- :mod:`.export`  Prometheus text and JSON snapshot exporters (served at
+  ``GET /metrics`` by ``serving.http.ServingHTTPServer``)
 
 ``paddle_tpu_torch.monitor`` (the STAT_* counter API) is a thin shim
-over the registry here. Not ported yet: the compile tracker (a captured
-graph is counted by ``traces["count"]`` instead), devprof and the
-Prometheus/JSON exporters (``export.py``, ``http.py``).
+over the registry here. Not ported: the compile tracker (a captured
+graph is counted by ``traces["count"]`` instead, so the exports have no
+compile families) and devprof (ROADMAP A2).
 """
 
 from __future__ import annotations
 
-from . import metrics, runlog, tracing
+from . import export, metrics, runlog, tracing
+from .export import prometheus_text, snapshot, validate_prometheus_text
 from .metrics import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,
                       MetricsRegistry)
 from .runlog import log_event, recent
@@ -35,7 +38,8 @@ def histogram(name: str, help_str: str = "", buckets=None) -> Histogram:
 
 
 __all__ = [
-    "metrics", "runlog", "tracing",
+    "export", "metrics", "runlog", "tracing",
+    "prometheus_text", "snapshot", "validate_prometheus_text",
     "MetricsRegistry", "Counter", "Gauge", "Histogram", "DEFAULT_BUCKETS",
     "log_event", "recent", "counter", "gauge", "histogram",
 ]

@@ -1,12 +1,17 @@
 """Serving plane of the port: the continuous-batching engine over the
-block-paged or the dense slotted KV cache, and the replica router in front
-of several engines (counterpart of ``paddle_tpu/serving``)."""
+block-paged or the dense slotted KV cache, the replica router in front of
+several engines, the disaggregated prefill/decode fleet and the HTTP front
+end (counterpart of ``paddle_tpu/serving``)."""
 
 from .decoding import DecodeParams
+from .disagg import DecodeEngine, DisaggRouter, HandoffQueue, PrefillEngine
 from .engine import QueueFullError, Request, ServingEngine
+from .http import ServingHTTPServer
 from .kv_cache import BlockAllocator, BlockKVCache, BlockPool, SlotKVCache
 from .router import HEALTH_STATES, AutoscalePolicy, ReplicaRouter
 
 __all__ = ["AutoscalePolicy", "BlockAllocator", "BlockKVCache", "BlockPool",
-           "DecodeParams", "HEALTH_STATES", "QueueFullError",
-           "ReplicaRouter", "Request", "ServingEngine", "SlotKVCache"]
+           "DecodeEngine", "DecodeParams", "DisaggRouter", "HEALTH_STATES",
+           "HandoffQueue", "PrefillEngine", "QueueFullError",
+           "ReplicaRouter", "Request", "ServingEngine", "ServingHTTPServer",
+           "SlotKVCache"]

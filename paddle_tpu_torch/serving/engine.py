@@ -74,9 +74,14 @@ tokens, so on the card they measure the replay's device time too, not
 only its enqueue. Every request carries a trace
 (:mod:`~paddle_tpu_torch.observability.tracing`) keyed by its id.
 
+``kv_pool`` shares another engine's
+:class:`~paddle_tpu_torch.serving.kv_cache.BlockPool` (the co-located
+roles of :mod:`~paddle_tpu_torch.serving.disagg`): geometry and KV dtype
+come from the pool.
+
 Not ported yet (each one is queued in ROADMAP.md): dispatch-ahead
 (``dispatch_ahead=True`` raises), mesh/TP, LoRA, the host KV tier, the
-JSON grammar, devprof, and the disagg/HTTP front ends.
+JSON grammar and devprof.
 """
 
 from __future__ import annotations
@@ -105,7 +110,7 @@ from ..resilience.retry import RetryError, RetryPolicy
 from .decoding import (STOP_MAX_LEN, STOP_MAX_SEQS, DecodeParams,
                        StopMatcher, request_key, sample_first,
                        stop_table_rows, stops_fit)
-from .kv_cache import BlockKVCache, SlotKVCache
+from .kv_cache import BlockKVCache, BlockPool, SlotKVCache
 
 
 class QueueFullError(RuntimeError):
@@ -297,6 +302,7 @@ class ServingEngine:
                  slo_prefill_ms: Optional[float] = None,
                  slo_tpot_ms: Optional[float] = None,
                  priority_preempt: Optional[bool] = None,
+                 kv_pool: Optional[BlockPool] = None,
                  clock=None, device=None):
         g = _flags.get_flags(["serving_max_slots", "serving_max_len",
                               "serving_max_queue",
@@ -405,7 +411,27 @@ class ServingEngine:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{self.attn_impl!r}")
-        if self.paged:
+        if kv_pool is not None:
+            # co-located disaggregated roles share one pool: geometry and
+            # KV dtype come from the pool, so the sharing cache cannot
+            # drift from what the blocks are
+            if not self.paged:
+                raise ValueError(
+                    "kv_pool sharing requires the paged KV cache "
+                    "(FLAGS_serving_paged)")
+            if kv_pool.device != self.device:
+                raise ValueError(f"kv_pool lives on {kv_pool.device}, "
+                                 f"engine on {self.device}")
+            if kv_dtype is None:
+                self.kv_dtype = kv_pool.kv_dtype
+            self.cache = BlockKVCache(
+                cfg.num_layers, cfg.num_heads, cfg.head_dim,
+                self.max_slots, self.max_len,
+                block_size=kv_pool.block_size,
+                prefix_cache=bool(prefix_cache if prefix_cache is not None
+                                  else g["serving_prefix_cache"]),
+                kv_dtype=self.kv_dtype, pool=kv_pool)
+        elif self.paged:
             self.cache = BlockKVCache(
                 cfg.num_layers, cfg.num_heads, cfg.head_dim,
                 self.max_slots, self.max_len,
@@ -1681,15 +1707,19 @@ class ServingEngine:
             self.reset_cost_estimates()
         return version
 
-    def _release_device(self):
+    def _release_device(self, pool: bool = True):
         """Free what this engine holds on the device, for good: drop the
         step graphs captured over its pools, its sampling mask and its
         prefill rows (``HeldStep.forget``, with the memory they keep),
         then the tensors themselves. The router's kill path calls it on a
         replica it has stripped of every request, so a restart loop holds
         the memory of the live replicas only; the engine's host
-        book-keeping (its requests, counters, block refcounts) stays."""
-        held = [a for layer in self.cache.arrays() for a in layer]
+        book-keeping (its requests, counters, block refcounts) stays.
+        ``pool=False`` keeps the KV pool and the graphs over it alone, for
+        a pool a live engine still shares (a disaggregated fleet's
+        co-located roles): only the engine's own tensors go."""
+        held = ([a for layer in self.cache.arrays() for a in layer]
+                if pool else [])
         if self._mask is not None:
             held.append(self._mask)
         if not self.paged:
@@ -1697,7 +1727,8 @@ class ServingEngine:
             self._prefill_rows = []
         _gen.forget_held(self.model, [a.data_ptr() for a in held])
         self._mask = None
-        self.cache.drop_arrays()
+        if pool:
+            self.cache.drop_arrays()
 
     @property
     def weight_version(self) -> int:
@@ -1806,6 +1837,7 @@ class ServingEngine:
             "ttft_p99_ms": pct([r.ttft for r in done], 99),
             "tpot_p50_ms": pct([r.tpot for r in done], 50),
             "tpot_p99_ms": pct([r.tpot for r in done], 99),
+            "latency_samples": completed,
             "completed": completed,
             "queue_depth": len(self._queue),
             "active": len(self._active),

@@ -9,15 +9,23 @@ lists, tables, lengths, refcounts, the prefix cache) is numpy and plain
 Python, as in the JAX package, so allocation order and prefix sharing
 replay identically. The KV tensors live on the engine's device, are
 updated in place where JAX replaces its arrays, and are never rebound:
-the serving graphs hold them by address. The cross-cache handoff
-(``export_row``/``import_row``/``adopt_row``) waits for a later slice.
+the serving graphs hold them by address.
+
+The cross-cache handoff of disaggregated serving: several caches may
+share one :class:`BlockPool` (``BlockKVCache(..., pool=)``);
+``export_row`` detaches a row into a record that owns its block
+references, ``import_row`` splices a record of the same pool into a
+row (no reference or byte moves), and ``adopt_row`` copies a foreign
+pool's committed blocks into fresh blocks of this pool, written in
+place into the pool's own tensors (``index_copy_``), so every graph
+captured over the pool reads the copied blocks.
 """
 
 from __future__ import annotations
 
 from bisect import insort
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -287,6 +295,12 @@ class BlockPool:
                 return True
         return False
 
+    def release_blocks(self, blocks: Sequence[int]):
+        """Drop one reference per block: how an aborted handoff record
+        (exported but never adopted) returns its ownership."""
+        for blk in blocks:
+            self.allocator.deref(int(blk))
+
     def flush_prefix_cache(self):
         """Drop every cached prefix ref (tests / memory pressure).
         Live requests keep their own refs; only cache refs drop."""
@@ -312,6 +326,9 @@ class BlockKVCache:
     of the token prefix. ``acquire`` refs the longest cached chain
     instead of re-prefilling it and copies the boundary block
     (copy-on-write) when the shared length is not block-aligned.
+
+    ``pool`` shares an existing :class:`BlockPool` (co-located
+    disaggregated roles): the geometry asked for must be the pool's.
     """
 
     TRASH = 0
@@ -319,19 +336,47 @@ class BlockKVCache:
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  max_slots: int, max_len: int, block_size: int = 16,
                  num_blocks: int = 0, prefix_cache: bool = True,
-                 kv_dtype: str = "f32", device="cpu"):
+                 kv_dtype: str = "f32", device="cpu",
+                 pool: Optional[BlockPool] = None):
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
-        block_size = int(block_size)
-        if block_size < 1:
-            raise ValueError(f"block_size must be >= 1, got {block_size}")
-        if num_blocks <= 0:
-            # worst case every row is full-length, +1 trash block
-            num_blocks = self.max_slots * (-(-self.max_len // block_size)) + 1
-        self.pool = BlockPool(num_layers, num_heads, head_dim,
-                              block_size=block_size, num_blocks=num_blocks,
-                              kv_dtype=kv_dtype, device=device)
-        self.blocks_per_row = -(-self.max_len // block_size)
+        if pool is not None:
+            # a sharing cache must see the pool it was asked for: a step
+            # over another geometry would read the wrong blocks
+            if pool.num_layers != int(num_layers) or \
+                    pool.num_heads != int(num_heads) or \
+                    pool.head_dim != int(head_dim):
+                raise ValueError(
+                    f"shared pool is {pool.num_layers} layers x "
+                    f"{pool.num_heads} heads x {pool.head_dim} dims; "
+                    f"cache wants {num_layers}x{num_heads}x{head_dim}")
+            if num_blocks > 0 and int(num_blocks) != pool.num_blocks:
+                raise ValueError(
+                    f"shared pool has {pool.num_blocks} blocks; cannot "
+                    f"resize to {num_blocks} through a sharing cache")
+            if int(block_size) != pool.block_size:
+                raise ValueError(
+                    f"shared pool block_size={pool.block_size} != "
+                    f"requested {block_size}")
+            if kv_dtype != pool.kv_dtype:
+                raise ValueError(
+                    f"shared pool kv_dtype={pool.kv_dtype!r} != "
+                    f"requested {kv_dtype!r}")
+            self.pool = pool
+        else:
+            block_size = int(block_size)
+            if block_size < 1:
+                raise ValueError(
+                    f"block_size must be >= 1, got {block_size}")
+            if num_blocks <= 0:
+                # worst case every row is full-length, +1 trash block
+                num_blocks = (self.max_slots *
+                              (-(-self.max_len // block_size)) + 1)
+            self.pool = BlockPool(num_layers, num_heads, head_dim,
+                                  block_size=block_size,
+                                  num_blocks=num_blocks,
+                                  kv_dtype=kv_dtype, device=device)
+        self.blocks_per_row = -(-self.max_len // self.pool.block_size)
         self.tables = np.full((self.max_slots, self.blocks_per_row),
                               self.TRASH, np.int32)
         self.lengths = np.zeros(self.max_slots, np.int32)
@@ -541,6 +586,120 @@ class BlockKVCache:
     @property
     def prefix_entries(self) -> int:
         return len(self._prefix)
+
+    def match_prefix_blocks(self, prompt: Sequence[int]) -> int:
+        """How many full leading blocks of ``prompt`` this pool's prefix
+        cache holds: a read-only probe (no LRU touch, no refs) for
+        prefix-affinity routing."""
+        return len(self._match_prefix(prompt))
+
+    # -- cross-cache handoff (disaggregated prefill/decode) ----------
+
+    def export_row(self, row: int) -> Dict[str, object]:
+        """Detach a row for handoff: the returned record owns the row's
+        block references (ownership moves from the row to the record,
+        no deref), and the row is freed for the next admission. The
+        record must reach :meth:`import_row` / :meth:`adopt_row` of the
+        destination cache, or drop its references through
+        ``record["pool"].release_blocks(record["blocks"])``."""
+        n = int(self._nblocks[row])
+        rec = {
+            "blocks": [int(b) for b in self.tables[row, :n]],
+            "length": int(self.lengths[row]),
+            "pool": self.pool,
+        }
+        self.tables[row] = self.TRASH
+        self._nblocks[row] = 0
+        self.lengths[row] = 0
+        insort(self._free_rows, row)
+        return rec
+
+    def import_row(self, rec: Dict[str, object]) -> Optional[int]:
+        """Adopt a record whose blocks live in this cache's pool: a
+        host-side table splice, the record's references moving to the
+        new row. Returns the row, or None when no row is free (the
+        record keeps its references)."""
+        if rec["pool"] is not self.pool:
+            raise ValueError(
+                "import_row requires a record from the same BlockPool; "
+                "use adopt_row for cross-pool handoff")
+        blocks = rec["blocks"]
+        if len(blocks) > self.blocks_per_row:
+            raise ValueError(
+                f"record spans {len(blocks)} blocks > blocks_per_row="
+                f"{self.blocks_per_row}")
+        if not self._free_rows:
+            return None
+        row = self._free_rows.pop(0)
+        self.tables[row] = self.TRASH
+        self.tables[row, :len(blocks)] = blocks
+        self._nblocks[row] = len(blocks)
+        self.lengths[row] = int(rec["length"])
+        return row
+
+    def adopt_row(self, rec: Dict[str, object]) -> Optional[int]:
+        """Adopt a record from another pool: take fresh blocks here
+        (all or nothing) and copy the committed blocks' contents into
+        them, in place, on the current stream (the one the step graphs
+        replay on). Returns the row, or None when rows or blocks run out
+        (the record keeps its source references). On success the caller
+        still owns the source references and drops them through
+        ``rec["pool"].release_blocks(...)``."""
+        src_pool: BlockPool = rec["pool"]  # type: ignore[assignment]
+        if src_pool is self.pool:
+            raise ValueError(
+                "adopt_row is for cross-pool handoff; use import_row "
+                "when the record already lives in this pool")
+        if src_pool.num_layers != self.pool.num_layers or \
+                src_pool.num_heads != self.pool.num_heads or \
+                src_pool.head_dim != self.pool.head_dim or \
+                src_pool.block_size != self.pool.block_size or \
+                src_pool.kv_dtype != self.pool.kv_dtype:
+            raise ValueError("cannot adopt blocks across pools with "
+                             "different geometry or kv_dtype")
+        blocks = [int(b) for b in rec["blocks"]]  # type: ignore[union-attr]
+        length = int(rec["length"])  # type: ignore[arg-type]
+        if len(blocks) > self.blocks_per_row:
+            raise ValueError(
+                f"record spans {len(blocks)} blocks > blocks_per_row="
+                f"{self.blocks_per_row}")
+        if not self._free_rows:
+            return None
+        taken: List[int] = []
+        for _ in blocks:
+            blk = self.pool.alloc_block()
+            if blk is None:
+                for b in taken:
+                    self.allocator.deref(b)
+                return None
+            taken.append(blk)
+        dev = self.pool.device
+        if taken and self.kv_dtype == "int8":
+            # acquire()'s stale-scale hazard: zero the reclaimed blocks'
+            # scales first; the copy below then writes the committed
+            # blocks' real scales over them
+            idx = torch.as_tensor(taken, dtype=torch.int64, device=dev)
+            for layer in self.layers:
+                layer[2].index_fill_(0, idx, 0.0)
+                layer[3].index_fill_(0, idx, 0.0)
+        # only blocks holding committed KV carry data worth moving;
+        # trailing reservation blocks are uninitialized by contract
+        ncommit = min(len(blocks), self.blocks_needed(length))
+        if ncommit:
+            src_idx = torch.as_tensor(blocks[:ncommit], dtype=torch.int64,
+                                      device=dev)
+            dst_idx = torch.as_tensor(taken[:ncommit], dtype=torch.int64,
+                                      device=dev)
+            for layer, src_layer in zip(self.layers, src_pool.layers):
+                for a, sa in zip(layer, src_layer):
+                    a.index_copy_(0, dst_idx, sa.index_select(0, src_idx))
+        row = self._free_rows.pop(0)
+        self.pool.blocks_allocated_total += len(taken)
+        self.tables[row] = self.TRASH
+        self.tables[row, :len(taken)] = taken
+        self._nblocks[row] = len(taken)
+        self.lengths[row] = length
+        return row
 
     # -- per-step bookkeeping ----------------------------------------
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """Open-loop load generator for the port's serving plane, the port's own
 copy of ``tools/loadgen.py``: it drives a
-:class:`~paddle_tpu_torch.serving.ServingEngine` or
-:class:`~paddle_tpu_torch.serving.ReplicaRouter` directly with a
+:class:`~paddle_tpu_torch.serving.ServingEngine`,
+:class:`~paddle_tpu_torch.serving.ReplicaRouter` or
+:class:`~paddle_tpu_torch.serving.DisaggRouter` directly with a
 replayable synthetic arrival process and reports goodput under the TTFT
 SLO. The schedule is drawn from ``np.random.RandomState(seed)`` exactly
 as the reference draws it, so one seed gives the same arrivals, the same
@@ -23,17 +24,22 @@ each step advances it ``step_cost_ms``; fully deterministic). Release:
 open loop, or ``closed_loop`` clients that wait for their request, think
 for a seeded time and may abandon it mid-decode (a fleet
 ``cancel(reason="disconnect")``). A trace may carry a chaos schedule of
-``kill`` / ``restart`` events fired on the run's clock. The report
-counts offered load, goodput, throughput, attainment, sheds and cancels
-by reason, latency percentiles, leaked KV blocks (after a prefix-cache
-flush) and unexpected exceptions, and with a hedging router the hedges.
+``kill`` / ``restart`` events (a replica router's) and ``kill_decode`` /
+``kill_prefill`` events (a disaggregated fleet's) fired on the run's
+clock. The report counts offered load, goodput, throughput, attainment,
+sheds and cancels by reason, latency percentiles, leaked KV blocks (after
+a prefix-cache flush, each pool once) and unexpected exceptions, with a
+hedging router the hedges and with a disaggregated fleet its roles,
+handoffs and affinity counters.
 
 Not ported yet (NotImplementedError, naming the ROADMAP.md item): LoRA
 tenants (``tenant_mix``), returning users on the host KV tier
-(``returning_frac``, ``session``), the disaggregated fleet's chaos kinds
-(``kill_decode``, ``kill_prefill``), devprof and the perf ledger.
+(``returning_frac``, ``session``), devprof and the perf ledger.
 :func:`warmup` warms every engine of a target (the reference's warms
-those its requests land on): a graph holds its replica's pools.
+those its requests land on): a graph holds its replica's pools. A
+disaggregated fleet's workers are warmed by role: every prefill worker
+at every bucket, every decode worker's decode through a handoff it
+adopts.
 
 CLI, from the repository root (on the card; ``--device cpu`` runs on
 the CPU, for a small model):
@@ -61,8 +67,6 @@ _WAITS = {
     "tenant": "LoRA tenants (ROADMAP A2: serving/lora.py)",
     "session": "returning users and the host KV tier (ROADMAP A2: "
                "serving/kv_tier.py)",
-    "disagg": "the disaggregated prefill/decode fleet (ROADMAP A2: "
-              "serving/disagg.py)",
     "devprof": "the device-cost observatory (ROADMAP A2: devprof)",
     "ledger": "the perf ledger rows (ROADMAP A2: tools/perf_ledger.py, "
               "with devprof)",
@@ -508,9 +512,6 @@ class LoadGen:
                     "reason": None, "req": None}
                    for i, a in enumerate(arrivals)]
         from ..serving import QueueFullError
-        for ev in self.chaos:
-            if ev["kind"] in ("kill_decode", "kill_prefill"):
-                raise _not_ported("disagg")
         exceptions = 0
         t0 = clock.now() if clock is not None else time.perf_counter()
 
@@ -676,8 +677,10 @@ class LoadGen:
                 target.restart_replica(idx)
             elif kind == "kill":
                 target.kill_replica(idx)
-            elif kind in ("kill_decode", "kill_prefill"):
-                raise _not_ported("disagg")
+            elif kind == "kill_decode":
+                target.kill_decode_worker(idx)
+            elif kind == "kill_prefill":
+                target.kill_prefill_worker(idx)
             else:
                 return False
         except (AttributeError, IndexError, ValueError):
@@ -866,6 +869,12 @@ class LoadGen:
             h["win_rate"] = (round(int(h.get("wins", 0)) / fired, 4)
                              if fired else None)
             report["hedges"] = h
+        if "prefill_workers" in st:
+            report["disagg"] = {k: st[k] for k in (
+                "prefill_workers", "decode_workers", "colocated",
+                "handoffs_adopted", "handoffs_copied", "prefix_affinity",
+                "affinity_hits", "affinity_misses",
+                "fleet_prefix_hit_rate")}
         if include_trace:
             report["trace"] = records
         return report
@@ -886,7 +895,12 @@ def warmup(target, max_new_tokens: int = 2):
     the engine's books (completions, SLO and shed counts, its request
     list) and the trace store, and never pass through the router, so
     the measured run starts from the reference's state. Under an active
-    fault spec they do draw from the injector's stream."""
+    fault spec they do draw from the injector's stream.
+
+    A :class:`~paddle_tpu_torch.serving.DisaggRouter`'s workers are warmed
+    by role instead (:func:`_warm_roles`): a decode worker takes no
+    submission, and a prefill worker's request ends in the fleet's
+    handoff queue."""
     from ..serving import QueueFullError
     engines = LoadGen._engines(target)
     eng = engines[0]
@@ -900,11 +914,14 @@ def warmup(target, max_new_tokens: int = 2):
             except QueueFullError:
                 target.run_until_idle()
     target.run_until_idle()
-    for e in engines:
-        for b in e.buckets:
-            plen = _warm_len(e, b, max_new_tokens)
-            if e._bucket_for(plen) not in e._prefill_fns:
-                _warm_alone(e, plen, max_new_tokens)
+    if hasattr(target, "prefills"):
+        _warm_roles(target, max_new_tokens)
+    else:
+        for e in engines:
+            for b in e.buckets:
+                plen = _warm_len(e, b, max_new_tokens)
+                if e._bucket_for(plen) not in e._prefill_fns:
+                    _warm_alone(e, plen, max_new_tokens)
     for e in engines:
         e.reset_cost_estimates()
         if e.paged:
@@ -922,14 +939,10 @@ def _warm_alone(eng, plen: int, max_new_tokens: int):
     """One warm-up request on ``eng`` alone, run to idle (resubmitted
     while an injected fault sheds it), then taken out of the engine's
     books and the trace store."""
-    from ..observability import tracing as _tracing
     from ..serving import QueueFullError
     if eng.paged:
         eng.cache.flush_prefix_cache()
-    with eng._lock:
-        saved = (eng._completed, eng._slo_met,
-                 {k: list(v) for k, v in eng._tenant_stats.items()},
-                 dict(eng._shed_by_reason), len(eng._all))
+    saved = _books(eng)
     for _ in range(50):
         # costs learned from the captures must not shed the warm-up at
         # the SLO gate (the warm-up resets them at its end anyway)
@@ -943,12 +956,105 @@ def _warm_alone(eng, plen: int, max_new_tokens: int):
         eng.run_until_idle()
         if req.state == "done":
             break
+    _restore_books(eng, saved)
+
+
+def _warm_roles(rt, max_new_tokens: int):
+    """Warm a disaggregated fleet by role: every prefill worker at every
+    bucket it has not prefilled, and every decode worker that has not
+    decoded (its decode step, or its megastep or verify when configured),
+    each through a handoff from a prefill worker to a decode worker, the
+    two stepped alone. A decode worker prefers a prefill worker on its
+    own pool and the reverse, so a co-located pair splices. The warm-up
+    requests leave both workers' books, the decode worker's adoption
+    counts and the trace store, and the handoff queue ends empty."""
+    def partner(eng, peers):
+        return next((p for p in peers if p.cache.pool is eng.cache.pool),
+                    peers[0])
+
+    for pw in rt.prefills:
+        for b in pw.buckets:
+            plen = _warm_len(pw, b, max_new_tokens)
+            if pw._bucket_for(plen) not in pw._prefill_fns:
+                _warm_handoff(pw, partner(pw, rt.decodes), plen,
+                              max_new_tokens)
+    for dw in rt.decodes:
+        if not dw.decode_steps + dw.megastep_dispatches:
+            pw = partner(dw, rt.prefills)
+            _warm_handoff(dw=dw, pw=pw, max_new_tokens=max_new_tokens,
+                          plen=_warm_len(pw, pw.buckets[0],
+                                         max_new_tokens))
+
+
+def _books(eng):
+    """What a warm-up request changes in ``eng``'s books: its outcome
+    counts, its request list, its adoption counts (a decode worker) and
+    its prefix-cache counters and those of its pool."""
+    pool = eng.cache.pool if eng.paged else None
+    with eng._lock:
+        return (eng._completed, eng._slo_met,
+                {k: list(v) for k, v in eng._tenant_stats.items()},
+                dict(eng._shed_by_reason), len(eng._all),
+                getattr(eng, "adopted", 0),
+                getattr(eng, "adopted_copies", 0),
+                eng._prefix_hit_reqs, eng._prefix_miss_reqs,
+                None if pool is None else (pool.prefix_hits,
+                                           pool.prefix_misses,
+                                           pool.blocks_allocated_total))
+
+
+def _restore_books(eng, saved):
+    """Put back :func:`_books`' record, dropping the requests submitted
+    since from ``eng``'s list and the trace store."""
+    from ..observability import tracing as _tracing
     with eng._lock:
         (eng._completed, eng._slo_met, eng._tenant_stats,
-         eng._shed_by_reason, n) = saved
+         eng._shed_by_reason, n, adopted, copies, eng._prefix_hit_reqs,
+         eng._prefix_miss_reqs, pool) = saved
         for r in eng._all[n:]:
             _tracing.store().discard(r.id)
         del eng._all[n:]
+    if hasattr(eng, "adopted"):
+        eng.adopted, eng.adopted_copies = adopted, copies
+    if pool is not None:
+        p = eng.cache.pool
+        p.prefix_hits, p.prefix_misses, p.blocks_allocated_total = pool
+
+
+def _warm_handoff(pw, dw, plen: int, max_new_tokens: int,
+                  max_steps: int = 1000):
+    """One warm-up request submitted to prefill worker ``pw`` alone,
+    stepped there until exported, then on decode worker ``dw`` alone
+    until it ends (resubmitted while an injected fault sheds it); then
+    taken out of both workers' books and the trace store."""
+    from ..serving import QueueFullError
+    pw.cache.flush_prefix_cache()
+    saved = [(e, _books(e)) for e in (pw, dw)]
+    for _ in range(50):
+        for e in (pw, dw):
+            # costs learned from the captures must not shed the warm-up
+            # at the SLO gate (the warm-up resets them at its end anyway)
+            e.reset_cost_estimates()
+        try:
+            req = pw.submit([1] * plen, max_new_tokens=max_new_tokens,
+                            _log_request=False)
+        except QueueFullError:
+            continue
+        for _ in range(max_steps):
+            if pw.idle:
+                break
+            pw.step()
+        for _ in range(max_steps):
+            if req.done:
+                break
+            dw.step()
+        if not req.done or not pw.idle or len(pw._handoff):
+            raise RuntimeError(f"warm-up handoff of {plen} tokens did "
+                               f"not finish: {req}")
+        if req.state == "done":
+            break
+    for eng, books in saved:
+        _restore_books(eng, books)
 
 
 # ------------------------------------------------------------------ CLI
@@ -976,8 +1082,7 @@ def _parse_mix(text: str) -> Optional[dict]:
 _UNPORTED_OPTIONS = {
     "tenant_mix": "tenant", "lora_rank": "tenant",
     "returning_frac": "session", "host_blocks": "session",
-    "demote_idle_ms": "session", "disagg": "disagg",
-    "no_prefix_affinity": "disagg", "devprof": "devprof",
+    "demote_idle_ms": "session", "devprof": "devprof",
     "devprof_sample": "devprof", "ledger": "ledger",
 }
 
@@ -1050,8 +1155,16 @@ def main(argv=None) -> int:
     ap.add_argument("--straggler", default="", metavar="I:MS",
                     help="after warmup, pin replica I's predicted prefill "
                     "cost to MS ms and slow its steps to match")
+    ap.add_argument("--disagg", default="", metavar="PxD",
+                    help="run a disaggregated fleet of P prefill-only "
+                    "+ D decode-only workers behind a DisaggRouter "
+                    "instead of symmetric replicas (e.g. '1x2')")
+    ap.add_argument("--no-prefix-affinity", action="store_true",
+                    help="with --disagg: route least-loaded instead of "
+                    "to the worker holding the longest cached prefix")
     ap.add_argument("--chaos", default="", metavar="T:KIND:I,...",
-                    help="inline chaos schedule, KIND in kill|restart")
+                    help="inline chaos schedule, KIND in kill|restart|"
+                    "kill_decode|kill_prefill")
     ap.add_argument("--replay", default="", metavar="TRACE.json",
                     help="replay a recorded arrival trace")
     ap.add_argument("--megastep", type=int, default=1, metavar="N",
@@ -1086,8 +1199,6 @@ def main(argv=None) -> int:
     ap.add_argument("--returning-frac", type=float, default=0.0)
     ap.add_argument("--host-blocks", type=int, default=0)
     ap.add_argument("--demote-idle-ms", type=float, default=None)
-    ap.add_argument("--disagg", default="")
-    ap.add_argument("--no-prefix-affinity", action="store_true")
     ap.add_argument("--devprof", action="store_true")
     ap.add_argument("--devprof-sample", type=float, default=None)
     ap.add_argument("--ledger", default="")
@@ -1103,7 +1214,8 @@ def main(argv=None) -> int:
     from ..models.gpt import GPT_CONFIGS, GPTForCausalLM
     from ..observability import tracing as _tracing
     from ..resilience import fault_scope
-    from ..serving import AutoscalePolicy, ReplicaRouter, ServingEngine
+    from ..serving import (AutoscalePolicy, DisaggRouter, ReplicaRouter,
+                           ServingEngine)
     from ..serving.router import _parse_autoscale
 
     from contextlib import nullcontext
@@ -1164,7 +1276,13 @@ def main(argv=None) -> int:
         eng_kwargs["clock"] = vc.now
     with ctx:
         bounds = _parse_autoscale(args.autoscale)
-        if args.replicas > 1 or bounds is not None or \
+        if args.disagg:
+            _fl.set_flags({
+                "serving_disagg": args.disagg,
+                "serving_prefix_affinity":
+                    not args.no_prefix_affinity})
+            target = DisaggRouter(model=model, **eng_kwargs)
+        elif args.replicas > 1 or bounds is not None or \
                 args.hedge_ms != 0.0:
             target = ReplicaRouter(
                 model=model, n_replicas=args.replicas,

@@ -7,7 +7,10 @@ the same decisions, shed counts by reason, completions, tokens and
 virtual-clock TTFTs, compared as equal floats: the depth-only against
 the SLO-aware pair of ``tests/test_loadgen.py``, a chaos run under
 ``fault_scope``, closed-loop clients that abandon, a chaos schedule of
-kills and restarts, and an autoscaling router. The model is the small
+kills and restarts, an autoscaling router, and a disaggregated fleet
+(co-located and across pools, under its ``kill_prefill`` and
+``kill_decode`` chaos kinds, and through each CLI's ``--disagg``), whose
+report's ``disagg`` section must be equal too. The model is the small
 GPT of ``tests/test_loadgen.py`` (vocab 97, h 32, 2 layers, 4 heads)
 drawn at ``init_std`` 0.2, so its greedy tokens vary. The JAX side runs
 with 64-bit types off."""
@@ -28,16 +31,18 @@ from paddle_tpu.observability import tracing as jtracing
 from paddle_tpu.resilience import fault_scope as jfault_scope
 from paddle_tpu.resilience import reset_default_budget as jreset_budget
 from paddle_tpu.serving import AutoscalePolicy as JAutoscalePolicy
+from paddle_tpu.serving import DisaggRouter as JDisaggRouter
 from paddle_tpu.serving import ReplicaRouter as JReplicaRouter
 from paddle_tpu.serving import ServingEngine as JServingEngine
+from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import monitor as tmonitor
 from paddle_tpu_torch.models.convert import gpt_state_from_numpy
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.observability import tracing as ttracing
 from paddle_tpu_torch.resilience import fault_scope as tfault_scope
 from paddle_tpu_torch.resilience import reset_default_budget as treset_budget
-from paddle_tpu_torch.serving import (AutoscalePolicy, ReplicaRouter,
-                                      ServingEngine)
+from paddle_tpu_torch.serving import (AutoscalePolicy, DisaggRouter,
+                                      ReplicaRouter, ServingEngine)
 from paddle_tpu_torch.tools import loadgen as tloadgen
 from tools import loadgen as jloadgen
 
@@ -66,12 +71,12 @@ def pkgs():
     tm.eval()
     jax_side = SimpleNamespace(
         name="jax", model=jm, Engine=JServingEngine, Router=JReplicaRouter,
-        Policy=JAutoscalePolicy, lg=jloadgen, fault_scope=jfault_scope,
+        Disagg=JDisaggRouter, Policy=JAutoscalePolicy, lg=jloadgen, fault_scope=jfault_scope,
         tracing=jtracing, monitor=jmonitor, reset_budget=jreset_budget,
         kw={})
     port = SimpleNamespace(
         name="port", model=tm, Engine=ServingEngine, Router=ReplicaRouter,
-        Policy=AutoscalePolicy, lg=tloadgen, fault_scope=tfault_scope,
+        Disagg=DisaggRouter, Policy=AutoscalePolicy, lg=tloadgen, fault_scope=tfault_scope,
         tracing=ttracing, monitor=tmonitor, reset_budget=treset_budget,
         kw={"device": "cpu"})
     return jax_side, port
@@ -276,9 +281,10 @@ def test_warmup_warms_every_replica_and_leaves_no_record(pkgs):
 
 
 def test_refuses_what_is_not_ported():
-    """LoRA tenants, returning users on the host KV tier and the
-    disaggregated fleet's chaos kinds raise, naming their ROADMAP item;
-    so do the CLI's options for them."""
+    """LoRA tenants and returning users on the host KV tier raise, naming
+    their ROADMAP item; so do the CLI's options for them, devprof's and
+    the ledger's. (The disaggregated fleet's chaos kinds and the CLI's
+    ``--disagg`` run: the parity tests below.)"""
     with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         tloadgen.LoadGen(tenant_mix={"base": 0.5, "acme": 0.5}, **LG_KW)
     with pytest.raises(NotImplementedError, match="kv_tier"):
@@ -289,12 +295,9 @@ def test_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="kv_tier"):
         tloadgen.LoadGen.from_trace(
             {"arrivals": [row[:8] + ["", 0.0, "s1"]]})
-    lg = tloadgen.LoadGen(**LG_KW)
-    lg.chaos = [{"t": 0.1, "kind": "kill_decode", "index": 0}]
-    with pytest.raises(NotImplementedError, match="disagg"):
-        lg.run(object())
-    for opt in (["--tenant-mix", "base:1"], ["--host-blocks", "8"],
-                ["--disagg", "1x2"], ["--devprof"], ["--ledger", "x"]):
+    for opt in (["--tenant-mix", "base:1"], ["--lora-rank", "4"],
+                ["--host-blocks", "8"], ["--returning-frac", "0.5"],
+                ["--devprof"], ["--ledger", "x"]):
         with pytest.raises(NotImplementedError):
             tloadgen.main(opt + ["--device", "cpu"])
 
@@ -319,3 +322,89 @@ def test_cli_runs_on_the_cpu_and_raises_without_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tloadgen.main(["--model", "gpt2-tiny"])
+
+
+def _fleet(pkg, vc, **kw):
+    return pkg.Disagg(pkg.model, **{**ENGINE, "max_queue": 8,
+                                    "block_size": 4, **kw},
+                      clock=vc.now, **pkg.kw)
+
+
+@pytest.mark.parametrize("colocate", [True, False],
+                         ids=["colocated", "cross-pool"])
+def test_disagg_run_like_the_reference(pkgs, colocate):
+    """A warmed 1 x 2 fleet under a seeded bursty SLO run: the same
+    decisions, sheds, tokens, virtual-clock TTFTs and ``disagg`` section
+    (handoffs adopted and copied, affinity counters, fleet hit rate)."""
+    def run(pkg):
+        vc = pkg.lg.VirtualClock()
+        rt = _fleet(pkg, vc, n_prefill=1, n_decode=2, colocate=colocate)
+        pkg.lg.warmup(rt)
+        rep = pkg.lg.LoadGen(mode="bursty", seed=7, **LG_KW).run(
+            rt, clock=vc, step_cost_ms=4.0)
+        return _observe(rep, rt.engines + rt._retiring)
+
+    rep = _both(pkgs, run)["report"]
+    assert rep["disagg"]["handoffs_adopted"] > 0
+    assert (rep["disagg"]["handoffs_copied"] > 0) is not colocate
+    assert rep["leaked_kv_blocks"] == 0 and rep["exceptions"] == 0
+
+
+def test_disagg_chaos_kills_like_the_reference(pkgs):
+    """``kill_prefill`` and ``kill_decode`` fired on the virtual clock
+    through a warmed 2 x 2 fleet across pools: the same decisions,
+    re-routes, re-homes, sheds and tokens, every request accounted for
+    and nothing leaked."""
+    def run(pkg):
+        vc = pkg.lg.VirtualClock()
+        rt = _fleet(pkg, vc, n_prefill=2, n_decode=2, colocate=False)
+        pkg.lg.warmup(rt)
+        lg = pkg.lg.LoadGen(mode="poisson", seed=42,
+                            **dict(LG_KW, rate=60.0))
+        lg.chaos = [{"t": 0.15, "kind": "kill_prefill", "index": 0},
+                    {"t": 0.3, "kind": "kill_decode", "index": 1}]
+        rep = lg.run(rt, clock=vc, step_cost_ms=4.0)
+        st = rt.stats()
+        return {**_observe(rep, rt.engines + rt._retiring),
+                "workers": (st["prefill_workers"], st["decode_workers"]),
+                "rehomed": st["rehomed"]}
+
+    out = _both(pkgs, run)
+    rep = out["report"]
+    assert rep["chaos_applied"] == 2 and out["workers"] == (1, 1)
+    assert rep["completed"] + rep["rehomed"] + rep["shed_total"] + \
+        rep["canceled_total"] == rep["offered"]
+    assert rep["leaked_kv_blocks"] == 0 and rep["exceptions"] == 0
+
+
+def test_disagg_cli_like_the_reference(capsys):
+    """``--disagg 2x2`` with a ``kill_prefill`` and a ``kill_decode`` on a
+    virtual clock with pinned costs, through each package's CLI: the
+    same report, decisions and ``disagg`` section (the CLIs draw their
+    own random weights, and a run without EOS schedules the same
+    whatever the tokens), no leak, nothing captured after the warm-up."""
+    args = ["--model", "gpt2-tiny", "--mode", "bursty", "--rate", "40",
+            "--duration", "0.5", "--slots", "2", "--max-len", "32",
+            "--buckets", "8,16", "--prompt-tokens", "4:9",
+            "--new-tokens", "2:4", "--slo-ttft-ms", "200",
+            "--slo-prefill-ms", "4", "--slo-tpot-ms", "1",
+            "--virtual-step-ms", "4", "--disagg", "2x2",
+            "--chaos", "0.1:kill_prefill:1,0.2:kill_decode:0", "--json",
+            "--expect-zero-leaks", "--expect-zero-new-compiles"]
+    names = ["serving_disagg", "serving_prefix_affinity"]
+    saved = (pt.get_flags(names), tflags.get_flags(names))
+    reps = []
+    try:
+        for main, extra in ((jloadgen.main, []),
+                            (tloadgen.main, ["--device", "cpu"])):
+            rc = main(args + extra)
+            out = capsys.readouterr().out.strip().splitlines()[-1]
+            reps.append((rc, json.loads(out)))
+    finally:
+        pt.set_flags(saved[0])
+        tflags.set_flags(saved[1])
+    (jrc, jrep), (trc, trep) = reps
+    assert jrc == trc == 0
+    assert trep == jrep
+    assert trep["chaos_applied"] == 2 and trep["disagg"]["prefill_workers"] == 1
+    assert trep["new_compiles_after_warmup"] == 0

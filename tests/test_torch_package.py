@@ -17,7 +17,7 @@ from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import flash_pack2 as fp2
 from paddle_tpu_torch.ops.cuda import layer_norm as ln
 from paddle_tpu_torch.ops.cuda import paged_attention as pa
-from paddle_tpu_torch.serving import ReplicaRouter, ServingEngine
+from paddle_tpu_torch.serving import DisaggRouter, ReplicaRouter, ServingEngine
 from paddle_tpu_torch.tools import loadgen
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,7 +49,8 @@ def _imported_modules(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_train_profile.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_train_profile.py",
+              ROOT / "tools" / "torch_trace_drops.py"]
     scanned = {str(f.relative_to(ROOT)) for f in files}
     for module in ("amp/auto_cast.py", "amp/lists.py", "optimizer.py",
                    "ops/optimizer_ops.py", "ops/cuda/flash_attention.py",
@@ -89,6 +90,10 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         ServingEngine(cpu_model)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ReplicaRouter(cpu_model, n_replicas=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DisaggRouter(cpu_model, n_prefill=1, n_decode=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen.main(["--model", "gpt2-tiny", "--disagg", "1x1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         loadgen.main(["--model", "gpt2-tiny"])
     with pytest.raises(ValueError, match="generator"):
@@ -176,13 +181,15 @@ FLEET_FLAGS = (
     "runlog_dir", "runlog_max_mb",
     # SLO admission, priorities and request tracing
     "serving_slo_ttft_ms", "serving_slo_prefill_ms", "serving_slo_tpot_ms",
-    "serving_priority_preempt", "serving_trace", "serving_trace_keep")
+    "serving_priority_preempt", "serving_trace", "serving_trace_keep",
+    # the disaggregated fleet
+    "serving_disagg", "serving_prefix_affinity", "serving_handoff_queue")
 
 
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 47
+    assert len(ported) == 50
     assert {"use_pallas_attention", "use_pallas_layer_norm", "pallas_min_seq",
             "pallas_flash_block_q", "pallas_flash_block_k",
             "serving_megastep", "serving_spec_tokens",
