@@ -14,7 +14,8 @@ dense slotted cache against the paged one, offline ``sample`` and
 ``beam_search``), its replica fleet, and its load generator's goodput
 under a TTFT SLO (SLO admission, priorities, faults, hedged prefill,
 cancel and hard deadlines; a disaggregated prefill/decode fleet, its
-KV handoff and its worker kills) and its HTTP front end, trains it
+KV handoff and its worker kills) and its HTTP front end, multi-tenant
+LoRA traffic and returning users on the host KV tier, trains it
 (``bench.py``'s step: batch
 8, seq 1024, AMP O2 bf16, AdamW with bf16 moments) eagerly and through
 ``jit.to_static`` as a CUDA graph, with the LayerNorm kernels off and
@@ -78,7 +79,18 @@ flat) and a 2 x 2 load-generator run with a ``kill_prefill`` and a
 ``kill_decode``; B4 timed at the loadgen geometry), 5f the HTTP front
 end over a started 1 x 2 fleet at 4 layers (generate, the request's
 trace, DELETE, 429 with Retry-After, health, Prometheus metrics; no
-capture, no leak), 6 flash kernels vs plain (f32, bf16
+capture, no leak), 5g tenants (``tools/ci.sh``'s multi-tenant trace
+through a rank-8 LoRA pool of two adapters at megastep 1 and 8: no
+capture, leak or exception, ``per_tenant`` over base / acme / zeta,
+greedy tokens equal single-tenant engines'; three outputs of one prompt;
+a reload, an evict and a load mid-service capturing nothing, an evict
+refused while pinned; the decode step's busy time and graph kernels
+with and without LoRA), 5h returning users on the host KV tier
+(``tools/ci.sh``'s returning-users trace: sessions resumed, more parked
+than the pool holds, no leak in either tier; a two-block round trip
+per pool dtype, int8 bit-exact, B4 on the promoted tables; at 4 layers
+a killed prefill worker's chains promoted by the survivor and a
+resumed tenant session), 6 flash kernels vs plain (f32, bf16
 and fp16), 7 train GPT (eager, then captured: losses and parameters
 bit-equal), 7b train GPT at O1 fp16 with ``GradScaler`` through the
 CUDA-core flash kernels, 8 time the flash kernels, 9
@@ -1944,8 +1956,9 @@ def timed_loadgen(torch, ctr, target, lg, what, **run_kw):
                canceled_total=rep["canceled_total"],
                chaos_applied=rep["chaos_applied"],
                invalid=sum(1 for d in rep["decisions"] if d[0] == "invalid"))
-    if "disagg" in rep:
-        res["disagg"] = rep["disagg"]
+    for k in ("disagg", "per_tenant", "leaked_lora_pages", "sessions"):
+        if k in rep:
+            res[k] = rep[k]
     log(f"  {what}: offered {rep['offered']} ({rep['offered_rate']}/s), "
         f"completed {rep['completed']}, shed {rep['shed']}, goodput "
         f"{rep['goodput_per_s']}/s, TTFT p50/p95 {rep['ttft_ms_p50']} / "
@@ -2711,6 +2724,497 @@ def loadgen_serving(torch, ctr, card):
     log(f"  max_memory_reserved during phase 5e (peaks reset by the "
         f"cross-pool kills): "
         f"{out['max_memory_reserved']} B")
+    return out
+
+
+# ------------------------------------------------------------ phase 5g
+#: the multi-tenant leg of ``tools/ci.sh:275-283`` at gpt2-medium on
+#: phase 5e's geometry: rank-8 adapters of two tenants over a base share
+#: of half the traffic, half the rows sampled
+LORA_RANK = 8
+TENANT_MIX = {"base": 0.5, "acme": 0.3, "zeta": 0.2}
+TENANT_SEEDS = {"acme": 1, "zeta": 2}
+
+
+def tenant_engine(model, megastep=1, **kw):
+    """Phase 5e's loadgen engine with a rank-8 adapter pool of two pages,
+    ``acme`` and ``zeta`` loaded (``make_adapter`` seeds 1 and 2)."""
+    from paddle_tpu_torch.serving import make_adapter
+    eng = loadgen_engine(model, lora_rank=LORA_RANK, lora_max_adapters=2,
+                         megastep=megastep, **kw)
+    for name, seed in TENANT_SEEDS.items():
+        eng.load_adapter(name, make_adapter(model.cfg, LORA_RANK, seed=seed))
+    return eng
+
+
+def lora_top2_gap(torch, model, pool, tenant, ids):
+    """Gap between the two largest last-position logits of one composed
+    paged forward over ``ids`` with ``tenant``'s adapter page (the
+    no-cache forward carries no adapter)."""
+    bs = 16
+    nb = -(-len(ids) // bs)
+    kv = model.gpt.gen_block_pool(nb + 1, bs)
+    tables = torch.arange(1, nb + 1, dtype=torch.int32,
+                          device=model.device)[None]
+    pages = np.asarray([pool.page_of(tenant)], np.int32)
+    with torch.no_grad():
+        lg, _ = model(torch.tensor([ids], device=model.device), cache=kv,
+                      cache_pos=0, block_tables=tables,
+                      attn_impl="composed", lora=(pages, pool.arrays))
+    top = torch.topk(lg[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def same_tenant_tokens(torch, model, pool, reqs, ref, what):
+    """Every request's tokens against ``ref`` (its prompt's tokens from
+    an unloaded engine with the same tenant), under the top-2 rule with
+    the tenant's adapter applied. Returns the near ties."""
+    ties = []
+    for r in reqs:
+        a, b = ref[(r.tenant, tuple(r.prompt))][:len(r.tokens)], r.tokens
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap = lora_top2_gap(torch, model, pool, r.tenant, r.prompt + a[:j])
+        log(f"  {what}: request {r.id} ({r.tenant or 'base'}) diverges at "
+            f"token {j}: reference top-2 logit gap {gap:.3e}")
+        if gap >= 1e-3:
+            raise AssertionError(f"{what}: request {r.id} differs at token "
+                                 f"{j} with top-2 gap {gap}")
+        ties.append({"request": r.id, "token": j, "gap": gap})
+    return ties
+
+
+def single_tenant_tokens(torch, ref_eng, specs):
+    """``specs`` (``(tenant, prompt, max_new_tokens)``) served on
+    ``ref_eng`` one tenant at a time, each tenant's requests alone in the
+    engine: ``{(tenant, prompt): tokens}``."""
+    out = {}
+    for tenant in sorted({t for t, _, _ in specs}):
+        mine = [(p, n) for t, p, n in specs if t == tenant]
+        reqs = [ref_eng.submit(list(p), max_new_tokens=n, tenant=tenant)
+                for p, n in mine]
+        ref_eng.run_until_idle()
+        torch.cuda.synchronize()
+        for (p, _), r in zip(mine, reqs):
+            out[(tenant, tuple(p))] = r.tokens
+    return out
+
+
+def tenant_tpot(reqs):
+    """TPOT p50 ms of the completed requests, by tenant."""
+    by = {}
+    for r in reqs:
+        if r.state == "done" and r.tpot is not None:
+            by.setdefault(r.tenant or "base", []).append(r.tpot)
+    return {k: pctl_ms(v, 50) for k, v in sorted(by.items())}
+
+
+def tenant_serving(torch, ctr, card):
+    """Phase 5g: ``tools/ci.sh:275-283``'s multi-tenant leg on a fresh
+    seeded gpt2-medium at phase 5e's geometry, the engine built with a
+    rank-8 pool of two adapters: bursty at 20/s for 2 s (seed 0),
+    4-16-token prompts, 2-8 new tokens, half the rows sampled, tenants
+    base 0.5, acme 0.3, zeta 0.2; warmed (greedy and sampled graphs),
+    then timed at megastep 1 and 8: 0 exceptions, leaked blocks or
+    pages, 0 captures, ``per_tenant`` over the three tenants summing to
+    ``completed``, every completed greedy request equal to an unloaded
+    single-tenant engine (top-2 rule, the adapter applied). One prompt
+    gives three outputs for base, acme and zeta. Live changes: ``acme``
+    reloaded (seed 3), ``zeta`` evicted, ``third`` loaded (seed 4): 0
+    captures, the next requests equal an engine loaded with the new
+    factors from the start, and an evict refused while a request pins
+    its page. Reported: the decode step's device busy ms and graph
+    kernel nodes with and without LoRA, TPOT p50 by tenant, graphs per
+    engine, B4 launches by route."""
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.serving import make_adapter
+    from paddle_tpu_torch.tools.loadgen import LoadGen, warmup
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    lg_kw = dict(mode="bursty", rate=20.0, duration=2.0, seed=0,
+                 vocab_size=cfg.vocab_size, prompt_tokens=(4, 16),
+                 new_tokens=(2, 8), sample_frac=0.5, tenant_mix=TENANT_MIX)
+    out, greedy, launches, routes = {}, [], {}, {}
+    engines = {}
+    for n in (1, 8):
+        eng = tenant_engine(model, megastep=n)
+        cap0 = captures(model)
+        warmup(eng, sampled=True)
+        what = f"tenants, megastep {n}"
+        res, reqs = timed_loadgen(torch, ctr, eng, LoadGen(**lg_kw), what)
+        pt = res["per_tenant"]
+        if set(pt) != set(TENANT_MIX) or \
+                sum(t["completed"] for t in pt.values()) != res["completed"]:
+            raise AssertionError(f"{what}: per_tenant {pt} against "
+                                 f"completed {res['completed']}")
+        if res["leaked_lora_pages"] or eng.lora_pool.leaked():
+            raise AssertionError(f"{what}: adapter pages leaked")
+        res.update(graphs_captured_in_warmup=captures(model) - cap0,
+                   graphs_per_engine=replica_graphs(model, eng),
+                   tpot_p50_ms_by_tenant=tenant_tpot(reqs))
+        log(f"  {what}: per tenant {pt}, TPOT p50 by tenant "
+            f"{res['tpot_p50_ms_by_tenant']} ms, {res['graphs_per_engine']} "
+            f"graphs over this engine's pools")
+        out[f"megastep{n}"] = res
+        launches[f"megastep{n}"] = res["launches"]
+        routes[f"megastep{n}"] = res["routes"]
+        greedy += [r for r in reqs if r.state == "done"
+                   and r.decode.is_greedy]
+        engines[n] = eng
+    release_engines([engines.pop(8)])
+
+    # the single-tenant oracle: one engine, each tenant's prompts alone
+    ref_eng = tenant_engine(model, max_slots=32, max_queue=256)
+    specs = {}
+    for r in greedy:
+        key = (r.tenant, tuple(r.prompt))
+        specs[key] = max(specs.get(key, 0), r.max_new_tokens)
+    ref = single_tenant_tokens(torch, ref_eng, [(t, p, n) for (t, p), n in
+                                                specs.items()])
+    ties = same_tenant_tokens(torch, model, ref_eng.lora_pool, greedy, ref,
+                              "tenant runs vs single-tenant engines")
+    out["tokens"] = {"checked": len(greedy), "near_ties": len(ties)}
+    log(f"  {len(greedy)} completed greedy requests of both runs == an "
+        f"unloaded single-tenant engine's ({len(ties)} near ties)")
+    # one prompt, three tenants, three outputs (the first of four seeded
+    # prompts where they all differ; none of four fails the phase)
+    rng = np.random.RandomState(40)
+    for _ in range(4):
+        shared = rng.randint(1, cfg.vocab_size, size=12).tolist()
+        three = [ref_eng.submit(shared, max_new_tokens=16, tenant=t)
+                 for t in ("", "acme", "zeta")]
+        ref_eng.run_until_idle()
+        if len({tuple(r.tokens) for r in three}) == 3:
+            break
+    else:
+        raise AssertionError(f"one prompt, three tenants, outputs "
+                             f"{[r.tokens for r in three]}: not all differ")
+    log(f"  one prompt: base / acme / zeta generate "
+        f"{[r.tokens[:4] for r in three]}... (all different)")
+
+    # live adapter changes on the warmed megastep-1 engine
+    eng = engines.pop(1)
+    new = {"acme": make_adapter(cfg, LORA_RANK, seed=3),
+           "third": make_adapter(cfg, LORA_RANK, seed=4)}
+    cap0 = captures(model)
+    ptrs = [a.data_ptr() for a in eng.lora_pool.arrays]
+    eng.load_adapter("acme", new["acme"])
+    eng.evict_adapter("zeta")
+    eng.load_adapter("third", new["third"])
+    rng = np.random.RandomState(41)
+    live = [(t, rng.randint(1, cfg.vocab_size,
+                            size=int(rng.randint(4, 16))).tolist(), 8)
+            for t in ("acme", "third", "", "acme", "third", "")]
+    reqs = [eng.submit(p, max_new_tokens=n, tenant=t) for t, p, n in live]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    pinned = eng.submit(live[0][1], max_new_tokens=8, tenant="acme")
+    eng.step()
+    try:
+        eng.evict_adapter("acme")
+        raise AssertionError("evict_adapter ignored a pinned page")
+    except ValueError as e:
+        if "pinned" not in str(e):
+            raise
+    eng.run_until_idle()
+    added = captures(model) - cap0
+    if added or [a.data_ptr() for a in eng.lora_pool.arrays] != ptrs:
+        raise AssertionError(f"live adapter changes captured {added} graphs "
+                             "or moved the pool")
+    ref_eng.load_adapter("acme", new["acme"])
+    ref_eng.evict_adapter("zeta")
+    ref_eng.load_adapter("third", new["third"])
+    ref2 = single_tenant_tokens(torch, ref_eng, live)
+    ties2 = same_tenant_tokens(torch, model, ref_eng.lora_pool, reqs, ref2,
+                               "after the live changes")
+    out["live_changes"] = {"captures": added, "requests": len(reqs),
+                           "near_ties": len(ties2),
+                           "pinned_evict_refused": True,
+                           "pinned_request_state": pinned.state}
+    log(f"  live changes (acme reloaded, zeta evicted, third loaded): "
+        f"{added} captures, the pool in place, {len(reqs)} requests == an "
+        f"engine loaded with the new factors ({len(ties2)} near ties); evict "
+        f"refused while a request pinned the page")
+    if eng.lora_pool.leaked() or ref_eng.lora_pool.leaked():
+        raise AssertionError("adapter pages leaked after the live changes")
+    release_engines([eng, ref_eng])
+    del eng, ref_eng
+    release_graphs(torch, model)
+
+    # the decode step with and without LoRA (phase 17's profile, 8 rows)
+    prof = {}
+    for name, kw in (("base", {}), ("lora", {"lora_rank": LORA_RANK,
+                                             "lora_max_adapters": 2})):
+        from paddle_tpu_torch.serving import ServingEngine
+        e = ServingEngine(model, max_slots=8, max_len=256, block_size=16,
+                          kv_dtype="f32", attn_impl="kernel", **kw)
+        e.submit(list(range(1, 25)), max_new_tokens=4)   # bucket 32, decode
+        e.run_until_idle()
+        prof[name] = decode_profile(torch, ctr, e, f"decode, {name}")
+        release_engines([e])
+    out["decode_profile"] = prof
+    log(f"  [{card}] decode step with LoRA: busy "
+        f"{prof['lora']['decode_busy_ms']:.3f} ms, "
+        f"{prof['lora']['graph_kernels']} graph kernels; without: "
+        f"{prof['base']['decode_busy_ms']:.3f} ms, "
+        f"{prof['base']['graph_kernels']}")
+    release_graphs(torch, model)
+    del model
+    out["launches"], out["routes"] = launches, routes
+    return out
+
+
+# ------------------------------------------------------------ phase 5h
+#: ``tools/ci.sh:384-389``'s returning-users leg
+HOST_BLOCKS = 64
+SESSION_LG = dict(mode="poisson", rate=20.0, duration=2.0, seed=3,
+                  prompt_tokens=(4, 8), new_tokens=(2, 4),
+                  returning_frac=0.9, turns_per_session=(2, 3))
+
+
+def host_tier(model, blocks=HOST_BLOCKS, idle_ms=0.0):
+    from paddle_tpu_torch.serving import HostBlockStore, TierManager
+    cfg = model.cfg
+    return TierManager(HostBlockStore(cfg.num_layers, cfg.num_heads,
+                                      cfg.head_dim, block_size=16,
+                                      num_blocks=blocks),
+                       demote_idle_ms=idle_ms)
+
+
+def chain_blocks(torch, cache, prompt):
+    """The device prefix entries of ``prompt``'s full blocks, and their
+    contents per layer and tensor (cloned)."""
+    from paddle_tpu_torch.serving.kv_cache import prefix_chain_keys
+    ents = [cache.pool._prefix[k]
+            for k in prefix_chain_keys(prompt, cache.block_size)
+            if k in cache.pool._prefix]
+    idx = torch.as_tensor([e.block for e in ents], device=cache.pool.device)
+    return ents, [[t[idx].clone() for t in layer] for layer in cache.layers]
+
+
+def round_trip(torch, ctr, pa, model, kv):
+    """One session on a tiered engine: turn 1 (a 34-token prompt, 6 new
+    tokens: a two-block chain), demoted by hand, the device prefix cache
+    flushed, turn 2 resumed. Promoted int8 blocks must equal the demoted
+    ones bit for bit and turn 2's tokens the never-demoted
+    conversation's exactly; promoted f32/bf16 blocks must equal numpy's
+    ``dequantize(quantize(block))`` cast to the pool's dtype bit for bit,
+    and the tokens follow the top-2 rule. B4 is held to its plain
+    version on the promoted tables."""
+    from paddle_tpu_torch.serving import kv_tier
+    from paddle_tpu_torch.serving.kv_cache import prefix_chain_keys
+    tier = host_tier(model, blocks=8, idle_ms=1e12)   # demoted by hand
+    geo = dict(max_slots=2, buckets=[16, 32], kv_dtype=kv)
+    eng = loadgen_engine(model, kv_tier=tier, **geo)
+    rng = np.random.RandomState(60)
+    t1 = rng.randint(1, model.cfg.vocab_size, size=34).tolist()
+    t2 = rng.randint(1, model.cfg.vocab_size, size=5).tolist()
+    r1 = eng.submit(t1, max_new_tokens=6, session="s")
+    eng.run_until_idle()
+    ctx = r1.output_ids
+    ents, before = chain_blocks(torch, eng.cache, ctx)
+    if len(ents) != 2:
+        raise AssertionError(f"{kv}: {len(ents)} chain blocks, expected 2")
+    torch.cuda.synchronize()
+    entries, copied = tier.demote(eng.cache)
+    if (entries, copied) != (2, 2):
+        raise AssertionError(f"{kv}: demoted {entries} entries, {copied} "
+                             "blocks")
+    eng.cache.flush_prefix_cache()
+    r2 = eng.submit(t2, max_new_tokens=6, session="s")
+    with ctr.aside():
+        eng.step()
+        err = check_handoff_tables(torch, pa, eng, f"promoted {kv} rows")
+    ents2, after = chain_blocks(torch, eng.cache, ctx)
+    for li in range(len(after)):
+        for j, (a, b) in enumerate(zip(before[li], after[li])):
+            if kv == "int8":
+                want = a
+            else:
+                hb = [tier.store.get(k).block
+                      for k in prefix_chain_keys(ctx, 16)]
+                codes = tier.store.codes[hb][:, li, j % 2]
+                sc = tier.store.scales[hb][:, li, j % 2]
+                want = torch.from_numpy(kv_tier._np_dequantize(
+                    codes, sc[:, :, None, None])).to(a.dtype).to(a.device)
+            if not torch.equal(b, want):
+                raise AssertionError(f"{kv}: promoted layer {li} tensor {j} "
+                                     "differs from the demoted block")
+    eng.run_until_idle()
+    # the never-demoted conversation: the same turns, the chain kept
+    ref = loadgen_engine(model, **geo)
+    q1 = ref.submit(t1, max_new_tokens=6)
+    ref.run_until_idle()
+    q2 = ref.submit(q1.output_ids + t2, max_new_tokens=6)
+    ref.run_until_idle()
+    ties = same_tokens(torch, model, [ctx + t2], [q2.tokens], [r2.tokens],
+                       f"resumed {kv} session", ties=kv != "int8")
+    st = tier.stats()
+    if st["migrated_promote_blocks"] != 2 or st["sessions_resumed"] != 1:
+        raise AssertionError(f"{kv}: {st}")
+    for e in (eng, ref):
+        e.cache.flush_prefix_cache()
+        if e.cache.allocator.leaked() != 1:
+            raise AssertionError(f"{kv}: device blocks leaked")
+    tier.flush()
+    if tier.leaked():
+        raise AssertionError(f"{kv}: host blocks leaked")
+    release_engines([eng, ref])
+    log(f"  {kv} round trip: 2 blocks demoted and promoted "
+        f"({'bit-equal' if kv == 'int8' else 'equal to the numpy round trip'}"
+        f"), turn 2 == the never-demoted conversation "
+        f"({'exactly' if kv == 'int8' else f'{len(ties)} near ties'}), B4 on "
+        f"the promoted tables within {err:.3e}")
+    return {"kernel_max_abs_err": err, "near_ties": len(ties),
+            "demote_ms": tier.migrate_ms["demote"] / 2,
+            "promote_ms": tier.migrate_ms["promote"] / 2}
+
+
+def tier_fleet(torch, model):
+    """At 4 layers: ``tests/test_kv_tier.py:291``'s case, a 2 x 1
+    ``DisaggRouter`` over a shared tier whose prefill worker 0 is killed
+    after serving a 36-token prompt: its chains stay routable as the
+    host-tier marker, the survivor promotes instead of re-prefilling,
+    the tokens are equal (top-2 rule: the survivor prefills a shorter
+    suffix, other GEMM shapes), nothing leaks. Then
+    ``tests/test_kv_tier.py:126``'s resumed session that keeps its
+    tenant's pin, against the never-demoted conversation of that tenant.
+    Int8 pools, whose round trip through the tier is lossless, so only
+    the order of summation differs."""
+    from paddle_tpu_torch.serving import DisaggRouter, make_adapter
+    from paddle_tpu_torch.serving.disagg import _HOST_TIER
+    tier = host_tier(model)
+    rt = DisaggRouter(model, n_prefill=2, n_decode=1, prefix_affinity=True,
+                      kv_tier=tier, **loadgen_geometry(kv_dtype="int8"))
+    prompt = np.random.RandomState(61).randint(
+        1, model.cfg.vocab_size, size=36).tolist()
+    r1 = rt.submit(prompt, max_new_tokens=4)
+    rt.run_until_idle()
+    info = rt.kill_prefill_worker(0)
+    markers = sum(1 for v in rt._affinity.values() if v is _HOST_TIER)
+    r2 = rt.submit(prompt, max_new_tokens=4)
+    rt.run_until_idle()
+    promoted = tier.stats()["migrated_promote_blocks"]
+    if info["affinity_kept"] < 1 or markers != info["affinity_kept"] or \
+            promoted < 1:
+        raise AssertionError(f"killed prefill worker: {info}, markers "
+                             f"{markers}, promoted {promoted}")
+    ties = same_tokens(torch, model, [prompt], [r1.tokens], [r2.tokens],
+                       "after the prefill worker's kill")
+    for e in rt.engines:
+        e.cache.flush_prefix_cache()
+        if e.cache.allocator.leaked() != 1:
+            raise AssertionError("the fleet leaked device blocks")
+    tier.flush()
+    if tier.leaked():
+        raise AssertionError("the fleet leaked host blocks")
+    release_engines(rt.engines + rt._retiring)
+    log(f"  2 x 1 int8 fleet, prefill worker 0 killed: affinity kept "
+        f"{info['affinity_kept']}, {promoted} blocks promoted by the "
+        f"survivor, tokens equal ({len(ties)} near ties), 0 leaks")
+
+    tier = host_tier(model)
+    eng = loadgen_engine(model, kv_tier=tier, lora_rank=LORA_RANK,
+                         lora_max_adapters=2, kv_dtype="int8")
+    ad = make_adapter(model.cfg, LORA_RANK, seed=1)
+    eng.load_adapter("acme", ad)
+    rng = np.random.RandomState(62)
+    t1 = rng.randint(1, model.cfg.vocab_size, size=20).tolist()
+    t2 = rng.randint(1, model.cfg.vocab_size, size=5).tolist()
+    s1 = eng.submit(t1, max_new_tokens=5, session="s", tenant="acme")
+    eng.run_until_idle()
+    eng.cache.flush_prefix_cache()
+    s2 = eng.submit(t2, max_new_tokens=5, session="s", tenant="acme")
+    eng.run_until_idle()
+    ref = loadgen_engine(model, lora_rank=LORA_RANK, lora_max_adapters=2,
+                         kv_dtype="int8")
+    ref.load_adapter("acme", ad)
+    q1 = ref.submit(t1, max_new_tokens=5, tenant="acme")
+    ref.run_until_idle()
+    q = ref.submit(q1.output_ids + t2, max_new_tokens=5, tenant="acme")
+    ref.run_until_idle()
+    ties += same_tenant_tokens(torch, model, ref.lora_pool, [s2],
+                               {("acme", tuple(s2.prompt)): q.tokens},
+                               "resumed tenant session")
+    if eng.lora_pool.leaked() or not tier.stats()["sessions_resumed"]:
+        raise AssertionError("the resumed tenant session leaked its pin or "
+                             "did not resume")
+    release_engines([eng, ref])
+    log(f"  a resumed acme session == the never-demoted acme conversation "
+        f"({len(ties)} near ties in both checks), its pin released")
+    return {"affinity_kept": info["affinity_kept"],
+            "promoted_blocks": promoted, "tenant_session_near_ties":
+            len(ties)}
+
+
+def host_tier_serving(torch, ctr, pa, card):
+    """Phase 5h: ``tools/ci.sh:384-389``'s returning-users leg on a fresh
+    seeded gpt2-medium (1 slot, ``max_len`` 64, buckets 8/16/32, blocks
+    of 16, 4-8-token prompts, 2-4 new tokens, 90% of arrivals opening
+    sessions of 2-3 turns, 64 host blocks demoting at every step, a
+    virtual clock at 5 ms a step, Poisson at 20/s for 2 s, seed 3):
+    sessions resumed, more sessions parked than the pool has blocks,
+    demoted >= promoted >= 1 blocks, 0 leaks in both tiers, 0 captures,
+    0 exceptions. Then a direct round trip per pool dtype (f32, bf16,
+    int8), and at 4 layers the fleet checks. Reported: demote and
+    promote ms per block (host clock), the bytes each way, the pinned
+    host bytes."""
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.tools.loadgen import LoadGen, VirtualClock, warmup
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    vc = VirtualClock()
+    tier = host_tier(model)
+    if not tier.store.pinned:
+        raise AssertionError("the host store is not in page-locked memory")
+    eng = loadgen_engine(model, max_slots=1, buckets=[8, 16, 32],
+                         kv_tier=tier, clock=vc.now)
+    warmup(eng)
+    tier.migrate_ms = {"demote": 0.0, "promote": 0.0}
+    res, _ = timed_loadgen(torch, ctr, eng,
+                           LoadGen(vocab_size=cfg.vocab_size, **SESSION_LG),
+                           "returning users", clock=vc, step_cost_ms=5.0)
+    s = res["sessions"]
+    if s["sessions_resumed"] < 1 or \
+            s["sessions_peak"] <= s["device_blocks"] or \
+            not s["migrated_demote_blocks"] >= \
+            s["migrated_promote_blocks"] >= 1 or s["leaked_host_blocks"]:
+        raise AssertionError(f"returning users: {s}")
+    L, H, D, bs = cfg.num_layers, cfg.num_heads, cfg.head_dim, 16
+    dev_block = 2 * L * H * bs * D * 4
+    host_block = 2 * L * H * (bs * D + 4)
+    res["per_block"] = {
+        "demote_ms": tier.migrate_ms["demote"] /
+        max(1, s["migrated_demote_blocks"]),
+        "promote_ms": tier.migrate_ms["promote"] /
+        max(1, s["migrated_promote_blocks"]),
+        "device_bytes_f32": dev_block, "host_bytes_at_rest": host_block}
+    res["pinned_host_bytes"] = tier.store.nbytes
+    log(f"  [{card}] sessions: peak {s['sessions_peak']} on "
+        f"{s['device_blocks']} device blocks, {s['sessions_resumed']} "
+        f"resumed, {s['migrated_demote_blocks']} / "
+        f"{s['migrated_promote_blocks']} blocks demoted / promoted "
+        f"({s['demote_dedup_entries']} dedup), 0 leaks in both tiers; per "
+        f"block demote {res['per_block']['demote_ms']:.3f} ms "
+        f"({dev_block} B off the device, {host_block} B at rest), promote "
+        f"{res['per_block']['promote_ms']:.3f} ms ({host_block} B up); "
+        f"{tier.store.nbytes} B pinned")
+    release_engines([eng])
+    del eng
+    out = {"returning_users": res}
+    out["round_trip"] = {kv: round_trip(torch, ctr, pa, model, kv)
+                         for kv in ("f32", "bf16", "int8")}
+    release_graphs(torch, model)
+    del model
+    small = medium_at_depth(torch, DISAGG_LAYERS, seed=2)
+    out["fleet"] = tier_fleet(torch, small)
+    release_graphs(torch, small)
+    del small
+    out["launches"], out["routes"] = res["launches"], res["routes"]
     return out
 
 
@@ -4279,10 +4783,11 @@ def decode_graph_kernels(eng, sampled):
         ent = generation.decode_step(eng.model)
     elif eng.megastep > 1:
         ent = generation.decode_megastep_paged(
-            eng.model, eng.megastep, eng.kv_dtype, eng.attn_impl)
+            eng.model, eng.megastep, eng.kv_dtype, eng.attn_impl,
+            eng._lora_shape)
     else:
         ent = generation.decode_step_paged(eng.model, eng.kv_dtype,
-                                           eng.attn_impl)
+                                           eng.attn_impl, eng._lora_shape)
     last = ent["graphs"]["sampled" if sampled else "greedy"].last
     return None if last is None else jit.graph_kernels(last.graph)
 
@@ -5121,6 +5626,22 @@ def main():
     web = http_serving(torch, ctr, card)
     log(f"  phase 5f took {time.perf_counter() - t_http:.1f} s")
 
+    log("== phase 5g: tenants, gpt2-medium: a rank-8 adapter pool under "
+        "tools/ci.sh's multi-tenant trace at megastep 1 and 8, tokens "
+        "against single-tenant engines, live adapter changes, the decode "
+        "step with and without LoRA")
+    t_ten = time.perf_counter()
+    ten = tenant_serving(torch, ctr, card)
+    log(f"  phase 5g took {time.perf_counter() - t_ten:.1f} s")
+
+    log("== phase 5h: returning users on the host KV tier, gpt2-medium: "
+        "tools/ci.sh's returning-users trace, a round trip per pool dtype, "
+        f"a killed prefill worker and a tenant session at {DISAGG_LAYERS} "
+        "layers")
+    t_tier = time.perf_counter()
+    tie = host_tier_serving(torch, ctr, pa, card)
+    log(f"  phase 5h took {time.perf_counter() - t_tier:.1f} s")
+
     log("== phase 6: flash kernels vs plain")
     n_flash, flash_err = check_flash(torch, fa, ctr)
     log(f"  {n_flash} cases passed, max abs err by kernel {flash_err}")
@@ -5225,13 +5746,15 @@ def main():
     mega = flt["megastep"]["arms"]["megastep"]
     handoff_errs = lgs["disagg_router"]["kernel_on_handoff_tables"] + [
         r["kernel_max_abs_err"] for r in lgs["cross_pool_kill"].values()]
+    promoted_errs = [r["kernel_max_abs_err"]
+                     for r in tie["round_trip"].values()]
     kernels = [entry("paged_attention", "paged_attention.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:55",
                      srv["launches"], max(worst, flt["kernel_max_abs_err"],
-                                          *handoff_errs),
+                                          *handoff_errs, *promoted_errs),
                      {**main_t, "library_ms": None},
                      cases_passed=n_cases + flt["kernel_cases"] +
-                     len(handoff_errs),
+                     len(handoff_errs) + len(promoted_errs),
                      by_kv_dtype={kv: times[kv]
                                   for kv in ("f32", "bf16", "int8")},
                      by_shape={"decode": times["f32"],
@@ -5266,7 +5789,12 @@ def main():
                      launches_disagg_chaos=lgs["launches"]["disagg_chaos"],
                      launches_http=web["launches"],
                      launches_by_route_http=web["routes"],
-                     handoff_tables_max_abs_err=max(handoff_errs))]
+                     handoff_tables_max_abs_err=max(handoff_errs),
+                     launches_tenants=ten["launches"],
+                     launches_by_route_tenants=ten["routes"],
+                     launches_host_tier=tie["launches"],
+                     launches_by_route_host_tier=tie["routes"],
+                     promoted_tables_max_abs_err=max(promoted_errs))]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]
@@ -5324,7 +5852,9 @@ def main():
                       "dense_serving": summary(dns),
                       "fleet_serving": summary(flt),
                       "loadgen_serving": summary(lgs),
-                      "http_serving": summary(web), "fp16_gpt": f16,
+                      "http_serving": summary(web),
+                      "tenant_serving": summary(ten),
+                      "host_tier_serving": summary(tie), "fp16_gpt": f16,
                       "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes, "optimizer_plane": plane,

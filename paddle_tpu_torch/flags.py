@@ -125,8 +125,12 @@ define_flag("serving_max_new_tokens", 32,
             "submit() does not specify one.")
 define_flag("serving_paged", True,
             "ServingEngine KV memory manager: True = block-paged "
-            "BlockKVCache. The dense slotted cache (False) is not "
-            "ported yet; the engine raises NotImplementedError for it.")
+            "BlockKVCache (per-request block tables over a fixed pool "
+            "of serving_block_size-row KV blocks, ref-counted with "
+            "shared-prefix reuse — each request pays only the blocks "
+            "it needs); False = the dense SlotKVCache (every request "
+            "pays a full max_len row). Output is token-identical "
+            "either way.")
 define_flag("serving_block_size", 16,
             "Paged serving: KV rows per block.")
 define_flag("serving_num_blocks", 0,
@@ -344,6 +348,50 @@ define_flag("serving_handoff_queue", 16,
             "A full queue backpressures prefill workers (they stop "
             "admitting) instead of buffering unbounded finished "
             "prefills whose KV blocks are pinned until adoption.")
+define_flag("serving_lora_rank", 0,
+            "Multi-tenant paged LoRA: rank of the per-tenant low-rank "
+            "adapters (serving/lora.py LoRAPool). > 0 builds the "
+            "engine with an adapter pool whose stacked factors are "
+            "plain inputs to the compiled steps — per-row adapter "
+            "pages are gathered inside the step (the BlockKVCache "
+            "block-table trick applied to weights), so base and "
+            "per-tenant rows mix in one batch of one executable and "
+            "loading/evicting adapters never recompiles. 0 disables "
+            "(no pool, no lora step input). Requires the paged KV "
+            "cache. Constructor state read once, like the SLO knobs.")
+define_flag("serving_lora_max_adapters", 4,
+            "Multi-tenant paged LoRA: adapter pages in the pool "
+            "(tenants resident at once; +1 all-zero base page is "
+            "added internally). A load into a full pool raises until "
+            "an adapter is evicted; eviction refuses while in-flight "
+            "requests still pin the page (the KV-block refcount "
+            "discipline applied to weights).")
+define_flag("serving_host_tier", False,
+            "Host-RAM KV block tier (serving/kv_tier.py): attach a "
+            "TierManager over a pinned numpy HostBlockStore so cold "
+            "prefix chains and finished-session rows demote out of "
+            "the device pool (int8-at-rest) and promote back on "
+            "demand, and submit(session=...) resumes a demoted "
+            "conversation token-identically. Routers build ONE "
+            "fleet-shared store across replicas and roles. Migration "
+            "is host-side block-table surgery over eager pool writes "
+            "— predict_serving_compiles(host_tier=True) is a "
+            "validated no-op.")
+define_flag("serving_host_blocks", 256,
+            "Host-RAM KV tier capacity in blocks (per fleet-shared "
+            "HostBlockStore). Blocks are stored as int8 codes + "
+            "per-block-per-head f32 absmax scales regardless of the "
+            "device pool's kv_dtype, so a host gigabyte holds ~4x "
+            "the f32 sessions; the store evicts idle chains LRU "
+            "(leaf-first) under pressure.")
+define_flag("serving_demote_idle_ms", 0.0,
+            "Host-tier demotion sweep cadence (engine clock ms): a "
+            "device prefix entry must sit cold (cache-only, no live "
+            "request references) across a full window of this length "
+            "before the between-steps sweep demotes it to the host "
+            "store — 0 demotes cold entries at every step (the "
+            "maximum-capacity setting loadgen's returning-users gate "
+            "runs with). Only read when a kv_tier is attached.")
 define_flag("serving_breaker_threshold", 0.5,
             "ReplicaRouter per-replica circuit breaker: failure "
             "fraction over the outcome window (with at least half "

@@ -41,7 +41,15 @@ one captured. Offline generation on one model is therefore not
 re-entrant: a call overwrites the cache of the call before it. The
 model keeps one such cache per batch, of the last capacity asked for.
 
-Not ported yet: LoRA and the mesh steps.
+The paged steps take multi-tenant LoRA (``lora_shape = (rank, pages)``
+of a :class:`~paddle_tpu_torch.serving.lora.LoRAPool`): the key gains
+``("lora", (rank, pages))``, ``fn`` takes ``lora = (page_ids [b] i32,
+the pool's 8 tensors)``, the page ids a small input copied in before each
+replay and the pool's tensors held by address like the KV pools, so a
+load or an evict, written in place, captures nothing. Both graphs of an
+entry get the variant.
+
+Not ported yet: the mesh steps.
 """
 
 from __future__ import annotations
@@ -158,31 +166,49 @@ def _two_graphs(model, traces, what, body):
             for mode in ("greedy", "sampled")}
 
 
-def _run(graphs, small, pools, samp):
+def _run(graphs, small, pools, samp, lora=None):
     """Replay the greedy graph (``samp`` None) or the sampled one, whose
     small inputs gain ``temp, top_k, top_p, keys`` (keys as int64: a
     uint32 array, the reference's type, is widened on the host) and
-    whose held tensors gain the mask."""
+    whose held tensors gain the mask. With ``lora = (pages, pool
+    tensors)`` the page ids follow the fixed small inputs and the pool's
+    tensors close the held list."""
+    tail = []
+    if lora is not None:
+        small = small + [lora[0]]
+        tail = [tuple(lora[1])]
     if samp is None:
-        return graphs["greedy"](small, pools)
+        return graphs["greedy"](small, [*pools, *tail])
     temp, top_k, top_p, keys, mask = samp
     if isinstance(keys, np.ndarray):
         keys = keys.astype(np.int64)
     mask = torch.as_tensor(mask).to(pools[0][0].device)
     return graphs["sampled"](small + [temp, top_k, top_p, keys],
-                             [*pools, (mask,)])
+                             [*pools, (mask,), *tail])
 
 
-def _split_held(n_small, args):
-    """``args`` of a body: its fixed small inputs, then the sampling
-    vectors (if any), then the held list; returns ``(small, samp or
-    None, pools)``."""
+def _split_held(n_small, args, lora=False):
+    """``args`` of a body: its fixed small inputs, the LoRA page ids (a
+    ``lora`` entry's), the sampling vectors (if any), then the held list;
+    returns ``(small, samp or None, pools, lora or None)``, ``lora`` being
+    ``(page_ids, pool tensors)``."""
     *small, held = args
+    lo = None
+    if lora:
+        lo = (small[n_small], held[-1])
+        small, held = small[:n_small] + small[n_small + 1:], held[:-1]
     if len(small) == n_small:
-        return small, None, held
+        return small, None, held, lo
     temp, top_k, top_p, keys = small[n_small:]
     return small[:n_small], (temp, top_k, top_p, keys, held[-1][0]), \
-        held[:-1]
+        held[:-1], lo
+
+
+def _lora_key(key, lora_shape):
+    """The reference's key extension of a LoRA entry."""
+    if lora_shape is None:
+        return key
+    return key + ("lora", tuple(int(x) for x in lora_shape))
 
 
 def fixed_cache(model, batch: int, capacity: int):
@@ -228,7 +254,7 @@ def decode_step(model):
     def build(traces):
         @torch.no_grad()
         def body(*args):
-            (tokens, pos), samp, caches = _split_held(2, args)
+            (tokens, pos), samp, caches, _ = _split_held(2, args)
             logits, _ = model(tokens[:, None].long(), cache=caches,
                               cache_pos=pos)
             lg = logits[:, -1]
@@ -265,7 +291,7 @@ def verify_step(model, spec_tokens: int):
     def build(traces):
         @torch.no_grad()
         def body(*args):
-            (tokens, pos), samp, caches = _split_held(2, args)
+            (tokens, pos), samp, caches, _ = _split_held(2, args)
             logits, _ = model(tokens.long(), cache=caches, cache_pos=pos)
             if samp is None:
                 chosen = greedy_tokens(logits)
@@ -322,13 +348,13 @@ def prefill_step(model, bucket: int, max_slots: int, max_len: int):
 
 
 def _decode_body(model, attn_impl):
-    """One decode iteration: ``(tokens [b], pos [b], tables, pools, samp)
-    -> (next_tokens [b] i32, last_logits [b, V], pools, max_qerr,
+    """One decode iteration: ``(tokens [b], pos [b], tables, pools, samp,
+    lora) -> (next_tokens [b] i32, last_logits [b, V], pools, max_qerr,
     new_keys)``; with ``samp`` None the argmax and no keys."""
-    def step(tokens, pos, tables, pools, samp):
+    def step(tokens, pos, tables, pools, samp, lora=None):
         logits, newp = model(tokens[:, None].long(), cache=pools,
                              cache_pos=pos, block_tables=tables,
-                             attn_impl=attn_impl)
+                             attn_impl=attn_impl, lora=lora)
         lg = logits[:, -1]
         pools, qerr = _unwrap_pools(newp)
         if samp is None:
@@ -338,7 +364,8 @@ def _decode_body(model, attn_impl):
     return step
 
 
-def decode_step_paged(model, kv_dtype: str = "f32", attn_impl=None):
+def decode_step_paged(model, kv_dtype: str = "f32", attn_impl=None,
+                      lora_shape=None):
     """The paged decode step's entry, ``paddle_tpu/models/generation.py
     :310``'s counterpart. Its ``fn(tokens, pos, tables, pools, samp=None)``
     takes ``tokens [b] i32``, ``pos [b] i32`` (each row's committed
@@ -349,32 +376,37 @@ def decode_step_paged(model, kv_dtype: str = "f32", attn_impl=None):
     in place, and ``new_keys`` None without ``samp``. Block remapping
     (admission, prefix sharing, copy-on-write) and the sampling
     parameters are data: one graph of each kind serves every step of one
-    engine. ``attn_impl`` None reads ``FLAGS_serving_attn_impl``."""
+    engine. ``attn_impl`` None reads ``FLAGS_serving_attn_impl``; with
+    ``lora_shape`` ``fn`` also takes ``lora`` (the module's LoRA
+    contract)."""
     attn_impl = attn_impl or _flags.get_flag("serving_attn_impl")
     step = _decode_body(model, attn_impl)
+    has_lora = lora_shape is not None
 
     def build(traces):
         @torch.no_grad()
         def body(*args):
-            (tokens, pos, tables), samp, pools = _split_held(3, args)
+            (tokens, pos, tables), samp, pools, lora = _split_held(
+                3, args, has_lora)
             nxt, lg, pools, qerr, keys = step(tokens, pos, tables, pools,
-                                              samp)
+                                              samp, lora)
             out = (nxt, lg, qerr) if samp is None else (nxt, lg, qerr, keys)
             return out, args[-1]
         graphs = _two_graphs(model, traces, "decode_step_paged", body)
 
-        def fn(tokens, pos, tables, pools, samp=None):
-            out = _run(graphs, [tokens, pos, tables], pools, samp)
+        def fn(tokens, pos, tables, pools, samp=None, lora=None):
+            out = _run(graphs, [tokens, pos, tables], pools, samp, lora)
             keys = out[3] if samp is not None else None
             return out[0], out[1], pools, out[2], keys
 
         return {"fn": fn, "traces": traces, "graphs": graphs}
 
-    return step_entry(model, ("decode_paged", kv_dtype, attn_impl), build)
+    return step_entry(model, _lora_key(("decode_paged", kv_dtype, attn_impl),
+                                       lora_shape), build)
 
 
 def prefill_step_paged(model, bucket: int, geometry, kv_dtype: str = "f32",
-                       attn_impl=None):
+                       attn_impl=None, lora_shape=None):
     """One bucket's paged prefill entry, the body of the reference
     engine's ``_prefill_entry_paged`` (``serving/engine.py:1364``), keyed
     as it is (``("prefill_paged", bucket, *geometry, kv_dtype,
@@ -384,33 +416,42 @@ def prefill_step_paged(model, bucket: int, geometry, kv_dtype: str = "f32",
     ``last`` is each row's true last token index, ``pos`` its write
     offset (its shared prefix length). The full ``[b, bucket, V]``
     logits are computed, as the reference's ``take_along_axis`` over
-    them does."""
+    them does. With ``lora_shape`` ``fn`` also takes ``lora``, whose page
+    ids are the prefill rows' (the module's LoRA contract)."""
     attn_impl = attn_impl or _flags.get_flag("serving_attn_impl")
+    has_lora = lora_shape is not None
 
     def build(traces):
         @torch.no_grad()
-        def body(ids, last, pos, tables, pools):
+        def body(*args):
+            (ids, last, pos, tables), _, pools, lora = _split_held(
+                4, args, has_lora)
             logits, newp = model(ids.long(), cache=pools, cache_pos=pos,
-                                 block_tables=tables, attn_impl=attn_impl)
+                                 block_tables=tables, attn_impl=attn_impl,
+                                 lora=lora)
             lg = logits[torch.arange(logits.shape[0],
                                      device=logits.device), last.long()]
-            pools, qerr = _unwrap_pools(newp)
-            return (lg, qerr), pools
+            _, qerr = _unwrap_pools(newp)
+            return (lg, qerr), args[-1]
         held = _held(model, body, traces, f"prefill_paged[{bucket}]")
 
-        def fn(ids, last, pos, tables, pools):
-            lg, qerr = held([ids, last, pos, tables], pools)
+        def fn(ids, last, pos, tables, pools, lora=None):
+            small, back = [ids, last, pos, tables], list(pools)
+            if lora is not None:
+                small.append(lora[0])
+                back.append(tuple(lora[1]))
+            lg, qerr = held(small, back)
             return lg, pools, qerr
 
         return {"fn": fn, "traces": traces,
                 "graphs": {"prefill": held}}
 
     key = ("prefill_paged", int(bucket), *geometry, kv_dtype, attn_impl)
-    return step_entry(model, key, build)
+    return step_entry(model, _lora_key(key, lora_shape), build)
 
 
 def decode_megastep_paged(model, n: int, kv_dtype: str = "f32",
-                          attn_impl=None):
+                          attn_impl=None, lora_shape=None):
     """``n`` paged decode iterations in one dispatch, the counterpart of
     ``paddle_tpu/models/generation.py:393``: on the card one graph of the
     ``n`` iterations unrolled, on the CPU a loop over the same body.
@@ -433,7 +474,9 @@ def decode_megastep_paged(model, n: int, kv_dtype: str = "f32",
     own reserved blocks (or the trash block), which no position mask
     shows. Keys advance for every row every iteration (the engine keeps
     only live sampled rows'). ``finish[s]`` is the first iteration whose
-    token finished slot ``s``, or -1 (still live after ``n``)."""
+    token finished slot ``s``, or -1 (still live after ``n``). With
+    ``lora_shape`` ``fn`` also takes ``lora`` (the module's LoRA
+    contract); a row's page is the same in every iteration."""
     n = int(n)
     if n < 2:
         raise ValueError(
@@ -441,19 +484,21 @@ def decode_megastep_paged(model, n: int, kv_dtype: str = "f32",
             "decode_step_paged for single steps")
     attn_impl = attn_impl or _flags.get_flag("serving_attn_impl")
     step = _decode_body(model, attn_impl)
+    has_lora = lora_shape is not None
 
     def build(traces):
         @torch.no_grad()
         def body(*args):
             (tokens, pos, tables, live, budget, eos, pat, plen, fail,
-             state), samp, pools = _split_held(10, args)
+             state), samp, pools, lora = _split_held(10, args, has_lora)
             tok, p, lv, rem, st = tokens, pos, live.bool(), budget, state
             keys = None if samp is None else samp[3]
             qerr = torch.zeros((), dtype=torch.float32, device=tok.device)
             toks, fins = [], []
             for _ in range(n):
                 it = None if samp is None else (*samp[:3], keys, samp[4])
-                nxt, _lg, pools, q, keys = step(tok, p, tables, pools, it)
+                nxt, _lg, pools, q, keys = step(tok, p, tables, pools, it,
+                                                lora)
                 nxt = torch.where(lv, nxt, tok)
                 ns = stops_advance(nxt, pat, plen, fail, st)
                 ns = torch.where(lv[:, None], ns, st)
@@ -475,9 +520,10 @@ def decode_megastep_paged(model, n: int, kv_dtype: str = "f32",
         graphs = _two_graphs(model, traces, f"decode_megastep_paged[{n}]",
                              body)
 
-        def fn(tokens, pos, tables, pools, samp, live, budget, eos, stop):
+        def fn(tokens, pos, tables, pools, samp, live, budget, eos, stop,
+               lora=None):
             out = _run(graphs, [tokens, pos, tables, live, budget, eos,
-                                *stop], pools, samp)
+                                *stop], pools, samp, lora)
             (toks, finish, tok_f, pos_f, live_f, rem_f, st_f,
              qerr) = out[:8]
             keys_f = out[8] if samp is not None else None
@@ -486,11 +532,12 @@ def decode_megastep_paged(model, n: int, kv_dtype: str = "f32",
 
         return {"fn": fn, "traces": traces, "graphs": graphs}
 
-    return step_entry(model, ("decode_mega", n, kv_dtype, attn_impl), build)
+    return step_entry(model, _lora_key(("decode_mega", n, kv_dtype,
+                                        attn_impl), lora_shape), build)
 
 
 def verify_step_paged(model, spec_tokens: int, kv_dtype: str = "f32",
-                      attn_impl=None):
+                      attn_impl=None, lora_shape=None):
     """The speculative verify step, ``paddle_tpu/models/generation.py
     :539``'s counterpart: one forward of ``tokens [b, K+1]`` (each row's
     last committed token and its K drafts) at each row's committed length
@@ -502,19 +549,24 @@ def verify_step_paged(model, spec_tokens: int, kv_dtype: str = "f32",
     ``(chosen [b, K+1] i32, logits [b, K+1, V], pools, max_qerr, accept
     [b, K] bool, new_keys)``. The K+1 rows written past a row's accepted
     prefix are stale pool contents behind the position mask; the engine
-    rolls the row's length back over them (blocks stay reserved)."""
+    rolls the row's length back over them (blocks stay reserved). With
+    ``lora_shape`` ``fn`` also takes ``lora`` (the module's LoRA
+    contract)."""
     k = int(spec_tokens)
     if k < 1:
         raise ValueError(
             f"verify_step_paged needs spec_tokens >= 1, got {k}")
     attn_impl = attn_impl or _flags.get_flag("serving_attn_impl")
+    has_lora = lora_shape is not None
 
     def build(traces):
         @torch.no_grad()
         def body(*args):
-            (tokens, pos, tables), samp, pools = _split_held(3, args)
+            (tokens, pos, tables), samp, pools, lora = _split_held(
+                3, args, has_lora)
             logits, newp = model(tokens.long(), cache=pools, cache_pos=pos,
-                                 block_tables=tables, attn_impl=attn_impl)
+                                 block_tables=tables, attn_impl=attn_impl,
+                                 lora=lora)
             pools, qerr = _unwrap_pools(newp)
             if samp is None:
                 chosen = greedy_tokens(logits)
@@ -526,14 +578,15 @@ def verify_step_paged(model, spec_tokens: int, kv_dtype: str = "f32",
             return out, args[-1]
         graphs = _two_graphs(model, traces, f"verify_step_paged[{k}]", body)
 
-        def fn(tokens, pos, tables, pools, samp=None):
-            out = _run(graphs, [tokens, pos, tables], pools, samp)
+        def fn(tokens, pos, tables, pools, samp=None, lora=None):
+            out = _run(graphs, [tokens, pos, tables], pools, samp, lora)
             keys = out[4] if samp is not None else None
             return out[0], out[1], pools, out[2], out[3], keys
 
         return {"fn": fn, "traces": traces, "graphs": graphs}
 
-    return step_entry(model, ("verify_paged", k, kv_dtype, attn_impl), build)
+    return step_entry(model, _lora_key(("verify_paged", k, kv_dtype,
+                                        attn_impl), lora_shape), build)
 
 
 def draft_ngram(context, k: int, max_ngram: int = 3):

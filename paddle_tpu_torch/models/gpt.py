@@ -16,7 +16,10 @@ mask always composes); and the concat branch (``cache`` alone: the
 cache grows by the new rows, then causal attention). The ops cast
 under AMP as the reference's do, so under ``auto_cast(level="O2")`` the
 residual stream runs in bf16 and LayerNorm and the loss in f32.
-``GPTConfig.recompute`` (the reference's ``fleet.utils.recompute`` over
+The cache branches take multi-tenant LoRA (``lora=``: each batch row's
+adapter page gathered from a stacked pool and its low-rank delta added to
+the qkv, output, fc1 and fc2 projections, ``paddle_tpu/models/gpt.py
+:98-109``). ``GPTConfig.recompute`` (the reference's ``fleet.utils.recompute`` over
 every decoder block, ``paddle_tpu/models/gpt.py:379-381``) runs each
 block of the no-cache forward through ``torch.utils.checkpoint``, which
 keeps only the block's input and recomputes the rest in the backward
@@ -96,6 +99,18 @@ GPT_CONFIGS = {
 }
 
 
+def _lora_delta(x, ids, A, B):
+    """Per-row paged-LoRA delta, ``paddle_tpu/models/gpt.py:98``'s
+    counterpart: gather each batch row's adapter page from the stacked
+    pool factors (``A [pages, din, r]`` / ``B [pages, r, dout]``) and
+    apply ``x @ A_page @ B_page``, two thin products. ``ids`` is the
+    per-row int64 page vector; page 0 is the all-zero base page, so base
+    rows add an exact zero. The reference computes this in jnp outside
+    any Pallas kernel, so it is plain PyTorch here too."""
+    return torch.bmm(torch.bmm(x, A.index_select(0, ids)),
+                     B.index_select(0, ids))
+
+
 def _out_std(cfg: GPTConfig) -> float:
     # residual-branch output projections shrink with depth (GPT-2)
     return cfg.init_std / math.sqrt(2.0 * cfg.num_layers)
@@ -116,10 +131,16 @@ class GPTAttention(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, cache=None, cache_pos=None, block_tables=None,
-                attn_impl=None):
+                attn_impl=None, lora=None):
+        """``lora`` is ``(page_ids [b] int64, Aq, Bq, Ao, Bo)``, this
+        layer's slice of the paged adapter pool: the qkv and output
+        projections gain their rows' deltas."""
         cfg = self.cfg
         b, s, _ = x.shape
-        qkv = self.qkv_proj(x).reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
+        qkv = self.qkv_proj(x)
+        if lora is not None:
+            qkv = qkv + _lora_delta(x, lora[0], lora[1], lora[2])
+        qkv = qkv.reshape(b, s, 3, cfg.num_heads, cfg.head_dim)
         qkv = qkv.permute(2, 0, 3, 1, 4)                 # [3, b, h, s, d]
         q, k, v = qkv[0], qkv[1], qkv[2]
         scale = 1.0 / math.sqrt(cfg.head_dim)
@@ -135,7 +156,10 @@ class GPTAttention(nn.Module):
                 cache = (k, v)
             out = fused_attention_qkv(q, k, v, causal=True, scale=scale)
         out = out.transpose(1, 2).reshape(b, s, cfg.hidden_size)
-        out = self.dropout(self.out_proj(out))
+        y = self.out_proj(out)
+        if lora is not None:
+            y = y + _lora_delta(out, lora[0], lora[3], lora[4])
+        out = self.dropout(y)
         return out if cache is None else (out, cache)
 
     def _slotted(self, q, k, v, cache, cache_pos, scale):
@@ -219,16 +243,30 @@ class GPTBlock(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, cache=None, cache_pos=None, block_tables=None,
-                attn_impl=None):
+                attn_impl=None, lora=None):
+        # lora = (page_ids [b], this layer's 8 pool factors (Aq, Bq, Ao,
+        # Bo, A1, B1, A2, B2)): attention takes the first four, the MLP
+        # pair the rest
+        attn_lora = None
+        if lora is not None:
+            ids, arrs = lora
+            attn_lora = (ids,) + tuple(arrs[:4])
         if cache is None:
             x = F.add(x, self.attn(self.ln1(x)))
         else:
             a, cache = self.attn(self.ln1(x), cache, cache_pos=cache_pos,
                                  block_tables=block_tables,
-                                 attn_impl=attn_impl)
+                                 attn_impl=attn_impl, lora=attn_lora)
             x = F.add(x, a)
-        g = F.gelu(self.fc1(self.ln2(x)), approximate=True)
-        x = F.add(x, self.dropout(self.fc2(g)))
+        h = self.ln2(x)
+        f = self.fc1(h)
+        if lora is not None:
+            f = f + _lora_delta(h, ids, arrs[4], arrs[5])
+        g = F.gelu(f, approximate=True)
+        o = self.fc2(g)
+        if lora is not None:
+            o = o + _lora_delta(g, ids, arrs[6], arrs[7])
+        x = F.add(x, self.dropout(o))
         return x if cache is None else (x, cache)
 
 
@@ -251,9 +289,16 @@ class GPTModel(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size, device=device)
 
     def forward(self, input_ids, cache=None, position_offset=0,
-                cache_pos=None, block_tables=None, attn_impl=None):
+                cache_pos=None, block_tables=None, attn_impl=None,
+                lora=None):
+        """``lora`` (cache branches only) is ``(page_ids [b], the 8
+        stacked [layers, pages, ...] pool factors)``, each block taking
+        its own layer."""
         s = input_ids.shape[1]
         dev = input_ids.device
+        if lora is not None:
+            lora = (torch.as_tensor(lora[0], device=dev).long(),
+                    tuple(lora[1]))
         maxpos = self.cfg.max_position_embeddings
         if cache_pos is not None:
             if isinstance(cache_pos, int) and cache_pos + s > maxpos:
@@ -284,7 +329,9 @@ class GPTModel(nn.Module):
                     else blk(x)
             else:
                 x, c = blk(x, cache[i], cache_pos=cache_pos,
-                           block_tables=block_tables, attn_impl=attn_impl)
+                           block_tables=block_tables, attn_impl=attn_impl,
+                           lora=None if lora is None else
+                           (lora[0], tuple(a[i] for a in lora[1])))
                 new_caches.append(c)
         x = self.ln_f(x)
         return x if cache is None else (x, new_caches)
@@ -372,7 +419,8 @@ class GPTForCausalLM(nn.Module):
         return self.gpt.wte.weight.device
 
     def forward(self, input_ids, labels=None, cache=None, position_offset=0,
-                cache_pos=None, block_tables=None, attn_impl=None):
+                cache_pos=None, block_tables=None, attn_impl=None,
+                lora=None):
         """Logits ``[b, s, vocab]`` (with the updated cache when one is
         given), or with ``labels`` (``[b, s]`` ids aligned with the
         logits, not shifted; -100 ignored) the mean cross-entropy loss,
@@ -383,7 +431,7 @@ class GPTForCausalLM(nn.Module):
             h, cache = self.gpt(input_ids, cache, position_offset,
                                 cache_pos=cache_pos,
                                 block_tables=block_tables,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, lora=lora)
         h, w = maybe_autocast_inputs("matmul_v2", h, self.gpt.wte.weight)
         logits = h @ w.T                                 # tied LM head
         if self.cfg.padded_vocab_size != self.cfg.vocab_size:

@@ -58,11 +58,15 @@ cross-pool adoption derefs the source pool, then the decode halves
 grouped by pool, one thread per pool), each in the caller's capture
 mode. ``start()`` runs one scheduler thread for the whole fleet.
 
-Not ported yet (ROADMAP.md queue A2): LoRA tenants (item 3: the
-``lora_rank`` / ``lora_pool`` keywords, ``load_adapter``,
-``evict_adapter``) and the host KV tier (item 4: ``kv_tier``, whose
-marker keeps a dead worker's chains in the affinity index) raise
-NotImplementedError.
+Fleet-shared planes, as the replica router's: one
+:class:`~paddle_tpu_torch.serving.lora.LoRAPool` and one host KV tier
+across both roles. A tenant's page pin is engine-local: the prefill
+worker releases it on export and the decode worker re-acquires it by
+tenant name on adoption (a kill moves it the same way). Both roles run
+the demotion sweep after their steps. A killed prefill worker's affinity
+entries whose chains the host tier holds become a host-tier marker,
+which routes to the least-loaded live worker (any worker can promote the
+chain) instead of being dropped.
 """
 
 from __future__ import annotations
@@ -83,13 +87,21 @@ from ..resilience.injector import fault_point
 from ..resilience.retry import RetryError, RetryPolicy
 from .engine import QueueFullError, Request, ServingEngine, _Shed
 from .kv_cache import prefix_chain_keys
-from .router import _in_mode
+from .router import _in_mode, _one_per_pool, _shared_planes
 
-#: the reference's fleet-shared engine keywords that wait, by the
-#: ROADMAP.md queue A2 item that brings them
-_UNPORTED_KWARGS = {"lora_rank": "A2.3 (LoRA tenants)",
-                    "lora_pool": "A2.3 (LoRA tenants)",
-                    "kv_tier": "A2.4 (the host KV tier)"}
+
+class _HostTierAffinity:
+    """Marker value in the fleet prefix index: the worker that last
+    prefilled this chain is dead, but the chain is resident in the
+    fleet-shared host KV tier, which any live prefill worker can promote
+    from. Routing resolves it to the least-loaded live worker; the next
+    publish replaces it."""
+
+    def __repr__(self):
+        return "<host-tier>"
+
+
+_HOST_TIER = _HostTierAffinity()
 
 
 def parse_disagg(text: str) -> Optional[Tuple[int, int]]:
@@ -235,6 +247,9 @@ class PrefillEngine(ServingEngine):
             req = self._active.pop(row)
             rec = self.cache.export_row(row)
             req.slot = None          # in flight between the roles
+            # the adapter pin is engine-local (page ids never travel):
+            # the decode side re-acquires it by tenant name
+            self._release_pin(req)
             self._pending.append(_Handoff(req, rec, self))
             _tracing.mark(req.id, "export", self._clock(),
                           self.trace_track)
@@ -254,6 +269,8 @@ class PrefillEngine(ServingEngine):
                 worked = bool(self._admit()) or worked
                 worked = self._stage_running() > 0 or worked
                 worked = self._flush_pending() > 0 or worked
+            if self.kv_tier is not None:
+                self._demote_sweep()
             self._blocks_used_g.set(self.cache.blocks_used)
             self._blocks_free_g.set(self.cache.blocks_free)
             return worked
@@ -375,6 +392,8 @@ class DecodeEngine(ServingEngine):
                 if row is None:      # no room: keep the refs, retry later
                     self._handoff.put_back(item)
                     break
+                if not self._pin(item.req, row):
+                    continue
                 item.req.slot = row
                 self._active[row] = item.req
                 self.adopted += 1
@@ -389,6 +408,19 @@ class DecodeEngine(ServingEngine):
                         copied=not (item.rec["pool"]
                                     is self.cache.pool))
         return adopted
+
+    def _pin(self, req: Request, row: int) -> bool:
+        """Re-pin an adopted request's tenant page in this engine's pool;
+        an adapter evicted mid-handoff sheds it, its row released."""
+        if req.tenant and self.lora_pool is not None:
+            try:
+                self.lora_pool.acquire(req.tenant)
+                req._lora_held = True
+            except ValueError as e:
+                self.cache.release_row(row)
+                self._shed(req, _Shed(str(e)))
+                return False
+        return True
 
     def adopt_step(self) -> bool:
         """The admission half of :meth:`step`: cancel rows whose hard
@@ -411,6 +443,8 @@ class DecodeEngine(ServingEngine):
         with self._step_lock:
             produced = (self._spec_decode() if self.spec_tokens
                         else self._decode_any())
+            if self.kv_tier is not None:
+                self._demote_sweep()
             self._blocks_used_g.set(self.cache.blocks_used)
             self._blocks_free_g.set(self.cache.blocks_free)
             return bool(produced)
@@ -466,13 +500,6 @@ class DisaggRouter:
             raise ValueError(
                 f"need at least 1 worker per role, got "
                 f"{n_prefill} prefill x {n_decode} decode")
-        unported = sorted(k for k in _UNPORTED_KWARGS
-                          if engine_kwargs.get(k) not in (None, 0))
-        if unported:
-            waits = sorted({_UNPORTED_KWARGS[k] for k in unported})
-            raise NotImplementedError(
-                f"engine keywords {unported} are not ported yet "
-                f"(ROADMAP {', '.join(waits)})")
         self.prefix_affinity = bool(
             prefix_affinity if prefix_affinity is not None
             else g["serving_prefix_affinity"])
@@ -480,6 +507,9 @@ class DisaggRouter:
                     else g["serving_handoff_queue"])
         self._handoff = HandoffQueue(bound)
         self._model = model
+        engine_kwargs = dict(engine_kwargs)
+        _shared_planes(model, engine_kwargs)
+        self.kv_tier = engine_kwargs.get("kv_tier")
         self.prefills: List[PrefillEngine] = [
             PrefillEngine(model, self._handoff, **engine_kwargs)
             for _ in range(n_prefill)]
@@ -578,11 +608,27 @@ class DisaggRouter:
             # submitting threads and the kill path share the index
             with self._lock:
                 eng = self._affinity.get(key)
-                if eng is None or eng.draining or \
+                if eng is _HOST_TIER:
+                    if self.kv_tier is None or \
+                            not self.kv_tier.has_chain(key):
+                        continue
+                    self._affinity.move_to_end(key)
+                    idx = None  # resolved to a live worker below
+                elif eng is None or eng.draining or \
                         eng not in self.prefills:
                     continue
-                self._affinity.move_to_end(key)
-                idx = self.prefills.index(eng)
+                else:
+                    self._affinity.move_to_end(key)
+                    idx = self.prefills.index(eng)
+            if idx is None:
+                # the host-tier marker: any live worker can promote the
+                # chain, so the least-loaded one takes it
+                order = self._least_loaded()
+                if not order:
+                    return None
+                self._aff_hits.add(1)
+                _monitor.stat_add("STAT_serving_affinity_hits")
+                return order[0]
             if eng.cache.match_prefix_blocks(prompt) > 0:
                 self._aff_hits.add(1)
                 _monitor.stat_add("STAT_serving_affinity_hits")
@@ -654,10 +700,11 @@ class DisaggRouter:
         fleet index knows its prefix, least-loaded otherwise. Decode
         capacity is reached through the handoff queue only. The
         per-request decoding fields (``temperature`` / ``top_k`` /
-        ``top_p`` / ``stop`` / ``seed``) and ``deadline_ms`` pass through
-        to the prefill worker and travel with the handoff: the sampling
-        key lives on the Request, so a sampled stream continues bit for
-        bit across the role boundary."""
+        ``top_p`` / ``stop`` / ``seed``), ``tenant``, ``session`` and
+        ``deadline_ms`` pass through to the prefill worker and travel
+        with the handoff: the sampling key and the tenant name live on
+        the Request, so a sampled stream continues bit for bit across the
+        role boundary."""
         with self._lock:
             if self._draining:
                 raise QueueFullError("router is draining: submissions "
@@ -666,7 +713,7 @@ class DisaggRouter:
         if _log_request and _runlog.enabled():
             prompt = [int(t) for t in prompt]
             extra = {}
-            for k in ("temperature", "top_k", "top_p", "seed"):
+            for k in ("temperature", "top_k", "top_p", "seed", "tenant"):
                 v = decode_kwargs.get(k)
                 if v:
                     extra[k] = v
@@ -692,14 +739,17 @@ class DisaggRouter:
 
     # ----------------------------------------------------- LoRA adapters
     def load_adapter(self, name: str, state) -> int:
-        raise NotImplementedError(
-            "LoRA tenants (ROADMAP A2.3: serving/lora.py) are not ported "
-            "yet")
+        """Load a tenant adapter once per distinct pool (the default
+        fleet shares one). Returns the page on the last pool."""
+        return [eng.load_adapter(name, state) for eng in _one_per_pool(
+            self.engines, True, "fleet has no LoRA pool; construct with "
+            "lora_rank > 0 (FLAGS_serving_lora_rank)")][-1]
 
     def evict_adapter(self, name: str) -> int:
-        raise NotImplementedError(
-            "LoRA tenants (ROADMAP A2.3: serving/lora.py) are not ported "
-            "yet")
+        """Evict a tenant adapter from every distinct pool; refuses
+        (ValueError) while in-flight work anywhere pins it."""
+        return [eng.evict_adapter(name) for eng in _one_per_pool(
+            self.engines, False, "fleet has no LoRA pool")][-1]
 
     # ------------------------------------------------------ cancellation
     def cancel(self, rid: int, reason: str = "client"
@@ -762,6 +812,13 @@ class DisaggRouter:
             for key in keys:
                 eng = self._affinity.get(key)
                 if eng is None:
+                    continue
+                if eng is _HOST_TIER:
+                    # a marker stays while the host tier holds the chain
+                    if self.kv_tier is None or \
+                            not self.kv_tier.has_chain(key):
+                        del self._affinity[key]
+                        purged += 1
                     continue
                 if eng not in self.prefills or \
                         eng.cache.match_prefix_blocks(prompt) == 0:
@@ -905,12 +962,19 @@ class DisaggRouter:
             eng = self.prefills.pop(index)
             eng.draining = True
             self._killed.append(eng)
-        # forget the worker in the affinity index (the reference keeps
-        # the chains its host tier holds, which is not ported: A2.4)
+        # forget the worker in the affinity index, except the chains the
+        # fleet-shared host tier holds: any survivor can promote those,
+        # so their entries become the host-tier marker
+        kept = 0
         with self._lock:
             for key in [k for k, v in self._affinity.items()
                         if v is eng]:
-                del self._affinity[key]
+                if self.kv_tier is not None and \
+                        self.kv_tier.has_chain(key):
+                    self._affinity[key] = _HOST_TIER
+                    kept += 1
+                else:
+                    del self._affinity[key]
         # undelivered handoff records: shed, their refs released
         shed = 0
         for item in self._handoff.evict_from(eng):
@@ -947,11 +1011,11 @@ class DisaggRouter:
         _monitor.stat_add("STAT_serving_worker_killed")
         _runlog.log_event("serving_worker_kill", role="prefill",
                           worker=index, shed=shed, rerouted=rerouted,
-                          affinity_kept=0,
+                          affinity_kept=kept,
                           t=round(eng._clock(), 6),
                           prefills_left=len(self.prefills))
         return {"shed": shed, "rerouted": rerouted,
-                "affinity_kept": 0,
+                "affinity_kept": kept,
                 "prefills_left": len(self.prefills)}
 
     def kill_decode_worker(self, index: int) -> dict:
@@ -986,6 +1050,7 @@ class DisaggRouter:
                 req = eng._active.pop(row)
                 _tracing.mark(req.id, "kill", eng._clock(),
                               eng.trace_track)
+                eng._release_pin(req)
                 rec = eng.cache.export_row(row)
                 req.slot = None
                 # same-pool survivors first (free splices); within a
@@ -1005,6 +1070,9 @@ class DisaggRouter:
                         if not same_pool:
                             # the copy is queued; drop the source refs
                             rec["pool"].release_blocks(rec["blocks"])
+                        if not peer._pin(req, row2):
+                            shed += 1
+                            break
                         req.slot = row2
                         peer._active[row2] = req
                     req.rehomed = True

@@ -79,9 +79,22 @@ only its enqueue. Every request carries a trace
 roles of :mod:`~paddle_tpu_torch.serving.disagg`): geometry and KV dtype
 come from the pool.
 
+Multi-tenant LoRA (``lora_rank`` > 0 or a shared ``lora_pool``, paged
+only): ``submit(tenant=)`` names a loaded adapter of the engine's
+:class:`~paddle_tpu_torch.serving.lora.LoRAPool`; the request pins its
+page from admission to its exit, and every paged step gathers each row's
+page (the steps' LoRA variants). ``load_adapter`` / ``evict_adapter``
+write the pool in place between steps: nothing is captured.
+
+The host KV tier (``FLAGS_serving_host_tier`` or a shared ``kv_tier``,
+paged only): admission promotes a prompt's host-resident chain before
+acquiring its blocks, a sweep after each decode demotes cold prefix
+chains (``FLAGS_serving_demote_idle_ms``), and ``submit(session=)``
+prepends a conversation's stored context, saved back when the request
+finishes (:mod:`~paddle_tpu_torch.serving.kv_tier`).
+
 Not ported yet (each one is queued in ROADMAP.md): dispatch-ahead
-(``dispatch_ahead=True`` raises), mesh/TP, LoRA, the host KV tier, the
-JSON grammar and devprof.
+(``dispatch_ahead=True`` raises), mesh/TP, the JSON grammar and devprof.
 """
 
 from __future__ import annotations
@@ -111,6 +124,8 @@ from .decoding import (STOP_MAX_LEN, STOP_MAX_SEQS, DecodeParams,
                        StopMatcher, request_key, sample_first,
                        stop_table_rows, stops_fit)
 from .kv_cache import BlockKVCache, BlockPool, SlotKVCache
+from .kv_tier import HostBlockStore, TierManager
+from .lora import LoRAPool
 
 
 class QueueFullError(RuntimeError):
@@ -151,16 +166,25 @@ class Request:
     urgent. With a TTFT SLO ``deadline`` is the engine-clock time the
     first token must land by; ``hard_deadline`` the time after which
     the request is canceled wherever it is. ``rehomed`` marks a request
-    a router recovered off a killed replica; ``wait()`` blocks until
-    the request ends."""
+    a router recovered off a killed replica; ``tenant`` names its LoRA
+    adapter ("" = base weights) and ``session`` its host-tier
+    conversation; ``wait()`` blocks until the request ends."""
 
     _ids = itertools.count()
 
     def __init__(self, prompt: Sequence[int], max_new_tokens: int,
                  eos_token_id: Optional[int], priority: int = 1,
                  now: Optional[float] = None,
-                 decode: Optional[DecodeParams] = None):
+                 decode: Optional[DecodeParams] = None,
+                 tenant: str = ""):
         self.id = next(Request._ids)
+        self.tenant = str(tenant)
+        self._lora_held = False    # this request pins its tenant's page
+        # host-tier conversation id (submit(session=...)): the finish
+        # saves the context back; _session_counted while the resident
+        # gauge holds it
+        self.session: Optional[str] = None
+        self._session_counted = False
         self.prompt: List[int] = [int(t) for t in prompt]
         self.max_new_tokens = int(max_new_tokens)
         self.eos_token_id = eos_token_id
@@ -303,6 +327,10 @@ class ServingEngine:
                  slo_tpot_ms: Optional[float] = None,
                  priority_preempt: Optional[bool] = None,
                  kv_pool: Optional[BlockPool] = None,
+                 lora_rank: Optional[int] = None,
+                 lora_max_adapters: Optional[int] = None,
+                 lora_pool: Optional[LoRAPool] = None,
+                 kv_tier: Optional[TierManager] = None,
                  clock=None, device=None):
         g = _flags.get_flags(["serving_max_slots", "serving_max_len",
                               "serving_max_queue",
@@ -317,7 +345,10 @@ class ServingEngine:
                               "serving_slo_ttft_ms",
                               "serving_slo_prefill_ms",
                               "serving_slo_tpot_ms",
-                              "serving_priority_preempt"])
+                              "serving_priority_preempt",
+                              "serving_lora_rank",
+                              "serving_lora_max_adapters",
+                              "serving_host_tier", "serving_host_blocks"])
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine "
@@ -456,6 +487,51 @@ class ServingEngine:
             # by address, and no other engine or generate call writes them
             self._prefill_rows = model.gpt.gen_fixed_cache(self.max_slots,
                                                            self.max_len)
+        # multi-tenant paged LoRA: the pool's geometry joins the step
+        # keys, loads and evicts are data. A shared lora_pool= serves a
+        # fleet; tenants resolve by name per step.
+        rank = int(lora_rank if lora_rank is not None
+                   else g["serving_lora_rank"])
+        if lora_pool is not None:
+            if lora_pool.device != self.device:
+                raise ValueError(f"lora_pool lives on {lora_pool.device}, "
+                                 f"engine on {self.device}")
+            self.lora_pool = lora_pool
+        elif rank > 0:
+            self.lora_pool = LoRAPool(
+                cfg, rank,
+                int(lora_max_adapters if lora_max_adapters is not None
+                    else g["serving_lora_max_adapters"]),
+                device=self.device)
+        else:
+            self.lora_pool = None
+        if self.lora_pool is not None and not self.paged:
+            raise ValueError(
+                "multi-tenant LoRA requires the paged KV cache "
+                "(FLAGS_serving_paged); the dense steps carry no "
+                "adapter-page input")
+        self._lora_shape = (None if self.lora_pool is None
+                            else self.lora_pool.shape_key)
+        # the host KV tier: a shared kv_tier= serves a fleet,
+        # FLAGS_serving_host_tier builds one for this engine
+        self.kv_tier = kv_tier
+        if (kv_tier is not None or g["serving_host_tier"]) and \
+                not self.paged:
+            raise ValueError(
+                "the host KV tier requires the paged KV cache "
+                "(FLAGS_serving_paged); dense slots have no "
+                "block-granular migration")
+        if kv_tier is None and g["serving_host_tier"]:
+            self.kv_tier = TierManager(HostBlockStore(
+                cfg.num_layers, cfg.num_heads, cfg.head_dim,
+                block_size=self.cache.block_size,
+                num_blocks=int(g["serving_host_blocks"]),
+                pin_memory=self.device.type == "cuda"))
+        if self.kv_tier is not None:
+            self.kv_tier.attach(self.cache)
+        # first-seen-cold times of prefix entries, for the demotion
+        # sweep's idle window (step-lock owned)
+        self._cold_since: Dict[int, float] = {}
         self._vocab = int(cfg.vocab_size)
         self._clock = clock if clock is not None else time.perf_counter
         self._queue: deque = deque()          # guarded-by: _lock
@@ -478,6 +554,13 @@ class ServingEngine:
         self._tenant_stats: Dict[str, List[int]] = {}  # guarded-by: _lock
         eid = str(next(ServingEngine._engine_ids))
         self._eid = eid
+        self._lora_gauge = None
+        if self.lora_pool is not None:
+            self._lora_gauge = _obs.gauge(
+                "serving_lora_adapters_loaded",
+                "LoRA adapters resident in this engine's paged "
+                "adapter pool (base page excluded)").labels(engine=eid)
+            self._lora_gauge.set(len(self.lora_pool.loaded))
         self._ttft_hist = _obs.histogram(
             "serving_ttft_seconds",
             "time to first token of completed requests (s)"
@@ -642,6 +725,8 @@ class ServingEngine:
                seed: Optional[int] = None,
                decode: Optional[DecodeParams] = None,
                deadline_ms: Optional[float] = None,
+               tenant: Optional[str] = None,
+               session: Optional[str] = None,
                _log_request: bool = True) -> Request:
         """Queue a generation request; returns its handle. Temperature
         0 (the default) is greedy; above 0 the request samples, after
@@ -650,6 +735,10 @@ class ServingEngine:
         (default 1), FIFO within a class. ``deadline_ms`` is a hard
         deadline in engine-clock ms from submission after which the
         request is canceled wherever it is (reason "deadline").
+        ``tenant`` names a loaded LoRA adapter whose page the steps
+        gather for this row. ``session`` names a conversation in the host
+        KV tier: a stored context is prepended to ``prompt``, and the
+        finished request's context is saved back.
 
         Raises ValueError for geometry the cache cannot hold (prompt +
         ``max_new_tokens`` + ``spec_tokens`` rows), token ids outside
@@ -671,6 +760,21 @@ class ServingEngine:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
+        sid = str(session) if session is not None else None
+        stored_ctx = None
+        if sid is not None:
+            if not sid:
+                raise ValueError("session id must be non-empty")
+            if self.kv_tier is None:
+                raise ValueError(
+                    "submit(session=...) requires the host KV tier: "
+                    "set FLAGS_serving_host_tier or construct the "
+                    "engine with kv_tier=")
+            stored_ctx = self.kv_tier.session_context(sid)
+            if stored_ctx:
+                # resume: the stored conversation goes first, so the
+                # rolling-hash chain matches what the last turn published
+                prompt = stored_ctx + prompt
         if any(t < 0 or t >= self._vocab for t in prompt):
             raise ValueError(f"prompt token ids must be in [0, "
                              f"{self._vocab})")
@@ -701,6 +805,13 @@ class ServingEngine:
         if params.json_mode:
             raise NotImplementedError(
                 "JSON-constrained decoding is not ported yet")
+        tenant = str(tenant) if tenant is not None else ""
+        if tenant:
+            if self.lora_pool is None:
+                raise ValueError(
+                    "tenant= requires a LoRA pool; construct the engine "
+                    "with lora_rank > 0 (FLAGS_serving_lora_rank)")
+            self.lora_pool.page_of(tenant)  # unknown adapter -> ValueError
         if len(prompt) + mnt + self.spec_tokens > self.max_len:
             # speculative decoding reserves spec_tokens rows of slot
             # headroom: the verify step writes K+1 rows at the offset
@@ -729,6 +840,10 @@ class ServingEngine:
                 if params.stop_sequences:
                     extra["stop"] = [list(s)
                                      for s in params.stop_sequences]
+            if tenant:
+                extra["tenant"] = tenant
+            if sid is not None:
+                extra["session"] = sid
             _runlog.log_event("serving_request", t=round(now, 6),
                               prompt=prompt, max_new_tokens=mnt,
                               priority=pr, engine=self._eid, **extra)
@@ -747,7 +862,9 @@ class ServingEngine:
             raise QueueFullError("submission shed by injected fault at "
                                  "serving.submit", reason="fault",
                                  retry_after_s=self._retry_after_s(0.0))
-        req = Request(prompt, mnt, eos, priority=pr, now=now, decode=params)
+        req = Request(prompt, mnt, eos, priority=pr, now=now, decode=params,
+                      tenant=tenant)
+        req.session = sid
         if self.slo_ttft_ms:
             req.deadline = now + self.slo_ttft_ms / 1e3
         if deadline_ms is not None:
@@ -798,10 +915,16 @@ class ServingEngine:
             raise QueueFullError(msg, reason=reason,
                                  retry_after_s=self._retry_after_s(pred))
         _monitor.stat_add("STAT_serving_submitted")
+        if sid is not None:
+            req._session_counted = True
+            self.kv_tier.session_started(sid)
+            if stored_ctx:
+                self.kv_tier.session_resumed(
+                    sid, len(stored_ctx), len(prompt) - len(stored_ctx))
         _tracing.begin(req.id, req.submitted_at, self.trace_track,
                        prompt_tokens=len(req.prompt),
                        max_new_tokens=req.max_new_tokens,
-                       priority=req.priority, tenant="")
+                       priority=req.priority, tenant=req.tenant)
         self._wake.set()
         return req
 
@@ -988,7 +1111,7 @@ class ServingEngine:
         ent = _gen.prefill_step_paged(
             self.model, bucket,
             (self.max_slots, self.max_len, c.block_size, c.num_blocks),
-            self.kv_dtype, self.attn_impl)
+            self.kv_dtype, self.attn_impl, self._lora_shape)
         self._prefill_fns[bucket] = ent
         return ent
 
@@ -1000,6 +1123,12 @@ class ServingEngine:
         if kind == "skip":
             raise _Shed("injected allocator failure for request "
                         f"{req.id}")
+        if self.kv_tier is not None:
+            # promotion on demand: the host-resident continuation of the
+            # context's chain comes back first and republishes as device
+            # prefix entries, which acquire() then shares. Idempotent
+            # under retry; a failed promotion only means a longer prefill
+            self.kv_tier.promote(self.cache, req.context)
         return self.cache.acquire(req.context, need)
 
     def _prefill_group_attempt_paged(self, bucket: int, group):
@@ -1024,14 +1153,19 @@ class ServingEngine:
         last = np.zeros(self.max_slots, np.int32)
         pos = np.zeros(self.max_slots, np.int32)
         tables = np.full((self.max_slots, T), BlockKVCache.TRASH, np.int32)
+        pages = np.zeros(self.max_slots, np.int32)
         for i, (req, row, shared) in enumerate(live):
             suffix = req.context[shared:]
             ids[i, :len(suffix)] = suffix
             last[i] = len(suffix) - 1
             pos[i] = shared
             tables[i] = self.cache.tables[row]
+            if self.lora_pool is not None and req.tenant:
+                pages[i] = self.lora_pool.page_of(req.tenant)
         fn = self._prefill_entry_paged(bucket)["fn"]
-        out = fn(ids, last, pos, tables, self.cache.arrays())
+        lora = (None if self.lora_pool is None
+                else (pages, self.lora_pool.arrays))
+        out = fn(ids, last, pos, tables, self.cache.arrays(), lora=lora)
         self.prefill_dispatches += 1
         return live, shed, out
 
@@ -1061,6 +1195,17 @@ class ServingEngine:
             if res is None:
                 back.append(req)   # pool dry: wait for retirements
                 continue
+            if req.tenant and self.lora_pool is not None:
+                # pin the tenant's page for the request's lifetime
+                # (released at its exit); an adapter evicted between
+                # submit and admission sheds here
+                try:
+                    self.lora_pool.acquire(req.tenant)
+                    req._lora_held = True
+                except ValueError as e:
+                    self.cache.release_row(res[0])
+                    self._shed(req, _Shed(str(e)))
+                    continue
             acquired.append((req, res[0], res[1]))
         if back:
             with self._lock:
@@ -1195,6 +1340,19 @@ class ServingEngine:
             if not req.decode.is_greedy and (rows is None or slot in rows):
                 req._key = arr[slot].astype(np.uint32)
 
+    def _lora_args(self):
+        """The steps' LoRA input ``(page_ids [b] i32, pool tensors)``:
+        each active row's tenant resolved by name to its current page
+        (in-flight requests pin it), empty and base rows on page 0; None
+        without a pool."""
+        if self.lora_pool is None:
+            return None
+        pages = np.zeros(self.max_slots, np.int32)
+        for slot, req in self._active.items():
+            if req.tenant:
+                pages[slot] = self.lora_pool.page_of(req.tenant)
+        return pages, self.lora_pool.arrays
+
     def _decode_attempt(self, tokens: np.ndarray):
         """One decode dispatch attempt (the ``serving.step`` fault site;
         an injected `skip` skips the iteration)."""
@@ -1203,9 +1361,11 @@ class ServingEngine:
             raise _SkipStep("injected skip of one decode iteration")
         if self.paged:
             fn = _gen.decode_step_paged(self.model, self.kv_dtype,
-                                        self.attn_impl)["fn"]
+                                        self.attn_impl,
+                                        self._lora_shape)["fn"]
             return fn(tokens, self.cache.lengths, self.cache.tables,
-                      self.cache.arrays(), self._build_samp())
+                      self.cache.arrays(), self._build_samp(),
+                      lora=self._lora_args())
         fn = _gen.decode_step(self.model)["fn"]
         return fn(tokens, self.cache.lengths, self.cache.arrays(),
                   self._build_samp())
@@ -1320,11 +1480,12 @@ class ServingEngine:
         if kind == "skip":
             raise _SkipStep("injected skip of one decode megastep")
         fn = _gen.decode_megastep_paged(self.model, n, self.kv_dtype,
-                                        self.attn_impl)["fn"]
+                                        self.attn_impl,
+                                        self._lora_shape)["fn"]
         tokens, lengths, tables, samp, live, budget, eos, stop = \
             self._megastep_inputs()
         return fn(tokens, lengths, tables, self.cache.arrays(), samp, live,
-                  budget, eos, stop)
+                  budget, eos, stop, lora=self._lora_args())
 
     def _decode_megastep(self, n: int) -> int:
         """One megastep over every occupied row: ``n`` decode iterations
@@ -1390,9 +1551,11 @@ class ServingEngine:
         K = self.spec_tokens
         if self.paged:
             fn = _gen.verify_step_paged(self.model, K, self.kv_dtype,
-                                        self.attn_impl)["fn"]
+                                        self.attn_impl,
+                                        self._lora_shape)["fn"]
             return fn(tokens, self.cache.lengths, self.cache.tables,
-                      self.cache.arrays(), self._build_samp())
+                      self.cache.arrays(), self._build_samp(),
+                      lora=self._lora_args())
         fn = _gen.verify_step(self.model, K)["fn"]
         return fn(tokens, self.cache.lengths, self.cache.arrays(),
                   self._build_samp())
@@ -1494,11 +1657,30 @@ class ServingEngine:
         tokens (the request's incremental matcher latched)."""
         return req._stop is not None and req._stop.hit
 
+    def _release_pin(self, req: Request):
+        """Drop the request's pin on its tenant's adapter page."""
+        if req._lora_held:
+            self.lora_pool.release(req.tenant)
+            req._lora_held = False
+
+    def _session_left(self, req: Request):
+        """The request of a host-tier session left this engine: the
+        resident-session gauge drops."""
+        if req._session_counted and self.kv_tier is not None:
+            req._session_counted = False
+            self.kv_tier.session_released(req.session)
+
     def _finish(self, req: Request):
         if req.slot is not None:
             self._active.pop(req.slot, None)
+            if req.session is not None and self.kv_tier is not None:
+                # publish the finished conversation's full blocks before
+                # the row's refs drop: the sweep demotes the now-cold
+                # chain, and the next turn resumes off it
+                self.cache.insert_prefix(req.slot, req.context)
             self.cache.release(req.slot)
             req.slot = None
+        self._release_pin(req)
         req.state = "done"
         req.finished_at = self._clock()
         ttft, tpot = req.ttft, req.tpot
@@ -1512,9 +1694,10 @@ class ServingEngine:
             if met:
                 self._slo_met += 1
             completed, slo_met = self._completed, self._slo_met
-            # [completed, slo-eligible, slo-met] per tenant, as the
-            # reference counts them; without LoRA every request is "base"
-            ts = self._tenant_stats.setdefault("base", [0, 0, 0])
+            # [completed, slo-eligible, slo-met] per tenant ("base" for
+            # requests without an adapter), as the reference counts them
+            ts = self._tenant_stats.setdefault(req.tenant or "base",
+                                               [0, 0, 0])
             ts[0] += 1
             if met is not None:
                 ts[1] += 1
@@ -1528,6 +1711,9 @@ class ServingEngine:
             ttft_ms=None if ttft is None else round(ttft * 1e3, 3),
             tpot_ms=None if tpot is None else round(tpot * 1e3, 3),
             deadline_met=met)
+        if req.session is not None and self.kv_tier is not None:
+            self.kv_tier.session_save(req.session, req.context)
+            self._session_left(req)
         _tracing.finish(req.id, req.finished_at, self.trace_track, "done")
         req._done.set()
 
@@ -1542,6 +1728,7 @@ class ServingEngine:
               reason: str = "fault"):
         """End ``req`` as shed (its blocks or slot already released by
         the caller): the fault exit of the lifecycle."""
+        self._release_pin(req)
         req.slot = None
         req.state = "shed"
         req.error = err
@@ -1552,6 +1739,7 @@ class ServingEngine:
         _runlog.log_event("serving_shed", request=req.id,
                           reason=reason, priority=req.priority,
                           error=str(err))
+        self._session_left(req)
         _tracing.finish(req.id, req.finished_at, self.trace_track,
                         "shed", reason=reason)
         req._done.set()
@@ -1609,9 +1797,10 @@ class ServingEngine:
 
     def _finalize_cancel(self, req: Request, stage: str, reason: str,
                          finalize: bool = True):
-        """Account a canceled request whose row the caller released:
-        counters, metric, run log and trace, and (unless detached) the
-        terminal state."""
+        """Account a canceled request whose row the caller released: its
+        adapter pin, counters, metric, run log and trace, and (unless
+        detached) the terminal state."""
+        self._release_pin(req)
         with self._lock:
             self._canceled_by_reason[reason] = \
                 self._canceled_by_reason.get(reason, 0) + 1
@@ -1624,6 +1813,7 @@ class ServingEngine:
         _tracing.mark(req.id, "cancel", now, self.trace_track)
         _tracing.finish(req.id, now, self.trace_track, "canceled",
                         reason=reason)
+        self._session_left(req)
         if finalize:
             req.state = "canceled"
             req.shed_reason = reason
@@ -1717,7 +1907,9 @@ class ServingEngine:
         book-keeping (its requests, counters, block refcounts) stays.
         ``pool=False`` keeps the KV pool and the graphs over it alone, for
         a pool a live engine still shares (a disaggregated fleet's
-        co-located roles): only the engine's own tensors go."""
+        co-located roles): only the engine's own tensors go. A LoRA pool
+        lives with the fleet and is never freed here (graphs holding it
+        also hold this engine's KV pool or mask, and go with those)."""
         held = ([a for layer in self.cache.arrays() for a in layer]
                 if pool else [])
         if self._mask is not None:
@@ -1735,6 +1927,41 @@ class ServingEngine:
         """Hot-swaps applied so far (0 = construction weights)."""
         return self._weight_version
 
+    # ------------------------------------------------- LoRA adapters
+    def load_adapter(self, name: str, state) -> int:
+        """Load (or hot-reload) a tenant's LoRA adapter into the pool,
+        ``paddle_tpu/serving/engine.py:865``'s counterpart: the factors
+        are copied into the pool's own tensors (:meth:`LoRAPool.load`),
+        which the graphs hold by address, so nothing is captured and the
+        next replay computes with them. Under the step lock (a clean cut
+        between this engine's steps) and the model's trace lock (one
+        between any replica's replays, as ``swap_weights``). Returns the
+        adapter's page (engine-local; requests carry the tenant name)."""
+        if self.lora_pool is None:
+            raise ValueError(
+                "engine has no LoRA pool; construct with lora_rank > 0 "
+                "(FLAGS_serving_lora_rank) or pass lora_pool=")
+        with self._step_lock, _gen.model_trace_lock(self.model):
+            page = self.lora_pool.load(name, state)
+        self._lora_gauge.set(len(self.lora_pool.loaded))
+        _runlog.log_event("serving_lora_load", engine=self._eid,
+                          adapter=name, page=page)
+        _monitor.stat_add("STAT_serving_lora_loads")
+        return page
+
+    def evict_adapter(self, name: str) -> int:
+        """Evict a tenant's adapter, freeing (and zeroing) its page.
+        Refuses (ValueError) while in-flight requests still pin it."""
+        if self.lora_pool is None:
+            raise ValueError("engine has no LoRA pool")
+        with self._step_lock, _gen.model_trace_lock(self.model):
+            page = self.lora_pool.evict(name)
+        self._lora_gauge.set(len(self.lora_pool.loaded))
+        _runlog.log_event("serving_lora_load", engine=self._eid,
+                          adapter=name, page=page, evicted=True)
+        _monitor.stat_add("STAT_serving_lora_evictions")
+        return page
+
     # --------------------------------------------------------- stepping
     def step(self) -> bool:
         """One scheduler iteration: cancel rows whose hard deadline
@@ -1747,10 +1974,39 @@ class ServingEngine:
             admitted = self._admit()
             produced = (self._spec_decode() if self.spec_tokens
                         else self._decode_any())
+            if self.kv_tier is not None:
+                self._demote_sweep()
             if self.paged:
                 self._blocks_used_g.set(self.cache.blocks_used)
                 self._blocks_free_g.set(self.cache.blocks_free)
             return bool(admitted or produced or reaped)
+
+    def _demote_sweep(self):  # holds: _step_lock
+        """Between-steps host-tier demotion: prefix entries cold
+        (refcount 1) across a whole ``FLAGS_serving_demote_idle_ms``
+        window move to the host store; 0 demotes cold entries at every
+        step. Runs after the decode, on its stream, so it copies what
+        the step wrote."""
+        pool = self.cache.pool
+        idle_ms = self.kv_tier.demote_idle_ms
+        eligible = None
+        if idle_ms > 0:
+            now = self._clock()
+            cold = {k for k, e in pool._prefix.items()
+                    if pool.allocator.refcount[e.block] == 1}
+            for k in list(self._cold_since):
+                if k not in cold:
+                    del self._cold_since[k]
+            for k in cold:
+                self._cold_since.setdefault(k, now)
+            eligible = {k for k, t0 in self._cold_since.items()
+                        if (now - t0) * 1e3 >= idle_ms}
+            if not eligible:
+                return
+        entries, _blocks = self.kv_tier.demote(self.cache, keys=eligible)
+        if entries and eligible is not None:
+            for k in eligible:
+                self._cold_since.pop(k, None)
 
     @property
     def idle(self) -> bool:
@@ -1893,4 +2149,15 @@ class ServingEngine:
             out["megastep_dispatches"] = self.megastep_dispatches
         if self.kv_dtype == "int8":
             out["kv_quant_max_abs_err"] = round(self._qerr_max, 6)
+        if self.lora_pool is not None:
+            out["lora"] = {
+                "rank": self.lora_pool.rank,
+                "max_adapters": self.lora_pool.max_adapters,
+                "loaded": self.lora_pool.loaded,
+                "leaked_pages": self.lora_pool.leaked(),
+            }
+        if self.kv_tier is not None:
+            # a shared tier's numbers: every attached engine reports the
+            # same store and session totals
+            out["kv_tier"] = self.kv_tier.stats()
         return out

@@ -7,14 +7,16 @@ the reference's JSON generation protocol:
 
   POST /v1/generate   {"ids": [...], "max_new_tokens"?, "eos_token_id"?,
                        "priority"?, "temperature"?, "top_k"?, "top_p"?,
-                       "stop"?, "seed"?, "deadline_ms"?}
+                       "stop"?, "seed"?, "tenant"?, "deadline_ms"?}
                       -> 200 {"id", "output_ids", "generated", "state"}
+                             (+ "tenant" echoed when one was named)
                       -> 400 malformed JSON, a geometry the cache cannot
                              hold, invalid decoding parameters
                              (temperature < 0, top_k < 0, top_p outside
-                             [0, 1]), and the fields the port refuses:
-                             "json_mode" (the JSON grammar) and
-                             "tenant" (LoRA), with the reason
+                             [0, 1]), a tenant without a LoRA pool or
+                             naming an adapter that is not loaded, and
+                             the field the port refuses: "json_mode"
+                             (the JSON grammar), with the reason
                       -> 429 admission control (a full queue, a predicted
                              SLO miss, a shed at submit), "reason" in the
                              body saying which gate fired; Retry-After is
@@ -79,8 +81,6 @@ from .engine import QueueFullError
 _REFUSED = {
     "json_mode": "JSON-constrained decoding is not ported yet (ROADMAP "
                  "A2.5: the JSON grammar)",
-    "tenant": "LoRA tenants are not ported yet (ROADMAP A2.3: "
-              "serving/lora.py)",
 }
 
 
@@ -194,6 +194,7 @@ class _ServingHandler(BaseHTTPRequestHandler):
                                 top_p=body.get("top_p"),
                                 stop=body.get("stop"),
                                 seed=body.get("seed"),
+                                tenant=body.get("tenant"),
                                 deadline_ms=body.get("deadline_ms"))
         except QueueFullError as e:
             # the target's predicted-TTFT backoff when it attached one,
@@ -220,6 +221,8 @@ class _ServingHandler(BaseHTTPRequestHandler):
             return
         payload = {"id": req.id, "output_ids": req.output_ids,
                    "generated": len(req.tokens), "state": req.state}
+        if req.tenant:
+            payload["tenant"] = req.tenant
         self._json_or_cancel(200, payload, req.id)
 
     def do_DELETE(self):

@@ -56,8 +56,17 @@ mirrored onto the caller's handle. ``cancel`` ends a request anywhere
 in the fleet, its hedge pair included. Kills and hedges leave their
 marks on the request's trace.
 
-Not ported yet (ROADMAP queue A2): LoRA tenants and the host KV tier
-(their engine keywords raise NotImplementedError).
+Multi-tenant fleets share one
+:class:`~paddle_tpu_torch.serving.lora.LoRAPool` (built here from
+``lora_rank`` / ``FLAGS_serving_lora_rank`` unless ``lora_pool=`` is
+given) and one host KV tier (a
+:class:`~paddle_tpu_torch.serving.kv_tier.TierManager` built from
+``FLAGS_serving_host_tier`` unless ``kv_tier=`` is given), handed to every
+replica, scale-ups and restarts included: tenants load once and resolve
+by name on every replica, and a chain demoted by one replica is
+promotable by any other. ``tenant=`` and ``session=`` pass through
+``submit`` (hedge copies included); a killed replica's adapter pins are
+released before its requests re-home.
 """
 
 from __future__ import annotations
@@ -84,11 +93,6 @@ HEALTH_STATES = ("healthy", "suspect", "dead", "recovering")
 #: routing preference per state: healthy/recovering route normally,
 #: suspect only when nothing healthier has room, dead never
 _HEALTH_RANK = {"healthy": 0, "recovering": 0, "suspect": 1, "dead": 2}
-
-#: the reference's fleet-shared engine keywords (LoRA tenants, the host
-#: KV tier), which the port does not have yet
-_UNPORTED_KWARGS = ("lora_rank", "lora_pool", "kv_tier")
-
 
 def _parse_autoscale(text: str):
     """'MIN:MAX' -> (min, max) replica bounds, None when empty."""
@@ -166,11 +170,60 @@ class AutoscalePolicy:
         return n
 
 
+def _shared_planes(model, kwargs: dict):
+    """Put the fleet-shared planes into a router's engine keywords, as
+    the reference's routers do: one LoRA pool (``lora_rank`` or
+    ``FLAGS_serving_lora_rank`` > 0) and one host KV tier
+    (``FLAGS_serving_host_tier``) for every engine, unless the caller
+    passed its own. Both live on the model's device / host."""
+    g = _flags.get_flags(["serving_lora_rank", "serving_lora_max_adapters",
+                          "serving_host_tier", "serving_host_blocks",
+                          "serving_block_size"])
+    cfg = model.gpt.cfg
+    if "lora_pool" not in kwargs:
+        rank = kwargs.get("lora_rank")
+        rank = int(rank if rank is not None else g["serving_lora_rank"])
+        if rank > 0:
+            from .lora import LoRAPool
+            mx = kwargs.get("lora_max_adapters")
+            kwargs["lora_pool"] = LoRAPool(
+                cfg, rank, int(mx if mx is not None
+                               else g["serving_lora_max_adapters"]),
+                device=model.device)
+    if "kv_tier" not in kwargs and g["serving_host_tier"]:
+        from .kv_tier import HostBlockStore, TierManager
+        bs = kwargs.get("block_size")
+        bs = int(bs if bs is not None else g["serving_block_size"])
+        kwargs["kv_tier"] = TierManager(HostBlockStore(
+            cfg.num_layers, cfg.num_heads, cfg.head_dim, block_size=bs,
+            num_blocks=int(g["serving_host_blocks"]),
+            pin_memory=model.device.type == "cuda"))
+
+
 def _in_mode(eager: bool, fn, *args):
     """``fn(*args)`` in a worker thread, with the submitting thread's
     capture mode (``jit.no_capture`` is per thread)."""
     with _jit.no_capture() if eager else contextlib.nullcontext():
         return fn(*args)
+
+
+def _one_per_pool(engines, every: bool, none_msg: str):
+    """One engine per distinct LoRA pool of ``engines``, the reference
+    routers' loop for adapter loads and evicts: with ``every`` each
+    engine must have a pool, else at least one must."""
+    pools: list = []
+    out = []
+    for eng in engines:
+        if eng.lora_pool is None:
+            if every:
+                raise ValueError(none_msg)
+            continue
+        if not any(eng.lora_pool is p for p in pools):
+            pools.append(eng.lora_pool)
+            out.append(eng)
+    if not out:
+        raise ValueError(none_msg)
+    return out
 
 
 class ReplicaRouter:
@@ -214,12 +267,6 @@ class ReplicaRouter:
             raise ValueError(
                 "serving_hedge_budget must be >= 0, got "
                 f"{self._hedge_budget_frac}")
-        unported = [k for k in _UNPORTED_KWARGS
-                    if engine_kwargs.get(k) not in (None, 0)]
-        if unported:
-            raise NotImplementedError(
-                f"engine keywords {unported} (LoRA tenants, the host KV "
-                "tier) are not ported yet")
         # per-replica circuit breaker config (0 window disables)
         self._brk_window_n = max(0, int(g["serving_breaker_window"]))
         self._brk_threshold = float(g["serving_breaker_threshold"])
@@ -244,6 +291,8 @@ class ReplicaRouter:
         self._autoscale: Optional[AutoscalePolicy] = autoscale
         self._model = model
         self._engine_kwargs = dict(engine_kwargs)
+        if model is not None:
+            _shared_planes(model, self._engine_kwargs)
         if engines is not None:
             if model is not None or engine_kwargs:
                 raise ValueError(
@@ -269,6 +318,10 @@ class ReplicaRouter:
                         autoscale.max_replicas)
             self.engines = [ServingEngine(model, **self._engine_kwargs)
                             for _ in range(n)]
+        # the fleet-shared host KV tier (None when off); prebuilt engines
+        # carry their own
+        self.kv_tier = (self._engine_kwargs.get("kv_tier") or
+                        getattr(self.engines[0], "kv_tier", None))
         self._draining = False              # guarded-by: _lock
         self._lock = threading.Lock()
         self._retiring: List[ServingEngine] = []  # guarded-by: _lock
@@ -541,10 +594,11 @@ class ReplicaRouter:
                priority: Optional[int] = None,
                _log_request: bool = True, **decode_kwargs) -> Request:
         """Route one request to the least-loaded replica; returns its
-        :class:`Request` handle. ``priority``, ``deadline_ms`` and the
-        per-request decoding fields (``temperature``/``top_k``/``top_p``/
-        ``stop``/``seed``) pass through to the chosen engine's
-        ``submit``. Raises QueueFullError when every replica sheds (or the
+        :class:`Request` handle. ``priority``, ``deadline_ms``, ``tenant``,
+        ``session`` and the per-request decoding fields (``temperature``/
+        ``top_k``/``top_p``/``stop``/``seed``) pass through to the chosen
+        engine's ``submit``; tenants resolve on whichever replica admits,
+        which is why a multi-tenant fleet shares one ``lora_pool``. Raises QueueFullError when every replica sheds (or the
         router is draining), carrying the last engine's reason and
         ``retry_after_s``, and ValueError for geometry no replica can
         hold. With hedging on, every submission funds the hedge bucket
@@ -785,6 +839,23 @@ class ReplicaRouter:
                                   dup_tokens=len(clone.tokens))
         return res
 
+    # ----------------------------------------------------- LoRA adapters
+    def load_adapter(self, name: str, state) -> int:
+        """Load a tenant adapter across the fleet, once per distinct
+        pool (replicas sharing one ``lora_pool`` pay a single load).
+        Returns the page on the last pool written."""
+        return [eng.load_adapter(name, state) for eng in _one_per_pool(
+            list(self.engines) + list(self._retiring), True,
+            "replica has no LoRA pool; construct the router with "
+            "lora_rank > 0 or a shared lora_pool=")][-1]
+
+    def evict_adapter(self, name: str) -> int:
+        """Evict a tenant adapter from every distinct pool; refuses
+        (ValueError) while any replica's in-flight work pins it."""
+        return [eng.evict_adapter(name) for eng in _one_per_pool(
+            list(self.engines) + list(self._retiring), False,
+            "no replica has a LoRA pool")][-1]
+
     # -------------------------------------------------------- autoscale
     def _add_replica(self):  # holds: _lock
         eng = ServingEngine(self._model, **self._engine_kwargs)
@@ -1003,6 +1074,8 @@ class ReplicaRouter:
                                    key=lambda kv: kv[1].id):
                 del eng._active[row]
                 eng.cache.release(row)
+                # the pin is re-taken where the request is admitted again
+                eng._release_pin(req)
                 req.state = "queued"
                 req.slot = None
                 displaced.append(req)

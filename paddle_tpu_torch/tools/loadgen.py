@@ -15,8 +15,16 @@ Markov-modulated Poisson process: calm at ``rate``, bursts at ``rate *
 burst_factor``) and ``diurnal`` (a sinusoidal rate). Each arrival
 carries a prompt and a new-token budget from a mixed length distribution
 (70% on the lower half of the range, 30% on the upper half), a priority
-class from ``priority_mix`` and, with ``sample_frac``, seeded sampling
-parameters.
+class from ``priority_mix``, with ``sample_frac`` seeded sampling
+parameters and with ``tenant_mix`` (``base:0.5,acme:0.3,zeta:0.2``) a
+LoRA tenant; the report then counts outcomes per tenant and the leaked
+adapter pages. Returning users (``returning_frac`` with
+``turns_per_session``, the host KV tier on): a seeded fraction of
+arrivals open a multi-turn session whose later turns arrive after idle
+gaps and submit with ``session=<id>``; the report gains a ``sessions``
+section (offered, turns, resumed, the host tier's peaks and migrations,
+its leaked blocks). Every such draw comes from a stream of its own, so
+seeds without them keep their traces byte for byte.
 
 Execution: on the wall clock (the target is stepped between releases)
 or on a :class:`VirtualClock` (the engines built with ``clock=vc.now``;
@@ -32,14 +40,14 @@ a prefix-cache flush, each pool once) and unexpected exceptions, with a
 hedging router the hedges and with a disaggregated fleet its roles,
 handoffs and affinity counters.
 
-Not ported yet (NotImplementedError, naming the ROADMAP.md item): LoRA
-tenants (``tenant_mix``), returning users on the host KV tier
-(``returning_frac``, ``session``), devprof and the perf ledger.
-:func:`warmup` warms every engine of a target (the reference's warms
-those its requests land on): a graph holds its replica's pools. A
-disaggregated fleet's workers are warmed by role: every prefill worker
-at every bucket, every decode worker's decode through a handoff it
-adopts.
+Not ported yet (NotImplementedError, naming the ROADMAP.md item): devprof
+and the perf ledger. :func:`warmup` warms every engine of a target (the
+reference's warms those its requests land on): a graph holds its
+replica's pools. A disaggregated fleet's workers are warmed by role:
+every prefill worker at every bucket, every decode worker's decode
+through a handoff it adopts. A LoRA engine's steps are its own graphs,
+warmed the same way (base rows suffice: pages are data); with
+``sampled=True`` the sampled graphs are warmed too.
 
 CLI, from the repository root (on the card; ``--device cpu`` runs on
 the CPU, for a small model):
@@ -64,9 +72,6 @@ import numpy as np
 
 #: what waits, and the ROADMAP.md queue A2 item it waits for
 _WAITS = {
-    "tenant": "LoRA tenants (ROADMAP A2: serving/lora.py)",
-    "session": "returning users and the host KV tier (ROADMAP A2: "
-               "serving/kv_tier.py)",
     "devprof": "the device-cost observatory (ROADMAP A2: devprof)",
     "ledger": "the perf ledger rows (ROADMAP A2: tools/perf_ledger.py, "
               "with devprof)",
@@ -189,8 +194,6 @@ class LoadGen:
             raise ValueError("sample_frac must be in [0, 1]")
         self.sample_frac = float(sample_frac)
         tmix = dict(tenant_mix) if tenant_mix else {}
-        if tmix:
-            raise _not_ported("tenant")
         tt = float(sum(tmix.values()))
         if tmix and (tt <= 0 or any(w < 0 for w in tmix.values())):
             raise ValueError("tenant_mix weights must be >= 0 with a "
@@ -224,8 +227,6 @@ class LoadGen:
         # traces.
         if not (0.0 <= float(returning_frac) <= 1.0):
             raise ValueError("returning_frac must be in [0, 1]")
-        if float(returning_frac) > 0:
-            raise _not_ported("session")
         ta, tb = (int(turns_per_session[0]), int(turns_per_session[1]))
         if ta < 1 or tb < ta:
             raise ValueError(
@@ -266,13 +267,9 @@ class LoadGen:
                 extra = extra + (float(row[9]),)
             if len(row) > 10:  # session-bearing rows: col 11
                 extra = extra + (str(row[10]),)
-            a = Arrival(float(t), tuple(int(x) for x in prompt),
-                        int(mnt), int(pri), *extra)
-            if a.tenant:
-                raise _not_ported("tenant")
-            if a.session:
-                raise _not_ported("session")
-            arrivals.append(a)
+            arrivals.append(Arrival(float(t),
+                                    tuple(int(x) for x in prompt),
+                                    int(mnt), int(pri), *extra))
         last_t = max((a.t for a in arrivals), default=0.0)
         duration = float(meta.get("duration") or 0.0)
         if duration <= 0:
@@ -880,7 +877,7 @@ class LoadGen:
         return report
 
 
-def warmup(target, max_new_tokens: int = 2):
+def warmup(target, max_new_tokens: int = 2, sampled: bool = False):
     """Pay the captures before any measured traffic, then drop each
     engine's learned cost EWMAs and flush its prefix cache, so
     predictions reflect steady-state dispatch costs.
@@ -900,7 +897,14 @@ def warmup(target, max_new_tokens: int = 2):
     A :class:`~paddle_tpu_torch.serving.DisaggRouter`'s workers are warmed
     by role instead (:func:`_warm_roles`): a decode worker takes no
     submission, and a prefill worker's request ends in the fleet's
-    handoff queue."""
+    handoff queue.
+
+    ``sampled`` also warms each engine's sampled graphs (the decode
+    step's, or the megastep's or the verify's when configured) with one
+    sampled request per engine taken out of the books the same way: the
+    reference computes both branches in one compiled step, the port keeps
+    a graph per branch. A fleet-shared host tier is flushed at the end,
+    so measured traffic starts from an empty tier."""
     from ..serving import QueueFullError
     engines = LoadGen._engines(target)
     eng = engines[0]
@@ -915,17 +919,32 @@ def warmup(target, max_new_tokens: int = 2):
                 target.run_until_idle()
     target.run_until_idle()
     if hasattr(target, "prefills"):
-        _warm_roles(target, max_new_tokens)
+        _warm_roles(target, max_new_tokens, sampled)
     else:
         for e in engines:
             for b in e.buckets:
                 plen = _warm_len(e, b, max_new_tokens)
                 if e._bucket_for(plen) not in e._prefill_fns:
                     _warm_alone(e, plen, max_new_tokens)
+            if sampled:
+                _warm_alone(e, _warm_len(e, e.buckets[0], max_new_tokens),
+                            max_new_tokens, _SAMPLED_WARM)
+    tiers = set()
     for e in engines:
         e.reset_cost_estimates()
         if e.paged:
             e.cache.flush_prefix_cache()
+        tier = getattr(e, "kv_tier", None)
+        if tier is not None and id(tier) not in tiers:
+            # warm-up chains the sweep demoted sit in the (shared) host
+            # store: flush it once
+            tiers.add(id(tier))
+            tier.flush()
+
+
+#: the sampled warm-up request's decoding fields (any sampled row takes
+#: the sampled graphs)
+_SAMPLED_WARM = {"temperature": 0.8, "top_k": 8, "top_p": 0.95, "seed": 1}
 
 
 def _warm_len(eng, bucket: int, max_new_tokens: int) -> int:
@@ -935,13 +954,18 @@ def _warm_len(eng, bucket: int, max_new_tokens: int) -> int:
                       eng.spec_tokens))
 
 
-def _warm_alone(eng, plen: int, max_new_tokens: int):
-    """One warm-up request on ``eng`` alone, run to idle (resubmitted
-    while an injected fault sheds it), then taken out of the engine's
-    books and the trace store."""
+def _warm_alone(eng, plen: int, max_new_tokens: int,
+                decode_kw: Optional[dict] = None):
+    """One warm-up request on ``eng`` alone (with ``decode_kw``'s
+    decoding fields), run to idle (resubmitted while an injected fault
+    sheds it), then taken out of the engine's books and the trace
+    store."""
     from ..serving import QueueFullError
     if eng.paged:
         eng.cache.flush_prefix_cache()
+    if getattr(eng, "kv_tier", None) is not None:
+        # a promoted chain would shorten the warm-up's prefill
+        eng.kv_tier.flush()
     saved = _books(eng)
     for _ in range(50):
         # costs learned from the captures must not shed the warm-up at
@@ -949,7 +973,7 @@ def _warm_alone(eng, plen: int, max_new_tokens: int):
         eng.reset_cost_estimates()
         try:
             req = eng.submit([1] * plen, max_new_tokens=max_new_tokens,
-                             _log_request=False)
+                             _log_request=False, **(decode_kw or {}))
         except QueueFullError:
             eng.run_until_idle()
             continue
@@ -959,7 +983,7 @@ def _warm_alone(eng, plen: int, max_new_tokens: int):
     _restore_books(eng, saved)
 
 
-def _warm_roles(rt, max_new_tokens: int):
+def _warm_roles(rt, max_new_tokens: int, sampled: bool = False):
     """Warm a disaggregated fleet by role: every prefill worker at every
     bucket it has not prefilled, and every decode worker that has not
     decoded (its decode step, or its megastep or verify when configured),
@@ -967,7 +991,8 @@ def _warm_roles(rt, max_new_tokens: int):
     two stepped alone. A decode worker prefers a prefill worker on its
     own pool and the reverse, so a co-located pair splices. The warm-up
     requests leave both workers' books, the decode worker's adoption
-    counts and the trace store, and the handoff queue ends empty."""
+    counts and the trace store, and the handoff queue ends empty. With
+    ``sampled`` every decode worker also decodes one sampled request."""
     def partner(eng, peers):
         return next((p for p in peers if p.cache.pool is eng.cache.pool),
                     peers[0])
@@ -979,20 +1004,31 @@ def _warm_roles(rt, max_new_tokens: int):
                 _warm_handoff(pw, partner(pw, rt.decodes), plen,
                               max_new_tokens)
     for dw in rt.decodes:
+        pw = partner(dw, rt.prefills)
+        plen = _warm_len(pw, pw.buckets[0], max_new_tokens)
         if not dw.decode_steps + dw.megastep_dispatches:
-            pw = partner(dw, rt.prefills)
-            _warm_handoff(dw=dw, pw=pw, max_new_tokens=max_new_tokens,
-                          plen=_warm_len(pw, pw.buckets[0],
-                                         max_new_tokens))
+            _warm_handoff(pw, dw, plen, max_new_tokens)
+        if sampled:
+            _warm_handoff(pw, dw, plen, max_new_tokens,
+                          decode_kw=_SAMPLED_WARM)
+
+
+def _tier_books(tier):
+    """A host tier's migration, session and store counters."""
+    return (dict(tier._migrated), tier._dedup_blocks, tier._resumed,
+            tier.sessions_peak, tier.store.peak_used, tier.store.evictions)
 
 
 def _books(eng):
     """What a warm-up request changes in ``eng``'s books: its outcome
-    counts, its request list, its adoption counts (a decode worker) and
-    its prefix-cache counters and those of its pool."""
+    counts, its request list, its adoption counts (a decode worker), its
+    prefix-cache counters and those of its pool, and its host tier's
+    counters."""
     pool = eng.cache.pool if eng.paged else None
+    tier = getattr(eng, "kv_tier", None)
     with eng._lock:
-        return (eng._completed, eng._slo_met,
+        return (None if tier is None else _tier_books(tier),
+                eng._completed, eng._slo_met,
                 {k: list(v) for k, v in eng._tenant_stats.items()},
                 dict(eng._shed_by_reason), len(eng._all),
                 getattr(eng, "adopted", 0),
@@ -1007,6 +1043,13 @@ def _restore_books(eng, saved):
     """Put back :func:`_books`' record, dropping the requests submitted
     since from ``eng``'s list and the trace store."""
     from ..observability import tracing as _tracing
+    tier, tb = getattr(eng, "kv_tier", None), saved[0]
+    if tier is not None:
+        (tier._migrated, tier._dedup_blocks, tier._resumed,
+         tier.sessions_peak, tier.store.peak_used,
+         tier.store.evictions) = tb
+        tier._migrated = dict(tier._migrated)
+    saved = saved[1:]
     with eng._lock:
         (eng._completed, eng._slo_met, eng._tenant_stats,
          eng._shed_by_reason, n, adopted, copies, eng._prefix_hit_reqs,
@@ -1022,13 +1065,15 @@ def _restore_books(eng, saved):
 
 
 def _warm_handoff(pw, dw, plen: int, max_new_tokens: int,
-                  max_steps: int = 1000):
+                  max_steps: int = 1000, decode_kw: Optional[dict] = None):
     """One warm-up request submitted to prefill worker ``pw`` alone,
     stepped there until exported, then on decode worker ``dw`` alone
     until it ends (resubmitted while an injected fault sheds it); then
     taken out of both workers' books and the trace store."""
     from ..serving import QueueFullError
     pw.cache.flush_prefix_cache()
+    if pw.kv_tier is not None:
+        pw.kv_tier.flush()
     saved = [(e, _books(e)) for e in (pw, dw)]
     for _ in range(50):
         for e in (pw, dw):
@@ -1037,7 +1082,7 @@ def _warm_handoff(pw, dw, plen: int, max_new_tokens: int,
             e.reset_cost_estimates()
         try:
             req = pw.submit([1] * plen, max_new_tokens=max_new_tokens,
-                            _log_request=False)
+                            _log_request=False, **(decode_kw or {}))
         except QueueFullError:
             continue
         for _ in range(max_steps):
@@ -1078,13 +1123,19 @@ def _parse_mix(text: str) -> Optional[dict]:
     return out
 
 
+def _parse_tenant_mix(text: str) -> Optional[dict]:
+    if not text:
+        return None
+    out = {}
+    for part in text.split(","):
+        k, v = part.split(":")
+        out[str(k)] = float(v)
+    return out
+
+
 #: the reference's options that wait, by what they wait for
-_UNPORTED_OPTIONS = {
-    "tenant_mix": "tenant", "lora_rank": "tenant",
-    "returning_frac": "session", "host_blocks": "session",
-    "demote_idle_ms": "session", "devprof": "devprof",
-    "devprof_sample": "devprof", "ledger": "ledger",
-}
+_UNPORTED_OPTIONS = {"devprof": "devprof", "devprof_sample": "devprof",
+                     "ledger": "ledger"}
 
 
 def _captures(model) -> int:
@@ -1127,12 +1178,43 @@ def main(argv=None) -> int:
     ap.add_argument("--abandon-frac", type=float, default=0.0,
                     metavar="F", help="fraction of closed-loop clients "
                     "that hang up mid-decode; requires --closed-loop")
+    ap.add_argument("--returning-frac", type=float, default=0.0,
+                    metavar="F", help="fraction of arrivals that open "
+                    "a multi-turn session (seeded draws from a "
+                    "dedicated stream): follow-up turns arrive after "
+                    "idle gaps and submit with session=<id> so the "
+                    "host KV tier resumes the stored context; "
+                    "requires --host-blocks")
+    ap.add_argument("--turns-per-session", type=_parse_range,
+                    default=(2, 4), metavar="A:B",
+                    help="returning-users turns per session, uniform "
+                    "on [A, B] from the session stream")
+    ap.add_argument("--host-blocks", type=int, default=0,
+                    metavar="N", help="> 0 turns on the host-RAM KV "
+                    "tier (FLAGS_serving_host_tier) with N host "
+                    "blocks — cold chains demote int8-at-rest and "
+                    "sessions park/resume through the fleet-shared "
+                    "store")
+    ap.add_argument("--demote-idle-ms", type=float, default=None,
+                    metavar="MS", help="FLAGS_serving_demote_idle_ms "
+                    "for the run: how long (engine clock) a prefix "
+                    "entry must sit cold before the sweep demotes it "
+                    "(0 = every step; default: the flag)")
     ap.add_argument("--priority-mix", type=_parse_mix, default=None,
                     metavar="P:W,P:W", help="priority class weights, "
                     "e.g. '0:0.1,1:0.8,2:0.1' (lower = more urgent)")
     ap.add_argument("--sample-frac", type=float, default=0.0,
                     help="fraction of arrivals carrying sampled decode "
                     "params")
+    ap.add_argument("--tenant-mix", type=_parse_tenant_mix,
+                    default=None, metavar="NAME:W,NAME:W",
+                    help="multi-tenant LoRA mix, e.g. "
+                    "'base:0.5,acme:0.3,zeta:0.2' ('base' = no "
+                    "adapter); non-base tenants need --lora-rank")
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help="> 0 builds the paged LoRA adapter pool "
+                    "(FLAGS_serving_lora_rank) and loads one seeded "
+                    "adapter per non-base tenant in --tenant-mix")
     ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
                     help="> 0 turns on SLO-aware admission; also the "
                     "goodput SLO for reporting")
@@ -1193,12 +1275,16 @@ def main(argv=None) -> int:
                     help="exit 1 if any step graph was captured after "
                     "warmup (on the CPU: any new input signature)")
     ap.add_argument("--expect-sheds-min", type=int, default=None)
+    ap.add_argument("--expect-resumed-min", type=int, default=None,
+                    help="exit 1 unless sessions_resumed >= this "
+                    "(returning-users runs must actually resume)")
+    ap.add_argument("--expect-capacity-gt-device",
+                    action="store_true",
+                    help="exit 1 unless the peak concurrent-session "
+                    "count exceeds the device pool's block count — "
+                    "the sessions-beyond-HBM capacity gate (host "
+                    "tier on)")
     # the reference's options that wait (NotImplementedError when set)
-    ap.add_argument("--tenant-mix", default=None)
-    ap.add_argument("--lora-rank", type=int, default=0)
-    ap.add_argument("--returning-frac", type=float, default=0.0)
-    ap.add_argument("--host-blocks", type=int, default=0)
-    ap.add_argument("--demote-idle-ms", type=float, default=None)
     ap.add_argument("--devprof", action="store_true")
     ap.add_argument("--devprof-sample", type=float, default=None)
     ap.add_argument("--ledger", default="")
@@ -1225,6 +1311,17 @@ def main(argv=None) -> int:
     cfg = GPT_CONFIGS[args.model]
     gen = torch.Generator(device=device).manual_seed(0)
     model = GPTForCausalLM(cfg, device=device, generator=gen).eval()
+    if args.returning_frac and args.host_blocks <= 0:
+        print("FAIL: --returning-frac needs --host-blocks > 0 "
+              "(session resume parks context in the host KV tier)",
+              file=sys.stderr)
+        return 1
+    if args.host_blocks > 0:
+        tier_flags = {"serving_host_tier": True,
+                      "serving_host_blocks": args.host_blocks}
+        if args.demote_idle_ms is not None:
+            tier_flags["serving_demote_idle_ms"] = args.demote_idle_ms
+        _fl.set_flags(tier_flags)
     if args.abandon_frac and not args.closed_loop:
         print("FAIL: --abandon-frac needs --closed-loop clients "
               "(abandonment is a client hang-up mid-decode)",
@@ -1243,15 +1340,28 @@ def main(argv=None) -> int:
                      new_tokens=args.new_tokens,
                      priority_mix=args.priority_mix,
                      sample_frac=args.sample_frac,
+                     tenant_mix=args.tenant_mix,
                      closed_loop=args.closed_loop,
                      think_time_ms=args.think_time_ms,
-                     abandon_frac=args.abandon_frac)
+                     abandon_frac=args.abandon_frac,
+                     returning_frac=args.returning_frac,
+                     turns_per_session=args.turns_per_session)
     if args.chaos:
         for part in args.chaos.split(","):
             t_s, kind, idx = part.split(":")
             lg.chaos.append({"t": float(t_s), "kind": str(kind),
                              "index": int(idx)})
         lg.chaos.sort(key=lambda e: e["t"])
+    lora_tenants = sorted(t for t in (args.tenant_mix or {})
+                          if t not in ("", "base"))
+    if lora_tenants and args.lora_rank <= 0:
+        print("FAIL: --tenant-mix names non-base tenants; they need "
+              "--lora-rank > 0", file=sys.stderr)
+        return 1
+    if args.lora_rank > 0:
+        _fl.set_flags({"serving_lora_rank": args.lora_rank,
+                       "serving_lora_max_adapters":
+                           max(len(lora_tenants), 1)})
     if args.megastep < 1:
         print("FAIL: --megastep must be >= 1", file=sys.stderr)
         return 1
@@ -1293,8 +1403,16 @@ def main(argv=None) -> int:
                 **eng_kwargs)
         else:
             target = ServingEngine(model, **eng_kwargs)
+        if lora_tenants:
+            # one seeded adapter per named tenant, loaded before any
+            # traffic: a write into the pool, no capture
+            from ..serving import make_adapter
+            for i, name in enumerate(lora_tenants):
+                target.load_adapter(
+                    name, make_adapter(cfg, args.lora_rank, seed=i + 1))
         if not args.no_warmup:
-            warmup(target)
+            warmup(target, sampled=any(a.temperature > 0
+                                       for a in lg.schedule()))
         if args.straggler:
             # a deterministic straggler: its predicted prefill cost
             # pinned high, so the hedge gate sees it coming, and each
@@ -1351,6 +1469,10 @@ def main(argv=None) -> int:
         print(f"FAIL: leaked_kv_blocks = "
               f"{report['leaked_kv_blocks']}", file=sys.stderr)
         ok = False
+    if args.expect_zero_leaks and report.get("leaked_lora_pages"):
+        print(f"FAIL: leaked_lora_pages = "
+              f"{report['leaked_lora_pages']}", file=sys.stderr)
+        ok = False
     if args.expect_zero_new_compiles and \
             report["new_compiles_after_warmup"] != 0:
         print(f"FAIL: new_compiles_after_warmup = "
@@ -1360,6 +1482,24 @@ def main(argv=None) -> int:
             report["shed_total"] < args.expect_sheds_min:
         print(f"FAIL: shed_total {report['shed_total']} < "
               f"{args.expect_sheds_min}", file=sys.stderr)
+        ok = False
+    sess = report.get("sessions", {})
+    if args.expect_resumed_min is not None:
+        r = sess.get("sessions_resumed")
+        if r is None or r < args.expect_resumed_min:
+            print(f"FAIL: sessions_resumed {r} < "
+                  f"{args.expect_resumed_min}", file=sys.stderr)
+            ok = False
+    if args.expect_capacity_gt_device:
+        peak, dev = sess.get("sessions_peak"), sess.get(
+            "device_blocks", 0)
+        if peak is None or peak <= dev:
+            print(f"FAIL: sessions_peak {peak} <= device_blocks "
+                  f"{dev} (no capacity win over HBM)", file=sys.stderr)
+            ok = False
+    if args.expect_zero_leaks and sess.get("leaked_host_blocks"):
+        print(f"FAIL: leaked_host_blocks = "
+              f"{sess['leaked_host_blocks']}", file=sys.stderr)
         ok = False
     if report["exceptions"]:
         print(f"FAIL: {report['exceptions']} unhandled exceptions",

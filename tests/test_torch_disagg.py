@@ -971,16 +971,35 @@ def test_kill_frees_a_private_pool_and_keeps_a_shared_one(pkgs):
 
 
 def test_refuses_lora_and_the_host_tier():
-    """LoRA tenants and the host KV tier wait for ROADMAP A2.3 / A2.4."""
+    """What a fleet refuses of LoRA and the host KV tier, as the
+    reference does: adapter calls on a fleet without a pool, an unknown
+    adapter, a tier of another geometry; and what still waits: the JSON
+    grammar (A2.5) and dispatch-ahead (A3). (LoRA tenants and the host
+    tier themselves: tests/test_torch_lora.py, tests/test_torch_kv_tier.py.)"""
+    from paddle_tpu_torch.serving import HostBlockStore, TierManager
     model = GPTForCausalLM(GPTConfig(**GEOM), device="cpu").eval()
-    with pytest.raises(NotImplementedError, match="A2.3"):
-        DisaggRouter(model, n_prefill=1, n_decode=1, lora_rank=4, **SHAPE,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A2.4"):
-        DisaggRouter(model, n_prefill=1, n_decode=1, kv_tier=object(),
-                     **SHAPE, device="cpu")
     rt = DisaggRouter(model, n_prefill=1, n_decode=1, **SHAPE, device="cpu")
     for call in (lambda: rt.load_adapter("acme", {}),
                  lambda: rt.evict_adapter("acme")):
-        with pytest.raises(NotImplementedError, match="A2.3"):
+        with pytest.raises(ValueError, match="no LoRA pool"):
             call()
+    lrt = DisaggRouter(model, n_prefill=1, n_decode=1, lora_rank=2, **SHAPE,
+                       device="cpu")
+    assert lrt.prefills[0].lora_pool is lrt.decodes[0].lora_pool
+    with pytest.raises(ValueError, match="unknown lora adapter"):
+        lrt.evict_adapter("acme")
+    with pytest.raises(ValueError, match="tenant"):
+        rt.submit([1, 2, 3], tenant="acme")
+    cfg = model.cfg
+    other = TierManager(HostBlockStore(cfg.num_layers, cfg.num_heads,
+                                       cfg.head_dim, block_size=8,
+                                       num_blocks=4))
+    with pytest.raises(ValueError, match="geometry"):
+        DisaggRouter(model, n_prefill=1, n_decode=1, kv_tier=other,
+                     **SHAPE, device="cpu")
+    from paddle_tpu_torch.serving import DecodeParams
+    with pytest.raises(NotImplementedError, match="JSON"):
+        rt.submit([1, 2, 3], decode=DecodeParams(json_mode=True))
+    with pytest.raises(NotImplementedError, match="dispatch-ahead"):
+        DisaggRouter(model, n_prefill=1, n_decode=1, megastep=2,
+                     dispatch_ahead=True, **SHAPE, device="cpu")

@@ -13,10 +13,11 @@ Retry-After; DELETE at every stage; a broken pipe canceling its request),
 ``tests/test_observability.py``'s exporter tests. The DELETE test does
 not race the scheduler: the target's scheduler thread is parked
 (``stop()``) while the test steps the request to the stage it cancels,
-so a request cannot finish before its DELETE lands. The JSON-mode and
-tenant fields are refused with a 400 in both packages (the reference
-for an engine without a grammar or a LoRA pool; the port because
-neither is ported, which its body says). The model is the small GPT of
+so a request cannot finish before its DELETE lands. The JSON-mode field
+is refused with a 400 in both packages (the reference for an engine
+without a grammar; the port because the grammar is not ported, which its
+body says), and so is a tenant on an engine without a LoRA pool, with
+the same body; tenants served: ``tests/test_torch_lora.py``. The model is the small GPT of
 ``tests/test_serving.py`` (vocab 97, h 32, 2 layers, 4 heads) drawn at
 ``init_std`` 0.2; engines run on a frozen clock. The JAX side runs with
 64-bit types off."""
@@ -259,8 +260,9 @@ def test_health_over_a_disaggregated_fleet():
 
 def test_refused_fields_are_400_like_the_reference(pkgs):
     """``json_mode`` and ``tenant``: 400 in both packages (the reference
-    has no grammar or LoRA pool on this engine; the port has neither
-    ported, and says so)."""
+    has no grammar or LoRA pool on this engine; the port has no grammar
+    ported, and says so, and refuses the tenant as the reference does,
+    with its body)."""
     def run(pkg):
         def script(c, target):
             a = c("POST", "/v1/generate", {"ids": [1, 2], "json_mode": True})
@@ -270,10 +272,11 @@ def test_refused_fields_are_400_like_the_reference(pkgs):
         _, (a, b) = _served(pkg, _target(pkg, "engine"), script)
         if pkg.name == "port":
             assert "not ported" in a[1]["error"]
-            assert "not ported" in b[1]["error"]
-        return a[0], b[0]
+        return a[0], b
 
-    assert _both(pkgs, run) == (400, 400)
+    status, tenant = _both(pkgs, run)
+    assert status == 400 and tenant[0] == 400
+    assert "LoRA pool" in tenant[1]["error"]
 
 
 def test_429_retry_after_and_stats_surface_like_the_reference(pkgs):

@@ -281,25 +281,19 @@ def test_warmup_warms_every_replica_and_leaves_no_record(pkgs):
 
 
 def test_refuses_what_is_not_ported():
-    """LoRA tenants and returning users on the host KV tier raise, naming
-    their ROADMAP item; so do the CLI's options for them, devprof's and
-    the ledger's. (The disaggregated fleet's chaos kinds and the CLI's
-    ``--disagg`` run: the parity tests below.)"""
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tloadgen.LoadGen(tenant_mix={"base": 0.5, "acme": 0.5}, **LG_KW)
-    with pytest.raises(NotImplementedError, match="kv_tier"):
-        tloadgen.LoadGen(returning_frac=0.5, **LG_KW)
-    row = [0.1, [1, 2, 3], 2, 1, 0.0, 0, 1.0, 0, "acme"]
-    with pytest.raises(NotImplementedError, match="lora"):
-        tloadgen.LoadGen.from_trace({"arrivals": [row]})
-    with pytest.raises(NotImplementedError, match="kv_tier"):
-        tloadgen.LoadGen.from_trace(
-            {"arrivals": [row[:8] + ["", 0.0, "s1"]]})
-    for opt in (["--tenant-mix", "base:1"], ["--lora-rank", "4"],
-                ["--host-blocks", "8"], ["--returning-frac", "0.5"],
-                ["--devprof"], ["--ledger", "x"]):
-        with pytest.raises(NotImplementedError):
+    """devprof's and the ledger's CLI options raise, naming their ROADMAP
+    item. (Tenant mixes and returning users run: tests/test_torch_lora.py
+    and tests/test_torch_kv_tier.py; the disaggregated fleet's chaos kinds
+    and the CLI's ``--disagg``: the parity tests below.)"""
+    for opt in (["--devprof"], ["--devprof-sample", "0.5"],
+                ["--ledger", "x"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
             tloadgen.main(opt + ["--device", "cpu"])
+    row = [0.1, [1, 2, 3], 2, 1, 0.0, 0, 1.0, 0, "acme"]
+    lg = tloadgen.LoadGen.from_trace(
+        {"arrivals": [row, row[:8] + ["", 0.0, "s1"]]})
+    assert [(a.tenant, a.session) for a in lg.schedule()] == \
+        [("acme", ""), ("", "s1")]
 
 
 def test_cli_runs_on_the_cpu_and_raises_without_cuda(monkeypatch, capsys):

@@ -66,7 +66,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "observability/__init__.py", "observability/metrics.py",
                    "observability/runlog.py", "monitor.py",
                    "ops/cuda/_launches.py", "observability/tracing.py",
-                   "tools/loadgen.py"):
+                   "tools/loadgen.py", "serving/lora.py",
+                   "serving/kv_tier.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -183,13 +184,16 @@ FLEET_FLAGS = (
     "serving_slo_ttft_ms", "serving_slo_prefill_ms", "serving_slo_tpot_ms",
     "serving_priority_preempt", "serving_trace", "serving_trace_keep",
     # the disaggregated fleet
-    "serving_disagg", "serving_prefix_affinity", "serving_handoff_queue")
+    "serving_disagg", "serving_prefix_affinity", "serving_handoff_queue",
+    # multi-tenant LoRA and the host KV tier, and the paged flag
+    "serving_lora_rank", "serving_lora_max_adapters", "serving_host_tier",
+    "serving_host_blocks", "serving_demote_idle_ms", "serving_paged")
 
 
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 50
+    assert len(ported) == 55
     assert {"use_pallas_attention", "use_pallas_layer_norm", "pallas_min_seq",
             "pallas_flash_block_q", "pallas_flash_block_k",
             "serving_megastep", "serving_spec_tokens",
