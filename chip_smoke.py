@@ -15,7 +15,8 @@ dense slotted cache against the paged one, offline ``sample`` and
 under a TTFT SLO (SLO admission, priorities, faults, hedged prefill,
 cancel and hard deadlines; a disaggregated prefill/decode fleet, its
 KV handoff and its worker kills) and its HTTP front end, multi-tenant
-LoRA traffic and returning users on the host KV tier, trains it
+LoRA traffic and returning users on the host KV tier, JSON-constrained
+requests and the device-cost observatory, trains it
 (``bench.py``'s step: batch
 8, seq 1024, AMP O2 bf16, AdamW with bf16 moments) eagerly and through
 ``jit.to_static`` as a CUDA graph, with the LayerNorm kernels off and
@@ -90,7 +91,19 @@ with and without LoRA), 5h returning users on the host KV tier
 than the pool holds, no leak in either tier; a two-block round trip
 per pool dtype, int8 bit-exact, B4 on the promoted tables; at 4 layers
 a killed prefill worker's chains promoted by the survivor and a
-resumed tenant session), 6 flash kernels vs plain (f32, bf16
+resumed tenant session), 5i JSON-constrained decoding (phase 5e's
+geometry at megastep 8 with a grammar over the model's vocabulary:
+greedy and sampled constrained rows beside plain ones on the kernel and
+the plain route, greedy tokens equal; then a 2-replica router, a 1 x 2
+disaggregated fleet and HTTP at 4 layers; every constrained completion
+JSON, no capture, B4 on the run's tables, the single-step fallback taken
+while a cursor is active; TPOT of constrained against plain rows and the
+host ms per mask row), 5j the device-cost observatory on phase 5e's
+engine at sample 1.0 (per entry: device ms from CUDA events, FLOPs,
+bytes, MFU and HBM share against the H100's data sheet, host-overhead
+share; the decode entry's event time against the traced busy time, the
+blame identity, captures and sample-0 tokens equal devprof off, a
+ledger row gated against itself), 6 flash kernels vs plain (f32, bf16
 and fp16), 7 train GPT (eager, then captured: losses and parameters
 bit-equal), 7b train GPT at O1 fp16 with ``GradScaler`` through the
 CUDA-core flash kernels, 8 time the flash kernels, 9
@@ -622,7 +635,7 @@ def check_serving(torch, ctr, card):
     if res["tokens"] != 512:
         raise AssertionError(f"{res['tokens']} tokens came out, expected 512")
     traces = {"decode": generation.decode_step_paged(
-        model, "f32", "kernel")["traces"]["count"]}
+        model, kv_dtype="f32", attn_impl="kernel")["traces"]["count"]}
     traces.update({f"prefill_{b}": e["traces"]["count"]
                    for b, e in sorted(eng._prefill_fns.items())})
     log(f"  kernel f32: graphs per entry {traces}")
@@ -1148,7 +1161,7 @@ def sampled_serving(torch, ctr, card):
     if not spec[SPEC_K]["launches"] > 0 or st["spec_proposed"] == 0:
         raise AssertionError(f"spec K {SPEC_K}: no verify launches {st}")
     verify_traces = generation.verify_step_paged(
-        model, SPEC_K, "f32", "kernel")["traces"]["count"]
+        model, SPEC_K, kv_dtype="f32", attn_impl="kernel")["traces"]["count"]
     release_graphs(torch, model)
     del eng, model
     gc.collect()
@@ -3218,6 +3231,466 @@ def host_tier_serving(torch, ctr, pa, card):
     return out
 
 
+# ------------------------------------------------------------ phase 5i
+#: phase 5i's requests: greedy and sampled constrained rows beside plain
+#: ones, two of each, their budgets within the loadgen geometry's rows
+JSON_NEW = 24
+JSON_SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+#: a number with leading zeros (``00``, ``-01``): the reference grammar
+#: admits them and ``json.loads`` refuses them (ROADMAP C)
+LEADING_ZEROS = r"(?<![0-9.])(-?)0+(?=[0-9])"
+
+
+def json_specs(vocab, seed=70):
+    rng = np.random.RandomState(seed)
+    specs = []
+    for i, kind in enumerate(("json", "json_s", "plain", "plain_s") * 2):
+        kw = {"max_new_tokens": JSON_NEW}
+        if kind.startswith("json"):
+            kw["json_mode"] = True
+        if kind.endswith("_s"):
+            kw.update(JSON_SAMPLED, seed=700 + i)
+        specs.append((rng.randint(1, vocab, size=6 + i).tolist(), kw))
+    return specs
+
+
+def json_text_ok(grammar, tokens):
+    """``json.loads`` of a constrained completion; one that holds a
+    number with leading zeros (the reference grammar's fault) must pass
+    once they are dropped. Returns whether it passed as it is."""
+    import re
+    text = grammar.decode(tokens)
+    try:
+        json.loads(text)
+        return True
+    except json.JSONDecodeError:
+        if not re.search(LEADING_ZEROS, text):
+            raise AssertionError(f"not JSON: {text!r}")
+        json.loads(re.sub(LEADING_ZEROS, r"\1", text))
+        return False
+
+
+def warm_json(torch, target):
+    """The loadgen warm-up with the sampled graphs, then one greedy and
+    one sampled constrained request run to idle: at megastep > 1 a
+    constrained row takes the single-step sampled graph, which the
+    megastep warm-up leaves cold."""
+    from paddle_tpu_torch.tools.loadgen import warmup
+    warmup(target, sampled=True)
+    reqs = [target.submit([1] * 4, max_new_tokens=6, json_mode=True,
+                          _log_request=False),
+            target.submit([2] * 4, max_new_tokens=6, json_mode=True,
+                          _log_request=False, **JSON_SAMPLED, seed=1)]
+    target.run_until_idle()
+    torch.cuda.synchronize()
+    for eng in getattr(target, "engines", [target]):
+        eng.reset_cost_estimates()
+        eng.cache.flush_prefix_cache()
+    return reqs
+
+
+def masked_top2_gap(torch, model, grammar, req_like, prefix):
+    """The top-2 gap of the last-position logits plus the grammar's mask
+    row after ``prefix`` (a no-cache forward of ``prompt + prefix``)."""
+    prompt, budget = req_like
+    cur = grammar.start()
+    for t in prefix:
+        cur.advance(t)
+    mask = torch.as_tensor(cur.mask_row(budget - len(prefix)),
+                           device=model.device)
+    with torch.no_grad():
+        lg = model(torch.tensor([prompt + prefix],
+                                device=model.device))[0, -1]
+    top = torch.topk(lg.float() + mask, 2).values
+    return float(top[0] - top[1])
+
+
+def same_json_tokens(torch, model, grammar, specs, ref, out, what):
+    """Greedy rows of ``specs`` (constrained or plain) token-equal in
+    ``ref`` and ``out``, or diverging only at a near tie (top-2 gap under
+    1e-3 of the logits, masked for a constrained row). Returns the
+    divergences."""
+    diverged = []
+    for i, ((p, kw), a, b) in enumerate(zip(specs, ref, out)):
+        if kw.get("temperature") or a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        gap = (masked_top2_gap(torch, model, grammar,
+                               (p, kw["max_new_tokens"]), a[:j])
+               if kw.get("json_mode") else top2_gap(torch, model, p + a[:j]))
+        log(f"  {what}: request {i} diverges at token {j}: top-2 gap "
+            f"{gap:.3e}")
+        if gap >= 1e-3:
+            raise AssertionError(f"{what}: request {i} differs at token "
+                                 f"{j} with top-2 gap {gap}")
+        diverged.append({"request": i, "token": j, "gap": gap})
+    return diverged
+
+
+def json_run(torch, ctr, pa, target, specs, grammar, what, check_b4=True):
+    """Serve ``specs`` through warmed ``target`` with every launch count
+    zeroed before and read after: exactly ``num_layers`` paged launches
+    per dispatch (``n`` per megastep), no capture, every request done,
+    every constrained completion JSON; the single-step fallback taken
+    while a cursor is active (on a megastep engine). On the composed
+    route no launch at all. With ``check_b4``
+    B4 is held to its plain version on the block tables of the engine
+    holding rows after the second step."""
+    engines = list(getattr(target, "engines", [target]))
+    model = engines[0].model
+    d0 = sum(dispatches(e) for e in engines)
+    s0 = sum(e.decode_steps for e in engines)
+    cap0 = captures(model)
+    torch.cuda.synchronize()
+    ctr.zero()
+    reqs = [target.submit(p, **kw) for p, kw in specs]
+    b4 = None
+    steps = 0
+    while not all(r.done for r in reqs):
+        target.step()
+        steps += 1
+        if check_b4 and b4 is None and steps >= 2:
+            # a decode worker's rows where a fleet has roles
+            live = sorted((e for e in engines if e._active),
+                          key=lambda e: e.trace_role == "prefill")
+            if live:
+                with ctr.aside():
+                    b4 = check_handoff_tables(torch, pa, live[0],
+                                              f"{what}'s tables")
+    torch.cuda.synchronize()
+    run, routes = ctr.read(), ctr.routes()["paged_attention"]
+    want = model.cfg.num_layers * (sum(dispatches(e) for e in engines) - d0)
+    if engines[0].attn_impl != "kernel":
+        want = 0
+    ctr.expect(run, {"paged_attention": want} if want else {}, what)
+    new_captures = captures(model) - cap0
+    if new_captures:
+        raise AssertionError(f"{what}: {new_captures} captures in the "
+                             "timed run")
+    if any(r.state != "done" for r in reqs):
+        raise AssertionError(f"{what}: {[r.state for r in reqs]}")
+    as_is = [json_text_ok(grammar, r.tokens)
+             for r, (_, kw) in zip(reqs, specs) if kw.get("json_mode")]
+    fallback = sum(e.decode_steps for e in engines) - s0
+    if engines[0].megastep > 1 and not fallback:
+        raise AssertionError(f"{what}: no single-step fallback while a "
+                             "cursor was active")
+    if check_b4 and b4 is None:
+        raise AssertionError(f"{what}: no live rows to hold B4 on")
+    tpot = {"json": [r.tpot for r, (_, kw) in zip(reqs, specs)
+                     if kw.get("json_mode") and r.tpot is not None],
+            "plain": [r.tpot for r, (_, kw) in zip(reqs, specs)
+                      if not kw.get("json_mode") and r.tpot is not None]}
+    res = {"launches": want, "routes": routes, "captures": new_captures,
+           "fallback_steps": fallback, "b4_max_abs_err": b4,
+           "json_as_is": sum(as_is), "json_leading_zeros":
+           len(as_is) - sum(as_is),
+           "tpot_p50_ms": {k: pctl_ms(v, 50) if v else None
+                           for k, v in tpot.items()},
+           "texts": [grammar.decode(r.tokens)
+                     for r, (_, kw) in zip(reqs, specs)
+                     if kw.get("json_mode")]}
+    log(f"  {what}: {len(reqs)} requests, {len(as_is)} constrained, each "
+        f"JSON ({res['json_leading_zeros']} only without leading zeros); "
+        f"{fallback} single-step fallbacks; {want} paged launches "
+        f"{routes}; 0 captures; TPOT p50 constrained "
+        f"{res['tpot_p50_ms']['json']} ms, plain "
+        f"{res['tpot_p50_ms']['plain']} ms")
+    return res, [r.tokens for r in reqs]
+
+
+def mask_row_ms(grammar, vocab, n=200):
+    """Host ms per ``mask_row`` at the model's vocabulary (the host work
+    a constrained row adds per token), over ``n`` rows of a cursor
+    inside a string (the widest allowed set)."""
+    cur = grammar.start()
+    cur.advance(int(grammar._char_ids['"'][0]))
+    buf = np.empty(vocab, np.float32)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        cur.mask_row(16, out=buf)
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def json_serving(torch, ctr, pa, card):
+    """Phase 5i: JSON-constrained decoding on a fresh seeded gpt2-medium
+    with phase 5e's engine geometry at megastep 8 and a grammar over the
+    model's own vocabulary (``JsonGrammar(json_token_strings(50257))``):
+    greedy and sampled constrained requests mixed in one batch with plain
+    ones, on the kernel route and on the plain (composed) route (greedy
+    tokens equal, top-2 rule over the masked logits), each run capturing
+    nothing, its paged launches counted, B4 held to its plain version on
+    its tables, the single-step fallback taken while a cursor is active;
+    then at ``DISAGG_LAYERS`` layers through a 2-replica ``ReplicaRouter``,
+    a 1 x 2 ``DisaggRouter`` (the cursor crosses the handoff) and HTTP,
+    each against a single engine's greedy tokens. Every constrained
+    completion must be JSON."""
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.serving import (DisaggRouter, JsonGrammar,
+                                          ReplicaRouter, ServingHTTPServer,
+                                          json_token_strings)
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    grammar = JsonGrammar(json_token_strings(cfg.vocab_size))
+    specs = json_specs(cfg.vocab_size)
+    out, launches = {}, 0
+    toks = {}
+    for impl in ("kernel", "composed"):
+        eng = loadgen_engine(model, megastep=FLEET_MEGASTEP, grammar=grammar,
+                             attn_impl=impl)
+        warm_json(torch, eng)
+        res, toks[impl] = json_run(torch, ctr, pa, eng, specs, grammar,
+                                   f"megastep {FLEET_MEGASTEP}, {impl} route",
+                                   check_b4=impl == "kernel")
+        out[impl] = res
+        release_engines([eng])
+        del eng
+    launches += out["kernel"]["launches"]
+    ties = same_json_tokens(torch, model, grammar, specs, toks["composed"],
+                            toks["kernel"], "kernel vs plain route")
+    out["kernel_vs_plain_near_ties"] = len(ties)
+    out["mask_row_ms"] = mask_row_ms(grammar, cfg.vocab_size)
+    log(f"  [{card}] greedy rows kernel == plain route ({len(ties)} near "
+        f"ties); TPOT p50 constrained {out['kernel']['tpot_p50_ms']['json']}"
+        f" ms vs plain {out['kernel']['tpot_p50_ms']['plain']} ms (kernel "
+        f"route); host {out['mask_row_ms']:.4f} ms per mask row at V = "
+        f"{cfg.vocab_size}")
+    release_graphs(torch, model)
+    del model
+
+    small = medium_at_depth(torch, DISAGG_LAYERS, seed=2)
+    grammar = JsonGrammar(json_token_strings(small.cfg.vocab_size))
+    ref_eng = loadgen_engine(small, grammar=grammar)
+    warm_json(torch, ref_eng)
+    _, ref = json_run(torch, ctr, pa, ref_eng, specs, grammar,
+                      f"one engine at {DISAGG_LAYERS} layers",
+                      check_b4=False)
+    release_engines([ref_eng])
+    del ref_eng
+    fleets = {"router": lambda: ReplicaRouter(
+                  small, n_replicas=2, grammar=grammar,
+                  **loadgen_geometry()),
+              "disagg": lambda: DisaggRouter(
+                  small, n_prefill=1, n_decode=2, grammar=grammar,
+                  **loadgen_geometry())}
+    for name, make in fleets.items():
+        rt = make()
+        warm_json(torch, rt)
+        res, got = json_run(torch, ctr, pa, rt, specs, grammar,
+                            f"{name} at {DISAGG_LAYERS} layers")
+        res["near_ties"] = len(same_json_tokens(
+            torch, small, grammar, specs, ref, got, f"{name} vs one engine"))
+        if name == "disagg" and not rt.stats()["handoffs_adopted"]:
+            raise AssertionError("disagg: no handoff adopted")
+        out[name] = res
+        launches += res["launches"]
+        release_engines(rt.engines)
+        del rt
+    rt = DisaggRouter(small, n_prefill=1, n_decode=2, grammar=grammar,
+                      **loadgen_geometry())
+    warm_json(torch, rt)
+    cap0 = captures(small)
+    d0 = sum(dispatches(e) for e in rt.engines)
+    ctr.zero()
+    srv = ServingHTTPServer(rt, port=0)
+    srv.start()
+    conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+    try:
+        got = []
+        for p, kw in specs:
+            body = {"ids": p, **kw}
+            conn.request("POST", "/v1/generate", body=json.dumps(body))
+            r = conn.getresponse()
+            payload = json.loads(r.read().decode())
+            if r.status != 200 or payload["state"] != "done":
+                raise AssertionError(f"HTTP: {r.status} {payload}")
+            got.append(payload["output_ids"][len(p):])
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"ids": [1, 2], "json_mode": True, "max_new_tokens": 4,
+             "temperature": 0.5, "top_k": -1}))
+        bad = conn.getresponse()
+        bad.read()
+        if bad.status != 400:
+            raise AssertionError(f"HTTP: a bad top_k -> {bad.status}")
+    finally:
+        conn.close()
+        srv.stop()
+    torch.cuda.synchronize()
+    run = ctr.read()
+    want = small.cfg.num_layers * (sum(dispatches(e) for e in rt.engines)
+                                   - d0)
+    ctr.expect(run, {"paged_attention": want}, "HTTP")
+    if captures(small) != cap0:
+        raise AssertionError("HTTP: the run captured graphs")
+    as_is = [json_text_ok(grammar, t) for t, (_, kw) in zip(got, specs)
+             if kw.get("json_mode")]
+    out["http"] = {"launches": want, "json_as_is": sum(as_is),
+                   "near_ties": len(same_json_tokens(
+                       torch, small, grammar, specs, ref, got,
+                       "HTTP vs one engine"))}
+    launches += want
+    log(f"  [{card}] HTTP over a 1 x 2 fleet: {len(specs)} POSTs, "
+        f"{len(as_is)} constrained, each JSON; {want} paged launches, 0 "
+        f"captures")
+    release_engines(rt.engines)
+    del rt
+    release_graphs(torch, small)
+    del small
+    out["launches"] = launches
+    return out
+
+
+# ------------------------------------------------------------ phase 5j
+def devprof_serving(torch, ctr, pa, card):
+    """Phase 5j: the device-cost observatory on phase 5e's engine
+    (gpt2-medium, f32 pools, the kernel route) at ``devprof_sample``
+    1.0: the counted cost of each entry, its device ms from the CUDA
+    events, MFU and HBM share against the H100's data-sheet peaks, and
+    the host-overhead share. Checks: the decode entry's event time is at
+    least 0.9 x the device busy time ``traced_steps`` measures for the
+    same steps; the blame identity is exact on every finished trace; the
+    captures equal a devprof-off engine's; greedy tokens at sample 0
+    equal devprof off; a ledger row appended to a temporary file passes
+    ``perf_regress`` against a baseline written from itself."""
+    from paddle_tpu_torch import flags as tflags
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.observability import devprof, tracing
+    from paddle_tpu_torch.tools import perf_ledger, perf_regress
+    from paddle_tpu_torch.tools.loadgen import LoadGen, warmup
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    rng = np.random.RandomState(80)
+    prompts = [rng.randint(1, cfg.vocab_size, size=8 + i).tolist()
+               for i in range(LOADGEN_SLOTS)]
+    specs = [(p, {"max_new_tokens": 40}) for p in prompts]
+    out = {}
+
+    def run_arm(**kw):
+        cap0 = captures(model)
+        eng = loadgen_engine(model, **kw)
+        warmup(eng)
+        res, got = drive(torch, ctr, eng, specs, f"devprof {kw or 'off'}")
+        return eng, res, got, captures(model) - cap0
+
+    off, res_off, toks_off, cap_off = run_arm()
+    release_engines([off])
+    zero, _, toks_zero, cap_zero = run_arm(devprof=True, devprof_sample=0.0)
+    if toks_zero != toks_off or zero.stats()["devprof"]["samples"]:
+        raise AssertionError("devprof at sample 0 moved the greedy tokens "
+                             "or timed a dispatch")
+    release_engines([zero])
+    devprof.reset()
+    tracing.reset()
+    tflags.set_flags({"serving_devprof": True})
+    try:
+        eng, res_on, toks_on, cap_on = run_arm(devprof=True,
+                                               devprof_sample=1.0)
+        if not cap_on == cap_zero == cap_off:
+            raise AssertionError(f"captures with devprof {cap_on} / "
+                                 f"{cap_zero}, without {cap_off}")
+        # the decode entry's event time against the trace's busy time
+        reqs = [eng.submit(p, max_new_tokens=LOADGEN_LEN - len(p) - 1)
+                for p in prompts]
+        eng.step()
+        eng.step()
+        agg = eng._devprof._entries["decode_step_paged"]
+        for attempt in range(2):
+            n0, dev0 = agg[0], agg[1]
+            c0 = ctr.read()["paged_attention"]
+            busy, names = device_trace(
+                torch, lambda: [eng.step() for _ in range(PROFILE_TRACED)])
+            launched = ctr.read()["paged_attention"] - c0
+            seen = sum(n for name, n in names.items()
+                       if "paged_attention_kernel" in name)
+            if launched == seen == PROFILE_TRACED * cfg.num_layers:
+                break
+            log(f"  devprof decode steps: {seen} paged kernels in the "
+                f"trace, {launched} counted"
+                + ("; tracing again" if attempt == 0 else ""))
+        else:
+            raise AssertionError("devprof decode steps: the trace and the "
+                                 "launch counts disagree")
+        busy /= PROFILE_TRACED
+        event_ms_ = (agg[1] - dev0) / (agg[0] - n0) * 1e3
+        if event_ms_ < 0.9 * busy:
+            raise AssertionError(f"decode event time {event_ms_:.4f} ms < "
+                                 f"0.9 x busy {busy:.4f} ms")
+        for r in reqs:
+            eng.cancel(r.id)
+        eng.run_until_idle()
+        # blame on every finished trace
+        finished = [tr.rid for tr in tracing.store().finished()]
+        split = 0
+        for rid in finished:
+            info = tracing.get(rid)
+            if info is None or info["outcome"] != "done":
+                continue
+            bl = info["blame_ms"]
+            if abs(sum(bl.values()) - info["e2e_ms"]) > 1e-6:
+                raise AssertionError(f"blame of {rid}: {bl} vs e2e "
+                                     f"{info['e2e_ms']}")
+            split += "decode_device" in bl
+        if not split:
+            raise AssertionError("no trace split decode into device/host")
+        # a loadgen report through the ledger and the regress gate
+        lg = LoadGen(mode="poisson", rate=40.0, duration=0.5, seed=1,
+                     vocab_size=cfg.vocab_size, prompt_tokens=(4, 12),
+                     new_tokens=(4, 12))
+        report = lg.run(eng)
+        with tempfile.TemporaryDirectory() as tmp:
+            ledger = os.path.join(tmp, "ledger.jsonl")
+            base = os.path.join(tmp, "baseline.json")
+            row = perf_ledger.append_report(ledger, report, run="loadgen",
+                                            label="chip_smoke 5j")
+            perf_regress.write_baseline(base, row)
+            gate = perf_regress.main([ledger, "--baseline", base])
+        if gate != 0:
+            raise AssertionError("perf_regress failed on its own baseline")
+        st = eng.stats()["devprof"]
+    finally:
+        tflags.set_flags({"serving_devprof": False})
+    costs = devprof.cost_table()
+    entries = []
+    for e in st["entries"]:
+        c = costs.get(e["entry"], {})
+        entries.append({**e, "out_bytes": c.get("out_bytes"),
+                        "host_share": (e["host_ms_mean"] /
+                                       (e["host_ms_mean"] +
+                                        e["device_ms_mean"]))})
+        log(f"  [{card}] {e['entry']}: {e['samples']} samples, device "
+            f"{e['device_ms_mean']:.4f} ms (CUDA events), host "
+            f"{e['host_ms_mean']:.4f} ms, {e['flops']:.4e} FLOPs, "
+            f"{e['hbm_bytes']:.4e} B, MFU {e['mfu']}, HBM share "
+            f"{e['hbm_util']}, {e['verdict']}")
+    out.update({
+        "entries": entries, "device_frac": st["device_frac"],
+        "host_overhead_share": st["host_overhead_share"], "mfu": st["mfu"],
+        "peak_flops": eng._devprof.peak_flops,
+        "peak_bytes_per_s": eng._devprof.peak_bytes_per_s,
+        "decode_event_ms": event_ms_, "decode_busy_ms": busy,
+        "blame_split_traces": split, "ledger_row": row,
+        "captures": {"off": cap_off, "sample0": cap_zero, "on": cap_on},
+        "cost_digest": devprof.cost_digest(),
+        "launches": res_on["launches"], "routes": res_on["routes"]})
+    log(f"  [{card}] devprof: device share {st['device_frac']}, host "
+        f"overhead share {st['host_overhead_share']}, MFU {st['mfu']} "
+        f"(peaks {eng._devprof.peak_flops:.3e} FLOP/s, "
+        f"{eng._devprof.peak_bytes_per_s:.3e} B/s); decode events "
+        f"{event_ms_:.4f} ms vs busy {busy:.4f} ms per step; {split} "
+        f"traces split, identity exact; captures off / 0 / 1.0: "
+        f"{cap_off} / {cap_zero} / {cap_on}; sample-0 tokens == off; "
+        f"ledger row gated against itself")
+    release_engines([eng])
+    del eng
+    devprof.reset()
+    release_graphs(torch, model)
+    del model
+    return out
+
+
 # ------------------------------------------------------------ phase 6
 #: half a unit in the last place of each 16-bit output, relative
 HALF_ULP = {"bf16": 2.0 ** -8, "f16": 2.0 ** -11}
@@ -4783,11 +5256,12 @@ def decode_graph_kernels(eng, sampled):
         ent = generation.decode_step(eng.model)
     elif eng.megastep > 1:
         ent = generation.decode_megastep_paged(
-            eng.model, eng.megastep, eng.kv_dtype, eng.attn_impl,
-            eng._lora_shape)
+            eng.model, eng.megastep, kv_dtype=eng.kv_dtype,
+            lora_shape=eng._lora_shape, attn_impl=eng.attn_impl)
     else:
-        ent = generation.decode_step_paged(eng.model, eng.kv_dtype,
-                                           eng.attn_impl, eng._lora_shape)
+        ent = generation.decode_step_paged(
+            eng.model, kv_dtype=eng.kv_dtype, lora_shape=eng._lora_shape,
+            attn_impl=eng.attn_impl)
     last = ent["graphs"]["sampled" if sampled else "greedy"].last
     return None if last is None else jit.graph_kernels(last.graph)
 
@@ -5642,6 +6116,20 @@ def main():
     tie = host_tier_serving(torch, ctr, pa, card)
     log(f"  phase 5h took {time.perf_counter() - t_tier:.1f} s")
 
+    log(f"== phase 5i: JSON-constrained decoding, gpt2-medium at megastep "
+        f"{FLEET_MEGASTEP}: greedy and sampled constrained rows beside "
+        f"plain ones, kernel against plain route; a router, a 1 x 2 "
+        f"disaggregated fleet and HTTP at {DISAGG_LAYERS} layers")
+    t_json = time.perf_counter()
+    jsn = json_serving(torch, ctr, pa, card)
+    log(f"  phase 5i took {time.perf_counter() - t_json:.1f} s")
+
+    log("== phase 5j: the device-cost observatory on phase 5e's engine, "
+        "gpt2-medium, devprof_sample 1.0")
+    t_dp = time.perf_counter()
+    dpf = devprof_serving(torch, ctr, pa, card)
+    log(f"  phase 5j took {time.perf_counter() - t_dp:.1f} s")
+
     log("== phase 6: flash kernels vs plain")
     n_flash, flash_err = check_flash(torch, fa, ctr)
     log(f"  {n_flash} cases passed, max abs err by kernel {flash_err}")
@@ -5748,13 +6236,17 @@ def main():
         r["kernel_max_abs_err"] for r in lgs["cross_pool_kill"].values()]
     promoted_errs = [r["kernel_max_abs_err"]
                      for r in tie["round_trip"].values()]
+    json_errs = [jsn[k]["b4_max_abs_err"]
+                 for k in ("kernel", "router", "disagg")]
     kernels = [entry("paged_attention", "paged_attention.cu",
                      "paddle_tpu/ops/pallas/paged_attention.py:55",
                      srv["launches"], max(worst, flt["kernel_max_abs_err"],
-                                          *handoff_errs, *promoted_errs),
+                                          *handoff_errs, *promoted_errs,
+                                          *json_errs),
                      {**main_t, "library_ms": None},
                      cases_passed=n_cases + flt["kernel_cases"] +
-                     len(handoff_errs) + len(promoted_errs),
+                     len(handoff_errs) + len(promoted_errs) +
+                     len(json_errs),
                      by_kv_dtype={kv: times[kv]
                                   for kv in ("f32", "bf16", "int8")},
                      by_shape={"decode": times["f32"],
@@ -5794,7 +6286,11 @@ def main():
                      launches_by_route_tenants=ten["routes"],
                      launches_host_tier=tie["launches"],
                      launches_by_route_host_tier=tie["routes"],
-                     promoted_tables_max_abs_err=max(promoted_errs))]
+                     promoted_tables_max_abs_err=max(promoted_errs),
+                     launches_json=jsn["launches"],
+                     json_tables_max_abs_err=max(json_errs),
+                     launches_devprof=dpf["launches"],
+                     launches_by_route_devprof=dpf["routes"])]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]
@@ -5854,7 +6350,9 @@ def main():
                       "loadgen_serving": summary(lgs),
                       "http_serving": summary(web),
                       "tenant_serving": summary(ten),
-                      "host_tier_serving": summary(tie), "fp16_gpt": f16,
+                      "host_tier_serving": summary(tie),
+                      "json_serving": summary(jsn),
+                      "devprof_serving": summary(dpf), "fp16_gpt": f16,
                       "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes, "optimizer_plane": plane,

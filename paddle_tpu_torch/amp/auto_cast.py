@@ -3,7 +3,7 @@
 Under ``auto_cast(level="O1")`` white-list ops cast their floating
 inputs to bf16 and black-list ops cast them back to float32; under
 ``"O2"`` every op outside the black list casts its floating inputs to
-bf16. The port's functions call :func:`maybe_autocast_inputs` with the
+bf16. The port's functions call :func:`autocast_inputs` with the
 op type the JAX package records for the same computation, so the two
 packages round at the same places (``torch.autocast`` keeps other lists
 and would not). The casts are ``Tensor.to``, which is differentiable:
@@ -50,7 +50,7 @@ def _cast_all(tensors, dtype):
                  and t.dtype != dtype else t for t in tensors)
 
 
-def maybe_autocast_inputs(op_type: str, *tensors):
+def autocast_inputs(op_type: str, *tensors):
     """The inputs of op ``op_type`` as the reference's autocast leaves
     them (``maybe_autocast_inputs`` in ``paddle_tpu/amp/auto_cast.py``):
     a tuple of the same length, ``None`` and non-floating entries passed
@@ -69,10 +69,14 @@ def maybe_autocast_inputs(op_type: str, *tensors):
 
 
 @contextlib.contextmanager
-def auto_cast(enable: bool = True, level: str = "O1",
+def auto_cast(enable: bool = True, custom_white_list=None,
+              custom_black_list=None, level: str = "O1",
               dtype: str = "bfloat16"):
-    """The reference's ``auto_cast`` (``amp_guard``): run the block at ``level`` ("O1" or "O2") in
-    ``dtype``; ``enable=False`` runs it at "O0" (no casts)."""
+    """The reference's ``auto_cast`` (``amp_guard``): run the block at
+    ``level`` ("O1" or "O2") in ``dtype``; ``enable=False`` runs it at
+    "O0" (no casts). The custom lists are taken and, as in the reference
+    (``paddle_tpu/amp/auto_cast.py:63``), not applied: both packages cast
+    by the fixed lists of ``lists.py``."""
     if level not in ("O0", "O1", "O2"):
         raise ValueError(f"AMP level must be O0, O1 or O2, got {level!r}")
     if dtype not in _DTYPES:

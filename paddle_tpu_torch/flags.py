@@ -440,7 +440,14 @@ define_flag("retry_budget_reserve", 10.0,
             "early failures still retry before any successes have "
             "funded the budget.")
 
-# Observability plane (observability/): the structured run log.
+# Observability plane (observability/): the compile tracker and the
+# structured run log.
+define_flag("warn_recompiles", 0,
+            "XLA compile tracker: when > 0, emit a structured "
+            "RecompileWarning (with the offending abstract shape/dtype "
+            "signature) whenever a tracked_jit function compiles more "
+            "than this many times — catches the recompile-per-token "
+            "class of bug at the first occurrence. 0 disables.")
 define_flag("runlog_dir", "",
             "Directory for the structured JSONL run log "
             "(observability.log_event); one runlog-<pid>.jsonl per "
@@ -469,3 +476,35 @@ define_flag("serving_trace_keep", 512,
             "queryable via GET /v1/requests/<id> and the exporters; "
             "older ids 404. Active (in-flight) traces are never "
             "evicted.")
+
+# The device-cost observatory (observability/devprof.py).
+define_flag("serving_devprof", False,
+            "Device-cost observatory (observability/devprof.py): on "
+            "every tracked_jit compile, capture the lowered entry's "
+            "XLA cost_analysis() (flops, HBM bytes, output bytes) "
+            "into devprof.cost_table() and the xla_cost{fn,metric} "
+            "gauges, and arm the engine's sampled device timer "
+            "(FLAGS_serving_devprof_sample). Cost capture lowers the "
+            "raw step function out-of-band, so the tracked compile "
+            "counters never move — predict_serving_compiles("
+            "devprof=True) is a validated no-op.")
+define_flag("serving_devprof_sample", 0.1,
+            "Device-timing sampling fraction under "
+            "FLAGS_serving_devprof: a deterministic hash of the "
+            "engine's dispatch counter picks which step dispatches "
+            "get a block_until_ready timer (device ms histograms, "
+            "roofline MFU/HBM-utilization gauges, host/device blame "
+            "split). Skipped dispatches keep the PR 19 async/"
+            "dispatch-ahead path untouched; 0 samples nothing (bit-"
+            "identical to devprof off on the step path).")
+define_flag("devprof_peak_flops", 0.0,
+            "Roofline peak compute (FLOP/s) the MFU gauge divides by. "
+            "0 (default) picks a nominal: on an H100 the data sheet's "
+            "dense rate for the dtype the entry's matmuls run in "
+            "(989e12 bf16/fp16, 495e12 TF32, 67e12 f32), on the CPU "
+            "1e11; any other card raises until this flag is pinned.")
+define_flag("devprof_peak_hbm_gbps", 0.0,
+            "Roofline peak memory bandwidth (GB/s) the HBM-"
+            "utilization gauge divides by. 0 (default) picks a "
+            "nominal: 3350 on an H100, 50 on the CPU; any other card "
+            "raises until this flag is pinned.")

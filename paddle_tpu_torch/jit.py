@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 import weakref
 from typing import Callable, Optional
 
@@ -207,6 +208,31 @@ def no_capture():
 def capture_enabled() -> bool:
     """False inside :func:`no_capture`."""
     return not getattr(_local, "depth", 0)
+
+
+@contextlib.contextmanager
+def timed_replays(timer):
+    """Inside this context each serving step's graph replay (or, eager,
+    its body) on the calling thread calls ``timer.begin()`` just before
+    and ``timer.end()`` just after, on the stream it runs on: the device
+    timing of ``observability/devprof.py``'s sampled dispatches. ``timer``
+    None times nothing."""
+    prev = getattr(_local, "timer", None)
+    _local.timer = timer
+    try:
+        yield
+    finally:
+        _local.timer = prev
+
+
+def _timed(run):
+    timer = getattr(_local, "timer", None)
+    if timer is None:
+        return run()
+    timer.begin()
+    out = run()
+    timer.end()
+    return out
 
 
 _streams = {}      # device -> the stream steps warm up and capture on
@@ -525,7 +551,7 @@ class _HeldGraph:
     def run(self, small):
         for buf, a in zip(self.inputs, small):
             buf.copy_(a, non_blocking=True)
-        replay(self.graph, self.delta)
+        _timed(lambda: replay(self.graph, self.delta))
         return _tree_map(torch.clone, self.outputs)
 
 
@@ -573,9 +599,13 @@ class HeldStep:
     other threads go on replaying their graphs on their own stream
     meanwhile."""
 
-    def __init__(self, body, params, traces, pool, what, lock=None):
+    def __init__(self, body, params, traces, pool, what, lock=None,
+                 on_compile=None):
         self.body, self.params = body, list(params)
         self.traces, self.pool, self.what = traces, pool, what
+        # on_compile(small, held, wall_ms): told of each specialisation
+        # (the compile tracker and devprof's cost capture)
+        self.on_compile = on_compile
         self.lock = lock if lock is not None else threading.RLock()
         self.graphs = {}          # key -> _HeldGraph
         self.signatures = set()   # CPU: input signatures seen
@@ -594,18 +624,30 @@ class HeldStep:
                 if g is not None:
                     self.last = g
                     return g.run(small)
-                return self._capture(dev, key, small, held)
+                t0 = time.perf_counter()
+                out = self._capture(dev, key, small, held)
+                self._compiled(small, held, t0)
+                return out
             self.last = None
             small = [a.to(dev) for a in small]
+            new = False
             if dev.type == "cpu":
                 sig = (tuple(_signature(a) for a in small),
                        tuple(_signature(a) for layer in held for a in layer))
                 if sig not in self.signatures:
                     self.signatures.add(sig)
                     self.traces["count"] += 1
-            out, back = self.body(*small, held)
+                    new = True
+            t0 = time.perf_counter()
+            out, back = _timed(lambda: self.body(*small, held))
+            if new:
+                self._compiled(small, held, t0)
         _check_held(held, back, self.what)
         return out
+
+    def _compiled(self, small, held, t0):
+        if self.on_compile is not None:
+            self.on_compile(small, held, (time.perf_counter() - t0) * 1e3)
 
     def forget(self, ptrs):
         """Drop the graphs that hold a tensor at one of the addresses

@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from ..amp.auto_cast import maybe_autocast_inputs
+from ..amp.auto_cast import autocast_inputs
 from ..device import resolve_device, resolve_generator
 from ..nn import functional as F
 from ..nn.layers_common import Embedding, LayerNorm, Linear
@@ -94,7 +94,7 @@ class ErnieModel(nn.Module):
     """Encoder trunk: embeddings -> TransformerEncoder -> (sequence
     output, pooled output of the first token)."""
 
-    def __init__(self, cfg: ErnieConfig, device=None, generator=None):
+    def __init__(self, cfg: ErnieConfig, *, device=None, generator=None):
         super().__init__()
         device, generator = _placement(device, generator)
         init = dict(device=device, generator=generator)
@@ -115,7 +115,7 @@ class ErnieModel(nn.Module):
         other mask is taken as additive and passed through."""
         x = self.embeddings(input_ids, token_type_ids)
         if attention_mask is not None and attention_mask.dim() == 2:
-            (keep,) = maybe_autocast_inputs(
+            (keep,) = autocast_inputs(
                 "unsqueeze2", attention_mask.to(torch.float32))
             attention_mask = (keep[:, None, None, :] - 1.0) * 1e4
         x = self.encoder(x, src_mask=attention_mask)
@@ -128,7 +128,7 @@ class ErnieForPretraining(nn.Module):
     cross-entropy, plus the SOP cross-entropy when
     ``next_sentence_label`` is given, else ``(logits, ns_logits)``."""
 
-    def __init__(self, cfg: ErnieConfig, device=None, generator=None):
+    def __init__(self, cfg: ErnieConfig, *, device=None, generator=None):
         super().__init__()
         device, generator = _placement(device, generator)
         init = dict(device=device, generator=generator)
@@ -163,8 +163,8 @@ class ErnieForPretraining(nn.Module):
 class ErnieForSequenceClassification(nn.Module):
     """A linear classifier over the pooled output."""
 
-    def __init__(self, cfg: ErnieConfig, num_classes: int = 2, device=None,
-                 generator=None):
+    def __init__(self, cfg: ErnieConfig, num_classes: int = 2, *,
+                 device=None, generator=None):
         super().__init__()
         device, generator = _placement(device, generator)
         self.ernie = ErnieModel(cfg, device=device, generator=generator)

@@ -25,10 +25,15 @@ top_k [b], top_p [b], keys [b, 2], mask [b, V])`` it replays the
 "sampled" one, which is the reference's step: every row's key is split
 and sampled rows draw (``serving/decoding.py``). The reference computes
 both branches in one step for every batch; the engine here passes
-``samp`` only when some row samples, so a greedy batch costs what it
-did before sampling was ported. The mask is held like the pools, by
-address (an all-zero device buffer: no grammar writes it), so a replay
-copies only the four small vectors.
+``samp`` only when some row samples or follows a grammar, so a greedy
+batch costs what it did before sampling was ported. The mask is held
+like the pools, by address (the engine writes its grammar rows in place
+before a replay), so a replay copies only the four small vectors.
+
+Each step reports its specialisations (a captured graph on the card, a
+new input signature on the CPU) under the reference's site names to the
+compile tracker, and with ``FLAGS_serving_devprof`` their counted cost
+to devprof (:func:`_entry_cost`).
 
 The dense steps (:func:`decode_step`, :func:`verify_step`,
 :func:`prefill_step`) run the model's fixed-capacity cache branch: the
@@ -49,7 +54,7 @@ replay and the pool's tensors held by address like the KV pools, so a
 load or an evict, written in place, captures nothing. Both graphs of an
 entry get the variant.
 
-Not ported yet: the mesh steps.
+Not ported yet: the mesh steps (``mesh=`` raises, ROADMAP A5).
 """
 
 from __future__ import annotations
@@ -63,6 +68,8 @@ import torch
 from .. import flags as _flags
 from .. import prng
 from ..jit import HeldStep
+from ..observability import compile_tracker as _ct
+from ..observability import devprof as _devprof
 from ..serving.decoding import (DecodeParams, greedy_tokens, sample_tokens,
                                 stops_advance, stops_matched, verify_tokens)
 
@@ -126,10 +133,101 @@ def _graph_pool(model):
     return pool
 
 
-def _held(model, body, traces, what):
+def _held(model, body, traces, what, site=None):
+    """A :class:`HeldStep` of ``model``; ``site = (name, labels, kind,
+    n_iter)`` reports its specialisations to the compile tracker under
+    the reference's site name, and their counted cost to devprof."""
     pool = _graph_pool(model) if model.device.type == "cuda" else None
     return HeldStep(body, model.parameters(), traces, pool, what,
-                    lock=model_trace_lock(model))
+                    lock=model_trace_lock(model),
+                    on_compile=None if site is None
+                    else _reporter(model, *site))
+
+
+def _reporter(model, name, labels, kind, n_iter):
+    def report(small, held, wall_ms):
+        sig = _ct.note_compile(name, labels, [*small, held], wall_ms)
+        if _devprof.enabled():
+            _devprof.note_cost(name, labels, sig,
+                               _entry_cost(model, kind, small, held, n_iter))
+    return report
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _entry_cost(model, kind, small, held, n_iter=1):
+    """The roofline cost of one call of a serving step from its input
+    shapes and the model's configuration: ``flops`` counts every matmul
+    (2 x rows x in x out for the q/k/v, output and MLP linears and the
+    LoRA products, the two attention products over every position the
+    block tables (or the dense caches) name, the tied logits over the
+    padded vocabulary); ``hbm_bytes`` the parameters, the named KV
+    blocks, the LoRA pages of the rows and the small inputs read once,
+    plus ``out_bytes``, the step's outputs and the KV rows it writes,
+    written once. A megastep's ``n_iter`` iterations each read the
+    parameters and the named blocks again (no on-chip memory holds
+    them across iterations). ``kind`` is ``decode``, ``verify``,
+    ``prefill`` or ``megastep``; paged steps take their tables from
+    ``small``, dense ones their capacity from the held caches."""
+    cfg = model.cfg
+    L, h, f = cfg.num_layers, cfg.hidden_size, cfg.ffn_hidden_size
+    heads, d = cfg.num_heads, cfg.head_dim
+    layers = list(held[:L])
+    extra = list(held[L:])
+    x = small[0]
+    b = int(x.shape[0])
+    q = 1 if x.dim() == 1 else int(x.shape[1])
+    tables = None
+    if kind in ("decode", "verify", "megastep") and len(small) >= 3 and \
+            small[2].dim() == 2:
+        tables = small[2]
+    elif kind == "prefill" and len(small) >= 4 and small[3].dim() == 2:
+        tables = small[3]
+    kv_elem = layers[0][0].element_size()
+    if tables is not None:
+        bs = int(layers[0][0].shape[2])
+        blocks = b * int(tables.shape[1])
+        positions = int(tables.shape[1]) * bs
+        per_block = 2 * heads * bs * d * kv_elem
+        if len(layers[0]) >= 4:
+            per_block += 2 * heads * layers[0][2].element_size()
+        kv_read = L * blocks * per_block
+    else:
+        positions = int(layers[0][0].shape[2])
+        kv_read = sum(_nbytes(a) for layer in layers for a in layer[:2])
+    rank = 0
+    lora_read = 0
+    mask_read = 0
+    for t in extra:
+        if len(t) == 1:
+            mask_read += _nbytes(t[0])          # the sampling mask
+        else:                                   # the LoRA pool
+            rank = int(t[0].shape[-1])
+            pages = int(t[0].shape[1])
+            lora_read += b * sum(_nbytes(a) // pages for a in t)
+    rows = b * q
+    flops = L * rows * 2 * h * (4 * h + 2 * f)
+    flops += L * rows * 2 * rank * (8 * h + 2 * f)
+    flops += L * 4 * b * q * positions * h
+    flops += 2 * rows * h * cfg.padded_vocab_size
+    params = sum(_nbytes(p) for p in model.parameters())
+    small_read = sum(_nbytes(a) for a in small)
+    kv_written = L * rows * 2 * h * kv_elem
+    V = cfg.vocab_size
+    if kind == "megastep":
+        out = n_iter * b * 4 + 4 * b * 4
+    elif kind == "verify":
+        out = rows * 4 + rows * V * 4 + b * (q - 1)
+    else:
+        out = b * 4 * (kind == "decode") + b * V * 4
+    if mask_read:
+        out += b * 2 * 8                        # the advanced keys
+    out += n_iter * kv_written
+    hbm = n_iter * (params + kv_read + lora_read) + small_read + mask_read
+    return {"flops": float(n_iter * flops), "hbm_bytes": float(hbm + out),
+            "out_bytes": float(out)}
 
 
 def forget_held(model, ptrs):
@@ -158,11 +256,11 @@ def _unwrap_pools(newp):
     return pools, qerr
 
 
-def _two_graphs(model, traces, what, body):
+def _two_graphs(model, traces, what, body, site=None):
     """The entry's "greedy" and "sampled" :class:`HeldStep` objects of one
     ``body(small..., held)``; the sampled one receives the mask as the
-    last held tensor and hands it back."""
-    return {mode: _held(model, body, traces, f"{what}[{mode}]")
+    last held tensor and hands it back. Both report to ``site``."""
+    return {mode: _held(model, body, traces, f"{what}[{mode}]", site)
             for mode in ("greedy", "sampled")}
 
 
@@ -202,6 +300,15 @@ def _split_held(n_small, args, lora=False):
     temp, top_k, top_p, keys = small[n_small:]
     return small[:n_small], (temp, top_k, top_p, keys, held[-1][0]), \
         held[:-1], lo
+
+
+def _no_mesh(mesh):
+    """The reference's ``mesh`` parameter: mesh/TP serving waits for a
+    multi-card run (ROADMAP A5)."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (sharded serving steps) is not ported yet (ROADMAP A5: "
+            "sharding)")
 
 
 def _lora_key(key, lora_shape):
@@ -262,7 +369,8 @@ def decode_step(model):
                 return (greedy_tokens(lg), lg), args[-1]
             nxt, keys = sample_tokens(lg, samp)
             return (nxt, lg, keys), args[-1]
-        graphs = _two_graphs(model, traces, "decode_step", body)
+        graphs = _two_graphs(model, traces, "decode_step", body,
+                             ("decode_step", {}, "decode", 1))
 
         def fn(tokens, pos, caches, samp=None):
             out = _run(graphs, [tokens, pos], caches, samp)
@@ -299,7 +407,8 @@ def verify_step(model, spec_tokens: int):
                     args[-1]
             chosen, accept, keys = verify_tokens(logits, tokens[:, 1:], samp)
             return (chosen, logits, accept, keys), args[-1]
-        graphs = _two_graphs(model, traces, f"verify_step[{k}]", body)
+        graphs = _two_graphs(model, traces, f"verify_step[{k}]", body,
+                             ("verify_step", {"k": str(k)}, "verify", 1))
 
         def fn(tokens, pos, caches, samp=None):
             out = _run(graphs, [tokens, pos], caches, samp)
@@ -333,7 +442,9 @@ def prefill_step(model, bucket: int, max_slots: int, max_len: int):
             lg = logits[torch.arange(logits.shape[0],
                                      device=logits.device), last.long()]
             return (lg,), rows
-        held = _held(model, body, traces, f"prefill[{bucket}]")
+        held = _held(model, body, traces, f"prefill[{bucket}]",
+                     ("serving_prefill", {"bucket": str(bucket)}, "prefill",
+                      1))
         pos = np.zeros(max_slots, np.int32)
 
         def fn(ids, last, rows):
@@ -364,8 +475,8 @@ def _decode_body(model, attn_impl):
     return step
 
 
-def decode_step_paged(model, kv_dtype: str = "f32", attn_impl=None,
-                      lora_shape=None):
+def decode_step_paged(model, mesh=None, kv_dtype: str = "f32",
+                      lora_shape=None, *, attn_impl=None):
     """The paged decode step's entry, ``paddle_tpu/models/generation.py
     :310``'s counterpart. Its ``fn(tokens, pos, tables, pools, samp=None)``
     takes ``tokens [b] i32``, ``pos [b] i32`` (each row's committed
@@ -379,6 +490,7 @@ def decode_step_paged(model, kv_dtype: str = "f32", attn_impl=None,
     engine. ``attn_impl`` None reads ``FLAGS_serving_attn_impl``; with
     ``lora_shape`` ``fn`` also takes ``lora`` (the module's LoRA
     contract)."""
+    _no_mesh(mesh)
     attn_impl = attn_impl or _flags.get_flag("serving_attn_impl")
     step = _decode_body(model, attn_impl)
     has_lora = lora_shape is not None
@@ -392,7 +504,8 @@ def decode_step_paged(model, kv_dtype: str = "f32", attn_impl=None,
                                               samp, lora)
             out = (nxt, lg, qerr) if samp is None else (nxt, lg, qerr, keys)
             return out, args[-1]
-        graphs = _two_graphs(model, traces, "decode_step_paged", body)
+        graphs = _two_graphs(model, traces, "decode_step_paged", body,
+                             ("decode_step_paged", {}, "decode", 1))
 
         def fn(tokens, pos, tables, pools, samp=None, lora=None):
             out = _run(graphs, [tokens, pos, tables], pools, samp, lora)
@@ -433,7 +546,9 @@ def prefill_step_paged(model, bucket: int, geometry, kv_dtype: str = "f32",
                                      device=logits.device), last.long()]
             _, qerr = _unwrap_pools(newp)
             return (lg, qerr), args[-1]
-        held = _held(model, body, traces, f"prefill_paged[{bucket}]")
+        held = _held(model, body, traces, f"prefill_paged[{bucket}]",
+                     ("serving_prefill_paged", {"bucket": str(bucket)},
+                      "prefill", 1))
 
         def fn(ids, last, pos, tables, pools, lora=None):
             small, back = [ids, last, pos, tables], list(pools)
@@ -450,8 +565,8 @@ def prefill_step_paged(model, bucket: int, geometry, kv_dtype: str = "f32",
     return step_entry(model, _lora_key(key, lora_shape), build)
 
 
-def decode_megastep_paged(model, n: int, kv_dtype: str = "f32",
-                          attn_impl=None, lora_shape=None):
+def decode_megastep_paged(model, n: int, mesh=None, kv_dtype: str = "f32",
+                          lora_shape=None, *, attn_impl=None):
     """``n`` paged decode iterations in one dispatch, the counterpart of
     ``paddle_tpu/models/generation.py:393``: on the card one graph of the
     ``n`` iterations unrolled, on the CPU a loop over the same body.
@@ -482,6 +597,7 @@ def decode_megastep_paged(model, n: int, kv_dtype: str = "f32",
         raise ValueError(
             f"decode_megastep_paged needs n >= 2, got {n}; use "
             "decode_step_paged for single steps")
+    _no_mesh(mesh)
     attn_impl = attn_impl or _flags.get_flag("serving_attn_impl")
     step = _decode_body(model, attn_impl)
     has_lora = lora_shape is not None
@@ -518,7 +634,8 @@ def decode_megastep_paged(model, n: int, kv_dtype: str = "f32",
             out = (toks, finish, tok, p, lv, rem, st, qerr)
             return (out if samp is None else (*out, keys)), args[-1]
         graphs = _two_graphs(model, traces, f"decode_megastep_paged[{n}]",
-                             body)
+                             body, ("decode_megastep_paged",
+                                    {"n": str(n)}, "megastep", n))
 
         def fn(tokens, pos, tables, pools, samp, live, budget, eos, stop,
                lora=None):
@@ -536,8 +653,9 @@ def decode_megastep_paged(model, n: int, kv_dtype: str = "f32",
                                         attn_impl), lora_shape), build)
 
 
-def verify_step_paged(model, spec_tokens: int, kv_dtype: str = "f32",
-                      attn_impl=None, lora_shape=None):
+def verify_step_paged(model, spec_tokens: int, mesh=None,
+                      kv_dtype: str = "f32", lora_shape=None, *,
+                      attn_impl=None):
     """The speculative verify step, ``paddle_tpu/models/generation.py
     :539``'s counterpart: one forward of ``tokens [b, K+1]`` (each row's
     last committed token and its K drafts) at each row's committed length
@@ -556,6 +674,7 @@ def verify_step_paged(model, spec_tokens: int, kv_dtype: str = "f32",
     if k < 1:
         raise ValueError(
             f"verify_step_paged needs spec_tokens >= 1, got {k}")
+    _no_mesh(mesh)
     attn_impl = attn_impl or _flags.get_flag("serving_attn_impl")
     has_lora = lora_shape is not None
 
@@ -576,7 +695,9 @@ def verify_step_paged(model, spec_tokens: int, kv_dtype: str = "f32",
                                                      samp)
                 out = (chosen, logits, qerr, accept, keys)
             return out, args[-1]
-        graphs = _two_graphs(model, traces, f"verify_step_paged[{k}]", body)
+        graphs = _two_graphs(model, traces, f"verify_step_paged[{k}]", body,
+                             ("verify_step_paged", {"k": str(k)}, "verify",
+                              1))
 
         def fn(tokens, pos, tables, pools, samp=None, lora=None):
             out = _run(graphs, [tokens, pos, tables], pools, samp, lora)

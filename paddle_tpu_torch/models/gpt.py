@@ -43,7 +43,7 @@ from ..device import resolve_device, resolve_generator
 from ..nn import functional as F
 from ..nn.layers_common import Dropout, Embedding, LayerNorm, Linear
 from ..amp.auto_cast import amp_state, amp_state_guard, \
-    maybe_autocast_inputs
+    autocast_inputs
 from ..device import capturing
 from ..ops.attention_ops import (_composed_attention, block_gather,
                                  block_gather_dequant, block_scatter_write,
@@ -131,7 +131,7 @@ class GPTAttention(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, cache=None, cache_pos=None, block_tables=None,
-                attn_impl=None, lora=None):
+                lora=None, *, attn_impl=None):
         """``lora`` is ``(page_ids [b] int64, Aq, Bq, Ao, Bo)``, this
         layer's slice of the paged adapter pool: the qkv and output
         projections gain their rows' deltas."""
@@ -243,7 +243,7 @@ class GPTBlock(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, x, cache=None, cache_pos=None, block_tables=None,
-                attn_impl=None, lora=None):
+                lora=None, *, attn_impl=None):
         # lora = (page_ids [b], this layer's 8 pool factors (Aq, Bq, Ao,
         # Bo, A1, B1, A2, B2)): attention takes the first four, the MLP
         # pair the rest
@@ -289,8 +289,8 @@ class GPTModel(nn.Module):
         self.ln_f = LayerNorm(cfg.hidden_size, device=device)
 
     def forward(self, input_ids, cache=None, position_offset=0,
-                cache_pos=None, block_tables=None, attn_impl=None,
-                lora=None):
+                cache_pos=None, block_tables=None, lora=None, *,
+                attn_impl=None):
         """``lora`` (cache branches only) is ``(page_ids [b], the 8
         stacked [layers, pages, ...] pool factors)``, each block taking
         its own layer."""
@@ -407,7 +407,7 @@ class GPTForCausalLM(nn.Module):
     drawn from ``generator`` (default: a generator on ``device`` seeded
     with 0), which must live on ``device``."""
 
-    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+    def __init__(self, cfg: GPTConfig, *, device=None, generator=None):
         super().__init__()
         device = resolve_device(device)
         generator = resolve_generator(device, generator)
@@ -419,8 +419,8 @@ class GPTForCausalLM(nn.Module):
         return self.gpt.wte.weight.device
 
     def forward(self, input_ids, labels=None, cache=None, position_offset=0,
-                cache_pos=None, block_tables=None, attn_impl=None,
-                lora=None):
+                cache_pos=None, block_tables=None, lora=None, *,
+                attn_impl=None):
         """Logits ``[b, s, vocab]`` (with the updated cache when one is
         given), or with ``labels`` (``[b, s]`` ids aligned with the
         logits, not shifted; -100 ignored) the mean cross-entropy loss,
@@ -432,7 +432,7 @@ class GPTForCausalLM(nn.Module):
                                 cache_pos=cache_pos,
                                 block_tables=block_tables,
                                 attn_impl=attn_impl, lora=lora)
-        h, w = maybe_autocast_inputs("matmul_v2", h, self.gpt.wte.weight)
+        h, w = autocast_inputs("matmul_v2", h, self.gpt.wte.weight)
         logits = h @ w.T                                 # tied LM head
         if self.cfg.padded_vocab_size != self.cfg.vocab_size:
             logits = logits[:, :, :self.cfg.vocab_size]

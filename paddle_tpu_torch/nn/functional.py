@@ -7,7 +7,7 @@ slices use — the counterparts of the matching lowerings in
 ``paddle_tpu/nn/functional.py``.
 
 Each casts its inputs under AMP with the op type the JAX package records
-for it (:func:`~paddle_tpu_torch.amp.maybe_autocast_inputs`): ``conv2d``
+for it (:func:`~paddle_tpu_torch.amp.autocast_inputs`): ``conv2d``
 is on the white list, ``batch_norm`` on the black list (f32 under O2),
 ``pool2d``, ``relu`` and the adds on neither (bf16 under O2). The
 convolution is ``torch.nn.functional.conv2d`` (cuDNN on the card) where
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import flags
-from ..amp.auto_cast import maybe_autocast_inputs
+from ..amp.auto_cast import autocast_inputs
 from ..ops.cuda.layer_norm import fused_layer_norm
 from ..ops.optimizer_ops import _as
 
@@ -28,13 +28,13 @@ from ..ops.optimizer_ops import _as
 def add(x, y):
     """``x + y`` as the reference's ``elementwise_add`` (cast under AMP:
     the residual stream stays bf16 under O2)."""
-    x, y = maybe_autocast_inputs("elementwise_add", x, y)
+    x, y = autocast_inputs("elementwise_add", x, y)
     return x + y
 
 
 def matmul(x, y):
     """``x @ y`` as the reference's ``matmul_v2``."""
-    x, y = maybe_autocast_inputs("matmul_v2", x, y)
+    x, y = autocast_inputs("matmul_v2", x, y)
     return x @ y
 
 
@@ -45,88 +45,131 @@ def linear(x, weight, bias=None):
     return y if bias is None else add(y, bias)
 
 
-def layer_norm(x, weight, bias, eps: float = 1e-5):
-    """LayerNorm over the last axis with the biased variance, in the
-    reference's order: ``(x - mean) * rsqrt(var + eps) * w + b``.
+def layer_norm(x, normalized_shape, weight=None, bias=None,
+               epsilon: float = 1e-5):
+    """LayerNorm over the last ``len(normalized_shape)`` axes with the
+    biased variance, in the reference's order: ``(x - mean) * rsqrt(var +
+    eps) * w + b`` (``paddle_tpu/nn/functional.py:172``); ``weight`` and
+    ``bias`` are flat ``[prod(normalized_shape)]`` or None.
 
     After the AMP cast, the JAX op's predicate (``ops/nn_ops.py:362-365``:
-    weight and bias given, which every port caller does; ``h % 128 ==
-    0``; ``use_pallas_layer_norm`` on) sends the rows to the fused
-    LayerNorm kernels; every other call takes the composed form."""
-    x, weight, bias = maybe_autocast_inputs("layer_norm", x, weight, bias)
-    if x.shape[-1] % 128 == 0 and flags.get_flag("use_pallas_layer_norm"):
-        return fused_layer_norm(x, weight, bias, eps)
-    m = x.mean(dim=-1, keepdim=True)
-    v = (x - m).square().mean(dim=-1, keepdim=True)
-    return (x - m) * torch.rsqrt(v + eps) * weight + bias
+    one normalized axis, weight and bias given, ``h % 128 == 0``,
+    ``use_pallas_layer_norm`` on) sends the rows to the fused LayerNorm
+    kernels; every other call takes the composed form."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    k = len(normalized_shape)
+    x, weight, bias = autocast_inputs("layer_norm", x, weight, bias)
+    if k == 1 and weight is not None and bias is not None and \
+            x.shape[-1] % 128 == 0 and flags.get_flag("use_pallas_layer_norm"):
+        return fused_layer_norm(x, weight, bias, epsilon)
+    axes = tuple(range(x.dim() - k, x.dim()))
+    m = x.mean(dim=axes, keepdim=True)
+    v = (x - m).square().mean(dim=axes, keepdim=True)
+    y = (x - m) * torch.rsqrt(v + epsilon)
+    nshape = x.shape[x.dim() - k:]
+    if weight is not None:
+        y = y * weight.reshape(nshape)
+    if bias is not None:
+        y = y + bias.reshape(nshape)
+    return y
 
 
 def gelu(x, approximate: bool = False):
     """GELU: the exact erf form, or the tanh form on request
     (``jax.nn.gelu``'s two forms, ``paddle_tpu/nn/functional.py:32``)."""
-    (x,) = maybe_autocast_inputs("gelu", x)
+    (x,) = autocast_inputs("gelu", x)
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
 
 
 def relu(x):
-    (x,) = maybe_autocast_inputs("relu", x)
+    (x,) = autocast_inputs("relu", x)
     return torch.relu(x)
 
 
 def tanh(x):
-    (x,) = maybe_autocast_inputs("tanh", x)
+    (x,) = autocast_inputs("tanh", x)
     return torch.tanh(x)
 
 
 def softmax(x, axis: int = -1):
-    (x,) = maybe_autocast_inputs("softmax", x)
+    (x,) = autocast_inputs("softmax", x)
     return torch.softmax(x, dim=axis)
 
 
-def dropout(x, p: float, training: bool = True):
-    """Upscale-in-train dropout (torch's bits, not the reference's);
-    identity when not training or at ``p == 0``."""
-    (x,) = maybe_autocast_inputs("dropout", x)
+DROPOUT_MODES = ("upscale_in_train", "downscale_in_infer")
+
+
+def dropout(x, p: float = 0.5, training: bool = True,
+            mode: str = "upscale_in_train"):
+    """Dropout as the reference's ``dropout`` op (``ops/nn_ops.py:438``),
+    with torch's random bits: ``"upscale_in_train"`` keeps ``x / (1 - p)``
+    in training and is the identity otherwise; ``"downscale_in_infer"``
+    keeps ``x`` unscaled in training and returns ``x * (1 - p)``
+    otherwise. ``p == 0`` draws nothing."""
+    if mode not in DROPOUT_MODES:
+        raise ValueError(f"dropout mode must be one of {DROPOUT_MODES}, "
+                         f"got {mode!r}")
+    (x,) = autocast_inputs("dropout", x)
     if not training or p == 0.0:
-        return x
-    return torch.nn.functional.dropout(x, p, training=True)
+        return x if mode == "upscale_in_train" else x * (1.0 - p)
+    if mode == "upscale_in_train":
+        return torch.nn.functional.dropout(x, p, training=True)
+    keep = torch.empty_like(x).bernoulli_(1.0 - p)
+    return x * keep
 
 
-def cross_entropy(input, label, ignore_index: int = -100,
-                  reduction: str = "mean"):
-    """Softmax cross-entropy of logits ``input [N, C]`` against hard
-    labels ``label`` (``[N]`` or ``[N, 1]``), the counterpart of
-    ``paddle_tpu/nn/functional.py:218``. Labels equal to
-    ``ignore_index`` contribute 0, and ``"mean"`` divides by the number
-    of labels that are not ignored (at least 1), as the reference's
-    ``nll_loss`` total weight does. ``"none"`` returns the ``[N, 1]``
-    per-row losses."""
+def cross_entropy(input, label, soft_label: bool = False,
+                  ignore_index: int = -100, reduction: str = "mean",
+                  axis: int = -1):
+    """Softmax cross-entropy of logits ``input`` along ``axis``, the
+    counterpart of ``paddle_tpu/nn/functional.py:218`` (its
+    ``softmax_with_cross_entropy`` at ``ops/nn_ops.py:191``). With hard
+    labels (``label`` of ``input``'s shape but 1 along ``axis``, or that
+    axis dropped) a label equal to ``ignore_index`` contributes 0, and
+    ``"mean"`` divides by the number of labels that are not ignored (at
+    least 1), as the reference's ``nll_loss`` total weight does. With
+    ``soft_label`` the label is a distribution of ``input``'s shape, each
+    row's loss ``-sum(label * log_softmax(input))``, and ``"mean"`` is
+    over rows. ``"none"`` returns the per-row losses, 1 along ``axis``."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean, sum or none, got "
                          f"{reduction!r}")
-    (logits,) = maybe_autocast_inputs("softmax_with_cross_entropy", input)
-    lbl = label
-    if lbl.dim() == logits.dim() and lbl.shape[-1] == 1:
-        lbl = lbl.squeeze(-1)
-    lbl = lbl.long()
-    valid = lbl != ignore_index
-    safe = torch.where(valid, lbl, 0).clamp(0, logits.shape[-1] - 1)
-    logp = torch.log_softmax(logits, dim=-1)
-    picked = logp.gather(-1, safe[..., None])
-    loss = torch.where(valid[..., None], -picked, 0.0)
+    if soft_label:
+        logits, lbl = autocast_inputs("softmax_with_cross_entropy",
+                                            input, label)
+        logp = torch.log_softmax(logits, dim=axis)
+        loss = -(lbl * logp).sum(dim=axis, keepdim=True)
+    else:
+        (logits,) = autocast_inputs("softmax_with_cross_entropy",
+                                          input)
+        lbl = label
+        if lbl.dim() == logits.dim() and lbl.shape[axis] == 1:
+            lbl = lbl.squeeze(axis)
+        lbl = lbl.long()
+        valid = lbl != ignore_index
+        safe = torch.where(valid, lbl, 0).clamp(0, logits.shape[axis] - 1)
+        logp = torch.log_softmax(logits, dim=axis)
+        picked = logp.gather(axis, safe.unsqueeze(axis))
+        loss = torch.where(valid.unsqueeze(axis), -picked, 0.0)
     if reduction == "none":
         return loss
-    (loss,) = maybe_autocast_inputs("reduce_sum", loss)
+    if soft_label and reduction == "mean":
+        (loss,) = autocast_inputs("reduce_mean", loss)
+        return loss.mean()
+    (loss,) = autocast_inputs("reduce_sum", loss)
     total = loss.sum()
+    if soft_label:
+        return total
     if reduction == "sum":
         return total
-    (count,) = maybe_autocast_inputs("reduce_sum", valid.float())
-    count, one = maybe_autocast_inputs(
+    (count,) = autocast_inputs("reduce_sum", valid.float())
+    count, one = autocast_inputs(
         "elementwise_max", count.sum(),
         torch.ones((), dtype=torch.float32, device=count.device))
     denom = torch.maximum(count, one).to(total.dtype)
-    total, denom = maybe_autocast_inputs("elementwise_div", total, denom)
+    total, denom = autocast_inputs("elementwise_div", total, denom)
     return total / denom
 
 
@@ -166,7 +209,7 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
     """2-D convolution with an OIHW filter (in either data format, as
     the reference's), then the bias as an ``elementwise_add`` over the
     channel axis."""
-    x, weight = maybe_autocast_inputs("conv2d", x, weight)
+    x, weight = autocast_inputs("conv2d", x, weight)
     pad, explicit = _padding(padding)
     xin = _nchw(x, data_format)
     if explicit is not None:
@@ -177,13 +220,13 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1,
     if bias is None:
         return y
     shape = [1, -1, 1, 1] if data_format != "NHWC" else [1, 1, 1, -1]
-    y, bias = maybe_autocast_inputs("elementwise_add", y, bias)
+    y, bias = autocast_inputs("elementwise_add", y, bias)
     return y + bias.reshape(shape)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False):
     """Max pooling over NCHW windows, padding with -inf."""
-    (x,) = maybe_autocast_inputs("pool2d", x)
+    (x,) = autocast_inputs("pool2d", x)
     pad, explicit = _padding(padding)
     if explicit is not None:
         x = torch.nn.functional.pad(x, explicit, value=float("-inf"))
@@ -197,7 +240,7 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
                exclusive=True):
     """Average pooling over NCHW windows; ``exclusive`` leaves the
     padding out of each window's count."""
-    (x,) = maybe_autocast_inputs("pool2d", x)
+    (x,) = autocast_inputs("pool2d", x)
     return torch.nn.functional.avg_pool2d(
         x, _pair(kernel_size), _pair(stride or kernel_size), _pair(padding),
         ceil_mode=ceil_mode, count_include_pad=not exclusive)
@@ -208,7 +251,7 @@ def adaptive_avg_pool2d(x, output_size):
     reference raises otherwise). The 1 x 1 case is the mean over H and W,
     whose backward is deterministic on the card (torch's
     ``adaptive_avg_pool2d`` backward is not)."""
-    (x,) = maybe_autocast_inputs("pool2d", x)
+    (x,) = autocast_inputs("pool2d", x)
     oh, ow = _pair(output_size)
     h, w = x.shape[2], x.shape[3]
     if h % oh or w % ow:
@@ -228,10 +271,10 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
     written in place into ``running_mean`` / ``running_var`` (torch's
     own update would weight the batch by ``momentum`` and take the
     unbiased variance). In eval the running statistics normalize."""
-    x, weight, bias = maybe_autocast_inputs("batch_norm", x, weight, bias)
+    x, weight, bias = autocast_inputs("batch_norm", x, weight, bias)
     xin = x.movedim(-1, 1) if data_format == "NHWC" else x
     if not training:
-        (rm, rv) = maybe_autocast_inputs("batch_norm", running_mean,
+        (rm, rv) = autocast_inputs("batch_norm", running_mean,
                                          running_var)
         y = torch.nn.functional.batch_norm(xin, rm, rv, weight, bias,
                                            training=False, eps=epsilon)
@@ -250,12 +293,12 @@ def batch_norm(x, running_mean, running_var, weight, bias, training=False,
 def reshape(x, shape):
     """The reference's ``reshape2``: a 0 in ``shape`` copies that axis of
     ``x``."""
-    (x,) = maybe_autocast_inputs("reshape2", x)
+    (x,) = autocast_inputs("reshape2", x)
     return x.reshape([x.shape[i] if d == 0 else d
                       for i, d in enumerate(shape)])
 
 
 def flatten(x, start_axis=0, stop_axis=-1):
     """The reference's ``flatten_contiguous_range``."""
-    (x,) = maybe_autocast_inputs("flatten_contiguous_range", x)
+    (x,) = autocast_inputs("flatten_contiguous_range", x)
     return x.flatten(start_axis, stop_axis)

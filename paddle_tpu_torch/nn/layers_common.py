@@ -19,7 +19,7 @@ import math
 import torch
 from torch import nn
 
-from ..amp.auto_cast import maybe_autocast_inputs
+from ..amp.auto_cast import autocast_inputs
 from . import functional as F
 
 
@@ -28,14 +28,31 @@ def _normal(shape, std, device, generator):
     return nn.Parameter(w.normal_(0.0, std, generator=generator))
 
 
+def _wants(name: str, attr, bias: bool = False) -> bool:
+    """Whether a ``weight_attr`` / ``bias_attr`` asks for its parameter:
+    None and True do, False drops a bias (the reference's
+    ``ParamAttr._to_attr``). A ``ParamAttr``, name or initializer (and a
+    dropped weight) raise: the port draws parameters from its own
+    generator and has no ``ParamAttr`` (ROADMAP A7)."""
+    if attr is None or attr is True:
+        return True
+    if attr is False and bias:
+        return False
+    raise NotImplementedError(
+        f"{name}={attr!r} is not ported: parameter attributes wait for "
+        "ROADMAP A7 (the static-graph plane)")
+
+
 class Linear(nn.Module):
     """``y = x @ W + b``; W ``[in, out]`` drawn from N(0, std²) when
     ``std`` is given, else Xavier-uniform, U(-l, l) with ``l = sqrt(6 /
     (in + out))`` (``paddle_tpu/initializer.py:77-94``); b zero."""
 
-    def __init__(self, in_features: int, out_features: int, *,
+    def __init__(self, in_features: int, out_features: int,
+                 weight_attr=None, bias_attr=None, name=None, *,
                  std: float = None, device, generator: torch.Generator):
         super().__init__()
+        _wants("weight_attr", weight_attr)
         if std is None:
             limit = math.sqrt(6.0 / (in_features + out_features))
             w = torch.empty((in_features, out_features), device=device)
@@ -44,24 +61,34 @@ class Linear(nn.Module):
         else:
             self.weight = _normal((in_features, out_features), std, device,
                                   generator)
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            out_features, device=device)) if _wants(
+                "bias_attr", bias_attr, bias=True) else None
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis (biased variance); weight one, bias
-    zero."""
+    """LayerNorm over the last ``len(normalized_shape)`` axes (biased
+    variance); weight one, bias zero (none with ``bias_attr=False``)."""
 
-    def __init__(self, n: int, eps: float = 1e-5, *, device):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, *, device):
         super().__init__()
-        self.eps = eps
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        n = math.prod(self._normalized_shape)
+        _wants("weight_attr", weight_attr)
         self.weight = nn.Parameter(torch.ones(n, device=device))
-        self.bias = nn.Parameter(torch.zeros(n, device=device))
+        self.bias = nn.Parameter(torch.zeros(n, device=device)) if _wants(
+            "bias_attr", bias_attr, bias=True) else None
 
     def forward(self, x):
-        return F.layer_norm(x, self.weight, self.bias, self.eps)
+        return F.layer_norm(x, self._normalized_shape, self.weight,
+                            self.bias, self._epsilon)
 
 
 class Embedding(nn.Module):
@@ -70,12 +97,15 @@ class Embedding(nn.Module):
     reference's ``lookup_table_v2`` is, so rows come out in bf16 and the
     gradient of repeated ids accumulates in bf16 before it returns to
     the f32 table. ``padding_idx`` (negative counts from the end) starts
-    as a zero row and receives no gradient, as in the reference."""
+    as a zero row and receives no gradient, as in the reference.
+    ``sparse`` is accepted and has no effect, as in the reference."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 padding_idx: int = None, *, std: float = 1.0, device,
+                 padding_idx: int = None, sparse: bool = False,
+                 weight_attr=None, *, std: float = 1.0, device,
                  generator: torch.Generator):
         super().__init__()
+        _wants("weight_attr", weight_attr)
         self.weight = _normal((num_embeddings, embedding_dim), std, device,
                               generator)
         if padding_idx is not None and padding_idx < 0:
@@ -85,26 +115,30 @@ class Embedding(nn.Module):
             with torch.no_grad():
                 self.weight[padding_idx] = 0.0
 
-    def forward(self, ids):
-        (weight,) = maybe_autocast_inputs("lookup_table_v2", self.weight)
-        rows = weight[ids]
+    def forward(self, x):
+        (weight,) = autocast_inputs("lookup_table_v2", self.weight)
+        rows = weight[x]
         if self.padding_idx is None:
             return rows
-        pad = (ids == self.padding_idx)[..., None]
+        pad = (x == self.padding_idx)[..., None]
         return torch.where(pad, rows.detach(), rows)
 
 
 class Dropout(nn.Module):
-    """Identity in eval mode or at p = 0 (every serving path)."""
+    """:func:`~.functional.dropout` in ``mode``; at ``p == 0`` (every
+    serving path) or in eval mode under ``"upscale_in_train"``, the
+    identity."""
 
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p=0.5, mode="upscale_in_train"):
         super().__init__()
+        if mode not in F.DROPOUT_MODES:
+            raise ValueError(f"dropout mode must be one of "
+                             f"{F.DROPOUT_MODES}, got {mode!r}")
         self.p = float(p)
+        self.mode = mode
 
     def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        return torch.nn.functional.dropout(x, self.p, training=True)
+        return F.dropout(x, self.p, training=self.training, mode=self.mode)
 
 
 class Conv2D(nn.Module):
@@ -114,10 +148,11 @@ class Conv2D(nn.Module):
     none with ``bias_attr=False``."""
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, dilation=1, groups=1, bias_attr=None,
-                 data_format="NCHW", *, device,
+                 padding=0, dilation=1, groups=1, weight_attr=None,
+                 bias_attr=None, data_format="NCHW", *, device,
                  generator: torch.Generator):
         super().__init__()
+        _wants("weight_attr", weight_attr)
         k = [kernel_size] * 2 if isinstance(kernel_size, int) \
             else list(kernel_size)
         self._stride, self._padding = stride, padding
@@ -130,8 +165,9 @@ class Conv2D(nn.Module):
         w = torch.empty(shape, device=device)
         self.weight = nn.Parameter(w.uniform_(-limit, limit,
                                               generator=generator))
-        self.bias = None if bias_attr is False else nn.Parameter(
-            torch.zeros(out_channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            out_channels, device=device)) if _wants(
+                "bias_attr", bias_attr, bias=True) else None
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self._stride,
@@ -147,8 +183,11 @@ class BatchNorm2D(nn.Module):
     names, updated in place in training."""
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
-                 data_format="NCHW", *, device):
+                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
+                 device):
         super().__init__()
+        _wants("weight_attr", weight_attr)
+        _wants("bias_attr", bias_attr)
         self._momentum, self._epsilon = momentum, epsilon
         self._data_format = data_format
         self.weight = nn.Parameter(torch.ones(num_features, device=device))
@@ -212,18 +251,12 @@ class Flatten(nn.Module):
 
 
 class CrossEntropyLoss(nn.Module):
-    """:func:`~.functional.cross_entropy` of logits against hard labels
-    (``soft_label`` and an ``axis`` other than the last are not
-    ported)."""
+    """:func:`~.functional.cross_entropy` with the layer's arguments."""
 
     def __init__(self, soft_label=False, ignore_index=-100,
                  reduction="mean", axis=-1):
         super().__init__()
-        if soft_label or axis != -1:
-            raise NotImplementedError("CrossEntropyLoss: soft labels and "
-                                      "axis != -1 are not ported")
-        self._ignore_index, self._reduction = ignore_index, reduction
+        self._args = (soft_label, ignore_index, reduction, axis)
 
     def forward(self, input, label):
-        return F.cross_entropy(input, label, self._ignore_index,
-                               self._reduction)
+        return F.cross_entropy(input, label, *self._args)

@@ -23,23 +23,37 @@ from . import functional as F
 from .layers_common import Dropout, LayerNorm, Linear
 
 
+def _a4(what: str):
+    return NotImplementedError(
+        f"MultiHeadAttention {what} is not ported yet (ROADMAP A4: the "
+        "rest of nn/transformer.py)")
+
+
 class MultiHeadAttention(nn.Module):
     """Self-attention over a ``[batch, seq, embed]`` input: q/k/v
-    projections of the same rows (the reference's separate key/value
-    inputs and ``kdim``/``vdim`` wait for a ported model that uses them);
-    ``attn_mask`` is additive, broadcastable to ``[b, heads, s, s]``."""
+    projections of the same rows; ``attn_mask`` is additive,
+    broadcastable to ``[b, heads, s, s]``. The reference's separate
+    key/value inputs, ``kdim``/``vdim``, ``need_weights`` and the caches
+    raise (ROADMAP A4)."""
 
-    def __init__(self, embed_dim, num_heads, dropout=0.0, *, device,
-                 generator):
+    def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, *, device, generator):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
+        if (kdim or embed_dim) != embed_dim or (vdim or embed_dim) != \
+                embed_dim:
+            raise _a4("kdim/vdim")
+        if need_weights:
+            raise _a4("need_weights")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
-        init = dict(device=device, generator=generator)
+        init = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                    device=device, generator=generator)
         self.q_proj = Linear(embed_dim, embed_dim, **init)
         self.k_proj = Linear(embed_dim, embed_dim, **init)
         self.v_proj = Linear(embed_dim, embed_dim, **init)
@@ -49,7 +63,13 @@ class MultiHeadAttention(nn.Module):
         b, s, _ = x.shape
         return x.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
 
-    def forward(self, x, attn_mask=None):
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
+        if any(t is not None and t is not query for t in (key, value)):
+            raise _a4("key/value inputs other than the query")
+        if cache is not None:
+            raise _a4("cache")
+        x = query
         q = self._split_heads(self.q_proj(x))
         k = self._split_heads(self.k_proj(x))
         v = self._split_heads(self.v_proj(x))
@@ -74,16 +94,19 @@ class TransformerEncoderLayer(nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, *, device, generator):
+                 normalize_before=False, weight_attr=None, bias_attr=None, *,
+                 device, generator):
         super().__init__()
         self._config = dict(
             d_model=d_model, nhead=nhead, dim_feedforward=dim_feedforward,
             dropout=dropout, activation=activation, attn_dropout=attn_dropout,
             act_dropout=act_dropout, normalize_before=normalize_before,
-            device=device, generator=generator)
+            weight_attr=weight_attr, bias_attr=bias_attr, device=device,
+            generator=generator)
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
-        init = dict(device=device, generator=generator)
+        init = dict(weight_attr=weight_attr, bias_attr=bias_attr,
+                    device=device, generator=generator)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
                                             **init)
@@ -96,12 +119,14 @@ class TransformerEncoderLayer(nn.Module):
         self.act_dropout = Dropout(act_dropout)
         self.activation = getattr(F, activation)
 
-    def forward(self, src, src_mask=None):
+    def forward(self, src, src_mask=None, cache=None):
+        if cache is not None:
+            raise _a4("cache")
         residual = src
         if self.normalize_before:
             src = self.norm1(src)
         src = F.add(residual, self.dropout1(
-            self.self_attn(src, src_mask)))
+            self.self_attn(src, attn_mask=src_mask)))
         if not self.normalize_before:
             src = self.norm1(src)
         residual = src
@@ -128,7 +153,9 @@ class TransformerEncoder(nn.Module):
         self.num_layers = num_layers
         self.norm = norm
 
-    def forward(self, src, src_mask=None):
+    def forward(self, src, src_mask=None, cache=None):
+        if cache is not None:
+            raise _a4("cache")
         for layer in self.layers:
             src = layer(src, src_mask)
         return src if self.norm is None else self.norm(src)

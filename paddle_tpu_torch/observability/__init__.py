@@ -6,16 +6,20 @@ counterpart of ``paddle_tpu/observability``:
 - :mod:`.tracing` per-request traces and their blame attribution
 - :mod:`.export`  Prometheus text and JSON snapshot exporters (served at
   ``GET /metrics`` by ``serving.http.ServingHTTPServer``)
+- :mod:`.compile_tracker` the serving steps' compiles (a captured CUDA
+  graph on the card, a new input signature on the CPU), under the
+  reference's ``xla_compiles`` / ``xla_compile_ms`` names
+- :mod:`.devprof` the device-cost observatory: counted step costs,
+  sampled device timing, roofline verdicts and the decode blame split
 
 ``paddle_tpu_torch.monitor`` (the STAT_* counter API) is a thin shim
-over the registry here. Not ported: the compile tracker (a captured
-graph is counted by ``traces["count"]`` instead, so the exports have no
-compile families) and devprof (ROADMAP A2).
+over the registry here.
 """
 
 from __future__ import annotations
 
-from . import export, metrics, runlog, tracing
+from . import compile_tracker, devprof, export, metrics, runlog, tracing
+from .compile_tracker import RecompileWarning, compiles, reset_compiles
 from .export import prometheus_text, snapshot, validate_prometheus_text
 from .metrics import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,
                       MetricsRegistry)
@@ -38,7 +42,8 @@ def histogram(name: str, help_str: str = "", buckets=None) -> Histogram:
 
 
 __all__ = [
-    "export", "metrics", "runlog", "tracing",
+    "compile_tracker", "devprof", "export", "metrics", "runlog", "tracing",
+    "RecompileWarning", "compiles", "reset_compiles",
     "prometheus_text", "snapshot", "validate_prometheus_text",
     "MetricsRegistry", "Counter", "Gauge", "Histogram", "DEFAULT_BUCKETS",
     "log_event", "recent", "counter", "gauge", "histogram",

@@ -11,12 +11,11 @@ STAT names may hold characters Prometheus forbids (the fault sites are
 dotted, e.g. ``STAT_fault_serving.handoff``); they stay verbatim in the
 registry and are sanitized only here, at render time.
 
-The reference's snapshot also carries its XLA compile tracker's records
-and its devprof cost table. The port has neither (a captured graph is
-the port's compile, counted by the step cache's ``traces["count"]``;
-devprof waits in ROADMAP A2), so its snapshot holds the registry alone,
-and ``/metrics`` has no compile-tracker families: a deliberate
-divergence (ROADMAP.md queue C).
+The snapshot also carries the compile tracker's records (a captured
+graph on the card, a new input signature on the CPU: the port's compile,
+under the reference's ``xla_*`` names) and devprof's cost table, as the
+reference's does; the compile and devprof families live in the registry,
+so ``/metrics`` renders them with the rest.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from __future__ import annotations
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
+from . import compile_tracker as _ct
 from . import metrics as _metrics
 
 _NAME_OK = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
@@ -145,8 +145,9 @@ def validate_prometheus_text(text: str) -> int:
 def snapshot(registry: Optional[_metrics.MetricsRegistry] = None
              ) -> Dict[str, Any]:
     """JSON-safe snapshot: counters/gauges by value, histograms by
-    count/sum/min/max + derived p50/p95/p99. No raw samples anywhere,
-    so it is always small."""
+    count/sum/min/max + derived p50/p95/p99, plus the compile records
+    and the devprof cost table. No raw samples anywhere, so it is always
+    small."""
     reg = registry if registry is not None else _metrics.DEFAULT
 
     def skey(name: str, labels) -> str:
@@ -173,4 +174,12 @@ def snapshot(registry: Optional[_metrics.MetricsRegistry] = None
                 out["gauges"][k] = series.value
             else:
                 out["counters"][k] = series.value
+    out["compiles"] = {
+        qual: {"count": rec["count"], "total_ms": rec["total_ms"],
+               "last_signature": rec["last_signature"]}
+        for qual, rec in _ct.compiles().items()}
+    # the devprof cost table rides every snapshot (an empty dict while
+    # the observatory is off)
+    from . import devprof as _devprof
+    out["device_costs"] = _devprof.cost_table()
     return out

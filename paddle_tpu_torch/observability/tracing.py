@@ -1,7 +1,7 @@
 """Per-request distributed tracing with tail-latency blame attribution,
 the counterpart of ``paddle_tpu/observability/tracing.py``, kept equal
-to it line for line in what it computes and exports (the device-cost
-observatory is not ported yet, so ``_devprof_entries`` is empty).
+to it line for line in what it computes and exports, the device-cost
+observatory's roofline rows included.
 
 Every request admitted by the serving plane carries a trace: an ordered
 list of **marks** ``(kind, t, track)`` recorded host-side on the
@@ -419,10 +419,10 @@ class TraceStore:
     @staticmethod
     def _devprof_entries() -> List[dict]:
         """Roofline rows of the device-cost observatory, embedded in
-        both export formats. The observatory is not ported, so there are
-        none, and the export bytes are the reference's with devprof
-        off."""
-        return []
+        both export formats (none while nothing sampled, so a
+        devprof-off export's bytes are unchanged)."""
+        from . import devprof as _devprof
+        return _devprof.roofline_entries()
 
     @staticmethod
     def _track_names(rows) -> Dict[str, str]:

@@ -24,7 +24,7 @@ import math
 import torch
 
 from .. import flags
-from ..amp.auto_cast import maybe_autocast_inputs
+from ..amp.auto_cast import autocast_inputs
 from .cuda.flash_attention import flash_attention, pick_block
 from .quant_ops import dequantize_int8, quantize_int8
 
@@ -248,7 +248,7 @@ def fused_attention_qkv(q, k, v, mask=None, causal=False, scale=None):
     (their plain versions on CPU tensors) and raise if those refuse them;
     nothing is caught. Every other call takes the composed form. The
     ``seq_axis`` ring route is not ported."""
-    q, k, v, mask = maybe_autocast_inputs("fused_attention_qkv", q, k, v,
+    q, k, v, mask = autocast_inputs("fused_attention_qkv", q, k, v,
                                           mask)
     scale = scale or (1.0 / math.sqrt(q.shape[-1]))
     if flash_route(q, k, mask):

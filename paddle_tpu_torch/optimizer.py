@@ -227,10 +227,15 @@ class Optimizer:
     def get_lr(self) -> float:
         return self._current_lr()
 
-    def set_lr(self, value):
+    def set_lr(self, value, scope=None):
         """Set a constant learning rate (replacing a scheduler, as the
         reference does), in place: a captured step reads it at its next
-        replay."""
+        replay. ``scope`` is the reference's static-Program scope, which
+        waits for ROADMAP A7."""
+        if scope is not None:
+            raise NotImplementedError(
+                "set_lr(scope=) writes a static Program's scope, not "
+                "ported yet (ROADMAP A7: the static-graph plane)")
         self._learning_rate = float(value)
         self._refresh_lr()
 

@@ -1,10 +1,10 @@
 """Serving plane of the port: the continuous-batching engine over the
 block-paged or the dense slotted KV cache, multi-tenant paged LoRA, the
 host KV tier, the replica router in front of several engines, the
-disaggregated prefill/decode fleet and the HTTP front end (counterpart of
-``paddle_tpu/serving``)."""
+disaggregated prefill/decode fleet, the HTTP front end and the JSON
+grammar of constrained decoding (counterpart of ``paddle_tpu/serving``)."""
 
-from .decoding import DecodeParams
+from .decoding import DecodeParams, JsonGrammar, json_token_strings
 from .disagg import DecodeEngine, DisaggRouter, HandoffQueue, PrefillEngine
 from .engine import QueueFullError, Request, ServingEngine
 from .http import ServingHTTPServer
@@ -15,7 +15,8 @@ from .router import HEALTH_STATES, AutoscalePolicy, ReplicaRouter
 
 __all__ = ["AutoscalePolicy", "BlockAllocator", "BlockKVCache", "BlockPool",
            "DecodeEngine", "DecodeParams", "DisaggRouter", "HEALTH_STATES",
-           "HandoffQueue", "HostBlockStore", "LoRAPool", "PrefillEngine",
+           "HandoffQueue", "HostBlockStore", "JsonGrammar", "LoRAPool",
+           "PrefillEngine",
            "QueueFullError", "ReplicaRouter", "Request", "ServingEngine",
            "ServingHTTPServer", "SessionStore", "SlotKVCache", "TierManager",
-           "make_adapter"]
+           "json_token_strings", "make_adapter"]

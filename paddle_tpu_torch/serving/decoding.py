@@ -1,9 +1,11 @@
 """Per-request decoding — the counterpart of ``paddle_tpu/serving/
-decoding.py`` but its JSON grammar: the :class:`DecodeParams` recipe, the
-sampling chain the compiled steps run (temperature, top-k, top-p, a
-per-request threefry stream, rejection-sampled speculative verify), the
-incremental stop-sequence matcher and its device tables, which the
-decode megastep advances inside its graph.
+decoding.py``: the :class:`DecodeParams` recipe, the sampling chain the
+compiled steps run (temperature, top-k, top-p, a per-request threefry
+stream, rejection-sampled speculative verify), the incremental
+stop-sequence matcher and its device tables, which the decode megastep
+advances inside its graph, and the JSON grammar (:class:`JsonGrammar`,
+:class:`JsonCursor`), host code whose cursors give constrained requests
+their additive mask rows.
 
 A request's random stream is a threefry key (:mod:`paddle_tpu_torch.prng`,
 bit-equal to ``jax.random``) derived from its seed alone and split once
@@ -13,9 +15,10 @@ batch, slot or engine, and the same as the JAX engine does.
 The sampled steps take the ``samp`` tuple ``(temperature [b] f32,
 top_k [b] i32, top_p [b] f32, keys [b, 2] int64, mask [b, V] f32)``: the
 reference's, with keys held as int64 values in [0, 2^32) and the mask
-an all-zero device buffer, since no grammar writes it. Where every row
-of a batch is greedy, the engine runs the greedy graph instead, which
-takes no ``samp`` (see ``models/generation.py``).
+the engine's own device buffer, whose rows are zero but for those of
+grammar-constrained requests. Where every row of a batch is greedy and
+unconstrained, the engine runs the greedy graph instead, which takes no
+``samp`` (see ``models/generation.py``).
 """
 
 from __future__ import annotations
@@ -213,19 +216,25 @@ def verify_tokens(logits, drafts, samp):
     return chosen, accept, carry
 
 
-def sample_first(logits_row, params: DecodeParams, key: np.ndarray):
-    """The first token of a sampled request from one prefill logits row
-    (a tensor on any device, or an array), through the same
-    :func:`sample_tokens` the steps run, with the request's own key.
-    Returns ``(token, carry_key [2] uint32)``."""
+def sample_first(logits_row, params: DecodeParams, key: np.ndarray,
+                 mask_row=None):
+    """The first token of a sampled or grammar-constrained request from
+    one prefill logits row (a tensor on any device, or an array), through
+    the same :func:`sample_tokens` the steps run, with the request's own
+    key and, for a constrained request, its additive ``[V]`` mask row (a
+    greedy one takes ``argmax(logits + mask)``). Returns ``(token,
+    carry_key [2] uint32)``."""
     lg = torch.as_tensor(logits_row).to(torch.float32)[None, :]
     dev = lg.device
+    mask = (torch.zeros_like(lg) if mask_row is None else
+            torch.as_tensor(np.asarray(mask_row, np.float32))
+            .to(dev)[None, :])
     samp = (torch.full((1,), params.temperature, dtype=torch.float32,
                        device=dev),
             torch.full((1,), params.top_k, dtype=torch.int32, device=dev),
             torch.full((1,), params.top_p, dtype=torch.float32, device=dev),
             torch.as_tensor(np.asarray(key, np.int64), device=dev)[None, :],
-            torch.zeros_like(lg))
+            mask)
     tok, carry = sample_tokens(lg, samp)
     return int(tok[0]), carry[0].cpu().numpy().astype(np.uint32)
 
@@ -360,3 +369,259 @@ def stops_matched(state, plen):
     matched (``state == plen`` with ``plen > 0``; unused pattern slots
     sit at plen 0 and never fire)."""
     return torch.any((state == plen) & (plen > 0), dim=1)
+
+
+# --------------------------------------------------------------------
+# JSON-grammar constrained decoding (host-side pushdown -> mask rows);
+# the port's own copy of paddle_tpu/serving/decoding.py:473-724
+# --------------------------------------------------------------------
+
+_DIGITS = "0123456789"
+_STRING_CHARS = "abcdefghijklmnopqrstuvwxyz0123456789_ "
+_VALUE_STARTS = '"-{[' + _DIGITS
+_ALPHABET = '{}[]:,"-.' + _DIGITS + "abcdefghijklmnopqrstuvwxyz_ "
+
+
+def json_token_strings(vocab_size: int):
+    """A canonical id -> char table covering the JSON alphabet.
+
+    The repo has no tokenizer, so constrained decoding is defined over
+    an explicit per-id string table. Token 0 stays unmapped (it backs
+    engine padding); ids 1.. cycle through the grammar alphabet so any
+    vocab with more than ``len(alphabet)`` ids can express every JSON
+    construct. Real deployments pass their tokenizer's own table: any
+    id mapping to something other than a single known char is always
+    banned."""
+    if vocab_size <= len(_ALPHABET):
+        raise ValueError(
+            f"vocab_size {vocab_size} cannot cover the "
+            f"{len(_ALPHABET)}-char JSON alphabet")
+    return [""] + [_ALPHABET[(i - 1) % len(_ALPHABET)]
+                   for i in range(1, vocab_size)]
+
+
+class JsonGrammar:
+    """A JSON grammar compiled over a token vocabulary.
+
+    The grammar is a restricted-but-valid JSON subset: objects, arrays,
+    escape-free lowercase strings, and decimal numbers. ``start()``
+    returns a per-request :class:`JsonCursor`; the engine advances it on
+    every committed token and reads a fresh additive mask row per
+    step."""
+
+    def __init__(self, token_strings: Sequence[Optional[str]]):
+        self.token_strings = list(token_strings)
+        self.vocab_size = len(self.token_strings)
+        self._by_char = {}
+        for tid, s in enumerate(self.token_strings):
+            if isinstance(s, str) and len(s) == 1:
+                self._by_char.setdefault(s, []).append(tid)
+        missing = [c for c in _ALPHABET if c not in self._by_char]
+        if missing:
+            raise ValueError(
+                f"token table cannot express JSON: no token maps to "
+                f"{missing!r}")
+        self._char_ids = {c: np.asarray(ids, np.int64)
+                          for c, ids in self._by_char.items()}
+
+    def start(self) -> "JsonCursor":
+        return JsonCursor(self)
+
+    def decode(self, token_ids: Sequence[int]) -> str:
+        """The emitted text for a token-id sequence (tests feed it
+        straight into ``json.loads``)."""
+        return "".join(self.token_strings[t] or "" for t in token_ids)
+
+
+class JsonCursor:
+    """Pushdown state for one constrained request.
+
+    States: ``value`` (expecting a value), ``string``/``key`` (inside a
+    string), ``colon``, ``num_sign``/``num_int``/``num_frac0``/
+    ``num_frac``, ``obj_first``/``obj_key``/``obj_next``,
+    ``arr_first``/``arr_next``, ``end``. The stack holds one closing
+    char per open container. Numbers are self-terminating: a
+    separator/closer char first pops the number, then re-dispatches.
+    """
+
+    __slots__ = ("_g", "_stack", "_state")
+
+    def __init__(self, grammar: JsonGrammar):
+        self._g = grammar
+        self._stack = []
+        self._state = "value"
+
+    # -- transition relation ------------------------------------------
+
+    def _pop_value(self):
+        if not self._stack:
+            self._state = "end"
+        else:
+            self._state = ("obj_next" if self._stack[-1] == "}"
+                           else "arr_next")
+
+    def _advance_char(self, ch: str):
+        st = self._state
+        if st == "value" or st == "arr_first":
+            if st == "arr_first" and ch == "]":
+                self._stack.pop()
+                self._pop_value()
+            elif ch == '"':
+                self._state = "string"
+            elif ch == "-":
+                self._state = "num_sign"
+            elif ch in _DIGITS:
+                self._state = "num_int"
+            elif ch == "{":
+                self._stack.append("}")
+                self._state = "obj_first"
+            elif ch == "[":
+                self._stack.append("]")
+                self._state = "arr_first"
+            else:
+                raise ValueError(f"char {ch!r} invalid in state {st}")
+        elif st in ("string", "key"):
+            if ch == '"':
+                if st == "key":
+                    self._state = "colon"
+                else:
+                    self._pop_value()
+            elif ch in _STRING_CHARS:
+                pass
+            else:
+                raise ValueError(f"char {ch!r} invalid in a string")
+        elif st == "colon":
+            if ch != ":":
+                raise ValueError(f"expected ':', got {ch!r}")
+            self._state = "value"
+        elif st == "num_sign":
+            if ch not in _DIGITS:
+                raise ValueError(f"expected digit after '-', got {ch!r}")
+            self._state = "num_int"
+        elif st == "num_frac0":
+            if ch not in _DIGITS:
+                raise ValueError(f"expected digit after '.', got {ch!r}")
+            self._state = "num_frac"
+        elif st in ("num_int", "num_frac"):
+            if ch in _DIGITS:
+                pass
+            elif ch == "." and st == "num_int":
+                self._state = "num_frac0"
+            else:
+                self._pop_value()
+                self._advance_char(ch)
+        elif st == "obj_first":
+            if ch == '"':
+                self._state = "key"
+            elif ch == "}":
+                self._stack.pop()
+                self._pop_value()
+            else:
+                raise ValueError(f"char {ch!r} invalid after '{{'")
+        elif st == "obj_key":
+            if ch != '"':
+                raise ValueError(f"expected '\"', got {ch!r}")
+            self._state = "key"
+        elif st == "obj_next":
+            if ch == ",":
+                self._state = "obj_key"
+            elif ch == "}":
+                self._stack.pop()
+                self._pop_value()
+            else:
+                raise ValueError(f"char {ch!r} invalid after a member")
+        elif st == "arr_next":
+            if ch == ",":
+                self._state = "value"
+            elif ch == "]":
+                self._stack.pop()
+                self._pop_value()
+            else:
+                raise ValueError(f"char {ch!r} invalid after an element")
+        else:  # end
+            raise ValueError("document already complete")
+
+    def _candidate_chars(self) -> str:
+        st, stack = self._state, self._stack
+        term = "" if not stack else "," + stack[-1]
+        if st == "value":
+            return _VALUE_STARTS
+        if st in ("string", "key"):
+            return _STRING_CHARS + '"'
+        if st == "colon":
+            return ":"
+        if st in ("num_sign", "num_frac0"):
+            return _DIGITS
+        if st == "num_int":
+            return _DIGITS + "." + term
+        if st == "num_frac":
+            return _DIGITS + term
+        if st == "obj_first":
+            return '"}'
+        if st == "obj_key":
+            return '"'
+        if st == "obj_next":
+            return ",}"
+        if st == "arr_first":
+            return _VALUE_STARTS + "]"
+        if st == "arr_next":
+            return ",]"
+        return ""  # end
+
+    def _min_remaining(self) -> int:
+        """Fewest further chars to reach an accepting configuration."""
+        depth = len(self._stack)
+        return depth + {
+            "value": 1, "string": 1, "key": 3, "colon": 2,
+            "num_sign": 1, "num_frac0": 1, "num_int": 0, "num_frac": 0,
+            "obj_first": 0, "obj_key": 4, "obj_next": 0,
+            "arr_first": 0, "arr_next": 0, "end": 0,
+        }[self._state]
+
+    # -- public surface -----------------------------------------------
+
+    @property
+    def at_end(self) -> bool:
+        return self._state == "end"
+
+    @property
+    def accepting(self) -> bool:
+        """True when the emitted prefix is complete valid JSON."""
+        return (self._state == "end"
+                or (not self._stack
+                    and self._state in ("num_int", "num_frac")))
+
+    def advance(self, token_id: int):
+        s = self._g.token_strings[int(token_id)]
+        if not isinstance(s, str) or len(s) != 1:
+            raise ValueError(
+                f"token {token_id} maps to {s!r}, not a grammar char")
+        self._advance_char(s)
+
+    def allowed_chars(self, remaining: int) -> str:
+        """Chars legal now AND completable within ``remaining`` tokens.
+
+        Filtering on the minimal completion of the post-transition
+        configuration is what makes the valid-by-construction claim hold
+        for any budget: the engine's invariant ``min_remaining() <=
+        remaining`` is preserved by every allowed transition, so budget
+        exhaustion always lands accepting."""
+        out = []
+        for ch in self._candidate_chars():
+            probe = JsonCursor(self._g)
+            probe._stack = list(self._stack)
+            probe._state = self._state
+            probe._advance_char(ch)
+            if probe._min_remaining() <= remaining - 1:
+                out.append(ch)
+        return "".join(out)
+
+    def mask_row(self, remaining: int, out: Optional[np.ndarray] = None
+                 ) -> np.ndarray:
+        """The additive ``[vocab]`` f32 mask row for the next token."""
+        if out is None:
+            out = np.empty((self._g.vocab_size,), np.float32)
+        out.fill(NEG_MASK)
+        for ch in self.allowed_chars(remaining):
+            out[self._g._char_ids[ch]] = 0.0
+        return out

@@ -700,11 +700,12 @@ class DisaggRouter:
         fleet index knows its prefix, least-loaded otherwise. Decode
         capacity is reached through the handoff queue only. The
         per-request decoding fields (``temperature`` / ``top_k`` /
-        ``top_p`` / ``stop`` / ``seed``), ``tenant``, ``session`` and
-        ``deadline_ms`` pass through to the prefill worker and travel
-        with the handoff: the sampling key and the tenant name live on
-        the Request, so a sampled stream continues bit for bit across the
-        role boundary."""
+        ``top_p`` / ``stop`` / ``seed`` / ``json_mode``), ``tenant``,
+        ``session`` and ``deadline_ms`` pass through to the prefill worker
+        and travel with the handoff: the sampling key, the grammar cursor
+        and the tenant name live on the Request, so a sampled or
+        constrained stream continues bit for bit across the role
+        boundary."""
         with self._lock:
             if self._draining:
                 raise QueueFullError("router is draining: submissions "
@@ -713,7 +714,8 @@ class DisaggRouter:
         if _log_request and _runlog.enabled():
             prompt = [int(t) for t in prompt]
             extra = {}
-            for k in ("temperature", "top_k", "top_p", "seed", "tenant"):
+            for k in ("temperature", "top_k", "top_p", "seed",
+                      "json_mode", "tenant"):
                 v = decode_kwargs.get(k)
                 if v:
                     extra[k] = v

@@ -1,8 +1,9 @@
 """ServingEngine — continuous-batching inference on a block-paged or a
 dense slotted KV cache; the counterpart of the core of
 ``paddle_tpu/serving/engine.py``: greedy and sampled decoding
-(temperature, top-k, top-p, a per-request seed), stop sequences, decode
-megasteps (paged) and speculative decoding with n-gram drafts.
+(temperature, top-k, top-p, a per-request seed), stop sequences,
+JSON-constrained decoding, decode megasteps (paged) and speculative
+decoding with n-gram drafts.
 
 KV memory comes from one of two managers (``paged``, default
 ``FLAGS_serving_paged``): the paged
@@ -93,8 +94,24 @@ chains (``FLAGS_serving_demote_idle_ms``), and ``submit(session=)``
 prepends a conversation's stored context, saved back when the request
 finishes (:mod:`~paddle_tpu_torch.serving.kv_tier`).
 
+JSON-constrained decoding (``grammar=`` a
+:class:`~paddle_tpu_torch.serving.decoding.JsonGrammar`,
+``submit(json_mode=True)``): the request's cursor, set at submission and
+advanced over each committed token, gives its additive mask row for the
+next token; the first token is drawn through it, and a batch with a
+constrained row replays the sampled graph (a greedy row takes
+``argmax(logits + mask)`` there) in single steps, never a megastep. The
+rows are written into the engine's ``[slots, V]`` mask buffer, which the
+sampled graphs hold by address, before each replay.
+
+The device-cost observatory (``devprof=``, ``devprof_sample=``;
+:mod:`~paddle_tpu_torch.observability.devprof`): a sampled dispatch's
+device time comes from CUDA events around its graph's replay, its host
+time is the rest of the step, and the sampled device share splits each
+finished trace's decode time.
+
 Not ported yet (each one is queued in ROADMAP.md): dispatch-ahead
-(``dispatch_ahead=True`` raises), mesh/TP, the JSON grammar and devprof.
+(``dispatch_ahead=True`` raises) and mesh/TP (``mesh=`` raises).
 """
 
 from __future__ import annotations
@@ -116,6 +133,7 @@ from .. import observability as _obs
 from ..device import resolve_device
 from ..models import generation as _gen
 from ..models.gpt import ATTN_IMPLS
+from ..observability import devprof as _devprof
 from ..observability import runlog as _runlog
 from ..observability import tracing as _tracing
 from ..resilience.injector import fault_point
@@ -195,6 +213,10 @@ class Request:
         self._key = request_key(self.decode.seed)
         self._stop = (StopMatcher(self.decode.stop_sequences)
                       if self.decode.stop_sequences else None)
+        # the JSON grammar's cursor of a json_mode request (set at submit,
+        # advanced over every committed token; it travels with the
+        # request across a handoff or a re-home)
+        self._cursor = None
         # whether the stops fit the device stop tables (megastep
         # eligibility, computed once)
         self._stops_fit = stops_fit(self.decode.stop_sequences)
@@ -312,26 +334,28 @@ class ServingEngine:
                  buckets: Optional[Sequence[int]] = None,
                  max_queue: Optional[int] = None,
                  eos_token_id: Optional[int] = None,
+                 spec_tokens: Optional[int] = None,
+                 paged: Optional[bool] = None,
                  block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  prefix_cache: Optional[bool] = None,
                  kv_dtype: Optional[str] = None,
-                 attn_impl: Optional[str] = None,
-                 megastep: Optional[int] = None,
-                 spec_tokens: Optional[int] = None,
-                 spec_ngram: Optional[int] = None,
-                 paged: Optional[bool] = None,
-                 dispatch_ahead: Optional[bool] = None,
+                 mesh=None,
                  slo_ttft_ms: Optional[float] = None,
                  slo_prefill_ms: Optional[float] = None,
                  slo_tpot_ms: Optional[float] = None,
                  priority_preempt: Optional[bool] = None,
-                 kv_pool: Optional[BlockPool] = None,
+                 clock=None, kv_pool: Optional[BlockPool] = None,
                  lora_rank: Optional[int] = None,
                  lora_max_adapters: Optional[int] = None,
-                 lora_pool: Optional[LoRAPool] = None,
+                 lora_pool: Optional[LoRAPool] = None, grammar=None,
                  kv_tier: Optional[TierManager] = None,
-                 clock=None, device=None):
+                 megastep: Optional[int] = None,
+                 dispatch_ahead: Optional[bool] = None,
+                 devprof: Optional[bool] = None,
+                 devprof_sample: Optional[float] = None, *,
+                 attn_impl: Optional[str] = None,
+                 spec_ngram: Optional[int] = None, device=None):
         g = _flags.get_flags(["serving_max_slots", "serving_max_len",
                               "serving_max_queue",
                               "serving_prefill_buckets",
@@ -348,7 +372,12 @@ class ServingEngine:
                               "serving_priority_preempt",
                               "serving_lora_rank",
                               "serving_lora_max_adapters",
-                              "serving_host_tier", "serving_host_blocks"])
+                              "serving_host_tier", "serving_host_blocks",
+                              "serving_devprof", "serving_devprof_sample"])
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (tensor-parallel serving) is not ported yet "
+                "(ROADMAP A5: sharding)")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine "
@@ -532,6 +561,15 @@ class ServingEngine:
         # first-seen-cold times of prefix entries, for the demotion
         # sweep's idle window (step-lock owned)
         self._cold_since: Dict[int, float] = {}
+        # JSON-constrained decoding: a JsonGrammar whose request cursors
+        # give the additive [vocab] mask rows; json_mode submissions
+        # without one are refused
+        self.grammar = grammar
+        if self.grammar is not None and \
+                self.grammar.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"grammar vocab {self.grammar.vocab_size} != model "
+                f"vocab {cfg.vocab_size}")
         self._vocab = int(cfg.vocab_size)
         self._clock = clock if clock is not None else time.perf_counter
         self._queue: deque = deque()          # guarded-by: _lock
@@ -617,12 +655,27 @@ class ServingEngine:
                 "rows written by this engine's compiled steps"
                 ).labels(engine=eid)
             self._qerr_gauge.set(0.0)
+        # the device-cost observatory: a sampled timer around the step
+        # dispatches (observability/devprof.py), read once here like the
+        # SLO knobs; sampling hashes the dispatch counter, so a skipped
+        # dispatch runs exactly as with devprof off
+        self._devprof = None
+        if bool(devprof if devprof is not None else g["serving_devprof"]):
+            self._devprof = _devprof.DevProfiler(
+                sample=(devprof_sample if devprof_sample is not None
+                        else float(g["serving_devprof_sample"])),
+                gauge_labels={"engine": eid}, device=self.device,
+                dtype=next(model.parameters()).dtype)
         self._prefix_hit_reqs = 0
         self._prefix_miss_reqs = 0
         self._qerr_max = 0.0
         self._spec_proposed = 0
         self._spec_accepted = 0
-        self._mask = None       # the sampled steps' zero [slots, V] mask
+        # the sampled steps' [slots, V] mask, held by their graphs by
+        # address: zero but for the rows of grammar-constrained requests,
+        # whose slots _mask_rows names
+        self._mask = None
+        self._mask_rows: set = set()
         self._prefill_fns: Dict[int, dict] = {}   # bucket len -> entry
         self._weight_version = 0
         self.prefill_dispatches = 0
@@ -723,15 +776,18 @@ class ServingEngine:
                top_p: Optional[float] = None,
                stop: Optional[Sequence[Sequence[int]]] = None,
                seed: Optional[int] = None,
+               json_mode: Optional[bool] = None,
+               tenant: Optional[str] = None,
                decode: Optional[DecodeParams] = None,
                deadline_ms: Optional[float] = None,
-               tenant: Optional[str] = None,
                session: Optional[str] = None,
                _log_request: bool = True) -> Request:
         """Queue a generation request; returns its handle. Temperature
         0 (the default) is greedy; above 0 the request samples, after
         top-k (0: off) and top-p (0 or 1: off), from the stream of
-        ``seed``. ``priority`` is an integer class, lower is more urgent
+        ``seed``. ``json_mode`` masks decoding to the engine's JSON
+        ``grammar``, so the completion is valid JSON by construction.
+        ``priority`` is an integer class, lower is more urgent
         (default 1), FIFO within a class. ``deadline_ms`` is a hard
         deadline in engine-clock ms from submission after which the
         request is canceled wherever it is (reason "deadline").
@@ -747,7 +803,8 @@ class ServingEngine:
         past the SLO, a draining engine, an injected ``serving.submit``
         skip), with ``reason`` and ``retry_after_s``; with preemption on,
         a submission that would be shed may shed queued lower-priority
-        work instead. NotImplementedError for JSON-constrained requests.
+        work instead. ValueError for ``json_mode`` without a grammar or
+        with speculative decoding.
         ``_log_request`` False leaves out the run log's
         ``serving_request`` arrival record (a router logs its own)."""
         if deadline_ms is not None and float(deadline_ms) <= 0:
@@ -782,7 +839,7 @@ class ServingEngine:
             raise ValueError(f"max_new_tokens must be >= 1, got {mnt}")
         if decode is not None:
             if any(v is not None for v in (temperature, top_k, top_p,
-                                           stop, seed)):
+                                           stop, seed, json_mode)):
                 raise ValueError(
                     "pass either decode= or individual sampling "
                     "fields, not both")
@@ -801,11 +858,20 @@ class ServingEngine:
                 top_k=int(top_k) if top_k is not None else 0,
                 top_p=float(top_p) if top_p is not None else 0.0,
                 stop_sequences=stops,
-                seed=int(seed) if seed is not None else 0)
-        if params.json_mode:
-            raise NotImplementedError(
-                "JSON-constrained decoding is not ported yet")
+                seed=int(seed) if seed is not None else 0,
+                json_mode=bool(json_mode) if json_mode is not None
+                else False)
         tenant = str(tenant) if tenant is not None else ""
+        if params.json_mode:
+            if self.grammar is None:
+                raise ValueError(
+                    "json_mode requires an engine constructed with a "
+                    "grammar= (see serving.decoding.JsonGrammar)")
+            if self.spec_tokens > 0:
+                raise ValueError(
+                    "json_mode cannot combine with speculative decoding "
+                    "(FLAGS_serving_spec_tokens > 0): the delta draft "
+                    "proposes unmasked tokens")
         if tenant:
             if self.lora_pool is None:
                 raise ValueError(
@@ -840,6 +906,8 @@ class ServingEngine:
                 if params.stop_sequences:
                     extra["stop"] = [list(s)
                                      for s in params.stop_sequences]
+                if params.json_mode:
+                    extra["json_mode"] = True
             if tenant:
                 extra["tenant"] = tenant
             if sid is not None:
@@ -865,6 +933,8 @@ class ServingEngine:
         req = Request(prompt, mnt, eos, priority=pr, now=now, decode=params,
                       tenant=tenant)
         req.session = sid
+        if params.json_mode:
+            req._cursor = self.grammar.start()
         if self.slo_ttft_ms:
             req.deadline = now + self.slo_ttft_ms / 1e3
         if deadline_ms is not None:
@@ -1058,9 +1128,12 @@ class ServingEngine:
         for bucket in sorted(groups):
             group = groups[bucket]
             self._mark_admit(group)
+            timer = self._devprof_timer(
+                f"serving_prefill{{bucket={bucket}}}")
             t0 = time.perf_counter()
             try:
-                with _monitor.stat_time("STAT_serving_prefill"):
+                with _monitor.stat_time("STAT_serving_prefill"), \
+                        _jit.timed_replays(timer):
                     live, shed, out = RetryPolicy.from_flags(
                         "serving.step").call(self._prefill_group_attempt,
                                              bucket, group)
@@ -1080,6 +1153,8 @@ class ServingEngine:
             # the window closes after the host read the tokens, so it
             # holds the replay's device time too
             self._note_prefill_ms(bucket, (time.perf_counter() - t0) * 1e3)
+            if timer is not None:
+                timer.device_done(out)
             for i, (req, slot) in enumerate(zip(live, slots)):
                 req.slot = slot
                 req.state = "running"
@@ -1093,6 +1168,8 @@ class ServingEngine:
                 # the first generated token comes from the prefill logits
                 # (the argmax greedy_search takes after its own prefill)
                 self._append_token(req, self._take_first(req, first, lg, i))
+            if timer is not None:
+                timer.finish()
         return expired + len(candidates), admitted
 
     def _mark_resume(self, req: Request):
@@ -1221,9 +1298,12 @@ class ServingEngine:
         for bucket in sorted(groups):
             group = groups[bucket]
             self._mark_admit([rec[0] for rec in group])
+            timer = self._devprof_timer(
+                f"serving_prefill_paged{{bucket={bucket}}}")
             t0 = time.perf_counter()
             try:
-                with _monitor.stat_time("STAT_serving_prefill"):
+                with _monitor.stat_time("STAT_serving_prefill"), \
+                        _jit.timed_replays(timer):
                     live, shed, out = RetryPolicy.from_flags(
                         "serving.step").call(
                             self._prefill_group_attempt_paged, bucket, group)
@@ -1241,6 +1321,8 @@ class ServingEngine:
             self.cache.set_arrays(pools)
             first = torch.argmax(lg, dim=-1).cpu().numpy()
             self._note_prefill_ms(bucket, (time.perf_counter() - t0) * 1e3)
+            if timer is not None:
+                timer.device_done(out)
             self._note_qerr(qerr, sum(len(req.context) - shared
                                       for req, _, shared in live))
             for i, (req, row, shared) in enumerate(live):
@@ -1264,17 +1346,24 @@ class ServingEngine:
                                   shared_tokens=shared)
                 self._mark_resume(req)
                 self._append_token(req, self._take_first(req, first, lg, i))
+            if timer is not None:
+                timer.finish()
         return expired + len(candidates) - len(back), admitted
 
     def _take_first(self, req: Request, first: np.ndarray, lg,
                     i: int) -> int:
         """The request's first generated token from its prefill-logits
-        row: the batch argmax for greedy rows, a :func:`sample_first`
-        draw with the request's key for sampled ones (the law the steps
+        row: the batch argmax for plain greedy rows, a
+        :func:`sample_first` draw with the request's key (and its grammar
+        mask row) for sampled or constrained ones (the law the steps
         apply, so a restart replays it)."""
-        if req.decode.is_greedy:
+        if req.decode.is_greedy and req._cursor is None:
             return int(first[i])
-        tok, req._key = sample_first(lg[i], req.decode, req._key)
+        mask_row = None
+        if req._cursor is not None:
+            mask_row = req._cursor.mask_row(
+                req.max_new_tokens - len(req.tokens))
+        tok, req._key = sample_first(lg[i], req.decode, req._key, mask_row)
         return tok
 
     def _admit(self) -> int:
@@ -1310,10 +1399,14 @@ class ServingEngine:
         """The sampled steps' per-slot inputs, rebuilt from the active
         requests every step: ``(temperature [b] f32, top_k [b] i32, top_p
         [b] f32, keys [b, 2] int64, mask [b, V])``, empty rows at the
-        greedy neutral values, the mask the engine's one zero device
-        buffer. None when no active row samples: the step then replays
-        its greedy graph."""
-        if all(req.decode.is_greedy for req in self._active.values()):
+        greedy neutral values, the mask the engine's one device buffer
+        (:meth:`_write_mask`). None when no active row samples or has a
+        grammar cursor: the step then replays its greedy graph, which
+        never reads the mask. A greedy constrained row needs
+        ``argmax(logits + mask)``, which only the sampled graph computes
+        (temperature 0 rows take it there)."""
+        if all(req.decode.is_greedy and req._cursor is None
+               for req in self._active.values()):
             return None
         b = self.max_slots
         temp = np.zeros(b, np.float32)
@@ -1327,7 +1420,36 @@ class ServingEngine:
         if self._mask is None:
             self._mask = torch.zeros(b, self._vocab, dtype=torch.float32,
                                      device=self.device)
+        self._write_mask()
         return temp, tk, tp, keys, self._mask
+
+    def _write_mask(self):
+        """Bring the mask buffer to this step's rows before the replay
+        that reads it: each constrained row gets its cursor's mask row
+        for the next position (budget-aware, so the document closes in
+        time), and every row a constrained request left (finish, cancel,
+        shed, kill, handoff) is zeroed. The rows are built on the host
+        and copied in place on the current stream, the stream the replay
+        runs on, from a host buffer the copy has finished reading when
+        ``to()`` returns (a blocking copy); the graphs hold the buffer by
+        address, so nothing is captured."""
+        want = {slot: req for slot, req in self._active.items()
+                if req._cursor is not None}
+        stale = sorted(self._mask_rows - set(want))
+        if stale:
+            self._mask.index_fill_(
+                0, torch.tensor(stale, device=self.device), 0.0)
+        if want:
+            slots = sorted(want)
+            rows = np.empty((len(slots), self._vocab), np.float32)
+            for i, slot in enumerate(slots):
+                req = want[slot]
+                req._cursor.mask_row(req.max_new_tokens - len(req.tokens),
+                                     out=rows[i])
+            self._mask.index_copy_(
+                0, torch.tensor(slots, device=self.device),
+                torch.from_numpy(rows).to(self.device))
+        self._mask_rows = set(want)
 
     def _writeback_keys(self, new_keys, rows=None):
         """Keep each sampled row's advanced key on its request (``rows``:
@@ -1360,9 +1482,9 @@ class ServingEngine:
         if kind == "skip":
             raise _SkipStep("injected skip of one decode iteration")
         if self.paged:
-            fn = _gen.decode_step_paged(self.model, self.kv_dtype,
-                                        self.attn_impl,
-                                        self._lora_shape)["fn"]
+            fn = _gen.decode_step_paged(
+                self.model, kv_dtype=self.kv_dtype,
+                lora_shape=self._lora_shape, attn_impl=self.attn_impl)["fn"]
             return fn(tokens, self.cache.lengths, self.cache.tables,
                       self.cache.arrays(), self._build_samp(),
                       lora=self._lora_args())
@@ -1378,6 +1500,21 @@ class ServingEngine:
             self.cache.release(slot)
             self._shed(req, err)
 
+    def _devprof_timer(self, entry: str):
+        """A StepTimer when devprof is on and this dispatch hashed into
+        the sample, else None. The tick consumes one counter increment
+        either way, so two same-seed runs sample the same dispatches.
+        On the card with the real clock the timer reads CUDA events
+        around the dispatch; on any other clock (a virtual one) it stamps
+        that clock, so virtual-clock replays stay deterministic."""
+        dp = self._devprof
+        if dp is None or not dp.tick():
+            return None
+        events = (self.device.type == "cuda" and
+                  self._clock is time.perf_counter)
+        return _devprof.StepTimer(dp, entry, self._clock,
+                                  device=self.device if events else None)
+
     def _decode(self) -> int:
         """One batched decode over every occupied row, retried through
         ``RetryPolicy`` at ``serving.step``. Returns how many tokens were
@@ -1387,9 +1524,12 @@ class ServingEngine:
         tokens = np.zeros(self.max_slots, np.int32)
         for slot, req in self._active.items():
             tokens[slot] = req.tokens[-1]
+        timer = self._devprof_timer(
+            "decode_step_paged" if self.paged else "decode_step")
         t0 = time.perf_counter()
         try:
-            with _monitor.stat_time("STAT_serving_decode"):
+            with _monitor.stat_time("STAT_serving_decode"), \
+                    _jit.timed_replays(timer):
                 out = RetryPolicy.from_flags("serving.step").call(
                     self._decode_attempt, tokens)
         except _SkipStep:
@@ -1407,6 +1547,8 @@ class ServingEngine:
         # one token per active row: the step's wall, closed once the host
         # has the tokens, is already a per-token sample
         self._note_tpot_ms((time.perf_counter() - t0) * 1e3)
+        if timer is not None:
+            timer.device_done(out)
         if self.paged:
             self._note_qerr(qerr, len(self._active))
         self._writeback_keys(new_keys)
@@ -1415,24 +1557,27 @@ class ServingEngine:
             self.cache.advance(slot, 1)
             self._append_token(req, int(nxt[slot]))
             produced += 1
+        if timer is not None:
+            timer.finish()      # host time: the commit loop above
         return produced
 
     # ------------------------------------------------ decode megasteps
     def _choose_megastep(self) -> int:
         """The N this decode runs at: the configured ``megastep`` unless
-        a row's stops do not fit the device tables, which takes the whole
+        the batch needs the per-token host loop, which takes the whole
         batch back to single steps (never to an intermediate N: the
         engine has two decode entries, the megastep and the single
-        step). So does a hard deadline that ends sooner than ``n``
-        tokens at the current TPOT. (Grammar rows, the reference's other
-        fallback, are not ported.)"""
+        step): a grammar-constrained row (its mask is recomputed on the
+        host every token), stops that do not fit the device tables, or a
+        hard deadline that ends sooner than ``n`` tokens at the current
+        TPOT."""
         n = self.megastep
         if n <= 1 or not self._active:
             return 1
         tpot = self._tpot_cost_ms()
         now = None
         for req in self._active.values():
-            if not req._stops_fit:
+            if req._cursor is not None or not req._stops_fit:
                 return 1
             if req.hard_deadline is not None and tpot > 0:
                 # a deadline too tight to absorb a whole megastep: the
@@ -1479,9 +1624,9 @@ class ServingEngine:
         kind = fault_point("serving.step")
         if kind == "skip":
             raise _SkipStep("injected skip of one decode megastep")
-        fn = _gen.decode_megastep_paged(self.model, n, self.kv_dtype,
-                                        self.attn_impl,
-                                        self._lora_shape)["fn"]
+        fn = _gen.decode_megastep_paged(
+            self.model, n, kv_dtype=self.kv_dtype,
+            lora_shape=self._lora_shape, attn_impl=self.attn_impl)["fn"]
         tokens, lengths, tables, samp, live, budget, eos, stop = \
             self._megastep_inputs()
         return fn(tokens, lengths, tables, self.cache.arrays(), samp, live,
@@ -1498,9 +1643,11 @@ class ServingEngine:
         if not self._active:
             return 0
         n_active = len(self._active)
+        timer = self._devprof_timer(f"decode_megastep_paged{{n={n}}}")
         t0 = time.perf_counter()
         try:
-            with _monitor.stat_time("STAT_serving_decode"):
+            with _monitor.stat_time("STAT_serving_decode"), \
+                    _jit.timed_replays(timer):
                 out = RetryPolicy.from_flags("serving.step").call(
                     self._megastep_attempt, n)
         except _SkipStep:
@@ -1514,6 +1661,8 @@ class ServingEngine:
         self.cache.set_arrays(pools)
         toks = toks.cpu().numpy()
         finish = finish.cpu().numpy()
+        if timer is not None:
+            timer.device_done(out)
         self._note_qerr(qerr, n * n_active)
         # a row still live after the n iterations keeps its key, split n
         # times; a finished row's key is never read again
@@ -1536,6 +1685,8 @@ class ServingEngine:
             # row committed
             self._note_tpot_ms((time.perf_counter() - t0) * 1e3 *
                                n_active / produced)
+        if timer is not None:
+            timer.finish()
         if _runlog.enabled():
             _runlog.log_event("serving_megastep", n=n, active=n_active,
                               produced=produced)
@@ -1550,9 +1701,9 @@ class ServingEngine:
             raise _SkipStep("injected skip of one verify iteration")
         K = self.spec_tokens
         if self.paged:
-            fn = _gen.verify_step_paged(self.model, K, self.kv_dtype,
-                                        self.attn_impl,
-                                        self._lora_shape)["fn"]
+            fn = _gen.verify_step_paged(
+                self.model, K, kv_dtype=self.kv_dtype,
+                lora_shape=self._lora_shape, attn_impl=self.attn_impl)["fn"]
             return fn(tokens, self.cache.lengths, self.cache.tables,
                       self.cache.arrays(), self._build_samp(),
                       lora=self._lora_args())
@@ -1576,9 +1727,13 @@ class ServingEngine:
             tokens[slot, 1:] = _gen.draft_ngram(req.prompt + req.tokens, K,
                                                 self.spec_ngram)
         n_active = len(self._active)
+        timer = self._devprof_timer(
+            f"verify_step_paged{{k={K}}}" if self.paged
+            else f"verify_step{{k={K}}}")
         t0 = time.perf_counter()
         try:
-            with _monitor.stat_time("STAT_serving_verify"):
+            with _monitor.stat_time("STAT_serving_verify"), \
+                    _jit.timed_replays(timer):
                 out = RetryPolicy.from_flags("serving.step").call(
                     self._verify_attempt, tokens)
         except _SkipStep:
@@ -1596,6 +1751,8 @@ class ServingEngine:
         self._writeback_keys(new_keys)
         nxt = nxt.cpu().numpy()
         accept = accept.cpu().numpy()
+        if timer is not None:
+            timer.device_done(out)
         produced = 0
         for slot, req in list(self._active.items()):
             # the verify wrote K+1 rows at this row's offset: commit them,
@@ -1625,6 +1782,8 @@ class ServingEngine:
             # committed
             self._note_tpot_ms((time.perf_counter() - t0) * 1e3 *
                                n_active / produced)
+        if timer is not None:
+            timer.finish()
         return produced
 
     def _decode_any(self) -> int:
@@ -1646,6 +1805,14 @@ class ServingEngine:
         _monitor.stat_add("STAT_serving_tokens")
         if req._stop is not None:
             req._stop.feed(token)
+        if req._cursor is not None:
+            # the grammar's pushdown over the committed token; a complete
+            # document ends the request (the budget-aware mask makes it
+            # land in time)
+            req._cursor.advance(token)
+            if req._cursor.at_end:
+                self._finish(req)
+                return
         if (req.eos_token_id is not None and
                 token == req.eos_token_id) or \
                 len(req.tokens) >= req.max_new_tokens or \
@@ -1714,6 +1881,14 @@ class ServingEngine:
         if req.session is not None and self.kv_tier is not None:
             self.kv_tier.session_save(req.session, req.context)
             self._session_left(req)
+        if self._devprof is not None:
+            # the sampled device share, so blame() splits this trace's
+            # decode into decode_device + decode_host; None (no sample
+            # yet, or zero-width virtual-clock samples) leaves the trace
+            # and its exported bytes as without devprof
+            frac = self._devprof.device_frac()
+            if frac is not None:
+                _tracing.annotate(req.id, decode_device_frac=frac)
         _tracing.finish(req.id, req.finished_at, self.trace_track, "done")
         req._done.set()
 
@@ -1919,6 +2094,7 @@ class ServingEngine:
             self._prefill_rows = []
         _gen.forget_held(self.model, [a.data_ptr() for a in held])
         self._mask = None
+        self._mask_rows = set()
         if pool:
             self.cache.drop_arrays()
 
@@ -2156,8 +2332,14 @@ class ServingEngine:
                 "loaded": self.lora_pool.loaded,
                 "leaked_pages": self.lora_pool.leaked(),
             }
+        if self.grammar is not None:
+            out["json_grammar"] = True
         if self.kv_tier is not None:
             # a shared tier's numbers: every attached engine reports the
             # same store and session totals
             out["kv_tier"] = self.kv_tier.stats()
+        if self._devprof is not None:
+            # the sampled roofline view (device/host split, per-entry MFU
+            # and HBM share, verdicts), served at GET /v1/stats
+            out["devprof"] = self._devprof.stats()
         return out

@@ -7,16 +7,17 @@ the reference's JSON generation protocol:
 
   POST /v1/generate   {"ids": [...], "max_new_tokens"?, "eos_token_id"?,
                        "priority"?, "temperature"?, "top_k"?, "top_p"?,
-                       "stop"?, "seed"?, "tenant"?, "deadline_ms"?}
+                       "stop"?, "seed"?, "tenant"?, "json_mode"?,
+                       "deadline_ms"?}
                       -> 200 {"id", "output_ids", "generated", "state"}
                              (+ "tenant" echoed when one was named)
                       -> 400 malformed JSON, a geometry the cache cannot
                              hold, invalid decoding parameters
                              (temperature < 0, top_k < 0, top_p outside
-                             [0, 1]), a tenant without a LoRA pool or
-                             naming an adapter that is not loaded, and
-                             the field the port refuses: "json_mode"
-                             (the JSON grammar), with the reason
+                             [0, 1]), json_mode on an engine constructed
+                             without a grammar= or with speculative
+                             decoding, a tenant without a LoRA pool or
+                             naming an adapter that is not loaded
                       -> 429 admission control (a full queue, a predicted
                              SLO miss, a shed at submit), "reason" in the
                              body saying which gate fired; Retry-After is
@@ -76,13 +77,6 @@ from .. import monitor as _monitor
 from .. import observability as _obs
 from ..observability import tracing as _tracing
 from .engine import QueueFullError
-
-#: request fields the port refuses, with what they wait for
-_REFUSED = {
-    "json_mode": "JSON-constrained decoding is not ported yet (ROADMAP "
-                 "A2.5: the JSON grammar)",
-}
-
 
 def _engines(target) -> List:
     """The live engines behind ``target`` (itself when it is one)."""
@@ -180,10 +174,6 @@ class _ServingHandler(BaseHTTPRequestHandler):
         except (ValueError, KeyError, TypeError) as e:
             self._json(400, {"error": f"bad request body: {e}"})
             return
-        for key, why in _REFUSED.items():
-            if body.get(key):
-                self._json(400, {"error": why})
-                return
         try:
             req = target.submit(ids,
                                 max_new_tokens=body.get("max_new_tokens"),
@@ -194,6 +184,7 @@ class _ServingHandler(BaseHTTPRequestHandler):
                                 top_p=body.get("top_p"),
                                 stop=body.get("stop"),
                                 seed=body.get("seed"),
+                                json_mode=body.get("json_mode"),
                                 tenant=body.get("tenant"),
                                 deadline_ms=body.get("deadline_ms"))
         except QueueFullError as e:

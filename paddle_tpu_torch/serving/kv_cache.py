@@ -34,6 +34,21 @@ _KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
               "int8": torch.int8}
 
 
+def _pool_dtype(dtype, kv_dtype: str):
+    """The reference's ``dtype`` override of a paged pool's storage type:
+    the port's pools, its kernel's routes and its graphs are keyed by
+    ``kv_dtype`` alone, so only ``kv_dtype``'s own type (or None) is
+    taken (ROADMAP C)."""
+    if dtype is None or kv_dtype not in _KV_DTYPES:
+        return
+    want = _KV_DTYPES[kv_dtype]
+    name = getattr(dtype, "name", None) or str(dtype).replace("torch.", "")
+    if name != str(want).replace("torch.", ""):
+        raise NotImplementedError(
+            f"dtype={dtype!r} is not taken: a paged pool's storage type "
+            f"follows kv_dtype={kv_dtype!r} (ROADMAP C)")
+
+
 class SlotKVCache:
     """Fixed-geometry KV storage and a slot free list: per layer a (k, v)
     pair of ``[max_slots, heads, max_len, head_dim]`` tensors on
@@ -42,7 +57,7 @@ class SlotKVCache:
     slot's valid prefix and the steps' position input."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
-                 max_slots: int, max_len: int, dtype=None, device="cpu"):
+                 max_slots: int, max_len: int, dtype=None, *, device="cpu"):
         dtype = dtype or torch.float32
         shape = (max_slots, num_heads, max_len, head_dim)
         self.max_slots = int(max_slots)
@@ -228,11 +243,12 @@ class BlockPool:
     prefix cache with its counters."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
-                 block_size: int = 16, num_blocks: int = 2,
-                 kv_dtype: str = "f32", device="cpu"):
+                 block_size: int = 16, num_blocks: int = 2, dtype=None,
+                 kv_dtype: str = "f32", *, device="cpu"):
         if kv_dtype not in _KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be 'f32', 'bf16' or 'int8', got {kv_dtype!r}")
+        _pool_dtype(dtype, kv_dtype)
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         if num_blocks < 2:
@@ -336,8 +352,9 @@ class BlockKVCache:
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  max_slots: int, max_len: int, block_size: int = 16,
                  num_blocks: int = 0, prefix_cache: bool = True,
-                 kv_dtype: str = "f32", device="cpu",
-                 pool: Optional[BlockPool] = None):
+                 dtype=None, kv_dtype: str = "f32",
+                 pool: Optional[BlockPool] = None, *, device="cpu"):
+        _pool_dtype(dtype, kv_dtype)
         self.max_slots = int(max_slots)
         self.max_len = int(max_len)
         if pool is not None:

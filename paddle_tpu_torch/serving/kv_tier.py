@@ -161,7 +161,7 @@ class HostBlockStore:
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 pin_memory: Optional[bool] = None):
+                 *, pin_memory: Optional[bool] = None):
         if num_blocks is None:
             num_blocks = int(_flags.get_flag("serving_host_blocks"))
         if pin_memory is None:

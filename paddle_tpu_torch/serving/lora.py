@@ -63,7 +63,7 @@ class LoRAPool:
     by *name* per step, so page ids never travel between engines.
     ``device`` None means CUDA and raises without one."""
 
-    def __init__(self, cfg, rank: int, max_adapters: int, device=None):
+    def __init__(self, cfg, rank: int, max_adapters: int, *, device=None):
         if not isinstance(rank, int) or rank < 1:
             raise ValueError(f"lora rank must be an int >= 1, got {rank!r}")
         if not isinstance(max_adapters, int) or max_adapters < 1:

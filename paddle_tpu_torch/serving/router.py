@@ -596,9 +596,10 @@ class ReplicaRouter:
         """Route one request to the least-loaded replica; returns its
         :class:`Request` handle. ``priority``, ``deadline_ms``, ``tenant``,
         ``session`` and the per-request decoding fields (``temperature``/
-        ``top_k``/``top_p``/``stop``/``seed``) pass through to the chosen
-        engine's ``submit``; tenants resolve on whichever replica admits,
-        which is why a multi-tenant fleet shares one ``lora_pool``. Raises QueueFullError when every replica sheds (or the
+        ``top_k``/``top_p``/``stop``/``seed``/``json_mode``) pass through
+        to the chosen engine's ``submit``; tenants resolve on whichever
+        replica admits, which is why a multi-tenant fleet shares one
+        ``lora_pool``. Raises QueueFullError when every replica sheds (or the
         router is draining), carrying the last engine's reason and
         ``retry_after_s``, and ValueError for geometry no replica can
         hold. With hedging on, every submission funds the hedge bucket

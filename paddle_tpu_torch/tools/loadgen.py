@@ -40,9 +40,12 @@ a prefix-cache flush, each pool once) and unexpected exceptions, with a
 hedging router the hedges and with a disaggregated fleet its roles,
 handoffs and affinity counters.
 
-Not ported yet (NotImplementedError, naming the ROADMAP.md item): devprof
-and the perf ledger. :func:`warmup` warms every engine of a target (the
-reference's warms those its requests land on): a graph holds its
+``--devprof`` turns the device-cost observatory on for every engine the
+run builds (the report gains its ``devprof`` section) and ``--ledger``
+appends the run's headline metrics as one
+:mod:`~paddle_tpu_torch.tools.perf_ledger` row. :func:`warmup` warms
+every engine of a target (the reference's warms those its requests land
+on): a graph holds its
 replica's pools. A disaggregated fleet's workers are warmed by role:
 every prefill worker at every bucket, every decode worker's decode
 through a handoff it adopts. A LoRA engine's steps are its own graphs,
@@ -69,18 +72,6 @@ import time
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
-
-#: what waits, and the ROADMAP.md queue A2 item it waits for
-_WAITS = {
-    "devprof": "the device-cost observatory (ROADMAP A2: devprof)",
-    "ledger": "the perf ledger rows (ROADMAP A2: tools/perf_ledger.py, "
-              "with devprof)",
-}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{_WAITS[what]} is not ported yet")
-
 
 class Arrival(NamedTuple):
     t: float               # seconds since the run started
@@ -866,6 +857,12 @@ class LoadGen:
             h["win_rate"] = (round(int(h.get("wins", 0)) / fired, 4)
                              if fired else None)
             report["hedges"] = h
+        if "devprof" in st:
+            # the device-cost observatory's section: the sampled
+            # device/host split and per-entry rooflines (zeros on a
+            # VirtualClock run; the perf ledger stores it beside the
+            # goodput numbers)
+            report["devprof"] = st["devprof"]
         if "prefill_workers" in st:
             report["disagg"] = {k: st[k] for k in (
                 "prefill_workers", "decode_workers", "colocated",
@@ -967,6 +964,7 @@ def _warm_alone(eng, plen: int, max_new_tokens: int,
         # a promoted chain would shorten the warm-up's prefill
         eng.kv_tier.flush()
     saved = _books(eng)
+    eng._devprof = None
     for _ in range(50):
         # costs learned from the captures must not shed the warm-up at
         # the SLO gate (the warm-up resets them at its end anyway)
@@ -1023,7 +1021,9 @@ def _books(eng):
     """What a warm-up request changes in ``eng``'s books: its outcome
     counts, its request list, its adoption counts (a decode worker), its
     prefix-cache counters and those of its pool, and its host tier's
-    counters."""
+    counters; and its devprof profiler, which the warm-up detaches so
+    that its dispatches tick no sample (the reference's warm-up makes no
+    such extra dispatches)."""
     pool = eng.cache.pool if eng.paged else None
     tier = getattr(eng, "kv_tier", None)
     with eng._lock:
@@ -1036,7 +1036,8 @@ def _books(eng):
                 eng._prefix_hit_reqs, eng._prefix_miss_reqs,
                 None if pool is None else (pool.prefix_hits,
                                            pool.prefix_misses,
-                                           pool.blocks_allocated_total))
+                                           pool.blocks_allocated_total),
+                eng._devprof)
 
 
 def _restore_books(eng, saved):
@@ -1053,7 +1054,7 @@ def _restore_books(eng, saved):
     with eng._lock:
         (eng._completed, eng._slo_met, eng._tenant_stats,
          eng._shed_by_reason, n, adopted, copies, eng._prefix_hit_reqs,
-         eng._prefix_miss_reqs, pool) = saved
+         eng._prefix_miss_reqs, pool, eng._devprof) = saved
         for r in eng._all[n:]:
             _tracing.store().discard(r.id)
         del eng._all[n:]
@@ -1075,6 +1076,7 @@ def _warm_handoff(pw, dw, plen: int, max_new_tokens: int,
     if pw.kv_tier is not None:
         pw.kv_tier.flush()
     saved = [(e, _books(e)) for e in (pw, dw)]
+    pw._devprof = dw._devprof = None
     for _ in range(50):
         for e in (pw, dw):
             # costs learned from the captures must not shed the warm-up
@@ -1131,11 +1133,6 @@ def _parse_tenant_mix(text: str) -> Optional[dict]:
         k, v = part.split(":")
         out[str(k)] = float(v)
     return out
-
-
-#: the reference's options that wait, by what they wait for
-_UNPORTED_OPTIONS = {"devprof": "devprof", "devprof_sample": "devprof",
-                     "ledger": "ledger"}
 
 
 def _captures(model) -> int:
@@ -1284,14 +1281,22 @@ def main(argv=None) -> int:
                     "count exceeds the device pool's block count — "
                     "the sessions-beyond-HBM capacity gate (host "
                     "tier on)")
-    # the reference's options that wait (NotImplementedError when set)
-    ap.add_argument("--devprof", action="store_true")
-    ap.add_argument("--devprof-sample", type=float, default=None)
-    ap.add_argument("--ledger", default="")
+    ap.add_argument("--devprof", action="store_true",
+                    help="turn on the device-cost observatory "
+                         "(FLAGS_serving_devprof) for every engine "
+                         "this run constructs: counted step costs, "
+                         "sampled device timing, roofline gauges, "
+                         "decode blame split")
+    ap.add_argument("--devprof-sample", type=float, default=None,
+                    metavar="FRAC",
+                    help="override FLAGS_serving_devprof_sample "
+                         "(fraction of step dispatches timed; default "
+                         "keeps the flag's 0.1)")
+    ap.add_argument("--ledger", default="", metavar="PATH",
+                    help="append this run's headline metrics (+ "
+                         "devprof roofline summary and cost digest) "
+                         "as one perf-ledger JSONL row")
     args = ap.parse_args(argv)
-    for opt, what in _UNPORTED_OPTIONS.items():
-        if getattr(args, opt):
-            raise _not_ported(what)
 
     import torch
 
@@ -1373,6 +1378,17 @@ def main(argv=None) -> int:
                        "serving_dispatch_threads": args.dispatch_threads})
     if args.trace_sample is not None:
         _fl.set_flags({"serving_trace": args.trace_sample})
+    if args.devprof_sample is not None and not args.devprof:
+        print("FAIL: --devprof-sample needs --devprof",
+              file=sys.stderr)
+        return 1
+    if args.devprof:
+        # a flag write (not an engine kwarg), so router- and
+        # disagg-constructed engines profile too
+        dp_flags = {"serving_devprof": True}
+        if args.devprof_sample is not None:
+            dp_flags["serving_devprof_sample"] = args.devprof_sample
+        _fl.set_flags(dp_flags)
     _tracing.reset()
     vc = (VirtualClock() if args.virtual_step_ms > 0 else None)
     eng_kwargs = dict(
@@ -1452,6 +1468,10 @@ def main(argv=None) -> int:
     blame = _tracing.blame_summary()
     if blame["requests"]:
         report["blame"] = blame
+    if args.ledger:
+        from . import perf_ledger
+        report["ledger_row"] = perf_ledger.append_report(
+            args.ledger, report, run="loadgen")
     if args.json:
         print(json.dumps(report))
     else:

@@ -24,7 +24,8 @@ from ..nn.layers_common import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D,
 class LeNet(nn.Module):
     """LeNet-5 on 1 x 28 x 28 images (``vision/models.py:19``)."""
 
-    def __init__(self, num_classes: int = 10, device=None, generator=None):
+    def __init__(self, num_classes: int = 10, *, device=None,
+                 generator=None):
         super().__init__()
         dev = resolve_device(device)
         kw = dict(device=dev, generator=resolve_generator(dev, generator))
@@ -96,8 +97,8 @@ class ResNet(nn.Module):
     classifier."""
 
     def __init__(self, block: Type, depth_cfg: List[int],
-                 num_classes: int = 1000, in_channels: int = 3, device=None,
-                 generator=None):
+                 num_classes: int = 1000, in_channels: int = 3, *,
+                 device=None, generator=None):
         super().__init__()
         dev = resolve_device(device)
         self._kw = dict(device=dev, generator=resolve_generator(dev,

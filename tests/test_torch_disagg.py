@@ -998,7 +998,7 @@ def test_refuses_lora_and_the_host_tier():
         DisaggRouter(model, n_prefill=1, n_decode=1, kv_tier=other,
                      **SHAPE, device="cpu")
     from paddle_tpu_torch.serving import DecodeParams
-    with pytest.raises(NotImplementedError, match="JSON"):
+    with pytest.raises(ValueError, match="grammar"):
         rt.submit([1, 2, 3], decode=DecodeParams(json_mode=True))
     with pytest.raises(NotImplementedError, match="dispatch-ahead"):
         DisaggRouter(model, n_prefill=1, n_decode=1, megastep=2,

@@ -34,6 +34,7 @@ import pytest
 
 import paddle_tpu as pt
 from paddle_tpu import monitor as jmonitor
+from paddle_tpu import observability as jobs
 from paddle_tpu.models.generation import greedy_search as jgreedy
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JGPT
@@ -259,10 +260,9 @@ def test_health_over_a_disaggregated_fleet():
 
 
 def test_refused_fields_are_400_like_the_reference(pkgs):
-    """``json_mode`` and ``tenant``: 400 in both packages (the reference
-    has no grammar or LoRA pool on this engine; the port has no grammar
-    ported, and says so, and refuses the tenant as the reference does,
-    with its body)."""
+    """``json_mode`` and ``tenant`` on an engine without a grammar or a
+    LoRA pool: the reference's 400s, with its bodies, in both
+    packages."""
     def run(pkg):
         def script(c, target):
             a = c("POST", "/v1/generate", {"ids": [1, 2], "json_mode": True})
@@ -270,12 +270,11 @@ def test_refused_fields_are_400_like_the_reference(pkgs):
             return a, b
 
         _, (a, b) = _served(pkg, _target(pkg, "engine"), script)
-        if pkg.name == "port":
-            assert "not ported" in a[1]["error"]
-        return a[0], b
+        return a, b
 
-    status, tenant = _both(pkgs, run)
-    assert status == 400 and tenant[0] == 400
+    grammar, tenant = _both(pkgs, run)
+    assert grammar[0] == 400 and tenant[0] == 400
+    assert "grammar" in grammar[1]["error"]
     assert "LoRA pool" in tenant[1]["error"]
 
 
@@ -497,14 +496,21 @@ def test_prometheus_text_equals_the_reference_line_for_line():
 
 def test_snapshot_equals_the_reference_without_the_compile_tracker():
     """The JSON snapshot's counters, gauges and histograms equal the
-    reference's; the reference's compile records and device costs have
-    no counterpart in the port (ROADMAP C)."""
+    reference's, and both carry the compile records and the devprof
+    cost table; with no tracked compile and devprof off in either
+    process's trackers (both reset), those sections are equal too."""
     jreg, treg = jmetrics.MetricsRegistry(), tmetrics.MetricsRegistry()
     _fill(jreg)
     _fill(treg)
+    jobs.reset_compiles()
+    tobs.reset_compiles()
+    jobs.devprof.reset()
+    tobs.devprof.reset()
     jsnap, tsnap = jexport.snapshot(jreg), texport.snapshot(treg)
-    assert set(jsnap) - set(tsnap) == {"compiles", "device_costs"}
-    assert tsnap == {k: jsnap[k] for k in tsnap}
+    assert set(jsnap) == set(tsnap)
+    assert tsnap["compiles"] == jsnap["compiles"] == {}
+    assert tsnap["device_costs"] == jsnap["device_costs"] == {}
+    assert tsnap == jsnap
     assert set(tsnap["histograms"]["lat_seconds"]) == {
         "count", "sum", "min", "max", "p50", "p95", "p99"}
     json.dumps(tsnap)

@@ -133,7 +133,7 @@ def test_route_follows_the_jax_predicate(monkeypatch, flag, h, lead):
         x = x.reshape(*lead, h)
         jy = JF.layer_norm(Tensor(jnp.asarray(x)), [h],
                            Tensor(jnp.asarray(g)), Tensor(jnp.asarray(b)))
-        ty = TF.layer_norm(torch.from_numpy(x), torch.from_numpy(g),
+        ty = TF.layer_norm(torch.from_numpy(x), [h], torch.from_numpy(g),
                            torch.from_numpy(b))
     finally:
         jflags.set_flags({"use_pallas_layer_norm": saved[0]})

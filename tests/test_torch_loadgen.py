@@ -280,15 +280,47 @@ def test_warmup_warms_every_replica_and_leaves_no_record(pkgs):
         assert st["slo_attainment"] == 1.0 and st["shed"] == {}
 
 
-def test_refuses_what_is_not_ported():
-    """devprof's and the ledger's CLI options raise, naming their ROADMAP
-    item. (Tenant mixes and returning users run: tests/test_torch_lora.py
-    and tests/test_torch_kv_tier.py; the disaggregated fleet's chaos kinds
+def test_refuses_what_is_not_ported(tmp_path, capsys):
+    """The CLI's devprof and ledger options, refused until the device-cost
+    observatory was ported, now run: ``--devprof --devprof-sample 1``
+    samples every dispatch (zero-width on the virtual clock, so no device
+    fraction) and ``--ledger`` appends the report's row, which passes
+    ``perf_regress`` against a baseline written from itself;
+    ``--devprof-sample`` alone fails as the reference's does. (Tenant
+    mixes and returning users run: tests/test_torch_lora.py and
+    tests/test_torch_kv_tier.py; the disaggregated fleet's chaos kinds
     and the CLI's ``--disagg``: the parity tests below.)"""
-    for opt in (["--devprof"], ["--devprof-sample", "0.5"],
-                ["--ledger", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-            tloadgen.main(opt + ["--device", "cpu"])
+    from paddle_tpu_torch import observability as tobs
+    from paddle_tpu_torch.tools import perf_ledger, perf_regress
+
+    ledger, base = tmp_path / "ledger.jsonl", tmp_path / "base.json"
+    try:
+        rc = tloadgen.main([
+            "--device", "cpu", "--model", "gpt2-tiny", "--mode", "bursty",
+            "--rate", "12", "--duration", "0.5", "--slots", "2",
+            "--max-len", "32", "--buckets", "8,16", "--prompt-tokens",
+            "4:9", "--new-tokens", "2:4", "--slo-ttft-ms", "200",
+            "--slo-prefill-ms", "4", "--slo-tpot-ms", "1",
+            "--virtual-step-ms", "4", "--json", "--devprof",
+            "--devprof-sample", "1.0", "--ledger", str(ledger)])
+        rep = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        assert rc == 0, rep
+        dp = rep["devprof"]
+        assert dp["sample"] == 1.0 and dp["samples"] == dp["dispatches"] > 0
+        assert dp["device_frac"] is None
+        row = perf_ledger.latest(str(ledger))
+        assert row == rep["ledger_row"] and row["run"] == "loadgen"
+        assert row["goodput_per_s"] == rep["goodput_per_s"]
+        assert len(row["cost_digest"]) == 16
+        perf_regress.write_baseline(str(base), row)
+        assert perf_regress.main([str(ledger), "--baseline",
+                                  str(base)]) == 0
+        assert tloadgen.main(["--device", "cpu", "--devprof-sample",
+                              "0.5"]) == 1
+    finally:
+        tflags.set_flags({"serving_devprof": False,
+                          "serving_devprof_sample": 0.1})
+        tobs.devprof.reset()
     row = [0.1, [1, 2, 3], 2, 1, 0.0, 0, 1.0, 0, "acme"]
     lg = tloadgen.LoadGen.from_trace(
         {"arrivals": [row, row[:8] + ["", 0.0, "s1"]]})

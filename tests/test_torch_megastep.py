@@ -102,7 +102,8 @@ def _mega_both(jm, tm, kv, live, budget, eos, stop, tokens):
         tuple(jnp.asarray(a) for a in stop))
     tpools = [tuple(torch.from_numpy(a.copy()) for a in layer)
               for layer in pools]
-    tout = gen.decode_megastep_paged(tm, N, kv, "kernel")["fn"](
+    tout = gen.decode_megastep_paged(tm, N, kv_dtype=kv,
+                                     attn_impl="kernel")["fn"](
         tokens, POS, TABLES, tpools, None, live, budget, eos, stop)
     return jout, tout, tpools
 
@@ -184,7 +185,8 @@ def test_sampled_megastep_matches_jax_and_single_steps(models, port):
             tuple(jnp.asarray(a) for a in stop))
     tpools = [tuple(torch.from_numpy(a.copy()) for a in layer)
               for layer in pools]
-    tout = gen.decode_megastep_paged(port, N, kv, "kernel")["fn"](
+    tout = gen.decode_megastep_paged(port, N, kv_dtype=kv,
+                                     attn_impl="kernel")["fn"](
         tokens, POS, TABLES, tpools, samp, live, budget, eos, stop)
     assert tout[1].tolist() == [-1, -1, 1, -1]
     for i in (0, 1, 2, 3, 5, 6, 7, 8):
@@ -192,7 +194,7 @@ def test_sampled_megastep_matches_jax_and_single_steps(models, port):
     # n single sampled steps from the same pools and keys
     spools = [tuple(torch.from_numpy(a.copy()) for a in layer)
               for layer in pools]
-    step = gen.decode_step_paged(port, kv, "kernel")["fn"]
+    step = gen.decode_step_paged(port, kv_dtype=kv, attn_impl="kernel")["fn"]
     tok, pos, keys = tokens.copy(), POS.copy(), samp[3].astype(np.int64)
     toks = []
     for it in range(N):

@@ -169,8 +169,12 @@ def test_decode_params_validation(models):
     with pytest.raises(ValueError):
         eng.submit([1, 2], decode=DecodeParams(temperature=0.5),
                    temperature=0.7)   # decode= excludes the fields
-    with pytest.raises(NotImplementedError, match="JSON"):
+    # json_mode on an engine without a grammar: the reference's
+    # ValueError (tests/test_serving_decoding.py:199)
+    with pytest.raises(ValueError, match="grammar"):
         eng.submit([1, 2], decode=DecodeParams(json_mode=True))
+    with pytest.raises(ValueError, match="grammar"):
+        eng.submit([1, 2], json_mode=True)
 
 
 # ------------------------------------------------------------ the engine
@@ -258,7 +262,7 @@ def test_greedy_batch_sorts_and_draws_nothing(models, monkeypatch):
     assert calls == {"sort": 0, "hash": 0}
     assert all((r._key == k).all() for r, k in zip(greedy, keys))
     assert eng._mask is None
-    dec = gen.decode_step_paged(tm, "f32", "kernel")
+    dec = gen.decode_step_paged(tm, kv_dtype="f32", attn_impl="kernel")
     assert dec["graphs"]["greedy"].signatures
     eng.submit([5, 6, 7], max_new_tokens=4, **SAMPLED, seed=1)
     eng.submit([8, 9], max_new_tokens=4)

@@ -95,11 +95,12 @@ def test_engine_stop_eos_and_admission(models):
     assert eng.results() == [base, eos, stop]
     assert base.ttft is not None and base.tpot is not None
     # sampled requests serve (tests/test_torch_sampling.py holds their
-    # tokens to the JAX engine's); JSON mode is not ported
+    # tokens to the JAX engine's); JSON mode needs a grammar, as in the
+    # reference (tests/test_torch_json_grammar.py)
     sampled = eng.submit([1, 2], max_new_tokens=6, temperature=0.7, seed=3)
     eng.run_until_idle()
     assert sampled.done and len(sampled.tokens) == 6
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="grammar"):
         eng.submit([1, 2], decode=DecodeParams(json_mode=True))
     with pytest.raises(ValueError):
         eng.submit([1, 200])                 # outside the vocabulary

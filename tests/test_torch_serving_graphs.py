@@ -137,7 +137,7 @@ def test_decode_specialises_once_prefill_once_per_bucket(models):
     for p in _prompts((2, 3, 4, 6, 7, 9, 13, 15), seed=1):
         eng.submit(p, max_new_tokens=4)
     eng.run_until_idle()
-    dec = gen.decode_step_paged(tm, "f32", "kernel")
+    dec = gen.decode_step_paged(tm, kv_dtype="f32", attn_impl="kernel")
     assert dec["traces"]["count"] == 1
     used = {b: e["traces"]["count"] for b, e in eng._prefill_fns.items()}
     assert used == {4: 1, 8: 1, 16: 1}
@@ -148,10 +148,10 @@ def test_decode_specialises_once_prefill_once_per_bucket(models):
     tflags.set_flags({"serving_max_queue": 64})
     eng.submit([5, 6, 7], max_new_tokens=3)
     eng.run_until_idle()
-    assert gen.decode_step_paged(tm, "f32", "kernel")["traces"]["count"] \
-        == 2
+    dec2 = gen.decode_step_paged(tm, kv_dtype="f32", attn_impl="kernel")
+    assert dec2["traces"]["count"] == 2
     assert eng._prefill_fns[4]["traces"]["count"] == 2
-    assert gen.decode_step_paged(tm, "f32", "kernel") is not dec
+    assert dec2 is not dec
 
 
 def test_pools_stay_the_same_tensors(models):

@@ -109,7 +109,7 @@ def test_verify_step_matches_jax(models, kv, sampled):
     tpools = [tuple(torch.from_numpy(a.copy()) for a in layer)
               for layer in pools]
     before = pa.launches
-    got = gen.verify_step_paged(tm, K, kv, "kernel")["fn"](
+    got = gen.verify_step_paged(tm, K, kv_dtype=kv, attn_impl="kernel")["fn"](
         tokens, POS, TABLES, tpools, samp if sampled else None)
     (chosen, logits, newp, q, accept, keys) = got
     assert pa.launches == before and newp is tpools

@@ -87,12 +87,12 @@ def test_amp_casts_follow_maybe_autocast_inputs(level, op_type):
         jout = jcast(op_type, jins, "bfloat16", level)["X"]
     tins = [torch.from_numpy(v).to(dt) for v, dt in zip(vals, tdts)]
     with tamp.auto_cast(level=level):
-        tout = tamp.maybe_autocast_inputs(op_type, *tins, None)
+        tout = tamp.autocast_inputs(op_type, *tins, None)
     assert tout[-1] is None
     assert [str(t.dtype).replace("torch.", "") for t in tout[:-1]] == \
         [str(t.value.dtype) for t in jout]
     with tamp.auto_cast(enable=False, level=level):
-        assert tamp.maybe_autocast_inputs(op_type, *tins) == tuple(tins)
+        assert tamp.autocast_inputs(op_type, *tins) == tuple(tins)
 
 
 def test_amp_casts_are_differentiable():
