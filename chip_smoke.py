@@ -16,7 +16,9 @@ under a TTFT SLO (SLO admission, priorities, faults, hedged prefill,
 cancel and hard deadlines; a disaggregated prefill/decode fleet, its
 KV handoff and its worker kills) and its HTTP front end, multi-tenant
 LoRA traffic and returning users on the host KV tier, JSON-constrained
-requests and the device-cost observatory, trains it
+requests and the device-cost observatory, soaks a fleet through hours of
+simulated traffic with replica kills (one arm under the lock
+sanitizer), trains it
 (``bench.py``'s step: batch
 8, seq 1024, AMP O2 bf16, AdamW with bf16 moments) eagerly and through
 ``jit.to_static`` as a CUDA graph, with the LayerNorm kernels off and
@@ -103,7 +105,16 @@ engine at sample 1.0 (per entry: device ms from CUDA events, FLOPs,
 bytes, MFU and HBM share against the H100's data sheet, host-overhead
 share; the decode entry's event time against the traced busy time, the
 blame identity, captures and sample-0 tokens equal devprof off, a
-ledger row gated against itself), 6 flash kernels vs plain (f32, bf16
+ledger row gated against itself), 5k the chaos soak (``tools/ci.sh``'s
+three soak arms through the port's ``tools/soak.py`` on a 2-replica
+gpt2-medium fleet on the virtual clock: 2 simulated hours with 2 kills,
+closed-loop abandonment with hedging, and 1 kill from 2 dispatch threads
+in a child process under ``FLAGS_sanitize_locks=1``; the accounting
+identity, goodput in every window, no leak or exception, the
+predictor's no-op, no capture by a warmed engine and at most a warmed
+engine's graphs per replacement, B4 launched per dispatch, reserved
+memory flat, sampled tokens equal an unloaded engine's, the sanitizer
+clean), 6 flash kernels vs plain (f32, bf16
 and fp16), 7 train GPT (eager, then captured: losses and parameters
 bit-equal), 7b train GPT at O1 fp16 with ``GradScaler`` through the
 CUDA-core flash kernels, 8 time the flash kernels, 9
@@ -1905,7 +1916,8 @@ def release_engines(engines):
     for eng in engines:
         if eng.paged:
             eng.cache.flush_prefix_cache()
-        eng._release_device()
+        with eng._step_lock:
+            eng._release_device()
 
 
 def timed_loadgen(torch, ctr, target, lg, what, **run_kw):
@@ -3187,7 +3199,8 @@ def host_tier_serving(torch, ctr, pa, card):
     eng = loadgen_engine(model, max_slots=1, buckets=[8, 16, 32],
                          kv_tier=tier, clock=vc.now)
     warmup(eng)
-    tier.migrate_ms = {"demote": 0.0, "promote": 0.0}
+    with tier._lock:
+        tier.migrate_ms = {"demote": 0.0, "promote": 0.0}
     res, _ = timed_loadgen(torch, ctr, eng,
                            LoadGen(vocab_size=cfg.vocab_size, **SESSION_LG),
                            "returning users", clock=vc, step_cost_ms=5.0)
@@ -3688,6 +3701,298 @@ def devprof_serving(torch, ctr, pa, card):
     devprof.reset()
     release_graphs(torch, model)
     del model
+    return out
+
+
+# ------------------------------------------------------------ phase 5k
+#: ``tools/ci.sh``'s three soak arms (its lines 471-475, 516-520 and
+#: 493-497) as ``python3 -m paddle_tpu_torch.tools.soak`` arguments, and
+#: the kills and restarts each schedule injects; every arm runs at the
+#: soak's default geometry (4 slots, ``max_len`` 64, buckets 16 and 32:
+#: phase 5e's loadgen engine) on a 2-replica ``ReplicaRouter`` on the
+#: virtual clock, the kernel route on
+SOAK_ARMS = {
+    "primary": ("--hours 2 --rate 0.02 --kills 2 --replicas 2 --seed 0 "
+                "--windows 8", 2),
+    "sanitized": ("--hours 0.5 --rate 0.02 --kills 1 --replicas 2 --seed 0 "
+                  "--windows 4 --dispatch-threads 2", 1),
+    "abandon": ("--hours 0.5 --rate 0.02 --kills 0 --replicas 2 --seed 3 "
+                "--windows 4 --closed-loop 4 --abandon-frac 0.15 "
+                "--hedge-ms 50 --hedge-budget 0.3", 0),
+}
+#: completed requests per arm held to an unloaded engine's tokens
+SOAK_TOKEN_SAMPLE = 24
+#: the locks the sanitized arm must have instrumented: the serving
+#: fleet's, the metrics registry's, and the port's own around a replay
+#: and a capture
+SOAK_LOCKS = ("engine._lock", "engine._step_lock", "router._lock",
+              "metrics.registry", "model_trace_lock", "jit._capture_lock",
+              "launches.lock")
+
+
+def soak_arm(torch, ctr, model, name, card):
+    """One arm of ``SOAK_ARMS`` through ``tools/soak.py``'s port
+    (``soak.soak``: the warm-up, the traffic under the kill schedule, the
+    windows, the predictor's proof, the sanitizer's report) on ``model``,
+    the launch counts zeroed after the warm-up and read after the run.
+    Raises unless: the accounting identity holds; every window that
+    offered load completed some; the schedule's kills and restarts
+    happened; no KV block or LoRA page leaked and no exception escaped;
+    the predictor's chaos counts equal its plain ones; hedges stayed in
+    their budget and every abandonment ended as a ``disconnect`` cancel;
+    the paged kernel launched ``num_layers`` times per dispatch, each on
+    a named route; no engine present at the warm-up captured, and no
+    replacement captured more graphs than a warmed engine holds; memory
+    is flat within 4 MiB: allocated after the drain against the start of
+    the traffic (each replacement's pools and graphs take the place of
+    the killed engine's), reserved once the fleet is released against
+    the start of the arm (the caching allocator may keep one more
+    segment while the fleet lives, whose blocks a replacement's pools
+    fragment); and a sample of completed requests' tokens equal an
+    unloaded engine's (top-2 rule). Returns the arm's numbers."""
+    from paddle_tpu_torch import flags as _fl
+    from paddle_tpu_torch.tools import soak
+    argv, kills = SOAK_ARMS[name]
+    args = soak.build_parser().parse_args(
+        argv.split() + ["--model", "gpt2-medium"])
+    _fl.set_flags({"serving_dispatch_threads": args.dispatch_threads})
+    what = f"phase 5k, {name} arm"
+    seen = {}
+
+    def on_fleet(rt):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        seen.update(rt=rt, reserved0=torch.cuda.memory_reserved(),
+                    allocated0=torch.cuda.memory_allocated(),
+                    d0={id(e): dispatches(e) for e in rt.engines},
+                    graphs=[replica_graphs(model, e) for e in rt.engines])
+        torch.cuda.reset_peak_memory_stats()
+        ctr.zero()
+        seen["t0"] = time.perf_counter()
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved_start = torch.cuda.memory_reserved()
+    t_arm = time.perf_counter()
+    try:
+        rec = soak.soak(model, args, on_fleet=on_fleet)
+    finally:
+        _fl.set_flags({"serving_dispatch_threads": 0})
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - seen["t0"]
+    run, routes = ctr.read(), ctr.routes()["paged_attention"]
+    rt, rep, wins = seen["rt"], rec["report"], rec["windows"]
+    engines = rt.engines + rt._retiring
+    want = model.cfg.num_layers * sum(
+        dispatches(e) - seen["d0"].get(id(e), 0) for e in engines)
+    ctr.expect(run, {"paged_attention": want}, what)
+    if not want or sum(routes.values()) != want:
+        raise AssertionError(f"{what}: {want} paged launches, by route "
+                             f"{routes}")
+    gc.collect()
+    torch.cuda.synchronize()
+    allocated1 = torch.cuda.memory_allocated()
+    torch.cuda.empty_cache()
+    reserved1 = torch.cuda.memory_reserved()
+    peak = torch.cuda.max_memory_reserved()
+    release_engines(rt.engines)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved_end = torch.cuda.memory_reserved()
+    bad = []
+    if not rec["identity_ok"]:
+        bad.append("the accounting identity")
+    if any(w["offered"] and not w["completed"] for w in wins):
+        bad.append(f"goodput in every window {wins}")
+    if rep["kills"] < kills or rep["restarts"] < kills:
+        bad.append(f"{rep['kills']} kills, {rep['restarts']} restarts")
+    if rep["leaked_kv_blocks"] or rep.get("leaked_lora_pages") or \
+            rep["exceptions"]:
+        bad.append(f"{rep['leaked_kv_blocks']} leaked blocks, "
+                   f"{rep.get('leaked_lora_pages')} LoRA pages, "
+                   f"{rep['exceptions']} exceptions")
+    if not rec["predictor_noop"]:
+        bad.append("the predictor's no-op")
+    if not soak.compiles_ok(rep, "cuda") or \
+            rep["warm_engine_graphs"] != max(seen["graphs"]):
+        bad.append(f"captures: {rep['captures_warm_engines']} by engines "
+                   f"present at warm-up, {rep['captures_replacements']} "
+                   f"by replacements, warmed engines hold "
+                   f"{seen['graphs']} graphs, ledger "
+                   f"{rep['warm_engine_graphs']}")
+    if allocated1 > seen["allocated0"] + (4 << 20) or \
+            reserved_end > reserved_start + (4 << 20):
+        bad.append(f"allocated {seen['allocated0']} B at the start of the "
+                   f"traffic, {allocated1} B after the drain; reserved "
+                   f"{reserved_start} B at the start of the arm, "
+                   f"{reserved_end} B with the fleet released")
+    if args.hedge_ms and not rec["hedge_budget_ok"]:
+        bad.append(f"hedges {rep.get('hedges')} over their budget")
+    if args.abandon_frac and (
+            not rep["abandoned"] or
+            rep["canceled"].get("disconnect", 0) != rep["abandoned"]):
+        bad.append(f"{rep['abandoned']} abandoned, canceled "
+                   f"{rep['canceled']}")
+    san = rec["sanitizer"]
+    if args.dispatch_threads and (not san["enabled"] or
+                                  not san["lock_acquires"] or
+                                  san["cycles"] or san["violations"]):
+        bad.append(f"sanitizer {san}")
+    if bad:
+        raise AssertionError(f"{what}: " + "; ".join(bad))
+    done = sorted({r.id: r for e in engines for r in e._all
+                   if not r._hedge_clone and r.state == "done"}.items())
+    pick = np.random.RandomState(0).permutation(len(done))
+    sample = [done[i][1] for i in sorted(pick[:SOAK_TOKEN_SAMPLE])]
+    tokens = check_greedy(torch, model, sample, f"{what}'s sample")
+    out = {"wall_s": time.perf_counter() - t_arm, "run_s": run_s,
+           "steps": rep["steps"], "simulated_hours": args.hours,
+           "offered": rep["offered"], "completed": rep["completed"],
+           "rehomed": rep["rehomed"], "canceled": rep["canceled_total"],
+           "abandoned": rep["abandoned"], "kills": rep["kills"],
+           "restarts": rep["restarts"], "goodput_per_s": rep["goodput_per_s"],
+           "hedges": rep.get("hedges", {}).get("fired"),
+           "launches": want, "routes": routes,
+           "new_compiles": rep["new_compiles_after_warmup"],
+           "captures_warm_engines": rep["captures_warm_engines"],
+           "captures_replacements": rep["captures_replacements"],
+           "replacement_dispatches": [
+               dispatches(e) for e in sorted(
+                   (e for e in engines if id(e) not in seen["d0"]),
+                   key=lambda e: int(e._eid))],
+           "warm_engine_graphs": rep["warm_engine_graphs"],
+           "allocated_bytes": [seen["allocated0"], allocated1],
+           "reserved_bytes": [reserved_start, seen["reserved0"], reserved1,
+                              reserved_end],
+           "peak_reserved_bytes": peak,
+           "sanitizer": {k: (len(v) if isinstance(v, list) else v)
+                         for k, v in san.items()},
+           "tokens_checked": tokens}
+    log(f"  [{card}] {name}: {out['wall_s']:.1f} s wall ({run_s:.1f} s of "
+        f"traffic), {rep['steps']} steps, {args.hours} simulated hours, "
+        f"offered {rep['offered']}, completed {rep['completed']}, "
+        f"re-homed {rep['rehomed']}, canceled {rep['canceled_total']} "
+        f"({rep['abandoned']} abandoned), {rep['kills']} kills / "
+        f"{rep['restarts']} restarts, goodput {rep['goodput_per_s']}/s, "
+        f"{want} paged launches {routes}, captures by warm engines "
+        f"{rep['captures_warm_engines']}, by replacements "
+        f"{rep['captures_replacements']} over "
+        f"{out['replacement_dispatches']} dispatches (a warmed engine "
+        f"holds {rep['warm_engine_graphs']}), allocated "
+        f"{seen['allocated0']} -> {allocated1} B, reserved {reserved_start} "
+        f"(arm) / {seen['reserved0']} (traffic) -> {reserved1} (drained, "
+        f"peak {peak}) -> {reserved_end} B (fleet released)")
+    if san["enabled"]:
+        log(f"  [{card}] {name}: sanitizer {san['lock_acquires']} acquires "
+            f"over {san['locks_tracked']} locks, {san['order_edges']} order "
+            f"edges, {len(san['cycles'])} cycles, {len(san['violations'])} "
+            "violations")
+    return out
+
+
+def prime_fleet(torch, model, name):
+    """What a fresh process allocates once and keeps, on its first fleet:
+    cuBLAS's workspace per thread and stream (the dispatch threads', the
+    capture stream's). A fleet of the arm's geometry, warmed from its
+    dispatch threads, then released with its graphs, pays it before the
+    arm takes its memory baseline, as the earlier phases have in the
+    parent process."""
+    from paddle_tpu_torch import flags as _fl
+    from paddle_tpu_torch.serving import ReplicaRouter
+    from paddle_tpu_torch.tools import soak
+    from paddle_tpu_torch.tools.loadgen import warmup
+    args = soak.build_parser().parse_args(SOAK_ARMS[name][0].split())
+    _fl.set_flags({"serving_dispatch_threads": args.dispatch_threads})
+    try:
+        rt = ReplicaRouter(model, n_replicas=args.replicas,
+                           max_slots=args.slots, max_len=args.max_len,
+                           max_queue=args.max_queue,
+                           buckets=[int(b) for b in args.buckets.split(",")],
+                           device=model.device)
+        warmup(rt)
+    finally:
+        _fl.set_flags({"serving_dispatch_threads": 0})
+    release_engines(rt.engines)
+    release_graphs(torch, model)
+
+
+def soak_child(name):
+    """The sanitized arm's process (``python3 -c "import chip_smoke;
+    chip_smoke.soak_child('sanitized')"`` with ``FLAGS_sanitize_locks=1``
+    in its environment, so the locks made at import, the capture lock
+    and the metrics registry among them, are instrumented): builds the
+    seeded gpt2-medium, loads the paged kernel (built by the parent),
+    primes the process (:func:`prime_fleet`), runs the arm, checks that
+    every lock of ``SOAK_LOCKS`` is a sanitized one and prints the arm's
+    numbers as the last line, one JSON object."""
+    import torch
+    from paddle_tpu_torch.analysis import concurrency as ccz
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import adamw as aw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flash_pack2 as fp2
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+    if not ccz.enabled():
+        raise SystemExit("soak_child: FLAGS_sanitize_locks is off")
+    _build.load_all(["paged_attention"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(GPT_CONFIGS["gpt2-medium"], device="cuda",
+                           generator=gen).eval()
+    prime_fleet(torch, model, name)
+    out = soak_arm(torch, Counters(pa, fa, ln, fp2, aw), model, name,
+                   card_line())
+    out["locks"] = sorted({n.split("#")[0] for n in ccz._names.values()})
+    missing = set(SOAK_LOCKS) - set(out["locks"])
+    if missing:
+        raise AssertionError(f"phase 5k: locks not instrumented {missing}")
+    print(json.dumps(out), flush=True)
+
+
+def soak_serving(torch, ctr, card):
+    """Phase 5k: the chaos soak (``tools/soak.py``'s port) on a fresh
+    seeded gpt2-medium at full width and depth, ``tools/ci.sh``'s three
+    arms (``SOAK_ARMS``): the primary gate (2 simulated hours, 2 kills),
+    the abandonment arm (closed-loop clients who hang up, hedged
+    prefill), both here, and the sanitized arm (1 kill, 2 dispatch
+    threads) in a child process with ``FLAGS_sanitize_locks=1`` in its
+    environment, where real threads contend for the engine, router,
+    capture and trace locks. Each arm's checks are
+    :func:`soak_arm`'s."""
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(GPT_CONFIGS["gpt2-medium"], device="cuda",
+                           generator=gen).eval()
+    out = {name: soak_arm(torch, ctr, model, name, card)
+           for name in ("primary", "abandon")}
+    release_graphs(torch, model)
+    del model
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.soak_child('sanitized')"],
+        cwd=ROOT, env={**os.environ, "FLAGS_sanitize_locks": "1"},
+        capture_output=True, text=True, timeout=600)
+    lines = child.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"  (child) {line}")
+    if child.returncode:
+        raise AssertionError(f"phase 5k: the sanitized arm's process exited "
+                             f"{child.returncode}: {child.stderr[-4000:]}")
+    out["sanitized"] = json.loads(lines[-1])
+    out["sanitized"]["process_s"] = time.perf_counter() - t0
+    log(f"  [{card}] sanitized arm's process {out['sanitized']['process_s']:.1f}"
+        f" s; instrumented locks {out['sanitized']['locks']}")
+    out["launches"] = sum(out[k]["launches"] for k in SOAK_ARMS)
+    routes = {}
+    for k in SOAK_ARMS:
+        for r, n in out[k]["routes"].items():
+            routes[r] = routes.get(r, 0) + n
+    out["routes"] = routes
     return out
 
 
@@ -6130,6 +6435,13 @@ def main():
     dpf = devprof_serving(torch, ctr, pa, card)
     log(f"  phase 5j took {time.perf_counter() - t_dp:.1f} s")
 
+    log("== phase 5k: the chaos soak, gpt2-medium on a 2-replica fleet: "
+        "tools/ci.sh's primary, abandonment and sanitized arms")
+    t_soak = time.perf_counter()
+    sok = soak_serving(torch, ctr, card)
+    log(f"  phase 5k took {time.perf_counter() - t_soak:.1f} s")
+    torch.cuda.empty_cache()
+
     log("== phase 6: flash kernels vs plain")
     n_flash, flash_err = check_flash(torch, fa, ctr)
     log(f"  {n_flash} cases passed, max abs err by kernel {flash_err}")
@@ -6290,7 +6602,9 @@ def main():
                      launches_json=jsn["launches"],
                      json_tables_max_abs_err=max(json_errs),
                      launches_devprof=dpf["launches"],
-                     launches_by_route_devprof=dpf["routes"])]
+                     launches_by_route_devprof=dpf["routes"],
+                     launches_soak=sok["launches"],
+                     launches_by_route_soak=sok["routes"])]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]

@@ -216,6 +216,19 @@ define_flag("pallas_flash_block_k", 512,
             "Flash-attention k-block size; the same rule as "
             "pallas_flash_block_q, for the key sequence.")
 
+# The concurrency sanitizer (analysis/concurrency.py): the reference's
+# name, default and help.
+define_flag("sanitize_locks", False,
+            "Swap the serving/observability locks for instrumented "
+            "wrappers (analysis/concurrency.py): record the per-thread "
+            "lock-acquisition-order graph, report lock-order inversions "
+            "(potential deadlock cycles) with held-lock witnesses, and "
+            "enforce the declared guarded-state registry — a write to "
+            "a '# guarded-by' attribute without its lock raises "
+            "GuardedStateError. Pure host-side instrumentation: zero "
+            "overhead when off (plain threading locks), zero effect on "
+            "compiled steps when on.")
+
 # The serving engine's background thread and the router's dispatch
 # (ServingEngine.start, ReplicaRouter.step).
 define_flag("serving_idle_wait", 0.05,

@@ -78,6 +78,7 @@ import numpy as np
 import torch
 
 from . import flags as _flags
+from .analysis import concurrency as _ccz
 
 
 # ------------------------------------------------------------ launch counts
@@ -238,8 +239,10 @@ def _timed(run):
 _streams = {}      # device -> the stream steps warm up and capture on
 
 #: held around every warm-up and capture: they share one side stream per
-#: device, and a capture must record no other thread's work on it
-_capture_lock = threading.RLock()
+#: device, and a capture must record no other thread's work on it. A
+#: sanitized lock (``FLAGS_sanitize_locks`` in the environment at import)
+#: puts it in the lock-order graph beside the serving locks
+_capture_lock = _ccz.make_lock("jit._capture_lock", reentrant=True)
 
 
 def _side_stream(dev):
@@ -606,7 +609,8 @@ class HeldStep:
         # on_compile(small, held, wall_ms): told of each specialisation
         # (the compile tracker and devprof's cost capture)
         self.on_compile = on_compile
-        self.lock = lock if lock is not None else threading.RLock()
+        self.lock = (lock if lock is not None else
+                     _ccz.make_lock("HeldStep.lock", reentrant=True))
         self.graphs = {}          # key -> _HeldGraph
         self.signatures = set()   # CPU: input signatures seen
         self.last = None

@@ -67,6 +67,7 @@ import torch
 
 from .. import flags as _flags
 from .. import prng
+from ..analysis import concurrency as _ccz
 from ..jit import HeldStep
 from ..observability import compile_tracker as _ct
 from ..observability import devprof as _devprof
@@ -77,7 +78,7 @@ from ..serving.decoding import (DecodeParams, greedy_tokens, sample_tokens,
 _TRACE_LOCK_GUARD = threading.Lock()
 
 
-def model_trace_lock(model) -> threading.RLock:
+def model_trace_lock(model):
     """The per-model lock every step of ``model`` and every write of its
     weights share, ``paddle_tpu/models/generation.py:39``'s counterpart.
     The reference holds it while a trace borrows the parameters; here a
@@ -85,13 +86,17 @@ def model_trace_lock(model) -> threading.RLock:
     eager body, or captures), and ``ServingEngine.swap_weights`` while it
     copies the new values in, so a replica stepped from another thread
     reads either the old weights or the new ones, never a mix. It also
-    guards the step cache's dict. Reentrant, as the reference's."""
+    guards the step cache's dict. Reentrant, as the reference's; made by
+    :func:`~paddle_tpu_torch.analysis.concurrency.make_lock` as
+    ``"model_trace_lock"`` at the model's first step, so under
+    ``FLAGS_sanitize_locks`` it joins the lock-order graph."""
     lk = model.__dict__.get("_step_trace_lock")
     if lk is None:
         with _TRACE_LOCK_GUARD:
             lk = model.__dict__.get("_step_trace_lock")
             if lk is None:
-                lk = model._step_trace_lock = threading.RLock()
+                lk = model._step_trace_lock = _ccz.make_lock(
+                    "model_trace_lock", reentrant=True)
     return lk
 
 

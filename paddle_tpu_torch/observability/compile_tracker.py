@@ -24,12 +24,15 @@ labels (``decode_step_paged``, ``decode_megastep_paged{n=8}``,
 
 The port's step keeps two graphs per entry (greedy and sampled), each
 reported under the entry's site, so a site's count is its entry's
-``traces["count"]``.
+``traces["count"]``. :func:`watch` tells a caller of each compile as it
+happens, with the call's arguments (the soak attributes a capture to
+the engine whose pools the step held).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import warnings
 from typing import Any, Dict, Optional, Tuple
@@ -68,6 +71,7 @@ class _CompileRecord:
 
 
 _lock = threading.Lock()
+_watchers: list = []
 _records: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], _CompileRecord] = {}
 
 
@@ -140,6 +144,8 @@ def note_compile(name: str, labels: Optional[Dict[str, str]], args,
     reg.histogram("xla_compile_ms",
                   "wall ms of calls that triggered an XLA compile"
                   ).observe(wall_ms)
+    for fn in list(_watchers):
+        fn(name, dict(labels or {}), args)
     limit = int(_flags.get_flag("warn_recompiles") or 0)
     if limit > 0 and count_now > limit:
         qual = _qualname(rec.name, rec.labels)
@@ -154,6 +160,20 @@ def note_compile(name: str, labels: Optional[Dict[str, str]], args,
                           limit=limit, signature=sig,
                           previous_signature=prev_sig)
     return sig
+
+
+@contextlib.contextmanager
+def watch(fn):
+    """Call ``fn(name, labels, args)`` at each compile inside the block,
+    in the compiling thread (``args``: the step's small inputs, then its
+    held tensors)."""
+    with _lock:
+        _watchers.append(fn)
+    try:
+        yield
+    finally:
+        with _lock:
+            _watchers.remove(fn)
 
 
 def compiles() -> Dict[str, Dict[str, Any]]:

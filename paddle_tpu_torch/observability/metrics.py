@@ -13,15 +13,23 @@ all in service of "scrape-able at any moment, zero unbounded state":
   1e-6 to 1e4), so p50/p95/p99 are derivable by interpolation without
   ever storing samples;
 - everything is thread-safe behind one registry lock (engine threads,
-  router dispatch workers and readers all touch it). The reference's
-  lock joins its concurrency sanitizer under ``FLAGS_sanitize_locks``;
-  the sanitizer is not ported, so this one is a plain ``RLock``.
+  router dispatch workers and readers all touch it), made by
+  :func:`~paddle_tpu_torch.analysis.concurrency.make_lock` as
+  ``"metrics.registry"``: a plain ``RLock``, or under
+  ``FLAGS_sanitize_locks`` (set in the environment before the import)
+  a sanitized one in the lock-order graph.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
+
+# under FLAGS_sanitize_locks the registry lock joins the concurrency
+# sanitizer's order graph (engine/router locks are held across gauge
+# updates — exactly the edges worth watching); the analysis module is
+# stdlib-only, so importing it here makes no cycle
+from ..analysis.concurrency import make_lock as _make_lock
 
 # 4 buckets per decade, 1e-6 .. 1e4: spans ns-scale host timings to
 # multi-hour totals whether callers observe seconds or milliseconds
@@ -225,7 +233,7 @@ class MetricsRegistry:
     call site and raises."""
 
     def __init__(self):
-        self._lock = threading.RLock()
+        self._lock = _make_lock("metrics.registry", reentrant=True)
         self._instruments: Dict[str, Instrument] = {}
 
     def _get_or_create(self, cls, name: str, help_str: str,

@@ -19,12 +19,13 @@ totals (``jit.launch_counts``' keys).
 from __future__ import annotations
 
 import contextlib
-import threading
 
 import torch
 
+from ...analysis import concurrency as _ccz
+
 #: guards every module's ``launches`` and ``launches_by_route``
-lock = threading.RLock()
+lock = _ccz.make_lock("launches.lock", reentrant=True)
 _record = None      # the open capture's recording; one capture at a time
 
 

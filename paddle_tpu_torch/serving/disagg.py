@@ -81,6 +81,7 @@ from .. import flags as _flags
 from .. import jit as _jit
 from .. import monitor as _monitor
 from .. import observability as _obs
+from ..analysis import concurrency as _ccz
 from ..observability import runlog as _runlog
 from ..observability import tracing as _tracing
 from ..resilience.injector import fault_point
@@ -147,7 +148,8 @@ class HandoffQueue:
             raise ValueError(f"handoff bound must be >= 1, got {bound}")
         self.bound = int(bound)
         self._items: deque = deque()     # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = _ccz.make_lock("handoff._lock")
+        _ccz.declare_guarded(self, {"_items": "_lock"})
 
     def __len__(self) -> int:
         with self._lock:
@@ -328,6 +330,8 @@ class DecodeEngine(ServingEngine):
         self._handoff = handoff
         self.adopted = 0          # guarded-by: _step_lock
         self.adopted_copies = 0   # guarded-by: _step_lock
+        _ccz.declare_guarded(self, {"adopted": "_step_lock",
+                                    "adopted_copies": "_step_lock"})
 
     def submit(self, *a, **k):
         raise RuntimeError(
@@ -535,7 +539,7 @@ class DisaggRouter:
         self._killed: List[ServingEngine] = []  # guarded-by: _lock
         self._rehomed = 0                       # guarded-by: _lock
         self._draining = False                  # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = _ccz.make_lock("disagg._lock")
         self._stop_evt = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # chain key -> PrefillEngine that last prefilled that prefix
@@ -571,6 +575,9 @@ class DisaggRouter:
             "serving_disagg_workers",
             "single-role workers in this disaggregated fleet, by role"
             ).labels(router=rid, role="decode").set(n_decode)
+        _ccz.declare_guarded(self, {
+            "_rehomed": "_lock", "_draining": "_lock",
+            "_killed": "_lock", "_affinity": "_lock"})
 
     # ----------------------------------------------------------- routing
     @property
@@ -1072,9 +1079,17 @@ class DisaggRouter:
                         if not same_pool:
                             # the copy is queued; drop the source refs
                             rec["pool"].release_blocks(rec["blocks"])
-                        if not peer._pin(req, row2):
-                            shed += 1
-                            break
+                        if req.tenant and peer.lora_pool is not None:
+                            # peer._pin inlined, so the release of row2
+                            # on its failure path is in this function
+                            try:
+                                peer.lora_pool.acquire(req.tenant)
+                                req._lora_held = True
+                            except ValueError as e:
+                                peer.cache.release_row(row2)
+                                peer._shed(req, _Shed(str(e)))
+                                shed += 1
+                                break
                         req.slot = row2
                         peer._active[row2] = req
                     req.rehomed = True

@@ -47,9 +47,14 @@ Threads, as the reference's: ``_lock`` guards the queue, ``_all`` and
 the accounting, ``_step_lock`` one scheduler iteration (``step``, a
 weight swap, a router's kill), so one engine can be submitted to from
 any thread while ``start()``'s background thread or a router's worker
-steps it; ``results()`` blocks until its requests finish. The locks are
-plain ``threading.Lock`` objects (the reference's ``make_lock`` with its
-sanitizer off; the sanitizer is not ported).
+steps it; ``results()`` blocks until its requests finish. Both locks
+come from :func:`~paddle_tpu_torch.analysis.concurrency.make_lock` under
+the reference's names: plain ``threading.Lock`` objects, or under
+``FLAGS_sanitize_locks`` instrumented ones in the lock-order graph, and
+the ``# guarded-by`` attributes are then checked on every rebinding
+write (``declare_guarded``); ``python3 -m
+paddle_tpu_torch.tools.lint_serving`` checks the same declarations
+statically.
 
 Resilience and metrics, as the reference's: the ``serving.submit``,
 ``serving.step`` and ``serving.alloc`` fault sites
@@ -130,6 +135,7 @@ from .. import flags as _flags
 from .. import jit as _jit
 from .. import monitor as _monitor
 from .. import observability as _obs
+from ..analysis import concurrency as _ccz
 from ..device import resolve_device
 from ..models import generation as _gen
 from ..models.gpt import ATTN_IMPLS
@@ -580,8 +586,9 @@ class ServingEngine:
         # take_queued()/adopt_request(). A bool flipped by the router and
         # read racily by submit, as in the reference.
         self.draining = False
-        self._lock = threading.Lock()         # queue, _all, accounting
-        self._step_lock = threading.Lock()    # one scheduler at a time
+        self._lock = _ccz.make_lock("engine._lock")  # queue + _all
+        self._step_lock = _ccz.make_lock(
+            "engine._step_lock")             # one scheduler at a time
         self._wake = threading.Event()
         self._stop_evt = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -666,21 +673,44 @@ class ServingEngine:
                         else float(g["serving_devprof_sample"])),
                 gauge_labels={"engine": eid}, device=self.device,
                 dtype=next(model.parameters()).dtype)
-        self._prefix_hit_reqs = 0
-        self._prefix_miss_reqs = 0
-        self._qerr_max = 0.0
-        self._spec_proposed = 0
-        self._spec_accepted = 0
+        self._prefix_hit_reqs = 0   # guarded-by: _step_lock
+        self._prefix_miss_reqs = 0  # guarded-by: _step_lock
+        self._qerr_max = 0.0        # guarded-by: _step_lock
+        self._spec_proposed = 0     # guarded-by: _step_lock
+        self._spec_accepted = 0     # guarded-by: _step_lock
         # the sampled steps' [slots, V] mask, held by their graphs by
         # address: zero but for the rows of grammar-constrained requests,
         # whose slots _mask_rows names
-        self._mask = None
-        self._mask_rows: set = set()
+        self._mask = None                 # guarded-by: _step_lock
+        self._mask_rows: set = set()      # guarded-by: _step_lock
         self._prefill_fns: Dict[int, dict] = {}   # bucket len -> entry
-        self._weight_version = 0
-        self.prefill_dispatches = 0
-        self.decode_steps = 0           # single-step decode dispatches
-        self.megastep_dispatches = 0    # N-iteration decode dispatches
+        self._weight_version = 0          # guarded-by: _step_lock
+        self.prefill_dispatches = 0       # guarded-by: _step_lock
+        # single-step and N-iteration decode dispatches
+        self.decode_steps = 0             # guarded-by: _step_lock
+        self.megastep_dispatches = 0      # guarded-by: _step_lock
+        # dynamic half of the `# guarded-by:` declarations above: under
+        # FLAGS_sanitize_locks a rebinding write to any of these without
+        # the named lock held raises GuardedStateError. Construction
+        # writes precede this call and are exempt by design. The
+        # reference's set, then the port's own (the mask and the
+        # dispatch counts, written by the scheduler only)
+        _ccz.declare_guarded(self, {
+            "_queue": "_lock", "_all": "_lock", "_completed": "_lock",
+            "_slo_met": "_lock", "_shed_by_reason": "_lock",
+            "_canceled_by_reason": "_lock",
+            "_tenant_stats": "_lock",
+            "_active": "_step_lock", "_spec_proposed": "_step_lock",
+            "_spec_accepted": "_step_lock",
+            "_prefix_hit_reqs": "_step_lock",
+            "_prefix_miss_reqs": "_step_lock",
+            "_weight_version": "_step_lock",
+            "_qerr_max": "_step_lock",
+            "_mask": "_step_lock", "_mask_rows": "_step_lock",
+            "prefill_dispatches": "_step_lock",
+            "decode_steps": "_step_lock",
+            "megastep_dispatches": "_step_lock",
+        })
 
     # --------------------------------------------------- TTFT prediction
     _EWMA_ALPHA = 0.3
@@ -1048,7 +1078,7 @@ class ServingEngine:
         self._prefill_fns[bucket] = ent
         return ent
 
-    def _prefill_group_attempt(self, bucket: int, group):
+    def _prefill_group_attempt(self, bucket: int, group):  # holds: _step_lock
         """One batched dense prefill attempt for every same-bucket
         admission. The ``serving.step`` fault site fires once per request
         (a `skip` sheds that request); the survivors share one dispatch,
@@ -1114,7 +1144,7 @@ class ServingEngine:
         for req in reqs:
             _tracing.mark(req.id, "admit", t_adm, self.trace_track)
 
-    def _admit_round_dense(self):
+    def _admit_round_dense(self):  # holds: _step_lock
         """One dense admission pass: pop up to ``num_free`` queued
         requests, group them by prefill bucket, one batched prefill per
         group (retried through ``RetryPolicy``), whose rows are copied
@@ -1208,7 +1238,7 @@ class ServingEngine:
             self.kv_tier.promote(self.cache, req.context)
         return self.cache.acquire(req.context, need)
 
-    def _prefill_group_attempt_paged(self, bucket: int, group):
+    def _prefill_group_attempt_paged(self, bucket: int, group):  # holds: _step_lock
         """One batched paged-prefill attempt for every same-bucket
         admission; ``group`` rows are ``(req, row, shared)``, with the
         dense path's per-request fault semantics. Batch rows past the
@@ -1246,7 +1276,7 @@ class ServingEngine:
         self.prefill_dispatches += 1
         return live, shed, out
 
-    def _admit_round_paged(self):
+    def _admit_round_paged(self):  # holds: _step_lock
         """One paged admission pass: pop up to ``num_free`` queued
         requests in FIFO order, acquire a block table for each (retried
         through ``RetryPolicy`` at ``serving.alloc``), group by the
@@ -1379,7 +1409,7 @@ class ServingEngine:
                 return admitted
 
     # ------------------------------------------------------------ decode
-    def _note_qerr(self, qerr, rows: int):
+    def _note_qerr(self, qerr, rows: int):  # holds: _step_lock
         """Surface an int8 step's max abs dequantization error: bump the
         quant write counters and ratchet the drift gauge (a device sync,
         taken for int8 pools only)."""
@@ -1395,7 +1425,7 @@ class ServingEngine:
                 _runlog.log_event("serving_kv_quant",
                                   max_abs_err=round(e, 6), rows=int(rows))
 
-    def _build_samp(self):
+    def _build_samp(self):  # holds: _step_lock
         """The sampled steps' per-slot inputs, rebuilt from the active
         requests every step: ``(temperature [b] f32, top_k [b] i32, top_p
         [b] f32, keys [b, 2] int64, mask [b, V])``, empty rows at the
@@ -1423,7 +1453,7 @@ class ServingEngine:
         self._write_mask()
         return temp, tk, tp, keys, self._mask
 
-    def _write_mask(self):
+    def _write_mask(self):  # holds: _step_lock
         """Bring the mask buffer to this step's rows before the replay
         that reads it: each constrained row gets its cursor's mask row
         for the next position (budget-aware, so the document closes in
@@ -1492,7 +1522,7 @@ class ServingEngine:
         return fn(tokens, self.cache.lengths, self.cache.arrays(),
                   self._build_samp())
 
-    def _shed_active(self, err: BaseException):
+    def _shed_active(self, err: BaseException):  # holds: _step_lock
         """The step itself is unrecoverable (retries exhausted): shed
         every active request, keep the engine alive for new ones."""
         for slot, req in list(self._active.items()):
@@ -1500,7 +1530,7 @@ class ServingEngine:
             self.cache.release(slot)
             self._shed(req, err)
 
-    def _devprof_timer(self, entry: str):
+    def _devprof_timer(self, entry: str):  # holds: _step_lock
         """A StepTimer when devprof is on and this dispatch hashed into
         the sample, else None. The tick consumes one counter increment
         either way, so two same-seed runs sample the same dispatches.
@@ -1515,7 +1545,7 @@ class ServingEngine:
         return _devprof.StepTimer(dp, entry, self._clock,
                                   device=self.device if events else None)
 
-    def _decode(self) -> int:
+    def _decode(self) -> int:  # holds: _step_lock
         """One batched decode over every occupied row, retried through
         ``RetryPolicy`` at ``serving.step``. Returns how many tokens were
         produced (0 when skipped or shed)."""
@@ -1562,7 +1592,7 @@ class ServingEngine:
         return produced
 
     # ------------------------------------------------ decode megasteps
-    def _choose_megastep(self) -> int:
+    def _choose_megastep(self) -> int:  # holds: _step_lock
         """The N this decode runs at: the configured ``megastep`` unless
         the batch needs the per-token host loop, which takes the whole
         batch back to single steps (never to an intermediate N: the
@@ -1588,7 +1618,7 @@ class ServingEngine:
                     return 1
         return n
 
-    def _megastep_inputs(self):
+    def _megastep_inputs(self):  # holds: _step_lock
         """The megastep's inputs after the pools' place: tokens, lengths,
         tables, then the sampling tuple (None for a greedy batch), live,
         budget, eos and the stop tables ``(pat, plen, fail, state)``, as
@@ -1632,7 +1662,7 @@ class ServingEngine:
         return fn(tokens, lengths, tables, self.cache.arrays(), samp, live,
                   budget, eos, stop, lora=self._lora_args())
 
-    def _decode_megastep(self, n: int) -> int:
+    def _decode_megastep(self, n: int) -> int:  # holds: _step_lock
         """One megastep over every occupied row: ``n`` decode iterations
         in one dispatch (retried at ``serving.step``), then one host
         commit, each row's tokens replayed through :meth:`_append_token`
@@ -1711,7 +1741,7 @@ class ServingEngine:
         return fn(tokens, self.cache.lengths, self.cache.arrays(),
                   self._build_samp())
 
-    def _spec_decode(self) -> int:
+    def _spec_decode(self) -> int:  # holds: _step_lock
         """One speculative draft-verify step over every occupied row:
         draft K tokens per row from its own context (:func:`~paddle_tpu_
         torch.models.generation.draft_ngram`), score all K+1 positions in
@@ -1786,7 +1816,7 @@ class ServingEngine:
             timer.finish()
         return produced
 
-    def _decode_any(self) -> int:
+    def _decode_any(self) -> int:  # holds: _step_lock
         """One decode round: the megastep when :meth:`_choose_megastep`
         allows it, else the single step."""
         n = self._choose_megastep()
@@ -1837,7 +1867,7 @@ class ServingEngine:
             req._session_counted = False
             self.kv_tier.session_released(req.session)
 
-    def _finish(self, req: Request):
+    def _finish(self, req: Request):  # holds: _step_lock
         if req.slot is not None:
             self._active.pop(req.slot, None)
             if req.session is not None and self.kv_tier is not None:
@@ -1995,7 +2025,7 @@ class ServingEngine:
             req.finished_at = now
             req._done.set()
 
-    def _reap_expired(self) -> int:
+    def _reap_expired(self) -> int:  # holds: _step_lock
         """(holding ``_step_lock``) Cancel every active row whose hard
         deadline passed, before admission, so the freed rows take new
         requests in the same step. Returns how many were canceled."""
@@ -2072,7 +2102,7 @@ class ServingEngine:
             self.reset_cost_estimates()
         return version
 
-    def _release_device(self, pool: bool = True):
+    def _release_device(self, pool: bool = True):  # holds: _step_lock
         """Free what this engine holds on the device, for good: drop the
         step graphs captured over its pools, its sampling mask and its
         prefill rows (``HeldStep.forget``, with the memory they keep),

@@ -44,7 +44,6 @@ port reproduces).
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -54,6 +53,7 @@ import torch
 
 from .. import flags as _flags
 from .. import observability as _obs
+from ..analysis import concurrency as _ccz
 from ..observability import runlog as _runlog
 from ..ops.quant_ops import KV_QMAX
 from ..resilience.injector import fault_point
@@ -360,16 +360,16 @@ class TierManager:
         self.store = store
         self.sessions = SessionStore()
         self.demote_idle_ms = float(demote_idle_ms)
-        self._lock = threading.Lock()
+        self._lock = _ccz.make_lock("kv_tier._lock")
         self._migrated = {"demote": 0, "promote": 0}  # guarded-by: _lock
         self._dedup_blocks = 0                        # guarded-by: _lock
         self._resident: Dict[str, int] = {}           # guarded-by: _lock
         self._resumed = 0                             # guarded-by: _lock
         self.sessions_peak = 0                        # guarded-by: _lock
-        self.migrate_ms = {"demote": 0.0, "promote": 0.0}
+        self.migrate_ms = {"demote": 0.0, "promote": 0.0}  # guarded-by: _lock
         # demotion staging: one block of every layer's k and v as f32,
         # in pinned memory, made at the first float-pool demotion
-        self._stage: Optional[torch.Tensor] = None
+        self._stage: Optional[torch.Tensor] = None    # guarded-by: _lock
         help_mig = "KV blocks migrated across the host tier, by direction"
         self._mig_demote_c = _obs.counter(
             "serving_kv_migrations", help_mig).labels(dir="demote")
@@ -395,6 +395,14 @@ class TierManager:
             "submits that resumed a stored session context "
             "(re-prefilling only the unshared suffix)")
         self._update_gauges()
+        # the reference's set, then the port's own (the copies' host
+        # time and the pinned staging buffer, written by migrations)
+        _ccz.declare_guarded(self, {
+            "_migrated": "_lock", "_dedup_blocks": "_lock",
+            "_resident": "_lock", "_resumed": "_lock",
+            "sessions_peak": "_lock",
+            "migrate_ms": "_lock", "_stage": "_lock",
+        })
 
     # ------------------------------------------------------------ wiring
     def attach(self, cache: BlockKVCache) -> "TierManager":

@@ -28,12 +28,12 @@ allocates a page, every in-flight request refs its tenant's page, and
 
 from __future__ import annotations
 
-import threading
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from ..analysis import concurrency as _ccz
 from ..device import resolve_device
 from .kv_cache import BlockAllocator
 
@@ -93,7 +93,8 @@ class LoRAPool:
         # evict -> in_use and acquire -> page_of nest. Engines take it
         # after their own _step_lock; the pool never calls back into an
         # engine, so the order is acyclic.
-        self._lock = threading.RLock()
+        self._lock = _ccz.make_lock("lora_pool._lock", reentrant=True)
+        _ccz.declare_guarded(self, {"arrays": "_lock"})
 
     @property
     def shape_key(self) -> Tuple[int, int]:

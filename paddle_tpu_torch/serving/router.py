@@ -73,7 +73,6 @@ from __future__ import annotations
 
 import contextlib
 import itertools
-import threading
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
@@ -81,6 +80,7 @@ from .. import flags as _flags
 from .. import jit as _jit
 from .. import monitor as _monitor
 from .. import observability as _obs
+from ..analysis import concurrency as _ccz
 from ..observability import runlog as _runlog
 from ..observability import tracing as _tracing
 from ..resilience.injector import InjectedFault, fault_point
@@ -303,7 +303,7 @@ class ReplicaRouter:
                     "autoscaling needs model= construction (the router "
                     "builds scale-up replicas itself); prebuilt "
                     "engines= cannot autoscale")
-            self.engines: List[ServingEngine] = list(engines)
+            self.engines: List[ServingEngine] = list(engines)  # guarded-by: _lock
             if not self.engines:
                 raise ValueError("engines must be non-empty")
         else:
@@ -317,13 +317,13 @@ class ReplicaRouter:
                 n = min(max(n, autoscale.min_replicas),
                         autoscale.max_replicas)
             self.engines = [ServingEngine(model, **self._engine_kwargs)
-                            for _ in range(n)]
+                            for _ in range(n)]  # guarded-by: _lock
         # the fleet-shared host KV tier (None when off); prebuilt engines
         # carry their own
         self.kv_tier = (self._engine_kwargs.get("kv_tier") or
                         getattr(self.engines[0], "kv_tier", None))
         self._draining = False              # guarded-by: _lock
-        self._lock = threading.Lock()
+        self._lock = _ccz.make_lock("router._lock")
         self._retiring: List[ServingEngine] = []  # guarded-by: _lock
         self._scale_ups = 0                 # guarded-by: _lock
         self._scale_downs = 0               # guarded-by: _lock
@@ -362,6 +362,17 @@ class ReplicaRouter:
         self._depth_gauges = []
         self._update_depth_gauges()
         self._update_state_gauges()
+        # construction writes above precede the declaration and are
+        # exempt; everything after must hold _lock to write these
+        _ccz.declare_guarded(self, {
+            "_draining": "_lock", "_scale_ups": "_lock",
+            "_scale_downs": "_lock", "_steps_since_scale": "_lock",
+            "_kills": "_lock", "_restarts": "_lock",
+            "_rehomed": "_lock", "_victim_rr": "_lock",
+            "_hedges": "_lock", "_hedge_tokens": "_lock",
+            "_hedge_fired": "_lock", "_hedge_wins": "_lock",
+            "_hedge_loses": "_lock", "_hedge_dup_tokens": "_lock",
+        })
 
     # ------------------------------------------------------------ health
     def _init_health(self, eng: ServingEngine):

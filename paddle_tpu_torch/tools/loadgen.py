@@ -1042,24 +1042,29 @@ def _books(eng):
 
 def _restore_books(eng, saved):
     """Put back :func:`_books`' record, dropping the requests submitted
-    since from ``eng``'s list and the trace store."""
+    since from ``eng``'s list and the trace store. Each attribute is
+    written under the lock that guards it (the step lock, then the
+    tier's and the engine's, the order a step takes them)."""
     from ..observability import tracing as _tracing
     tier, tb = getattr(eng, "kv_tier", None), saved[0]
-    if tier is not None:
-        (tier._migrated, tier._dedup_blocks, tier._resumed,
-         tier.sessions_peak, tier.store.peak_used,
-         tier.store.evictions) = tb
-        tier._migrated = dict(tier._migrated)
     saved = saved[1:]
-    with eng._lock:
-        (eng._completed, eng._slo_met, eng._tenant_stats,
-         eng._shed_by_reason, n, adopted, copies, eng._prefix_hit_reqs,
-         eng._prefix_miss_reqs, pool, eng._devprof) = saved
-        for r in eng._all[n:]:
-            _tracing.store().discard(r.id)
-        del eng._all[n:]
-    if hasattr(eng, "adopted"):
-        eng.adopted, eng.adopted_copies = adopted, copies
+    with eng._step_lock:
+        if tier is not None:
+            with tier._lock:
+                (tier._migrated, tier._dedup_blocks, tier._resumed,
+                 tier.sessions_peak, tier.store.peak_used,
+                 tier.store.evictions) = tb
+                tier._migrated = dict(tier._migrated)
+        with eng._lock:
+            (eng._completed, eng._slo_met, eng._tenant_stats,
+             eng._shed_by_reason, n, adopted, copies,
+             eng._prefix_hit_reqs, eng._prefix_miss_reqs, pool,
+             eng._devprof) = saved
+            for r in eng._all[n:]:
+                _tracing.store().discard(r.id)
+            del eng._all[n:]
+        if hasattr(eng, "adopted"):
+            eng.adopted, eng.adopted_copies = adopted, copies
     if pool is not None:
         p = eng.cache.pool
         p.prefix_hits, p.prefix_misses, p.blocks_allocated_total = pool

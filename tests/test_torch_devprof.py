@@ -23,9 +23,11 @@ and its perf ledger (``paddle_tpu_torch/tools/perf_ledger.py``,
 - the compile tracker's signature format, records and
   ``RecompileWarning``.
 
-The reference's ``_normalize_cost`` and ``predict_serving_compiles``
-tests do not apply: the port counts costs itself (no XLA cost analysis),
-and the compile predictor waits with ROADMAP A2.7.
+The reference's ``predict_serving_compiles`` checks run on the port's
+predictor (``devprof=`` a validated no-op, equal to the reference's, and
+equal to the compiles of the port's engine profiling every dispatch).
+The reference's ``_normalize_cost`` test does not apply: the port counts
+costs itself (no XLA cost analysis).
 """
 
 import json
@@ -39,12 +41,14 @@ from torch.utils.flop_counter import FlopCounterMode
 
 import paddle_tpu as pt
 from paddle_tpu import observability as jobs
+from paddle_tpu.analysis import predict_serving_compiles as jpredict
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JGPT
 from paddle_tpu.observability import devprof as jdevprof
 from paddle_tpu.serving import ServingEngine as JServingEngine
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import observability as tobs
+from paddle_tpu_torch.analysis import predict_serving_compiles
 from paddle_tpu_torch.models import generation as gen
 from paddle_tpu_torch.models.convert import gpt_state_from_numpy
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
@@ -160,6 +164,30 @@ def test_cost_capture_per_site_adds_no_compile(models):
     snap = tobs.snapshot()
     assert snap["device_costs"] == tbl
     assert _counts(snap["compiles"]) == want
+
+
+def test_predictor_devprof_is_validated_noop(models):
+    """``devprof=`` joins the no-op family in the port's predictor, as
+    in the reference's; a port engine that profiles every dispatch makes
+    the predicted compiles, no more (the cost capture specialises
+    nothing)."""
+    wl = [[([1, 2, 3], 4), ([5, 6, 7, 8, 9], 3)]]
+    kw = dict(buckets=[8, 16], max_len=32, block_size=4)
+    plain = predict_serving_compiles(wl, **kw)
+    assert plain == jpredict(wl, **kw)
+    for dp in (True, 0.25):
+        assert predict_serving_compiles(wl, devprof=dp, **kw) == plain \
+            == jpredict(wl, devprof=dp, **kw)
+    with pytest.raises(ValueError, match="devprof"):
+        predict_serving_compiles(wl, devprof=1.5, **kw)
+    _, port_model = models
+    tobs.reset_compiles()
+    tflags.set_flags({"serving_devprof": True})
+    eng, reqs = _run_engine(port_model(), devprof_sample=1.0)
+    assert all(r.state == "done" for r in reqs)
+    wl = [[(p, 4) for p in _prompts((3, 5, 7), seed=1)]]
+    assert _counts(tobs.compiles()) == predict_serving_compiles(
+        wl, devprof=1.0, **kw)
 
 
 def test_cost_capture_off_without_flag():

@@ -10,10 +10,11 @@ counters, ``leaked()`` per unique pool, the handoff queue's order and
 backpressure, the affinity counters, the kill accounting (shed,
 rerouted, rehomed) and the ``serving.handoff`` skip and drop runs.
 Every test of ``tests/test_serving_disagg.py`` has a counterpart here,
-with its parametrizations; the reference's
-``predict_serving_compiles(disagg=...)`` check becomes the equality of
-the step cache's input signatures (the port's compiles on the CPU)
-between a symmetric and a disaggregated fleet. Beside them: the handoff
+with its parametrizations: the reference's
+``predict_serving_compiles(disagg=...)`` check runs on the port's
+predictor (equal to the reference's, and to the compiles a port fleet
+makes on the CPU), beside the equality of the step cache's input
+signatures between a symmetric and a disaggregated fleet. Beside them: the handoff
 itself block for block against the reference (f32, bf16 and int8 pools,
 the int8 scales zeroed then copied, the errors), one trace across a
 decode-worker kill (``tests/test_tracing.py:140``), sampled requests
@@ -40,6 +41,7 @@ from paddle_tpu import observability as jobs
 from paddle_tpu.models.generation import greedy_search as jgreedy
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JGPT
+from paddle_tpu.analysis import predict_serving_compiles as jpredict
 from paddle_tpu.observability import tracing as jtracing
 from paddle_tpu.resilience import fault_scope as jfault_scope
 from paddle_tpu.resilience import reset_default_budget as jreset_budget
@@ -54,6 +56,7 @@ from paddle_tpu.serving.kv_cache import BlockKVCache as JBlockKVCache
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import monitor as tmonitor
 from paddle_tpu_torch import observability as tobs
+from paddle_tpu_torch.analysis import predict_serving_compiles
 from paddle_tpu_torch.models.convert import gpt_state_from_numpy
 from paddle_tpu_torch.models.generation import greedy_search as tgreedy
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
@@ -306,6 +309,39 @@ def test_disagg_step_signatures_equal_the_symmetric_fleets(pkgs, dims):
         DisaggRouter(dis_model, n_prefill=1, n_decode=2, paged=False,
                      max_slots=2, max_len=32, buckets=[8, 16],
                      device="cpu")
+
+
+def test_predict_serving_compiles_disagg_is_noop(pkgs):
+    """The reference's static twin of the test above, on the port's
+    predictor: ``disagg`` is a validated no-op, the predictions equal the
+    reference's, and a port fleet's compiles on the CPU (its step-cache
+    signatures, counted by the compile tracker) equal them."""
+    _, port = pkgs
+    rounds = [[(list(range(1, 9)), 4), (list(range(1, 5)), 1)],
+              [(list(range(1, 9)), 4)]]
+    kw = dict(buckets=[8, 16], max_len=32, block_size=4)
+    plain = predict_serving_compiles(rounds, **kw)
+    assert plain and plain == jpredict(rounds, **kw)
+    for dims in ((1, 2), (4, 4)):
+        assert predict_serving_compiles(rounds, disagg=dims, **kw) == \
+            plain == jpredict(rounds, disagg=dims, **kw)
+    with pytest.raises(ValueError, match="disagg"):
+        predict_serving_compiles(rounds, disagg=(0, 2), **kw)
+    with pytest.raises(ValueError, match="paged"):
+        predict_serving_compiles(rounds, disagg=(1, 2), paged=False,
+                                 buckets=[8, 16], max_len=32)
+    tobs.reset_compiles()
+    model = port.fresh_model()
+    fleet = DisaggRouter(model, n_prefill=1, n_decode=2, **SHAPE,
+                         device="cpu")
+    for rnd in rounds:
+        for prompt, n in rnd:
+            fleet.submit(prompt, max_new_tokens=n)
+        fleet.run_until_idle()
+    observed = {q: c["count"] for q, c in tobs.compiles().items()}
+    tobs.reset_compiles()
+    assert observed == predict_serving_compiles(rounds, disagg=(1, 2),
+                                                **kw)
 
 
 # --------------------------------------------------- prefix affinity

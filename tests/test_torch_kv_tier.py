@@ -12,15 +12,17 @@ parametrizations (greedy, spec 2, int8): resume after demotion (each
 package also equal to its own never-demoted greedy pass), the LoRA pin
 across a resume, validation, all-or-nothing promotion, LRU leaf-first
 eviction, fleet dedup, the session store, the chaos faults and the
-killed prefill worker's host-tier affinity. The reference's lifecycle
-linter test (its analysis plane, ROADMAP A7) is replaced by the codec:
+killed prefill worker's host-tier affinity, and the reference's
+lifecycle linter test over ``kv_tier.py``, on the port's linter (both
+checkers agree there). Beside them, the codec:
 the port's ``_np_quantize`` / ``_np_dequantize`` equal the reference's
 bit for bit on random blocks with .5 ties, and a demotion of the same
 block values gives the reference's host codes and scales bit for bit
 (f32, bf16, int8 pools), a promotion numpy's ``dequantize(quantize(
 block))`` cast to the pool's dtype (int8: the codes and scales
-verbatim). Its ``predict_serving_compiles(host_tier=True)`` check
-becomes equal step signatures with and without a tier. Then the load
+verbatim). Its ``predict_serving_compiles(host_tier=True)`` check runs
+on the port's predictor (equal to the reference's), beside equal step
+signatures with and without a tier. Then the load
 generator's returning-users run and its trace replay against
 ``tools/loadgen.py``'s, ``report["sessions"]`` included. The model is
 the small GPT of ``tests/test_kv_tier.py`` (vocab 97, h 32, 2 layers, 4
@@ -37,6 +39,8 @@ import torch
 
 import paddle_tpu as pt
 from paddle_tpu.models.generation import greedy_search as jgreedy
+from paddle_tpu.analysis import lifecycle as jlifecycle
+from paddle_tpu.analysis import predict_serving_compiles as jpredict
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JGPT
 from paddle_tpu.resilience import fault_scope as jfault_scope
@@ -52,6 +56,7 @@ from paddle_tpu.serving import make_adapter as jmake_adapter
 from paddle_tpu.serving.disagg import _HOST_TIER as J_HOST_TIER
 from paddle_tpu.serving.kv_cache import BlockKVCache as JBlockKVCache
 from paddle_tpu_torch import flags as tflags
+from paddle_tpu_torch.analysis import lifecycle, predict_serving_compiles
 from paddle_tpu_torch.models.convert import gpt_state_from_numpy
 from paddle_tpu_torch.models.generation import greedy_search as tgreedy
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
@@ -539,6 +544,37 @@ def test_step_signatures_equal_with_and_without_a_tier(pkgs):
     tier = _tier(port)
     assert signatures(tier) == signatures(None)
     assert tier.stats()["migrated_promote_blocks"] > 0
+
+
+def test_predict_serving_compiles_host_tier_is_validated_noop():
+    """The reference's predictor check, on the port's predictor: the
+    host tier and its sessions are a validated no-op, equal to the
+    reference's predictions and refusals."""
+    rounds = [[(list(range(1, 13)), 4)], [(list(range(1, 13)), 4)]]
+    kw = dict(buckets=[8, 16], max_len=64, block_size=4)
+    base = predict_serving_compiles(rounds, **kw)
+    tiered = predict_serving_compiles(rounds, host_tier=True,
+                                      sessions=1000, **kw)
+    assert tiered == base == jpredict(rounds, host_tier=True,
+                                      sessions=1000, **kw)
+    with pytest.raises(ValueError, match="host_tier"):
+        predict_serving_compiles(rounds, buckets=[8], max_len=64,
+                                 sessions=5)
+    with pytest.raises(ValueError, match="paged"):
+        predict_serving_compiles(rounds, buckets=[8], max_len=64,
+                                 paged=False, host_tier=True)
+
+
+def test_lifecycle_linter_clean_on_kv_tier():
+    """The reference's linter test over the host tier, on the port's
+    ``kv_tier.py``: clean, and the reference's checker agrees."""
+    import dataclasses
+    import os
+    path = os.path.join(os.path.dirname(kv_tier.__file__), "kv_tier.py")
+    r = lifecycle.lint_files([path])
+    assert not r.diagnostics, [str(d) for d in r.diagnostics]
+    assert [dataclasses.asdict(d) for d in
+            jlifecycle.lint_files([path]).diagnostics] == []
 
 
 # ------------------------------------------------------------ load generator

@@ -83,7 +83,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "tools/loadgen.py", "serving/lora.py",
                    "serving/kv_tier.py", "observability/devprof.py",
                    "observability/compile_tracker.py",
-                   "tools/perf_ledger.py", "tools/perf_regress.py"):
+                   "tools/perf_ledger.py", "tools/perf_regress.py",
+                   "analysis/__init__.py", "analysis/concurrency.py",
+                   "analysis/lifecycle.py", "analysis/recompile.py",
+                   "tools/soak.py", "tools/lint_serving.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -206,13 +209,16 @@ FLEET_FLAGS = (
     "serving_host_blocks", "serving_demote_idle_ms", "serving_paged",
     # the compile tracker and the device-cost observatory (the peaks'
     # help names the port's nominals, not the reference's TPU/A100 ones)
-    "warn_recompiles", "serving_devprof", "serving_devprof_sample")
+    "warn_recompiles", "serving_devprof", "serving_devprof_sample",
+    # the concurrency sanitizer
+    "sanitize_locks")
 
 
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 60
+    assert len(ported) == 61
+    assert ported["sanitize_locks"]["default"] is False
     for name in ("devprof_peak_flops", "devprof_peak_hbm_gbps"):
         assert ported[name]["default"] == jax_flags[name]["default"] == 0.0
         assert "H100" in ported[name]["help"]
@@ -345,6 +351,27 @@ def test_shared_public_names_keep_the_reference_signatures():
             bad[qual] = drift
     assert not bad, bad
     assert checked > 150
+
+
+def test_port_tools_keep_the_reference_tools_signatures():
+    """The soak and the serving lint are the port's copies of
+    ``tools/soak.py`` and ``tools/lint_serving.py`` (not modules of the
+    JAX package, so the walk above cannot pair them): every public
+    function they share takes the reference's parameters."""
+    from paddle_tpu_torch.tools import lint_serving, soak
+    from tools import lint_serving as jlint_serving
+    from tools import soak as jsoak
+    checked = 0
+    for tmod, jmod in ((soak, jsoak), (lint_serving, jlint_serving)):
+        for name in sorted(vars(jmod)):
+            j = getattr(jmod, name)
+            if not inspect.isfunction(j) or \
+                    getattr(j, "__module__", None) != jmod.__name__:
+                continue
+            assert hasattr(tmod, name), (tmod.__name__, name)
+            assert not _drift(getattr(tmod, name), j), name
+            checked += 1
+    assert checked == 6
 
 
 _ENGINE_KW = dict(max_slots=2, max_len=16, buckets=[8], device="cpu")
