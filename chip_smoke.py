@@ -109,12 +109,19 @@ ledger row gated against itself), 5k the chaos soak (``tools/ci.sh``'s
 three soak arms through the port's ``tools/soak.py`` on a 2-replica
 gpt2-medium fleet on the virtual clock: 2 simulated hours with 2 kills,
 closed-loop abandonment with hedging, and 1 kill from 2 dispatch threads
-in a child process under ``FLAGS_sanitize_locks=1``; the accounting
+at megastep 8 with dispatch-ahead in a child process under
+``FLAGS_sanitize_locks=1``; the accounting
 identity, goodput in every window, no leak or exception, the
 predictor's no-op, no capture by a warmed engine and at most a warmed
 engine's graphs per replacement, B4 launched per dispatch, reserved
 memory flat, sampled tokens equal an unloaded engine's, the sanitizer
-clean), 6 flash kernels vs plain (f32, bf16
+clean), 5l dispatch-ahead megasteps (phase 4's engine at megastep 8,
+one seeded request set with it off and on per pool dtype: tokens equal,
+hits, no capture or leak, B4 per megastep enqueued, the same graph
+kernels; the host's commit ms against the device ms of a megastep in
+each arm; an admission, a cancel and a weight swap forcing misses on
+int8 pools, the committed codes and scales equal the arm without it
+after every step), 6 flash kernels vs plain (f32, bf16
 and fp16), 7 train GPT (eager, then captured: losses and parameters
 bit-equal), 7b train GPT at O1 fp16 with ``GradScaler`` through the
 CUDA-core flash kernels, 8 time the flash kernels, 9
@@ -137,7 +144,14 @@ norm timed against its bound, 19 ``bench.py``'s ResNet-50 step uncut
 (batch 128, 224 x 224, O2, Momentum; eager against captured, then
 ``to_static_multi_step`` K = 10 timed: images/s, MFU, busy, kernels by
 group, memory), 20 ``GradScaler`` on ResNet-50 at O1 fp16 (skipped
-updates on inf, the scale's rule, and its refusal under capture).
+updates on inf, the scale's rule, and its refusal under capture), 21
+Transformer-base (``nn.Transformer()``'s defaults, batch 8, src = tgt =
+1024, O2 bf16, AdamW): the kernel routes against the composed ones, 5
+steps with 12 non-causal launches of each flash kernel (the encoder's
+self-attentions and the cross-attentions) and 30 of each LayerNorm
+kernel per step, the device's busy time, the flash kernels at this
+shape against SDPA and their bound, and greedy incremental decoding
+through ``gen_cache`` equal to the full decoder at every step.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -3715,7 +3729,7 @@ SOAK_ARMS = {
     "primary": ("--hours 2 --rate 0.02 --kills 2 --replicas 2 --seed 0 "
                 "--windows 8", 2),
     "sanitized": ("--hours 0.5 --rate 0.02 --kills 1 --replicas 2 --seed 0 "
-                  "--windows 4 --dispatch-threads 2", 1),
+                  "--windows 4 --dispatch-threads 2 --megastep 8", 1),
     "abandon": ("--hours 0.5 --rate 0.02 --kills 0 --replicas 2 --seed 3 "
                 "--windows 4 --closed-loop 4 --abandon-frac 0.15 "
                 "--hedge-ms 50 --hedge-budget 0.3", 0),
@@ -3755,7 +3769,11 @@ def soak_arm(torch, ctr, model, name, card):
     argv, kills = SOAK_ARMS[name]
     args = soak.build_parser().parse_args(
         argv.split() + ["--model", "gpt2-medium"])
-    _fl.set_flags({"serving_dispatch_threads": args.dispatch_threads})
+    # an arm at megastep > 1 runs its engines with dispatch-ahead; the
+    # flags are what the soak's command line would set
+    _fl.set_flags({"serving_dispatch_threads": args.dispatch_threads,
+                   "serving_megastep": args.megastep,
+                   "serving_dispatch_ahead": args.megastep > 1})
     what = f"phase 5k, {name} arm"
     seen = {}
 
@@ -3779,7 +3797,8 @@ def soak_arm(torch, ctr, model, name, card):
     try:
         rec = soak.soak(model, args, on_fleet=on_fleet)
     finally:
-        _fl.set_flags({"serving_dispatch_threads": 0})
+        _fl.set_flags({"serving_dispatch_threads": 0, "serving_megastep": 1,
+                       "serving_dispatch_ahead": False})
     torch.cuda.synchronize()
     run_s = time.perf_counter() - seen["t0"]
     run, routes = ctr.read(), ctr.routes()["paged_attention"]
@@ -3904,16 +3923,19 @@ def prime_fleet(torch, model, name):
     from paddle_tpu_torch.tools import soak
     from paddle_tpu_torch.tools.loadgen import warmup
     args = soak.build_parser().parse_args(SOAK_ARMS[name][0].split())
-    _fl.set_flags({"serving_dispatch_threads": args.dispatch_threads})
+    _fl.set_flags({"serving_dispatch_threads": args.dispatch_threads,
+                   "serving_megastep": args.megastep,
+                   "serving_dispatch_ahead": args.megastep > 1})
     try:
         rt = ReplicaRouter(model, n_replicas=args.replicas,
                            max_slots=args.slots, max_len=args.max_len,
                            max_queue=args.max_queue,
                            buckets=[int(b) for b in args.buckets.split(",")],
-                           device=model.device)
+                           megastep=args.megastep, device=model.device)
         warmup(rt)
     finally:
-        _fl.set_flags({"serving_dispatch_threads": 0})
+        _fl.set_flags({"serving_dispatch_threads": 0, "serving_megastep": 1,
+                       "serving_dispatch_ahead": False})
     release_engines(rt.engines)
     release_graphs(torch, model)
 
@@ -3959,7 +3981,7 @@ def soak_serving(torch, ctr, card):
     arms (``SOAK_ARMS``): the primary gate (2 simulated hours, 2 kills),
     the abandonment arm (closed-loop clients who hang up, hedged
     prefill), both here, and the sanitized arm (1 kill, 2 dispatch
-    threads) in a child process with ``FLAGS_sanitize_locks=1`` in its
+    threads, megastep 8 with dispatch-ahead) in a child process with ``FLAGS_sanitize_locks=1`` in its
     environment, where real threads contend for the engine, router,
     capture and trace locks. Each arm's checks are
     :func:`soak_arm`'s."""
@@ -3993,6 +4015,247 @@ def soak_serving(torch, ctr, card):
         for r, n in out[k]["routes"].items():
             routes[r] = routes.get(r, 0) + n
     out["routes"] = routes
+    return out
+
+
+# ------------------------------------------------------------ phase 5l
+#: phase 5l: requests (two waves of the engine's 8 slots) and their new
+#: tokens; the step before which a forced-miss event comes
+AHEAD_REQUESTS, AHEAD_NEW, AHEAD_EVENT_AT = 16, 48, 3
+
+
+def ahead_engine(model, kv, ahead):
+    """Phase 4's engine geometry (8 slots, ``max_len`` 256, blocks of 16,
+    the prefix cache on) at megastep ``MEGASTEP`` on the kernel route,
+    with dispatch-ahead on or off."""
+    from paddle_tpu_torch.serving import ServingEngine
+    return ServingEngine(model, max_slots=8, max_len=256, block_size=16,
+                         prefix_cache=True, kv_dtype=kv, attn_impl="kernel",
+                         megastep=MEGASTEP, dispatch_ahead=ahead)
+
+
+def commit_times(eng):
+    """Record, per megastep of ``eng``, the host's commit ms: from the
+    moment the megastep's outputs are on the host (the wait on its event,
+    or its blocking copy) to the end of the decode round. Returns the
+    list the times go to."""
+    rec, seen = [], {}
+    host_copy, decode = eng._host_copy, eng._decode_megastep
+
+    def timed_copy(out):
+        wait = host_copy(out)
+
+        def timed_wait():
+            host = wait()
+            seen["t"] = time.perf_counter()
+            return host
+        return timed_wait
+
+    def timed_decode(n):
+        seen.pop("t", None)
+        produced = decode(n)
+        if "t" in seen:
+            rec.append((time.perf_counter() - seen["t"]) * 1e3)
+        return produced
+
+    eng._host_copy, eng._decode_megastep = timed_copy, timed_decode
+    return rec
+
+
+def megastep_device_ms(torch, eng):
+    """Device ms of one replay of the megastep graph ``eng`` replayed
+    last (CUDA events around the replay alone, its inputs as they are),
+    and the graph's kernel nodes. The replay writes the engine's pools,
+    so the engine serves nothing afterwards."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import generation
+    ent = generation.decode_megastep_paged(
+        eng.model, eng.megastep, kv_dtype=eng.kv_dtype, attn_impl="kernel")
+    last = ent["graphs"]["greedy"].last
+    if last is None:
+        raise AssertionError("phase 5l: the last megastep ran no graph")
+    ms = min(event_ms(torch, last.graph.replay) for _ in range(3))
+    return ms, jit.graph_kernels(last.graph)
+
+
+def committed_kv(torch, eng, order):
+    """Each active request's committed KV on the card, by its submission
+    index: per layer the codes of the positions below its length and the
+    scales of the blocks holding them. A stored speculation's writes are
+    left out, as its restore would leave the pools."""
+    from paddle_tpu_torch.serving.kv_cache import TailSnapshot
+    cache = eng.cache
+    bs = cache.block_size
+    pools = cache.arrays()
+    snap = (eng._ahead or {}).get("undo")
+    if isinstance(snap, TailSnapshot):
+        pools = [tuple(a.clone().index_copy_(0, snap.idx, sv)
+                       for a, sv in zip(layer, saved))
+                 for layer, saved in zip(pools, snap.saved)]
+    out = {}
+    for req in list(eng._active.values()):
+        n = int(cache.lengths[req.slot])
+        idx = torch.as_tensor(cache.tables[req.slot, :-(-n // bs)].astype(
+            np.int64), device=cache.pool.device)
+        rows = []
+        for layer in pools:
+            for a in layer[:2]:
+                blk = a.index_select(0, idx)             # [nb, h, bs, d]
+                rows.append(blk.transpose(0, 1).reshape(
+                    blk.shape[1], -1, blk.shape[3])[:, :n])
+            rows += [a.index_select(0, idx) for a in layer[2:]]
+        out[order[req]] = (n, rows)
+    return out
+
+
+def forced_miss(torch, model, case, prompts, new_state):
+    """An int8 engine with dispatch-ahead and one without, stepped in
+    lockstep over the same requests, with the same event before step
+    ``AHEAD_EVENT_AT`` (``case``: an admission of half the requests, a
+    cancel of two, or a weight swap); after every step the two engines'
+    committed KV must be equal bit for bit, and at the end their tokens.
+    Returns the dispatch-ahead engine's hits and misses and the steps."""
+    engines = {a: ahead_engine(model, "int8", a) for a in (True, False)}
+    reqs = {a: [] for a in engines}
+    order = {a: {} for a in engines}
+    first = prompts if case != "admission" else prompts[:len(prompts) // 2]
+    saved = [p.detach().clone() for p in model.parameters()]
+
+    def submit(ps):
+        for a, eng in engines.items():
+            for p in ps:
+                r = eng.submit(p, max_new_tokens=AHEAD_NEW)
+                order[a][r] = len(reqs[a])
+                reqs[a].append(r)
+
+    submit(first)
+    steps = 0
+    while any(not e.idle for e in engines.values()):
+        if steps == AHEAD_EVENT_AT:
+            for a, eng in engines.items():
+                if case == "cancel":
+                    for r in reqs[a][:2]:
+                        eng.cancel(r.id)
+                if case == "swap_weights":
+                    eng.swap_weights(new_state)
+            if case == "admission":
+                submit(prompts[len(prompts) // 2:])
+        for eng in engines.values():
+            eng.step()
+        steps += 1
+        kv = {a: committed_kv(torch, e, order[a])
+              for a, e in engines.items()}
+        if sorted(kv[True]) != sorted(kv[False]):
+            raise AssertionError(f"phase 5l, {case}: other rows active")
+        for i in kv[True]:
+            (n1, r1), (n0, r0) = kv[True][i], kv[False][i]
+            if n1 != n0 or not all(torch.equal(x, y)
+                                   for x, y in zip(r1, r0)):
+                raise AssertionError(
+                    f"phase 5l, {case}: request {i}'s committed int8 KV "
+                    f"differs after step {steps}")
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), saved):
+            p.copy_(v)
+    toks = {a: [r.tokens for r in reqs[a]] for a in engines}
+    if toks[True] != toks[False]:
+        raise AssertionError(f"phase 5l, {case}: tokens differ with "
+                             "dispatch-ahead on and off")
+    st = engines[True].stats()
+    release_engines(engines.values())
+    if not st["ahead_misses"]:
+        raise AssertionError(f"phase 5l, {case}: no speculation missed")
+    return {"hits": st["ahead_hits"], "misses": st["ahead_misses"],
+            "steps": steps}
+
+
+def dispatch_ahead_serving(torch, ctr, card):
+    """Phase 5l: dispatch-ahead megasteps on a fresh seeded gpt2-medium at
+    full width and depth, phase 4's engine geometry at megastep 8, one
+    seeded request set (16 requests, 48 new tokens) with it off and on,
+    per pool dtype (f32, bf16, int8): each engine warmed, then a timed
+    run that must capture nothing, launch B4 ``num_layers`` times per
+    megastep enqueued (speculations included) and leak no block; tokens
+    equal on and off (the top-2 rule), hits >= 1 on the steady batch, the
+    megastep graph's kernel nodes the same in both arms. Printed, per
+    arm: hits and misses, TPOT p50, tokens/s, the host's commit ms per
+    megastep and the device ms of one megastep replay (whether the commit
+    hides behind the next megastep). Then forced misses on int8 pools (an
+    admission, a cancel, a weight swap), each stepped in lockstep against
+    an engine without dispatch-ahead: committed int8 blocks and tokens
+    equal (:func:`forced_miss`)."""
+    from paddle_tpu_torch.models.gpt import GPT_CONFIGS, GPTForCausalLM
+    cfg = GPT_CONFIGS["gpt2-medium"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", generator=gen).eval()
+    rng = np.random.RandomState(21)
+    prompts = [rng.randint(0, cfg.vocab_size, size=int(k)).tolist()
+               for k in rng.randint(8, 65, size=AHEAD_REQUESTS)]
+    specs = [(p, {"max_new_tokens": AHEAD_NEW}) for p in prompts]
+    out = {"arms": {}}
+    for kv in ("f32", "bf16", "int8"):
+        toks, kernels = {}, {}
+        for ahead in (False, True):
+            what = f"phase 5l, {kv}, dispatch-ahead {'on' if ahead else 'off'}"
+            eng = ahead_engine(model, kv, ahead)
+            warm(torch, eng)
+            commits = commit_times(eng)
+            res, toks[ahead] = drive(torch, ctr, eng, specs, what)
+            st = eng.stats()
+            eng.cache.flush_prefix_cache()
+            leaked = eng.cache.allocator.leaked()
+            if leaked != 1:
+                raise AssertionError(f"{what}: {leaked - 1} blocks leaked")
+            with ctr.aside():
+                dev_ms, kernels[ahead] = megastep_device_ms(torch, eng)
+            release_engines([eng])
+            arm = {k: res[k] for k in ("tokens", "wall_s", "tokens_per_s",
+                                       "tpot_p50_ms", "ttft_p50_ms",
+                                       "launches", "routes",
+                                       "megastep_dispatches",
+                                       "captures_in_run")}
+            arm.update(hits=st.get("ahead_hits"),
+                       misses=st.get("ahead_misses"),
+                       commit_ms_p50=float(np.median(commits)),
+                       commit_ms_mean=float(np.mean(commits)),
+                       megasteps_committed=len(commits),
+                       megastep_device_ms=dev_ms,
+                       graph_kernels=kernels[ahead])
+            out["arms"][f"{kv}_{'on' if ahead else 'off'}"] = arm
+            log(f"  [{card}] {what}: hits {arm['hits']}, misses "
+                f"{arm['misses']}, TPOT p50 {arm['tpot_p50_ms']:.3f} ms, "
+                f"{arm['tokens_per_s']:.1f} tokens/s; host commit "
+                f"{arm['commit_ms_p50']:.3f} ms (p50 of "
+                f"{len(commits)} megasteps) against {dev_ms:.3f} ms of "
+                f"device time per megastep")
+        if not out["arms"][f"{kv}_on"]["hits"]:
+            raise AssertionError(f"phase 5l, {kv}: no speculation hit")
+        if kernels[True] != kernels[False]:
+            raise AssertionError(f"phase 5l, {kv}: the megastep graph holds "
+                                 f"{kernels[True]} kernels with dispatch-"
+                                 f"ahead, {kernels[False]} without")
+        div = same_tokens(torch, model, prompts, toks[False], toks[True],
+                          f"phase 5l, {kv}: dispatch-ahead on vs off")
+        out["arms"][f"{kv}_on"]["near_ties"] = div
+        release_graphs(torch, model)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    new_state = {n: p.detach() + 0.01 * torch.randn(
+        p.shape, device="cuda", generator=g)
+        for n, p in model.named_parameters()}
+    out["forced"] = {}
+    for case in ("admission", "cancel", "swap_weights"):
+        out["forced"][case] = forced_miss(torch, model, case, prompts[:8],
+                                          new_state)
+        release_graphs(torch, model)
+        log(f"  phase 5l, forced {case} (int8): committed KV and tokens "
+            f"equal with dispatch-ahead on and off; {out['forced'][case]}")
+    out["launches"] = sum(a["launches"] for a in out["arms"].values())
+    out["routes"] = {}
+    for a in out["arms"].values():
+        for r, n in a["routes"].items():
+            out["routes"][r] = out["routes"].get(r, 0) + n
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4115,9 +4378,12 @@ def check_flash(torch, fa, ctr):
               ("f16", False, 128, 1040, 1040, 128),
               ("f16", True, 20, 1040, 1040, 128),
               ("f16", False, 64, 1040, 512, 128)]
+    # phase 21's shape: Transformer-base's non-causal bf16 attention, b 8
+    # x h 8 at s 1024, d 64
+    cases += [("bf16", False, 64, 1024, 1024, 64)]
     # seeds: the 26 cases of PR 2 keep theirs (100 + their index there)
     seeds = [98, 99] + list(range(100, 126)) + [126, 127, 128] + \
-        [129, 130, 131, 132]
+        [129, 130, 131, 132, 133]
     worst = {name: 0.0 for name in fa.launches}
     with ctr.aside():
         for i, (case, seed) in enumerate(zip(cases, seeds)):
@@ -4230,17 +4496,19 @@ def train_step(torch, batch=GPT_BATCH, seq=GPT_SEQ):
 
 
 def compare_routes(torch, model, loss_of, flag):
-    """One forward+backward with ``flag`` on (the kernel route) and one
-    with it off (the composed route) from the same weights; raises unless
+    """One forward+backward with ``flag`` (a flag's name, or a tuple of
+    them) on (the kernel route) and one with it off (the composed route)
+    from the same weights; raises unless
     the losses agree within 1e-2 relative and each gradient within 5e-2
     relative Frobenius. A key projection's bias (ERNIE's ``k_proj.bias``)
     shifts every logit of a row alike, so its true gradient is zero and
     both routes hold rounding noise: it is held to 5e-2 of the norm of
     its query bias's gradient. Leaves ``flag`` on."""
     from paddle_tpu_torch import flags
+    names = (flag,) if isinstance(flag, str) else tuple(flag)
     ref = {}
     for use in (True, False):
-        flags.set_flags({flag: use})
+        flags.set_flags({n: use for n in names})
         model.zero_grad(set_to_none=True)
         loss = loss_of()
         loss.backward()
@@ -4248,7 +4516,7 @@ def compare_routes(torch, model, loss_of, flag):
                     {n: p.grad.detach().clone()
                      for n, p in model.named_parameters()
                      if p.grad is not None})
-    flags.set_flags({flag: True})
+    flags.set_flags({n: True for n in names})
     (lf, gf), (lc, gc) = ref[True], ref[False]
     if set(gf) != set(gc):
         raise AssertionError(f"the routes grade other parameters: "
@@ -4260,7 +4528,8 @@ def compare_routes(torch, model, loss_of, flag):
         rel_grad[n] = (float((gf[n] - gc[n]).norm()) / den if den
                        else float(gf[n].norm()))
     worst = max(rel_grad, key=rel_grad.get)
-    log(f"  {flag} on vs off (O2, one forward+backward): loss {lf} vs {lc} "
+    log(f"  {' + '.join(names)} on vs off (O2, one forward+backward): "
+        f"loss {lf} vs {lc} "
         f"(rel {rel_loss:.2e}); worst grad rel Frobenius "
         f"{rel_grad[worst]:.2e} ({worst})")
     if rel_loss > 1e-2:
@@ -4572,11 +4841,11 @@ def train_fp16(torch, ctr, card, steps=FP16_STEPS):
 
 
 # ------------------------------------------------------------ phase 8
-def flash_work(kernel, bh, s, d, elem):
-    """(bytes, FLOPs) one causal call must move and do at [bh, s, d]:
-    each input read once and each output written once; the products of
-    the (q, k) pairs with k <= q only (what the causal mask leaves)."""
-    pairs = s * (s + 1) // 2
+def flash_work(kernel, bh, s, d, elem, causal=True):
+    """(bytes, FLOPs) one call must move and do at [bh, s, d]: each input
+    read once and each output written once; the products of the (q, k)
+    pairs the mask leaves (k <= q only for a causal call)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
     slab = bh * s * d * elem
     stat = bh * s * 4
     if kernel == "flash_fwd":       # q, k, v -> o, lse; QK^T and PV
@@ -4605,58 +4874,9 @@ def time_flash(torch, fa, ctr, card, b=8, h=16, s=1024, d=64):
     TFLOP/s and the fraction of its bound it reaches. Then, for
     reference, the three kernels at the same shape in f32, which still
     take the CUDA-core kernels."""
-    import torch.nn.functional as F
     bh, scale = b * h, 1.0 / d ** 0.5
-    q, k, v, do = flash_inputs(torch, bh, s, s, d, "bf16", seed=7)
-    qd, kd, vd = (t.reshape(b, h, s, d) for t in (q, k, v))
-    q4, k4, v4 = (t.detach().requires_grad_() for t in (qd, kd, vd))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
-                                        scale=scale)
-    do4 = do.reshape(b, h, s, d)
-    out = {}
+    out = time_flash_bf16(torch, fa, ctr, card, b, h, s, d, True)
     with ctr.aside():
-        o, lse = fa.flash_fwd(q, k, v, True, scale)
-        delta = (do.float() * o.float()).sum(-1)
-        calls = {
-            "flash_fwd": (lambda i: fa.flash_fwd(q, k, v, True, scale),
-                          lambda i: fa.flash_fwd_plain(q, k, v, True, scale),
-                          lambda i: F.scaled_dot_product_attention(
-                              qd, kd, vd, is_causal=True, scale=scale)),
-            "flash_bwd_dq": (
-                lambda i: fa.flash_bwd_dq(q, k, v, do, lse, delta, True,
-                                          scale),
-                lambda i: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta,
-                                                True, scale), None),
-            "flash_bwd_dkv": (
-                lambda i: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True,
-                                           scale),
-                lambda i: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta,
-                                                 True, scale), None),
-        }
-        sdpa_bwd = time_fn(torch, lambda i: torch.autograd.grad(
-            o4, (q4, k4, v4), do4, retain_graph=True), 20, 1)
-        for name, (kern, plain, lib) in calls.items():
-            before = ctr.routes()[name]
-            ms = time_fn(torch, kern, 20, 1)
-            route = next(r for r, n in ctr.routes()[name].items()
-                         if n > before[r])
-            plain_ms = time_fn(torch, plain, 5, 1)
-            lib_ms = time_fn(torch, lib, 20, 1) if lib else sdpa_bwd
-            b_ = bound(*flash_work(name, bh, s, d, 2), BF16_FLOPS)
-            out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "library_call": (
-                             "scaled_dot_product_attention" if lib
-                             else "scaled_dot_product_attention backward "
-                             "(dq, dk and dv together)"),
-                         **b_, "tflops_per_s": b_["flops"] / ms / 1e9,
-                         "bound_fraction": b_["bound_ms"] / ms,
-                         "cuda_route": route}
-            log(f"  {name} ({route}): kernel {ms:.4f} ms "
-                f"({b_['flops'] / ms / 1e9:.2f} TFLOP/s, "
-                f"{b_['bound_ms'] / ms:.3f} of the bound), plain "
-                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-                f"{b_['bytes']} B / {b_['flops']} FLOP -> bound "
-                f"{b_['bound_ms']:.4f} ms ({b_['bound_by']}) [{card}]")
         q, k, v, do = flash_inputs(torch, bh, s, s, d, "f32", seed=7)
         o, lse = fa.flash_fwd(q, k, v, True, scale)
         delta = (do * o).sum(-1)
@@ -4672,6 +4892,66 @@ def time_flash(torch, fa, ctr, card, b=8, h=16, s=1024, d=64):
                         for name, ms in out["simt_f32"].items())
             + f" [{card}]")
         out["simt_f16"] = time_flash_f16(torch, fa, card, b, h, s, d)
+    return out
+
+
+def time_flash_bf16(torch, fa, ctr, card, b, h, s, d, causal):
+    """The three flash kernels in bf16 at ``[b, h, s, d]``, causal or not,
+    their plain versions and PyTorch's scaled_dot_product_attention
+    (forward; backward = dq, dk and dv in one call): ms per call, the
+    bound of the work the mask leaves, TFLOP/s, the fraction of the bound
+    and the route each launch took. Launches are not counted."""
+    import torch.nn.functional as F
+    bh, scale = b * h, 1.0 / d ** 0.5
+    q, k, v, do = flash_inputs(torch, bh, s, s, d, "bf16", seed=7)
+    qd, kd, vd = (t.reshape(b, h, s, d) for t in (q, k, v))
+    q4, k4, v4 = (t.detach().requires_grad_() for t in (qd, kd, vd))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                        scale=scale)
+    do4 = do.reshape(b, h, s, d)
+    out = {}
+    with ctr.aside():
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
+        delta = (do.float() * o.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        calls = {
+            "flash_fwd": (lambda i: fa.flash_fwd(q, k, v, causal, scale),
+                          lambda i: fa.flash_fwd_plain(q, k, v, causal,
+                                                       scale),
+                          lambda i: F.scaled_dot_product_attention(
+                              qd, kd, vd, is_causal=causal, scale=scale)),
+            "flash_bwd_dq": (lambda i: fa.flash_bwd_dq(*args),
+                             lambda i: fa.flash_bwd_dq_plain(*args), None),
+            "flash_bwd_dkv": (lambda i: fa.flash_bwd_dkv(*args),
+                              lambda i: fa.flash_bwd_dkv_plain(*args),
+                              None),
+        }
+        sdpa_bwd = time_fn(torch, lambda i: torch.autograd.grad(
+            o4, (q4, k4, v4), do4, retain_graph=True), 20, 1)
+        kind = "causal" if causal else "non-causal"
+        for name, (kern, plain, lib) in calls.items():
+            before = ctr.routes()[name]
+            ms = time_fn(torch, kern, 20, 1)
+            route = next(r for r, n in ctr.routes()[name].items()
+                         if n > before[r])
+            plain_ms = time_fn(torch, plain, 5, 1)
+            lib_ms = time_fn(torch, lib, 20, 1) if lib else sdpa_bwd
+            b_ = bound(*flash_work(name, bh, s, d, 2, causal), BF16_FLOPS)
+            out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "library_call": (
+                             "scaled_dot_product_attention" if lib
+                             else "scaled_dot_product_attention backward "
+                             "(dq, dk and dv together)"),
+                         **b_, "tflops_per_s": b_["flops"] / ms / 1e9,
+                         "bound_fraction": b_["bound_ms"] / ms,
+                         "cuda_route": route, "causal": causal,
+                         "shape": [b, h, s, d]}
+            log(f"  {name} bf16 {kind} [{b}, {h}, {s}, {d}] ({route}): "
+                f"kernel {ms:.4f} ms ({b_['flops'] / ms / 1e9:.2f} TFLOP/s, "
+                f"{b_['bound_ms'] / ms:.3f} of the bound), plain "
+                f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+                f"{b_['bytes']} B / {b_['flops']} FLOP -> bound "
+                f"{b_['bound_ms']:.4f} ms ({b_['bound_by']}) [{card}]")
     return out
 
 
@@ -4733,6 +5013,8 @@ def check_ln(torch, ln, ctr):
              for xdt, gdt in (("f32", "f32"), ("bf16", "bf16"),
                               ("bf16", "f32"))
              for h in (768, 1024, 4096) for n in (8192, 1, 37)]
+    # phase 21's rows: Transformer-base's f32 [8192, 512] under O2
+    cases += [("f32", "f32", 512, 8192), ("f32", "f32", 512, 37)]
     worst = {"ln_fwd": 0.0, "ln_bwd": 0.0}
     with ctr.aside():
         for i, (xdt, gdt, h, n) in enumerate(cases):
@@ -4992,11 +5274,13 @@ def time_ln(torch, ln, ctr, card):
     """Phase 13: the LayerNorm kernels, their plain versions and
     ``torch.nn.functional.layer_norm`` (forward; backward = its autograd
     dx, dgamma and dbeta in one call) at the train steps' f32 rows:
-    ERNIE-base [8192, 768] and GPT-2 345M [8192, 1024]."""
+    ERNIE-base [8192, 768], GPT-2 345M [8192, 1024] and Transformer-base
+    [8192, 512] (phase 21's rows)."""
     import torch.nn.functional as F
     out = {"ln_fwd": {}, "ln_bwd": {}}
     with ctr.aside():
-        for model, h in (("ernie-base", 768), ("gpt2-medium", 1024)):
+        for model, h in (("ernie-base", 768), ("gpt2-medium", 1024),
+                         ("transformer-base", 512)):
             n = 8192
             x, gamma, beta, dy = ln_inputs(torch, n, h, "f32", "f32", 11)
             _, mean, rstd = ln.ln_fwd(x, gamma, beta, 1e-5)
@@ -6313,6 +6597,253 @@ def grad_scaler_phase(torch, ctr, model, start):
             "capture_raised": raised[1]}
 
 
+# ------------------------------------------------------------ phase 21
+TB_BATCH, TB_SEQ = 8, 1024     # Transformer-base at src = tgt = 1024
+TB_DECODE = 32                 # greedy incremental decoding steps
+#: kernel launches per Transformer-base train step: the flash kernels
+#: in the 6 encoder self-attentions and the 6 cross-attentions (the
+#: decoder's masked self-attention composes), the LayerNorm kernels in
+#: 2 norms per encoder layer and 3 per decoder layer, one AdamW
+TB_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+               "ln_fwd": 30, "ln_bwd": 30, "adamw": 1}
+
+
+#: phase 21's shared source/target vocabulary (WMT14 En-De's joint BPE
+#: of the Transformer paper: 37000 tokens)
+TB_VOCAB = 37000
+
+
+def sinusoid(torch, seq, d):
+    """The Transformer paper's fixed position encoding ``[seq, d]``."""
+    pos = np.arange(seq)[:, None]
+    div = np.exp(np.arange(0, d, 2) * (-np.log(10000.0) / d))
+    pe = np.zeros((seq, d), np.float32)
+    pe[:, 0::2], pe[:, 1::2] = np.sin(pos * div), np.cos(pos * div)
+    return torch.from_numpy(pe).cuda()
+
+
+def transformer_step(torch, batch=TB_BATCH, seq=TB_SEQ, vocab=TB_VOCAB):
+    """``nn.Transformer()`` at its defaults (Transformer-base: d_model 512,
+    8 heads, 6 + 6 post-LN layers, FFN 2048) with dropout 0 and random
+    weights from seed 0, as the translation model of the Transformer
+    paper: one token table ``[vocab, 512]`` (N(0, 512^-1/2)) embeds
+    source and target (times sqrt(512), plus the sinusoidal positions)
+    and, tied, scores the decoder's output; the loss is the cross-entropy
+    of each next target token, the decoder under the square subsequent
+    mask. AMP O2 bf16, AdamW (lr 1e-4, bf16 moments); token ids from numpy
+    ``RandomState(0)``. Returns ``(model, loss_of, step)`` as
+    :func:`ernie_step` does; ``model.embed`` is the table."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.optimizer import AdamW
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = nn.Transformer(dropout=0.0, device="cuda", generator=gen)
+    d = model.d_model
+    model.embed = nn.Embedding(vocab, d, std=d ** -0.5, device="cuda",
+                               generator=gen)
+    opt = AdamW(learning_rate=1e-4, parameters=model.named_parameters(),
+                moment_dtype="bfloat16")
+    rng = np.random.RandomState(0)
+    src, tgt = (torch.from_numpy(rng.randint(0, vocab, (batch, seq + 1))
+                                 .astype(np.int64)).cuda()
+                for _ in range(2))
+    pe = sinusoid(torch, seq, d)
+    mask = nn.Transformer.generate_square_subsequent_mask(seq, device="cuda")
+
+    def embed(ids):
+        return model.embed(ids) * d ** 0.5 + pe
+
+    def loss_of(level="O2"):
+        with auto_cast(level=level):
+            out = model(embed(src[:, :-1]), embed(tgt[:, :-1]),
+                        tgt_mask=mask)
+            logits = nn.functional.matmul(out, model.embed.weight.T)
+            return nn.functional.cross_entropy(logits, tgt[:, 1:])
+
+    return model, loss_of, _stepper(model, opt, loss_of)
+
+
+#: phase 21's bound on the attention query and key projections'
+#: gradients against the f32 step (see :func:`compare_routes_f32`)
+QK_TOL = 0.5
+
+
+def compare_routes_f32(torch, model, loss_of, names, tol=5e-2):
+    """Phase 21's training gate: one O2 forward+backward with ``names``
+    on (the kernel routes), one with them off (the composed routes) and
+    an f32 one (O0, composed) from the same weights. The O2 losses must
+    agree within 1e-2 relative, and every gradient within ``tol``
+    relative Frobenius of the composed route's (:func:`compare_routes`'
+    gate, the key-bias rule included) or, where the O2 rounding of the
+    composed route itself puts it farther than that from the f32
+    gradient, no farther from the f32 gradient than ``max(tol, 1.25 x)``
+    the composed route is. The attention query and key projections'
+    gradients are held to the f32 gradient within ``QK_TOL``.
+    They come from dS = P (dO V^T - delta) alone, and at an initialized
+    model's near-uniform attention that difference is mostly bf16
+    rounding: the composed O2 route is itself up to ~20% off f32 there,
+    and the flash route, whose delta = rowsum(dO O) is taken from the
+    bf16 output (the JAX kernel's algorithm), more (CPU measurement at d
+    512, PR 18). A wrong dQ or dK kernel is off by O(1); phase 6 holds the
+    three kernels to their plain versions element by element at this
+    path's shape. All three distances are logged for the worst
+    gradients. Leaves ``names`` on."""
+    from paddle_tpu_torch import flags
+    runs = {}
+    for key, on, level in (("kernel", True, "O2"), ("composed", False, "O2"),
+                           ("f32", False, "O0")):
+        flags.set_flags({n: on for n in names})
+        model.zero_grad(set_to_none=True)
+        loss = loss_of(level)
+        loss.backward()
+        runs[key] = (float(loss.detach()),
+                     {n: p.grad.detach().float().clone()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None})
+    flags.set_flags({n: True for n in names})
+    model.zero_grad(set_to_none=True)
+    (lk, gk), (lc, gc), (lf, gf) = (runs[k] for k in ("kernel", "composed",
+                                                       "f32"))
+
+    def rel(a, b):
+        out = {}
+        for n in b:
+            den = float(b[n.replace("k_proj.bias", "q_proj.bias")].norm())
+            out[n] = float((a[n] - b[n]).norm()) / den if den else \
+                float(a[n].norm())
+        return out
+
+    kc, cf, kf = rel(gk, gc), rel(gc, gf), rel(gk, gf)
+    rel_loss = abs(lk - lc) / abs(lc)
+    qk = {n for n in kc if "_attn.q_proj." in n or "_attn.k_proj." in n}
+    bad = {n: (kc[n], cf[n], kf[n]) for n in kc
+           if (kf[n] > QK_TOL if n in qk else
+               kc[n] > tol and kf[n] > max(tol, 1.25 * cf[n]))}
+    rest = max((kc[n], n) for n in kc if n not in qk)
+    worst_qk = max((kf[n], n) for n in qk)
+    log(f"  {' + '.join(names)} on vs off (O2, one forward+backward): loss "
+        f"{lk} vs {lc} (rel {rel_loss:.2e}; f32 {lf}); worst gradient "
+        f"kernel vs composed {rest[0]:.3e} ({rest[1]}); query/key "
+        f"projections: worst kernel vs f32 {worst_qk[0]:.3e} "
+        f"({worst_qk[1]}; composed vs f32 {cf[worst_qk[1]]:.3e})")
+    for n in sorted(kc, key=kc.get)[-4:]:
+        log(f"    {n}: kernel vs composed {kc[n]:.3e}, composed vs f32 "
+            f"{cf[n]:.3e}, kernel vs f32 {kf[n]:.3e}")
+    if rel_loss > 1e-2:
+        raise AssertionError(f"kernel-route loss {lk} vs composed {lc}")
+    if bad:
+        raise AssertionError(f"gradients off (kernel vs composed, composed "
+                             f"vs f32, kernel vs f32): {bad}")
+    del runs, gk, gc, gf
+    torch.cuda.empty_cache()
+    return {"loss_kernel": lk, "loss_composed": lc, "loss_f32": lf,
+            "rel_loss": rel_loss,
+            "worst_grad_rel": rest[0], "worst_grad_param": rest[1],
+            "worst_qk_vs_f32": worst_qk[0], "worst_qk_param": worst_qk[1],
+            "worst_qk_composed_vs_f32": cf[worst_qk[1]],
+            "max_composed_vs_f32": max(cf.values())}
+
+
+def incremental_decode(torch, model, card, steps=TB_DECODE):
+    """Greedy decoding of ``steps`` tokens (f32, eval) over a memory of
+    ``TB_SEQ`` tokens: a token table ``E [V, 512]`` (V 1024, seed 2) embeds
+    each token and ``h @ E^T`` scores the next; the decoder runs one token
+    per step through ``gen_cache`` (a growing self-attention ``Cache``,
+    the cross-attention's ``StaticCache`` of the memory). Each step's
+    token must equal the full decoder's over the prefix (square mask)
+    where that decoder's top-2 scores are more than 1e-3 apart, and its
+    scores agree within 1e-3 absolute. Returns the decode's numbers."""
+    from paddle_tpu_torch import nn
+    model.eval()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    table = torch.randn(1024, model.d_model, device="cuda",
+                        generator=g) * 0.05
+    rng = np.random.RandomState(3)
+    src = torch.from_numpy(rng.randn(TB_BATCH, TB_SEQ, model.d_model)
+                           .astype(np.float32)).cuda()
+    near, worst = [], 0.0
+    with torch.no_grad():
+        memory = model.encoder(src)
+        cache = model.decoder.gen_cache(memory)
+        toks = torch.zeros(TB_BATCH, 1, dtype=torch.long, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            h, cache = model.decoder(table[toks[:, -1:]], memory,
+                                     cache=cache)
+            scores = h[:, -1] @ table.T
+            full = model.decoder(
+                table[toks], memory,
+                nn.Transformer.generate_square_subsequent_mask(
+                    t + 1, device="cuda"))[:, -1] @ table.T
+            worst = max(worst, float((scores - full).abs().max()))
+            nxt, ref = scores.argmax(-1), full.argmax(-1)
+            for row in torch.nonzero(nxt != ref).flatten().tolist():
+                top = torch.topk(full[row], 2).values
+                gap = float(top[0] - top[1])
+                near.append({"step": t, "row": row, "gap": gap})
+                if gap >= 1e-3:
+                    raise AssertionError(
+                        f"phase 21: incremental token {int(nxt[row])} vs "
+                        f"full decoder's {int(ref[row])} at step {t}, row "
+                        f"{row} (top-2 gap {gap})")
+            toks = torch.cat([toks, ref[:, None]], dim=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if worst > 1e-3:
+        raise AssertionError(f"phase 21: incremental scores off the full "
+                             f"decoder's by {worst}")
+    model.train()
+    log(f"  [{card}] incremental greedy decoding, {steps} tokens x "
+        f"{TB_BATCH} rows over a {TB_SEQ}-token memory: equal to the full "
+        f"decoder at every step ({len(near)} near ties), scores within "
+        f"{worst:.2e}; {wall:.3f} s with the full decoder re-run each step")
+    return {"steps": steps, "near_ties": near, "max_abs_score_diff": worst,
+            "wall_s": wall}
+
+
+def train_transformer(torch, fa, ctr, card, warmup=2, steps=5):
+    """Phase 21: the Transformer-base step of :func:`transformer_step`.
+    The kernel routes (``use_pallas_attention`` and
+    ``use_pallas_layer_norm`` on) against the composed ones and an f32
+    step from the same weights (:func:`compare_routes_f32`); ``steps``
+    timed eager steps with exactly
+    ``TB_PER_STEP`` launches per step, every flash launch on ``wgmma``,
+    the losses finite and falling; the device's busy ms per step and its
+    idle share, peak memory; the flash kernels at this shape
+    (non-causal, b 8, h 8, s 1024, d 64) against SDPA and their bound;
+    then greedy incremental decoding (:func:`incremental_decode`)."""
+    from paddle_tpu_torch import flags
+    names = ("use_pallas_attention", "use_pallas_layer_norm")
+    saved = flags.get_flags(list(names))
+    try:
+        model, loss_of, step = transformer_step(torch)
+        cmp = compare_routes_f32(torch, model, loss_of, names)
+        want = {k: v * steps for k, v in TB_PER_STEP.items()}
+        res = run_steps(torch, ctr, step, warmup, steps, want,
+                        "Transformer-base, kernel routes, eager")
+    finally:
+        flags.set_flags(saved)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        if any(n for r, n in res["routes"][name].items() if r != "wgmma"):
+            raise AssertionError(f"phase 21: {name} launches by route "
+                                 f"{res['routes'][name]}")
+    tokens = TB_BATCH * TB_SEQ
+    log(f"  [{card}] Transformer-base: {res['step_ms']:.3f} ms per step "
+        f"({tokens * 2 / res['step_ms'] * 1e3:.0f} src+tgt tokens/s), "
+        f"device busy {res['device_busy_ms']:.3f} ms, idle share "
+        f"{res['idle_share']:.4f}; max_memory_allocated "
+        f"{res['peak_bytes']} B, max_memory_reserved "
+        f"{res['peak_reserved_bytes']} B")
+    times = time_flash_bf16(torch, fa, ctr, card, TB_BATCH, model.nhead,
+                            TB_SEQ, model.d_model // model.nhead, False)
+    dec = incremental_decode(torch, model, card)
+    del model, step
+    torch.cuda.empty_cache()
+    return {**res, "routes_vs_composed": cmp, "flash": times,
+            "decode": dec}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6442,6 +6973,13 @@ def main():
     log(f"  phase 5k took {time.perf_counter() - t_soak:.1f} s")
     torch.cuda.empty_cache()
 
+    log(f"== phase 5l: dispatch-ahead megasteps, gpt2-medium at megastep "
+        f"{MEGASTEP}: off against on per pool dtype, forced misses on int8 "
+        "pools")
+    t_ahead = time.perf_counter()
+    ahd = dispatch_ahead_serving(torch, ctr, card)
+    log(f"  phase 5l took {time.perf_counter() - t_ahead:.1f} s")
+
     log("== phase 6: flash kernels vs plain")
     n_flash, flash_err = check_flash(torch, fa, ctr)
     log(f"  {n_flash} cases passed, max abs err by kernel {flash_err}")
@@ -6532,6 +7070,14 @@ def main():
     scaler = grad_scaler_phase(torch, ctr, rn_model, rn_start)
     del rn_model, rn_start
     torch.cuda.empty_cache()
+
+    log(f"== phase 21: Transformer-base (nn.Transformer() defaults, batch "
+        f"{TB_BATCH}, src = tgt = {TB_SEQ}, O2 bf16, AdamW) through the "
+        "non-causal flash kernels and the LayerNorm kernels; incremental "
+        "decoding")
+    t_tb = time.perf_counter()
+    tfm = train_transformer(torch, fa, ctr, card)
+    log(f"  phase 21 took {time.perf_counter() - t_tb:.1f} s")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -6604,7 +7150,9 @@ def main():
                      launches_devprof=dpf["launches"],
                      launches_by_route_devprof=dpf["routes"],
                      launches_soak=sok["launches"],
-                     launches_by_route_soak=sok["routes"])]
+                     launches_by_route_soak=sok["routes"],
+                     launches_dispatch_ahead=ahd["launches"],
+                     launches_by_route_dispatch_ahead=ahd["routes"])]
     for name, line in (("flash_fwd", 40), ("flash_bwd_dq", 109),
                        ("flash_bwd_dkv", 141)):
         t = ftimes[name]
@@ -6621,7 +7169,10 @@ def main():
             launches_by_route_flagship=flag["routes"][name],
             simt_f16=ftimes["simt_f16"][name],
             launches_fp16_gpt=f16["launches"][name],
-            launches_by_route_fp16_gpt=f16["routes"][name]))
+            launches_by_route_fp16_gpt=f16["routes"][name],
+            noncausal_transformer_base=tfm["flash"][name],
+            launches_transformer=tfm["launches"][name],
+            launches_by_route_transformer=tfm["routes"][name]))
     for name, line in (("ln_fwd", 27), ("ln_bwd", 40)):
         t = ltimes[name]["ernie-base"]
         kernels.append(entry(
@@ -6630,7 +7181,8 @@ def main():
             ern["on"]["launches"][name], ln_err[name], t, cases_passed=n_ln,
             library_call=t["library_call"], by_shape=ltimes[name],
             launches_gpt_step=trn_ln["launches"][name],
-            launches_captured=ern["captured"]["launches"][name]))
+            launches_captured=ern["captured"]["launches"][name],
+            launches_transformer=tfm["launches"][name]))
     kernels.append(entry(
         "packed_flash_fwd", "flash_pack2.cu", "tools/flash_pack2_bench.py:48",
         packed["launches"], packed_err["packed_flash_fwd"], packed,
@@ -6650,7 +7202,8 @@ def main():
         launches_captured=trn["captured"]["launches"]["adamw"],
         launches_flagship=flag["launches"]["adamw"],
         grad_scale_ms=atimes["grad_scale_ms"],
-        launches_optimizer_plane=plane["gpt2_medium"]["launches"]["adamw"]))
+        launches_optimizer_plane=plane["gpt2_medium"]["launches"]["adamw"],
+        launches_transformer=tfm["launches"]["adamw"]))
 
     def summary(r):
         return {k: summary(v) if isinstance(v, dict) and k != "routes"
@@ -6666,11 +7219,13 @@ def main():
                       "tenant_serving": summary(ten),
                       "host_tier_serving": summary(tie),
                       "json_serving": summary(jsn),
-                      "devprof_serving": summary(dpf), "fp16_gpt": f16,
+                      "devprof_serving": summary(dpf),
+                      "dispatch_ahead": summary(ahd), "fp16_gpt": f16,
                       "train": summary(trn), "train_ln": summary(trn_ln),
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes, "optimizer_plane": plane,
-                      "resnet50": rn, "grad_scaler": scaler}), flush=True)
+                      "resnet50": rn, "grad_scaler": scaler,
+                      "transformer_base": summary(tfm)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,17 @@ def state_from_numpy(arrays: Dict[str, np.ndarray],
 #: the GPT slice's name for :func:`state_from_numpy`
 gpt_state_from_numpy = state_from_numpy
 
+#: the names for the layers of :mod:`paddle_tpu_torch.nn`: the
+#: Transformer's (``encoder.layers.0.self_attn.q_proj.weight``, ...), the
+#: recurrent layers' (``weight_ih_l0``, ``bias_hh_l1_rev``, a cell's
+#: ``_rnn.weight_ih_l0``) and every other layer's (``weight``, ``bias``,
+#: ``_mean``, ``_variance``) are the JAX package's, in the same layouts
+#: (``[in, out]`` Linear weights, ``[G*h, in]`` recurrent weights,
+#: ``[in, out / groups, kh, kw]`` transposed-convolution filters)
+transformer_state_from_numpy = state_from_numpy
+rnn_state_from_numpy = state_from_numpy
+layer_state_from_numpy = state_from_numpy
+
 
 def optimizer_state_from_numpy(state: Dict[str, object],
                                names: Dict[str, str],

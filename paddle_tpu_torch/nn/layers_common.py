@@ -1,7 +1,10 @@
-"""The layer classes the GPT, ERNIE and ResNet slices use — counterparts
-of ``Linear``, ``LayerNorm``, ``Embedding``, ``Dropout``, ``Conv2D``,
-``BatchNorm2D``, the pools, ``ReLU``, ``Flatten`` and
-``CrossEntropyLoss`` in ``paddle_tpu/nn/layers_common.py``.
+"""The layer classes of ``paddle_tpu/nn/layers_common.py``: ``Linear``,
+``LayerNorm``, ``GroupNorm``, ``Embedding``, ``Dropout``, ``Conv2D``,
+``Conv2DTranspose``, ``BatchNorm2D`` (and its aliases), ``SyncBatchNorm``
+(local batch statistics, the reference's form outside a mesh; the
+cross-replica form waits for the sharding item of ROADMAP.md), the pools,
+the activations, ``Flatten``, ``Pad2D``, ``Upsample`` and the losses,
+each over its :mod:`.functional` counterpart.
 
 Parameters are made on an explicit ``device`` from an explicit
 ``torch.Generator`` (which must live on that device), with the JAX
@@ -206,6 +209,107 @@ class BatchNorm2D(nn.Module):
 
 BatchNorm = BatchNorm2D
 BatchNorm1D = BatchNorm2D
+BatchNorm3D = BatchNorm2D
+
+
+class SyncBatchNorm(BatchNorm2D):
+    """The reference's ``sync_batch_norm`` op outside a mesh
+    (``paddle_tpu/ops/collective_ops.py:194``): the batch's statistics
+    from sums, ``mean = sum(x) / n`` and ``var = sum(x²) / n - mean²``,
+    normalize ``x`` in training and update the running statistics in
+    place (``momentum`` weighting the running value); eval uses the
+    running statistics. The cross-replica sum waits for the sharding
+    item of ROADMAP.md."""
+
+    def forward(self, x):
+        (x,) = autocast_inputs("sync_batch_norm", x)
+        caxis = 1 if self._data_format == "NCHW" else x.dim() - 1
+        raxes = tuple(i for i in range(x.dim()) if i != caxis)
+        bshape = [1] * x.dim()
+        bshape[caxis] = x.shape[caxis]
+        if not self.training:
+            m, v = self._mean, self._variance
+        else:
+            cnt = float(math.prod(x.shape[i] for i in raxes))
+            m = x.sum(dim=raxes) / cnt
+            v = x.square().sum(dim=raxes) / cnt - m * m
+            with torch.no_grad():
+                mo = self._momentum
+                self._mean.copy_(mo * self._mean + (1 - mo) * m)
+                self._variance.copy_(mo * self._variance + (1 - mo) * v)
+        inv = torch.rsqrt(v + self._epsilon)
+        return (x - m.reshape(bshape)) * inv.reshape(bshape) * \
+            self.weight.reshape(bshape) + self.bias.reshape(bshape)
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """Replace every ``BatchNorm2D`` below ``layer`` (or ``layer``
+        itself) by a ``SyncBatchNorm`` sharing its parameters and
+        buffers."""
+        if isinstance(layer, BatchNorm2D) and not isinstance(layer, cls):
+            new = cls(layer.weight.shape[0], layer._momentum,
+                      layer._epsilon, data_format=layer._data_format,
+                      device=layer.weight.device)
+            new.weight = layer.weight
+            new.bias = layer.bias
+            new._mean = layer._mean
+            new._variance = layer._variance
+            return new
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer
+
+
+class Conv2DTranspose(nn.Module):
+    """Transposed 2-D convolution with a ``[in, out / groups, kh, kw]``
+    weight drawn Xavier-uniform (the reference's fans of that shape:
+    fan_in ``out / groups * kh * kw``, fan_out ``in * kh * kw``) and a zero
+    bias, none with ``bias_attr=False``."""
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, weight_attr=None,
+                 bias_attr=None, *, device, generator: torch.Generator):
+        super().__init__()
+        _wants("weight_attr", weight_attr)
+        k = [kernel_size] * 2 if isinstance(kernel_size, int) \
+            else list(kernel_size)
+        self._stride, self._padding = stride, padding
+        self._dilation, self._groups = dilation, groups
+        shape = [in_channels, out_channels // groups] + k
+        receptive = k[0] * k[1]
+        limit = math.sqrt(6.0 / (shape[1] * receptive
+                                 + in_channels * receptive))
+        w = torch.empty(shape, device=device)
+        self.weight = nn.Parameter(w.uniform_(-limit, limit,
+                                              generator=generator))
+        self.bias = nn.Parameter(torch.zeros(
+            out_channels, device=device)) if _wants(
+                "bias_attr", bias_attr, bias=True) else None
+
+    def forward(self, x):
+        return F.conv2d_transpose(x, self.weight, self.bias, self._stride,
+                                  self._padding, self._dilation,
+                                  self._groups)
+
+
+class GroupNorm(nn.Module):
+    """:func:`~.functional.group_norm` with a per-channel weight (one)
+    and bias (zero, none with ``bias_attr=False``)."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, *, device):
+        super().__init__()
+        _wants("weight_attr", weight_attr)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(num_channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(
+            num_channels, device=device)) if _wants(
+                "bias_attr", bias_attr, bias=True) else None
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self.weight, self.bias,
+                            self._epsilon)
 
 
 class MaxPool2D(nn.Module):
@@ -236,9 +340,34 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self._output_size)
 
 
-class ReLU(nn.Module):
-    def forward(self, x):
-        return F.relu(x)
+def _act_layer(name, fn):
+    """An activation layer: its constructor's arguments are ``fn``'s
+    after ``x``, as the reference's ``_act_layer``."""
+    class _Act(nn.Module):
+        def __init__(self, *a, **kw):
+            super().__init__()
+            self._a, self._kw = a, kw
+
+        def forward(self, x):
+            return fn(x, *self._a, **self._kw)
+    _Act.__name__ = _Act.__qualname__ = name
+    return _Act
+
+
+ReLU = _act_layer("ReLU", F.relu)
+ReLU6 = _act_layer("ReLU6", F.relu6)
+GELU = _act_layer("GELU", F.gelu)
+Sigmoid = _act_layer("Sigmoid", F.sigmoid)
+Tanh = _act_layer("Tanh", F.tanh)
+Softmax = _act_layer("Softmax", F.softmax)
+LogSoftmax = _act_layer("LogSoftmax", F.log_softmax)
+LeakyReLU = _act_layer("LeakyReLU", F.leaky_relu)
+SiLU = _act_layer("SiLU", F.silu)
+Swish = _act_layer("Swish", F.swish)
+Hardswish = _act_layer("Hardswish", F.hardswish)
+Hardsigmoid = _act_layer("Hardsigmoid", F.hardsigmoid)
+ELU = _act_layer("ELU", F.elu)
+Softplus = _act_layer("Softplus", F.softplus)
 
 
 class Flatten(nn.Module):
@@ -260,3 +389,85 @@ class CrossEntropyLoss(nn.Module):
 
     def forward(self, input, label):
         return F.cross_entropy(input, label, *self._args)
+
+
+class _Loss(nn.Module):
+    """A loss layer: ``fn(input, label, *args)``."""
+
+    fn = None
+
+    def forward(self, input, label):
+        return type(self).fn(input, label, *self._args)
+
+
+class MSELoss(_Loss):
+    fn = staticmethod(F.mse_loss)
+
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._args = (reduction,)
+
+
+class L1Loss(_Loss):
+    fn = staticmethod(F.l1_loss)
+
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._args = (reduction,)
+
+
+class BCEWithLogitsLoss(_Loss):
+    fn = staticmethod(F.binary_cross_entropy_with_logits)
+
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._args = (reduction,)
+
+
+class NLLLoss(_Loss):
+    fn = staticmethod(F.nll_loss)
+
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._args = (reduction,)
+
+
+class KLDivLoss(_Loss):
+    fn = staticmethod(F.kl_div)
+
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self._args = (reduction,)
+
+
+class SmoothL1Loss(_Loss):
+    fn = staticmethod(F.smooth_l1_loss)
+
+    def __init__(self, reduction="mean", delta=1.0):
+        super().__init__()
+        self._args = (reduction, delta)
+
+
+class Pad2D(nn.Module):
+    """:func:`~.functional.pad` with four amounts (an int pads all four
+    sides)."""
+
+    def __init__(self, padding, mode="constant", value=0.0):
+        super().__init__()
+        self._padding = padding if isinstance(padding, (list, tuple)) \
+            else [padding] * 4
+        self._mode, self._value = mode, value
+
+    def forward(self, x):
+        return F.pad(x, self._padding, self._mode, self._value)
+
+
+class Upsample(nn.Module):
+    """:func:`~.functional.interpolate` with the layer's arguments."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest"):
+        super().__init__()
+        self._args = (size, scale_factor, mode)
+
+    def forward(self, x):
+        return F.interpolate(x, *self._args)

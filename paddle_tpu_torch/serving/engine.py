@@ -115,8 +115,26 @@ device time comes from CUDA events around its graph's replay, its host
 time is the rest of the step, and the sampled device share splits each
 finished trace's decode time.
 
-Not ported yet (each one is queued in ROADMAP.md): dispatch-ahead
-(``dispatch_ahead=True`` raises) and mesh/TP (``mesh=`` raises).
+Dispatch-ahead megasteps (``dispatch_ahead=True``, megastep > 1): once
+megastep k is enqueued, its host outputs are copied into pinned buffers
+behind it and an event is recorded; megastep k+1 is then enqueued from
+k's device carry (tokens, positions, live rows, budgets, stop states and
+keys copied on the device into the same graph's static inputs, k's
+tables and constants reused), and only then does the host wait, on the
+event, not on the stream, and commit k while the card runs k+1. The
+next decode consumes k+1 if the scheduler state it assumed still holds:
+the same N, the same (slot, request, length) rows, the same weight and
+flag versions, and the same pool write version and LoRA load version
+(the port's counterparts of the reference's identity checks on arrays
+it rebinds, which the port writes in place). A discarded speculation has
+already written its KV in place: past each row's committed length,
+which nothing reads before it is rewritten, and for int8 pools into
+blocks whose committed rows a louder row re-encodes, so those blocks are
+saved before it is enqueued and restored on a miss, or before any other
+write to the pool (:class:`~paddle_tpu_torch.serving.kv_cache.
+TailSnapshot`).
+
+Not ported yet (queued in ROADMAP.md): mesh/TP (``mesh=`` raises).
 """
 
 from __future__ import annotations
@@ -144,6 +162,7 @@ from ..observability import runlog as _runlog
 from ..observability import tracing as _tracing
 from ..resilience.injector import fault_point
 from ..resilience.retry import RetryError, RetryPolicy
+from . import kv_cache as _kvc
 from .decoding import (STOP_MAX_LEN, STOP_MAX_SEQS, DecodeParams,
                        StopMatcher, request_key, sample_first,
                        stop_table_rows, stops_fit)
@@ -456,10 +475,6 @@ class ServingEngine:
                 "dispatch_ahead requires megastep > 1 "
                 "(FLAGS_serving_megastep); there is no megastep "
                 "pipeline to fill at N=1")
-        if self.dispatch_ahead:
-            raise NotImplementedError(
-                "dispatch-ahead megasteps (FLAGS_serving_dispatch_ahead) "
-                "are not ported yet")
         self.buckets = _parse_buckets(
             g["serving_prefill_buckets"] if buckets is None
             else ",".join(map(str, buckets)), self.max_len)
@@ -686,9 +701,19 @@ class ServingEngine:
         self._prefill_fns: Dict[int, dict] = {}   # bucket len -> entry
         self._weight_version = 0          # guarded-by: _step_lock
         self.prefill_dispatches = 0       # guarded-by: _step_lock
-        # single-step and N-iteration decode dispatches
+        # single-step and N-iteration decode dispatches (megasteps counted
+        # as enqueued: a dispatch-ahead speculation is one, hit or not)
         self.decode_steps = 0             # guarded-by: _step_lock
         self.megastep_dispatches = 0      # guarded-by: _step_lock
+        # dispatch-ahead speculation: megastep k+1's device outputs,
+        # enqueued while k's commit ran; consumed by the next decode only
+        # when the scheduler state it assumed is unchanged
+        self._ahead = None                # guarded-by: _step_lock
+        self._ahead_hits = 0              # guarded-by: _step_lock
+        self._ahead_misses = 0            # guarded-by: _step_lock
+        # pinned host buffers a megastep's outputs are copied into while
+        # the next one is enqueued (CUDA with dispatch-ahead)
+        self._pinned: Dict[tuple, torch.Tensor] = {}  # guarded-by: _step_lock
         # dynamic half of the `# guarded-by:` declarations above: under
         # FLAGS_sanitize_locks a rebinding write to any of these without
         # the named lock held raises GuardedStateError. Construction
@@ -706,7 +731,11 @@ class ServingEngine:
             "_prefix_miss_reqs": "_step_lock",
             "_weight_version": "_step_lock",
             "_qerr_max": "_step_lock",
+            "_ahead": "_step_lock",
+            "_ahead_hits": "_step_lock",
+            "_ahead_misses": "_step_lock",
             "_mask": "_step_lock", "_mask_rows": "_step_lock",
+            "_pinned": "_step_lock",
             "prefill_dispatches": "_step_lock",
             "decode_steps": "_step_lock",
             "megastep_dispatches": "_step_lock",
@@ -1272,6 +1301,7 @@ class ServingEngine:
         fn = self._prefill_entry_paged(bucket)["fn"]
         lora = (None if self.lora_pool is None
                 else (pages, self.lora_pool.arrays))
+        self.cache.pool.note_write()
         out = fn(ids, last, pos, tables, self.cache.arrays(), lora=lora)
         self.prefill_dispatches += 1
         return live, shed, out
@@ -1487,7 +1517,8 @@ class ServingEngine:
         never feed a draw and stay as they were."""
         if new_keys is None:
             return
-        arr = new_keys.cpu().numpy()
+        arr = (new_keys if isinstance(new_keys, np.ndarray)
+               else new_keys.cpu().numpy())
         for slot, req in self._active.items():
             if not req.decode.is_greedy and (rows is None or slot in rows):
                 req._key = arr[slot].astype(np.uint32)
@@ -1515,6 +1546,7 @@ class ServingEngine:
             fn = _gen.decode_step_paged(
                 self.model, kv_dtype=self.kv_dtype,
                 lora_shape=self._lora_shape, attn_impl=self.attn_impl)["fn"]
+            self.cache.pool.note_write()
             return fn(tokens, self.cache.lengths, self.cache.tables,
                       self.cache.arrays(), self._build_samp(),
                       lora=self._lora_args())
@@ -1648,28 +1680,174 @@ class ServingEngine:
                 self._build_samp(), live, budget, eos,
                 (pat, plen, fail, state))
 
-    def _megastep_attempt(self, n: int):
+    def _megastep_ctx(self, tables, samp, eos, stops, lora):  # holds: _step_lock
+        """The inputs a megastep and every speculation chained on it
+        share: the tables, the sampling constants, eos, the stop tables
+        and the LoRA page ids, as they were when it was dispatched. With
+        dispatch-ahead they are copied to the device once (from pinned
+        copies, so the host's later edits of its arrays never race the
+        copy), and a speculation's step copies them device to device."""
+        ctx = {"tables": tables, "samp": samp, "eos": eos, "stops": stops,
+               "lora": lora}
+        if not self.dispatch_ahead:
+            return ctx
+
+        def dev(a):
+            t = torch.from_numpy(np.array(a, copy=True))
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
+
+        ctx["tables"] = dev(tables)
+        ctx["eos"] = dev(eos)
+        ctx["stops"] = tuple(dev(a) for a in stops)
+        if samp is not None:
+            temp, tk, tp, keys, mask = samp
+            ctx["samp"] = (dev(temp), dev(tk), dev(tp), keys, mask)
+        if lora is not None:
+            ctx["lora"] = (dev(lora[0]), lora[1])
+        return ctx
+
+    def _megastep_attempt(self, n: int):  # holds: _step_lock
         """One megastep dispatch attempt (the ``serving.step`` fault
-        site)."""
+        site). The fault fires before the speculation is consumed, so an
+        injected skip leaves the stored dispatch valid for the next
+        attempt. Returns ``(out, ctx)``."""
         kind = fault_point("serving.step")
         if kind == "skip":
             raise _SkipStep("injected skip of one decode megastep")
+        taken = self._take_ahead(n)
+        if taken is not None:
+            return taken
         fn = _gen.decode_megastep_paged(
             self.model, n, kv_dtype=self.kv_dtype,
             lora_shape=self._lora_shape, attn_impl=self.attn_impl)["fn"]
         tokens, lengths, tables, samp, live, budget, eos, stop = \
             self._megastep_inputs()
-        return fn(tokens, lengths, tables, self.cache.arrays(), samp, live,
-                  budget, eos, stop, lora=self._lora_args())
+        ctx = self._megastep_ctx(tables, samp, eos, stop[:3],
+                                 self._lora_args())
+        ctx["fn"] = fn
+        self.cache.pool.note_write()
+        out = fn(tokens, lengths, ctx["tables"], self.cache.arrays(),
+                 ctx["samp"], live, budget, ctx["eos"],
+                 (*ctx["stops"], stop[3]), lora=ctx["lora"])
+        self.megastep_dispatches += 1
+        return out, ctx
+
+    def _ahead_snapshot(self, n: int, extra_tokens: int = 0):  # holds: _step_lock
+        """The scheduler state a speculative dispatch assumes: N, the
+        weight, flag, pool-write and LoRA-load versions, and each active
+        row's (slot, request id, committed length), with
+        ``extra_tokens`` added per row for the post-commit state a
+        pre-commit dispatch runs against."""
+        return (n, self._weight_version, _flags.version(),
+                self.cache.pool.write_version,
+                None if self.lora_pool is None
+                else self.lora_pool.load_version,
+                tuple(sorted((slot, req.id, len(req.tokens) + extra_tokens)
+                             for slot, req in self._active.items())))
+
+    def _dispatch_ahead(self, n: int, out, ctx):  # holds: _step_lock
+        """Enqueue megastep k+1 from k's device carry, before the host
+        waits for k: the same graph, its small inputs copied on the
+        device (no new key, no capture). It assumes k commits with no
+        finish, no admission, no reap and no change of weights, flags,
+        pools or adapters; :meth:`_take_ahead` checks all of that. An
+        int8 pool's blocks it may write are saved first."""
+        (_toks, _finish, tok_f, pos_f, _pools, keys_f, live_f, rem_f,
+         st_f, _qerr) = out
+        samp = ctx["samp"]
+        if samp is not None:
+            samp = (*samp[:3], keys_f.to(torch.int64), samp[4])
+        snap = None
+        if self.kv_dtype == "int8":
+            snap = _kvc.TailSnapshot(self.cache.pool, ctx["tables"],
+                                     pos_f, n)
+        spec = ctx["fn"](
+            tok_f.to(torch.int32), pos_f.to(torch.int32), ctx["tables"],
+            self.cache.arrays(), samp, live_f.to(torch.bool),
+            rem_f.to(torch.int32), ctx["eos"],
+            (*ctx["stops"], st_f.to(torch.int32)), lora=ctx["lora"])
+        self.megastep_dispatches += 1
+        self._ahead = {
+            "n": n,
+            "snap": self._ahead_snapshot(n, extra_tokens=n),
+            "undo": snap,
+            "out": spec,
+            "ctx": ctx,
+        }
+
+    def _take_ahead(self, n: int):  # holds: _step_lock
+        """Consume the stored speculation iff the live scheduler state is
+        the one it assumed; a miss restores what it wrote to an int8
+        pool. Single-shot: hit or miss, the slot clears."""
+        ah, self._ahead = self._ahead, None
+        if ah is None:
+            return None
+        ok = (ah["n"] == n and ah["snap"] == self._ahead_snapshot(n))
+        ok = self.cache.pool.retire(ah["undo"], restore=not ok) and ok
+        if not ok:
+            self._ahead_misses += 1
+            _monitor.stat_add("STAT_serving_ahead_misses")
+            return None
+        self._ahead_hits += 1
+        _monitor.stat_add("STAT_serving_ahead_hits")
+        return ah["out"], ah["ctx"]
+
+    def _drop_ahead(self):  # holds: _step_lock
+        """Discard a stored speculation uncounted (a single-step round,
+        a kill), restoring what it wrote to an int8 pool."""
+        ah, self._ahead = self._ahead, None
+        if ah is not None:
+            self.cache.pool.retire(ah["undo"], restore=True)
+
+    def _host_copy(self, out):  # holds: _step_lock
+        """Start reading a megastep's host outputs (tokens, finishes,
+        keys, the int8 error): on CUDA with dispatch-ahead, copies into
+        pinned buffers behind it on the stream and an event after them,
+        so a speculation can be enqueued before the host waits. Returns
+        a function that waits and gives the numpy arrays (the error as a
+        float or None)."""
+        toks, finish, keys, qerr = out[0], out[1], out[5], out[9]
+        if self.kv_dtype != "int8":
+            qerr = None
+        srcs = [toks, finish, keys, qerr]
+        if not (self.dispatch_ahead and self.device.type == "cuda"):
+            def now():
+                return [None if t is None else t.cpu().numpy()
+                        for t in srcs]
+            return now
+        dsts = []
+        for i, t in enumerate(srcs):
+            if t is None:
+                dsts.append(None)
+                continue
+            key = (i, tuple(t.shape), t.dtype)
+            buf = self._pinned.get(key)
+            if buf is None:
+                buf = self._pinned[key] = torch.empty(
+                    t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            dsts.append(buf)
+        ev = torch.cuda.Event()
+        ev.record()
+
+        def wait():
+            ev.synchronize()
+            return [None if t is None else t.numpy() for t in dsts]
+        return wait
 
     def _decode_megastep(self, n: int) -> int:  # holds: _step_lock
         """One megastep over every occupied row: ``n`` decode iterations
-        in one dispatch (retried at ``serving.step``), then one host
-        commit, each row's tokens replayed through :meth:`_append_token`
-        (finish reasons re-derived on the host; the device's early exits
-        are the same conditions). A row finishing at iteration f
-        committed f + 1 tokens, a live row all ``n``. Returns how many
-        tokens were produced."""
+        in one dispatch (retried at ``serving.step``; consumed from a
+        valid speculation with dispatch-ahead), then one host commit,
+        each row's tokens replayed through :meth:`_append_token` (finish
+        reasons re-derived on the host; the device's early exits are the
+        same conditions). A row finishing at iteration f committed f + 1
+        tokens, a live row all ``n``. With dispatch-ahead, megastep k+1
+        is enqueued before the host waits for k; a devprof-sampled
+        megastep waits for k first, so its device time is k's alone.
+        Returns how many tokens were produced."""
         if not self._active:
             return 0
         n_active = len(self._active)
@@ -1678,26 +1856,28 @@ class ServingEngine:
         try:
             with _monitor.stat_time("STAT_serving_decode"), \
                     _jit.timed_replays(timer):
-                out = RetryPolicy.from_flags("serving.step").call(
+                out, ctx = RetryPolicy.from_flags("serving.step").call(
                     self._megastep_attempt, n)
         except _SkipStep:
             return 0
         except RetryError as e:
             self._shed_active(e)
             return 0
-        (toks, finish, _tok_f, _pos_f, pools, keys_f, _live_f, _rem_f,
-         _st_f, qerr) = out
-        self.megastep_dispatches += 1
-        self.cache.set_arrays(pools)
-        toks = toks.cpu().numpy()
-        finish = finish.cpu().numpy()
+        self.cache.set_arrays(out[4])
+        wait = self._host_copy(out)
         if timer is not None:
+            host = wait()
             timer.device_done(out)
+        if self.dispatch_ahead:
+            self._dispatch_ahead(n, out, ctx)
+        if timer is None:
+            host = wait()
+        toks, finish, keys, qerr = host
         self._note_qerr(qerr, n * n_active)
         # a row still live after the n iterations keeps its key, split n
         # times; a finished row's key is never read again
-        self._writeback_keys(keys_f, {s for s in self._active
-                                      if int(finish[s]) < 0})
+        self._writeback_keys(keys, {s for s in self._active
+                                    if int(finish[s]) < 0})
         produced = 0
         for slot, req in list(self._active.items()):
             f = int(finish[slot])
@@ -1734,6 +1914,7 @@ class ServingEngine:
             fn = _gen.verify_step_paged(
                 self.model, K, kv_dtype=self.kv_dtype,
                 lora_shape=self._lora_shape, attn_impl=self.attn_impl)["fn"]
+            self.cache.pool.note_write()
             return fn(tokens, self.cache.lengths, self.cache.tables,
                       self.cache.arrays(), self._build_samp(),
                       lora=self._lora_args())
@@ -1822,6 +2003,9 @@ class ServingEngine:
         n = self._choose_megastep()
         if n > 1:
             return self._decode_megastep(n)
+        # a single-step round drops any stored speculation: its snapshot
+        # could never match a state the single step advanced
+        self._drop_ahead()
         return self._decode()
 
     def _append_token(self, req: Request, token: int):
@@ -2115,6 +2299,8 @@ class ServingEngine:
         co-located roles): only the engine's own tensors go. A LoRA pool
         lives with the fleet and is never freed here (graphs holding it
         also hold this engine's KV pool or mask, and go with those)."""
+        self._drop_ahead()
+        self._pinned = {}
         held = ([a for layer in self.cache.arrays() for a in layer]
                 if pool else [])
         if self._mask is not None:
@@ -2353,6 +2539,10 @@ class ServingEngine:
         if self.megastep > 1:
             out["megastep"] = self.megastep
             out["megastep_dispatches"] = self.megastep_dispatches
+            out["dispatch_ahead"] = self.dispatch_ahead
+            if self.dispatch_ahead:
+                out["ahead_hits"] = self._ahead_hits
+                out["ahead_misses"] = self._ahead_misses
         if self.kv_dtype == "int8":
             out["kv_quant_max_abs_err"] = round(self._qerr_max, 6)
         if self.lora_pool is not None:

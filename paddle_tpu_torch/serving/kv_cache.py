@@ -19,6 +19,17 @@ row (no reference or byte moves), and ``adopt_row`` copies a foreign
 pool's committed blocks into fresh blocks of this pool, written in
 place into the pool's own tensors (``index_copy_``), so every graph
 captured over the pool reads the copied blocks.
+
+Dispatch-ahead (the engine's ``dispatch_ahead``): where the reference
+rebinds a pool's arrays (a step's ``set_arrays``, a COW copy, a
+reclaimed block's scale reset, an adoption, a promotion), the port
+writes in place and bumps :attr:`BlockPool.write_version` instead; a
+speculative megastep is consumed only if the version it read is still
+the pool's. A speculation over an int8 pool registers a
+:class:`TailSnapshot` of the blocks it may write (a louder row re-encodes
+a block's committed rows); every such write first restores pending
+snapshots (:meth:`BlockPool.note_write`), so a discarded speculation
+leaves the committed codes and scales as the reference's.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..analysis import concurrency as _ccz
 
 _KV_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
               "int8": torch.int8}
@@ -286,6 +299,37 @@ class BlockPool:
         self.prefix_hits = 0       # token-weighted: shared tokens reused
         self.prefix_misses = 0     # prompt tokens prefilled from scratch
         self.blocks_allocated_total = 0   # fresh blocks taken by acquire
+        # the reference's pool identity: bumped where it rebinds the
+        # arrays; the speculations' snapshots still to restore or drop
+        self.write_version = 0
+        self._pending: List["TailSnapshot"] = []   # guarded-by: _spec_lock
+        self._spec_lock = _ccz.make_lock("BlockPool._spec_lock")
+        _ccz.declare_guarded(self, {"_pending": "_spec_lock"})
+
+    def note_write(self):
+        """About to write (or hand out) block contents the way the
+        reference rebinds its arrays: restore every pending speculation's
+        snapshot first, then bump :attr:`write_version`, so no
+        speculation taken later sees these pools as the ones it read."""
+        with self._spec_lock:
+            pending, self._pending = self._pending, []
+            for snap in pending:
+                snap.restore()
+        self.write_version += 1
+
+    def retire(self, snap: Optional["TailSnapshot"], restore: bool) -> bool:
+        """Retire one speculation's snapshot: restore it (a miss or a
+        drop) or forget it (a hit). Returns False when a write restored it
+        already, in which case the speculation must not be consumed."""
+        if snap is None:
+            return True
+        with self._spec_lock:
+            if snap not in self._pending:
+                return False
+            self._pending = [s for s in self._pending if s is not snap]
+            if restore:
+                snap.restore()
+            return True
 
     def alloc_block(self) -> Optional[int]:
         """Fresh block, evicting idle prefix-cache entries if needed."""
@@ -327,6 +371,35 @@ class BlockPool:
         """Free the block tensors (a killed replica's pool): the
         allocator and the prefix cache's book-keeping stay."""
         self.layers = []
+
+
+class TailSnapshot:
+    """The blocks a speculative megastep of ``n`` iterations may write,
+    saved before it is enqueued: for each row, the blocks its table names
+    for positions ``pos .. pos + n - 1`` (a frozen or empty row writes
+    at ``pos`` alone, into its own block or the trash block). Codes and
+    scales are gathered on the device, in stream order after the
+    megastep the speculation follows, and :meth:`restore` copies them
+    back."""
+
+    def __init__(self, pool: "BlockPool", tables: torch.Tensor,
+                 pos: torch.Tensor, n: int):
+        bs = pool.block_size
+        span = (int(n) - 1) // bs + 2
+        cols = (pos.long() // bs)[:, None] + torch.arange(
+            span, device=pos.device)[None]
+        cols = cols.clamp_(max=tables.shape[1] - 1)
+        self.pool = pool
+        self.idx = tables.long().gather(1, cols).reshape(-1)
+        self.saved = [tuple(a.index_select(0, self.idx) for a in layer)
+                      for layer in pool.layers]
+        with pool._spec_lock:
+            pool._pending = pool._pending + [self]
+
+    def restore(self):
+        for layer, saved in zip(self.pool.layers, self.saved):
+            for a, s in zip(layer, saved):
+                a.index_copy_(0, self.idx, s)
 
 
 class BlockKVCache:
@@ -515,6 +588,8 @@ class BlockKVCache:
                 return None
             taken.append(blk)
             blocks.append(blk)
+        if (taken and self.kv_dtype == "int8") or cow:
+            self.pool.note_write()
         if taken and self.kv_dtype == "int8":
             # a reclaimed block's stale absmax scale would distort every
             # fresh row quantized into it (scales only grow); zeroing it
@@ -691,6 +766,8 @@ class BlockKVCache:
                 return None
             taken.append(blk)
         dev = self.pool.device
+        src_pool.note_write()
+        self.pool.note_write()
         if taken and self.kv_dtype == "int8":
             # acquire()'s stale-scale hazard: zero the reclaimed blocks'
             # scales first; the copy below then writes the committed
@@ -759,5 +836,7 @@ class BlockKVCache:
         the pools in place, and a captured graph reads and writes them
         at their addresses, so a step that handed back other tensors
         would leave the cache holding memory the graphs never touch.
-        Raises ValueError for any other tensor."""
+        Raises ValueError for any other tensor. Bumps the pool's
+        :attr:`~BlockPool.write_version`, where the reference rebinds."""
         _same_layers(layers, self.layers)
+        self.pool.write_version += 1

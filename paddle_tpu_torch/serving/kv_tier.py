@@ -646,6 +646,9 @@ class TierManager:
         event after the copies; a later host write into a row waits for
         it."""
         t0 = time.perf_counter()
+        # the reference rebinds the pool here: a dispatch-ahead
+        # speculation over it is restored first and will miss
+        pool.note_write()
         store, dev = self.store, pool.device
         n = len(src_blocks)
         int8 = pool.kv_dtype == "int8"

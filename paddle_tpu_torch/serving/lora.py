@@ -84,6 +84,9 @@ class LoRAPool:
             arrs.append(torch.zeros((self.num_layers, self.pages, rank, dout),
                                     dtype=torch.float32, device=self.device))
         self.arrays = tuple(arrs)
+        # bumped by every load and evict, where the reference rebinds
+        # its arrays: a dispatch-ahead speculation compares it
+        self.load_version = 0               # guarded-by: _lock
         self._by_name: Dict[str, int] = {}  # guarded-by: _lock
         self._alloc = BlockAllocator(self.pages)
         base = self._alloc.alloc()
@@ -94,7 +97,8 @@ class LoRAPool:
         # after their own _step_lock; the pool never calls back into an
         # engine, so the order is acyclic.
         self._lock = _ccz.make_lock("lora_pool._lock", reentrant=True)
-        _ccz.declare_guarded(self, {"arrays": "_lock"})
+        _ccz.declare_guarded(self, {"arrays": "_lock",
+                                    "load_version": "_lock"})
 
     @property
     def shape_key(self) -> Tuple[int, int]:
@@ -188,6 +192,7 @@ class LoRAPool:
                             v = torch.from_numpy(
                                 np.asarray(v, dtype=np.float32))
                         self.arrays[2 * i + j][:, page].copy_(v)
+            self.load_version += 1
         return page
 
     def evict(self, name: str) -> int:
@@ -209,6 +214,7 @@ class LoRAPool:
             with torch.no_grad():
                 for a in self.arrays:
                     a[:, page].zero_()
+            self.load_version += 1
         return page
 
     def leaked(self) -> int:

@@ -1253,6 +1253,11 @@ def main(argv=None) -> int:
                     help="replay a recorded arrival trace")
     ap.add_argument("--megastep", type=int, default=1, metavar="N",
                     help="> 1 runs decode megasteps of N iterations")
+    ap.add_argument("--dispatch-ahead", action="store_true",
+                    help="with --megastep > 1: enqueue megastep k+1 "
+                    "while k executes (FLAGS_serving_dispatch_ahead); "
+                    "the host commit validates the speculation and "
+                    "discards it on any roster/sampling change")
     ap.add_argument("--dispatch-threads", type=int, default=0,
                     metavar="T", help="> 0 steps router replicas from T "
                     "threads")
@@ -1375,11 +1380,16 @@ def main(argv=None) -> int:
     if args.megastep < 1:
         print("FAIL: --megastep must be >= 1", file=sys.stderr)
         return 1
+    if args.dispatch_ahead and args.megastep <= 1:
+        print("FAIL: --dispatch-ahead needs --megastep > 1",
+              file=sys.stderr)
+        return 1
     if args.dispatch_threads < 0:
         print("FAIL: --dispatch-threads must be >= 0", file=sys.stderr)
         return 1
     if args.megastep > 1 or args.dispatch_threads > 0:
         _fl.set_flags({"serving_megastep": args.megastep,
+                       "serving_dispatch_ahead": bool(args.dispatch_ahead),
                        "serving_dispatch_threads": args.dispatch_threads})
     if args.trace_sample is not None:
         _fl.set_flags({"serving_trace": args.trace_sample})

@@ -17,8 +17,8 @@ Each test of ``tests/test_concurrency_lint.py`` has a counterpart here:
   no-survivor path) run on port fleets;
 - ``guards_of`` of the port's engine, router, disaggregated fleet and
   worker, handoff queue, host tier and LoRA pool equals the reference's
-  on every attribute they share; the port's own guarded attributes are
-  named, and the reference's dispatch-ahead ones wait with it.
+  on every attribute they share, the dispatch-ahead state among them;
+  the port's own guarded attributes are named.
 
 Every port lock is checked to come from ``make_lock``: the ones made per
 object in-process, the ones made at import (the capture lock, the
@@ -448,8 +448,9 @@ def test_both_checkers_agree_over_the_serving_modules(tree):
 def test_port_serving_declares_the_reference_guards():
     """Every ``# guarded-by`` declaration and ``# holds`` marker of the
     reference's serving modules is in the port's, on the same class (the
-    port's own additions besides); the reference's dispatch-ahead state
-    waits with dispatch-ahead."""
+    port's own additions besides), the dispatch-ahead state and the
+    ``# holds`` markers of ``_dispatch_ahead`` / ``_take_ahead`` among
+    them."""
     import ast
 
     def declared(tree_root):
@@ -473,11 +474,10 @@ def test_port_serving_declares_the_reference_guards():
         return out
 
     ref, port = declared("paddle_tpu"), declared("paddle_tpu_torch")
-    waiting = {x for x in ref if "_ahead" in x[3]}
     renamed = {("engine.py", "ServingEngine", "holds", "_admit_round",
                 "_step_lock")}
-    assert (ref - waiting - renamed) <= port, sorted(
-        ref - waiting - renamed - port)
+    assert (ref - renamed) <= port, sorted(ref - renamed - port)
+    assert {x for x in ref if "_ahead" in x[3]} <= port
     assert ("engine.py", "ServingEngine", "holds", "_admit_round_dense",
             "_step_lock") in port
 
@@ -827,11 +827,10 @@ def test_import_time_locks_are_sanitized_with_the_flag_in_the_env():
 #: and the pinned staging buffer (host tier)
 PORT_ONLY = {
     "engine": {"_mask", "_mask_rows", "prefill_dispatches", "decode_steps",
-               "megastep_dispatches"},
+               "megastep_dispatches", "_pinned"},
     "tier": {"migrate_ms", "_stage"},
+    "lora": {"load_version"},
 }
-#: the reference's dispatch-ahead state, ported with dispatch-ahead
-WAITING = {"_ahead", "_ahead_hits", "_ahead_misses"}
 
 
 def test_guards_of_equal_the_reference(sanitize, arrays):
@@ -868,9 +867,8 @@ def test_guards_of_equal_the_reference(sanitize, arrays):
     for k in ref:
         extra = PORT_ONLY.get(k if k not in ("prefill", "decode")
                               else "engine", set())
-        shared = {a: lk for a, lk in ref[k].items() if a not in WAITING}
         assert {a: lk for a, lk in port[k].items()
-                if a not in extra} == shared, k
+                if a not in extra} == ref[k], k
         assert extra <= set(port[k]), k
         assert ref[k], k
     assert jccz.violations() == [] and ccz.violations() == []

@@ -1009,9 +1009,10 @@ def test_kill_frees_a_private_pool_and_keeps_a_shared_one(pkgs):
 def test_refuses_lora_and_the_host_tier():
     """What a fleet refuses of LoRA and the host KV tier, as the
     reference does: adapter calls on a fleet without a pool, an unknown
-    adapter, a tier of another geometry; and what still waits: the JSON
-    grammar (A2.5) and dispatch-ahead (A3). (LoRA tenants and the host
-    tier themselves: tests/test_torch_lora.py, tests/test_torch_kv_tier.py.)"""
+    adapter, a tier of another geometry, a grammar row; and dispatch-ahead
+    decode workers, which it takes now (tests/test_torch_megastep.py
+    runs them). (LoRA tenants and the host tier themselves:
+    tests/test_torch_lora.py, tests/test_torch_kv_tier.py.)"""
     from paddle_tpu_torch.serving import HostBlockStore, TierManager
     model = GPTForCausalLM(GPTConfig(**GEOM), device="cpu").eval()
     rt = DisaggRouter(model, n_prefill=1, n_decode=1, **SHAPE, device="cpu")
@@ -1036,6 +1037,6 @@ def test_refuses_lora_and_the_host_tier():
     from paddle_tpu_torch.serving import DecodeParams
     with pytest.raises(ValueError, match="grammar"):
         rt.submit([1, 2, 3], decode=DecodeParams(json_mode=True))
-    with pytest.raises(NotImplementedError, match="dispatch-ahead"):
-        DisaggRouter(model, n_prefill=1, n_decode=1, megastep=2,
-                     dispatch_ahead=True, **SHAPE, device="cpu")
+    ahead = DisaggRouter(model, n_prefill=1, n_decode=1, megastep=2,
+                         dispatch_ahead=True, **SHAPE, device="cpu")
+    assert all(e.dispatch_ahead for e in ahead.engines)

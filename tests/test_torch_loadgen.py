@@ -434,3 +434,38 @@ def test_disagg_cli_like_the_reference(capsys):
     assert trep == jrep
     assert trep["chaos_applied"] == 2 and trep["disagg"]["prefill_workers"] == 1
     assert trep["new_compiles_after_warmup"] == 0
+
+
+def test_dispatch_ahead_cli_like_the_reference(capsys):
+    """``--megastep 2 --dispatch-ahead`` through each package's CLI on a
+    virtual clock: the same report, no leak, nothing captured after the
+    warm-up; ``--dispatch-ahead``
+    at ``--megastep 1`` fails in both, as the reference's rule says."""
+    args = ["--model", "gpt2-tiny", "--mode", "bursty", "--rate", "12",
+            "--duration", "0.5", "--slots", "2", "--max-len", "32",
+            "--buckets", "8,16", "--prompt-tokens", "4:9",
+            "--new-tokens", "6:12", "--slo-ttft-ms", "200",
+            "--slo-prefill-ms", "4", "--slo-tpot-ms", "1",
+            "--virtual-step-ms", "4", "--json", "--expect-zero-leaks",
+            "--expect-zero-new-compiles"]
+    names = ["serving_megastep", "serving_dispatch_ahead",
+             "serving_dispatch_threads"]
+    saved = (pt.get_flags(names), tflags.get_flags(names))
+    reps = []
+    try:
+        for main, extra in ((jloadgen.main, []),
+                            (tloadgen.main, ["--device", "cpu"])):
+            assert main(args + extra + ["--dispatch-ahead"]) == 1
+            assert "--dispatch-ahead needs --megastep > 1" in \
+                capsys.readouterr().err
+            rc = main(args + extra + ["--megastep", "2",
+                                      "--dispatch-ahead"])
+            out = capsys.readouterr().out.strip().splitlines()[-1]
+            reps.append((rc, json.loads(out)))
+    finally:
+        pt.set_flags(saved[0])
+        tflags.set_flags(saved[1])
+    (jrc, jrep), (trc, trep) = reps
+    assert jrc == trc == 0
+    assert trep == jrep
+    assert trep["completed"] > 0 and trep["new_compiles_after_warmup"] == 0

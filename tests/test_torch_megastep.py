@@ -13,6 +13,10 @@ sampled steps; the JAX side of that test runs with 64-bit types off, as
 in ``tests/test_torch_sampling.py``.
 """
 
+import contextlib
+from types import SimpleNamespace
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,13 +26,23 @@ import paddle_tpu as pt
 from paddle_tpu.models.generation import decode_megastep_paged as jmega
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JGPT
+from paddle_tpu.resilience import fault_scope as jfault_scope
+from paddle_tpu.resilience import reset_default_budget as jreset_budget
+from paddle_tpu.serving import HostBlockStore as JHostBlockStore
 from paddle_tpu.serving import ServingEngine as JServingEngine
+from paddle_tpu.serving import TierManager as JTierManager
+from paddle_tpu.serving import decoding as jdec
+from paddle_tpu.serving import make_adapter as jmake_adapter
 from paddle_tpu.serving.decoding import neutral_samp
 from paddle_tpu_torch.models import generation as gen
 from paddle_tpu_torch.models.convert import gpt_state_from_numpy
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
-from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.resilience import fault_scope as tfault_scope
+from paddle_tpu_torch.resilience import reset_default_budget as treset_budget
+from paddle_tpu_torch.serving import (HostBlockStore, ServingEngine,
+                                      TierManager, make_adapter)
 from paddle_tpu_torch.serving import decoding as tdec
+from paddle_tpu_torch.serving import kv_cache as tdkv
 from test_torch_serving import ENGINE, GEOM
 
 ATOL = 1e-5     # the f32 bound of tests/test_torch_gpt.py
@@ -319,3 +333,306 @@ def test_megastep_validation_errors(models, port):
         assert str(got.value) == str(want.value)
     assert "megastep" not in ServingEngine(port, device="cpu",
                                            **ENGINE).stats()
+
+
+# ------------------------------------------------------- dispatch-ahead
+def _ahead_engine(side, model, kv, ahead=True, **kw):
+    kw = {**ENGINE, "kv_dtype": kv, "megastep": 4, "clock": lambda: 0.0,
+          **kw}
+    if ahead:
+        kw["dispatch_ahead"] = True
+    if side == "jax":
+        return JServingEngine(model, **kw)
+    return ServingEngine(model, device="cpu", **kw)
+
+
+def _committed_kv(eng, order):
+    """Each active request's committed KV, keyed by its submission index
+    (request ids differ between the packages): per layer, the K and V
+    rows at positions below the row's length and the scales of the
+    blocks holding them (int8), as numpy arrays. A stored speculation's
+    writes are left out of the port's pools as its restore would."""
+    cache = eng.cache
+    bs = cache.block_size
+    pools = cache.arrays()
+    snap = (eng._ahead or {}).get("undo")
+    if isinstance(snap, tdkv.TailSnapshot):
+        # the port's pools already hold a stored speculation's writes,
+        # which the reference keeps apart until it commits them: read
+        # them as the snapshot's restore would leave them
+        pools = [tuple(a.clone().index_copy_(0, snap.idx, sv)
+                       for a, sv in zip(layer, saved))
+                 for layer, saved in zip(pools, snap.saved)]
+    out = {}
+    for req in list(eng._active.values()):
+        slot, n = req.slot, int(cache.lengths[req.slot])
+        blocks = [int(b) for b in cache.tables[slot, :-(-n // bs)]]
+        layers = []
+        for layer in pools:
+            arrs = [np.asarray(a.float().numpy() if isinstance(a, torch.Tensor)
+                               and a.dtype == torch.bfloat16 else a)
+                    for a in layer]
+            kv = []
+            for a in arrs[:2]:
+                rows = a[blocks]                       # [nb, h, bs, d]
+                rows = np.swapaxes(rows, 0, 1).reshape(
+                    rows.shape[1], -1, rows.shape[3])[:, :n]
+                kv.append(np.asarray(rows))
+            kv += [np.asarray(a[blocks]) for a in arrs[2:]]
+            layers.append(kv)
+        out[order[req]] = (n, layers)
+    return out
+
+
+def _lockstep(side, model, kv, ahead, plan, steps=40, **kw):
+    """Step one engine, running ``plan[i](eng, side)`` before step ``i``
+    (it may submit, cancel, swap or load), and record each step's
+    committed KV; returns ``(tokens, hits, misses, whether no
+    speculation is left stored, kv per step, stats)``."""
+    eng = _ahead_engine(side, model, kv, ahead, **kw)
+    reqs, order, trace = [], {}, []
+    for i in range(steps):
+        if i in plan:
+            for r in plan[i](eng, side) or []:
+                order[r] = len(reqs)
+                reqs.append(r)
+        eng.step()
+        trace.append(_committed_kv(eng, order))
+        if i > max(plan) and eng.idle:
+            break
+    assert eng.idle and all(r.done for r in reqs)
+    st = eng.stats()
+    eng.cache.flush_prefix_cache()
+    assert eng.cache.allocator.leaked() == 1
+    # a speculation dispatched by the last commit stays stored, unconsumed
+    return ([r.output_ids for r in reqs], st.get("ahead_hits"),
+            st.get("ahead_misses"), eng._ahead is None, trace, st)
+
+
+def _same_kv(a, b, exact):
+    assert len(a) == len(b)
+    for sa, sb in zip(a, b):
+        assert sorted(sa) == sorted(sb)
+        for k in sa:
+            (na, la), (nb, lb) = sa[k], sb[k]
+            assert na == nb
+            for xa, xb in zip(la, lb):
+                for u, v in zip(xa, xb):
+                    if exact or u.dtype == np.int8:
+                        np.testing.assert_array_equal(u, v)
+                    else:
+                        np.testing.assert_allclose(
+                            np.asarray(u, np.float64),
+                            np.asarray(v, np.float64), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kv", ["f32", "bf16", "int8"])
+def test_dispatch_ahead_hits_and_identity(models, port, kv):
+    """The reference's ``test_dispatch_ahead_hits_and_identity``
+    (``tests/test_serving_megastep.py:335``) against the JAX engine:
+    the same hits and misses, hits on the steady batch, the same tokens,
+    and the tokens of megastep 1; no speculation or snapshot left, no
+    leak."""
+    jm, _ = models
+    pt.set_flags({"serving_attn_impl": "xla"})
+    prompts = _prompts((4, 6), seed=6)
+    out = []
+    for side, model in (("jax", jm), ("port", port)):
+        eng = _ahead_engine(side, model, kv)
+        reqs = [eng.submit(p, max_new_tokens=20) for p in prompts]
+        eng.run_until_idle()
+        st = eng.stats()
+        assert st["megastep"] == 4 and st["dispatch_ahead"] is True
+        assert st["ahead_hits"] >= 1, st
+        out.append(([r.output_ids for r in reqs], st["ahead_hits"],
+                    st["ahead_misses"]))
+        eng.cache.flush_prefix_cache()
+        assert eng.cache.allocator.leaked() == 1
+    assert out[1] == out[0]
+    one = ServingEngine(port, kv_dtype=kv, device="cpu", **ENGINE)
+    assert out[1][0] == _run(one, [(p, {"max_new_tokens": 20})
+                                   for p in prompts])
+
+
+def _submit(*specs, **kw):
+    def act(eng, side):
+        return [eng.submit(p, max_new_tokens=m, **kw) for p, m in specs]
+    return act
+
+
+_PA, _PB, _PS1, _PS2 = _prompts((5, 3, 12, 4), seed=12)
+PKG = {
+    "jax": SimpleNamespace(adapter=jmake_adapter, Tier=JTierManager,
+                           Store=JHostBlockStore, dec=jdec,
+                           fault_scope=jfault_scope,
+                           reset_budget=jreset_budget),
+    "port": SimpleNamespace(adapter=make_adapter, Tier=TierManager,
+                            Store=HostBlockStore, dec=tdec,
+                            fault_scope=tfault_scope,
+                            reset_budget=treset_budget),
+}
+
+
+def _new_state(arrays):
+    rng = np.random.RandomState(11)
+    return {n: (a + 0.05 * rng.randn(*a.shape)).astype(np.float32)
+            for n, a in arrays.items()}
+
+
+def _miss_case(case, arrays):
+    """A forced miss: ``(plan, engine keywords of a side, the context a
+    side runs in)``. Every plan keeps requests decoding long enough that
+    a speculation is in flight when the event comes (before step 2 or
+    4): an admission, a cancel, a weight swap, an adapter load, a
+    session resumed through a host-tier promotion, a grammar row that
+    takes the batch to single steps (a drop, counted by neither
+    package), or an injected ``serving.step`` skip, which fires before
+    the speculation is taken and leaves it valid."""
+    def cancel(eng, side):
+        eng.cancel(max(eng._active.values(), key=lambda r: r.slot).id)
+
+    def swap(eng, side):
+        eng.swap_weights(_new_state(arrays))
+
+    def load(eng, side):
+        eng.load_adapter("acme", PKG[side].adapter(GPTConfig(**GEOM), 2,
+                                                   seed=1, scale=0.5))
+
+    def drain(eng, side):
+        eng.cache.flush_prefix_cache()
+
+    two = _submit((_PA, 18), (_PB, 18))
+    none = lambda side: contextlib.nullcontext()    # noqa: E731
+    cases = {
+        "admission": ({0: _submit((_PA, 18)), 2: _submit((_PB, 12))},
+                      {}, none),
+        "cancel": ({0: two, 2: cancel}, {}, none),
+        "swap_weights": ({0: two, 2: swap}, {}, none),
+        "lora_load": ({0: two, 2: load},
+                      {"lora_rank": 2, "lora_max_adapters": 2}, none),
+        "promotion": ({0: lambda e, s: (_submit((_PA, 18))(e, s) +
+                                        _submit((_PS1, 2),
+                                                session="u1")(e, s)),
+                       3: drain,
+                       4: _submit((_PS2, 4), session="u1")},
+                      {"kv_tier": "tier"}, none),
+        "grammar": ({0: two, 2: _submit((_PS2, 6), json_mode=True)},
+                    {"max_slots": 3, "grammar": "json"},
+                    lambda side: jax.enable_x64(False)),
+        "skip": ({0: two}, {},
+                 lambda side: PKG[side].fault_scope("serving.step:skip@4",
+                                                    seed=0)),
+    }
+    return cases[case]
+
+
+def _side_kw(side, kw):
+    kw = dict(kw)
+    pkg = PKG[side]
+    if kw.get("kv_tier") == "tier":
+        kw["kv_tier"] = pkg.Tier(pkg.Store(GEOM["num_layers"],
+                                           GEOM["num_heads"],
+                                           GEOM["hidden_size"] //
+                                           GEOM["num_heads"],
+                                           block_size=ENGINE["block_size"],
+                                           num_blocks=64),
+                                 demote_idle_ms=0.0)
+    if kw.get("grammar") == "json":
+        kw["grammar"] = pkg.dec.JsonGrammar(
+            pkg.dec.json_token_strings(GEOM["vocab_size"]))
+    return kw
+
+
+def _forced(side, model, kv, ahead, case, arrays):
+    plan, kw, scope = _miss_case(case, arrays)
+    PKG[side].reset_budget()
+    with scope(side):
+        return _lockstep(side, model, kv, ahead, plan, **_side_kw(side, kw))
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+@pytest.mark.parametrize("case", ["admission", "cancel", "swap_weights",
+                                  "lora_load", "promotion", "grammar",
+                                  "skip"])
+def test_dispatch_ahead_forced_miss_matches_jax(models, kv, case):
+    """An event between a speculation's dispatch and its take
+    (:func:`_miss_case`) is a miss, a drop or, for the skip, a later hit
+    in both packages alike: equal hits, misses and tokens, each step's
+    committed KV
+    (positions below each length; int8 codes equal, scales and float
+    rows within the f32 bound) equal to the JAX engine's, and bit-equal
+    to the port's own run with dispatch-ahead off, whose writes a
+    discarded speculation must not have disturbed."""
+    jm, arrays = models
+    pt.set_flags({"serving_attn_impl": "xla"})
+    try:
+        ref = _forced("jax", jm, kv, True, case, arrays)
+    finally:
+        for n, p in jm.named_parameters():
+            p.value = jnp.asarray(arrays[n])
+    got = _forced("port", _port(arrays), kv, True, case, arrays)
+    off = _forced("port", _port(arrays), kv, False, case, arrays)
+    assert got[:4] == ref[:4]
+    assert got[0] == off[0] and got[1] >= 1
+    assert (got[2] >= 1) == (case not in ("grammar", "skip")), got[1:4]
+    st = got[5]
+    if case == "promotion":
+        assert st["kv_tier"]["migrated_promote_blocks"] > 0
+    if case == "grammar":
+        assert st["decode_steps"] > 0
+    if case == "skip":      # a round of the run produced nothing
+        plan, _, _ = _miss_case(case, arrays)
+        noskip = _lockstep("port", _port(arrays), kv, True, plan)
+        assert len(got[4]) == len(noskip[4]) + 1 and got[1:4] == noskip[1:4]
+    if case == "lora_load":
+        assert st["lora"]["loaded"] == ["acme"]
+    _same_kv(got[4], ref[4], exact=False)
+    _same_kv(got[4], off[4], exact=True)
+
+
+def _oracle(jm, prompts, n):
+    from paddle_tpu.models.generation import greedy_search as jgreedy
+    return [jgreedy(jm, np.asarray([p]), max_new_tokens=n,
+                    cache_len=32)[0].tolist() for p in prompts]
+
+
+@pytest.mark.parametrize("fleet", ["replicas", "disagg", "start"])
+def test_threaded_dispatch_ahead_equals_the_greedy_oracle(models, port,
+                                                          fleet):
+    """The reference's threaded router tests
+    (``tests/test_serving_megastep.py:349,371``) with dispatch-ahead on:
+    two replicas stepped from a pool of two threads, a prefill worker and
+    a decode worker likewise, and one engine on its own background
+    thread (``start``): every request equals JAX's greedy oracle, the
+    decode engines hit, and nothing leaks."""
+    from paddle_tpu_torch.serving import DisaggRouter, ReplicaRouter
+    jm, _ = models
+    pt.set_flags({"serving_attn_impl": "xla"})
+    prompts = _prompts((3, 7, 5, 9, 4, 6), seed=7)
+    kw = dict(max_slots=2, max_len=32, buckets=[8, 16], max_queue=32,
+              block_size=4, megastep=4, dispatch_ahead=True, device="cpu")
+    if fleet == "replicas":
+        rt = ReplicaRouter(port, n_replicas=2, dispatch_threads=2, **kw)
+        decode = rt.engines
+    elif fleet == "disagg":
+        rt = DisaggRouter(port, n_prefill=1, n_decode=1, dispatch_threads=2,
+                          **kw)
+        decode = rt.engines[1:]
+    else:
+        rt = ServingEngine(port, **kw)
+        decode = [rt]
+        rt.start()
+    try:
+        reqs = [rt.submit(p, max_new_tokens=14) for p in prompts]
+        if fleet == "start":
+            done = rt.results(reqs, timeout=120)
+        else:
+            rt.run_until_idle()
+            done = reqs
+    finally:
+        rt.stop()
+    assert [r.output_ids for r in done] == _oracle(jm, prompts, 14)
+    assert sum(e.stats()["ahead_hits"] for e in decode) >= 1
+    for e in decode:
+        e.cache.flush_prefix_cache()
+        assert e.cache.allocator.leaked() == 1

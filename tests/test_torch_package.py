@@ -24,8 +24,6 @@ from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.nn import layers_common as TL
-from paddle_tpu_torch.nn.transformer import (MultiHeadAttention,
-                                             TransformerEncoderLayer)
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import flash_pack2 as fp2
 from paddle_tpu_torch.ops.cuda import layer_norm as ln
@@ -86,7 +84,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "tools/perf_ledger.py", "tools/perf_regress.py",
                    "analysis/__init__.py", "analysis/concurrency.py",
                    "analysis/lifecycle.py", "analysis/recompile.py",
-                   "tools/soak.py", "tools/lint_serving.py"):
+                   "tools/soak.py", "tools/lint_serving.py",
+                   "nn/__init__.py", "nn/rnn.py", "ops/rnn_ops.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -118,6 +117,11 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         loadgen.main(["--model", "gpt2-tiny"])
     with pytest.raises(ValueError, match="generator"):
         GPTForCausalLM(TINY, device="meta", generator=torch.Generator())
+    from paddle_tpu_torch import nn as tnn
+    for make in (tnn.Transformer, lambda: tnn.LSTM(4, 8),
+                 lambda: tnn.MultiHeadAttention(8, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_kernel_wrapper_runs_plain_only_on_cpu_and_raises_elsewhere():
@@ -377,15 +381,6 @@ def test_port_tools_keep_the_reference_tools_signatures():
 _ENGINE_KW = dict(max_slots=2, max_len=16, buckets=[8], device="cpu")
 
 
-def _mha(**kw):
-    return MultiHeadAttention(8, 2, device="cpu",
-                              generator=torch.Generator(), **kw)
-
-
-def _x():
-    return torch.zeros(1, 3, 8)
-
-
 #: reference parameters the port takes but cannot honour yet, each with
 #: the ROADMAP.md item it waits for: a call that sets one raises
 #: NotImplementedError naming that item
@@ -398,18 +393,6 @@ WAITING = {
         "A5", lambda m: tgen.decode_megastep_paged(m, 2, mesh=object())),
     "mesh (verify_step_paged)": (
         "A5", lambda m: tgen.verify_step_paged(m, 2, mesh=object())),
-    "MultiHeadAttention key": ("A4", lambda m: _mha()(_x(), _x() + 1)),
-    "MultiHeadAttention value": (
-        "A4", lambda m: _mha()(_x(), value=_x() + 1)),
-    "MultiHeadAttention cache": (
-        "A4", lambda m: _mha()(_x(), cache=object())),
-    "MultiHeadAttention kdim": ("A4", lambda m: _mha(kdim=4)),
-    "MultiHeadAttention need_weights": (
-        "A4", lambda m: _mha(need_weights=True)),
-    "TransformerEncoderLayer cache": (
-        "A4", lambda m: TransformerEncoderLayer(
-            8, 2, 16, device="cpu", generator=torch.Generator())(
-                _x(), cache=object())),
     "Optimizer.set_lr scope": (
         "A7", lambda m: topt.SGD(
             learning_rate=0.1, parameters=list(m.named_parameters())

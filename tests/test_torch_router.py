@@ -592,11 +592,12 @@ def test_threaded_dispatch_and_background_threads_equal_serial(pkgs):
 
 def test_refuses_what_is_not_ported(pkgs):
     _, port = pkgs
-    # dispatch-ahead megasteps wait for ROADMAP A3 (LoRA tenants and the
-    # host KV tier are ported: tests/test_torch_lora.py and
-    # tests/test_torch_kv_tier.py)
-    with pytest.raises(NotImplementedError, match="dispatch-ahead"):
-        _router(port, megastep=2, dispatch_ahead=True)
+    # dispatch-ahead megasteps are ported: every replica takes them
+    # (tests/test_torch_megastep.py runs them; LoRA tenants and the host
+    # KV tier: tests/test_torch_lora.py and tests/test_torch_kv_tier.py)
+    ahead = _router(port, megastep=2, dispatch_ahead=True)
+    assert all(e.dispatch_ahead and e.stats()["ahead_hits"] == 0
+               for e in ahead.engines)
     with pytest.raises(ValueError):
         _router(port, hedge_ms=50.0, hedge_budget=-1.0)
     rt = _router(port)
@@ -619,9 +620,9 @@ def test_dispatch_flags_validate_like_jax(pkgs):
     with pytest.raises(ValueError):       # the reference's rule
         ServingEngine(port.model, max_len=32, dispatch_ahead=True,
                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServingEngine(port.model, max_len=32, megastep=2,
-                      dispatch_ahead=True, device="cpu")
+    st = ServingEngine(port.model, max_len=32, megastep=2,
+                       dispatch_ahead=True, device="cpu").stats()
+    assert st["dispatch_ahead"] is True and st["ahead_misses"] == 0
     with _flags(port, {"serving_autoscale": "3:1"}):
         with pytest.raises(ValueError):
             _router(port)
