@@ -151,7 +151,23 @@ steps with 12 non-causal launches of each flash kernel (the encoder's
 self-attentions and the cross-attentions) and 30 of each LayerNorm
 kernel per step, the device's busy time, the flash kernels at this
 shape against SDPA and their bound, and greedy incremental decoding
-through ``gen_cache`` equal to the full decoder at every step.
+through ``gen_cache`` equal to the full decoder at every step, 22
+``bench.py``'s widedeep step through the static executor (Criteo's 26
+slots, embed 16, a 400 x 400 x 400 tower, batch 512, the host-paced
+sparse tables with the pull prefetcher): the startup program, 3 steps
+held against the port on the CPU from one scope and one table state
+(losses, pushed row gradients, dense parameters), one capture (the
+second run) and none in 50 timed replays, ``set_lr(scope=)`` taken at
+the next replay; examples/s, the host's pull and push against the
+device's busy time, rows live, peak memory; 23 a Transformer-base
+encoder built as a static Program with the ``layers`` builders (6
+layers, d 512, 8 heads, FFN 2048, batch 8, seq 1024, f32, AdamW) through
+the executor: 3 steps through the flash and LayerNorm kernels against 3
+composed ones from one seeded scope, the first step's gradients against
+a float64 run, per step 12 / 6 / 6 flash launches (all f32 ``simt``),
+24 / 12 LayerNorm launches (the generic grad re-runs the forward) and
+96 AdamW launches (one per parameter), one capture; the replayed step's
+busy time and the f32 flash kernels at this shape against SDPA.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -174,6 +190,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -4895,15 +4912,17 @@ def time_flash(torch, fa, ctr, card, b=8, h=16, s=1024, d=64):
     return out
 
 
-def time_flash_bf16(torch, fa, ctr, card, b, h, s, d, causal):
-    """The three flash kernels in bf16 at ``[b, h, s, d]``, causal or not,
-    their plain versions and PyTorch's scaled_dot_product_attention
-    (forward; backward = dq, dk and dv in one call): ms per call, the
-    bound of the work the mask leaves, TFLOP/s, the fraction of the bound
+def time_flash_bf16(torch, fa, ctr, card, b, h, s, d, causal, dt="bf16"):
+    """The three flash kernels in bf16 (or ``dt`` "f32") at ``[b, h, s,
+    d]``, causal or not, their plain versions and PyTorch's
+    scaled_dot_product_attention (forward; backward = dq, dk and dv in
+    one call): ms per call, the bound of the work the mask leaves (at the
+    dtype's element size and peak), TFLOP/s, the fraction of the bound
     and the route each launch took. Launches are not counted."""
     import torch.nn.functional as F
     bh, scale = b * h, 1.0 / d ** 0.5
-    q, k, v, do = flash_inputs(torch, bh, s, s, d, "bf16", seed=7)
+    elem, peak = (2, BF16_FLOPS) if dt == "bf16" else (4, F32_FLOPS)
+    q, k, v, do = flash_inputs(torch, bh, s, s, d, dt, seed=7)
     qd, kd, vd = (t.reshape(b, h, s, d) for t in (q, k, v))
     q4, k4, v4 = (t.detach().requires_grad_() for t in (qd, kd, vd))
     o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
@@ -4936,7 +4955,7 @@ def time_flash_bf16(torch, fa, ctr, card, b, h, s, d, causal):
                          if n > before[r])
             plain_ms = time_fn(torch, plain, 5, 1)
             lib_ms = time_fn(torch, lib, 20, 1) if lib else sdpa_bwd
-            b_ = bound(*flash_work(name, bh, s, d, 2, causal), BF16_FLOPS)
+            b_ = bound(*flash_work(name, bh, s, d, elem, causal), peak)
             out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                          "library_call": (
                              "scaled_dot_product_attention" if lib
@@ -4946,7 +4965,7 @@ def time_flash_bf16(torch, fa, ctr, card, b, h, s, d, causal):
                          "bound_fraction": b_["bound_ms"] / ms,
                          "cuda_route": route, "causal": causal,
                          "shape": [b, h, s, d]}
-            log(f"  {name} bf16 {kind} [{b}, {h}, {s}, {d}] ({route}): "
+            log(f"  {name} {dt} {kind} [{b}, {h}, {s}, {d}] ({route}): "
                 f"kernel {ms:.4f} ms ({b_['flops'] / ms / 1e9:.2f} TFLOP/s, "
                 f"{b_['bound_ms'] / ms:.3f} of the bound), plain "
                 f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
@@ -6844,6 +6863,434 @@ def train_transformer(torch, fa, ctr, card, warmup=2, steps=5):
             "decode": dec}
 
 
+# ------------------------------------------------------------ phase 22
+#: bench.py's widedeep config (``child_main_widedeep``, bench.py:195-257):
+#: the Criteo geometry, batch 512, ids uniform over [1, 1,000,000)
+WD_SLOTS, WD_DIM, WD_HIDDEN, WD_BATCH = 26, 16, (400, 400, 400), 512
+WD_IDS = 1_000_000
+WD_WARMUP, WD_STEPS, WD_CHECKED = 3, 50, 3
+#: phase 22's tolerances, card against the port on the CPU (f32 matmuls
+#: on both, TF32 off): the loss within 1e-5 relative; each pushed row
+#: gradient and each dense parameter within 1e-4 relative Frobenius
+#: distance and 1e-6 absolute per element
+WD_LOSS_RTOL, WD_FRO, WD_ATOL = 1e-5, 1e-4, 1e-6
+
+
+def wd_batches(rng, n):
+    """``n`` batches of bench.py's stream (``batches`` in
+    ``child_main_widedeep``): ids uniform over [1, WD_IDS) from ``rng``,
+    the label the parity of the first slot's id."""
+    out = []
+    for _ in range(n):
+        ids = rng.randint(1, WD_IDS, (WD_BATCH, WD_SLOTS)).astype(np.int64)
+        y = (ids[:, 0] % 2 == 0).astype(np.float32)[:, None]
+        out.append({"ids": ids, "label": y})
+    return out
+
+
+def gated(batches, done):
+    """Yield ``batches`` in turn, each after the step before it pushed
+    (``done[i]`` set by ``on_step``): the prefetcher then pulls no row
+    before the push it could depend on, so a run is deterministic."""
+    for i, b in enumerate(batches):
+        if i:
+            done[i - 1].wait()
+        yield b
+
+
+def wd_close(what, got, ref, fro=WD_FRO, atol=WD_ATOL):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = float(np.abs(got - ref).max()) if got.size else 0.0
+    rel = float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+    if got.shape != ref.shape or not np.isfinite(got).all() or \
+            (rel > fro and err > atol):
+        raise AssertionError(f"phase 22: {what} card vs CPU: max abs "
+                             f"{err:.3e}, relative Frobenius {rel:.3e}")
+    return err
+
+
+def wd_run(exe, main, scope, loss, feeds, batches):
+    """The host-paced loop over ``batches`` one step at a time (gated),
+    fetching the loss and both rows' gradients: per step ``(fetches,
+    {dense parameter: value})``."""
+    from paddle_tpu_torch.distributed.ps import run_host_paced
+    params = [p.name for p in main.all_parameters()]
+    done = [threading.Event() for _ in batches]
+    steps = []
+
+    def on_step(i, fetched):
+        steps.append((fetched, {n: scope.get_numpy(n) for n in params}))
+        done[i].set()
+
+    run_host_paced(exe, main, scope, gated(batches, done), feeds,
+                   fetch_list=[loss.name] + [f.grad_var for f in feeds],
+                   on_step=on_step, collect=False)
+    return steps
+
+
+def widedeep(torch, ctr, card):
+    """Phase 22: ``bench.py``'s widedeep step, uncut
+    (``build_wide_deep_program(26, 16, (400, 400, 400), sparse_lr 0.05,
+    dense_lr 0.01, host_paced=True)``, batch 512, the two SparseFeeds of
+    ``bench.py:219-220``, ``run_host_paced`` with its prefetcher) through
+    the port's static executor on the card. The startup program, then
+    ``WD_WARMUP`` steps held against the port on the CPU from one scope
+    and from tables copied from one state (loss, pushed row gradients and
+    dense parameters after each step, within phase 22's tolerances); the
+    step's key captures once (the second run) and the ``WD_STEPS`` timed
+    steps capture nothing and launch no port kernel; ``set_lr(scope=)``
+    between replays is taken at the next step. Prints examples/s, step
+    ms, host pull / push ms beside the device's busy ms per step and its
+    idle share, rows live and peak memory."""
+    from paddle_tpu_torch.distributed.ps import (REGISTRY, SparseFeed,
+                                                  run_host_paced)
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models.convert import scope_from_numpy
+    from paddle_tpu_torch.models.ctr import build_wide_deep_program
+    from paddle_tpu_torch.optimizer import SGD
+    REGISTRY.clear()
+    main, startup, loss, _ = build_wide_deep_program(
+        num_slots=WD_SLOTS, embed_dim=WD_DIM, hidden_sizes=WD_HIDDEN,
+        table_name="bench_emb", sparse_lr=0.05, dense_lr=0.01,
+        host_paced=True)
+    scope, exe = Scope(), Executor()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    warm = wd_batches(rng, WD_WARMUP)
+    # one fetch list for every run (run_host_paced adds the rows'
+    # gradients to it), so every step has the one key
+    fetch = [loss.name, "ctr_emb@GRAD", "ctr_wide@GRAD"]
+
+    def feeds(prefix=""):
+        return [SparseFeed("ctr_emb", prefix + "bench_emb", WD_DIM,
+                           lr=0.05),
+                SparseFeed("ctr_wide", prefix + "bench_emb_wide", 1,
+                           lr=0.05)]
+
+    # the checked steps' rows exist before either run; the CPU tables
+    # start from the card tables' state
+    for f, c in zip(feeds(), feeds("cpu_")):
+        for b in warm:
+            f.table().pull(b["ids"])
+        # state() hands out the rows themselves: copy them
+        c.table().load_state({k: v.copy()
+                              for k, v in f.table().state().items()})
+    cpu_scope = scope_from_numpy(
+        {n: scope.get_numpy(n) for n in scope.var_names()}, "cpu")
+    cpu = wd_run(Executor("cpu"), main, cpu_scope, loss, feeds("cpu_"),
+                 warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctr.zero()
+    dev = wd_run(exe, main, scope, loss, feeds(), warm)
+    worst = {"loss": 0.0, "row_grads": 0.0, "dense": 0.0}
+    for i, ((fd, pd), (fc, pc)) in enumerate(zip(dev, cpu)):
+        lo_d, lo_c = float(fd[0]), float(fc[0])
+        if not np.isfinite(lo_d) or abs(lo_d - lo_c) > \
+                WD_LOSS_RTOL * max(1.0, abs(lo_c)):
+            raise AssertionError(f"phase 22: step {i} loss card {lo_d!r} "
+                                 f"vs CPU {lo_c!r}")
+        worst["loss"] = max(worst["loss"], abs(lo_d - lo_c))
+        for g_d, g_c, name in zip(fd[1:], fc[1:], ("ctr_emb", "ctr_wide")):
+            worst["row_grads"] = max(worst["row_grads"], wd_close(
+                f"step {i} {name}@GRAD", g_d, g_c))
+        for n in pc:
+            worst["dense"] = max(worst["dense"], wd_close(
+                f"step {i} {n}", pd[n], pc[n]))
+    log(f"  {WD_WARMUP} steps card vs CPU: losses "
+        f"{[float(f[0]) for f, _ in dev]}; max abs differences {worst}")
+    if exe.captures != 1:
+        raise AssertionError(f"phase 22: {exe.captures} captures in the "
+                             "warm-up steps, expected 1 (the second run)")
+
+    # set_lr(scope=) between replays: lr 0 leaves the dense parameters
+    # as they are, the restored lr moves them again
+    lr_name = next(op.input("LearningRate")[0]
+                   for op in main.global_block().ops if op.type == "sgd")
+    opt = SGD(learning_rate=main.global_block().var(lr_name))
+    opt._create_lr_var()
+    params = [p.name for p in main.all_parameters()]
+    for lr_, moves in ((0.0, False), (0.01, True)):
+        opt.set_lr(lr_, scope=scope)
+        before = {n: scope.get_numpy(n) for n in params}
+        run_host_paced(exe, main, scope, wd_batches(rng, 1), feeds(),
+                       fetch_list=fetch)
+        moved = any(not np.array_equal(before[n], scope.get_numpy(n))
+                    for n in params)
+        if moved != moves:
+            raise AssertionError(f"phase 22: after set_lr({lr_}, scope=) "
+                                 f"the next replay {'moved' if moved else 'left'}"
+                                 " the dense parameters")
+    log("  set_lr(scope=) between replays: lr 0 left every dense parameter "
+        "as it was, lr 0.01 moved them")
+
+    timed = wd_batches(rng, WD_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = run_host_paced(exe, main, scope, timed, feeds(),
+                          fetch_list=fetch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / WD_STEPS
+    losses = [float(o[0]) for o in outs]
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"phase 22: timed losses {losses}")
+    if exe.captures != 1:
+        raise AssertionError(f"phase 22: {exe.captures} captures after the "
+                             "timed steps, expected 1")
+    run = ctr.read()
+    ctr.expect(run, {}, "phase 22 (the widedeep step runs no port kernel)")
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+
+    # the host's share: a pull (a prefetcher's gather of a batch's rows,
+    # both tables) and a push, against the device's busy time per step
+    probe = wd_batches(rng, 3)
+    tables = [f.table() for f in feeds()]
+    t_pull = time.perf_counter()
+    for b in probe:
+        for t in tables:
+            t._pull_now(b["ids"])
+    pull_ms = (time.perf_counter() - t_pull) / len(probe) * 1e3
+    grads = [np.zeros((WD_BATCH, WD_SLOTS, t.value_dim), np.float32)
+             for t in tables]
+    t_push = time.perf_counter()
+    for b in probe:
+        for t, g in zip(tables, grads):
+            t.push(b["ids"], g)
+    push_ms = (time.perf_counter() - t_push) / len(probe) * 1e3
+    traced = wd_batches(rng, 2)
+    with ctr.aside():
+        busy, names = device_trace(torch, lambda: run_host_paced(
+            exe, main, scope, traced, feeds(), fetch_list=fetch))
+    busy /= len(traced)
+    idle = 1.0 - busy / (dt * 1e3)
+    rows = REGISTRY.get("bench_emb").size()
+    log(f"  [{card}] widedeep host-paced, batch {WD_BATCH}: "
+        f"{WD_BATCH / dt:.1f} examples/s, {dt * 1e3:.3f} ms per step "
+        f"({WD_STEPS} timed steps, 0 captures); host pull "
+        f"{pull_ms:.3f} ms and push {push_ms:.3f} ms per step (both tables) "
+        f"against device busy {busy:.3f} ms per step, idle share "
+        f"{idle:.4f}; {sum(names.values()) / len(traced):.0f} kernels per "
+        f"step; rows live {rows}; max_memory_allocated {peak} B, "
+        f"max_memory_reserved {reserved} B; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    REGISTRY.clear()
+    return {"examples_per_s": WD_BATCH / dt, "step_ms": dt * 1e3,
+            "host_pull_ms": pull_ms, "host_push_ms": push_ms,
+            "device_busy_ms": busy, "idle_share": idle,
+            "kernels_per_step": sum(names.values()) / len(traced),
+            "rows_live": rows, "peak_bytes": peak,
+            "peak_reserved_bytes": reserved, "captures": exe.captures,
+            "card_vs_cpu_max_abs": worst, "loss_first": losses[0],
+            "loss_last": losses[-1], "launches": run}
+
+
+# ------------------------------------------------------------ phase 23
+#: the static encoder at Transformer-base's encoder widths, f32
+SE_LAYERS, SE_D, SE_HEADS, SE_FFN = 6, 512, 8, 2048
+SE_BATCH, SE_SEQ, SE_STEPS, SE_TIMED = 8, 1024, 3, 5
+#: launches per step of the kernel route: per layer the forward of each
+#: op, and its generic grad re-runs the forward before the backward (1
+#: attention and 2 LayerNorm ops per layer); one AdamW launch per
+#: parameter (16 per layer)
+SE_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+               "ln_fwd": 24, "ln_bwd": 12, "adamw": 96}
+#: phase 23's tolerances, kernel routes against the composed ones from
+#: one seeded scope, f32: each step's loss within 1e-5 relative; each
+#: parameter after step k within 2 k lr + 1e-6 per element (Adam's steps
+#: are near lr x sign(g), so a gradient element rounded across zero moves
+#: its parameter by up to 2 lr); and the first step's gradients against
+#: a float64 run of the composed route (the program pruned to its
+#: gradients): each within SE_GRAD_FRO relative Frobenius distance of it,
+#: or no farther than SE_GRAD_FACTOR x the composed f32 route is. The
+#: loss is the mean square of a LayerNorm output, so its gradients are
+#: differences of nearly equal terms (~1e-5 of their size) and carry
+#: f32 rounding of ~1e-2 relative in either route
+SE_LOSS_RTOL, SE_LR = 1e-5, 1e-4
+SE_GRAD_FRO, SE_GRAD_FACTOR = 1e-3, 1.5
+
+
+def se_run(torch, exe, main, scope, loss, feed, grads, steps):
+    out = []
+    for _ in range(steps):
+        f = exe.run(main, feed=feed, fetch_list=[loss.name] + grads,
+                    scope=scope, return_numpy=False)
+        out.append(([float(f[0])] + f[1:],
+                    {n[:-5]: scope.find_var(n[:-5]).clone() for n in grads}))
+    torch.cuda.synchronize()
+    return out
+
+
+def se_grad_scale(torch, ref, name):
+    """The norm a gradient's distance is taken relative to: its own
+    float64 norm, and for a key projection's bias (``fc_<6 i + 1>.w_1``:
+    q, k, v, out, FFN in, FFN out are each layer's six fc) the query
+    bias's: the key bias's true gradient is zero (it shifts each query's
+    logits alike), so its own norm is rounding."""
+    fc, _, w = name[:-len("@GRAD")].partition(".")
+    scale = float(torch.linalg.norm(ref[name]))
+    idx = int(fc.split("_")[1]) if fc.startswith("fc_") else -1
+    if w == "w_1" and idx % 6 == 1:
+        scale = max(scale, float(torch.linalg.norm(
+            ref[f"fc_{idx - 1}.w_1@GRAD"])))
+    return max(scale, 1e-300)
+
+
+def se_f64_grads(torch, main, start, grads, x):
+    """The parameters' gradients at the scope ``start`` in float64 through
+    the composed routes: the program pruned to ``grads`` (no update op)
+    run on the scope's values cast to float64."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.framework import Executor, Scope
+    prog = main._prune(grads)
+    scope = Scope()
+    for n in start.var_names():
+        scope.set_var(n, start.find_var(n).double())
+    saved = flags.get_flags(["use_pallas_attention",
+                             "use_pallas_layer_norm"])
+    flags.set_flags({k: False for k in saved})
+    try:
+        out = Executor().run(prog, feed={"x": x.astype(np.float64)},
+                             fetch_list=grads, scope=scope,
+                             return_numpy=False)
+    finally:
+        flags.set_flags(saved)
+    return dict(zip(grads, out))
+
+
+def static_encoder(torch, fa, ctr, card, ltimes):
+    """Phase 23: a Transformer-base encoder built with the ported
+    ``layers`` as a static Program (``models/static_encoder.py``: d_model
+    512, 8 heads, FFN 2048, 6 layers, batch 8, seq 1024, f32, AdamW)
+    through the executor: ``SE_STEPS`` steps with
+    ``use_pallas_attention`` and ``use_pallas_layer_norm`` on against as
+    many with the composed routes, from one seeded scope (phase 23's
+    tolerances); per step exactly ``SE_PER_STEP`` launches, every flash
+    launch on the f32 ``simt`` route; one capture (the second run) and
+    none after; then ``SE_TIMED`` timed replays, the device's busy ms per
+    step and its idle share, and each kernel at this shape beside its
+    bound (flash: SDPA's time for the same call)."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models.static_encoder import build_encoder_program
+    names = ("use_pallas_attention", "use_pallas_layer_norm")
+    saved = flags.get_flags(list(names) + ["pallas_min_seq"])
+    main, startup, loss = build_encoder_program(
+        SE_LAYERS, SE_D, SE_HEADS, SE_FFN, SE_SEQ, lr=SE_LR)
+    grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    start, exe0 = Scope(), Executor()
+    exe0.run(startup, scope=start)
+    x = np.random.RandomState(23).randn(SE_BATCH, SE_SEQ, SE_D) \
+        .astype(np.float32)
+    feed = {"x": x}
+    runs = {}
+    # before the routes' runs: it sets flags, which would key them anew
+    ref = se_f64_grads(torch, main, start, grads, x)
+    try:
+        # the kernel route last: its flags stay set, so the timed replays
+        # below run under the key its steps captured
+        for key, on in (("composed", False), ("kernel", True)):
+            flags.set_flags({n: on for n in names})
+            scope = Scope()
+            for n in start.var_names():
+                scope.set_var(n, start.find_var(n).clone())
+            exe = Executor()
+            ctr.zero()
+            runs[key] = se_run(torch, exe, main, scope, loss, feed, grads,
+                               SE_STEPS)
+            launched, routes = ctr.read(), ctr.routes()
+            want = ({k: v * SE_STEPS for k, v in SE_PER_STEP.items()}
+                    if on else {"adamw": SE_PER_STEP["adamw"] * SE_STEPS})
+            log(f"  {key} routes: launches in {SE_STEPS} steps {launched}")
+            ctr.expect(launched, want, f"phase 23 ({key} routes)")
+            if exe.captures != 1:
+                raise AssertionError(f"phase 23 ({key}): {exe.captures} "
+                                     "captures, expected 1 (the second run)")
+            if on:
+                flash_routes = {n: routes[n] for n in
+                                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+                if any(by["wgmma"] for by in flash_routes.values()):
+                    raise AssertionError(f"phase 23: flash launches by route "
+                                         f"{flash_routes}, expected simt")
+                kernel = (exe, scope, launched, flash_routes)
+        k_exe, k_scope, launched, flash_routes = kernel
+        worst = {"loss": 0.0, "grad_vs_f64": {}, "param": 0.0}
+
+        def fro(a, n):
+            return float(torch.linalg.norm(a.double() - ref[n])
+                         / se_grad_scale(torch, ref, n))
+
+        for n, gk, gc in zip(grads, runs["kernel"][0][0][1:],
+                             runs["composed"][0][0][1:]):
+            rk, rc = fro(gk, n), fro(gc, n)
+            if not rk <= max(SE_GRAD_FRO, SE_GRAD_FACTOR * rc):
+                raise AssertionError(
+                    f"phase 23: {n} at the first step: kernel route "
+                    f"{rk:.3e} from the f64 gradient, composed {rc:.3e}")
+            if rk > worst["grad_vs_f64"].get("kernel", 0.0):
+                worst["grad_vs_f64"] = {"name": n, "kernel": rk,
+                                        "composed": rc}
+        for i, ((fk, pk), (fc, pc)) in enumerate(zip(runs["kernel"],
+                                                     runs["composed"])):
+            if not np.isfinite(fk[0]) or abs(fk[0] - fc[0]) > \
+                    SE_LOSS_RTOL * abs(fc[0]):
+                raise AssertionError(f"phase 23: step {i} loss kernel "
+                                     f"{fk[0]!r} vs composed {fc[0]!r}")
+            worst["loss"] = max(worst["loss"], abs(fk[0] - fc[0]))
+            tol = 2 * (i + 1) * SE_LR + 1e-6
+            for n in pk:
+                err = float((pk[n] - pc[n]).abs().max())
+                if not err <= tol:
+                    raise AssertionError(f"phase 23: step {i} {n} kernel vs "
+                                         f"composed max abs {err:.3e} > "
+                                         f"{tol:.1e}")
+                worst["param"] = max(worst["param"], err)
+        log(f"  losses kernel {[f[0] for f, _ in runs['kernel']]}, composed "
+            f"{[f[0] for f, _ in runs['composed']]}; worst {worst}")
+        log(f"  flash launches by route {flash_routes}")
+        del runs
+        fetch = [loss.name] + grads      # the compared steps' key
+
+        def replay():
+            k_exe.run(main, feed=feed, fetch_list=fetch, scope=k_scope,
+                      return_numpy=False)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SE_TIMED):
+            replay()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / SE_TIMED
+        if k_exe.captures != 1:
+            raise AssertionError(f"phase 23: {k_exe.captures} captures "
+                                 "after the timed steps, expected 1")
+        with ctr.aside():
+            busy, names_ = device_trace(torch, lambda: [replay()
+                                                        for _ in range(2)])
+        busy /= 2
+        idle = 1.0 - busy / (dt * 1e3)
+        log(f"  [{card}] static encoder, kernel routes, replayed: "
+            f"{dt * 1e3:.3f} ms per step, device busy {busy:.3f} ms, idle "
+            f"share {idle:.4f}, {sum(names_.values()) / 2:.0f} kernels per "
+            f"step")
+    finally:
+        flags.set_flags(saved)
+    times = time_flash_bf16(torch, fa, ctr, card, SE_BATCH, SE_HEADS,
+                            SE_SEQ, SE_D // SE_HEADS, False, dt="f32")
+    for name in ("ln_fwd", "ln_bwd"):
+        t = ltimes[name]["transformer-base"]
+        log(f"  {name} f32 {t['shape']} (this phase's rows, phase 13): "
+            f"kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms "
+            f"[{card}]")
+    del k_exe, k_scope, start, exe0
+    torch.cuda.empty_cache()
+    return {"launches": launched, "routes": flash_routes,
+            "per_step": SE_PER_STEP, "step_ms": dt * 1e3,
+            "device_busy_ms": busy, "idle_share": idle,
+            "kernel_vs_composed": worst, "flash_f32": times}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7078,6 +7525,21 @@ def main():
     t_tb = time.perf_counter()
     tfm = train_transformer(torch, fa, ctr, card)
     log(f"  phase 21 took {time.perf_counter() - t_tb:.1f} s")
+
+    log(f"== phase 22: bench.py's widedeep step through the static executor "
+        f"(26 slots, embed 16, 400 x 400 x 400, batch {WD_BATCH}, "
+        f"host-paced PS tier with the pull prefetcher), card against CPU")
+    t_wd = time.perf_counter()
+    wdp = widedeep(torch, ctr, card)
+    log(f"  phase 22 took {time.perf_counter() - t_wd:.1f} s")
+
+    log(f"== phase 23: a static Transformer-base encoder ({SE_LAYERS} "
+        f"layers, d {SE_D}, {SE_HEADS} heads, FFN {SE_FFN}, batch "
+        f"{SE_BATCH}, seq {SE_SEQ}, f32, AdamW) through the executor: flash "
+        "and LayerNorm kernels against the composed routes")
+    t_se = time.perf_counter()
+    sen = static_encoder(torch, fa, ctr, card, ltimes)
+    log(f"  phase 23 took {time.perf_counter() - t_se:.1f} s")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -7172,7 +7634,10 @@ def main():
             launches_by_route_fp16_gpt=f16["routes"][name],
             noncausal_transformer_base=tfm["flash"][name],
             launches_transformer=tfm["launches"][name],
-            launches_by_route_transformer=tfm["routes"][name]))
+            launches_by_route_transformer=tfm["routes"][name],
+            f32_static_encoder=sen["flash_f32"][name],
+            launches_static_encoder=sen["launches"][name],
+            launches_by_route_static_encoder=sen["routes"][name]))
     for name, line in (("ln_fwd", 27), ("ln_bwd", 40)):
         t = ltimes[name]["ernie-base"]
         kernels.append(entry(
@@ -7182,7 +7647,8 @@ def main():
             library_call=t["library_call"], by_shape=ltimes[name],
             launches_gpt_step=trn_ln["launches"][name],
             launches_captured=ern["captured"]["launches"][name],
-            launches_transformer=tfm["launches"][name]))
+            launches_transformer=tfm["launches"][name],
+            launches_static_encoder=sen["launches"][name]))
     kernels.append(entry(
         "packed_flash_fwd", "flash_pack2.cu", "tools/flash_pack2_bench.py:48",
         packed["launches"], packed_err["packed_flash_fwd"], packed,
@@ -7203,7 +7669,8 @@ def main():
         launches_flagship=flag["launches"]["adamw"],
         grad_scale_ms=atimes["grad_scale_ms"],
         launches_optimizer_plane=plane["gpt2_medium"]["launches"]["adamw"],
-        launches_transformer=tfm["launches"]["adamw"]))
+        launches_transformer=tfm["launches"]["adamw"],
+        launches_static_encoder=sen["launches"]["adamw"]))
 
     def summary(r):
         return {k: summary(v) if isinstance(v, dict) and k != "routes"
@@ -7225,7 +7692,9 @@ def main():
                       "ernie": summary(ern), "flagship": summary(flag),
                       "adamw": atimes, "optimizer_plane": plane,
                       "resnet50": rn, "grad_scaler": scaler,
-                      "transformer_base": summary(tfm)}), flush=True)
+                      "transformer_base": summary(tfm),
+                      "widedeep": summary(wdp),
+                      "static_encoder": summary(sen)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

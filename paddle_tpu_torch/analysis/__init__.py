@@ -15,7 +15,8 @@ of ``paddle_tpu/analysis`` that need no static Program:
   lock.
 
 The executor's predictor (``ExecutorCompilePredictor``) and abstract
-interpretation wait for the static Program (ROADMAP A7).
+interpretation wait for the compiler and the analyses of the static
+plane (ROADMAP A7.3).
 """
 
 from .concurrency import (GuardedStateError, SanitizedLock,

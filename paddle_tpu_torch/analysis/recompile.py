@@ -13,7 +13,8 @@ unshared suffix lands in (:func:`predict_serving_compiles`). The soak
 restarts, re-homes, cancels and hedges predict the same counts as none.
 
 The executor's predictor (``ExecutorCompilePredictor``) keys on a
-static Program and waits with it (ROADMAP A7).
+static Program; the executor came with ROADMAP A7.1, the predictor
+waits with the compiler and the analyses (ROADMAP A7.3).
 """
 
 from __future__ import annotations

@@ -521,3 +521,23 @@ define_flag("devprof_peak_hbm_gbps", 0.0,
             "utilization gauge divides by. 0 (default) picks a "
             "nominal: 3350 on an H100, 50 on the CPU; any other card "
             "raises until this flag is pinned.")
+
+# Static-graph executor (framework/executor.py): the reference's checks
+# under its names and defaults.
+define_flag("check_nan_inf", False,
+            "Scan every op output for NaN/Inf during execution "
+            "(ref platform/flags.cc:44). The port's executor then runs "
+            "every step eagerly (a replayed CUDA graph cannot read the "
+            "host between ops) and raises NanInfError naming the op and "
+            "the variable.")
+define_flag("check_program", False,
+            "Run the static Program verifier once per program at its "
+            "first executor run, as the reference does. The verifier "
+            "(framework/analysis.py) is not ported yet: with the flag "
+            "on, the executor raises NotImplementedError naming ROADMAP "
+            "A7.3.")
+define_flag("check_shapes", False,
+            "Add static shape/dtype inference to the verifier suite "
+            "wherever it runs, as the reference does. It waits with the "
+            "verifier (ROADMAP A7.3): with the flag on, the executor "
+            "raises NotImplementedError naming that item.")

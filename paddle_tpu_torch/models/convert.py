@@ -77,3 +77,16 @@ def optimizer_state_from_numpy(state: Dict[str, object],
 
 #: the AdamW slice's name for :func:`optimizer_state_from_numpy`
 adamw_state_from_numpy = optimizer_state_from_numpy
+
+
+def scope_from_numpy(arrays: Dict[str, np.ndarray], device):
+    """A JAX ``Scope``'s variables (name -> numpy array, e.g. ``{n:
+    jscope.get_numpy(n) for n in jscope.var_names()}``) -> a port
+    :class:`~paddle_tpu_torch.framework.scope.Scope` holding them on
+    ``device`` in their own dtypes (int64 stays int64), so both packages'
+    executors run a program from the same state."""
+    from ..framework.scope import Scope
+    scope = Scope()
+    for name, a in arrays.items():
+        scope.set_var(name, torch.from_numpy(np.array(a)).to(device))
+    return scope

@@ -36,14 +36,17 @@ def _wants(name: str, attr, bias: bool = False) -> bool:
     None and True do, False drops a bias (the reference's
     ``ParamAttr._to_attr``). A ``ParamAttr``, name or initializer (and a
     dropped weight) raise: the port draws parameters from its own
-    generator and has no ``ParamAttr`` (ROADMAP A7)."""
+    generator; the static builders take a ``ParamAttr``
+    (:mod:`paddle_tpu_torch.param_attr`), the eager layers wait for ROADMAP
+    A7.5 (the dygraph plane) to honour one."""
     if attr is None or attr is True:
         return True
     if attr is False and bias:
         return False
     raise NotImplementedError(
         f"{name}={attr!r} is not ported: parameter attributes wait for "
-        "ROADMAP A7 (the static-graph plane)")
+        "ROADMAP A7.5 (ParamAttr in the eager layers, with the dygraph "
+        "plane)")
 
 
 class Linear(nn.Module):

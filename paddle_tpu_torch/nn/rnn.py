@@ -10,7 +10,7 @@ LSTM, and ``sequence_length`` per-row lengths. Parameters
 are drawn U(-1/sqrt(h), 1/sqrt(h)) on ``device`` (None: CUDA) from
 ``generator`` (None: one seeded with 0), and carry across from the JAX
 package by name. ``dropout`` is taken and, as in the reference, not
-applied between layers; the parameter attributes raise (ROADMAP A7).
+applied between layers; the parameter attributes raise (ROADMAP A7.5).
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ from .. import flags
 from ..amp.auto_cast import autocast_inputs
 from .cuda.flash_attention import flash_attention, pick_block
 from .quant_ops import dequantize_int8, quantize_int8
+from .registry import register
 
 
 def decode_attention_mask(pos, q_len: int, capacity: int,
@@ -257,3 +258,29 @@ def fused_attention_qkv(q, k, v, mask=None, causal=False, scale=None):
             block_q=flags.get_flag("pallas_flash_block_q"),
             block_k=flags.get_flag("pallas_flash_block_k"))
     return _composed_attention(q, k, v, mask, causal, scale)
+
+
+# ----------------------------------------------------- the registered op
+
+
+@register("fused_attention_qkv", no_grad_slots=("Mask",))
+def _fused_attention_qkv_op(ctx, ins, attrs):
+    """The static op (``paddle_tpu/ops/attention_ops.py:256``): q/k/v
+    ``[batch, heads, seq, head_dim]``, an optional additive Mask, attrs
+    ``causal``, ``scale``, ``use_pallas`` ("never" keeps it composed) and
+    ``seq_axis``. Its gradient is the registry's generic one, which
+    re-runs this op under autograd: on the flash route the forward kernel
+    launches again, then the two backward kernels."""
+    q, k, v = ins["Q"][0], ins["K"][0], ins["V"][0]
+    mask = ins["Mask"][0] if ins.get("Mask") else None
+    causal = bool(attrs.get("causal", False))
+    scale = attrs.get("scale") or (1.0 / math.sqrt(q.shape[-1]))
+    if attrs.get("seq_axis"):
+        raise NotImplementedError(
+            "fused_attention_qkv: the seq_axis ring route runs across "
+            "cards and waits for ROADMAP A5")
+    if attrs.get("use_pallas", "auto") == "never":
+        (q, k, v, mask) = autocast_inputs("fused_attention_qkv", q, k, v,
+                                          mask)
+        return {"Out": [_composed_attention(q, k, v, mask, causal, scale)]}
+    return {"Out": [fused_attention_qkv(q, k, v, mask, causal, scale)]}

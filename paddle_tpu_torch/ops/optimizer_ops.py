@@ -18,12 +18,24 @@ reads at every replay) and, as the reference does, casts it to the
 parameter's dtype (``lr.reshape(()).astype(p.dtype)``). ``adam`` and
 ``adamw`` take a host float: their plain form runs on the CPU and as
 the kernel's reference, never under capture.
+
+The second half registers these updates as the static ops of
+``paddle_tpu/ops/optimizer_ops.py:19-172``, with the reference's slots
+and attrs. ``adam`` and ``adamw`` launch the AdamW kernel on a
+one-entry group, updating ``Param``, ``Moment1``, ``Moment2`` and the
+beta powers in place (the op's outputs are those tensors), with the
+kernel's table built at the op's first eager run and kept for its
+tensors; on CPU tensors the kernel's plain version runs, in place too.
+The others compute new tensors, which the executor writes into the
+scope's. ``dpsgd`` waits for ROADMAP A5.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .registry import register
 
 
 def _as(value: float, like: torch.Tensor) -> float:
@@ -164,3 +176,123 @@ def ftrl(param, grad, squared, linear, lr, l1=0.0, l2=0.0, lr_power=-0.5):
     out = torch.where(torch.abs(lin) > _as(l1, lin), pre / quad,
                       torch.zeros_like(param))
     return out, new_sq, lin
+
+
+# ------------------------------------------------------ the static ops
+
+_ND = {"not_differentiable": True}
+
+
+@register("sgd", **_ND)
+def _sgd_op(ctx, ins, attrs):
+    (p,) = sgd(ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0])
+    return {"ParamOut": [p]}
+
+
+@register("momentum", **_ND)
+def _momentum_op(ctx, ins, attrs):
+    p, v = momentum(ins["Param"][0], ins["Grad"][0], ins["Velocity"][0],
+                    ins["LearningRate"][0], attrs.get("mu", 0.9),
+                    attrs.get("use_nesterov", False))
+    return {"ParamOut": [p], "VelocityOut": [v]}
+
+
+#: the AdamW kernel's tables of the static ``adam`` / ``adamw`` ops, by
+#: the addresses, sizes and dtypes of (param, moments, powers, lr)
+_TABLES = {}
+
+
+def _adam_op(ins, attrs, coeff):
+    from .cuda import adamw as _kernel
+    p, lr = ins["Param"][0], ins["LearningRate"][0]
+    cols = [[p], [ins["Grad"][0].to(p.dtype).contiguous()],
+            [ins["Moment1"][0]], [ins["Moment2"][0]],
+            [ins["Beta1Pow"][0]], [ins["Beta2Pow"][0]]]
+    args = dict(beta1=attrs.get("beta1", 0.9), beta2=attrs.get("beta2", 0.999),
+                epsilon=attrs.get("epsilon", 1e-8), coeff=coeff)
+    table = None
+    if p.device.type == "cuda":
+        state = [cols[0], *cols[2:]]
+        key = tuple((t.data_ptr(), t.numel(), t.dtype)
+                    for t in [c[0] for c in state] + [lr])
+        table = _TABLES.get(key)
+        if table is None:
+            table = _TABLES[key] = _kernel.Table(*state, [lr])
+    _kernel.adamw_multi(*cols, [lr], table=table, **args)
+    return {"ParamOut": [p], "Moment1Out": cols[2], "Moment2Out": cols[3],
+            "Beta1PowOut": cols[4], "Beta2PowOut": cols[5]}
+
+
+@register("adam", **_ND)
+def _adam_static(ctx, ins, attrs):
+    return _adam_op(ins, attrs, 0.0)
+
+
+@register("adamw", **_ND)
+def _adamw_static(ctx, ins, attrs):
+    """Decoupled weight decay ``coeff`` when ``with_decay`` (the
+    reference's defaults: 0.01, True)."""
+    with_decay = attrs.get("with_decay", True)
+    return _adam_op(ins, attrs, attrs.get("coeff", 0.01) if with_decay
+                    else 0.0)
+
+
+@register("adagrad", **_ND)
+def _adagrad_op(ctx, ins, attrs):
+    p, m = adagrad(ins["Param"][0], ins["Grad"][0], ins["Moment"][0],
+                   ins["LearningRate"][0], attrs.get("epsilon", 1e-6))
+    return {"ParamOut": [p], "MomentOut": [m]}
+
+
+@register("rmsprop", **_ND)
+def _rmsprop_op(ctx, ins, attrs):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    ms, mom = ins["MeanSquare"][0], ins["Moment"][0]
+    lr = ins["LearningRate"][0]
+    eps = attrs.get("epsilon", 1e-10)
+    decay = attrs.get("decay", 0.9)
+    mu = attrs.get("momentum", 0.0)
+    if not attrs.get("centered", False):
+        p, ms, mom = rmsprop(p, g, ms, mom, lr, decay, eps, mu)
+        return {"ParamOut": [p], "MeanSquareOut": [ms], "MomentOut": [mom]}
+    lr = _lr(lr, p)
+    g = g.to(p.dtype)
+    mg = ins["MeanGrad"][0]
+    ms_out = _as(decay, ms) * ms + _as(1 - decay, g) * g * g
+    mg_out = _as(decay, mg) * mg + _as(1 - decay, g) * g
+    denom = torch.sqrt(ms_out - mg_out * mg_out + _as(eps, ms_out))
+    mom_out = _as(mu, mom) * mom + lr * g / denom
+    return {"ParamOut": [p - mom_out], "MeanSquareOut": [ms_out],
+            "MomentOut": [mom_out], "MeanGradOut": [mg_out]}
+
+
+@register("lamb", **_ND)
+def _lamb_op(ctx, ins, attrs):
+    out = lamb(ins["Param"][0], ins["Grad"][0], ins["Moment1"][0],
+               ins["Moment2"][0], ins["Beta1Pow"][0], ins["Beta2Pow"][0],
+               ins["LearningRate"][0], attrs.get("beta1", 0.9),
+               attrs.get("beta2", 0.999), attrs.get("epsilon", 1e-6),
+               attrs.get("weight_decay", 0.01))
+    return dict(zip(("ParamOut", "Moment1Out", "Moment2Out", "Beta1PowOut",
+                     "Beta2PowOut"), ([t] for t in out)))
+
+
+@register("lars_momentum", **_ND)
+def _lars_momentum_op(ctx, ins, attrs):
+    p, v = lars_momentum(ins["Param"][0], ins["Grad"][0],
+                         ins["Velocity"][0], ins["LearningRate"][0],
+                         attrs.get("mu", 0.9), attrs.get("lars_coeff", 0.001),
+                         attrs.get("lars_weight_decay", 0.0005),
+                         attrs.get("epsilon", 0.0))
+    return {"ParamOut": [p], "VelocityOut": [v]}
+
+
+@register("ftrl", **_ND)
+def _ftrl_op(ctx, ins, attrs):
+    p, sq, lin = ftrl(ins["Param"][0], ins["Grad"][0],
+                      ins["SquaredAccumulator"][0],
+                      ins["LinearAccumulator"][0], ins["LearningRate"][0],
+                      attrs.get("l1", 0.0), attrs.get("l2", 0.0),
+                      attrs.get("lr_power", -0.5))
+    return {"ParamOut": [p], "SquaredAccumOut": [sq],
+            "LinearAccumOut": [lin]}

@@ -8,7 +8,8 @@ the same cell over the time axis, in the reference's weight layout
 direction, gates i, f, c, o for the LSTM and r, z, n for the GRU) and
 its order of operations. Past a row's length the state holds and the
 output is zero, so the final state is the state at the length. The
-sequence ops of the same module wait for the op library (ROADMAP A7).
+sequence ops of the same module wait for the rest of the op library
+(ROADMAP A7.2).
 """
 
 from __future__ import annotations

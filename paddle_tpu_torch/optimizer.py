@@ -34,6 +34,21 @@ the kernel; the others run their plain update
 Unlike the reference, ``step()`` leaves ``p.grad`` as backward left it:
 the clipped and regularized gradient exists only inside the update
 (with the clip folded into the kernel there is no clipped copy at all).
+
+The static half (``optimizer.py:25-707``) rewrites a Program:
+``minimize(loss)`` runs ``append_backward``, then the clip's
+``_clip_static``, the regularization, the learning-rate variable
+(``_create_lr_var``: a persistable ``[1]`` float32 initialized by the
+startup program), the accumulators and one update op per parameter
+(``_append_optimize_op``), ops the executor runs through the op
+registry. An optimizer used only so may be built without
+``parameters=`` (its ``step()`` then raises); ``parameters=`` takes the
+eager (name, parameter) pairs and is not read by ``minimize``, which
+takes Program variables through its ``parameter_list``.
+:meth:`Optimizer.set_lr` with a ``scope`` writes the lr variable there as
+the reference does, in place when a captured step holds it. The static
+rewrites of ``optimizer.py:709-1104`` (Recompute, Pipeline, EMA,
+ModelAverage, Lookahead, DGC, ...) wait for ROADMAP A7.2.
 """
 
 from __future__ import annotations
@@ -46,6 +61,11 @@ import torch
 
 from . import optimizer_lr as lr  # paddle.optimizer.lr namespace
 from .device import capturing
+from .framework import unique_name
+from .framework.backward import append_backward
+from .framework.program import (Variable, default_main_program,
+                                default_startup_program)
+from .layers.tensor import create_global_var
 from .ops import optimizer_ops as ops
 from .ops.cuda import adamw as _adamw_kernel
 from .optimizer_lr import LRScheduler
@@ -68,6 +88,9 @@ class GradClipBase:
         """The clipped gradients of ``grads`` (None entries stay None)."""
         raise NotImplementedError
 
+    def _clip_static(self, params_grads, block):
+        raise NotImplementedError
+
 
 class GradientClipByValue(GradClipBase):
     """Each gradient element clipped to ``[min, max]`` (``min`` defaults
@@ -80,6 +103,17 @@ class GradientClipByValue(GradClipBase):
     def _clip(self, grads):
         return [None if g is None else torch.clamp(g, self.min, self.max)
                 for g in grads]
+
+    def _clip_static(self, params_grads, block):
+        out = []
+        for p, g in params_grads:
+            clipped = block.create_var(unique_name.generate(g.name + "@CLIP"),
+                                       stop_gradient=True)
+            block.append_op("clip", {"X": g}, {"Out": clipped},
+                            {"min": self.min, "max": self.max,
+                             "op_role": "optimize"})
+            out.append((p, clipped))
+        return out
 
 
 class GradientClipByNorm(GradClipBase):
@@ -101,6 +135,17 @@ class GradientClipByNorm(GradClipBase):
                 _scalar_div(self.clip_norm, torch.clamp(norm, min=1e-12)),
                 1.0)
             out.append(g * scale)
+        return out
+
+    def _clip_static(self, params_grads, block):
+        out = []
+        for p, g in params_grads:
+            clipped = block.create_var(unique_name.generate(g.name + "@CLIP"),
+                                       stop_gradient=True)
+            block.append_op("clip_by_norm", {"X": g}, {"Out": clipped},
+                            {"max_norm": self.clip_norm,
+                             "op_role": "optimize"})
+            out.append((p, clipped))
         return out
 
 
@@ -131,6 +176,45 @@ class GradientClipByGlobalNorm(GradClipBase):
         scale = self.scale(grads)
         return [None if g is None else _adamw_kernel.scaled_grad(g, scale)
                 for g in grads]
+
+    def _clip_static(self, params_grads, block):
+        sq_names = []
+        for _, g in params_grads:
+            sq = block.create_var(unique_name.generate("gsq"),
+                                  stop_gradient=True)
+            block.append_op("squared_l2_norm", {"X": g}, {"Out": sq},
+                            {"op_role": "optimize"})
+            sq_names.append(sq.name)
+        total = block.create_var(unique_name.generate("global_norm_sq"),
+                                 stop_gradient=True)
+        block.append_op("sum", {"X": sq_names}, {"Out": total},
+                        {"op_role": "optimize"})
+        norm = block.create_var(unique_name.generate("global_norm"),
+                                stop_gradient=True)
+        block.append_op("sqrt", {"X": total}, {"Out": norm},
+                        {"op_role": "optimize"})
+        # scale = clip / max(norm, clip)
+        maxed = block.create_var(unique_name.generate("norm_max"),
+                                 stop_gradient=True)
+        clip_v = block.create_var(unique_name.generate("clip_const"),
+                                  stop_gradient=True)
+        block.append_op("fill_constant_like", {"X": norm}, {"Out": clip_v},
+                        {"value": self.clip_norm, "op_role": "optimize"})
+        block.append_op("elementwise_max", {"X": norm, "Y": clip_v},
+                        {"Out": maxed}, {"op_role": "optimize"})
+        scale_var = block.create_var(unique_name.generate("clip_scale"),
+                                     stop_gradient=True)
+        block.append_op("elementwise_div", {"X": clip_v, "Y": maxed},
+                        {"Out": scale_var}, {"op_role": "optimize"})
+        out = []
+        for p, g in params_grads:
+            clipped = block.create_var(unique_name.generate(g.name + "@CLIP"),
+                                       stop_gradient=True)
+            block.append_op("elementwise_mul", {"X": g, "Y": scale_var},
+                            {"Out": clipped},
+                            {"axis": -1, "op_role": "optimize"})
+            out.append((p, clipped))
+        return out
 
 
 # ------------------------------------------------------- regularization
@@ -182,12 +266,9 @@ class Optimizer:
                  grad_clip: Optional[GradClipBase] = None,
                  name: Optional[str] = None):
         params = parameters if parameters is not None else parameter_list
-        if params is None:
-            raise ValueError(f"{type(self).__name__} requires parameters= "
-                             "(name, parameter) pairs, e.g. "
-                             "model.named_parameters()")
+        self._eager = params is not None
         self._params = []
-        for item in params:
+        for item in params or ():
             if not (isinstance(item, tuple) and len(item) == 2
                     and isinstance(item[0], str)):
                 raise TypeError("parameters= takes (name, parameter) pairs "
@@ -212,6 +293,10 @@ class Optimizer:
         # each parameter's slot, fixed once a captured graph reads them
         self._pinned: Optional[list] = None
         self._refresh_lr()
+        # the static half: the Program's lr variable and accumulators
+        self._lr_var: Optional[Variable] = None
+        self._accum_vars: Dict[str, Dict[str, Variable]] = {}
+        self.helper = None
 
     @property
     def _parameter_list(self):
@@ -230,14 +315,28 @@ class Optimizer:
     def set_lr(self, value, scope=None):
         """Set a constant learning rate (replacing a scheduler, as the
         reference does), in place: a captured step reads it at its next
-        replay. ``scope`` is the reference's static-Program scope, which
-        waits for ROADMAP A7."""
-        if scope is not None:
-            raise NotImplementedError(
-                "set_lr(scope=) writes a static Program's scope, not "
-                "ported yet (ROADMAP A7: the static-graph plane)")
+        replay. Once :meth:`minimize` made the Program's lr variable, its
+        value is written into ``scope`` (the global scope by default), as
+        ``optimizer.py:237-243`` does; a captured executor step that
+        holds it reads the new value at its next replay."""
         self._learning_rate = float(value)
         self._refresh_lr()
+        if self._lr_var is not None:
+            from .framework.scope import global_scope
+            self._write_lr(scope or global_scope(), float(value))
+
+    def _write_lr(self, scope, value: float):
+        old = scope.find_var(self._lr_var.name)
+        scope.set_var(self._lr_var.name, torch.tensor(
+            [value], dtype=torch.float32,
+            device=None if old is None else old.device))
+
+    def sync_lr(self, scope):
+        """Push the scheduler's current lr into the scope's lr var (static
+        mode). Call after scheduler.step()."""
+        sched = getattr(self, "_lr_scheduler", None)
+        if sched is not None and self._lr_var is not None:
+            self._write_lr(scope, float(sched()))
 
     def _slot(self, p) -> int:
         scale = float(getattr(p, "lr_scale", 1.0))
@@ -264,6 +363,8 @@ class Optimizer:
                 f"{type(self).__name__}: a parameter's lr_scale changed "
                 "after a captured step pinned the learning-rate slots it "
                 "reads; the graph would go on reading the old slot")
+        if not self._params:
+            return      # a static-only optimizer keeps no device lr
         for _, p in self._params:
             self._slot(p)
         values = [0.0] * len(self._slots)
@@ -314,6 +415,142 @@ class Optimizer:
             out.append(t)
         return out
 
+    # -- the static half: Program rewrites -----------------------------------
+    def _create_lr_var(self):
+        if self._lr_var is not None:
+            return self._lr_var
+        lr_ = self._learning_rate
+        if isinstance(lr_, Variable):
+            self._lr_var = lr_
+        else:
+            if isinstance(lr_, LRScheduler):
+                self._lr_scheduler = lr_
+                lr_ = lr_()
+            self._lr_var = create_global_var(
+                shape=[1], value=float(lr_), dtype="float32",
+                persistable=True,
+                name=unique_name.generate("learning_rate"))
+        return self._lr_var
+
+    def get_lr_var(self):
+        return self._lr_var
+
+    def _add_accumulator(self, name: str, param: Variable, init_value=0.0,
+                         shape=None, dtype=None):
+        if name in self._accum_vars and param.name in self._accum_vars[name]:
+            return self._accum_vars[name][param.name]
+        shape = list(shape if shape is not None else param.shape)
+        v = create_global_var(
+            shape=shape, value=float(init_value), dtype=dtype or param.dtype,
+            persistable=True, name=unique_name.generate(f"{param.name}_{name}"))
+        self._accum_vars.setdefault(name, {})[param.name] = v
+        return v
+
+    def _get_accumulator(self, name, param):
+        return self._accum_vars[name][param.name]
+
+    def _append_regularization(self, params_grads, block):
+        out = []
+        for p, g in params_grads:
+            reg = p.regularizer or self.regularization
+            if reg is None:
+                out.append((p, g))
+                continue
+            kind, coeff = (reg if isinstance(reg, tuple)
+                           else (reg.kind, reg.coeff))
+            if kind == "l2":
+                scaled = block.create_var(
+                    unique_name.generate(g.name + "@REG"), stop_gradient=True)
+                block.append_op("scale", {"X": p}, {"Out": scaled},
+                                {"scale": float(coeff),
+                                 "op_role": "optimize"})
+                merged = block.create_var(
+                    unique_name.generate(g.name + "@REGSUM"),
+                    stop_gradient=True)
+                block.append_op("sum", {"X": [g.name, scaled.name]},
+                                {"Out": merged}, {"op_role": "optimize"})
+                out.append((p, merged))
+            elif kind == "l1":
+                sign = block.create_var(
+                    unique_name.generate(g.name + "@SIGN"), stop_gradient=True)
+                block.append_op("sign", {"X": p}, {"Out": sign},
+                                {"op_role": "optimize"})
+                scaled = block.create_var(
+                    unique_name.generate(g.name + "@REG"), stop_gradient=True)
+                block.append_op("scale", {"X": sign}, {"Out": scaled},
+                                {"scale": float(coeff),
+                                 "op_role": "optimize"})
+                merged = block.create_var(
+                    unique_name.generate(g.name + "@REGSUM"),
+                    stop_gradient=True)
+                block.append_op("sum", {"X": [g.name, scaled.name]},
+                                {"Out": merged}, {"op_role": "optimize"})
+                out.append((p, merged))
+            else:
+                raise ValueError(f"unknown regularizer kind {kind!r}")
+        return out
+
+    def _append_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError(
+            f"{type(self).__name__} has no static update op")
+
+    def _create_accumulators(self, block, parameters):
+        pass
+
+    def _finish_update(self, block, params_grads):
+        pass
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, checkpoints=None):
+        return append_backward(loss, parameter_list=parameter_list,
+                               no_grad_set=no_grad_set,
+                               checkpoints=checkpoints)
+
+    def apply_gradients(self, params_grads, startup_program=None):
+        # the program that owns the parameters, and the startup program
+        # passed in or the one the main program was built against
+        from .framework.program import program_guard
+        program = params_grads[0][0].block.program if params_grads \
+            else default_main_program()
+        startup = startup_program or getattr(program, "_startup_ref", None)
+        with program_guard(program, startup):
+            block = program.global_block()
+            if self._grad_clip is not None:
+                params_grads = self._grad_clip._clip_static(params_grads,
+                                                            block)
+            params_grads = self._append_regularization(params_grads, block)
+            self._create_lr_var()
+            self._create_accumulators(block, [p for p, _ in params_grads])
+            ops = []
+            for p_g in params_grads:
+                ops.append(self._append_optimize_op(block, p_g))
+            self._finish_update(block, params_grads)
+        return ops
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self.apply_gradients(params_grads, startup_program)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        opt_ops = self.apply_gradients(params_grads, startup_program)
+        return opt_ops, params_grads
+
+    def _lr_input(self, param) -> Variable:
+        """Per-param lr (honors ParamAttr.learning_rate scale)."""
+        lr_ = self._create_lr_var()
+        scale = getattr(param, "lr_scale", 1.0)
+        if scale == 1.0:
+            return lr_
+        block = default_main_program().global_block()
+        scaled = block.create_var(
+            unique_name.generate(f"{param.name}_lr"), stop_gradient=True,
+            persistable=False)
+        block.append_op("scale", {"X": lr_}, {"Out": scaled},
+                        {"scale": float(scale), "op_role": "optimize"})
+        return scaled
+
     # -- the eager step ----------------------------------------------------
     def _fold_clip(self, entries) -> bool:
         """Whether the update takes ``GradientClipByGlobalNorm``'s factor
@@ -333,6 +570,10 @@ class Optimizer:
         if self._op is None:
             raise NotImplementedError(
                 f"{type(self).__name__} has no eager step path")
+        if not self._eager:
+            raise ValueError(f"{type(self).__name__}: eager step() requires "
+                             "parameters= (name, parameter) pairs, e.g. "
+                             "model.named_parameters()")
         if not capturing():
             self._refresh_lr()
         with_grad = [(n, p) for n, p in self._params if p.grad is not None]
@@ -415,6 +656,13 @@ class SGDOptimizer(Optimizer):
     def _apply(self, p, g, accs, lr_):
         return ops.sgd(p, g, lr_)
 
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "sgd", {"Param": p, "Grad": g,
+                    "LearningRate": self._lr_input(p)},
+            {"ParamOut": p}, {"op_role": "optimize"})
+
 
 class MomentumOptimizer(Optimizer):
     _op = "momentum"
@@ -429,6 +677,21 @@ class MomentumOptimizer(Optimizer):
     def _apply(self, p, g, accs, lr_):
         return ops.momentum(p, g, *accs, lr_, self._momentum,
                             self._use_nesterov)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "momentum",
+            {"Param": p, "Grad": g, "Velocity": v,
+             "LearningRate": self._lr_input(p)},
+            {"ParamOut": p, "VelocityOut": v},
+            {"mu": self._momentum, "use_nesterov": self._use_nesterov,
+             "op_role": "optimize"})
 
 
 class LarsMomentumOptimizer(Optimizer):
@@ -446,6 +709,22 @@ class LarsMomentumOptimizer(Optimizer):
         return ops.lars_momentum(p, g, *accs, lr_, self._momentum,
                                  self._lars_coeff, self._lars_weight_decay)
 
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            "lars_momentum",
+            {"Param": p, "Grad": g, "Velocity": v,
+             "LearningRate": self._lr_input(p)},
+            {"ParamOut": p, "VelocityOut": v},
+            {"mu": self._momentum, "lars_coeff": self._lars_coeff,
+             "lars_weight_decay": self._lars_weight_decay,
+             "op_role": "optimize"})
+
 
 class AdagradOptimizer(Optimizer):
     _op = "adagrad"
@@ -457,6 +736,20 @@ class AdagradOptimizer(Optimizer):
 
     def _apply(self, p, g, accs, lr_):
         return ops.adagrad(p, g, *accs, lr_, self._epsilon)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        m = self._get_accumulator("moment", p)
+        return block.append_op(
+            "adagrad",
+            {"Param": p, "Grad": g, "Moment": m,
+             "LearningRate": self._lr_input(p)},
+            {"ParamOut": p, "MomentOut": m},
+            {"epsilon": self._epsilon, "op_role": "optimize"})
 
 
 class AdamOptimizer(Optimizer):
@@ -519,6 +812,36 @@ class AdamOptimizer(Optimizer):
                 self._coeff, grad_scale=scale,
                 table=self._table(cols, lrs) if dev.type == "cuda" else None)
 
+    # -- the static op ------------------------------------------------------
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("moment1", p)
+            self._add_accumulator("moment2", p)
+            self._add_accumulator("beta1_pow", p, init_value=1.0, shape=[1])
+            self._add_accumulator("beta2_pow", p, init_value=1.0, shape=[1])
+
+    def _extra_attrs(self):
+        return {}
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        attrs = {"beta1": self._beta1, "beta2": self._beta2,
+                 "epsilon": self._epsilon, "op_role": "optimize"}
+        attrs.update(self._extra_attrs())
+        acc = {k: self._get_accumulator(k, p)
+               for k in ("moment1", "moment2", "beta1_pow", "beta2_pow")}
+        return block.append_op(
+            self._op,
+            {"Param": p, "Grad": g,
+             "Moment1": acc["moment1"], "Moment2": acc["moment2"],
+             "Beta1Pow": acc["beta1_pow"], "Beta2Pow": acc["beta2_pow"],
+             "LearningRate": self._lr_input(p)},
+            {"ParamOut": p,
+             "Moment1Out": acc["moment1"], "Moment2Out": acc["moment2"],
+             "Beta1PowOut": acc["beta1_pow"],
+             "Beta2PowOut": acc["beta2_pow"]},
+            attrs)
+
 
 class AdamWOptimizer(AdamOptimizer):
     """Adam with decoupled weight decay ``coeff`` applied to every
@@ -531,6 +854,9 @@ class AdamWOptimizer(AdamOptimizer):
     def __init__(self, learning_rate=0.001, weight_decay=0.01, **kw):
         super().__init__(learning_rate, **kw)
         self._coeff = float(weight_decay)
+
+    def _extra_attrs(self):
+        return {"coeff": self._coeff, "with_decay": True}
 
 
 class LambOptimizer(AdamOptimizer):
@@ -554,6 +880,9 @@ class LambOptimizer(AdamOptimizer):
         return ops.lamb(p, g, *accs, lr_, self._beta1, self._beta2,
                         self._epsilon, self._weight_decay)
 
+    def _extra_attrs(self):
+        return {"weight_decay": self._weight_decay}
+
 
 class RMSPropOptimizer(Optimizer):
     """RMSProp; the centered form has no eager op in the reference, so its
@@ -573,6 +902,31 @@ class RMSPropOptimizer(Optimizer):
         return ops.rmsprop(p, g, *accs, lr_, self._rho, self._epsilon,
                            self._momentum)
 
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("mean_square", p)
+            self._add_accumulator("moment", p)
+            if self._centered:
+                self._add_accumulator("mean_grad", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        ins = {"Param": p, "Grad": g,
+               "MeanSquare": self._get_accumulator("mean_square", p),
+               "Moment": self._get_accumulator("moment", p),
+               "LearningRate": self._lr_input(p)}
+        outs = {"ParamOut": p,
+                "MeanSquareOut": self._get_accumulator("mean_square", p),
+                "MomentOut": self._get_accumulator("moment", p)}
+        if self._centered:
+            ins["MeanGrad"] = self._get_accumulator("mean_grad", p)
+            outs["MeanGradOut"] = self._get_accumulator("mean_grad", p)
+        return block.append_op(
+            "rmsprop", ins, outs,
+            {"decay": self._rho, "epsilon": self._epsilon,
+             "momentum": self._momentum, "centered": self._centered,
+             "op_role": "optimize"})
+
 
 class FtrlOptimizer(Optimizer):
     _op = "ftrl"
@@ -585,6 +939,25 @@ class FtrlOptimizer(Optimizer):
     def _apply(self, p, g, accs, lr_):
         return ops.ftrl(p, g, *accs, lr_, self._l1, self._l2,
                         self._lr_power)
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("squared", p)
+            self._add_accumulator("linear", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            "ftrl",
+            {"Param": p, "Grad": g,
+             "SquaredAccumulator": self._get_accumulator("squared", p),
+             "LinearAccumulator": self._get_accumulator("linear", p),
+             "LearningRate": self._lr_input(p)},
+            {"ParamOut": p,
+             "SquaredAccumOut": self._get_accumulator("squared", p),
+             "LinearAccumOut": self._get_accumulator("linear", p)},
+            {"l1": self._l1, "l2": self._l2, "lr_power": self._lr_power,
+             "op_role": "optimize"})
 
 
 # fluid-style aliases
