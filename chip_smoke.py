@@ -167,7 +167,18 @@ composed ones from one seeded scope, the first step's gradients against
 a float64 run, per step 12 / 6 / 6 flash launches (all f32 ``simt``),
 24 / 12 LayerNorm launches (the generic grad re-runs the forward) and
 96 AdamW launches (one per parameter), one capture; the replayed step's
-busy time and the f32 flash kernels at this shape against SDPA.
+busy time and the f32 flash kernels at this shape against SDPA; 24 the
+Paddle Book: ``tests/test_book.py``'s eight programs built through
+``paddle_tpu_torch.fluid`` (``models/book.py``) and run by
+``fluid.Executor(fluid.CUDAPlace(0))``, label_semantic_roles at the
+upstream chapter's width (hidden 512, depth 8, batch 10), resnet_cifar10
+at depth 32 and batch 128, rnn_encoder_decoder at a 30,000-word
+vocabulary, then a CTC tagger: 5 steps each, every step held against the
+same step on ``fluid.CPUPlace()`` from a copy of the card's state, one
+capture per program, the replayed step's time, busy time, idle share and
+graph kernels, the AdamW kernel once per ``adam`` op and step, and each
+inference model saved and loaded back on the card equal to the trained
+program's test clone.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -7291,6 +7302,248 @@ def static_encoder(torch, fa, ctr, card, ltimes):
             "kernel_vs_composed": worst, "flash_f32": times}
 
 
+# ------------------------------------------------------------ phase 24
+#: the Book's programs on the card (paddle_tpu_torch/models/book.py, as
+#: tests/test_book.py writes them): label_semantic_roles at the upstream
+#: chapter's width (test_label_semantic_roles.py: word_dim 32, mark_dim
+#: 5, hidden_dim 512, depth 8, BATCH_SIZE 10), resnet_cifar10 at the
+#: upstream depth 32 and batch 128 (tests/test_book.py cuts it to 8),
+#: rnn_encoder_decoder at the upstream dict_size 30000, the others at
+#: tests/test_book.py's own constants
+BOOK_SIZES = {
+    "fit_a_line": {}, "recognize_digits": {}, "word2vec": {},
+    "image_classification": dict(depth=32, batch_size=128),
+    "label_semantic_roles": dict(word_dim=32, mark_dim=5, hidden_dim=512,
+                                 depth=8, batch_size=10),
+    "recommender_system": {},
+    "rnn_encoder_decoder": dict(dict_size=30000),
+    "machine_translation": {},
+}
+#: steps per program (the first eager, the second captures, the rest
+#: replay and are timed), replays traced for the device's busy time
+BOOK_STEPS, BOOK_TRACED = 5, 2
+#: phase 22's tolerances, card against the port on the CPU, each step
+#: from a copy of the card's state before it: the loss within 1e-5
+#: relative, every other fetch exactly (ids, paths, accuracies) or within
+#: 1e-5 relative and 1e-6 absolute, and each parameter after the step
+#: within 1e-4 relative Frobenius distance or 1e-6 absolute. Under Adam
+#: and Adagrad a parameter may instead be within 2 lr + 1e-6 per element
+#: (phase 23's bound for a step: an update is near lr x sign(g), so a
+#: gradient element whose exact value is zero, such as a convolution bias
+#: a batch norm follows, moves by +-lr on rounding alone). From one start
+#: carried through all steps instead, such flips change resnet_cifar10's
+#: second loss by 1.8e-4 relative (an H100 80GB HBM3 at 700 W). So the
+#: optimizers' accumulators and the batch norms' statistics after each
+#: step (Adam's moment1 gains (1 - beta1) g from the same start, Adagrad's
+#: accumulator g^2: the gradient itself) are held within 1e-2 relative
+#: Frobenius distance or 1e-7 absolute: f32 gradients of a batch-norm net
+#: are ill-conditioned (the port's resnet_cifar10 on the CPU within
+#: 5e-7-8.8e-4 of a float64 run, XLA's within 4e-4-3.5e-3; ROADMAP C)
+BOOK_FETCH_RTOL, BOOK_FETCH_ATOL = 1e-5, 1e-6
+BOOK_STATE_FRO, BOOK_STATE_ATOL = 1e-2, 1e-7
+
+
+def book_param_close(what, got, ref, step_bound, fro=WD_FRO, atol=WD_ATOL):
+    """Phase 22's test of a parameter (or, with ``fro`` / ``atol``, of
+    another state variable); else, under Adam or Adagrad, every element
+    within ``step_bound``. Returns (max abs difference, whether the step
+    bound was needed)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"phase 24: {what} card {got.shape} vs CPU "
+                             f"{ref.shape}, or not finite")
+    err = float(np.abs(got - ref).max()) if got.size else 0.0
+    rel = float(np.linalg.norm(got - ref) / max(np.linalg.norm(ref), 1e-30))
+    if rel <= fro or err <= atol:
+        return err, False
+    if step_bound is not None and err <= step_bound:
+        return err, True
+    raise AssertionError(f"phase 24: {what} card vs CPU: max abs {err:.3e}, "
+                         f"relative Frobenius {rel:.3e}")
+
+
+def book_fetches_close(what, got, ref):
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        g, r = np.asarray(g), np.asarray(r)
+        if g.shape != r.shape:
+            raise AssertionError(f"phase 24: {what} fetch {i} shape "
+                                 f"{g.shape} vs {r.shape}")
+        if r.dtype.kind in "biu":
+            if not np.array_equal(g, r):
+                raise AssertionError(f"phase 24: {what} fetch {i} differs "
+                                     f"(ids): {g.ravel()[:8]} vs "
+                                     f"{r.ravel()[:8]}")
+            continue
+        rtol = WD_LOSS_RTOL if i == 0 else BOOK_FETCH_RTOL
+        diff = np.abs(g.astype(np.float64) - r)
+        if not np.isfinite(g).all() or (diff > BOOK_FETCH_ATOL * (i > 0)
+                                        + rtol * np.abs(r)).any():
+            raise AssertionError(f"phase 24: {what} fetch {i} card "
+                                 f"{g.ravel()[:4]} vs CPU {r.ravel()[:4]}")
+        worst = max(worst, float(diff.max()) if diff.size else 0.0)
+    return worst
+
+
+def book_program(torch, ctr, card, b):
+    """One program of phase 24: the startup on the card, then
+    ``BOOK_STEPS`` steps, each on the card and on the CPU from a copy of
+    the card's state before it and the same batch, held to phase 24's
+    tolerances; one capture (the second run);
+    the replayed steps' time, the device's busy time per replay and its
+    idle share, the graph's kernels; then the inference model saved from
+    the card's trained scope, loaded into a fresh scope on the card, and
+    its fetch against the trained program's test clone."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import framework_io, jit
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.models import book
+    from paddle_tpu_torch.models.convert import scope_from_numpy
+    fluid = paddle_tpu_torch.fluid
+    card_exe = fluid.Executor(fluid.CUDAPlace(0))
+    cpu_exe = fluid.Executor(fluid.CPUPlace())
+    card_scope = Scope()
+    card_exe.run(b.startup, scope=card_scope)
+    feeds = book.batches(b, BOOK_STEPS)
+    fetch = [v.name for v in b.fetches]
+    params = [p.name for p in b.main.all_parameters()]
+    bound = (2 * b.lr + 1e-6 if b.optimizer in ("adam", "adagrad")
+             else None)
+    worst_fetch, worst_param, worst_state, by_bound = 0.0, 0.0, 0.0, set()
+    dev, secs, launched = [], [], {}
+    for i, f in enumerate(feeds):
+        # the CPU takes each step from a copy of the card's state before it
+        cpu_scope = scope_from_numpy({n: card_scope.get_numpy(n)
+                                      for n in card_scope.var_names()},
+                                     "cpu")
+        torch.cuda.synchronize()
+        before = ctr.read()
+        t0 = time.perf_counter()
+        dev.append(card_exe.run(b.main, feed=f, fetch_list=fetch,
+                                scope=card_scope))
+        secs.append(time.perf_counter() - t0)
+        for k, v in ctr.read().items():
+            if v != before.get(k, 0):
+                launched[k] = launched.get(k, 0) + v - before.get(k, 0)
+        cpu = cpu_exe.run(b.main, feed=f, fetch_list=fetch, scope=cpu_scope)
+        worst_fetch = max(worst_fetch, book_fetches_close(
+            f"{b.name} step {i}", dev[-1], cpu))
+        for n in params:
+            err, stepped = book_param_close(
+                f"{b.name} step {i} {n}", card_scope.get_numpy(n),
+                cpu_scope.get_numpy(n), bound)
+            worst_param = max(worst_param, err)
+            if stepped:
+                by_bound.add(n)
+        for n in sorted(set(cpu_scope.var_names()) - set(params)):
+            worst_state = max(worst_state, book_param_close(
+                f"{b.name} step {i} {n}", card_scope.get_numpy(n),
+                cpu_scope.get_numpy(n), None, BOOK_STATE_FRO,
+                BOOK_STATE_ATOL)[0])
+    by_bound = sorted(by_bound)
+    captures = card_exe._exe.captures
+    if captures != 1:
+        raise AssertionError(f"phase 24: {b.name}: {captures} captures in "
+                             f"{BOOK_STEPS} steps, expected 1 (the second "
+                             "run)")
+    if b.name == "label_semantic_roles":
+        lrs = [float(np.asarray(c[2]).reshape(-1)[0]) for c in dev]
+        counter = [n for n in card_scope.var_names()
+                   if n.startswith("lr_decay_step")]
+        if lrs != [float(np.float32(0.01))] * BOOK_STEPS or \
+                float(card_scope.get_numpy(counter[0])[0]) != BOOK_STEPS:
+            raise AssertionError(f"phase 24: exponential_decay's lr {lrs}, "
+                                 f"counter {card_scope.get_numpy(counter[0])}")
+    entry = next(e for e in card_exe._exe._cache.values()
+                 if e._refs[0] is b.main and e.graph is not None)
+    kernels = jit.graph_kernels(entry.graph.graph)
+    step_ms = float(np.mean(secs[2:])) * 1e3
+    with ctr.aside():
+        busy, _ = device_trace(torch, lambda: [card_exe.run(
+            b.main, feed=feeds[-1], fetch_list=fetch, scope=card_scope)
+            for _ in range(BOOK_TRACED)])
+    busy /= BOOK_TRACED
+    if card_exe._exe.captures != 1:
+        raise AssertionError(f"phase 24: {b.name}: captures after the "
+                             "traced replays")
+    # the inference model: saved from the card, loaded on the card
+    with tempfile.TemporaryDirectory() as d:
+        framework_io.save_inference_model(d, b.infer_feeds, b.infer_targets,
+                                          card_exe._exe, b.main,
+                                          scope=card_scope)
+        fresh = Scope()
+        prog, feed_names, fetch_names = framework_io.load_inference_model(
+            d, card_exe._exe, scope=fresh)
+    if any(t.device.type != "cuda" for t in
+           (fresh.find_var(n) for n in fresh.var_names())):
+        raise AssertionError(f"phase 24: {b.name}: a loaded variable is "
+                             "not on the card")
+    last = feeds[-1]
+    got = card_exe.run(prog, feed={k: last[k] for k in feed_names},
+                       fetch_list=fetch_names, scope=fresh)
+    ref = card_exe.run(b.test_program, feed=last, fetch_list=fetch_names,
+                       scope=card_scope)
+    infer_err = book_fetches_close(f"{b.name} inference model", got, ref)
+    res = {"step_ms": step_ms, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / step_ms, "graph_kernels": kernels,
+           "captures": captures, "launches": launched,
+           "loss_first": float(dev[0][0]), "loss_last": float(dev[-1][0]),
+           "card_vs_cpu_max_abs": {"fetch": worst_fetch,
+                                   "param": worst_param,
+                                   "state": worst_state},
+           "params_by_step_bound": by_bound,
+           "inference_round_trip_max_abs": infer_err}
+    log(f"  [{card}] {b.name}: replayed {step_ms:.3f} ms per step, device "
+        f"busy {busy:.3f} ms, idle share {res['idle_share']:.4f}, "
+        f"{kernels} graph kernels per step, {captures} capture; losses "
+        f"{[round(float(c[0]), 5) for c in dev]}; card vs CPU max abs "
+        f"fetch {worst_fetch:.3e} param {worst_param:.3e} state "
+        f"{worst_state:.3e}"
+        + (f" ({len(by_bound)} parameters within the Adam/Adagrad step "
+           f"bound: {by_bound})" if by_bound else "")
+        + f"; launches {launched}; inference round trip max abs "
+        f"{infer_err:.3e}")
+    return res
+
+
+def book_phase(torch, ctr, card):
+    """Phase 24: the eight Book programs of ``tests/test_book.py`` built
+    through ``paddle_tpu_torch.fluid`` at ``BOOK_SIZES`` and run by
+    ``fluid.Executor(fluid.CUDAPlace(0))``, each held against the same
+    Program on ``fluid.CPUPlace()`` (:func:`book_program`), then the CTC
+    tagger the same way. Convolutions under ``cudnn.deterministic``. The
+    AdamW kernel launches once per ``adam`` op (one per trainable
+    parameter) and step in the two programs that minimize with Adam, and
+    no other port kernel runs."""
+    from paddle_tpu_torch.models import book
+    det = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out, want = {}, {}
+    try:
+        ctr.zero()
+        for name, make in book.PROGRAMS.items():
+            b = make(seed=24, **BOOK_SIZES[name])
+            out[name] = book_program(torch, ctr, card, b)
+            adam_ops = sum(op.type == "adam"
+                           for op in b.main.global_block().ops)
+            if adam_ops:
+                want["adamw"] = want.get("adamw", 0) + BOOK_STEPS * adam_ops
+            del b
+            torch.cuda.empty_cache()
+        launched = ctr.read()
+        ctr.expect(launched, want, "phase 24 (the Book)")
+        out["ctc_tagger"] = book_program(torch, ctr, card,
+                                         book.ctc_tagger(seed=24))
+        ctr.expect(ctr.read(), want, "phase 24 (the CTC tagger runs no "
+                   "port kernel)")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+    out["launches"] = launched
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7540,6 +7793,13 @@ def main():
     t_se = time.perf_counter()
     sen = static_encoder(torch, fa, ctr, card, ltimes)
     log(f"  phase 23 took {time.perf_counter() - t_se:.1f} s")
+
+    log("== phase 24: the Book (tests/test_book.py's eight programs through "
+        "paddle_tpu_torch.fluid: SRL at hidden 512 / depth 8, resnet_cifar10 "
+        "at depth 32, batch 128) and a CTC tagger, card against CPU")
+    t_book = time.perf_counter()
+    bk = book_phase(torch, ctr, card)
+    log(f"  phase 24 took {time.perf_counter() - t_book:.1f} s")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -7670,7 +7930,8 @@ def main():
         grad_scale_ms=atimes["grad_scale_ms"],
         launches_optimizer_plane=plane["gpt2_medium"]["launches"]["adamw"],
         launches_transformer=tfm["launches"]["adamw"],
-        launches_static_encoder=sen["launches"]["adamw"]))
+        launches_static_encoder=sen["launches"]["adamw"],
+        launches_book=bk["launches"]["adamw"]))
 
     def summary(r):
         return {k: summary(v) if isinstance(v, dict) and k != "routes"
@@ -7694,7 +7955,8 @@ def main():
                       "resnet50": rn, "grad_scaler": scaler,
                       "transformer_base": summary(tfm),
                       "widedeep": summary(wdp),
-                      "static_encoder": summary(sen)}), flush=True)
+                      "static_encoder": summary(sen),
+                      "book": summary(bk)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

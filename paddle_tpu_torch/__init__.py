@@ -9,12 +9,28 @@ hand-written CUDA kernel), and trains GPT and ERNIE models as
 :class:`~.optimizer.AdamW`) as one CUDA graph, with flash attention,
 LayerNorm and the multi-tensor AdamW update in hand-written kernels
 (:mod:`.ops.cuda`) and per-block recompute (``GPTConfig.recompute``).
-The package imports torch and numpy only; it never imports jax or
-``paddle_tpu``, which stays the reference the port is tested against.
+Fluid-era programs run through ``paddle_tpu_torch.fluid`` (built at its
+first use) and the classic readers (``batch``, ``reader``,
+``dataset``), as ``paddle_tpu/__init__.py`` exports them. The package
+imports torch and numpy only; it never imports jax or ``paddle_tpu``,
+which stays the reference the port is tested against.
 """
 
-from . import flags
+from . import dataset, flags
 from .device import resolve_device
 from .flags import get_flag, get_flags, set_flags
+from .fluid_compat import CPUPlace, CUDAPlace, DataFeeder, batch, reader
 
-__all__ = ["flags", "get_flag", "get_flags", "resolve_device", "set_flags"]
+__all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "batch", "dataset",
+           "flags", "get_flag", "get_flags", "reader", "resolve_device",
+           "set_flags"]
+
+
+def __getattr__(name):
+    if name == "fluid":
+        from .fluid_compat import build_fluid_module
+        mod = build_fluid_module()
+        globals()["fluid"] = mod
+        return mod
+    raise AttributeError(
+        f"module 'paddle_tpu_torch' has no attribute {name!r}")

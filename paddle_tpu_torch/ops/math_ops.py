@@ -4,14 +4,14 @@ initializers, ``append_backward``, clips, regularizers and optimizers
 emit.
 
 Ported: ``elementwise_add`` / ``_sub`` / ``_mul`` / ``_div`` / ``_max`` /
-``_min``; ``scale``, ``mul``, ``matmul``, ``matmul_v2``, ``cast`` (with
+``_min`` / ``_pow``; ``scale``, ``mul``, ``matmul``, ``matmul_v2``, ``cast`` (with
 ``cast_grad``), ``clip``, ``clip_by_norm``, ``sum``, ``increment``,
 ``squared_l2_norm``, ``optimization_barrier``, ``gelu``; the unary
 activations ``relu``, ``relu6``, ``sigmoid``, ``logsigmoid``, ``tanh``,
-``sqrt``, ``rsqrt``, ``square``, ``exp``, ``log``, ``abs``, ``sign``,
-``silu``. Waiting (ROADMAP A7.2): the other elementwise ops
-(``_pow``, ``_mod``, ``_floordiv``), the trigonometric and rounding
-unaries, the parametrised activations (``leaky_relu``, ``elu``,
+``sqrt``, ``rsqrt``, ``square``, ``exp``, ``log``, ``abs``, ``floor``,
+``sign``, ``silu``. Waiting (ROADMAP A7.2b): the other elementwise ops
+(``_mod``, ``_floordiv``), the trigonometric unaries and the other
+rounding ones, the parametrised activations (``leaky_relu``, ``elu``,
 ``softplus``, ``swish``, ``hard_*``, ``prelu``, ``pow``), ``dot``,
 ``addmm``, ``p_norm``, ``maximum`` / ``minimum``, the comparisons and
 the ``isfinite`` family.
@@ -53,6 +53,7 @@ _ew("elementwise_mul", torch.mul)
 _ew("elementwise_div", torch.div)
 _ew("elementwise_max", torch.maximum)
 _ew("elementwise_min", torch.minimum)
+_ew("elementwise_pow", torch.pow)
 
 
 def clip(x, lo=None, hi=None):
@@ -92,6 +93,7 @@ _unary("square", torch.square)
 _unary("exp", torch.exp)
 _unary("log", torch.log)
 _unary("abs", absolute)
+_unary("floor", torch.floor, not_differentiable=True)
 _unary("sign", torch.sign, not_differentiable=True)
 _unary("silu", torch.nn.functional.silu)
 

@@ -3,11 +3,12 @@
 
 Ported: ``conv2d``, ``pool2d``, ``softmax``, ``log_softmax``,
 ``softmax_with_cross_entropy``, ``cross_entropy``,
-``sigmoid_cross_entropy_with_logits``, ``batch_norm``, ``layer_norm``,
+``sigmoid_cross_entropy_with_logits``, ``huber_loss``, ``batch_norm``,
+``layer_norm``,
 ``dropout`` (with ``dropout_grad``), ``lookup_table_v2`` (with
 ``lookup_table_v2_grad``), ``lookup_table`` and ``accuracy``. Waiting
-(ROADMAP A7.2): ``depthwise_conv2d``, ``conv2d_transpose``, ``conv3d``,
-``squared_l2_distance``, ``huber_loss``, ``smooth_l1_loss``,
+(ROADMAP A7.2b): ``depthwise_conv2d``, ``conv2d_transpose``, ``conv3d``,
+``squared_l2_distance``, ``smooth_l1_loss``,
 ``mse_loss``, ``kldiv_loss``, ``label_smooth``, ``group_norm``,
 ``instance_norm``, ``norm``, ``embedding_bag``, ``auc`` and the fused
 activations.
@@ -43,7 +44,7 @@ def _conv_padding(paddings, ndim):
     pw0, pw1]``."""
     if isinstance(paddings, str):
         raise NotImplementedError(
-            f"string padding {paddings!r} waits for ROADMAP A7.2")
+            f"string padding {paddings!r} waits for ROADMAP A7.2b")
     p = list(paddings)
     if len(p) == ndim:
         return [(int(x), int(x)) for x in p]
@@ -190,6 +191,16 @@ def _sce_logits(ctx, ins, attrs):
     if attrs.get("normalize", False):
         loss = loss / torch.clamp_min(torch.sum(mask.to(x.dtype)), 1.0)
     return {"Out": [loss]}
+
+
+@register("huber_loss", no_grad_slots=("Y",))
+def _huber_loss(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    delta = attrs.get("delta", 1.0)
+    r = y - x
+    ar = absolute(r)
+    loss = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
+    return {"Residual": [r], "Out": [loss]}
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ an op with a nonzero ``seed`` attr. The streams are JAX's
 the reference's initial weights, ``uniform_random`` bit for bit, the two
 normal ops to a few float32 ulps (torch's ``erfinv`` is not XLA's).
 Float32 only; another dtype draws in float32 and is cast. Waiting
-(ROADMAP A7.2): ``randint``, ``randperm``, ``bernoulli``,
+(ROADMAP A7.2b): ``randint``, ``randperm``, ``bernoulli``,
 ``multinomial``.
 """
 

@@ -2,7 +2,7 @@
 ``paddle_tpu/ops/reduce_ops.py``.
 
 Ported: ``reduce_sum``, ``reduce_mean``, ``reduce_max``, ``reduce_min``,
-``reduce_prod`` and ``mean``. Waiting (ROADMAP A7.2): ``reduce_all``,
+``reduce_prod`` and ``mean``. Waiting (ROADMAP A7.2b): ``reduce_all``,
 ``reduce_any`` and ``logsumexp``.
 """
 

@@ -20,7 +20,9 @@ kernels; the reference's XLA recompute is free where the port's is a
 second launch (ROADMAP B, later perf work).
 
 The lowering modules (``math_ops``, ``reduce_ops``, ``tensor_ops``,
-``random_ops``, ``nn_ops``, ``attention_ops``, ``optimizer_ops``) are
+``random_ops``, ``nn_ops``, ``attention_ops``, ``optimizer_ops``,
+``rnn_ops``, ``loss_ops``, ``index_ops``, ``structured_ops``,
+``misc_ops``) are
 imported at the first lookup, so importing the registry alone stays
 light; :data:`OPS` is complete after any call of :func:`get_op_def`,
 :func:`execute`, :func:`is_registered`, :func:`registered_ops` or
@@ -138,7 +140,9 @@ OPS: Dict[str, OpDef] = {}
 #: the lowering modules, imported at the first lookup, in the order the
 #: reference's ``ops/__init__.py`` imports its counterparts
 LOWERING_MODULES = ("math_ops", "tensor_ops", "nn_ops", "reduce_ops",
-                    "random_ops", "optimizer_ops", "attention_ops")
+                    "random_ops", "optimizer_ops", "attention_ops",
+                    "rnn_ops", "loss_ops", "index_ops", "structured_ops",
+                    "misc_ops")
 _loaded = False
 # op type -> (its module's place in LOWERING_MODULES, registration number):
 # other modules of the port import some lowering modules first, so the
@@ -192,7 +196,7 @@ def get_op_def(op_type: str) -> OpDef:
         raise NotImplementedError(
             f"no lowering registered for op {op_type!r} "
             f"({len(OPS)} ops registered; the rest of the reference's op "
-            f"library waits for ROADMAP A7.2)")
+            f"library waits for ROADMAP A7.2b)")
     return d
 
 
@@ -230,7 +234,7 @@ def execute(ctx: LoweringContext, op_type: str, ins: Dict[str, List[Any]],
         return _generic_grad_lowering(ctx, op_type[:-5], ins, attrs)
     raise NotImplementedError(
         f"no lowering for op {op_type!r} (the rest of the reference's op "
-        f"library waits for ROADMAP A7.2)")
+        f"library waits for ROADMAP A7.2b)")
 
 
 GRAD_SLOT_SUFFIX = "@GRAD"

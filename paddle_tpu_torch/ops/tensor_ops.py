@@ -4,13 +4,17 @@
 Ported: ``fill_constant``, ``fill_constant_like``, ``fill_zeros_like``,
 ``assign``, ``assign_value``, ``reshape2`` (with ``reshape2_grad``),
 ``reshape``, ``transpose2`` (with ``transpose2_grad``), ``transpose``,
-``flatten2``, ``concat``, ``split``, ``arg_max``, ``arg_min``,
-``top_k_v2``, ``one_hot``, ``one_hot_v2``. Waiting (ROADMAP A7.2): the
-other ~40 (``fill_any_like``, ``shape``, ``size``, ``slice``,
-``strided_slice``, ``stack`` / ``unstack`` / ``unbind``, ``squeeze2`` /
+``flatten2``, ``concat``, ``split``, ``slice``, ``stack``, ``arg_max``,
+``arg_min``, ``top_k_v2``, ``one_hot``, ``one_hot_v2``. Waiting (ROADMAP
+A7.2b): the other ~36 (``fill_any_like``, ``shape``, ``size``,
+``strided_slice``, ``unstack`` / ``unbind``, ``squeeze2`` /
 ``unsqueeze2``, ``expand_v2``, ``tile``, the gathers and scatters,
 ``where``, ``cumsum``, the pads, ``range``, ``argsort``, ``top_k``,
 ``eye``, ``linspace``, ``flip``, ``roll``, ``meshgrid``, ...).
+
+``top_k_v2`` orders equal values by index, as ``lax.top_k`` does (the
+first maximum first): ``argmax`` at k 1, a stable sort otherwise;
+``torch.topk`` promises no order among ties.
 
 A ``fill_constant`` fills on the op's device (``ctx.device``), so a
 startup program's constants land where its parameters live.
@@ -154,6 +158,28 @@ def _split(ctx, ins, attrs):
     return {"Out": list(outs)}
 
 
+@register("slice")
+def _slice(ctx, ins, attrs):
+    x = ins["X"][0]
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        dim = x.shape[ax]
+        st = max(st + dim, 0) if st < 0 else min(st, dim)
+        en = max(en + dim, 0) if en < 0 else min(en, dim)
+        idx[ax] = slice(int(st), int(en))
+    out = x[tuple(idx)]
+    decrease = set(attrs.get("decrease_axis", []))
+    if decrease:
+        out = out.reshape([d for i, d in enumerate(out.shape)
+                           if i not in decrease])
+    return {"Out": [out]}
+
+
+@register("stack")
+def _stack(ctx, ins, attrs):
+    return {"Y": [torch.stack(list(ins["X"]), dim=attrs.get("axis", 0))]}
+
+
 def _arg(fn):
     def _lower(ctx, ins, attrs):
         x = ins["X"][0]
@@ -172,8 +198,15 @@ register("arg_min", not_differentiable=True)(_arg(torch.argmin))
 @register("top_k_v2", nondiff_outputs=("Indices",), no_grad_slots=())
 def _top_k_v2(ctx, ins, attrs):
     x = ins["X"][0]
-    vals, idx = torch.topk(x, attrs.get("k", 1), dim=attrs.get("axis", -1),
-                           largest=attrs.get("largest", True), sorted=True)
+    k, axis = int(attrs.get("k", 1)), attrs.get("axis", -1)
+    largest = attrs.get("largest", True)
+    if k == 1:
+        idx = (torch.argmax if largest else torch.argmin)(
+            x, dim=axis, keepdim=True)
+    else:
+        idx = torch.sort(x, dim=axis, descending=largest,
+                         stable=True).indices.narrow(axis, 0, k)
+    vals = torch.gather(x, axis, idx)
     return {"Out": [vals], "Indices": [idx.to(torch.int64)]}
 
 

@@ -2,13 +2,13 @@
 ``paddle_tpu/static/__init__.py`` with what the port has: ``Program``,
 ``program_guard``, ``data``, ``Executor``, ``Scope``, ``global_scope``,
 ``append_backward``, ``gradients``, the default programs,
-``device_guard`` and ``nn`` (= :mod:`paddle_tpu_torch.layers`).
+``device_guard``, ``nn`` (= :mod:`paddle_tpu_torch.layers`) and
+``framework_io``'s ``save_inference_model`` / ``load_inference_model``
+and ``save_persistables`` / ``load_persistables``.
 
 Waiting: the compiler (``BuildStrategy``, ``CompiledProgram``,
-``ExecutionStrategy``) and ``framework_io`` (``save`` / ``load``
-``_inference_model``, ``_persistables``) for ROADMAP A7.3, the
-quantization surface for A7.2, and ``InputSpec`` with ``jit.save``
-(A7.3). 2.0 ``static.data`` takes the FULL shape including the batch dim
+``ExecutionStrategy``) for ROADMAP A7.3, the quantization surface for
+A7.2b, and ``InputSpec`` with ``jit.save`` (A7.3). 2.0 ``static.data`` takes the FULL shape including the batch dim
 (None/-1 leading), unlike fluid ``layers.data`` which prepends it.
 """
 
@@ -21,6 +21,8 @@ from ..framework import (Executor, Program, Scope, append_backward,
                          device_guard, gradients, program_guard)
 from ..framework.program import Variable
 from ..framework.scope import global_scope
+from ..framework_io import (load_inference_model, load_persistables,
+                            save_inference_model, save_persistables)
 from .. import layers as nn  # static.nn.fc / conv2d / ... wrappers
 
 
@@ -37,5 +39,7 @@ def data(name: str, shape: Sequence[Optional[int]],
 __all__ = [
     "Executor", "Program", "Scope", "append_backward", "data",
     "default_main_program", "default_startup_program", "device_guard",
-    "global_scope", "gradients", "nn", "program_guard",
+    "global_scope", "gradients", "load_inference_model",
+    "load_persistables", "nn", "program_guard", "save_inference_model",
+    "save_persistables",
 ]

@@ -664,6 +664,224 @@ OP_CASES = {
     "uniform_random": ("uniform_random", lambda r: {},
                        {"shape": [3, 4], "min": -0.3, "max": 0.7}, (0, 0)),
 }
+def _lens(*v):
+    return np.array(v, np.int64)
+
+
+def _probs(rng, *shape):
+    return (1.0 / (1.0 + np.exp(-rng.randn(*shape)))).astype(np.float32)
+
+
+def _tied(rng, *shape):
+    """Floats on a coarse grid, so a row holds equal values."""
+    return np.round(rng.randn(*shape) * 1.5).astype(np.float32)
+
+
+def _lstm_w(rng, h, inp):
+    return [_f(rng, 4 * h, inp), _f(rng, 4 * h, h), _f(rng, 4 * h),
+            _f(rng, 4 * h)]
+
+
+def _gru_w(rng, h, inp):
+    return [_f(rng, 3 * h, inp), _f(rng, 3 * h, h), _f(rng, 3 * h),
+            _f(rng, 3 * h)]
+
+
+#: the sequence, structured-prediction and loss ops (and the lowerings
+#: their builders emit): the same table's form, case ids as above
+OP_CASES.update({
+    "rnn": ("rnn", lambda r: {"Input": [_f(r, 2, 4, 3)],
+                              "WeightList": _lstm_w(r, 4, 3),
+                              "SequenceLength": [_lens(4, 2)]},
+            {"mode": "LSTM", "num_layers": 1}, _PROD),
+    "rnn:gru_bidirec": ("rnn", lambda r: {
+        "Input": [_f(r, 2, 3, 3)],
+        "WeightList": _gru_w(r, 2, 3) + _gru_w(r, 2, 3),
+        "PreState": [_f(r, 2, 2, 2)]},
+        {"mode": "GRU", "is_bidirec": True}, _PROD),
+    "dynamic_lstm": ("dynamic_lstm", lambda r: {
+        "Input": [_f(r, 2, 5, 16)], "Weight": [_f(r, 4, 16)],
+        "Bias": [_f(r, 1, 28)], "Length": [_lens(5, 3)]},
+        {"use_peepholes": True}, _PROD),
+    "dynamic_lstm:reverse_relu": ("dynamic_lstm", lambda r: {
+        "Input": [_f(r, 3, 4, 8)], "Weight": [_f(r, 2, 8)],
+        "Bias": [_f(r, 1, 8)], "Length": [_lens(4, 2, 3)]},
+        {"use_peepholes": False, "is_reverse": True,
+         "candidate_activation": "relu", "cell_activation": "sigmoid"},
+        _PROD),
+    "sequence_pool": ("sequence_pool", lambda r: {
+        "X": [_f(r, 3, 5, 4)], "Length": [_lens(5, 2, 3)]},
+        {"pooltype": "SUM"}, None),
+    "sequence_pool:average": ("sequence_pool", lambda r: {
+        "X": [_f(r, 3, 5, 4)], "Length": [_lens(1, 5, 0)]},
+        {"pooltype": "AVERAGE"}, None),
+    "sequence_pool:max_ties": ("sequence_pool", lambda r: {
+        "X": [_tied(r, 3, 6, 4)], "Length": [_lens(6, 4, 2)]},
+        {"pooltype": "MAX"}, None),
+    "sequence_pool:last": ("sequence_pool", lambda r: {
+        "X": [_f(r, 3, 5, 4)], "Length": [_lens(5, 2, 3)]},
+        {"pooltype": "LAST"}, None),
+    "sequence_pool:first": ("sequence_pool", lambda r: {
+        "X": [_f(r, 3, 5, 4)], "Length": [_lens(5, 2, 3)]},
+        {"pooltype": "FIRST"}, None),
+    "sequence_mask": ("sequence_mask", lambda r: {"X": [_lens(3, 0, 6)]},
+                      {"maxlen": 6, "out_dtype": "float32"}, None),
+    "sequence_softmax": ("sequence_softmax", lambda r: {
+        "X": [_f(r, 3, 5)], "Length": [_lens(5, 2, 3)]}, {}, None),
+    "sequence_reverse": ("sequence_reverse", lambda r: {
+        "X": [_f(r, 3, 5, 2)], "Length": [_lens(5, 2, 3)]}, {}, None),
+    "sequence_expand": ("sequence_expand", lambda r: {"X": [_f(r, 3, 4)]},
+                        {"times": 2}, None),
+    "sequence_pad": ("sequence_pad", lambda r: {
+        "X": [_f(r, 9, 2)], "Length": [_lens(2, 5, 2)],
+        "PadValue": [np.array(-1.0, np.float32)]},
+        {"padded_length": 4}, None),
+    "sequence_unpad": ("sequence_unpad", lambda r: {
+        "X": [_f(r, 3, 4, 2)], "Length": [_lens(2, 4, 1)]}, {}, None),
+    "sequence_conv": ("sequence_conv", lambda r: {
+        "X": [_f(r, 2, 5, 3)], "Filter": [_f(r, 9, 4)],
+        "Length": [_lens(5, 3)]}, {"contextLength": 3}, _PROD),
+    "sequence_slice": ("sequence_slice", lambda r: {
+        "X": [_f(r, 3, 5, 2)], "Offset": [_lens(1, 0, 3)],
+        "Length": [_lens(3, 2, 2)]}, {}, None),
+    "sequence_concat": ("sequence_concat", lambda r: {
+        "X": [_f(r, 2, 3, 2), _f(r, 2, 4, 2)],
+        "Length": [_lens(2, 3), _lens(4, 1)]}, {}, None),
+    "sequence_enumerate": ("sequence_enumerate", lambda r: {
+        "X": [_ids(r, 9, 2, 5)], "Length": [_lens(5, 3)]},
+        {"win_size": 3, "pad_value": 7}, None),
+    "sequence_expand_as": ("sequence_expand_as", lambda r: {
+        "X": [_f(r, 3, 2)], "Length": [_lens(4, 1, 2)]}, {"maxlen": 4},
+        None),
+    "gru_unit": ("gru_unit", lambda r: {
+        "Input": [_f(r, 2, 12)], "HiddenPrev": [_f(r, 2, 4)],
+        "Weight": [_f(r, 4, 12)], "Bias": [_f(r, 1, 12)]},
+        {"gate_activation": 1, "activation": 2}, _PROD),
+    "gru": ("gru", lambda r: {
+        "Input": [_f(r, 2, 3, 12)], "Weight": [_f(r, 4, 12)],
+        "Bias": [_f(r, 1, 12)], "H0": [_f(r, 2, 4)]},
+        {"is_reverse": True, "origin_mode": True}, _PROD),
+    "lstm_unit": ("lstm_unit", lambda r: {"X": [_f(r, 2, 16)],
+                                          "C_prev": [_f(r, 2, 4)]},
+                  {"forget_bias": 0.5}, None),
+    "lstm": ("lstm", lambda r: {
+        "Input": [_f(r, 2, 3, 16)], "Weight": [_f(r, 4, 16)],
+        "Bias": [_f(r, 1, 28)]}, {"use_peepholes": True}, _PROD),
+    "lstmp": ("lstmp", lambda r: {
+        "Input": [_f(r, 2, 3, 16)], "Weight": [_f(r, 3, 16)],
+        "ProjWeight": [_f(r, 4, 3)], "Bias": [_f(r, 1, 16)]},
+        {"use_peepholes": False, "is_reverse": True}, _PROD),
+    "warpctc": ("warpctc", lambda r: {
+        "Logits": [_f(r, 2, 6, 5)], "Label": [r.randint(1, 5, (2, 3))],
+        "LogitsLength": [_lens(6, 5)], "LabelLength": [_lens(3, 2)]},
+        {"blank": 0}, _PROD),
+    "warpctc:norm_by_times": ("warpctc", lambda r: {
+        "Logits": [_f(r, 3, 7, 4)], "Label": [r.randint(0, 3, (3, 2))],
+        "LogitsLength": [_lens(7, 4, 6)], "LabelLength": [_lens(2, 1, 2)]},
+        {"blank": 3, "norm_by_times": True}, _PROD),
+    "linear_chain_crf": ("linear_chain_crf", lambda r: {
+        "Emission": [_f(r, 2, 5, 4)], "Transition": [_f(r, 6, 4)],
+        "Label": [_ids(r, 4, 2, 5)], "Length": [_lens(5, 3)]}, {}, _PROD),
+    "crf_decoding": ("crf_decoding", lambda r: {
+        "Emission": [_f(r, 3, 5, 4)], "Transition": [_f(r, 6, 4)],
+        "Length": [_lens(5, 3, 1)]}, {}, None),
+    "crf_decoding:ties": ("crf_decoding", lambda r: {
+        "Emission": [_tied(r, 3, 5, 4) * 0.0 + _tied(r, 3, 5, 1)],
+        "Transition": [np.zeros((6, 4), np.float32)],
+        "Length": [_lens(5, 4, 2)]}, {}, None),
+    "crf_decoding:label": ("crf_decoding", lambda r: {
+        "Emission": [_tied(r, 2, 5, 3)], "Transition": [_tied(r, 5, 3)],
+        "Length": [_lens(5, 3)], "Label": [_ids(r, 3, 2, 5)]}, {}, None),
+    "bce_loss": ("bce_loss", lambda r: {
+        "X": [_probs(r, 4, 3)],
+        "Label": [r.randint(0, 2, (4, 3)).astype(np.float32)]}, {}, None),
+    "nll_loss": ("nll_loss", lambda r: {
+        "X": [_f(r, 4, 5)], "Label": [_ids(r, 5, 4)],
+        "Weight": [_f(r, 5, pos=True)]}, {"ignore_index": 2}, None),
+    "nll_loss:none_4d": ("nll_loss", lambda r: {
+        "X": [_f(r, 2, 3, 4)], "Label": [_ids(r, 3, 2, 4)]},
+        {"reduction": "none"}, None),
+    "log_loss": ("log_loss", lambda r: {
+        "Predicted": [_probs(r, 4, 1)],
+        "Labels": [r.randint(0, 2, (4, 1)).astype(np.float32)]},
+        {"epsilon": 1e-4}, None),
+    "rank_loss": ("rank_loss", lambda r: {
+        "Label": [_probs(r, 4, 1)], "Left": [_f(r, 4, 1)],
+        "Right": [_f(r, 4, 1)]}, {}, None),
+    "margin_rank_loss": ("margin_rank_loss", lambda r: {
+        "X1": [_f(r, 6, 1)], "X2": [_f(r, 6, 1)],
+        "Label": [np.sign(_f(r, 6, 1))]}, {"margin": 0.1}, None),
+    "hinge_loss": ("hinge_loss", lambda r: {
+        "Logits": [_f(r, 5, 1)],
+        "Labels": [r.randint(0, 2, (5, 1)).astype(np.float32)]}, {}, None),
+    "sigmoid_focal_loss": ("sigmoid_focal_loss", lambda r: {
+        "X": [_f(r, 5, 3)], "Label": [r.randint(-1, 4, (5, 1))],
+        "FgNum": [np.array([3], np.int64)]},
+        {"gamma": 2.0, "alpha": 0.25}, None),
+    "bpr_loss": ("bpr_loss", lambda r: {"X": [_f(r, 4, 5)],
+                                        "Label": [_ids(r, 5, 4, 1)]},
+                 {}, None),
+    "center_loss": ("center_loss", lambda r: {
+        "X": [_f(r, 4, 3)], "Label": [_ids(r, 3, 4, 1)],
+        "Centers": [_f(r, 3, 3)],
+        "CenterUpdateRate": [np.array([0.5], np.float32)]},
+        {"cluster_num": 3, "need_update": True}, None),
+    "cos_sim": ("cos_sim", lambda r: {"X": [_f(r, 4, 3)],
+                                      "Y": [_f(r, 1, 3)]}, {}, None),
+    "dist": ("dist", lambda r: {"X": [_f(r, 3, 4)], "Y": [_f(r, 4)]},
+             {"p": 3.0}, None),
+    "dist:inf": ("dist", lambda r: {"X": [_tied(r, 3, 4)],
+                                    "Y": [np.zeros(4, np.float32)]},
+                 {"p": float("inf")}, None),
+    "minus": ("minus", lambda r: {"X": [_f(r, 3, 4)], "Y": [_f(r, 3, 4)]},
+              {}, None),
+    "l1_norm": ("l1_norm", lambda r: {"X": [_f(r, 3, 4)]}, {}, None),
+    "frobenius_norm": ("frobenius_norm", lambda r: {"X": [_f(r, 2, 3, 4)]},
+                       {"dim": [1, 2], "keep_dim": True}, None),
+    "frobenius_norm:all": ("frobenius_norm",
+                           lambda r: {"X": [_f(r, 2, 3)]},
+                           {"reduce_all": True}, None),
+    "cross_entropy2": ("cross_entropy2", lambda r: {
+        "X": [_probs(r, 4, 5)], "Label": [_ids(r, 5, 4, 1)]},
+        {"ignore_index": 1}, None),
+    "elementwise_pow": ("elementwise_pow", lambda r: {
+        "X": [_f(r, 2, 3, pos=True)], "Y": [_f(r, 2, 3)]}, {}, None),
+    "floor": ("floor", lambda r: {"X": [_f(r, 3, 4) * 3]}, {}, None),
+    "slice": ("slice", lambda r: {"X": [_f(r, 3, 4, 5)]},
+              {"axes": [0, 2], "starts": [1, -3], "ends": [3, 100]}, None),
+    "slice:decrease": ("slice", lambda r: {"X": [_f(r, 3, 4, 5)]},
+                       {"axes": [1], "starts": [2], "ends": [3],
+                        "decrease_axis": [1]}, None),
+    "stack": ("stack", lambda r: {"X": [_f(r, 2, 3), _f(r, 2, 3),
+                                        _f(r, 2, 3)]}, {"axis": 1}, None),
+    "squeeze": ("squeeze", lambda r: {"X": [_f(r, 2, 1, 3, 1)]},
+                {"axes": [1]}, None),
+    "row_conv": ("row_conv", lambda r: {"X": [_f(r, 2, 5, 3)],
+                                        "Filter": [_f(r, 3, 3)]}, {}, None),
+    "fill_constant_batch_size_like": (
+        "fill_constant_batch_size_like", lambda r: {"Input": [_f(r, 4, 3)]},
+        {"shape": [-1, 5], "value": 1.5, "dtype": "float32"}, None),
+    "teacher_student_sigmoid_loss": (
+        "teacher_student_sigmoid_loss", lambda r: {
+            "X": [_f(r, 8, 1)],
+            "Label": [np.array([[-2], [-1], [0.3], [1.4], [-1.5], [0.0],
+                                [1.0], [1.9]], np.float32)]}, {}, None),
+    "edit_distance": ("edit_distance", lambda r: {
+        "Hyps": [_ids(r, 3, 3, 5)], "Refs": [_ids(r, 3, 3, 4)],
+        "HypsLength": [_lens(5, 2, 0)], "RefsLength": [_lens(4, 3, 2)]},
+        {"normalized": True}, None),
+    "ctc_align": ("ctc_align", lambda r: {"Input": [np.array(
+        [[1, 1, 0, 2, 2, 0, 1], [1, 2, 1, 2, 1, 2, 1],
+         [0, 0, 0, 0, 0, 0, 0], [2, 0, 2, 2, 1, 1, 0]], np.int64)]},
+        {"blank": 0, "merge_repeated": True}, None),
+    "ctc_align:no_merge": ("ctc_align", lambda r: {
+        "Input": [_ids(r, 3, 3, 6)]},
+        {"blank": 2, "merge_repeated": False}, None),
+    "huber_loss": ("huber_loss", lambda r: {"X": [_f(r, 6, 1)],
+                                            "Y": [_f(r, 6, 1)]},
+                   {"delta": 0.5}, None),
+})
+
 #: cases whose JAX side runs with 64-bit types off: the random streams
 _X32 = {"dropout", "gaussian_random", "truncated_gaussian_random",
         "uniform_random"}
