@@ -178,7 +178,19 @@ same step on ``fluid.CPUPlace()`` from a copy of the card's state, one
 capture per program, the replayed step's time, busy time, idle share and
 graph kernels, the AdamW kernel once per ``adam`` op and step, and each
 inference model saved and loaded back on the card equal to the trained
-program's test clone.
+program's test clone; 25 control flow and the dense ops: (a) every case
+of ``tests/torch_op_cases.py`` (the dense lowerings, forward and grad)
+on the card against the port on the CPU, eagerly and captured, the
+value-shaped ones raising, and the control-flow programs through the
+executor; the ``cond_set`` kernel (``csrc/cond_graph.cu``, an IF node's
+condition) against the host's reading and timed; (b) phase 23's encoder
+with Transformer-base's warm-up built in the Program (``layers.case``)
+for 6 steps through both branches: one capture, phase 23's launches per
+step, the lr within 1 ulp of the closed form, bit-equal to a twin fed
+that lr; (c) one encoder layer under ``while_loop``: forward at fed trip
+counts, the key split at the loop (trip + 1 host reads), bit-equal to
+the unrolled twins; trained with ``max_iters`` (IF nodes with the flash
+and LayerNorm kernels inside) against the unrolled twins.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -7456,7 +7468,7 @@ def book_program(torch, ctr, card, b):
                                  f"counter {card_scope.get_numpy(counter[0])}")
     entry = next(e for e in card_exe._exe._cache.values()
                  if e._refs[0] is b.main and e.graph is not None)
-    kernels = jit.graph_kernels(entry.graph.graph)
+    kernels = entry.graph.kernels()
     step_ms = float(np.mean(secs[2:])) * 1e3
     with ctr.aside():
         busy, _ = device_trace(torch, lambda: [card_exe.run(
@@ -7544,6 +7556,668 @@ def book_phase(torch, ctr, card):
     return out
 
 
+
+# ------------------------------------------------------------ phase 25
+#: (a): the card against the port on the CPU on the cases of
+#: tests/torch_op_cases.py (the dense half of the op library and the
+#: control-flow ops, the OP_CASES that tests/test_torch_static.py holds
+#: against the JAX package): integers and booleans exactly, NaN and inf
+#: where the CPU has them, floats within ``1e-5 + 1e-4 |cpu|`` (other
+#: kernels, other orders of summation, transcendental routines a few
+#: ulps apart)
+CF_SWEEP_TOL = (1e-5, 1e-4)
+#: (b): the warm-up's length W and the steps (3 warm-up, 3 decay)
+CF_WARMUP, CF_STEPS, CF_TIMED = 3, 6, 5
+#: (c): the forward loop's fed trip counts; the trained loop's bound and
+#: its trip count per step
+CF_TRIPS, CF_MAX_ITERS, CF_TRAIN_TRIPS = (6, 3, 6), 6, (6, 6, 6, 4)
+#: (c): launches of one live iteration of the trained loop: the forward
+#: (flash_fwd, 2 ln_fwd), the grad's recompute of it, and the VJP's
+#: forward under autograd and backward; one AdamW launch per parameter
+#: (16) per step
+CF_PER_ITER = {"flash_fwd": 3, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+               "ln_fwd": 6, "ln_bwd": 2}
+CF_PARAMS = 16
+#: cond_set launches per replay: 2 IF nodes for the warm-up's case; the
+#: trained loop's max_iters IF nodes forward, and again in its grad's
+#: recompute and reverse
+CF_SET_WARMUP, CF_SET_LOOP = 2, 3 * CF_MAX_ITERS
+
+
+def _op_cases():
+    """tests/torch_op_cases.py, which imports numpy only."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_op_cases", os.path.join(ROOT, "tests", "torch_op_cases.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _case_fn(torch, reg, op_type, ins, attrs, cots, key, dev, eager):
+    """A function running one op's lowering on ``ins`` and then the grad
+    ops its ``make_grad_ops`` gives, fed ``cots``: ``(outs, grads)``."""
+    import types as _t
+
+    def fn():
+        ctx = reg.LoweringContext(rng=key, device=dev, eager=eager)
+        outs = reg.execute(ctx, op_type, ins, dict(attrs))
+        d = reg.get_op_def(op_type)
+        if cots is None or d.not_differentiable:
+            return outs, {}
+        names = {s: [f"{s}:{i}" for i in range(len(v))]
+                 for s, v in list(ins.items()) + list(outs.items())}
+        fw = _t.SimpleNamespace(
+            type=op_type, attrs=dict(attrs),
+            inputs={s: names[s] for s in ins},
+            outputs={s: names[s] for s in outs})
+        out_g = {s: [f"{s}:{i}@G" if v.is_floating_point()
+                     and s not in d.nondiff_outputs else None
+                     for i, v in enumerate(vals)]
+                 for s, vals in outs.items()}
+        wanted = {s: [f"{s}:{i}@IG" if v.is_floating_point() else None
+                      for i, v in enumerate(vals)]
+                  for s, vals in ins.items()}
+        env = {f"{s}:{i}": v for s, vals in list(ins.items())
+               + list(outs.items()) for i, v in enumerate(vals)}
+        env.update(cots)
+        grads = {}
+        for g_type, g_in, g_out, g_attrs in reg.make_grad_ops(fw, out_g,
+                                                              wanted):
+            res = reg.execute(ctx, g_type, {s: [env[n] for n in ns]
+                                            for s, ns in g_in.items()},
+                              g_attrs)
+            for s, ns in g_out.items():
+                for n, v in zip(ns, res[s]):
+                    grads[n] = v
+        return outs, grads
+    return fn
+
+
+def _cf_err(a, b, what, tol=CF_SWEEP_TOL):
+    """Max abs difference of ``a`` (card) and ``b`` (the CPU) over the
+    finite elements; raises unless within ``tol`` (integers, booleans,
+    NaN and inf exactly)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.is_floating_point():
+        a, b = a.double(), b.double()
+    a, b = a.numpy(), b.numpy()
+    if a.shape != b.shape:
+        raise AssertionError(f"phase 25: {what}: shape {a.shape} vs the "
+                             f"CPU's {b.shape}")
+    if b.dtype.kind in "biu":
+        if not np.array_equal(a, b):
+            raise AssertionError(f"phase 25: {what}: {a} vs the CPU's {b}")
+        return 0.0
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    fin = np.isfinite(b64)
+    if not np.array_equal(np.isnan(a64), np.isnan(b64)) or not \
+            np.array_equal(a64[np.isinf(b64)], b64[np.isinf(b64)]):
+        raise AssertionError(f"phase 25: {what}: NaN / inf at other places "
+                             "than the CPU's")
+    if not fin.any():
+        return 0.0
+    err = np.abs(a64[fin] - b64[fin])
+    if not (err <= tol[0] + tol[1] * np.abs(b64[fin])).all():
+        raise AssertionError(f"phase 25: {what}: max abs err "
+                             f"{float(err.max()):.3e} against the CPU")
+    return float(err.max())
+
+
+def _cf_programs(L):
+    """The control-flow ops' programs for the sweep (tests/
+    test_torch_control_flow.py's, the port's builders): ``[(name, build,
+    feeds)]``, ``build()`` giving the fetch names inside a guard."""
+    def cond_prog():
+        x = L.data("x", shape=[3], dtype="float32")
+        p = L.data("p", shape=[1], dtype="bool", append_batch_size=False)
+        return [L.cond(p, lambda: L.scale(x, scale=2.0),
+                       lambda: L.scale(x, scale=-1.0)).name]
+
+    def switch_prog():
+        idx = L.data("idx", shape=[1], dtype="int32",
+                     append_batch_size=False)
+        x = L.data("x", shape=[2], dtype="float32")
+        return [L.switch_case(idx, [lambda: L.scale(x, scale=1.0),
+                                    lambda: L.scale(x, scale=10.0)],
+                              default=lambda: L.scale(x, 100.0)).name]
+
+    def grad_prog():
+        blk = L.data("p", shape=[1], dtype="bool",
+                     append_batch_size=False).block
+        w = blk.create_parameter("w", shape=[4])
+        p = blk.var("p")
+        i = L.fill_constant([1], "int64", 0)
+        three = L.fill_constant([1], "int64", 3)
+        y = L.cond(p, lambda: L.scale(w, scale=2.0), lambda: L.square(w))
+        _, y = L.while_loop(lambda i, h: L.less_than(i, three),
+                            lambda i, h: (L.increment(i, 1.0),
+                                          L.scale(h, scale=1.5)),
+                            [i, y], max_iters=5)
+        loss = L.reduce_sum(y)
+        from paddle_tpu_torch.framework import append_backward
+        g = dict((a.name, b.name) for a, b in append_backward(loss))["w"]
+        return [loss.name, g]
+
+    def loop_prog():
+        step = L.data("step", shape=[1], dtype="float32",
+                      append_batch_size=False)
+        n = L.data("n", shape=[1], dtype="int64", append_batch_size=False)
+        i = L.fill_constant([1], "int64", 0)
+        acc = L.fill_constant([1], "float32", 0.0)
+        _, acc = L.while_loop(lambda i, a: L.less_than(i, n),
+                              lambda i, a: (L.increment(i, 1.0),
+                                            L.elementwise_add(a, step)),
+                              [i, acc])
+        return [acc.name]
+
+    def py_func_prog():
+        x = L.data("x", shape=[3], dtype="float32")
+        out = x.block.create_var("host_out", shape=[-1, 3])
+        out.dtype = "float32"
+        L.py_func(lambda a: a * 3.0 + 1.0, x, out)
+        return [L.scale(out, scale=2.0).name]
+
+    x3 = np.array([[1.0, -2.0, 3.0]], np.float32)
+    x2 = np.array([[1.0, 2.0]], np.float32)
+    return [
+        ("cond", cond_prog, [{"x": x3, "p": np.array([v])}
+                             for v in (True, False, True, False)]),
+        ("switch_case", switch_prog, [{"idx": np.array([v], np.int32),
+                                       "x": x2} for v in (0, 1, 7, -1)]),
+        ("cond + bounded while, grads", grad_prog,
+         [{"p": np.array([v])} for v in (True, False, True)]),
+        ("dynamic while", loop_prog,
+         [{"step": np.array([2.5], np.float32), "n": np.array([v])}
+          for v in (4, 0, 2)]),
+        ("py_func", py_func_prog, [{"x": x3 * v} for v in (1.0, -1.0, 2.0)])]
+
+
+def op_sweep(torch, ctr):
+    """Phase 25 (a): every case of tests/torch_op_cases.py on the card
+    against the port on the CPU, forward and grad: eagerly, then
+    captured and replayed once (a case the reference runs only eagerly,
+    eagerly); the cases that raise, raising on the card too; then the
+    control-flow ops' programs through the executor on the card (eager,
+    capture, replays) against the CPU. Returns the counts and the
+    largest error per family (the lowering's module)."""
+    import zlib
+
+    from paddle_tpu_torch import jit, prng
+    from paddle_tpu_torch.framework import (Executor, Program, Scope,
+                                            program_guard, unique_name)
+    from paddle_tpu_torch.ops import registry as reg
+    import paddle_tpu_torch.layers as L
+    cases = _op_cases()
+    dev = torch.device("cuda")
+    pool = torch.cuda.graph_pool_handle()
+    worst, n = {}, {"eager": 0, "captured": 0, "raised": 0, "programs": 0}
+
+    def note(fam, err):
+        worst[fam] = max(worst.get(fam, 0.0), err)
+
+    for cid in sorted(cases.DENSE_CASES):
+        op_type, make, attrs, _ = cases.DENSE_CASES[cid]
+        ins_np = make(np.random.RandomState(zlib.crc32(cid.encode())))
+        fam = reg.get_op_def(op_type).lowering.__module__.rsplit(".", 1)[1]
+
+        def tensors(d):
+            return {s: [torch.as_tensor(np.asarray(a)).to(d) for a in v]
+                    for s, v in ins_np.items()}
+
+        if cid in cases._RAISES:
+            fn = _case_fn(torch, reg, op_type, tensors(dev), attrs, None,
+                          prng.PRNGKey(5, device=dev), dev, False)
+            try:
+                fn()
+            except cases._RAISES[cid]:
+                n["raised"] += 1
+                continue
+            raise AssertionError(f"phase 25: {cid} did not raise on the card")
+        eager = cid in cases._EAGER
+        cpu = torch.device("cpu")
+        outs, _ = _case_fn(torch, reg, op_type, tensors(cpu), attrs, None,
+                           prng.PRNGKey(5), cpu, eager)()
+        crng = np.random.RandomState(7)
+        cots = None if cid in cases._NO_GRAD else {
+            f"{s}:{i}@G": torch.as_tensor(crng.randn(*v.shape)).to(v.dtype)
+            for s, vals in outs.items() for i, v in enumerate(vals)
+            if v.is_floating_point()}
+        ref = _case_fn(torch, reg, op_type, tensors(cpu), attrs, cots,
+                       prng.PRNGKey(5), cpu, eager)()
+        fn = _case_fn(torch, reg, op_type, tensors(dev), attrs,
+                      None if cots is None else
+                      {k: v.to(dev) for k, v in cots.items()},
+                      prng.PRNGKey(5, device=dev), dev, eager)
+        runs = [fn()]
+        n["eager"] += 1
+        if not eager:
+            jit.warm_up(dev, fn)
+            graph, got, _ = jit.capture(dev, fn, [], pool)
+            graph.replay()
+            torch.cuda.synchronize()
+            runs.append(got)
+            n["captured"] += 1
+        for k, (o, g) in enumerate(runs):
+            what = f"{cid} ({'eager' if k == 0 else 'captured'})"
+            for s, vals in ref[0].items():
+                for a, b in zip(o[s], vals):
+                    if s == "XShape":
+                        if tuple(a.shape) != tuple(b.shape):
+                            raise AssertionError(f"phase 25: {what} XShape")
+                        continue
+                    note(fam, _cf_err(a, b, f"{what} {s}"))
+            if set(g) != set(ref[1]):
+                raise AssertionError(f"phase 25: {what}: grads {sorted(g)} "
+                                     f"vs the CPU's {sorted(ref[1])}")
+            for name, b in ref[1].items():
+                note(fam, _cf_err(g[name], b, f"{what} {name}"))
+    for name, build, feeds in _cf_programs(L):
+        out = {}
+        for place in ("cpu", "cuda"):
+            prog, start = Program(), Program()
+            with program_guard(prog, start), unique_name.guard():
+                fetch = build()
+            scope, exe = Scope(), Executor(place)
+            exe.run(start, scope=scope)
+            if scope.find_var("w") is None and "w" in \
+                    prog.global_block().vars:
+                scope.set_var("w", torch.tensor([1.0, -2.0, 0.5, 3.0],
+                                                device=place))
+            out[place] = [exe.run(prog, feed=f, fetch_list=fetch,
+                                  scope=scope, return_numpy=False)
+                          for f in feeds]
+            if place == "cuda" and exe.captures != 1:
+                raise AssertionError(f"phase 25: {name}: {exe.captures} "
+                                     "captures, expected 1")
+        for got, want in zip(out["cuda"], out["cpu"]):
+            for a, b in zip(got, want):
+                note("control_flow_ops", _cf_err(a, b, name))
+        n["programs"] += 1
+    return n, worst
+
+
+def cond_set_kernel(torch, cg, card):
+    """The IF node's condition kernel held against its plain version
+    (the host's reading of the predicate) and timed: a graph of 64 IF
+    nodes, each around one small add, against the same adds without IF
+    nodes (CUDA events over 50 replays each), per node; the host read
+    per selection."""
+    from paddle_tpu_torch import jit
+    dev = torch.device("cuda")
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    out = torch.zeros(1, device=dev)
+    pool = torch.cuda.graph_pool_handle()
+
+    def two_branch():
+        with cg.if_body(pred):
+            out.fill_(1.0)
+        with cg.if_body(pred, negate=True):
+            out.fill_(2.0)
+
+    jit.warm_up(dev, lambda: out.fill_(0.0))
+    g, _, _ = jit.capture(dev, two_branch, [], pool)
+    err = 0.0
+    for v in np.random.RandomState(25).rand(16) > 0.5:
+        pred.fill_(bool(v))
+        g.replay()
+        plain = 1.0 if cg.plain_select(pred) else 2.0
+        err = max(err, abs(float(out) - plain))
+    small = torch.zeros(8, device=dev)
+
+    def ifs():
+        for _ in range(64):
+            with cg.if_body(pred):
+                small.add_(1.0)
+
+    def adds():
+        for _ in range(64):
+            small.add_(1.0)
+
+    g_if, _, _ = jit.capture(dev, ifs, [], pool)
+    g_add, _, _ = jit.capture(dev, adds, [], pool)
+    pred.fill_(True)
+    t_if = event_ms(torch, lambda: [g_if.replay() for _ in range(50)]) / 50
+    t_add = event_ms(torch, lambda: [g_add.replay() for _ in range(50)]) / 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        cg.plain_select(pred)
+    plain_ms = (time.perf_counter() - t0) / 200 * 1e3
+    ms = max(t_if - t_add, 0.0) / 64
+    bound = 1 / HBM_BYTES_PER_S * 1e3        # one byte read
+    log(f"  [{card}] cond_set: {ms:.5f} ms per IF node (64 taken IF nodes "
+        f"{t_if:.4f} ms, the same adds bare {t_add:.4f} ms per replay); "
+        f"plain (a host read of the predicate) {plain_ms:.5f} ms; bound "
+        f"{bound:.2e} ms (1 byte); 16 selections equal to plain")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None, "max_abs_err": err,
+            "graph_64_if_ms": t_if, "graph_64_adds_ms": t_add}
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (shape, dtype and every value)."""
+    import torch
+    return a.dtype == b.dtype and bool(torch.equal(a, b))
+
+
+def warmup_encoder(torch, ctr, cg, card, sen):
+    """Phase 25 (b): phase 23's encoder (kernel routes) with its lr built
+    in the Program: Transformer-base's warm-up (``NoamLR``: a step
+    counter and ``layers.case``, W = CF_WARMUP), CF_STEPS steps taking
+    both branches: one capture (at step 2), SE_PER_STEP launches per
+    step and CF_SET_WARMUP cond_set per replay, each step's lr within 1
+    float32 ulp of the closed form; a straight-line twin fed that lr per
+    step from the same state: losses and every variable bit for bit;
+    then timed replays."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models import static_encoder as se
+    names = ("use_pallas_attention", "use_pallas_layer_norm")
+    saved = flags.get_flags(list(names))
+    flags.set_flags({n: True for n in names})
+    try:
+        sched, fed = se.NoamLR(CF_WARMUP), se.FedLR()
+        main, startup, loss = se.build_encoder_program(
+            SE_LAYERS, SE_D, SE_HEADS, SE_FFN, SE_SEQ, lr=sched)
+        tmain, tstart, tloss = se.build_encoder_program(
+            SE_LAYERS, SE_D, SE_HEADS, SE_FFN, SE_SEQ, lr=fed)
+        scope, tscope = Scope(), Scope()
+        Executor().run(startup, scope=scope)
+        Executor().run(tstart, scope=tscope)
+        shared = [n for n in tscope.var_names() if scope.find_var(n)
+                  is not None]
+        for n in shared:
+            tscope.set_var(n, scope.find_var(n).clone())
+        x = np.random.RandomState(25).randn(SE_BATCH, SE_SEQ, SE_D) \
+            .astype(np.float32)
+        exe, texe = Executor(), Executor()
+        ctr.zero()
+        set0 = cg.launches
+        lrs, losses, caps = [], [], []
+        for _ in range(CF_STEPS):
+            f = exe.run(main, feed={"x": x},
+                        fetch_list=[loss.name, sched.var.name], scope=scope,
+                        return_numpy=False)
+            losses.append(f[0].clone())
+            lrs.append(np.float32(f[1].reshape(-1)[0].item()))
+            caps.append(exe.captures)
+        torch.cuda.synchronize()
+        launched, routes = ctr.read(), ctr.routes()
+        sets = cg.launches - set0
+        ctr.expect(launched, {k: v * CF_STEPS for k, v in
+                              SE_PER_STEP.items()}, "phase 25 (b)")
+        if caps != [0] + [1] * (CF_STEPS - 1):
+            raise AssertionError(f"phase 25 (b): captures after each step "
+                                 f"{caps}, expected one at step 2")
+        if sets != CF_SET_WARMUP * (CF_STEPS - 1):
+            raise AssertionError(f"phase 25 (b): {sets} cond_set launches, "
+                                 f"expected {CF_SET_WARMUP} per replay")
+        ulps = []
+        for step, lr in enumerate(lrs, 1):
+            want = np.float32(sched.closed_form(step, SE_D))
+            ulps.append(float(abs(lr - want) / np.spacing(want)))
+            if ulps[-1] > 1:
+                raise AssertionError(f"phase 25 (b): step {step} lr {lr!r} "
+                                     f"vs the closed form {want!r}")
+        with ctr.aside():
+            for step, lr in enumerate(lrs):
+                (tl,) = texe.run(tmain, feed={"x": x, "lr": np.array(
+                    [lr], np.float32)}, fetch_list=[tloss.name],
+                    scope=tscope, return_numpy=False)
+                if not _same_bits(tl, losses[step]):
+                    raise AssertionError(
+                        f"phase 25 (b): step {step + 1} loss "
+                        f"{float(losses[step])!r} vs the fed-lr twin's "
+                        f"{float(tl)!r}")
+        diff = [n for n in shared if not _same_bits(scope.find_var(n),
+                                                    tscope.find_var(n))]
+        if diff:
+            raise AssertionError(f"phase 25 (b): {len(diff)} variables "
+                                 f"differ from the twin's, e.g. {diff[:3]}")
+        if texe.captures != 1:
+            raise AssertionError("phase 25 (b): the twin did not capture once")
+
+        def replay():
+            exe.run(main, feed={"x": x}, fetch_list=[loss.name,
+                                                     sched.var.name],
+                    scope=scope, return_numpy=False)
+
+        with ctr.aside():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CF_TIMED):
+                replay()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / CF_TIMED
+            busy, _ = device_trace(torch, lambda: [replay()
+                                                   for _ in range(2)])
+        busy /= 2
+        if exe.captures != 1:
+            raise AssertionError("phase 25 (b): captures after the timed "
+                                 "replays")
+        entry = next(e for e in exe._cache.values() if e.graph is not None
+                     and e._refs[0] is main)
+        log(f"  (b) lr per step {[float(v) for v in lrs]} (within "
+            f"{max(ulps):.0f} ulp of the closed form), losses "
+            f"{[float(v) for v in losses]}, bit-equal to the fed-lr twin "
+            f"(losses and {len(shared)} variables)")
+        log(f"  (b) [{card}] replayed step {dt * 1e3:.3f} ms (phase 23 "
+            f"{sen['step_ms']:.3f} ms), device busy {busy:.3f} ms, idle "
+            f"share {1 - busy / (dt * 1e3):.4f}; IF bodies' kernel nodes "
+            f"{[b.kernels for b in entry.graph.bodies]}")
+    finally:
+        flags.set_flags(saved)
+    return {"launches": launched, "routes": routes, "cond_set": sets,
+            "lr": [float(v) for v in lrs], "lr_ulps": max(ulps),
+            "step_ms": dt * 1e3, "phase23_step_ms": sen["step_ms"],
+            "device_busy_ms": busy, "idle_share": 1 - busy / (dt * 1e3),
+            "body_kernels": [b.kernels for b in entry.graph.bodies]}
+
+
+def loop_encoder(torch, ctr, cg, card):
+    """Phase 25 (c): one encoder layer of (b)'s widths, its weights
+    shared, under ``while_loop``: forward at fed trip counts CF_TRIPS
+    (the key split at the loop: the body a graph of its own replayed
+    while the host reads the condition, trip + 1 reads per run), each
+    output bit-equal to the unrolled twin of that depth; then with
+    ``max_iters`` (CF_MAX_ITERS IF nodes on the live flag, forward and in
+    the grad) trained at trip counts CF_TRAIN_TRIPS, one capture, against
+    the unrolled twins trained from the same state."""
+    from paddle_tpu_torch import flags, jit
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models import static_encoder as se
+    names = ("use_pallas_attention", "use_pallas_layer_norm")
+    saved = flags.get_flags(list(names))
+    flags.set_flags({n: True for n in names})
+    kw = dict(d_model=SE_D, num_heads=SE_HEADS, d_ffn=SE_FFN, seq=SE_SEQ)
+    x = np.random.RandomState(26).randn(SE_BATCH, SE_SEQ, SE_D) \
+        .astype(np.float32)
+    res = {}
+    try:
+        main, startup, out, _ = se.build_loop_program(**kw)
+        scope, exe = Scope(), Executor()
+        exe.run(startup, scope=scope)
+        twins = {}
+        fwd = []
+        for t in CF_TRIPS:
+            ctr.zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = exe.run(main, feed={"x": x, "n": np.array([t], np.int64)},
+                        fetch_list=[out.name], scope=scope,
+                        return_numpy=False)[0]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = ctr.read()
+            ctr.expect(launched, {"flash_fwd": t, "ln_fwd": 2 * t},
+                       f"phase 25 (c) forward, trip count {t}")
+            if exe.host_syncs != t + 1:
+                raise AssertionError(f"phase 25 (c): {exe.host_syncs} host "
+                                     f"reads at trip count {t}, expected "
+                                     f"{t + 1}")
+            with ctr.aside():
+                if t not in twins:
+                    twins[t] = se.build_unrolled_program(t, **kw) + (
+                        Executor(),)
+                um, _, uout, _, uexe = twins[t]
+                u = uexe.run(um, feed={"x": x}, fetch_list=[uout.name],
+                             scope=scope, return_numpy=False)[0]
+            if not _same_bits(f, u):
+                raise AssertionError(f"phase 25 (c): trip count {t}: the "
+                                     "loop's output differs from the "
+                                     "unrolled twin's")
+            fwd.append({"trip": t, "host_reads": exe.host_syncs,
+                        "launches": launched, "ms": ms})
+        if exe.captures != 1:
+            raise AssertionError(f"phase 25 (c): {exe.captures} captures "
+                                 "of the forward loop, expected 1")
+        entry = next(e for e in exe._cache.values() if e.graph is not None)
+        body = next(p[4].state[3] for p in entry.graph.pieces
+                    if p[0] == "host")
+        res["forward"] = {"runs": fwd, "graphs": exe.graphs,
+                          "body_graph_kernels": jit.graph_kernels(body[0])}
+        log(f"  (c) forward at trip counts {CF_TRIPS}: bit-equal to the "
+            f"unrolled twins; host reads {[r['host_reads'] for r in fwd]}; "
+            f"[{card}] ms per run (host clock; eager, capture, replay) "
+            f"{[round(r['ms'], 3) for r in fwd]}; "
+            f"{exe.graphs} graphs (the pieces and the body, "
+            f"{res['forward']['body_graph_kernels']} kernel nodes)")
+        del main, scope, exe, twins
+
+        main, startup, _, loss = se.build_loop_program(
+            **kw, max_iters=CF_MAX_ITERS, lr=SE_LR)
+        scope, exe = Scope(), Executor()
+        exe.run(startup, scope=scope)
+        tw = {d: se.build_unrolled_program(d, **kw, train=True, lr=SE_LR)
+              for d in sorted(set(CF_TRAIN_TRIPS))}
+        tscope = Scope()
+        Executor().run(tw[CF_MAX_ITERS][1], scope=tscope)
+        shared = [n for n in tscope.var_names() if scope.find_var(n)
+                  is not None]
+        for n in shared:
+            tscope.set_var(n, scope.find_var(n).clone())
+        texe = {d: Executor() for d in tw}
+        bit_equal, worst = True, {"loss": 0.0, "param": 0.0}
+        steps, set0 = [], cg.launches
+        for k, t in enumerate(CF_TRAIN_TRIPS, 1):
+            ctr.zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed={"x": x, "n": np.array([t], np.int64)},
+                            fetch_list=[loss.name], scope=scope,
+                            return_numpy=False)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched, routes = ctr.read(), ctr.routes()
+            want = {n_: v * t for n_, v in CF_PER_ITER.items()}
+            want["adamw"] = CF_PARAMS
+            ctr.expect(launched, want, f"phase 25 (c) step {k}")
+            with ctr.aside():
+                um, _, _, uloss = tw[t]
+                (lu,) = texe[t].run(um, feed={"x": x},
+                                    fetch_list=[uloss.name], scope=tscope,
+                                    return_numpy=False)
+            if not _same_bits(lv, lu):
+                bit_equal = False
+            d = abs(float(lv) - float(lu))
+            worst["loss"] = max(worst["loss"], d)
+            if not d <= SE_LOSS_RTOL * abs(float(lu)):
+                raise AssertionError(f"phase 25 (c) step {k}: loss "
+                                     f"{float(lv)!r} vs the twin's "
+                                     f"{float(lu)!r}")
+            tol = 2 * k * SE_LR + 1e-6
+            for n_ in shared:
+                a, b = scope.find_var(n_), tscope.find_var(n_)
+                if not _same_bits(a, b):
+                    bit_equal = False
+                    err = float((a.double() - b.double()).abs().max())
+                    worst["param"] = max(worst["param"], err)
+                    if not err <= tol:
+                        raise AssertionError(f"phase 25 (c) step {k}: {n_} "
+                                             f"max abs {err:.3e} > {tol:.1e}")
+            steps.append({"trip": t, "loss": float(lv), "ms": ms,
+                          "launches": launched,
+                          "routes": {n_: routes[n_] for n_ in
+                                     ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")}})
+        sets = cg.launches - set0
+        if exe.captures != 1:
+            raise AssertionError(f"phase 25 (c): {exe.captures} captures of "
+                                 "the trained loop, expected 1")
+        if sets != CF_SET_LOOP * (len(CF_TRAIN_TRIPS) - 1):
+            raise AssertionError(f"phase 25 (c): {sets} cond_set launches, "
+                                 f"expected {CF_SET_LOOP} per replay")
+        entry = next(e for e in exe._cache.values() if e.graph is not None)
+        bodies = entry.graph.bodies
+        inside = {}
+        for b in bodies:
+            for (mod, kern, route), v in b.delta.items():
+                if route is None:
+                    inside[kern or mod] = inside.get(kern or mod, 0) + v
+        res["train"] = {"steps": steps, "cond_set": sets,
+                        "bit_equal_to_twin": bit_equal, "worst": worst,
+                        "if_bodies": len(bodies),
+                        "body_kernels": [b.kernels for b in bodies],
+                        "launches_inside_if_bodies_per_live_run": inside}
+        if not all(inside.get(n_) for n_ in ("flash_fwd", "ln_fwd",
+                                              "flash_bwd_dq", "ln_bwd")):
+            raise AssertionError(f"phase 25 (c): kernels inside the IF "
+                                 f"bodies {inside}")
+        log(f"  (c) [{card}] trained at trip counts {CF_TRAIN_TRIPS}: ms per "
+            f"step (host clock; eager, capture, replays) "
+            f"{[round(s['ms'], 3) for s in steps]}; losses "
+            f"{[s['loss'] for s in steps]}; "
+            + ("bit-equal to the unrolled twins" if bit_equal else
+               f"within phase 23's tolerances of the unrolled twins (worst "
+               f"{worst}): the grad sums the shared weights' gradients "
+               f"iteration by iteration, the twin's backward in its own "
+               f"order"))
+        log(f"  (c) flash launches by route per step "
+            f"{[s['routes'] for s in steps]}; {len(bodies)} IF bodies, "
+            f"kernel nodes {[b.kernels for b in bodies]}; counted launches "
+            f"inside the IF bodies (per run of each) {inside}")
+    finally:
+        flags.set_flags(saved)
+    return res
+
+
+def control_flow_phase(torch, ctr, card, sen):
+    """Phase 25: (a) the sweep, the cond_set kernel, (b) the warm-up
+    encoder, (c) the shared-layer loop."""
+    from paddle_tpu_torch.ops.cuda import cond_graph as cg
+    api = hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node")
+    log(f"  torch {torch.__version__}: begin_capture_to_if_node "
+        f"{'present' if api else 'absent'}; the IF nodes are made through "
+        f"the CUDA runtime (csrc/cond_graph.cu) either way")
+    with ctr.aside():
+        counts, worst = op_sweep(torch, ctr)
+    log(f"  (a) {counts['eager']} cases on the card against the CPU "
+        f"eagerly, {counts['captured']} of them captured and replayed, "
+        f"{counts['raised']} raising as the reference's do, "
+        f"{counts['programs']} control-flow programs through the executor; "
+        f"largest error per family {worst}")
+    with ctr.aside():
+        kern = cond_set_kernel(torch, cg, card)
+    set0 = cg.launches
+    warm = warmup_encoder(torch, ctr, cg, card, sen)
+    torch.cuda.empty_cache()
+    loop = loop_encoder(torch, ctr, cg, card)
+    torch.cuda.empty_cache()
+    launches = {}
+    for r in [warm["launches"]] + [s["launches"]
+                                   for s in loop["train"]["steps"]] + \
+            [r["launches"] for r in loop["forward"]["runs"]]:
+        for k, v in r.items():
+            launches[k] = launches.get(k, 0) + v
+    launches["cond_set"] = cg.launches - set0
+    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "ln_fwd",
+              "ln_bwd", "adamw", "cond_set"):
+        if not launches.get(k):
+            raise AssertionError(f"phase 25: {k} never launched")
+    return {"sweep": {"counts": counts, "worst": worst}, "cond_set": kern,
+            "warmup": warm, "loop": loop, "launches": launches}
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7566,7 +8240,7 @@ def main():
 
     log("== phase 2: build (one nvcc per source, started together)")
     sources = ["paged_attention", "flash_attention", "layer_norm",
-               "flash_pack2", "adamw"]
+               "flash_pack2", "adamw", "cond_graph"]
     t_build = time.perf_counter()
     _build.load_all(sources)
     log(f"  {len(sources)} built in {time.perf_counter() - t_build:.2f} s")
@@ -7800,6 +8474,16 @@ def main():
     t_book = time.perf_counter()
     bk = book_phase(torch, ctr, card)
     log(f"  phase 24 took {time.perf_counter() - t_book:.1f} s")
+
+    log(f"== phase 25: control flow and the dense ops: (a) the op sweep, "
+        f"card against CPU, eager and captured; (b) phase 23's encoder with "
+        f"Transformer-base's warm-up in the Program (layers.case, W "
+        f"{CF_WARMUP}) against a fed-lr twin; (c) one encoder layer under "
+        f"while_loop, forward at trip counts {CF_TRIPS} and trained with "
+        f"max_iters {CF_MAX_ITERS}, against unrolled twins")
+    t_cf = time.perf_counter()
+    cfl = control_flow_phase(torch, ctr, card, sen)
+    log(f"  phase 25 took {time.perf_counter() - t_cf:.1f} s")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -7897,7 +8581,8 @@ def main():
             launches_by_route_transformer=tfm["routes"][name],
             f32_static_encoder=sen["flash_f32"][name],
             launches_static_encoder=sen["launches"][name],
-            launches_by_route_static_encoder=sen["routes"][name]))
+            launches_by_route_static_encoder=sen["routes"][name],
+            launches_control_flow=cfl["launches"][name]))
     for name, line in (("ln_fwd", 27), ("ln_bwd", 40)):
         t = ltimes[name]["ernie-base"]
         kernels.append(entry(
@@ -7908,7 +8593,8 @@ def main():
             launches_gpt_step=trn_ln["launches"][name],
             launches_captured=ern["captured"]["launches"][name],
             launches_transformer=tfm["launches"][name],
-            launches_static_encoder=sen["launches"][name]))
+            launches_static_encoder=sen["launches"][name],
+            launches_control_flow=cfl["launches"][name]))
     kernels.append(entry(
         "packed_flash_fwd", "flash_pack2.cu", "tools/flash_pack2_bench.py:48",
         packed["launches"], packed_err["packed_flash_fwd"], packed,
@@ -7931,7 +8617,16 @@ def main():
         launches_optimizer_plane=plane["gpt2_medium"]["launches"]["adamw"],
         launches_transformer=tfm["launches"]["adamw"],
         launches_static_encoder=sen["launches"]["adamw"],
-        launches_book=bk["launches"]["adamw"]))
+        launches_book=bk["launches"]["adamw"],
+        launches_control_flow=cfl["launches"]["adamw"]))
+    kernels.append(entry(
+        "cond_set", "cond_graph.cu", "paddle_tpu/ops/control_flow_ops.py:142",
+        cfl["launches"]["cond_set"], cfl["cond_set"]["max_abs_err"],
+        cfl["cond_set"], cases_passed=16,
+        plain="a host read of the predicate (the path of a run that "
+        "captures nothing)", per="IF node",
+        launches_warmup_encoder=cfl["warmup"]["cond_set"],
+        launches_loop=cfl["loop"]["train"]["cond_set"]))
 
     def summary(r):
         return {k: summary(v) if isinstance(v, dict) and k != "routes"
@@ -7956,7 +8651,8 @@ def main():
                       "transformer_base": summary(tfm),
                       "widedeep": summary(wdp),
                       "static_encoder": summary(sen),
-                      "book": summary(bk)}), flush=True)
+                      "book": summary(bk),
+                      "control_flow": summary(cfl)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

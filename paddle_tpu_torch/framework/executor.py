@@ -56,6 +56,7 @@ from .. import jit as _jit
 from .. import prng
 from ..analysis import concurrency as _ccz
 from ..device import resolve_device
+from ..ops import control_flow_ops as _cf
 from ..ops import registry as _reg
 from ..resilience.injector import fault_point
 from .program import Program, Variable, default_main_program
@@ -92,10 +93,16 @@ class _BlockRunner:
         self.axis_env = axis_env or {}
         self.device = device
 
-    def run_block(self, block_idx: int, env: Dict[str, Any], rng) -> Dict[str, Any]:
+    def run_block(self, block_idx: int, env: Dict[str, Any], rng,
+                  start: int = 0, stop: Optional[int] = None,
+                  host_loop=None) -> Dict[str, Any]:
+        """Run ops ``[start, stop)`` of the block (all by default) on
+        ``env``; ``host_loop`` goes to a dynamic ``while`` the executor
+        split its key at."""
         block = self.program.blocks[block_idx]
         check = _flags.get_flag("check_nan_inf")
-        for i, op in enumerate(block.ops):
+        ops = block.ops[start:stop]
+        for i, op in enumerate(ops, start):
             # __rng_tag__ pins an op's stream to another position: a
             # recompute clone regenerates the identical dropout mask
             rng_key = op.attrs.get("__rng_tag__", i)
@@ -106,6 +113,8 @@ class _BlockRunner:
                 axis_env=self.axis_env, device=self.device)
             ctx.block_runner = self  # control-flow hook
             ctx.env = env
+            ctx.block_idx = block_idx
+            ctx.host_loop = host_loop
             ins = {}
             for slot, names in op.inputs.items():
                 vals = []
@@ -128,6 +137,38 @@ class _BlockRunner:
                         check_nan_inf_hook(op.type, n, v)
                     env[n] = v
         return env
+
+
+def plan_pieces(program: Program, on_card: bool):
+    """Block 0's ops as the pieces a captured key is made of: ``(start,
+    stop, host)``. A host piece is one op the host must run (a ``while``
+    without ``max_iters``, a ``py_func``: :func:`~..ops.control_flow_ops.
+    splits_key`); the ops between are graphs, and the last piece is a
+    graph (the state write-back closes it). Decided from the op types
+    before the first run; on the card a host op nested in a captured
+    body raises here."""
+    from ..ops.control_flow_ops import splits_key
+    from .program import op_sub_block_indices, transitive_sub_blocks
+    ops = program.global_block().ops
+    pieces, start = [], 0
+    for i, op in enumerate(ops):
+        if splits_key(op):
+            if start < i:
+                pieces.append((start, i, False))
+            pieces.append((i, i + 1, True))
+            start = i + 1
+        elif on_card:
+            for si in op_sub_block_indices(op):
+                for bi in transitive_sub_blocks(program, si):
+                    inner = [o.type for o in program.blocks[bi].ops
+                             if splits_key(o)]
+                    if inner:
+                        raise NotImplementedError(
+                            f"op {op.type!r} holds host op(s) {inner} in a "
+                            f"sub-block; only a top-level one can split a "
+                            f"captured key")
+    pieces.append((start, len(ops), False))
+    return pieces
 
 
 def _collect_io(block, feed_names, scope: Scope):
@@ -180,25 +221,39 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 class _ExecGraph:
-    """One captured step: the graph, its feed buffers, its key buffer,
-    its fetch outputs and the launch counts one replay adds."""
+    """One captured key: its pieces in order (``("graph", graph, delta,
+    bodies)`` or ``("host", op index, inputs, output buffers,
+    host_loop)``), its feed buffers, its key buffer and its fetch
+    outputs."""
 
-    def __init__(self, graph, feeds, rng, outputs, delta):
-        self.graph, self.feeds, self.rng = graph, feeds, rng
-        self.outputs, self.delta = outputs, delta
+    def __init__(self, pieces, feeds, rng, outputs):
+        self.pieces, self.feeds, self.rng = pieces, feeds, rng
+        self.outputs = outputs
+
+    @property
+    def bodies(self):
+        return [b for p in self.pieces if p[0] == "graph" for b in p[3]]
+
+    def kernels(self) -> int:
+        """The kernel nodes of the key's graphs (IF bodies apart)."""
+        return sum(_jit.graph_kernels(p[1]) for p in self.pieces
+                   if p[0] == "graph")
 
 
 class _Entry:
     """One cache key's analysis, its run count and, on the card, its
     graph."""
 
-    def __init__(self, runner, state_in, written, fetch_names, refs):
+    def __init__(self, runner, state_in, written, fetch_names, refs,
+                 pieces=None):
         self.runner = runner
         self.state_in, self.written = state_in, written
         self.fetch_names = fetch_names
         self._refs = refs         # (program, scope): ids stay unique
+        self.pieces = pieces      # plan_pieces' split of block 0
         self.runs = 0
         self.graph: Optional[_ExecGraph] = None
+        self.feed_bufs = None     # the feeds' tensors on the card
 
     def drop_graph(self):
         """Forget the graph (a held tensor was rebound): the next run is
@@ -229,7 +284,9 @@ class Executor:
         # program.random_seed for determinism
         self._nprng = np.random.RandomState()
         self._pool = None         # the graphs' memory pool (card)
-        self.captures = 0         # graphs captured (card)
+        self.captures = 0         # keys captured (card)
+        self.graphs = 0           # graphs captured (a split key has several)
+        self.host_syncs = 0       # host reads of predicates, the last run
 
     # -- public API --------------------------------------------------------
     def run(
@@ -270,6 +327,7 @@ class Executor:
         entry = self._cache.get(key)
         new = entry is None
         t0 = time.perf_counter()
+        reads0 = _cf.host_reads
         if new:
             with self._build_lock:
                 entry = self._cache.get(key)
@@ -282,12 +340,13 @@ class Executor:
         graphs = (dev.type == "cuda" and _jit.capture_enabled()
                   and not _flags.get_flag("check_nan_inf"))
         if graphs and entry.graph is None and entry.runs >= 1:
-            self._capture(entry, scope, state, feed, rng)
+            fetches = self._capture(entry, scope, state, feed, rng)
             self._compiled(feed, t0)
-        if graphs and entry.graph is not None:
-            fetches = self._replay(entry.graph, feed, rng)
+        elif graphs and entry.graph is not None:
+            fetches = self._replay(entry, feed, rng)
         else:
-            feed_dev = {k: v.to(dev) for k, v in feed.items()}
+            feed_dev = (self._feed_buffers(entry, feed) if dev.type == "cuda"
+                        else {k: v.to(dev) for k, v in feed.items()})
             rng_dev = rng.to(dev)
             if dev.type == "cuda":
                 fetches = _jit.warm_up(dev, self._eager, entry, scope,
@@ -298,6 +357,7 @@ class Executor:
             if new and dev.type != "cuda":
                 self._compiled(feed, t0)
         entry.runs += 1
+        self.host_syncs = _cf.host_reads - reads0
         if return_numpy:
             return [_to_numpy(f) for f in fetches]
         return list(fetches)
@@ -359,8 +419,9 @@ class Executor:
         block = program.global_block()
         state_in, written = _collect_io(block, feed_arrays.keys(), scope)
         runner = _BlockRunner(program, device=self.device)
+        pieces = plan_pieces(program, self.device.type == "cuda")
         return _Entry(runner, state_in, written, fetch_names,
-                      (program, scope))
+                      (program, scope), pieces)
 
     def _state(self, entry, scope) -> Dict[str, torch.Tensor]:
         """The scope's tensors of the entry's state inputs, on the
@@ -381,11 +442,16 @@ class Executor:
 
     def _body(self, entry, scope, state, feed, rng, capturing=False):
         """One step: run the block, take the fetches, write the changed
-        state into the scope's tensors. Under capture a variable the scope
-        lacks, or whose tensor does not fit, raises."""
+        state into the scope's tensors."""
         env = dict(state)
         env.update(feed)
         env = entry.runner.run_block(0, env, rng)
+        return self._finish(entry, scope, env, capturing)
+
+    def _finish(self, entry, scope, env, capturing):
+        """The fetches of ``env`` (clones unless capturing) and its state
+        written into the scope's tensors. Under capture a variable the
+        scope lacks, or whose tensor does not fit, raises."""
         missing = [n for n in entry.fetch_names if n not in env]
         if missing:
             raise KeyError(f"fetch vars not produced by program: {missing}")
@@ -415,29 +481,97 @@ class Executor:
         with torch.no_grad():
             return self._body(entry, scope, state, feed, rng)
 
+    def _capture_graph(self, fn):
+        """``fn()`` captured as one graph of the executor's pool: ``(graph,
+        delta, bodies)``."""
+        from ..ops.cuda import cond_graph
+        with cond_graph.collecting() as bodies:
+            graph, _, delta = _jit.capture(self.device, fn, [], self._pool)
+        for b in bodies:
+            b.count_kernels()
+        self.graphs += 1
+        return graph, delta, bodies
+
+    @staticmethod
+    def _replay_graph(graph, delta, bodies):
+        from ..ops.cuda import cond_graph
+        _jit.replay(graph, delta)
+        cond_graph.settle(bodies)
+
     def _capture(self, entry, scope, state, feed, rng):
+        """The key's second run: each piece is captured and replayed in
+        turn (a capture runs nothing), a host piece is run by the host
+        (a dynamic ``while`` captures its body's graph on the way); the
+        last graph writes the state back. Returns the fetches."""
+        from ..ops.control_flow_ops import HostLoop
         dev = self.device
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        feeds = {k: v.to(dev, copy=True) for k, v in feed.items()}
+        feeds = self._feed_buffers(entry, feed)
         rng_buf = rng.to(dev, copy=True)
+        env = dict(state)
+        env.update(feeds)
+        runner, ops = entry.runner, entry._refs[0].global_block().ops
+        pieces, out = [], []
+        with torch.no_grad():
+            for a, b, host in entry.pieces:
+                if host:
+                    loop = HostLoop(self._capture_graph,
+                                    lambda g: self._replay_graph(*g))
+                    op = ops[a]
+                    ins = {n: env[n] for names in op.inputs.values()
+                           for n in names}
+                    runner.run_block(0, env, rng_buf, a, b, host_loop=loop)
+                    bufs = {n: env[n].clone() for names in
+                            op.outputs.values() for n in names if n in env}
+                    env.update(bufs)
+                    pieces.append(("host", a, ins, bufs, loop))
+                    continue
+                last = b == len(ops)
 
-        def body():
-            with torch.no_grad():
-                return self._body(entry, scope, state, feeds, rng_buf,
-                                  capturing=True)
+                def fn(a=a, b=b, last=last):
+                    runner.run_block(0, env, rng_buf, a, b)
+                    if last:
+                        out.extend(self._finish(entry, scope, env, True))
 
-        graph, outputs, delta = _jit.capture(dev, body, [], self._pool)
+                graph, delta, bodies = self._capture_graph(fn)
+                self._replay_graph(graph, delta, bodies)
+                pieces.append(("graph", graph, delta, bodies))
         self.captures += 1
-        entry.graph = _ExecGraph(graph, feeds, rng_buf, outputs, delta)
+        entry.graph = _ExecGraph(pieces, feeds, rng_buf, out)
         scope._hold(set(entry.state_in) | set(entry.written), entry)
+        return [o.clone() for o in out]
 
-    @staticmethod
-    def _replay(g: _ExecGraph, feed, rng):
+    def _feed_buffers(self, entry, feed):
+        """The entry's feed tensors on the card, filled with ``feed``: the
+        same tensors from its first run on, so the eager run and the
+        capture hand the ops the same addresses (the AdamW kernel's
+        tables are keyed by them: a fed learning rate)."""
+        bufs = entry.feed_bufs
+        if bufs is None:
+            bufs = entry.feed_bufs = {k: v.to(self.device, copy=True)
+                                      for k, v in feed.items()}
+        else:
+            for k, buf in bufs.items():
+                buf.copy_(feed[k], non_blocking=True)
+        return bufs
+
+    def _replay(self, entry, feed, rng):
+        g = entry.graph
         for k, buf in g.feeds.items():
             buf.copy_(feed[k], non_blocking=True)
         g.rng.copy_(rng, non_blocking=True)
-        _jit.replay(g.graph, g.delta)
+        runner = entry.runner
+        with torch.no_grad():
+            for p in g.pieces:
+                if p[0] == "graph":
+                    self._replay_graph(*p[1:])
+                    continue
+                _, a, ins, bufs, loop = p
+                env = runner.run_block(0, dict(ins), g.rng, a, a + 1,
+                                       host_loop=loop)
+                for n, buf in bufs.items():
+                    buf.copy_(env[n])
         return [o.clone() for o in g.outputs]
 
     @staticmethod

@@ -84,9 +84,10 @@ from .analysis import concurrency as _ccz
 # ------------------------------------------------------------ launch counts
 
 def _counted_modules():
-    from .ops.cuda import (adamw, flash_attention, flash_pack2, layer_norm,
-                           paged_attention)
-    return (adamw, flash_attention, flash_pack2, layer_norm, paged_attention)
+    from .ops.cuda import (adamw, cond_graph, flash_attention, flash_pack2,
+                           layer_norm, paged_attention)
+    return (adamw, flash_attention, flash_pack2, layer_norm, paged_attention,
+            cond_graph)
 
 
 def _launch_lock():
@@ -298,7 +299,15 @@ def graph_kernels(graph) -> int:
     """The kernels one replay of ``graph`` (from :func:`capture`)
     launches: its kernel nodes, those of child graphs included, read from
     the kept ``cudaGraph_t`` through the driver API. Exact where a
-    profiler's trace of a replay may drop or add a record."""
+    profiler's trace of a replay may drop or add a record. The bodies of
+    IF nodes (:mod:`.ops.cuda.cond_graph`) are not counted: a replay may
+    skip them."""
+    return graph_node_kernels(graph.raw_cuda_graph())
+
+
+def graph_node_kernels(raw) -> int:
+    """The kernel nodes of the ``cudaGraph_t`` ``raw`` (an int or a
+    ``ctypes.c_void_p``), child graphs included."""
     import ctypes
     cu = ctypes.CDLL("libcuda.so.1")
     ptr, size = ctypes.c_void_p, ctypes.c_size_t
@@ -328,7 +337,7 @@ def graph_kernels(graph) -> int:
                 total += count(child)
         return total
 
-    return count(ptr(graph.raw_cuda_graph()))
+    return count(raw if isinstance(raw, ptr) else ptr(raw))
 
 
 def replay(graph, delta):

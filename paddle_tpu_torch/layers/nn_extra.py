@@ -6,16 +6,17 @@
 ``teacher_student_sigmoid_loss``, ``huber_loss``, ``linear_chain_crf``,
 ``exponential_decay``, ``crf_decoding``, ``sums``,
 ``fill_constant_batch_size_like``, ``warpctc``, ``edit_distance``,
-``ctc_greedy_decoder`` and ``row_conv``, copies of the reference's.
+``ctc_greedy_decoder`` and ``row_conv``; and the selection and
+activation builders over the dense lowerings (``multiplex``,
+``index_sample``, ``masked_select``, ``scatter_nd_add``, ``gather_tree``,
+``reverse``, ``selu``, ``mish``), copies of the reference's.
 
-Waiting for ROADMAP A7.2b, with their lowerings: the image and
-activation builders (``:37-230``: ``lrn``, ``pixel_shuffle``,
-``space_to_depth``, ``shuffle_channel``, ``temporal_shift``,
-``affine_channel``, ``affine_grid``, ``grid_sampler``, the ``resize_*``
-family and ``image_resize``, ``crop_tensor``, ``pad_constant_like``,
-``unfold``, ``maxout``, ``add_position_encoding``, ``multiplex``,
-``index_sample``, ``masked_select``, ``scatter_nd_add``,
-``gather_tree``, ``reverse``, ``sampling_id``, ``selu``, ``mish``); the
+Waiting for ROADMAP A7.2b2, with their lowerings: the image builders
+(``:37-170``: ``lrn``, ``pixel_shuffle``, ``space_to_depth``,
+``shuffle_channel``, ``temporal_shift``, ``affine_channel``,
+``affine_grid``, ``grid_sampler``, the ``resize_*`` family and
+``image_resize``, ``crop_tensor``, ``pad_constant_like``, ``unfold``,
+``maxout``, ``add_position_encoding``, ``sampling_id``); the
 CTR builders (``:297-337``: ``continuous_value_model``, ``data_norm``,
 ``nce``, ``hsigmoid``); and ``bilinear_tensor_product``,
 ``spectral_norm`` and ``mean_iou`` (``:467-500``).
@@ -50,6 +51,57 @@ def _one_out(op, inputs, attrs=None, out_slot="Out", name=None, dtype=None,
     return (out, *extras) if extras else out
 
 
+
+
+# -- selection ----------------------------------------------------------
+
+
+def multiplex(inputs, index, name=None):
+    return _one_out("multiplex", {"X": list(inputs), "Ids": index},
+                    name=name)
+
+
+def index_sample(x, index, name=None):
+    return _one_out("index_sample", {"X": x, "Index": index}, name=name)
+
+
+def masked_select(x, mask, name=None):
+    """Eager-only (an output shape that depends on the values; the
+    lowering raises in the executor)."""
+    return _one_out("masked_select", {"X": x, "Mask": mask},
+                    out_slot="Y", name=name)
+
+
+def scatter_nd_add(ref, index, updates, name=None):
+    return _one_out("scatter_nd_add",
+                    {"X": ref, "Index": index, "Updates": updates},
+                    name=name)
+
+
+def gather_tree(ids, parents):
+    return _one_out("gather_tree", {"Ids": ids, "Parents": parents})
+
+
+def reverse(x, axis, name=None):
+    return _one_out("reverse", {"X": x},
+                    {"axis": axis if isinstance(axis, (list, tuple))
+                     else [axis]}, name=name)
+
+
+# -- activations --------------------------------------------------------
+
+
+def selu(x, scale=None, alpha=None, name=None):
+    attrs = {}
+    if scale is not None:
+        attrs["scale"] = scale
+    if alpha is not None:
+        attrs["alpha"] = alpha
+    return _one_out("selu", {"X": x}, attrs, name=name)
+
+
+def mish(x, threshold=20.0, name=None):
+    return _one_out("mish", {"X": x}, {"threshold": threshold}, name=name)
 
 
 # -- losses -------------------------------------------------------------

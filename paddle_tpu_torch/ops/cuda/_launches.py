@@ -9,7 +9,9 @@ the recorded dict instead: that is how a CUDA-graph capture learns what
 one replay will launch (the capture itself runs nothing), whichever
 thread made the launch (autograd runs a captured backward on a thread of
 its own), without touching the counts other threads add to meanwhile on
-streams that do not capture.
+streams that do not capture. Inside an IF body of the capture
+(:mod:`.cond_graph`) they go into that body's recording, since a replay
+may skip the body.
 
 A count's key is ``(module, kernel, route)``: ``kernel`` None for a
 module whose ``launches`` is an int, ``route`` None for the per-kernel
@@ -27,6 +29,7 @@ from ...analysis import concurrency as _ccz
 #: guards every module's ``launches`` and ``launches_by_route``
 lock = _ccz.make_lock("launches.lock", reentrant=True)
 _record = None      # the open capture's recording; one capture at a time
+_bodies = []        # the open IF bodies' recordings, innermost last
 
 
 def _name(module) -> str:
@@ -43,8 +46,9 @@ def count(module, kernel=None, route=None):
         keys.append((name, kernel or name, route))
     with lock:
         if _record is not None and torch.cuda.is_current_stream_capturing():
+            rec = _bodies[-1] if _bodies else _record
             for k in keys:
-                _record[k] = _record.get(k, 0) + 1
+                rec[k] = rec.get(k, 0) + 1
             return
         if kernel is None:
             module.launches += 1
@@ -52,6 +56,18 @@ def count(module, kernel=None, route=None):
             module.launches[kernel] += 1
         if route is not None:
             module.launches_by_route[kernel or name][route] += 1
+
+
+def push_body(rec):
+    """Launches captured from here on go into ``rec``, the recording of an
+    IF body (:mod:`.cond_graph`), until :func:`pop_body`."""
+    with lock:
+        _bodies.append(rec)
+
+
+def pop_body():
+    with lock:
+        _bodies.pop()
 
 
 @contextlib.contextmanager

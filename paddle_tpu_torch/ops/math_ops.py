@@ -9,12 +9,19 @@ Ported: ``elementwise_add`` / ``_sub`` / ``_mul`` / ``_div`` / ``_max`` /
 ``squared_l2_norm``, ``optimization_barrier``, ``gelu``; the unary
 activations ``relu``, ``relu6``, ``sigmoid``, ``logsigmoid``, ``tanh``,
 ``sqrt``, ``rsqrt``, ``square``, ``exp``, ``log``, ``abs``, ``floor``,
-``sign``, ``silu``. Waiting (ROADMAP A7.2b): the other elementwise ops
-(``_mod``, ``_floordiv``), the trigonometric unaries and the other
-rounding ones, the parametrised activations (``leaky_relu``, ``elu``,
-``softplus``, ``swish``, ``hard_*``, ``prelu``, ``pow``), ``dot``,
-``addmm``, ``p_norm``, ``maximum`` / ``minimum``, the comparisons and
-the ``isfinite`` family.
+``sign``, ``silu``; and the rest of the reference's file: ``_mod``,
+``_floordiv``, the trigonometric, logarithmic and rounding unaries,
+``erf``, ``reciprocal``, ``softsign``, the parametrised activations
+(``leaky_relu``, ``elu``, ``softplus``, ``swish``, ``hard_*``,
+``prelu``, ``pow``), ``dot``, ``addmm``, ``p_norm``, ``maximum`` /
+``minimum``, the comparisons and logical ops and the ``isfinite``
+family.
+
+Where JAX's derivative at a kink or a tie differs from torch's, the
+lowering is written as JAX's function is (``jnp.where`` / ``clip``
+forms): ``leaky_relu`` and ``prelu`` pass the whole gradient at 0,
+``elu``'s is ``alpha`` there, ``hard_*`` split it in half at a bound,
+``abs`` is 1 at 0.
 
 The products (``mul``, ``matmul``) are ``torch.matmul`` (cuBLAS on the
 card): the reference computes them in XLA, outside any Pallas kernel.
@@ -54,6 +61,9 @@ _ew("elementwise_div", torch.div)
 _ew("elementwise_max", torch.maximum)
 _ew("elementwise_min", torch.minimum)
 _ew("elementwise_pow", torch.pow)
+_ew("elementwise_mod", torch.remainder)
+_ew("elementwise_floordiv",
+    lambda x, y: torch.div(x, y, rounding_mode="floor"))
 
 
 def clip(x, lo=None, hi=None):
@@ -92,9 +102,29 @@ _unary("rsqrt", torch.rsqrt)
 _unary("square", torch.square)
 _unary("exp", torch.exp)
 _unary("log", torch.log)
+_unary("log2", torch.log2)
+_unary("log10", torch.log10)
+_unary("log1p", torch.log1p)
 _unary("abs", absolute)
+_unary("reciprocal", torch.reciprocal)
+_unary("sin", torch.sin)
+_unary("cos", torch.cos)
+_unary("tan", torch.tan)
+_unary("asin", torch.asin)
+_unary("acos", torch.acos)
+_unary("atan", torch.atan)
+_unary("sinh", torch.sinh)
+_unary("cosh", torch.cosh)
+_unary("asinh", torch.asinh)
+_unary("acosh", torch.acosh)
+_unary("atanh", torch.atanh)
+_unary("erf", torch.erf)
 _unary("floor", torch.floor, not_differentiable=True)
+_unary("ceil", torch.ceil, not_differentiable=True)
+_unary("round", torch.round, not_differentiable=True)
 _unary("sign", torch.sign, not_differentiable=True)
+_unary("logical_not", torch.logical_not, not_differentiable=True)
+_unary("softsign", lambda x: x / (1.0 + absolute(x)))
 _unary("silu", torch.nn.functional.silu)
 
 
@@ -103,6 +133,71 @@ def _gelu(ctx, ins, attrs):
     approx = bool(attrs.get("approximate", False))
     return {"Out": [torch.nn.functional.gelu(
         ins["X"][0], approximate="tanh" if approx else "none")]}
+
+
+@register("leaky_relu")
+def _leaky_relu(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [torch.where(x >= 0, x, attrs.get("alpha", 0.02) * x)]}
+
+
+@register("elu")
+def _elu(ctx, ins, attrs):
+    x = ins["X"][0]
+    alpha = attrs.get("alpha", 1.0)
+    pos = x > 0
+    neg = torch.where(pos, torch.zeros_like(x), x)
+    return {"Out": [torch.where(pos, x, alpha * torch.expm1(neg))]}
+
+
+@register("softplus")
+def _softplus(ctx, ins, attrs):
+    beta = attrs.get("beta", 1.0)
+    threshold = attrs.get("threshold", 20.0)
+    x = ins["X"][0]
+    soft = torch.logaddexp(x * beta, torch.zeros_like(x)) / beta
+    return {"Out": [torch.where(x * beta > threshold, x, soft)]}
+
+
+@register("swish")
+def _swish(ctx, ins, attrs):
+    x = ins["X"][0]
+    return {"Out": [x * torch.sigmoid(attrs.get("beta", 1.0) * x)]}
+
+
+@register("hard_sigmoid")
+def _hard_sigmoid(ctx, ins, attrs):
+    slope = attrs.get("slope", 0.2)
+    offset = attrs.get("offset", 0.5)
+    return {"Out": [clip(slope * ins["X"][0] + offset, 0.0, 1.0)]}
+
+
+@register("hard_swish")
+def _hard_swish(ctx, ins, attrs):
+    x = ins["X"][0]
+    threshold = attrs.get("threshold", 6.0)
+    scale = attrs.get("scale", 6.0)
+    offset = attrs.get("offset", 3.0)
+    return {"Out": [x * clip(x + offset, 0.0, threshold) / scale]}
+
+
+@register("hard_tanh")
+def _hard_tanh(ctx, ins, attrs):
+    return {"Out": [clip(ins["X"][0], attrs.get("t_min", -1.0),
+                         attrs.get("t_max", 1.0))]}
+
+
+@register("prelu")
+def _prelu(ctx, ins, attrs):
+    x, alpha = ins["X"][0], ins["Alpha"][0]
+    if attrs.get("mode", "all") == "channel":
+        alpha = alpha.reshape((1, -1) + (1,) * (x.dim() - 2))
+    return {"Out": [torch.where(x >= 0, x, alpha * x)]}
+
+
+@register("pow")
+def _pow(ctx, ins, attrs):
+    return {"Out": [torch.pow(ins["X"][0], attrs.get("factor", 1.0))]}
 
 
 def _scalar(value, like):
@@ -212,6 +307,48 @@ def _mul(ctx, ins, attrs):
     return {"Out": [torch.matmul(x2, y2).reshape(xs[:xn] + ys[yn:])]}
 
 
+@register("dot")
+def _dot(ctx, ins, attrs):
+    return {"Out": [torch.sum(ins["X"][0] * ins["Y"][0], dim=-1)]}
+
+
+@register("addmm")
+def _addmm(ctx, ins, attrs):
+    inp, x, y = ins["Input"][0], ins["X"][0], ins["Y"][0]
+    alpha = attrs.get("Alpha", 1.0)
+    beta = attrs.get("Beta", 1.0)
+    return {"Out": [beta * inp + alpha * torch.matmul(x, y)]}
+
+
+def _cmp(name, fn):
+    @register(name, not_differentiable=True)
+    def _lower(ctx, ins, attrs, _fn=fn):
+        return {"Out": [_fn(ins["X"][0], ins["Y"][0])]}
+    return _lower
+
+
+_cmp("equal", torch.eq)
+_cmp("not_equal", torch.ne)
+_cmp("less_than", torch.lt)
+_cmp("less_equal", torch.le)
+_cmp("greater_than", torch.gt)
+_cmp("greater_equal", torch.ge)
+_cmp("logical_and", torch.logical_and)
+_cmp("logical_or", torch.logical_or)
+_cmp("logical_xor", torch.logical_xor)
+
+
+@register("isfinite", not_differentiable=True)
+def _isfinite(ctx, ins, attrs):
+    # the reference's isfinite_op reduces to one bool
+    return {"Out": [torch.all(torch.isfinite(ins["X"][0]))]}
+
+
+_unary("isfinite_v2", torch.isfinite, not_differentiable=True)
+_unary("isnan_v2", torch.isnan, not_differentiable=True)
+_unary("isinf_v2", torch.isinf, not_differentiable=True)
+
+
 @register("optimization_barrier", not_differentiable=True)
 def _optimization_barrier(ctx, ins, attrs):
     """The recompute rewrite's CSE fence: there is no compiler to fence in
@@ -226,8 +363,29 @@ def _increment(ctx, ins, attrs):
     return {"Out": [x + _scalar(attrs.get("step", 1.0), x)]}
 
 
+@register("p_norm")
+def _p_norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    porder = attrs.get("porder", 2.0)
+    out = torch.pow(torch.sum(torch.pow(absolute(x), porder),
+                              dim=attrs.get("axis", -1),
+                              keepdim=attrs.get("keepdim", False))
+                    + attrs.get("epsilon", 1e-12), 1.0 / porder)
+    return {"Out": [out]}
+
+
 @register("squared_l2_norm")
 def _squared_l2_norm(ctx, ins, attrs):
     x = ins["X"][0]
     return {"Out": [torch.sum(torch.square(x)).reshape(1)]}
 
+
+
+@register("maximum")
+def _maximum(ctx, ins, attrs):
+    return {"Out": [torch.maximum(ins["X"][0], ins["Y"][0])]}
+
+
+@register("minimum")
+def _minimum(ctx, ins, attrs):
+    return {"Out": [torch.minimum(ins["X"][0], ins["Y"][0])]}

@@ -1,8 +1,11 @@
 """Miscellaneous op lowerings — the counterpart of
 ``paddle_tpu/ops/misc_ops.py`` for the ops the sequence and loss
-builders emit: ``fill_constant_batch_size_like``,
-``teacher_student_sigmoid_loss``, ``edit_distance`` and ``ctc_align``.
-The rest of the file waits for ROADMAP A7.2b.
+and the dense veneers emit: ``fill_constant_batch_size_like``,
+``uniform_random_batch_size_like`` and
+``gaussian_random_batch_size_like`` (the reference's streams, as
+``uniform_random`` / ``gaussian_random`` draw them),
+``teacher_student_sigmoid_loss``, ``edit_distance``, ``ctc_align`` and
+``shard_index``. The rest of the file waits for ROADMAP A7.2b2.
 
 ``edit_distance`` and ``ctc_align`` keep the reference's static shapes:
 the Levenshtein table is a loop over both lengths' bounds with every row
@@ -15,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import prng
 from .math_ops import absolute
 from .registry import np_dtype, register
 
@@ -29,6 +33,26 @@ def _fill_constant_bsl(ctx, ins, attrs):
     dt = dt if isinstance(dt, str) else "float32"
     return {"Out": [torch.full(shape, attrs.get("value", 0.0),
                                dtype=np_dtype(dt), device=ref.device)]}
+
+
+def _bsl_shape(ins, attrs):
+    shape = [int(s) for s in attrs["shape"]]
+    shape[int(attrs.get("output_dim_idx", 0))] = \
+        ins["Input"][0].shape[int(attrs.get("input_dim_idx", 0))]
+    return shape
+
+
+@register("uniform_random_batch_size_like", not_differentiable=True)
+def _uniform_random_bsl(ctx, ins, attrs):
+    return {"Out": [prng.uniform_const(ctx.rng(), _bsl_shape(ins, attrs),
+                                       attrs.get("min", -1.0),
+                                       attrs.get("max", 1.0))]}
+
+
+@register("gaussian_random_batch_size_like", not_differentiable=True)
+def _gaussian_random_bsl(ctx, ins, attrs):
+    out = prng.normal(ctx.rng(), _bsl_shape(ins, attrs))
+    return {"Out": [out * attrs.get("std", 1.0) + attrs.get("mean", 0.0)]}
 
 
 @register("teacher_student_sigmoid_loss", no_grad_slots=("Label",))
@@ -110,3 +134,13 @@ def _ctc_align(ctx, ins, attrs):
     out = torch.where(cols < lens[:, None], out,
                       torch.full_like(out, blank))
     return {"Output": [out], "OutputLength": [lens.to(torch.int64)[:, None]]}
+
+
+@register("shard_index", not_differentiable=True)
+def _shard_index(ctx, ins, attrs):
+    x = ins["X"][0]
+    nshards = int(attrs["nshards"])
+    size = (int(attrs["index_num"]) + nshards - 1) // nshards
+    mine = torch.div(x, size, rounding_mode="floor") == int(attrs["shard_id"])
+    ignore = torch.full_like(x, int(attrs.get("ignore_value", -1)))
+    return {"Out": [torch.where(mine, torch.remainder(x, size), ignore)]}

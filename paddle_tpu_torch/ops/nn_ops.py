@@ -6,12 +6,14 @@ Ported: ``conv2d``, ``pool2d``, ``softmax``, ``log_softmax``,
 ``sigmoid_cross_entropy_with_logits``, ``huber_loss``, ``batch_norm``,
 ``layer_norm``,
 ``dropout`` (with ``dropout_grad``), ``lookup_table_v2`` (with
-``lookup_table_v2_grad``), ``lookup_table`` and ``accuracy``. Waiting
-(ROADMAP A7.2b): ``depthwise_conv2d``, ``conv2d_transpose``, ``conv3d``,
-``squared_l2_distance``, ``smooth_l1_loss``,
-``mse_loss``, ``kldiv_loss``, ``label_smooth``, ``group_norm``,
-``instance_norm``, ``norm``, ``embedding_bag``, ``auc`` and the fused
-activations.
+``lookup_table_v2_grad``), ``lookup_table`` and ``accuracy``; the dense
+rest: ``squared_l2_distance``, ``smooth_l1_loss``, ``mse_loss``,
+``kldiv_loss``, ``label_smooth``, ``group_norm``, ``instance_norm``,
+``norm``, ``embedding_bag`` and ``auc`` (streaming: its ``StatPos`` /
+``StatNeg`` buckets come back as new values, which the executor writes
+into the scope's tensors, on the card inside a replay). Waiting with the
+image ops (ROADMAP A7.2b2): ``depthwise_conv2d``, ``conv2d_transpose``,
+``conv3d`` and the interpolations.
 
 ``layer_norm`` takes the reference's predicate (``nn_ops.py:362-365``:
 one normalized axis, Scale and Bias, ``h % 128 == 0``,
@@ -44,7 +46,7 @@ def _conv_padding(paddings, ndim):
     pw0, pw1]``."""
     if isinstance(paddings, str):
         raise NotImplementedError(
-            f"string padding {paddings!r} waits for ROADMAP A7.2b")
+            f"string padding {paddings!r} waits for ROADMAP A7.2b2")
     p = list(paddings)
     if len(p) == ndim:
         return [(int(x), int(x)) for x in p]
@@ -193,6 +195,13 @@ def _sce_logits(ctx, ins, attrs):
     return {"Out": [loss]}
 
 
+@register("squared_l2_distance")
+def _squared_l2_distance(ctx, ins, attrs):
+    sub = ins["X"][0] - ins["Y"][0]
+    return {"sub_result": [sub],
+            "Out": [torch.sum(torch.square(sub), dim=-1, keepdim=True)]}
+
+
 @register("huber_loss", no_grad_slots=("Y",))
 def _huber_loss(ctx, ins, attrs):
     x, y = ins["X"][0], ins["Y"][0]
@@ -201,6 +210,47 @@ def _huber_loss(ctx, ins, attrs):
     ar = absolute(r)
     loss = torch.where(ar <= delta, 0.5 * r * r, delta * (ar - 0.5 * delta))
     return {"Residual": [r], "Out": [loss]}
+
+
+@register("smooth_l1_loss", no_grad_slots=("Y",))
+def _smooth_l1(ctx, ins, attrs):
+    x, y = ins["X"][0], ins["Y"][0]
+    sigma = attrs.get("sigma", 1.0)
+    s2 = sigma * sigma
+    d = x - y
+    ad = absolute(d)
+    loss = torch.where(ad < 1.0 / s2, 0.5 * d * d * s2, ad - 0.5 / s2)
+    loss = torch.sum(loss.reshape(loss.shape[0], -1), dim=1, keepdim=True)
+    return {"Diff": [d], "Out": [loss]}
+
+
+@register("mse_loss", no_grad_slots=("Label",))
+def _mse_loss(ctx, ins, attrs):
+    return {"Out": [torch.square(ins["Input"][0] - ins["Label"][0])]}
+
+
+@register("kldiv_loss", no_grad_slots=("Target",))
+def _kldiv_loss(ctx, ins, attrs):
+    x, tgt = ins["X"][0], ins["Target"][0]
+    reduction = attrs.get("reduction", "mean")
+    loss = tgt * (torch.log(torch.clamp_min(tgt, 1e-12)) - x)
+    loss = torch.where(tgt > 0, loss, torch.zeros_like(loss))
+    if reduction == "mean":
+        loss = torch.mean(loss)
+    elif reduction == "sum":
+        loss = torch.sum(loss)
+    elif reduction == "batchmean":
+        loss = torch.sum(loss) / x.shape[0]
+    return {"Loss": [loss]}
+
+
+@register("label_smooth", no_grad_slots=("PriorDist",))
+def _label_smooth(ctx, ins, attrs):
+    x = ins["X"][0]
+    eps = attrs.get("epsilon", 0.0)
+    if ins.get("PriorDist"):
+        return {"Out": [(1 - eps) * x + eps * ins["PriorDist"][0]]}
+    return {"Out": [(1 - eps) * x + eps / x.shape[-1]]}
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +315,53 @@ def _layer_norm(ctx, ins, attrs):
         y = y + ins["Bias"][0].reshape(nshape)
     return {"Y": [y], "Mean": [m.reshape(stat_shape)],
             "Variance": [v.reshape(stat_shape)]}
+
+
+def _moments(x, axes):
+    """``jnp.mean`` and ``jnp.var`` over ``axes``, kept: the variance is
+    the mean of the centred squares, as JAX takes it."""
+    m = torch.mean(x, dim=axes, keepdim=True)
+    return m, torch.mean(torch.square(x - m), dim=axes, keepdim=True)
+
+
+def _affine(y, ins, c):
+    bshape = (1, c) + (1,) * (y.dim() - 2)
+    if ins.get("Scale"):
+        y = y * ins["Scale"][0].reshape(bshape)
+    if ins.get("Bias"):
+        y = y + ins["Bias"][0].reshape(bshape)
+    return y
+
+
+@register("group_norm")
+def _group_norm(ctx, ins, attrs):
+    x = ins["X"][0]  # NCHW
+    groups = attrs.get("groups", 1)
+    n, c = x.shape[0], x.shape[1]
+    xg = x.reshape((n, groups, c // groups) + tuple(x.shape[2:]))
+    m, v = _moments(xg, tuple(range(2, xg.dim())))
+    y = ((xg - m) * torch.rsqrt(v + attrs.get("epsilon", 1e-5))).reshape(
+        x.shape)
+    return {"Y": [_affine(y, ins, c)], "Mean": [m.reshape(n, groups)],
+            "Variance": [v.reshape(n, groups)]}
+
+
+@register("instance_norm")
+def _instance_norm(ctx, ins, attrs):
+    x = ins["X"][0]  # NCHW
+    m, v = _moments(x, tuple(range(2, x.dim())))
+    y = (x - m) * torch.rsqrt(v + attrs.get("epsilon", 1e-5))
+    n, c = x.shape[0], x.shape[1]
+    return {"Y": [_affine(y, ins, c)], "SavedMean": [m.reshape(n, c)],
+            "SavedVariance": [v.reshape(n, c)]}
+
+
+@register("norm")
+def _norm(ctx, ins, attrs):
+    x = ins["X"][0]
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", -1),
+                                keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": [x / norm], "Norm": [norm]}
 
 
 # ---------------------------------------------------------------------------
@@ -334,6 +431,14 @@ def _lookup_table(ctx, ins, attrs):
     return {"Out": [F.embedding(ids.long(), w)]}
 
 
+@register("embedding_bag", no_grad_slots=("Ids",))
+def _embedding_bag(ctx, ins, attrs):
+    emb = F.embedding(ins["Ids"][0].long(), ins["W"][0])
+    if attrs.get("mode", "sum") == "sum":
+        return {"Out": [torch.sum(emb, dim=1)]}
+    return {"Out": [torch.mean(emb, dim=1)]}
+
+
 # ---------------------------------------------------------------------------
 # Metrics
 # ---------------------------------------------------------------------------
@@ -351,3 +456,33 @@ def _accuracy(ctx, ins, attrs):
             "Correct": [num_correct.to(torch.int32)],
             "Total": [torch.full((), n, dtype=torch.int32,
                                  device=indices.device)]}
+
+
+@register("auc", not_differentiable=True)
+def _auc(ctx, ins, attrs):
+    """Streaming AUC (metrics/auc_op): each prediction's bucket gains one
+    in ``StatPos`` or ``StatNeg``, then the area under the bucketed curve
+    by trapezoids, from the highest threshold down."""
+    preds = ins["Predict"][0]
+    label = ins["Label"][0].reshape(-1)
+    stat_pos, stat_neg = ins["StatPos"][0], ins["StatNeg"][0]
+    num_thresholds = attrs.get("num_thresholds", 4095)
+    pos_prob = preds[:, 1] if preds.dim() == 2 and preds.shape[1] == 2 \
+        else preds.reshape(-1)
+    bucket = torch.clamp((pos_prob * num_thresholds).to(torch.int32), 0,
+                         num_thresholds).to(torch.int64)
+    is_pos = (label > 0).to(stat_pos.dtype)
+    stat_pos = stat_pos.index_put((bucket,), is_pos, accumulate=True)
+    stat_neg = stat_neg.index_put((bucket,), 1 - is_pos, accumulate=True)
+    tp = torch.cumsum(torch.flip(stat_pos, (0,)), 0)
+    fp = torch.cumsum(torch.flip(stat_neg, (0,)), 0)
+    tot_pos, tot_neg = tp[-1], fp[-1]
+    tp_prev = torch.cat([torch.zeros_like(tp[:1]), tp[:-1]])
+    fp_prev = torch.cat([torch.zeros_like(fp[:1]), fp[:-1]])
+    area = torch.sum((fp - fp_prev) * (tp + tp_prev) / 2.0)
+    denom = tot_pos * tot_neg
+    auc = torch.where(denom > 0, area / denom, torch.zeros_like(area))
+    if auc.dtype != torch.float64:
+        auc = auc.to(torch.float32)
+    return {"AUC": [auc], "StatPosOut": [stat_pos],
+            "StatNegOut": [stat_neg]}

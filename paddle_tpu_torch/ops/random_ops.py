@@ -7,12 +7,21 @@ an op with a nonzero ``seed`` attr. The streams are JAX's
 (:mod:`~paddle_tpu_torch.prng`): a seeded Program's startup run draws
 the reference's initial weights, ``uniform_random`` bit for bit, the two
 normal ops to a few float32 ulps (torch's ``erfinv`` is not XLA's).
-Float32 only; another dtype draws in float32 and is cast. Waiting
-(ROADMAP A7.2b): ``randint``, ``randperm``, ``bernoulli``,
-``multinomial``.
+Float32 only; another dtype draws in float32 and is cast.
+
+``randint``, ``randperm``, ``bernoulli`` and ``multinomial`` (``:55-89``)
+port JAX's arithmetic, not torch's samplers, so they draw the
+reference's values bit for bit: ``randint`` two 32-bit words per value
+reduced modulo the span (``jax.random.randint``), ``randperm`` rounds of
+a stable sort by random 32-bit keys (``jax.random.permutation``),
+``bernoulli`` a uniform below ``p``, ``multinomial`` the Gumbel-max of
+``jax.random.categorical``. The integer draws are 32-bit, as JAX's with
+64-bit types off, and come back in the op's dtype.
 """
 
 from __future__ import annotations
+
+import torch
 
 from .. import prng
 from .registry import np_dtype, register
@@ -54,3 +63,35 @@ def _truncated_gaussian_random(ctx, ins, attrs):
     out = mean + std * prng.truncated_normal(_maybe_seed(ctx, attrs), -2.0,
                                              2.0, _shape(attrs))
     return {"Out": [out.to(dtype)]}
+
+
+@register("randint", not_differentiable=True)
+def _randint(ctx, ins, attrs):
+    dtype = np_dtype(attrs.get("dtype", "int64"))
+    out = prng.randint(_maybe_seed(ctx, attrs), _shape(attrs),
+                       int(attrs.get("low", 0)), int(attrs.get("high")))
+    return {"Out": [out.to(dtype)]}
+
+
+@register("randperm", not_differentiable=True)
+def _randperm(ctx, ins, attrs):
+    dtype = np_dtype(attrs.get("dtype", "int64"))
+    out = prng.permutation(_maybe_seed(ctx, attrs), int(attrs["n"]))
+    return {"Out": [out.to(dtype)]}
+
+
+@register("bernoulli", not_differentiable=True)
+def _bernoulli(ctx, ins, attrs):
+    x = ins["X"][0]
+    u = prng.uniform(_maybe_seed(ctx, attrs), tuple(x.shape))
+    return {"Out": [(u < x).to(x.dtype)]}
+
+
+@register("multinomial", not_differentiable=True)
+def _multinomial(ctx, ins, attrs):
+    x = ins["X"][0]
+    num = int(attrs.get("num_samples", 1))
+    logits = torch.log(torch.clamp_min(x, 1e-30))
+    g = prng.gumbel(_maybe_seed(ctx, attrs), (num,) + tuple(x.shape))
+    out = torch.argmax(g + logits, dim=-1)
+    return {"Out": [out.movedim(0, -1).to(torch.int64)]}

@@ -1,9 +1,13 @@
 """Reduction op lowerings — the counterpart of
 ``paddle_tpu/ops/reduce_ops.py``.
 
-Ported: ``reduce_sum``, ``reduce_mean``, ``reduce_max``, ``reduce_min``,
-``reduce_prod`` and ``mean``. Waiting (ROADMAP A7.2b): ``reduce_all``,
-``reduce_any`` and ``logsumexp``.
+Every lowering of the reference's file: ``reduce_sum``, ``reduce_mean``,
+``reduce_max``, ``reduce_min``, ``reduce_prod``, ``reduce_all``,
+``reduce_any``, ``mean`` and ``logsumexp``. ``logsumexp`` is
+``jax.scipy.special.logsumexp``'s arithmetic: the maximum, taken as a
+constant and replaced by 0 where it is not finite, shifts the
+exponentials, so a row of ``-inf`` gives ``-inf`` and the gradient
+JAX's.
 """
 
 from __future__ import annotations
@@ -41,8 +45,19 @@ def _prod(x, dim, keepdim):
     return x
 
 
-def _reduce(name, fn):
-    @register(name)
+def _logical(fn):
+    def reduce(x, dim, keepdim):
+        if dim is None:
+            out = fn(x)
+            return out.reshape((1,) * x.dim()) if keepdim else out
+        return fn(x, dim=dim, keepdim=keepdim)
+    return reduce
+
+
+def _reduce(name, fn, differentiable=True):
+    kw = {} if differentiable else {"not_differentiable": True}
+
+    @register(name, **kw)
     def _lower(ctx, ins, attrs, _fn=fn):
         x = ins["X"][0]
         keep = attrs.get("keep_dim", False)
@@ -59,8 +74,28 @@ _reduce("reduce_mean", torch.mean)
 _reduce("reduce_max", _amax)
 _reduce("reduce_min", _amin)
 _reduce("reduce_prod", _prod)
+_reduce("reduce_all", _logical(torch.all), differentiable=False)
+_reduce("reduce_any", _logical(torch.any), differentiable=False)
 
 
 @register("mean")
 def _mean(ctx, ins, attrs):
     return {"Out": [torch.mean(ins["X"][0])]}
+
+
+@register("logsumexp")
+def _logsumexp(ctx, ins, attrs):
+    x = ins["X"][0]
+    axis = attrs.get("axis", None)
+    keepdim = attrs.get("keepdim", False)
+    if attrs.get("reduce_all", False) or axis is None:
+        dims = tuple(range(x.dim()))
+    else:
+        dims = tuple(a % x.dim() for a in (
+            axis if isinstance(axis, (list, tuple)) else (axis,)))
+    amax = torch.amax(x.detach(), dim=dims, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    out = torch.log(torch.sum(torch.exp(x - amax), dim=dims,
+                              keepdim=True)) + amax
+    return {"Out": [out if keepdim else out.reshape(
+        [d for i, d in enumerate(out.shape) if i not in dims])]}

@@ -21,8 +21,8 @@ second launch (ROADMAP B, later perf work).
 
 The lowering modules (``math_ops``, ``reduce_ops``, ``tensor_ops``,
 ``random_ops``, ``nn_ops``, ``attention_ops``, ``optimizer_ops``,
-``rnn_ops``, ``loss_ops``, ``index_ops``, ``structured_ops``,
-``misc_ops``) are
+``fused_ops``, ``control_flow_ops``, ``rnn_ops``, ``loss_ops``,
+``linalg_ops``, ``index_ops``, ``structured_ops``, ``misc_ops``) are
 imported at the first lookup, so importing the registry alone stays
 light; :data:`OPS` is complete after any call of :func:`get_op_def`,
 :func:`execute`, :func:`is_registered`, :func:`registered_ops` or
@@ -133,6 +133,13 @@ class OpDef:
     infer: Optional[InferRule] = None
     # effect outside the dataflow graph (collectives, PS pulls, prints)
     side_effect: bool = False
+    # runs on the host (a Python callback): the executor splits a
+    # captured key around it
+    host_op: bool = dataclasses.field(default=False, kw_only=True)
+    # the lowering of ``<type>_grad`` where the generic one cannot serve
+    # (control flow: autograd may not run across a graph's IF nodes)
+    grad_lowering: Optional[Lowering] = dataclasses.field(default=None,
+                                                          kw_only=True)
 
 
 OPS: Dict[str, OpDef] = {}
@@ -141,7 +148,8 @@ OPS: Dict[str, OpDef] = {}
 #: reference's ``ops/__init__.py`` imports its counterparts
 LOWERING_MODULES = ("math_ops", "tensor_ops", "nn_ops", "reduce_ops",
                     "random_ops", "optimizer_ops", "attention_ops",
-                    "rnn_ops", "loss_ops", "index_ops", "structured_ops",
+                    "fused_ops", "control_flow_ops", "rnn_ops", "loss_ops",
+                    "linalg_ops", "index_ops", "structured_ops",
                     "misc_ops")
 _loaded = False
 # op type -> (its module's place in LOWERING_MODULES, registration number):
@@ -189,6 +197,16 @@ def register_infer(op_type: str):
     return deco
 
 
+def register_grad(op_type: str):
+    """Decorator: the lowering of ``<op_type>_grad``, which then takes
+    the generic grad's place. ``<op_type>_grad`` stays out of
+    :data:`OPS`: the reference has no such op."""
+    def deco(fn: Lowering) -> Lowering:
+        OPS[op_type].grad_lowering = fn
+        return fn
+    return deco
+
+
 def get_op_def(op_type: str) -> OpDef:
     _load()
     d = OPS.get(op_type)
@@ -196,7 +214,7 @@ def get_op_def(op_type: str) -> OpDef:
         raise NotImplementedError(
             f"no lowering registered for op {op_type!r} "
             f"({len(OPS)} ops registered; the rest of the reference's op "
-            f"library waits for ROADMAP A7.2b)")
+            f"library waits for ROADMAP A7.2b2)")
     return d
 
 
@@ -231,10 +249,13 @@ def execute(ctx: LoweringContext, op_type: str, ins: Dict[str, List[Any]],
     if op_type in OPS:
         return OPS[op_type].lowering(ctx, ins, attrs)
     if op_type.endswith("_grad") and op_type[:-5] in OPS:
+        fw = OPS[op_type[:-5]]
+        if fw.grad_lowering is not None:
+            return fw.grad_lowering(ctx, ins, attrs)
         return _generic_grad_lowering(ctx, op_type[:-5], ins, attrs)
     raise NotImplementedError(
         f"no lowering for op {op_type!r} (the rest of the reference's op "
-        f"library waits for ROADMAP A7.2b)")
+        f"library waits for ROADMAP A7.2b2)")
 
 
 GRAD_SLOT_SUFFIX = "@GRAD"

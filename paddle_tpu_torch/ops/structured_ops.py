@@ -13,7 +13,7 @@ work). ``warpctc``'s loss is the reference's alpha recursion and
 its ``WarpCTCGrad`` output is the reference's zeros. Viterbi picks the
 first maximum (``torch.argmax``, as ``jnp.argmax``) at ties.
 
-Waiting with the image ops (ROADMAP A7.2b): the conv half of the file,
+Waiting with the image ops (ROADMAP A7.2b2): the conv half of the file,
 ``conv3d_transpose``, ``depthwise_conv2d_transpose``,
 ``deformable_conv``, ``deformable_conv_v1`` and ``fsp``.
 

@@ -79,7 +79,9 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     ``[0, seed mod 2^32]``; a seed outside int64 raises OverflowError, as
     JAX does."""
     s = int(np.int64(seed))
-    return torch.tensor([0, s & MASK], dtype=torch.int64, device=device)
+    key = torch.zeros(2, dtype=torch.int64, device=device)
+    key[1].fill_(s & MASK)      # a fill, not a copy: capture-safe
+    return key
 
 
 def _hash_counts(keys: torch.Tensor, shape: Sequence[int]):
@@ -175,8 +177,9 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     2]`` int64."""
     keys = _u32(keys)
     if not isinstance(data, torch.Tensor):
-        data = torch.tensor(int(data) & MASK, dtype=torch.int64,
-                            device=keys.device)
+        # a fill, not a copy from the host, so a graph can capture it
+        data = torch.full((), int(data) & MASK, dtype=torch.int64,
+                          device=keys.device)
     b1, b2 = threefry2x32(keys[..., 0], keys[..., 1],
                           torch.zeros((), dtype=torch.int64,
                                       device=keys.device), data)
@@ -216,3 +219,43 @@ def truncated_normal(keys: torch.Tensor, lower: float, upper: float,
     out = torch.erfinv(u) * _SQRT2
     return torch.clamp(out, float(np.nextafter(lo32, np.float32(np.inf))),
                        float(np.nextafter(hi32, np.float32(-np.inf))))
+
+
+def randint(keys: torch.Tensor, shape: Sequence[int], low: int,
+            high: int) -> torch.Tensor:
+    """int32 draws in ``[low, high)``, ``jax.random.randint`` with 64-bit
+    types off: two 32-bit words per value from the key's two halves, each
+    reduced modulo the span and combined as ``hi * (2^32 mod span) + lo``
+    modulo the span. Returns int64 ``[*b, *shape]``."""
+    lo32 = int(np.clip(low, -2 ** 31, 2 ** 31 - 1))
+    hi32 = int(np.clip(high, -2 ** 31, 2 ** 31 - 1))
+    span = (hi32 - lo32) & MASK
+    if hi32 <= lo32:
+        span = 1
+    if high > 2 ** 31 - 1 and hi32 > lo32:
+        span = (span + 1) & MASK
+    k = split(keys, 2)
+    higher = random_bits(k[..., 0, :], shape)
+    lower = random_bits(k[..., 1, :], shape)
+    if span == 0:                 # the whole 32-bit range: no remainder
+        offset = lower
+    else:
+        mult = ((pow(2, 16, span) ** 2) & MASK) % span
+        offset = (((higher % span) * mult) & MASK) + (lower % span)
+        offset = (offset & MASK) % span
+    val = (lo32 + offset) & MASK
+    return torch.where(val >= 2 ** 31, val - 2 ** 32, val)
+
+
+def permutation(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """A random permutation of ``range(n)``, ``jax.random.permutation``:
+    ``ceil(3 ln n / ln(2^32 - 1))`` rounds, each a stable sort by fresh
+    random 32-bit keys. One key ``[2]``; returns int64 ``[n]``."""
+    x = torch.arange(n, dtype=torch.int64, device=keys.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(MASK)))
+    key = keys
+    for _ in range(rounds):
+        key, sub = split(key, 2).unbind(-2)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

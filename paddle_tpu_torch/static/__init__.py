@@ -8,7 +8,7 @@ and ``save_persistables`` / ``load_persistables``.
 
 Waiting: the compiler (``BuildStrategy``, ``CompiledProgram``,
 ``ExecutionStrategy``) for ROADMAP A7.3, the quantization surface for
-A7.2b, and ``InputSpec`` with ``jit.save`` (A7.3). 2.0 ``static.data`` takes the FULL shape including the batch dim
+A7.2b2, and ``InputSpec`` with ``jit.save`` (A7.3). 2.0 ``static.data`` takes the FULL shape including the batch dim
 (None/-1 leading), unlike fluid ``layers.data`` which prepends it.
 """
 

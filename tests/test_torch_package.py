@@ -100,7 +100,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "layers/sequence_lod.py", "layers/dynamic_rnn.py",
                    "layers/nn_extra.py", "layers/nn_veneer.py",
                    "framework_io.py", "fluid_compat.py", "dataset.py",
-                   "models/book.py"):
+                   "models/book.py", "ops/control_flow_ops.py",
+                   "ops/cuda/cond_graph.py", "ops/linalg_ops.py",
+                   "ops/fused_ops.py", "layers/control_flow.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -381,6 +383,14 @@ def test_shared_public_names_keep_the_reference_signatures():
         "layers.dynamic_rnn.DynamicRNN.memory",
         "layers.nn_extra.exponential_decay", "layers.nn_extra.warpctc",
         "layers.nn_veneer.slice")} <= checked
+    # and the control-flow builders and the dense veneers
+    assert {f"paddle_tpu_torch.layers.{q}" for q in (
+        "control_flow.cond", "control_flow.while_loop",
+        "control_flow.While", "control_flow.case",
+        "control_flow.switch_case", "control_flow.less_than",
+        "nn_veneer.py_func", "nn_veneer.group_norm",
+        "nn_veneer.autoincreased_step_counter", "nn_veneer.smooth_l1",
+        "nn_extra.masked_select")} <= checked
 
 
 def test_port_tools_keep_the_reference_tools_signatures():

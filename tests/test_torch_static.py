@@ -58,6 +58,8 @@ from paddle_tpu_torch.models.ctr import build_wide_deep_program as twide
 from paddle_tpu_torch.models.static_encoder import build_encoder_program
 from paddle_tpu_torch.ops import registry as treg
 from paddle_tpu_torch.resilience.injector import fault_scope
+from torch_op_cases import (_EAGER, _NO_GRAD, _PROD, _RAISES, DENSE_CASES,
+                            DENSE_X32, _f, _ids, _lens, _probs, _tied)
 
 JSTATIC = types.SimpleNamespace(layers=JL, Program=JProgram,
                                 program_guard=jguard, unique_name=jun,
@@ -439,15 +441,6 @@ def test_gradients_and_partial_grads():
 
 
 # ----------------------------------------------- every registered op
-def _f(rng, *shape, pos=False):
-    a = rng.randn(*shape).astype(np.float32)
-    return np.abs(a) + 0.5 if pos else a
-
-
-def _ids(rng, hi, *shape):
-    return rng.randint(0, hi, shape).astype(np.int64)
-
-
 def _opt_ins(rng, **accums):
     ins = {"Param": [_f(rng, 3, 4)], "Grad": [_f(rng, 3, 4)],
            "LearningRate": [np.array([0.01], np.float32)]}
@@ -460,7 +453,6 @@ def _opt_ins(rng, **accums):
 
 
 _ADAM = dict(Moment1="f", Moment2="pos", Beta1Pow="b1", Beta2Pow="b2")
-_PROD = (1e-5, 1e-4)
 
 #: case id -> (op type, inputs(rng), attrs, tolerance); a case id holds
 #: its op's name before any ":" (variants of one op)
@@ -664,19 +656,6 @@ OP_CASES = {
     "uniform_random": ("uniform_random", lambda r: {},
                        {"shape": [3, 4], "min": -0.3, "max": 0.7}, (0, 0)),
 }
-def _lens(*v):
-    return np.array(v, np.int64)
-
-
-def _probs(rng, *shape):
-    return (1.0 / (1.0 + np.exp(-rng.randn(*shape)))).astype(np.float32)
-
-
-def _tied(rng, *shape):
-    """Floats on a coarse grid, so a row holds equal values."""
-    return np.round(rng.randn(*shape) * 1.5).astype(np.float32)
-
-
 def _lstm_w(rng, h, inp):
     return [_f(rng, 4 * h, inp), _f(rng, 4 * h, h), _f(rng, 4 * h),
             _f(rng, 4 * h)]
@@ -882,18 +861,23 @@ OP_CASES.update({
                    {"delta": 0.5}, None),
 })
 
+OP_CASES.update(DENSE_CASES)
+
 #: cases whose JAX side runs with 64-bit types off: the random streams
 _X32 = {"dropout", "gaussian_random", "truncated_gaussian_random",
-        "uniform_random"}
+        "uniform_random"} | DENSE_X32
 
 
 def test_every_registered_op_has_a_case():
+    """Every op of the library (a ``py_func`` builder registers an op of
+    its own per call, outside it) has a case, in the reference's order."""
     ops = {c[0] for c in OP_CASES.values()}
     grads = {f"{o}_grad" for o in ops}
-    assert set(treg.registered_ops()) <= ops | grads
-    assert set(treg.registered_ops()) >= ops
+    lib = {o for o in treg.registered_ops() if not o.startswith("py_func_")}
+    assert lib <= ops | grads
+    assert lib >= ops
     # every op keeps its version in the reference's order
-    vm = treg.op_version_map()
+    vm = {k: v for k, v in treg.op_version_map().items() if k in lib}
     ref = jreg.op_version_map()
     assert list(vm.items()) == [(k, v) for k, v in ref.items() if k in vm]
 
@@ -916,15 +900,17 @@ def _grad_desc(reg, op_type, ins, outs):
     return fw, out_g, wanted
 
 
-def _run(pkg, op_type, ins_np, attrs, cots):
+def _run(pkg, op_type, ins_np, attrs, cots, eager=False):
     """Forward outputs and input gradients (numpy) of ``op_type`` in one
-    package: ``pkg`` "jax" or "port"."""
+    package: ``pkg`` "jax" or "port"; ``eager`` runs it as a dygraph
+    call."""
     if pkg == "jax":
         reg, conv = jreg, jnp.asarray
-        ctx = jreg.LoweringContext(rng=jax.random.PRNGKey(5))
+        ctx = jreg.LoweringContext(rng=jax.random.PRNGKey(5), eager=eager)
     else:
         reg, conv = treg, (lambda a: torch.tensor(np.asarray(a)))
-        ctx = treg.LoweringContext(rng=prng.PRNGKey(5), device="cpu")
+        ctx = treg.LoweringContext(rng=prng.PRNGKey(5), device="cpu",
+                                   eager=eager)
     ins = {s: [conv(a) for a in v] for s, v in ins_np.items()}
     execute = reg.execute
     if pkg == "jax" and op_type in _X32:
@@ -961,14 +947,24 @@ def test_op_matches_the_jax_lowering(case):
     tol = tol or (2e-6, 2e-5)
     rng = np.random.RandomState(zlib.crc32(case.encode()))
     ins = make(rng)
+    if case in _RAISES:
+        with jax.enable_x64(True), pytest.raises(_RAISES[case]):
+            _run("jax", op_type, ins, attrs, None)
+        with pytest.raises(_RAISES[case]):
+            _run("port", op_type, ins, attrs, None)
+        return
+    eager = case in _EAGER
+    # the cotangents take the port's output shapes (held equal to JAX's
+    # below), so JAX runs once per case
+    touts, _ = _run("port", op_type, ins, attrs, None, eager)
+    crng = np.random.RandomState(7)
+    cots = None if case in _NO_GRAD else {
+        f"{s}:{i}@G": np.asarray(crng.randn(*v.shape), v.dtype)
+        for s, vals in touts.items() for i, v in enumerate(vals)
+        if v.dtype.kind == "f"}
     with jax.enable_x64(case not in _X32):
-        jouts, _ = _run("jax", op_type, ins, attrs, None)
-        crng = np.random.RandomState(7)
-        cots = {f"{s}:{i}@G": np.asarray(crng.randn(*v.shape), v.dtype)
-                for s, vals in jouts.items() for i, v in enumerate(vals)
-                if v.dtype.kind == "f"}
-        jouts, jgrads = _run("jax", op_type, ins, attrs, cots)
-    touts, tgrads = _run("port", op_type, ins, attrs, cots)
+        jouts, jgrads = _run("jax", op_type, ins, attrs, cots, eager)
+    touts, tgrads = _run("port", op_type, ins, attrs, cots, eager)
     assert set(touts) == set(jouts)
     for s in jouts:
         assert len(touts[s]) == len(jouts[s]), s
@@ -1073,8 +1069,8 @@ def test_waiting_parts_raise_naming_their_items():
     with pytest.raises(NotImplementedError, match="A5"):
         exe.run(prog, feed={"q": q, "k": q, "v": q}, fetch_list=["o"],
                 scope=Scope())
-    with pytest.raises(NotImplementedError, match="A7.2"):
-        treg.get_op_def("while")
+    with pytest.raises(NotImplementedError, match="A7.2b2"):
+        treg.get_op_def("conv3d")
     with pytest.raises(NotImplementedError, match="A7.4"):
         twide(host_paced=False)
     assert tstatic.nn.fc is not None and tstatic.data is not None
