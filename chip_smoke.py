@@ -155,8 +155,10 @@ through ``gen_cache`` equal to the full decoder at every step, 22
 ``bench.py``'s widedeep step through the static executor (Criteo's 26
 slots, embed 16, a 400 x 400 x 400 tower, batch 512, the host-paced
 sparse tables with the pull prefetcher): the startup program, 3 steps
-held against the port on the CPU from one scope and one table state
-(losses, pushed row gradients, dense parameters), one capture (the
+each held against the port on the CPU from the card's scope and tables
+before it (losses, pre-activations, pushed row gradients, dense
+parameters; a ReLU tied at its kink held to its own recomputation), one
+capture (the
 second run) and none in 50 timed replays, ``set_lr(scope=)`` taken at
 the next replay; examples/s, the host's pull and push against the
 device's busy time, rows live, peak memory; 23 a Transformer-base
@@ -190,7 +192,22 @@ step, the lr within 1 ulp of the closed form, bit-equal to a twin fed
 that lr; (c) one encoder layer under ``while_loop``: forward at fed trip
 counts, the key split at the loop (trip + 1 host reads), bit-equal to
 the unrolled twins; trained with ``max_iters`` (IF nodes with the flash
-and LayerNorm kernels inside) against the unrolled twins.
+and LayerNorm kernels inside) against the unrolled twins; 26 images,
+detection and quantization: (a) every case of
+``tests/torch_op_cases_tail.py`` on the card against the CPU, eagerly
+and captured, the proposal host ops through the executor's key split;
+(b) the YOLOv3 head at ``configs/yolov3_darknet.yml``'s geometry (batch
+8 at 608 x 608, 80 classes, 50 ground-truth slots): 3 float64 training
+steps against the CPU, one capture, then the float32 inference program
+(``yolo_box`` x 3, ``multiclass_nms`` over 22,743 boxes without an M x M
+matrix) with the card's NMS rows equal to the CPU's NMS on the card's
+boxes and scores;
+(c) Faster R-CNN's RPN and RoIAlign at ``configs/faster_rcnn_r50_1x.yml``'s
+geometry: 3 float64 steps against the CPU, one capture split into three
+graphs at the three host ops, three host reads per run; (d)
+``slim.quant_aware`` on resnet_cifar10 (depth 32, batch 128): 3 steps
+against the CPU (the loss within the flipped codes' bound), ``convert``
+and post-training quantization within 5% of float.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -5361,10 +5378,12 @@ def time_ln(torch, ln, ctr, card):
 # ------------------------------------------------------------ phase 14
 ADAMW_SIZES = (1, 7, 4097, 2 ** 20 + 3)
 # (parameter dtype, moment dtype): phase 7's pairing and f32 moments, then
-# a bf16 model with its own or f32 moments, and an fp16 one
+# a bf16 model with its own or f32 moments, an fp16 one, and a float64
+# program (phase 26 (d)'s card-against-CPU steps; its first cases read a
+# float64 lr, as that program's upcast scope holds it)
 ADAMW_DTYPES = (("float32", "float32"), ("float32", "bfloat16"),
                 ("bfloat16", "bfloat16"), ("bfloat16", "float32"),
-                ("float16", "float16"))
+                ("float16", "float16"), ("float64", "float64"))
 
 
 def same_values(x, y):
@@ -5432,11 +5451,12 @@ def check_adamw(torch, aw, ctr):
     alignment; two steps each (the second checks that the kernel reset
     its arrival counts). Each call is one launch. Returns the case count
     and the largest difference (0.0)."""
-    lr = torch.full((1,), 1e-4, device="cuda")
     cases, worst = 0, 0.0
     with ctr.aside():
         for pname, mname in ADAMW_DTYPES:
             pdtype, mdtype = getattr(torch, pname), getattr(torch, mname)
+            lr = torch.full((1,), 1e-4, device="cuda",
+                            dtype=torch.promote_types(pdtype, torch.float32))
             for steps_done in (0, 9):
                 for offset in (0, 1):
                     args = (torch, pdtype, mdtype, steps_done,
@@ -6895,7 +6915,9 @@ WD_WARMUP, WD_STEPS, WD_CHECKED = 3, 50, 3
 #: phase 22's tolerances, card against the port on the CPU (f32 matmuls
 #: on both, TF32 off): the loss within 1e-5 relative; each pushed row
 #: gradient and each dense parameter within 1e-4 relative Frobenius
-#: distance and 1e-6 absolute per element
+#: distance and 1e-6 absolute per element (each ReLU layer's
+#: pre-activation and its gradient too; a ReLU tied at its kink as
+#: ``wd_step_close`` says)
 WD_LOSS_RTOL, WD_FRO, WD_ATOL = 1e-5, 1e-4, 1e-6
 
 
@@ -6921,6 +6943,115 @@ def gated(batches, done):
         yield b
 
 
+def wd_layers(main):
+    """The deep tower's ReLU layers, ``[(h, w, b, z)]`` bottom up: the
+    layer's input ``h``, weight ``w`` and bias ``b`` and its
+    pre-activation ``z = h w + b`` (``elementwise_add(mul(h, w), b)``)."""
+    ops = main.global_block().ops
+    made = {o: op for op in ops for vs in op.outputs.values() for o in vs}
+    out = []
+    for op in ops:
+        if op.type == "relu":
+            z = op.input("X")[0]
+            add = made[z]
+            mul = made[add.input("X")[0]]
+            out.append((mul.input("X")[0], mul.input("Y")[0],
+                        add.input("Y")[0], z))
+    return out
+
+
+def wd_step_close(i, layers, lr, pre, fd, fc, pd, pc):
+    """Step ``i`` of phase 22's check, card (``fd``, ``pd``) against the
+    CPU (``fc``, ``pc``) from the same state ``pre`` (the dense
+    parameters before the step). The fetches are the loss, both rows'
+    gradients, then ``h``, ``z`` and ``z@GRAD`` of each of ``layers``
+    (:func:`wd_layers`).
+
+    A ReLU whose pre-activation lies within rounding of 0 can take the
+    other side on the card than on the CPU (a tie at the kink, as a
+    quantization code flips in phase 26 (d)); the gradient of that
+    sample then differs by what passes that unit (up to 1e-5 in a row,
+    2 of 16 fresh startups on an H100 80GB HBM3). So: the loss, the
+    pre-activations, every row gradient and ``z@GRAD`` of every sample
+    with no flipped unit, and the wide rows, are held to phase 22's
+    tolerances; a flipped unit must lie within ``WD_ATOL`` of 0 on both
+    sides, with ``z@GRAD`` 0 on the side whose ReLU is off; a flipped
+    sample's ``z@GRAD`` below its top layer and its embedding rows'
+    gradient are held to their float64 recomputation from the card's own
+    gradient above them, weights and ReLU masks (``(g w^T) * (z > 0)``),
+    and its top layer's ``z@GRAD`` to the CPU's on the units both sides
+    pass; the dense parameters are held after taking out the flipped
+    samples' terms of the card's and the CPU's gradients (``lr h^T
+    z@GRAD`` and ``lr sum z@GRAD`` of those samples, SGD). Returns the
+    largest differences and the flipped units."""
+    lo_d, lo_c = float(fd[0]), float(fc[0])
+    if not np.isfinite(lo_d) or abs(lo_d - lo_c) > \
+            WD_LOSS_RTOL * max(1.0, abs(lo_c)):
+        raise AssertionError(f"phase 22: step {i} loss card {lo_d!r} "
+                             f"vs CPU {lo_c!r}")
+    f64 = [np.asarray(a, np.float64) for a in fd]
+    c64 = [np.asarray(a, np.float64) for a in fc]
+    n = f64[1].shape[0]
+    hs = [(f64[3 + 3 * k], c64[3 + 3 * k]) for k in range(len(layers))]
+    zs = [(f64[4 + 3 * k], c64[4 + 3 * k]) for k in range(len(layers))]
+    gs = [(f64[5 + 3 * k], c64[5 + 3 * k]) for k in range(len(layers))]
+    on = [(zd > 0, zc > 0) for zd, zc in zs]
+    flipped = np.zeros(n, bool)
+    units = 0
+    for k, ((zd, zc), (md, mc), (gd, gc)) in enumerate(zip(zs, on, gs)):
+        wd_close(f"step {i} {layers[k][3]}", zd, zc)
+        fl = md != mc
+        if fl.any():
+            if max(np.abs(zd[fl]).max(), np.abs(zc[fl]).max()) > WD_ATOL:
+                raise AssertionError(f"phase 22: step {i} "
+                                     f"{layers[k][3]}: a ReLU flipped "
+                                     "away from its kink")
+            off = np.where(md[fl], gc[fl], gd[fl])
+            if np.any(off != 0):
+                raise AssertionError(f"phase 22: step {i} "
+                                     f"{layers[k][3]}@GRAD passes a "
+                                     "ReLU that is off")
+        units += int(fl.sum())
+        flipped |= fl.any(1)
+    ok = ~flipped
+    worst = {"row_grads": 0.0, "dense": 0.0, "recomputed": 0.0}
+    for g_d, g_c, name in zip(f64[1:3], c64[1:3], ("ctr_emb", "ctr_wide")):
+        rows = ok if name == "ctr_emb" else slice(None)
+        worst["row_grads"] = max(worst["row_grads"], wd_close(
+            f"step {i} {name}@GRAD", g_d[rows], g_c[rows]))
+    for k, (gd, gc) in enumerate(gs):
+        wd_close(f"step {i} {layers[k][3]}@GRAD", gd[ok], gc[ok])
+    f = np.flatnonzero(flipped)
+    if f.size:
+        top_d, top_c = gs[-1][0][f], gs[-1][1][f]
+        both = on[-1][0][f] == on[-1][1][f]
+        worst["recomputed"] = wd_close(f"step {i} flipped samples' top "
+                                       "z@GRAD", top_d[both], top_c[both])
+        for k in range(len(layers) - 1, -1, -1):
+            w = pre[layers[k][1]].astype(np.float64)
+            up = gs[k][0][f] @ w.T
+            if k:
+                want, got = up * on[k - 1][0][f], gs[k - 1][0][f]
+            else:
+                want, got = up, f64[1][f].reshape(f.size, -1)
+            worst["recomputed"] = max(worst["recomputed"], wd_close(
+                f"step {i} flipped samples' "
+                f"{layers[k - 1][3] + '@GRAD' if k else 'ctr_emb@GRAD'}",
+                got, want))
+    fix = {}
+    for (h, w, b, _), (hd, hc), (gd, gc) in zip(layers, hs, gs):
+        fix[w] = lr * (hd[f].T @ gd[f] - hc[f].T @ gc[f])
+        fix[b] = lr * (gd[f].sum(0) - gc[f].sum(0))
+    for name in pc:
+        got = np.asarray(pd[name], np.float64) + fix.get(name, 0.0)
+        worst["dense"] = max(worst["dense"], wd_close(
+            f"step {i} {name}", got, pc[name]))
+    worst["loss"] = abs(lo_d - lo_c)
+    worst["flipped_units"] = units
+    worst["flipped_samples"] = int(f.size)
+    return worst
+
+
 def wd_close(what, got, ref, fro=WD_FRO, atol=WD_ATOL):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     err = float(np.abs(got - ref).max()) if got.size else 0.0
@@ -6932,10 +7063,10 @@ def wd_close(what, got, ref, fro=WD_FRO, atol=WD_ATOL):
     return err
 
 
-def wd_run(exe, main, scope, loss, feeds, batches):
+def wd_run(exe, main, scope, fetch, feeds, batches):
     """The host-paced loop over ``batches`` one step at a time (gated),
-    fetching the loss and both rows' gradients: per step ``(fetches,
-    {dense parameter: value})``."""
+    fetching ``fetch``: per step ``(fetches, {dense parameter:
+    value})``."""
     from paddle_tpu_torch.distributed.ps import run_host_paced
     params = [p.name for p in main.all_parameters()]
     done = [threading.Event() for _ in batches]
@@ -6946,7 +7077,7 @@ def wd_run(exe, main, scope, loss, feeds, batches):
         done[i].set()
 
     run_host_paced(exe, main, scope, gated(batches, done), feeds,
-                   fetch_list=[loss.name] + [f.grad_var for f in feeds],
+                   fetch_list=fetch,
                    on_step=on_step, collect=False)
     return steps
 
@@ -6957,10 +7088,12 @@ def widedeep(torch, ctr, card):
     dense_lr 0.01, host_paced=True)``, batch 512, the two SparseFeeds of
     ``bench.py:219-220``, ``run_host_paced`` with its prefetcher) through
     the port's static executor on the card. The startup program, then
-    ``WD_WARMUP`` steps held against the port on the CPU from one scope
-    and from tables copied from one state (loss, pushed row gradients and
-    dense parameters after each step, within phase 22's tolerances); the
-    step's key captures once (the second run) and the ``WD_STEPS`` timed
+    ``WD_WARMUP`` steps, each held against the port on the CPU from a
+    copy of the card's scope and tables before it (loss, pre-activations,
+    pushed row gradients and dense parameters, within phase 22's
+    tolerances; a ReLU tied at its kink as :func:`wd_step_close` holds
+    it); the step's key captures once (the second run) and the
+    ``WD_STEPS`` timed
     steps capture nothing and launch no port kernel; ``set_lr(scope=)``
     between replays is taken at the next step. Prints examples/s, step
     ms, host pull / push ms beside the device's busy ms per step and its
@@ -6980,9 +7113,16 @@ def widedeep(torch, ctr, card):
     exe.run(startup, scope=scope)
     rng = np.random.RandomState(0)
     warm = wd_batches(rng, WD_WARMUP)
+    lr_name = next(op.input("LearningRate")[0]
+                   for op in main.global_block().ops if op.type == "sgd")
+    layers = wd_layers(main)
     # one fetch list for every run (run_host_paced adds the rows'
-    # gradients to it), so every step has the one key
-    fetch = [loss.name, "ctr_emb@GRAD", "ctr_wide@GRAD"]
+    # gradients to it), so every step has the one key: the loss, the
+    # rows' gradients, and for the check each ReLU layer's input,
+    # pre-activation and its gradient (~7.5 MB more per step from the
+    # card)
+    fetch = [loss.name, "ctr_emb@GRAD", "ctr_wide@GRAD"] + [
+        v for h, _, _, z in layers for v in (h, z, z + "@GRAD")]
 
     def feeds(prefix=""):
         return [SparseFeed("ctr_emb", prefix + "bench_emb", WD_DIM,
@@ -6990,46 +7130,41 @@ def widedeep(torch, ctr, card):
                 SparseFeed("ctr_wide", prefix + "bench_emb_wide", 1,
                            lr=0.05)]
 
-    # the checked steps' rows exist before either run; the CPU tables
-    # start from the card tables' state
-    for f, c in zip(feeds(), feeds("cpu_")):
+    # the checked steps' rows exist before the first step; each CPU step
+    # starts from the card's tables and dense state before it
+    for f in feeds():
         for b in warm:
             f.table().pull(b["ids"])
-        # state() hands out the rows themselves: copy them
-        c.table().load_state({k: v.copy()
-                              for k, v in f.table().state().items()})
-    cpu_scope = scope_from_numpy(
-        {n: scope.get_numpy(n) for n in scope.var_names()}, "cpu")
-    cpu = wd_run(Executor("cpu"), main, cpu_scope, loss, feeds("cpu_"),
-                 warm)
+    cpu_exe = Executor("cpu")
+    lr = float(scope.get_numpy(lr_name).reshape(-1)[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ctr.zero()
-    dev = wd_run(exe, main, scope, loss, feeds(), warm)
-    worst = {"loss": 0.0, "row_grads": 0.0, "dense": 0.0}
-    for i, ((fd, pd), (fc, pc)) in enumerate(zip(dev, cpu)):
-        lo_d, lo_c = float(fd[0]), float(fc[0])
-        if not np.isfinite(lo_d) or abs(lo_d - lo_c) > \
-                WD_LOSS_RTOL * max(1.0, abs(lo_c)):
-            raise AssertionError(f"phase 22: step {i} loss card {lo_d!r} "
-                                 f"vs CPU {lo_c!r}")
-        worst["loss"] = max(worst["loss"], abs(lo_d - lo_c))
-        for g_d, g_c, name in zip(fd[1:], fc[1:], ("ctr_emb", "ctr_wide")):
-            worst["row_grads"] = max(worst["row_grads"], wd_close(
-                f"step {i} {name}@GRAD", g_d, g_c))
-        for n in pc:
-            worst["dense"] = max(worst["dense"], wd_close(
-                f"step {i} {n}", pd[n], pc[n]))
-    log(f"  {WD_WARMUP} steps card vs CPU: losses "
-        f"{[float(f[0]) for f, _ in dev]}; max abs differences {worst}")
+    worst, losses_warm = {}, []
+    for i, b in enumerate(warm):
+        for f, c in zip(feeds(), feeds("cpu_")):
+            # state() hands out the rows themselves: copy them
+            c.table().load_state({k: v.copy()
+                                  for k, v in f.table().state().items()})
+        pre = {n: scope.get_numpy(n) for n in scope.var_names()}
+        cpu_scope = scope_from_numpy(pre, "cpu")
+        (fc, pc), = wd_run(cpu_exe, main, cpu_scope, fetch, feeds("cpu_"),
+                           [b])
+        (fd, pd), = wd_run(exe, main, scope, fetch, feeds(), [b])
+        step = wd_step_close(i, layers, lr, pre, fd, fc, pd, pc)
+        for k, v in step.items():
+            worst[k] = worst.get(k, 0) + v if k.startswith("flipped") \
+                else max(worst.get(k, 0.0), v)
+        losses_warm.append(float(fd[0]))
+    log(f"  {WD_WARMUP} steps card vs CPU, each from the card's state "
+        f"before it: losses {losses_warm}; max abs differences and "
+        f"flipped ReLUs {worst}")
     if exe.captures != 1:
         raise AssertionError(f"phase 22: {exe.captures} captures in the "
                              "warm-up steps, expected 1 (the second run)")
 
     # set_lr(scope=) between replays: lr 0 leaves the dense parameters
     # as they are, the restored lr moves them again
-    lr_name = next(op.input("LearningRate")[0]
-                   for op in main.global_block().ops if op.type == "sgd")
     opt = SGD(learning_rate=main.global_block().var(lr_name))
     opt._create_lr_var()
     params = [p.name for p in main.all_parameters()]
@@ -7048,13 +7183,14 @@ def widedeep(torch, ctr, card):
         "as it was, lr 0.01 moved them")
 
     timed = wd_batches(rng, WD_STEPS)
+    losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    outs = run_host_paced(exe, main, scope, timed, feeds(),
-                          fetch_list=fetch)
+    run_host_paced(exe, main, scope, timed, feeds(), fetch_list=fetch,
+                   on_step=lambda i, out: losses.append(float(out[0])),
+                   collect=False)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / WD_STEPS
-    losses = [float(o[0]) for o in outs]
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"phase 22: timed losses {losses}")
     if exe.captures != 1:
@@ -8218,6 +8354,761 @@ def control_flow_phase(torch, ctr, card, sen):
     return {"sweep": {"counts": counts, "worst": worst}, "cond_set": kern,
             "warmup": warm, "loop": loop, "launches": launches}
 
+# ------------------------------------------------------------ phase 26
+#: (a): the card against the port on the CPU on the cases of
+#: tests/torch_op_cases_tail.py (the image, detection and quantization
+#: half of the op library), phase 25's tolerance
+#: (b): configs/yolov3_darknet.yml: batch 8 at 608 x 608, 80 classes,
+#: DarkNet-53's three feature maps fed, 50 ground-truth slots
+YOLO_BATCH, YOLO_IMAGE, YOLO_CLASSES, YOLO_GT = 8, 608, 80, 50
+#: (c): configs/faster_rcnn_r50_1x.yml: batch 2, the C4 feature of an
+#: 800 x 1344 padded image at stride 16, 81 classes; 8 ground-truth
+#: boxes per image (synthetic)
+RPN_BATCH, RPN_C, RPN_H, RPN_W, RPN_GT = 2, 1024, 50, 84, 8
+#: (d): the Book's resnet_cifar10 at phase 24's size under quant_aware
+QAT_DEPTH, QAT_BATCH = 32, 128
+#: steps of (b), (c) and (d): the first eager, the second captures, the
+#: third replays
+DET_STEPS = 3
+#: (b) and (c) train in float64 (scope and feeds upcast, as
+#: tests/test_torch_detection.py runs them): (c)'s proposals sort 63,000
+#: scores per image and sample with numpy's RandomState, (b)'s loss
+#: thresholds IoUs, so a float32 rounding difference between the card
+#: and the CPU can change which boxes a step takes. Held per step, the
+#: CPU from a copy of the card's state: losses within 1e-9 relative, or
+#: 1e-9 absolute for (c)'s terms of order 1 (its RoI mean sums 2e8
+#: values, which two summation orders leave 2.6e-10 apart), feat@GRAD and
+#: every variable after the step within 1e-9 relative Frobenius distance,
+#: RoIs within 1e-3 absolute (float32 outputs of the host ops from
+#: float64 inputs 1e-16 apart), counts exactly
+DET_LOSS_RTOL, DET_LOSS_ATOL, DET_FRO = 1e-9, 1e-9, 1e-9
+#: (c)'s feat@GRAD is small (its RoI-mean term spreads 1 over 2e8 pooled
+#: values): within DET_FRO, or every element within 1e-12 absolute (it
+#: came 4.7e-13 apart at a relative distance above 1e-9: float64
+#: contractions of 1e4 terms summed in other orders)
+DET_GRAD_ATOL = 1e-12
+
+
+def _tail_cases():
+    """tests/torch_op_cases_tail.py, which imports numpy only."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_op_cases_tail",
+        os.path.join(ROOT, "tests", "torch_op_cases_tail.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tail_sweep(torch):
+    """Phase 26 (a): every case of tests/torch_op_cases_tail.py on the
+    card against the port on the CPU, forward and grad, eagerly and
+    then captured and replayed once; a host op's case eagerly and then
+    as a one-op Program through the executor on the card (three runs:
+    eager, the capture that splits at it, a replay), its host reads
+    counted. Every case runs; the failures are raised together. Returns
+    the counts and the largest error per family."""
+    from paddle_tpu_torch import jit, prng
+    from paddle_tpu_torch.framework import Executor, Program, Scope
+    from paddle_tpu_torch.ops import registry as reg
+    cases = _tail_cases()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    pool = torch.cuda.graph_pool_handle()
+    worst, failed = {}, {}
+    n = {"cases": 0, "captured": 0, "host_op_programs": 0, "host_syncs": 0}
+    for cid in sorted(cases.TAIL_CASES):
+        try:
+            _tail_case(torch, jit, prng, Executor, Program, Scope, reg, cases,
+                       cid, dev, cpu, pool, worst, n)
+        except Exception as e:  # every case runs; all failures are raised
+            failed[cid] = f"{type(e).__name__}: {str(e)[:300]}"
+            torch.cuda.synchronize()
+    if failed:
+        raise AssertionError(f"phase 26 (a): {len(failed)} cases failed: "
+                             f"{failed}")
+    return n, worst
+
+
+def _tail_case(torch, jit, prng, Executor, Program, Scope, reg, cases, cid,
+               dev, cpu, pool, worst, n):
+    """One case of :func:`tail_sweep`."""
+    import zlib
+    op_type, make, attrs, _ = cases.TAIL_CASES[cid]
+    ins_np = make(np.random.RandomState(zlib.crc32(cid.encode())))
+    d = reg.get_op_def(op_type)
+    fam = d.lowering.__module__.rsplit(".", 1)[1]
+
+    def tensors(where):
+        return {s: [torch.as_tensor(np.asarray(a)).to(where) for a in v]
+                for s, v in ins_np.items()}
+
+    outs, _ = _case_fn(torch, reg, op_type, tensors(cpu), attrs, None,
+                       prng.PRNGKey(5), cpu, False)()
+    crng = np.random.RandomState(7)
+    cots = {f"{s}:{i}@G": torch.as_tensor(crng.randn(*v.shape)).to(
+        v.dtype) for s, vals in outs.items() for i, v in enumerate(vals)
+        if v.is_floating_point()}
+    ref = _case_fn(torch, reg, op_type, tensors(cpu), attrs, cots,
+                   prng.PRNGKey(5), cpu, False)()
+    fn = _case_fn(torch, reg, op_type, tensors(dev), attrs,
+                  {k: v.to(dev) for k, v in cots.items()},
+                  prng.PRNGKey(5, device=dev), dev, False)
+    runs = [("eager", fn())]
+    if d.host_op:
+        prog = Program()
+        blk = prog.global_block()
+        for s, vals in ins_np.items():
+            for i in range(len(vals)):
+                blk.create_var(f"{s}{i}", is_data=True)
+        fetch = [f"o_{s}{i}" for s, vals in outs.items()
+                 for i in range(len(vals))]
+        for name in fetch:
+            blk.create_var(name)
+        blk.append_op(op_type, {s: [f"{s}{i}" for i in range(len(v))]
+                                for s, v in ins_np.items()},
+                      {s: [f"o_{s}{i}" for i in range(len(v))]
+                       for s, v in outs.items()}, dict(attrs))
+        exe, scope = Executor("cuda"), Scope()
+        feed = {f"{s}{i}": a for s, v in ins_np.items()
+                for i, a in enumerate(v)}
+        for k in range(3):
+            got = exe.run(prog, feed=feed, fetch_list=fetch, scope=scope,
+                          return_numpy=False)
+            n["host_syncs"] += exe.host_syncs
+            if exe.host_syncs != 1:
+                raise AssertionError(f"phase 26: {cid} run {k}: "
+                                     f"{exe.host_syncs} host reads, "
+                                     "expected 1")
+        if exe.captures != 1 or exe.graphs != 1:
+            raise AssertionError(f"phase 26: {cid}: {exe.captures} "
+                                 f"captures, {exe.graphs} graphs")
+        it = iter(got)
+        runs.append(("executor", ({s: [next(it) for _ in v]
+                                   for s, v in outs.items()}, {})))
+        n["host_op_programs"] += 1
+    else:
+        jit.warm_up(dev, fn)
+        graph, got, _ = jit.capture(dev, fn, [], pool)
+        graph.replay()
+        torch.cuda.synchronize()
+        runs.append(("captured", got))
+        n["captured"] += 1
+    n["cases"] += 1
+    for how, (o, g) in runs:
+        what = f"{cid} ({how})"
+        for s, vals in ref[0].items():
+            for a, b in zip(o[s], vals):
+                worst[fam] = max(worst.get(fam, 0.0),
+                                 _cf_err(a, b, f"{what} {s}"))
+        if how == "executor":
+            continue
+        if set(g) != set(ref[1]):
+            raise AssertionError(f"phase 26: {what}: grads {sorted(g)} "
+                                 f"vs the CPU's {sorted(ref[1])}")
+        for name, b in ref[1].items():
+            worst[fam] = max(worst.get(fam, 0.0),
+                             _cf_err(g[name], b, f"{what} {name}"))
+
+
+def _f64(a):
+    a = np.asarray(a)
+    return a.astype(np.float64) if a.dtype == np.float32 else a
+
+
+def _det_close(what, got, ref, fro=DET_FRO, rtol=None, atol=0.0):
+    """Float64 card result against the CPU's: the relative Frobenius
+    distance within ``fro`` (or, with ``rtol``, every element within
+    ``atol + rtol |ref|``); integers exactly. Returns the max abs
+    difference."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape:
+        raise AssertionError(f"phase 26: {what}: shape {got.shape} vs the "
+                             f"CPU's {ref.shape}")
+    if ref.dtype.kind in "biu":
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"phase 26: {what}: {got.ravel()[:8]} vs "
+                                 f"the CPU's {ref.ravel()[:8]}")
+        return 0.0
+    g, r = got.astype(np.float64), ref.astype(np.float64)
+    if not np.isfinite(g).all():
+        raise AssertionError(f"phase 26: {what}: not finite on the card")
+    err = float(np.abs(g - r).max()) if g.size else 0.0
+    if rtol is not None:
+        ok = (np.abs(g - r) <= atol + rtol * np.abs(r)).all()
+    else:
+        ok = (np.linalg.norm(g - r) <= fro * max(np.linalg.norm(r), 1e-30)
+              or err <= atol)
+    if not ok:
+        raise AssertionError(f"phase 26: {what}: card vs CPU max abs "
+                             f"{err:.3e}")
+    return err
+
+
+def _train_card_cpu(torch, prog, startup, feeds, fetch, what, close):
+    """``len(feeds)`` steps on the card, each also on the CPU from a
+    copy of the card's state before it (float64): ``close(step, card
+    fetches, cpu fetches, card executor)`` per step and every variable
+    held to DET_FRO; returns (card fetches per step, the card executor,
+    step seconds, the card scope, the state's max abs difference)."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models.convert import scope_from_numpy
+    card_exe, cpu_exe = Executor("cuda"), Executor("cpu")
+    boot = Scope()
+    Executor("cpu").run(startup, scope=boot)
+    card_scope = scope_from_numpy({n: _f64(boot.get_numpy(n))
+                                   for n in boot.var_names()}, "cuda")
+    feeds = [{k: _f64(v) for k, v in f.items()} for f in feeds]
+    out, secs, worst = [], [], 0.0
+    for i, f in enumerate(feeds):
+        cpu_scope = scope_from_numpy({n: card_scope.get_numpy(n)
+                                      for n in card_scope.var_names()}, "cpu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card_exe.run(prog, feed=f, fetch_list=fetch, scope=card_scope)
+        secs.append(time.perf_counter() - t0)
+        ref = cpu_exe.run(prog, feed=f, fetch_list=fetch, scope=cpu_scope)
+        close(i, got, ref, card_exe)
+        for n_ in cpu_scope.var_names():
+            worst = max(worst, _det_close(f"{what} step {i} {n_}",
+                                          card_scope.get_numpy(n_),
+                                          cpu_scope.get_numpy(n_),
+                                          atol=1e-12))
+        out.append(got)
+    return out, card_exe, secs, card_scope, worst
+
+
+#: the NMS kernel against its plain version: rows x candidates, dtype,
+#: normalized, IoU threshold (then the (b) inference's own rows)
+NMS_CASES = [(8, 1, "f32", True, 0.5), (16, 7, "f32", False, 0.3),
+             (64, 64, "f32", True, 0.45), (32, 300, "f32", False, 0.7),
+             (640, 1064, "f32", False, 0.45), (16, 257, "f64", True, 0.5),
+             (4, 2048, "f32", True, 0.2)]
+
+
+def _nms_rows(torch, rng, r, w, dtype, dev):
+    """Sorted candidate rows: boxes in a 608-pixel image (a fifth of them
+    copies of an earlier box: exact ties), descending scores, a -inf
+    tail in half the rows."""
+    xy = rng.rand(r, w, 2) * 500
+    box = np.concatenate([xy, xy + rng.rand(r, w, 2) * 150 + 2], -1)
+    dup = rng.rand(r, w) < 0.2
+    src = (rng.rand(r, w) * np.arange(w)).astype(np.int64)
+    rows, cols = np.nonzero(dup)
+    box[rows, cols] = box[rows, src[rows, cols]]
+    sc = -np.sort(-rng.rand(r, w), axis=1)
+    cut = rng.randint(1, w + 1, r)
+    tail = (np.arange(w)[None, :] >= cut[:, None]) & \
+        (rng.rand(r)[:, None] < 0.5)
+    sc[tail] = -np.inf
+    dt = torch.float32 if dtype == "f32" else torch.float64
+    return (torch.as_tensor(box, dtype=dt).to(dev),
+            torch.as_tensor(sc, dtype=dt).to(dev))
+
+
+def nms_kernel(torch, det_ops, nms):
+    """The NMS kernel (``csrc/nms.cu``) against its plain version on the
+    card (NMS_CASES, then the rows (b)'s inference gave it), equal flag
+    for flag; then both timed on those rows (device time of a graph's
+    replay by CUDA events), beside the bound: the rows' bytes once, or
+    17 operations per IoU the greedy loop must evaluate (every kept pair,
+    one per suppressed candidate) at the f32 peak."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.ops.cuda import nms as nk
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(26)
+    n = 0
+    for r, w, dtype, normalized, thresh in NMS_CASES:
+        boxes, scores = _nms_rows(torch, rng, r, w, dtype, dev)
+        got = nk.nms_keep(boxes, scores, thresh, normalized)
+        ref = nk.nms_keep_plain(boxes, scores, thresh, normalized)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"phase 26: nms_keep [{r}, {w}] {dtype}: "
+                                 f"{int((got != ref).sum())} flags differ "
+                                 "from the plain version")
+        n += 1
+    seen = []
+    orig = det_ops.nms_keep
+
+    def spy(*a):
+        seen.append(a)
+        return orig(*a)
+
+    det_ops.nms_keep = spy
+    try:
+        nms()
+    finally:
+        det_ops.nms_keep = orig
+    boxes, scores, thresh, normalized = seen[0]
+    boxes, scores = boxes.contiguous(), scores.contiguous()
+    got = nk.nms_keep(boxes, scores, thresh, normalized)
+    ref = nk.nms_keep_plain(boxes, scores, thresh, normalized)
+    if not torch.equal(got, ref):
+        raise AssertionError("phase 26: nms_keep differs from the plain "
+                             "version on (b)'s rows")
+    n += 1
+    pool = torch.cuda.graph_pool_handle()
+    g_k, _, _ = jit.capture(dev, lambda: nk.nms_keep(
+        boxes, scores, thresh, normalized), [], pool)
+    g_p, _, _ = jit.capture(dev, lambda: nk.nms_keep_plain(
+        boxes, scores, thresh, normalized), [], pool)
+    reps = 20
+    ms = event_ms(torch, lambda: [g_k.replay() for _ in range(reps)]) / reps
+    plain_ms = event_ms(torch, g_p.replay)
+    del g_k, g_p
+    keep = got.cpu().numpy()
+    alive = np.isfinite(scores.cpu().numpy())
+    before = np.cumsum(keep, axis=1) - keep
+    ious = int((before * keep).sum()) + int((alive & ~keep).sum())
+    r, w = scores.shape
+    nbytes = r * w * (4 * boxes.element_size() + scores.element_size() + 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 17 * ious / F32_FLOPS * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "max_abs_err": 0.0, "cases_passed": n,
+            "shape": [r, w], "ious": ious, "bytes": nbytes}
+
+
+def yolo_phase(torch, ctr, card):
+    """Phase 26 (b): the YOLOv3 head (models/detection.py's
+    yolov3_programs) at configs/yolov3_darknet.yml's geometry: three
+    steps of the float64 training program card against CPU (one
+    capture), then the inference program in float32 from the trained
+    weights (yolo_box x 3, concat, multiclass_nms) eager, captured and
+    replayed, and the card's NMS rows and counts against the port's NMS
+    on the CPU on the card's own boxes and scores; the NMS alone timed
+    on the card, its peak memory beside the M x M matrix it avoids."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.framework import Executor
+    from paddle_tpu_torch.models import detection as det
+    from paddle_tpu_torch.models.convert import scope_from_numpy
+    from paddle_tpu_torch.ops import detection_ops as det_ops
+    from paddle_tpu_torch.ops import registry as reg
+    p = det.yolov3_programs(image=YOLO_IMAGE, class_num=YOLO_CLASSES,
+                            gt_slots=YOLO_GT, seed=26)
+    rng = np.random.RandomState(26)
+    feeds = det.yolo_feeds(rng, DET_STEPS, YOLO_BATCH, YOLO_IMAGE,
+                       (1024, 512, 256), YOLO_GT, YOLO_CLASSES)
+    losses = []
+
+    def close(i, got, ref, exe):
+        _det_close(f"(b) step {i} loss", got[0], ref[0], rtol=DET_LOSS_RTOL,
+                   atol=1e-12)
+        losses.append(float(got[0]))
+
+    t0 = time.perf_counter()
+    _, exe, secs, scope, worst = _train_card_cpu(
+        torch, p.main, p.startup, feeds, [p.loss.name], "(b)", close)
+    if exe.captures != 1:
+        raise AssertionError(f"phase 26 (b): {exe.captures} captures")
+    train_s = time.perf_counter() - t0
+    # inference in float32 from the trained weights
+    state = {n: scope.get_numpy(n).astype(np.float32)
+             for n in scope.var_names() if n.startswith("yolo_out")}
+    iscope = scope_from_numpy(state, "cuda")
+    f = {k: v for k, v in feeds[0].items() if k.startswith("feat")}
+    f["img_size"] = np.array([[YOLO_IMAGE, YOLO_IMAGE]] * YOLO_BATCH,
+                             np.int32)
+    fetch = [p.boxes.name, p.scores.name, p.out.name, p.num.name]
+    iexe = Executor("cuda")
+    t0 = time.perf_counter()
+    runs = []
+    ctr.zero()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        runs.append(iexe.run(p.infer, feed=f, fetch_list=fetch, scope=iscope,
+                             return_numpy=False))
+        torch.cuda.synchronize()
+        secs_i = time.perf_counter() - t1
+    launched = ctr.read()
+    ctr.expect(launched, {"nms_keep": 3}, "phase 26 (b) inference (the NMS "
+               "kernel once per run: eager, capture and replay, replay)")
+    if iexe.captures != 1:
+        raise AssertionError(f"phase 26 (b): inference {iexe.captures} "
+                             "captures")
+    boxes, scores, rows, num = runs[-1]
+    for k in (2, 3):
+        if not torch.equal(runs[0][k], runs[-1][k]):
+            raise AssertionError("phase 26 (b): the replayed NMS differs "
+                                 "from the eager run")
+    m = boxes.shape[1]
+    attrs = {"score_threshold": 0.01, "nms_top_k": 1000, "keep_top_k": 100,
+             "nms_threshold": 0.45, "normalized": False,
+             "background_label": -1}
+    ctx = reg.LoweringContext(device="cpu")
+    cpu = reg.execute(ctx, "multiclass_nms", {"BBoxes": [boxes.cpu()],
+                                              "Scores": [scores.cpu()]},
+                      attrs)
+    if not torch.equal(cpu["Out"][0], rows.cpu()) or \
+            not torch.equal(cpu["NumDetected"][0], num.cpu()):
+        raise AssertionError("phase 26 (b): the card's NMS rows or counts "
+                             "differ from the CPU's on the same inputs")
+    if int(num.min()) <= 0:
+        raise AssertionError(f"phase 26 (b): NumDetected {num.tolist()}")
+    gctx = reg.LoweringContext(device="cuda")
+    ins = {"BBoxes": [boxes], "Scores": [scores]}
+
+    def nms():
+        return reg.execute(gctx, "multiclass_nms", ins, attrs)
+
+    with ctr.aside():
+        kern = nms_kernel(torch, det_ops, nms)
+
+    nms()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    nms()
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t1) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    graph, _, _ = jit.capture(torch.device("cuda"), nms, [],
+                              torch.cuda.graph_pool_handle())
+    nms_ms = event_ms(torch, graph.replay)
+    del graph
+    mm_bytes = m * m * 4
+    width = min(m, 1000 + 64)
+    res = {"train_step_s": secs, "train_losses": losses,
+           "train_state_max_abs": worst, "train_s": train_s,
+           "infer_replay_s": secs_i, "boxes_per_image": m,
+           "num_detected": num.tolist(), "nms_ms": nms_ms,
+           "nms_eager_ms": eager_ms, "kernel": kern, "launches": launched,
+           "nms_peak_bytes": peak, "nms_candidates_per_class": width,
+           "mxm_iou_bytes_per_class": mm_bytes}
+    log(f"  [{card}] (b) YOLOv3 batch {YOLO_BATCH} at {YOLO_IMAGE}: train "
+        f"steps (float64) {[round(s, 3) for s in secs]} s, losses "
+        f"{[round(v, 4) for v in losses]}, card vs CPU state max abs "
+        f"{worst:.3e}, 1 capture; inference replay {secs_i * 1e3:.2f} ms "
+        f"(host clock), M = {m} boxes, NMS rows and NumDetected "
+        f"{num.tolist()} equal to the CPU's NMS on the card's boxes and "
+        f"scores; multiclass_nms alone "
+        f"{nms_ms:.3f} ms replayed (device time), {eager_ms:.3f} ms eagerly "
+        f"(host clock), peak {peak / 2**20:.1f} MiB over its inputs "
+        f"({width} candidates per class; one class's M x M IoU would be "
+        f"{mm_bytes / 2**30:.2f} GiB); launches {launched}; nms_keep "
+        f"(csrc/nms.cu) equal to plain in {kern['cases_passed']} cases, on "
+        f"(b)'s rows [{kern['shape'][0]}, {kern['shape'][1]}] "
+        f"{kern['ms']:.4f} ms against plain {kern['plain_ms']:.3f} ms, bound "
+        f"{kern['bound_ms']:.5f} ms ({kern['bound_by']}: {kern['ious']} "
+        f"IoUs, {kern['bytes']} B)")
+    return res
+
+
+def rpn_phase(torch, card):
+    """Phase 26 (c): Faster R-CNN's RPN and RoIAlign (models/
+    detection.py's rpn_program) at configs/faster_rcnn_r50_1x.yml's
+    geometry: three float64 steps card against CPU; one capture, the key
+    split at the three host ops into three graphs, three host reads per
+    run."""
+    from paddle_tpu_torch.models import detection as det
+    p = det.rpn_program(channels=RPN_C, height=RPN_H, width=RPN_W,
+                        gt_slots=RPN_GT, batch=RPN_BATCH, seed=26)
+    feeds = det.rpn_feeds(np.random.RandomState(26), DET_STEPS, RPN_BATCH,
+                          RPN_C, RPN_H, RPN_W, RPN_GT)
+    stats = {"losses": [], "host_syncs": [], "rois": [], "fg": []}
+
+    def close(i, got, ref, exe):
+        for k, name in enumerate(("loss", "rpn cls", "rpn bbox",
+                                  "roi mean")):
+            _det_close(f"(c) step {i} {name}", got[k], ref[k],
+                       rtol=DET_LOSS_RTOL, atol=DET_LOSS_ATOL)
+        _det_close(f"(c) step {i} feat@GRAD", got[4], ref[4],
+                   atol=DET_GRAD_ATOL)
+        stats["grad_norm"] = float(np.linalg.norm(got[4]))
+        _det_close(f"(c) step {i} RoIs", got[5], ref[5], rtol=0.0, atol=1e-3)
+        for k, name in ((6, "RoisNum"), (7, "RpnRoisNum"), (8, "FgNum")):
+            _det_close(f"(c) step {i} {name}", got[k], ref[k])
+        stats["losses"].append(float(got[0]))
+        stats["host_syncs"].append(exe.host_syncs)
+        stats["rois"].append(np.asarray(got[6]).tolist())
+        stats["fg"].append(np.asarray(got[8]).tolist())
+
+    t0 = time.perf_counter()
+    _, exe, secs, _, worst = _train_card_cpu(
+        torch, p.main, p.startup, feeds, p.fetch, "(c)", close)
+    if exe.captures != 1 or exe.graphs != 3:
+        raise AssertionError(f"phase 26 (c): {exe.captures} captures, "
+                             f"{exe.graphs} graphs; expected 1 capture of 3 "
+                             "graph pieces")
+    if stats["host_syncs"] != [3] * DET_STEPS:
+        raise AssertionError(f"phase 26 (c): host reads per run "
+                             f"{stats['host_syncs']}, expected 3")
+    res = {"step_s": secs, "losses": stats["losses"],
+           "host_syncs": stats["host_syncs"], "graphs": exe.graphs,
+           "rois_num": stats["rois"], "fg_num": stats["fg"],
+           "state_max_abs": worst, "feat_grad_norm": stats["grad_norm"],
+           "s": time.perf_counter() - t0}
+    log(f"  [{card}] (c) Faster R-CNN RPN + RoIAlign, batch {RPN_BATCH}, "
+        f"C4 [{RPN_C}, {RPN_H}, {RPN_W}] (float64): steps "
+        f"{[round(s, 3) for s in secs]} s, losses "
+        f"{[round(v, 5) for v in stats['losses']]}, host reads per run "
+        f"{stats['host_syncs']}, 1 capture of {exe.graphs} graphs, RoIs per "
+        f"image {stats['rois']}, fg anchors {stats['fg']}, |feat@GRAD| "
+        f"{stats['grad_norm']:.3e}; card vs CPU state max abs {worst:.3e}")
+    return res
+
+
+#: (d): quantization-aware training in float32 is chaotic between the
+#: card and the CPU: a rounding difference flips a code (moves an
+#: activation by one quantum, scale / 127), the next convolution turns one
+#: flip into tens of changed outputs near their own code boundaries, and
+#: through 32 quantized layers 5.2-7.7 million of the step's 38,674,432
+#: activation codes flip, the loss 0.03-0.16% apart (on an H100 80GB
+#: HBM3). So the float32 steps are the card's alone (time, one capture, the
+#: AdamW kernel), and the card is held against the CPU in float64 from the
+#: same start (scope and feeds upcast; Adam through the AdamW kernel's
+#: float64 instantiation, once per adam op and step, against its plain
+#: version on the CPU): no code flips there
+#: unless an activation lies within ~1e-14 of a boundary, so the loss,
+#: every parameter and every state variable are held to 1e-9 (relative,
+#: Frobenius, or absolute: a convolution bias a batch norm follows has an
+#: exact gradient of zero, whose rounding noise Adam's epsilon of 1e-8
+#: turns into steps of lr x noise / 1e-8, 2.9e-12 on the H100). Each
+#: flipped code still counted: the loss may then move by
+#: q |dL/da| per flip (the card's gradient of that activation), twice
+#: that added to its bound, and the state is held as in float32 (the
+#: parameters within Adam's 2 lr + 1e-6 per element; a quantizer's
+#: accumulator within its input's largest card-CPU difference)
+QAT_LOSS_RTOL, QAT_STATE_RTOL = 1e-9, 1e-9
+
+
+def qat_phase(torch, ctr, card):
+    """Phase 26 (d): slim.quant_aware on the Book's resnet_cifar10 (depth
+    32, batch 128, Adam): three float32 steps on the card (one capture,
+    the AdamW kernel once per ``adam`` op and step, the replay timed);
+    three float64 steps on the card, each against the CPU from a copy of
+    the card's state (QAT_* above); ``convert``: every scale positive,
+    two runs of the frozen, pruned inference program equal;
+    PostTrainingQuantization of the float net within 5% of the float
+    prediction and not equal to it."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models import book
+    from paddle_tpu_torch.models.convert import scope_from_numpy
+    from paddle_tpu_torch.slim import quantization as quant
+    b = book.image_classification(depth=QAT_DEPTH, batch_size=QAT_BATCH,
+                                  seed=26, qat=True)
+    blk = b.main.global_block()
+    qops = [op for op in blk.ops
+            if op.type == "fake_quantize_dequantize_moving_average_abs_max"]
+    outs = [op.output("Out")[0] for op in qops]
+    grads = [o + "@GRAD" if o + "@GRAD" in blk.vars else None for o in outs]
+    base = [v.name for v in b.fetches]
+    fetch = base + outs + [g for g in grads if g] + \
+        [op.input("X")[0] for op in qops]
+    quant_state = {}
+    for k, op in enumerate(qops):
+        for slot in ("InScale", "InState", "InAccum"):
+            quant_state[op.input(slot)[0]] = (k, slot)
+    n_adam = sum(op.type == "adam" for op in blk.ops)
+    params = [p_.name for p_ in b.main.all_parameters()]
+    feeds = book.batches(b, DET_STEPS)
+    # float32 on the card alone
+    exe32, scope = Executor("cuda"), Scope()
+    exe32.run(b.startup, scope=scope)
+    start = {n: scope.get_numpy(n) for n in scope.var_names()}
+    ctr.zero()
+    secs, losses32 = [], []
+    for f in feeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = exe32.run(b.main, feed=f, fetch_list=base, scope=scope)
+        secs.append(time.perf_counter() - t0)
+        losses32.append(float(got[0]))
+    launched = ctr.read()
+    ctr.expect(launched, {"adamw": DET_STEPS * n_adam},
+               "phase 26 (d) (the AdamW kernel once per adam op and step)")
+    if exe32.captures != 1 or not np.isfinite(losses32).all():
+        raise AssertionError(f"phase 26 (d): {exe32.captures} captures, "
+                             f"losses {losses32}")
+    # float64: the card against the CPU
+    exe64, cpu_exe = Executor("cuda"), Executor("cpu")
+    scope64 = scope_from_numpy({n: _f64(a) for n, a in start.items()},
+                               "cuda")
+    info = []
+    with ctr.aside():
+        ctr.zero()
+        for i, f in enumerate(feeds):
+            f = {k: _f64(v) for k, v in f.items()}
+            cpu_scope = scope_from_numpy({n: scope64.get_numpy(n)
+                                          for n in scope64.var_names()},
+                                         "cpu")
+            got = exe64.run(b.main, feed=f, fetch_list=fetch, scope=scope64)
+            ref = cpu_exe.run(b.main, feed=f, fetch_list=fetch,
+                              scope=cpu_scope)
+            info.append(_qat_step(i, b, qops, outs, grads, quant_state,
+                                  params, base, fetch, got, ref, scope64,
+                                  cpu_scope))
+        launched64 = ctr.read()
+    ctr.expect(launched64, {"adamw": DET_STEPS * n_adam},
+               "phase 26 (d) float64 (the AdamW kernel once per adam op "
+               "and step)")
+    if exe64.captures != 1:
+        raise AssertionError(f"phase 26 (d): float64 {exe64.captures} "
+                             "captures")
+    frozen, scales = quant.convert(b.main, scope=scope)
+    if not scales or min(scales.values()) <= 0:
+        raise AssertionError(f"phase 26 (d): convert's scales {scales}")
+    infer = frozen._prune(b.infer_targets, keep_var_names=["pixel"])
+    x = feeds[-1]["pixel"]
+    tgt = b.infer_targets[0].name
+    r1, r2 = (exe32.run(infer, feed={"pixel": x}, fetch_list=[tgt],
+                        scope=scope, return_numpy=False)[0]
+              for _ in range(2))
+    if not torch.equal(r1, r2):
+        raise AssertionError("phase 26 (d): two runs of the frozen program "
+                             "differ")
+    # post-training quantization of the float net
+    fb = book.image_classification(depth=QAT_DEPTH, batch_size=QAT_BATCH,
+                                   seed=26)
+    fscope = Scope()
+    exe32.run(fb.startup, scope=fscope)
+    finfer = fb.test_program._prune(fb.infer_targets,
+                                    keep_var_names=["pixel"])
+    ftgt = fb.infer_targets[0].name
+    ref_p = exe32.run(finfer, feed={"pixel": x}, fetch_list=[ftgt],
+                      scope=fscope)[0]
+    ptq = quant.PostTrainingQuantization(exe32, finfer, scope=fscope)
+    for f in book.batches(fb, 4):
+        ptq.collect({"pixel": f["pixel"]})
+    qprog, pscales = ptq.quantize()
+    got_p = exe32.run(qprog, feed={"pixel": x}, fetch_list=[ftgt],
+                      scope=fscope)[0]
+    err = float(np.abs(got_p - ref_p).max())
+    rel = err / (float(np.abs(ref_p).max()) + 1e-6)
+    if not (rel < 0.05 and err > 0):
+        raise AssertionError(f"phase 26 (d): PTQ max abs {err:.3e}, "
+                             f"{rel:.3e} of the float prediction")
+    res = {"step_s": secs, "losses_f32": losses32, "steps_f64": info,
+           "captures": exe32.captures, "launches": launched,
+           "scales": len(scales), "min_scale": min(scales.values()),
+           "ptq_max_abs": err, "ptq_rel": rel, "ptq_scales": len(pscales)}
+    log(f"  [{card}] (d) QAT resnet_cifar10 depth {QAT_DEPTH} batch "
+        f"{QAT_BATCH}: float32 steps {[round(s, 4) for s in secs]} s, "
+        f"losses {[round(v, 5) for v in losses32]}, 1 capture, launches "
+        f"{launched}; float64 against the CPU ({launched64['adamw']} "
+        f"AdamW launches): losses "
+        f"{[round(s['loss'], 6) for s in info]}, loss diffs "
+        f"{[format(s['loss_diff'], '.2e') for s in info]} within {[format(s['allowed'], '.2e') for s in info]}, flipped "
+        f"codes {[s['flipped_codes'] for s in info]}, parameters max abs "
+        f"{[format(s['param_max_abs'], '.2e') for s in info]}, state max "
+        f"abs {[format(s['state_max_abs'], '.2e') for s in info]}; "
+        f"convert: {len(scales)} scales, min {min(scales.values()):.3e}, two "
+        f"frozen runs equal; PTQ {rel:.3e} of float (max abs {err:.3e})")
+    return res
+
+
+def _qat_step(i, b, qops, outs, grads, quant_state, params, base, fetch,
+              got, ref, scope, cpu_scope):
+    """One float64 step of (d) against the CPU (QAT_* above)."""
+    xs = len(fetch) - len(qops)
+    dx = [float(np.abs(got[xs + k] - ref[xs + k]).max())
+          for k in range(len(qops))]
+    gi = iter(got[len(base) + len(outs):xs])
+    flips, bound = 0, 0.0
+    for k, (out, g) in enumerate(zip(outs, grads)):
+        q = float(scope.get_numpy(qops[k].input("InScale")[0])) / 127.0
+        flipped = np.abs(got[len(base) + k] - ref[len(base) + k]) > q / 2
+        gv = next(gi) if g else None
+        if flipped.any():
+            if gv is None:
+                raise AssertionError(f"phase 26 (d): step {i}: "
+                                     f"{int(flipped.sum())} codes of {out} "
+                                     "(no gradient) flipped")
+            flips += int(flipped.sum())
+            bound += q * float(np.abs(gv[flipped]).sum())
+    loss, rloss = float(got[0]), float(ref[0])
+    allowed = QAT_LOSS_RTOL * abs(rloss) + 2 * bound
+    if not np.isfinite(loss) or abs(loss - rloss) > allowed:
+        raise AssertionError(f"phase 26 (d): step {i} loss card {loss} CPU "
+                             f"{rloss}, allowed {allowed:.3e} ({flips} "
+                             "flipped codes)")
+    pworst, sworst = 0.0, 0.0
+    for n_ in params:
+        if flips:
+            err = book_param_close(f"(d) step {i} {n_}", scope.get_numpy(n_),
+                                   cpu_scope.get_numpy(n_),
+                                   2 * b.lr + 1e-6)[0]
+        else:
+            err = _det_close(f"(d) step {i} {n_}", scope.get_numpy(n_),
+                             cpu_scope.get_numpy(n_), fro=QAT_STATE_RTOL,
+                             atol=QAT_STATE_RTOL)
+        pworst = max(pworst, err)
+    for n_ in sorted(set(cpu_scope.var_names()) - set(params)):
+        got_s, ref_s = scope.get_numpy(n_), cpu_scope.get_numpy(n_)
+        if not flips:
+            sworst = max(sworst, _det_close(f"(d) step {i} {n_}", got_s,
+                                            ref_s, fro=QAT_STATE_RTOL,
+                                            atol=QAT_STATE_RTOL))
+        elif "_moment" in n_:
+            if got_s.shape != ref_s.shape or not np.isfinite(got_s).all():
+                raise AssertionError(f"phase 26 (d): step {i} {n_}")
+        elif n_ in quant_state:
+            k, slot = quant_state[n_]
+            st = float(scope.get_numpy(qops[k].input("InState")[0]))
+            g_, r_ = float(got_s), float(ref_s)
+            lim = QAT_STATE_RTOL * abs(r_) + (
+                0.0 if slot == "InState" else
+                dx[k] / st if slot == "InScale" else dx[k])
+            if not abs(g_ - r_) <= lim:
+                raise AssertionError(
+                    f"phase 26 (d): step {i} {n_}: card {g_} CPU {r_}, "
+                    f"allowed {lim:.3e} (input max abs diff {dx[k]:.3e})")
+            sworst = max(sworst, abs(g_ - r_))
+        else:
+            sworst = max(sworst, book_param_close(
+                f"(d) step {i} {n_}", got_s, ref_s, None, BOOK_STATE_FRO,
+                BOOK_STATE_ATOL)[0])
+    if not got[1] == ref[1]:
+        raise AssertionError(f"phase 26 (d): step {i} accuracy {got[1]} "
+                             f"vs the CPU's {ref[1]}")
+    return {"loss": loss, "cpu_loss": rloss, "loss_diff": abs(loss - rloss),
+            "allowed": allowed, "flipped_codes": flips,
+            "param_max_abs": pworst, "state_max_abs": sworst}
+
+
+def detection_phase(torch, ctr, card):
+    """Phase 26: (a) the tail op sweep, (b) the YOLOv3 head, (c) Faster
+    R-CNN's RPN and RoIAlign, (d) quantization-aware training."""
+    det_flags = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out, secs = {}, {}
+    try:
+        t0 = time.perf_counter()
+        with ctr.aside():
+            counts, worst = tail_sweep(torch)
+        secs["a"] = time.perf_counter() - t0
+        log(f"  (a) {counts['cases']} cases on the card against the CPU "
+            f"eagerly, {counts['captured']} captured and replayed, "
+            f"{counts['host_op_programs']} host ops through the executor's "
+            f"split ({counts['host_syncs']} host syncs); largest error per "
+            f"family {worst}; {secs['a']:.1f} s")
+        out["sweep"] = {"counts": counts, "worst": worst}
+        for key, fn in (("b", lambda: yolo_phase(torch, ctr, card)),
+                        ("c", lambda: rpn_phase(torch, card))):
+            t0 = time.perf_counter()
+            with ctr.aside():
+                out[key] = fn()
+            secs[key] = time.perf_counter() - t0
+            log(f"  ({key}) took {secs[key]:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["d"] = qat_phase(torch, ctr, card)
+        secs["d"] = time.perf_counter() - t0
+        log(f"  (d) took {secs['d']:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det_flags
+    out["seconds"] = secs
+    out["launches"] = {**out["d"]["launches"],
+                       "nms_keep": out["b"]["launches"]["nms_keep"]}
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8228,10 +9119,11 @@ def main():
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flash_pack2 as fp2
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    from paddle_tpu_torch.ops.cuda import nms as nk
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     t_start = time.perf_counter()
-    ctr = Counters(pa, fa, ln, fp2, aw)
+    ctr = Counters(pa, fa, ln, fp2, aw, nk)
     card = card_line()
     log("== phase 1: device")
     log(f"  {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
@@ -8240,7 +9132,7 @@ def main():
 
     log("== phase 2: build (one nvcc per source, started together)")
     sources = ["paged_attention", "flash_attention", "layer_norm",
-               "flash_pack2", "adamw", "cond_graph"]
+               "flash_pack2", "adamw", "cond_graph", "nms"]
     t_build = time.perf_counter()
     _build.load_all(sources)
     log(f"  {len(sources)} built in {time.perf_counter() - t_build:.2f} s")
@@ -8484,6 +9376,20 @@ def main():
     t_cf = time.perf_counter()
     cfl = control_flow_phase(torch, ctr, card, sen)
     log(f"  phase 25 took {time.perf_counter() - t_cf:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"== phase 26: images, detection and quantization: (a) the tail op "
+        f"sweep, card against CPU, eager and captured, host ops through the "
+        f"executor's split; (b) the YOLOv3 head (configs/yolov3_darknet.yml: "
+        f"batch {YOLO_BATCH} at {YOLO_IMAGE}, {YOLO_CLASSES} classes); (c) "
+        f"Faster R-CNN's RPN and RoIAlign (configs/faster_rcnn_r50_1x.yml: "
+        f"batch {RPN_BATCH}, C4 [{RPN_C}, {RPN_H}, {RPN_W}]); (d) quant_aware "
+        f"on resnet_cifar10 (depth {QAT_DEPTH}, batch {QAT_BATCH}), convert, "
+        f"post-training quantization")
+    t_det = time.perf_counter()
+    dtp = detection_phase(torch, ctr, card)
+    log(f"  phase 26 took {time.perf_counter() - t_det:.1f} s")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -8618,7 +9524,8 @@ def main():
         launches_transformer=tfm["launches"]["adamw"],
         launches_static_encoder=sen["launches"]["adamw"],
         launches_book=bk["launches"]["adamw"],
-        launches_control_flow=cfl["launches"]["adamw"]))
+        launches_control_flow=cfl["launches"]["adamw"],
+        launches_qat=dtp["launches"]["adamw"]))
     kernels.append(entry(
         "cond_set", "cond_graph.cu", "paddle_tpu/ops/control_flow_ops.py:142",
         cfl["launches"]["cond_set"], cfl["cond_set"]["max_abs_err"],
@@ -8627,6 +9534,14 @@ def main():
         "captures nothing)", per="IF node",
         launches_warmup_encoder=cfl["warmup"]["cond_set"],
         launches_loop=cfl["loop"]["train"]["cond_set"]))
+    nkt = dtp["b"]["kernel"]
+    kernels.append(entry(
+        "nms_keep", "nms.cu", "paddle_tpu/ops/detection_ops.py:280",
+        dtp["launches"]["nms_keep"], nkt["max_abs_err"], nkt,
+        cases_passed=nkt["cases_passed"],
+        plain="nms_keep_plain: the greedy loop as torch ops over an "
+        "overlap mask (the route before this kernel)", shape=nkt["shape"],
+        ious=nkt["ious"]))
 
     def summary(r):
         return {k: summary(v) if isinstance(v, dict) and k != "routes"
@@ -8652,7 +9567,8 @@ def main():
                       "widedeep": summary(wdp),
                       "static_encoder": summary(sen),
                       "book": summary(bk),
-                      "control_flow": summary(cfl)}), flush=True)
+                      "control_flow": summary(cfl),
+                      "detection": summary(dtp)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

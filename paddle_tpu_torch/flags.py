@@ -536,6 +536,12 @@ define_flag("check_program", False,
             "(framework/analysis.py) is not ported yet: with the flag "
             "on, the executor raises NotImplementedError naming ROADMAP "
             "A7.3.")
+define_flag("check_ir_passes", False,
+            "Verify the Program IR after every pass in a "
+            "PassManager.apply pipeline, as the reference does. The "
+            "verifier (framework/analysis.py) is not ported yet: with the "
+            "flag on, PassManager.apply raises NotImplementedError naming "
+            "ROADMAP A7.3.")
 define_flag("check_shapes", False,
             "Add static shape/dtype inference to the verifier suite "
             "wherever it runs, as the reference does. It waits with the "

@@ -1,6 +1,7 @@
 """Framework core of the port: the Program IR, Scope, Executor and
 program-level autodiff (the counterpart of ``paddle_tpu/framework/``).
-The IR passes (``ir``, ``subgraph``) and the static verifier
+``ir`` is the pass plane (``IrGraph``, ``Pass``, ``PassManager``); the
+subgraph partitioner (``subgraph``) and the static verifier
 (``analysis``) wait for ROADMAP A7.3."""
 
 from .program import (Block, Operator, Program, Variable, convert_dtype,

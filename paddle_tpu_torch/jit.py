@@ -85,9 +85,9 @@ from .analysis import concurrency as _ccz
 
 def _counted_modules():
     from .ops.cuda import (adamw, cond_graph, flash_attention, flash_pack2,
-                           layer_norm, paged_attention)
+                           layer_norm, nms, paged_attention)
     return (adamw, flash_attention, flash_pack2, layer_norm, paged_attention,
-            cond_graph)
+            cond_graph, nms)
 
 
 def _launch_lock():

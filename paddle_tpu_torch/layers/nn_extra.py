@@ -1,25 +1,22 @@
 """Second tranche of fluid.layers builders — the counterpart of
-``paddle_tpu/layers/nn_extra.py``, its loss and sequence group
-(``:231-466``): ``log_loss``, ``rank_loss``, ``margin_rank_loss``,
-``hinge_loss``, ``bpr_loss``, ``center_loss``, ``cos_sim``,
-``npair_loss`` (which raises, as the reference's does),
-``teacher_student_sigmoid_loss``, ``huber_loss``, ``linear_chain_crf``,
-``exponential_decay``, ``crf_decoding``, ``sums``,
-``fill_constant_batch_size_like``, ``warpctc``, ``edit_distance``,
-``ctc_greedy_decoder`` and ``row_conv``; and the selection and
-activation builders over the dense lowerings (``multiplex``,
-``index_sample``, ``masked_select``, ``scatter_nd_add``, ``gather_tree``,
-``reverse``, ``selu``, ``mish``), copies of the reference's.
-
-Waiting for ROADMAP A7.2b2, with their lowerings: the image builders
-(``:37-170``: ``lrn``, ``pixel_shuffle``, ``space_to_depth``,
-``shuffle_channel``, ``temporal_shift``, ``affine_channel``,
-``affine_grid``, ``grid_sampler``, the ``resize_*`` family and
-``image_resize``, ``crop_tensor``, ``pad_constant_like``, ``unfold``,
-``maxout``, ``add_position_encoding``, ``sampling_id``); the
-CTR builders (``:297-337``: ``continuous_value_model``, ``data_norm``,
-``nce``, ``hsigmoid``); and ``bilinear_tensor_product``,
-``spectral_norm`` and ``mean_iou`` (``:467-500``).
+``paddle_tpu/layers/nn_extra.py``, whole: the image builders (``lrn``,
+``pixel_shuffle``, ``space_to_depth``, ``shuffle_channel``,
+``temporal_shift``, ``affine_channel``, ``affine_grid``,
+``grid_sampler``, the ``resize_*`` family and ``image_resize``,
+``crop_tensor``, ``pad_constant_like``, ``unfold``), ``maxout``,
+``add_position_encoding``, ``sampling_id``; the loss and sequence group
+(``log_loss``, ``rank_loss``, ``margin_rank_loss``, ``hinge_loss``,
+``bpr_loss``, ``center_loss``, ``cos_sim``, ``npair_loss`` (which
+raises, as the reference's does), ``teacher_student_sigmoid_loss``,
+``huber_loss``, ``linear_chain_crf``, ``exponential_decay``,
+``crf_decoding``, ``sums``, ``fill_constant_batch_size_like``,
+``warpctc``, ``edit_distance``, ``ctc_greedy_decoder``, ``row_conv``);
+the CTR builders (``continuous_value_model``, ``data_norm``, ``nce``,
+``hsigmoid``); the selection and activation builders (``multiplex``,
+``index_sample``, ``masked_select``, ``scatter_nd_add``,
+``gather_tree``, ``reverse``, ``selu``, ``mish``); and
+``bilinear_tensor_product``, ``spectral_norm`` and ``mean_iou``.
+Copies of the reference's builders.
 
 ``exponential_decay`` builds its step counter, ``increment``, ``floor``
 and ``elementwise_pow`` into the Program: the counter is a persistable
@@ -28,7 +25,7 @@ on every replay and the optimizer's update ops read the lr the graph
 computed.
 """
 
-
+from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 
@@ -51,6 +48,141 @@ def _one_out(op, inputs, attrs=None, out_slot="Out", name=None, dtype=None,
     return (out, *extras) if extras else out
 
 
+# -- normalization / image ---------------------------------------------
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """fluid.layers.lrn parity (lrn_op.cc)."""
+    out, _ = _one_out("lrn", {"X": input},
+                      {"n": n, "k": k, "alpha": alpha, "beta": beta},
+                      name=name, extra_outputs=("MidOut",))
+    return out
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    return _one_out("pixel_shuffle", {"X": x},
+                    {"upscale_factor": upscale_factor,
+                     "data_format": data_format}, name=name)
+
+
+def space_to_depth(x, blocksize, name=None):
+    return _one_out("space_to_depth", {"X": x},
+                    {"blocksize": blocksize}, name=name)
+
+
+def shuffle_channel(x, group, name=None):
+    return _one_out("shuffle_channel", {"X": x}, {"group": group},
+                    name=name)
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, name=None):
+    return _one_out("temporal_shift", {"X": x},
+                    {"seg_num": seg_num, "shift_ratio": shift_ratio},
+                    name=name)
+
+
+def affine_channel(x, scale, bias, data_layout="NCHW", name=None):
+    return _one_out("affine_channel",
+                    {"X": x, "Scale": scale, "Bias": bias},
+                    {"data_layout": data_layout}, name=name)
+
+
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    inputs = {"Theta": theta}
+    attrs = {"align_corners": align_corners}
+    if isinstance(out_shape, (list, tuple)):
+        attrs["output_shape"] = [int(s) for s in out_shape]
+    else:
+        inputs["OutputShape"] = out_shape
+    return _one_out("affine_grid", inputs, attrs, out_slot="Output",
+                    name=name)
+
+
+def grid_sampler(x, grid, mode="bilinear", padding_mode="zeros",
+                 align_corners=True, name=None):
+    return _one_out("grid_sampler", {"X": x, "Grid": grid},
+                    {"mode": mode, "padding_mode": padding_mode,
+                     "align_corners": align_corners},
+                    out_slot="Output", name=name)
+
+
+def _resize(op, input, out_shape, scale, name, extra=None):
+    attrs = dict(extra or {})
+    if out_shape is not None:
+        keys = ["out_w"] if op.startswith("linear") else (
+            ["out_d", "out_h", "out_w"] if op.startswith("trilinear")
+            else ["out_h", "out_w"])
+        for k_, v in zip(keys, out_shape):
+            attrs[k_] = int(v)
+    if scale:
+        attrs["scale"] = float(scale)
+    return _one_out(op, {"X": input}, attrs, name=name)
+
+
+def resize_linear(input, out_shape=None, scale=None, name=None):
+    return _resize("linear_interp_v2", input, out_shape, scale, name)
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None):
+    return _resize("bilinear_interp_v2", input, out_shape, scale, name)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None):
+    return _resize("trilinear_interp_v2", input, out_shape, scale, name)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None):
+    return _resize("nearest_interp_v2", input, out_shape, scale, name)
+
+
+def image_resize(input, out_shape=None, scale=None, resample="BILINEAR",
+                 name=None):
+    op = {"BILINEAR": "bilinear_interp_v2",
+          "NEAREST": "nearest_interp_v2",
+          "BICUBIC": "bicubic_interp_v2",
+          "TRILINEAR": "trilinear_interp_v2",
+          "LINEAR": "linear_interp_v2"}[resample.upper()]
+    return _resize(op, input, out_shape, scale, name)
+
+
+def crop_tensor(x, shape=None, offsets=None, name=None):
+    attrs = {}
+    inputs = {"X": x}
+    if isinstance(shape, (list, tuple)):
+        attrs["shape"] = [int(s) for s in shape]
+    elif shape is not None:
+        inputs["Shape"] = shape
+    if isinstance(offsets, (list, tuple)):
+        attrs["offsets"] = [int(o) for o in offsets]
+    elif offsets is not None:
+        inputs["Offsets"] = offsets
+    return _one_out("crop_tensor", inputs, attrs, name=name)
+
+
+def pad_constant_like(x, y, pad_value=0.0, name=None):
+    return _one_out("pad_constant_like", {"X": x, "Y": y},
+                    {"pad_value": pad_value}, name=name)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    def _pair(v):
+        return [v, v] if isinstance(v, int) else list(v)
+    return _one_out("unfold", {"X": x},
+                    {"kernel_sizes": _pair(kernel_sizes),
+                     "strides": _pair(strides),
+                     "paddings": _pair(paddings),
+                     "dilations": _pair(dilations)},
+                    out_slot="Y", name=name)
+
+
+def maxout(x, groups, axis=1, name=None):
+    return _one_out("maxout", {"X": x}, {"groups": groups, "axis": axis},
+                    name=name)
+
+
+def add_position_encoding(input, alpha=1.0, beta=1.0, name=None):
+    return _one_out("add_position_encoding", {"X": input},
+                    {"alpha": alpha, "beta": beta}, name=name)
 
 
 # -- selection ----------------------------------------------------------
@@ -86,6 +218,12 @@ def reverse(x, axis, name=None):
     return _one_out("reverse", {"X": x},
                     {"axis": axis if isinstance(axis, (list, tuple))
                      else [axis]}, name=name)
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="int64", name=None):
+    return _one_out("sampling_id", {"X": x},
+                    {"min": min, "max": max, "seed": seed}, name=name,
+                    dtype=dtype)
 
 
 # -- activations --------------------------------------------------------
@@ -170,7 +308,48 @@ def huber_loss(input, label, delta, name=None):
                     {"delta": delta}, name=name)
 
 
-# -- structured ---------------------------------------------------------
+# -- CTR / structured ---------------------------------------------------
+
+
+def continuous_value_model(input, cvm, use_cvm=True):
+    return _one_out("cvm", {"X": input, "CVM": cvm},
+                    {"use_cvm": use_cvm}, out_slot="Y")
+
+
+def data_norm(input, batch_size, batch_sum, batch_square_sum, slot_dim=-1,
+              name=None):
+    out, _, _ = _one_out(
+        "data_norm",
+        {"X": input, "BatchSize": batch_size, "BatchSum": batch_sum,
+         "BatchSquareSum": batch_square_sum},
+        {"slot_dim": slot_dim}, out_slot="Y", name=name,
+        extra_outputs=("Means", "Scales"))
+    return out
+
+
+def nce(input, label, weight, bias=None, num_total_classes=None,
+        num_neg_samples=10, sampler="uniform", name=None):
+    sampler_id = {"uniform": 0, "log_uniform": 1, "custom_dist": 2}[sampler]
+    inputs = {"Input": input, "Label": label, "Weight": weight}
+    if bias is not None:
+        inputs["Bias"] = bias
+    cost, _, _ = _one_out(
+        inputs=inputs, op="nce",
+        attrs={"num_total_classes": num_total_classes,
+               "num_neg_samples": num_neg_samples, "sampler": sampler_id},
+        out_slot="Cost", name=name,
+        extra_outputs=("SampleLogits", "SampleLabels"))
+    return cost
+
+
+def hsigmoid(input, label, num_classes, weight, bias=None, name=None):
+    inputs = {"X": input, "Label": label, "W": weight}
+    if bias is not None:
+        inputs["Bias"] = bias
+    out, _ = _one_out("hierarchical_sigmoid", inputs,
+                      {"num_classes": num_classes}, name=name,
+                      extra_outputs=("PreOut",))
+    return out
 
 
 def linear_chain_crf(input, label, param_attr=None, length=None, name=None):
@@ -300,3 +479,39 @@ def row_conv(input, future_context_size, param_attr=None, act=None):
         param_attr, [future_context_size + 1, d], dtype=input.dtype)
     return helper.append_activation(
         _one_out("row_conv", {"X": input, "Filter": filt}), act)
+
+
+def bilinear_tensor_product(x, y, size, param_attr=None, bias_attr=None,
+                            act=None, name=None):
+    helper = LayerHelper("bilinear_tensor_product", name=name)
+    dx, dy = x.shape[-1], y.shape[-1]
+    w = helper.create_parameter(param_attr, [size, dx, dy],
+                                dtype=x.dtype)
+    inputs = {"X": x, "Y": y, "Weight": w}
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [1, size], dtype=x.dtype,
+                                    is_bias=True)
+        inputs["Bias"] = b
+    return helper.append_activation(
+        _one_out("bilinear_tensor_product", inputs, name=name), act)
+
+
+def spectral_norm(weight, dim=0, power_iters=1, eps=1e-12, name=None):
+    import numpy as _np
+
+    helper = LayerHelper("spectral_norm", name=name)
+    h = weight.shape[dim]
+    w = int(_np.prod(weight.shape)) // h
+    u = helper.create_parameter(None, [h], dtype=weight.dtype)
+    v = helper.create_parameter(None, [w], dtype=weight.dtype)
+    return _one_out("spectral_norm", {"Weight": weight, "U": u, "V": v},
+                    {"dim": dim, "power_iters": power_iters, "eps": eps},
+                    name=name)
+
+
+def mean_iou(input, label, num_classes):
+    miou, wrong, correct = _one_out(
+        "mean_iou", {"Predictions": input, "Labels": label},
+        {"num_classes": num_classes}, out_slot="OutMeanIou",
+        extra_outputs=("OutWrong", "OutCorrect"))
+    return miou, wrong, correct

@@ -1,8 +1,8 @@
 """1:1 fluid.layers veneers over existing lowerings — the counterpart of
-``paddle_tpu/layers/nn_veneer.py``, its dense half, copies of the
-reference's builders: the activations and unaries (``:26-108``),
+``paddle_tpu/layers/nn_veneer.py``, whole, copies of the reference's
+builders: the activations and unaries (``:26-108``),
 ``label_smooth``, ``l2_normalize`` and ``smooth_l1`` (``:109-157``),
-shape and indexing (``:158-283``, ``crop`` aside), the reductions and
+shape and indexing (``:158-283``), the reductions and
 the random builders (``:283-348``), ``group_norm`` / ``instance_norm``,
 ``mul`` and ``autoincreased_step_counter`` (``:426-512``), ``brelu``,
 ``soft_relu``, ``stanh``, ``dice_loss`` and ``scatter_nd``
@@ -15,12 +15,12 @@ captured key around it (the ops before and after it are graphs of their
 own) and counts the copy of its inputs to the host among the run's host
 reads.
 
-Waiting with the image and detection lowerings (ROADMAP A7.2b2):
-``conv2d_transpose``, ``conv3d``, ``conv3d_transpose``, ``pool3d``,
-``roi_align``, ``roi_pool``, ``prroi_pool``, ``psroi_pool``,
-``deformable_conv``, ``adaptive_pool2d``, ``adaptive_pool3d``,
-``fsp_matrix``, ``image_resize_short``, ``inplace_abn``,
-``im2sequence``, ``random_crop`` and ``crop``.
+The image and detection veneers: ``crop``, ``conv2d_transpose``,
+``conv3d``, ``conv3d_transpose``, ``pool3d``, ``roi_align``,
+``roi_pool``, ``prroi_pool``, ``psroi_pool``, ``deformable_conv``,
+``adaptive_pool2d``, ``adaptive_pool3d``, ``fsp_matrix``,
+``image_resize_short``, ``inplace_abn``, ``im2sequence`` and
+``random_crop``.
 """
 
 from __future__ import annotations
@@ -528,25 +528,274 @@ def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None):
 
 
 __all__ = [
-    "autoincreased_step_counter", "brelu", "clip", "clip_by_norm",
-    "dice_loss", "elementwise_floordiv", "elementwise_mod",
-    "elementwise_pow", "elu", "expand", "expand_as", "gather",
-    "gather_nd", "gaussian_random", "gaussian_random_batch_size_like",
-    "get_tensor_from_selected_rows", "group_norm", "hard_sigmoid",
-    "hard_swish", "instance_norm", "l2_normalize", "label_smooth",
-    "leaky_relu", "lod_append", "lod_reset", "logical_xor",
-    "merge_selected_rows", "mul", "pad", "pad2d", "pow", "prelu",
-    "py_func", "rank", "reduce_all", "reduce_any", "reduce_prod", "relu6",
-    "scatter", "scatter_nd", "shape", "shard_index", "sign", "size",
-    "slice", "smooth_l1", "soft_relu", "squeeze", "stack", "stanh",
-    "strided_slice", "sum", "swish", "unbind", "uniform_random",
+    "adaptive_pool2d", "adaptive_pool3d", "brelu", "deformable_conv", "dice_loss",
+    "fsp_matrix", "get_tensor_from_selected_rows", "im2sequence",
+    "image_resize_short", "inplace_abn", "lod_append", "lod_reset",
+    "merge_selected_rows", "prroi_pool", "psroi_pool", "py_func",
+    "random_crop", "roi_align", "roi_pool", "scatter_nd", "soft_relu",
+    "stanh",
+    "autoincreased_step_counter", "clip", "clip_by_norm",
+    "conv2d_transpose", "conv3d", "conv3d_transpose", "crop",
+    "elementwise_floordiv", "elementwise_mod", "elementwise_pow",
+    "elu", "expand", "expand_as", "gather", "gather_nd",
+    "gaussian_random", "gaussian_random_batch_size_like", "group_norm",
+    "hard_sigmoid", "hard_swish", "instance_norm", "l2_normalize",
+    "label_smooth", "leaky_relu", "logical_xor", "mul", "pad", "pad2d",
+    "pool3d", "pow", "prelu", "rank", "reduce_all", "reduce_any",
+    "reduce_prod", "relu6", "scatter", "shape", "shard_index", "sign",
+    "size", "slice", "smooth_l1", "squeeze", "stack", "strided_slice",
+    "sum", "swish", "unbind", "uniform_random",
     "uniform_random_batch_size_like", "unsqueeze", "unstack", "where",
 ]
 
-#: the reference's veneers that wait with the image and detection
-#: lowerings (ROADMAP A7.2b2)
-WAITING = ("adaptive_pool2d", "adaptive_pool3d", "conv2d_transpose",
-           "conv3d", "conv3d_transpose", "crop", "deformable_conv",
-           "fsp_matrix", "im2sequence", "image_resize_short", "inplace_abn",
-           "pool3d", "prroi_pool", "psroi_pool", "random_crop", "roi_align",
-           "roi_pool")
+# -- the image and detection veneers (the reference's ``:230-238``,
+# ``:349-425``, ``:513-605``, ``:655-714``, ``:782-791``) ----------------
+
+def _conv_like(op, input, num_filters, filter_size, stride, padding,  # noqa: A002
+               dilation, groups, param_attr, bias_attr, act, name,
+               ndim, transpose=False):
+    from .nn import _pair
+    helper = LayerHelper(op, param_attr=param_attr, name=name)
+
+    def tup(v):
+        return [v] * ndim if isinstance(v, int) else list(v)
+
+    ksize = tup(filter_size)
+    cin = int(input.shape[1])
+    g = int(groups or 1)
+    if transpose:
+        wshape = [cin, num_filters // g] + ksize
+    else:
+        wshape = [num_filters, cin // g] + ksize
+    w = helper.create_parameter(param_attr, wshape)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(op, inputs={"Input": [input], "Filter": [w]},
+                     outputs={"Output": [out]},
+                     attrs={"strides": tup(stride),
+                            "paddings": tup(padding),
+                            "dilations": tup(dilation), "groups": g})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters],
+                                    is_bias=True)
+        out2 = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", {"X": [out], "Y": [b]},
+                         {"Out": [out2]}, {"axis": 1})
+        out = out2
+    return helper.append_activation(out, act)
+
+
+def crop(x, shape=None, offsets=None, name=None):  # noqa: A002
+    attrs = {}
+    if shape is not None and not hasattr(shape, "name"):
+        attrs["shape"] = list(shape)
+    if offsets is not None and not hasattr(offsets, "name"):
+        attrs["offsets"] = list(offsets)
+    return _one_out("crop", {"X": x}, attrs, name=name)
+
+
+def conv2d_transpose(input, num_filters, output_size=None,  # noqa: A002
+                     filter_size=None, padding=0, stride=1, dilation=1,
+                     groups=None, param_attr=None, bias_attr=None,
+                     act=None, name=None):
+    return _conv_like("conv2d_transpose", input, num_filters,
+                      filter_size, stride, padding, dilation, groups,
+                      param_attr, bias_attr, act, name, 2,
+                      transpose=True)
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,  # noqa: A002
+           dilation=1, groups=None, param_attr=None, bias_attr=None,
+           act=None, name=None):
+    return _conv_like("conv3d", input, num_filters, filter_size, stride,
+                      padding, dilation, groups, param_attr, bias_attr,
+                      act, name, 3)
+
+
+def conv3d_transpose(input, num_filters, output_size=None,  # noqa: A002
+                     filter_size=None, padding=0, stride=1, dilation=1,
+                     groups=None, param_attr=None, bias_attr=None,
+                     act=None, name=None):
+    return _conv_like("conv3d_transpose", input, num_filters,
+                      filter_size, stride, padding, dilation, groups,
+                      param_attr, bias_attr, act, name, 3,
+                      transpose=True)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,  # noqa: A002
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           name=None):
+    def tup(v):
+        return [v] * 3 if isinstance(v, int) else list(v)
+
+    return _one_out("pool3d", {"X": input},
+                    {"ksize": tup(pool_size),
+                     "pooling_type": str(pool_type),
+                     "strides": tup(pool_stride),
+                     "paddings": tup(pool_padding),
+                     "global_pooling": bool(global_pooling),
+                     "ceil_mode": bool(ceil_mode)}, name=name)
+
+
+def roi_align(input, rois, pooled_height=1, pooled_width=1,  # noqa: A002
+              spatial_scale=1.0, sampling_ratio=-1, rois_num=None,
+              name=None):
+    from . import detection as _det
+    return _det.roi_align(input, rois, pooled_height, pooled_width,
+                          spatial_scale, sampling_ratio, rois_num)
+
+
+def roi_pool(input, rois, pooled_height=1, pooled_width=1,  # noqa: A002
+             spatial_scale=1.0, rois_num=None, name=None):
+    ins = {"X": input, "ROIs": rois}
+    if rois_num is not None:
+        ins["RoisNum"] = rois_num
+    out, _ = _one_out("roi_pool", ins,
+                      {"pooled_height": int(pooled_height),
+                       "pooled_width": int(pooled_width),
+                       "spatial_scale": float(spatial_scale)},
+                      extra_outputs=("Argmax",), name=name)
+    return out
+
+
+def prroi_pool(input, rois, spatial_scale=1.0, pooled_height=1,  # noqa: A002
+               pooled_width=1, batch_roi_nums=None, name=None):
+    ins = {"X": input, "ROIs": rois}
+    if batch_roi_nums is not None:
+        ins["BatchRoINums"] = batch_roi_nums
+    return _one_out("prroi_pool", ins,
+                    {"pooled_height": int(pooled_height),
+                     "pooled_width": int(pooled_width),
+                     "spatial_scale": float(spatial_scale)}, name=name)
+
+
+def psroi_pool(input, rois, output_channels, spatial_scale,  # noqa: A002
+               pooled_height, pooled_width, rois_num=None, name=None):
+    ins = {"X": input, "ROIs": rois}
+    if rois_num is not None:
+        ins["RoisNum"] = rois_num
+    return _one_out("psroi_pool", ins,
+                    {"output_channels": int(output_channels),
+                     "spatial_scale": float(spatial_scale),
+                     "pooled_height": int(pooled_height),
+                     "pooled_width": int(pooled_width)}, name=name)
+
+
+def deformable_conv(input, offset, mask, num_filters, filter_size,  # noqa: A002
+                    stride=1, padding=0, dilation=1, groups=None,
+                    deformable_groups=None, im2col_step=None,
+                    param_attr=None, bias_attr=None,
+                    modulated=True, name=None):
+    from .nn import _pair
+    helper = LayerHelper("deformable_conv", param_attr=param_attr,
+                         name=name)
+    ksize = _pair(filter_size)
+    cin = int(input.shape[1])
+    w = helper.create_parameter(param_attr, [num_filters, cin] + ksize)
+    op = "deformable_conv" if modulated else "deformable_conv_v1"
+    ins = {"Input": [input], "Offset": [offset], "Filter": [w]}
+    if modulated:
+        ins["Mask"] = [mask]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(op, inputs=ins, outputs={"Output": [out]},
+                     attrs={"strides": _pair(stride),
+                            "paddings": _pair(padding),
+                            "dilations": _pair(dilation),
+                            "groups": int(groups or 1),
+                            "deformable_groups":
+                                int(deformable_groups or 1)})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters],
+                                    is_bias=True)
+        out2 = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op("elementwise_add", {"X": [out], "Y": [b]},
+                         {"Out": [out2]}, {"axis": 1})
+        out = out2
+    return out
+
+
+def adaptive_pool2d(input, pool_size, pool_type="max",  # noqa: A002
+                    require_index=False, name=None):
+    """layers/nn.py adaptive_pool2d -> the pool2d lowering's adaptive
+    mode (output spatial dims fixed to pool_size)."""
+    def tup(v):
+        return [v, v] if isinstance(v, int) else list(v)
+
+    return _one_out("pool2d", {"X": input},
+                    {"ksize": tup(pool_size),
+                     "pooling_type": str(pool_type),
+                     "adaptive": True, "strides": [1, 1],
+                     "paddings": [0, 0]}, name=name)
+
+
+def adaptive_pool3d(input, pool_size, pool_type="max",  # noqa: A002
+                    require_index=False, name=None):
+    def tup(v):
+        return [v] * 3 if isinstance(v, int) else list(v)
+
+    return _one_out("pool3d", {"X": input},
+                    {"ksize": tup(pool_size),
+                     "pooling_type": str(pool_type),
+                     "adaptive": True, "strides": [1, 1, 1],
+                     "paddings": [0, 0, 0]}, name=name)
+
+
+def fsp_matrix(x, y):
+    """Flow-of-solution-procedure matrix (layers/nn.py fsp_matrix):
+    per-sample [C1, C2] Gram of two same-spatial feature maps, HW
+    normalized — one batched matmul on the MXU."""
+    from .nn import matmul, reshape, transpose
+    n, c1 = int(x.shape[0]), int(x.shape[1])
+    c2 = int(y.shape[1])
+    h, w = int(x.shape[2]), int(x.shape[3])
+    xf = reshape(x, [n, c1, h * w])
+    yf = reshape(y, [n, c2, h * w])
+    g = matmul(xf, transpose(yf, [0, 2, 1]))
+    return _one_out("scale", {"X": g}, {"scale": 1.0 / float(h * w),
+                                        "bias": 0.0})
+
+
+def image_resize_short(input, out_short_len,  # noqa: A002
+                       resample="BILINEAR"):
+    from .nn_extra import image_resize
+    h, w = int(input.shape[2]), int(input.shape[3])
+    short = min(h, w)
+    scale = out_short_len / float(short)
+    return image_resize(input,
+                        out_shape=[int(round(h * scale)),
+                                   int(round(w * scale))],
+                        resample=resample)
+
+
+def inplace_abn(input, act=None, **kwargs):  # noqa: A002
+    """In-place activated batch-norm: the port keeps no in-place
+    aliasing, so this is batch_norm + act, as the reference's is."""
+    from .nn import batch_norm
+    return batch_norm(input, act=act, **{k: v for k, v in kwargs.items()
+                                         if k != "act_alpha"})
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0,  # noqa: A002
+                input_image_size=None, out_stride=1, name=None):
+    from .nn import _pair
+    return _one_out("im2sequence", {"X": input},
+                    {"kernels": _pair(filter_size),
+                     "strides": _pair(stride),
+                     "paddings": _pair(padding) + _pair(padding)},
+                    name=name)
+
+
+def random_crop(x, shape, seed=None):  # noqa: A002
+    from .tensor import fill_constant
+    import random as _random
+    if seed is None:
+        seed = _random.randint(-65536, 65535)
+    if isinstance(seed, int):
+        seed = fill_constant([1], "int64", seed)
+    out, _ = _one_out("random_crop", {"X": x, "Seed": seed},
+                      {"shape": list(shape)},
+                      extra_outputs=("SeedOut",))
+    return out
+
+
+#: the reference's veneers the port has not yet: none
+WAITING = ()

@@ -26,6 +26,7 @@ builders the Book does not reach: ``row_conv``, ``warpctc``,
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Any, Callable, List, Optional
 
 
@@ -209,9 +210,14 @@ def resnet_cifar10(fluid, input, depth=32):  # noqa: A002
 
 
 def image_classification(paddle=None, depth=32, batch_size=32,
-                         seed=None) -> Book:
+                         seed=None, qat=False) -> Book:
     """test_image_classification.py's resnet_cifar10 (the upstream Book's
-    depth 32 by default; ``tests/test_book.py`` cuts it to 8)."""
+    depth 32 by default; ``tests/test_book.py`` cuts it to 8). With
+    ``qat``, the forward program goes through the package's
+    ``slim.quantization.quant_aware`` (its scale variables initialized
+    by the startup program) before the optimizer minimizes it, as
+    quantization-aware training is set up; the test clone is the float
+    forward."""
     paddle = paddle or port_package()
     fluid, main, startup = _programs(paddle, seed)
     with fluid.program_guard(main, startup), fluid.unique_name.guard():
@@ -224,8 +230,15 @@ def image_classification(paddle=None, depth=32, batch_size=32,
         avg_cost = fluid.layers.mean(cost)
         acc = fluid.layers.accuracy(input=predict, label=label)
         test_program = main.clone(for_test=True)
-        optimizer = fluid.optimizer.Adam(learning_rate=0.001)
-        optimizer.minimize(avg_cost)
+        if qat:
+            quant = importlib.import_module(
+                f"{paddle.__name__}.slim.quantization")
+            main = quant.quant_aware(main, startup)
+            avg_cost, acc, predict = (main.global_block().var(v.name) for v
+                                      in (avg_cost, acc, predict))
+        with fluid.program_guard(main, startup):
+            optimizer = fluid.optimizer.Adam(learning_rate=0.001)
+            optimizer.minimize(avg_cost)
         train_reader = paddle.batch(
             paddle.reader.shuffle(paddle.dataset.cifar.train10(),
                                   buf_size=512),

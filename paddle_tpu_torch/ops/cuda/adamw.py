@@ -13,7 +13,8 @@ back. On the card the kernel is bit-equal to the plain loop.
 
 A group shares (parameter dtype, moment dtype, device); parameters
 (with their gradients and ``[1]`` beta powers) and moments are each
-float32, bfloat16 or float16, and every operation rounds as the per-op
+float32, bfloat16 or float16, or both float64 (a float64 program, such
+as a card-against-CPU check), and every operation rounds as the per-op
 path's promotion rounds it. :class:`Table` holds the group's static
 pointers on the device, each entry's learning rate among them (a
 ``[1]`` view into the optimizer's lr tensor, one slot per distinct
@@ -46,11 +47,14 @@ launches = {"adamw": 0}
 CHUNK = 16384
 MAX_TENSORS = 448
 
-#: dtype codes of the C entry's ``pdtype`` and ``mdtype``
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: dtype codes of the C entry's ``pdtype``, ``mdtype`` and ``lrdtype``
+#: (float64 parameters take float64 moments only; learning rates are
+#: float32 or float64)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+               torch.float64: 3}
 
 ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
-            + [ctypes.c_float] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+            + [ctypes.c_double] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _per_entry(lr, n):
@@ -125,7 +129,7 @@ def launch_ranges(chunks, max_tensors=MAX_TENSORS):
 
 class Table:
     """The device table of one group: per tensor the pointers of p, m1,
-    m2, b1p, b2p and its learning rate (``lrs``: float32 ``[1]`` tensors
+    m2, b1p, b2p and its learning rate (``lrs``: float32 (or float64) ``[1]`` tensors
     or views, one per tensor, or one for all), its size, first chunk and
     chunk count, and the arrival count the kernel resets itself
     (``Entry`` in csrc/adamw.cu). Built outside any capture; a graph
@@ -140,11 +144,14 @@ class Table:
         sizes = [p.numel() for p in params]
         first, chunks, _ = chunk_plan(sizes)
         lrs = _per_entry(lrs, len(params))
+        lr_dtype = getattr(lrs[0], "dtype", None)
         for lr in lrs:
-            if not isinstance(lr, torch.Tensor) or lr.dtype != torch.float32 \
+            if not isinstance(lr, torch.Tensor) or lr.dtype != lr_dtype \
+                    or lr_dtype not in (torch.float32, torch.float64) \
                     or lr.numel() != 1 or lr.device != dev:
                 raise ValueError("each learning rate must be a float32 [1] "
-                                 "tensor on the parameters' device")
+                                 "tensor on the parameters' device (or all "
+                                 "float64 [1] ones)")
         words = np.zeros((len(params), 9), np.int64)
         for i, ts in enumerate(zip(params, m1s, m2s, b1ps, b2ps, lrs)):
             words[i, :6] = [t.data_ptr() for t in ts]
@@ -157,6 +164,7 @@ class Table:
         # None for a dtype the kernel does not take: the launch refuses it
         self.param_code = DTYPE_CODES.get(params[0].dtype)
         self.moment_code = DTYPE_CODES.get(m1s[0].dtype)
+        self.lr_code = DTYPE_CODES[lr_dtype]
         self.tensor = torch.from_numpy(words).to(dev)
 
 
@@ -177,11 +185,18 @@ def _lib():
 
 
 def scalars(beta1, beta2, epsilon, coeff, moment_dtype):
-    """The kernel's eight float arguments, rounded as the per-op path
+    """The kernel's eight scalar arguments, rounded as the per-op path
     rounds them: beta1/beta2 in the moments' dtype for ``beta * m``
     (``_as`` in ops/optimizer_ops.py), in float32 for the beta powers,
     ``1 - beta`` computed in double then taken to float32, as a Python
-    scalar meets a float32 tensor."""
+    scalar meets a float32 tensor. A float64 group takes them unrounded,
+    as Python scalars meet float64 tensors; ``coeff`` is a float32 value
+    for every group (the decay is ``float32(lr) * float32(coeff)``)."""
+    if moment_dtype == torch.float64:
+        return (float(beta1), float(beta2), float(beta1), float(beta2),
+                1 - beta1, 1 - beta2, float(epsilon),
+                float(np.float32(coeff)))
+
     def as_moment(v):
         return float(torch.tensor(v, dtype=moment_dtype))
     return (as_moment(beta1), as_moment(beta2), float(np.float32(beta1)),
@@ -196,7 +211,10 @@ def _check(params, grads, m1s, m2s, b1ps, b2ps, grad_scale, table):
     for what, dt in (("parameters", pdt), ("moments", mdt)):
         if dt not in DTYPE_CODES:
             raise TypeError(f"{what} {dt}: the kernel takes float32, "
-                            "bfloat16 or float16")
+                            "bfloat16, float16 or float64")
+    if (pdt == torch.float64) != (mdt == torch.float64):
+        raise TypeError(f"parameters {pdt}, moments {mdt}: float64 "
+                        "parameters take float64 moments, and only they")
     if grad_scale is not None and (
             grad_scale.dtype != torch.float32 or grad_scale.numel() != 1
             or grad_scale.device != dev):
@@ -239,7 +257,7 @@ def launch_args(table, grads, grad_scale, scal, stream, t0, nt, c0,
                                     for g in grads[t0:t0 + nt]])
     return (table.tensor.data_ptr(), t0, nt, c0, nchunks, ptrs,
             None if grad_scale is None else grad_scale.data_ptr(), *scal,
-            table.param_code, table.moment_code, stream)
+            table.param_code, table.moment_code, table.lr_code, stream)
 
 
 def adamw_multi(params, grads, m1s, m2s, b1ps, b2ps, lr, beta1=0.9,
@@ -249,7 +267,8 @@ def adamw_multi(params, grads, m1s, m2s, b1ps, b2ps, lr, beta1=0.9,
     tensors launch the kernel (one launch per :data:`MAX_TENSORS`
     tensors) with ``table`` (a :class:`Table` of the same group and
     learning rates, built here from ``lr`` when ``None``: float32 ``[1]``
-    tensors on the card, one for the group or one per tensor) and
+    tensors on the card, or float64 ones, one for the group or one per
+    tensor) and
     ``grad_scale`` None or a float32 ``[1]`` tensor on the card; CPU
     tensors run :func:`adamw_multi_plain`."""
     if not params:

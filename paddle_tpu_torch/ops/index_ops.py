@@ -3,8 +3,8 @@
 ``scatter_nd_add``, ``gather_tree``, ``selu``, ``mish``, ``conv_shift``,
 ``row_conv`` (the lookahead convolution), ``partial_concat``,
 ``partial_sum``, ``shuffle_batch`` and the v1 ``expand`` / ``expand_as`` /
-``flatten`` / ``squeeze`` / ``unsqueeze``. ``im2sequence`` waits with the
-image ops (ROADMAP A7.2b2).
+``flatten`` / ``squeeze`` / ``unsqueeze``, and ``im2sequence`` (conv
+patches as a ``(N * Ho * Wo, C * kh * kw)`` sequence batch).
 
 ``masked_select`` has an output shape that depends on the values: it
 runs in eager (dygraph) calls only and raises in the executor, on the
@@ -161,6 +161,21 @@ def _shuffle_batch(ctx, ins, attrs):
 
 
 # -- v1 forms of v2 ops (their attrs differ) --------------------------------
+
+
+
+@register("im2sequence")
+def _im2sequence(ctx, ins, attrs):
+    from .image_ops import _pair, extract_patches
+    x = ins["X"][0]
+    k = _pair(attrs["kernels"])
+    s = _pair(attrs.get("strides", [1, 1]))
+    pads = attrs.get("paddings", [0, 0, 0, 0])
+    p = [int(pads[0]), int(pads[1])] if len(pads) >= 2 else _pair(pads)
+    patches, ho, wo = extract_patches(x, k, s, p, [1, 1])
+    n = x.shape[0]
+    # (N,C,khkw,Ho,Wo) -> (N,Ho,Wo,C,khkw) -> (N*Ho*Wo, C*kh*kw)
+    return {"Out": [patches.permute(0, 3, 4, 1, 2).reshape(n * ho * wo, -1)]}
 
 
 @register("expand")

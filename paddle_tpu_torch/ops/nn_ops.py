@@ -11,9 +11,11 @@ rest: ``squared_l2_distance``, ``smooth_l1_loss``, ``mse_loss``,
 ``kldiv_loss``, ``label_smooth``, ``group_norm``, ``instance_norm``,
 ``norm``, ``embedding_bag`` and ``auc`` (streaming: its ``StatPos`` /
 ``StatNeg`` buckets come back as new values, which the executor writes
-into the scope's tensors, on the card inside a replay). Waiting with the
-image ops (ROADMAP A7.2b2): ``depthwise_conv2d``, ``conv2d_transpose``,
-``conv3d`` and the interpolations.
+into the scope's tensors, on the card inside a replay); the image
+half: ``depthwise_conv2d``, ``conv2d_transpose``, ``conv3d`` and the
+2-d interpolations (``nearest_interp``, ``bilinear_interp``,
+``bicubic_interp_v2`` and the v2 forms), which are the reference's
+``jax.image.resize`` (:func:`.image_ops.resize`), not ``F.interpolate``.
 
 ``layer_norm`` takes the reference's predicate (``nn_ops.py:362-365``:
 one normalized axis, Scale and Bias, ``h % 128 == 0``,
@@ -43,16 +45,30 @@ from .registry import register
 
 def _conv_padding(paddings, ndim):
     """[(lo, hi)] per spatial dim, from ``[ph, pw]`` or ``[ph0, ph1,
-    pw0, pw1]``."""
+    pw0, pw1]``; a string ("SAME" / "VALID") comes back upper-cased, for
+    :func:`_resolve_padding`."""
     if isinstance(paddings, str):
-        raise NotImplementedError(
-            f"string padding {paddings!r} waits for ROADMAP A7.2b2")
+        return paddings.upper()
     p = list(paddings)
     if len(p) == ndim:
         return [(int(x), int(x)) for x in p]
     if len(p) == 2 * ndim:
         return [(int(p[2 * i]), int(p[2 * i + 1])) for i in range(ndim)]
     raise ValueError(f"bad paddings {paddings}")
+
+
+def _resolve_padding(pad, in_sizes, ksizes, strides, dil):
+    """XLA's "SAME" / "VALID" padding as [(lo, hi)] per spatial dim (a
+    list passes through)."""
+    if not isinstance(pad, str):
+        return pad
+    if pad == "VALID":
+        return [(0, 0)] * len(in_sizes)
+    out = []
+    for n, k, s, d in zip(in_sizes, ksizes, strides, dil):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        out.append((total // 2, total - total // 2))
+    return out
 
 
 def _torch_pad(pad2):
@@ -71,6 +87,7 @@ def _conv2d(ctx, ins, attrs):
     nhwc = attrs.get("data_format", "NCHW") not in ("NCHW", "AnyLayout")
     if nhwc:
         x = x.permute(0, 3, 1, 2)
+    pad2 = _resolve_padding(pad2, x.shape[2:], w.shape[2:], strides, dil)
     if any(lo != hi for lo, hi in pad2):
         x = F.pad(x, _torch_pad(pad2))
         pad = 0
@@ -80,6 +97,78 @@ def _conv2d(ctx, ins, attrs):
     out = F.conv2d(x, w, None, strides, pad, dil, groups)
     if nhwc:
         out = out.permute(0, 2, 3, 1)
+    return {"Output": [out]}
+
+
+@register("depthwise_conv2d")
+def _depthwise_conv2d(ctx, ins, attrs):
+    # channels = groups; the reference shares conv2d's lowering
+    return _conv2d(ctx, ins, attrs)
+
+
+def _transpose_pad(pad, kdims, strides, dil):
+    """The padding of a transposed convolution as torch's per-side crop
+    of the full output: a list passes through; "SAME" / "VALID" follow
+    ``jax.lax.conv_transpose`` (its padding ``p_jax`` of the dilated
+    input is ``d * (k - 1) - p``)."""
+    if not isinstance(pad, str):
+        return pad
+    out = []
+    for k, s, d in zip(kdims, strides, dil):
+        ek = d * (k - 1) + 1
+        if pad == "SAME":
+            pad_len = ek + s - 2
+            pad_a = ek - 1 if s > ek - 1 else int(np.ceil(pad_len / 2))
+        else:
+            pad_len = ek + s - 2 + max(ek - s, 0)
+            pad_a = ek - 1
+        out.append((ek - 1 - pad_a, ek - 1 - (pad_len - pad_a)))
+    return out
+
+
+def conv_transpose(x, w, strides, pads, dil, groups):
+    """A transposed convolution of ``x [N, C, *S]`` by the reference's
+    filter ``[in, out / groups, *k]`` (torch's layout), cropped by
+    ``pads`` [(lo, hi)] per spatial dim (zeros added where negative)."""
+    nd = x.ndim - 2
+    fn = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+          3: F.conv_transpose3d}[nd]
+    out = fn(x, w, None, stride=strides, padding=0, dilation=dil,
+             groups=groups)
+    crop = []
+    for lo, hi in reversed(list(pads)):
+        crop += [-int(lo), -int(hi)]
+    return F.pad(out, crop) if any(crop) else out
+
+
+@register("conv2d_transpose")
+def _conv2d_transpose(ctx, ins, attrs):
+    x, w = ins["Input"][0], ins["Filter"][0]  # w: [in, out/groups, kh, kw]
+    strides = [int(s) for s in attrs.get("strides", [1, 1])]
+    dil = [int(d) for d in attrs.get("dilations", [1, 1])]
+    if int(attrs.get("groups", 1)) != 1:
+        raise NotImplementedError("grouped conv2d_transpose")
+    pad = _transpose_pad(_conv_padding(attrs.get("paddings", [0, 0]), 2),
+                         w.shape[2:], strides, dil)
+    return {"Output": [conv_transpose(x, w, strides, pad, dil, 1)]}
+
+
+@register("conv3d")
+def _conv3d(ctx, ins, attrs):
+    x, w = ins["Input"][0], ins["Filter"][0]
+    strides = [int(s) for s in attrs.get("strides", [1, 1, 1])]
+    dil = [int(d) for d in attrs.get("dilations", [1, 1, 1])]
+    groups = int(attrs.get("groups", 1))
+    pad3 = _resolve_padding(_conv_padding(attrs.get("paddings", [0, 0, 0]),
+                                          3),
+                            x.shape[2:], w.shape[2:], strides, dil)
+    if any(lo != hi for lo, hi in pad3):
+        flat = []
+        for lo, hi in reversed(pad3):
+            flat += [lo, hi]
+        x = F.pad(x, flat)
+        pad3 = [(0, 0)] * 3
+    out = F.conv3d(x, w, None, strides, [lo for lo, _ in pad3], dil, groups)
     return {"Output": [out]}
 
 
@@ -106,6 +195,8 @@ def _pool2d(ctx, ins, attrs):
         strides = ksize
         paddings = [0, 0]
     pad2 = _conv_padding(paddings, 2)
+    if isinstance(pad2, str):
+        raise NotImplementedError("string padding for pool2d")
     if ceil_mode:
         # pad extra on the high side so the windows cover the input
         new_pad = []
@@ -486,3 +577,27 @@ def _auc(ctx, ins, attrs):
         auc = auc.to(torch.float32)
     return {"AUC": [auc], "StatPosOut": [stat_pos],
             "StatNegOut": [stat_neg]}
+
+
+def _interp(name, method):
+    @register(name)
+    def _lower(ctx, ins, attrs, _method=method):
+        """Resize as ``jax.image.resize`` (:func:`.image_ops.resize`)."""
+        from .image_ops import resize
+        x = ins["X"][0]  # NCHW
+        out_h = attrs.get("out_h", -1)
+        out_w = attrs.get("out_w", -1)
+        scale = attrs.get("scale", 0.0)
+        if (out_h is None or out_h <= 0) and scale:
+            out_h = int(x.shape[2] * scale)
+            out_w = int(x.shape[3] * scale)
+        shape = (x.shape[0], x.shape[1], int(out_h), int(out_w))
+        return {"Out": [resize(x, shape, _method)]}
+    return _lower
+
+
+_interp("nearest_interp_v2", "nearest")
+_interp("bilinear_interp_v2", "linear")
+_interp("bicubic_interp_v2", "cubic")
+_interp("nearest_interp", "nearest")
+_interp("bilinear_interp", "linear")

@@ -19,10 +19,12 @@ LayerNorm) so launches the kernel's forward again and then its backward
 kernels; the reference's XLA recompute is free where the port's is a
 second launch (ROADMAP B, later perf work).
 
-The lowering modules (``math_ops``, ``reduce_ops``, ``tensor_ops``,
-``random_ops``, ``nn_ops``, ``attention_ops``, ``optimizer_ops``,
-``fused_ops``, ``control_flow_ops``, ``rnn_ops``, ``loss_ops``,
-``linalg_ops``, ``index_ops``, ``structured_ops``, ``misc_ops``) are
+The lowering modules (``math_ops``, ``tensor_ops``, ``nn_ops``,
+``reduce_ops``, ``random_ops``, ``optimizer_ops``, ``attention_ops``,
+``fused_ops``, ``detection_ops``, ``proposal_ops``, ``quant_ops``,
+``control_flow_ops``, ``rnn_ops``, ``loss_ops``, ``linalg_ops``,
+``image_ops``, ``index_ops``, ``ctr_ops``, ``structured_ops``,
+``misc_ops``) are
 imported at the first lookup, so importing the registry alone stays
 light; :data:`OPS` is complete after any call of :func:`get_op_def`,
 :func:`execute`, :func:`is_registered`, :func:`registered_ops` or
@@ -148,9 +150,10 @@ OPS: Dict[str, OpDef] = {}
 #: reference's ``ops/__init__.py`` imports its counterparts
 LOWERING_MODULES = ("math_ops", "tensor_ops", "nn_ops", "reduce_ops",
                     "random_ops", "optimizer_ops", "attention_ops",
-                    "fused_ops", "control_flow_ops", "rnn_ops", "loss_ops",
-                    "linalg_ops", "index_ops", "structured_ops",
-                    "misc_ops")
+                    "fused_ops", "detection_ops", "proposal_ops",
+                    "quant_ops", "control_flow_ops", "rnn_ops", "loss_ops",
+                    "linalg_ops", "image_ops", "index_ops", "ctr_ops",
+                    "structured_ops", "misc_ops")
 _loaded = False
 # op type -> (its module's place in LOWERING_MODULES, registration number):
 # other modules of the port import some lowering modules first, so the
@@ -207,14 +210,35 @@ def register_grad(op_type: str):
     return deco
 
 
+#: the reference's lowerings the port has not yet, by the ROADMAP item
+#: each waits for
+WAITING = {
+    **{op: "A5 (the multi-card plane)" for op in (
+        "c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
+        "c_allreduce_prod", "c_allreduce_avg", "allreduce", "c_broadcast",
+        "c_allgather", "c_reducescatter", "c_reduce_sum", "c_scatter",
+        "c_concat", "c_split", "c_identity", "c_sync_calc_stream",
+        "c_sync_comm_stream", "barrier", "c_embedding", "partial_allgather",
+        "sync_batch_norm", "dpsgd")},
+    **{op: "A7.4 (the parameter-server runtime)" for op in (
+        "distributed_lookup_table", "distributed_lookup_table_grad", "send",
+        "recv")},
+    "subgraph_delegate": "A7.3 (framework/subgraph.py)",
+}
+
+
+def _missing(op_type: str) -> str:
+    item = WAITING.get(op_type)
+    if item is not None:
+        return f"op {op_type!r} waits for ROADMAP {item}"
+    return f"no lowering registered for op {op_type!r} ({len(OPS)} ops registered)"
+
+
 def get_op_def(op_type: str) -> OpDef:
     _load()
     d = OPS.get(op_type)
     if d is None:
-        raise NotImplementedError(
-            f"no lowering registered for op {op_type!r} "
-            f"({len(OPS)} ops registered; the rest of the reference's op "
-            f"library waits for ROADMAP A7.2b2)")
+        raise NotImplementedError(_missing(op_type))
     return d
 
 
@@ -253,9 +277,7 @@ def execute(ctx: LoweringContext, op_type: str, ins: Dict[str, List[Any]],
         if fw.grad_lowering is not None:
             return fw.grad_lowering(ctx, ins, attrs)
         return _generic_grad_lowering(ctx, op_type[:-5], ins, attrs)
-    raise NotImplementedError(
-        f"no lowering for op {op_type!r} (the rest of the reference's op "
-        f"library waits for ROADMAP A7.2b2)")
+    raise NotImplementedError(_missing(op_type))
 
 
 GRAD_SLOT_SUFFIX = "@GRAD"

@@ -13,9 +13,12 @@ work). ``warpctc``'s loss is the reference's alpha recursion and
 its ``WarpCTCGrad`` output is the reference's zeros. Viterbi picks the
 first maximum (``torch.argmax``, as ``jnp.argmax``) at ties.
 
-Waiting with the image ops (ROADMAP A7.2b2): the conv half of the file,
-``conv3d_transpose``, ``depthwise_conv2d_transpose``,
-``deformable_conv``, ``deformable_conv_v1`` and ``fsp``.
+The conv half (``:415-532``): ``conv3d_transpose`` and
+``depthwise_conv2d_transpose`` (torch's transposed convolutions, cropped
+to the reference's padding), ``deformable_conv`` (DCNv2, modulated) and
+``deformable_conv_v1`` (bilinear samples at the offset taps, zero
+outside the image, then one contraction with the filter; the offsets'
+gradient flows through the bilinear weights) and ``fsp``.
 
 The reference's inputs with LoD become dense ``[B, T, ...]`` batches with
 explicit lengths, as everywhere in the port.
@@ -361,3 +364,99 @@ def _crf_decoding(ctx, ins, attrs):
         correct = path == label.reshape(b, t).to(torch.int64)
         path = torch.where(valid, correct.to(torch.int64), zero)
     return {"ViterbiPath": [path]}
+
+
+# ---------------------------------------------------------------------------
+# conv transpose variants + deformable conv
+# ---------------------------------------------------------------------------
+
+
+@register("conv3d_transpose")
+def _conv3d_transpose(ctx, ins, attrs):
+    from .nn_ops import _conv_padding, _transpose_pad, conv_transpose
+    x, w = ins["Input"][0], ins["Filter"][0]  # w: [in, out, kd, kh, kw]
+    strides = [int(s) for s in attrs.get("strides", [1, 1, 1])]
+    dil = [int(d) for d in attrs.get("dilations", [1, 1, 1])]
+    if int(attrs.get("groups", 1)) != 1:
+        raise NotImplementedError("grouped conv3d_transpose")
+    pad = _transpose_pad(_conv_padding(attrs.get("paddings", [0, 0, 0]), 3),
+                         w.shape[2:], strides, dil)
+    return {"Output": [conv_transpose(x, w, strides, pad, dil, 1)]}
+
+
+@register("depthwise_conv2d_transpose")
+def _depthwise_conv2d_transpose(ctx, ins, attrs):
+    """Depthwise transposed convolution: filter [C, 1, kh, kw], one group
+    per channel."""
+    from .nn_ops import _conv_padding, conv_transpose
+    x, w = ins["Input"][0], ins["Filter"][0]
+    s = [int(v) for v in attrs.get("strides", [1, 1])]
+    pads = _conv_padding(attrs.get("paddings", [0, 0]), 2)
+    dil = [int(v) for v in attrs.get("dilations", [1, 1])]
+    return {"Output": [conv_transpose(x, w, s, pads, dil, x.shape[1])]}
+
+
+def _deform_sample(x, py, px):
+    """Bilinear samples of x (N,C,H,W) at float coords ``(N, Ho, Wo)``;
+    zero outside the image."""
+    from .image_ops import _gather_hw
+    x0 = torch.floor(px).to(torch.int64)
+    y0 = torch.floor(py).to(torch.int64)
+    wy = (py - y0).to(x.dtype)[:, None]
+    wx = (px - x0).to(x.dtype)[:, None]
+    return (_gather_hw(x, y0, x0) * (1 - wy) * (1 - wx)
+            + _gather_hw(x, y0, x0 + 1) * (1 - wy) * wx
+            + _gather_hw(x, y0 + 1, x0) * wy * (1 - wx)
+            + _gather_hw(x, y0 + 1, x0 + 1) * wy * wx)
+
+
+def _deformable_conv_impl(ins, attrs, modulated):
+    x = ins["Input"][0]
+    offset = ins["Offset"][0]                     # (N, 2*kh*kw, Ho, Wo)
+    w = ins["Filter"][0]                          # (out, in, kh, kw)
+    mask = ins["Mask"][0] if modulated else None  # (N, kh*kw, Ho, Wo)
+    s = [int(v) for v in attrs.get("strides", [1, 1])]
+    p = [int(v) for v in attrs.get("paddings", [0, 0])]
+    d = [int(v) for v in attrs.get("dilations", [1, 1])]
+    dg = int(attrs.get("deformable_groups", 1))
+    if int(attrs.get("groups", 1)) != 1 or dg != 1:
+        raise NotImplementedError("grouped/multi-group deformable_conv")
+    n, c, h, wd = x.shape
+    co, ci, kh, kw = w.shape
+    ho = (h + 2 * p[0] - (d[0] * (kh - 1) + 1)) // s[0] + 1
+    wo = (wd + 2 * p[1] - (d[1] * (kw - 1) + 1)) // s[1] + 1
+    base_y = (torch.arange(ho, device=x.device) * s[0] - p[0])[None, :, None]
+    base_x = (torch.arange(wo, device=x.device) * s[1] - p[1])[None, None, :]
+    off = offset.reshape(n, kh * kw, 2, ho, wo)
+    cols = []
+    for i in range(kh):
+        for j in range(kw):
+            kidx = i * kw + j
+            py = base_y + i * d[0] + off[:, kidx, 0]
+            px = base_x + j * d[1] + off[:, kidx, 1]
+            samp = _deform_sample(x, py, px)      # (N,C,Ho,Wo)
+            if mask is not None:
+                samp = samp * mask[:, kidx][:, None]
+            cols.append(samp)
+    patches = torch.stack(cols, dim=2)            # (N,C,khkw,Ho,Wo)
+    out = torch.einsum("nckhw,ock->nohw", patches,
+                       w.reshape(co, ci, kh * kw))
+    return {"Output": [out]}
+
+
+@register("deformable_conv", no_grad_slots=())
+def _deformable_conv(ctx, ins, attrs):
+    return _deformable_conv_impl(ins, attrs, modulated=True)
+
+
+@register("deformable_conv_v1", no_grad_slots=())
+def _deformable_conv_v1(ctx, ins, attrs):
+    return _deformable_conv_impl(ins, attrs, modulated=False)
+
+
+@register("fsp")
+def _fsp(ctx, ins, attrs):
+    """out[n,i,j] = mean over h, w of X[n,i,h,w] * Y[n,j,h,w]."""
+    x, y = ins["X"][0], ins["Y"][0]
+    hw = x.shape[2] * x.shape[3]
+    return {"Out": [torch.einsum("nihw,njhw->nij", x, y) / hw]}

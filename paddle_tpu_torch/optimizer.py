@@ -48,7 +48,7 @@ takes Program variables through its ``parameter_list``.
 :meth:`Optimizer.set_lr` with a ``scope`` writes the lr variable there as
 the reference does, in place when a captured step holds it. The static
 rewrites of ``optimizer.py:709-1104`` (Recompute, Pipeline, EMA,
-ModelAverage, Lookahead, DGC, ...) wait for ROADMAP A7.2b2.
+ModelAverage, Lookahead, DGC, ...) wait for ROADMAP A7.2d.
 """
 
 from __future__ import annotations

@@ -2,13 +2,14 @@
 ``paddle_tpu/static/__init__.py`` with what the port has: ``Program``,
 ``program_guard``, ``data``, ``Executor``, ``Scope``, ``global_scope``,
 ``append_backward``, ``gradients``, the default programs,
-``device_guard``, ``nn`` (= :mod:`paddle_tpu_torch.layers`) and
+``device_guard``, ``nn`` (= :mod:`paddle_tpu_torch.layers`),
+``quantization`` (= :mod:`paddle_tpu_torch.slim.quantization`) and
 ``framework_io``'s ``save_inference_model`` / ``load_inference_model``
 and ``save_persistables`` / ``load_persistables``.
 
 Waiting: the compiler (``BuildStrategy``, ``CompiledProgram``,
-``ExecutionStrategy``) for ROADMAP A7.3, the quantization surface for
-A7.2b2, and ``InputSpec`` with ``jit.save`` (A7.3). 2.0 ``static.data`` takes the FULL shape including the batch dim
+``ExecutionStrategy``) and ``InputSpec`` with ``jit.save`` for ROADMAP
+A7.3. 2.0 ``static.data`` takes the FULL shape including the batch dim
 (None/-1 leading), unlike fluid ``layers.data`` which prepends it.
 """
 
@@ -23,6 +24,7 @@ from ..framework.program import Variable
 from ..framework.scope import global_scope
 from ..framework_io import (load_inference_model, load_persistables,
                             save_inference_model, save_persistables)
+from ..slim import quantization  # paddle.static.quantization surface
 from .. import layers as nn  # static.nn.fc / conv2d / ... wrappers
 
 
@@ -40,6 +42,6 @@ __all__ = [
     "Executor", "Program", "Scope", "append_backward", "data",
     "default_main_program", "default_startup_program", "device_guard",
     "global_scope", "gradients", "load_inference_model",
-    "load_persistables", "nn", "program_guard", "save_inference_model",
-    "save_persistables",
+    "load_persistables", "nn", "program_guard", "quantization",
+    "save_inference_model", "save_persistables",
 ]

@@ -232,6 +232,61 @@ def test_kernel_arithmetic_with_a_grad_scale(pdtype, mdtype, exact_sqrt):
             assert _same(row[k], r2[k]), k
 
 
+@pytest.mark.parametrize("coeff", [0.01, 0.0])
+@pytest.mark.parametrize("steps_done", [0, 9])
+def test_kernel_arithmetic_with_float64_parameters(steps_done, coeff,
+                                                  monkeypatch):
+    """A float64 group (a float64 program's Adam) computes in double with
+    the scalars unrounded (beta1 itself, ``1 - beta1`` in double,
+    epsilon), the lr rounded to float32 from its float64 slot and the
+    decay ``float32(lr) * float32(coeff)``: the kernel's sequence so, in
+    numpy float64, is bit-equal to the plain update. The square root is
+    numpy's, correctly rounded as ``__dsqrt_rn`` and the card's
+    ``torch.sqrt`` are (torch's vectorized CPU sqrt of float64 can be an
+    ulp off). The wrapper passes dtype code 3 for the parameters, the
+    moments and the lr, and refuses float64 parameters with other
+    moments."""
+    monkeypatch.setattr(torch, "sqrt", lambda x: torch.from_numpy(
+        np.sqrt(x.numpy())) if x.dtype == torch.float64 else _SQRT(x))
+    group = _state(11, SIZES + [2 ** 16 + 3], torch.float64, steps_done,
+                   torch.float64)
+    lr = torch.tensor([1e-3], dtype=torch.float64)
+    c1, c2, beta1, beta2, omb1, omb2, eps, cf = aw.scalars(
+        0.9, 0.999, 1e-8, coeff, torch.float64)
+    assert (c1, beta2, omb1, eps) == (0.9, 0.999, 1 - 0.9, 1e-8)
+    assert cf == float(np.float32(coeff))
+    want = []
+    for p, g, m1, m2, b1p, b2p in group:
+        p, g, m1, m2 = (t.numpy() for t in (p, g, m1, m2))
+        b1, b2 = b1p.numpy()[0] * beta1, b2p.numpy()[0] * beta2
+        l32 = np.float32(lr.numpy()[0])
+        lr_t = np.float64(l32) * np.sqrt(1 - b2) / (1 - b1)
+        m1n = c1 * m1 + omb1 * g
+        m2n = c2 * m2 + omb2 * g * g
+        pn = p - lr_t * m1n / (np.sqrt(m2n) + eps)
+        if cf:
+            pn = pn - np.float64(l32 * np.float32(cf)) * p
+        want.append([pn, m1n, m2n, np.array([b1]), np.array([b2])])
+    aw.adamw_multi_plain(*_cols(group), lr, beta1=0.9, beta2=0.999,
+                         epsilon=1e-8, coeff=coeff)
+    for row, w in zip(group, want):
+        for k, x in zip((0, 2, 3, 4, 5), w):
+            assert row[k].dtype == torch.float64
+            assert row[k].numpy().tobytes() == x.tobytes(), k
+    p, g, m1, m2, b1p, b2p = _cols(group)
+    table = aw.Table(p, m1, m2, b1p, b2p, lr)
+    assert (table.param_code, table.moment_code, table.lr_code) == (3, 3, 3)
+    args = aw.launch_args(table, g, None,
+                          aw.scalars(0.9, 0.999, 1e-8, coeff, torch.float64),
+                          None, 0, len(p), 0, sum(table.chunks))
+    assert args[-4:-1] == (3, 3, 3)
+    aw._check(p, g, m1, m2, b1p, b2p, None, table)
+    m32 = [t.float() for t in m1]
+    with pytest.raises(TypeError, match="float64 moments"):
+        aw._check(p, g, m32, m32, b1p, b2p, None,
+                  aw.Table(p, m32, m32, b1p, b2p, lr))
+
+
 def test_plain_takes_a_learning_rate_per_entry(exact_sqrt):
     """Per-entry learning rates (each tensor's own slot, as the table
     gives the kernel) equal the per-parameter update at each rate, and
@@ -378,7 +433,7 @@ def test_launch_args_match_the_c_entry():
     decl = re.search(r'extern "C" int adamw_multi_launch\(([^)]*)\)', src)
     params = [p.strip() for p in decl.group(1).split(",")]
     kinds = [ctypes.c_void_p if "*" in p else
-             ctypes.c_float if p.startswith("float") else ctypes.c_int
+             ctypes.c_double if p.startswith("double") else ctypes.c_int
              for p in params]
     assert kinds == aw.ARGTYPES
     assert params[6] == "const void* grad_scale"
@@ -413,7 +468,7 @@ def test_launch_args_match_the_c_entry():
         for a, kind in zip(args, kinds):
             if kind is ctypes.c_int:
                 assert isinstance(a, int)
-            elif kind is ctypes.c_float:
+            elif kind is ctypes.c_double:
                 assert isinstance(a, float)
         assert [args[5][i] for i in range(3)] == [t.data_ptr() for t in g]
         assert args[6] == (None if scale is None else scale.data_ptr())

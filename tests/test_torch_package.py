@@ -102,7 +102,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "framework_io.py", "fluid_compat.py", "dataset.py",
                    "models/book.py", "ops/control_flow_ops.py",
                    "ops/cuda/cond_graph.py", "ops/linalg_ops.py",
-                   "ops/fused_ops.py", "layers/control_flow.py"):
+                   "ops/fused_ops.py", "layers/control_flow.py",
+                   "ops/image_ops.py", "ops/detection_ops.py",
+                   "ops/proposal_ops.py", "ops/ctr_ops.py",
+                   "ops/quant_ops.py", "layers/detection.py",
+                   "framework/ir.py", "slim/__init__.py",
+                   "slim/quantization.py", "ops/cuda/nms.py",
+                   "models/detection.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -238,7 +244,7 @@ FLEET_FLAGS = (
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 64
+    assert len(ported) == 65
     assert ported["sanitize_locks"]["default"] is False
     for name in ("devprof_peak_flops", "devprof_peak_hbm_gbps"):
         assert ported[name]["default"] == jax_flags[name]["default"] == 0.0
@@ -391,6 +397,18 @@ def test_shared_public_names_keep_the_reference_signatures():
         "nn_veneer.py_func", "nn_veneer.group_norm",
         "nn_veneer.autoincreased_step_counter", "nn_veneer.smooth_l1",
         "nn_extra.masked_select")} <= checked
+    # and the image, detection and quantization surface
+    assert {f"paddle_tpu_torch.{q}" for q in (
+        "layers.detection.multiclass_nms", "layers.detection.yolo_box",
+        "layers.detection.roi_align", "layers.detection.anchor_generator",
+        "layers.nn_extra.image_resize", "layers.nn_extra.grid_sampler",
+        "layers.nn_extra.nce", "layers.nn_extra.spectral_norm",
+        "layers.nn_extra.sampling_id", "layers.nn_veneer.conv3d_transpose",
+        "layers.nn_veneer.deformable_conv", "layers.nn_veneer.random_crop",
+        "layers.nn_veneer.psroi_pool", "framework.ir.IrGraph.find_chains",
+        "framework.ir.PassManager", "framework.ir.apply_pass",
+        "slim.quantization.quant_aware", "slim.quantization.convert",
+        "slim.quantization.PostTrainingQuantization.collect")} <= checked
 
 
 def test_port_tools_keep_the_reference_tools_signatures():

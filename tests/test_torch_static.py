@@ -60,6 +60,7 @@ from paddle_tpu_torch.ops import registry as treg
 from paddle_tpu_torch.resilience.injector import fault_scope
 from torch_op_cases import (_EAGER, _NO_GRAD, _PROD, _RAISES, DENSE_CASES,
                             DENSE_X32, _f, _ids, _lens, _probs, _tied)
+from torch_op_cases_tail import TAIL_CASES
 
 JSTATIC = types.SimpleNamespace(layers=JL, Program=JProgram,
                                 program_guard=jguard, unique_name=jun,
@@ -870,8 +871,11 @@ _X32 = {"dropout", "gaussian_random", "truncated_gaussian_random",
 
 def test_every_registered_op_has_a_case():
     """Every op of the library (a ``py_func`` builder registers an op of
-    its own per call, outside it) has a case, in the reference's order."""
+    its own per call, outside it) has a case, here or in
+    ``torch_op_cases_tail.TAIL_CASES`` (run by ``test_torch_ops_tail.py``),
+    in the reference's order."""
     ops = {c[0] for c in OP_CASES.values()}
+    ops |= {c[0] for c in TAIL_CASES.values()}
     grads = {f"{o}_grad" for o in ops}
     lib = {o for o in treg.registered_ops() if not o.startswith("py_func_")}
     assert lib <= ops | grads
@@ -1069,8 +1073,14 @@ def test_waiting_parts_raise_naming_their_items():
     with pytest.raises(NotImplementedError, match="A5"):
         exe.run(prog, feed={"q": q, "k": q, "v": q}, fetch_list=["o"],
                 scope=Scope())
-    with pytest.raises(NotImplementedError, match="A7.2b2"):
-        treg.get_op_def("conv3d")
+    with pytest.raises(NotImplementedError, match="A7.3"):
+        treg.get_op_def("subgraph_delegate")
+    with pytest.raises(NotImplementedError, match="A5"):
+        treg.get_op_def("dpsgd")
+    with pytest.raises(NotImplementedError, match="A5"):
+        treg.get_op_def("c_allreduce_sum")
+    with pytest.raises(NotImplementedError, match="A7.4"):
+        treg.get_op_def("distributed_lookup_table")
     with pytest.raises(NotImplementedError, match="A7.4"):
         twide(host_paced=False)
     assert tstatic.nn.fc is not None and tstatic.data is not None
