@@ -207,7 +207,26 @@ geometry: 3 float64 steps against the CPU, one capture split into three
 graphs at the three host ops, three host reads per run; (d)
 ``slim.quant_aware`` on resnet_cifar10 (depth 32, batch 128): 3 steps
 against the CPU (the loss within the flipped codes' bound), ``convert``
-and post-training quantization within 5% of float.
+and post-training quantization within 5% of float; 27 the Program
+rewrites on phase 23's encoder at full width, flash and LayerNorm
+kernels on: (a) ``RecomputeOptimizer(AdamW)`` checkpointed at the six
+layer outputs against plain AdamW, 3 steps each, bit-equal (else within
+1e-6), the peak allocated memory of the eager run and of the capture
+lower with recompute (the executor's liveness), 18 / 6 / 6 flash
+launches per step; (b) gradient merge (k 4, avg) under SGD over four
+[2, 1024] slices: the parameters unchanged bit for bit through step 3,
+then within 1e-5 of one SGD step on the whole batch; (c)
+``fleet.distributed_optimizer`` with amp, recompute and gradient merge
+around AdamW, 8 steps: every flash launch on the bf16 ``wgmma`` route,
+the LayerNorm kernels on f32 inputs, the first loss within 1e-2 of
+f32's, one capture; (d) ``PipelineOptimizer(AdamW)``, two stages split
+after layer 3, 4 microbatches, 2 steps of GPipe and of 1F1B: one capture
+per (stage, phase) program, against each other and against one plain
+step; (e) EMA, ModelAverage and Lookahead around AdamW, 6 steps: each
+shadow within 1 ulp of a torch recurrence of the same operations,
+``ema.apply`` on a captured test clone, the parameters bit-equal after
+the block; (f) ``CompiledProgram`` with a ``BuildStrategy`` through
+``exe.run``, its losses within 1e-6 of the plain program's.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -9109,6 +9128,558 @@ def detection_phase(torch, ctr, card):
     return out
 
 
+# ------------------------------------------------------------ phase 27
+#: phase 23's encoder at full width for the Program rewrites: steps per
+#: arm (recompute, the fleet chain, weight averaging, CompiledProgram),
+#: gradient merge's k and SGD learning rate, the pipeline's microbatches,
+#: split and steps per schedule
+ST_STEPS, ST_CHAIN_STEPS, ST_AVG_STEPS = 3, 8, 6
+ST_K, ST_SGD_LR, ST_MB, ST_SPLIT, ST_PIPE_STEPS = 4, 1e-3, 4, 3, 2
+#: flash launches per step with recompute: phase 23's 12 forwards plus
+#: the six segments' recomputed attention; LayerNorm likewise (12 more)
+ST_RECOMPUTE_PER_STEP = dict(SE_PER_STEP, flash_fwd=18, ln_fwd=36)
+#: tolerances (each stated in PERF.md): the recompute arm bit-equal, else
+#: its parameters within 1e-6 relative Frobenius (all together); the
+#: merged SGD step's parameters within 1e-5 of one whole-batch step and
+#: its update within 1e-3; the chain's first loss within 1e-2 of f32's;
+#: the pipeline's first step against one plain step: the loss within
+#: 1e-5, the parameters within 1e-4 and their update within ST_UPD_RTOL;
+#: GPipe against 1F1B (their microbatch gradients sum in opposite orders):
+#: the first losses equal, the parameters within 1e-6 and their updates
+#: within ST_UPD_RTOL; every AdamW parameter also within 2 k lr + 1e-6 per
+#: element; a shadow within 1 ulp of its torch recurrence; CompiledProgram's
+#: losses within 1e-6 relative of the plain program's
+ST_MERGE_RTOL, ST_MERGE_UPDATE, ST_AMP_RTOL = 1e-5, 1e-3, 1e-2
+ST_PIPE_LOSS, ST_PIPE_RTOL, ST_SCHED_RTOL, ST_CP_RTOL = 1e-5, 1e-4, 1e-6, 1e-6
+ST_UPD_RTOL = 1e-2
+
+
+def st_params_close(torch, got, ref, base, k, rtol, utol, what):
+    """``got``'s parameters against ``ref``'s after ``k`` AdamW steps from
+    ``base``: all parameters together within ``rtol`` relative Frobenius,
+    their updates from ``base`` within ``utol``, and every element within
+    ``2 k lr + 1e-6`` (an Adam step is near ``lr x sign(g)``: where the
+    true gradient is near zero, as for the key projection's bias, its sign
+    is rounding). Returns the distances and the parameter whose update
+    differs most, relatively."""
+    rel, upd = st_joint_rel(torch, got, ref), \
+        st_joint_rel(torch, got, ref, base)
+    worst = (-1.0, "")
+    for n, r in ref.items():
+        d = got[n].double() - r.double()
+        err = float(d.abs().max())
+        if not err <= 2 * k * SE_LR + 1e-6:
+            raise AssertionError(f"phase 27 {what}: {n} off by {err:.3e} "
+                                 f"> 2 k lr")
+        u = float(torch.linalg.norm(r.double() - base[n].double()))
+        worst = max(worst, (float(torch.linalg.norm(d)) / max(u, 1e-30), n))
+    if not (rel <= rtol and upd <= utol):
+        raise AssertionError(f"phase 27 {what}: parameters {rel:.3e} (limit "
+                             f"{rtol:.0e}), updates {upd:.3e} (limit "
+                             f"{utol:.0e}) relative Frobenius")
+    return {"params_rel": rel, "updates_rel": upd, "worst_update": worst}
+
+
+def st_joint_rel(torch, got, ref, base=None):
+    """Relative Frobenius distance over all parameters together (of the
+    updates from ``base`` when given)."""
+    num = den = 0.0
+    for n, r in ref.items():
+        a, b = got[n].double(), r.double()
+        if base is not None:
+            a, b = a - base[n].double(), b - base[n].double()
+        num += float(torch.linalg.norm(a - b)) ** 2
+        den += float(torch.linalg.norm(b)) ** 2
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def st_scope(start):
+    from paddle_tpu_torch.framework import Scope
+    scope = Scope()
+    for n in start.var_names():
+        scope.set_var(n, start.find_var(n).clone())
+    return scope
+
+
+def st_params(scope, main):
+    return {p.name: scope.find_var(p.name).clone()
+            for p in main.all_parameters()}
+
+
+def st_build(minimize=None, **kw):
+    """Phase 23's encoder, its startup run into a scope of its own."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models.static_encoder import build_encoder_program
+    main, startup, loss = build_encoder_program(
+        SE_LAYERS, SE_D, SE_HEADS, SE_FFN, SE_SEQ, lr=SE_LR,
+        minimize=minimize, **kw)
+    start = Scope()
+    Executor().run(startup, scope=start)
+    return main, startup, loss, start
+
+
+def st_steps(torch, exe, main, scope, loss, feeds, peaks=None, fetch=(),
+             program=None):
+    """Run ``feeds`` through ``exe`` (``program``: ``main`` compiled, or
+    ``main``); the losses, each step's parameters and extra fetches, and
+    (``peaks``) the peak allocated bytes above the start of the first
+    and the second run (eager, capture)."""
+    out = []
+    for i, feed in enumerate(feeds):
+        if peaks is not None and i < 2:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        f = exe.run(program or main, feed=feed,
+                    fetch_list=[loss.name, *fetch], scope=scope,
+                    return_numpy=False)
+        if peaks is not None and i < 2:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+        out.append((float(f[0].reshape(-1)[0]), st_params(scope, main),
+                    f[1:]))
+    torch.cuda.synchronize()
+    return out
+
+
+def st_recompute(torch, ctr, x, card):
+    """(a) RecomputeOptimizer(AdamW) with checkpoints at the six layer
+    outputs against the plain AdamW program."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Executor
+
+    def recompute(loss, rate, ckpts):
+        opt = optimizer.RecomputeOptimizer(
+            optimizer.AdamW(learning_rate=rate, weight_decay=0.01))
+        opt._set_checkpoints(ckpts)
+        opt.minimize(loss)
+
+    runs, out = {}, {}
+    for key, fn in (("plain", None), ("recompute", recompute)):
+        main, _, loss, start = st_build(fn)
+        scope, exe, peaks = st_scope(start), Executor(), []
+        gc.collect()
+        ctr.zero()
+        runs[key] = st_steps(torch, exe, main, scope, loss,
+                             [{"x": x}] * ST_STEPS, peaks)
+        launched = ctr.read()
+        want = ST_RECOMPUTE_PER_STEP if key == "recompute" else SE_PER_STEP
+        ctr.expect(launched, {k: v * ST_STEPS for k, v in want.items()},
+                   f"phase 27 (a) {key}")
+        if exe.captures != 1:
+            raise AssertionError(f"phase 27 (a) {key}: {exe.captures} "
+                                 "captures, expected 1")
+        out[key] = {"peak_eager_bytes": peaks[0],
+                    "peak_capture_bytes": peaks[1],
+                    "losses": [r[0] for r in runs[key]],
+                    "launches_per_step": {k: v // ST_STEPS
+                                          for k, v in launched.items() if v},
+                    "routes": ctr.routes()}
+        if key == "plain":
+            out["plain_first"] = (runs[key][0][0], runs[key][0][1],
+                                  st_params(start, main))
+        log(f"  (a) {key}: losses {out[key]['losses']}, peak allocated "
+            f"{peaks[0] / 2**20:.1f} MiB eager, {peaks[1] / 2**20:.1f} MiB "
+            f"capturing [{card}]; per step {out[key]['launches_per_step']}")
+        del scope, exe, start
+    bit = all(a[0] == b[0] and all(torch.equal(a[1][n], b[1][n])
+                                   for n in a[1])
+              for a, b in zip(runs["recompute"], runs["plain"]))
+    worst = None
+    if not bit:
+        base = out["plain_first"][2]
+        for k, ((lr_, pr, _), (lp, pp, _)) in enumerate(
+                zip(runs["recompute"], runs["plain"]), 1):
+            if abs(lr_ - lp) > 1e-6 * abs(lp):
+                raise AssertionError(f"phase 27 (a): loss {lr_!r} vs "
+                                     f"{lp!r}")
+            worst = st_params_close(torch, pr, pp, base, k, 1e-6, 1.0,
+                                    "(a)")
+    for phase in ("peak_eager_bytes", "peak_capture_bytes"):
+        if not out["recompute"][phase] < out["plain"][phase]:
+            raise AssertionError(f"phase 27 (a): recompute's {phase} "
+                                 f"{out['recompute'][phase]} not below "
+                                 f"plain's {out['plain'][phase]}")
+    out["bit_equal"], out["worst_rel"] = bit, worst
+    log(f"  (a) recompute vs plain: bit-equal {bit}, worst {worst}; peak "
+        f"saved {(out['plain']['peak_capture_bytes'] - out['recompute']['peak_capture_bytes']) / 2**20:.1f} MiB "
+        f"capturing, {(out['plain']['peak_eager_bytes'] - out['recompute']['peak_eager_bytes']) / 2**20:.1f} MiB eager")
+    return out
+
+
+def st_strategy(**flags):
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    s = DistributedStrategy()
+    for k, v in flags.items():
+        setattr(s, k, v)
+    return s
+
+
+def st_merge(torch, ctr, x, card):
+    """(b) gradient merge (k 4, avg) under SGD over four [2, seq] slices
+    against one SGD step on the whole batch."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import Executor
+    strategy = st_strategy(gradient_merge=True,
+                           gradient_merge_configs={"k_steps": ST_K,
+                                                   "avg": True})
+    fl = fleet.fleet
+    fl.init(is_collective=True)
+
+    def merged(loss, rate, ckpts):
+        fl.distributed_optimizer(optimizer.SGD(ST_SGD_LR),
+                                 strategy).minimize(loss)
+
+    main, _, loss, start = st_build(merged)
+    compiled = fleet.main_program
+    scope, exe = st_scope(start), Executor()
+    base = st_params(start, main)
+    slices = np.split(x, ST_K)
+    ctr.zero()
+    for i, xs in enumerate(slices):
+        exe.run(compiled, feed={"x": xs}, fetch_list=[loss.name],
+                scope=scope)
+        if i < ST_K - 1:
+            for n, p in st_params(scope, main).items():
+                if not torch.equal(p, base[n]):
+                    raise AssertionError(f"phase 27 (b): {n} moved at the "
+                                         f"frozen step {i + 1}")
+    launched = ctr.read()
+    got = st_params(scope, main)
+    if exe.captures != 1:
+        raise AssertionError(f"phase 27 (b): {exe.captures} captures")
+
+    def whole(loss, rate, ckpts):
+        optimizer.SGD(ST_SGD_LR).minimize(loss)
+
+    pm, _, pl, pstart = st_build(whole)
+    pscope = st_scope(pstart)
+    Executor().run(pm, feed={"x": x}, fetch_list=[pl.name], scope=pscope)
+    ref = st_params(pscope, pm)
+    rel, upd = st_joint_rel(torch, got, ref), \
+        st_joint_rel(torch, got, ref, base)
+    if not (rel <= ST_MERGE_RTOL and upd <= ST_MERGE_UPDATE):
+        raise AssertionError(f"phase 27 (b): merged step {rel:.3e} from "
+                             f"the whole-batch step, update {upd:.3e}")
+    log(f"  (b) gradient merge k {ST_K}: steps 1-{ST_K - 1} bit-equal to "
+        f"the start; after step {ST_K} {rel:.3e} relative Frobenius from "
+        f"one whole-batch SGD step, update {upd:.3e}; launches {launched}")
+    return {"rel": rel, "update_rel": upd, "launches": launched,
+            "captures": exe.captures}
+
+
+def st_chain(torch, ctr, ln, x, plain_loss, card):
+    """(c) the fleet chain: AMP, recompute and gradient merge (k 4)
+    around AdamW through fleet.distributed_optimizer."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework import Executor
+    from paddle_tpu_torch.models.static_encoder import build_encoder_program
+
+    def chain(loss, rate, ckpts):
+        strategy = st_strategy(
+            amp=True, recompute=True, gradient_merge=True,
+            recompute_configs={"checkpoints": [c.name for c in ckpts]},
+            gradient_merge_configs={"k_steps": ST_K, "avg": True})
+        fleet.init(is_collective=True)
+        fleet.distributed_optimizer(
+            optimizer.AdamW(learning_rate=rate, weight_decay=0.01),
+            strategy).minimize(loss)
+
+    main, _, loss, start = st_build(chain)
+    compiled = fleet.main_program
+    again = build_encoder_program(SE_LAYERS, SE_D, SE_HEADS, SE_FFN, SE_SEQ,
+                                  lr=SE_LR, minimize=chain)[0]
+    if again.to_json() != main.to_json():
+        raise AssertionError("phase 27 (c): the rewritten program differs "
+                             "between two builds")
+    types_ = [op.type for op in main.global_block().ops]
+    for t in ("cast", "optimization_barrier", "elementwise_mod", "adamw"):
+        if t not in types_:
+            raise AssertionError(f"phase 27 (c): no {t} op in the chain")
+    seen = []
+    orig = ln.ln_fwd
+
+    def ln_fwd(x2, *a, **k):
+        seen.append(x2.dtype)
+        return orig(x2, *a, **k)
+
+    scope, exe = st_scope(start), Executor()
+    ln.ln_fwd = ln_fwd
+    try:
+        ctr.zero()
+        runs = st_steps(torch, exe, main, scope, loss,
+                        [{"x": x}] * ST_CHAIN_STEPS, program=compiled)
+        launched, routes = ctr.read(), ctr.routes()
+    finally:
+        ln.ln_fwd = orig
+    losses = [r[0] for r in runs]
+    flash = {n: routes[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    if not all(launched[n] and by["wgmma"] == launched[n]
+               for n, by in flash.items()):
+        raise AssertionError(f"phase 27 (c): flash launches by route "
+                             f"{flash}, expected all on wgmma")
+    if not launched["ln_fwd"] or set(seen) != {torch.float32}:
+        raise AssertionError(f"phase 27 (c): LayerNorm inputs {set(seen)}, "
+                             f"{launched['ln_fwd']} launches: expected f32")
+    if not all(np.isfinite(losses)) or \
+            abs(losses[0] - plain_loss) > ST_AMP_RTOL * abs(plain_loss):
+        raise AssertionError(f"phase 27 (c): losses {losses} vs the f32 "
+                             f"plain program's first {plain_loss!r}")
+    if exe.captures != 1:
+        raise AssertionError(f"phase 27 (c): {exe.captures} captures")
+    log(f"  (c) fleet chain (amp, recompute, gradient merge k {ST_K}): "
+        f"{types_.count('cast')} casts; losses {losses} (f32 first "
+        f"{plain_loss!r}); launches {launched}; flash routes {flash}; "
+        f"LayerNorm inputs f32 [{card}]")
+    return {"losses": losses, "launches": launched, "routes": flash,
+            "casts": types_.count("cast"), "captures": exe.captures}
+
+
+def st_pipeline(torch, ctr, x, plain_first, card):
+    """(d) PipelineOptimizer(AdamW, 4 microbatches) on the encoder split
+    after layer 3: GPipe and 1F1B from one startup against each other and
+    against one plain whole-batch AdamW step."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Executor
+    holder = {}
+
+    def pipe(loss, rate, ckpts):
+        holder["opt"] = optimizer.PipelineOptimizer(
+            optimizer.AdamW(learning_rate=rate, weight_decay=0.01),
+            num_microbatches=ST_MB)
+        holder["opt"].minimize(loss)
+
+    main, _, loss, start = st_build(pipe, split_after=ST_SPLIT)
+    stages = main._pipeline_stages
+    if [s.device for s in stages] != ["gpu:0", "gpu:1"]:
+        raise AssertionError(f"phase 27 (d): stages {stages}")
+    feeds = [{"x": xs} for xs in np.split(x, ST_MB)]
+    out, params = {}, {}
+    for schedule in ("gpipe", "1f1b"):
+        runner = holder["opt"].runner(schedule=schedule)
+        scope, exe = st_scope(start), Executor()
+        ctr.zero()
+        losses, after = [], []
+        for _ in range(ST_PIPE_STEPS):
+            losses.append(float(runner.run(exe, scope, feeds,
+                                           fetch_list=[loss.name])[0]))
+            after.append(st_params(scope, main))
+        torch.cuda.synchronize()
+        n_programs = 3 * len(stages)
+        if exe.captures != n_programs:
+            raise AssertionError(f"phase 27 (d) {schedule}: {exe.captures} "
+                                 f"captures, expected {n_programs}")
+        out[schedule] = {"losses": losses, "launches": ctr.read(),
+                         "captures": exe.captures,
+                         "overlap_report": runner.overlap_report()}
+        params[schedule] = after
+        log(f"  (d) {schedule}: losses {losses}, {exe.captures} captures, "
+            f"launches {out[schedule]['launches']}; overlap_report "
+            f"{out[schedule]['overlap_report']}")
+    g, f = out["gpipe"]["losses"], out["1f1b"]["losses"]
+    if g[0] != f[0] or abs(g[1] - f[1]) > ST_SCHED_RTOL * abs(g[1]):
+        raise AssertionError(f"phase 27 (d): GPipe losses {g} vs 1F1B {f}")
+    plain_loss, plain_params, base = plain_first
+    sched = st_params_close(torch, params["1f1b"][-1], params["gpipe"][-1],
+                            base, ST_PIPE_STEPS, ST_SCHED_RTOL, ST_UPD_RTOL,
+                            "(d) 1f1b")
+    if abs(g[0] - plain_loss) > ST_PIPE_LOSS * abs(plain_loss):
+        raise AssertionError(f"phase 27 (d): first loss {g[0]!r} vs plain "
+                             f"{plain_loss!r}")
+    vs_plain = st_params_close(torch, params["gpipe"][0], plain_params,
+                               base, 1, ST_PIPE_RTOL, ST_UPD_RTOL,
+                               "(d) vs plain")
+    sched_bit = all(torch.equal(params["gpipe"][-1][n],
+                                params["1f1b"][-1][n])
+                    for n in params["gpipe"][-1])
+    log(f"  (d) GPipe vs 1F1B: bit-equal {sched_bit}, worst {sched}; "
+        f"GPipe's first step vs one plain step: loss {g[0]!r} vs "
+        f"{plain_loss!r}, worst {vs_plain}")
+    out.update(schedules_bit_equal=sched_bit, worst_1f1b=sched,
+               worst_vs_plain=vs_plain)
+    return out
+
+
+def st_averaging(torch, ctr, x, card):
+    """(e) EMA (0.999), ModelAverage (window 4) and Lookahead (k 3,
+    alpha 0.5) around AdamW: each shadow against a torch recurrence of
+    the same operations on the fetched values, ``apply`` on a captured
+    test clone, the parameters bit-equal after the block."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.framework import Executor
+    held = {}
+
+    def averaged(loss, rate, ckpts):
+        optimizer.LookaheadOptimizer(
+            optimizer.AdamW(learning_rate=rate, weight_decay=0.01),
+            alpha=0.5, k=3).minimize(loss)
+        held["ema"] = optimizer.ExponentialMovingAverage(0.999).update()
+        held["ma"] = optimizer.ModelAverage(max_average_window=4).update()
+
+    main, _, loss, start = st_build(averaged)
+    ema, ma = held["ema"], held["ma"]
+    names = [p.name for p in main.all_parameters()]
+    # Lookahead's fast - slow (fetched) and slow weight, per parameter
+    subs = {op.input("X")[0]: op for op in main.global_block().ops
+            if op.type == "elementwise_sub"
+            and ".la_diff" in op.output("Out")[0]}
+    diffs = [subs[n].output("Out")[0] for n in names]
+    slow = {n: subs[n].input("Y")[0] for n in names}
+    scope, exe = st_scope(start), Executor()
+    ctr.zero()
+    runs = st_steps(torch, exe, main, scope, loss,
+                    [{"x": x}] * ST_AVG_STEPS, fetch=diffs)
+    launched = ctr.read()
+    e_ref = {p: start.find_var(a).clone() for p, a in ema._pairs}
+    s_ref = {n: start.find_var(slow[n]).clone() for n in names}
+    m_ref = {p: start.find_var(a).clone() for p, a in ma._pairs}
+    num, x_dev = 0, runs[0][1][names[0]].device
+    for step, (_, params, fetched) in enumerate(runs, 1):
+        mask = torch.tensor([float(step % 3 == 0)], device=x_dev)
+        for n, d in zip(names, fetched):
+            s_ref[n] = s_ref[n] + (d * 0.5 + 0.0) * mask
+        for p in e_ref:
+            e_ref[p] = (e_ref[p] * 0.999 + 0.0) + \
+                (params[p] * (1.0 - 0.999) + 0.0)
+        num += 1
+        reset = num == 4
+        num = 1 if reset else num
+        maskf = torch.tensor([float(reset)], device=x_dev)
+        inv = maskf * -1.0 + 1.0
+        for p in m_ref:
+            m_ref[p] = (m_ref[p] + params[p]) * inv + params[p] * maskf
+
+    def ulp_close(a, b):
+        return bool(((a - b).abs() <= b.abs() * 2.0 ** -23 + 1e-45).all())
+
+    worst = {}
+    for what, ref, var in (("ema", e_ref, dict(ema._pairs)),
+                           ("lookahead", s_ref, slow),
+                           ("model_average", m_ref, dict(ma._pairs))):
+        eq = 0
+        for p, r in ref.items():
+            got = scope.find_var(var[p])
+            if not ulp_close(got, r):
+                raise AssertionError(f"phase 27 (e): {what} shadow of {p} "
+                                     f"off its recurrence by "
+                                     f"{float((got - r).abs().max()):.3e}")
+            eq += int(torch.equal(got, r))
+        worst[what] = f"{eq}/{len(ref)} bit-equal, the rest within 1 ulp"
+    # apply on a captured test clone
+    test = main.clone(for_test=True)._prune([loss.name])
+    texe = Executor()
+    for _ in range(2):
+        texe.run(test, feed={"x": x}, fetch_list=[loss.name], scope=scope)
+    before = st_params(scope, main)
+    with ema.apply(scope):
+        (l_ema,) = texe.run(test, feed={"x": x}, fetch_list=[loss.name],
+                            scope=scope, return_numpy=False)
+    after = st_params(scope, main)
+    if not all(torch.equal(after[n], before[n]) for n in names):
+        raise AssertionError("phase 27 (e): parameters not restored bit "
+                             "for bit after ema.apply")
+    for p, a in ema._pairs:
+        scope.find_var(p).copy_(scope.find_var(a))
+    (l_hand,) = texe.run(test, feed={"x": x}, fetch_list=[loss.name],
+                         scope=scope, return_numpy=False)
+    for n in names:
+        scope.find_var(n).copy_(before[n])
+    if not torch.equal(l_ema, l_hand) or texe.captures != 1:
+        raise AssertionError(f"phase 27 (e): apply's loss {l_ema} vs the "
+                             f"shadows copied by hand {l_hand}; "
+                             f"{texe.captures} test captures")
+    if exe.captures != 1:
+        raise AssertionError(f"phase 27 (e): {exe.captures} captures")
+    log(f"  (e) shadows vs their recurrences: {worst}; apply's loss "
+        f"{float(l_ema)!r} equals the hand copy's; parameters restored bit "
+        f"for bit; launches {launched}")
+    return {"shadows": worst, "launches": launched,
+            "loss_ema": float(l_ema)}
+
+
+def st_compiled(torch, ctr, x, plain_losses, card):
+    """(f) CompiledProgram(main, BuildStrategy(fuse_elewise_add_act_ops))
+    through exe.run against the plain program."""
+    from paddle_tpu_torch.compiler import BuildStrategy, CompiledProgram
+    from paddle_tpu_torch.framework import Executor
+    main, _, loss, start = st_build()
+    bs = BuildStrategy()
+    bs.fuse_elewise_add_act_ops = True
+    compiled = CompiledProgram(main, bs)
+    scope, exe = st_scope(start), Executor()
+    ctr.zero()
+    losses = []
+    for _ in range(ST_STEPS):
+        (f,) = exe.run(compiled, feed={"x": x}, fetch_list=[loss.name],
+                       scope=scope, return_numpy=False)
+        losses.append(float(f.reshape(-1)[0]))
+    launched = ctr.read()
+    fused = [op.type for op in compiled._program.global_block().ops] \
+        .count("fused_elemwise_activation")
+    if exe.captures != 1 or any(
+            abs(a - b) > ST_CP_RTOL * abs(b)
+            for a, b in zip(losses, plain_losses)):
+        raise AssertionError(f"phase 27 (f): losses {losses} vs plain "
+                             f"{plain_losses}, {exe.captures} captures")
+    log(f"  (f) CompiledProgram: {fused} fused ops, losses {losses} (plain "
+        f"{plain_losses}), one capture; launches {launched}")
+    return {"losses": losses, "fused_ops": fused, "launches": launched}
+
+
+def strategy_phase(torch, ctr, ln, card):
+    """Phase 27: the Program rewrites on phase 23's encoder at full width
+    (6 layers, d 512, 8 heads, FFN 2048, [8, 1024] tokens), flash and
+    LayerNorm kernels on, one seeded startup per arm: (a) recompute, (b)
+    gradient merge, (c) the fleet chain with AMP, (d) the pipeline, (e)
+    weight averaging, (f) CompiledProgram."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import env as dist_env
+    names = ("use_pallas_attention", "use_pallas_layer_norm")
+    saved = flags.get_flags(list(names))
+    flags.set_flags({n: True for n in names})
+    x = np.random.RandomState(27).randn(SE_BATCH, SE_SEQ, SE_D) \
+        .astype(np.float32)
+    out, secs = {}, {}
+    try:
+        for key, fn in (
+                ("a", lambda: st_recompute(torch, ctr, x, card)),
+                ("b", lambda: st_merge(torch, ctr, x, card)),
+                ("c", lambda: st_chain(torch, ctr, ln, x,
+                                       out["a"]["plain"]["losses"][0],
+                                       card)),
+                ("d", lambda: st_pipeline(torch, ctr, x,
+                                          out["a"]["plain_first"], card)),
+                ("e", lambda: st_averaging(torch, ctr, x, card)),
+                ("f", lambda: st_compiled(torch, ctr, x,
+                                          out["a"]["plain"]["losses"],
+                                          card))):
+            t0 = time.perf_counter()
+            out[key] = fn()
+            secs[key] = time.perf_counter() - t0
+            log(f"  ({key}) took {secs[key]:.1f} s")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        flags.set_flags(saved)
+        dist_env.set_mesh(None)
+    del out["a"]["plain_first"]
+    out["seconds"] = secs
+    out["launches"] = {
+        "flash_static_amp": {n: out["c"]["launches"][n]
+                             for n in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")},
+        "adamw": {"recompute": out["a"]["recompute"]["launches_per_step"]
+                  ["adamw"] * ST_STEPS,
+                  "chain": out["c"]["launches"]["adamw"],
+                  "pipeline": out["d"]["gpipe"]["launches"]["adamw"],
+                  "averaging": out["e"]["launches"]["adamw"],
+                  "compiled": out["f"]["launches"]["adamw"]}}
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9390,7 +9961,21 @@ def main():
     t_det = time.perf_counter()
     dtp = detection_phase(torch, ctr, card)
     log(f"  phase 26 took {time.perf_counter() - t_det:.1f} s")
-    log(f"  total {time.perf_counter() - t_start:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"== phase 27: the Program rewrites on phase 23's encoder ("
+        f"{SE_LAYERS} layers, d {SE_D}, batch {SE_BATCH}, seq {SE_SEQ}): "
+        f"(a) RecomputeOptimizer against plain AdamW, peak memory; (b) "
+        f"gradient merge k {ST_K} under SGD against one whole-batch step; "
+        f"(c) fleet.distributed_optimizer with amp, recompute and gradient "
+        f"merge (bf16 flash on wgmma); (d) PipelineOptimizer, 2 stages x "
+        f"{ST_MB} microbatches, GPipe and 1F1B; (e) EMA, ModelAverage and "
+        f"Lookahead; (f) CompiledProgram with a BuildStrategy")
+    t_st = time.perf_counter()
+    stg = strategy_phase(torch, ctr, ln, card)
+    log(f"  phase 27 took {time.perf_counter() - t_st:.1f} s [{card}]")
+    log(f"  total {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
         return {"name": name, "route": "cuda",
@@ -9488,7 +10073,11 @@ def main():
             f32_static_encoder=sen["flash_f32"][name],
             launches_static_encoder=sen["launches"][name],
             launches_by_route_static_encoder=sen["routes"][name],
-            launches_control_flow=cfl["launches"][name]))
+            launches_control_flow=cfl["launches"][name],
+            launches_static_amp=stg["launches"]["flash_static_amp"][name],
+            launches_by_route_static_amp=stg["c"]["routes"][name],
+            launches_recompute=stg["a"]["recompute"]["launches_per_step"][
+                name] * ST_STEPS))
     for name, line in (("ln_fwd", 27), ("ln_bwd", 40)):
         t = ltimes[name]["ernie-base"]
         kernels.append(entry(
@@ -9525,7 +10114,8 @@ def main():
         launches_static_encoder=sen["launches"]["adamw"],
         launches_book=bk["launches"]["adamw"],
         launches_control_flow=cfl["launches"]["adamw"],
-        launches_qat=dtp["launches"]["adamw"]))
+        launches_qat=dtp["launches"]["adamw"],
+        launches_strategy=stg["launches"]["adamw"]))
     kernels.append(entry(
         "cond_set", "cond_graph.cu", "paddle_tpu/ops/control_flow_ops.py:142",
         cfl["launches"]["cond_set"], cfl["cond_set"]["max_abs_err"],
@@ -9568,7 +10158,8 @@ def main():
                       "static_encoder": summary(sen),
                       "book": summary(bk),
                       "control_flow": summary(cfl),
-                      "detection": summary(dtp)}), flush=True)
+                      "detection": summary(dtp),
+                      "strategy": summary(stg)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

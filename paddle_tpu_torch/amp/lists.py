@@ -22,3 +22,19 @@ BLACK_LIST = {
 
 # Everything else runs in whatever dtype its inputs already have (O1), or
 # in the low-precision type (O2).
+
+
+class AutoMixedPrecisionLists:
+    """The white and black lists one AMP rewrite applies
+    (``paddle_tpu/amp/lists.py:28``): the defaults above, a custom white
+    op leaving the black list and a custom black op the white list."""
+
+    def __init__(self, custom_white_list=None, custom_black_list=None):
+        self.white_list = set(WHITE_LIST)
+        self.black_list = set(BLACK_LIST)
+        if custom_white_list:
+            self.white_list |= set(custom_white_list)
+            self.black_list -= set(custom_white_list)
+        if custom_black_list:
+            self.black_list |= set(custom_black_list)
+            self.white_list -= set(custom_black_list)

@@ -32,15 +32,24 @@ key (:mod:`~paddle_tpu_torch.jit`'s ``warm_up`` / ``capture`` /
 - ``FLAGS_check_nan_inf`` scans each op's outputs on the host, so with
   it on every run is eager and a non-finite output raises
   :class:`NanInfError` naming the op and the variable, the reference's
-  text.
+  text;
+- liveness (:func:`plan_drops`): a run drops each block-0 value that is
+  neither state, nor fetched, nor persistable right after the last op
+  that touches it, as XLA's buffer liveness frees it in the reference.
+  Under capture the graph pool reuses the freed memory, so a
+  checkpointed backward (``RecomputeOptimizer``) holds only its
+  checkpoints across the forward. A control-flow op's sub-block reads
+  count as the op's own; a host op of a split key reads at its index.
 
 A capture is reported to the compile tracker under the reference's site
 name ``executor_step``; on the CPU a new key is (the reference's XLA
 compile). The executor has no CPU fallback: ``place=None`` means the
-card and raises without one; ``place="cpu"`` runs on the CPU.
-``CompiledProgram`` (ROADMAP A7.3) and ``train_from_dataset`` /
-``infer_from_dataset`` / hogwild (ROADMAP A7.4, with ``dataset.py`` and
-``io/``) raise NotImplementedError naming their items.
+card and raises without one; ``place="cpu"`` runs on the CPU. A
+``CompiledProgram`` (:mod:`~paddle_tpu_torch.compiler`) runs through
+its ``_compile_for_executor`` door on this same path.
+``train_from_dataset`` / ``infer_from_dataset`` / hogwild (ROADMAP A7.4,
+with ``dataset.py`` and ``io/``) raise NotImplementedError naming their
+items.
 """
 
 from __future__ import annotations
@@ -92,6 +101,8 @@ class _BlockRunner:
         self.mesh = mesh
         self.axis_env = axis_env or {}
         self.device = device
+        # block-0 op index -> the values dropped after it (plan_drops)
+        self.drops: Dict[int, List[str]] = {}
 
     def run_block(self, block_idx: int, env: Dict[str, Any], rng,
                   start: int = 0, stop: Optional[int] = None,
@@ -101,6 +112,7 @@ class _BlockRunner:
         split its key at."""
         block = self.program.blocks[block_idx]
         check = _flags.get_flag("check_nan_inf")
+        drops = self.drops if block_idx == 0 else {}
         ops = block.ops[start:stop]
         for i, op in enumerate(ops, start):
             # __rng_tag__ pins an op's stream to another position: a
@@ -136,7 +148,45 @@ class _BlockRunner:
                     if check:
                         check_nan_inf_hook(op.type, n, v)
                     env[n] = v
+            for n in drops.get(i, ()):
+                env.pop(n, None)
         return env
+
+
+def _op_touches(program: Program, op) -> set:
+    """The names an op reads or writes, its sub-blocks' (nested ones
+    too) counted as its own."""
+    from .program import op_sub_block_indices, transitive_sub_blocks
+    names = set(op.input_names()) | set(op.output_names())
+    for si in op_sub_block_indices(op):
+        for bi in transitive_sub_blocks(program, si):
+            for inner in program.blocks[bi].ops:
+                names.update(inner.input_names())
+                names.update(inner.output_names())
+    return names
+
+
+def plan_drops(program: Program, keep) -> Dict[int, List[str]]:
+    """Block 0's liveness: op index -> the values to drop from a run's
+    env after that op, each at the last op that reads or writes it (a
+    value nothing reads goes after the op that made it). Names in
+    ``keep`` (state, written back, fetched) and persistable variables
+    are never dropped. For an intermediate the env's reference is the
+    last one the executor holds, so the tensor is freed there (to the
+    graph pool under capture); a feed's buffer stays with its key, and
+    a host piece of a split key holds its own inputs."""
+    block = program.global_block()
+    last: Dict[str, int] = {}
+    for i, op in enumerate(block.ops):
+        for n in _op_touches(program, op):
+            last[n] = i
+    drops: Dict[int, List[str]] = {}
+    for n, i in last.items():
+        v = block.vars.get(n)
+        if n in keep or (v is not None and v.persistable):
+            continue
+        drops.setdefault(i, []).append(n)
+    return {i: sorted(ns) for i, ns in drops.items()}
 
 
 def plan_pieces(program: Program, on_card: bool):
@@ -305,12 +355,20 @@ class Executor:
             raise NanInfError(
                 "injected non-finite step (fault spec 'exec.step:nan')")
         if hasattr(program, "_compile_for_executor"):
-            raise NotImplementedError(
-                "CompiledProgram (compiler.py) waits for ROADMAP A7.3")
+            # CompiledProgram: its passes applied once, then this path
+            return program._compile_for_executor(self).run(
+                feed=feed, fetch_list=fetch_list, scope=scope,
+                return_numpy=return_numpy)
         if not isinstance(program, Program):
             raise TypeError(
                 f"Executor.run expects a Program or CompiledProgram, got "
                 f"{type(program).__name__}")
+        return self._run(program, feed, fetch_list, scope, return_numpy)
+
+    def _run(self, program: Program, feed, fetch_list, scope,
+             return_numpy: bool):
+        """One run of a Program (``run`` past its fault point and its
+        CompiledProgram door)."""
         feed = {k: _host_tensor(v) for k, v in (feed or {}).items()}
         scope = scope or global_scope()
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
@@ -419,6 +477,8 @@ class Executor:
         block = program.global_block()
         state_in, written = _collect_io(block, feed_arrays.keys(), scope)
         runner = _BlockRunner(program, device=self.device)
+        runner.drops = plan_drops(
+            program, set(state_in) | set(written) | set(fetch_names))
         pieces = plan_pieces(program, self.device.type == "cuda")
         return _Entry(runner, state_in, written, fetch_names,
                       (program, scope), pieces)

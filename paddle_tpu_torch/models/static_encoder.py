@@ -15,6 +15,13 @@ FFN (``fc`` relu, ``fc``), a residual and ``layer_norm``. The loss is the
 take the flash and LayerNorm kernels, forward and (through the generic
 grad) backward.
 
+``minimize=`` hands the loss, the learning rate and the six layer
+outputs (recompute's checkpoints) to a caller's optimizer chain
+(``RecomputeOptimizer``, the fleet's strategy, an AMP rewrite first),
+and ``split_after=`` builds the layers under two ``device_guard``
+labels, the pipeline's stages: ``chip_smoke.py``'s phase 27 and
+``tests/test_torch_strategy.py``.
+
 The learning rate is a float, or a schedule built into the Program
 (:class:`NoamLR`: Transformer-base's warm-up, ``step < W`` under
 ``layers.case``, from ``autoincreased_step_counter``; :class:`FedLR`: a
@@ -37,10 +44,11 @@ def port_static():
     """The port's static-graph modules, as :func:`build_encoder_program`
     takes them."""
     from .. import layers, optimizer
-    from ..framework import Program, program_guard, unique_name
+    from ..framework import Program, device_guard, program_guard, unique_name
     return SimpleNamespace(layers=layers, Program=Program,
                            program_guard=program_guard,
-                           unique_name=unique_name, AdamW=optimizer.AdamW)
+                           unique_name=unique_name, AdamW=optimizer.AdamW,
+                           device_guard=device_guard)
 
 
 class NoamLR:
@@ -96,43 +104,69 @@ def build_encoder_program(num_layers: int = 6, d_model: int = 512,
                           num_heads: int = 8, d_ffn: int = 2048,
                           seq: int = 1024, lr=1e-4,
                           weight_decay: float = 0.01, seed: int = 0, *,
-                          static=None):
+                          static=None, minimize=None, split_after=None):
     """``(main, startup, loss)``; feed ``x`` ``[batch, seq, d_model]``
     float32. ``static`` holds the modules to build with (``layers``,
-    ``Program``, ``program_guard``, ``unique_name``, ``AdamW``): the
-    port's by default (:func:`port_static`); a test passes the JAX
-    package's to build the same program there. Both programs carry
-    ``random_seed = seed``, so their startup runs draw the same
-    weights."""
+    ``Program``, ``program_guard``, ``unique_name``, ``AdamW``, and
+    ``device_guard`` when the program is split): the port's by default
+    (:func:`port_static`); a test passes the JAX package's to build the
+    same program there. Both programs carry ``random_seed = seed``, so
+    their startup runs draw the same weights.
+
+    ``minimize(loss, rate, checkpoints)``, when given, takes the place of
+    ``AdamW(rate).minimize(loss)`` (a wrapped optimizer, the fleet's
+    strategy chain, an AMP rewrite first); ``checkpoints`` are the layer
+    outputs, recompute's natural checkpoints. With ``split_after`` the
+    layers before it are built under ``device_guard("gpu:0")`` and the
+    rest, with the loss, under ``device_guard("gpu:1")``: the two
+    pipeline stages."""
+    import contextlib
     st = static or port_static()
     L = st.layers
     dh = d_model // num_heads
     main, startup = st.Program(), st.Program()
     main.random_seed = startup.random_seed = seed
+
+    def stage(i):
+        if split_after is None:
+            return contextlib.nullcontext()
+        return st.device_guard(f"gpu:{int(i >= split_after)}")
+
+    checkpoints = []
     with st.program_guard(main, startup), st.unique_name.guard():
         blk = main.global_block()
-        x = L.data("x", [seq, d_model])
+        with stage(0):
+            x = L.data("x", [seq, d_model])
 
         def heads(t):
             t = L.reshape(t, [0, 0, num_heads, dh])
             return L.transpose(t, [0, 2, 1, 3])
 
         for i in range(num_layers):
-            q, k, v = (heads(L.fc(x, d_model, num_flatten_dims=2))
-                       for _ in range(3))
-            att = blk.create_var(f"attn_{i}", shape=[-1, num_heads, seq, dh])
-            blk.append_op("fused_attention_qkv",
-                          {"Q": [q.name], "K": [k.name], "V": [v.name]},
-                          {"Out": [att.name]}, {"causal": False})
-            att = L.reshape(L.transpose(att, [0, 2, 1, 3]), [0, 0, d_model])
-            o = L.fc(att, d_model, num_flatten_dims=2)
-            x = L.layer_norm(L.elementwise_add(x, o), begin_norm_axis=2)
-            f = L.fc(x, d_ffn, num_flatten_dims=2, act="relu")
-            f = L.fc(f, d_model, num_flatten_dims=2)
-            x = L.layer_norm(L.elementwise_add(x, f), begin_norm_axis=2)
-        loss = L.reduce_mean(L.square(x))
+            with stage(i):
+                q, k, v = (heads(L.fc(x, d_model, num_flatten_dims=2))
+                           for _ in range(3))
+                att = blk.create_var(f"attn_{i}",
+                                     shape=[-1, num_heads, seq, dh])
+                blk.append_op("fused_attention_qkv",
+                              {"Q": [q.name], "K": [k.name], "V": [v.name]},
+                              {"Out": [att.name]}, {"causal": False})
+                att = L.reshape(L.transpose(att, [0, 2, 1, 3]),
+                                [0, 0, d_model])
+                o = L.fc(att, d_model, num_flatten_dims=2)
+                x = L.layer_norm(L.elementwise_add(x, o), begin_norm_axis=2)
+                f = L.fc(x, d_ffn, num_flatten_dims=2, act="relu")
+                f = L.fc(f, d_model, num_flatten_dims=2)
+                x = L.layer_norm(L.elementwise_add(x, f), begin_norm_axis=2)
+            checkpoints.append(x)
+        with stage(num_layers):
+            loss = L.reduce_mean(L.square(x))
         rate = lr(L, d_model) if callable(lr) else lr
-        st.AdamW(learning_rate=rate, weight_decay=weight_decay).minimize(loss)
+        if minimize is not None:
+            minimize(loss, rate, checkpoints)
+        else:
+            st.AdamW(learning_rate=rate,
+                     weight_decay=weight_decay).minimize(loss)
     return main, startup, loss
 
 

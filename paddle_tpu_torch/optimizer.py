@@ -47,8 +47,15 @@ eager (name, parameter) pairs and is not read by ``minimize``, which
 takes Program variables through its ``parameter_list``.
 :meth:`Optimizer.set_lr` with a ``scope`` writes the lr variable there as
 the reference does, in place when a captured step holds it. The static
-rewrites of ``optimizer.py:709-1104`` (Recompute, Pipeline, EMA,
-ModelAverage, Lookahead, DGC, ...) wait for ROADMAP A7.2d.
+rewrites of ``optimizer.py:709-1104`` wrap an optimizer or append to
+its Program: :class:`RecomputeOptimizer` (the checkpointed backward),
+:class:`PipelineOptimizer` (the split into stages and its microbatch
+runner, :mod:`~paddle_tpu_torch.distributed.fleet.pipeline`),
+:class:`ExponentialMovingAverage`, :class:`ModelAverage` and
+:class:`LookaheadOptimizer`; the fleet's strategy chain
+(:mod:`~paddle_tpu_torch.distributed.fleet.fleet_base`) composes them.
+DGC, LocalSGD and the sharded update run across cards and wait for
+ROADMAP A5.
 """
 
 from __future__ import annotations
@@ -960,6 +967,102 @@ class FtrlOptimizer(Optimizer):
              "op_role": "optimize"})
 
 
+class RecomputeOptimizer(Optimizer):
+    """Activation-recompute wrapper (``optimizer.py:709``, fluid
+    ``optimizer.py:4518``)::
+
+        opt = RecomputeOptimizer(SGDOptimizer(0.1))
+        opt._set_checkpoints([h1, h2])
+        opt.minimize(loss)
+
+    backward() runs the checkpointed rewrite (``append_backward``'s
+    ``checkpoints=``): the forward ops between checkpoints are cloned
+    into the backward behind ``optimization_barrier`` ops, so only the
+    checkpoints stay live across the forward — the executor's liveness
+    (:func:`~paddle_tpu_torch.framework.executor.plan_drops`) frees the
+    rest, as XLA's does in the reference: FLOPs traded for memory.
+    """
+
+    def __init__(self, inner_optimizer: Optimizer):
+        self._inner = inner_optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = list(checkpoints)
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, checkpoints=None):
+        return self._inner.backward(
+            loss, startup_program, parameter_list, no_grad_set,
+            checkpoints=checkpoints or self._checkpoints)
+
+    def apply_gradients(self, params_grads, startup_program=None):
+        return self._inner.apply_gradients(params_grads, startup_program)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        if not self._checkpoints:
+            raise ValueError(
+                "RecomputeOptimizer: call _set_checkpoints() first")
+        params_grads = self.backward(loss, startup_program, parameter_list,
+                                     no_grad_set)
+        opt_ops = self.apply_gradients(params_grads, startup_program)
+        return opt_ops, params_grads
+
+
+class PipelineOptimizer:
+    """Pipeline-parallel wrapper (``optimizer.py:753``, fluid
+    ``optimizer.py:3666``)::
+
+        with device_guard("gpu:0"): ...first half...
+        with device_guard("gpu:1"): ...second half + loss...
+        opt = PipelineOptimizer(SGDOptimizer(0.1), num_microbatches=4)
+        opt.minimize(loss)
+        runner = opt.runner()           # GPipe schedule
+        runner.run(exe, scope, microbatch_feeds, fetch_list=[loss.name])
+
+    minimize() builds the ordinary joint program (backward and optimizer
+    ops inherit their forward op's ``op_device``), then splits it into
+    per-stage forward/backward/optimize phase programs with microbatch
+    gradient accumulation
+    (:mod:`~paddle_tpu_torch.distributed.fleet.pipeline`).
+    """
+
+    def __init__(self, optimizer, num_microbatches: int = 1):
+        self._inner = optimizer
+        self._num_microbatches = int(num_microbatches)
+        self._stages = None
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        opt_ops, params_grads = self._inner.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        from .distributed.fleet.pipeline import split_pipeline_program
+        program = loss.block.program
+        self._stages = split_pipeline_program(program,
+                                              self._num_microbatches)
+        program._pipeline_stages = self._stages
+        program._pipeline_num_microbatches = self._num_microbatches
+        return opt_ops, params_grads
+
+    def runner(self, devices=None, schedule: str = "gpipe"):
+        """Build the microbatch runner. ``devices`` (``"cuda:0"``, a
+        ``torch.device``, ``"cpu"``) gives each stage's phase programs
+        an executor of their own there; ``schedule`` is "gpipe" or
+        "1f1b"."""
+        from .distributed.fleet.pipeline import PipelineRunner
+        if self._stages is None:
+            raise ValueError("call minimize() before runner()")
+        return PipelineRunner(self._stages, self._num_microbatches,
+                              devices=devices, schedule=schedule)
+
+
 # fluid-style aliases
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
@@ -970,3 +1073,297 @@ Lamb = LambOptimizer
 RMSProp = RMSPropOptimizer
 Ftrl = FtrlOptimizer
 LarsMomentum = LarsMomentumOptimizer
+
+
+# ---------------------------------------------------------------------------
+# Weight-averaging / slow-weight wrappers (optimizer.py:832-1104; fluid
+# optimizer.py:3107 ModelAverage, :3416 ExponentialMovingAverage, :4828
+# LookaheadOptimizer)
+# ---------------------------------------------------------------------------
+
+
+def _trainable_params(program):
+    return [v for v in program.global_block().vars.values()
+            if getattr(v, "is_parameter", False)
+            and not getattr(v, "stop_gradient", False)]
+
+
+def _append_shadow_init(startup, param_name, shadow_name):
+    """startup: shadow <- param (runs after the param's own init op)."""
+    sblk = startup.global_block()
+    sblk.create_var(shadow_name, persistable=True, stop_gradient=True)
+    sblk.append_op("assign", {"X": [param_name]}, {"Out": [shadow_name]},
+                   {})
+
+
+def _int_counter(program, startup, name: str):
+    """Persistable int64 step counter initialized to 0 (int64 so the
+    count never saturates the way a float32 would at 2^24)."""
+    blk = program.global_block()
+    cname = unique_name.generate(name)
+    blk.create_var(cname, persistable=True, stop_gradient=True)
+    sblk = startup.global_block()
+    sblk.create_var(cname, persistable=True, stop_gradient=True)
+    sblk.append_op("fill_constant", {}, {"Out": [cname]},
+                   {"shape": [1], "value": 0, "dtype": "int64"})
+    return cname
+
+
+class _ScopeSwapMixin:
+    """Shared apply/restore scaffolding: swap params for derived values
+    in a scope, restore on exit (the EMA/ModelAverage protocol).
+
+    The backups are clones: the reference keeps ``scope.find_var(p)``,
+    an immutable array, but the port's scope tensor of a parameter that
+    a captured step holds stays that step's tensor, and ``set_var``
+    copies the swapped value into it — a backup that were the tensor
+    itself would then hold the average, and ``restore`` would copy the
+    tensor onto itself."""
+
+    _pairs: list  # (param name, aux var name)
+    _backup: dict
+
+    def _swap_value(self, scope, param_name, aux_name):
+        raise NotImplementedError
+
+    def apply(self, scope=None, need_restore: bool = True):
+        import contextlib
+
+        from .framework.scope import global_scope
+        scope = scope or global_scope()
+
+        @contextlib.contextmanager
+        def _ctx():
+            self._backup = {p: scope.find_var(p).clone()
+                            for p, _ in self._pairs}
+            for p, a in self._pairs:
+                scope.set_var(p, self._swap_value(scope, p, a))
+            try:
+                yield self
+            finally:
+                if need_restore:
+                    self.restore(scope)
+        return _ctx()
+
+    def restore(self, scope=None):
+        from .framework.scope import global_scope
+        scope = scope or global_scope()
+        for p, v in self._backup.items():
+            scope.set_var(p, v)
+        self._backup = {}
+
+
+class ExponentialMovingAverage(_ScopeSwapMixin):
+    """EMA shadow weights, updated in-graph
+    (``optimizer.py:895``, fluid ``optimizer.py:3416``).
+
+    >>> ema = ExponentialMovingAverage(0.999)
+    >>> opt.minimize(loss); ema.update()        # build once
+    >>> with ema.apply(scope):                  # eval with EMA weights
+    ...     exe.run(test_program, ...)
+    """
+
+    def __init__(self, decay: float = 0.999, name: Optional[str] = None):
+        self._decay = float(decay)
+        self._name = name or "ema"
+        self._pairs = []          # (param name, ema var name)
+        self._backup = {}
+
+    def update(self):
+        """Append ema = decay*ema + (1-decay)*param for every trainable
+        param of the current main program; shadow init rides the
+        startup program (run startup after calling this)."""
+        program = default_main_program()
+        startup = default_startup_program()
+        blk = program.global_block()
+        for p in _trainable_params(program):
+            ema_name = unique_name.generate(f"{p.name}.{self._name}")
+            blk.create_var(ema_name, persistable=True,
+                           stop_gradient=True)
+            _append_shadow_init(startup, p.name, ema_name)
+            scaled_e = unique_name.generate(f"{ema_name}.sc")
+            blk.create_var(scaled_e, stop_gradient=True)
+            blk.append_op("scale", {"X": [ema_name]}, {"Out": [scaled_e]},
+                          {"scale": self._decay, "op_role": "optimize"})
+            scaled_p = unique_name.generate(f"{p.name}.sc")
+            blk.create_var(scaled_p, stop_gradient=True)
+            blk.append_op("scale", {"X": [p.name]}, {"Out": [scaled_p]},
+                          {"scale": 1.0 - self._decay,
+                           "op_role": "optimize"})
+            blk.append_op("sum", {"X": [scaled_e, scaled_p]},
+                          {"Out": [ema_name]}, {"op_role": "optimize"})
+            self._pairs.append((p.name, ema_name))
+        return self
+
+    def _swap_value(self, scope, param_name, aux_name):
+        # a copy: a parameter rebound to the shadow's own tensor would
+        # alias it (a later in-place write to one moves the other)
+        return scope.find_var(aux_name).clone()
+
+
+class ModelAverage(_ScopeSwapMixin):
+    """Windowed parameter average, accumulated in-graph
+    (``optimizer.py:941``, fluid ``optimizer.py:3107``). The reference
+    rotates three partial sums; here the window restarts whenever the
+    accumulated count reaches ``max_average_window`` — same estimator
+    family (average over the most recent training tail), branch-free
+    IR. ``average_window_rate``/``min_average_window`` are accepted for
+    signature parity; the restart policy is driven by
+    ``max_average_window`` alone. The average that ``apply`` swaps in
+    is divided on the device (the reference divides on the host)."""
+
+    def __init__(self, average_window_rate: float = 0.15,
+                 min_average_window: int = 10000,
+                 max_average_window: int = 10000):
+        self._max_window = int(max_average_window)
+        self._pairs = []          # (param, sum var)
+        self._num_name = None
+        self._backup = {}
+
+    def update(self):
+        program = default_main_program()
+        startup = default_startup_program()
+        blk = program.global_block()
+
+        def ap(type_, ins, outs, attrs=None):
+            blk.append_op(type_, ins, outs,
+                          dict(attrs or {}, op_role="optimize"))
+
+        def tmp(base, **kw):
+            name = unique_name.generate(base)
+            blk.create_var(name, stop_gradient=True, **kw)
+            return name
+
+        self._num_name = _int_counter(program, startup,
+                                      "model_average.num")
+        ap("increment", {"X": [self._num_name]},
+           {"Out": [self._num_name]}, {"step": 1})
+        # reset mask: 1.0 when the window is full (num == max_window)
+        maxc = tmp("ma.max")
+        ap("fill_constant_like", {"X": [self._num_name]}, {"Out": [maxc]},
+           {"value": float(self._max_window)})
+        eq = tmp("ma.eq")
+        ap("equal", {"X": [self._num_name], "Y": [maxc]}, {"Out": [eq]},
+           {})
+        maskf = tmp("ma.maskf")
+        ap("cast", {"X": [eq]}, {"Out": [maskf]},
+           {"in_dtype": "bool", "out_dtype": "float32"})
+        inv = tmp("ma.inv")
+        ap("scale", {"X": [maskf]}, {"Out": [inv]},
+           {"scale": -1.0, "bias": 1.0})
+        # num <- num*(1-mask) + mask  (restart counts the current step)
+        maski = tmp("ma.maski")
+        ap("cast", {"X": [eq]}, {"Out": [maski]},
+           {"in_dtype": "bool", "out_dtype": "int64"})
+        invi = tmp("ma.invi")
+        ap("scale", {"X": [maski]}, {"Out": [invi]},
+           {"scale": -1, "bias": 1})
+        kept = tmp("ma.kept")
+        ap("elementwise_mul", {"X": [self._num_name], "Y": [invi]},
+           {"Out": [kept]}, {"axis": -1})
+        ap("sum", {"X": [kept, maski]}, {"Out": [self._num_name]}, {})
+        for p in _trainable_params(program):
+            sum_name = unique_name.generate(f"{p.name}.avg_sum")
+            blk.create_var(sum_name, persistable=True,
+                           stop_gradient=True)
+            sblk = startup.global_block()
+            sblk.create_var(sum_name, persistable=True,
+                            stop_gradient=True)
+            sblk.append_op("scale", {"X": [p.name]}, {"Out": [sum_name]},
+                           {"scale": 0.0})
+            acc = tmp(f"{p.name}.avg_acc")
+            ap("sum", {"X": [sum_name, p.name]}, {"Out": [acc]}, {})
+            # sum <- acc*(1-mask) + p*mask  (window restart)
+            keep = tmp(f"{p.name}.avg_keep")
+            ap("elementwise_mul", {"X": [acc], "Y": [inv]},
+               {"Out": [keep]}, {"axis": -1})
+            fresh = tmp(f"{p.name}.avg_fresh")
+            ap("elementwise_mul", {"X": [p.name], "Y": [maskf]},
+               {"Out": [fresh]}, {"axis": -1})
+            ap("sum", {"X": [keep, fresh]}, {"Out": [sum_name]}, {})
+            self._pairs.append((p.name, sum_name))
+        return self
+
+    def _swap_value(self, scope, param_name, aux_name):
+        # sum / max(n, 1) as the reference's numpy divides a float32
+        # array by a float: one float32 division, here on the device
+        total = scope.find_var(aux_name)
+        n = scope.find_var(self._num_name).reshape(-1)[:1]
+        return total / torch.clamp(n.to(total.dtype), min=1.0)
+
+
+class LookaheadOptimizer:
+    """Lookahead slow/fast weights (``optimizer.py:1030``, fluid
+    ``optimizer.py:4828``): every k steps slow += alpha * (fast - slow);
+    fast <- slow. Branch-free IR (the k-step condition rides the shared
+    every-k gate, no cond). Slow weights exist only for the params the
+    inner optimizer actually updates (parameter_list respected)."""
+
+    def __init__(self, inner_optimizer, alpha: float = 0.5, k: int = 5):
+        self.inner_optimizer = inner_optimizer
+        self.alpha = float(alpha)
+        self.k = int(k)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        result = self.inner_optimizer.minimize(
+            loss, startup_program, parameter_list, no_grad_set)
+        _, params_grads = result
+        program = loss.block.program
+        startup = startup_program or getattr(program, "_startup_ref",
+                                             None) or \
+            default_startup_program()
+        from .distributed.fleet.fleet_base import _emit_every_k_gate
+        from .framework.program import program_guard
+        with program_guard(program, startup):
+            blk = program.global_block()
+            step = _int_counter(program, startup, "lookahead.step")
+            gate_b = _emit_every_k_gate(blk, step, self.k, "optimize")
+            mask = unique_name.generate("lookahead.mask")
+            blk.create_var(mask, stop_gradient=True)
+            blk.append_op("cast", {"X": [gate_b]}, {"Out": [mask]},
+                          {"in_dtype": "bool", "out_dtype": "float32",
+                           "op_role": "optimize"})
+            for p, _g in params_grads:
+                slow = unique_name.generate(f"{p.name}.slow")
+                blk.create_var(slow, persistable=True,
+                               stop_gradient=True)
+                _append_shadow_init(startup, p.name, slow)
+
+                def tmp(base):
+                    name = unique_name.generate(base)
+                    blk.create_var(name, stop_gradient=True)
+                    return name
+                diff = tmp(f"{p.name}.la_diff")
+                blk.append_op("elementwise_sub",
+                              {"X": [p.name], "Y": [slow]},
+                              {"Out": [diff]}, {"op_role": "optimize"})
+                stepv = tmp(f"{p.name}.la_step")
+                blk.append_op("scale", {"X": [diff]}, {"Out": [stepv]},
+                              {"scale": self.alpha,
+                               "op_role": "optimize"})
+                masked = tmp(f"{p.name}.la_masked")
+                blk.append_op("elementwise_mul",
+                              {"X": [stepv], "Y": [mask]},
+                              {"Out": [masked]},
+                              {"axis": -1, "op_role": "optimize"})
+                blk.append_op("sum", {"X": [slow, masked]},
+                              {"Out": [slow]}, {"op_role": "optimize"})
+                # fast <- mask*slow + (1-mask)*fast
+                ps = tmp(f"{p.name}.la_ps")
+                blk.append_op("elementwise_sub",
+                              {"X": [slow], "Y": [p.name]},
+                              {"Out": [ps]}, {"op_role": "optimize"})
+                psm = tmp(f"{p.name}.la_psm")
+                blk.append_op("elementwise_mul",
+                              {"X": [ps], "Y": [mask]},
+                              {"Out": [psm]},
+                              {"axis": -1, "op_role": "optimize"})
+                blk.append_op("sum", {"X": [p.name, psm]},
+                              {"Out": [p.name]},
+                              {"op_role": "optimize"})
+        return result
+
+
+EMA = ExponentialMovingAverage
+Lookahead = LookaheadOptimizer

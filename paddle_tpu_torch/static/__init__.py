@@ -3,20 +3,21 @@
 ``program_guard``, ``data``, ``Executor``, ``Scope``, ``global_scope``,
 ``append_backward``, ``gradients``, the default programs,
 ``device_guard``, ``nn`` (= :mod:`paddle_tpu_torch.layers`),
-``quantization`` (= :mod:`paddle_tpu_torch.slim.quantization`) and
+``quantization`` (= :mod:`paddle_tpu_torch.slim.quantization`),
 ``framework_io``'s ``save_inference_model`` / ``load_inference_model``
-and ``save_persistables`` / ``load_persistables``.
+and ``save_persistables`` / ``load_persistables``, and the compiler's
+``BuildStrategy``, ``CompiledProgram`` and ``ExecutionStrategy``.
 
-Waiting: the compiler (``BuildStrategy``, ``CompiledProgram``,
-``ExecutionStrategy``) and ``InputSpec`` with ``jit.save`` for ROADMAP
-A7.3. 2.0 ``static.data`` takes the FULL shape including the batch dim
-(None/-1 leading), unlike fluid ``layers.data`` which prepends it.
+Waiting: ``InputSpec`` with ``jit.save`` for ROADMAP A7.3. 2.0
+``static.data`` takes the FULL shape including the batch dim (None/-1
+leading), unlike fluid ``layers.data`` which prepends it.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+from ..compiler import BuildStrategy, CompiledProgram, ExecutionStrategy
 from ..framework import (Executor, Program, Scope, append_backward,
                          default_main_program, default_startup_program,
                          device_guard, gradients, program_guard)
@@ -39,7 +40,7 @@ def data(name: str, shape: Sequence[Optional[int]],
 
 
 __all__ = [
-    "Executor", "Program", "Scope", "append_backward", "data",
+    "BuildStrategy", "CompiledProgram", "ExecutionStrategy", "Executor", "Program", "Scope", "append_backward", "data",
     "default_main_program", "default_startup_program", "device_guard",
     "global_scope", "gradients", "load_inference_model",
     "load_persistables", "nn", "program_guard", "quantization",

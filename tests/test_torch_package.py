@@ -108,7 +108,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "ops/quant_ops.py", "layers/detection.py",
                    "framework/ir.py", "slim/__init__.py",
                    "slim/quantization.py", "ops/cuda/nms.py",
-                   "models/detection.py"):
+                   "models/detection.py", "amp/static_amp.py",
+                   "compiler.py", "distributed/__init__.py",
+                   "distributed/env.py", "distributed/parallel.py",
+                   "distributed/fleet/__init__.py",
+                   "distributed/fleet/fleet_base.py",
+                   "distributed/fleet/pipeline.py",
+                   "distributed/fleet/distributed_strategy.py",
+                   "distributed/fleet/role_maker.py",
+                   "distributed/fleet/metrics.py",
+                   "distributed/fleet/utils/__init__.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -409,6 +418,26 @@ def test_shared_public_names_keep_the_reference_signatures():
         "framework.ir.PassManager", "framework.ir.apply_pass",
         "slim.quantization.quant_aware", "slim.quantization.convert",
         "slim.quantization.PostTrainingQuantization.collect")} <= checked
+    # and the static rewrites, the fleet at one rank and the compiler
+    assert {f"paddle_tpu_torch.{q}" for q in (
+        "amp.static_amp.rewrite_program", "amp.static_amp.decorate",
+        "amp.lists.AutoMixedPrecisionLists",
+        "optimizer.RecomputeOptimizer.backward",
+        "optimizer.PipelineOptimizer.runner",
+        "optimizer.ExponentialMovingAverage",
+        "optimizer.ExponentialMovingAverage.update",
+        "optimizer.ModelAverage", "optimizer.LookaheadOptimizer.minimize",
+        "distributed.parallel.init_parallel_env",
+        "distributed.env.build_mesh",
+        "distributed.fleet.fleet_base.Fleet.init",
+        "distributed.fleet.fleet_base.Fleet.distributed_optimizer",
+        "distributed.fleet.pipeline.split_pipeline_program",
+        "distributed.fleet.pipeline.PipelineRunner",
+        "distributed.fleet.pipeline.PipelineRunner.run",
+        "distributed.fleet.metrics.auc",
+        "distributed.fleet.utils.recompute",
+        "compiler.CompiledProgram.with_data_parallel",
+        "compiler.BuildStrategy")} <= checked
 
 
 def test_port_tools_keep_the_reference_tools_signatures():

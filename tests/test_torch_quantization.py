@@ -257,18 +257,22 @@ def test_custom_pass_registration_and_manager():
 
 def test_build_strategy_passes_through_the_pass_manager():
     """The reference applies BuildStrategy's fusion through
-    CompiledProgram (ROADMAP A7.3 in the port: it raises naming that
-    item); the same pipeline through ``PassManager`` gives its program
-    and output, and FLAGS_check_ir_passes' verifier waits with A7.3."""
+    CompiledProgram; in the port too (``compiler.py``), and the same
+    pipeline through ``PassManager`` gives its program and output;
+    FLAGS_check_ir_passes' verifier waits with A7.3."""
+    from paddle_tpu_torch.compiler import BuildStrategy, CompiledProgram
     feed = {"x": np.random.RandomState(6).randn(8, 8).astype(np.float32)}
     main, startup, out = _mlp(PKGS["port"])
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        Executor("cpu").run(types.SimpleNamespace(_compile_for_executor=None))
     ref = _run_prog(PKGS["port"], main, startup, out.name, feed)
     fused = tir.PassManager(["fuse_elewise_add_act_pass"]).apply(main)
     assert "fused_elemwise_activation" in [
         op.type for op in fused.global_block().ops]
     _close(_run_prog(PKGS["port"], fused, startup, out.name, feed), ref)
+    bs = BuildStrategy()
+    bs.fuse_elewise_add_act_ops = True
+    compiled = CompiledProgram(main, build_strategy=bs)
+    _close(_run_prog(PKGS["port"], compiled, startup, out.name, feed), ref)
+    assert compiled._program.to_json() == fused.to_json()
     tflags.set_flags({"check_ir_passes": True})
     with pytest.raises(NotImplementedError, match="A7.3"):
         tir.apply_pass(main, "fuse_elewise_add_act_pass")

@@ -47,6 +47,8 @@ from paddle_tpu.ops import registry as jreg
 from paddle_tpu.resilience.injector import fault_scope as jfault_scope
 
 from paddle_tpu_torch import flags as tflags
+from paddle_tpu_torch import layers as TLayers
+from paddle_tpu_torch import optimizer as TOpt
 from paddle_tpu_torch import prng
 from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.framework import (Executor, NanInfError, Program,
@@ -1056,8 +1058,19 @@ def test_waiting_parts_raise_naming_their_items():
     exe = Executor("cpu")
     with pytest.raises(NotImplementedError, match="A7.4"):
         exe.train_from_dataset(Program(), dataset=object())
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        exe.run(types.SimpleNamespace(_compile_for_executor=None))
+    # a CompiledProgram runs (tests/test_torch_compiler.py); over more
+    # than one rank it waits for A5
+    from paddle_tpu_torch.compiler import CompiledProgram
+    from paddle_tpu_torch.distributed import env as tenv
+    saved = tenv.current_mesh()
+    tenv.set_mesh(types.SimpleNamespace(axis_names=("dp",),
+                                        shape={"dp": 2}, size=2))
+    try:
+        with pytest.raises(NotImplementedError, match="A5"):
+            exe.run(CompiledProgram(_log_prog(Program)),
+                    feed={"x": np.ones(2, np.float32)}, scope=Scope())
+    finally:
+        tenv.set_mesh(saved)
     with pytest.raises(NotImplementedError, match="A7.3"):
         Program().verify()
     tflags.set_flags({"check_program": True})
@@ -1111,3 +1124,108 @@ def test_each_new_key_is_one_executor_step_compile_like_the_reference():
               scope=scope)
         runs[name] = count(ct) - before
     assert runs["port"] == runs["jax"] == 3
+
+
+# ------------------------------------------------------------- liveness
+class _LiveBytes(dict):
+    """A run's env that keeps the peak bytes of the tensors it holds
+    (state and feeds included)."""
+
+    def __init__(self, *a):
+        super().__init__(*a)
+        self.peak = self.now = sum(v.numel() * v.element_size()
+                                   for v in self.values())
+
+    def __setitem__(self, k, v):
+        old = self.get(k)
+        if old is not None:
+            self.now -= old.numel() * old.element_size()
+        self.now += v.numel() * v.element_size()
+        self.peak = max(self.peak, self.now)
+        super().__setitem__(k, v)
+
+    def pop(self, k, *default):
+        v = super().pop(k, *default)
+        if isinstance(v, torch.Tensor):
+            self.now -= v.numel() * v.element_size()
+        return v
+
+
+def _entry_run(prog, startup, feed, fetch):
+    """Run one step through the executor's entry with a ``_LiveBytes``
+    env; returns (entry, env, fetches)."""
+    scope, exe = Scope(), Executor("cpu")
+    exe.run(startup, scope=scope)
+    feed = {k: torch.from_numpy(v) for k, v in feed.items()}
+    entry = exe._build(prog, feed, fetch, scope)
+    env = _LiveBytes({**exe._state(entry, scope), **feed})
+    with torch.no_grad():
+        entry.runner.run_block(0, env, prng.PRNGKey(0))
+    return entry, env, [env[n] for n in fetch]
+
+
+def _never_read_after_drop(prog, drops):
+    ops = prog.global_block().ops
+    assert drops
+    for i, names in drops.items():
+        for j in range(i + 1, len(ops)):
+            late = texec._op_touches(prog, ops[j]) & set(names)
+            assert not late, (i, ops[j].type, late)
+
+
+def test_liveness_drops_values_after_their_last_reader():
+    """The executor drops each block-0 value after the last op that
+    reads or writes it: no later op names a dropped value, state and
+    fetches stay, and the recompute backward's live bytes peak below
+    the plain backward's (only its checkpoints outlive the forward).
+    A value read only inside a ``cond``'s branch, or only by a host op
+    that splits a captured key, lives until that op."""
+    x = np.random.RandomState(0).randn(2, 64, 64).astype(np.float32)
+    peaks, fetched = {}, {}
+    for ck in (False, True):
+        def minimize(loss, rate, checkpoints, ck=ck):
+            opt = TOpt.RecomputeOptimizer(TOpt.SGD(0.1)) if ck \
+                else TOpt.SGD(0.1)
+            if ck:
+                opt._set_checkpoints(checkpoints)
+            opt.minimize(loss)
+        main, startup, loss = build_encoder_program(
+            num_layers=3, d_model=64, num_heads=2, d_ffn=128, seq=64,
+            minimize=minimize)
+        grads = [p.name + "@GRAD" for p in main.all_parameters()]
+        entry, env, out = _entry_run(main, startup, {"x": x},
+                                     [loss.name] + grads)
+        drops = entry.runner.drops
+        _never_read_after_drop(main, drops)
+        dropped = {n for ns in drops.values() for n in ns}
+        assert not dropped & (set(entry.written) | set(entry.state_in)
+                              | {loss.name} | set(grads))
+        assert not dropped & set(env)
+        peaks[ck], fetched[ck] = env.peak, out
+    assert peaks[True] < 0.8 * peaks[False], peaks
+    for a, b in zip(fetched[True], fetched[False]):
+        assert torch.equal(a, b)
+
+    prog, start = Program(), Program()
+    with program_guard(prog, start), unique_name.guard():
+        xv = TLayers.data("x", [3])
+        p = TLayers.data("p", [1], dtype="bool", append_batch_size=False)
+        inner = TLayers.scale(xv, scale=3.0)       # read in a branch only
+        host_in = TLayers.scale(xv, scale=5.0)     # read by the host op only
+        out = TLayers.cond(p, lambda: TLayers.scale(inner, scale=2.0),
+                          lambda: TLayers.scale(inner, scale=-1.0))
+        pyout = prog.global_block().create_var("pyout", shape=[-1, 3])
+        pyout.dtype = "float32"
+        TLayers.py_func(lambda a: a + 1.0, host_in, pyout)
+        final = TLayers.elementwise_add(out, pyout)
+    types_ = [op.type for op in prog.global_block().ops]
+    feed = {"x": np.ones((1, 3), np.float32), "p": np.array([True])}
+    entry, env, (got,) = _entry_run(prog, start, feed, [final.name])
+    drops = entry.runner.drops
+    _never_read_after_drop(prog, drops)
+    at = {n: i for i, ns in drops.items() for n in ns}
+    assert at[inner.name] == types_.index("cond")
+    assert types_[at[host_in.name]].startswith("py_func_")
+    assert host_in.name in {n for ns in texec.plan_drops(
+        prog, set()).values() for n in ns}
+    np.testing.assert_allclose(got.numpy(), [[12.0, 12.0, 12.0]])
