@@ -897,23 +897,35 @@ def device_trace(torch, run):
 SLEEP_CYCLES = 100_000_000
 
 
-def event_ms(torch, run):
+def event_ms(torch, run, tries=4):
     """Device ms of ``run()`` between two CUDA events on the current
     stream. A sleep kernel holds the stream while the host enqueues the
     start event, ``run()``'s work and the end event, so the events time
-    that work back to back on the device, not the host's pace."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
-    run()
-    end.record()
-    if end.query():
-        raise AssertionError("the sleep ended before the host enqueued the "
-                             "work: the events would time the host")
-    end.synchronize()
-    return start.elapsed_time(end)
+    that work back to back on the device, not the host's pace. The start
+    event must still be pending once the end event is enqueued; where
+    the sleep ended first, ``run()`` goes again behind a sleep twice as
+    long, at most ``tries`` times. A host that blocks on a full launch
+    queue (graphs of IF nodes, a few replays deep) waits for the device
+    whatever the sleep: time fewer launches per call."""
+    cycles = SLEEP_CYCLES
+    for attempt in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        run()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end)
+        if attempt + 1 < tries:
+            log(f"  event_ms: the sleep of {cycles} cycles ended before the "
+                f"host enqueued the work; again behind {2 * cycles}")
+        cycles *= 2
+    raise AssertionError("the sleep ended before the host enqueued the "
+                         "work: the events would time the host")
 
 
 def time_kernel(torch, pa, ctr, card):
@@ -7992,12 +8004,16 @@ def op_sweep(torch, ctr):
     return n, worst
 
 
+#: CUDA-event windows of 4 replays that time cond_set's graphs
+COND_WINDOWS = 12
+
+
 def cond_set_kernel(torch, cg, card):
     """The IF node's condition kernel held against its plain version
     (the host's reading of the predicate) and timed: a graph of 64 IF
     nodes, each around one small add, against the same adds without IF
-    nodes (CUDA events over 50 replays each), per node; the host read
-    per selection."""
+    nodes (CUDA events over COND_WINDOWS windows of 4 replays each), per
+    node; the host read per selection."""
     from paddle_tpu_torch import jit
     dev = torch.device("cuda")
     pred = torch.zeros((), dtype=torch.bool, device=dev)
@@ -8032,8 +8048,12 @@ def cond_set_kernel(torch, cg, card):
     g_if, _, _ = jit.capture(dev, ifs, [], pool)
     g_add, _, _ = jit.capture(dev, adds, [], pool)
     pred.fill_(True)
-    t_if = event_ms(torch, lambda: [g_if.replay() for _ in range(50)]) / 50
-    t_add = event_ms(torch, lambda: [g_add.replay() for _ in range(50)]) / 50
+    # on the H100 the host blocks on the launch queue once ~5 replays of
+    # g_if are in flight, so each timed window holds 4
+    t_if = sum(event_ms(torch, lambda: [g_if.replay() for _ in range(4)])
+               for _ in range(COND_WINDOWS)) / (4 * COND_WINDOWS)
+    t_add = sum(event_ms(torch, lambda: [g_add.replay() for _ in range(4)])
+                for _ in range(COND_WINDOWS)) / (4 * COND_WINDOWS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(200):
@@ -8345,7 +8365,7 @@ def control_flow_phase(torch, ctr, card, sen):
     log(f"  torch {torch.__version__}: begin_capture_to_if_node "
         f"{'present' if api else 'absent'}; the IF nodes are made through "
         f"the CUDA runtime (csrc/cond_graph.cu) either way")
-    with ctr.aside():
+    with ctr.aside(), RECORDER.paused():
         counts, worst = op_sweep(torch, ctr)
     log(f"  (a) {counts['eager']} cases on the card against the CPU "
         f"eagerly, {counts['captured']} of them captured and replayed, "
@@ -9097,7 +9117,7 @@ def detection_phase(torch, ctr, card):
     out, secs = {}, {}
     try:
         t0 = time.perf_counter()
-        with ctr.aside():
+        with ctr.aside(), RECORDER.paused():
             counts, worst = tail_sweep(torch)
         secs["a"] = time.perf_counter() - t0
         log(f"  (a) {counts['cases']} cases on the card against the CPU "
@@ -9680,6 +9700,534 @@ def strategy_phase(torch, ctr, ln, card):
     return out
 
 
+# ------------------------------------------------------------ phase 28
+#: (a): the encoder Predictor's runs, their batch sizes (two keys: each
+#: captured at its second run), and each run's launches (a forward only:
+#: 6 attention ops and 12 LayerNorm ops, no grad re-run)
+PRED_BATCHES = (8, 8, 8, 4, 4, 8)
+PRED_PER_RUN = {"flash_fwd": 6, "ln_fwd": 12}
+#: the two predictors (ir_optim off and on) and the direct run of the
+#: unsaved program within PRED_FRO relative Frobenius distance of each
+#: other (the same ops, the optimized program's add + relu fused); a
+#: predictor on the CPU within PRED_CPU_FRO (other kernels, other orders
+#: of summation); (b)'s ResNet predictors as tests/test_inference_misc.py
+#: holds them (rtol 1e-4, atol 1e-5)
+PRED_FRO, PRED_CPU_FRO = 1e-6, 1e-4
+PRED_RESNET_TOL = (1e-4, 1e-5)
+#: (e): the predictor runs the profiler traces, and the kernels its chrome
+#: trace must name (B1's f32 forward, B5's forward)
+PROF_RUNS = 3
+PROF_KERNELS = ("flash_fwd_kernel", "ln_fwd_kernel")
+
+
+def rel_fro(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape or not np.isfinite(a).all():
+        return float("inf")
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+class ProgramRecorder:
+    """Phase 28 (d)'s probe over phases 22-27: for every Program the card's
+    executor runs, at its first run, the feeds' shapes and dtypes, the
+    fetch names, the shapes of the scope's variables after the run, and
+    the shape of every value an op wrote on the card
+    (``executor.observe_values``). Runs that raise are not kept; the op
+    sweeps' own runs are left out (:meth:`paused`)."""
+
+    #: the device whose runs are recorded
+    device_type = "cuda"
+
+    def __init__(self):
+        self.records = []
+        self._seen = set()
+        self._current = None
+        self._paused = 0
+
+    @contextlib.contextmanager
+    def paused(self):
+        self._paused += 1
+        try:
+            yield
+        finally:
+            self._paused -= 1
+
+    @contextlib.contextmanager
+    def recording(self):
+        import torch
+        from paddle_tpu_torch.framework import executor as ex
+        from paddle_tpu_torch.framework.scope import global_scope
+        orig, rec = ex.Executor._run, self
+
+        def name_of(dt):
+            return getattr(dt, "name", None) or str(dt).replace("torch.", "")
+
+        def _run(exe, program, feed, fetch_list, scope, return_numpy):
+            if (exe.device.type != rec.device_type or rec._paused
+                    or rec._current is not None
+                    or id(program) in rec._seen):
+                return orig(exe, program, feed, fetch_list, scope,
+                            return_numpy)
+            cur = {"program": program, "values": {},
+                   "feeds": {k: (tuple(np.shape(v)),
+                                 name_of(getattr(v, "dtype", None)
+                                         or np.asarray(v).dtype))
+                             for k, v in (feed or {}).items()},
+                   "fetches": [getattr(f, "name", f) for f in
+                               (fetch_list or [])]}
+            rec._current = cur
+            try:
+                out = orig(exe, program, feed, fetch_list, scope,
+                           return_numpy)
+            finally:
+                rec._current = None
+            sc = scope or global_scope()
+            cur["scope"] = {n: (tuple(t.shape), name_of(t.dtype))
+                            for n in sc.var_names()
+                            for t in [sc.find_var(n)]
+                            if isinstance(t, torch.Tensor)}
+            rec._seen.add(id(program))
+            rec.records.append(cur)
+            return out
+
+        def observe(program, block_idx, name, value):
+            cur = rec._current
+            if (cur is not None and program is cur["program"]
+                    and isinstance(value, torch.Tensor)
+                    and value.device.type == rec.device_type):
+                cur["values"].setdefault((block_idx, name),
+                                         tuple(value.shape))
+
+        ex.Executor._run = _run
+        try:
+            with ex.observe_values(observe):
+                yield self
+        finally:
+            ex.Executor._run = orig
+
+
+#: phases 22-27's programs, recorded as the card runs them
+RECORDER = ProgramRecorder()
+
+
+def encoder_predictor_model(torch, d):
+    """Phase 23's encoder at full width from a seeded startup on the card,
+    saved for inference (its last LayerNorm output) into ``d``; the
+    unsaved program pruned to that output, the startup scope, and the
+    output's name."""
+    from paddle_tpu_torch import framework_io
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models.static_encoder import build_encoder_program
+    main, startup, loss = build_encoder_program(
+        SE_LAYERS, SE_D, SE_HEADS, SE_FFN, SE_SEQ, lr=SE_LR)
+    # the loss is reduce_mean(square(x)): x is the last LayerNorm's Y
+    ops = main.global_block().ops
+    (mean_in,) = next(op for op in ops if loss.name in op.output_names()
+                      ).input_names()
+    (out,) = next(op for op in ops if mean_in in op.output_names()
+                  ).input_names()
+    scope, exe = Scope(), Executor()
+    exe.run(startup, scope=scope)
+    framework_io.save_inference_model(d, ["x"], [out], exe, main,
+                                      scope=scope)
+    return main._prune([out]), scope, out
+
+
+def predictor_runs(torch, ctr, pred, xs):
+    """``pred`` over the batches ``xs``: its outputs, the launches of each
+    run, and the ``ExecutorCompilePredictor``'s prediction beside the
+    executor's captures and the compile tracker's ``executor_step``
+    events."""
+    from paddle_tpu_torch.analysis import ExecutorCompilePredictor
+    from paddle_tpu_torch.observability import compile_tracker as ct
+
+    def steps():
+        return ct.compiles().get("executor_step", {}).get("count", 0)
+
+    cp = ExecutorCompilePredictor()
+    outs, per_run, predicted = [], [], 0
+    steps0, caps0 = steps(), pred.executor.captures
+    for x in xs:
+        predicted += cp.would_compile(pred.program, {"x": x},
+                                      pred.get_output_names(), pred.scope)
+        before = ctr.read()
+        (o,) = pred.run([x])
+        after = ctr.read()
+        per_run.append({k: v - before.get(k, 0) for k, v in after.items()
+                        if v != before.get(k, 0)})
+        outs.append(o)
+    return outs, per_run, {"predicted": predicted,
+                           "captures": pred.executor.captures - caps0,
+                           "executor_step": steps() - steps0}
+
+
+def graph_kernels_of(exe, program):
+    """The kernel nodes of ``program``'s captured graph on ``exe`` (the
+    first key that captured)."""
+    entry = next(e for e in exe._cache.values()
+                 if e._refs[0] is program and e.graph is not None)
+    return entry.graph.kernels()
+
+
+def predictor_encoder(torch, ctr, card, d):
+    """(a): two predictors from the saved encoder (ir_optim off and on)
+    under FLAGS_check_program and FLAGS_check_shapes, against the direct
+    run and a CPU predictor; launches, captures, peak memory."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.framework import Executor
+    from paddle_tpu_torch.inference import Config, create_predictor
+    unsaved, start, out_name = encoder_predictor_model(torch, d)
+    rng = np.random.RandomState(28)
+    xs = {b: rng.randn(b, SE_SEQ, SE_D).astype(np.float32)
+          for b in sorted(set(PRED_BATCHES))}
+    batches = [xs[b] for b in PRED_BATCHES]
+    with ctr.aside():
+        (direct,) = Executor().run(unsaved, feed={"x": xs[8]},
+                                   fetch_list=[out_name], scope=start)
+    del start
+    saved = flags.get_flags(["check_program", "check_shapes"])
+    flags.set_flags({"check_program": True, "check_shapes": True})
+    res, preds = {}, {}
+    try:
+        for key, optim in (("plain", False), ("ir_optim", True)):
+            cfg = Config(d)
+            cfg.switch_ir_optim(optim)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            pred = create_predictor(cfg)
+            outs, per_run, caps = predictor_runs(torch, ctr, pred, batches)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            for i, r in enumerate(per_run):
+                ctr.expect(r, PRED_PER_RUN, f"phase 28 (a) {key} run {i}")
+            if not caps["predicted"] == caps["captures"] == \
+                    caps["executor_step"] == 2:
+                raise AssertionError(f"phase 28 (a) {key}: captures {caps}, "
+                                     "expected 2 predicted and observed")
+            types_ = [op.type for op in pred.program.global_block().ops]
+            res[key] = {"outputs": outs, "captures": caps,
+                        "launches_per_run": per_run[0],
+                        "peak_bytes": int(peak), "seconds": secs,
+                        "op_types": types_,
+                        "graph_kernels": graph_kernels_of(pred.executor,
+                                                          pred.program)}
+            preds[key] = pred
+    finally:
+        flags.set_flags(saved)
+    fused = res["ir_optim"]["op_types"].count("fused_elemwise_activation")
+    if fused != SE_LAYERS or "relu" in res["ir_optim"]["op_types"]:
+        raise AssertionError(f"phase 28 (a): {fused} fused_elemwise_"
+                             f"activation ops in the optimized program, "
+                             f"expected {SE_LAYERS} (one per FFN)")
+    errs = {}
+    for i, b in enumerate(PRED_BATCHES):
+        errs[f"run{i}"] = rel_fro(res["ir_optim"]["outputs"][i],
+                                  res["plain"]["outputs"][i])
+    errs["plain_vs_direct"] = rel_fro(res["plain"]["outputs"][0], direct)
+    errs["ir_optim_vs_direct"] = rel_fro(res["ir_optim"]["outputs"][0],
+                                         direct)
+    bad = {k: v for k, v in errs.items() if not v <= PRED_FRO}
+    if bad:
+        raise AssertionError(f"phase 28 (a): relative Frobenius distances "
+                             f"{bad} above {PRED_FRO}")
+    cpu = create_predictor(Config(d), place="cpu")
+    with ctr.aside():
+        (cpu_out,) = cpu.run([xs[8]])
+    errs["card_vs_cpu"] = rel_fro(res["ir_optim"]["outputs"][0], cpu_out)
+    if not errs["card_vs_cpu"] <= PRED_CPU_FRO:
+        raise AssertionError(f"phase 28 (a): card vs CPU predictor "
+                             f"{errs['card_vs_cpu']:.3e} > {PRED_CPU_FRO}")
+    del cpu
+    log(f"  (a) [{card}] predictors over batches {list(PRED_BATCHES)}: "
+        f"launches per run {res['plain']['launches_per_run']}, captures "
+        f"{res['plain']['captures']} (plain) {res['ir_optim']['captures']} "
+        f"(ir_optim), {fused} fused_elemwise_activation; peak memory "
+        f"{res['plain']['peak_bytes']} B plain, "
+        f"{res['ir_optim']['peak_bytes']} B ir_optim (max_memory_allocated "
+        f"above the start); relative Frobenius {errs}; seconds plain "
+        f"{res['plain']['seconds']:.2f}, ir_optim "
+        f"{res['ir_optim']['seconds']:.2f}; graph kernels "
+        f"{res['plain']['graph_kernels']} / "
+        f"{res['ir_optim']['graph_kernels']}")
+    x8 = xs[8]
+    for r in res.values():
+        r["first_output"] = r["outputs"][0]
+        del r["outputs"]
+        r["ops"] = len(r.pop("op_types"))
+    res["ir_optim"]["fused_elemwise_activation"] = fused
+    return res, preds, errs, x8
+
+
+def predictor_resnet(torch, ctr, card, d):
+    """(b): the Book's image_classification ResNet (depth 32, batch 128)
+    trained one step on the card as phase 24 runs it, saved, and loaded
+    by two predictors (ir_optim off and on)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import framework_io
+    from paddle_tpu_torch.framework import Scope
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.models import book
+    fluid = paddle_tpu_torch.fluid
+    b = book.image_classification(seed=28, **BOOK_SIZES[
+        "image_classification"])
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    scope = Scope()
+    exe.run(b.startup, scope=scope)
+    (feed,) = book.batches(b, 1)
+    exe.run(b.main, feed=feed, fetch_list=[v.name for v in b.fetches],
+            scope=scope)
+    framework_io.save_inference_model(d, b.infer_feeds, b.infer_targets,
+                                      exe._exe, b.main, scope=scope)
+    del scope
+    outs, types_ = {}, {}
+    for key, optim in (("plain", False), ("ir_optim", True)):
+        cfg = Config(d)
+        cfg.switch_ir_optim(optim)
+        pred = create_predictor(cfg)
+        ins = [feed[n] for n in pred.get_input_names()]
+        outs[key] = [pred.run(ins)[0] for _ in range(3)][-1]
+        types_[key] = [op.type for op in pred.program.global_block().ops]
+    # fuse_bn_act_pass folds each batch_norm a relu follows, as the
+    # reference's does; a block's second batch_norm (an add follows) and a
+    # shortcut's stay batch_norm in both packages
+    fused = types_["ir_optim"].count("fused_scale_bias_relu")
+    bn = [types_[k].count("batch_norm") for k in ("plain", "ir_optim")]
+    if not fused or bn[1] != bn[0] - fused:
+        raise AssertionError(f"phase 28 (b): batch_norm {bn[0]} -> {bn[1]}, "
+                             f"{fused} fused_scale_bias_relu")
+    rtol, atol = PRED_RESNET_TOL
+    diff = np.abs(outs["ir_optim"] - outs["plain"])
+    if not (np.isfinite(outs["ir_optim"]).all()
+            and (diff <= atol + rtol * np.abs(outs["plain"])).all()):
+        raise AssertionError(f"phase 28 (b): ir_optim vs plain max abs "
+                             f"{diff.max():.3e}")
+    res = {"max_abs": float(diff.max()), "fused_scale_bias_relu": fused,
+           "batch_norm": bn, "ops": {k: len(v) for k, v in types_.items()}}
+    log(f"  (b) [{card}] ResNet-32 predictors: {res}")
+    return res
+
+
+def predictor_delegation(torch, ctr, card, d, plain, x8):
+    """(c): SubgraphDelegatePass over the saved encoder with every op type
+    but fused_attention_qkv supported, by the inline engine and by a
+    counting engine registered under a new name (it runs the cluster
+    inline too): three runs at batch 8 (eager, capture, replay), each
+    output bit-equal to (a)'s, each run's launches (a)'s, the captured
+    graph's kernel nodes (a)'s. The counting engine is called once per
+    cluster at the eager run and once more at the capture; a replay
+    skips the host, so it adds no call."""
+    from paddle_tpu_torch import framework_io
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.framework import subgraph
+    from paddle_tpu_torch.framework.ir import IrGraph, new_pass
+    from paddle_tpu_torch.ops import delegate_ops
+    calls = []
+
+    def counting(sub_ops, env, ctx):
+        calls.append(len(sub_ops))
+        return delegate_ops._run_inline(sub_ops, env, ctx)
+
+    subgraph.register_delegate_engine("chip_smoke_counting", counting)
+    res = {}
+    for engine in ("inline", "chip_smoke_counting"):
+        exe, scope = Executor(), Scope()
+        prog, _, fetch = framework_io.load_inference_model(d, exe,
+                                                           scope=scope)
+        supported = {op.type for op in prog.global_block().ops} - {
+            "fused_attention_qkv"}
+        dprog = new_pass("subgraph_delegate_pass", is_supported=supported,
+                         min_subgraph_size=2, engine=engine).apply(
+            IrGraph(prog)).to_program()
+        types_ = [op.type for op in dprog.global_block().ops]
+        clusters = types_.count("subgraph_delegate")
+        if sorted(set(types_)) != ["fused_attention_qkv",
+                                   "subgraph_delegate"] or \
+                types_.count("fused_attention_qkv") != SE_LAYERS:
+            raise AssertionError(f"phase 28 (c) {engine}: op types "
+                                 f"{types_}")
+        calls.clear()
+        seen, want = [], []
+        for i in range(3):
+            # a replay runs no Python: the engine is not called
+            replay = any(e._refs[0] is dprog and e.graph is not None
+                         for e in exe._cache.values())
+            want.append((want[-1] if want else 0) + (0 if replay
+                                                     else clusters))
+            before = ctr.read()
+            (o,) = exe.run(dprog, feed={"x": x8}, fetch_list=fetch,
+                           scope=scope)
+            run = {k: v - before.get(k, 0) for k, v in ctr.read().items()
+                   if v != before.get(k, 0)}
+            ctr.expect(run, PRED_PER_RUN, f"phase 28 (c) {engine} run {i}")
+            if not np.array_equal(o, plain["first_output"]):
+                raise AssertionError(f"phase 28 (c) {engine} run {i}: not "
+                                     "bit-equal to (a)'s output")
+            seen.append(len(calls))
+        kernels = graph_kernels_of(exe, dprog)
+        if kernels != plain["graph_kernels"]:
+            raise AssertionError(f"phase 28 (c) {engine}: {kernels} kernel "
+                                 f"nodes, (a) {plain['graph_kernels']}")
+        if engine != "inline" and (seen != want or exe.captures != 1):
+            raise AssertionError(f"phase 28 (c): engine calls after each "
+                                 f"run {seen}, expected {want} ({clusters} "
+                                 f"clusters), {exe.captures} captures")
+        res[engine] = {"clusters": clusters, "graph_kernels": kernels,
+                       "engine_calls_after_each_run": seen}
+        del exe, scope
+    log(f"  (c) [{card}] delegated encoder: {res}; outputs bit-equal to "
+        f"(a), launches per run {PRED_PER_RUN}")
+    return res
+
+
+def verify_card_programs(torch, card):
+    """(d): every Program phases 22-27 ran on the card (RECORDER): the
+    verifier gives no ERROR, and every variable the interpreter gives a
+    concrete shape (the first run's feed shapes and the scope's) has the
+    shape of the card's tensor at that run; the card's allocated memory
+    does not move while the interpreter runs."""
+    from paddle_tpu_torch.analysis import interpret_program
+    from paddle_tpu_torch.framework import verify_program
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    errors, mismatched, stats = [], [], {"programs": 0, "ops": 0,
+                                          "compared": 0, "warnings": 0,
+                                          "unknown_ops": 0}
+    for rec in RECORDER.records:
+        prog = rec["program"]
+        v = verify_program(prog, feeds=set(rec["feeds"]) | set(rec["scope"]),
+                           fetches=rec["fetches"])
+        r = interpret_program(prog, feeds={**rec["scope"], **rec["feeds"]})
+        what = f"{prog!r} fed {sorted(rec['feeds'])[:4]}"
+        errors += [f"{what}: {d}" for d in v.errors + r.errors]
+        stats["programs"] += 1
+        stats["ops"] += sum(len(b.ops) for b in prog.blocks)
+        stats["warnings"] += len(v.warnings) + len(r.diagnostics) - len(
+            r.errors)
+        stats["unknown_ops"] += len(r.unknown_ops)
+        for key, av in r.var_shapes.items():
+            got = rec["values"].get(key)
+            if got is None or not av.concrete:
+                continue
+            stats["compared"] += 1
+            if tuple(av.shape) != got:
+                mismatched.append(f"{what} {key}: interpreted {av}, card "
+                                  f"{list(got)}")
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    moved = torch.cuda.memory_allocated() - mem0
+    stats.update(seconds=secs, memory_moved_bytes=int(moved))
+    log(f"  (d) [{card}] {stats['programs']} programs of phases 22-27 "
+        f"({stats['ops']} ops): {len(errors)} ERROR diagnostics, "
+        f"{stats['compared']} interpreted shapes against the card's tensors, "
+        f"{len(mismatched)} differ; {stats['warnings']} warnings, "
+        f"{stats['unknown_ops']} unknown ops; {secs:.2f} s, allocated "
+        f"memory moved {moved} B")
+    if errors or mismatched or moved:
+        raise AssertionError(
+            f"phase 28 (d): errors {errors[:5]}, shape mismatches "
+            f"{mismatched[:5]}, memory moved {moved} B")
+    if not stats["compared"]:
+        raise AssertionError("phase 28 (d): no shape compared")
+    return stats
+
+
+def predictor_profile(torch, card, pred, x8, d):
+    """(e): the profiler around PROF_RUNS runs of (a)'s optimized
+    predictor: its chrome trace holds each RecordEvent range and kernels
+    named by B1's and B5's forward kernels, and the summary prints
+    (presence only: the profiler drops records)."""
+    import io
+    from paddle_tpu_torch import profiler
+    names = []
+    for attempt in range(TRACE_ATTEMPTS):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            with profiler.profiler("All", profile_path=os.path.join(
+                    d, "host.json"), trace_dir=d):
+                for _ in range(PROF_RUNS):
+                    with profiler.RecordEvent("predictor_run"):
+                        pred.run([x8])
+        with open(os.path.join(d, profiler.DEVICE_TRACE_FILE)) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+        found = {k: any(k in n for n in names) for k in PROF_KERNELS}
+        if "predictor_run" in names and all(found.values()):
+            break
+        log(f"  (e) the trace lacks a range or a kernel ({found}); tracing "
+            "again")
+    else:
+        raise AssertionError("phase 28 (e): the profiler's trace lacks the "
+                             "RecordEvent range or B1's / B5's kernels")
+    with open(os.path.join(d, "host.json")) as f:
+        host = json.load(f)["traceEvents"]
+    if [e["name"] for e in host] != ["predictor_run"] * PROF_RUNS:
+        raise AssertionError(f"phase 28 (e): host events {host}")
+    summary = out.getvalue().splitlines()
+    if not any("predictor_run" in line for line in summary):
+        raise AssertionError("phase 28 (e): summarize printed no event")
+    log(f"  (e) [{card}] trace: {len(names)} events, predictor_run ranges "
+        f"{names.count('predictor_run')}, kernels present {found}; summary "
+        f"{len(summary)} lines, first: {summary[:2]}")
+    return {"trace_events": len(names),
+            "ranges": names.count("predictor_run"), "summary_lines":
+            len(summary), "attempts": attempt + 1}
+
+
+def inference_phase(torch, ctr, card):
+    """Phase 28: the inference front door and the analyses on the card,
+    (a)-(e)."""
+    from paddle_tpu_torch import flags
+    names = ("use_pallas_attention", "use_pallas_layer_norm")
+    saved = flags.get_flags(list(names) + ["pallas_min_seq"])
+    flags.set_flags({**{n: True for n in names}, "pallas_min_seq": SE_SEQ})
+    out, secs = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            enc = os.path.join(d, "encoder")
+            t0 = time.perf_counter()
+            ctr.zero()
+            out["a"], preds, errs, x8 = predictor_encoder(torch, ctr, card,
+                                                          enc)
+            launched = ctr.read()
+            want = {k: v * len(PRED_BATCHES) * 2
+                    for k, v in PRED_PER_RUN.items()}
+            ctr.expect(launched, want, "phase 28 (a) (both predictors)")
+            out["a"]["errors"] = errs
+            secs["a"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with ctr.aside():
+                out["b"] = predictor_resnet(torch, ctr, card,
+                                            os.path.join(d, "resnet"))
+            secs["b"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with ctr.aside():
+                out["c"] = predictor_delegation(torch, ctr, card, enc,
+                                                out["a"]["plain"], x8)
+            secs["c"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["d"] = verify_card_programs(torch, card)
+            secs["d"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with ctr.aside():
+                out["e"] = predictor_profile(torch, card, preds["ir_optim"],
+                                             x8, os.path.join(d, "trace"))
+            secs["e"] = time.perf_counter() - t0
+            del preds
+    finally:
+        flags.set_flags(saved)
+    for r in out["a"].values():
+        if isinstance(r, dict):
+            r.pop("first_output", None)
+    out["seconds"] = secs
+    out["launches"] = launched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9920,6 +10468,10 @@ def main():
         f"(26 slots, embed 16, 400 x 400 x 400, batch {WD_BATCH}, "
         f"host-paced PS tier with the pull prefetcher), card against CPU")
     t_wd = time.perf_counter()
+    # phases 22-27's programs are recorded as the card runs them: phase
+    # 28 (d) verifies and interprets each against the card's tensors
+    recording = RECORDER.recording()
+    recording.__enter__()
     wdp = widedeep(torch, ctr, card)
     log(f"  phase 22 took {time.perf_counter() - t_wd:.1f} s")
 
@@ -9974,7 +10526,23 @@ def main():
         f"Lookahead; (f) CompiledProgram with a BuildStrategy")
     t_st = time.perf_counter()
     stg = strategy_phase(torch, ctr, ln, card)
+    recording.__exit__(None, None, None)
     log(f"  phase 27 took {time.perf_counter() - t_st:.1f} s [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"== phase 28: the inference front door and the analyses: (a) phase "
+        f"23's encoder ({SE_LAYERS} layers, d {SE_D}, [{SE_BATCH}, "
+        f"{SE_SEQ}] tokens, f32) saved and served by create_predictor, "
+        f"ir_optim off and on, under FLAGS_check_program and "
+        f"FLAGS_check_shapes, batches {list(PRED_BATCHES)}; (b) the Book's "
+        f"ResNet-32 predictors; (c) SubgraphDelegatePass over (a)'s program; "
+        f"(d) the verifier and the abstract interpreter over phases 22-27's "
+        f"{len(RECORDER.records)} programs against the card's tensors; (e) "
+        f"the profiler around (a)'s predictor")
+    t_inf = time.perf_counter()
+    inf = inference_phase(torch, ctr, card)
+    log(f"  phase 28 took {time.perf_counter() - t_inf:.1f} s [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -10077,7 +10645,8 @@ def main():
             launches_static_amp=stg["launches"]["flash_static_amp"][name],
             launches_by_route_static_amp=stg["c"]["routes"][name],
             launches_recompute=stg["a"]["recompute"]["launches_per_step"][
-                name] * ST_STEPS))
+                name] * ST_STEPS,
+            launches_predictor=inf["launches"].get(name, 0)))
     for name, line in (("ln_fwd", 27), ("ln_bwd", 40)):
         t = ltimes[name]["ernie-base"]
         kernels.append(entry(
@@ -10089,7 +10658,8 @@ def main():
             launches_captured=ern["captured"]["launches"][name],
             launches_transformer=tfm["launches"][name],
             launches_static_encoder=sen["launches"][name],
-            launches_control_flow=cfl["launches"][name]))
+            launches_control_flow=cfl["launches"][name],
+            launches_predictor=inf["launches"].get(name, 0)))
     kernels.append(entry(
         "packed_flash_fwd", "flash_pack2.cu", "tools/flash_pack2_bench.py:48",
         packed["launches"], packed_err["packed_flash_fwd"], packed,
@@ -10159,7 +10729,8 @@ def main():
                       "book": summary(bk),
                       "control_flow": summary(cfl),
                       "detection": summary(dtp),
-                      "strategy": summary(stg)}), flush=True)
+                      "strategy": summary(stg),
+                      "inference": summary(inf)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,14 +16,14 @@ imports torch and numpy only; it never imports jax or ``paddle_tpu``,
 which stays the reference the port is tested against.
 """
 
-from . import dataset, flags
+from . import dataset, enforce, flags
 from .device import resolve_device
 from .flags import get_flag, get_flags, set_flags
 from .fluid_compat import CPUPlace, CUDAPlace, DataFeeder, batch, reader
 
 __all__ = ["CPUPlace", "CUDAPlace", "DataFeeder", "batch", "dataset",
-           "flags", "get_flag", "get_flags", "reader", "resolve_device",
-           "set_flags"]
+           "enforce", "flags", "get_flag", "get_flags", "reader",
+           "resolve_device", "set_flags"]
 
 
 def __getattr__(name):

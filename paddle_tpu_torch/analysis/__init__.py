@@ -1,7 +1,13 @@
-"""The serving half of the analysis plane; the port's copy of the parts
-of ``paddle_tpu/analysis`` that need no static Program:
+"""Static-analysis plane over the Program IR and the serving fleet; the
+port's copy of ``paddle_tpu/analysis``:
 
-- :mod:`recompile` — static prediction of the serving steps' compile
+- :mod:`abstract_interp` — shape/dtype inference by abstract
+  interpretation (the trace-free analog of Fluid's
+  ``InferShape``/``InferVarType``: the registered lowerings run on meta
+  tensors), surfaced through the registered ``shapes.infer`` verifier
+  check and ``FLAGS_check_shapes``;
+- :mod:`recompile` — static prediction of the executor's keys
+  (:class:`ExecutorCompilePredictor`) and the serving steps' compile
   counts (:func:`predict_serving_compiles`), held against the compile
   tracker's observed counts;
 - :mod:`lifecycle` — static resource-lifecycle (KV rows / LoRA pins:
@@ -13,22 +19,24 @@ of ``paddle_tpu/analysis`` that need no static Program:
   lock-acquisition-order graph (deadlock-cycle detection) and a
   guarded-state registry that raises on writes without the declared
   lock.
-
-The executor's predictor (``ExecutorCompilePredictor``) and abstract
-interpretation wait for the compiler and the analyses of the static
-plane (ROADMAP A7.3).
 """
 
+from .abstract_interp import (AbstractVar, InferContext, InferError,
+                              InterpretResult, abstract_eval_op,
+                              interpret_program)
 from .concurrency import (GuardedStateError, SanitizedLock,
                           declare_guarded, make_lock,
                           sanitizer_report)
 from .lifecycle import (LintResult, SourceDiagnostic, lint_files,
                         lint_serving)
-from .recompile import (RecompilePredictor, feed_signature,
-                        merge_compile_counts, predict_serving_compiles)
+from .recompile import (ExecutorCompilePredictor, RecompilePredictor,
+                        feed_signature, merge_compile_counts,
+                        predict_serving_compiles)
 
 __all__ = [
-    "RecompilePredictor", "feed_signature",
+    "AbstractVar", "InferContext", "InferError", "InterpretResult",
+    "abstract_eval_op", "interpret_program",
+    "ExecutorCompilePredictor", "RecompilePredictor", "feed_signature",
     "merge_compile_counts", "predict_serving_compiles",
     "GuardedStateError", "SanitizedLock", "declare_guarded",
     "make_lock", "sanitizer_report",

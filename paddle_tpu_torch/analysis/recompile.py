@@ -1,20 +1,25 @@
-"""Static recompile prediction for the serving steps; the serving half
-of ``paddle_tpu/analysis/recompile.py``, the port's own copy (the port
+"""Static recompile prediction for the executor and the serving steps;
+the port's own copy of ``paddle_tpu/analysis/recompile.py`` (the port
 imports nothing of the JAX package).
 
 The compile tracker (:mod:`~paddle_tpu_torch.observability.compile_tracker`)
-*observes* the serving steps' compiles after the fact; this module
-*predicts* them before any step runs, by mirroring the engine's
-geometry-keyed entries (one prefill compile per length bucket, one
-decode/verify compile total, the megastep's second decode entry)
-including the paged prefix cache's effect on which bucket a prompt's
-unshared suffix lands in (:func:`predict_serving_compiles`). The soak
-(``python3 -m paddle_tpu_torch.tools.soak``) proves with it that kills,
-restarts, re-homes, cancels and hedges predict the same counts as none.
+*observes* compiles after the fact; this module *predicts* them before
+any run, by mirroring the two keying disciplines of the port:
 
-The executor's predictor (``ExecutorCompilePredictor``) keys on a
-static Program; the executor came with ROADMAP A7.1, the predictor
-waits with the compiler and the analyses (ROADMAP A7.3).
+- the executor's per-``run()`` key (``framework/executor.py``: program
+  identity and version, the sorted feed name/shape/dtype signature, the
+  fetch names, the scope's identity and name set, the flags version; no
+  mesh, one rank) — :class:`ExecutorCompilePredictor`. A new key is one
+  ``executor_step`` event: on the CPU at the key's first run, on the card
+  at its capture (its second run), so over keys that each run at least
+  twice the prediction is also the card's ``Executor.captures``;
+- the serving engine's geometry-keyed entries (one prefill compile per
+  length bucket, one decode/verify compile total, the megastep's second
+  decode entry) including the paged prefix cache's effect on which
+  bucket a prompt's unshared suffix lands in —
+  :func:`predict_serving_compiles`. The soak
+  (``python3 -m paddle_tpu_torch.tools.soak``) proves with it that kills,
+  restarts, re-homes, cancels and hedges predict the same counts as none.
 """
 
 from __future__ import annotations
@@ -22,8 +27,8 @@ from __future__ import annotations
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 __all__ = [
-    "ATTN_IMPL_VALUES", "RecompilePredictor", "feed_signature",
-    "merge_compile_counts", "predict_serving_compiles",
+    "ATTN_IMPL_VALUES", "RecompilePredictor", "ExecutorCompilePredictor",
+    "feed_signature", "merge_compile_counts", "predict_serving_compiles",
 ]
 
 #: ``attn_impl`` values: the reference's (``FLAGS_serving_attn_impl`` in
@@ -64,6 +69,43 @@ class RecompilePredictor:
 
     def predicted_counts(self) -> Dict[str, int]:
         return dict(self._counts)
+
+
+class ExecutorCompilePredictor(RecompilePredictor):
+    """Predicts ``executor_step`` compiles for a sequence of
+    ``Executor.run`` calls, using the same key fields as the executor's
+    cache. Identity fields (program, scope) are taken as the objects
+    themselves; pass the flags version explicitly if a run changes flags
+    mid-sequence."""
+
+    SITE = "executor_step"
+
+    def would_compile(self, program, feeds: Dict[str, Any],
+                      fetch_list: Sequence[str] = (),
+                      scope=None, *,
+                      flags_version: Optional[int] = None,
+                      mesh_shape: Optional[Tuple[int, ...]] = None
+                      ) -> bool:
+        """``mesh_shape``: the reference's device-mesh geometry; the port
+        runs one rank, so its executor's key has no mesh, and a mesh of
+        more than one device raises naming ROADMAP A5."""
+        if mesh_shape is not None:
+            n = 1
+            for d in mesh_shape:
+                n *= int(d)
+            if n != 1:
+                raise NotImplementedError(
+                    f"a mesh of {n} devices waits for ROADMAP A5")
+        if flags_version is None:
+            from .. import flags as _flags
+            flags_version = _flags.version()
+        scope_names = (frozenset(scope.all_var_names())
+                       if scope is not None else frozenset())
+        key = (id(program), getattr(program, "_version", 0),
+               feed_signature(feeds),
+               tuple(str(f) for f in fetch_list),
+               id(scope), scope_names, flags_version)
+        return self.observe(self.SITE, key)
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 from ... import jit as _jit
-from ...framework.program import Operator, Program, default_startup_program
+from ...framework.program import (GRAD_SUFFIX, Operator, Program,
+                                 default_startup_program)
 
 GRAD_ACC_SUFFIX = "@GRAD@PACC"
 
@@ -195,6 +196,33 @@ def split_pipeline_program(program: Program,
                     else:
                         sblk.create_var(n, persistable=True,
                                         stop_gradient=True)
+    # ---- declare each grad var's forward var -------------------------------
+    # the verifier's grad pairing looks a grad's forward var up; the
+    # reference leaves it out of a stage's backward program where no op
+    # there reads it and the scope does not carry it (a value inside the
+    # stage), and its own verifier then rejects that program (ROADMAP C).
+    # Declared last, so a program that names every such var already is
+    # the reference's, var for var
+    def carried(n):
+        src = produced_by.get(n)
+        if src is None:
+            return False
+        sblk = dict(stages[src[0]].phases())[src[1]].global_block()
+        return n in sblk.vars and sblk.vars[n].persistable
+
+    for d, phase, prog in order:
+        tb = prog.global_block()
+        for op in tb.ops:
+            for n in op.input_names() + op.output_names():
+                base = n.split(GRAD_SUFFIX, 1)[0]
+                if GRAD_SUFFIX in n and base in block.vars \
+                        and base not in tb.vars and not carried(base):
+                    src = block.vars[base]
+                    tb.vars[base] = type(src)(
+                        tb, base, shape=src.shape, dtype=src.dtype,
+                        persistable=False, stop_gradient=src.stop_gradient,
+                        is_data=src.is_data, trainable=src.trainable,
+                        is_parameter=src.is_parameter)
     result = [stages[d] for d in devices]
     for st in result:
         for _, prog in st.phases():

@@ -531,19 +531,18 @@ define_flag("check_nan_inf", False,
             "host between ops) and raises NanInfError naming the op and "
             "the variable.")
 define_flag("check_program", False,
-            "Run the static Program verifier once per program at its "
-            "first executor run, as the reference does. The verifier "
-            "(framework/analysis.py) is not ported yet: with the flag "
-            "on, the executor raises NotImplementedError naming ROADMAP "
-            "A7.3.")
+            "Run the static Program verifier (framework/analysis.py) once "
+            "per program at its first executor run, as the reference "
+            "does: a program with an ERROR diagnostic raises "
+            "ProgramVerifyError naming the block, the op and the "
+            "variable.")
 define_flag("check_ir_passes", False,
-            "Verify the Program IR after every pass in a "
-            "PassManager.apply pipeline, as the reference does. The "
-            "verifier (framework/analysis.py) is not ported yet: with the "
-            "flag on, PassManager.apply raises NotImplementedError naming "
-            "ROADMAP A7.3.")
+            "Verify the Program IR before and after every pass in a "
+            "PassManager.apply pipeline, as the reference does: the "
+            "ProgramVerifyError names the pass that broke the program.")
 define_flag("check_shapes", False,
-            "Add static shape/dtype inference to the verifier suite "
-            "wherever it runs, as the reference does. It waits with the "
-            "verifier (ROADMAP A7.3): with the flag on, the executor "
-            "raises NotImplementedError naming that item.")
+            "Add static shape/dtype inference (analysis/abstract_interp."
+            "py: the lowerings run on meta tensors, nothing on a device) "
+            "to the verifier suite wherever it runs, as the reference "
+            "does; with it on the executor verifies a program at its "
+            "first run.")

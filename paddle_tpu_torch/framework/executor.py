@@ -54,6 +54,7 @@ items.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -89,6 +90,25 @@ def check_nan_inf_hook(op_type: str, name: str, value):
         raise NanInfError(
             f"op {op_type!r} output {name!r} contains {bad} NaN/Inf values "
             f"(FLAGS_check_nan_inf=true)")
+
+
+#: ``fn(program, block_idx, name, value)`` for every value an op writes
+#: (:func:`observe_values`); empty unless a caller probes
+_observers: List[Any] = []
+
+
+@contextlib.contextmanager
+def observe_values(fn):
+    """Call ``fn(program, block_idx, name, value)`` for every output of
+    every op the executor runs while the context is open (under a capture
+    too, where ``value`` holds its shape and dtype but no result yet): a
+    shape probe, as the abstract interpreter's check on the card reads
+    it."""
+    _observers.append(fn)
+    try:
+        yield
+    finally:
+        _observers.remove(fn)
 
 
 class _BlockRunner:
@@ -147,6 +167,8 @@ class _BlockRunner:
                 for n, v in zip(names, vals):
                     if check:
                         check_nan_inf_hook(op.type, n, v)
+                    for fn in _observers:
+                        fn(self.program, block_idx, n, v)
                     env[n] = v
             for n in drops.get(i, ()):
                 env.pop(n, None)
@@ -460,14 +482,20 @@ class Executor:
 
     def _verify_once(self, program: Program, feed_arrays, fetch_names,
                      scope):
-        """FLAGS_check_program / FLAGS_check_shapes: the reference
-        verifies a program at its first compile; the verifier waits for
-        ROADMAP A7.3, so :meth:`Program.verify` raises."""
+        """FLAGS_check_program / FLAGS_check_shapes hook: static-verify
+        the program at its first run (framework/analysis.py), so a
+        malformed IR fails with block/op coordinates instead of an error
+        inside a lowering or a capture. Names held by the scope count as
+        feeds — state residency is a runtime property the static check
+        must not second-guess."""
         key = (id(program), program._version)
         if key in self._verified_programs:
             return
-        program.verify(feeds=set(feed_arrays) | set(scope.all_var_names()),
-                       fetches=fetch_names)
+        from .analysis import verify_program
+        feeds = set(feed_arrays) | set(scope.all_var_names())
+        verify_program(program, feeds=feeds,
+                       fetches=fetch_names).raise_if_errors(
+            f"FLAGS_check_program: first compile of {program!r}")
         self._verified_programs.add(key)
 
     def _build(self, program: Program, feed_arrays, fetch_names, scope):

@@ -8,10 +8,9 @@ block of a Program), ``Pass``, ``register_pass`` / ``new_pass`` /
 :mod:`~paddle_tpu_torch.ops.fused_ops`.
 
 A pass mutates an ``IrGraph`` and the graph converts back to a runnable
-Program; passes never see torch. ``FLAGS_check_ir_passes`` verifies the
-program around every pass in the reference; the verifier
-(``framework/analysis.py``) waits for ROADMAP A7.3, so with the flag on
-``PassManager.apply`` raises NotImplementedError naming that item.
+Program; passes never see torch. Under ``FLAGS_check_ir_passes`` the
+verifier (``framework/analysis.py``) runs before the first pass and after
+every pass, and a failure names the pass that broke the program.
 """
 
 from __future__ import annotations
@@ -227,7 +226,13 @@ def apply_pass(program: Program, name: str, **attrs) -> Program:
 
 
 class PassManager:
-    """Ordered pass pipeline (ir_pass_manager / PassBuilder analog)."""
+    """Ordered pass pipeline (ir_pass_manager / PassBuilder analog).
+
+    Under ``FLAGS_check_ir_passes`` the Program IR is verified
+    (framework/analysis.py) before the first pass and after every pass;
+    a failing verification raises with the name of the offending pass —
+    the bisection step the reference does by hand with
+    GraphViz dumps per pass."""
 
     def __init__(self, passes: Sequence = ()):
         self._passes: List[Pass] = [
@@ -243,14 +248,30 @@ class PassManager:
 
     def apply(self, program: Program) -> Program:
         from .. import flags as _flags
-        if _flags.get_flag("check_ir_passes"):
-            raise NotImplementedError(
-                "FLAGS_check_ir_passes runs framework/analysis.py's "
-                "verifier around every pass, which waits for ROADMAP A7.3")
+        check = bool(_flags.get_flag("check_ir_passes"))
         graph = IrGraph(program)
+        if check:
+            # verify the input too: a program broken BEFORE the
+            # pipeline must not be pinned on the first pass
+            self._verify(graph, None)
         for p in self._passes:
             p.apply(graph)
+            if check:
+                self._verify(graph, p.name)
         return graph.to_program()
+
+    @staticmethod
+    def _verify(graph: IrGraph, pass_name: Optional[str]):
+        from .analysis import verify_program
+        result = verify_program(graph._program)
+        if not result.ok():
+            for d in result.diagnostics:
+                d.pass_name = pass_name
+            where = (f"IR pass {pass_name!r} broke the program"
+                     if pass_name else
+                     "program was already invalid before the first pass")
+            result.raise_if_errors(
+                f"{where} (FLAGS_check_ir_passes=true)")
 
 
 # ---------------------------------------------------------------------------

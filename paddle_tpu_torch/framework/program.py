@@ -12,8 +12,8 @@ other and its JSON is the reference's character for character;
 The executor (:mod:`.executor`) runs block 0 op by op through the op
 registry, eagerly or as a replayed CUDA graph keyed by the program's
 version, the feeds' shapes and dtypes and the fetch set; shapes on
-Variables are advisory, as in the reference. ``Program.verify`` waits
-for the port of ``framework/analysis.py`` (ROADMAP A7.3).
+Variables are advisory, as in the reference. ``Program.verify`` runs
+the static verifier (:mod:`.analysis`).
 """
 
 from __future__ import annotations
@@ -494,11 +494,14 @@ class Program:
 
     def verify(self, feeds: Sequence[str] = (), fetches=None,
                checks=None):
-        """The reference runs its static analysis suite
-        (``framework/analysis.py``) here; that suite is not ported yet."""
-        raise NotImplementedError(
-            "Program.verify runs framework/analysis.py's verifier, which "
-            "waits for ROADMAP A7.3")
+        """Run the static analysis suite (framework/analysis.py) over
+        this program; returns a ``VerifyResult`` of structured
+        ``Diagnostic`` records — it never raises on findings (call
+        ``.raise_if_errors()`` for the fail-fast form the executor and
+        PassManager integrations use)."""
+        from .analysis import verify_program
+        return verify_program(self, feeds=feeds, fetches=fetches,
+                              checks=checks)
 
     def __repr__(self):
         nops = sum(len(b.ops) for b in self.blocks)

@@ -520,7 +520,25 @@ def py_func(func, x, out, backward_func=None, skip_vars_in_backward_input=None):
         return {"Out": [torch.as_tensor(np.asarray(v, dt)).to(dev)
                         for v, dt in zip(r, dtypes)]}
 
-    _register(op_name, not_differentiable=True, host_op=True)(lowering)
+    def infer(ictx, ins, attrs):
+        # the reference's pure_callback templates: each output's declared
+        # shape, -1/None dims the first input's batch dim (the abstract
+        # interpreter cannot call ``func``: it has no values)
+        from ..analysis.abstract_interp import AbstractVar
+        first = (ins.get("X") or [AbstractVar()])[0]
+        outs_av = []
+        for o, dt in zip(outs, dtypes):
+            if o.shape is None or (any(d in (-1, None) for d in o.shape)
+                                   and not first.known):
+                outs_av.append(AbstractVar())
+                continue
+            outs_av.append(AbstractVar(tuple(
+                int(first.shape[0]) if d in (-1, None) else int(d)
+                for d in o.shape), dt.name))
+        return {"Out": outs_av}
+
+    _register(op_name, not_differentiable=True, host_op=True,
+              infer=infer)(lowering)
     helper = LayerHelper("py_func")
     helper.append_op(op_name, inputs={"X": list(xs)},
                      outputs={"Out": list(outs)}, attrs={})

@@ -40,7 +40,10 @@ splits its key once per iteration, ``cond`` splits it into the two
 branches' keys, ``switch_case`` folds the branch index in. The name
 plumbing rides in attrs (``carry_names``, ``cond_name``,
 ``param_names``, ``out_names``, ``sub_block(s)``). The static infer
-rules (``:186-257``) wait with the abstract interpreter (ROADMAP A7.3).
+rules (the reference's ``:180-257``) recurse into the sub-blocks through
+the abstract interpreter and check the two contracts statically: a loop
+carry's shape and dtype across one iteration (``while``) and the
+branches' signatures (``cond``, ``switch_case``).
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ import torch
 
 from .. import prng
 from .cuda import cond_graph
-from .registry import GRAD_SLOT_SUFFIX, register, register_grad
+from .registry import (GRAD_SLOT_SUFFIX, register, register_grad,
+                       register_infer)
 
 #: host reads of a predicate on the card (each waits for the card)
 host_reads = 0
@@ -512,3 +516,84 @@ def _switch_case(ctx, ins, attrs):
 @register_grad("switch_case")
 def _switch_case_grad(ctx, ins, attrs):
     return _backward(ctx, ins, attrs, "switch_case", _switch_preds)
+
+
+# ---------------------------------------------------------------------------
+# static infer rules (the abstract interpreter, analysis/abstract_interp.py)
+#
+# These lowerings cannot run on meta tensors: they re-enter the
+# executor's block runner to run sub-blocks. The rules mirror the name
+# plumbing above and enforce statically the two contracts the lowerings
+# check only when they run — loop-carry shape/dtype invariance (while)
+# and branch-signature agreement (cond / switch_case).
+# ---------------------------------------------------------------------------
+
+
+def _seed_env(attrs, ins):
+    return dict(zip(attrs.get("param_names", []), ins.get("Params", [])))
+
+
+@register_infer("while")
+def _while_infer(ictx, ins, attrs):
+    carry_names = list(attrs["carry_names"])
+    cond_name = attrs["cond_name"]
+    carries = list(ins.get("X", []))
+    env = _seed_env(attrs, ins)
+    env.update(zip(carry_names, carries))
+    if ins.get("Condition"):
+        env[cond_name] = ins["Condition"][0]
+    out_env = ictx.infer_block(int(attrs["sub_block"]), env)
+    for name, before in zip(carry_names, carries):
+        after = out_env.get(name)
+        if (after is not None and before.known and after.known
+                and (before.shape != after.shape
+                     or before.dtype != after.dtype)):
+            ictx.report(
+                "shapes.loop-carry",
+                f"loop carry {name!r} changes from {before} to {after} "
+                f"across one iteration — while carries must be "
+                f"shape/dtype invariant (the contract of the reference's "
+                f"lax.while_loop, and of a captured loop's IF nodes)",
+                var=name)
+    # invariance means the entry carries ARE the loop's fixed point
+    return {"Out": carries}
+
+
+def _join_branches(ictx, attrs, branch_outs, what):
+    from ..analysis.abstract_interp import AbstractVar
+    out_names = list(attrs["out_names"])
+    joined = []
+    for name in out_names:
+        vals = [outs.get(name) for outs in branch_outs]
+        known = [v for v in vals if v is not None and v.known]
+        agree = all(v.shape == known[0].shape and v.dtype == known[0].dtype
+                    for v in known) if known else True
+        if not agree:
+            ictx.report(
+                "shapes.branch-mismatch",
+                f"{what} output {name!r} disagrees across branches: "
+                f"{', '.join(str(v) if v is not None else '?' for v in vals)}"
+                f" — every branch must keep one signature (one XLA "
+                f"computation in the reference, one output per IF node "
+                f"here)",
+                var=name)
+            joined.append(None)
+        else:
+            joined.append(known[0] if known and len(known) == len(vals)
+                          else None)
+    return {"Out": [v if v is not None else AbstractVar()
+                    for v in joined]}
+
+
+@register_infer("cond")
+def _cond_infer(ictx, ins, attrs):
+    outs = [ictx.infer_block(int(attrs[k]), _seed_env(attrs, ins))
+            for k in ("sub_block_t", "sub_block_f")]
+    return _join_branches(ictx, attrs, outs, "cond")
+
+
+@register_infer("switch_case")
+def _switch_case_infer(ictx, ins, attrs):
+    outs = [ictx.infer_block(int(b), _seed_env(attrs, ins))
+            for b in attrs["sub_blocks"]]
+    return _join_branches(ictx, attrs, outs, "switch_case")

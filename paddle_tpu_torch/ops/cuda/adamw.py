@@ -274,6 +274,10 @@ def adamw_multi(params, grads, m1s, m2s, b1ps, b2ps, lr, beta1=0.9,
     if not params:
         return
     dev = params[0].device
+    if dev.type == "meta":
+        # in place: a meta tensor keeps its shape and dtype (the plain
+        # version would read the learning rate on the host)
+        return
     if dev.type == "cpu":
         adamw_multi_plain(params, grads, m1s, m2s, b1ps, b2ps, lr, beta1,
                           beta2, epsilon, coeff, grad_scale)

@@ -6,7 +6,8 @@ flash_attention.cu``, built on first use by :mod:`._build`) replace the
 three TPU kernels: :func:`flash_fwd` (O and lse), :func:`flash_bwd_dq`
 and :func:`flash_bwd_dkv`. Each wrapper launches its kernel for CUDA
 tensors and runs its plain PyTorch version (``*_plain``) only for
-tensors on the CPU; a CUDA tensor the kernel does not take raises, and
+tensors on the CPU (and meta tensors, shapes only: the abstract
+interpreter's); a CUDA tensor the kernel does not take raises, and
 nothing falls back. Each kernel has two routes, decided by
 :func:`_tc_route` before the launch: bf16 with head_dim 64 or 128 runs
 the tensor-core (``wgmma``) kernels, everything else (f32, fp16, other
@@ -126,7 +127,11 @@ def _lib():
 
 def _device(name, q):
     """'cpu' or 'cuda' for the tensor that decides where ``name`` runs;
-    anything else raises."""
+    a meta tensor takes the CPU's way (the plain version's shapes: the
+    abstract interpreter runs a lowering on meta tensors); anything else
+    raises."""
+    if q.device.type == "meta":
+        return "cpu"
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
                          f"{q.device}")

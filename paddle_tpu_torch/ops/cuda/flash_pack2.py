@@ -111,10 +111,10 @@ def _check(q, k, v, causal):
 def packed_flash_fwd(q, k, v, causal, scale):
     """Forward kernel on head-pair slabs ``[bh/2, s, 2d]``: the output
     in the same layout and dtype."""
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"packed_flash_fwd runs on cuda or cpu tensors, "
                          f"not {q.device}")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):   # meta: the plain shapes
         return packed_flash_fwd_plain(q, k, v, causal, scale)
     _check(q, k, v, causal)
     bh2, s_q, d2 = q.shape

@@ -6,7 +6,8 @@ built on first use by :mod:`._build`) replace the two TPU kernels:
 :func:`ln_fwd` (y, mean, rstd) and :func:`ln_bwd` (dx, dgamma, dbeta; a
 row pass and a deterministic reduce of per-block column sums, counted as
 one launch). Each wrapper launches its kernel for CUDA tensors and runs
-its plain PyTorch version (``*_plain``) only for tensors on the CPU; a
+its plain PyTorch version (``*_plain``) only for tensors on the CPU (and
+for meta tensors, which carry shapes only: the abstract interpreter's); a
 CUDA input the kernel does not take raises, and nothing falls back.
 :func:`fused_layer_norm_with_stats` ties them together in a
 ``torch.autograd.Function`` as the reference's ``custom_vjp`` does.
@@ -81,6 +82,11 @@ def _lib():
 
 
 def _device(name, x):
+    """'cpu' or 'cuda' for ``x``; a meta tensor takes the CPU's way (the
+    plain version's shapes, for the abstract interpreter); anything else
+    raises."""
+    if x.device.type == "meta":
+        return "cpu"
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} runs on cuda or cpu tensors, not "
                          f"{x.device}")

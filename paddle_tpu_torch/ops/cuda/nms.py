@@ -84,10 +84,10 @@ def _lib():
 def nms_keep(boxes, scores, iou_thresh, normalized):
     """Keep flags ``[R, W]`` of the greedy suppression of each row's
     sorted candidates (:func:`nms_keep_plain`'s contract)."""
-    if boxes.device.type not in ("cpu", "cuda"):
+    if boxes.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"nms_keep runs on cuda or cpu tensors, not "
                          f"{boxes.device}")
-    if boxes.device.type == "cpu":
+    if boxes.device.type in ("cpu", "meta"):   # meta: the plain shapes
         return nms_keep_plain(boxes, scores, iou_thresh, normalized)
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or \
             tuple(scores.shape) != tuple(boxes.shape[:2]):

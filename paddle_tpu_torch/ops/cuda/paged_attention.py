@@ -253,7 +253,7 @@ def paged_attention(q, k_pool, v_pool, tables, pos, *,
     """
     if (k_scale is None) != (v_scale is None):
         raise ValueError("k_scale and v_scale must be given together")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):   # meta: the plain shapes
         return paged_attention_plain(q, k_pool, v_pool, tables, pos,
                                      k_scale=k_scale, v_scale=v_scale,
                                      scale=scale)

@@ -35,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .registry import register
+from .registry import declare_waiting, register
 
 
 def _as(value: float, like: torch.Tensor) -> float:
@@ -296,3 +296,14 @@ def _ftrl_op(ctx, ins, attrs):
                       attrs.get("lr_power", -0.5))
     return {"ParamOut": [p], "SquaredAccumOut": [sq],
             "LinearAccumOut": [lin]}
+
+
+def _dpsgd_infer(ictx, ins, attrs):
+    """The reference eval_shapes its lowering: ``ParamOut`` is ``Param``
+    (the update keeps its shape and dtype)."""
+    return {"ParamOut": [ins["Param"][0]]}
+
+
+# the reference's ``dpsgd`` (``paddle_tpu/ops/optimizer_ops.py:173``)
+# draws its noise over the mesh: it waits for ROADMAP A5
+declare_waiting("dpsgd", **_ND, infer=_dpsgd_infer)

@@ -22,7 +22,7 @@ import math
 import numpy as np
 import torch
 
-from .registry import register
+from .registry import register, register_infer
 
 _BBOX_CLIP = math.log(1000.0 / 16.0)
 
@@ -360,3 +360,52 @@ def _generate_proposal_labels(ctx, ins, attrs):
     return {"Rois": [out_rois], "LabelsInt32": [labels],
             "BboxTargets": [targets], "BboxInsideWeights": [inside],
             "BboxOutsideWeights": [inside], "RoisNum": [counts]}
+
+
+# ---------------------------------------------------------------------------
+# static infer rules (the abstract interpreter): a host op reads its
+# inputs' values, which a meta tensor does not have; its outputs are
+# padded to shapes the attrs fix, the reference's ``pure_callback``
+# result shapes (``paddle_tpu/ops/proposal_ops.py:190-194, 270-276,
+# 372-377``)
+# ---------------------------------------------------------------------------
+
+
+def _av(shape, dtype):
+    from ..analysis.abstract_interp import AbstractVar
+    return AbstractVar(tuple(int(d) for d in shape), dtype)
+
+
+@register_infer("generate_proposals")
+def _generate_proposals_infer(ictx, ins, attrs):
+    n = ins["Scores"][0].shape[0]
+    post_n = int(attrs.get("post_nms_topN", 1000))
+    return {"RpnRois": [_av((n, post_n, 4), "float32")],
+            "RpnRoiProbs": [_av((n, post_n, 1), "float32")],
+            "RpnRoisNum": [_av((n,), "int32")]}
+
+
+@register_infer("rpn_target_assign")
+def _rpn_target_assign_infer(ictx, ins, attrs):
+    n = ins["GtBoxes"][0].shape[0]
+    b = int(attrs.get("rpn_batch_size_per_im", 256))
+    return {"LocationIndex": [_av((n, b), "int32")],
+            "ScoreIndex": [_av((n, b), "int32")],
+            "TargetLabel": [_av((n, b), "int32")],
+            "TargetBBox": [_av((n, b, 4), "float32")],
+            "BBoxInsideWeight": [_av((n, b, 4), "float32")],
+            "FgNum": [_av((n,), "int32")],
+            "SampledNum": [_av((n,), "int32")]}
+
+
+@register_infer("generate_proposal_labels")
+def _generate_proposal_labels_infer(ictx, ins, attrs):
+    n = ins["RpnRois"][0].shape[0]
+    b = int(attrs.get("batch_size_per_im", 512))
+    c4 = 4 * int(attrs.get("class_nums", 81))
+    return {"Rois": [_av((n, b, 4), "float32")],
+            "LabelsInt32": [_av((n, b), "int32")],
+            "BboxTargets": [_av((n, b, c4), "float32")],
+            "BboxInsideWeights": [_av((n, b, c4), "float32")],
+            "BboxOutsideWeights": [_av((n, b, c4), "float32")],
+            "RoisNum": [_av((n,), "int32")]}

@@ -21,14 +21,21 @@ second launch (ROADMAP B, later perf work).
 
 The lowering modules (``math_ops``, ``tensor_ops``, ``nn_ops``,
 ``reduce_ops``, ``random_ops``, ``optimizer_ops``, ``attention_ops``,
-``fused_ops``, ``detection_ops``, ``proposal_ops``, ``quant_ops``,
-``control_flow_ops``, ``rnn_ops``, ``loss_ops``, ``linalg_ops``,
-``image_ops``, ``index_ops``, ``ctr_ops``, ``structured_ops``,
-``misc_ops``) are
+``fused_ops``, ``detection_ops``, ``proposal_ops``, ``delegate_ops``,
+``quant_ops``, ``control_flow_ops``, ``rnn_ops``, ``loss_ops``,
+``linalg_ops``, ``image_ops``, ``index_ops``, ``ctr_ops``,
+``structured_ops``, ``misc_ops``) are
 imported at the first lookup, so importing the registry alone stays
 light; :data:`OPS` is complete after any call of :func:`get_op_def`,
-:func:`execute`, :func:`is_registered`, :func:`registered_ops` or
-:func:`op_version_map`.
+:func:`execute`, :func:`is_registered`, :func:`registered_ops`,
+:func:`declared` or :func:`op_version_map`.
+
+Waiting ops (:data:`WAITING`: the collectives, ``dpsgd``, the PS ops)
+have lowerings in the reference only. ``collective_ops``, ``ps_ops`` and
+``optimizer_ops`` declare them (:func:`declare_waiting`) with the
+reference's registry fields and static infer rules, so the verifier and
+the abstract interpreter (:func:`declared`) treat a program that holds
+them as the reference does; running one raises naming its item.
 """
 
 from __future__ import annotations
@@ -106,9 +113,13 @@ Lowering = Callable[[LoweringContext, Dict[str, List[Any]], Dict[str, Any]],
 # maker(op_desc, out_grad_names, wanted_input_slots) -> [(type, ins, outs,
 # attrs)], as the reference's GradMaker
 GradMaker = Callable[..., List[Tuple[str, dict, dict, dict]]]
-# the reference's static infer rule: (ictx, ins, attrs) -> outs over
-# abstract values; the abstract interpreter that reads it waits with
-# framework/analysis.py (ROADMAP A7.3), the field is kept for parity
+# the static infer rule: (ictx, ins, attrs) -> outs over AbstractVars
+# (``analysis.abstract_interp``: ictx.infer_block recurses into a
+# sub-block, ictx.fail reports). Most ops need none: the interpreter runs
+# the lowering on meta tensors. Rules exist where that cannot run
+# (control flow re-enters the block runner, host ops and the PS tier
+# touch the host) or where the shape is not the lowering's on one rank
+# (collectives)
 InferRule = Callable[[Any, Dict[str, List[Any]], Dict[str, Any]],
                      Dict[str, List[Any]]]
 
@@ -151,9 +162,9 @@ OPS: Dict[str, OpDef] = {}
 LOWERING_MODULES = ("math_ops", "tensor_ops", "nn_ops", "reduce_ops",
                     "random_ops", "optimizer_ops", "attention_ops",
                     "fused_ops", "detection_ops", "proposal_ops",
-                    "quant_ops", "control_flow_ops", "rnn_ops", "loss_ops",
-                    "linalg_ops", "image_ops", "index_ops", "ctr_ops",
-                    "structured_ops", "misc_ops")
+                    "delegate_ops", "quant_ops", "control_flow_ops",
+                    "rnn_ops", "loss_ops", "linalg_ops", "image_ops",
+                    "index_ops", "ctr_ops", "structured_ops", "misc_ops")
 _loaded = False
 # op type -> (its module's place in LOWERING_MODULES, registration number):
 # other modules of the port import some lowering modules first, so the
@@ -161,11 +172,15 @@ _loaded = False
 _ORDER: Dict[str, Tuple[int, int]] = {}
 
 
+#: the modules that declare waiting ops (:func:`declare_waiting`)
+WAITING_MODULES = ("collective_ops", "ps_ops")
+
+
 def _load():
     global _loaded
     if not _loaded:
         _loaded = True
-        for name in LOWERING_MODULES:
+        for name in LOWERING_MODULES + WAITING_MODULES:
             importlib.import_module(f"{__package__}.{name}")
 
 
@@ -187,7 +202,7 @@ def register_infer(op_type: str):
     """Decorator: attach a static infer rule to an already-registered op
     (the inline form is ``register(op_type, infer=...)``)."""
     def deco(fn: InferRule) -> InferRule:
-        d = OPS.get(op_type)
+        d = OPS.get(op_type) or WAITING_OPS.get(op_type)
         if d is None:
             raise ValueError(
                 f"cannot register infer rule: op {op_type!r} has no "
@@ -223,8 +238,24 @@ WAITING = {
     **{op: "A7.4 (the parameter-server runtime)" for op in (
         "distributed_lookup_table", "distributed_lookup_table_grad", "send",
         "recv")},
-    "subgraph_delegate": "A7.3 (framework/subgraph.py)",
 }
+
+#: the waiting ops' definitions (:func:`declare_waiting`), apart from
+#: :data:`OPS`: :func:`get_op_def` and :func:`execute` raise for them
+WAITING_OPS: Dict[str, OpDef] = {}
+
+
+def declare_waiting(op_type: str, **kw) -> OpDef:
+    """Declare waiting op ``op_type`` with the reference's registry
+    fields ``kw``; its lowering raises naming the op's item."""
+    if op_type not in WAITING:
+        raise ValueError(f"op {op_type!r} is not a waiting op")
+
+    def lowering(ctx, ins, attrs):
+        raise NotImplementedError(_missing(op_type))
+
+    d = WAITING_OPS[op_type] = OpDef(type=op_type, lowering=lowering, **kw)
+    return d
 
 
 def _missing(op_type: str) -> str:
@@ -240,6 +271,15 @@ def get_op_def(op_type: str) -> OpDef:
     if d is None:
         raise NotImplementedError(_missing(op_type))
     return d
+
+
+def declared(op_type: str) -> Optional[OpDef]:
+    """The op's definition, a waiting op's included (None when neither
+    the port nor the reference registers ``op_type``): what the verifier
+    and the abstract interpreter read, as the reference reads its
+    registry."""
+    _load()
+    return OPS.get(op_type) or WAITING_OPS.get(op_type)
 
 
 def is_registered(op_type: str) -> bool:

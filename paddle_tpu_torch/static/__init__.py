@@ -8,7 +8,8 @@
 and ``save_persistables`` / ``load_persistables``, and the compiler's
 ``BuildStrategy``, ``CompiledProgram`` and ``ExecutionStrategy``.
 
-Waiting: ``InputSpec`` with ``jit.save`` for ROADMAP A7.3. 2.0
+Waiting: ``InputSpec`` with ``jit.save`` for ROADMAP A7.5 (the reference
+traces a dygraph Layer through the tape's ``record_program``). 2.0
 ``static.data`` takes the FULL shape including the batch dim (None/-1
 leading), unlike fluid ``layers.data`` which prepends it.
 """

@@ -16,6 +16,7 @@ computes a 16-bit square root in float32); the per-parameter comparison
 needs none.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import ctypes
 import pathlib
 import re
@@ -479,9 +480,16 @@ def test_cpu_runs_plain_and_other_devices_raise():
     before = dict(aw.launches)
     aw.adamw_multi(*_cols(group), torch.tensor([1e-3]))
     assert aw.launches == before
+    # meta tensors (the abstract interpreter's): an in-place update keeps
+    # every shape, and nothing runs
     meta = [[t.to("meta") for t in row] for row in group]
+    aw.adamw_multi(*_cols(meta), torch.tensor([1e-3]))
+    assert aw.launches == before
+    from types import SimpleNamespace
+    other = [[SimpleNamespace(device=torch.device("xpu"))] + row[1:]
+             for row in group]
     with pytest.raises(ValueError, match="cuda or cpu"):
-        aw.adamw_multi(*_cols(meta), torch.tensor([1e-3]))
+        aw.adamw_multi(*_cols(other), torch.tensor([1e-3]))
 
 
 def test_a_cuda_request_without_a_card_raises():

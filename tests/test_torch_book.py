@@ -31,6 +31,7 @@ carry both into the parameters; Adagrad's do the same with the
 decoders' small gradients.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax
 import numpy as np
 import pytest
@@ -40,7 +41,6 @@ from paddle_tpu.framework import Executor as JExecutor
 from paddle_tpu.framework import Scope as JScope
 
 import paddle_tpu_torch
-from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.framework import Executor
 from paddle_tpu_torch.models import book
 from paddle_tpu_torch.models.convert import scope_from_numpy
@@ -64,17 +64,6 @@ SIZES = {
     "rnn_encoder_decoder": dict(batch_size=4),
     "machine_translation": dict(batch_size=4),
 }
-
-
-@pytest.fixture(autouse=True)
-def _port_flags():
-    """The suite's environment turns on FLAGS_check_program, whose
-    verifier the port has not yet (ROADMAP A7.3): off for the port
-    here."""
-    saved = tflags.get_flags(["check_program"])
-    tflags.set_flags({"check_program": False})
-    yield
-    tflags.set_flags(saved)
 
 
 def _close_state(got, ref, fro=1e-4, atol=1e-6):

@@ -17,6 +17,7 @@ small GPT of ``tests/test_serving_cancel.py`` (vocab 97, h 32, 2 layers,
 4 heads) drawn at ``init_std`` 0.2. The JAX side runs with 64-bit types
 off."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 from types import SimpleNamespace
 
 import jax

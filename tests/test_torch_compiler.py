@@ -10,6 +10,7 @@ devices; ``paddle_tpu.distributed.env`` gets a one-device mesh and is
 put back afterwards). Tolerances: ``1e-6 + 1e-5 |ref|``.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import types
 
 import jax
@@ -28,7 +29,6 @@ from paddle_tpu.framework import unique_name as jun
 from paddle_tpu.optimizer import SGD as JSGD
 
 import paddle_tpu_torch.layers as TL
-from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.compiler import (BuildStrategy, CompiledProgram,
                                        ExecutionStrategy)
@@ -48,14 +48,11 @@ PORT = types.SimpleNamespace(L=TL, Program=Program, guard=program_guard,
 
 @pytest.fixture(autouse=True)
 def _env():
-    saved = tflags.get_flags(["check_program"])
-    tflags.set_flags({"check_program": False})
     envs = [(m, m._mesh, m._data_axis, dict(m._ring_to_axis))
             for m in (jenv, tenv)]
     jenv.set_mesh(jenv.build_mesh(("dp",), devices=jax.devices()[:1]))
     tenv.set_mesh(None)
     yield
-    tflags.set_flags(saved)
     for m, mesh, axis, rings in envs:
         m._mesh, m._data_axis = mesh, axis
         m._ring_to_axis.clear()

@@ -26,6 +26,7 @@ metrics registry, the launch counters) in a child process started with
 ``FLAGS_sanitize_locks=1``.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import dataclasses
 import json
 import os

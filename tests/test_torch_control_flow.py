@@ -26,6 +26,7 @@ and state within ``1e-5 + 1e-4 |ref|``; the loop and its unrolled twin
 bit for bit on the port.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import ast
 import contextlib
 import pathlib
@@ -74,11 +75,8 @@ VAL, GRAD = (1e-6, 1e-5), (1e-5, 1e-4)
 
 @pytest.fixture(autouse=True)
 def _port_flags():
-    """The suite's environment turns on FLAGS_check_program, whose
-    verifier the port has not yet (ROADMAP A7.3): off for the port here;
-    every flag this file sets is put back."""
-    saved = tflags.get_flags(["check_program", "pallas_min_seq"])
-    tflags.set_flags({"check_program": False})
+    """Every flag this file sets is put back."""
+    saved = tflags.get_flags(["pallas_min_seq"])
     yield
     tflags.set_flags(saved)
 

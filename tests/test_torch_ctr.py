@@ -4,6 +4,7 @@ the forward over one-hot and multi-hot (0-padded) slot ids, the
 gradient of every parameter, and one SGD step. Held to 1e-5 absolute
 and relative."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,7 @@ steps). The JAX side runs with 64-bit types off, as in
 ``tests/test_torch_sampling.py``.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

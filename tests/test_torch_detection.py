@@ -24,6 +24,7 @@ or 1e-9 absolute, the RoIs within 1e-4 absolute (float32 outputs of the
 host ops), counts exactly.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import types
 
 import jax
@@ -42,7 +43,6 @@ from paddle_tpu.param_attr import ParamAttr as JParamAttr
 
 import torch
 
-from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.framework import Executor
 from paddle_tpu_torch.framework.executor import plan_pieces
 from paddle_tpu_torch.models import detection as det
@@ -53,16 +53,6 @@ JSTATIC = types.SimpleNamespace(
     layers=JL, Program=JProgram, program_guard=jguard, unique_name=jun,
     Momentum=JO.Momentum, L2Decay=JO.L2Decay, LayerHelper=JLayerHelper,
     ParamAttr=JParamAttr)
-
-
-@pytest.fixture(autouse=True)
-def _port_flags():
-    """FLAGS_check_program's verifier waits for ROADMAP A7.3: off for
-    the port here."""
-    saved = tflags.get_flags(["check_program"])
-    tflags.set_flags({"check_program": False})
-    yield
-    tflags.set_flags(saved)
 
 
 def _run(op, ins, attrs):
@@ -566,6 +556,11 @@ def test_nms_wrapper_runs_plain_only_on_cpu_and_raises_elsewhere():
             want[_nms_np(boxes[i].astype(dt) + [0, 0, 1, 1], s, 0.3)] = True
             np.testing.assert_array_equal(keep[i].numpy(), want)
     assert nk.launches == before
+    # a meta tensor (the abstract interpreter's) takes the plain shapes
+    keep = nk.nms_keep(torch.zeros(1, 2, 4, device="meta"),
+                       torch.zeros(1, 2, device="meta"), 0.5, True)
+    assert keep.is_meta and keep.shape == (1, 2) and nk.launches == before
+    from types import SimpleNamespace
     with pytest.raises(ValueError, match="cuda or cpu"):
-        nk.nms_keep(torch.zeros(1, 2, 4, device="meta"),
-                    torch.zeros(1, 2, device="meta"), 0.5, True)
+        nk.nms_keep(SimpleNamespace(device=torch.device("xpu")),
+                    torch.zeros(1, 2), 0.5, True)

@@ -30,6 +30,7 @@ The reference's ``_normalize_cost`` test does not apply: the port counts
 costs itself (no XLA cost analysis).
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import json
 import warnings
 

@@ -25,6 +25,7 @@ drawn at ``init_std`` 0.2, whose greedy tokens vary; engines run on a
 frozen clock unless a test needs time to pass. The JAX side runs with
 64-bit types off."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import contextlib
 import json
 from types import SimpleNamespace

@@ -26,6 +26,7 @@ hit embedding rows into steps that differ by up to ~2 lr, so the
 parameters are not compared there.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

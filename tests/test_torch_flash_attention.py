@@ -12,6 +12,7 @@ one bf16 step (2^-8 relative) apart; held within 1e-2 of the largest
 ``|ref|``.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import importlib
 
 import jax

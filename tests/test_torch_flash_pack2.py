@@ -9,6 +9,7 @@ reference multiplies the block-diagonal zeros, which adds nothing); the
 packing is a pure permutation and must agree exactly.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import importlib.util
 import math
 from pathlib import Path

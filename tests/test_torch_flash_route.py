@@ -21,6 +21,7 @@ with one tile left out does not; nor does the f32 result truncated to
 bf16, which the bound's width would take but its bias check does not.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import importlib.util
 import pathlib
 

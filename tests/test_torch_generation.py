@@ -10,6 +10,7 @@ default and what the port's threefry reproduces
 (``tests/test_torch_sampling.py``).
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax
 import numpy as np
 import pytest

@@ -5,6 +5,7 @@ the paged-cache prefill + decode logits for f32, bf16 and int8 pools
 all within 1e-5 in f32.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ under a CUDA graph capture; and the port's flash attention at fp16
 against the reference's, which ``chip_smoke.py`` runs in an O1 fp16 GPT
 step."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -22,6 +22,7 @@ the same body; tenants served: ``tests/test_torch_lora.py``. The model is the sm
 ``init_std`` 0.2; engines run on a frozen clock. The JAX side runs with
 64-bit types off."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import http.client
 import json
 import re

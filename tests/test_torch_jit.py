@@ -25,6 +25,7 @@ carries the bf16 gradient differences of small elements), so after k
 steps the parameters agree within k times that.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import dataclasses
 
 import numpy as np

@@ -31,6 +31,7 @@ The reference's two tests run on its own model (the small GPT of
 the rest on the same GPT drawn at ``init_std`` 0.2, whose tokens vary
 more. The JAX side runs with 64-bit types off."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import json
 import re
 from types import SimpleNamespace

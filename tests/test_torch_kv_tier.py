@@ -29,6 +29,7 @@ the small GPT of ``tests/test_kv_tier.py`` (vocab 97, h 32, 2 layers, 4
 heads) drawn at ``init_std`` 0.2. The JAX side runs with 64-bit types
 off."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import json
 from types import SimpleNamespace
 

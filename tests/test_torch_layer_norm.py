@@ -13,6 +13,7 @@ and round each output once, so an element may land one bf16 step
 (2^-7 relative) apart: held to 2^-7 |ref| plus the f32 tolerance.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import importlib
 
 import jax

@@ -11,6 +11,7 @@ Tolerances: values within ``1e-6 + 1e-5 |ref|``, normalizations within
 64-bit types off) or to a few ulps (normal, torch's ``erfinv``).
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax
 import numpy as np
 
@@ -24,7 +25,6 @@ from paddle_tpu.layers import nn_veneer as jveneer
 
 import paddle_tpu_torch.layers as TL
 from paddle_tpu_torch import fluid_compat
-from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.framework import (Executor, Program, Scope,
                                         program_guard, unique_name)
@@ -39,7 +39,6 @@ NORM = (1e-5, 1e-4)
 def _run(build, feed, runs=1):
     """``build(layers)`` in each package (seeded programs), run ``runs``
     times on one scope; ``{pkg: [outputs of the last run]}``."""
-    tflags.set_flags({"check_program": False})
     out = {}
     for name, (L, P, guard, un, E, S) in PKGS.items():
         main, startup = P(), P()

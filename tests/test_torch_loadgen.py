@@ -15,6 +15,7 @@ GPT of ``tests/test_loadgen.py`` (vocab 97, h 32, 2 layers, 4 heads)
 drawn at ``init_std`` 0.2, so its greedy tokens vary. The JAX side runs
 with 64-bit types off."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import json
 from types import SimpleNamespace
 

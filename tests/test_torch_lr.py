@@ -4,6 +4,7 @@ scheduler's first 50 values, its ``last_epoch`` and its ``state_dict``,
 held EXACTLY (``==`` on Python floats): both are host arithmetic, so
 any difference is a fault."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import math
 
 import numpy as np

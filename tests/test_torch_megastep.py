@@ -13,6 +13,7 @@ sampled steps; the JAX side of that test runs with 64-bit types off, as
 in ``tests/test_torch_sampling.py``.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import contextlib
 from types import SimpleNamespace
 

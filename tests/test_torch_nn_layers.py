@@ -9,6 +9,7 @@ parameter, where the reference differentiates) are held to 1e-5
 absolute and relative unless a case states otherwise.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import numpy as np
 import pytest
 import torch

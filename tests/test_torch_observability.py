@@ -8,6 +8,7 @@ requests, every serving fault site, a replica crash, a kill, a drain, a
 weight swap), the same STAT counters with the same values and the same
 run-log events in the same order."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import collections
 import json
 

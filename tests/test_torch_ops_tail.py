@@ -14,6 +14,7 @@ with JAX's 64-bit types off, the streams the port reproduces) bit for
 bit.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import types
 import zlib
 

@@ -16,6 +16,7 @@ product that differs in its last float32 bits); a bf16 clip within
 and on every add in the reference's Python ``sum``).
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -3,6 +3,7 @@ package, its entry points refuse to run without a device when none is
 named and no CUDA is present, CPU tensors never launch a kernel, and
 its flags keep the JAX package's names and defaults."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import ast
 import importlib
 import inspect
@@ -64,7 +65,8 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "tools" / "torch_train_profile.py",
-              ROOT / "tools" / "torch_trace_drops.py"]
+              ROOT / "tools" / "torch_trace_drops.py",
+              ROOT / "tools" / "torch_launch_queue_probe.py"]
     scanned = {str(f.relative_to(ROOT)) for f in files}
     for module in ("amp/auto_cast.py", "amp/lists.py", "optimizer.py",
                    "ops/optimizer_ops.py", "ops/cuda/flash_attention.py",
@@ -156,6 +158,15 @@ def test_entry_points_raise_without_a_device(monkeypatch):
             make()
 
 
+def _elsewhere(t):
+    """A stand-in for a tensor on a device that is neither the CPU, the
+    card nor meta (none can be made on a host without one): the wrappers
+    read its device first, and raise."""
+    from types import SimpleNamespace
+    return SimpleNamespace(device=torch.device("xpu"), shape=t.shape,
+                           dtype=t.dtype, dim=t.dim)
+
+
 def test_kernel_wrapper_runs_plain_only_on_cpu_and_raises_elsewhere():
     q = torch.zeros(1, 1, 1, 8)
     pool = torch.zeros(2, 1, 4, 8)
@@ -164,9 +175,13 @@ def test_kernel_wrapper_runs_plain_only_on_cpu_and_raises_elsewhere():
     before = pa.launches
     out = pa.paged_attention(q, pool, pool, tables, pos)
     assert out.shape == q.shape and pa.launches == before
+    # a meta tensor (the abstract interpreter's) takes the plain
+    # version's shapes and launches nothing; another device raises
     meta = [t.to("meta") for t in (q, pool, pool, tables, pos)]
+    out = pa.paged_attention(*meta)
+    assert out.is_meta and out.shape == q.shape and pa.launches == before
     with pytest.raises(ValueError, match="cuda or cpu"):
-        pa.paged_attention(*meta)
+        pa.paged_attention(_elsewhere(q), pool, pool, tables, pos)
     with pytest.raises(ValueError, match="together"):
         pa.paged_attention(q, pool, pool, tables, pos,
                            k_scale=torch.zeros(2, 1))
@@ -182,16 +197,26 @@ def test_flash_wrappers_run_plain_only_on_cpu_and_raise_elsewhere():
     assert o.shape == dq.shape == dk.shape == dv.shape == q.shape
     assert tuple(lse.shape) == (2, 32)
     assert fa.launches == before
+    # meta tensors take the plain versions' shapes, launching nothing
     meta = q.to("meta")
     mstats = lse.to("meta")
+    mo, mlse = fa.flash_fwd(meta, meta, meta, True, 0.5)
+    assert mo.is_meta and mo.shape == o.shape and mlse.shape == lse.shape
+    assert fa.flash_bwd_dq(meta, meta, meta, meta, mstats, mstats, True,
+                           0.5).shape == dq.shape
+    assert [t.shape for t in fa.flash_bwd_dkv(
+        meta, meta, meta, meta, mstats, mstats, True, 0.5)] == [dk.shape,
+                                                                 dv.shape]
+    assert fa.flash_attention(meta[None], meta[None], meta[None],
+                              causal=True).shape == (1,) + tuple(q.shape)
+    assert fa.launches == before
+    other = _elsewhere(q)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fa.flash_fwd(meta, meta, meta, True, 0.5)
+        fa.flash_fwd(other, q, q, True, 0.5)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fa.flash_bwd_dq(meta, meta, meta, meta, mstats, mstats, True, 0.5)
+        fa.flash_bwd_dq(other, q, q, o, lse, delta, True, 0.5)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        fa.flash_bwd_dkv(meta, meta, meta, meta, mstats, mstats, True, 0.5)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        fa.flash_attention(meta[None], meta[None], meta[None], causal=True)
+        fa.flash_bwd_dkv(other, q, q, o, lse, delta, True, 0.5)
 
 
 def _ln_calls(x):
@@ -211,7 +236,8 @@ def _pack2_calls(x):
 def test_new_wrappers_run_plain_only_on_cpu_and_raise_elsewhere(calls,
                                                                 shape):
     """The LayerNorm and packed-heads wrappers: plain versions on CPU
-    tensors, no launch counted; a ``meta`` tensor raises."""
+    tensors, no launch counted; a ``meta`` tensor takes the plain
+    versions' shapes; another device raises."""
     before = (dict(ln.launches), dict(fp2.launches))
     x = torch.randn(*shape)
     for call in calls(x):
@@ -220,8 +246,16 @@ def test_new_wrappers_run_plain_only_on_cpu_and_raise_elsewhere(calls,
         assert first.shape == x.shape and bool(torch.isfinite(first).all())
     assert (ln.launches, fp2.launches) == before
     for call in calls(x.to("meta")):
-        with pytest.raises(ValueError, match="cuda or cpu"):
-            call()
+        out = call()
+        first = out[0] if isinstance(out, tuple) else out
+        assert first.is_meta and first.shape == x.shape
+    assert (ln.launches, fp2.launches) == before
+    other = _elsewhere(x)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        if shape == (5, 8):
+            ln.ln_fwd(other, x[0], x[0], 1e-5)
+        else:
+            fp2.packed_flash_fwd(other, x, x, True, 0.5)
 
 
 #: the flags of the replica fleet, the engine's thread, the resilience
@@ -308,6 +342,12 @@ def _same_default(ported, ref) -> bool:
         return True
     if isinstance(ported, torch.dtype):
         return str(ported).replace("torch.", "") == np.dtype(ref).name
+    if isinstance(ported, type) and isinstance(ref, type):
+        # a class of the port is its counterpart's default (enforce's
+        # ``exc=EnforceNotMet``)
+        return (ported.__qualname__ == ref.__qualname__
+                and ported.__module__ == "paddle_tpu_torch"
+                + ref.__module__[len("paddle_tpu"):])
     try:
         same = ported == ref
     except Exception:
@@ -438,6 +478,20 @@ def test_shared_public_names_keep_the_reference_signatures():
         "distributed.fleet.utils.recompute",
         "compiler.CompiledProgram.with_data_parallel",
         "compiler.BuildStrategy")} <= checked
+    # and the analyses, delegation, the Predictor and the profiler
+    assert {f"paddle_tpu_torch.{q}" for q in (
+        "framework.analysis.verify_program", "framework.analysis.Diagnostic",
+        "framework.analysis.VerifyResult.raise_if_errors",
+        "analysis.abstract_interp.interpret_program",
+        "analysis.abstract_interp.abstract_eval_op",
+        "analysis.abstract_interp.InferContext.infer_block",
+        "analysis.recompile.ExecutorCompilePredictor.would_compile",
+        "framework.subgraph.SubgraphDetector.detect",
+        "framework.subgraph.register_delegate_engine",
+        "inference.create_predictor", "inference.Predictor.run",
+        "inference.apply_inference_passes", "profiler.stop_profiler",
+        "profiler.profiler", "profiler.RecordEvent", "enforce.enforce_eq",
+        "framework.program.Program.verify")} <= checked
 
 
 def test_port_tools_keep_the_reference_tools_signatures():
@@ -529,34 +583,29 @@ def test_set_lr_with_a_scope_writes_the_program_lr_like_the_reference():
             opt.minimize(loss)
         return main, startup, loss, opt
 
-    saved = tflags.get_flags(["check_program"])
-    tflags.set_flags({"check_program": False})
-    try:
-        jm, js, jl, jopt = build(JProgram, JL, jun, jguard, JO)
-        tm, _, tl, t_opt = build(Program, TLy, unique_name, program_guard,
-                                 topt)
-        jscope, jexe = JScope(), JExecutor()
-        jexe.run(js, scope=jscope)
-        tscope = scope_from_numpy({n: jscope.get_numpy(n)
-                                   for n in jscope.var_names()}, "cpu")
-        texe = Executor("cpu")
-        x = np.random.RandomState(4).randn(4, 3).astype(np.float32)
-        for lr in (None, 0.5, 0.0):
-            if lr is not None:
-                jopt.set_lr(lr, scope=jscope)
-                t_opt.set_lr(lr, scope=tscope)
-            (a,) = jexe.run(jm, feed={"x": x}, fetch_list=[jl.name],
-                            scope=jscope)
-            (b,) = texe.run(tm, feed={"x": x}, fetch_list=[tl.name],
-                            scope=tscope)
-            np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
-        for n in jscope.var_names():
-            np.testing.assert_allclose(tscope.get_numpy(n),
-                                       jscope.get_numpy(n), rtol=1e-5,
-                                       atol=1e-6)
-        assert float(tscope.get_numpy(t_opt.get_lr_var().name)[0]) == 0.0
-    finally:
-        tflags.set_flags(saved)
+    jm, js, jl, jopt = build(JProgram, JL, jun, jguard, JO)
+    tm, _, tl, t_opt = build(Program, TLy, unique_name, program_guard,
+                             topt)
+    jscope, jexe = JScope(), JExecutor()
+    jexe.run(js, scope=jscope)
+    tscope = scope_from_numpy({n: jscope.get_numpy(n)
+                               for n in jscope.var_names()}, "cpu")
+    texe = Executor("cpu")
+    x = np.random.RandomState(4).randn(4, 3).astype(np.float32)
+    for lr in (None, 0.5, 0.0):
+        if lr is not None:
+            jopt.set_lr(lr, scope=jscope)
+            t_opt.set_lr(lr, scope=tscope)
+        (a,) = jexe.run(jm, feed={"x": x}, fetch_list=[jl.name],
+                        scope=jscope)
+        (b,) = texe.run(tm, feed={"x": x}, fetch_list=[tl.name],
+                        scope=tscope)
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-6)
+    for n in jscope.var_names():
+        np.testing.assert_allclose(tscope.get_numpy(n),
+                                   jscope.get_numpy(n), rtol=1e-5,
+                                   atol=1e-6)
+    assert float(tscope.get_numpy(t_opt.get_lr_var().name)[0]) == 0.0
     eager = topt.SGD(learning_rate=0.1, parameters=[
         ("w", torch.nn.Parameter(torch.ones(2)))])
     eager.set_lr(0.25, scope=Scope())

@@ -11,6 +11,7 @@ past the table. The CUDA kernel itself is held against the plain
 version on the card by ``chip_smoke.py``.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -16,6 +16,7 @@ runner and within ``1e-5 + 1e-4 |ref|`` of plain training (the
 reference's own bound), losses within 1e-5 relative.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import types
 
 import numpy as np
@@ -35,7 +36,6 @@ from paddle_tpu.optimizer import PipelineOptimizer as JPipe
 from paddle_tpu.optimizer import SGDOptimizer as JSGD
 
 import paddle_tpu_torch.layers as TL
-from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.distributed.fleet import pipeline as tpipe
 from paddle_tpu_torch.distributed.fleet.distributed_strategy import \
     DistributedStrategy
@@ -51,14 +51,6 @@ JAX = types.SimpleNamespace(L=JL, Program=JProgram, guard=jguard, un=jun,
 PORT = types.SimpleNamespace(L=TL, Program=Program, guard=program_guard,
                              un=unique_name, dg=device_guard,
                              Pipe=PipelineOptimizer, SGD=SGDOptimizer)
-
-
-@pytest.fixture(autouse=True)
-def _port_flags():
-    saved = tflags.get_flags(["check_program"])
-    tflags.set_flags({"check_program": False})
-    yield
-    tflags.set_flags(saved)
 
 
 def _staged(pkg, n_stages=2, width=16, seed=11, n_mb=4, lr=0.1,

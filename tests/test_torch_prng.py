@@ -6,6 +6,7 @@ hash, ``PRNGKey`` (seeds past 32 bits and negative ones included),
 ``split`` and the random bits bit-equal; ``uniform`` bit-equal; ``gumbel`` within one ulp per logarithm (torch's and XLA's
 ``log`` may each round either way); ``categorical`` the same tokens."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

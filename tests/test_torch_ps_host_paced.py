@@ -11,6 +11,7 @@ before it pushed, so both runs pull the same rows. The losses within
 parameters within ``1e-6 + 1e-5 |ref|``.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import threading
 
 import numpy as np
@@ -23,7 +24,6 @@ from paddle_tpu.framework import Executor as JExecutor
 from paddle_tpu.framework import Scope as JScope
 from paddle_tpu.models.ctr import build_wide_deep_program as jbuild
 
-from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.distributed.ps import (REGISTRY, SparseFeed,
                                              SparseTable, run_host_paced)
 from paddle_tpu_torch.framework import Executor, Scope
@@ -35,10 +35,7 @@ SLOTS, DIM, STEPS = 4, 8, 40
 
 @pytest.fixture(autouse=True)
 def _port_flags():
-    saved = tflags.get_flags(["check_program"])
-    tflags.set_flags({"check_program": False})
     yield
-    tflags.set_flags(saved)
     REGISTRY.clear()
     jst.REGISTRY.clear()
 

@@ -15,6 +15,7 @@ gradient into a step of up to the lr. Its losses within 1e-10 relative,
 every variable within 1e-8 relative Frobenius distance or 1e-9 absolute.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import types
 
 import jax
@@ -59,10 +60,8 @@ PKGS = {
 
 @pytest.fixture(autouse=True)
 def _port_flags():
-    """FLAGS_check_program's verifier waits for ROADMAP A7.3: off for
-    the port here."""
-    saved = tflags.get_flags(["check_program", "check_ir_passes"])
-    tflags.set_flags({"check_program": False})
+    """Every flag this file sets is put back."""
+    saved = tflags.get_flags(["check_ir_passes"])
     yield
     tflags.set_flags(saved)
 
@@ -258,8 +257,9 @@ def test_custom_pass_registration_and_manager():
 def test_build_strategy_passes_through_the_pass_manager():
     """The reference applies BuildStrategy's fusion through
     CompiledProgram; in the port too (``compiler.py``), and the same
-    pipeline through ``PassManager`` gives its program and output;
-    FLAGS_check_ir_passes' verifier waits with A7.3."""
+    pipeline through ``PassManager`` gives its program and output, and
+    under FLAGS_check_ir_passes the verifier finds it clean before and
+    after the pass."""
     from paddle_tpu_torch.compiler import BuildStrategy, CompiledProgram
     feed = {"x": np.random.RandomState(6).randn(8, 8).astype(np.float32)}
     main, startup, out = _mlp(PKGS["port"])
@@ -274,8 +274,8 @@ def test_build_strategy_passes_through_the_pass_manager():
     _close(_run_prog(PKGS["port"], compiled, startup, out.name, feed), ref)
     assert compiled._program.to_json() == fused.to_json()
     tflags.set_flags({"check_ir_passes": True})
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        tir.apply_pass(main, "fuse_elewise_add_act_pass")
+    checked = tir.apply_pass(main, "fuse_elewise_add_act_pass")
+    assert checked.to_json() == fused.to_json()
 
 
 def test_fuse_pass_multiple_chains():

@@ -18,6 +18,7 @@ the CPU, and against what the port's compile tracker observes.
   site that replayed both graphs, exactly.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import inspect
 
 import jax

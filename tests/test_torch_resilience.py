@@ -5,6 +5,7 @@ triggers); ``RetryPolicy`` backs off by the same deterministic jitter,
 retries and gives up the same way; ``RetryBudget`` bounds retries; and
 ``fault_scope`` nests and restores the flags."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import pytest
 
 import paddle_tpu as pt

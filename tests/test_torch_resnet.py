@@ -2,6 +2,7 @@
 CPU, at O0 and O2 (``tests/test_torch_vision.py:resnet_step_case``,
 which states the inputs and tolerances)."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import pytest
 
 from test_torch_vision import resnet_step_case

@@ -26,6 +26,7 @@ frozen clock, so a breaker's cooldown never depends on how long a step
 took. The JAX side runs with 64-bit types off.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import contextlib
 from types import SimpleNamespace
 

@@ -22,6 +22,7 @@ float32, which is what the port reproduces (``paddle_tpu_torch/prng.py``).
   greedy one), a batch with one sampled row does both.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ parameters within 1e-4 relative Frobenius distance or 1e-6 absolute;
 inference fetches across packages within ``1e-6 + 1e-5 |ref|``.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import os
 
 import numpy as np
@@ -24,23 +25,12 @@ from paddle_tpu.framework import Scope as JScope
 
 import paddle_tpu_torch
 from paddle_tpu_torch import dataset as tdataset
-from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import framework_io as tio
 from paddle_tpu_torch import static as tstatic
 from paddle_tpu_torch.fluid_compat import TPUPlace
 from paddle_tpu_torch.framework import Executor, Scope
 from paddle_tpu_torch.models import book
 from paddle_tpu_torch.models.convert import scope_from_numpy
-
-
-@pytest.fixture(autouse=True)
-def _port_flags():
-    """FLAGS_check_program's verifier waits for ROADMAP A7.3: off for the
-    port here, as in the other static-plane tests."""
-    saved = tflags.get_flags(["check_program"])
-    tflags.set_flags({"check_program": False})
-    yield
-    tflags.set_flags(saved)
 
 
 def _readers(ds):

@@ -8,6 +8,7 @@ with each other. The JAX side runs its composed read path
 the Pallas kernel.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import numpy as np
 import pytest
 

@@ -8,6 +8,7 @@ entry, tokens equal to the JAX engine's after its own swap), and the
 in-place pools the captured steps rely on.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

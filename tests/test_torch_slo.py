@@ -10,6 +10,7 @@ deadline passed; ``stats()``'s SLO fields and the
 ``tests/test_serving_slo.py`` (vocab 97, h 32, 2 layers, 4 heads) drawn
 at ``init_std`` 0.2. The JAX side runs with 64-bit types off."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 from types import SimpleNamespace
 
 import jax

@@ -18,6 +18,7 @@ reference's (``tools/soak.py``) on the CPU.
 - the CLI's ``--expect-*`` gates give the reference's exit codes.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import contextlib
 import io
 import json

@@ -25,6 +25,7 @@ the port reproduces. Whole programs: losses within 1e-5 relative and
 state within ``1e-5 + 1e-4 |ref|`` after the steps.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import types
 import zlib
 
@@ -72,12 +73,9 @@ ENC = dict(num_layers=2, d_model=128, num_heads=2, d_ffn=256, seq=64)
 
 @pytest.fixture(autouse=True)
 def _port_flags():
-    """The suite's environment turns on FLAGS_check_program, whose
-    verifier the port has not yet (ROADMAP A7.3): off for the port here,
-    as every other flag this file sets is put back."""
+    """Every flag this file sets is put back."""
     saved = tflags.get_flags(["check_program", "use_pallas_layer_norm",
                               "pallas_min_seq", "check_nan_inf"])
-    tflags.set_flags({"check_program": False})
     yield
     tflags.set_flags(saved)
 
@@ -1071,13 +1069,18 @@ def test_waiting_parts_raise_naming_their_items():
                     feed={"x": np.ones(2, np.float32)}, scope=Scope())
     finally:
         tenv.set_mesh(saved)
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        Program().verify()
+    # the verifier (A7.3) is ported: a clean program verifies clean and
+    # runs under FLAGS_check_program, a broken one raises at its first run
+    assert Program().verify().ok()
     tflags.set_flags({"check_program": True})
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        exe.run(_log_prog(Program), feed={"x": np.ones(2, np.float32)},
-                scope=Scope())
-    tflags.set_flags({"check_program": False})
+    (out,) = exe.run(_log_prog(Program), feed={"x": np.ones(2, np.float32)},
+                     fetch_list=["y"], scope=Scope())
+    np.testing.assert_allclose(out, 0.0)
+    broken = _log_prog(Program)
+    broken.global_block().ops[0].inputs["X"] = ["ghost"]
+    from paddle_tpu_torch.framework import ProgramVerifyError
+    with pytest.raises(ProgramVerifyError, match="ghost"):
+        exe.run(broken, feed={"x": np.ones(2, np.float32)}, scope=Scope())
     prog = Program()
     prog.global_block().append_op("fused_attention_qkv",
                                   {"Q": "q", "K": "k", "V": "v"},
@@ -1086,8 +1089,7 @@ def test_waiting_parts_raise_naming_their_items():
     with pytest.raises(NotImplementedError, match="A5"):
         exe.run(prog, feed={"q": q, "k": q, "v": q}, fetch_list=["o"],
                 scope=Scope())
-    with pytest.raises(NotImplementedError, match="A7.3"):
-        treg.get_op_def("subgraph_delegate")
+    assert treg.get_op_def("subgraph_delegate").not_differentiable
     with pytest.raises(NotImplementedError, match="A5"):
         treg.get_op_def("dpsgd")
     with pytest.raises(NotImplementedError, match="A5"):

@@ -22,6 +22,7 @@ steps (an Adam step is near ``lr x sign(g)``, and the key projection's
 bias has a zero true gradient whose sign is rounding on either side).
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import types
 
 import jax
@@ -81,11 +82,9 @@ PORT = types.SimpleNamespace(
 
 @pytest.fixture(autouse=True)
 def _env():
-    """The port's FLAGS_check_program off (its verifier waits for A7.3)
-    and both packages' distributed environment put back."""
-    saved = tflags.get_flags(["check_program", "pallas_min_seq"])
+    """Both packages' flags and distributed environment put back."""
+    saved = tflags.get_flags(["pallas_min_seq"])
     jsaved = jflags.get_flags(["pallas_min_seq"])
-    tflags.set_flags({"check_program": False})
     envs = [(m, m._mesh, m._data_axis, dict(m._ring_to_axis))
             for m in (jenv, tenv)]
     yield

@@ -14,6 +14,7 @@ The store itself: outcomes, the finished ring, the id-hash sampling and
 of ``tests/test_tracing.py`` (vocab 97, h 32, 2 layers, 4 heads) drawn
 at ``init_std`` 0.2. The JAX side runs with 64-bit types off."""
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import json
 from types import SimpleNamespace
 

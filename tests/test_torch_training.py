@@ -14,6 +14,7 @@ is held within 1e-2 relative, each f32 gradient within 3e-2 relative
 Frobenius error and the parameters within half a learning rate.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

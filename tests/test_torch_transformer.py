@@ -22,6 +22,7 @@ carried across by name (``models.convert.transformer_state_from_numpy``):
   port's plain version), and the outputs agree.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import importlib
 
 import numpy as np

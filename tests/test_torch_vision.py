@@ -23,6 +23,7 @@ sublayer's output dtype is JAX's; ``tests/test_torch_vision_o2.py``
 holds O2's rounding to 1e-4 block by block, where BatchNorm is stable.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import jax.numpy as jnp
 import numpy as np
 import pytest

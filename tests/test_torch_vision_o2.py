@@ -12,6 +12,7 @@ O2 results (the output, the input's gradient, every parameter's gradient
 and every running statistic) lie within 1e-4 (relative Frobenius) of
 JAX's O2 results; they lie within 1.2e-6 here. Each sublayer's output
 dtype equals JAX's. The control: the port run at O0 lies 1.7e-3 or more
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 from JAX's O2 output, gradients and running means, and so fails that
 bound (the running variances move less than 1e-4 between f32 and bf16,
 so they are no control).

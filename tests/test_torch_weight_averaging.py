@@ -12,6 +12,7 @@ Lookahead ``1e-5 + 1e-4 |ref|``); the two packages within
 ``1e-6 + 1e-5 |ref|`` of each other.
 """
 
+import torch_threads  # noqa: F401  (one worker's share of the cores)
 import types
 
 import numpy as np
@@ -27,7 +28,6 @@ from paddle_tpu.framework import unique_name as jun
 
 import paddle_tpu_torch.layers as TL
 import paddle_tpu_torch.optimizer as TO
-from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch.framework import (Executor, Program, Scope,
                                         program_guard, unique_name)
 from paddle_tpu_torch.framework import executor as texec
@@ -37,14 +37,6 @@ JAX = types.SimpleNamespace(L=JL, O=JO, Program=JProgram, Scope=JScope,
 PORT = types.SimpleNamespace(L=TL, O=TO, Program=Program, Scope=Scope,
                              guard=program_guard, un=unique_name,
                              exe=lambda: Executor("cpu"))
-
-
-@pytest.fixture(autouse=True)
-def _port_flags():
-    saved = tflags.get_flags(["check_program"])
-    tflags.set_flags({"check_program": False})
-    yield
-    tflags.set_flags(saved)
 
 
 def _build(pkg, seed, wrap):

@@ -10,8 +10,11 @@ A case id holds its op's name before any ":" (variants of one op).
 cubic resize widens its filter, as ``jax.image.resize`` antialiases);
 ``multiclass_nms:kth_tie`` puts equal scores at a class's k-th place,
 which the pre-NMS truncation admits together; ``deformable_conv`` takes
-offsets off the pixel grid, some taps outside the image.
+offsets off the pixel grid, some taps outside the image;
+``subgraph_delegate`` runs a delegated cluster by the inline engine.
 """
+
+import json
 
 import numpy as np
 
@@ -558,6 +561,19 @@ TAIL_CASES = {
                                  {"batch_size_per_im": 6,
                                   "fg_fraction": 0.5, "class_nums": 3,
                                   "use_random": True, "seed": 1}, None),
+    # delegate_ops: a delegated cluster of three ops, two of its values
+    # leaving it, run by the inline engine
+    "subgraph_delegate": ("subgraph_delegate", lambda r: {
+        "X": [_f(r, 3, 4), _f(r, 3, 4)]}, {
+        "sub_ops": json.dumps([
+            {"type": "elementwise_add", "inputs": {"X": ["a"], "Y": ["b"]},
+             "outputs": {"Out": ["s"]}, "attrs": {}},
+            {"type": "relu", "inputs": {"X": ["s"]},
+             "outputs": {"Out": ["t"]}, "attrs": {}},
+            {"type": "scale", "inputs": {"X": ["t"]},
+             "outputs": {"Out": ["u"]}, "attrs": {"scale": 2.0}}]),
+        "input_names": ["a", "b"], "output_names": ["s", "u"],
+        "engine": "inline"}, None),
 }
 
 #: case id -> the exception both packages raise (no standalone run)
