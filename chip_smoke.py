@@ -226,7 +226,19 @@ step; (e) EMA, ModelAverage and Lookahead around AdamW, 6 steps: each
 shadow within 1 ulp of a torch recurrence of the same operations,
 ``ema.apply`` on a captured test clone, the parameters bit-equal after
 the block; (f) ``CompiledProgram`` with a ``BuildStrategy`` through
-``exe.run``, its losses within 1e-6 of the plain program's.
+``exe.run``, its losses within 1e-6 of the plain program's; 29 data
+and the PS runtime: ``bench.py``'s widedeep model uncut written as
+16,384 examples in 4 slot files, read back through ``InMemoryDataset``
+(the native parser, both shuffles, batch 512) and trained through
+``train_from_dataset`` and the in-graph ``distributed_lookup_table``
+(host ops between the step's graphs) against a native PS server
+process started through ``fleet.init_server`` / ``run_server`` (no CUDA
+context in it): (a) sync, each step held against the port on the CPU
+from the card's state (``wd_step_close``), one capture, a second epoch
+capturing nothing and timed (examples/s, pull and push ms, busy time,
+idle share, graph pieces); (b) phase 22's host-paced transport from the
+same start, losses and tables as (a)'s; (c) hogwild x 4, a key per
+worker; (d) the async and geo communicators; (e) ``DeviceLoader``.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -10228,6 +10240,570 @@ def inference_phase(torch, ctr, card):
     return out
 
 
+# ------------------------------------------------------------ phase 29
+#: phase 29's corpus: bench.py's widedeep stream (26 slots, one feasign
+#: each, ids uniform over [1, WD_IDS), the label the parity of the first
+#: slot's id) written as slot files and read back through the port's
+#: InMemoryDataset
+PS_EXAMPLES, PS_FILES, PS_SEED = 16384, 4, 29
+#: (c)'s hogwild workers; (d)'s short epochs (batches) and geo's k_steps:
+#: 9 batches of 2 pushes each end between two of geo's flushes, so
+#: stop_worker has deltas to flush
+PS_THREADS, PS_SHORT, PS_GEO_K = 4, 9, 8
+#: rows held after (a) and (b): this many ids sampled from the corpus
+PS_SAMPLED = 1024
+#: the server process: fleet.init_server / run_server on the native
+#: server, bound to an ephemeral port it prints; at its end it prints
+#: whether torch made a CUDA context in it
+PS_SERVER_CHILD = r"""
+import json, torch
+from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch.distributed.ps import runtime
+fleet.init(is_collective=False)
+fleet.init_server()
+srv = runtime._server
+print(json.dumps({"server": type(srv).__name__,
+                  "port": getattr(srv, "port", None)}), flush=True)
+fleet.run_server()
+print(json.dumps({"cuda_initialized": torch.cuda.is_initialized()}),
+      flush=True)
+"""
+
+
+def ps_write_slot_files(d):
+    """PS_FILES slot files of PS_EXAMPLES examples (``label 0:id 1:id
+    ...``) from ``RandomState(PS_SEED)``; returns their paths and the
+    ids ``[PS_EXAMPLES, WD_SLOTS]``."""
+    rng = np.random.RandomState(PS_SEED)
+    ids = rng.randint(1, WD_IDS, (PS_EXAMPLES, WD_SLOTS)).astype(np.int64)
+    labels = (ids[:, 0] % 2 == 0).astype(np.int64)
+    paths = []
+    per = PS_EXAMPLES // PS_FILES
+    for f in range(PS_FILES):
+        path = os.path.join(d, f"part-{f:05d}")
+        with open(path, "w") as out:
+            for i in range(f * per, (f + 1) * per):
+                out.write(f"{labels[i]} " + " ".join(
+                    f"{s}:{v}" for s, v in enumerate(ids[i])) + "\n")
+        paths.append(path)
+    return paths, ids
+
+
+class SlotFeeds:
+    """A Dataset facade over prebuilt feeds (``tools/hogwild_bench.py``'s
+    ``_FeedStream``); :meth:`stacked` makes them from a slot dataset's
+    batches, ``slot_0`` .. ``slot_25`` (each ``[b, 1]``) stacked into the
+    program's ``ids`` ``[b, 26]``."""
+
+    def __init__(self, feeds):
+        self.feeds = list(feeds)
+
+    @classmethod
+    def stacked(cls, ds):
+        return cls({"ids": np.concatenate(
+            [f[f"slot_{s}"] for s in range(WD_SLOTS)], axis=1),
+            "label": f["label"]} for f in ds.batch_iterator())
+
+    def batch_iterator(self, drop_last=False):
+        return iter(self.feeds)
+
+
+def ps_server(torch):
+    """Start the server process; returns ``(process, endpoint)``."""
+    env = dict(os.environ, TRAINING_ROLE="PSERVER",
+               PADDLE_PSERVERS_IP_PORT_LIST="127.0.0.1:0",
+               PADDLE_PORT_ID="0", PADDLE_PS_NATIVE="1")
+    proc = subprocess.Popen([sys.executable, "-c", PS_SERVER_CHILD],
+                            env=env, stdout=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    line = proc.stdout.readline()
+    try:
+        info = json.loads(line)
+    except ValueError:
+        proc.kill()
+        raise AssertionError(f"phase 29: the server process said {line!r}")
+    if info["server"] != "NativePSServer":
+        proc.kill()
+        raise AssertionError(f"phase 29: the server is {info['server']}, "
+                             "not the native one")
+    return proc, f"127.0.0.1:{info['port']}"
+
+
+def ps_worker(ep, **strategy):
+    """``fleet.init_worker`` against ``ep`` with a DistributedStrategy of
+    ``strategy``; returns the runtime's PSClient."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import (DistributedStrategy,
+                                                    PaddleCloudRoleMaker)
+    from paddle_tpu_torch.distributed.ps import runtime
+    saved = {k: os.environ.get(k) for k in
+             ("PADDLE_PSERVERS_IP_PORT_LIST", "TRAINING_ROLE")}
+    os.environ["PADDLE_PSERVERS_IP_PORT_LIST"] = ep
+    os.environ["TRAINING_ROLE"] = "TRAINER"
+    try:
+        role = PaddleCloudRoleMaker(is_collective=False)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    st = DistributedStrategy()
+    for k, v in strategy.items():
+        setattr(st, k, v)
+    fleet.init(role, is_collective=False, strategy=st)
+    fleet.init_worker()
+    return runtime._remote_client
+
+
+def ps_program(table, dev):
+    """The in-graph widedeep program over tables ``table`` and ``table +
+    "_wide"``, its startup run into a new scope on ``dev``."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    from paddle_tpu_torch.models.ctr import build_wide_deep_program
+    main, startup, loss, _ = build_wide_deep_program(
+        num_slots=WD_SLOTS, embed_dim=WD_DIM, hidden_sizes=WD_HIDDEN,
+        table_name=table, sparse_lr=0.05, dense_lr=0.01)
+    scope, exe = Scope(), Executor(dev)
+    exe.run(startup, scope=scope)
+    return main, loss, scope, exe
+
+
+def ps_tables(table):
+    """The registry's two tables of ``table`` (made as the pull makes
+    them: sgd at sparse_lr 0.05), remote once a worker is connected."""
+    from paddle_tpu_torch.distributed.ps import REGISTRY
+    return [REGISTRY.get_or_create(table, WD_DIM, optimizer="sgd",
+                                   lr=0.05),
+            REGISTRY.get_or_create(table + "_wide", 1, optimizer="sgd",
+                                   lr=0.05)]
+
+
+def local_table(name, dim, ids, rows):
+    """A host table of the trainer's process holding ``rows`` for
+    ``ids``, put in the registry under ``name`` (a remote factory would
+    make a remote one)."""
+    from paddle_tpu_torch.distributed.ps import REGISTRY, SparseTable
+    t = SparseTable(name, dim, lr=0.05)
+    t.load_state({str(int(k)): r for k, r in zip(ids, rows)})
+    REGISTRY._tables[name] = t
+    return t
+
+
+def epoch_losses(exe, main, loss, scope, data, fetch=None, **kw):
+    """One ``train_from_dataset`` epoch: ``(losses, seconds)``."""
+    losses = []
+    t0 = time.perf_counter()
+    exe.train_from_dataset(main, data, scope,
+                           fetch_list=fetch or [loss.name],
+                           on_step=lambda i, f: losses.append(float(f[0])),
+                           **kw)
+    return losses, time.perf_counter() - t0
+
+
+def ps_sync(torch, data, ep, dev):
+    """(a): one epoch, sync, one thread, each step held against the port
+    on the CPU from the card's state before it (:func:`wd_step_close`,
+    the pushed rows by :func:`wd_close`); a second epoch captures
+    nothing and is timed."""
+    from paddle_tpu_torch.framework import Executor
+    from paddle_tpu_torch.models.convert import scope_from_numpy
+    client = ps_worker(ep)
+    main, loss, scope, exe = ps_program("ps_emb", dev)
+    tables = ps_tables("ps_emb")
+    uniq = np.unique(np.concatenate([b["ids"].ravel() for b in data.feeds]))
+    # every row the epoch reads, drawn once on the server: (b) starts
+    # from these
+    rows0 = [t.pull(uniq) for t in tables]
+    start = {n: scope.get_numpy(n) for n in scope.var_names()}
+    lr_name = next(op.input("LearningRate")[0]
+                   for op in main.global_block().ops if op.type == "sgd")
+    lr = float(start[lr_name].reshape(-1)[0])
+    params = [p.name for p in main.all_parameters()]
+    layers = wd_layers(main)
+    fetch = [loss.name, "ctr_emb@GRAD", "ctr_wide@GRAD"] + [
+        v for h, _, _, z in layers for v in (h, z, z + "@GRAD")]
+    cpu_main, _, _, _ = ps_program("cpu_ps_emb", "cpu")
+    cpu_exe = Executor("cpu")
+    shadow = [dict(), dict()]
+    worst = {}
+    held = {}
+
+    class Checked:
+        """The epoch's batches; before each, the card's state (dense
+        parameters, the batch's rows on the server) is loaded into the
+        CPU's scope and tables."""
+
+        def batch_iterator(self, drop_last=False):
+            for b in data.feeds:
+                held["pre"] = {n: scope.get_numpy(n)
+                               for n in scope.var_names()}
+                ids = np.unique(b["ids"])
+                held["ids"] = ids
+                held["cpu"] = [local_table(f"cpu_ps_emb{s}", t.value_dim,
+                                           ids, t.pull(ids))
+                               for s, t in zip(("", "_wide"), tables)]
+                held["feed"] = b
+                yield b
+
+    def check(i, fd):
+        pre, ids = held["pre"], held["ids"]
+        pd = {n: scope.get_numpy(n) for n in params}
+        cpu_scope = scope_from_numpy(pre, "cpu")
+        fc = cpu_exe.run(cpu_main, feed=held["feed"], fetch_list=fetch,
+                         scope=cpu_scope)
+        pc = {n: cpu_scope.get_numpy(n) for n in params}
+        step = wd_step_close(i, layers, lr, pre, fd, fc, pd, pc)
+        for k_, (t, c) in enumerate(zip(tables, held["cpu"])):
+            got, ref = t.pull(ids), c.pull(ids)
+            step["rows"] = max(step.get("rows", 0.0), wd_close(
+                f"step {i} {t.name} rows after the push", got, ref))
+            shadow[k_].update(zip(ids.tolist(), ref))
+        for k_, v in step.items():
+            worst[k_] = worst.get(k_, 0) + v if k_.startswith("flipped") \
+                else max(worst.get(k_, 0.0), v)
+        losses.append(float(fd[0]))
+
+    losses = []
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    exe.train_from_dataset(main, Checked(), scope, fetch_list=fetch,
+                           on_step=check)
+    want = 0 if dev == "cpu" else 1
+    if exe.captures != want:
+        raise AssertionError(f"phase 29 (a): {exe.captures} captures in the "
+                             "first epoch, expected 1 (its second step)")
+    sampled = np.random.RandomState(PS_SEED).choice(uniq, PS_SAMPLED,
+                                                    replace=False)
+    after = {"rows": [t.pull(sampled) for t in tables],
+             "dense": {n: scope.get_numpy(n) for n in params},
+             "losses": list(losses)}
+    for k_, t in enumerate(tables):
+        worst["sampled_rows"] = max(worst.get("sampled_rows", 0.0), wd_close(
+            f"{t.name}'s {PS_SAMPLED} sampled rows after the epoch",
+            after["rows"][k_], np.stack([shadow[k_][int(x)]
+                                         for x in sampled])))
+    log(f"  (a) sync, one thread: {len(losses)} steps card vs CPU, each "
+        f"from the card's state before it: max abs differences and flipped "
+        f"ReLUs {worst}")
+
+    # the second epoch: the same key, nothing captured; timed
+    calls0 = dict(exe.host_calls)
+    secs0 = dict(exe.host_seconds)
+    losses2, dt = epoch_losses(exe, main, loss, scope, data, fetch)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    if exe.captures != want:
+        raise AssertionError(f"phase 29 (a): {exe.captures} captures after "
+                             "the second epoch, expected 1")
+    n = len(losses2)
+    per = {k: (exe.host_seconds[k] - secs0.get(k, 0.0)) / n * 1e3
+           for k in exe.host_seconds}
+    out = {"steps": n, "step_ms": dt / n * 1e3,
+           "examples_per_s": n * WD_BATCH / dt,
+           "pull_ms": per.get("distributed_lookup_table", 0.0),
+           "push_ms": per.get("distributed_lookup_table_grad", 0.0),
+           "host_calls_per_step": {
+               k: (exe.host_calls[k] - calls0.get(k, 0)) / n
+               for k in exe.host_calls},
+           "captures": exe.captures,
+           "loss_epoch1": float(np.mean(losses)),
+           "loss_epoch2": float(np.mean(losses2)),
+           "card_vs_cpu": worst}
+    if dev != "cpu":
+        entry = next(e for e in exe._cache.values() if e.graph is not None)
+        out["pieces"] = len(entry.graph.pieces)
+        out["host_pieces"] = sum(p[0] == "host" for p in entry.graph.pieces)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        traced = data.feeds[:2]
+        busy, names = device_trace(torch, lambda: [
+            exe.run(main, feed=b, fetch_list=fetch, scope=scope)
+            for b in traced])
+        out["device_busy_ms"] = busy / len(traced)
+        out["idle_share"] = 1.0 - out["device_busy_ms"] / out["step_ms"]
+        out["kernels_per_step"] = sum(names.values()) / len(traced)
+    return out, start, rows0, uniq, sampled, after
+
+
+def ps_host_paced(torch, data, start, rows0, uniq, sampled, after, dev):
+    """(b): the same batches through phase 22's host-paced transport
+    (``run_host_paced``, its prefetcher gated), tables in the trainer's
+    process, from (a)'s start."""
+    from paddle_tpu_torch.distributed.ps import SparseFeed, run_host_paced
+    from paddle_tpu_torch.framework import Executor
+    from paddle_tpu_torch.models.convert import scope_from_numpy
+    from paddle_tpu_torch.models.ctr import build_wide_deep_program
+    main, _, loss, _ = build_wide_deep_program(
+        num_slots=WD_SLOTS, embed_dim=WD_DIM, hidden_sizes=WD_HIDDEN,
+        table_name="hp_emb", sparse_lr=0.05, dense_lr=0.01,
+        host_paced=True)
+    scope = scope_from_numpy(start, dev)
+    exe = Executor(dev)
+    feeds = [SparseFeed("ctr_emb", "hp_emb", WD_DIM, lr=0.05),
+             SparseFeed("ctr_wide", "hp_emb_wide", 1, lr=0.05)]
+    for f, rows in zip(feeds, rows0):
+        local_table(f.table_name, f.value_dim, uniq, rows)
+    done = [threading.Event() for _ in data.feeds]
+    losses = []
+
+    def on_step(i, fetched):
+        losses.append(float(fetched[0]))
+        done[i].set()
+
+    run_host_paced(exe, main, scope, gated(data.feeds, done), feeds,
+                   fetch_list=[loss.name], on_step=on_step, collect=False)
+    ref = np.asarray(after["losses"])
+    got = np.asarray(losses)
+    if got.shape != ref.shape or np.any(np.abs(got - ref) >
+                                        1e-5 * np.abs(ref)):
+        raise AssertionError(f"phase 29 (b): host-paced losses {got} vs "
+                             f"in-graph {ref}")
+    worst = {"loss_rel": float(np.max(np.abs(got - ref) / np.abs(ref)))}
+    for f, ref_rows in zip(feeds, after["rows"]):
+        worst[f.table_name] = ps_hold(f"(b) {f.table_name} rows",
+                                      f.table().pull(sampled), ref_rows)
+    for n, ref_v in after["dense"].items():
+        worst["dense"] = max(worst.get("dense", 0.0), ps_hold(
+            f"(b) {n}", scope.get_numpy(n), ref_v))
+    log(f"  (b) host-paced from the same start: losses and tables as the "
+        f"in-graph run's, largest differences {worst}")
+    return worst
+
+
+def ps_hold(what, got, ref):
+    """``got`` within ``1e-6 + 1e-5 |ref|`` of ``ref``; the largest
+    difference."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = np.abs(got - ref)
+    if got.shape != ref.shape or np.any(err > 1e-6 + 1e-5 * np.abs(ref)):
+        raise AssertionError(f"phase 29: {what}: max abs {err.max():.3e}")
+    return float(err.max())
+
+
+def ps_hogwild(torch, data, ep, dev, sync_out):
+    """(c): MultiTrainer().set_thread(PS_THREADS), two epochs: a key per
+    worker captured on the main thread (PS_THREADS captures), the second
+    epoch capturing nothing; the loss falls, the server's rows equal the
+    distinct ids seen."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.trainer_desc import MultiTrainer
+    client = ps_worker(ep)
+    main, loss, scope, exe = ps_program("hog_emb", dev)
+    desc = MultiTrainer()
+    desc.set_thread(PS_THREADS)
+    l1, _ = epoch_losses(exe, main, loss, scope, data, trainer_desc=desc)
+    caps = exe.captures
+    l2, dt = epoch_losses(exe, main, loss, scope, data, trainer_desc=desc)
+    want = PS_THREADS if dev != "cpu" else 0
+    if caps != want or exe.captures != want:
+        raise AssertionError(f"phase 29 (c): captures {caps} then "
+                             f"{exe.captures}, expected {want} (a key per "
+                             "worker, captured before the threads start)")
+    uniq = np.unique(np.concatenate([b["ids"].ravel() for b in data.feeds]))
+    rows = client.size("hog_emb")
+    if not (np.isfinite(l1 + l2).all() and np.mean(l2) < np.mean(l1)):
+        raise AssertionError(f"phase 29 (c): hogwild losses {np.mean(l1)} "
+                             f"then {np.mean(l2)}")
+    if rows != uniq.size or client.size("hog_emb_wide") != uniq.size:
+        raise AssertionError(f"phase 29 (c): {rows} rows on the server, "
+                             f"{uniq.size} distinct ids seen")
+    st = exe.hogwild_stats
+    out = {"threads": PS_THREADS, "captures": exe.captures,
+           "examples_per_s": len(l2) * WD_BATCH / dt,
+           "thread_examples_per_s": st["thread_steps"] * WD_BATCH
+           / st["thread_seconds"],
+           "main_thread_steps": st["warm_steps"],
+           "loss_epoch1": float(np.mean(l1)),
+           "loss_epoch2": float(np.mean(l2)), "rows": rows}
+    out["vs_sync"] = out["examples_per_s"] / sync_out["examples_per_s"]
+    fleet.stop_worker()
+    log(f"  (c) hogwild x {PS_THREADS}: {out}")
+    return out
+
+
+def ps_async_geo(torch, data, ep, dev):
+    """(d): the communicator's async and geo (k_steps PS_GEO_K) modes, two
+    short epochs each: rows move and the loss falls; geo still holds
+    deltas after the epochs (2 PS_SHORT steps push 4 PS_SHORT times, not
+    a multiple of PS_GEO_K), and stop_worker pushes each: the server's
+    row then moved by -sparse_lr x its delta."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.ps import runtime
+    short = SlotFeeds(data.feeds[:PS_SHORT])
+    out = {}
+    for mode, kw in (("async", {"a_sync": True}),
+                     ("geo", {"a_sync": True, "a_sync_configs": {
+                         "k_steps": PS_GEO_K}})):
+        ps_worker(ep, **kw)
+        table = f"{mode}_emb"
+        main, loss, scope, exe = ps_program(table, dev)
+        tables = ps_tables(table)
+        first = np.unique(short.feeds[0]["ids"])
+        r0 = [t.pull(first) for t in tables]
+        l1, _ = epoch_losses(exe, main, loss, scope, short)
+        l2, _ = epoch_losses(exe, main, loss, scope, short)
+        pending = {}
+        if mode == "geo":
+            comm = runtime.get_communicator()
+            for t in tables:
+                d = comm._geo_deltas.get(t.name, {})
+                ids = np.fromiter(d.keys(), np.int64)
+                pending[t.name] = (ids, np.stack(list(d.values())),
+                                   t.pull(ids))
+            if not all(v[0].size for v in pending.values()):
+                raise AssertionError("phase 29 (d) geo: no delta held "
+                                     "before stop_worker")
+        fleet.stop_worker()
+        moved = [float(np.abs(client_pull(ep, t.name, first, t.value_dim)
+                              - r).max()) for t, r in zip(tables, r0)]
+        if min(moved) <= 0 or not np.mean(l2) < np.mean(l1):
+            raise AssertionError(f"phase 29 (d) {mode}: rows moved {moved}, "
+                                 f"losses {np.mean(l1)} then {np.mean(l2)}")
+        flushed = 0.0
+        for t in tables if mode == "geo" else ():
+            ids, delta, before = pending[t.name]
+            got = client_pull(ep, t.name, ids, t.value_dim)
+            flushed = max(flushed, ps_hold(
+                f"(d) geo {t.name}'s rows flushed at stop_worker", got,
+                before - 0.05 * delta))
+        out[mode] = {"rows_moved_max": moved,
+                     "loss_epoch1": float(np.mean(l1)),
+                     "loss_epoch2": float(np.mean(l2))}
+        if mode == "geo":
+            out[mode]["flushed_rows"] = {n: int(v[0].size)
+                                         for n, v in pending.items()}
+            out[mode]["flush_max_abs"] = flushed
+    log(f"  (d) async and geo (k_steps {PS_GEO_K}): {out}; geo's last "
+        f"deltas reached the server at stop_worker")
+    return out
+
+
+def client_pull(ep, name, ids, dim):
+    from paddle_tpu_torch.distributed.ps.rpc import PSClient
+    c = PSClient([ep])
+    try:
+        return c.pull(name, ids, dim)
+    finally:
+        c.close()
+
+
+def ps_device_loader(torch, data):
+    """(e): DeviceLoader at depth 2: each batch on cuda:0, equal to the
+    host's."""
+    from paddle_tpu_torch.io import DeviceLoader
+    n = 0
+    for host, dev in zip(data.feeds, DeviceLoader(data.feeds, depth=2)):
+        for k, v in host.items():
+            t = dev[k]
+            if t.device != torch.device("cuda", 0) or not np.array_equal(
+                    t.cpu().numpy(), v):
+                raise AssertionError(f"phase 29 (e): batch {n} {k} on "
+                                     f"{t.device} differs from the host's")
+        n += 1
+    if n != len(data.feeds):
+        raise AssertionError(f"phase 29 (e): {n} batches of "
+                             f"{len(data.feeds)}")
+    log(f"  (e) DeviceLoader depth 2: {n} batches on cuda:0, bit-equal to "
+        "the host's")
+    return n
+
+
+def compute_apps():
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout
+    return {int(x) for x in out.split() if x.strip().isdigit()}
+
+
+def ps_phase(torch, ctr, card, dev=None):
+    """Phase 29: ``bench.py``'s widedeep model uncut (26 slots, embed 16,
+    400 x 400 x 400, batch 512, sparse_lr 0.05, dense_lr 0.01) trained
+    from slot files through ``train_from_dataset`` against a PS server
+    process, through the in-graph ``distributed_lookup_table``: the
+    data (InMemoryDataset, native parser, shuffles), the server (native,
+    no CUDA context), (a)-(e) as their functions say. The step runs no
+    port kernel."""
+    from paddle_tpu_torch.dataset import InMemoryDataset, _get_parser
+    from paddle_tpu_torch.distributed.ps import REGISTRY
+    from paddle_tpu_torch.distributed.ps.rpc import PSClient
+    REGISTRY.clear()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        paths, _ = ps_write_slot_files(d)
+        ds = InMemoryDataset(WD_SLOTS)
+        ds.set_filelist(paths)
+        ds.set_batch_size(WD_BATCH)
+        ds.set_pad_to_max_length(True)
+        ds.load_into_memory()
+        ds.global_shuffle(seed=PS_SEED)
+        ds.local_shuffle(seed=PS_SEED + 1)
+        data = SlotFeeds.stacked(ds)
+    if not _get_parser().is_native:
+        raise AssertionError("phase 29: the slot files parsed in Python, "
+                             "not the native parser")
+    if len(data.feeds) != PS_EXAMPLES // WD_BATCH:
+        raise AssertionError(f"phase 29: {len(data.feeds)} batches")
+    t_data = time.perf_counter() - t0
+    proc, ep = ps_server(torch)
+    try:
+        ctr.zero()
+        sync_out, start, rows0, uniq, sampled, after = ps_sync(
+            torch, data, ep, dev)
+        run = ctr.read()
+        ctr.expect(run, {}, "phase 29 (the widedeep step runs no port "
+                   "kernel)")
+        # one process holds a CUDA context: the trainer (nvidia-smi may
+        # name it by its pid outside this container); the server says at
+        # its end that it made none
+        apps = compute_apps() if dev != "cpu" else {os.getpid()}
+        if proc.pid in apps or len(apps) != 1:
+            raise AssertionError(f"phase 29: compute apps {apps}, trainer "
+                                 f"{os.getpid()}, server {proc.pid}")
+        from paddle_tpu_torch.distributed import fleet
+        fleet.stop_worker()
+        hp = ps_host_paced(torch, data, start, rows0, uniq, sampled, after,
+                           dev)
+        hog = ps_hogwild(torch, data, ep, dev, sync_out)
+        ag = ps_async_geo(torch, data, ep, dev)
+        n_dl = ps_device_loader(torch, data) if dev != "cpu" else 0
+    finally:
+        PSClient([ep]).shutdown_servers()
+        try:
+            tail, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            raise
+        REGISTRY.clear()
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 29: the server exited "
+                             f"{proc.returncode}")
+    child = json.loads(tail.strip().splitlines()[-1])
+    if child["cuda_initialized"]:
+        raise AssertionError("phase 29: the server process made a CUDA "
+                             "context")
+    s = sync_out
+    log(f"  [{card}] in-graph widedeep, batch {WD_BATCH}, sync: "
+        f"{s['examples_per_s']:.1f} examples/s, {s['step_ms']:.3f} ms per "
+        f"step ({s['steps']} steps, 0 captures); host pull "
+        f"{s['pull_ms']:.3f} ms and push {s['push_ms']:.3f} ms per step "
+        f"(both tables) against device busy "
+        f"{s.get('device_busy_ms', float('nan')):.3f} ms per step, idle "
+        f"share {s.get('idle_share', float('nan')):.4f}; "
+        f"{s.get('pieces')} graph pieces per key ({s.get('host_pieces')} "
+        f"host); "
+        f"max_memory_allocated {s.get('peak_bytes')} B; hogwild x "
+        f"{PS_THREADS} {hog['examples_per_s']:.1f} examples/s "
+        f"({hog['vs_sync']:.3f} x sync), its threads alone "
+        f"{hog['thread_examples_per_s']:.1f}; compute apps {sorted(apps)}, "
+        f"server {proc.pid}, trainer {os.getpid()}; data {t_data:.1f} s")
+    return {"sync": sync_out, "host_paced": hp, "hogwild": hog,
+            "async_geo": ag, "device_loader_batches": n_dl,
+            "server": "NativePSServer", "parser_native": True,
+            "compute_apps": sorted(apps), "data_s": t_data,
+            "launches": run}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -10543,6 +11119,20 @@ def main():
     t_inf = time.perf_counter()
     inf = inference_phase(torch, ctr, card)
     log(f"  phase 28 took {time.perf_counter() - t_inf:.1f} s [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"== phase 29: data and the PS runtime: bench.py's widedeep model "
+        f"({WD_SLOTS} slots, embed {WD_DIM}, 400 x 400 x 400, batch "
+        f"{WD_BATCH}) trained from {PS_FILES} slot files ({PS_EXAMPLES} "
+        f"examples, InMemoryDataset with the native parser) through "
+        f"train_from_dataset and the in-graph distributed_lookup_table "
+        f"against a native PS server process: (a) sync, card against CPU "
+        f"each step; (b) the host-paced transport from the same start; (c) "
+        f"hogwild x {PS_THREADS}; (d) async and geo; (e) DeviceLoader")
+    t_ps = time.perf_counter()
+    psr = ps_phase(torch, ctr, card)
+    log(f"  phase 29 took {time.perf_counter() - t_ps:.1f} s [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -10730,7 +11320,8 @@ def main():
                       "control_flow": summary(cfl),
                       "detection": summary(dtp),
                       "strategy": summary(stg),
-                      "inference": summary(inf)}), flush=True)
+                      "inference": summary(inf),
+                      "ps_runtime": summary(psr)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

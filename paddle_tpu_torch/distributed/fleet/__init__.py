@@ -1,9 +1,10 @@
 """Fleet — the distributed training facade (the counterpart of
 ``paddle_tpu/distributed/fleet``) at one rank: the strategy chain
 (``fleet_base``), the pipeline runner (``pipeline``), the strategy and
-role maker, and ``metrics``. ``fleet.utils.recompute`` waits for ROADMAP
-A7.5 (it runs on the dygraph tape), ``fleet.utils.fs`` /
-``http_server`` and ``elastic`` for A7.4."""
+role maker, ``metrics``, the PS lifecycle and ``utils`` (the filesystem
+shell, the KV HTTP server). ``fleet.utils.recompute`` waits for ROADMAP
+A7.5 (it runs on the dygraph tape) and ``elastic`` for A8 (it drives the
+checkpoint plane and spawns processes)."""
 
 from . import metrics
 from .distributed_strategy import DistributedStrategy
@@ -42,5 +43,6 @@ def __getattr__(name):
         return utils
     if name == "elastic":
         raise NotImplementedError(
-            "fleet.elastic (the elastic manager) waits for ROADMAP A7.4")
+            "fleet.elastic (the elastic manager: incubate.checkpoint and "
+            "spawned trainers) waits for ROADMAP A8")
     raise AttributeError(name)

@@ -20,8 +20,9 @@ A5: the per-gradient ``c_allreduce_sum`` insertion with DGC
 (:func:`_insert_grad_allreduce`), ZeRO stage 2
 (:func:`_apply_sharding_stage2`), LocalSGD (:func:`_apply_localsgd`) and
 the dygraph ``distributed_model``. At one rank the chain never calls
-them, as the reference's does not. The PS lifecycle waits with the PS
-runtime for A7.4.
+them, as the reference's does not. The PS lifecycle (``init_worker``,
+``init_server``, ``run_server``, ``stop_worker``) is the PS runtime's
+(``distributed/ps/runtime.py``).
 """
 
 from __future__ import annotations
@@ -82,22 +83,22 @@ class Fleet:
     def barrier_worker(self):
         pass  # single-controller SPMD: nothing to rendezvous
 
-    # -- PS lifecycle (the ps runtime: ROADMAP A7.4) ------------------------
+    # -- PS lifecycle (implemented by the ps runtime) ----------------------
     def init_worker(self):
-        raise NotImplementedError(
-            "fleet.init_worker: the PS runtime waits for ROADMAP A7.4")
+        from ..ps import runtime as ps_runtime
+        ps_runtime.init_worker(self)
 
     def init_server(self, *args, **kwargs):
-        raise NotImplementedError(
-            "fleet.init_server: the PS runtime waits for ROADMAP A7.4")
+        from ..ps import runtime as ps_runtime
+        ps_runtime.init_server(self, *args, **kwargs)
 
     def run_server(self):
-        raise NotImplementedError(
-            "fleet.run_server: the PS runtime waits for ROADMAP A7.4")
+        from ..ps import runtime as ps_runtime
+        ps_runtime.run_server(self)
 
     def stop_worker(self):
-        raise NotImplementedError(
-            "fleet.stop_worker: the PS runtime waits for ROADMAP A7.4")
+        from ..ps import runtime as ps_runtime
+        ps_runtime.stop_worker(self)
 
     # -- optimizer ---------------------------------------------------------
     def distributed_optimizer(self, optimizer,

@@ -14,11 +14,12 @@ port keeps).
 
 from __future__ import annotations
 
-import threading
 from collections import deque
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from ...analysis.concurrency import make_lock
 
 
 class SparseTable:
@@ -35,7 +36,8 @@ class SparseTable:
         self.shard_num = shard_num
         self._shards: List[Dict[int, np.ndarray]] = [
             {} for _ in range(shard_num)]
-        self._locks = [threading.Lock() for _ in range(shard_num)]
+        self._locks = [make_lock(f"SparseTable._locks[{i}]")
+                       for i in range(shard_num)]
         self._init = initializer or (
             lambda rng, dim: (rng.standard_normal(dim) * 0.01).astype(
                 np.float32))
@@ -56,7 +58,7 @@ class SparseTable:
         # pushes issued after its pull — the reference's async/
         # half-async semantics (see ps/prefetch.py docstring).
         self._staged: Dict[bytes, "deque"] = {}
-        self._stage_lock = threading.Lock()
+        self._stage_lock = make_lock("SparseTable._stage_lock")
         self._stage_active = 0
 
     def _shard(self, key: int) -> int:

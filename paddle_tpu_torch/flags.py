@@ -453,6 +453,24 @@ define_flag("retry_budget_reserve", 10.0,
             "early failures still retry before any successes have "
             "funded the budget.")
 
+# Parameter-server runtime (distributed/ps): liveness, connect and
+# socket deadlines, and the server make_server prefers.
+define_flag("ps_heartbeat_timeout", 30.0,
+            "Seconds without a heartbeat before a PS server reports a "
+            "worker dead (heart_beat_monitor analog; was hardcoded in "
+            "ps/rpc.py).")
+define_flag("ps_connect_timeout", 30.0,
+            "Deadline in seconds for a PS client to reach a server "
+            "that is still binding its port (workers routinely start "
+            "first).")
+define_flag("ps_socket_timeout", 90.0,
+            "PS client socket timeout in seconds; must exceed the "
+            "server's worst-case in-handler park (the 60 s barrier "
+            "wait) so a slow barrier can't strand a reply.")
+define_flag("ps_prefer_native", True,
+            "make_server: try the C++ PS server first, falling back "
+            "to the Python one when the toolchain is unavailable.")
+
 # Observability plane (observability/): the compile tracker and the
 # structured run log.
 define_flag("warn_recompiles", 0,

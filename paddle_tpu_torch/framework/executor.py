@@ -47,14 +47,21 @@ compile). The executor has no CPU fallback: ``place=None`` means the
 card and raises without one; ``place="cpu"`` runs on the CPU. A
 ``CompiledProgram`` (:mod:`~paddle_tpu_torch.compiler`) runs through
 its ``_compile_for_executor`` door on this same path.
-``train_from_dataset`` / ``infer_from_dataset`` / hogwild (ROADMAP A7.4,
-with ``dataset.py`` and ``io/``) raise NotImplementedError naming their
-items.
+
+Host ops (``py_func``, the proposal ops, the PS pull and push) split a
+captured key (:func:`plan_pieces`); each run hands them its feed as the
+host holds it (``host_feed``), so the PS pull reads its ids without a
+copy back from the card, and the seconds each spends replaying are
+counted by op type (``host_calls``, ``host_seconds``).
+``train_from_dataset`` / ``infer_from_dataset`` step the program over a
+slot dataset's batches; with ``thread_num`` > 1 hogwild workers run keys
+of their own (:meth:`Executor._train_hogwild` says why).
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -126,10 +133,12 @@ class _BlockRunner:
 
     def run_block(self, block_idx: int, env: Dict[str, Any], rng,
                   start: int = 0, stop: Optional[int] = None,
-                  host_loop=None) -> Dict[str, Any]:
+                  host_loop=None, host_feed=None) -> Dict[str, Any]:
         """Run ops ``[start, stop)`` of the block (all by default) on
         ``env``; ``host_loop`` goes to a dynamic ``while`` the executor
-        split its key at."""
+        split its key at, ``host_feed`` (the run's feed on the host) to
+        the ops that read a fed value on the host (the PS pull and
+        push)."""
         block = self.program.blocks[block_idx]
         check = _flags.get_flag("check_nan_inf")
         drops = self.drops if block_idx == 0 else {}
@@ -147,6 +156,8 @@ class _BlockRunner:
             ctx.env = env
             ctx.block_idx = block_idx
             ctx.host_loop = host_loop
+            ctx.host_feed = host_feed
+            ctx.op = op
             ins = {}
             for slot, names in op.inputs.items():
                 vals = []
@@ -243,6 +254,37 @@ def plan_pieces(program: Program, on_card: bool):
     return pieces
 
 
+def _log_train_step(runlog_mod, step, feed, fetch_names, fetched,
+                    step_time_s: float):
+    """Emit one structured ``train_step`` run-log event: step index,
+    loss (the first scalar fetch, by convention the loss), wall step
+    time, and examples/sec from the feed's batch dimension."""
+    if not runlog_mod.enabled():
+        return
+    loss = None
+    if fetched:
+        v = np.asarray(fetched[0])
+        if v.size == 1:
+            loss = float(v.ravel()[0])
+    batch = None
+    for arr in (feed or {}).values():
+        shape = getattr(arr, "shape", None)
+        if shape:
+            batch = int(shape[0])
+            break
+    runlog_mod.log_event(
+        "train_step", step=int(step), loss=loss,
+        step_time_ms=round(step_time_s * 1e3, 3),
+        examples_per_sec=(round(batch / step_time_s, 3)
+                          if batch and step_time_s > 0 else None))
+
+
+def _print_step(step, infos, fetched):
+    msg = ", ".join(f"{n}={np.asarray(v).ravel()[:4]}"
+                    for n, v in zip(infos, fetched))
+    print(f"[train_from_dataset] step {step}: {msg}")
+
+
 def _collect_io(block, feed_names, scope: Scope):
     """Static analysis of a block: which names must come from scope (state),
     and which outputs must be written back.
@@ -317,8 +359,9 @@ class _Entry:
     graph."""
 
     def __init__(self, runner, state_in, written, fetch_names, refs,
-                 pieces=None):
+                 pieces=None, worker=None):
         self.runner = runner
+        self.worker = worker      # the hogwild worker the key is for
         self.state_in, self.written = state_in, written
         self.fetch_names = fetch_names
         self._refs = refs         # (program, scope): ids stay unique
@@ -355,10 +398,18 @@ class Executor:
         # OS-entropy seeded: unseeded programs vary run to run; set
         # program.random_seed for determinism
         self._nprng = np.random.RandomState()
-        self._pool = None         # the graphs' memory pool (card)
+        # the graphs' memory pools (card): one for the executor's keys,
+        # one more per hogwild worker's
+        self._pools: Dict[Any, Any] = {}
         self.captures = 0         # keys captured (card)
         self.graphs = 0           # graphs captured (a split key has several)
         self.host_syncs = 0       # host reads of predicates, the last run
+        # host pieces replayed on the card, by op type: calls and seconds
+        self.host_calls: Dict[str, int] = {}
+        self.host_seconds: Dict[str, float] = {}
+        self._stats_lock = _ccz.make_lock("Executor._stats_lock")
+        # the last hogwild epoch: steps on this thread and in the workers
+        self.hogwild_stats: Dict[str, Any] = {}
 
     # -- public API --------------------------------------------------------
     def run(
@@ -387,14 +438,8 @@ class Executor:
                 f"{type(program).__name__}")
         return self._run(program, feed, fetch_list, scope, return_numpy)
 
-    def _run(self, program: Program, feed, fetch_list, scope,
-             return_numpy: bool):
-        """One run of a Program (``run`` past its fault point and its
-        CompiledProgram door)."""
-        feed = {k: _host_tensor(v) for k, v in (feed or {}).items()}
-        scope = scope or global_scope()
-        fetch_names = [f.name if isinstance(f, Variable) else str(f)
-                       for f in (fetch_list or [])]
+    @staticmethod
+    def _key(program, feed, fetch_names, scope, worker):
         feed_sig = tuple(sorted(
             (k, tuple(v.shape), str(v.dtype).replace("torch.", ""))
             for k, v in feed.items()))
@@ -402,8 +447,25 @@ class Executor:
         # first run"; the entry keeps program and scope alive, so an id
         # cannot be reused by another object while its entry exists
         scope_sig = hash(frozenset(scope.all_var_names()))
-        key = (id(program), program._version, feed_sig, tuple(fetch_names),
-               id(scope), scope_sig, _flags.version())
+        return (id(program), program._version, feed_sig, tuple(fetch_names),
+                id(scope), scope_sig, _flags.version(), worker)
+
+    def _run(self, program: Program, feed, fetch_list, scope,
+             return_numpy: bool, worker=None, may_capture=True,
+             snapshot=False):
+        """One run of a Program (``run`` past its fault point and its
+        CompiledProgram door); ``worker`` (a hogwild worker's index)
+        gives the run a key, and on the card graphs and a memory pool,
+        of its own; with ``may_capture`` False a key that holds no graph
+        yet runs eagerly (a hogwild thread never captures), and with
+        ``snapshot`` an eager run reads copies of the state (a hogwild
+        thread: another worker's in-place writes must not reach this
+        step's autograd graph), whose new values it writes back."""
+        feed = {k: _host_tensor(v) for k, v in (feed or {}).items()}
+        scope = scope or global_scope()
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in (fetch_list or [])]
+        key = self._key(program, feed, fetch_names, scope, worker)
         entry = self._cache.get(key)
         new = entry is None
         t0 = time.perf_counter()
@@ -413,27 +475,31 @@ class Executor:
                 entry = self._cache.get(key)
                 if entry is None:
                     entry = self._build(program, feed, fetch_names, scope)
+                    entry.worker = worker
                     self._cache[key] = entry
         state = self._state(entry, scope)
         rng = self._next_rng(program)
         dev = self.device
         graphs = (dev.type == "cuda" and _jit.capture_enabled()
                   and not _flags.get_flag("check_nan_inf"))
-        if graphs and entry.graph is None and entry.runs >= 1:
+        if graphs and entry.graph is None and entry.runs >= 1 \
+                and may_capture:
             fetches = self._capture(entry, scope, state, feed, rng)
             self._compiled(feed, t0)
         elif graphs and entry.graph is not None:
             fetches = self._replay(entry, feed, rng)
         else:
+            if snapshot:
+                state = {n: v.clone() for n, v in state.items()}
             feed_dev = (self._feed_buffers(entry, feed) if dev.type == "cuda"
                         else {k: v.to(dev) for k, v in feed.items()})
             rng_dev = rng.to(dev)
             if dev.type == "cuda":
                 fetches = _jit.warm_up(dev, self._eager, entry, scope,
-                                       state, feed_dev, rng_dev)
+                                       state, feed_dev, rng_dev, feed)
             else:
                 fetches = self._eager(entry, scope, state, feed_dev,
-                                      rng_dev)
+                                      rng_dev, feed)
             if new and dev.type != "cuda":
                 self._compiled(feed, t0)
         entry.runs += 1
@@ -447,18 +513,207 @@ class Executor:
                            fetch_list: Optional[Sequence[Any]] = None,
                            fetch_info: Optional[Sequence[str]] = None,
                            print_period: Optional[int] = None,
-                           debug: bool = False, trainer_desc=None):
-        """One epoch over a Dataset: waits with ``dataset.py`` and ``io/``
-        (ROADMAP A7.4)."""
-        raise NotImplementedError(
-            "train_from_dataset (and hogwild) wait for dataset.py and io/ "
-            "(ROADMAP A7.4)")
+                           debug: bool = False, trainer_desc=None, *,
+                           on_step=None):
+        """Run one epoch over a Dataset (analog of executor.py:1597
+        train_from_dataset -> MultiTrainer::Run, multi_trainer.cc:120):
+        each batch of ``dataset.batch_iterator()`` feeds one ``run`` of
+        the program (one key per batch signature: a captured step on the
+        card). Explicit arguments win over ``trainer_desc``'s;
+        ``print_period`` defaults to 100; a ``trainer_desc`` with
+        ``thread_num`` > 1 runs hogwild workers (:meth:`_train_hogwild`).
+        Returns the fetched values of the final batch, printing every
+        ``print_period`` steps with ``debug``. ``on_step(step, fetched)``
+        (the port's addition) sees every step's fetches."""
+        if dataset is None:
+            raise ValueError("train_from_dataset requires a dataset")
+        if trainer_desc is not None:
+            # TrainerDesc config plane (trainer_desc.py parity);
+            # explicit arguments always win over the desc
+            fetch_list = fetch_list or trainer_desc._fetch_vars
+            fetch_info = fetch_info or trainer_desc._fetch_info
+            if print_period is None:
+                print_period = trainer_desc._print_period
+            debug = debug or bool(trainer_desc._fetch_vars)
+        if print_period is None:
+            print_period = 100
+        scope = scope or global_scope()
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in (fetch_list or [])]
+        thread_num = int(getattr(trainer_desc, "_thread_num", 1) or 1) \
+            if trainer_desc is not None else 1
+        if thread_num > 1:
+            return self._train_hogwild(program, dataset, scope,
+                                       fetch_names, thread_num,
+                                       debug=debug,
+                                       fetch_info=fetch_info,
+                                       print_period=print_period,
+                                       on_step=on_step)
+        from ..observability import runlog as _runlog
+        last = None
+        for step, feed in enumerate(dataset.batch_iterator()):
+            t0 = time.perf_counter()
+            last = self.run(program, feed=feed, fetch_list=fetch_names,
+                            scope=scope)
+            _log_train_step(_runlog, step, feed, fetch_names, last,
+                            time.perf_counter() - t0)
+            if on_step is not None:
+                on_step(step, last)
+            if debug and fetch_names and step % print_period == 0:
+                _print_step(step, fetch_info or fetch_names, last)
+        return last
+
+    def _train_hogwild(self, program, dataset, scope, fetch_names,
+                       thread_num: int, debug: bool = False,
+                       fetch_info=None, print_period: int = 100, *,
+                       on_step=None):
+        """Hogwild-style concurrent device workers (TrainerDesc
+        thread_num > 1; analog of hogwild_worker.cc under
+        MultiTrainer::Run): N threads drain one shared batch queue and
+        step the program against the SAME scope, lock-free. Racing
+        parameter writes are last-writer-wins — the hogwild contract —
+        while host sparse tables stay consistent through their per-shard
+        locks.
+
+        The reference's N threads share one compiled step. One key's
+        CUDA graphs hold their feeds and intermediates by address, so two
+        threads replaying one key would race on them, and a capture
+        fails while another thread launches work. So each worker runs a
+        key of its own (``_run``'s ``worker``), with graphs from a
+        memory pool of its own, and every key is captured on the calling
+        thread, one after the other, before the threads start: worker
+        0's first batch is its eager run (the first batch runs
+        single-threaded, as in the reference), its second the capture,
+        then the same for worker 1, and so on (on the CPU, which
+        captures nothing, only the first batch runs here). The threads
+        then only replay; a batch of another signature runs eagerly in
+        its thread and is never captured there. The parameters are the
+        scope's tensors, shared in place by every worker's graphs: last
+        writer wins. An eager run in a thread (every run on the CPU)
+        reads a copy of the state, as the reference's step reads the
+        scope's arrays when it is called, and writes its result back:
+        last writer wins there too. ``captures`` counts one key per
+        worker."""
+        import queue as _queue
+
+        if self.donate_state:
+            raise ValueError(
+                "hogwild (thread_num > 1) is incompatible with "
+                "donate_state=True: concurrent workers would donate the "
+                "same scope buffers another worker is still reading — "
+                "use a non-donating Executor or thread_num=1")
+        program = program or default_main_program()
+        on_card = (self.device.type == "cuda" and _jit.capture_enabled()
+                   and not _flags.get_flag("check_nan_inf"))
+        it = dataset.batch_iterator()
+        last_holder = {0: None}
+        step_counter = [0]
+        counter_lock = _ccz.make_lock("Executor._hogwild_counter")
+
+        def report(step, r):
+            if on_step is not None:
+                on_step(step, r)
+            if (debug and fetch_names
+                    and step % max(print_period, 1) == 0):
+                _print_step(step, fetch_info or fetch_names, r)
+
+        def warm(w) -> bool:
+            """Run batches of worker ``w``'s key here until it holds a
+            graph (the CPU: one batch); False when the data ran out."""
+            while True:
+                feed = next(it, None)
+                if feed is None:
+                    return False
+                r = self._run(program, feed, fetch_names, scope, True,
+                              worker=w)
+                step = step_counter[0]
+                step_counter[0] += 1
+                last_holder[0] = r
+                report(step, r)
+                if not on_card or self._held_graph(
+                        program, feed, fetch_names, scope, w):
+                    return True
+
+        for w in (range(thread_num) if on_card else (0,)):
+            if not warm(w):
+                return last_holder[0]
+        warm_steps = step_counter[0]
+
+        q: "_queue.Queue" = _queue.Queue(maxsize=thread_num * 2)
+        errors: list = []
+
+        def worker(w):
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                try:
+                    r = self._run(program, item, fetch_names, scope, True,
+                                  worker=w, may_capture=False,
+                                  snapshot=True)
+                    with counter_lock:
+                        step = step_counter[0]
+                        step_counter[0] += 1
+                        last_holder[0] = r
+                    report(step, r)
+                except BaseException as e:  # surfaced after join
+                    errors.append(e)
+                    return
+
+        threads = [threading.Thread(target=worker, args=(w,), daemon=True,
+                                    name=f"hogwild-{w}")
+                   for w in range(thread_num)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+
+        def put_checked(item) -> bool:
+            """Bounded put that never deadlocks: if every worker died on
+            errors, stop producing and surface the failure."""
+            while True:
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except _queue.Full:
+                    if len(errors) >= thread_num:
+                        return False
+
+        try:
+            for feed in it:
+                if errors:
+                    break
+                if not put_checked(feed):
+                    break
+        finally:
+            # always shut workers down — a dataset iterator that raises
+            # mid-epoch must not leak N threads parked on q.get()
+            for _ in threads:
+                if not put_checked(None):
+                    break
+            for t in threads:
+                t.join()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.hogwild_stats = {
+            "warm_steps": warm_steps,
+            "thread_steps": step_counter[0] - warm_steps,
+            "thread_seconds": time.perf_counter() - t0}
+        if errors:
+            raise errors[0]
+        return last_holder[0]
+
+    def _held_graph(self, program, feed, fetch_names, scope, worker):
+        """Whether the key of this run holds a captured graph."""
+        feed = {k: _host_tensor(v) for k, v in feed.items()}
+        entry = self._cache.get(self._key(program, feed, fetch_names, scope,
+                                          worker))
+        return entry is not None and entry.graph is not None
 
     def infer_from_dataset(self, program=None, dataset=None,
                            scope: Optional[Scope] = None,
                            fetch_list: Optional[Sequence[Any]] = None,
                            **kw):
-        """Inference twin of train_from_dataset: waits with it."""
+        """Inference twin of train_from_dataset (executor.py parity)."""
         return self.train_from_dataset(program, dataset, scope,
                                        fetch_list, **kw)
 
@@ -528,13 +783,13 @@ class Executor:
             state[n] = v
         return state
 
-    def _body(self, entry, scope, state, feed, rng, capturing=False):
+    def _body(self, entry, scope, state, feed, rng, host_feed=None):
         """One step: run the block, take the fetches, write the changed
         state into the scope's tensors."""
         env = dict(state)
         env.update(feed)
-        env = entry.runner.run_block(0, env, rng)
-        return self._finish(entry, scope, env, capturing)
+        env = entry.runner.run_block(0, env, rng, host_feed=host_feed)
+        return self._finish(entry, scope, env, False)
 
     def _finish(self, entry, scope, env, capturing):
         """The fetches of ``env`` (clones unless capturing) and its state
@@ -565,16 +820,16 @@ class Executor:
                 scope.set_var(n, v.clone())
         return fetches
 
-    def _eager(self, entry, scope, state, feed, rng):
+    def _eager(self, entry, scope, state, feed, rng, host_feed=None):
         with torch.no_grad():
-            return self._body(entry, scope, state, feed, rng)
+            return self._body(entry, scope, state, feed, rng, host_feed)
 
-    def _capture_graph(self, fn):
-        """``fn()`` captured as one graph of the executor's pool: ``(graph,
-        delta, bodies)``."""
+    def _capture_graph(self, fn, pool):
+        """``fn()`` captured as one graph of ``pool``: ``(graph, delta,
+        bodies)``."""
         from ..ops.cuda import cond_graph
         with cond_graph.collecting() as bodies:
-            graph, _, delta = _jit.capture(self.device, fn, [], self._pool)
+            graph, _, delta = _jit.capture(self.device, fn, [], pool)
         for b in bodies:
             b.count_kernels()
         self.graphs += 1
@@ -593,8 +848,9 @@ class Executor:
         last graph writes the state back. Returns the fetches."""
         from ..ops.control_flow_ops import HostLoop
         dev = self.device
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
+        pool = self._pools.get(entry.worker)
+        if pool is None:
+            pool = self._pools[entry.worker] = torch.cuda.graph_pool_handle()
         feeds = self._feed_buffers(entry, feed)
         rng_buf = rng.to(dev, copy=True)
         env = dict(state)
@@ -604,12 +860,14 @@ class Executor:
         with torch.no_grad():
             for a, b, host in entry.pieces:
                 if host:
-                    loop = HostLoop(self._capture_graph,
-                                    lambda g: self._replay_graph(*g))
+                    loop = HostLoop(
+                        lambda fn: self._capture_graph(fn, pool),
+                        lambda g: self._replay_graph(*g))
                     op = ops[a]
                     ins = {n: env[n] for names in op.inputs.values()
                            for n in names}
-                    runner.run_block(0, env, rng_buf, a, b, host_loop=loop)
+                    runner.run_block(0, env, rng_buf, a, b, host_loop=loop,
+                                     host_feed=feed)
                     bufs = {n: env[n].clone() for names in
                             op.outputs.values() for n in names if n in env}
                     env.update(bufs)
@@ -622,7 +880,7 @@ class Executor:
                     if last:
                         out.extend(self._finish(entry, scope, env, True))
 
-                graph, delta, bodies = self._capture_graph(fn)
+                graph, delta, bodies = self._capture_graph(fn, pool)
                 self._replay_graph(graph, delta, bodies)
                 pieces.append(("graph", graph, delta, bodies))
         self.captures += 1
@@ -650,17 +908,26 @@ class Executor:
             buf.copy_(feed[k], non_blocking=True)
         g.rng.copy_(rng, non_blocking=True)
         runner = entry.runner
+        ops = entry._refs[0].global_block().ops
         with torch.no_grad():
             for p in g.pieces:
                 if p[0] == "graph":
                     self._replay_graph(*p[1:])
                     continue
                 _, a, ins, bufs, loop = p
+                t0 = time.perf_counter()
                 env = runner.run_block(0, dict(ins), g.rng, a, a + 1,
-                                       host_loop=loop)
+                                       host_loop=loop, host_feed=feed)
                 for n, buf in bufs.items():
                     buf.copy_(env[n])
+                self._note_host(ops[a].type, time.perf_counter() - t0)
         return [o.clone() for o in g.outputs]
+
+    def _note_host(self, op_type: str, seconds: float):
+        with self._stats_lock:
+            self.host_calls[op_type] = self.host_calls.get(op_type, 0) + 1
+            self.host_seconds[op_type] = \
+                self.host_seconds.get(op_type, 0.0) + seconds
 
     @staticmethod
     def _compiled(feed, t0):

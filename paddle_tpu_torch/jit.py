@@ -69,6 +69,7 @@ address. :func:`no_capture` turns every capture off, as
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 import weakref
@@ -280,14 +281,26 @@ def capture(dev, fn, args, pool=None, mode="global"):
     graph keeps its
     ``cudaGraph_t`` beside the executable, which is instantiated here,
     so :func:`graph_kernels` can count what a replay launches. One
-    capture or warm-up runs at a time (``_capture_lock``)."""
+    capture or warm-up runs at a time (``_capture_lock``). The cyclic
+    garbage collector is held off during the capture: an unreachable
+    object that owns a graph (an executor and its keys' graphs form a
+    cycle) would otherwise be destroyed inside it, and destroying a graph
+    invalidates a capture in progress."""
     from .ops.cuda import _launches
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with _capture_lock, _launches.recording() as delta:
-        with torch.cuda.graph(graph, pool=pool, stream=_side_stream(dev),
-                              capture_error_mode=mode):
-            out = fn(*args)
-        graph.instantiate()
+    with _capture_lock:
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with _launches.recording() as delta:
+                with torch.cuda.graph(graph, pool=pool,
+                                      stream=_side_stream(dev),
+                                      capture_error_mode=mode):
+                    out = fn(*args)
+                graph.instantiate()
+        finally:
+            if collecting:
+                gc.enable()
     return graph, out, delta
 
 

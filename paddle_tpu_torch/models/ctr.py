@@ -8,12 +8,11 @@ reference:
 - the eager classes (:class:`WideDeep`, :class:`DeepFM`) keep the
   embedding on the device;
 - :func:`build_wide_deep_program` emits the STATIC parameter-server
-  program whose embedding rows come from host sparse tables
-  (``host_paced=True``: the rows are dense feeds, their ``@GRAD``s
-  fetched and pushed by :func:`~paddle_tpu_torch.distributed.ps.run_host_paced`).
-  The in-graph transport (``host_paced=False``, the
-  ``distributed_lookup_table`` op's host callback inside the compiled
-  step) waits for ROADMAP A7.4.
+  program whose embedding rows come from host sparse tables: through
+  the in-graph ``distributed_lookup_table`` (host ops between the
+  step's graphs, the default) or host-paced (``host_paced=True``: the
+  rows are dense feeds, their ``@GRAD``s fetched and pushed by
+  :func:`~paddle_tpu_torch.distributed.ps.run_host_paced`).
 """
 
 from __future__ import annotations
@@ -131,39 +130,58 @@ def build_wide_deep_program(num_slots: int = 8, embed_dim: int = 8,
                             host_paced: bool = False):
     """Static PS-tier Wide&Deep: the sparse embedding on host tables, the
     dense tower trained with SGD on the device, the program of
-    ``bench.py``'s ``widedeep`` config. ``host_paced=True`` makes the
-    rows plain DENSE feed vars (``ctr_emb`` ``[b, slots, embed]``,
-    ``ctr_wide`` ``[b, slots, 1]``, stop_gradient=False) whose gradients
-    are fetchable ``@GRAD`` vars; ``host_paced=False`` (the in-graph
-    ``distributed_lookup_table``) raises NotImplementedError naming
-    ROADMAP A7.4.
+    ``bench.py``'s ``widedeep`` config. Two sparse transports:
+
+    - default (in-graph): the embedding pull/push is the
+      ``distributed_lookup_table`` op and its grad, host ops that split
+      the captured step on the card (``ops/ps_ops.py``): the rows reach
+      the tower inside ``Executor.run``, and ``train_from_dataset``
+      drives it over a slot dataset;
+    - ``host_paced=True``: the rows are plain DENSE feed vars
+      (``ctr_emb`` ``[b, slots, embed]``, ``ctr_wide`` ``[b, slots, 1]``,
+      stop_gradient=False) whose gradients are fetchable ``@GRAD`` vars;
+      the pull -> compute -> push loop lives on the host
+      (``distributed/ps/host_paced.py``).
 
     Returns (main, startup, loss_var, logit_var); feed ``ids``
-    [b, num_slots] int64 and ``label`` [b, 1] float32 plus the two row
-    feeds.
+    [b, num_slots] int64 and ``label`` [b, 1] float32 (plus the two row
+    feeds in host_paced mode).
     """
-    if not host_paced:
-        raise NotImplementedError(
-            "build_wide_deep_program(host_paced=False): the in-graph "
-            "distributed_lookup_table transport waits for ROADMAP A7.4")
     from .. import layers as L
     from ..framework import Program, program_guard, unique_name
     from ..optimizer import SGD
 
     main, startup = Program(), Program()
     with program_guard(main, startup), unique_name.guard():
+        blk = main.global_block()
         L.data("ids", [num_slots], dtype="int64")
         label = L.data("label", [1])
-        emb = L.data("ctr_emb", [num_slots, embed_dim])
-        emb.stop_gradient = False
+        if host_paced:
+            emb = L.data("ctr_emb", [num_slots, embed_dim])
+            emb.stop_gradient = False
+        else:
+            emb = blk.create_var("ctr_emb",
+                                 shape=[-1, num_slots, embed_dim])
+            blk.append_op("distributed_lookup_table", {"Ids": "ids"},
+                          {"Out": "ctr_emb"},
+                          {"table_names": [table_name],
+                           "value_dim": embed_dim,
+                           "sparse_lr": sparse_lr})
         deep = L.reshape(emb, [-1, num_slots * embed_dim])
         for h in hidden_sizes:
             deep = L.fc(deep, h, act="relu")
         deep_logit = L.fc(deep, 1)
         # wide order-1 path: its own dim-1 table summed straight into
         # the logit
-        wide = L.data("ctr_wide", [num_slots, 1])
-        wide.stop_gradient = False
+        if host_paced:
+            wide = L.data("ctr_wide", [num_slots, 1])
+            wide.stop_gradient = False
+        else:
+            wide = blk.create_var("ctr_wide", shape=[-1, num_slots, 1])
+            blk.append_op("distributed_lookup_table", {"Ids": "ids"},
+                          {"Out": "ctr_wide"},
+                          {"table_names": [table_name + "_wide"],
+                           "value_dim": 1, "sparse_lr": sparse_lr})
         wide_sum = L.reduce_sum(wide, dim=[1])
         logit = L.elementwise_add(deep_logit, wide_sum)
         loss = L.reduce_mean(

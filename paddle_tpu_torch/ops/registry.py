@@ -24,14 +24,14 @@ The lowering modules (``math_ops``, ``tensor_ops``, ``nn_ops``,
 ``fused_ops``, ``detection_ops``, ``proposal_ops``, ``delegate_ops``,
 ``quant_ops``, ``control_flow_ops``, ``rnn_ops``, ``loss_ops``,
 ``linalg_ops``, ``image_ops``, ``index_ops``, ``ctr_ops``,
-``structured_ops``, ``misc_ops``) are
+``structured_ops``, ``misc_ops``, ``ps_ops``) are
 imported at the first lookup, so importing the registry alone stays
 light; :data:`OPS` is complete after any call of :func:`get_op_def`,
 :func:`execute`, :func:`is_registered`, :func:`registered_ops`,
 :func:`declared` or :func:`op_version_map`.
 
-Waiting ops (:data:`WAITING`: the collectives, ``dpsgd``, the PS ops)
-have lowerings in the reference only. ``collective_ops``, ``ps_ops`` and
+Waiting ops (:data:`WAITING`: the collectives and ``dpsgd``) have
+lowerings in the reference only. ``collective_ops`` and
 ``optimizer_ops`` declare them (:func:`declare_waiting`) with the
 reference's registry fields and static infer rules, so the verifier and
 the abstract interpreter (:func:`declared`) treat a program that holds
@@ -164,7 +164,8 @@ LOWERING_MODULES = ("math_ops", "tensor_ops", "nn_ops", "reduce_ops",
                     "fused_ops", "detection_ops", "proposal_ops",
                     "delegate_ops", "quant_ops", "control_flow_ops",
                     "rnn_ops", "loss_ops", "linalg_ops", "image_ops",
-                    "index_ops", "ctr_ops", "structured_ops", "misc_ops")
+                    "index_ops", "ctr_ops", "structured_ops", "misc_ops",
+                    "ps_ops")
 _loaded = False
 # op type -> (its module's place in LOWERING_MODULES, registration number):
 # other modules of the port import some lowering modules first, so the
@@ -173,7 +174,7 @@ _ORDER: Dict[str, Tuple[int, int]] = {}
 
 
 #: the modules that declare waiting ops (:func:`declare_waiting`)
-WAITING_MODULES = ("collective_ops", "ps_ops")
+WAITING_MODULES = ("collective_ops",)
 
 
 def _load():
@@ -235,9 +236,6 @@ WAITING = {
         "c_concat", "c_split", "c_identity", "c_sync_calc_stream",
         "c_sync_comm_stream", "barrier", "c_embedding", "partial_allgather",
         "sync_batch_norm", "dpsgd")},
-    **{op: "A7.4 (the parameter-server runtime)" for op in (
-        "distributed_lookup_table", "distributed_lookup_table_grad", "send",
-        "recv")},
 }
 
 #: the waiting ops' definitions (:func:`declare_waiting`), apart from

@@ -351,9 +351,9 @@ def _waiting_ops_program(P, nranks_bad=False):
 
 
 def test_waiting_ops_rules_like_the_reference():
-    """The collectives and the PS ops wait for A5 / A7.4 in the port; their
-    declared rules give the reference's shapes, and running the PS pull
-    raises instead of touching a host table."""
+    """The collectives wait for A5 in the port and the PS ops are host
+    ops; the rules of both give the reference's shapes, and the PS pull,
+    run, fills the rule's shape from a host table."""
     for bad in (False, True):
         jr = JA.interpret_program(_waiting_ops_program(JProgram, bad))
         tr = TA.interpret_program(_waiting_ops_program(Program, bad))
@@ -371,10 +371,19 @@ def test_waiting_ops_rules_like_the_reference():
     assert r.shape_of("ce").shape == (4, 1, 6)
     errs = TA.interpret_program(_waiting_ops_program(Program, True)).errors
     assert len(errs) == 1 and "divisible" in errs[0].message
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        treg.execute(treg.LoweringContext(device="cpu"),
-                     "distributed_lookup_table", {"Ids": [np.zeros(2)]},
-                     {"value_dim": 4})
+    # the PS pull (A7.4) runs on a host table, with the rule's shape
+    from paddle_tpu_torch.distributed.ps import REGISTRY
+    try:
+        out = treg.execute(treg.LoweringContext(device="cpu"),
+                           "distributed_lookup_table",
+                           {"Ids": [np.array([3, 5], np.int64)]},
+                           {"value_dim": 4, "table_names": ["interp_t"]})
+        assert tuple(out["Out"][0].shape) == (2, 4)
+        np.testing.assert_array_equal(
+            out["Out"][0].numpy(),
+            REGISTRY.get("interp_t").pull(np.array([3, 5], np.int64)))
+    finally:
+        REGISTRY.clear()
 
 
 def test_unknown_op_is_warning_not_error():

@@ -22,7 +22,9 @@ import paddle_tpu_torch
 from paddle_tpu_torch import dataset as tdataset
 from paddle_tpu_torch import flags as tflags
 from paddle_tpu_torch import framework_io as tio
+from paddle_tpu_torch import io as tio_pkg
 from paddle_tpu_torch import optimizer as topt
+from paddle_tpu_torch.distributed import fleet as tfleet
 from paddle_tpu_torch.models import generation as tgen
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.nn import functional as TF
@@ -119,7 +121,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "distributed/fleet/distributed_strategy.py",
                    "distributed/fleet/role_maker.py",
                    "distributed/fleet/metrics.py",
-                   "distributed/fleet/utils/__init__.py"):
+                   "distributed/fleet/utils/__init__.py",
+                   "native/__init__.py", "io/__init__.py",
+                   "io/dataloader.py", "io/device_loader.py", "reader.py",
+                   "trainer_desc.py", "ops/ps_ops.py",
+                   "distributed/ps/rpc.py",
+                   "distributed/ps/native_server.py",
+                   "distributed/ps/runtime.py",
+                   "distributed/fleet/utils/fs.py",
+                   "distributed/fleet/utils/http_server.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
     bad = {(str(f.relative_to(ROOT)), root) for f in files
            for root in _imported_roots(f)
@@ -287,7 +297,7 @@ FLEET_FLAGS = (
 def test_flags_keep_jax_names_and_defaults():
     ported = tflags.list_flags()
     jax_flags = jflags.list_flags()
-    assert len(ported) == 65
+    assert len(ported) == 69
     assert ported["sanitize_locks"]["default"] is False
     for name in ("devprof_peak_flops", "devprof_peak_hbm_gbps"):
         assert ported[name]["default"] == jax_flags[name]["default"] == 0.0
@@ -298,7 +308,9 @@ def test_flags_keep_jax_names_and_defaults():
             "serving_spec_ngram"} <= set(ported)
     assert ported["serving_megastep"]["default"] == 1
     for name in ("serving_megastep", "serving_spec_tokens",
-                 "serving_spec_ngram", *FLEET_FLAGS):
+                 "serving_spec_ngram", *FLEET_FLAGS, "ps_heartbeat_timeout",
+                 "ps_connect_timeout", "ps_socket_timeout",
+                 "ps_prefer_native"):
         assert ported[name]["help"] == jax_flags[name]["help"], name
     assert ported["use_pallas_layer_norm"]["default"] is False
     assert "CUDA" in ported["use_pallas_layer_norm"]["help"]
@@ -492,6 +504,27 @@ def test_shared_public_names_keep_the_reference_signatures():
         "inference.apply_inference_passes", "profiler.stop_profiler",
         "profiler.profiler", "profiler.RecordEvent", "enforce.enforce_eq",
         "framework.program.Program.verify")} <= checked
+    # and the data plane and the PS runtime
+    assert {f"paddle_tpu_torch.{q}" for q in (
+        "native.build_and_load", "dataset.InMemoryDataset.global_shuffle",
+        "dataset.QueueDataset.batch_iterator", "io.dataloader.DataLoader",
+        "io.dataloader.BatchSampler", "io.device_loader.DeviceLoader",
+        "reader.from_generator", "trainer_desc.TrainerFactory.create_trainer",
+        "trainer_desc.TrainerDesc.set_fetch_var_and_info",
+        "framework.executor.Executor.train_from_dataset",
+        "framework.executor.Executor.infer_from_dataset",
+        "distributed.ps.rpc.PSServer", "distributed.ps.rpc.PSClient.pull",
+        "distributed.ps.rpc.RemoteSparseTable",
+        "distributed.ps.native_server.NativePSServer",
+        "distributed.ps.native_server.make_server",
+        "distributed.ps.runtime.Communicator.push_sparse",
+        "distributed.ps.runtime.init_worker",
+        "distributed.ps.runtime.connect_workers_to_servers",
+        "distributed.fleet.fleet_base.Fleet.init_server",
+        "distributed.fleet.utils.fs.LocalFS.mv",
+        "distributed.fleet.utils.fs.HDFSClient",
+        "distributed.fleet.utils.http_server.KVServer",
+        "distributed.fleet.utils.http_server.KVClient.rendezvous")} <= checked
 
 
 def test_port_tools_keep_the_reference_tools_signatures():
@@ -538,9 +571,9 @@ WAITING = {
     "framework_io.save (dygraph Tensors)": (
         "A7.5", lambda m: tio.save({"w": np.zeros(2)}, "unused")),
     "framework_io.load": ("A7.5", lambda m: tio.load("unused")),
-    "InMemoryDataset": ("A7.4", lambda m: tdataset.InMemoryDataset(2)),
-    "QueueDataset": ("A7.4", lambda m: tdataset.QueueDataset(
-        slot_names=["a"])),
+    "DeviceLoader mesh": ("A5", lambda m: tio_pkg.DeviceLoader(
+        [], device="cpu", mesh=object())),
+    "fleet.elastic": ("A8", lambda m: tfleet.elastic),
     "BlockKVCache dtype": (
         "ROADMAP C", lambda m: tkv.BlockKVCache(
             1, 1, 4, 2, 8, block_size=4, dtype=torch.bfloat16)),
@@ -552,6 +585,28 @@ def test_waiting_parameters_raise_naming_their_item(what):
     item, call = WAITING[what]
     with pytest.raises(NotImplementedError, match=item):
         call(GPTForCausalLM(TINY, device="cpu"))
+
+
+#: what waited for ROADMAP A7.4 and now runs: the slot datasets
+#: (tests/test_torch_dataset_io.py holds them against the reference)
+PORTED = {
+    "InMemoryDataset": lambda: tdataset.InMemoryDataset(2),
+    "QueueDataset": lambda: tdataset.QueueDataset(slot_names=["a"]),
+}
+
+
+@pytest.mark.parametrize("what", sorted(PORTED))
+def test_parameters_that_waited_for_a74_run(what, tmp_path):
+    ds = PORTED[what]()
+    p = tmp_path / "part"
+    p.write_text("1 0:5\n0 0:6,7\n")
+    ds.set_filelist([str(p)])
+    ds.set_batch_size(2)
+    if what == "InMemoryDataset":
+        ds.load_into_memory()
+    (feed,) = list(ds.batch_iterator())
+    np.testing.assert_array_equal(feed[ds.slot_names[0]], [[5, 0], [6, 7]])
+    np.testing.assert_array_equal(feed["label"], [[1.0], [0.0]])
 
 
 def test_set_lr_with_a_scope_writes_the_program_lr_like_the_reference():

@@ -128,8 +128,14 @@ def test_host_paced_program_has_fetchable_row_grads():
     types = [op.type for op in blk.ops]
     assert "distributed_lookup_table" not in types
     assert "distributed_lookup_table_grad" not in types
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        build_wide_deep_program(host_paced=False)
+    # the in-graph transport (A7.4) is the reference's program: the same
+    # JSON, the rows pulled and pushed by host ops
+    jin, _, _, _ = jbuild(host_paced=False)
+    tin, _, _, _ = build_wide_deep_program(host_paced=False)
+    assert tin.to_json() == jin.to_json()
+    assert "ctr_emb@GRAD" in tin.global_block().vars
+    assert [op.type for op in tin.global_block().ops].count(
+        "distributed_lookup_table_grad") == 2
 
 
 def _zero_tables(registry):

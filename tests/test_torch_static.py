@@ -13,7 +13,8 @@ Executor, the ``layers`` builders and ``Optimizer.minimize``.
   same seeded inputs.
 - ``Scope.set_var`` into a tensor a captured step holds,
   ``FLAGS_check_nan_inf``, the ``exec.step`` fault point, the waiting
-  parts raising with their items.
+  parts raising with their items (and the parts that waited for A7.4
+  running).
 
 Tolerances: f32 results within ``2e-6 + 2e-5 |ref|`` (the two sides
 differ in the order of sums), products, normalizations and attention
@@ -869,6 +870,11 @@ _X32 = {"dropout", "gaussian_random", "truncated_gaussian_random",
         "uniform_random"} | DENSE_X32
 
 
+#: the parameter-server ops, held through their tables elsewhere
+PS_OPS = {"distributed_lookup_table", "distributed_lookup_table_grad",
+          "send", "recv"}
+
+
 def test_every_registered_op_has_a_case():
     """Every op of the library (a ``py_func`` builder registers an op of
     its own per call, outside it) has a case, here or in
@@ -877,7 +883,10 @@ def test_every_registered_op_has_a_case():
     ops = {c[0] for c in OP_CASES.values()}
     ops |= {c[0] for c in TAIL_CASES.values()}
     grads = {f"{o}_grad" for o in ops}
-    lib = {o for o in treg.registered_ops() if not o.startswith("py_func_")}
+    # the PS ops read and write host tables: tests/test_torch_ps_rpc.py
+    # and test_torch_train_from_dataset.py hold them against the reference
+    lib = {o for o in treg.registered_ops() if not o.startswith("py_func_")
+           and o not in PS_OPS}
     assert lib <= ops | grads
     assert lib >= ops
     # every op keeps its version in the reference's order
@@ -1054,8 +1063,14 @@ def test_exec_step_fault_point():
 
 def test_waiting_parts_raise_naming_their_items():
     exe = Executor("cpu")
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        exe.train_from_dataset(Program(), dataset=object())
+    # train_from_dataset (A7.4) is ported: one run per batch, the last
+    # batch's fetches back (tests/test_torch_train_from_dataset.py holds
+    # it against the reference)
+    feeds = [{"x": np.full(2, v, np.float32)} for v in (1.0, np.e)]
+    data = types.SimpleNamespace(batch_iterator=lambda: iter(feeds))
+    (y,) = exe.train_from_dataset(_log_prog(Program), data, Scope(),
+                                  fetch_list=["y"])
+    np.testing.assert_allclose(y, [1.0, 1.0], rtol=1e-6)
     # a CompiledProgram runs (tests/test_torch_compiler.py); over more
     # than one rank it waits for A5
     from paddle_tpu_torch.compiler import CompiledProgram
@@ -1094,10 +1109,12 @@ def test_waiting_parts_raise_naming_their_items():
         treg.get_op_def("dpsgd")
     with pytest.raises(NotImplementedError, match="A5"):
         treg.get_op_def("c_allreduce_sum")
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        treg.get_op_def("distributed_lookup_table")
-    with pytest.raises(NotImplementedError, match="A7.4"):
-        twide(host_paced=False)
+    # the PS ops (A7.4) are lowered: host ops that split a captured key
+    d = treg.get_op_def("distributed_lookup_table")
+    assert d.host_op and d.side_effect and d.virtual_param
+    assert treg.get_op_def("distributed_lookup_table_grad").host_op
+    ops = [op.type for op in twide(host_paced=False)[0].global_block().ops]
+    assert ops.count("distributed_lookup_table") == 2
     assert tstatic.nn.fc is not None and tstatic.data is not None
 
 
