@@ -238,7 +238,18 @@ from the card's state (``wd_step_close``), one capture, a second epoch
 capturing nothing and timed (examples/s, pull and push ms, busy time,
 idle share, graph pieces); (b) phase 22's host-paced transport from the
 same start, losses and tables as (a)'s; (c) hogwild x 4, a key per
-worker; (d) the async and geo communicators; (e) ``DeviceLoader``.
+worker; (d) the async and geo communicators; (e) ``DeviceLoader``; 30
+the dygraph tape: phase 23's encoder written as tape ``Layer``s
+(``models/tape_encoder.py``), its ops through ``run_op`` on torch
+autograd: (a) 3 AdamW steps from phase 23's scope held to phase 23's
+kernel route with its tolerances, each forward kernel launched once per
+step; (b) ``grad`` for the input; (c) a ``no_grad`` forward; (d) one O1
+bf16 step on ``wgmma``; (e) ``framework_io.save`` / ``load``; (f) the
+collectives and ``dpsgd`` at one rank against the CPU; (g) the step's
+time, device busy time and peak memory. Phases 22, 23, 24, 27, 28 and 30
+survey the ReLU kinks: a unit that takes the other side in two runs of
+a step must lie near 0 in both (``KINK_ATOL``, ``KINK_RTOL``), and the
+counts are printed.
 
 Usage, from the repository root on a machine with a CUDA card and
 ``nvcc``:
@@ -7312,15 +7323,101 @@ SE_LOSS_RTOL, SE_LR = 1e-5, 1e-4
 SE_GRAD_FRO, SE_GRAD_FACTOR = 1e-3, 1.5
 
 
-def se_run(torch, exe, main, scope, loss, feed, grads, steps):
+def se_run(torch, exe, main, scope, loss, feed, grads, steps, relus=(),
+           peaks=None):
+    """``steps`` runs of ``main``: per step the loss and the gradients,
+    the parameters after it, and the fetched ReLU inputs ``relus``;
+    ``peaks`` takes the first (eager) run's peak allocated bytes above
+    its start."""
     out = []
-    for _ in range(steps):
-        f = exe.run(main, feed=feed, fetch_list=[loss.name] + grads,
+    k = 1 + len(grads)
+    for i in range(steps):
+        if peaks is not None and i == 0:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        f = exe.run(main, feed=feed,
+                    fetch_list=[loss.name] + grads + list(relus),
                     scope=scope, return_numpy=False)
-        out.append(([float(f[0])] + f[1:],
-                    {n[:-5]: scope.find_var(n[:-5]).clone() for n in grads}))
+        if peaks is not None and i == 0:
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+        out.append(([float(f[0])] + f[1:k],
+                    {n[:-5]: scope.find_var(n[:-5]).clone() for n in grads},
+                    f[k:]))
     torch.cuda.synchronize()
     return out
+
+
+#: the kink survey (ROADMAP C2): a ReLU unit that takes the other side
+#: in two runs of the same step must lie within KINK_ATOL or KINK_RTOL of
+#: its ReLU input's largest magnitude of 0 in both (the compared runs'
+#: pre-activations differ by rounding at the first step, and by what 2 k
+#: lr of parameter difference moves after k steps: a flip 1.002e-4 from
+#: the kink at phase 23's third step on an H100 80GB HBM3); the phases'
+#: own tolerances are unchanged
+KINK_ATOL, KINK_RTOL = 1e-4, 1e-3
+
+
+def relu_names(program):
+    """The inputs of ``program``'s ReLU ops, in op order."""
+    return [op.inputs["X"][0] for op in program.global_block().ops
+            if op.type == "relu"]
+
+
+def kink_card_vs_cpu(torch, main, states, feed, what):
+    """The kink survey of a phase whose runs fetch no ReLU input: for
+    each parameter state in ``states`` (name -> tensor: the parameters a
+    step's forward read), ``main``'s ReLU inputs computed on the card and
+    on the CPU from them (the program pruned to those inputs), through
+    :func:`relu_flips`. Its runs are not the phase's own: phase 28 (d)
+    does not record them."""
+    from paddle_tpu_torch.framework import Executor, Scope
+    relus = relu_names(main)
+    prog = main._prune(relus)
+    out = []
+    for i, params in enumerate(states):
+        card, cpu = Scope(), Scope()
+        for n, v in params.items():
+            card.set_var(n, v.to("cuda"))
+            cpu.set_var(n, v.to("cpu"))
+        with RECORDER.paused():
+            zd = Executor().run(prog, feed=feed, fetch_list=relus,
+                                scope=card, return_numpy=False)
+        zh = Executor("cpu").run(prog, feed=feed, fetch_list=relus,
+                                 scope=cpu, return_numpy=False)
+        out.append(relu_flips(torch, zd, zh, f"{what} step {i}"))
+        del card, cpu, zd, zh
+    return out
+
+
+def relu_flips(torch, got, ref, what):
+    """The flipped units and samples between two runs' ReLU inputs (lists
+    of tensors or arrays, op by op; a sample is a token, a row of the
+    last axis, or for an image batch ``[n, c, h, w]`` an image):
+    ``{"units", "samples", "max_abs_at_flip"}``. Raises where a flipped
+    unit lies farther from 0 on either side than :data:`KINK_ATOL`, or
+    :data:`KINK_RTOL` of the reference run's largest input magnitude."""
+    units = samples = 0
+    far = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a = torch.as_tensor(np.asarray(a) if not isinstance(
+            a, torch.Tensor) else a)
+        b = torch.as_tensor(np.asarray(b) if not isinstance(
+            b, torch.Tensor) else b).to(a.device)
+        fl = (a > 0) != (b > 0)
+        n = int(fl.sum())
+        if n:
+            d = float(torch.maximum(a[fl].abs(), b[fl].abs()).max())
+            if d > max(KINK_ATOL, KINK_RTOL * float(b.abs().max())):
+                raise AssertionError(f"{what}: ReLU {i}: a unit flipped "
+                                     f"{d:.3e} away from its kink")
+            far = max(far, d)
+            rows = fl.reshape(fl.shape[0], -1) if fl.dim() == 4 else \
+                fl.reshape(-1, fl.shape[-1])
+            samples += int(rows.any(1).sum())
+        units += n
+    return {"units": units, "samples": samples, "max_abs_at_flip": far}
 
 
 def se_grad_scale(torch, ref, name):
@@ -7380,12 +7477,13 @@ def static_encoder(torch, fa, ctr, card, ltimes):
     main, startup, loss = build_encoder_program(
         SE_LAYERS, SE_D, SE_HEADS, SE_FFN, SE_SEQ, lr=SE_LR)
     grads = [p.name + "@GRAD" for p in main.all_parameters()]
+    relus = relu_names(main)
     start, exe0 = Scope(), Executor()
     exe0.run(startup, scope=start)
     x = np.random.RandomState(23).randn(SE_BATCH, SE_SEQ, SE_D) \
         .astype(np.float32)
     feed = {"x": x}
-    runs = {}
+    runs, peaks = {}, []
     # before the routes' runs: it sets flags, which would key them anew
     ref = se_f64_grads(torch, main, start, grads, x)
     try:
@@ -7399,7 +7497,7 @@ def static_encoder(torch, fa, ctr, card, ltimes):
             exe = Executor()
             ctr.zero()
             runs[key] = se_run(torch, exe, main, scope, loss, feed, grads,
-                               SE_STEPS)
+                               SE_STEPS, relus, peaks if on else None)
             launched, routes = ctr.read(), ctr.routes()
             want = ({k: v * SE_STEPS for k, v in SE_PER_STEP.items()}
                     if on else {"adamw": SE_PER_STEP["adamw"] * SE_STEPS})
@@ -7417,6 +7515,7 @@ def static_encoder(torch, fa, ctr, card, ltimes):
                 kernel = (exe, scope, launched, flash_routes)
         k_exe, k_scope, launched, flash_routes = kernel
         worst = {"loss": 0.0, "grad_vs_f64": {}, "param": 0.0}
+        composed_rel = {}
 
         def fro(a, n):
             return float(torch.linalg.norm(a.double() - ref[n])
@@ -7425,6 +7524,7 @@ def static_encoder(torch, fa, ctr, card, ltimes):
         for n, gk, gc in zip(grads, runs["kernel"][0][0][1:],
                              runs["composed"][0][0][1:]):
             rk, rc = fro(gk, n), fro(gc, n)
+            composed_rel[n] = rc
             if not rk <= max(SE_GRAD_FRO, SE_GRAD_FACTOR * rc):
                 raise AssertionError(
                     f"phase 23: {n} at the first step: kernel route "
@@ -7432,8 +7532,11 @@ def static_encoder(torch, fa, ctr, card, ltimes):
             if rk > worst["grad_vs_f64"].get("kernel", 0.0):
                 worst["grad_vs_f64"] = {"name": n, "kernel": rk,
                                         "composed": rc}
-        for i, ((fk, pk), (fc, pc)) in enumerate(zip(runs["kernel"],
-                                                     runs["composed"])):
+        kinks = []
+        for i, ((fk, pk, zk), (fc, pc, zc)) in enumerate(
+                zip(runs["kernel"], runs["composed"])):
+            kinks.append(relu_flips(torch, zk, zc,
+                                    f"phase 23: step {i} kernel vs composed"))
             if not np.isfinite(fk[0]) or abs(fk[0] - fc[0]) > \
                     SE_LOSS_RTOL * abs(fc[0]):
                 raise AssertionError(f"phase 23: step {i} loss kernel "
@@ -7447,11 +7550,18 @@ def static_encoder(torch, fa, ctr, card, ltimes):
                                          f"composed max abs {err:.3e} > "
                                          f"{tol:.1e}")
                 worst["param"] = max(worst["param"], err)
-        log(f"  losses kernel {[f[0] for f, _ in runs['kernel']]}, composed "
-            f"{[f[0] for f, _ in runs['composed']]}; worst {worst}")
+        log(f"  losses kernel {[f[0] for f, _, _ in runs['kernel']]}, "
+            f"composed {[f[0] for f, _, _ in runs['composed']]}; worst "
+            f"{worst}")
+        log(f"  kink survey, kernel vs composed routes, per step "
+            f"({len(relus)} ReLUs of {SE_BATCH * SE_SEQ} x {SE_FFN}): "
+            f"{kinks}")
         log(f"  flash launches by route {flash_routes}")
+        kernel_steps = [(f[0], {n: v.cpu() for n, v in ps.items()},
+                         [z.cpu() for z in zs])
+                        for f, ps, zs in runs["kernel"]]
         del runs
-        fetch = [loss.name] + grads      # the compared steps' key
+        fetch = [loss.name] + grads + relus   # the compared steps' key
 
         def replay():
             k_exe.run(main, feed=feed, fetch_list=fetch, scope=k_scope,
@@ -7485,12 +7595,23 @@ def static_encoder(torch, fa, ctr, card, ltimes):
             f"kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms "
             f"[{card}]")
-    del k_exe, k_scope, start, exe0
+    del k_exe, k_scope, exe0
     torch.cuda.empty_cache()
+    log(f"  the kernel route's first (eager) run: peak allocated "
+        f"{peaks[0]} B above its start [{card}]")
+    # phase 30 trains the same encoder on the tape from this start:
+    # the program, its seeded scope and input, the kernel route's steps
+    # and the float64 gradients, held there to this phase's tolerances
+    tape_ref = {"main": main, "loss": loss, "start": start, "x": x,
+                "grads": grads, "f64": {n: v.cpu() for n, v in ref.items()},
+                "composed_rel": composed_rel, "steps": kernel_steps,
+                "peak_eager_bytes": peaks[0]}
     return {"launches": launched, "routes": flash_routes,
             "per_step": SE_PER_STEP, "step_ms": dt * 1e3,
             "device_busy_ms": busy, "idle_share": idle,
-            "kernel_vs_composed": worst, "flash_f32": times}
+            "kernel_vs_composed": worst, "flash_f32": times,
+            "kinks": kinks, "peak_eager_bytes": peaks[0],
+            "tape_ref": tape_ref}
 
 
 # ------------------------------------------------------------ phase 24
@@ -7596,8 +7717,11 @@ def book_program(torch, ctr, card, b):
     card_scope = Scope()
     card_exe.run(b.startup, scope=card_scope)
     feeds = book.batches(b, BOOK_STEPS)
-    fetch = [v.name for v in b.fetches]
+    # the program's fetches, then its ReLU inputs for the kink survey
+    nf = len(b.fetches)
+    fetch = [v.name for v in b.fetches] + relu_names(b.main)
     params = [p.name for p in b.main.all_parameters()]
+    kinks = []
     bound = (2 * b.lr + 1e-6 if b.optimizer in ("adam", "adagrad")
              else None)
     worst_fetch, worst_param, worst_state, by_bound = 0.0, 0.0, 0.0, set()
@@ -7618,7 +7742,9 @@ def book_program(torch, ctr, card, b):
                 launched[k] = launched.get(k, 0) + v - before.get(k, 0)
         cpu = cpu_exe.run(b.main, feed=f, fetch_list=fetch, scope=cpu_scope)
         worst_fetch = max(worst_fetch, book_fetches_close(
-            f"{b.name} step {i}", dev[-1], cpu))
+            f"{b.name} step {i}", dev[-1][:nf], cpu[:nf]))
+        kinks.append(relu_flips(torch, dev[-1][nf:], cpu[nf:],
+                                f"phase 24: {b.name} step {i}"))
         for n in params:
             err, stepped = book_param_close(
                 f"{b.name} step {i} {n}", card_scope.get_numpy(n),
@@ -7683,7 +7809,7 @@ def book_program(torch, ctr, card, b):
                                    "param": worst_param,
                                    "state": worst_state},
            "params_by_step_bound": by_bound,
-           "inference_round_trip_max_abs": infer_err}
+           "inference_round_trip_max_abs": infer_err, "kinks": kinks}
     log(f"  [{card}] {b.name}: replayed {step_ms:.3f} ms per step, device "
         f"busy {busy:.3f} ms, idle share {res['idle_share']:.4f}, "
         f"{kernels} graph kernels per step, {captures} capture; losses "
@@ -7693,7 +7819,9 @@ def book_program(torch, ctr, card, b):
         + (f" ({len(by_bound)} parameters within the Adam/Adagrad step "
            f"bound: {by_bound})" if by_bound else "")
         + f"; launches {launched}; inference round trip max abs "
-        f"{infer_err:.3e}")
+        f"{infer_err:.3e}; kink survey per step ({len(fetch) - nf} ReLUs, "
+        f"units and samples flipped) "
+        f"{[(k['units'], k['samples']) for k in kinks]}")
     return res
 
 
@@ -7813,32 +7941,32 @@ def _case_fn(torch, reg, op_type, ins, attrs, cots, key, dev, eager):
     return fn
 
 
-def _cf_err(a, b, what, tol=CF_SWEEP_TOL):
+def _cf_err(a, b, what, tol=CF_SWEEP_TOL, phase="phase 25"):
     """Max abs difference of ``a`` (card) and ``b`` (the CPU) over the
     finite elements; raises unless within ``tol`` (integers, booleans,
-    NaN and inf exactly)."""
+    NaN and inf exactly), naming ``phase``."""
     a, b = a.detach().cpu(), b.detach().cpu()
     if a.is_floating_point():
         a, b = a.double(), b.double()
     a, b = a.numpy(), b.numpy()
     if a.shape != b.shape:
-        raise AssertionError(f"phase 25: {what}: shape {a.shape} vs the "
+        raise AssertionError(f"{phase}: {what}: shape {a.shape} vs the "
                              f"CPU's {b.shape}")
     if b.dtype.kind in "biu":
         if not np.array_equal(a, b):
-            raise AssertionError(f"phase 25: {what}: {a} vs the CPU's {b}")
+            raise AssertionError(f"{phase}: {what}: {a} vs the CPU's {b}")
         return 0.0
     a64, b64 = a.astype(np.float64), b.astype(np.float64)
     fin = np.isfinite(b64)
     if not np.array_equal(np.isnan(a64), np.isnan(b64)) or not \
             np.array_equal(a64[np.isinf(b64)], b64[np.isinf(b64)]):
-        raise AssertionError(f"phase 25: {what}: NaN / inf at other places "
+        raise AssertionError(f"{phase}: {what}: NaN / inf at other places "
                              "than the CPU's")
     if not fin.any():
         return 0.0
     err = np.abs(a64[fin] - b64[fin])
     if not (err <= tol[0] + tol[1] * np.abs(b64[fin])).all():
-        raise AssertionError(f"phase 25: {what}: max abs err "
+        raise AssertionError(f"{phase}: {what}: max abs err "
                              f"{float(err.max()):.3e} against the CPU")
     return float(err.max())
 
@@ -9310,6 +9438,15 @@ def st_recompute(torch, ctr, x, card):
         if key == "plain":
             out["plain_first"] = (runs[key][0][0], runs[key][0][1],
                                   st_params(start, main))
+            # the kink survey: each step's forward on the card against
+            # the CPU from the parameters it read
+            with ctr.aside():
+                out["kinks"] = kink_card_vs_cpu(
+                    torch, main, [out["plain_first"][2]] +
+                    [r[1] for r in runs[key][:-1]], {"x": x},
+                    "phase 27 (a) plain, card vs CPU")
+            log(f"  (a) kink survey per step (card vs CPU): "
+                f"{out['kinks']}")
         log(f"  (a) {key}: losses {out[key]['losses']}, peak allocated "
             f"{peaks[0] / 2**20:.1f} MiB eager, {peaks[1] / 2**20:.1f} MiB "
             f"capturing [{card}]; per step {out[key]['launches_per_step']}")
@@ -9896,6 +10033,13 @@ def predictor_encoder(torch, ctr, card, d):
     with ctr.aside():
         (direct,) = Executor().run(unsaved, feed={"x": xs[8]},
                                    fetch_list=[out_name], scope=start)
+        # the kink survey: the saved weights' ReLU inputs on batch 8,
+        # card against CPU (the card_vs_cpu check below)
+        kinks = kink_card_vs_cpu(
+            torch, unsaved, [{p.name: start.find_var(p.name)
+                              for p in unsaved.all_parameters()}],
+            {"x": xs[8]}, "phase 28 (a) card vs CPU")
+    log(f"  (a) kink survey, batch 8, card vs CPU: {kinks}")
     del start
     saved = flags.get_flags(["check_program", "check_shapes"])
     flags.set_flags({"check_program": True, "check_shapes": True})
@@ -9970,6 +10114,7 @@ def predictor_encoder(torch, ctr, card, d):
         del r["outputs"]
         r["ops"] = len(r.pop("op_types"))
     res["ir_optim"]["fused_elemwise_activation"] = fused
+    res["kinks"] = kinks
     return res, preds, errs, x8
 
 
@@ -10804,6 +10949,315 @@ def ps_phase(torch, ctr, card, dev=None):
             "launches": run}
 
 
+# ------------------------------------------------------------ phase 30
+#: phase 30: phase 23's encoder written as tape Layers
+#: (paddle_tpu_torch/models/tape_encoder.py), trained through run_op and
+#: the eager AdamW from phase 23's seeded scope; launches per step: each
+#: forward kernel once (the tape keeps the autograd Functions' residuals,
+#: where the static plane's generic grad runs the forward again), each
+#: backward kernel once, and one AdamW launch (the eager step's one
+#: group: f32 parameters and moments on one card)
+TP_PER_STEP = {"flash_fwd": 6, "flash_bwd_dq": 6, "flash_bwd_dkv": 6,
+               "ln_fwd": 12, "ln_bwd": 12, "adamw": 1}
+#: (c)'s evaluation forward under no_grad
+TP_EVAL = {"flash_fwd": 6, "ln_fwd": 12}
+#: (d): the O1 bf16 step's loss within this of (a)'s first, relative
+TP_AMP_RTOL = 1e-2
+#: (f): the one-rank ops, card against the CPU (phase 25's tolerance)
+TP_ONE_RANK_TOL = CF_SWEEP_TOL
+
+
+def _one_rank_cases():
+    """tests/torch_op_cases_collective.py, which imports numpy only."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_op_cases_collective",
+        os.path.join(ROOT, "tests", "torch_op_cases_collective.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.ONE_RANK_CASES
+
+
+def one_rank_ops(torch):
+    """(f): every case of tests/torch_op_cases_collective.py (the
+    collectives and dpsgd at one rank) on the card against the port on
+    the CPU, forward and grad, as phase 25 (a) runs its cases eagerly.
+    Returns the number of cases and the largest error."""
+    import zlib
+
+    from paddle_tpu_torch import prng
+    from paddle_tpu_torch.ops import registry as reg
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    worst, n = 0.0, 0
+    for cid, (op_type, make, attrs, _) in sorted(_one_rank_cases().items()):
+        ins_np = make(np.random.RandomState(zlib.crc32(cid.encode())))
+
+        def tensors(d):
+            return {s: [torch.as_tensor(np.asarray(a)).to(d) for a in v]
+                    for s, v in ins_np.items()}
+
+        outs, _ = _case_fn(torch, reg, op_type, tensors(cpu), attrs, None,
+                           prng.PRNGKey(5), cpu, True)()
+        crng = np.random.RandomState(7)
+        cots = {f"{s}:{i}@G": torch.as_tensor(crng.randn(*v.shape)).to(
+            v.dtype) for s, vals in outs.items() for i, v in enumerate(vals)
+            if v.is_floating_point()}
+        ref = _case_fn(torch, reg, op_type, tensors(cpu), attrs, cots,
+                       prng.PRNGKey(5), cpu, True)()
+        got = _case_fn(torch, reg, op_type, tensors(dev), attrs,
+                       {k: v.to(dev) for k, v in cots.items()},
+                       prng.PRNGKey(5, device=dev), dev, True)()
+        for s, vals in ref[0].items():
+            for a, b in zip(got[0][s], vals):
+                worst = max(worst, _cf_err(a, b, f"{cid} {s}",
+                                           TP_ONE_RANK_TOL, "phase 30 (f)"))
+        if set(got[1]) != set(ref[1]):
+            raise AssertionError(f"phase 30 (f): {cid}: grads "
+                                 f"{sorted(got[1])} vs {sorted(ref[1])}")
+        for k, v in ref[1].items():
+            worst = max(worst, _cf_err(got[1][k], v, f"{cid} {k}",
+                                       TP_ONE_RANK_TOL, "phase 30 (f)"))
+        n += 1
+    return n, worst
+
+
+def tape_encoder_phase(torch, ctr, card, ref):
+    """Phase 30: phase 23's encoder as tape Layers on the card, from
+    phase 23's seeded scope (``ref``: its program's start, input, kernel
+    route steps and float64 first-step gradients), with the flash and
+    LayerNorm kernels on: (c) an evaluation forward under ``no_grad``;
+    (a) ``SE_STEPS`` AdamW steps held to phase 23's kernel route with
+    phase 23's tolerances, ``TP_PER_STEP`` launches per step, every
+    tensor on the card, the kink survey against phase 23's ReLU inputs;
+    (b) ``grad`` of the loss for the input; (d) one O1 bf16 step; (e)
+    ``framework_io.save`` / ``load`` into a fresh encoder; (f) the
+    one-rank ops; (g) the step's time, device busy time, idle share and
+    peak memory."""
+    import paddle_tpu_torch.dygraph as D
+    from paddle_tpu_torch import amp, flags, framework_io, optimizer
+    from paddle_tpu_torch.models.tape_encoder import (build_tape_encoder,
+                                                      encoder_loss,
+                                                      load_scope)
+    names = ("use_pallas_attention", "use_pallas_layer_norm")
+    saved = flags.get_flags(list(names))
+    flags.set_flags({n: True for n in names})
+    dev = torch.device("cuda", 0)
+    tracer = D.default_tracer()
+    relu_in = []
+
+    def tap(op_type, ins, attrs, **kw):
+        # the FFN ReLU's input of the running forward (the kink survey)
+        if op_type == "relu":
+            relu_in.append(ins["X"][0].value.detach())
+        return type(tracer).trace_op(tracer, op_type, ins, attrs, **kw)
+
+    out = {}
+    try:
+        enc = build_tape_encoder(SE_LAYERS, SE_D, SE_HEADS, SE_FFN,
+                                 device=dev)
+        load_scope(enc, ref["start"])
+        x = D.to_tensor(ref["x"], device=dev)
+
+        # (c) the evaluation forward at the start
+        torch.cuda.synchronize()
+        ctr.zero()
+        with D.no_grad():
+            y_eval = enc(x)
+        torch.cuda.synchronize()
+        ctr.expect(ctr.read(), TP_EVAL, "phase 30 (c) no_grad forward")
+        if y_eval.value.requires_grad or y_eval.value.grad_fn is not None \
+                or not y_eval.stop_gradient:
+            raise AssertionError("phase 30 (c): the no_grad forward "
+                                 "recorded an autograd graph")
+
+        # (a) train
+        opt = optimizer.AdamW(learning_rate=SE_LR, weight_decay=0.01,
+                              parameters=enc.parameters())
+        tracer.trace_op = tap
+        losses, secs, kinks, routes = [], [], [], None
+        worst = {"loss": 0.0, "param": 0.0, "grad_vs_f64": {}}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for i in range(SE_STEPS):
+            relu_in.clear()
+            torch.cuda.synchronize()
+            ctr.zero()
+            t0 = time.perf_counter()
+            y = enc(x)
+            loss = encoder_loss(D, y)
+            loss.backward()
+            if i == 0:
+                grads0 = {p.name: p.grad.value.detach().clone()
+                          for p in enc.parameters()}
+                first_out = y.value.detach().clone()
+            opt.step()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+            ctr.expect(ctr.read(), TP_PER_STEP, f"phase 30 (a) step {i}")
+            routes = ctr.routes()
+            lo = float(loss.numpy())
+            losses.append(lo)
+            lo_ref, p_ref, z_ref = ref["steps"][i]
+            if not np.isfinite(lo) or abs(lo - lo_ref) > \
+                    SE_LOSS_RTOL * abs(lo_ref):
+                raise AssertionError(f"phase 30 (a): step {i} loss tape "
+                                     f"{lo!r} vs static {lo_ref!r}")
+            worst["loss"] = max(worst["loss"], abs(lo - lo_ref))
+            tol = 2 * (i + 1) * SE_LR + 1e-6
+            for p in enc.parameters():
+                if p.value.device != dev or \
+                        any(t.device != dev for (n, _), t in
+                            opt._state.items() if n == p.name):
+                    raise AssertionError(f"phase 30 (a): {p.name} or its "
+                                         "AdamW state is not on cuda:0")
+                err = float((p.value.detach().cpu() - p_ref[p.name])
+                            .abs().max())
+                if not err <= tol:
+                    raise AssertionError(f"phase 30 (a): step {i} {p.name} "
+                                         f"tape vs static max abs "
+                                         f"{err:.3e} > {tol:.1e}")
+                worst["param"] = max(worst["param"], err)
+            kinks.append(relu_flips(torch, relu_in, z_ref,
+                                    f"phase 30 (a) step {i} tape vs static"))
+            del y, loss
+        del tracer.trace_op
+        relu_in.clear()
+        for n, g in grads0.items():
+            gname = n + "@GRAD"
+            f64 = ref["f64"]
+            rk = float(torch.linalg.norm(g.double().cpu() - f64[gname])
+                       / se_grad_scale(torch, f64, gname))
+            if not rk <= max(SE_GRAD_FRO,
+                             SE_GRAD_FACTOR * ref["composed_rel"][gname]):
+                raise AssertionError(
+                    f"phase 30 (a): {gname} at the first step: tape "
+                    f"{rk:.3e} from the f64 gradient, phase 23's composed "
+                    f"route {ref['composed_rel'][gname]:.3e}")
+            if rk > worst["grad_vs_f64"].get("tape", 0.0):
+                worst["grad_vs_f64"] = {"name": gname, "tape": rk,
+                                        "composed": ref["composed_rel"][gname]}
+        same_eval = torch.equal(first_out, y_eval.value)
+        eval_err = float((first_out - y_eval.value).abs().max())
+        if not eval_err <= 1e-6 * float(first_out.abs().max()):
+            raise AssertionError(f"phase 30 (c): the no_grad output is "
+                                 f"{eval_err:.3e} from (a)'s first forward")
+        del grads0, first_out, y_eval
+        flash_routes = {k: routes[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                                "flash_bwd_dkv")}
+        step_ms = float(np.mean(secs[1:])) * 1e3
+        log(f"  (a) [{card}] tape steps: losses {losses} (phase 23 "
+            f"{[s[0] for s in ref['steps']]}); worst {worst}; launches per "
+            f"step {TP_PER_STEP} (phase 23's static plane {SE_PER_STEP}); "
+            f"flash by route {flash_routes}; step ms "
+            f"{[round(t * 1e3, 3) for t in secs]}; first step's peak "
+            f"allocated {peak} B above its start (phase 23's eager first "
+            f"run {ref['peak_eager_bytes']} B)")
+        log(f"  (a) kink survey, tape vs phase 23's kernel route, per step: "
+            f"{kinks}")
+        log(f"  (c) no_grad forward: launches {TP_EVAL}, no graph, "
+            f"bit-equal to (a)'s first forward {same_eval} (max abs "
+            f"{eval_err:.3e})")
+
+        # (b) grad of the loss for the input, against a backward
+        xg = D.to_tensor(ref["x"], stop_gradient=False, device=dev)
+        (gx,) = D.grad(encoder_loss(D, enc(xg)), [xg])
+        untouched = all(p.grad is None for p in enc.parameters())
+        encoder_loss(D, enc(xg)).backward()
+        bx = xg.grad.value
+        gx_err = float((gx.value - bx).abs().max())
+        if not untouched or not gx_err <= 1e-6 * float(bx.abs().max()):
+            raise AssertionError(f"phase 30 (b): grad left .grad "
+                                 f"untouched {untouched}, against the "
+                                 f"backward's input gradient {gx_err:.3e}")
+        log(f"  (b) grad(loss, [x]): every .grad untouched, max abs "
+            f"{gx_err:.3e} from backward's x.grad (bit-equal "
+            f"{torch.equal(gx.value, bx)})")
+        enc.clear_gradients()
+        del xg, gx, bx
+
+        # (g) device time of one step
+        def one_step():
+            loss = encoder_loss(D, enc(x))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+
+        with ctr.aside():
+            busy, kernels_ = device_trace(torch, one_step)
+        idle = 1.0 - busy / step_ms
+        log(f"  (g) [{card}] tape step {step_ms:.3f} ms (host clock, steps "
+            f"2-{SE_STEPS}), device busy {busy:.3f} ms, idle share "
+            f"{idle:.4f}, {sum(kernels_.values())} kernels per step "
+            f"(phase 23's replayed static step {ref['static_step_ms']:.3f} "
+            f"ms)")
+
+        # (d) one O1 bf16 step from the start
+        load_scope(enc, ref["start"])
+        opt_d = optimizer.AdamW(learning_rate=SE_LR, weight_decay=0.01,
+                                parameters=enc.parameters())
+        ctr.zero()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = encoder_loss(D, enc(x))
+        loss.backward()
+        opt_d.step()
+        opt_d.clear_grad()
+        torch.cuda.synchronize()
+        amp_loss = float(loss.numpy())
+        amp_routes = {k: ctr.routes()[k] for k in flash_routes}
+        amp_launched = ctr.read()
+        if any(by.get("simt", 0) for by in amp_routes.values()) or \
+                amp_launched["flash_fwd"] != SE_LAYERS or \
+                abs(amp_loss - losses[0]) > TP_AMP_RTOL * abs(losses[0]):
+            raise AssertionError(f"phase 30 (d): O1 loss {amp_loss!r} vs "
+                                 f"{losses[0]!r}, flash by route "
+                                 f"{amp_routes}, launches {amp_launched}")
+        log(f"  (d) O1 bf16 step: loss {amp_loss} ((a)'s first "
+            f"{losses[0]}), flash by route {amp_routes}, launches "
+            f"{amp_launched}")
+        del loss, opt_d
+
+        # (e) save and load into a fresh encoder
+        with ctr.aside(), tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "encoder.pdparams")
+            framework_io.save(enc.state_dict(), path)
+            fresh = build_tape_encoder(SE_LAYERS, SE_D, SE_HEADS, SE_FFN,
+                                       device=dev)
+            missing = fresh.set_state_dict(framework_io.load(path))
+            with D.no_grad():
+                same = torch.equal(enc(x).value, fresh(x).value)
+            if missing or not same:
+                raise AssertionError(f"phase 30 (e): missing {missing}, "
+                                     f"bit-equal forward {same}")
+        log(f"  (e) save / load: {len(enc.state_dict())} tensors, the "
+            "fresh encoder's forward bit-equal")
+        del fresh, enc, opt
+
+        # (f) the one-rank ops
+        with ctr.aside():
+            n_one, one_err = one_rank_ops(torch)
+        log(f"  (f) {n_one} one-rank op cases on the card against the CPU, "
+            f"max abs err {one_err:.3e}")
+    finally:
+        tracer.__dict__.pop("trace_op", None)
+        flags.set_flags(saved)
+    torch.cuda.empty_cache()
+    out = {"launches": {k: v * SE_STEPS for k, v in TP_PER_STEP.items()},
+           "per_step": TP_PER_STEP, "routes": flash_routes,
+           "losses": losses, "tape_vs_static": worst, "kinks": kinks,
+           "step_ms": step_ms, "device_busy_ms": busy, "idle_share": idle,
+           "kernels_per_step": sum(kernels_.values()),
+           "peak_first_step_bytes": int(peak),
+           "phase23_peak_eager_bytes": int(ref["peak_eager_bytes"]),
+           "eval_bit_equal": same_eval, "grad_vs_backward": gx_err,
+           "amp": {"loss": amp_loss, "routes": amp_routes},
+           "one_rank_cases": n_one, "one_rank_max_abs_err": one_err}
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -11057,6 +11511,9 @@ def main():
         "and LayerNorm kernels against the composed routes")
     t_se = time.perf_counter()
     sen = static_encoder(torch, fa, ctr, card, ltimes)
+    # phase 30 trains the same encoder on the tape, from this start
+    tape_ref = sen.pop("tape_ref")
+    tape_ref["static_step_ms"] = sen["step_ms"]
     log(f"  phase 23 took {time.perf_counter() - t_se:.1f} s")
 
     log("== phase 24: the Book (tests/test_book.py's eight programs through "
@@ -11133,6 +11590,20 @@ def main():
     t_ps = time.perf_counter()
     psr = ps_phase(torch, ctr, card)
     log(f"  phase 29 took {time.perf_counter() - t_ps:.1f} s [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"== phase 30: the dygraph tape: phase 23's encoder ({SE_LAYERS} "
+        f"layers, d {SE_D}, {SE_HEADS} heads, FFN {SE_FFN}, batch "
+        f"{SE_BATCH}, seq {SE_SEQ}, f32) as tape Layers trained through "
+        f"run_op and AdamW from phase 23's scope: (a) {SE_STEPS} steps "
+        f"against phase 23's kernel route; (b) grad for the input; (c) a "
+        f"no_grad forward; (d) one O1 bf16 step; (e) save / load; (f) the "
+        f"one-rank ops; (g) time, device busy and memory")
+    t_tp = time.perf_counter()
+    tap = tape_encoder_phase(torch, ctr, card, tape_ref)
+    del tape_ref
+    log(f"  phase 30 took {time.perf_counter() - t_tp:.1f} s [{card}]")
     log(f"  total {time.perf_counter() - t_start:.1f} s [{card}]")
 
     def entry(name, route_source, replaces, launches, err, t, **extra):
@@ -11236,7 +11707,9 @@ def main():
             launches_by_route_static_amp=stg["c"]["routes"][name],
             launches_recompute=stg["a"]["recompute"]["launches_per_step"][
                 name] * ST_STEPS,
-            launches_predictor=inf["launches"].get(name, 0)))
+            launches_predictor=inf["launches"].get(name, 0),
+            launches_tape=tap["launches"][name],
+            launches_by_route_tape=tap["routes"][name]))
     for name, line in (("ln_fwd", 27), ("ln_bwd", 40)):
         t = ltimes[name]["ernie-base"]
         kernels.append(entry(
@@ -11249,7 +11722,8 @@ def main():
             launches_transformer=tfm["launches"][name],
             launches_static_encoder=sen["launches"][name],
             launches_control_flow=cfl["launches"][name],
-            launches_predictor=inf["launches"].get(name, 0)))
+            launches_predictor=inf["launches"].get(name, 0),
+            launches_tape=tap["launches"][name]))
     kernels.append(entry(
         "packed_flash_fwd", "flash_pack2.cu", "tools/flash_pack2_bench.py:48",
         packed["launches"], packed_err["packed_flash_fwd"], packed,
@@ -11275,7 +11749,8 @@ def main():
         launches_book=bk["launches"]["adamw"],
         launches_control_flow=cfl["launches"]["adamw"],
         launches_qat=dtp["launches"]["adamw"],
-        launches_strategy=stg["launches"]["adamw"]))
+        launches_strategy=stg["launches"]["adamw"],
+        launches_tape=tap["launches"]["adamw"]))
     kernels.append(entry(
         "cond_set", "cond_graph.cu", "paddle_tpu/ops/control_flow_ops.py:142",
         cfl["launches"]["cond_set"], cfl["cond_set"]["max_abs_err"],
@@ -11321,7 +11796,8 @@ def main():
                       "detection": summary(dtp),
                       "strategy": summary(stg),
                       "inference": summary(inf),
-                      "ps_runtime": summary(psr)}), flush=True)
+                      "ps_runtime": summary(psr),
+                      "tape_encoder": summary(tap)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 (``AutoMixedPrecisionLists``), the loss scaler ``GradScaler`` and the
 static rewrite of a Program (:mod:`.static_amp`)."""
 
-from .auto_cast import auto_cast, autocast_inputs
+from .auto_cast import (amp_guard, auto_cast, autocast_inputs,
+                        maybe_autocast_inputs)
 from .grad_scaler import AmpScaler, GradScaler
 from .lists import BLACK_LIST, WHITE_LIST, AutoMixedPrecisionLists
 
 __all__ = ["AmpScaler", "AutoMixedPrecisionLists", "BLACK_LIST",
-           "GradScaler", "WHITE_LIST", "auto_cast", "autocast_inputs"]
+           "GradScaler", "WHITE_LIST", "amp_guard", "auto_cast",
+           "autocast_inputs", "maybe_autocast_inputs"]

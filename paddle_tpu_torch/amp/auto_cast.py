@@ -8,7 +8,9 @@ op type the JAX package records for the same computation, so the two
 packages round at the same places (``torch.autocast`` keeps other lists
 and would not). The casts are ``Tensor.to``, which is differentiable:
 float32 master parameters receive float32 gradients. The level is
-per thread, as ``torch.autocast``'s is.
+per thread, as ``torch.autocast``'s is. The tape
+(:mod:`~paddle_tpu_torch.dygraph.tape`) casts an op's Tensors through
+:func:`maybe_autocast_inputs`, with the reference's cast ops.
 """
 
 from __future__ import annotations
@@ -68,6 +70,43 @@ def autocast_inputs(op_type: str, *tensors):
     return tensors
 
 
+def maybe_autocast_inputs(op_type: str, ins, amp_dtype: str, level: str):
+    """The tape's cast of op ``op_type``'s inputs ``ins`` (``{slot:
+    [Tensor]}``) per the white and black lists at ``level``, through the
+    ``cast`` op so gradients flow through the cast, as the reference's
+    ``maybe_autocast_inputs`` casts them."""
+    from ..dygraph.tape import default_tracer
+    from ..framework.program import convert_dtype
+
+    def cast_all(target):
+        tracer = default_tracer()
+        out = {}
+        for slot, ts in ins.items():
+            new = []
+            for t in ts:
+                if t.value.is_floating_point() and t.dtype != target:
+                    t = tracer.trace_op(
+                        "cast", {"X": [t]},
+                        {"out_dtype": target, "in_dtype": t.dtype},
+                        autocast=False)["Out"][0]
+                new.append(t)
+            out[slot] = new
+        return out
+
+    amp_dtype = convert_dtype(amp_dtype)
+    if level == "O1":
+        if op_type in WHITE_LIST:
+            return cast_all(amp_dtype)
+        if op_type in BLACK_LIST:
+            return cast_all("float32")
+        return ins
+    if level == "O2":
+        if op_type in BLACK_LIST:
+            return cast_all("float32")
+        return cast_all(amp_dtype)
+    return ins
+
+
 @contextlib.contextmanager
 def auto_cast(enable: bool = True, custom_white_list=None,
               custom_black_list=None, level: str = "O1",
@@ -89,3 +128,6 @@ def auto_cast(enable: bool = True, custom_white_list=None,
         yield
     finally:
         _state.level, _state.dtype = prev
+
+
+amp_guard = auto_cast

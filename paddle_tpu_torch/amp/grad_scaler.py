@@ -48,7 +48,8 @@ class GradScaler:
     def unscale_(self, optimizer_or_params):
         """Divide every gradient by the scale (rebinding ``p.grad``) and
         record whether any value is inf or NaN. Takes an optimizer or a
-        list of parameters (or ``(name, parameter)`` pairs)."""
+        list of parameters (torch parameters, tape Parameters or ``(name,
+        parameter)`` pairs)."""
         if not self._enable:
             return
         if capturing():
@@ -59,7 +60,9 @@ class GradScaler:
         items = (optimizer_or_params
                  if isinstance(optimizer_or_params, (list, tuple))
                  else optimizer_or_params._parameter_list)
-        params = [p[1] if isinstance(p, tuple) else p for p in items]
+        # a tape Parameter's gradient is its torch tensor's
+        params = [p[1] if isinstance(p, tuple) else getattr(p, "value", p)
+                  for p in items]
         flags = []
         with torch.no_grad():
             for p in params:

@@ -3,7 +3,7 @@
 (``fleet_base``), the pipeline runner (``pipeline``), the strategy and
 role maker, ``metrics``, the PS lifecycle and ``utils`` (the filesystem
 shell, the KV HTTP server). ``fleet.utils.recompute`` waits for ROADMAP
-A7.5 (it runs on the dygraph tape) and ``elastic`` for A8 (it drives the
+A7.5b (it runs on the dygraph tape) and ``elastic`` for A8 (it drives the
 checkpoint plane and spawns processes)."""
 
 from . import metrics

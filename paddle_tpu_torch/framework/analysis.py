@@ -13,9 +13,7 @@ executor, or under a CUDA-graph capture on the card.
 Three check families, run in order:
 
 - **structural**: every op type has a lowering (directly registered, or
-  derivable as ``<fw>_grad``; an op the port declares as waiting —
-  ``ops.registry.declare_waiting`` — counts, as the reference registers
-  it), slot values are lists of variable-name
+  derivable as ``<fw>_grad``), slot values are lists of variable-name
   strings, sub-block attrs reference valid block indices with no cycles,
   block parent chains terminate, and var dtypes pass ``convert_dtype``.
 - **dataflow**: topological def-before-use per block (honoring

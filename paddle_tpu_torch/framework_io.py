@@ -7,7 +7,8 @@ The format is the reference's: one numpy ``.npz`` for the tensors (the
 reference's save_combine analog) and ``__model__.json`` for the pruned
 Program and its feed and fetch names, so a model saved by either package
 loads in the other. A loaded variable lands on the executor's device.
-``save`` / ``load`` of dygraph Tensors wait for the tape (ROADMAP A7.5).
+``save`` / ``load`` take the tape's Tensors and state dicts
+(:mod:`~paddle_tpu_torch.dygraph`) as well.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 def _to_numpy_dict(state: Dict) -> Dict[str, np.ndarray]:
     out = {}
     for k, v in state.items():
+        v = getattr(v, "value", v)      # a tape Tensor's torch tensor
         if isinstance(v, torch.Tensor):
             v = v.detach()
             out[k] = (v.float() if v.dtype == torch.bfloat16 else v) \
@@ -46,18 +48,22 @@ def load_state_dict(path: str) -> Dict[str, np.ndarray]:
 
 
 def save(obj, path: str):
-    """paddle.save of dygraph Tensors and state dicts: waits for the tape
-    (``dygraph/``, ROADMAP A7.5)."""
-    raise NotImplementedError(
-        "framework_io.save of dygraph Tensors waits for dygraph/ (ROADMAP "
-        "A7.5); save_state_dict takes a dict of arrays or tensors")
+    """paddle.save: a dict of tape Tensors, tensors or arrays (a
+    ``state_dict``), or one Tensor under the key ``"tensor"``, in the
+    reference's npz format."""
+    from .dygraph.tensor import Tensor
+    if isinstance(obj, dict):
+        save_state_dict(obj, path)
+    elif isinstance(obj, Tensor):
+        save_state_dict({"tensor": obj}, path)
+    else:
+        raise TypeError(f"cannot save {type(obj)}")
 
 
 def load(path: str):
-    """paddle.load: waits with :func:`save` (ROADMAP A7.5)."""
-    raise NotImplementedError(
-        "framework_io.load waits for dygraph/ (ROADMAP A7.5); "
-        "load_state_dict reads a saved dict")
+    """paddle.load: the saved dict, as numpy arrays (``Layer.
+    set_state_dict`` copies them into its parameters)."""
+    return load_state_dict(path)
 
 
 # -- static-graph persistables (scope-based) --------------------------------

@@ -725,7 +725,8 @@ def to_static(function: Optional[Callable] = None, *, layers=None,
     _refuse(mesh, param_rules, arg_specs)
     if ast_convert:
         raise NotImplementedError("ast_convert needs the dygraph-to-static "
-                                  "converter, which is not ported yet")
+                                  "converter, which waits for ROADMAP "
+                                  "A7.5b")
     if isinstance(function, torch.nn.Module) and layers is None:
         layer = function
         return to_static(lambda *a: layer(*a), layers=[layer],

@@ -12,7 +12,8 @@ package's distributions: by default Xavier-uniform Linear weights and
 N(0, 1) embeddings, or N(0, std²) where a model passes ``std``.
 ``Linear`` keeps the JAX ``[in, out]`` weight layout, so weights copy
 across by name without a transpose and the tied LM head is the same
-``h @ wte.T``.
+``h @ wte.T``. A ``weight_attr`` / ``bias_attr`` that is a ``ParamAttr``
+draws its parameter as the reference's tape layers do (:func:`_param`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ import torch
 from torch import nn
 
 from ..amp.auto_cast import autocast_inputs
+from ..initializer import (ConstantInitializer, NormalInitializer,
+                           XavierInitializer, eager_init)
+from ..param_attr import ParamAttr
 from . import functional as F
 
 
@@ -31,22 +35,61 @@ def _normal(shape, std, device, generator):
     return nn.Parameter(w.normal_(0.0, std, generator=generator))
 
 
-def _wants(name: str, attr, bias: bool = False) -> bool:
-    """Whether a ``weight_attr`` / ``bias_attr`` asks for its parameter:
-    None and True do, False drops a bias (the reference's
-    ``ParamAttr._to_attr``). A ``ParamAttr``, name or initializer (and a
-    dropped weight) raise: the port draws parameters from its own
-    generator; the static builders take a ``ParamAttr``
-    (:mod:`paddle_tpu_torch.param_attr`), the eager layers wait for ROADMAP
-    A7.5 (the dygraph plane) to honour one."""
+class AttrParameter(nn.Parameter):
+    """A parameter drawn from a ``ParamAttr``: it carries the attribute's
+    ``name`` (a torch tensor's own ``name`` cannot be set), ``lr_scale``
+    and ``regularizer``."""
+
+    @property
+    def name(self):
+        return self.__dict__.get("_param_name")
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["_param_name"] = value
+
+
+def _param(what: str, attr, shape, default, device, default_init, *,
+           needed: bool = True):
+    """The parameter a ``weight_attr`` / ``bias_attr`` asks for.
+
+    None and True: ``default()``, the port's draw from the layer's
+    ``torch.Generator``. False: no parameter; a parameter the forward
+    needs raises ValueError, as the reference's forward does on its
+    None. A ``ParamAttr`` (or a name or an initializer): drawn as the
+    reference's ``Layer.create_parameter`` draws it, through
+    ``initializer.eager_init`` from the tape's seeded numpy stream
+    (:func:`~paddle_tpu_torch.dygraph.seed`) with the attribute's
+    initializer or the reference's ``default_init``, on ``device``; the
+    parameter keeps the attribute's ``name``, ``trainable`` is
+    ``requires_grad``, ``learning_rate`` its ``lr_scale`` and
+    ``regularizer`` its ``regularizer``, which the port's optimizers
+    read."""
     if attr is None or attr is True:
-        return True
-    if attr is False and bias:
-        return False
-    raise NotImplementedError(
-        f"{name}={attr!r} is not ported: parameter attributes wait for "
-        "ROADMAP A7.5 (ParamAttr in the eager layers, with the dygraph "
-        "plane)")
+        return nn.Parameter(default())
+    a = ParamAttr._to_attr(attr)
+    if a is None:
+        if needed:
+            raise ValueError(f"{what}=False drops a parameter this layer's "
+                             "forward needs")
+        return None
+    from ..dygraph.layers import _rng
+    value = eager_init(a.initializer or default_init, shape, "float32",
+                       _rng())
+    p = AttrParameter(torch.as_tensor(value).to(device),
+                      requires_grad=a.trainable)
+    p.name = a.name
+    p.lr_scale = a.learning_rate
+    p.regularizer = a.regularizer
+    return p
+
+
+def _zeros(n, device):
+    return lambda: torch.zeros(n, device=device)
+
+
+def _ones(n, device):
+    return lambda: torch.ones(n, device=device)
 
 
 class Linear(nn.Module):
@@ -58,18 +101,20 @@ class Linear(nn.Module):
                  weight_attr=None, bias_attr=None, name=None, *,
                  std: float = None, device, generator: torch.Generator):
         super().__init__()
-        _wants("weight_attr", weight_attr)
-        if std is None:
+        shape = (in_features, out_features)
+
+        def draw():
+            w = torch.empty(shape, device=device)
+            if std is not None:
+                return w.normal_(0.0, std, generator=generator)
             limit = math.sqrt(6.0 / (in_features + out_features))
-            w = torch.empty((in_features, out_features), device=device)
-            self.weight = nn.Parameter(
-                w.uniform_(-limit, limit, generator=generator))
-        else:
-            self.weight = _normal((in_features, out_features), std, device,
-                                  generator)
-        self.bias = nn.Parameter(torch.zeros(
-            out_features, device=device)) if _wants(
-                "bias_attr", bias_attr, bias=True) else None
+            return w.uniform_(-limit, limit, generator=generator)
+
+        self.weight = _param("weight_attr", weight_attr, shape, draw, device,
+                             XavierInitializer())
+        self.bias = _param("bias_attr", bias_attr, [out_features],
+                           _zeros(out_features, device), device,
+                           ConstantInitializer(0.0), needed=False)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -87,10 +132,11 @@ class LayerNorm(nn.Module):
         self._normalized_shape = list(normalized_shape)
         self._epsilon = epsilon
         n = math.prod(self._normalized_shape)
-        _wants("weight_attr", weight_attr)
-        self.weight = nn.Parameter(torch.ones(n, device=device))
-        self.bias = nn.Parameter(torch.zeros(n, device=device)) if _wants(
-            "bias_attr", bias_attr, bias=True) else None
+        self.weight = _param("weight_attr", weight_attr, [n],
+                             _ones(n, device), device,
+                             ConstantInitializer(1.0), needed=False)
+        self.bias = _param("bias_attr", bias_attr, [n], _zeros(n, device),
+                           device, ConstantInitializer(0.0), needed=False)
 
     def forward(self, x):
         return F.layer_norm(x, self._normalized_shape, self.weight,
@@ -111,9 +157,11 @@ class Embedding(nn.Module):
                  weight_attr=None, *, std: float = 1.0, device,
                  generator: torch.Generator):
         super().__init__()
-        _wants("weight_attr", weight_attr)
-        self.weight = _normal((num_embeddings, embedding_dim), std, device,
-                              generator)
+        shape = (num_embeddings, embedding_dim)
+        self.weight = _param(
+            "weight_attr", weight_attr, shape,
+            lambda: _normal(shape, std, device, generator).data, device,
+            NormalInitializer(0.0, 1.0))
         if padding_idx is not None and padding_idx < 0:
             padding_idx += num_embeddings
         self.padding_idx = padding_idx
@@ -158,7 +206,6 @@ class Conv2D(nn.Module):
                  bias_attr=None, data_format="NCHW", *, device,
                  generator: torch.Generator):
         super().__init__()
-        _wants("weight_attr", weight_attr)
         k = [kernel_size] * 2 if isinstance(kernel_size, int) \
             else list(kernel_size)
         self._stride, self._padding = stride, padding
@@ -168,12 +215,14 @@ class Conv2D(nn.Module):
         receptive = k[0] * k[1]
         limit = math.sqrt(6.0 / (shape[1] * receptive
                                  + out_channels * receptive))
-        w = torch.empty(shape, device=device)
-        self.weight = nn.Parameter(w.uniform_(-limit, limit,
-                                              generator=generator))
-        self.bias = nn.Parameter(torch.zeros(
-            out_channels, device=device)) if _wants(
-                "bias_attr", bias_attr, bias=True) else None
+        self.weight = _param(
+            "weight_attr", weight_attr, shape,
+            lambda: torch.empty(shape, device=device).uniform_(
+                -limit, limit, generator=generator), device,
+            XavierInitializer())
+        self.bias = _param("bias_attr", bias_attr, [out_channels],
+                           _zeros(out_channels, device), device,
+                           ConstantInitializer(0.0), needed=False)
 
     def forward(self, x):
         return F.conv2d(x, self.weight, self.bias, self._stride,
@@ -192,12 +241,14 @@ class BatchNorm2D(nn.Module):
                  weight_attr=None, bias_attr=None, data_format="NCHW", *,
                  device):
         super().__init__()
-        _wants("weight_attr", weight_attr)
-        _wants("bias_attr", bias_attr)
         self._momentum, self._epsilon = momentum, epsilon
         self._data_format = data_format
-        self.weight = nn.Parameter(torch.ones(num_features, device=device))
-        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.weight = _param("weight_attr", weight_attr, [num_features],
+                             _ones(num_features, device), device,
+                             ConstantInitializer(1.0))
+        self.bias = _param("bias_attr", bias_attr, [num_features],
+                           _zeros(num_features, device), device,
+                           ConstantInitializer(0.0))
         self.register_buffer("_mean", torch.zeros(num_features,
                                                   device=device))
         self.register_buffer("_variance", torch.ones(num_features,
@@ -273,7 +324,6 @@ class Conv2DTranspose(nn.Module):
                  padding=0, dilation=1, groups=1, weight_attr=None,
                  bias_attr=None, *, device, generator: torch.Generator):
         super().__init__()
-        _wants("weight_attr", weight_attr)
         k = [kernel_size] * 2 if isinstance(kernel_size, int) \
             else list(kernel_size)
         self._stride, self._padding = stride, padding
@@ -282,12 +332,14 @@ class Conv2DTranspose(nn.Module):
         receptive = k[0] * k[1]
         limit = math.sqrt(6.0 / (shape[1] * receptive
                                  + in_channels * receptive))
-        w = torch.empty(shape, device=device)
-        self.weight = nn.Parameter(w.uniform_(-limit, limit,
-                                              generator=generator))
-        self.bias = nn.Parameter(torch.zeros(
-            out_channels, device=device)) if _wants(
-                "bias_attr", bias_attr, bias=True) else None
+        self.weight = _param(
+            "weight_attr", weight_attr, shape,
+            lambda: torch.empty(shape, device=device).uniform_(
+                -limit, limit, generator=generator), device,
+            XavierInitializer())
+        self.bias = _param("bias_attr", bias_attr, [out_channels],
+                           _zeros(out_channels, device), device,
+                           ConstantInitializer(0.0), needed=False)
 
     def forward(self, x):
         return F.conv2d_transpose(x, self.weight, self.bias, self._stride,
@@ -302,13 +354,14 @@ class GroupNorm(nn.Module):
     def __init__(self, num_groups, num_channels, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, *, device):
         super().__init__()
-        _wants("weight_attr", weight_attr)
         self._num_groups = num_groups
         self._epsilon = epsilon
-        self.weight = nn.Parameter(torch.ones(num_channels, device=device))
-        self.bias = nn.Parameter(torch.zeros(
-            num_channels, device=device)) if _wants(
-                "bias_attr", bias_attr, bias=True) else None
+        self.weight = _param("weight_attr", weight_attr, [num_channels],
+                             _ones(num_channels, device), device,
+                             ConstantInitializer(1.0), needed=False)
+        self.bias = _param("bias_attr", bias_attr, [num_channels],
+                           _zeros(num_channels, device), device,
+                           ConstantInitializer(0.0), needed=False)
 
     def forward(self, x):
         return F.group_norm(x, self._num_groups, self.weight, self.bias,

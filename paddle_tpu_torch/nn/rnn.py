@@ -10,7 +10,11 @@ LSTM, and ``sequence_length`` per-row lengths. Parameters
 are drawn U(-1/sqrt(h), 1/sqrt(h)) on ``device`` (None: CUDA) from
 ``generator`` (None: one seeded with 0), and carry across from the JAX
 package by name. ``dropout`` is taken and, as in the reference, not
-applied between layers; the parameter attributes raise (ROADMAP A7.5).
+applied between layers. A parameter attribute that is a ``ParamAttr``
+(or a name, an initializer, or False, which the reference reads as its
+default attribute) draws that parameter as the reference's layer does:
+from the tape's seeded numpy stream, U(-1/sqrt(h), 1/sqrt(h)) for False,
+the attribute's initializer or the reference's default otherwise.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ from torch import nn
 
 from ..device import resolve_device, resolve_generator
 from ..ops import rnn_ops
-from .layers_common import _wants
+from ..initializer import (ConstantInitializer, UniformInitializer,
+                           XavierInitializer)
+from ..param_attr import ParamAttr
+from .layers_common import _param
 
 
 class _RNNBase(nn.Module):
@@ -37,11 +44,6 @@ class _RNNBase(nn.Module):
         super().__init__()
         if direction not in ("forward", "bidirect", "bidirectional"):
             raise ValueError(f"bad direction {direction!r}")
-        for name, attr in (("weight_ih_attr", weight_ih_attr),
-                           ("weight_hh_attr", weight_hh_attr),
-                           ("bias_ih_attr", bias_ih_attr),
-                           ("bias_hh_attr", bias_hh_attr)):
-            _wants(name, attr)
         device = resolve_device(device)
         generator = resolve_generator(device, generator)
         self.input_size = input_size
@@ -60,11 +62,21 @@ class _RNNBase(nn.Module):
                 shapes = ([g * hidden_size, in_sz],
                           [g * hidden_size, hidden_size],
                           [g * hidden_size], [g * hidden_size])
-                for n, shape in zip(("weight_ih", "weight_hh", "bias_ih",
-                                     "bias_hh"), shapes):
-                    w = torch.empty(shape, device=device)
-                    setattr(self, n + sfx, nn.Parameter(
-                        w.uniform_(-k, k, generator=generator)))
+                attrs = (weight_ih_attr, weight_hh_attr, bias_ih_attr,
+                         bias_hh_attr)
+                for n, shape, attr in zip(("weight_ih", "weight_hh",
+                                           "bias_ih", "bias_hh"), shapes,
+                                          attrs):
+                    if attr is False:
+                        # the reference's ``attr or ParamAttr(initializer)``
+                        attr = ParamAttr(initializer=UniformInitializer(-k, k))
+                    setattr(self, n + sfx, _param(
+                        n + "_attr", attr, shape,
+                        lambda shape=shape: torch.empty(
+                            shape, device=device).uniform_(
+                                -k, k, generator=generator),
+                        device, ConstantInitializer(0.0)
+                        if n.startswith("bias") else XavierInitializer()))
                     self._names.append(n + sfx)
 
     def forward(self, inputs, initial_states=None, sequence_length=None):

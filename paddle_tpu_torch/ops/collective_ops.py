@@ -1,19 +1,57 @@
 """The collective ops — the counterpart of
-``paddle_tpu/ops/collective_ops.py`` — declared, not lowered: each waits
-for the multi-card plane (ROADMAP A5) and raises naming it when run.
+``paddle_tpu/ops/collective_ops.py`` — at one rank (ROADMAP A5a).
 
-The declarations keep the reference's registry fields (every collective
+The reference binds each op's ``ring_id`` to a mesh axis (the
+LoweringContext's ``axis_env``, else the distributed env's ring map)
+and lowers it to a ``jax.lax`` collective over that axis; with no axis
+bound it returns its input, the single-trainer behaviour. The port runs
+one rank, so every lowering takes that branch: the reduction,
+broadcast, gather, scatter and split ops return ``X``, ``barrier`` its
+input (or a ``[1]`` zero), ``c_embedding`` is a take of the ids shifted
+by ``start_index`` and ``sync_batch_norm`` normalizes with the local
+batch statistics. An axis bound over more than one rank (the current
+mesh gives it a size above 1) raises NotImplementedError naming ROADMAP
+A5b, the multi-card plane.
+
+The registry fields are the reference's (every collective
 ``side_effect=True``, so dead-code analysis never drops communication;
 ``c_embedding``'s ``Ids`` and ``sync_batch_norm``'s statistics take no
-gradient) and its static infer rules (``:239-312``), which key off the
-``nranks`` attr (absent or 1 is the one-rank identity), so the verifier
-and the abstract interpreter read a program holding them as the
-reference does.
+gradient), and so are the static infer rules (``:239-312``), which key
+off the ``nranks`` attr (absent or 1 is the one-rank identity), so the
+verifier and the abstract interpreter read a program holding them as
+the reference does.
 """
 
 from __future__ import annotations
 
-from .registry import declare_waiting
+import torch
+
+from .registry import LoweringContext, register
+
+
+def _axis(ctx: LoweringContext, attrs):
+    """The mesh axis the op's ring is bound to, None at one rank (no
+    axis, or an axis of size 1); an axis over more ranks raises."""
+    from ..distributed import env as dist_env
+    ring = attrs.get("ring_id", 0)
+    ax = ctx.axis_name(ring)
+    if ax is None:
+        ax = dist_env.axis_for_ring(ring)
+    if ax is None:
+        return None
+    mesh = ctx.mesh or dist_env.current_mesh()
+    size = int(dict(getattr(mesh, "shape", {}) or {}).get(ax, 1))
+    if size > 1:
+        raise NotImplementedError(
+            f"a collective over mesh axis {ax!r} of {size} ranks: the "
+            "port runs one rank; collectives across cards wait for "
+            "ROADMAP A5b (the multi-card plane)")
+    return None
+
+
+def _identity(ctx, ins, attrs):
+    _axis(ctx, attrs)
+    return {"Out": [ins["X"][0]]}
 
 
 def _av(shape=None, dtype=None):
@@ -83,26 +121,91 @@ def _sync_batch_norm_infer(ictx, ins, attrs):
             "SavedMean": [saved[0]], "SavedVariance": [saved[1]]}
 
 
-for _name in ("c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
-              "c_allreduce_prod", "c_allreduce_avg", "allreduce",
-              "c_broadcast", "c_reduce_sum", "c_identity"):
-    declare_waiting(_name, side_effect=True, infer=_identity_infer)
+_GATHER = _scaled_dim_infer(0, "mul")
+_SCATTER = _scaled_dim_infer(0, "div")
+# the reference's registration order
+for _name, _infer in (("c_allreduce_sum", _identity_infer),
+                      ("c_allreduce_max", _identity_infer),
+                      ("c_allreduce_min", _identity_infer),
+                      ("c_allreduce_prod", _identity_infer),
+                      ("c_allreduce_avg", _identity_infer),
+                      ("allreduce", _identity_infer),
+                      ("c_broadcast", _identity_infer),
+                      ("c_allgather", _GATHER),
+                      ("c_reducescatter", _SCATTER),
+                      ("c_reduce_sum", _identity_infer),
+                      ("c_scatter", _SCATTER),
+                      ("c_concat", _GATHER),
+                      ("c_split", _scaled_dim_infer(-1, "div")),
+                      ("c_identity", _identity_infer)):
+    register(_name, side_effect=True, infer=_infer)(_identity)
 for _name in ("c_sync_calc_stream", "c_sync_comm_stream"):
-    declare_waiting(_name, not_differentiable=True, side_effect=True,
-                    infer=_identity_infer)
-for _name, _dim, _mode in (("c_allgather", 0, "mul"),
-                           ("c_concat", 0, "mul"),
-                           ("partial_allgather", 0, "mul"),
-                           ("c_reducescatter", 0, "div"),
-                           ("c_scatter", 0, "div"),
-                           ("c_split", -1, "div")):
-    declare_waiting(_name, side_effect=True,
-                    infer=_scaled_dim_infer(_dim, _mode))
-declare_waiting("barrier", not_differentiable=True, side_effect=True,
-                infer=_barrier_infer)
-declare_waiting("c_embedding", no_grad_slots=("Ids",), side_effect=True,
-                infer=_c_embedding_infer)
-declare_waiting("sync_batch_norm", no_grad_slots=("Mean", "Variance"),
-                nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean",
-                                 "SavedVariance", "ReserveSpace"),
-                infer=_sync_batch_norm_infer)
+    register(_name, not_differentiable=True, side_effect=True,
+             infer=_identity_infer)(_identity)
+
+
+@register("barrier", not_differentiable=True, side_effect=True,
+          infer=_barrier_infer)
+def _barrier(ctx, ins, attrs):
+    _axis(ctx, attrs)
+    if ins.get("X"):
+        return {"Out": [ins["X"][0]]}
+    return {"Out": [torch.zeros((1,), dtype=torch.float32,
+                                device=ctx.device)]}
+
+
+@register("c_embedding", no_grad_slots=("Ids",), side_effect=True,
+          infer=_c_embedding_infer)
+def _c_embedding(ctx, ins, attrs):
+    """The vocabulary-sharded lookup at one rank: ``jnp.take(W, Ids -
+    start_index, axis=0)``, whose default mode wraps an index down to
+    ``-len(W)`` and fills rows out of range with NaN."""
+    w, ids = ins["W"][0], ins["Ids"][0]
+    _axis(ctx, attrs)
+    n = w.shape[0]
+    local = ids.long() - int(attrs.get("start_index", 0))
+    local = torch.where(local < 0, local + n, local)
+    valid = (local >= 0) & (local < n)
+    rows = w[local.clamp(0, n - 1)]
+    return {"Out": [torch.where(valid[..., None], rows,
+                                torch.full_like(rows, float("nan")))]}
+
+
+register("partial_allgather", side_effect=True, infer=_GATHER)(_identity)
+
+
+@register("sync_batch_norm", no_grad_slots=("Mean", "Variance"),
+          nondiff_outputs=("MeanOut", "VarianceOut", "SavedMean",
+                           "SavedVariance", "ReserveSpace"),
+          infer=_sync_batch_norm_infer)
+def _sync_batch_norm(ctx, ins, attrs):
+    """Batch norm over the local batch (the reference outside a mesh):
+    the statistics are sums over the non-channel axes divided by their
+    count, ``E[x^2] - E[x]^2`` for the variance, in the reference's
+    order."""
+    x = ins["X"][0]
+    scale, bias = ins["Scale"][0], ins["Bias"][0]
+    mean, var = ins["Mean"][0], ins["Variance"][0]
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    _axis(ctx, attrs)
+    caxis = 1 if attrs.get("data_format", "NCHW") == "NCHW" else x.dim() - 1
+    raxes = tuple(i for i in range(x.dim()) if i != caxis)
+    bshape = [1] * x.dim()
+    bshape[caxis] = x.shape[caxis]
+    if attrs.get("is_test", False) or attrs.get("use_global_stats", False):
+        m, v = mean, var
+        mean_out, var_out = mean, var
+    else:
+        cnt = 1.0
+        for i in raxes:
+            cnt *= x.shape[i]
+        m = torch.sum(x, dim=raxes) / cnt
+        v = torch.sum(torch.square(x), dim=raxes) / cnt - m * m
+        mean_out = momentum * mean + (1 - momentum) * m
+        var_out = momentum * var + (1 - momentum) * v
+    inv = torch.rsqrt(v + eps)
+    y = (x - m.reshape(bshape)) * inv.reshape(bshape) * \
+        scale.reshape(bshape) + bias.reshape(bshape)
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [m], "SavedVariance": [v]}

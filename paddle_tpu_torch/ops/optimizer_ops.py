@@ -27,7 +27,7 @@ beta powers in place (the op's outputs are those tensors), with the
 kernel's table built at the op's first eager run and kept for its
 tensors; on CPU tensors the kernel's plain version runs, in place too.
 The others compute new tensors, which the executor writes into the
-scope's. ``dpsgd`` waits for ROADMAP A5.
+scope's. ``dpsgd`` draws its noise from the op's key.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .registry import declare_waiting, register
+from .. import prng
+from .registry import register
 
 
 def _as(value: float, like: torch.Tensor) -> float:
@@ -304,6 +305,21 @@ def _dpsgd_infer(ictx, ins, attrs):
     return {"ParamOut": [ins["Param"][0]]}
 
 
-# the reference's ``dpsgd`` (``paddle_tpu/ops/optimizer_ops.py:173``)
-# draws its noise over the mesh: it waits for ROADMAP A5
-declare_waiting("dpsgd", **_ND, infer=_dpsgd_infer)
+@register("dpsgd", **_ND, infer=_dpsgd_infer)
+def _dpsgd(ctx, ins, attrs):
+    """Differentially private SGD (``paddle_tpu/ops/optimizer_ops.py:173``):
+    the gradient clipped to norm ``clip``, Gaussian noise of scale
+    ``sigma * clip`` added from the op's key (``prng.normal``, JAX's
+    threefry normal; the reference's noise touches no mesh), the sum
+    averaged over ``batch_size``."""
+    p, g = ins["Param"][0], ins["Grad"][0]
+    lr = ins["LearningRate"][0].reshape(()).to(p.dtype)
+    clip = attrs.get("clip", 10.0)
+    batch_size = attrs.get("batch_size", 16.0)
+    sigma = attrs.get("sigma", 1.0)
+    g_norm = torch.sqrt(torch.sum(torch.square(g)))
+    scale = torch.minimum(torch.ones_like(g_norm), torch.div(
+        torch.full_like(g_norm, clip), torch.clamp(g_norm, min=1e-12)))
+    noise = (sigma * clip) * prng.normal(ctx.rng(), tuple(g.shape)).to(
+        g.dtype)
+    return {"ParamOut": [p - lr * (g * scale + noise) / batch_size]}

@@ -24,18 +24,14 @@ The lowering modules (``math_ops``, ``tensor_ops``, ``nn_ops``,
 ``fused_ops``, ``detection_ops``, ``proposal_ops``, ``delegate_ops``,
 ``quant_ops``, ``control_flow_ops``, ``rnn_ops``, ``loss_ops``,
 ``linalg_ops``, ``image_ops``, ``index_ops``, ``ctr_ops``,
-``structured_ops``, ``misc_ops``, ``ps_ops``) are
+``structured_ops``, ``misc_ops``, ``collective_ops``, ``ps_ops``) are
 imported at the first lookup, so importing the registry alone stays
 light; :data:`OPS` is complete after any call of :func:`get_op_def`,
 :func:`execute`, :func:`is_registered`, :func:`registered_ops`,
 :func:`declared` or :func:`op_version_map`.
 
-Waiting ops (:data:`WAITING`: the collectives and ``dpsgd``) have
-lowerings in the reference only. ``collective_ops`` and
-``optimizer_ops`` declare them (:func:`declare_waiting`) with the
-reference's registry fields and static infer rules, so the verifier and
-the abstract interpreter (:func:`declared`) treat a program that holds
-them as the reference does; running one raises naming its item.
+Every lowering of the reference has its counterpart here (the
+collectives and ``dpsgd`` at one rank since ROADMAP A5a).
 """
 
 from __future__ import annotations
@@ -165,7 +161,7 @@ LOWERING_MODULES = ("math_ops", "tensor_ops", "nn_ops", "reduce_ops",
                     "delegate_ops", "quant_ops", "control_flow_ops",
                     "rnn_ops", "loss_ops", "linalg_ops", "image_ops",
                     "index_ops", "ctr_ops", "structured_ops", "misc_ops",
-                    "ps_ops")
+                    "collective_ops", "ps_ops")
 _loaded = False
 # op type -> (its module's place in LOWERING_MODULES, registration number):
 # other modules of the port import some lowering modules first, so the
@@ -173,15 +169,12 @@ _loaded = False
 _ORDER: Dict[str, Tuple[int, int]] = {}
 
 
-#: the modules that declare waiting ops (:func:`declare_waiting`)
-WAITING_MODULES = ("collective_ops",)
-
 
 def _load():
     global _loaded
     if not _loaded:
         _loaded = True
-        for name in LOWERING_MODULES + WAITING_MODULES:
+        for name in LOWERING_MODULES:
             importlib.import_module(f"{__package__}.{name}")
 
 
@@ -203,7 +196,7 @@ def register_infer(op_type: str):
     """Decorator: attach a static infer rule to an already-registered op
     (the inline form is ``register(op_type, infer=...)``)."""
     def deco(fn: InferRule) -> InferRule:
-        d = OPS.get(op_type) or WAITING_OPS.get(op_type)
+        d = OPS.get(op_type)
         if d is None:
             raise ValueError(
                 f"cannot register infer rule: op {op_type!r} has no "
@@ -226,40 +219,7 @@ def register_grad(op_type: str):
     return deco
 
 
-#: the reference's lowerings the port has not yet, by the ROADMAP item
-#: each waits for
-WAITING = {
-    **{op: "A5 (the multi-card plane)" for op in (
-        "c_allreduce_sum", "c_allreduce_max", "c_allreduce_min",
-        "c_allreduce_prod", "c_allreduce_avg", "allreduce", "c_broadcast",
-        "c_allgather", "c_reducescatter", "c_reduce_sum", "c_scatter",
-        "c_concat", "c_split", "c_identity", "c_sync_calc_stream",
-        "c_sync_comm_stream", "barrier", "c_embedding", "partial_allgather",
-        "sync_batch_norm", "dpsgd")},
-}
-
-#: the waiting ops' definitions (:func:`declare_waiting`), apart from
-#: :data:`OPS`: :func:`get_op_def` and :func:`execute` raise for them
-WAITING_OPS: Dict[str, OpDef] = {}
-
-
-def declare_waiting(op_type: str, **kw) -> OpDef:
-    """Declare waiting op ``op_type`` with the reference's registry
-    fields ``kw``; its lowering raises naming the op's item."""
-    if op_type not in WAITING:
-        raise ValueError(f"op {op_type!r} is not a waiting op")
-
-    def lowering(ctx, ins, attrs):
-        raise NotImplementedError(_missing(op_type))
-
-    d = WAITING_OPS[op_type] = OpDef(type=op_type, lowering=lowering, **kw)
-    return d
-
-
 def _missing(op_type: str) -> str:
-    item = WAITING.get(op_type)
-    if item is not None:
-        return f"op {op_type!r} waits for ROADMAP {item}"
     return f"no lowering registered for op {op_type!r} ({len(OPS)} ops registered)"
 
 
@@ -272,12 +232,11 @@ def get_op_def(op_type: str) -> OpDef:
 
 
 def declared(op_type: str) -> Optional[OpDef]:
-    """The op's definition, a waiting op's included (None when neither
-    the port nor the reference registers ``op_type``): what the verifier
-    and the abstract interpreter read, as the reference reads its
-    registry."""
+    """The op's definition, None when ``op_type`` is not registered:
+    what the verifier, the abstract interpreter and the tape read, as
+    the reference reads its registry."""
     _load()
-    return OPS.get(op_type) or WAITING_OPS.get(op_type)
+    return OPS.get(op_type)
 
 
 def is_registered(op_type: str) -> bool:

@@ -9,7 +9,9 @@ LarsMomentum, Adagrad, Adam, AdamW, Lamb, RMSProp (uncentered) and Ftrl,
 with the reference's aliases (``:801-809``).
 
 torch parameters carry no name, so ``parameters=`` takes
-``(name, parameter)`` pairs (``model.named_parameters()``); the names key
+``(name, parameter)`` pairs (``model.named_parameters()``) or the tape's
+Parameters (:mod:`~paddle_tpu_torch.dygraph`: the name is ``.name``, the
+tensor ``.value``); the names key
 ``state_dict()`` as ``"<name>:<key>"``, with the reference's accumulator
 keys (``velocity``, ``moment``, ``m1``/``m2``/``b1p``/``b2p``,
 ``ms``/``mom``, ``sq``/``lin``). A parameter's ``lr_scale`` and
@@ -68,6 +70,7 @@ import torch
 
 from . import optimizer_lr as lr  # paddle.optimizer.lr namespace
 from .device import capturing
+from .dygraph.tensor import Parameter as _TapeParameter
 from .framework import unique_name
 from .framework.backward import append_backward
 from .framework.program import (Variable, default_main_program,
@@ -276,10 +279,16 @@ class Optimizer:
         self._eager = params is not None
         self._params = []
         for item in params or ():
+            if isinstance(item, _TapeParameter):
+                # a tape Parameter: its name, its torch tensor (which
+                # carries lr_scale and regularizer; trainable is
+                # requires_grad), as the reference's eager step reads it
+                item = (item.name, item.value)
             if not (isinstance(item, tuple) and len(item) == 2
                     and isinstance(item[0], str)):
-                raise TypeError("parameters= takes (name, parameter) pairs "
-                                "such as model.named_parameters(): torch "
+                raise TypeError("parameters= takes tape Parameters or "
+                                "(name, parameter) pairs such as "
+                                "model.named_parameters(): torch "
                                 "parameters carry no name")
             self._params.append(item)
         if regularization is None and weight_decay is not None and \

@@ -3,8 +3,8 @@
 
 Analog of python/paddle/fluid/param_attr.py: name, initializer, per-param
 learning-rate scale, regularizer, trainable flag. The static layer
-builders honour it; the eager layers (``nn/``) take only None / True /
-False and wait for ROADMAP A7.5 for the rest.
+builders, the tape's ``Layer.create_parameter`` and the eager layers
+(``nn/``) honour it.
 """
 
 from __future__ import annotations

@@ -132,7 +132,9 @@ which nothing reads before it is rewritten, and for int8 pools into
 blocks whose committed rows a louder row re-encodes, so those blocks are
 saved before it is enqueued and restored on a miss, or before any other
 write to the pool (:class:`~paddle_tpu_torch.serving.kv_cache.
-TailSnapshot`).
+TailSnapshot`). With a host tier the blocks are saved for every kv
+dtype: the demotion after the step copies whole blocks, which the
+speculation may already have written, and reads the saved ones.
 
 Not ported yet (queued in ROADMAP.md): mesh/TP (``mesh=`` raises).
 """
@@ -1752,15 +1754,17 @@ class ServingEngine:
         waits for k: the same graph, its small inputs copied on the
         device (no new key, no capture). It assumes k commits with no
         finish, no admission, no reap and no change of weights, flags,
-        pools or adapters; :meth:`_take_ahead` checks all of that. An
-        int8 pool's blocks it may write are saved first."""
+        pools or adapters; :meth:`_take_ahead` checks all of that. The
+        blocks it may write are saved first where a re-encoding (an int8
+        pool) or a demotion (a host tier) would otherwise see its writes
+        before it is taken."""
         (_toks, _finish, tok_f, pos_f, _pools, keys_f, live_f, rem_f,
          st_f, _qerr) = out
         samp = ctx["samp"]
         if samp is not None:
             samp = (*samp[:3], keys_f.to(torch.int64), samp[4])
         snap = None
-        if self.kv_dtype == "int8":
+        if self.kv_dtype == "int8" or self.kv_tier is not None:
             snap = _kvc.TailSnapshot(self.cache.pool, ctx["tables"],
                                      pos_f, n)
         spec = ctx["fn"](
@@ -1796,7 +1800,7 @@ class ServingEngine:
 
     def _drop_ahead(self):  # holds: _step_lock
         """Discard a stored speculation uncounted (a single-step round,
-        a kill), restoring what it wrote to an int8 pool."""
+        a kill), restoring the blocks its snapshot saved."""
         ah, self._ahead = self._ahead, None
         if ah is not None:
             self.cache.pool.retire(ah["undo"], restore=True)

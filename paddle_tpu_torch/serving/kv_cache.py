@@ -25,11 +25,13 @@ rebinds a pool's arrays (a step's ``set_arrays``, a COW copy, a
 reclaimed block's scale reset, an adoption, a promotion), the port
 writes in place and bumps :attr:`BlockPool.write_version` instead; a
 speculative megastep is consumed only if the version it read is still
-the pool's. A speculation over an int8 pool registers a
-:class:`TailSnapshot` of the blocks it may write (a louder row re-encodes
-a block's committed rows); every such write first restores pending
-snapshots (:meth:`BlockPool.note_write`), so a discarded speculation
-leaves the committed codes and scales as the reference's.
+the pool's. A speculation over an int8 pool, or over any pool a host tier demotes
+from, registers a :class:`TailSnapshot` of the blocks it may write (a
+louder row re-encodes a block's committed rows; a frozen row writes at
+its length); every such write first restores pending snapshots
+(:meth:`BlockPool.note_write`), so a discarded speculation leaves the
+committed codes and scales as the reference's, and a demotion reads the
+committed blocks through them (:meth:`BlockPool.committed_block`).
 """
 
 from __future__ import annotations
@@ -331,6 +333,21 @@ class BlockPool:
                 snap.restore()
             return True
 
+    def committed_block(self, blk: int):
+        """Block ``blk`` of every layer (a tuple of its tensors per
+        layer) as the commits left it: where a pending speculation's
+        snapshot saved the block, the earliest one's copy (it saved what
+        the commits left, before any speculation wrote), else the pool's
+        own rows. A demotion reads through this, the reference's
+        committed arrays."""
+        with self._spec_lock:
+            for snap in self._pending:
+                j = snap.position(blk)
+                if j is not None:
+                    return [tuple(a[j] for a in layer)
+                            for layer in snap.saved]
+        return [tuple(a[blk] for a in layer) for layer in self.layers]
+
     def alloc_block(self) -> Optional[int]:
         """Fresh block, evicting idle prefix-cache entries if needed."""
         blk = self.allocator.alloc()
@@ -391,10 +408,21 @@ class TailSnapshot:
         cols = cols.clamp_(max=tables.shape[1] - 1)
         self.pool = pool
         self.idx = tables.long().gather(1, cols).reshape(-1)
+        self._idx_host = None
         self.saved = [tuple(a.index_select(0, self.idx) for a in layer)
                       for layer in pool.layers]
         with pool._spec_lock:
             pool._pending = pool._pending + [self]
+
+    def position(self, blk: int) -> Optional[int]:
+        """The index of block ``blk`` in the saved copy, None when the
+        speculation does not write it (read back once, on first use)."""
+        if self._idx_host is None:
+            self._idx_host = self.idx.tolist()
+        try:
+            return self._idx_host.index(int(blk))
+        except ValueError:
+            return None
 
     def restore(self):
         for layer, saved in zip(self.pool.layers, self.saved):

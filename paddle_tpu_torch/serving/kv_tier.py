@@ -515,15 +515,20 @@ class TierManager:
         f32 into pinned staging and is quantized there with fresh
         per-head absmax scales (``_np_quantize``: the reference's codes
         and scales bit for bit). The copies run on the current stream,
-        after the step that wrote the block."""
+        after the step that wrote the block; where a speculative megastep
+        enqueued since may write it, its snapshot's copy is read
+        (:meth:`BlockPool.committed_block`)."""
         t0 = time.perf_counter()
         store = self.store
         store._await_readers()
+        # the committed block: a pending speculation's write into it is
+        # left out, as the reference demotes the arrays its step left
+        layers = pool.committed_block(blk)
         if pool.kv_dtype == "int8":
-            codes = torch.stack([torch.stack((layer[0][blk], layer[1][blk]))
-                                 for layer in pool.layers])
-            scales = torch.stack([torch.stack((layer[2][blk], layer[3][blk]))
-                                  for layer in pool.layers])
+            codes = torch.stack([torch.stack((layer[0], layer[1]))
+                                 for layer in layers])
+            scales = torch.stack([torch.stack((layer[2], layer[3]))
+                                  for layer in layers])
             store.codes_t[hb].copy_(codes, non_blocking=store.pinned)
             store.scales_t[hb].copy_(scales, non_blocking=store.pinned)
             _sync(pool.device)
@@ -532,8 +537,8 @@ class TierManager:
                 self._stage = torch.empty(
                     store.codes_t.shape[1:], dtype=torch.float32,
                     pin_memory=store.pinned)
-            kv = torch.stack([torch.stack((layer[0][blk], layer[1][blk]))
-                              for layer in pool.layers])
+            kv = torch.stack([torch.stack((layer[0], layer[1]))
+                              for layer in layers])
             self._stage.copy_(kv, non_blocking=store.pinned)
             _sync(pool.device)
             x = self._stage.numpy()                  # [L, 2, h, bs, d]

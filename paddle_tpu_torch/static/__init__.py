@@ -8,7 +8,7 @@
 and ``save_persistables`` / ``load_persistables``, and the compiler's
 ``BuildStrategy``, ``CompiledProgram`` and ``ExecutionStrategy``.
 
-Waiting: ``InputSpec`` with ``jit.save`` for ROADMAP A7.5 (the reference
+Waiting: ``InputSpec`` with ``jit.save`` for ROADMAP A7.5b (the reference
 traces a dygraph Layer through the tape's ``record_program``). 2.0
 ``static.data`` takes the FULL shape including the batch dim (None/-1
 leading), unlike fluid ``layers.data`` which prepends it.

@@ -637,3 +637,63 @@ def test_threaded_dispatch_ahead_equals_the_greedy_oracle(models, port,
     for e in decode:
         e.cache.flush_prefix_cache()
         assert e.cache.allocator.leaked() == 1
+
+
+def _host_blocks(tier, layers):
+    """The host store's demoted blocks, keyed by their token chain (keys
+    are hashes the packages share; tokens identify a block alike): per
+    layer the K and V codes and scales."""
+    st = tier.store
+    return {tuple(e.tokens): [tuple(np.array(a[li][e.block]) for a in (
+        st.k_codes, st.v_codes, st.k_scale, st.v_scale))
+        for li in range(layers)] for e in st._chains.values()}
+
+
+#: a session of 11 prompt tokens and 5 new ones: its last token's
+#: position (15) fills its block (block size 4)
+_PS3 = _prompts((11,), seed=13)[0]
+
+
+def _demote_run(side, model, kv, ahead):
+    """A session whose last token fills its block (11 prompt tokens, 5
+    new, block size 4) finishes in a megastep while a longer request
+    keeps decoding, so a speculation dispatched before the finish is
+    known holds the row frozen, writing at its length into that block;
+    the host tier demotes the session's blocks in the same step."""
+    kw = _side_kw(side, {"kv_tier": "tier"})
+    tier = kw["kv_tier"]
+    plan = {0: lambda e, s: (_submit((_PA, 18))(e, s) +
+                             _submit((_PS3, 5), session="u1")(e, s))}
+    PKG[side].reset_budget()
+    got = _lockstep(side, model, kv, ahead, plan, **kw)
+    return got, _host_blocks(tier, GEOM["num_layers"])
+
+
+@pytest.mark.parametrize("kv", ["f32", "int8"])
+def test_dispatch_ahead_demotion_keeps_the_committed_codes(models, kv):
+    """ROADMAP C1: the host tier's demotion runs after the step while
+    the next megastep is already enqueued. The demoted codes and scales
+    of a session's blocks (int8 pools hand theirs over, f32 ones are
+    quantized at the copy) are the JAX engine's (codes equal,
+    scales within the f32 bound) and the port's own with dispatch-ahead
+    off, bit for bit: a pending speculation's write into a demoted block
+    is left out of the copy, as the reference demotes the committed
+    arrays."""
+    jm, arrays = models
+    pt.set_flags({"serving_attn_impl": "xla"})
+    ref, jhost = _demote_run("jax", jm, kv, True)
+    got, thost = _demote_run("port", _port(arrays), kv, True)
+    off, ohost = _demote_run("port", _port(arrays), kv, False)
+    assert got[:4] == ref[:4] and got[0] == off[0]
+    assert got[1] >= 1 and got[5]["kv_tier"]["migrated_demote_blocks"] > 0
+    assert sorted(thost) == sorted(jhost) == sorted(ohost) and thost
+    for key in jhost:
+        for (tk, tv, tks, tvs), (jk, jv, jks, jvs), (ok, ov, oks, ovs) in \
+                zip(thost[key], jhost[key], ohost[key]):
+            np.testing.assert_array_equal(tk, jk)
+            np.testing.assert_array_equal(tv, jv)
+            np.testing.assert_allclose(tks, jks, rtol=0, atol=ATOL)
+            np.testing.assert_allclose(tvs, jvs, rtol=0, atol=ATOL)
+            for a, b in ((tk, ok), (tv, ov), (tks, oks), (tvs, ovs)):
+                np.testing.assert_array_equal(a, b)
+    _same_kv(got[4], ref[4], exact=False)

@@ -128,6 +128,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "distributed/ps/rpc.py",
                    "distributed/ps/native_server.py",
                    "distributed/ps/runtime.py",
+                   "dygraph/__init__.py", "dygraph/tensor.py",
+                   "dygraph/tape.py", "dygraph/layers.py", "tensor_api.py",
+                   "distributed/collective.py", "models/tape_encoder.py",
+                   "ops/collective_ops.py",
                    "distributed/fleet/utils/fs.py",
                    "distributed/fleet/utils/http_server.py"):
         assert f"paddle_tpu_torch/{module}" in scanned, module
@@ -490,6 +494,17 @@ def test_shared_public_names_keep_the_reference_signatures():
         "distributed.fleet.utils.recompute",
         "compiler.CompiledProgram.with_data_parallel",
         "compiler.BuildStrategy")} <= checked
+    # and the tape, tensor_api and the eager collectives
+    assert {f"paddle_tpu_torch.{q}" for q in (
+        "dygraph.tensor.Tensor", "dygraph.tensor.Parameter",
+        "dygraph.tensor.to_tensor", "dygraph.tensor.Tensor.set_value",
+        "dygraph.tape.Tracer.trace_op", "dygraph.tape.grad",
+        "dygraph.tape.run_op", "dygraph.tape.record_program",
+        "dygraph.layers.Layer.create_parameter", "dygraph.layers.seed",
+        "dygraph.layers.Layer.set_state_dict", "dygraph.layers.Sequential",
+        "tensor_api.arange", "tensor_api.topk", "tensor_api.pad",
+        "distributed.collective.all_reduce",
+        "distributed.collective.scatter")} <= checked
     # and the analyses, delegation, the Predictor and the profiler
     assert {f"paddle_tpu_torch.{q}" for q in (
         "framework.analysis.verify_program", "framework.analysis.Diagnostic",
@@ -563,14 +578,6 @@ WAITING = {
         "A5", lambda m: tgen.decode_megastep_paged(m, 2, mesh=object())),
     "mesh (verify_step_paged)": (
         "A5", lambda m: tgen.verify_step_paged(m, 2, mesh=object())),
-    "Linear weight_attr": (
-        "A7", lambda m: TL.Linear(4, 4, weight_attr="w", device="cpu",
-                                  generator=torch.Generator())),
-    "BatchNorm2D bias_attr": (
-        "A7", lambda m: TL.BatchNorm2D(4, bias_attr=False, device="cpu")),
-    "framework_io.save (dygraph Tensors)": (
-        "A7.5", lambda m: tio.save({"w": np.zeros(2)}, "unused")),
-    "framework_io.load": ("A7.5", lambda m: tio.load("unused")),
     "DeviceLoader mesh": ("A5", lambda m: tio_pkg.DeviceLoader(
         [], device="cpu", mesh=object())),
     "fleet.elastic": ("A8", lambda m: tfleet.elastic),
@@ -585,6 +592,52 @@ def test_waiting_parameters_raise_naming_their_item(what):
     item, call = WAITING[what]
     with pytest.raises(NotImplementedError, match=item):
         call(GPTForCausalLM(TINY, device="cpu"))
+
+
+def _a75_linear(tmp_path):
+    from paddle_tpu_torch.param_attr import ParamAttr
+    lin = TL.Linear(4, 4, weight_attr=ParamAttr(name="w", learning_rate=0.5),
+                    device="cpu", generator=torch.Generator())
+    assert lin.weight.name == "w" and lin.weight.lr_scale == 0.5
+
+
+def _a75_batch_norm(tmp_path):
+    from paddle_tpu_torch.param_attr import ParamAttr
+    bn = TL.BatchNorm2D(4, bias_attr=ParamAttr(trainable=False),
+                        device="cpu")
+    assert not bn.bias.requires_grad and torch.equal(bn.bias.data,
+                                                     torch.zeros(4))
+
+
+def _a75_save(tmp_path):
+    path = str(tmp_path / "w.pdparams")
+    tio.save({"w": np.arange(2.0)}, path)
+    np.testing.assert_array_equal(tio.load(path)["w"], [0.0, 1.0])
+
+
+def _a75_load(tmp_path):
+    from paddle_tpu_torch import dygraph
+    path = str(tmp_path / "t.pdparams")
+    tio.save(dygraph.to_tensor([3.0, 4.0], device="cpu"), path)
+    np.testing.assert_array_equal(tio.load(path)["tensor"], [3.0, 4.0])
+
+
+#: what waited for ROADMAP A7.5a and now runs (the waiting cases of
+#: the same names above): a ParamAttr in the eager layers and
+#: framework_io.save / load of tape Tensors
+#: (tests/test_torch_paramattr.py and test_torch_dygraph.py hold them
+#: against the reference)
+PORTED_A75 = {
+    "Linear weight_attr": _a75_linear,
+    "BatchNorm2D bias_attr": _a75_batch_norm,
+    "framework_io.save (dygraph Tensors)": _a75_save,
+    "framework_io.load": _a75_load,
+}
+
+
+@pytest.mark.parametrize("what", sorted(PORTED_A75))
+def test_parameters_that_waited_for_a75a_run(what, tmp_path):
+    PORTED_A75[what](tmp_path)
 
 
 #: what waited for ROADMAP A7.4 and now runs: the slot datasets

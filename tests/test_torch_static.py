@@ -64,6 +64,7 @@ from paddle_tpu_torch.ops import registry as treg
 from paddle_tpu_torch.resilience.injector import fault_scope
 from torch_op_cases import (_EAGER, _NO_GRAD, _PROD, _RAISES, DENSE_CASES,
                             DENSE_X32, _f, _ids, _lens, _probs, _tied)
+from torch_op_cases_collective import ONE_RANK_CASES
 from torch_op_cases_tail import TAIL_CASES
 
 JSTATIC = types.SimpleNamespace(layers=JL, Program=JProgram,
@@ -877,11 +878,13 @@ PS_OPS = {"distributed_lookup_table", "distributed_lookup_table_grad",
 
 def test_every_registered_op_has_a_case():
     """Every op of the library (a ``py_func`` builder registers an op of
-    its own per call, outside it) has a case, here or in
-    ``torch_op_cases_tail.TAIL_CASES`` (run by ``test_torch_ops_tail.py``),
-    in the reference's order."""
+    its own per call, outside it) has a case, here, in
+    ``torch_op_cases_tail.TAIL_CASES`` (run by ``test_torch_ops_tail.py``)
+    or in ``torch_op_cases_collective.ONE_RANK_CASES`` (run by
+    ``test_torch_collective_one_rank.py``), in the reference's order."""
     ops = {c[0] for c in OP_CASES.values()}
     ops |= {c[0] for c in TAIL_CASES.values()}
+    ops |= {c[0] for c in ONE_RANK_CASES.values()}
     grads = {f"{o}_grad" for o in ops}
     # the PS ops read and write host tables: tests/test_torch_ps_rpc.py
     # and test_torch_train_from_dataset.py hold them against the reference
@@ -1105,10 +1108,22 @@ def test_waiting_parts_raise_naming_their_items():
         exe.run(prog, feed={"q": q, "k": q, "v": q}, fetch_list=["o"],
                 scope=Scope())
     assert treg.get_op_def("subgraph_delegate").not_differentiable
-    with pytest.raises(NotImplementedError, match="A5"):
-        treg.get_op_def("dpsgd")
-    with pytest.raises(NotImplementedError, match="A5"):
-        treg.get_op_def("c_allreduce_sum")
+    # dpsgd and the collectives (A5a) are lowered at one rank
+    # (tests/test_torch_collective_one_rank.py holds them against the
+    # reference); a collective over more than one rank waits for A5b
+    ctx = treg.LoweringContext(rng=prng.PRNGKey(0), device="cpu")
+    p = torch.ones(3)
+    (new,) = treg.execute(ctx, "dpsgd", {
+        "Param": [p], "Grad": [torch.zeros(3)],
+        "LearningRate": [torch.tensor([0.1])]}, {"sigma": 0.0})["ParamOut"]
+    torch.testing.assert_close(new, p)
+    x = torch.arange(3.0)
+    (out,) = treg.execute(ctx, "c_allreduce_sum", {"X": [x]}, {})["Out"]
+    assert torch.equal(out, x)
+    wide = treg.LoweringContext(device="cpu", axis_env={0: "dp"},
+                                mesh=types.SimpleNamespace(shape={"dp": 2}))
+    with pytest.raises(NotImplementedError, match="A5b"):
+        treg.execute(wide, "c_allreduce_sum", {"X": [x]}, {})
     # the PS ops (A7.4) are lowered: host ops that split a captured key
     d = treg.get_op_def("distributed_lookup_table")
     assert d.host_op and d.side_effect and d.virtual_param

@@ -18,6 +18,7 @@ import torch_threads  # noqa: F401  (one worker's share of the cores)
 import types
 
 import numpy as np
+import torch
 import pytest
 
 import paddle_tpu
@@ -284,8 +285,8 @@ def test_check_registry_and_unknown_check_name():
 
 
 def test_registry_side_effect_field_drives_dead_code():
-    """The waiting collectives keep the reference's ``side_effect``
-    field, and a derived ``<fw>_grad`` inherits it."""
+    """The collectives keep the reference's ``side_effect`` field, and a
+    derived ``<fw>_grad`` inherits it."""
     from paddle_tpu_torch.ops import registry as treg
     assert treg.declared("c_allgather").side_effect
     op_like = types.SimpleNamespace(type="c_allgather", outputs={"Out": ["g"]})
@@ -294,10 +295,16 @@ def test_registry_side_effect_field_drives_dead_code():
     assert tfa._has_side_effects(op_like)
     assert tfa.SIDE_EFFECT_OP_TYPES == paddle_tpu.framework.analysis \
         .SIDE_EFFECT_OP_TYPES
-    # a waiting op verifies as registered and still raises when run
-    with pytest.raises(NotImplementedError, match="A5"):
-        treg.execute(treg.LoweringContext(device="cpu"), "c_allgather",
-                     {"X": [np.zeros(2)]}, {})
+    # lowered at one rank (A5a): the gather of one rank is its input;
+    # an axis bound over more ranks waits for A5b
+    x = torch.arange(2.0)
+    (out,) = treg.execute(treg.LoweringContext(device="cpu"), "c_allgather",
+                          {"X": [x]}, {})["Out"]
+    assert torch.equal(out, x)
+    wide = treg.LoweringContext(device="cpu", axis_env={0: "dp"},
+                                mesh=types.SimpleNamespace(shape={"dp": 2}))
+    with pytest.raises(NotImplementedError, match="A5b"):
+        treg.execute(wide, "c_allgather", {"X": [x]}, {})
 
 
 # ---------------------------------------------------------------------
